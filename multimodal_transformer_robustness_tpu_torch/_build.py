@@ -1,0 +1,118 @@
+"""Build and bind the hand-written CUDA kernels under ``csrc/``.
+
+The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
+shared library with a plain C interface, which is loaded with ``ctypes``.
+The library lands in ``build/kernels/`` beside the package, named by a hash
+of its sources and flags, so a changed source rebuilds and an unchanged one
+is reused.  Nothing here runs at import time: the CPU tests import every
+module of the port on a machine without ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+_PKG = Path(__file__).resolve().parent
+_CSRC = _PKG / "csrc"
+BUILD_DIR = _PKG.parent / "build" / "kernels"
+SOURCES = ("bigru.cu", "bert_attn.cu", "bert_ffn.cu")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_F = ctypes.c_float
+_SIGNATURES = {
+    "mmtr_gru_dir_fwd": (_I, [_P] * 7 + [_I] * 5 + [_P]),
+    "mmtr_ffn_ln_fwd": (_I, [_P] * 10 + [_I] * 3 + [_F, _P]),
+    "mmtr_attn_block_fwd": (_I, [_P] * 16 + [_I] * 4 + [_F, _P]),
+}
+
+
+class BuildInfo:
+    """What the last build did: seconds spent (0 when reused) and the
+    compiler's resource report (``-Xptxas=-v``)."""
+
+    seconds = 0.0
+    log = ""
+    path = ""
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    candidate = os.path.join(cuda_home, "bin", "nvcc")
+    if os.path.exists(candidate):
+        return candidate
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+@functools.lru_cache(maxsize=None)
+def load_library() -> ctypes.CDLL:
+    """Compile (once per source hash) and load the kernels' shared library."""
+    files = [_CSRC / s for s in SOURCES] + [_CSRC / "common.cuh"]
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for f in files:
+        digest.update(f.read_bytes())
+    target = BUILD_DIR / f"libmmtr_kernels_{digest.hexdigest()[:16]}.so"
+    if not target.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
+               *[str(_CSRC / s) for s in SOURCES]]
+        t0 = time.perf_counter()
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        BuildInfo.seconds = time.perf_counter() - t0
+        BuildInfo.log = proc.stdout + proc.stderr
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BuildInfo.log}")
+        os.replace(tmp, target)
+    BuildInfo.path = str(target)
+    lib = ctypes.CDLL(str(target))
+    for name, (restype, argtypes) in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.restype = restype
+        fn.argtypes = argtypes
+    return lib
+
+
+def check(err: int, what: str) -> None:
+    """Raise on a nonzero ``cudaError_t`` from an entry point (a refused
+    launch, e.g. more shared memory than the card allows, never runs)."""
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA error {err} (cudaError_t)")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def require(t: torch.Tensor, name: str, shape: tuple, device: torch.device) -> None:
+    """Raise on what the kernels do not take: they read contiguous float32
+    tensors on one card, of exactly the given shape."""
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.float32:
+        raise ValueError(f"{name} is {t.dtype}; the kernels take float32")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def device_of(x: torch.Tensor) -> torch.device:
+    """The device a wrapper launches on; raises for anything but CUDA."""
+    if x.device.type != "cuda":
+        raise ValueError(f"no kernel for device {x.device}")
+    return x.device

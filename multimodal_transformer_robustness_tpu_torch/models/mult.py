@@ -1,0 +1,179 @@
+"""The elastic multimodal-transformer supernet ("dynamic MulT"), eval mode.
+
+Counterpart of ``multimodal_transformer_robustness_tpu/models/mult.py``:
+
+    inputs (one per modality)
+      -> projection headers (each collapses its sequence to [B, 1, d])
+      -> per-modality self-attention stacks  (``mems0``)
+      -> crossmodal stacks, one per combination string (``cross``)
+      -> per-branch fused concat + channel-masked top stacks (``mems``)
+      -> masked head MLP (proj1 -> ReLU -> proj2 + residual -> out_layer)
+
+One static plan: every stack runs on every call and the configuration's
+masks gate what reaches the fused output, so no branch depends on a mask
+value.  The stacks run as a plain Python loop; batching them is later work.
+
+Parameters are nested dicts of tensors: ``proj`` (one header dict per
+modality), ``mems0`` / ``cross`` / ``mems`` (one encoder dict per stack),
+``proj1`` / ``proj2`` / ``out_layer`` (``{"w", "b"}``).  ``frozen`` holds
+the BERT weights in the kernels' layout.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import numpy as np
+import torch
+
+from ..config import ModelSpec
+from ..masks import SupernetMasks
+from ..ops.encoder import (TRAIN_TODO, EncoderHParams, EncoderMasks,
+                           encoder_forward, init_encoder)
+from ..ops.linear import init_linear, masked_linear
+from . import bert as bert_mod
+from .headers import header_apply, init_header
+
+FLASH_TODO = ("attn_impl='flash' is not ported yet: ROADMAP Queue 2, K5 "
+              "(flash attention)")
+
+
+def as_f32(a) -> torch.Tensor:
+    """A float32 tensor holding a copy of ``a`` (tensor or numpy array)."""
+    if isinstance(a, torch.Tensor):
+        return a.detach().to(torch.float32, copy=True)
+    return torch.tensor(np.asarray(a), dtype=torch.float32)
+
+
+def to_device(tree, device):
+    """Nested dicts / lists of arrays -> float32 tensors on ``device``."""
+    if isinstance(tree, dict):
+        return {k: to_device(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_device(v, device) for v in tree)
+    return as_f32(tree).to(device).contiguous()
+
+
+def _hp_stream(spec: ModelSpec, layers: int) -> EncoderHParams:
+    return EncoderHParams(embed_dim_in=spec.dimension, num_heads=spec.num_heads,
+                          head_dim=spec.head_dim, layers=layers,
+                          attn_mask=spec.attn_mask)
+
+
+def _hp_top(spec: ModelSpec) -> EncoderHParams:
+    return EncoderHParams(embed_dim_in=spec.top_dim, num_heads=spec.num_heads,
+                          head_dim=spec.head_dim, layers=spec.layers_self_attn,
+                          attn_mask=spec.attn_mask)
+
+
+def _check_spec(spec: ModelSpec) -> None:
+    if spec.attn_impl != "xla":
+        raise NotImplementedError(FLASH_TODO)
+    if spec.compute_dtype != "float32":
+        raise NotImplementedError("compute_dtype other than float32 is not "
+                                  "ported yet (the kernels take float32)")
+
+
+def init_supernet(gen: torch.Generator, spec: ModelSpec,
+                  bert_cfg: Optional[bert_mod.BertConfig] = None,
+                  device="cpu") -> Tuple[dict, dict]:
+    """Random init with torch's distributions -> (params, frozen) on
+    ``device``.  ``frozen`` holds the BERT weights when a text modality
+    exists."""
+    _check_spec(spec)
+    M = spec.modality_num
+    frozen = {}
+    if any(spec.header_kind(c) == "bert_rnn" for c in spec.modality_set):
+        cfg = bert_cfg or bert_mod.BertConfig()
+        frozen["bert"] = bert_mod.prepare_bert(bert_mod.init_bert(gen, cfg), device)
+    cdim = spec.combined_dim
+    params = {
+        "proj": [init_header(gen, spec, i, bert_cfg) for i in range(M)],
+        "mems0": [init_encoder(gen, _hp_stream(spec, spec.layers_single_attn))
+                  for _ in range(M)],
+        "cross": [init_encoder(gen, _hp_stream(spec, spec.layers_cross_attn))
+                  for _ in spec.cross_strings],
+        "mems": [init_encoder(gen, _hp_top(spec)) for _ in range(M)],
+        "proj1": init_linear(gen, cdim, cdim),
+        "proj2": init_linear(gen, cdim, cdim),
+        "out_layer": init_linear(gen, cdim, spec.output_dim),
+    }
+    return to_device(params, device), frozen
+
+
+def supernet_headers(spec: ModelSpec, params: dict, inputs: Sequence[torch.Tensor],
+                     *, frozen: Optional[dict] = None,
+                     bert_cfg: Optional[bert_mod.BertConfig] = None) -> torch.Tensor:
+    """Projection headers only: ``inputs`` -> stacked ``base`` [M, B, 1, d].
+    Every modality runs, active or not, as in the reference."""
+    return torch.stack([
+        header_apply(spec.header_kind(ch), params["proj"][i], inputs[i], frozen,
+                     bert_cfg)
+        for i, ch in enumerate(spec.modality_set)])
+
+
+def supernet_trunk(spec: ModelSpec, params: dict, masks: SupernetMasks,
+                   base: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+    """Mask-dependent remainder: ``base`` [M, B, T, d] -> mems0 -> cross ->
+    top -> head MLP -> predictions [B, output_dim] (or [B, T, output_dim]
+    when ``spec.all_steps``)."""
+    if train:
+        raise NotImplementedError(TRAIN_TODO)
+    _check_spec(spec)
+    M, d = spec.modality_num, spec.dimension
+
+    hp0 = _hp_stream(spec, spec.layers_single_attn)
+    streams: List[torch.Tensor] = [
+        encoder_forward(params["mems0"][i], base[i], hp=hp0, masks=EncoderMasks(
+            masks.mems0_gates[i], masks.head_mask, masks.head_dim_mask,
+            masks.ffn_mask))
+        for i in range(M)]
+
+    # cross strings come level by level, so a string's prefix stream is
+    # always produced before it; stream index = position in stream_order()
+    pos = {s: i for i, s in enumerate(spec.stream_order())}
+    hp_c = _hp_stream(spec, spec.layers_cross_attn)
+    m_cross = EncoderMasks(masks.cross_gates, masks.head_mask,
+                           masks.head_dim_mask, masks.ffn_mask)
+    for j, s in enumerate(spec.cross_strings):
+        streams.append(encoder_forward(params["cross"][j], streams[pos[s[-1]]],
+                                       streams[pos[s[:-1]]], hp=hp_c, masks=m_cross))
+
+    all_streams = torch.stack(streams)                               # [n, B, T, d]
+    slot_idx = torch.tensor([[pos[s] for s in spec.slot_lists[i]] for i in range(M)],
+                            device=base.device)
+    gated_slots = masks.slot_mask * masks.branch_gate[:, None]       # [M, S]
+    x_top = all_streams[slot_idx] * gated_slots[:, :, None, None, None]
+    m_, s_, b_, t_, _ = x_top.shape
+    x_top = x_top.permute(0, 2, 3, 1, 4).reshape(m_, b_, t_, s_ * d)
+
+    hp_t = _hp_top(spec)
+    ch_masks = masks.channel_mask(d)                                 # [M, E_top]
+    h_top = torch.stack([
+        encoder_forward(params["mems"][i], x_top[i], hp=hp_t, masks=EncoderMasks(
+            masks.mems_gates, masks.head_mask, masks.head_dim_mask,
+            masks.ffn_mask, ch_masks[i]))
+        for i in range(M)])                                          # [M, B, T, E_top]
+
+    if spec.all_steps:
+        out = h_top.permute(1, 2, 0, 3).reshape(b_, t_, -1)
+    else:
+        out = h_top[:, :, -1, :].permute(1, 0, 2).reshape(b_, -1)
+
+    ch = masks.output_channel_mask(d)
+    h1 = torch.relu(masked_linear(out, params["proj1"]["w"], params["proj1"]["b"]))
+    h2 = masked_linear(h1, params["proj2"]["w"], params["proj2"]["b"], mask_out=ch)
+    h2 = h2 + out
+    return masked_linear(h2, params["out_layer"]["w"], params["out_layer"]["b"])
+
+
+def supernet_apply(spec: ModelSpec, params: dict, masks: SupernetMasks,
+                   inputs: Sequence[torch.Tensor], *, frozen: Optional[dict] = None,
+                   bert_cfg: Optional[bert_mod.BertConfig] = None,
+                   train: bool = False) -> torch.Tensor:
+    """Forward pass.  ``inputs``: one tensor per modality (text: [3, B, L]
+    integer stack; sequences: [B, T, feat])."""
+    if train:
+        raise NotImplementedError(TRAIN_TODO)
+    base = supernet_headers(spec, params, inputs, frozen=frozen, bert_cfg=bert_cfg)
+    return supernet_trunk(spec, params, masks, base)

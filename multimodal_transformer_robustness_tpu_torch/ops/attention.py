@@ -1,0 +1,78 @@
+"""Elastic multi-head attention, static-shape and mask-parameterized (eval).
+
+Counterpart of ``multimodal_transformer_robustness_tpu/ops/attention.py``.
+The packed in-projection weight is ``[3, H, Dh, E_in]``; the active
+configuration zeroes projected q/k/v outside ``head_mask x head_dim_mask``
+(bias included), which equals slicing the prefix slab.  q is scaled by
+``active_head_dim ** -0.5``; the softmax is float32.  Channel masks apply in
+self-attention only and re-mask the output.  Layout is batch-major
+``[B, T, C]``.
+
+After the RNN headers every stream is one step, so the trunk runs attention
+at Tq == Tk == 1, where the softmax over one key is exactly 1: the T==1
+path reduces to the value and out projections.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+
+def future_mask(tq: int, tk: int, device=None) -> torch.Tensor:
+    """Additive [tq, tk] mask: -inf where ``col - row >= 1 + |tk - tq|``."""
+    rows = torch.arange(tq, device=device)[:, None]
+    cols = torch.arange(tk, device=device)[None, :]
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return torch.where(cols - rows >= 1 + abs(tk - tq), float("-inf"), zero)
+
+
+def init_mha(gen: torch.Generator, embed_dim_in: int, num_heads: int, head_dim: int) -> dict:
+    """Xavier-uniform packed in-projection and out-projection, zero biases;
+    bounds from the torch 2-D shapes ``[3E, E_in]`` and ``[E_out, E]``."""
+    e = num_heads * head_dim
+    b_in = math.sqrt(6.0 / (3 * e + embed_dim_in))
+    b_out = math.sqrt(6.0 / (embed_dim_in + e))
+    return {
+        "in_proj_w": torch.empty(3, num_heads, head_dim, embed_dim_in).uniform_(
+            -b_in, b_in, generator=gen),
+        "in_proj_b": torch.zeros(3, num_heads, head_dim),
+        "out_w": torch.empty(embed_dim_in, num_heads, head_dim).uniform_(
+            -b_out, b_out, generator=gen),
+        "out_b": torch.zeros(embed_dim_in),
+    }
+
+
+def multihead_attention(params: dict, query: torch.Tensor, key: torch.Tensor,
+                        value: torch.Tensor, *, head_mask: torch.Tensor,
+                        head_dim_mask: torch.Tensor,
+                        attn_bias: Optional[torch.Tensor] = None,
+                        channel_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Eval-mode attention: ``query [B, Tq, E_in]``, ``key`` / ``value``
+    ``[B, Tk, E_in]``, additive ``attn_bias [Tq, Tk]``."""
+    w_in = params["in_proj_w"]
+    b_in = params["in_proj_b"]
+    hd = head_mask[:, None] * head_dim_mask[None, :]
+
+    def proj(x, i):
+        return (torch.einsum("btc,hdc->bthd", x, w_in[i]) + b_in[i]) * hd
+
+    def out_proj(attn):
+        out = torch.einsum("bqhd,ehd->bqe", attn, params["out_w"]) + params["out_b"]
+        return out * channel_mask if channel_mask is not None else out
+
+    if query.shape[1] == 1 and key.shape[1] == 1 and attn_bias is None:
+        return out_proj(proj(value, 2))
+
+    q = proj(query, 0)
+    k = proj(key, 1)
+    v = proj(value, 2)
+    active_dh = torch.clamp(head_dim_mask.float().sum(), min=1.0)
+    q = q * torch.rsqrt(active_dh)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    if attn_bias is not None:
+        logits = logits + attn_bias
+    weights = torch.softmax(logits.float(), dim=-1)
+    return out_proj(torch.einsum("bhqk,bkhd->bqhd", weights, v))
