@@ -2,13 +2,16 @@
 
 The JAX package ``multimodal_transformer_robustness_tpu`` beside it is the
 reference; this package mirrors its layout and names (``ops/``, ``models/``,
-``cli/``) and never imports JAX.  Every Pallas kernel on the ported path is a
-hand-written CUDA kernel under ``csrc/``, built at first use by
-:mod:`._build`; on CPU tensors each kernel wrapper runs its plain PyTorch
-version instead.
+``train/``, ``data/``, ``cli/``) and never imports JAX.  It serves
+(``cli/realtime.py``) and trains (``train/loop.Trainer``) the supernet.
+Every Pallas kernel on those paths is a hand-written CUDA kernel under
+``csrc/``, built at first use by :mod:`._build`; on CPU tensors each kernel
+wrapper runs its plain PyTorch version instead.  Entry points run on the
+card unless the caller asks for ``device="cpu"``.
 """
 
-from .config import ActiveConfig, ModalityStr, ModelSpec, full_active_config
+from .config import (ActiveConfig, ModalityStr, ModelSpec, full_active_config,
+                     gen_active_cross, gen_subnet)
 from .masks import SupernetMasks, build_masks
 
 __all__ = [
@@ -16,6 +19,8 @@ __all__ = [
     "ModalityStr",
     "ModelSpec",
     "full_active_config",
+    "gen_active_cross",
+    "gen_subnet",
     "SupernetMasks",
     "build_masks",
 ]

@@ -1,7 +1,8 @@
 """Build and bind the hand-written CUDA kernels under ``csrc/``.
 
-The sources are compiled at first use with ``nvcc`` for ``sm_90a`` into one
-shared library with a plain C interface, which is loaded with ``ctypes``.
+The sources are compiled at first use with ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source, all started together, then linked into one shared
+library with a plain C interface, which is loaded with ``ctypes``.
 The library lands in ``build/kernels/`` beside the package, named by a hash
 of its sources and flags, so a changed source rebuilds and an unchanged one
 is reused.  Nothing here runs at import time: the CPU tests import every
@@ -24,15 +25,16 @@ import torch
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("bigru.cu", "bert_attn.cu", "bert_ffn.cu")
+SOURCES = ("bigru.cu", "bigru_bwd.cu", "bert_attn.cu", "bert_ffn.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "mmtr_gru_dir_fwd": (_I, [_P] * 7 + [_I] * 5 + [_P]),
+    "mmtr_gru_dir_bwd": (_I, [_P] * 12 + [_I] * 8 + [_P]),
     "mmtr_ffn_ln_fwd": (_I, [_P] * 10 + [_I] * 3 + [_F, _P]),
     "mmtr_attn_block_fwd": (_I, [_P] * 16 + [_I] * 4 + [_F, _P]),
 }
@@ -68,16 +70,29 @@ def load_library() -> ctypes.CDLL:
     target = BUILD_DIR / f"libmmtr_kernels_{digest.hexdigest()[:16]}.so"
     if not target.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-               *[str(_CSRC / s) for s in SOURCES]]
+        tag = f"{digest.hexdigest()[:16]}.{os.getpid()}"
+        objs = [BUILD_DIR / f"{Path(s).stem}.{tag}.o" for s in SOURCES]
         t0 = time.perf_counter()
-        proc = subprocess.run(cmd, capture_output=True, text=True)
+        procs = [subprocess.Popen([_nvcc(), *NVCC_FLAGS, "-c", "-o", str(o), str(_CSRC / s)],
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for s, o in zip(SOURCES, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        BuildInfo.log = "".join(logs)
+        failed = [s for s, p in zip(SOURCES, procs) if p.returncode != 0]
+        if not failed:
+            tmp = target.with_name(f"{target.name}.{os.getpid()}.tmp")
+            link = subprocess.run([_nvcc(), *NVCC_FLAGS[:2], "-shared", "-o", str(tmp),
+                                   *map(str, objs)], capture_output=True, text=True)
+            BuildInfo.log += link.stdout + link.stderr
+            if link.returncode != 0:
+                failed = ["link"]
+            else:
+                os.replace(tmp, target)
         BuildInfo.seconds = time.perf_counter() - t0
-        BuildInfo.log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{BuildInfo.log}")
-        os.replace(tmp, target)
+        for o in objs:
+            o.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError(f"nvcc failed ({', '.join(failed)}):\n{BuildInfo.log}")
     BuildInfo.path = str(target)
     lib = ctypes.CDLL(str(target))
     for name, (restype, argtypes) in _SIGNATURES.items():
@@ -109,6 +124,16 @@ def require(t: torch.Tensor, name: str, shape: tuple, device: torch.device) -> N
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def resolve_device(device) -> torch.device:
+    """The device an entry point runs on.  ``cuda`` without a card raises:
+    nothing falls back to the CPU, which a caller must ask for."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: the port runs on the card unless "
+                           "the caller asks for device='cpu'")
+    return dev
 
 
 def device_of(x: torch.Tensor) -> torch.device:

@@ -5,7 +5,9 @@ Counterpart of ``multimodal_transformer_robustness_tpu/cli/realtime.py``
 (``--features synthetic`` makes dummy features to drive the serving path;
 ``--features precomputed`` loads ``.npy`` features).  Sequence lengths pad up
 to power-of-two buckets, as on the JAX side, and the forward runs on the
-``--device`` given: on ``cuda`` it goes through the port's CUDA kernels.
+``--device`` given, the card by default, through the port's CUDA kernels;
+the CPU runs only when asked for (``--device cpu``), and ``cuda`` without a
+card raises.
 
 Run: ``python -m multimodal_transformer_robustness_tpu_torch.cli.realtime
 --features synthetic --repeat 3 --device cuda``.
@@ -19,6 +21,7 @@ import time
 import numpy as np
 import torch
 
+from .. import _build
 from ..config import ModelSpec, full_active_config
 from ..masks import build_masks
 from ..models.bert import INT8_TODO, BertConfig
@@ -79,7 +82,7 @@ class StreamingPredictor:
 
     def __init__(self, model_path=None, bert_dir=None, seed=0,
                  attn_impl: str = "xla", bert_int8: bool = False,
-                 spec=None, bert_cfg=None, device="cpu"):
+                 spec=None, bert_cfg=None, device="cuda"):
         if attn_impl != "xla":
             raise NotImplementedError(FLASH_TODO)
         if bert_int8:
@@ -88,7 +91,7 @@ class StreamingPredictor:
             raise NotImplementedError(BERT_DIR_TODO)
         from ..data.tokenizer import load_tokenizer
 
-        self.device = torch.device(device)
+        self.device = _build.resolve_device(device)
         # the default is the reference's MOSEI serving configuration
         # (real-time.py:118-131)
         self.spec = spec or ModelSpec(
@@ -170,8 +173,8 @@ def main(argv=None):
                    help="re-run the clip to show warm-path latency")
     p.add_argument("--attn_impl", choices=["xla", "flash"], default="xla")
     p.add_argument("--bert_int8", action="store_true")
-    p.add_argument("--device", type=str,
-                   default="cuda" if torch.cuda.is_available() else "cpu")
+    p.add_argument("--device", type=str, default="cuda",
+                   help="cuda (the default) or cpu; cuda without a card raises")
     args = p.parse_args(argv)
 
     if args.features == "torch":

@@ -2,18 +2,20 @@
 
 Counterpart of ``multimodal_transformer_robustness_tpu/config.py``.  The JAX
 package's ``__init__`` imports JAX, so even its config module cannot be
-imported without it; the port carries the parts serving needs.  The
-generation *order* of the combination strings is kept exactly, because slot
-indices and parameter names depend on it.
-
-Not here yet: the random topology samplers (``rand_gen_modality_str``,
-``gen_subnet``, ``gen_active_cross``), which belong to training.
+imported without it; the port carries its own copy.  The generation
+*order* of the combination strings is kept exactly, because slot indices
+and parameter names depend on it, and the random topology samplers
+(``rand_gen_modality_str``, ``gen_subnet``, ``gen_active_cross``) make the
+same numpy ``Generator`` calls in the same order, so one seed gives the
+JAX package's configurations exactly.
 """
 
 from __future__ import annotations
 
 import dataclasses
 from typing import Dict, List, Optional, Sequence, Tuple
+
+import numpy as np
 
 __all__ = [
     "Amn",
@@ -22,6 +24,8 @@ __all__ = [
     "ModelSpec",
     "ActiveConfig",
     "full_active_config",
+    "gen_active_cross",
+    "gen_subnet",
 ]
 
 
@@ -71,6 +75,33 @@ class ModalityStr:
                     f"gen_modality_str_all: seed {frontier} admits no extensions")
             frontier = nxt
         return modality_str
+
+    def rand_gen_modality_str(self, modality_set: Sequence[str], p: float = 0.5,
+                              rng: Optional[np.random.Generator] = None) -> List[str]:
+        """Random chain growth: per level, keep each extension w.p. ``p``."""
+        rng = rng if rng is not None else np.random.default_rng()
+        if len(modality_set) == len(self.modality_set) == 1:
+            raise ValueError("a single modality has no chains to grow")
+        modality_str: List[str] = []
+        frontier = list(modality_set)
+        for _ in range(len(self.modality_set)):
+            nxt: List[str] = []
+            for s in frontier:
+                s_temp = self.gen_modality_str(s)
+                probs = rng.random(len(s_temp))
+                kept = [s_temp[i] for i in range(len(s_temp)) if probs[i] < p]
+                modality_str.extend(kept)
+                nxt.extend(kept)
+            frontier = nxt
+        return modality_str
+
+
+def gen_subnet(parent_set: Sequence, p: float,
+               rng: Optional[np.random.Generator] = None) -> List:
+    """Bernoulli(p) subset of a list, order preserving."""
+    rng = rng if rng is not None else np.random.default_rng()
+    probs = rng.random(len(parent_set))
+    return [parent_set[i] for i in range(len(parent_set)) if probs[i] < p]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -258,3 +289,37 @@ def full_active_config(spec: ModelSpec, ffn_active_dim: Optional[int] = None) ->
         active_head_num=spec.num_heads,
         active_head_dim=spec.head_dim,
     )
+
+
+def gen_active_cross(spec: ModelSpec, active_modality: Sequence[int],
+                     p_cross: float = 0.6, p_cross_output: float = 0.8,
+                     rng: Optional[np.random.Generator] = None
+                     ) -> Tuple[List[List[str]], List[List[str]]]:
+    """Random fusion topology for the active modalities, with the single-
+    modality short cut and the repair pass that makes every active
+    modality reach some output."""
+    rng = rng if rng is not None else np.random.default_rng()
+    M = spec.modality_num
+    active_cross: List[List[str]] = [[] for _ in range(M)]
+    active_cross_output: List[List[str]] = [[] for _ in range(M)]
+    active_modality = list(active_modality)
+    if len(active_modality) == 1:
+        i = active_modality[0]
+        active_cross_output[i] = [spec.modality_set[i]]
+        return active_cross, active_cross_output
+
+    m = ModalityStr([spec.modality_set[i] for i in active_modality])
+    for i in active_modality:
+        active_cross[i] = m.rand_gen_modality_str(
+            modality_set=[spec.modality_set[i]], p=p_cross, rng=rng)
+        r = [spec.modality_set[i]] + list(active_cross[i])
+        active_cross_output[i] = gen_subnet(r, p=p_cross_output, rng=rng)
+
+    # repair: a branch that emits nothing, and whose modality no other
+    # branch's outputs carry, gets one output
+    for i in active_modality:
+        if not active_cross_output[i]:
+            ch = spec.modality_set[i]
+            if not any(ch in a for j in active_modality for a in active_cross_output[j]):
+                active_cross_output[i] = [active_cross[i][0] if active_cross[i] else ch]
+    return active_cross, active_cross_output

@@ -1,6 +1,9 @@
 // Building blocks shared by the port's hand-written Hopper kernels:
 //   * a tiled float32 GEMM, C = A @ B (+ epilogue), row-major operands,
 //     written with shared-memory tiles and FMA loops (no library GEMM);
+//   * its transposed-A form with split-K, C = A^T @ B over very long K,
+//     and column sums, both writing per-split partials that a second pass
+//     adds in a fixed order (deterministic: no float atomics);
 //   * a row LayerNorm with float32 centered two-pass moments.
 // Everything sits in an anonymous namespace, so each .cu file that includes
 // this header gets its own copy and the shared library links cleanly.
@@ -24,6 +27,7 @@ enum GemmEpilogue {
   EPI_BIAS = 0,           // C = A@B + bias
   EPI_BIAS_GELU = 1,      // C = gelu_erf(A@B + bias)
   EPI_BIAS_RESIDUAL = 2,  // C = resid + (A@B + bias)
+  EPI_NONE = 3,           // C = A@B (bias is not read)
 };
 
 __device__ __forceinline__ float gelu_erf(float v) {
@@ -92,7 +96,8 @@ gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
     for (int j = 0; j < 4; ++j) {
       const int c = col0 + tx + 16 * j;
       if (c >= N) continue;
-      float v = acc[i][j] + bias[c];
+      float v = acc[i][j];
+      if (EPI != EPI_NONE) v += bias[c];
       if (EPI == EPI_BIAS_GELU) v = gelu_erf(v);
       if (EPI == EPI_BIAS_RESIDUAL) v = resid[(long long)r * N + c] + v;
       C[(long long)r * N + c] = v;
@@ -109,6 +114,117 @@ void launch_gemm(const float* A, const float* B, const float* bias,
                   batch);
   gemm_f32_kernel<EPI><<<grid, GEMM_THREADS, 0, stream>>>(
       A, B, bias, resid, C, M, N, K, stride_a, stride_b, stride_bias, stride_c);
+}
+
+// Transposed-A split-K product: split z of C_part = sum over k in
+// [z*kchunk, min(K, (z+1)*kchunk)) of At(k, m) * B(k, n), written row-major
+// [M, N] at C + z*stride_c.  At(k, m) = A[(k + a_shift)*lda + m], read as
+// zero unless 0 <= k + a_shift < K (so a time-shifted view of a [T*B, H]
+// state tensor needs no copy); B(k, n) = B[k*ldb + n].  Both tile loads
+// walk the contiguous (m or n) axis across threads.
+__global__ void __launch_bounds__(GEMM_THREADS)
+gemm_f32_tn_splitk_kernel(const float* __restrict__ A, const float* __restrict__ B,
+                          float* __restrict__ C, int M, int N, int K, int lda,
+                          int ldb, int a_shift, int kchunk, long long stride_c) {
+  __shared__ float As[GEMM_TK][GEMM_TM + 4];
+  __shared__ float Bs[GEMM_TK][GEMM_TN];
+  const int tid = threadIdx.x;
+  const int tx = tid % 16, ty = tid / 16;
+  const int row0 = blockIdx.y * GEMM_TM, col0 = blockIdx.x * GEMM_TN;
+  const int kbeg = blockIdx.z * kchunk;
+  const int kend = min(K, kbeg + kchunk);
+  C += blockIdx.z * stride_c;
+
+  float acc[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
+
+  for (int k0 = kbeg; k0 < kend; k0 += GEMM_TK) {
+    for (int i = tid; i < GEMM_TM * GEMM_TK; i += GEMM_THREADS) {
+      const int m = i % GEMM_TM, k = i / GEMM_TM;
+      const int gm = row0 + m, gk = k0 + k, ak = gk + a_shift;
+      As[k][m] = (gm < M && gk < kend && ak >= 0 && ak < K)
+                     ? A[(long long)ak * lda + gm] : 0.f;
+    }
+    for (int i = tid; i < GEMM_TK * GEMM_TN; i += GEMM_THREADS) {
+      const int n = i % GEMM_TN, k = i / GEMM_TN;
+      const int gk = k0 + k, gc = col0 + n;
+      Bs[k][n] = (gk < kend && gc < N) ? B[(long long)gk * ldb + gc] : 0.f;
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < GEMM_TK; ++k) {
+      float a[4], b[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 16 * i];
+#pragma unroll
+      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx + 16 * j];
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
+    }
+    __syncthreads();
+  }
+
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int r = row0 + ty + 16 * i;
+    if (r >= M) continue;
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int c = col0 + tx + 16 * j;
+      if (c < N) C[(long long)r * N + c] = acc[i][j];
+    }
+  }
+}
+
+void launch_gemm_tn_splitk(const float* A, const float* B, float* C, int M,
+                           int N, int K, int lda, int ldb, int a_shift,
+                           int kchunk, int splits, long long stride_c,
+                           cudaStream_t stream) {
+  const dim3 grid((N + GEMM_TN - 1) / GEMM_TN, (M + GEMM_TM - 1) / GEMM_TM,
+                  splits);
+  gemm_f32_tn_splitk_kernel<<<grid, GEMM_THREADS, 0, stream>>>(
+      A, B, C, M, N, K, lda, ldb, a_shift, kchunk, stride_c);
+}
+
+constexpr int RED_THREADS = 256;
+
+// Split z of the column sums of D [K, N] (row stride ldd): rows
+// [z*kchunk, min(K, (z+1)*kchunk)), summed in order, to P + z*stride_p.
+__global__ void __launch_bounds__(RED_THREADS)
+colsum_splitk_kernel(const float* __restrict__ D, float* __restrict__ P, int K,
+                     int N, int ldd, int kchunk, long long stride_p) {
+  const int col = blockIdx.x * RED_THREADS + threadIdx.x;
+  if (col >= N) return;
+  const int kbeg = blockIdx.y * kchunk;
+  const int kend = min(K, kbeg + kchunk);
+  float s = 0.f;
+  for (int k = kbeg; k < kend; ++k) s += D[(long long)k * ldd + col];
+  P[blockIdx.y * stride_p + col] = s;
+}
+
+void launch_colsum_splitk(const float* D, float* P, int K, int N, int ldd,
+                          int kchunk, int splits, long long stride_p,
+                          cudaStream_t stream) {
+  const dim3 grid((N + RED_THREADS - 1) / RED_THREADS, splits);
+  colsum_splitk_kernel<<<grid, RED_THREADS, 0, stream>>>(D, P, K, N, ldd,
+                                                         kchunk, stride_p);
+}
+
+// The second pass: out[i] = sum over z = 0 .. splits-1 of P[z*n + i], in
+// that order, so a rerun on the same inputs gives the same bits.
+__global__ void __launch_bounds__(RED_THREADS)
+splitk_reduce_kernel(const float* __restrict__ P, float* __restrict__ out,
+                     long long n, int splits) {
+  const long long i = (long long)blockIdx.x * RED_THREADS + threadIdx.x;
+  if (i >= n) return;
+  float s = 0.f;
+  for (int z = 0; z < splits; ++z) s += P[z * n + i];
+  out[i] = s;
 }
 
 constexpr int LN_THREADS = 256;

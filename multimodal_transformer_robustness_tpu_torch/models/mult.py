@@ -1,4 +1,4 @@
-"""The elastic multimodal-transformer supernet ("dynamic MulT"), eval mode.
+"""The elastic multimodal-transformer supernet ("dynamic MulT").
 
 Counterpart of ``multimodal_transformer_robustness_tpu/models/mult.py``:
 
@@ -7,16 +7,25 @@ Counterpart of ``multimodal_transformer_robustness_tpu/models/mult.py``:
       -> per-modality self-attention stacks  (``mems0``)
       -> crossmodal stacks, one per combination string (``cross``)
       -> per-branch fused concat + channel-masked top stacks (``mems``)
-      -> masked head MLP (proj1 -> ReLU -> proj2 + residual -> out_layer)
+      -> masked head MLP (proj1 -> ReLU -> dropout -> proj2 + residual
+         -> out_layer)
 
 One static plan: every stack runs on every call and the configuration's
 masks gate what reaches the fused output, so no branch depends on a mask
 value.  The stacks run as a plain Python loop; batching them is later work.
 
+Train mode draws every dropout from one ``torch.Generator`` on the card,
+at the JAX package's draw points and per-stack rates: ``attn_dropout[:M]``
+for the mems0 stacks, ``spec.attn_dropout_for_cross(j)`` for the cross
+stacks (the reference's 0.1 quirk included), ``attn_dropout[-1]`` for the
+top stacks, ``out_dropout`` after ``relu(proj1)``.
+
 Parameters are nested dicts of tensors: ``proj`` (one header dict per
-modality), ``mems0`` / ``cross`` / ``mems`` (one encoder dict per stack),
-``proj1`` / ``proj2`` / ``out_layer`` (``{"w", "b"}``).  ``frozen`` holds
-the BERT weights in the kernels' layout.
+modality, GRU weights in the reference's torch layout), ``mems0`` /
+``cross`` / ``mems`` (one encoder dict per stack), ``proj1`` / ``proj2`` /
+``out_layer`` (``{"w", "b"}``).  ``frozen`` holds the BERT weights in the
+kernels' layout.  The reference's dead ``translation`` linears are not
+kept: the forward never reads them.
 """
 
 from __future__ import annotations
@@ -28,8 +37,8 @@ import torch
 
 from ..config import ModelSpec
 from ..masks import SupernetMasks
-from ..ops.encoder import (TRAIN_TODO, EncoderHParams, EncoderMasks,
-                           encoder_forward, init_encoder)
+from ..ops.dropout import dropout
+from ..ops.encoder import EncoderHParams, EncoderMasks, encoder_forward, init_encoder
 from ..ops.linear import init_linear, masked_linear
 from . import bert as bert_mod
 from .headers import header_apply, init_header
@@ -54,16 +63,20 @@ def to_device(tree, device):
     return as_f32(tree).to(device).contiguous()
 
 
-def _hp_stream(spec: ModelSpec, layers: int) -> EncoderHParams:
-    return EncoderHParams(embed_dim_in=spec.dimension, num_heads=spec.num_heads,
+def _hp(spec: ModelSpec, embed_dim: int, layers: int) -> EncoderHParams:
+    return EncoderHParams(embed_dim_in=embed_dim, num_heads=spec.num_heads,
                           head_dim=spec.head_dim, layers=layers,
-                          attn_mask=spec.attn_mask)
+                          attn_mask=spec.attn_mask, relu_dropout=spec.relu_dropout,
+                          res_dropout=spec.res_dropout,
+                          embed_dropout=spec.embed_dropout)
+
+
+def _hp_stream(spec: ModelSpec, layers: int) -> EncoderHParams:
+    return _hp(spec, spec.dimension, layers)
 
 
 def _hp_top(spec: ModelSpec) -> EncoderHParams:
-    return EncoderHParams(embed_dim_in=spec.top_dim, num_heads=spec.num_heads,
-                          head_dim=spec.head_dim, layers=spec.layers_self_attn,
-                          attn_mask=spec.attn_mask)
+    return _hp(spec, spec.top_dim, spec.layers_self_attn)
 
 
 def _check_spec(spec: ModelSpec) -> None:
@@ -71,7 +84,8 @@ def _check_spec(spec: ModelSpec) -> None:
         raise NotImplementedError(FLASH_TODO)
     if spec.compute_dtype != "float32":
         raise NotImplementedError("compute_dtype other than float32 is not "
-                                  "ported yet (the kernels take float32)")
+                                  "ported yet (the kernels take float32): "
+                                  "ROADMAP Queue 1, 'the bf16 compute policy'")
 
 
 def init_supernet(gen: torch.Generator, spec: ModelSpec,
@@ -113,20 +127,24 @@ def supernet_headers(spec: ModelSpec, params: dict, inputs: Sequence[torch.Tenso
 
 
 def supernet_trunk(spec: ModelSpec, params: dict, masks: SupernetMasks,
-                   base: torch.Tensor, *, train: bool = False) -> torch.Tensor:
+                   base: torch.Tensor, *, train: bool = False,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Mask-dependent remainder: ``base`` [M, B, T, d] -> mems0 -> cross ->
     top -> head MLP -> predictions [B, output_dim] (or [B, T, output_dim]
-    when ``spec.all_steps``)."""
-    if train:
-        raise NotImplementedError(TRAIN_TODO)
+    when ``spec.all_steps``).  Train mode draws its dropout from
+    ``generator`` (one seeded 0 on ``base``'s device when None, as the JAX
+    package falls back to ``PRNGKey(0)``)."""
     _check_spec(spec)
     M, d = spec.modality_num, spec.dimension
+    if train and generator is None:
+        generator = torch.Generator(device=base.device).manual_seed(0)
+    run = dict(train=train, generator=generator)
 
     hp0 = _hp_stream(spec, spec.layers_single_attn)
     streams: List[torch.Tensor] = [
         encoder_forward(params["mems0"][i], base[i], hp=hp0, masks=EncoderMasks(
             masks.mems0_gates[i], masks.head_mask, masks.head_dim_mask,
-            masks.ffn_mask))
+            masks.ffn_mask), attn_rate=spec.attn_dropout[i], **run)
         for i in range(M)]
 
     # cross strings come level by level, so a string's prefix stream is
@@ -137,7 +155,8 @@ def supernet_trunk(spec: ModelSpec, params: dict, masks: SupernetMasks,
                            masks.head_dim_mask, masks.ffn_mask)
     for j, s in enumerate(spec.cross_strings):
         streams.append(encoder_forward(params["cross"][j], streams[pos[s[-1]]],
-                                       streams[pos[s[:-1]]], hp=hp_c, masks=m_cross))
+                                       streams[pos[s[:-1]]], hp=hp_c, masks=m_cross,
+                                       attn_rate=spec.attn_dropout_for_cross(j), **run))
 
     all_streams = torch.stack(streams)                               # [n, B, T, d]
     slot_idx = torch.tensor([[pos[s] for s in spec.slot_lists[i]] for i in range(M)],
@@ -152,7 +171,7 @@ def supernet_trunk(spec: ModelSpec, params: dict, masks: SupernetMasks,
     h_top = torch.stack([
         encoder_forward(params["mems"][i], x_top[i], hp=hp_t, masks=EncoderMasks(
             masks.mems_gates, masks.head_mask, masks.head_dim_mask,
-            masks.ffn_mask, ch_masks[i]))
+            masks.ffn_mask, ch_masks[i]), attn_rate=spec.attn_dropout[-1], **run)
         for i in range(M)])                                          # [M, B, T, E_top]
 
     if spec.all_steps:
@@ -162,6 +181,7 @@ def supernet_trunk(spec: ModelSpec, params: dict, masks: SupernetMasks,
 
     ch = masks.output_channel_mask(d)
     h1 = torch.relu(masked_linear(out, params["proj1"]["w"], params["proj1"]["b"]))
+    h1 = dropout(h1, spec.out_dropout, train, generator)
     h2 = masked_linear(h1, params["proj2"]["w"], params["proj2"]["b"], mask_out=ch)
     h2 = h2 + out
     return masked_linear(h2, params["out_layer"]["w"], params["out_layer"]["b"])
@@ -170,10 +190,11 @@ def supernet_trunk(spec: ModelSpec, params: dict, masks: SupernetMasks,
 def supernet_apply(spec: ModelSpec, params: dict, masks: SupernetMasks,
                    inputs: Sequence[torch.Tensor], *, frozen: Optional[dict] = None,
                    bert_cfg: Optional[bert_mod.BertConfig] = None,
-                   train: bool = False) -> torch.Tensor:
+                   train: bool = False,
+                   generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Forward pass.  ``inputs``: one tensor per modality (text: [3, B, L]
-    integer stack; sequences: [B, T, feat])."""
-    if train:
-        raise NotImplementedError(TRAIN_TODO)
+    integer stack; images: [B, 1, H, W]; sequences: [B, T, feat]).  The
+    headers draw nothing (the reference's header dropout is dead code), so
+    ``train`` and ``generator`` reach the trunk only."""
     base = supernet_headers(spec, params, inputs, frozen=frozen, bert_cfg=bert_cfg)
-    return supernet_trunk(spec, params, masks, base)
+    return supernet_trunk(spec, params, masks, base, train=train, generator=generator)

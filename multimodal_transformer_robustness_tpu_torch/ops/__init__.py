@@ -2,6 +2,7 @@
 wrappers of the hand-written CUDA kernels (``*_cuda`` modules)."""
 
 from .attention import future_mask, init_mha, multihead_attention
+from .dropout import dropout
 from .encoder import EncoderHParams, EncoderMasks, encoder_forward, init_encoder
 from .gru import bigru_forward, gru_forward, init_bigru, init_gru
 from .layernorm import masked_layer_norm
@@ -12,6 +13,7 @@ __all__ = [
     "future_mask",
     "init_mha",
     "multihead_attention",
+    "dropout",
     "EncoderHParams",
     "EncoderMasks",
     "encoder_forward",

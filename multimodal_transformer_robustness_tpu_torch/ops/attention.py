@@ -1,4 +1,4 @@
-"""Elastic multi-head attention, static-shape and mask-parameterized (eval).
+"""Elastic multi-head attention, static-shape and mask-parameterized.
 
 Counterpart of ``multimodal_transformer_robustness_tpu/ops/attention.py``.
 The packed in-projection weight is ``[3, H, Dh, E_in]``; the active
@@ -10,7 +10,9 @@ self-attention only and re-mask the output.  Layout is batch-major
 
 After the RNN headers every stream is one step, so the trunk runs attention
 at Tq == Tk == 1, where the softmax over one key is exactly 1: the T==1
-path reduces to the value and out projections.
+path reduces to the value and out projections, with the attention dropout
+drawn on the constant weights ``ones [B, H, 1, 1]`` as the JAX package
+draws it.  On the T>1 path the dropout follows the softmax.
 """
 
 from __future__ import annotations
@@ -19,6 +21,8 @@ import math
 from typing import Optional
 
 import torch
+
+from .dropout import dropout
 
 
 def future_mask(tq: int, tk: int, device=None) -> torch.Tensor:
@@ -49,9 +53,11 @@ def multihead_attention(params: dict, query: torch.Tensor, key: torch.Tensor,
                         value: torch.Tensor, *, head_mask: torch.Tensor,
                         head_dim_mask: torch.Tensor,
                         attn_bias: Optional[torch.Tensor] = None,
-                        channel_mask: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Eval-mode attention: ``query [B, Tq, E_in]``, ``key`` / ``value``
-    ``[B, Tk, E_in]``, additive ``attn_bias [Tq, Tk]``."""
+                        channel_mask: Optional[torch.Tensor] = None,
+                        attn_dropout: float = 0.0, train: bool = False,
+                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """``query [B, Tq, E_in]``, ``key`` / ``value`` ``[B, Tk, E_in]``,
+    additive ``attn_bias [Tq, Tk]``; attention dropout in train mode."""
     w_in = params["in_proj_w"]
     b_in = params["in_proj_b"]
     hd = head_mask[:, None] * head_dim_mask[None, :]
@@ -64,7 +70,11 @@ def multihead_attention(params: dict, query: torch.Tensor, key: torch.Tensor,
         return out * channel_mask if channel_mask is not None else out
 
     if query.shape[1] == 1 and key.shape[1] == 1 and attn_bias is None:
-        return out_proj(proj(value, 2))
+        v = proj(value, 2)
+        if train and attn_dropout != 0.0:
+            ones = torch.ones(query.shape[0], w_in.shape[1], 1, 1, device=query.device)
+            v = dropout(ones, attn_dropout, train, generator).transpose(1, 2) * v
+        return out_proj(v)
 
     q = proj(query, 0)
     k = proj(key, 1)
@@ -75,4 +85,5 @@ def multihead_attention(params: dict, query: torch.Tensor, key: torch.Tensor,
     if attn_bias is not None:
         logits = logits + attn_bias
     weights = torch.softmax(logits.float(), dim=-1)
+    weights = dropout(weights, attn_dropout, train, generator)
     return out_proj(torch.einsum("bhqk,bkhd->bqhd", weights, v))

@@ -1,11 +1,18 @@
-"""K1: one bidirectional GRU level, T-major, through a hand-written CUDA kernel.
+"""K1 / K1b: one bidirectional GRU level, T-major, through hand-written CUDA
+kernels, forward and backward.
 
-Counterpart of ``multimodal_transformer_robustness_tpu/ops/bigru_pallas.py``
-(forward only).  :func:`gru_dir` runs one direction: on a CUDA tensor it
-launches ``csrc/bigru.cu`` (which replaces the TPU kernel
-``bigru_pallas._fwd_impl``), on a CPU tensor it runs the plain version
-:func:`gru_dir_plain`.  The kernel operands ``wp / wt / bc / bhn`` are
-precomputed once from torch-layout weights by :func:`dir_operands`.
+Counterpart of ``multimodal_transformer_robustness_tpu/ops/bigru_pallas.py``.
+:func:`gru_dir` runs one direction forward: on a CUDA tensor it launches
+``csrc/bigru.cu`` (which replaces the TPU kernel ``bigru_pallas._fwd_impl``),
+on a CPU tensor it runs the plain version :func:`gru_dir_plain`.
+:func:`gru_dir_bwd` is its backward: on a CUDA tensor it launches
+``csrc/bigru_bwd.cu`` (replacing ``bigru_pallas._bwd_impl``), on a CPU
+tensor it runs :func:`gru_dir_bwd_plain`, ``torch.autograd.grad`` through
+the plain time loop.  :class:`GruDir` joins the two as an autograd
+function, as ``gru_dir_pallas``'s custom VJP does.  The kernel operands
+``wp / wt / bc / bhn`` are derived from torch-layout weights by
+:func:`dir_operands` on every call, differentiably, so gradients reach the
+reference-layout parameters ``w_ih / w_hh / b_ih / b_hh``.
 
 The zero-padded bucket steps are run like any other step, as on the TPU:
 no packing, no length masking.
@@ -28,7 +35,7 @@ def dir_operands(p: dict) -> dict:
     wt = p["w_hh"].reshape(3, h, h).transpose(1, 2).contiguous()
     bi = p["b_ih"].reshape(3, h)
     bh = p["b_hh"].reshape(3, h)
-    bc = torch.stack([bi[0] + bh[0], bi[1] + bh[1], bi[2]]).contiguous()
+    bc = torch.stack([bi[0] + bh[0], bi[1] + bh[1], bi[2]])
     return {"wp": wp, "wt": wt, "bc": bc, "bhn": bh[2].contiguous()}
 
 
@@ -40,7 +47,7 @@ def gru_dir_plain(x: torch.Tensor, wp: torch.Tensor, wt: torch.Tensor,
     h_dim = wt.shape[-1]
     g = torch.matmul(x.unsqueeze(0), wp.unsqueeze(1)) + bc[:, None, None, :]
     h = torch.zeros(b, h_dim, dtype=torch.float32, device=x.device)
-    out = torch.empty(t_len, b, h_dim, dtype=torch.float32, device=x.device)
+    out = [None] * t_len
     steps = range(t_len - 1, -1, -1) if reverse else range(t_len)
     for t in steps:
         r = torch.sigmoid(g[0, t] + h @ wt[0])
@@ -48,16 +55,12 @@ def gru_dir_plain(x: torch.Tensor, wp: torch.Tensor, wt: torch.Tensor,
         n = torch.tanh(g[2, t] + r * (h @ wt[2] + bhn))
         h = (1.0 - z) * n + z * h
         out[t] = h
-    return out
+    return torch.stack(out)
 
 
-def gru_dir(x: torch.Tensor, wp: torch.Tensor, wt: torch.Tensor,
-            bc: torch.Tensor, bhn: torch.Tensor, reverse: bool = False) -> torch.Tensor:
-    """One GRU direction over T-major ``x [T, B, in]`` -> ``[T, B, H]`` in
-    storage time order.  CPU tensors take :func:`gru_dir_plain`; CUDA
-    tensors launch the kernel (or raise)."""
-    if x.device.type == "cpu":
-        return gru_dir_plain(x, wp, wt, bc, bhn, reverse)
+def _launch_fwd(x, wp, wt, bc, bhn, reverse: bool):
+    """Launch K1 on the card -> (h [T, B, H], the input-side gate
+    pre-activations [3, T*B, H] that K1b reads back)."""
     dev = _build.device_of(x)
     t_len, b, in_dim = x.shape
     h_dim = wt.shape[-1]
@@ -75,19 +78,132 @@ def gru_dir(x: torch.Tensor, wp: torch.Tensor, wt: torch.Tensor,
         _build.stream_ptr(dev))
     _build.check(err, "gru_dir kernel")
     gru_dir.launches += 1
-    return out
+    return out, gates
+
+
+def gru_dir(x: torch.Tensor, wp: torch.Tensor, wt: torch.Tensor,
+            bc: torch.Tensor, bhn: torch.Tensor, reverse: bool = False) -> torch.Tensor:
+    """One GRU direction over T-major ``x [T, B, in]`` -> ``[T, B, H]`` in
+    storage time order.  CPU tensors take :func:`gru_dir_plain`; CUDA
+    tensors launch the kernel (or raise)."""
+    if x.device.type == "cpu":
+        return gru_dir_plain(x, wp, wt, bc, bhn, reverse)
+    return _launch_fwd(x, wp, wt, bc, bhn, reverse)[0]
 
 
 gru_dir.launches = 0
 
 
-def bigru_level_tmajor(params: dict, x_t: torch.Tensor) -> torch.Tensor:
+def gru_dir_bwd_plain(x, wp, wt, bc, bhn, hs, gates, dhs, reverse: bool = False,
+                      need_dx: bool = True):
+    """Plain PyTorch version of K1b: ``torch.autograd.grad`` through
+    :func:`gru_dir_plain` -> ``(dx or None, dwp, dwt, dbc, dbhn)``.  ``hs``
+    and ``gates`` (the kernel's saved forward) are not read."""
+    with torch.enable_grad():
+        x_ = x.detach().requires_grad_(need_dx)
+        ws = [w.detach().requires_grad_(True) for w in (wp, wt, bc, bhn)]
+        out = gru_dir_plain(x_, *ws, reverse)
+        grads = torch.autograd.grad(out, ([x_] if need_dx else []) + ws, dhs)
+    return ((grads[0],) if need_dx else (None,)) + tuple(grads[-4:])
+
+
+def gru_dir_bwd(x, wp, wt, bc, bhn, hs, gates, dhs, reverse: bool = False,
+                need_dx: bool = True):
+    """Backward of one direction: ``x [T, B, in]``, the forward's ``hs``
+    and saved ``gates``, and ``dhs [T, B, H]`` -> ``(dx or None, dwp, dwt,
+    dbc, dbhn)``.  ``need_dx=False`` skips the dx product.  CPU tensors take
+    :func:`gru_dir_bwd_plain`; CUDA tensors launch K1b (or raise)."""
+    if x.device.type == "cpu":
+        return gru_dir_bwd_plain(x, wp, wt, bc, bhn, hs, gates, dhs, reverse, need_dx)
+    dev = _build.device_of(x)
+    t_len, b, in_dim = x.shape
+    h = wt.shape[-1]
+    rows = t_len * b
+    dhs = dhs.contiguous()
+    _build.require(x, "x", (t_len, b, in_dim), dev)
+    for name, t in (("hs", hs), ("dhs", dhs)):
+        _build.require(t, name, (t_len, b, h), dev)
+    _build.require(gates, "gates", (3, rows, h), dev)
+    _build.require(wt, "wt", (3, h, h), dev)
+    _build.require(bhn, "bhn", (h,), dev)
+    lib = _build.load_library()
+    # split the T*B-row reductions into <= 64 chunks of >= 256 rows
+    kchunk = max(256, -(-rows // 64))
+    kchunk = -(-kchunk // 16) * 16
+    splits = -(-rows // kchunk)
+    total = in_dim * 3 * h + 3 * h * h + 4 * h
+    f32 = dict(dtype=torch.float32, device=dev)
+    wpT = wp.transpose(1, 2).reshape(3 * h, in_dim).contiguous()
+    dg = torch.empty(rows, 3 * h, **f32)
+    dghn = torch.empty(rows, h, **f32)
+    partial = torch.empty(splits, total, **f32)
+    red = torch.empty(total, **f32)
+    dx = torch.empty(t_len, b, in_dim, **f32) if need_dx else None
+    err = lib.mmtr_gru_dir_bwd(
+        x.data_ptr(), hs.data_ptr(), gates.data_ptr(), dhs.data_ptr(), wt.data_ptr(),
+        bhn.data_ptr(), wpT.data_ptr(), dg.data_ptr(), dghn.data_ptr(),
+        partial.data_ptr(), red.data_ptr(), dx.data_ptr() if need_dx else 0,
+        t_len, b, in_dim, h, int(reverse), int(need_dx), kchunk, splits,
+        _build.stream_ptr(dev))
+    _build.check(err, "gru_dir_bwd kernel")
+    gru_dir_bwd.launches += 1
+    gru_dir_bwd.launches_no_dx += int(not need_dx)
+    o1 = in_dim * 3 * h
+    o2 = o1 + 2 * h * h
+    o3 = o2 + h * h
+    dwp = red[:o1].view(in_dim, 3, h).permute(1, 0, 2).contiguous()
+    dwt = torch.cat([red[o1:o2].view(h, 2, h), red[o2:o3].view(h, 1, h)], dim=1)
+    dwt = dwt.permute(1, 0, 2).contiguous()
+    return dx, dwp, dwt, red[o3:o3 + 3 * h].view(3, h), red[o3 + 3 * h:]
+
+
+gru_dir_bwd.launches = 0
+gru_dir_bwd.launches_no_dx = 0
+
+
+class GruDir(torch.autograd.Function):
+    """One GRU direction whose forward is K1 and whose backward is K1b.
+    ``need_dx=False`` declares x's gradient dead: the backward skips the dx
+    product and returns None for it."""
+
+    @staticmethod
+    def forward(ctx, x, wp, wt, bc, bhn, reverse: bool, need_dx: bool):
+        if x.device.type == "cpu":
+            hs, gates = gru_dir_plain(x, wp, wt, bc, bhn, reverse), None
+        else:
+            hs, gates = _launch_fwd(x, wp, wt, bc, bhn, reverse)
+        ctx.reverse, ctx.need_dx, ctx.gates = reverse, need_dx, gates
+        ctx.save_for_backward(x, wp, wt, bc, bhn, hs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        x, wp, wt, bc, bhn, hs = ctx.saved_tensors
+        grads = gru_dir_bwd(x, wp, wt, bc, bhn, hs, ctx.gates, dhs, ctx.reverse,
+                            ctx.need_dx)
+        return (*grads, None, None)
+
+
+def gru_dir_train(x: torch.Tensor, p: dict, reverse: bool = False,
+                  need_dx: bool = True) -> torch.Tensor:
+    """One direction from torch-layout weights ``p``, differentiable through
+    K1 / K1b.  ``need_dx=False`` under an ``x`` that requires grad raises:
+    its gradient would otherwise be silently missing."""
+    if not need_dx and x.requires_grad:
+        raise ValueError("need_dx=False, but x requires grad: its gradient "
+                         "would be dropped")
+    ops = dir_operands(p)
+    return GruDir.apply(x, ops["wp"], ops["wt"], ops["bc"], ops["bhn"], reverse, need_dx)
+
+
+def bigru_level_tmajor(params: dict, x_t: torch.Tensor,
+                       need_dx: bool = True) -> torch.Tensor:
     """One bidirectional level: ``x_t [T, B, in]`` -> ``[T, B, 2H]``
     (fwd || bwd, storage time order).  ``params`` holds ``fwd`` / ``bwd``
-    operand dicts from :func:`dir_operands`."""
-    f, b = params["fwd"], params["bwd"]
-    hs_f = gru_dir(x_t, f["wp"], f["wt"], f["bc"], f["bhn"], reverse=False)
-    hs_b = gru_dir(x_t, b["wp"], b["wt"], b["bc"], b["bhn"], reverse=True)
+    torch-layout weight dicts; ``need_dx=False`` declares ``x_t``'s
+    gradient dead (see :func:`gru_dir_train`)."""
+    hs_f = gru_dir_train(x_t, params["fwd"], False, need_dx)
+    hs_b = gru_dir_train(x_t, params["bwd"], True, need_dx)
     return torch.cat([hs_f, hs_b], dim=-1)
 
 

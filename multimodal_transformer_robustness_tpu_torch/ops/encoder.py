@@ -1,13 +1,17 @@
-"""Elastic transformer encoder stack, eval mode: pre-norm layers with
-per-layer depth gates.
+"""Elastic transformer encoder stack: pre-norm layers with per-layer depth
+gates, in eval and train mode.
 
 Counterpart of ``multimodal_transformer_robustness_tpu/ops/encoder.py``.
 The stack embeds with scale ``sqrt(E)`` plus the sinusoidal embedding (fed
-the activation's first active channel as token proxy); in cross mode the
-key/value stream is embedded once.  Each layer: LN -> attention (optional
-future mask) -> residual; LN -> fc1 (FFN-masked) -> ReLU -> fc2 -> residual.
-All layers run; an inactive layer is an identity through ``torch.where`` on
-the carry, so a mask is never read on the host.
+the activation's first active channel as token proxy) and embed dropout;
+in cross mode the key/value stream is embedded once, with independent
+dropout draws for k and v.  Each layer: LN -> attention (optional future
+mask, attention dropout) -> res dropout -> residual; LN -> fc1 (FFN-masked)
+-> ReLU -> relu dropout -> fc2 -> res dropout -> residual.  All layers run;
+an inactive layer is an identity through ``torch.where`` on the carry, so a
+mask is never read on the host.  The JAX package's rematerialization knobs
+(``REMAT_*``) are not carried over: they trade memory for recompute and do
+not change a value.
 """
 
 from __future__ import annotations
@@ -19,12 +23,10 @@ from typing import Optional
 import torch
 
 from .attention import future_mask, init_mha, multihead_attention
+from .dropout import dropout
 from .layernorm import masked_layer_norm
 from .linear import init_linear, masked_linear
 from .positional import make_positions, sinusoidal_pe
-
-TRAIN_TODO = ("training mode is not ported yet: ROADMAP Queue 1, "
-              "'training step' (K1 backward, dropout)")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,6 +45,9 @@ class EncoderHParams:
     head_dim: int
     layers: int
     attn_mask: bool = False
+    relu_dropout: float = 0.0
+    res_dropout: float = 0.0
+    embed_dropout: float = 0.0
 
 
 def _init_layer(gen: torch.Generator, e_in: int, h: int, dh: int) -> dict:
@@ -65,36 +70,38 @@ def init_encoder(gen: torch.Generator, hp: EncoderHParams) -> dict:
     }
 
 
-def _layer_forward(lp: dict, x: torch.Tensor, kv: Optional[torch.Tensor],
-                   m: EncoderMasks, attn_bias: Optional[torch.Tensor]) -> torch.Tensor:
+def _layer_forward(lp: dict, x: torch.Tensor, x_k: Optional[torch.Tensor],
+                   x_v: Optional[torch.Tensor], hp: EncoderHParams, m: EncoderMasks,
+                   attn_bias: Optional[torch.Tensor], attn_rate: float, train: bool,
+                   gen: Optional[torch.Generator]) -> torch.Tensor:
     cm = m.channel_mask
+    att = dict(head_mask=m.head_mask, head_dim_mask=m.head_dim_mask,
+               attn_bias=attn_bias, attn_dropout=attn_rate, train=train,
+               generator=gen)
     h = masked_layer_norm(x, lp["ln0"]["g"], lp["ln0"]["b"], cm)
-    if kv is None:
-        attn = multihead_attention(lp["attn"], h, h, h, head_mask=m.head_mask,
-                                   head_dim_mask=m.head_dim_mask,
-                                   attn_bias=attn_bias, channel_mask=cm)
+    if x_k is None:
+        attn = multihead_attention(lp["attn"], h, h, h, channel_mask=cm, **att)
     else:
-        # cross mode: k and v share one embedding in eval mode; channel
-        # masks are self-attention only
-        k = masked_layer_norm(kv, lp["ln0"]["g"], lp["ln0"]["b"], None)
-        attn = multihead_attention(lp["attn"], h, k, k, head_mask=m.head_mask,
-                                   head_dim_mask=m.head_dim_mask,
-                                   attn_bias=attn_bias, channel_mask=None)
-    x = x + attn
+        # cross mode: channel masks are self-attention only
+        k = masked_layer_norm(x_k, lp["ln0"]["g"], lp["ln0"]["b"], None)
+        v = k if x_v is x_k else masked_layer_norm(x_v, lp["ln0"]["g"],
+                                                   lp["ln0"]["b"], None)
+        attn = multihead_attention(lp["attn"], h, k, v, channel_mask=None, **att)
+    x = x + dropout(attn, hp.res_dropout, train, gen)
     h = masked_layer_norm(x, lp["ln1"]["g"], lp["ln1"]["b"], cm)
     h = masked_linear(h, lp["fc1"]["w"], lp["fc1"]["b"], mask_out=m.ffn_mask)
-    h = torch.relu(h)
+    h = dropout(torch.relu(h), hp.relu_dropout, train, gen)
     h = masked_linear(h, lp["fc2"]["w"], lp["fc2"]["b"], mask_out=cm)
-    return x + h
+    return x + dropout(h, hp.res_dropout, train, gen)
 
 
 def encoder_forward(params: dict, x_in: torch.Tensor,
                     x_kv: Optional[torch.Tensor] = None, *, hp: EncoderHParams,
-                    masks: EncoderMasks, train: bool = False) -> torch.Tensor:
+                    masks: EncoderMasks, attn_rate: float = 0.0, train: bool = False,
+                    generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Stack forward: ``x_in [B, T, E_in]`` (and ``x_kv [B, Tk, E_in]`` in
-    cross mode) -> ``[B, T, E_in]``, zeros kept at masked channels."""
-    if train:
-        raise NotImplementedError(TRAIN_TODO)
+    cross mode) -> ``[B, T, E_in]``, zeros kept at masked channels.  In
+    train mode every dropout draws from ``generator``."""
     cm = masks.channel_mask
     scale = math.sqrt(hp.embed_dim_in)  # full width even under masks
     if cm is None:
@@ -104,11 +111,15 @@ def encoder_forward(params: dict, x_in: torch.Tensor,
         first_active = torch.argmax((cm > 0).float()).reshape(1)
         feat0 = x_in.index_select(-1, first_active).squeeze(-1)
     x = scale * x_in + sinusoidal_pe(make_positions(feat0), hp.embed_dim_in, cm)
+    x = dropout(x, hp.embed_dropout, train, generator)
 
-    kv = None
+    x_k = x_v = None
     if x_kv is not None:
         pe_kv = sinusoidal_pe(make_positions(x_kv[:, :, 0]), hp.embed_dim_in, None)
         kv = scale * x_kv + pe_kv
+        # independent draws for k and v; one tensor when there is no draw
+        x_k = dropout(kv, hp.embed_dropout, train, generator)
+        x_v = dropout(kv, hp.embed_dropout, train, generator)
 
     attn_bias = None
     tq = x.shape[1]
@@ -118,5 +129,7 @@ def encoder_forward(params: dict, x_in: torch.Tensor,
         attn_bias = future_mask(tq, tk, device=x.device)
 
     for lp, gate in zip(params["layers"], masks.layer_gates):
-        x = torch.where(gate > 0, _layer_forward(lp, x, kv, masks, attn_bias), x)
+        y = _layer_forward(lp, x, x_k, x_v, hp, masks, attn_bias, attn_rate, train,
+                           generator)
+        x = torch.where(gate > 0, y, x)
     return masked_layer_norm(x, params["ln"]["g"], params["ln"]["b"], cm)

@@ -1,70 +1,105 @@
-"""Load weights saved under the reference's parameter names.
+"""Weights under the reference's parameter names, both ways.
 
 Counterpart of the name mapping in ``multimodal_transformer_robustness_tpu/
 checkpoint.py`` (``export_torch_state_dict`` / ``import_torch_state_dict``).
-The kernels' operand layouts are made here, once per load: the K1 GRU
-operands (``wp [3, in, H]``, ``wt [3, H, H]``, ``bc``, ``bhn``) and the
-transposed BERT weights.
+The port's parameters keep the reference layout (GRU ``w_ih / w_hh / b_ih /
+b_hh``, the packed attention in-projection viewed ``[3, H, Dh, E_in]``), so
+the two directions are reshapes; only the frozen BERT is turned into the
+kernels' layout, once per load.  The reference's dead ``translation``
+linears are neither loaded nor exported: the forward never reads them.
 """
 
 from __future__ import annotations
 
-from typing import Mapping, Optional, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
-import torch
+import numpy as np
 
 from .config import ModelSpec
 from .models.bert import prepare_bert
-from .models.headers import CNN_TODO, rnn_level_params
 from .models.mult import as_f32, to_device
 
-
-def _rnn_from_sd(sd: Mapping, prefix: str) -> dict:
-    def t(name):
-        return as_f32(sd[name])
-
-    rnn = {}
-    for torch_g, ours in (("lstm1", "gru1"), ("lstm2", "gru2")):
-        level = {}
-        for suffix, dirn in (("", "fwd"), ("_reverse", "bwd")):
-            level[dirn] = {
-                "w_ih": t(f"{prefix}.{torch_g}.weight_ih_l0{suffix}"),
-                "w_hh": t(f"{prefix}.{torch_g}.weight_hh_l0{suffix}"),
-                "b_ih": t(f"{prefix}.{torch_g}.bias_ih_l0{suffix}"),
-                "b_hh": t(f"{prefix}.{torch_g}.bias_hh_l0{suffix}"),
-            }
-        rnn[ours] = rnn_level_params(level)
-    return rnn
+_GRU_NAMES = (("lstm1", "gru1"), ("lstm2", "gru2"))
+_DIR_NAMES = (("", "fwd"), ("_reverse", "bwd"))
+_GRU_LEAVES = (("weight_ih_l0", "w_ih"), ("weight_hh_l0", "w_hh"),
+               ("bias_ih_l0", "b_ih"), ("bias_hh_l0", "b_hh"))
 
 
-def _encoder_from_sd(sd: Mapping, prefix: str, spec: ModelSpec, layers: int) -> dict:
-    H, Dh = spec.num_heads, spec.head_dim
+def _header_prefixes(spec: ModelSpec, i: int) -> Tuple[Optional[str], str]:
+    """(conv name prefix or None, RNN name prefix) of header ``i``: the
+    reference's Sequential member indices per header kind."""
+    kind = spec.header_kind(spec.modality_set[i])
+    if kind == "cnn_rnn":
+        return f"proj.{i}.0.cnn1", f"proj.{i}.1"
+    return None, f"proj.{i}.{1 if kind == 'bert_rnn' else 0}"
 
-    def t(name):
-        return as_f32(sd[name])
 
-    per_layer = []
+def _encoder_leaves(prefix: str, layers: int):
+    """(reference name, path in the port's encoder dict) for every leaf."""
+    out = []
     for l in range(layers):
-        p = f"{prefix}.layers.{l}"
-        w_in = t(f"{p}.self_attn.in_proj_weight")
-        e_in = w_in.shape[1]
-        per_layer.append({
-            "attn": {
-                "in_proj_w": w_in.reshape(3, H, Dh, e_in),
-                "in_proj_b": t(f"{p}.self_attn.in_proj_bias").reshape(3, H, Dh),
-                "out_w": t(f"{p}.self_attn.out_proj.weight").reshape(e_in, H, Dh),
-                "out_b": t(f"{p}.self_attn.out_proj.bias"),
-            },
-            "fc1": {"w": t(f"{p}.fc1.l.weight"), "b": t(f"{p}.fc1.l.bias")},
-            "fc2": {"w": t(f"{p}.fc2.l.weight"), "b": t(f"{p}.fc2.l.bias")},
-            "ln0": {"g": t(f"{p}.layer_norms.0.ln.weight"),
-                    "b": t(f"{p}.layer_norms.0.ln.bias")},
-            "ln1": {"g": t(f"{p}.layer_norms.1.ln.weight"),
-                    "b": t(f"{p}.layer_norms.1.ln.bias")},
-        })
-    return {"layers": per_layer,
-            "ln": {"g": t(f"{prefix}.layer_norm.ln.weight"),
-                   "b": t(f"{prefix}.layer_norm.ln.bias")}}
+        p, q = f"{prefix}.layers.{l}", ("layers", l)
+        out += [(f"{p}.self_attn.in_proj_weight", q + ("attn", "in_proj_w")),
+                (f"{p}.self_attn.in_proj_bias", q + ("attn", "in_proj_b")),
+                (f"{p}.self_attn.out_proj.weight", q + ("attn", "out_w")),
+                (f"{p}.self_attn.out_proj.bias", q + ("attn", "out_b")),
+                (f"{p}.fc1.l.weight", q + ("fc1", "w")), (f"{p}.fc1.l.bias", q + ("fc1", "b")),
+                (f"{p}.fc2.l.weight", q + ("fc2", "w")), (f"{p}.fc2.l.bias", q + ("fc2", "b")),
+                (f"{p}.layer_norms.0.ln.weight", q + ("ln0", "g")),
+                (f"{p}.layer_norms.0.ln.bias", q + ("ln0", "b")),
+                (f"{p}.layer_norms.1.ln.weight", q + ("ln1", "g")),
+                (f"{p}.layer_norms.1.ln.bias", q + ("ln1", "b"))]
+    return out + [(f"{prefix}.layer_norm.ln.weight", ("ln", "g")),
+                  (f"{prefix}.layer_norm.ln.bias", ("ln", "b"))]
+
+
+def _named_leaves(spec: ModelSpec):
+    """Every (reference name, path into the port's params) pair, in the
+    reference's module order."""
+    out = []
+    for i in range(spec.modality_num):
+        cnn, rnn = _header_prefixes(spec, i)
+        if cnn is not None:
+            out.append((f"{cnn}.weight", ("proj", i, "cnn", "w")))
+        for torch_g, ours in _GRU_NAMES:
+            for suffix, dirn in _DIR_NAMES:
+                out += [(f"{rnn}.{torch_g}.{leaf}{suffix}", ("proj", i, "rnn", ours, dirn, k))
+                        for leaf, k in _GRU_LEAVES]
+    stacks = ([("mems0", j, f"trans_mems0.mems0{ch}", spec.layers_single_attn)
+               for j, ch in enumerate(spec.modality_set)]
+              + [("cross", j, f"trans.cross{s}", spec.layers_cross_attn)
+                 for j, s in enumerate(spec.cross_strings)]
+              + [("mems", j, f"trans_mems.mems{ch}", spec.layers_self_attn)
+                 for j, ch in enumerate(spec.modality_set)])
+    for group, j, prefix, layers in stacks:
+        out += [(name, (group, j) + path) for name, path in _encoder_leaves(prefix, layers)]
+    for lin in ("proj1", "proj2", "out_layer"):
+        out += [(f"{lin}.l.weight", (lin, "w")), (f"{lin}.l.bias", (lin, "b"))]
+    return out
+
+
+def _get(tree, path):
+    for k in path:
+        tree = tree[k]
+    return tree
+
+
+def _empty_tree(spec: ModelSpec) -> dict:
+    def enc(layers):
+        return {"layers": [{"attn": {}, "fc1": {}, "fc2": {}, "ln0": {}, "ln1": {}}
+                           for _ in range(layers)], "ln": {}}
+
+    proj = []
+    for i in range(spec.modality_num):
+        h = {"rnn": {g: {d: {} for _, d in _DIR_NAMES} for _, g in _GRU_NAMES}}
+        if _header_prefixes(spec, i)[0] is not None:
+            h["cnn"] = {}
+        proj.append(h)
+    return {"proj": proj,
+            "mems0": [enc(spec.layers_single_attn) for _ in spec.modality_set],
+            "cross": [enc(spec.layers_cross_attn) for _ in spec.cross_strings],
+            "mems": [enc(spec.layers_self_attn) for _ in spec.modality_set],
+            "proj1": {}, "proj2": {}, "out_layer": {}}
 
 
 def load_reference_state_dict(spec: ModelSpec, sd: Mapping,
@@ -76,25 +111,36 @@ def load_reference_state_dict(spec: ModelSpec, sd: Mapping,
     ``sd`` maps reference names to arrays (numpy or tensors), as
     ``checkpoint.export_torch_state_dict`` writes them.  ``bert`` is the
     frozen BERT in HF layout, layers stacked ``[L, ...]`` (the JAX package's
-    ``frozen["bert"]``), or None for a model without a text header.  The
-    dead translation weights are not loaded: the forward never reads them.
+    ``frozen["bert"]``), or None for a model without a text header.
     """
-    proj = []
-    for i, ch in enumerate(spec.modality_set):
-        kind = spec.header_kind(ch)
-        if kind == "cnn_rnn":
-            raise NotImplementedError(CNN_TODO)
-        proj.append({"rnn": _rnn_from_sd(sd, f"proj.{i}.{1 if kind == 'bert_rnn' else 0}")})
-    params = {
-        "proj": proj,
-        "mems0": [_encoder_from_sd(sd, f"trans_mems0.mems0{ch}", spec,
-                                   spec.layers_single_attn) for ch in spec.modality_set],
-        "cross": [_encoder_from_sd(sd, f"trans.cross{s}", spec, spec.layers_cross_attn)
-                  for s in spec.cross_strings],
-        "mems": [_encoder_from_sd(sd, f"trans_mems.mems{ch}", spec, spec.layers_self_attn)
-                 for ch in spec.modality_set],
-    }
-    for name in ("proj1", "proj2", "out_layer"):
-        params[name] = {"w": sd[f"{name}.l.weight"], "b": sd[f"{name}.l.bias"]}
+    H, Dh = spec.num_heads, spec.head_dim
+    params = _empty_tree(spec)
+    for name, path in _named_leaves(spec):
+        a = as_f32(sd[name])
+        if path[-1] == "in_proj_w":
+            a = a.reshape(3, H, Dh, -1)
+        elif path[-1] == "in_proj_b":
+            a = a.reshape(3, H, Dh)
+        elif path[-1] == "out_w":
+            a = a.reshape(-1, H, Dh)
+        _get(params, path[:-1])[path[-1]] = a
     frozen = {"bert": prepare_bert(bert, device)} if bert is not None else {}
     return to_device(params, device), frozen
+
+
+def export_reference_state_dict(spec: ModelSpec, params: dict) -> Dict[str, np.ndarray]:
+    """The port's parameters (or a tree of the same shape, e.g. their
+    gradients) -> numpy arrays under the reference's names, the inverse of
+    :func:`load_reference_state_dict`."""
+    e = spec.embed_dim
+    out = {}
+    for name, path in _named_leaves(spec):
+        a = _get(params, path).detach().cpu().numpy()
+        if path[-1] == "in_proj_w":
+            a = a.reshape(3 * e, -1)
+        elif path[-1] == "in_proj_b":
+            a = a.reshape(3 * e)
+        elif path[-1] == "out_w":
+            a = a.reshape(-1, e)
+        out[name] = a
+    return out

@@ -6,7 +6,9 @@ so on the card they run without the JAX conftest:
 ``python -m pytest tests/test_torch_kernels_gpu.py -m gpu --noconftest -q``.
 Float32 with TF32 off; atol = rtol = 1e-4 for K1 and K3 (summation order),
 1e-3 for K2 (the additive -10000 key bias leaves masked logits only 2**-10
-apart in float32).
+apart in float32).  K1b's gradients are held to 1e-4 of each gradient's
+max |ref|: they are sums over T*B rows, split-K partials on the card against
+cuBLAS in the plain version, and dx chains back through every step.
 """
 
 import numpy as np
@@ -106,3 +108,49 @@ def test_ffn_ln_kernel_matches_plain(cuda, rows, h, ffn):
     torch.cuda.synchronize()
     ref = bert_ffn_cuda.ffn_ln_block_plain(*args, eps=1e-12)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("need_dx", [True, False])
+@pytest.mark.parametrize("B,T,I,H", [(1, 8, 768, 100), (67, 50, 200, 100), (3, 5, 7, 12)])
+def test_gru_dir_bwd_kernel_matches_plain(cuda, B, T, I, H, need_dx):
+    rng = np.random.default_rng(6)
+    tp = gru_torch_layout(rng, I, H)
+    x = torch.from_numpy(rng.standard_normal((T, B, I)).astype(np.float32)).to(cuda)
+    dhs = torch.from_numpy(rng.standard_normal((T, B, H)).astype(np.float32)).to(cuda)
+    for d, rev in (("fwd", False), ("bwd", True)):
+        ops = {k: v.to(cuda) for k, v in bigru_cuda.dir_operands(tp[d]).items()}
+        args = (x, ops["wp"], ops["wt"], ops["bc"], ops["bhn"])
+        hs, gates = bigru_cuda._launch_fwd(*args, rev)
+        n0 = bigru_cuda.gru_dir_bwd.launches
+        got = bigru_cuda.gru_dir_bwd(*args, hs, gates, dhs, rev, need_dx)
+        torch.cuda.synchronize()
+        assert bigru_cuda.gru_dir_bwd.launches == n0 + 1
+        assert (got[0] is None) == (not need_dx)
+        ref = bigru_cuda.gru_dir_bwd_plain(*args, hs, gates, dhs, rev, need_dx)
+        again = bigru_cuda.gru_dir_bwd(*args, hs, gates, dhs, rev, need_dx)
+        for a, r, b in zip(got, ref, again):
+            if r is None:
+                continue
+            scale = r.abs().max().item()
+            torch.testing.assert_close(a, r, atol=1e-4 * scale, rtol=0)
+            assert torch.equal(a, b)           # no float atomics: the same bits
+
+
+@pytest.mark.gpu
+def test_gru_dir_autograd_on_card_matches_cpu(cuda):
+    """``GruDir`` (K1 forward, K1b backward) against the same function on
+    the CPU (the plain versions), values and every gradient."""
+    rng = np.random.default_rng(7)
+    tp = gru_torch_layout(rng, 20, 16)
+    x = torch.from_numpy(rng.standard_normal((9, 5, 20)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda):
+        p = {d: {k: v.clone().to(dev).requires_grad_(True) for k, v in w.items()}
+             for d, w in tp.items()}
+        xd = x.clone().to(dev).requires_grad_(True)
+        y = bigru_cuda.bigru_level_tmajor(p, xd, need_dx=True)
+        y.square().sum().backward()
+        out[str(dev)] = [y, xd.grad] + [p[d][k].grad for d in p for k in p[d]]
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)

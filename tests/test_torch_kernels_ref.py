@@ -43,9 +43,8 @@ def test_bigru_plain_matches_pallas_interpret(B, T, I, H):
     jp, tp = _gru_params(0, I, H)
     x_t = rng.standard_normal((T, B, I)).astype(np.float32)
     ref = bigru_level_tmajor(jp, jnp.asarray(x_t), interpret=True)
-    ops = {d: bigru_cuda.dir_operands(tp[d]) for d in ("fwd", "bwd")}
     n0 = bigru_cuda.gru_dir.launches
-    out = bigru_cuda.bigru_level_tmajor(ops, torch.from_numpy(x_t))
+    out = bigru_cuda.bigru_level_tmajor(tp, torch.from_numpy(x_t))
     assert bigru_cuda.gru_dir.launches == n0   # the CPU path launches nothing
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
     np.testing.assert_allclose(bigru_cuda.bigru_finals_tmajor(out).numpy(),

@@ -210,12 +210,29 @@ def test_encoder_forward_matches(mode, t, tk):
     _close(out, ref)
 
 
-def test_encoder_train_mode_raises():
-    hp = tenc.EncoderHParams(embed_dim_in=4, num_heads=1, head_dim=4, layers=0)
-    m = tenc.EncoderMasks(torch.ones(0), torch.ones(1), torch.ones(4), torch.ones(16))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tenc.encoder_forward({"layers": [], "ln": {}}, torch.zeros(1, 1, 4),
-                             hp=hp, masks=m, train=True)
+def test_encoder_train_mode_runs():
+    """Train mode with nonzero rates draws from the generator: finite,
+    repeatable from its seed, different from eval mode."""
+    rng = np.random.default_rng(6)
+    E, H, Dh, L = 12, 2, 4, 2
+    jhp = jenc.EncoderHParams(embed_dim_in=E, num_heads=H, head_dim=Dh, layers=L)
+    params = _stack_layers(jenc.init_encoder(jax.random.PRNGKey(3), jhp))
+    m = tenc.EncoderMasks(torch.ones(L), torch.ones(H), torch.ones(Dh),
+                          torch.ones(4 * H * Dh))
+    hp = tenc.EncoderHParams(embed_dim_in=E, num_heads=H, head_dim=Dh, layers=L,
+                             attn_mask=True, relu_dropout=0.1, res_dropout=0.1,
+                             embed_dropout=0.3)
+    x = torch.from_numpy(rng.standard_normal((64, 1, E)).astype(np.float32))
+    kv = torch.from_numpy(rng.standard_normal((64, 1, E)).astype(np.float32))
+
+    def run(train):
+        return tenc.encoder_forward(params, x, kv, hp=hp, masks=m, attn_rate=0.2,
+                                    train=train, generator=torch.Generator().manual_seed(0))
+
+    a = run(True)
+    assert a.shape == x.shape and torch.isfinite(a).all()
+    torch.testing.assert_close(a, run(True), atol=0, rtol=0)
+    assert not torch.allclose(a, run(False))
 
 
 def test_bigru_forward_matches():
