@@ -12,8 +12,11 @@ Phases, each fatal on failure:
                 the serving and training paths' shapes; max abs error against
                 the stated tolerance; median CUDA-event ms of the kernel, of
                 the plain version and, where one PyTorch call computes the
-                same function (cuDNN's GRU for K1 / K1b), of that call; K1b
-                is also run twice to show bit-identical gradients;
+                same function (cuDNN's GRU for K1 / K1b, scaled_dot_product_
+                attention for K6a), of that call; K1b is also run twice to
+                show bit-identical gradients; K4's int32 products are checked
+                exact and its flipped hidden codes counted; the int8 GEMM
+                (qdot) exact at M=8 and M=131,072;
   4. serving  - StreamingPredictor at the reference's MOSEI serving
                 configuration (d=200, 8x25 heads, layers 3/4/2, 4-layer
                 BERT-base-width text encoder, random weights from seed 0)
@@ -28,9 +31,22 @@ Phases, each fatal on failure:
                 steps, then 5 timed steps with launch counters per step, the
                 step time broken down by CUDA events;
   7. train-vs-cpu - one step's loss and every gradient at B=8, card against
-                CPU, dropout off.
-Then one JSON line with the kernels' results, and the last line
-``{"ok": true, "device": {...}}``.
+                CPU, dropout off;
+  8. serving-int8 - phase 4 with StreamingPredictor(bert_int8=True): int8
+                fc1 / fc2 through K4, float attention through K2;
+  9. serving-dense - phase 4 with models.bert.ATTN_IMPL = "dense": plain
+                q/k/v projections, K6a, K6b, K3;
+ 10. bert-int8-full - one frozen-BERT forward with every projection int8
+                (quantize_bert_params(attn=True)) at B=8, L=32, card vs CPU;
+ 11. train-int8 - phase 6 with the int8 frozen BERT (K2 + K4);
+ 12. train-cached - the frozen-BERT features precomputed once
+                (train/features.py), then phase 6 on them: no BERT kernel;
+ 13. cached-vs-online - one step on features and one on tokens at B=8,
+                dropout off: equal losses and gradients.
+Every phase sets the launch counters to 0 just before it drives its path
+and fails unless each kernel of the path ran the expected number of times.
+Then the int8 projections' line, one JSON line with the kernels' results,
+and the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -55,7 +71,18 @@ import torch
 # each gradient: its weight gradients are sums over up to T*B = 204,800 rows,
 # added in another order than the plain version's (split-K partials against
 # cuBLAS), and dx and the dh carry chain 50 steps back.
-TOL = {"K1": 1e-4, "K1b": 1e-4, "K2": 1e-3, "K3": 1e-4}
+# K6a as K2 (the same attention stage and -10000 bias), K6b as K3 (a GEMM
+# and the row LayerNorm).  K4: its int32 products must be exact, and its
+# dequant and gelu epilogues are the plain version's operations in the same
+# order, so its hidden int8 codes should match; a code one float32 step from
+# a rounding edge may still flip, so the share of flipped codes is held to
+# 1e-3, and each output row to 1e-4 (the LayerNorm, summed in another order)
+# plus, per flipped code in the row, twice the largest move one code can make
+# (sg * max|w2| through the LayerNorm: * max|ln_g| / the row's std); see
+# k4_row_bound.
+TOL = {"K1": 1e-4, "K1b": 1e-4, "K2": 1e-3, "K3": 1e-4, "K4": 1e-4, "K6a": 1e-3,
+       "K6b": 1e-4}
+K4_MAX_FLIP_SHARE = 1e-3
 SERVE_TOL = 1e-3   # end-to-end sentiment, card against CPU
 # one training step, card against CPU: the loss relative, each gradient
 # normalised by its max |ref| (plus 1e-6 absolute for all-but-zero ones);
@@ -64,8 +91,9 @@ SERVE_TOL = 1e-3   # end-to-end sentiment, card against CPU
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
 
 # H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA cores, not the
-# tensor cores, since every kernel here is a float32 FMA kernel; HBM3 rate
-PEAK_F32_FLOPS, PEAK_BYTES = 67e12, 3.35e12
+# tensor cores, since every float kernel here is a float32 FMA kernel; the
+# int8 tensor cores for K4's products; HBM3 rate
+PEAK_F32_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 67e12, 1979e12, 3.35e12
 # the 7 non-empty modality subsets (bench.py's training pool)
 POOL = [[0], [1], [2], [0, 1], [0, 2], [1, 2], [0, 1, 2]]
 PKG = "multimodal_transformer_robustness_tpu_torch"
@@ -98,9 +126,9 @@ def errors(out: torch.Tensor, ref: torch.Tensor):
     return diff, diff / max(ref.abs().max().item(), 1e-30)
 
 
-def bound(flops: float, nbytes: float):
+def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
     """The least time the card could take: (ms, what bounds it)."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -123,6 +151,20 @@ def k2_work(B, L, h):
 
 def k3_work(B, L, h, f):
     return 4 * B * L * h * f, 4 * (2 * B * L * h + 2 * h * f + f + 3 * h)
+
+
+def k4_work(R, h, f):
+    """int8 operations of the two products; float32 rows in and out, int8
+    weights, float32 scales, biases and LN parameters."""
+    return 4 * R * h * f, 4 * 2 * R * h + 2 * h * f + 4 * (2 * f + 4 * h)
+
+
+def k6a_work(B, L, h):
+    return 4 * B * L * L * h, 4 * (4 * B * L * h + B * L)
+
+
+def k6b_work(R, h):
+    return 2 * R * h * h, 4 * (3 * R * h + h * h + 3 * h)
 
 
 def gru_weights(rng, in_dim, H, dev):
@@ -235,8 +277,156 @@ def check_kernels(dev, rng):
                lambda: bert_ffn_cuda.ffn_ln_block_plain(*f_args, eps=eps),
                work=k3_work(B, L, h, ffn) if timed else None, iters=iters)
         del out, ref, x
+    rows += check_bert_variants(dev, rng, t, record, failures)
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
+    return rows
+
+
+def k4_row_bound(x, codes, scales, w2, b2, ln_g, flips_per_row):
+    """Per row, the most K4's output may differ from its plain version's:
+    TOL["K4"] plus, for each flipped hidden code, twice the largest move of
+    one code (its step sg * max|w2| in y, through the LayerNorm: * max|ln_g|
+    / the row's std)."""
+    from multimodal_transformer_robustness_tpu_torch.ops import bert_ffn_cuda
+
+    rows = x.reshape(-1, x.shape[-1])
+    s = rows + bert_ffn_cuda.qdot_plain(codes, scales, w2, b2)
+    w2max = (w2["q"].float() * w2["s"][:, None]).abs().max()
+    step = scales[:, 0] * w2max * ln_g.abs().max() / s.std(dim=-1, unbiased=False)
+    return TOL["K4"] + 2.0 * flips_per_row * step
+
+
+def check_bert_variants(dev, rng, t, record, failures,
+                        shapes=((1, 8), (1, 32), (1, 128), (1, 512), (4096, 32)),
+                        qdot_rows=(8, 131072)):
+    """K4, K6a and K6b against their plain versions at the serving rows
+    (B=1, L in {8, 32, 128, 512}) and the training shape (B=4096, L=32), at
+    BERT-base width; K4's int32 products and row quantization exact, its
+    flipped hidden codes counted.  Then the int8 GEMM (qdot) exact at M=8
+    and M=131,072."""
+    import torch.nn.functional as F
+
+    from multimodal_transformer_robustness_tpu_torch.models.bert import _quantize
+    from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bert_ffn_cuda
+
+    rows = []
+    h, ffn, heads, eps = 768, 3072, 12, 1e-12
+    w1q = _quantize(t(rng.standard_normal((ffn, h)) * 0.02))
+    w2q = _quantize(t(rng.standard_normal((h, ffn)) * 0.02))
+    b1, b2 = t(rng.standard_normal(ffn) * 0.02), t(rng.standard_normal(h) * 0.02)
+    wo_t, bo = t(rng.standard_normal((h, h)) * 0.02), t(rng.standard_normal(h) * 0.02)
+    g, b = t(1.0 + 0.1 * rng.standard_normal(h)), t(0.1 * rng.standard_normal(h))
+    for B, L in shapes:
+        R = B * L
+        x = t(rng.standard_normal((B, L, h)))
+        timed = (B, L) in ((1, 8), (4096, 32))
+        iters = 5 if B == 4096 else 20
+        shape = f"B={B} L={L} h={h}"
+
+        # K4: int32 products exact, row quantization bit-identical, flipped codes
+        k_args = (x, w1q, b1, w2q, b2, g, b)
+        out, codes, scales = bert_ffn_cuda.ffn_ln_block_q(*k_args, eps=eps, return_codes=True)
+        torch.cuda.synchronize()
+        ref, ref_codes, ref_scales = bert_ffn_cuda.ffn_ln_block_q_plain(*k_args, eps=eps,
+                                                                        return_codes=True)
+        xq, sx = bert_ffn_cuda.qrows(x)
+        pxq, psx = bert_ffn_cuda.qrows_plain(x)
+        exact = (torch.equal(xq, pxq) and torch.equal(sx, psx)
+                 and torch.equal(bert_ffn_cuda.int8_matmul(xq, w1q["q"]),
+                                 bert_ffn_cuda.int8_matmul_plain(pxq, w1q["q"]).to(torch.int32))
+                 and torch.equal(bert_ffn_cuda.int8_matmul(ref_codes, w2q["q"]),
+                                 bert_ffn_cuda.int8_matmul_plain(ref_codes, w2q["q"])
+                                 .to(torch.int32)))
+        flipped = codes != ref_codes
+        share = flipped.float().mean().item()
+        limit = k4_row_bound(x, ref_codes, ref_scales, w2q, b2, g, flipped.sum(-1))
+        row_err = (out - ref).reshape(R, h).abs().amax(-1)
+        within = bool((row_err <= limit).all()) and bool(torch.isfinite(out).all())
+        abs_err, rel_err = errors(out, ref)
+        ok = exact and share <= K4_MAX_FLIP_SHARE and within
+        row = dict(kid="K4", shape=f"{shape} ffn={ffn}", abs=abs_err, rel=rel_err,
+                   int32_exact=exact, flipped_share=share, bound_abs=limit.max().item())
+        msg = (f"K4 {row['shape']}: int32 products and row codes exact {exact}; flipped "
+               f"hidden codes {int(flipped.sum())} of {flipped.numel()} (share {share:.2e}, "
+               f"limit {K4_MAX_FLIP_SHARE:g}); max_abs {abs_err:.3e} (limit per row "
+               f"<= {row['bound_abs']:.3e}) {'ok' if ok else 'FAIL'}")
+        if timed:
+            row.update(ms=cuda_ms(lambda: bert_ffn_cuda.ffn_ln_block_q(*k_args, eps=eps), iters),
+                       plain_ms=cuda_ms(lambda: bert_ffn_cuda.ffn_ln_block_q_plain(
+                           *k_args, eps=eps), iters), library_ms=None)
+            row["bound_ms"], row["bound_by"] = bound(*k4_work(R, h, ffn), peak=PEAK_INT8_OPS)
+            msg += (f"  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
+                    f"library none  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
+        print(msg, flush=True)
+        rows.append(row)
+        if not ok:
+            failures.append(f"K4 {row['shape']}")
+        del out, ref, codes, ref_codes, xq, pxq
+
+        # K6a: projected q/k/v; B=1 all keys masked (the serving path's
+        # mask/type-id swap), B>1 ragged with item 0 fully masked
+        q, k, v = (t(rng.standard_normal((B, L, heads, h // heads))) for _ in range(3))
+        mask = np.zeros((B, L), np.float32)
+        for i in range(1, B):
+            mask[i, : rng.integers(1, L + 1)] = 1.0
+        mask = t(mask)
+        key_bias = ((1.0 - mask) * -10000.0)[:, None, None, :]
+        qt, kt, vt = (a.transpose(1, 2) for a in (q, k, v))
+
+        def library():
+            return F.scaled_dot_product_attention(qt, kt, vt, attn_mask=key_bias)
+
+        out = bert_attn_cuda.dense_attention_blockdiag(q, k, v, mask)
+        torch.cuda.synchronize()
+        ref = bert_attn_cuda.dense_attention_plain(q, k, v, mask)
+        lib_err = (library().transpose(1, 2).reshape(B, L, h) - ref).abs().max().item()
+        print(f"  scaled_dot_product_attention vs plain at {shape}: max_abs {lib_err:.3e}",
+              flush=True)
+        record("K6a", shape, out, ref,
+               lambda: bert_attn_cuda.dense_attention_blockdiag(q, k, v, mask),
+               lambda: bert_attn_cuda.dense_attention_plain(q, k, v, mask),
+               work=k6a_work(B, L, h) if timed else None, library_fn=library, iters=iters)
+        del out, ref, q, k, v, qt, kt, vt
+
+        # K6b: o-proj + residual + LN1
+        a = t(rng.standard_normal((B, L, h)))
+        p_args = (x, a, wo_t, bo, g, b)
+        out = bert_ffn_cuda.proj_ln_block(*p_args, eps=eps)
+        torch.cuda.synchronize()
+        ref = bert_ffn_cuda.proj_ln_block_plain(*p_args, eps=eps)
+        record("K6b", shape, out, ref, lambda: bert_ffn_cuda.proj_ln_block(*p_args, eps=eps),
+               lambda: bert_ffn_cuda.proj_ln_block_plain(*p_args, eps=eps),
+               work=k6b_work(R, h) if timed else None, iters=iters)
+        del out, ref, a, x
+
+    # the int8 GEMM of the fully quantized BERT's projections: exact int32
+    # products, and the dequant + bias epilogue as the plain version's
+    wq = _quantize(t(rng.standard_normal((h, h)) * 0.02))
+    bias = t(rng.standard_normal(h) * 0.02)
+    for M in qdot_rows:
+        xq, sx = bert_ffn_cuda.qrows(t(rng.standard_normal((M, h))))
+        acc = bert_ffn_cuda.int8_matmul(xq, wq["q"])
+        out = bert_ffn_cuda.qdot(xq, sx, wq, bias)
+        torch.cuda.synchronize()
+        exact = torch.equal(acc, bert_ffn_cuda.int8_matmul_plain(xq, wq["q"]).to(torch.int32))
+        err = (out - bert_ffn_cuda.qdot_plain(xq, sx, wq, bias)).abs().max().item()
+        row = dict(kid="qdot", shape=f"M={M} K={h} N={h}", abs=err, rel=0.0, int32_exact=exact)
+        it = 5 if M > 8 else 20
+        row.update(ms=cuda_ms(lambda: bert_ffn_cuda.qdot(xq, sx, wq, bias), it),
+                   plain_ms=cuda_ms(lambda: bert_ffn_cuda.qdot_plain(xq, sx, wq, bias), it),
+                   library_ms=None)
+        row["bound_ms"], row["bound_by"] = bound(2 * M * h * h, M * h + h * h + 4 * (M + 2 * h + M * h),
+                                                 peak=PEAK_INT8_OPS)
+        ok = exact and err == 0.0
+        print(f"qdot {row['shape']}: int32 products exact {exact}; max_abs vs plain {err:.3e} "
+              f"(limit 0: the same operations in the same order) {'ok' if ok else 'FAIL'}  "
+              f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound "
+              f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+        rows.append(row)
+        if not ok:
+            failures.append(f"qdot {row['shape']}")
+        del xq, sx, acc, out
     return rows
 
 
@@ -319,7 +509,16 @@ def counters():
     from multimodal_transformer_robustness_tpu_torch.ops import bigru_cuda
 
     return {"K1": bigru_cuda.gru_dir, "K1b": bigru_cuda.gru_dir_bwd,
-            "K2": bert_attn_cuda.attention_block_fused, "K3": bert_ffn_cuda.ffn_ln_block}
+            "K2": bert_attn_cuda.attention_block_fused, "K3": bert_ffn_cuda.ffn_ln_block,
+            "K4": bert_ffn_cuda.ffn_ln_block_q,
+            "K6a": bert_attn_cuda.dense_attention_blockdiag,
+            "K6b": bert_ffn_cuda.proj_ln_block,
+            "qrows": bert_ffn_cuda.qrows, "qdot": bert_ffn_cuda.qdot}
+
+
+def expect(**counts):
+    """Expected launch counts: the given ones, 0 for every other kernel."""
+    return {k: counts.get(k, 0) for k in counters()}
 
 
 def reset_counters():
@@ -340,23 +539,48 @@ def plain_kernels():
     from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bert_ffn_cuda
     from multimodal_transformer_robustness_tpu_torch.ops import bigru_cuda
 
-    saved = (bigru_cuda._launch_fwd, bert_mod.attention_block_fused, bert_mod.ffn_ln_block)
+    plain = {"attention_block_fused": bert_attn_cuda.attention_block_plain,
+             "ffn_ln_block": bert_ffn_cuda.ffn_ln_block_plain,
+             "ffn_ln_block_q": bert_ffn_cuda.ffn_ln_block_q_plain,
+             "dense_attention_blockdiag": bert_attn_cuda.dense_attention_plain,
+             "proj_ln_block": bert_ffn_cuda.proj_ln_block_plain,
+             "qrows": bert_ffn_cuda.qrows_plain, "qdot": bert_ffn_cuda.qdot_plain}
+    saved = {name: getattr(bert_mod, name) for name in plain}
+    saved_fwd = bigru_cuda._launch_fwd
     bigru_cuda._launch_fwd = lambda x, wp, wt, bc, bhn, rev: (
         bigru_cuda.gru_dir_plain(x, wp, wt, bc, bhn, rev), None)
-    bert_mod.attention_block_fused = bert_attn_cuda.attention_block_plain
-    bert_mod.ffn_ln_block = bert_ffn_cuda.ffn_ln_block_plain
+    for name, fn in plain.items():
+        setattr(bert_mod, name, fn)
     try:
         yield
     finally:
-        bigru_cuda._launch_fwd, bert_mod.attention_block_fused, bert_mod.ffn_ln_block = saved
+        bigru_cuda._launch_fwd = saved_fwd
+        for name, fn in saved.items():
+            setattr(bert_mod, name, fn)
 
 
-def serve(dev):
+@contextmanager
+def attn_impl(value: str):
+    """Run the frozen BERT under ``models.bert.ATTN_IMPL = value``."""
+    from multimodal_transformer_robustness_tpu_torch.models import bert as bert_mod
+
+    saved, bert_mod.ATTN_IMPL = bert_mod.ATTN_IMPL, value
+    try:
+        yield
+    finally:
+        bert_mod.ATTN_IMPL = saved
+
+
+def serve(dev, label="serving", per_request=None, **options):
+    """StreamingPredictor(**options) at the MOSEI serving configuration:
+    ``per_request`` launches each (default: K1 12, K2 4, K3 4), card vs the
+    CPU plain path, warm ms through the kernels and through the plain
+    versions on the card."""
     from multimodal_transformer_robustness_tpu_torch.cli.realtime import StreamingPredictor
 
     t0 = time.perf_counter()
-    pred = StreamingPredictor(seed=0, device=dev)
-    print(f"predictor on {dev} built in {time.perf_counter() - t0:.1f} s "
+    pred = StreamingPredictor(seed=0, device=dev, **options)
+    print(f"{label}: predictor on {dev} built in {time.perf_counter() - t0:.1f} s "
           f"(spec d={pred.spec.dimension} heads={pred.spec.num_heads}x{pred.spec.head_dim} "
           f"layers={pred.spec.layers_single_attn}/{pred.spec.layers_cross_attn}/"
           f"{pred.spec.layers_self_attn}, BERT h={pred.bert_cfg.hidden_size} "
@@ -384,8 +608,8 @@ def serve(dev):
               f"vision T={vision.shape[1]}: sentiment {s:+.6f}  model {ms:.2f} ms",
               flush=True)
     n = len(requests)
-    expected = {"K1": 12 * n, "K1b": 0, "K2": 4 * n, "K3": 4 * n}
-    print(f"serving launches {launches} expected {expected}", flush=True)
+    expected = {k: v * n for k, v in (per_request or expect(K1=12, K2=4, K3=4)).items()}
+    print(f"{label} launches {launches} expected {expected}", flush=True)
     if launches != expected:
         raise RuntimeError(f"launch counts {launches} != {expected}")
     if not all(np.isfinite(card)):
@@ -395,16 +619,70 @@ def serve(dev):
     with plain_kernels():
         plain_ms = [1000 * _timed(lambda r=r: pred.forward(*r)) for r in requests]
     for (text, audio, vision), k_ms, p_ms in zip(requests, warm_ms, plain_ms):
-        print(f"warm request L={text.shape[2]} Ta={audio.shape[1]} Tv={vision.shape[1]}: "
+        print(f"{label} warm request L={text.shape[2]} Ta={audio.shape[1]} Tv={vision.shape[1]}: "
               f"kernels {k_ms:.2f} ms, plain PyTorch on the card {p_ms:.2f} ms", flush=True)
 
-    cpu = StreamingPredictor(seed=0, device="cpu")
+    cpu = StreamingPredictor(seed=0, device="cpu", **options)
     cpu_out = [cpu.forward(*r) for r in requests]
     diff = max(abs(a - b) for a, b in zip(card, cpu_out))
-    print(f"card vs CPU plain path: max abs diff {diff:.3e} (tol {SERVE_TOL:g})", flush=True)
-    if not diff <= SERVE_TOL:
+    print(f"{label} card vs CPU plain path: max abs diff {diff:.3e} (tol {SERVE_TOL:g}"
+          f"{'; int8: checked in two parts below' if options.get('bert_int8') else ''})",
+          flush=True)
+    if options.get("bert_int8"):
+        int8_serving_check(label, pred, cpu, requests, card)
+    elif not diff <= SERVE_TOL:
         raise RuntimeError(f"card and CPU disagree: {card} vs {cpu_out}")
     return pred, cpu, launches, warm_ms, plain_ms
+
+
+def int8_agree(out, ref, ref_float):
+    """(ok, relative error, the quantization's own relative error) of a
+    frozen BERT's int8 output on the card (``out``) against the CPU's
+    (``ref``), ``ref_float`` the CPU's output with the float weights.
+
+    The two sides' float32 activations differ in their last bits before each
+    row quantization (other summation orders), so now and then a code lands
+    one step apart.  One flipped activation code moves ~F/30 hidden codes of
+    its row across their rounding edges, and where the attention spreads a
+    row over the others (the serving path's mask/type-id swap puts the same
+    bias on every key), the next layer's codes flip in every row: the two
+    sides part like two draws of the quantization noise.  A kernel that
+    quantizes or accumulates wrongly is caught at the kernel phase, whose
+    codes and int32 products are exact; here the card's int8 output must
+    stay within the quantization's own error: ||out - ref|| <= ||ref -
+    ref_float||, relative to ||ref||."""
+    err = ((out - ref).norm() / ref.norm()).item()
+    qerr = ((ref - ref_float).norm() / ref_float.norm()).item()
+    return bool(torch.isfinite(out).all()) and err <= qerr, err, qerr
+
+
+def int8_serving_check(label, pred, cpu, requests, card):
+    """int8 serving, card vs CPU in two parts: the frozen BERT's features by
+    :func:`int8_agree` (against the same predictor's float weights); and the
+    rest of the model (GRU headers, trunk) from the card's features on both
+    sides, held to SERVE_TOL like the float path."""
+    from multimodal_transformer_robustness_tpu_torch.cli.realtime import StreamingPredictor
+    from multimodal_transformer_robustness_tpu_torch.models import supernet_apply
+    from multimodal_transformer_robustness_tpu_torch.models.headers import bert_text_features
+
+    cpu_float = StreamingPredictor(seed=0, device="cpu")
+    for (text, audio, vision), s_card in zip(requests, card):
+        with torch.inference_mode():
+            f_card = bert_text_features(pred.frozen, pred.bert_cfg,
+                                        torch.as_tensor(text, device=pred.device)).cpu()
+            f_cpu = bert_text_features(cpu.frozen, cpu.bert_cfg, torch.as_tensor(text))
+            f_float = bert_text_features(cpu_float.frozen, cpu.bert_cfg, torch.as_tensor(text))
+            rest = float(supernet_apply(cpu.spec, cpu.params, cpu.masks,
+                                        [f_card, torch.as_tensor(audio), torch.as_tensor(vision)],
+                                        frozen=cpu.frozen, bert_cfg=cpu.bert_cfg)[0, 0])
+        ok, err, qerr = int8_agree(f_card, f_cpu, f_float)
+        rest_diff = abs(s_card - rest)
+        print(f"{label} L={text.shape[2]}: BERT features card vs CPU relative error {err:.3e} "
+              f"(max abs {(f_card - f_cpu).abs().max():.3e}; limit: the int8 weights' own "
+              f"error vs float, {qerr:.3e}); the rest of the model from the card's features, "
+              f"CPU vs card: {rest_diff:.3e} (tol {SERVE_TOL:g})", flush=True)
+        if not (ok and rest_diff <= SERVE_TOL):
+            raise RuntimeError(f"{label}: card and CPU disagree at L={text.shape[2]}")
 
 
 def _timed(fn, repeats: int = 5) -> float:
@@ -472,25 +750,55 @@ def mosei():
     return spec, BertConfig(num_layers=4)
 
 
-def train(dev, spec, bert_cfg, B=4096, T=50, L=32, warmup=2, steps=5):
-    """Trainer.train_epoch at the training shapes; returns the per-step
-    launch counts and the step numbers."""
+def train(dev, spec, bert_cfg, label="train", per_step=None, bert_int8=False,
+          cached=False, B=4096, T=50, L=32, warmup=2, steps=5):
+    """Trainer.train_epoch at the training shapes: the frozen BERT in float
+    (default), int8 (``bert_int8``: fc1 / fc2 through K4) or run once ahead
+    on the batch (``cached``: train/features.py, the step gets features).
+    Returns the launch counts and the step numbers."""
     from multimodal_transformer_robustness_tpu_torch import build_masks, full_active_config
+    from multimodal_transformer_robustness_tpu_torch.data.loaders import Batch
     from multimodal_transformer_robustness_tpu_torch.models import init_supernet
+    from multimodal_transformer_robustness_tpu_torch.models.bert import quantize_bert_params
     from multimodal_transformer_robustness_tpu_torch.train import TrainHParams, Trainer
+    from multimodal_transformer_robustness_tpu_torch.train.features import (
+        precompute_text_features)
 
     params, frozen = init_supernet(torch.Generator().manual_seed(0), spec, bert_cfg)
+    if bert_int8:
+        frozen = dict(frozen, bert=quantize_bert_params(frozen["bert"], attn=False))
     hp = TrainHParams(batch_size=B, lr=1e-4, optim="Adam", criterion="L1Loss",
                       experiment_type="random_sample", modality_pool=POOL)
     trainer = Trainer(spec, params, frozen, hp, bert_cfg=bert_cfg, device=dev)
     del params, frozen
     batch = synthetic_batch(np.random.default_rng(0), B, T, L, bert_cfg.vocab_size,
                             spec.orig_dimensions[1:])
+    stats = {}
+    if cached:
+        # once per dataset: here the whole B=4096 batch, in chunks of 512
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        feats = precompute_text_features(trainer.frozen, bert_cfg, batch.inputs[0],
+                                         batch_size=512, device=dev)
+        stats["precompute_s"] = time.perf_counter() - t0
+        print(f"{label}: precompute_text_features over {B} rows (L={L}) in "
+              f"{stats['precompute_s']:.3f} s, features {feats.shape} float32 "
+              f"({feats.nbytes / 2**20:.1f} MiB); it runs once per dataset", flush=True)
+        batch = Batch(inputs=[feats] + batch.inputs[1:], labels=batch.labels,
+                      valid=batch.valid)
+    # the host feed: the batch's pageable upload, as train_epoch makes it
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    uploaded = [torch.as_tensor(x, device=trainer.device) for x in batch.inputs]
+    torch.cuda.synchronize()
+    stats["upload_ms"] = 1e3 * (time.perf_counter() - t0)
+    stats["upload_mib"] = sum(x.nbytes for x in batch.inputs) / 2**20
+    del uploaded
     masks = build_masks(spec, full_active_config(spec), device=trainer.device)
 
     t0 = time.perf_counter()
     _, masks = trainer.train_epoch([batch] * warmup, masks, epoch=0)
-    print(f"train warm-up: {warmup} steps in {time.perf_counter() - t0:.2f} s, losses "
+    print(f"{label} warm-up: {warmup} steps in {time.perf_counter() - t0:.2f} s, losses "
           f"{trainer.last_epoch_losses.tolist()}", flush=True)
 
     torch.cuda.synchronize()
@@ -504,28 +812,31 @@ def train(dev, spec, bert_cfg, B=4096, T=50, L=32, warmup=2, steps=5):
     peak = torch.cuda.max_memory_allocated()
     losses = trainer.last_epoch_losses
     step_ms = 1e3 * elapsed / steps
-    print(f"train B={B} T={T} L={L}: {steps} steps in {elapsed:.3f} s: step {step_ms:.1f} ms, "
+    print(f"{label} B={B} T={T} L={L}: {steps} steps in {elapsed:.3f} s: step {step_ms:.1f} ms, "
           f"{steps * B / elapsed:.1f} samples/s (host clock around train_epoch); "
           f"losses {losses.tolist()}, epoch loss {loss:.6f}; peak allocated "
-          f"{peak / 2**30:.2f} GiB", flush=True)
-    per_step = {k: v / steps for k, v in launches.items()}
-    expected = {"K1": 12, "K1b": 12, "K2": 4, "K3": 4}
-    print(f"train launches per step {per_step} (K1b without dx {no_dx / steps}) "
+          f"{peak / 2**30:.2f} GiB; batch upload {stats['upload_ms']:.1f} ms for "
+          f"{stats['upload_mib']:.0f} MiB", flush=True)
+    got = {k: v / steps for k, v in launches.items()}
+    expected = per_step or expect(K1=12, K1b=12, K2=4, K3=4)
+    print(f"{label} launches per step {got} (K1b without dx {no_dx / steps}) "
           f"expected {expected} (K1b without dx 6)", flush=True)
-    if per_step != expected or no_dx != 6 * steps:
-        raise RuntimeError(f"train launch counts {launches} (no dx {no_dx}) over {steps} steps")
+    if got != expected or no_dx != 6 * steps:
+        raise RuntimeError(f"{label} launch counts {launches} (no dx {no_dx}) over "
+                           f"{steps} steps")
     if not np.isfinite(losses).all() or len(losses) != steps:
         raise RuntimeError(f"non-finite training losses {losses}")
-    breakdown = train_breakdown(trainer, batch, masks)
+    breakdown = train_breakdown(trainer, batch, masks, label)
     return launches, dict(step_ms=step_ms, samples_per_s=steps * B / elapsed,
-                          peak_gib=peak / 2**30, losses=losses.tolist(), **breakdown)
+                          peak_gib=peak / 2**30, losses=losses.tolist(), **stats,
+                          **breakdown)
 
 
-def train_breakdown(trainer, batch, masks, repeats=3):
+def train_breakdown(trainer, batch, masks, label="train", repeats=3):
     """Where one step's time goes, by CUDA events over separate runs of its
-    parts: the frozen BERT (K2 + K3), the headers forward and backward (K1 +
-    K1b, BERT excluded), the optimizer (clip + Adam) and the rest (the
-    trunk forward and backward, the loss)."""
+    parts: the frozen BERT (K2 + K3 or K4; none on features), the headers
+    forward and backward (K1 + K1b, BERT excluded), the optimizer (clip +
+    Adam) and the rest (the trunk forward and backward, the loss)."""
     from multimodal_transformer_robustness_tpu_torch.models import supernet_headers
     from multimodal_transformer_robustness_tpu_torch.models.headers import bert_text_features
     from multimodal_transformer_robustness_tpu_torch.train.loop import tree_leaves
@@ -535,6 +846,7 @@ def train_breakdown(trainer, batch, masks, repeats=3):
     labels = torch.as_tensor(batch.labels, device=dev)
     valid = torch.as_tensor(batch.valid, device=dev)
     spec, params = trainer.spec, trainer.params
+    online = not torch.is_floating_point(inputs[0])
 
     def bert():
         bert_text_features(trainer.frozen, trainer.bert_cfg, inputs[0])
@@ -552,14 +864,15 @@ def train_breakdown(trainer, batch, masks, repeats=3):
         torch.nn.utils.clip_grad_norm_(tree_leaves(params), trainer.hp.clip)
         trainer.opt_state.step()
 
+    parts = [("step", step), ("headers_incl_bert", headers), ("optimizer", optimizer)]
     ms = {name: cuda_ms(fn, repeats, 1) for name, fn in
-          (("step", step), ("bert", bert), ("headers_incl_bert", headers),
-           ("optimizer", optimizer))}
+          parts + ([("bert", bert)] if online else [])}
+    ms.setdefault("bert", 0.0)
     out = {"step_cuda_ms": ms["step"], "bert_ms": ms["bert"],
            "headers_fwd_bwd_ms": ms["headers_incl_bert"] - ms["bert"],
            "optimizer_ms": ms["optimizer"]}
     out["trunk_and_loss_ms"] = (ms["step"] - ms["headers_incl_bert"] - ms["optimizer"])
-    print("train step breakdown (CUDA events, ms): " + json.dumps(out), flush=True)
+    print(f"{label} step breakdown (CUDA events, ms): " + json.dumps(out), flush=True)
     return out
 
 
@@ -607,20 +920,122 @@ def train_card_vs_cpu(dev, spec, bert_cfg, B=8, T=50, L=32):
     return loss_err, worst
 
 
+def bert_int8_full(dev, bert_cfg, B=8, L=32):
+    """One frozen-BERT forward with every projection int8
+    (``quantize_bert_params(attn=True)``), card vs CPU.  Per layer: one row
+    quantization shared by q/k/v and one for the o-proj input (qrows 2), the
+    four int8 GEMMs q/k/v/o (qdot 4), the plain attention (the JAX package's
+    "auto" for quantized attention layers) and K4.  Card vs CPU by
+    :func:`int8_agree`."""
+    from multimodal_transformer_robustness_tpu_torch.models import bert as bert_mod
+    from multimodal_transformer_robustness_tpu_torch.models.mult import to_device
+
+    float_params = bert_mod.prepare_bert(
+        bert_mod.init_bert(torch.Generator().manual_seed(2), bert_cfg))
+    params = bert_mod.quantize_bert_params(float_params, attn=True)
+    rng = np.random.default_rng(9)
+    ids = torch.as_tensor(rng.integers(0, bert_cfg.vocab_size, (B, L)))
+    mask = torch.ones(B, L)
+    for i in range(1, B):
+        mask[i, rng.integers(1, L + 1):] = 0.0
+    types = torch.zeros(B, L, dtype=torch.long)
+    on_card = to_device(params, dev)
+    reset_counters()
+    with torch.inference_mode():
+        out = bert_mod.bert_apply(on_card, ids.to(dev), mask.to(dev), types.to(dev), bert_cfg)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    n = bert_cfg.num_layers
+    expected = expect(qrows=2 * n, qdot=4 * n, K4=n)
+    print(f"bert-int8-full launches {launches} expected {expected} (per layer qrows 2, "
+          f"qdot 4, K4 1)", flush=True)
+    if launches != expected:
+        raise RuntimeError(f"bert-int8-full launch counts {launches} != {expected}")
+    with torch.inference_mode():
+        ref = bert_mod.bert_apply(params, ids, mask, types, bert_cfg)
+        ref_float = bert_mod.bert_apply(float_params, ids, mask, types, bert_cfg)
+    out = out.cpu()
+    ok, err, qerr = int8_agree(out, ref, ref_float)
+    print(f"bert-int8-full B={B} L={L}: out {tuple(out.shape)} finite "
+          f"{bool(torch.isfinite(out).all())}; card vs CPU relative error {err:.3e} (max abs "
+          f"{(out - ref).abs().max():.3e}; limit: the int8 weights' own error vs float, "
+          f"{qerr:.3e})", flush=True)
+    if not ok:
+        raise RuntimeError("bert-int8-full: card and CPU disagree")
+    return launches
+
+
+def cached_vs_online(dev, spec, bert_cfg, B=8, T=50, L=32):
+    """One step on precomputed features and one on tokens, on the card, from
+    the same parameters, masks and batch, every dropout rate 0: the frozen
+    BERT is deterministic, so the losses are equal and the gradients agree to
+    1e-6 of their max |ref| (the trunk's index backward adds with atomics, in
+    no fixed order)."""
+    from multimodal_transformer_robustness_tpu_torch import ModelSpec, build_masks
+    from multimodal_transformer_robustness_tpu_torch.models import init_supernet
+    from multimodal_transformer_robustness_tpu_torch.train import (
+        TrainHParams, Trainer, sample_train_config)
+    from multimodal_transformer_robustness_tpu_torch.train.features import (
+        precompute_text_features)
+    from multimodal_transformer_robustness_tpu_torch.weights import export_reference_state_dict
+
+    spec = dataclasses.replace(spec, attn_dropout=(0.0,) * 4, relu_dropout=0.0,
+                               res_dropout=0.0, out_dropout=0.0, embed_dropout=0.0)
+    cfg = sample_train_config(spec, "random_sample", POOL, np.random.default_rng(5))
+    batch = synthetic_batch(np.random.default_rng(6), B, T, L, bert_cfg.vocab_size,
+                            spec.orig_dimensions[1:])
+    hp = TrainHParams(batch_size=B, lr=1e-4, optim="Adam", criterion="L1Loss")
+    out = {}
+    with mock.patch.object(ModelSpec, "attn_dropout_for_cross", lambda self, idx: 0.0):
+        for key in ("online", "cached"):
+            params, frozen = init_supernet(torch.Generator().manual_seed(0), spec, bert_cfg)
+            tr = Trainer(spec, params, frozen, hp, bert_cfg=bert_cfg, device=dev)
+            inputs = list(batch.inputs)
+            if key == "cached":
+                inputs[0] = precompute_text_features(tr.frozen, bert_cfg, inputs[0],
+                                                     device=dev)
+            loss, grads = tr.loss_and_grads(
+                tr.params, build_masks(spec, cfg, device=dev),
+                [torch.as_tensor(x, device=dev) for x in inputs],
+                torch.as_tensor(batch.labels, device=dev),
+                torch.as_tensor(batch.valid, device=dev), tr.generator)
+            out[key] = (float(loss), export_reference_state_dict(spec, grads))
+    (l_on, g_on), (l_off, g_off) = out["online"], out["cached"]
+    worst, worst_name = 0.0, None
+    for name, ref in g_on.items():
+        err = float(np.abs(g_off[name] - ref).max()) / max(float(np.abs(ref).max()), 1e-30)
+        if err > worst:
+            worst, worst_name = err, name
+    print(f"cached-vs-online B={B}: loss {l_off!r} vs {l_on!r} (equal {l_off == l_on}); "
+          f"{len(g_on)} gradients, worst normalised difference {worst:.2e} at {worst_name} "
+          f"(limit 1e-6)", flush=True)
+    if not (l_off == l_on and worst <= 1e-6):
+        raise RuntimeError("cached and online training steps disagree")
+    return worst
+
+
 def kernel_entries(rows, launches):
     """One entry per kernel: worst error over every checked shape, times at
     the main path's most frequent shape, and the same at the training shape."""
     main_shape = {"K1": "in=768 H=100 T=64 B=1 fwd", "K2": "B=1 L=8 h=768",
                   "K3": "B=1 L=8 h=768 ffn=3072",
-                  "K1b": "in=768 H=100 T=50 B=4096 fwd need_dx=False"}
+                  "K1b": "in=768 H=100 T=50 B=4096 fwd need_dx=False",
+                  "K4": "B=1 L=8 h=768 ffn=3072", "K6a": "B=1 L=8 h=768",
+                  "K6b": "B=1 L=8 h=768"}
     train_shape = {"K1": "in=768 H=100 T=50 B=4096 fwd", "K2": "B=4096 L=32 h=768",
                    "K3": "B=4096 L=32 h=768 ffn=3072",
-                   "K1b": "in=200 H=100 T=50 B=4096 fwd need_dx=True"}
+                   "K1b": "in=200 H=100 T=50 B=4096 fwd need_dx=True",
+                   "K4": "B=4096 L=32 h=768 ffn=3072", "K6a": "B=4096 L=32 h=768",
+                   "K6b": "B=4096 L=32 h=768"}
     meta = {
         "K1": ("gru_dir", "csrc/bigru.cu", "ops/bigru_pallas.py:127"),
         "K1b": ("gru_dir_bwd", "csrc/bigru_bwd.cu", "ops/bigru_pallas.py:284"),
         "K2": ("attention_block_fused", "csrc/bert_attn.cu", "ops/bert_attn_pallas.py:223"),
         "K3": ("ffn_ln_block", "csrc/bert_ffn.cu", "ops/bert_ffn_pallas.py:150"),
+        "K4": ("ffn_ln_block_q", "csrc/bert_ffn_q.cu", "ops/bert_ffn_pallas.py:222"),
+        "K6a": ("dense_attention_blockdiag", "csrc/bert_attn.cu",
+                "ops/bert_attn_pallas.py:114"),
+        "K6b": ("proj_ln_block", "csrc/bert_ffn.cu", "ops/bert_ffn_pallas.py:183"),
     }
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
@@ -637,7 +1052,23 @@ def kernel_entries(rows, launches):
                         "launches_by_path": {p: l[kid] for p, l in launches.items()},
                         "train_shape": train_shape[kid],
                         "at_train_shape": {k: tr[k] for k in timed}})
+        if kid == "K4":
+            kernels[-1].update(int32_exact=all(r["int32_exact"] for r in mine),
+                               max_flipped_share=max(r["flipped_share"] for r in mine))
     return kernels
+
+
+def int8_projection_entries(rows, launches):
+    """The int8 projections of a fully quantized BERT (qrows + qdot): the
+    JAX package runs them as XLA ops (models/bert.py _qrows / _qdot), not as
+    a Pallas kernel, so they stand apart from the kernel table."""
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    return [{"name": "qdot", "route": "cuda", "source": f"{PKG}/csrc/bert_ffn_q.cu",
+             "replaces": "multimodal_transformer_robustness_tpu/models/bert.py:252 "
+                         "(_qdot, an XLA int8 dot)", "shape": r["shape"],
+             "int32_exact": r["int32_exact"], "max_abs_err": r["abs"],
+             "launches": {p: l["qdot"] for p, l in launches.items()},
+             **{k: r[k] for k in timed}} for r in rows if r["kid"] == "qdot"]
 
 
 def main() -> int:
@@ -684,9 +1115,48 @@ def main() -> int:
     phase("train-vs-cpu")
     train_card_vs_cpu(dev, spec, bert_cfg)
 
-    kernels = kernel_entries(rows, {"serving": serve_launches, "train": train_launches})
+    phase("serving-int8")
+    pred, cpu, int8_launches, int8_warm, int8_plain = serve(
+        dev, "serving-int8", expect(K1=12, K2=4, K4=4), bert_int8=True)
+    del pred, cpu
+
+    phase("serving-dense")
+    with attn_impl("dense"):
+        pred, cpu, dense_launches, dense_warm, dense_plain = serve(
+            dev, "serving-dense", expect(K1=12, K6a=4, K6b=4, K3=4))
+    del pred, cpu
+    torch.cuda.empty_cache()
+
+    phase("bert-int8-full")
+    full_launches = bert_int8_full(dev, bert_cfg)
+
+    phase("train-int8")
+    int8_train_launches, int8_train_stats = train(
+        dev, spec, bert_cfg, "train-int8", expect(K1=12, K1b=12, K2=4, K4=4), bert_int8=True)
+    torch.cuda.empty_cache()
+
+    phase("train-cached")
+    cached_launches, cached_stats = train(
+        dev, spec, bert_cfg, "train-cached", expect(K1=12, K1b=12), cached=True)
+    torch.cuda.empty_cache()
+
+    phase("cached-vs-online")
+    cached_vs_online(dev, spec, bert_cfg)
+
+    launches = {"serving": serve_launches, "train": train_launches,
+                "serving-int8": int8_launches, "serving-dense": dense_launches,
+                "bert-int8-full": full_launches, "train-int8": int8_train_launches,
+                "train-cached": cached_launches}
+    kernels = kernel_entries(rows, launches)
     print(f"serving warm request ms, kernels {warm_ms}, plain {plain_ms}", flush=True)
+    print(f"serving-int8 warm request ms, kernels {int8_warm}, plain {int8_plain}", flush=True)
+    print(f"serving-dense warm request ms, kernels {dense_warm}, plain {dense_plain}",
+          flush=True)
     print("train " + json.dumps(train_stats), flush=True)
+    print("train-int8 " + json.dumps(int8_train_stats), flush=True)
+    print("train-cached " + json.dumps(cached_stats), flush=True)
+    print("int8 projections " + json.dumps(int8_projection_entries(rows, launches)),
+          flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -25,7 +25,7 @@ import torch
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("bigru.cu", "bigru_bwd.cu", "bert_attn.cu", "bert_ffn.cu")
+SOURCES = ("bigru.cu", "bigru_bwd.cu", "bert_attn.cu", "bert_ffn.cu", "bert_ffn_q.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -37,6 +37,12 @@ _SIGNATURES = {
     "mmtr_gru_dir_bwd": (_I, [_P] * 12 + [_I] * 8 + [_P]),
     "mmtr_ffn_ln_fwd": (_I, [_P] * 10 + [_I] * 3 + [_F, _P]),
     "mmtr_attn_block_fwd": (_I, [_P] * 16 + [_I] * 4 + [_F, _P]),
+    "mmtr_attention_fwd": (_I, [_P] * 5 + [_I] * 4 + [_P]),
+    "mmtr_proj_ln_fwd": (_I, [_P] * 8 + [_I] * 2 + [_F, _P]),
+    "mmtr_qrows": (_I, [_P] * 3 + [_I] * 2 + [_P]),
+    "mmtr_qgemm_i32": (_I, [_P] * 3 + [_I] * 3 + [_P]),
+    "mmtr_qdot": (_I, [_P] * 6 + [_I] * 3 + [_P]),
+    "mmtr_ffn_ln_q_fwd": (_I, [_P] * 16 + [_I] * 3 + [_F, _P]),
 }
 
 
@@ -113,13 +119,15 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def require(t: torch.Tensor, name: str, shape: tuple, device: torch.device) -> None:
-    """Raise on what the kernels do not take: they read contiguous float32
-    tensors on one card, of exactly the given shape."""
+def require(t: torch.Tensor, name: str, shape: tuple, device: torch.device,
+            dtype: torch.dtype = torch.float32) -> None:
+    """Raise on what the kernels do not take: they read contiguous tensors
+    of one dtype (float32 unless the caller names another, e.g. the int8
+    weights and codes of K4) on one card, of exactly the given shape."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
-    if t.dtype != torch.float32:
-        raise ValueError(f"{name} is {t.dtype}; the kernels take float32")
+    if t.dtype != dtype:
+        raise ValueError(f"{name} is {t.dtype}; the kernel takes {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():

@@ -24,7 +24,7 @@ import torch
 from .. import _build
 from ..config import ModelSpec, full_active_config
 from ..masks import build_masks
-from ..models.bert import INT8_TODO, BertConfig
+from ..models.bert import BertConfig, quantize_bert_params
 from ..models.mult import FLASH_TODO, init_supernet, supernet_apply
 
 TORCH_FEATURES_TODO = ("--features torch (MTCNN / wav2vec2 extraction) is not "
@@ -85,8 +85,6 @@ class StreamingPredictor:
                  spec=None, bert_cfg=None, device="cuda"):
         if attn_impl != "xla":
             raise NotImplementedError(FLASH_TODO)
-        if bert_int8:
-            raise NotImplementedError(INT8_TODO)
         if bert_dir:
             raise NotImplementedError(BERT_DIR_TODO)
         from ..data.tokenizer import load_tokenizer
@@ -105,6 +103,11 @@ class StreamingPredictor:
         gen = torch.Generator().manual_seed(seed)
         self.params, self.frozen = init_supernet(gen, self.spec, self.bert_cfg,
                                                  device=self.device)
+        if bert_int8 and "bert" in self.frozen:
+            # --bert_int8: int8 fc1 / fc2 (kernel K4), float attention (K2),
+            # as the JAX CLIs quantize the frozen extractor
+            self.frozen = dict(self.frozen, bert=quantize_bert_params(
+                self.frozen["bert"], attn=False))
         if model_path:
             self.params = _load_reference_params(self.spec, model_path, self.device)
         self.masks = build_masks(self.spec, full_active_config(self.spec),
@@ -172,7 +175,8 @@ def main(argv=None):
     p.add_argument("--repeat", type=int, default=1,
                    help="re-run the clip to show warm-path latency")
     p.add_argument("--attn_impl", choices=["xla", "flash"], default="xla")
-    p.add_argument("--bert_int8", action="store_true")
+    p.add_argument("--bert_int8", action="store_true",
+                   help="int8 weights for the frozen BERT's FFN (kernel K4)")
     p.add_argument("--device", type=str, default="cuda",
                    help="cuda (the default) or cpu; cuda without a card raises")
     args = p.parse_args(argv)

@@ -2,15 +2,41 @@
 
 Counterpart of ``multimodal_transformer_robustness_tpu/models/bert.py``.
 The forward equals HF ``BertModel``'s last_hidden_state: embeddings (word +
-position + token type, LayerNorm), then per layer kernel K2
-(:func:`..ops.bert_attn_cuda.attention_block_fused`) and kernel K3
-(:func:`..ops.bert_ffn_cuda.ffn_ln_block`).  The kernels take every length
-and width, so there is no shape gate.
+position + token type, LayerNorm), then per layer the attention block and
+the FFN block.  The kernels take every length and width, so there is no
+shape gate.
+
+The attention block follows :data:`ATTN_IMPL`, with the JAX package's values:
+
+  * ``"fused"``: kernel K2 (:func:`..ops.bert_attn_cuda.attention_block_fused`),
+    the whole BertSelfAttention + BertSelfOutput block;
+  * ``"dense"``: plain projections ``x @ w_t + b`` (``torch.matmul``, as the
+    JAX package leaves them to XLA), kernel K6a
+    (:func:`..ops.bert_attn_cuda.dense_attention_blockdiag`), then kernel
+    K6b (:func:`..ops.bert_ffn_cuda.proj_ln_block`);
+  * ``"xla"``: the plain attention composition, then K6b;
+  * ``"auto"`` (the default): K2 for float layers at every L, K6a + K6b for
+    widths h > 1024, and the plain attention for int8-quantized attention
+    layers, as the JAX package does.  On the TPU the JAX package's ``"auto"``
+    also leaves float layers with L > 128, or more than 512 packed rows, to
+    XLA's attention plus K6b: that gate is the TPU kernel's VMEM budget, which
+    K2 on the card does not have.  Both compute the same function.
+
+Quantized attention layers (``quantize_bert_params(attn=True)``) project
+q/k/v through one shared row quantization and the int8 GEMM
+(:func:`..ops.bert_ffn_cuda.qrows` / :func:`..ops.bert_ffn_cuda.qdot`), and
+their o-proj the same way, instead of K6b; a forced ``"fused"`` on them
+falls back to ``"xla"``, a forced ``"dense"`` runs K6a on the int8-projected
+q/k/v.  The FFN block is kernel K3 (:func:`..ops.bert_ffn_cuda.ffn_ln_block`)
+for float weights and kernel K4 (:func:`..ops.bert_ffn_cuda.ffn_ln_block_q`)
+for int8 ones.
 
 Parameters come in two layouts: :func:`init_bert` makes HF-layout weights
-stacked ``[L, ...]`` (the JAX package's layout), and :func:`prepare_bert`
-turns them, once, into the kernels' layout: one dict per layer with every
-weight transposed to ``x @ w_t`` orientation.
+stacked ``[L, ...]`` (the JAX package's layout, float or quantized), and
+:func:`prepare_bert` turns them, once, into the kernels' layout: one dict
+per layer with every float weight transposed to ``x @ w_t`` orientation
+(``<name>t``) and every quantized weight kept ``{"q": int8 [out, in], "s":
+float32 [out]}`` under its own name.
 """
 
 from __future__ import annotations
@@ -20,16 +46,36 @@ import dataclasses
 import numpy as np
 import torch
 
-from ..ops.bert_attn_cuda import attention_block_fused
-from ..ops.bert_ffn_cuda import ffn_ln_block
+from ..ops.bert_attn_cuda import (attention_block_fused, dense_attention_blockdiag,
+                                  dense_attention_plain)
+from ..ops.bert_ffn_cuda import (div127, ffn_ln_block, ffn_ln_block_q, proj_ln_block, qdot,
+                                 qrows)
 from ..ops.layernorm import masked_layer_norm
 
-INT8_TODO = ("--bert_int8 is not ported yet: ROADMAP Queue 2, K4 "
-             "(ffn_ln_block_q, int8 FFN kernel)")
+ATTN_IMPL = "auto"  # "auto" | "fused" | "dense" | "xla", see the docstring
+_ATTN_IMPLS = ("auto", "fused", "dense", "xla")
+# widths above this take the dense path under "auto", as in the JAX package
+_FUSED_MAX_WIDTH = 1024
 
 _WEIGHTS = ("q_w", "k_w", "v_w", "o_w", "fc1_w", "fc2_w")
 _VECTORS = ("q_b", "k_b", "v_b", "o_b", "ln1_g", "ln1_b", "fc1_b", "fc2_b",
             "ln2_g", "ln2_b")
+
+
+def _attn_resolved_impl(h: int, quantized: bool) -> str:
+    """The attention path of a layer of width ``h`` under :data:`ATTN_IMPL`
+    (the JAX package's ``_attn_resolved_impl``, case for case, without its
+    TPU VMEM gate)."""
+    if ATTN_IMPL == "auto":
+        if quantized:
+            return "xla"
+        return "fused" if h <= _FUSED_MAX_WIDTH else "dense"
+    if ATTN_IMPL == "fused" and quantized:
+        return "xla"
+    if ATTN_IMPL not in _ATTN_IMPLS:
+        raise ValueError(f"unknown ATTN_IMPL {ATTN_IMPL!r}; valid: "
+                         "'auto' | 'fused' | 'dense' | 'xla'")
+    return ATTN_IMPL
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,22 +123,86 @@ def init_bert(gen: torch.Generator, cfg: BertConfig) -> dict:
 
 
 def prepare_bert(bert: dict, device="cpu") -> dict:
-    """HF-layout stacked weights (tensors or numpy arrays) -> the kernels'
-    layout on ``device``: per-layer dicts, weights as ``<name>t = w.T``."""
+    """HF-layout stacked weights (tensors or numpy arrays; a weight may be a
+    quantized ``{"q": int8 [L, out, in], "s": [L, out]}`` dict, as the JAX
+    package's ``quantize_bert_params`` makes it) -> the kernels' layout on
+    ``device``: per-layer dicts, float weights as ``<name>t = w.T``,
+    quantized ones kept ``[out, in]``."""
 
-    def dev(a):
-        return torch.tensor(np.asarray(a), dtype=torch.float32, device=device)
+    def dev(a, dtype=torch.float32):
+        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
-    n = len(bert["layers"]["q_w"])
+    n = len(bert["layers"]["q_b"])
     layers = []
     for i in range(n):
-        lp = {f"{w}t": dev(bert["layers"][w][i]).t().contiguous() for w in _WEIGHTS}
+        lp = {}
+        for w in _WEIGHTS:
+            a = bert["layers"][w]
+            if isinstance(a, dict):
+                lp[w] = {"q": dev(a["q"][i], torch.int8).contiguous(), "s": dev(a["s"][i])}
+            else:
+                lp[f"{w}t"] = dev(a[i]).t().contiguous()
         lp.update({v: dev(bert["layers"][v][i]) for v in _VECTORS})
         layers.append(lp)
     out = {k: dev(bert[k]) for k in ("word_emb", "pos_emb", "type_emb",
                                      "emb_ln_g", "emb_ln_b")}
     out["layers"] = layers
     return out
+
+
+def _quantize(w: torch.Tensor) -> dict:
+    """Symmetric per-output-channel int8 of ``w [out, in]``: ``s = max|w| /
+    127`` (at least 1e-12), ``q = clamp(round(w / s), -127, 127)``."""
+    s = torch.clamp(div127(w.abs().amax(dim=-1)), min=1e-12)
+    q = torch.clamp(torch.round(w / s[:, None]), -127, 127).to(torch.int8)
+    return {"q": q.contiguous(), "s": s.float()}
+
+
+def quantize_bert_params(params: dict, attn: bool = True) -> dict:
+    """int8 weights for the six projection / FFN matrices of each layer of a
+    :func:`prepare_bert` BERT (``attn=False``: fc1 / fc2 only, the JAX CLIs'
+    ``--bert_int8``); embeddings, LayerNorms and biases stay float.  The
+    same ``q`` and ``s`` as the JAX package's ``quantize_bert_params``.  A
+    weight that is quantized already is kept."""
+    names = _WEIGHTS if attn else ("fc1_w", "fc2_w")
+    layers = []
+    for lp in params["layers"]:
+        lp = dict(lp)
+        for name in names:
+            if f"{name}t" in lp:
+                lp[name] = _quantize(lp.pop(f"{name}t").t())
+        layers.append(lp)
+    return dict(params, layers=layers)
+
+
+def _qproj(x: torch.Tensor, wq: dict, bias: torch.Tensor) -> torch.Tensor:
+    """``x @ w.T + bias`` with int8 weights and dynamic per-row int8
+    activations."""
+    xq, sx = qrows(x.contiguous())
+    return qdot(xq, sx, wq, bias).reshape(*x.shape[:-1], -1)
+
+
+def _attention_unfused(x, mask, lp: dict, impl: str, n_heads: int, eps: float):
+    """The attention block under ``"dense"`` or ``"xla"``: projections, the
+    attention core (K6a or the plain composition), then the o-proj +
+    residual + LN1 (K6b, or the int8 o-proj)."""
+    b, L, h = x.shape
+    if isinstance(lp.get("q_w"), dict):
+        xq, sx = qrows(x)      # one row quantization shared by q, k and v
+
+        def proj(w, bias):
+            return qdot(xq, sx, lp[w], lp[bias]).reshape(b, L, n_heads, h // n_heads)
+    else:
+        def proj(w, bias):
+            return (torch.matmul(x, lp[f"{w}t"]) + lp[bias]).reshape(b, L, n_heads,
+                                                                      h // n_heads)
+
+    core = dense_attention_blockdiag if impl == "dense" else dense_attention_plain
+    attn = core(proj("q_w", "q_b"), proj("k_w", "k_b"), proj("v_w", "v_b"), mask)
+    if isinstance(lp.get("o_w"), dict):
+        return masked_layer_norm(x + _qproj(attn, lp["o_w"], lp["o_b"]), lp["ln1_g"],
+                                 lp["ln1_b"], eps=eps)
+    return proj_ln_block(x, attn, lp["o_wt"], lp["o_b"], lp["ln1_g"], lp["ln1_b"], eps=eps)
 
 
 def bert_apply(params: dict, input_ids: torch.Tensor, attention_mask: torch.Tensor,
@@ -107,11 +217,20 @@ def bert_apply(params: dict, input_ids: torch.Tensor, attention_mask: torch.Tens
     x = (params["word_emb"][ids] + params["pos_emb"][pos][None]
          + params["type_emb"][types])
     x = masked_layer_norm(x, params["emb_ln_g"], params["emb_ln_b"], eps=cfg.eps)
+    h = x.shape[-1]
     for lp in params["layers"]:
-        x = attention_block_fused(
-            x, attention_mask, lp["q_wt"], lp["q_b"], lp["k_wt"], lp["k_b"],
-            lp["v_wt"], lp["v_b"], lp["o_wt"], lp["o_b"], lp["ln1_g"], lp["ln1_b"],
-            n_heads=cfg.num_heads, eps=cfg.eps)
-        x = ffn_ln_block(x, lp["fc1_wt"], lp["fc1_b"], lp["fc2_wt"], lp["fc2_b"],
-                         lp["ln2_g"], lp["ln2_b"], eps=cfg.eps)
+        impl = _attn_resolved_impl(h, isinstance(lp.get("q_w"), dict))
+        if impl == "fused":
+            x = attention_block_fused(
+                x, attention_mask, lp["q_wt"], lp["q_b"], lp["k_wt"], lp["k_b"],
+                lp["v_wt"], lp["v_b"], lp["o_wt"], lp["o_b"], lp["ln1_g"], lp["ln1_b"],
+                n_heads=cfg.num_heads, eps=cfg.eps)
+        else:
+            x = _attention_unfused(x, attention_mask, lp, impl, cfg.num_heads, cfg.eps)
+        if isinstance(lp.get("fc1_w"), dict):
+            x = ffn_ln_block_q(x, lp["fc1_w"], lp["fc1_b"], lp["fc2_w"], lp["fc2_b"],
+                               lp["ln2_g"], lp["ln2_b"], eps=cfg.eps)
+        else:
+            x = ffn_ln_block(x, lp["fc1_wt"], lp["fc1_b"], lp["fc2_wt"], lp["fc2_b"],
+                             lp["ln2_g"], lp["ln2_b"], eps=cfg.eps)
     return x

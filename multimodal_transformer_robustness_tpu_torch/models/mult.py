@@ -44,7 +44,9 @@ from . import bert as bert_mod
 from .headers import header_apply, init_header
 
 FLASH_TODO = ("attn_impl='flash' is not ported yet: ROADMAP Queue 2, K5 "
-              "(flash attention)")
+              "(flash attention), which no model reaches: every header "
+              "collapses its modality to one token, so each trunk stack is "
+              "T==1 and the JAX package takes its T==1 path there too")
 
 
 def as_f32(a) -> torch.Tensor:
@@ -55,12 +57,16 @@ def as_f32(a) -> torch.Tensor:
 
 
 def to_device(tree, device):
-    """Nested dicts / lists of arrays -> float32 tensors on ``device``."""
+    """Nested dicts / lists of arrays -> tensors on ``device``: float32, but
+    integer arrays (the int8 weights of a quantized BERT) keep their dtype."""
     if isinstance(tree, dict):
         return {k: to_device(v, device) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
         return type(tree)(to_device(v, device) for v in tree)
-    return as_f32(tree).to(device).contiguous()
+    t = tree if isinstance(tree, torch.Tensor) else torch.as_tensor(np.asarray(tree))
+    if not t.is_floating_point():
+        return t.detach().to(device, copy=True).contiguous()
+    return as_f32(t).to(device).contiguous()
 
 
 def _hp(spec: ModelSpec, embed_dim: int, layers: int) -> EncoderHParams:

@@ -1,12 +1,26 @@
-"""K3: the frozen-BERT FFN block ``LN(x + fc2(gelu(fc1 x)))`` through a
-hand-written CUDA kernel.
+"""The frozen-BERT layer epilogues through hand-written CUDA kernels.
 
 Counterpart of ``multimodal_transformer_robustness_tpu/ops/bert_ffn_pallas.py``
-(``ffn_ln_block``; forward only, BERT is frozen).  On a CUDA tensor
-:func:`ffn_ln_block` launches ``csrc/bert_ffn.cu``, which replaces the TPU
-kernel ``bert_ffn_pallas._ffn_ln_kernel``; on a CPU tensor it runs the plain
-version :func:`ffn_ln_block_plain`.  Weights come pre-transposed
-(``w1t = fc1.weight.T``, ``w2t = fc2.weight.T``), made once at load time.
+(forward only, BERT is frozen).  Each wrapper launches its kernel on a CUDA
+tensor and runs its plain PyTorch version on a CPU tensor:
+
+  * :func:`ffn_ln_block` (K3, ``csrc/bert_ffn.cu``): ``LN(x + fc2(gelu(fc1
+    x)))``, replaces ``bert_ffn_pallas._ffn_ln_kernel``;
+  * :func:`proj_ln_block` (K6b, ``csrc/bert_ffn.cu``): ``LN(resid + a @ w_t +
+    b)``, the attention epilogue of the unfused attention paths, replaces
+    ``bert_ffn_pallas._proj_ln_kernel``;
+  * :func:`ffn_ln_block_q` (K4, ``csrc/bert_ffn_q.cu``): K3 with int8 weights
+    and dynamic per-row int8 activations (``--bert_int8``), replaces
+    ``bert_ffn_pallas._ffn_ln_kernel_q``;
+  * :func:`qrows` and :func:`qdot`, the row quantization and the int8 GEMM
+    with its dequant + bias epilogue from K4's source: the int8 q/k/v/o
+    projections of a fully quantized BERT (the JAX package's
+    ``models/bert._qrows`` / ``_qdot``, an XLA int8 dot there);
+    :func:`int8_matmul` exposes the raw int32 product to check it exact.
+
+Float weights come pre-transposed (``w_t = weight.T``, made once at load
+time).  Quantized weights are ``{"q": int8 [out, in], "s": float32 [out]}``
+dicts as ``models/bert.quantize_bert_params`` makes them, never transposed.
 """
 
 from __future__ import annotations
@@ -16,6 +30,14 @@ import torch.nn.functional as F
 
 from .. import _build
 from .layernorm import masked_layer_norm
+
+# XLA's float32 erf rational approximation, as the JAX int8 kernel inlines it
+# (bert_ffn_pallas._ERF_P / _ERF_Q): erf(x) = x * P(x^2) / Q(x^2) on [-4, 4]
+_ERF_P = (0.00022905065861350646, 0.0034082910107109506,
+          0.050955695062380861, 0.18520832239976145, 1.128379143519084)
+_ERF_Q = (-1.1791602954361697e-7, 2.3547966471313185e-5,
+          0.0010179625278914885, 0.014070470171167667,
+          0.11098505178285362, 0.49746925110067538, 1.0)
 
 
 def ffn_ln_block_plain(x, w1t, b1, w2t, b2, ln_g, ln_b, *, eps: float) -> torch.Tensor:
@@ -57,3 +79,211 @@ def ffn_ln_block(x: torch.Tensor, w1t: torch.Tensor, b1: torch.Tensor,
 
 
 ffn_ln_block.launches = 0
+
+
+# ------------------------------------------------------------------- K6b
+
+def proj_ln_block_plain(resid, a, w_t, b, ln_g, ln_b, *, eps: float) -> torch.Tensor:
+    """Plain PyTorch version of the kernel."""
+    return masked_layer_norm(resid + (torch.matmul(a, w_t) + b), ln_g, ln_b, eps=eps)
+
+
+def proj_ln_block(resid: torch.Tensor, a: torch.Tensor, w_t: torch.Tensor,
+                  b: torch.Tensor, ln_g: torch.Tensor, ln_b: torch.Tensor, *,
+                  eps: float) -> torch.Tensor:
+    """``LN(resid + a @ w_t + b)``, HF BertSelfOutput: ``resid`` and ``a``
+    ``[..., h]`` with the same leading dims, ``w_t [h, h]`` (= weight.T)."""
+    if resid.device.type == "cpu":
+        return proj_ln_block_plain(resid, a, w_t, b, ln_g, ln_b, eps=eps)
+    dev = _build.device_of(resid)
+    h = resid.shape[-1]
+    rows = resid.numel() // h
+    _build.require(resid, "resid", tuple(resid.shape), dev)
+    _build.require(a, "a", tuple(resid.shape), dev)
+    _build.require(w_t, "w_t", (h, h), dev)
+    for name, t in (("b", b), ("ln_g", ln_g), ("ln_b", ln_b)):
+        _build.require(t, name, (h,), dev)
+    lib = _build.load_library()
+    resid_sum = torch.empty(rows, h, dtype=torch.float32, device=dev)
+    out = torch.empty_like(resid)
+    err = lib.mmtr_proj_ln_fwd(
+        resid.data_ptr(), a.data_ptr(), w_t.data_ptr(), b.data_ptr(), ln_g.data_ptr(),
+        ln_b.data_ptr(), resid_sum.data_ptr(), out.data_ptr(), rows, h, eps,
+        _build.stream_ptr(dev))
+    _build.check(err, "proj_ln_block kernel")
+    proj_ln_block.launches += 1
+    return out
+
+
+proj_ln_block.launches = 0
+
+
+# ------------------------------------------------------------------ int8
+
+def gelu_erf_poly(x: torch.Tensor) -> torch.Tensor:
+    """Exact-erf gelu through the JAX int8 kernel's float32 erf polynomial,
+    one operation at a time (K4's epilogue computes the same sequence)."""
+    w = torch.clamp(x * 0.7071067811865476, -4.0, 4.0)
+    w2 = w * w
+    p = torch.full_like(w2, _ERF_P[0])
+    for c in _ERF_P[1:]:
+        p = p * w2 + c
+    q = torch.full_like(w2, _ERF_Q[0])
+    for c in _ERF_Q[1:]:
+        q = q * w2 + c
+    erf = w * p / q
+    return x * 0.5 * (1.0 + erf)
+
+
+def qrows_plain(x: torch.Tensor):
+    """Dynamic per-row int8: ``x [..., n]`` -> (``xq`` int8 [rows, n], ``sx``
+    float32 [rows, 1]), sx = max(max|x|, 1e-8) / 127, xq = clamp(round(x /
+    sx), -127, 127), rounding half to even."""
+    rows = x.reshape(-1, x.shape[-1]).float()
+    sx = div127(torch.clamp(rows.abs().amax(dim=-1, keepdim=True), min=1e-8))
+    xq = torch.clamp(torch.round(rows / sx), -127, 127).to(torch.int8)
+    return xq, sx
+
+
+def div127(t: torch.Tensor) -> torch.Tensor:
+    """``t / 127`` as a true division.  The divisor is a tensor on ``t``'s
+    device: PyTorch's CUDA division by a Python scalar multiplies by the
+    reciprocal, which can miss the true quotient (the kernels' and the JAX
+    package's) by one float32 step."""
+    return t / t.new_tensor(127.0)
+
+
+def int8_matmul_plain(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """``xq [M, K] @ wq [N, K]^T`` of int8 codes, as exact float64 integers.
+
+    ``torch.matmul`` on two int8 tensors returns int8 and overflows without a
+    word, and CUDA has no integer matmul; float64 holds every sum exactly
+    (|sum| <= 127^2 * K < 2^53), and its conversion to float32 rounds as the
+    int32 accumulator's does."""
+    return torch.matmul(xq.double(), wq.double().t())
+
+
+def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """The int8 GEMM's raw accumulators, int32 ``[M, N]`` (the plain version
+    returns the same integers as int32)."""
+    if xq.device.type == "cpu":
+        return int8_matmul_plain(xq, wq).to(torch.int32)
+    dev = _build.device_of(xq)
+    (m, k), n = xq.shape, wq.shape[0]
+    _build.require(xq, "xq", (m, k), dev, torch.int8)
+    _build.require(wq, "wq", (n, k), dev, torch.int8)
+    out = torch.empty(m, n, dtype=torch.int32, device=dev)
+    err = _build.load_library().mmtr_qgemm_i32(
+        xq.data_ptr(), wq.data_ptr(), out.data_ptr(), m, n, k, _build.stream_ptr(dev))
+    _build.check(err, "int8_matmul kernel")
+    int8_matmul.launches += 1
+    return out
+
+
+int8_matmul.launches = 0
+
+
+def qrows(x: torch.Tensor):
+    """:func:`qrows_plain` through K4's row-quantize kernel on a CUDA
+    tensor."""
+    if x.device.type == "cpu":
+        return qrows_plain(x)
+    dev = _build.device_of(x)
+    n = x.shape[-1]
+    rows = x.numel() // n
+    _build.require(x, "x", tuple(x.shape), dev)
+    xq = torch.empty(rows, n, dtype=torch.int8, device=dev)
+    sx = torch.empty(rows, 1, dtype=torch.float32, device=dev)
+    err = _build.load_library().mmtr_qrows(x.data_ptr(), xq.data_ptr(), sx.data_ptr(),
+                                           rows, n, _build.stream_ptr(dev))
+    _build.check(err, "qrows kernel")
+    qrows.launches += 1
+    return xq, sx
+
+
+qrows.launches = 0
+
+
+def qdot_plain(xq, sx, wq: dict, bias) -> torch.Tensor:
+    """Plain version of :func:`qdot`, the JAX package's ``_qdot``."""
+    acc = int8_matmul_plain(xq, wq["q"]).float()
+    return acc * sx * wq["s"] + bias
+
+
+def qdot(xq: torch.Tensor, sx: torch.Tensor, wq: dict, bias: torch.Tensor) -> torch.Tensor:
+    """``float(xq @ q^T) * sx * s + bias``: int8 codes ``xq [M, K]`` with
+    row scales ``sx [M, 1]``, weights ``{"q": int8 [N, K], "s": [N]}``,
+    ``bias [N]`` -> float32 ``[M, N]``."""
+    if xq.device.type == "cpu":
+        return qdot_plain(xq, sx, wq, bias)
+    dev = _build.device_of(xq)
+    (m, k), n = xq.shape, wq["q"].shape[0]
+    _build.require(xq, "xq", (m, k), dev, torch.int8)
+    _build.require(sx, "sx", (m, 1), dev)
+    _build.require(wq["q"], "wq", (n, k), dev, torch.int8)
+    _build.require(wq["s"], "ws", (n,), dev)
+    _build.require(bias, "bias", (n,), dev)
+    out = torch.empty(m, n, dtype=torch.float32, device=dev)
+    err = _build.load_library().mmtr_qdot(
+        xq.data_ptr(), sx.data_ptr(), wq["q"].data_ptr(), wq["s"].data_ptr(),
+        bias.data_ptr(), out.data_ptr(), m, n, k, _build.stream_ptr(dev))
+    _build.check(err, "qdot kernel")
+    qdot.launches += 1
+    return out
+
+
+qdot.launches = 0
+
+
+def ffn_ln_block_q_plain(x, w1: dict, b1, w2: dict, b2, ln_g, ln_b, *, eps: float,
+                         return_codes: bool = False):
+    """Plain PyTorch version of K4, the JAX kernel's operations in order."""
+    rows = x.reshape(-1, x.shape[-1])
+    xq, sx = qrows_plain(rows)
+    g1 = gelu_erf_poly(qdot_plain(xq, sx, w1, b1))
+    gq, sg = qrows_plain(g1)
+    y = qdot_plain(gq, sg, w2, b2)
+    out = masked_layer_norm(rows + y, ln_g, ln_b, eps=eps).reshape(x.shape)
+    return (out, gq, sg) if return_codes else out
+
+
+def ffn_ln_block_q(x: torch.Tensor, w1: dict, b1: torch.Tensor, w2: dict,
+                   b2: torch.Tensor, ln_g: torch.Tensor, ln_b: torch.Tensor, *,
+                   eps: float, return_codes: bool = False):
+    """``LN(x + qproj(gelu(qproj(x, w1, b1)), w2, b2))`` for ``x [..., h]``,
+    ``w1 = {"q": int8 [F, h], "s": [F]}``, ``w2 = {"q": int8 [h, F], "s":
+    [h]}``.  ``return_codes`` also returns the hidden int8 codes ``[rows, F]``
+    and their row scales ``[rows, 1]``, to count flipped codes in a check."""
+    if x.device.type == "cpu":
+        return ffn_ln_block_q_plain(x, w1, b1, w2, b2, ln_g, ln_b, eps=eps,
+                                    return_codes=return_codes)
+    dev = _build.device_of(x)
+    h = x.shape[-1]
+    ffn = w1["q"].shape[0]
+    rows = x.numel() // h
+    _build.require(x, "x", tuple(x.shape), dev)
+    _build.require(w1["q"], "w1q", (ffn, h), dev, torch.int8)
+    _build.require(w2["q"], "w2q", (h, ffn), dev, torch.int8)
+    for name, t, n in (("w1s", w1["s"], ffn), ("b1", b1, ffn), ("w2s", w2["s"], h),
+                       ("b2", b2, h), ("ln_g", ln_g, h), ("ln_b", ln_b, h)):
+        _build.require(t, name, (n,), dev)
+    lib = _build.load_library()
+    xq = torch.empty(rows, h, dtype=torch.int8, device=dev)
+    sx = torch.empty(rows, 1, dtype=torch.float32, device=dev)
+    hidden = torch.empty(rows, ffn, dtype=torch.float32, device=dev)
+    hq = torch.empty(rows, ffn, dtype=torch.int8, device=dev)
+    sh = torch.empty(rows, 1, dtype=torch.float32, device=dev)
+    resid_sum = torch.empty(rows, h, dtype=torch.float32, device=dev)
+    out = torch.empty_like(x)
+    err = lib.mmtr_ffn_ln_q_fwd(
+        x.data_ptr(), w1["q"].data_ptr(), w1["s"].data_ptr(), b1.data_ptr(),
+        w2["q"].data_ptr(), w2["s"].data_ptr(), b2.data_ptr(), ln_g.data_ptr(),
+        ln_b.data_ptr(), xq.data_ptr(), sx.data_ptr(), hidden.data_ptr(), hq.data_ptr(),
+        sh.data_ptr(), resid_sum.data_ptr(), out.data_ptr(), rows, h, ffn, eps,
+        _build.stream_ptr(dev))
+    _build.check(err, "ffn_ln_block_q kernel")
+    ffn_ln_block_q.launches += 1
+    return (out, hq, sh) if return_codes else out
+
+
+ffn_ln_block_q.launches = 0

@@ -111,7 +111,9 @@ def load_reference_state_dict(spec: ModelSpec, sd: Mapping,
     ``sd`` maps reference names to arrays (numpy or tensors), as
     ``checkpoint.export_torch_state_dict`` writes them.  ``bert`` is the
     frozen BERT in HF layout, layers stacked ``[L, ...]`` (the JAX package's
-    ``frozen["bert"]``), or None for a model without a text header.
+    ``frozen["bert"]``), float or already quantized (its ``{"q": int8, "s":
+    float32}`` weight dicts, from ``quantize_bert_params``), or None for a
+    model without a text header.
     """
     H, Dh = spec.num_heads, spec.head_dim
     params = _empty_tree(spec)

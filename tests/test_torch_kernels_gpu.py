@@ -8,13 +8,21 @@ Float32 with TF32 off; atol = rtol = 1e-4 for K1 and K3 (summation order),
 1e-3 for K2 (the additive -10000 key bias leaves masked logits only 2**-10
 apart in float32).  K1b's gradients are held to 1e-4 of each gradient's
 max |ref|: they are sums over T*B rows, split-K partials on the card against
-cuBLAS in the plain version, and dx chains back through every step.
+cuBLAS in the plain version, and dx chains back through every step.  K6a
+is held as K2 (1e-3, the same attention stage), K6b as K3 (1e-4).  The int8
+GEMM's int32 products must equal exact float64 sums, and its dequant + bias
+epilogue the plain version's bits.  K4's hidden int8 codes may differ from
+the plain version's in at most 1e-3 of places (a value one float32 step from
+a rounding edge); each output row is held to 1e-4 plus, per flipped code in
+it, twice the largest move one code can make (``_k4_row_bound``).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from multimodal_transformer_robustness_tpu_torch.models import bert as tbert
+from multimodal_transformer_robustness_tpu_torch.models.mult import to_device
 from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bert_ffn_cuda
 from multimodal_transformer_robustness_tpu_torch.ops import bigru_cuda
 
@@ -154,3 +162,120 @@ def test_gru_dir_autograd_on_card_matches_cpu(cuda):
         out[str(dev)] = [y, xd.grad] + [p[d][k].grad for d in p for k in p[d]]
     for a, b in zip(out["cpu"], out[str(cuda)]):
         torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
+
+
+def _k4_row_bound(x, codes, scales, w2, b2, ln_g, flips_per_row):
+    """1e-4 plus, per flipped hidden code, twice one code's largest move
+    (sg * max|w2| in y, through the LayerNorm: * max|ln_g| / the row's std)."""
+    s = x + bert_ffn_cuda.qdot_plain(codes, scales, w2, b2)
+    w2max = (w2["q"].float() * w2["s"][:, None]).abs().max()
+    step = scales[:, 0] * w2max * ln_g.abs().max() / s.std(dim=-1, unbiased=False)
+    return 1e-4 + 2.0 * flips_per_row * step
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,h,ffn", [(8, 768, 3072), (300, 768, 3072), (7, 32, 128),
+                                        (33, 40, 100)])
+def test_ffn_ln_q_kernel_matches_plain(cuda, rows, h, ffn):
+    """K4; (33, 40, 100) has no dimension a multiple of the 64-wide tiles or
+    of the 16-byte loads."""
+    rng = np.random.default_rng(8)
+    x, w1, b1, w2, b2, g, b = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                               for a in ffn_inputs(rng, rows, h, ffn)]
+    w1q, w2q = tbert._quantize(w1), tbert._quantize(w2)
+    args = (x, w1q, b1, w2q, b2, g, b)
+    n0 = bert_ffn_cuda.ffn_ln_block_q.launches
+    out, codes, scales = bert_ffn_cuda.ffn_ln_block_q(*args, eps=1e-12, return_codes=True)
+    torch.cuda.synchronize()
+    assert bert_ffn_cuda.ffn_ln_block_q.launches == n0 + 1
+    ref, ref_codes, ref_scales = bert_ffn_cuda.ffn_ln_block_q_plain(*args, eps=1e-12,
+                                                                    return_codes=True)
+    flipped = codes != ref_codes
+    assert flipped.float().mean().item() <= 1e-3
+    limit = _k4_row_bound(x, ref_codes, ref_scales, w2q, b2, g, flipped.sum(-1))
+    assert ((out - ref).abs().amax(-1) <= limit).all()
+    xq, _ = bert_ffn_cuda.qrows(x)
+    for a, w in ((xq, w1q), (ref_codes, w2q)):
+        exact = bert_ffn_cuda.int8_matmul_plain(a, w["q"]).to(torch.int32)
+        assert torch.equal(bert_ffn_cuda.int8_matmul(a, w["q"]), exact)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("M,N,K", [(8, 768, 768), (1000, 300, 768), (5, 7, 37), (70, 64, 3072)])
+def test_int8_gemm_exact(cuda, M, N, K):
+    """int32 products equal exact sums (the last case at the extreme codes,
+    |sum| = 127^2 * 3072); the dequant + bias epilogue is bit-identical."""
+    rng = np.random.default_rng(9)
+    a = torch.from_numpy(rng.integers(-127, 128, (M, K)).astype(np.int8)).to(cuda)
+    w = torch.from_numpy(rng.integers(-127, 128, (N, K)).astype(np.int8)).to(cuda)
+    if K == 3072:
+        a[0], w[0], w[1] = 127, 127, -127
+    acc = bert_ffn_cuda.int8_matmul(a, w)
+    exact = a.cpu().long() @ w.cpu().long().t()
+    assert torch.equal(acc.cpu().long(), exact)
+    sx = torch.from_numpy(rng.random((M, 1)).astype(np.float32) * 0.01).to(cuda)
+    wq = {"q": w, "s": torch.from_numpy(rng.random(N).astype(np.float32) * 0.01).to(cuda)}
+    bias = torch.from_numpy(rng.standard_normal(N).astype(np.float32)).to(cuda)
+    assert torch.equal(bert_ffn_cuda.qdot(a, sx, wq, bias),
+                       bert_ffn_cuda.qdot_plain(a, sx, wq, bias))
+    x = torch.from_numpy(rng.standard_normal((M, K)).astype(np.float32)).to(cuda)
+    for got, ref in zip(bert_ffn_cuda.qrows(x), bert_ffn_cuda.qrows_plain(x)):
+        assert torch.equal(got, ref)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,heads,h", [(1, 8, 12, 768), (2, 200, 12, 768), (3, 13, 2, 16)])
+def test_dense_attention_kernel_matches_plain(cuda, B, L, heads, h):
+    rng = np.random.default_rng(10)
+    mask = torch.from_numpy(attn_inputs(rng, B, L, h)[-1]).to(cuda)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, L, heads, h // heads))
+                                .astype(np.float32)).to(cuda) for _ in range(3))
+    out = bert_attn_cuda.dense_attention_blockdiag(q, k, v, mask)
+    torch.cuda.synchronize()
+    ref = bert_attn_cuda.dense_attention_plain(q, k, v, mask)
+    torch.testing.assert_close(out, ref, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,h", [(8, 768), (300, 768), (7, 32)])
+def test_proj_ln_kernel_matches_plain(cuda, rows, h):
+    rng = np.random.default_rng(11)
+    resid, a = (rng.standard_normal((rows, h)).astype(np.float32) for _ in range(2))
+    w_t = (rng.standard_normal((h, h)) * 0.05).astype(np.float32)
+    b, bb = ((rng.standard_normal(h) * 0.05).astype(np.float32) for _ in range(2))
+    g = (1.0 + 0.2 * rng.standard_normal(h)).astype(np.float32)
+    args = [torch.from_numpy(t).to(cuda) for t in (resid, a, w_t, b, g, bb)]
+    out = bert_ffn_cuda.proj_ln_block(*args, eps=1e-12)
+    torch.cuda.synchronize()
+    ref = bert_ffn_cuda.proj_ln_block_plain(*args, eps=1e-12)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("impl", ["auto", "fused", "dense", "xla"])
+@pytest.mark.parametrize("int8", ["float", "ffn", "full"])
+def test_bert_variants_on_card_match_cpu(cuda, impl, int8, monkeypatch):
+    """A small BERT under each ATTN_IMPL and int8 mode, the card (kernels)
+    against the CPU (plain versions): float at 1e-4; int8 with at most one
+    row in ten beyond 1e-4 (a flipped code) and none beyond 3e-3 (one step,
+    as in tests/test_torch_bert_variants.py)."""
+    monkeypatch.setattr(tbert, "ATTN_IMPL", impl)
+    cfg = tbert.BertConfig(vocab_size=50, hidden_size=64, num_layers=2, num_heads=2,
+                           intermediate_size=256, max_position=32)
+    params = tbert.prepare_bert(tbert.init_bert(torch.Generator().manual_seed(0), cfg))
+    if int8 != "float":
+        params = tbert.quantize_bert_params(params, attn=int8 == "full")
+    rng = np.random.default_rng(12)
+    ids = torch.from_numpy(rng.integers(0, 50, (3, 9)))
+    mask = torch.ones(3, 9)
+    mask[1, 5:] = 0
+    types = torch.zeros(3, 9, dtype=torch.long)
+    out = tbert.bert_apply(to_device(params, cuda), ids.to(cuda), mask.to(cuda),
+                           types.to(cuda), cfg).cpu()
+    ref = tbert.bert_apply(params, ids, mask, types, cfg)
+    if int8 == "float":
+        torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    else:
+        diff = (out - ref).abs()
+        assert (diff > 1e-4 + 1e-4 * ref.abs()).any(-1).float().mean() <= 0.1
+        assert diff.max() <= 3e-3
