@@ -13,10 +13,14 @@ Phases, each fatal on failure:
                 the stated tolerance; median CUDA-event ms of the kernel, of
                 the plain version and, where one PyTorch call computes the
                 same function (cuDNN's GRU for K1 / K1b, scaled_dot_product_
-                attention for K6a), of that call; K1b is also run twice to
-                show bit-identical gradients; K4's int32 products are checked
-                exact and its flipped hidden codes counted; the int8 GEMM
-                (qdot) exact at M=8 and M=131,072;
+                attention for K6a, K5 and K8), of that call; K1b, K5dq and
+                K5dkv are also run twice to show bit-identical gradients;
+                K4's int32 products are checked exact and its flipped hidden
+                codes counted; the int8 GEMM (qdot) exact at M=8 and
+                M=131,072; the flash kernels (K5f, K5dq, K5dkv) at the MOSEI
+                stack shapes (self T=50, cross Tq=50 Tk=32) and a long causal
+                shape (T=2048), each without dropout and at rate 0.1 with the
+                same seeds on both sides, and K8 at the BERT's shapes;
   4. serving  - StreamingPredictor at the reference's MOSEI serving
                 configuration (d=200, 8x25 heads, layers 3/4/2, 4-layer
                 BERT-base-width text encoder, random weights from seed 0)
@@ -42,7 +46,20 @@ Phases, each fatal on failure:
  12. train-cached - the frozen-BERT features precomputed once
                 (train/features.py), then phase 6 on them: no BERT kernel;
  13. cached-vs-online - one step on features and one on tokens at B=8,
-                dropout off: equal losses and gradients.
+                dropout off: equal losses and gradients;
+ 14. flash-stack - encoder_forward(attn_impl="flash") over the MOSEI cross
+                stack (4 layers, Tq=50 Tk=32) and a mems0 self stack (3
+                layers, T=50) at B=4096 in train mode with attention dropout
+                0.1 through the kernels, then the backward of a scalar loss:
+                K5f, K5dq and K5dkv once per layer; fwd+bwd ms beside the same
+                stack with attn_impl="xla", eval-forward ms at B=16 T=2048;
+                card vs CPU at B=8, dropout off, eval and train;
+ 15. serving-flash - StreamingPredictor(attn_impl="flash"), 2 requests: the
+                T==1 rule keeps K5f at 0 launches (K1 12, K2 4, K3 4 per
+                request), predictions bit-identical to attn_impl="xla";
+ 16. flash-masked - K8's path, the library call flash_attention_masked at
+                the BERT's width (B=8, L=32, 12x64, ragged masks and an
+                all-zero row), against K6a and the CPU.
 Every phase sets the launch counters to 0 just before it drives its path
 and fails unless each kernel of the path ran the expected number of times.
 Then the int8 projections' line, one JSON line with the kernels' results,
@@ -80,8 +97,13 @@ import torch
 # plus, per flipped code in the row, twice the largest move one code can make
 # (sg * max|w2| through the LayerNorm: * max|ln_g| / the row's std); see
 # k4_row_bound.
+# K5f and K8 (flash forward) are held to 1e-4 absolute on outputs of order
+# 1 (and K5f's log-sum-exp); K5dq / K5dkv to 1e-4 of each gradient's max
+# |ref|, sums over up to Tk or Tq score entries in another order.
 TOL = {"K1": 1e-4, "K1b": 1e-4, "K2": 1e-3, "K3": 1e-4, "K4": 1e-4, "K6a": 1e-3,
-       "K6b": 1e-4}
+       "K6b": 1e-4, "K5f": 1e-4, "K5dq": 1e-4, "K5dkv": 1e-4, "K8": 1e-4}
+# the kernels held to TOL as a share of max |ref| rather than absolutely
+NORMALISED = {"K5dq", "K5dkv"}
 K4_MAX_FLIP_SHARE = 1e-3
 SERVE_TOL = 1e-3   # end-to-end sentiment, card against CPU
 # one training step, card against CPU: the loss relative, each gradient
@@ -196,13 +218,20 @@ def check_kernels(dev, rng):
 
     def record(kid, shape, out, ref, kernel_fn, plain_fn, work=None, library_fn=None,
                iters=20):
-        abs_err, rel_err = errors(out, ref)
-        ok = abs_err <= TOL[kid]
+        """``out`` / ``ref``: a tensor, or a tuple of tensors each held to the
+        tolerance on its own (relative to its own max |ref| in NORMALISED)."""
+        pairs = zip(out, ref) if isinstance(out, tuple) else [(out, ref)]
+        errs = [errors(o, r) for o, r in pairs]
+        abs_err, rel_err = max(e[0] for e in errs), max(e[1] for e in errs)
+        normalised = kid in NORMALISED
+        ok = (rel_err if normalised else abs_err) <= TOL[kid]
         row = dict(kid=kid, shape=shape, abs=abs_err, rel=rel_err)
         msg = (f"{kid} {shape}: max_abs {abs_err:.3e} max_rel {rel_err:.3e} "
-               f"(tol {TOL[kid]:g}) {'ok' if ok else 'FAIL'}")
+               f"(tol {TOL[kid]:g}{' of max|ref|' if normalised else ''}) "
+               f"{'ok' if ok else 'FAIL'}")
         if work is not None:
-            row.update(ms=cuda_ms(kernel_fn, iters), plain_ms=cuda_ms(plain_fn, iters),
+            row.update(ms=cuda_ms(kernel_fn, iters),
+                       plain_ms=cuda_ms(plain_fn, iters),
                        library_ms=cuda_ms(library_fn, iters) if library_fn else None)
             row["bound_ms"], row["bound_by"] = bound(*work)
             lib = f"{row['library_ms']:.4f}" if library_fn else "none"
@@ -278,6 +307,7 @@ def check_kernels(dev, rng):
                work=k3_work(B, L, h, ffn) if timed else None, iters=iters)
         del out, ref, x
     rows += check_bert_variants(dev, rng, t, record, failures)
+    check_flash(dev, rng, t, record, failures)
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
     return rows
@@ -430,6 +460,136 @@ def check_bert_variants(dev, rng, t, record, failures,
     return rows
 
 
+def flash_work(kind, bh, tq, tk, d, offset, dropout):
+    """(FLOPs, bytes) of K5f ("fwd"), K5dq ("dq") or K5dkv ("dkv") over
+    ``bh`` slices: 4, 6 or 8 FLOPs a score pair and head column, counting
+    only the pairs the causal rule leaves visible; q, k, v (and dout, lse,
+    delta for the backward) read once, the outputs written once, 8 bytes of
+    seed and rate a slice with dropout."""
+    pairs = sum(min(tk, r + offset) for r in range(tq))
+    ins = 4 * bh * d * (tq + 2 * tk) + (8 * bh if dropout else 0)
+    if kind == "fwd":
+        return 4 * bh * pairs * d, ins + 4 * bh * tq * (d + 1)
+    ins += 4 * bh * tq * (d + 2)
+    if kind == "dq":
+        return 6 * bh * pairs * d, ins + 4 * bh * tq * d
+    return 8 * bh * pairs * d, ins + 8 * bh * tk * d
+
+
+def k8_work(key_mask, heads, L, d):
+    """K8: 4 FLOPs per attended (query, key) pair and head column, the
+    pairs this run's masks leave; q, k, v, the output and the mask."""
+    b = key_mask.shape[0]
+    return 4 * heads * L * d * key_mask.sum().item(), 4 * (4 * b * heads * L * d + b * L)
+
+
+def ragged_key_mask(rng, B, L, dev):
+    """int32 ``[B, L]`` key mask: row 0 all masked, every other row keeps a
+    random prefix of one to L keys."""
+    mask = np.ones((B, L), np.int32)
+    for i in range(1, B):
+        mask[i, rng.integers(1, L + 1):] = 0
+    mask[0] = 0
+    return torch.from_numpy(mask).to(dev)
+
+
+def check_flash(dev, rng, t, record, failures,
+                k5_shapes=(("self", 4096, 50, 50), ("cross", 4096, 50, 32), ("long", 16, 2048, 2048)),
+                k8_shapes=((1, 8), (1, 512), (4096, 32))):
+    """K5f, K5dq and K5dkv at the MOSEI stack widths (8 heads of 25): self
+    at B=4096 T=50 (offset 1), cross at B=4096 Tq=50 Tk=32 (offset 19, text
+    keys under audio queries), long at B=16 T=2048 (causal); each without
+    dropout and at rate 0.1, the kernel and the plain version given the same
+    seeds.  The backward reads the kernel forward's out and lse and is held
+    against autograd through the plain version, then rerun for identical
+    bits.  K8 at the BERT's shapes (12 heads of 64): B=1 at L=8 and 512, all
+    keys masked (the serving path's mask swap, rewritten to all ones), and
+    B=4096 at L=32 with ragged masks and one all-zero row.  Yardstick:
+    scaled_dot_product_attention with the same boolean mask and scale 1,
+    forward, and its autograd backward for dq + dk + dv together."""
+    import torch.nn.functional as F
+
+    from multimodal_transformer_robustness_tpu_torch.ops import attention_cuda as ac
+
+    heads, d = 8, 25
+    for name, B, tq, tk in k5_shapes:
+        offset = 1 + abs(tk - tq)
+        bh = B * heads
+        q = t(rng.standard_normal((B, heads, tq, d)) / np.sqrt(d))   # pre-scaled
+        k, v = (t(rng.standard_normal((B, heads, tk, d))) for _ in range(2))
+        dout = t(rng.standard_normal((B, heads, tq, d)))
+        visible = (torch.arange(tk, device=dev)[None, :]
+                   - torch.arange(tq, device=dev)[:, None]) < offset
+        for rate in (0.0, 0.1):
+            shape = f"{name} B={B} H={heads} Tq={tq} Tk={tk} D={d} offset={offset} rate={rate}"
+            seeds = rates = None
+            if rate:
+                seeds = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, bh).astype(np.int32)).to(dev)
+                rates = torch.full((bh,), rate, device=dev)
+            fwd_args = (q, k, v, seeds, rates, True, offset)
+            plain_args = (q, k, v, True, offset, seeds, rates)
+            out, lse = ac.flash_fwd(*fwd_args)
+            torch.cuda.synchronize()
+            ref, ref_lse = ac.flash_attention_plain(*plain_args)
+            record("K5f", shape, torch.cat([out.flatten(), lse.flatten()]),
+                   torch.cat([ref.flatten(), ref_lse.flatten()]),
+                   lambda: ac.flash_fwd(*fwd_args), lambda: ac.flash_attention_plain(*plain_args),
+                   work=flash_work("fwd", bh, tq, tk, d, offset, bool(rate)),
+                   library_fn=lambda: F.scaled_dot_product_attention(
+                       q, k, v, attn_mask=visible, dropout_p=rate, scale=1.0), iters=5)
+            del ref, ref_lse
+
+            delta = (dout * out).sum(-1).reshape(bh, tq)
+            bwd_args = (q, k, v, dout, lse, delta, seeds, rates, True, offset)
+            dq = ac.flash_bwd_dq(*bwd_args)
+            dk, dv = ac.flash_bwd_dkv(*bwd_args)
+            torch.cuda.synchronize()
+            rdq, rdk, rdv = ac.flash_attention_bwd_plain(q, k, v, dout, *plain_args[3:])
+            same = (torch.equal(dq, ac.flash_bwd_dq(*bwd_args))
+                    and all(torch.equal(a, b) for a, b in zip((dk, dv),
+                                                              ac.flash_bwd_dkv(*bwd_args))))
+            print(f"  K5dq / K5dkv {shape}: rerun bit-identical {same}", flush=True)
+            if not same:
+                failures.append(f"K5 backward {shape} not deterministic")
+            qg, kg, vg = (a.detach().requires_grad_(True) for a in (q, k, v))
+            y = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=visible, dropout_p=rate,
+                                               scale=1.0)
+
+            def library(y=y, leaves=(qg, kg, vg)):
+                return torch.autograd.grad(y, leaves, dout, retain_graph=True)
+
+            def plain_bwd():
+                return ac.flash_attention_bwd_plain(q, k, v, dout, *plain_args[3:])
+
+            record("K5dq", shape, dq, rdq, lambda: ac.flash_bwd_dq(*bwd_args), plain_bwd,
+                   work=flash_work("dq", bh, tq, tk, d, offset, bool(rate)), library_fn=library,
+                   iters=5)
+            record("K5dkv", shape, (dk, dv), (rdk, rdv), lambda: ac.flash_bwd_dkv(*bwd_args),
+                   plain_bwd, work=flash_work("dkv", bh, tq, tk, d, offset, bool(rate)),
+                   library_fn=library, iters=5)
+            del out, lse, delta, dq, dk, dv, rdq, rdk, rdv, qg, kg, vg, y
+        del q, k, v, dout
+        torch.cuda.empty_cache()
+
+    heads, d = 12, 64
+    for B, L in k8_shapes:
+        q = t(rng.standard_normal((B, heads, L, d)) / np.sqrt(d))
+        k, v = (t(rng.standard_normal((B, heads, L, d))) for _ in range(2))
+        mask = ragged_key_mask(rng, B, L, dev)
+        eff = ac._effective_key_mask(mask)
+        out = ac.flash_attention_masked(q, k, v, mask)
+        torch.cuda.synchronize()
+        ref = ac.flash_attention_masked_plain(q, k, v, mask)
+        record("K8", f"B={B} L={L} H={heads} D={d}", out, ref,
+               lambda: ac.flash_attention_masked(q, k, v, mask),
+               lambda: ac.flash_attention_masked_plain(q, k, v, mask),
+               work=k8_work(eff, heads, L, d),
+               library_fn=lambda: F.scaled_dot_product_attention(
+                   q, k, v, attn_mask=eff[:, None, None, :] > 0, scale=1.0),
+               iters=5 if B == 4096 else 20)
+        del q, k, v, out, ref
+
+
 def check_k1b(dev, rng, t, failures):
     """K1b against ``torch.autograd.grad`` through the plain time loop, at
     every header width, T in {8, 50}, B in {1, 64, 4096}, both directions,
@@ -505,6 +665,7 @@ def check_k1b(dev, rng, t, failures):
 
 
 def counters():
+    from multimodal_transformer_robustness_tpu_torch.ops import attention_cuda as ac
     from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bert_ffn_cuda
     from multimodal_transformer_robustness_tpu_torch.ops import bigru_cuda
 
@@ -513,7 +674,9 @@ def counters():
             "K4": bert_ffn_cuda.ffn_ln_block_q,
             "K6a": bert_attn_cuda.dense_attention_blockdiag,
             "K6b": bert_ffn_cuda.proj_ln_block,
-            "qrows": bert_ffn_cuda.qrows, "qdot": bert_ffn_cuda.qdot}
+            "qrows": bert_ffn_cuda.qrows, "qdot": bert_ffn_cuda.qdot,
+            "K5f": ac.flash_fwd, "K5dq": ac.flash_bwd_dq, "K5dkv": ac.flash_bwd_dkv,
+            "K8": ac.flash_attention_masked}
 
 
 def expect(**counts):
@@ -571,6 +734,20 @@ def attn_impl(value: str):
         bert_mod.ATTN_IMPL = saved
 
 
+def synthetic_requests(pred, n=4):
+    """The first ``n`` of four synthetic clips whose (words, audio steps,
+    face steps) cross the text / audio / vision buckets, prepared."""
+    rng = np.random.default_rng(1)
+    clips = [(4, 40, 24), (30, 70, 9), (100, 20, 50), (300, 64, 33)]
+    requests = []
+    for words, ta, tv in clips:
+        transcript = [f"w{int(i)}" for i in rng.integers(0, 5000, words)]
+        requests.append(pred.prepare(transcript,
+                                     rng.standard_normal((1, ta, 768)).astype(np.float32),
+                                     rng.standard_normal((1, tv, 512)).astype(np.float32)))
+    return requests[:n]
+
+
 def serve(dev, label="serving", per_request=None, **options):
     """StreamingPredictor(**options) at the MOSEI serving configuration:
     ``per_request`` launches each (default: K1 12, K2 4, K3 4), card vs the
@@ -585,15 +762,7 @@ def serve(dev, label="serving", per_request=None, **options):
           f"layers={pred.spec.layers_single_attn}/{pred.spec.layers_cross_attn}/"
           f"{pred.spec.layers_self_attn}, BERT h={pred.bert_cfg.hidden_size} "
           f"layers={pred.bert_cfg.num_layers})", flush=True)
-    rng = np.random.default_rng(1)
-    # (words, audio steps, face steps) -> text / audio / vision buckets
-    clips = [(4, 40, 24), (30, 70, 9), (100, 20, 50), (300, 64, 33)]
-    requests = []
-    for words, ta, tv in clips:
-        transcript = [f"w{int(i)}" for i in rng.integers(0, 5000, words)]
-        requests.append(pred.prepare(transcript,
-                                     rng.standard_normal((1, ta, 768)).astype(np.float32),
-                                     rng.standard_normal((1, tv, 512)).astype(np.float32)))
+    requests = synthetic_requests(pred)
 
     reset_counters()
     card, card_ms = [], []
@@ -1014,6 +1183,186 @@ def cached_vs_online(dev, spec, bert_cfg, B=8, T=50, L=32):
     return worst
 
 
+def flash_stack(dev, spec, B=4096, long=(16, 2048), iters=3):
+    """The flash path at full width: ``encoder_forward(attn_impl="flash")``
+    over the MOSEI cross stack (``layers_cross_attn`` layers, Tq=50 Tk=32)
+    and a mems0 self stack (``layers_single_attn``, T=50), E=200, 8x25
+    heads, FFN 800, the future-mask rule, in train mode at B=4096 with
+    attention dropout 0.1 inside the kernels and the spec's other dropouts,
+    then the gradient of a scalar loss.  Launches: K5f, K5dq and K5dkv once
+    per layer.  Times (CUDA events): fwd+bwd against the same stack with
+    attn_impl="xla" (the port's dense attention with the additive future
+    mask), and the eval forward of both at B=16 T=2048.  Then the card
+    against the CPU at B=8 on the same weights, dropout off (the kernels'
+    dropout path at rate 0), in eval and in train mode."""
+    from multimodal_transformer_robustness_tpu_torch.models.mult import to_device
+    from multimodal_transformer_robustness_tpu_torch.ops.encoder import (
+        EncoderHParams, EncoderMasks, encoder_forward, init_encoder)
+    from multimodal_transformer_robustness_tpu_torch.train.loop import tree_leaves
+
+    E, H, Dh = spec.dimension, spec.num_heads, spec.head_dim
+    rng = np.random.default_rng(11)
+    launches, stats = {}, {}
+
+    def inputs(b, tq, tk, device):
+        """x, kv and the loss's fixed cotangent ct: the loss is mean(y * ct)
+        (the final LayerNorm would make mean(y**2) a constant)."""
+        x, ct = (torch.from_numpy(rng.standard_normal((b, tq, E), dtype=np.float32)).to(device)
+                 for _ in range(2))
+        kv = (torch.from_numpy(rng.standard_normal((b, tk, E), dtype=np.float32)).to(device)
+              if tk else None)
+        return x, kv, ct
+
+    for name, layers, tq, tk in (("cross", spec.layers_cross_attn, 50, 32),
+                                 ("self", spec.layers_single_attn, 50, None)):
+        hp = EncoderHParams(embed_dim_in=E, num_heads=H, head_dim=Dh, layers=layers,
+                            attn_mask=True, relu_dropout=spec.relu_dropout,
+                            res_dropout=spec.res_dropout, embed_dropout=spec.embed_dropout,
+                            attn_impl="flash")
+        hp_xla = dataclasses.replace(hp, attn_impl="xla")
+        params = init_encoder(torch.Generator().manual_seed(0), hp)
+
+        def on(device):
+            p = to_device(params, device)
+            leaves = [a.requires_grad_(True) for a in tree_leaves(p)]
+            m = EncoderMasks(*(torch.ones(n, device=device) for n in (layers, H, Dh, 4 * H * Dh)))
+            return p, leaves, m
+
+        p, leaves, m = on(dev)
+        x, kv, ct = inputs(B, tq, tk, dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+
+        def step(h, rate=spec.attn_dropout[0]):
+            y = encoder_forward(p, x, kv, hp=h, masks=m, attn_rate=rate, train=True,
+                                generator=gen)
+            loss = (y * ct).mean()
+            return loss.detach(), torch.autograd.grad(loss, leaves)
+
+        label = f"flash-stack-{name}"
+        reset_counters()
+        loss, grads = step(hp)
+        torch.cuda.synchronize()
+        got = read_counters()
+        expected = expect(K5f=layers, K5dq=layers, K5dkv=layers)
+        finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)
+        print(f"{label} B={B} Tq={tq} Tk={tk or tq} layers={layers}: loss {loss.item():.6f}, "
+              f"{len(grads)} gradients finite {finite}; launches {got} expected {expected}",
+              flush=True)
+        if got != expected or not finite:
+            raise RuntimeError(f"{label}: launch counts {got} or non-finite values")
+        launches[label] = got
+        del loss, grads
+        ms = {"fwd_bwd_flash_ms": cuda_ms(lambda: step(hp), iters, 1),
+              "fwd_bwd_xla_ms": cuda_ms(lambda: step(hp_xla), iters, 1)}
+        del x, kv, ct
+        xl, kvl, _ = inputs(long[0], long[1], long[1] if tk else None, dev)
+        with torch.inference_mode():
+            ms["long_eval_flash_ms"] = cuda_ms(
+                lambda: encoder_forward(p, xl, kvl, hp=hp, masks=m), iters, 1)
+            ms["long_eval_xla_ms"] = cuda_ms(
+                lambda: encoder_forward(p, xl, kvl, hp=hp_xla, masks=m), iters, 1)
+        del xl, kvl, p, leaves
+        torch.cuda.empty_cache()
+
+        # card against CPU, B=8, every dropout off
+        hp0 = dataclasses.replace(hp, relu_dropout=0.0, res_dropout=0.0, embed_dropout=0.0)
+        xs, kvs, cts = inputs(8, tq, tk, "cpu")
+        res = {}
+        for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            pd, lv, md = on(device)
+            xd, kd = xs.to(device), None if kvs is None else kvs.to(device)
+            with torch.inference_mode():
+                y_eval = encoder_forward(pd, xd, kd, hp=hp0, masks=md)
+            y = encoder_forward(pd, xd, kd, hp=hp0, masks=md, attn_rate=0.0, train=True,
+                                generator=torch.Generator(device=device).manual_seed(0))
+            g = torch.autograd.grad((y * cts.to(device)).mean(), lv)
+            res[key] = [y_eval.cpu(), y.detach().cpu()] + [a.cpu() for a in g]
+        card, cpu = res["card"], res["cpu"]
+        eval_err, train_err = errors(card[0], cpu[0])[0], errors(card[1], cpu[1])[0]
+        grad_err = max(errors(a, b)[1] for a, b in zip(card[2:], cpu[2:]))
+        ok = max(eval_err, train_err, grad_err) <= 1e-4
+        ms.update(card_vs_cpu_eval_abs=eval_err, card_vs_cpu_train_abs=train_err,
+                  card_vs_cpu_grad_rel=grad_err)
+        print(f"{label}: fwd+bwd ms flash {ms['fwd_bwd_flash_ms']:.3f} xla "
+              f"{ms['fwd_bwd_xla_ms']:.3f}; eval B={long[0]} T={long[1]} ms flash "
+              f"{ms['long_eval_flash_ms']:.3f} xla {ms['long_eval_xla_ms']:.3f}; card vs CPU at "
+              f"B=8: eval max_abs {eval_err:.3e}, train max_abs {train_err:.3e}, gradients "
+              f"{grad_err:.3e} of max|ref| (tol 1e-4) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+            raise RuntimeError(f"{label}: card and CPU disagree")
+        stats[label] = ms
+    return launches, stats
+
+
+def serving_flash(dev, n=2):
+    """StreamingPredictor(attn_impl="flash") at the MOSEI serving
+    configuration: every trunk stack is T==1, so the flash option takes the
+    T==1 rule and launches no K5f; K1 12, K2 4, K3 4 per request, and the
+    same predictions, bit for bit, as attn_impl="xla" on the same weights."""
+    from multimodal_transformer_robustness_tpu_torch.cli.realtime import StreamingPredictor
+
+    preds = {impl: StreamingPredictor(seed=0, device=dev, attn_impl=impl)
+             for impl in ("flash", "xla")}
+    requests = synthetic_requests(preds["flash"], n)
+    reset_counters()
+    got = [preds["flash"].forward(*r) for r in requests]
+    launches = read_counters()
+    expected = expect(K1=12 * n, K2=4 * n, K3=4 * n)
+    ref = [preds["xla"].forward(*r) for r in requests]
+    print(f"serving-flash: {n} requests, sentiments {got}; attn_impl='xla' {ref} "
+          f"(bit-identical {got == ref}); launches {launches} expected {expected}", flush=True)
+    if launches != expected or got != ref or not all(np.isfinite(got)):
+        raise RuntimeError("serving-flash: launch counts or predictions differ")
+    return launches
+
+
+def flash_masked_call(dev, B=8, L=32, heads=12, dh=64):
+    """K8's path: the JAX package retired flash_attention_masked from the
+    BERT's dispatch and keeps it as a library op, so its path is that call,
+    here at the BERT's width on q / k / v laid out as the BERT's
+    projections give them (ragged masks, one all-zero row).  Against K6a on
+    the same inputs (HF's additive -10000 bias; 1e-4 on rows with keys,
+    1e-3 on the all-masked row, where the bias rounds the logits) and
+    against the CPU (1e-4)."""
+    from multimodal_transformer_robustness_tpu_torch.ops import attention_cuda as ac
+    from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda
+
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, L, heads, dh), dtype=np.float32)).to(dev)
+               for _ in range(3))
+    mask = ragged_key_mask(rng, B, L, dev)
+
+    def heads_first(a, scale=1.0):
+        return (a * scale).transpose(1, 2).contiguous()
+
+    args = (heads_first(q, dh ** -0.5), heads_first(k), heads_first(v), mask)
+    reset_counters()
+    with torch.inference_mode():
+        out = ac.flash_attention_masked(*args)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    expected = expect(K8=1)
+    flat = out.transpose(1, 2).reshape(B, L, heads * dh)
+    dense = bert_attn_cuda.dense_attention_blockdiag(q, k, v, mask.float())
+    cpu = ac.flash_attention_masked(*(a.cpu() for a in args))
+    vs_dense = (flat - dense).abs().amax(dim=(1, 2))
+    vs_cpu = errors(out.cpu(), cpu)[0]
+    ok = (launches == expected and vs_dense[1:].max().item() <= 1e-4
+          and vs_dense[0].item() <= 1e-3 and vs_cpu <= 1e-4)
+    print(f"flash-masked B={B} L={L} {heads}x{dh}: launches {launches} expected {expected}; "
+          f"vs K6a max_abs {vs_dense[1:].max().item():.3e} on rows with keys, "
+          f"{vs_dense[0].item():.3e} on the all-masked row; vs CPU {vs_cpu:.3e} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError("flash-masked: launch counts or values disagree")
+    return launches
+
+
+# the flash-stack phase's shapes: the mems0 self stack and the cross stack
+FLASH_MAIN = "self B=4096 H=8 Tq=50 Tk=50 D=25 offset=1 rate=0.1"
+FLASH_CROSS = "cross B=4096 H=8 Tq=50 Tk=32 D=25 offset=19 rate=0.1"
+
+
 def kernel_entries(rows, launches):
     """One entry per kernel: worst error over every checked shape, times at
     the main path's most frequent shape, and the same at the training shape."""
@@ -1021,12 +1370,16 @@ def kernel_entries(rows, launches):
                   "K3": "B=1 L=8 h=768 ffn=3072",
                   "K1b": "in=768 H=100 T=50 B=4096 fwd need_dx=False",
                   "K4": "B=1 L=8 h=768 ffn=3072", "K6a": "B=1 L=8 h=768",
-                  "K6b": "B=1 L=8 h=768"}
+                  "K6b": "B=1 L=8 h=768",
+                  "K5f": FLASH_MAIN, "K5dq": FLASH_MAIN, "K5dkv": FLASH_MAIN,
+                  "K8": "B=1 L=8 H=12 D=64"}
     train_shape = {"K1": "in=768 H=100 T=50 B=4096 fwd", "K2": "B=4096 L=32 h=768",
                    "K3": "B=4096 L=32 h=768 ffn=3072",
                    "K1b": "in=200 H=100 T=50 B=4096 fwd need_dx=True",
                    "K4": "B=4096 L=32 h=768 ffn=3072", "K6a": "B=4096 L=32 h=768",
-                   "K6b": "B=4096 L=32 h=768"}
+                   "K6b": "B=4096 L=32 h=768",
+                   "K5f": FLASH_CROSS, "K5dq": FLASH_CROSS, "K5dkv": FLASH_CROSS,
+                   "K8": "B=4096 L=32 H=12 D=64"}
     meta = {
         "K1": ("gru_dir", "csrc/bigru.cu", "ops/bigru_pallas.py:127"),
         "K1b": ("gru_dir_bwd", "csrc/bigru_bwd.cu", "ops/bigru_pallas.py:284"),
@@ -1036,6 +1389,10 @@ def kernel_entries(rows, launches):
         "K6a": ("dense_attention_blockdiag", "csrc/bert_attn.cu",
                 "ops/bert_attn_pallas.py:114"),
         "K6b": ("proj_ln_block", "csrc/bert_ffn.cu", "ops/bert_ffn_pallas.py:183"),
+        "K5f": ("flash_fwd", "csrc/flash_attn.cu", "ops/attention_pallas.py:197"),
+        "K5dq": ("flash_bwd_dq", "csrc/flash_attn.cu", "ops/attention_pallas_bwd.py:77"),
+        "K5dkv": ("flash_bwd_dkv", "csrc/flash_attn.cu", "ops/attention_pallas_bwd.py:120"),
+        "K8": ("flash_attention_masked", "csrc/flash_attn.cu", "ops/attention_pallas.py:383"),
     }
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
@@ -1142,11 +1499,23 @@ def main() -> int:
 
     phase("cached-vs-online")
     cached_vs_online(dev, spec, bert_cfg)
+    torch.cuda.empty_cache()
+
+    phase("flash-stack")
+    flash_launches, flash_stats = flash_stack(dev, spec)
+    torch.cuda.empty_cache()
+
+    phase("serving-flash")
+    serving_flash_launches = serving_flash(dev)
+
+    phase("flash-masked")
+    masked_launches = flash_masked_call(dev)
 
     launches = {"serving": serve_launches, "train": train_launches,
                 "serving-int8": int8_launches, "serving-dense": dense_launches,
                 "bert-int8-full": full_launches, "train-int8": int8_train_launches,
-                "train-cached": cached_launches}
+                "train-cached": cached_launches, **flash_launches,
+                "serving-flash": serving_flash_launches, "flash-masked": masked_launches}
     kernels = kernel_entries(rows, launches)
     print(f"serving warm request ms, kernels {warm_ms}, plain {plain_ms}", flush=True)
     print(f"serving-int8 warm request ms, kernels {int8_warm}, plain {int8_plain}", flush=True)
@@ -1155,6 +1524,7 @@ def main() -> int:
     print("train " + json.dumps(train_stats), flush=True)
     print("train-int8 " + json.dumps(int8_train_stats), flush=True)
     print("train-cached " + json.dumps(cached_stats), flush=True)
+    print("flash-stack " + json.dumps(flash_stats), flush=True)
     print("int8 projections " + json.dumps(int8_projection_entries(rows, launches)),
           flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)

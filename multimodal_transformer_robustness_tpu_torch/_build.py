@@ -25,7 +25,8 @@ import torch
 _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("bigru.cu", "bigru_bwd.cu", "bert_attn.cu", "bert_ffn.cu", "bert_ffn_q.cu")
+SOURCES = ("bigru.cu", "bigru_bwd.cu", "bert_attn.cu", "bert_ffn.cu", "bert_ffn_q.cu",
+           "flash_attn.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -43,6 +44,9 @@ _SIGNATURES = {
     "mmtr_qgemm_i32": (_I, [_P] * 3 + [_I] * 3 + [_P]),
     "mmtr_qdot": (_I, [_P] * 6 + [_I] * 3 + [_P]),
     "mmtr_ffn_ln_q_fwd": (_I, [_P] * 16 + [_I] * 3 + [_F, _P]),
+    "mmtr_flash_fwd": (_I, [_P] * 8 + [_I] * 8 + [_P]),
+    "mmtr_flash_bwd_dq": (_I, [_P] * 9 + [_I] * 7 + [_P]),
+    "mmtr_flash_bwd_dkv": (_I, [_P] * 10 + [_I] * 7 + [_P]),
 }
 
 

@@ -25,7 +25,7 @@ from .. import _build
 from ..config import ModelSpec, full_active_config
 from ..masks import build_masks
 from ..models.bert import BertConfig, quantize_bert_params
-from ..models.mult import FLASH_TODO, init_supernet, supernet_apply
+from ..models.mult import init_supernet, supernet_apply
 
 TORCH_FEATURES_TODO = ("--features torch (MTCNN / wav2vec2 extraction) is not "
                        "ported yet: ROADMAP Queue 1, 'cli/realtime.py'")
@@ -83,8 +83,9 @@ class StreamingPredictor:
     def __init__(self, model_path=None, bert_dir=None, seed=0,
                  attn_impl: str = "xla", bert_int8: bool = False,
                  spec=None, bert_cfg=None, device="cuda"):
-        if attn_impl != "xla":
-            raise NotImplementedError(FLASH_TODO)
+        if spec is not None and attn_impl != "xla":
+            raise ValueError("attn_impl is consumed by the default ModelSpec only; "
+                             "set spec.attn_impl on the override")
         if bert_dir:
             raise NotImplementedError(BERT_DIR_TODO)
         from ..data.tokenizer import load_tokenizer
@@ -98,7 +99,7 @@ class StreamingPredictor:
             layers_cross_attn=4, layers_self_attn=2,
             attn_dropout=(0.1, 0.1, 0.0, 0.0), relu_dropout=0.1,
             res_dropout=0.3, out_dropout=0.1, embed_dropout=0.3,
-            attn_mask=True, output_dim=1)
+            attn_mask=True, output_dim=1, attn_impl=attn_impl)
         self.bert_cfg = bert_cfg or BertConfig(num_layers=4)
         gen = torch.Generator().manual_seed(seed)
         self.params, self.frozen = init_supernet(gen, self.spec, self.bert_cfg,

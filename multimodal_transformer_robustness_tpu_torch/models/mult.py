@@ -18,7 +18,10 @@ Train mode draws every dropout from one ``torch.Generator`` on the card,
 at the JAX package's draw points and per-stack rates: ``attn_dropout[:M]``
 for the mems0 stacks, ``spec.attn_dropout_for_cross(j)`` for the cross
 stacks (the reference's 0.1 quirk included), ``attn_dropout[-1]`` for the
-top stacks, ``out_dropout`` after ``relu(proj1)``.
+top stacks, ``out_dropout`` after ``relu(proj1)``.  ``spec.attn_impl =
+"flash"`` runs each stack's attention through the flash kernels; every
+stack is T==1 after the headers, so that takes the T==1 path, as in the JAX
+package, and computes what ``"xla"`` computes.
 
 Parameters are nested dicts of tensors: ``proj`` (one header dict per
 modality, GRU weights in the reference's torch layout), ``mems0`` /
@@ -42,12 +45,6 @@ from ..ops.encoder import EncoderHParams, EncoderMasks, encoder_forward, init_en
 from ..ops.linear import init_linear, masked_linear
 from . import bert as bert_mod
 from .headers import header_apply, init_header
-
-FLASH_TODO = ("attn_impl='flash' is not ported yet: ROADMAP Queue 2, K5 "
-              "(flash attention), which no model reaches: every header "
-              "collapses its modality to one token, so each trunk stack is "
-              "T==1 and the JAX package takes its T==1 path there too")
-
 
 def as_f32(a) -> torch.Tensor:
     """A float32 tensor holding a copy of ``a`` (tensor or numpy array)."""
@@ -74,7 +71,7 @@ def _hp(spec: ModelSpec, embed_dim: int, layers: int) -> EncoderHParams:
                           head_dim=spec.head_dim, layers=layers,
                           attn_mask=spec.attn_mask, relu_dropout=spec.relu_dropout,
                           res_dropout=spec.res_dropout,
-                          embed_dropout=spec.embed_dropout)
+                          embed_dropout=spec.embed_dropout, attn_impl=spec.attn_impl)
 
 
 def _hp_stream(spec: ModelSpec, layers: int) -> EncoderHParams:
@@ -86,8 +83,8 @@ def _hp_top(spec: ModelSpec) -> EncoderHParams:
 
 
 def _check_spec(spec: ModelSpec) -> None:
-    if spec.attn_impl != "xla":
-        raise NotImplementedError(FLASH_TODO)
+    if spec.attn_impl not in ("xla", "flash"):
+        raise ValueError(f"unknown attn_impl {spec.attn_impl!r}; valid: 'xla', 'flash'")
     if spec.compute_dtype != "float32":
         raise NotImplementedError("compute_dtype other than float32 is not "
                                   "ported yet (the kernels take float32): "

@@ -13,6 +13,12 @@ at Tq == Tk == 1, where the softmax over one key is exactly 1: the T==1
 path reduces to the value and out projections, with the attention dropout
 drawn on the constant weights ``ones [B, H, 1, 1]`` as the JAX package
 draws it.  On the T>1 path the dropout follows the softmax.
+
+``impl="flash"`` runs the T>1 path through the flash-attention kernels
+(``attention_cuda.flash_attention``: K5f forward, K5dq / K5dkv backward),
+with the future mask generated from its rule (``causal_offset``) instead of
+an additive bias, and, in train mode at a nonzero rate, the in-softmax
+position-hash dropout seeded per (batch, head) from the call's generator.
 """
 
 from __future__ import annotations
@@ -22,6 +28,7 @@ from typing import Optional
 
 import torch
 
+from .attention_cuda import flash_attention
 from .dropout import dropout
 
 
@@ -55,9 +62,14 @@ def multihead_attention(params: dict, query: torch.Tensor, key: torch.Tensor,
                         attn_bias: Optional[torch.Tensor] = None,
                         channel_mask: Optional[torch.Tensor] = None,
                         attn_dropout: float = 0.0, train: bool = False,
-                        generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                        generator: Optional[torch.Generator] = None, impl: str = "xla",
+                        causal_offset: Optional[int] = None) -> torch.Tensor:
     """``query [B, Tq, E_in]``, ``key`` / ``value`` ``[B, Tk, E_in]``,
-    additive ``attn_bias [Tq, Tk]``; attention dropout in train mode."""
+    additive ``attn_bias [Tq, Tk]``; attention dropout in train mode.
+    ``impl="flash"`` takes no bias: the future mask is ``causal_offset``'s
+    rule (None: no mask), and the attention dropout runs inside the kernel."""
+    if impl not in ("xla", "flash"):
+        raise ValueError(f"unknown attention impl {impl!r}; valid: 'xla', 'flash'")
     w_in = params["in_proj_w"]
     b_in = params["in_proj_b"]
     hd = head_mask[:, None] * head_dim_mask[None, :]
@@ -69,7 +81,7 @@ def multihead_attention(params: dict, query: torch.Tensor, key: torch.Tensor,
         out = torch.einsum("bqhd,ehd->bqe", attn, params["out_w"]) + params["out_b"]
         return out * channel_mask if channel_mask is not None else out
 
-    if query.shape[1] == 1 and key.shape[1] == 1 and attn_bias is None:
+    if query.shape[1] == 1 and key.shape[1] == 1 and (attn_bias is None or impl == "flash"):
         v = proj(value, 2)
         if train and attn_dropout != 0.0:
             ones = torch.ones(query.shape[0], w_in.shape[1], 1, 1, device=query.device)
@@ -81,6 +93,25 @@ def multihead_attention(params: dict, query: torch.Tensor, key: torch.Tensor,
     v = proj(value, 2)
     active_dh = torch.clamp(head_dim_mask.float().sum(), min=1.0)
     q = q * torch.rsqrt(active_dh)
+    if impl == "flash":
+        if attn_bias is not None:
+            raise ValueError("impl='flash' takes the future mask as causal_offset, "
+                             "not as an additive attn_bias")
+        seeds = rates = None
+        if train and attn_dropout != 0.0:
+            if generator is None:
+                raise ValueError("training-mode dropout needs a generator")
+            bh = query.shape[0] * w_in.shape[1]
+            # the JAX package's jax.random.randint(rng, (bh,), 0, 2**31 - 1)
+            seeds = torch.randint(0, 2**31 - 1, (bh,), generator=generator,
+                                  device=query.device, dtype=torch.int32)
+            rates = torch.full((bh,), float(attn_dropout), device=query.device)
+        attn = flash_attention(
+            q.transpose(1, 2).contiguous(), k.transpose(1, 2).contiguous(),
+            v.transpose(1, 2).contiguous(), causal=causal_offset is not None,
+            offset=causal_offset if causal_offset is not None else 1,
+            dropout_seeds=seeds, dropout_rates=rates)
+        return out_proj(attn.transpose(1, 2))
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
     if attn_bias is not None:
         logits = logits + attn_bias

@@ -1,0 +1,303 @@
+"""K5 / K8: flash attention through hand-written CUDA kernels, forward and
+backward, with the position-hash dropout.
+
+Counterpart of ``multimodal_transformer_robustness_tpu/ops/attention_pallas.py``
+and ``attention_pallas_bwd.py``.  Each wrapper launches ``csrc/flash_attn.cu``
+on a CUDA tensor and runs its plain PyTorch version on a CPU tensor:
+
+  * :func:`flash_fwd` (K5f): ``softmax(q k^T + future-mask rule) v`` and its
+    log-sum-exp, replacing ``attention_pallas._flash_fwd_impl``;
+  * :func:`flash_bwd_dq` (K5dq) and :func:`flash_bwd_dkv` (K5dkv): the
+    backward from the saved log-sum-exp, replacing the two pallas_calls of
+    ``attention_pallas_bwd.flash_attention_bwd``;
+  * :func:`flash_attention_masked` (K8): the forward with a per-sample
+    key-padding mask, replacing ``attention_pallas.flash_attention_masked``;
+    forward only, as there.
+
+:func:`flash_attention` joins K5f, K5dq and K5dkv as an autograd function,
+as the JAX package's custom VJP does.  q arrives pre-scaled; the future-mask
+rule masks ``col - row >= offset`` (the reference's ``offset = 1 + |Tk -
+Tq|``).  The in-softmax dropout keeps weight ``(row, col)`` of slice ``b*h``
+where :func:`hash_uniform` ``(seed[b*h], row, col) >= rate``: integer math,
+so it reproduces the JAX package's draws bit for bit, and the forward and
+both backward kernels regenerate one mask without storing it.  The softmax
+normalizer sums the raw weights; only the value product sees the dropped
+and rescaled ones (torch drops after the softmax).
+"""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from .. import _build
+
+NEG_INF = -1e30   # finite fill: a masked logit never makes a NaN
+_MAX_HEAD_DIM = 128
+_U32 = 0xFFFFFFFF
+
+
+def _mul32(h: torch.Tensor, c: int) -> torch.Tensor:
+    """``h * c mod 2**32`` for int64 ``h`` in [0, 2**32), split into 16-bit
+    halves of ``c`` so no product leaves int64's range."""
+    lo, hi = c & 0xFFFF, c >> 16
+    return (h * lo + (((h * hi) & 0xFFFF) << 16)) & _U32
+
+
+def hash_uniform(seed, rows: torch.Tensor, cols: torch.Tensor) -> torch.Tensor:
+    """Counter-based uniform in [0, 1): murmur3 fmix32 of ``seed ^ row *
+    0x9E3779B1 ^ col * 0x85EBCA77`` with wrap-around 32-bit multiplies and
+    logical shifts, then the top 24 bits times 2**-24.  ``seed`` is an
+    int32 (a Python int or a tensor broadcasting against ``rows`` /
+    ``cols``, the global positions); the result is float32, bit-equal to
+    the JAX package's ``_hash_uniform`` and to the CUDA kernels' draws.
+    Computed in int64 on the 32-bit patterns, where ``>>`` is logical."""
+    seed = torch.as_tensor(seed, device=rows.device).to(torch.int64) & _U32
+    h = (_mul32(rows.to(torch.int64) & _U32, 0x9E3779B1)
+         ^ _mul32(cols.to(torch.int64) & _U32, 0x85EBCA77) ^ seed)
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    h = h ^ (h >> 16)
+    return (h >> 8).to(torch.float32) * (1.0 / (1 << 24))
+
+
+def dropout_uniform(seed, tq: int, tk: int, device=None) -> torch.Tensor:
+    """The dense ``[tq, tk]`` field of one (batch*head) slice."""
+    rows = torch.arange(tq, device=device)[:, None]
+    cols = torch.arange(tk, device=device)[None, :]
+    return hash_uniform(seed, rows, cols)
+
+
+def _offset(tq: int, tk: int, causal: bool, offset: Optional[int]) -> int:
+    if offset is None:
+        offset = 1 + abs(tk - tq)
+    if causal and offset < 1:
+        raise ValueError(f"causal flash attention needs offset >= 1 (got {offset}); "
+                         f"the reference's rule is offset = 1 + |Tk - Tq|")
+    return int(offset)
+
+
+def _keep_scale(seeds, rates, b, h, tq, tk, device) -> torch.Tensor:
+    """``[B, H, Tq, Tk]`` inverted-dropout factors ``keep / (1 - rate)``."""
+    rows = torch.arange(tq, device=device)[:, None]
+    cols = torch.arange(tk, device=device)[None, :]
+    u = hash_uniform(seeds.reshape(b, h, 1, 1), rows, cols)
+    rate = rates.reshape(b, h, 1, 1).to(torch.float32)
+    zero = torch.zeros((), dtype=torch.float32, device=device)
+    return torch.where(u >= rate, 1.0 / (1.0 - rate), zero)
+
+
+def flash_attention_plain(q, k, v, causal: bool = True, offset: Optional[int] = None,
+                          dropout_seeds=None, dropout_rates=None):
+    """Plain PyTorch version of K5f: dense logits with the same causal rule,
+    finite fill, normalizer floor and hash field -> ``(out [B, H, Tq, D],
+    lse [B*H, Tq])``.  Differentiable by autograd: the gradient oracle of
+    K5dq / K5dkv."""
+    b, h, tq, _ = q.shape
+    tk = k.shape[2]
+    offset = _offset(tq, tk, causal, offset)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k)
+    if causal:
+        rows = torch.arange(tq, device=q.device)[:, None]
+        cols = torch.arange(tk, device=q.device)[None, :]
+        s = torch.where(cols - rows < offset, s, torch.full((), NEG_INF, device=q.device))
+    m = s.amax(-1, keepdim=True).detach()     # the output does not depend on it
+    p = torch.exp(s - m)
+    l_safe = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    lse = (m + torch.log(l_safe)).reshape(b * h, tq)
+    if dropout_seeds is not None:
+        p = p * _keep_scale(dropout_seeds, dropout_rates, b, h, tq, tk, q.device)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v) / l_safe, lse
+
+
+def flash_attention_bwd_plain(q, k, v, dout, causal: bool = True,
+                              offset: Optional[int] = None, dropout_seeds=None,
+                              dropout_rates=None):
+    """Plain PyTorch version of K5dq and K5dkv: ``torch.autograd.grad``
+    through :func:`flash_attention_plain` -> ``(dq, dk, dv)``."""
+    with torch.enable_grad():
+        qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
+        out, _ = flash_attention_plain(*qkv, causal, offset, dropout_seeds, dropout_rates)
+        return torch.autograd.grad(out, qkv, dout)
+
+
+def _check_qkv(q, k, v, dev):
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    if d > _MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {d}: the kernels take head_dim <= {_MAX_HEAD_DIM}")
+    _build.require(q, "q", (b, h, tq, d), dev)
+    _build.require(k, "k", (b, h, tk, d), dev)
+    _build.require(v, "v", (b, h, tk, d), dev)
+    return b, h, tq, tk, d
+
+
+def _check_dropout(seeds, rates, bh, dev):
+    """-> (seeds pointer, rates pointer, use_dropout)."""
+    if seeds is None:
+        return 0, 0, 0
+    _build.require(seeds, "dropout_seeds", (bh,), dev, torch.int32)
+    _build.require(rates, "dropout_rates", (bh,), dev)
+    return seeds.data_ptr(), rates.data_ptr(), 1
+
+
+def flash_fwd(q, k, v, seeds=None, rates=None, causal: bool = True,
+              offset: Optional[int] = None):
+    """K5f: ``q [B, H, Tq, D]`` (pre-scaled), ``k``, ``v [B, H, Tk, D]``,
+    optional ``seeds [B*H]`` int32 and ``rates [B*H]`` -> ``(out, lse [B*H,
+    Tq])``.  CPU tensors take :func:`flash_attention_plain`; CUDA tensors
+    launch the kernel (or raise)."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, offset, seeds, rates)
+    dev = _build.device_of(q)
+    b, h, tq, tk, d = _check_qkv(q, k, v, dev)
+    offset = _offset(tq, tk, causal, offset)
+    p_seeds, p_rates, use_dropout = _check_dropout(seeds, rates, b * h, dev)
+    out = torch.empty_like(q)
+    lse = torch.empty(b * h, tq, dtype=torch.float32, device=dev)
+    err = _build.load_library().mmtr_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), p_seeds, p_rates, 0, out.data_ptr(),
+        lse.data_ptr(), b * h, 1, tq, tk, d, int(causal), offset, use_dropout,
+        _build.stream_ptr(dev))
+    _build.check(err, "flash attention forward kernel")
+    flash_fwd.launches += 1
+    return out, lse
+
+
+flash_fwd.launches = 0
+
+
+def _bwd_operands(q, k, v, dout, lse, delta, seeds, rates, causal, offset):
+    dev = _build.device_of(q)
+    b, h, tq, tk, d = _check_qkv(q, k, v, dev)
+    _build.require(dout, "dout", (b, h, tq, d), dev)
+    _build.require(lse, "lse", (b * h, tq), dev)
+    _build.require(delta, "delta", (b * h, tq), dev)
+    p_seeds, p_rates, use_dropout = _check_dropout(seeds, rates, b * h, dev)
+    return dev, (q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(),
+                 delta.data_ptr(), p_seeds, p_rates), \
+        (b * h, tq, tk, d, int(causal), _offset(tq, tk, causal, offset), use_dropout)
+
+
+def flash_bwd_dq(q, k, v, dout, lse, delta, seeds=None, rates=None, causal: bool = True,
+                 offset: Optional[int] = None) -> torch.Tensor:
+    """K5dq: dq from the forward's inputs, ``dout``, ``lse`` and ``delta =
+    rowsum(dout * out)`` ``[B*H, Tq]``.  CPU tensors take the plain version
+    (which recomputes the forward and does not read ``lse`` / ``delta``)."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, dout, causal, offset, seeds, rates)[0]
+    dev, ptrs, ints = _bwd_operands(q, k, v, dout, lse, delta, seeds, rates, causal, offset)
+    dq = torch.empty_like(q)
+    err = _build.load_library().mmtr_flash_bwd_dq(*ptrs, dq.data_ptr(), *ints,
+                                                  _build.stream_ptr(dev))
+    _build.check(err, "flash attention dq kernel")
+    flash_bwd_dq.launches += 1
+    return dq
+
+
+flash_bwd_dq.launches = 0
+
+
+def flash_bwd_dkv(q, k, v, dout, lse, delta, seeds=None, rates=None, causal: bool = True,
+                  offset: Optional[int] = None):
+    """K5dkv: ``(dk, dv)``, operands as :func:`flash_bwd_dq`."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, dout, causal, offset, seeds, rates)[1:]
+    dev, ptrs, ints = _bwd_operands(q, k, v, dout, lse, delta, seeds, rates, causal, offset)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    err = _build.load_library().mmtr_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(),
+                                                   *ints, _build.stream_ptr(dev))
+    _build.check(err, "flash attention dk/dv kernel")
+    flash_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_bwd_dkv.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Forward K5f, backward K5dq + K5dkv; ``delta = rowsum(dO * O)`` is a
+    plain torch op between them, as the JAX package computes it in XLA.
+    No gradient reaches the seeds or the rates."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, seeds, rates, causal: bool, offset: int):
+        out, lse = flash_fwd(q, k, v, seeds, rates, causal, offset)
+        ctx.causal, ctx.offset = causal, offset
+        ctx.save_for_backward(q, k, v, seeds, rates, out, lse)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, seeds, rates, out, lse = ctx.saved_tensors
+        dout = dout.contiguous()
+        delta = (dout * out).sum(-1).reshape(-1, q.shape[2])
+        args = (q, k, v, dout, lse, delta, seeds, rates, ctx.causal, ctx.offset)
+        dq = flash_bwd_dq(*args)
+        dk, dv = flash_bwd_dkv(*args)
+        return dq, dk, dv, None, None, None, None
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, offset: Optional[int] = None,
+                    dropout_seeds: Optional[torch.Tensor] = None,
+                    dropout_rates: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Differentiable fused attention over ``q [B, H, Tq, D]`` (pre-scaled),
+    ``k``, ``v [B, H, Tk, D]`` -> ``[B, H, Tq, D]``.  ``offset`` defaults to
+    the reference's ``1 + |Tk - Tq|``; pass ``dropout_seeds [B*H]`` int32 and
+    ``dropout_rates [B*H]`` for the in-softmax dropout.  CPU tensors run the
+    plain version under autograd; CUDA tensors run K5f / K5dq / K5dkv."""
+    offset = _offset(q.shape[2], k.shape[2], causal, offset)
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal, offset, dropout_seeds,
+                                     dropout_rates)[0]
+    return FlashAttention.apply(q, k, v, dropout_seeds, dropout_rates, causal, offset)
+
+
+def _effective_key_mask(key_mask: torch.Tensor) -> torch.Tensor:
+    """int32 ``[B, Tk]``; an all-zero row (a uniform -10000 bias, which the
+    softmax cancels) becomes all ones."""
+    km = key_mask.to(torch.int32)
+    return torch.where((km > 0).any(dim=1, keepdim=True), km, torch.ones_like(km))
+
+
+def flash_attention_masked_plain(q, k, v, key_mask) -> torch.Tensor:
+    """Plain PyTorch version of K8: dense logits, masked key columns filled
+    with the finite -1e30, the all-zero-row rewrite, the normalizer floor."""
+    km = _effective_key_mask(key_mask)
+    s = torch.einsum("bhqd,bhkd->bhqk", q, k)
+    s = torch.where(km[:, None, None, :] > 0, s, torch.full((), NEG_INF, device=q.device))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l_safe = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
+    return torch.einsum("bhqk,bhkd->bhqd", p, v) / l_safe
+
+
+def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                           key_mask: torch.Tensor) -> torch.Tensor:
+    """Attention with HF key-padding semantics (``key_mask [B, Tk]``, 1 =
+    attend, shared by a sample's heads) over pre-scaled ``q [B, H, Tq, D]``,
+    ``k``, ``v [B, H, Tk, D]``; no causal rule, no dropout.  Forward only,
+    as in the JAX package: on the card an input that requires grad raises
+    rather than losing its gradient.  CPU tensors take the plain version."""
+    if q.device.type == "cpu":
+        return flash_attention_masked_plain(q, k, v, key_mask)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise ValueError("flash_attention_masked has no backward; its inputs must "
+                         "not require grad")
+    dev = _build.device_of(q)
+    b, h, tq, tk, d = _check_qkv(q, k, v, dev)
+    km = _effective_key_mask(key_mask.to(dev)).contiguous()
+    _build.require(km, "key_mask", (b, tk), dev, torch.int32)
+    out = torch.empty_like(q)
+    err = _build.load_library().mmtr_flash_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), 0, 0, km.data_ptr(), out.data_ptr(), 0,
+        b * h, h, tq, tk, d, 0, 1, 0, _build.stream_ptr(dev))
+    _build.check(err, "flash attention masked kernel")
+    flash_attention_masked.launches += 1
+    return out
+
+
+flash_attention_masked.launches = 0

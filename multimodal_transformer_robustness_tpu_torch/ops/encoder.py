@@ -9,7 +9,10 @@ dropout draws for k and v.  Each layer: LN -> attention (optional future
 mask, attention dropout) -> res dropout -> residual; LN -> fc1 (FFN-masked)
 -> ReLU -> relu dropout -> fc2 -> res dropout -> residual.  All layers run;
 an inactive layer is an identity through ``torch.where`` on the carry, so a
-mask is never read on the host.  The JAX package's rematerialization knobs
+mask is never read on the host.  ``attn_impl="flash"`` routes attention
+through the flash kernels (``ops/attention_cuda.py``) with the future mask
+from its rule, in eval and train mode; a nonzero attention rate runs the
+kernels' in-softmax dropout.  The JAX package's rematerialization knobs
 (``REMAT_*``) are not carried over: they trade memory for recompute and do
 not change a value.
 """
@@ -48,6 +51,7 @@ class EncoderHParams:
     relu_dropout: float = 0.0
     res_dropout: float = 0.0
     embed_dropout: float = 0.0
+    attn_impl: str = "xla"   # "xla" or "flash"
 
 
 def _init_layer(gen: torch.Generator, e_in: int, h: int, dh: int) -> dict:
@@ -78,6 +82,11 @@ def _layer_forward(lp: dict, x: torch.Tensor, x_k: Optional[torch.Tensor],
     att = dict(head_mask=m.head_mask, head_dim_mask=m.head_dim_mask,
                attn_bias=attn_bias, attn_dropout=attn_rate, train=train,
                generator=gen)
+    if hp.attn_impl == "flash":
+        tq = x.shape[1]
+        tk = x_k.shape[1] if x_k is not None else tq
+        att.update(impl="flash",
+                   causal_offset=(1 + abs(tk - tq)) if hp.attn_mask else None)
     h = masked_layer_norm(x, lp["ln0"]["g"], lp["ln0"]["b"], cm)
     if x_k is None:
         attn = multihead_attention(lp["attn"], h, h, h, channel_mask=cm, **att)
@@ -124,7 +133,7 @@ def encoder_forward(params: dict, x_in: torch.Tensor,
     attn_bias = None
     tq = x.shape[1]
     tk = x_kv.shape[1] if x_kv is not None else tq
-    if hp.attn_mask and not (tq == 1 and tk == 1):
+    if hp.attn_mask and not (tq == 1 and tk == 1) and hp.attn_impl != "flash":
         # future_mask(1, 1) is identically 0; leaving it out takes the T==1 path
         attn_bias = future_mask(tq, tk, device=x.device)
 

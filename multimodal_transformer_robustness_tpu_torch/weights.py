@@ -7,6 +7,7 @@ b_hh``, the packed attention in-projection viewed ``[3, H, Dh, E_in]``), so
 the two directions are reshapes; only the frozen BERT is turned into the
 kernels' layout, once per load.  The reference's dead ``translation``
 linears are neither loaded nor exported: the forward never reads them.
+:func:`load_encoder_stack` carries one encoder stack across on its own.
 """
 
 from __future__ import annotations
@@ -146,3 +147,18 @@ def export_reference_state_dict(spec: ModelSpec, params: dict) -> Dict[str, np.n
             a = a.reshape(-1, e)
         out[name] = a
     return out
+
+
+def load_encoder_stack(stacked: Mapping, device="cpu") -> dict:
+    """One encoder stack as the JAX package's ``init_encoder`` builds it
+    (nested dicts of arrays, the layers' leaves stacked on axis 0, plus the
+    final ``ln``) -> the port's ``{"layers": [one dict per layer], "ln"}``
+    on ``device``.  Takes numpy arrays or anything ``np.asarray`` reads."""
+    def layer(tree, i):
+        if isinstance(tree, Mapping):
+            return {k: layer(v, i) for k, v in tree.items()}
+        return np.array(np.asarray(tree)[i])   # a writable copy
+
+    n = np.asarray(stacked["layers"]["ln0"]["g"]).shape[0]
+    return to_device({"layers": [layer(stacked["layers"], i) for i in range(n)],
+                      "ln": {k: np.array(v) for k, v in stacked["ln"].items()}}, device)

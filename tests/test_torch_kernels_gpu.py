@@ -23,8 +23,9 @@ import torch
 
 from multimodal_transformer_robustness_tpu_torch.models import bert as tbert
 from multimodal_transformer_robustness_tpu_torch.models.mult import to_device
-from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bert_ffn_cuda
-from multimodal_transformer_robustness_tpu_torch.ops import bigru_cuda
+from multimodal_transformer_robustness_tpu_torch.ops import attention_cuda, bert_attn_cuda
+from multimodal_transformer_robustness_tpu_torch.ops import bert_ffn_cuda, bigru_cuda
+from multimodal_transformer_robustness_tpu_torch.ops import encoder as tenc
 
 
 def gru_torch_layout(rng, in_dim, hidden):
@@ -279,3 +280,132 @@ def test_bert_variants_on_card_match_cpu(cuda, impl, int8, monkeypatch):
         diff = (out - ref).abs()
         assert (diff > 1e-4 + 1e-4 * ref.abs()).any(-1).float().mean() <= 0.1
         assert diff.max() <= 3e-3
+
+
+# (b, h, tq, tk, d, causal, rate): the MOSEI self and cross (offset 19)
+# shapes at small batch, several tiles, a D above 64, and a narrow D
+_FLASH_CASES = [(2, 8, 50, 50, 25, True, 0.0), (2, 8, 50, 32, 25, True, 0.1),
+                (1, 2, 130, 70, 64, True, 0.1), (2, 2, 7, 200, 128, False, 0.3),
+                (1, 1, 300, 300, 8, True, 0.0)]
+
+
+def _flash_inputs(cuda, b, h, tq, tk, d, rate, seed=13):
+    rng = np.random.default_rng(seed)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, t, d)).astype(np.float32)).to(cuda)
+               for t in (tq, tk, tk))
+    seeds = rates = None
+    if rate:
+        seeds = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, b * h).astype(np.int32)).to(cuda)
+        rates = torch.full((b * h,), rate, device=cuda)
+    return q, k, v, seeds, rates
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,tq,tk,d,causal,rate", _FLASH_CASES)
+def test_flash_fwd_kernel_matches_plain(cuda, b, h, tq, tk, d, causal, rate):
+    q, k, v, seeds, rates = _flash_inputs(cuda, b, h, tq, tk, d, rate)
+    n0 = attention_cuda.flash_fwd.launches
+    out, lse = attention_cuda.flash_fwd(q, k, v, seeds, rates, causal)
+    torch.cuda.synchronize()
+    assert attention_cuda.flash_fwd.launches == n0 + 1
+    ref, ref_lse = attention_cuda.flash_attention_plain(q, k, v, causal, None, seeds, rates)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,tq,tk,d,causal,rate", _FLASH_CASES)
+def test_flash_bwd_kernels_match_plain(cuda, b, h, tq, tk, d, causal, rate):
+    """K5dq and K5dkv from the plain forward's out and lse, against autograd
+    through the plain version; a rerun gives the same bits."""
+    q, k, v, seeds, rates = _flash_inputs(cuda, b, h, tq, tk, d, rate)
+    dout = torch.from_numpy(np.random.default_rng(14).standard_normal(q.shape)
+                            .astype(np.float32)).to(cuda)
+    out, lse = attention_cuda.flash_attention_plain(q, k, v, causal, None, seeds, rates)
+    delta = (dout * out).sum(-1).reshape(b * h, tq)
+    args = (q, k, v, dout, lse, delta, seeds, rates, causal)
+    n0 = (attention_cuda.flash_bwd_dq.launches, attention_cuda.flash_bwd_dkv.launches)
+    got = (attention_cuda.flash_bwd_dq(*args),) + attention_cuda.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    assert (attention_cuda.flash_bwd_dq.launches,
+            attention_cuda.flash_bwd_dkv.launches) == (n0[0] + 1, n0[1] + 1)
+    ref = attention_cuda.flash_attention_bwd_plain(q, k, v, dout, causal, None, seeds, rates)
+    again = (attention_cuda.flash_bwd_dq(*args),) + attention_cuda.flash_bwd_dkv(*args)
+    for a, r, b_ in zip(got, ref, again):
+        torch.testing.assert_close(a, r, atol=1e-4 * r.abs().max().item(), rtol=0)
+        assert torch.equal(a, b_)              # no float atomics: the same bits
+
+
+@pytest.mark.gpu
+def test_flash_autograd_on_card_matches_cpu(cuda):
+    """``flash_attention`` (K5f forward, K5dq + K5dkv backward) against the
+    same function on the CPU (the plain version under autograd)."""
+    q, k, v, seeds, rates = _flash_inputs("cpu", 2, 3, 40, 57, 25, 0.2)
+    out = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.clone().to(dev).requires_grad_(True) for t in (q, k, v)]
+        y = attention_cuda.flash_attention(*leaves, True, None, seeds.to(dev), rates.to(dev))
+        y.sin().sum().backward()
+        out[str(dev)] = [y] + [t.grad for t in leaves]
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,t,d", [(1, 12, 8, 64), (3, 12, 32, 64), (2, 2, 100, 25),
+                                     (1, 12, 512, 64)])
+def test_flash_masked_kernel_matches_plain(cuda, b, h, t, d):
+    """K8 with ragged masks, a mask with holes and an all-zero row."""
+    rng = np.random.default_rng(15)
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, t, d)).astype(np.float32)).to(cuda)
+               for _ in range(3))
+    mask = np.ones((b, t), np.int32)
+    for i in range(b):
+        mask[i, rng.integers(1, t + 1):] = 0
+    mask[0] = 0
+    if b > 2:
+        mask[2, ::3] = 0
+    mask = torch.from_numpy(mask).to(cuda)
+    n0 = attention_cuda.flash_attention_masked.launches
+    out = attention_cuda.flash_attention_masked(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert attention_cuda.flash_attention_masked.launches == n0 + 1
+    ref = attention_cuda.flash_attention_masked_plain(q, k, v, mask)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+
+
+@pytest.mark.gpu
+def test_flash_masked_refuses_grad(cuda):
+    q = torch.zeros(1, 2, 8, 16, device=cuda, requires_grad=True)
+    with pytest.raises(ValueError, match="no backward"):
+        attention_cuda.flash_attention_masked(q, q.detach(), q.detach(),
+                                              torch.ones(1, 8, device=cuda))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("mode", ["self", "cross"])
+def test_flash_encoder_on_card_matches_cpu(cuda, mode):
+    """A flash encoder stack in train mode, every dropout 0: outputs and
+    every gradient on the card against the CPU."""
+    E, H, Dh, L = 40, 4, 10, 2
+    hp = tenc.EncoderHParams(embed_dim_in=E, num_heads=H, head_dim=Dh, layers=L,
+                             attn_mask=True, attn_impl="flash")
+    params = tenc.init_encoder(torch.Generator().manual_seed(0), hp)
+    rng = np.random.default_rng(16)
+    x = torch.from_numpy(rng.standard_normal((3, 50, E)).astype(np.float32))
+    kv = (torch.from_numpy(rng.standard_normal((3, 32, E)).astype(np.float32))
+          if mode == "cross" else None)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = to_device(params, dev)
+        leaves = [t.requires_grad_(True) for lp in p["layers"] for blk in lp.values()
+                  for t in blk.values()]
+        m = tenc.EncoderMasks(*(torch.ones(n, device=dev) for n in (L, H, Dh, 4 * H * Dh)))
+        y = tenc.encoder_forward(p, x.to(dev), None if kv is None else kv.to(dev), hp=hp,
+                                 masks=m, attn_rate=0.0, train=True,
+                                 generator=torch.Generator(device=dev).manual_seed(0))
+        y.square().sum().backward()
+        out[str(dev)] = [y] + [t.grad for t in leaves]
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4 * max(a.abs().max().item(), 1.0),
+                                   rtol=0)

@@ -33,6 +33,7 @@ from multimodal_transformer_robustness_tpu_torch.ops import gru as tgru
 from multimodal_transformer_robustness_tpu_torch.ops import layernorm as tln
 from multimodal_transformer_robustness_tpu_torch.ops import linear as tlin
 from multimodal_transformer_robustness_tpu_torch.ops import positional as tpos
+from multimodal_transformer_robustness_tpu_torch.weights import load_encoder_stack
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -166,14 +167,6 @@ def test_attention_matches(tq, tk, masked):
     _close(out, ref)
 
 
-def _stack_layers(enc_params):
-    """JAX scan-stacked encoder params -> the port's per-layer list."""
-    n = enc_params["layers"]["ln0"]["g"].shape[0]
-    return {"layers": [_t(jax.tree.map(lambda a: a[i], enc_params["layers"]))
-                       for i in range(n)],
-            "ln": _t(enc_params["ln"])}
-
-
 @pytest.mark.parametrize("mode,t,tk", [("self", 1, None), ("self", 5, None),
                                        ("cross", 1, 1), ("cross", 4, 6),
                                        ("channel", 1, None)])
@@ -204,7 +197,7 @@ def test_encoder_forward_matches(mode, t, tk):
                                None if kv is None else jnp.asarray(kv), hp=hp, masks=jm)
     thp = tenc.EncoderHParams(embed_dim_in=E, num_heads=H, head_dim=Dh, layers=L,
                               attn_mask=True)
-    out = tenc.encoder_forward(_stack_layers(params), torch.from_numpy(x),
+    out = tenc.encoder_forward(load_encoder_stack(params), torch.from_numpy(x),
                                None if kv is None else torch.from_numpy(kv),
                                hp=thp, masks=tm)
     _close(out, ref)
@@ -216,7 +209,7 @@ def test_encoder_train_mode_runs():
     rng = np.random.default_rng(6)
     E, H, Dh, L = 12, 2, 4, 2
     jhp = jenc.EncoderHParams(embed_dim_in=E, num_heads=H, head_dim=Dh, layers=L)
-    params = _stack_layers(jenc.init_encoder(jax.random.PRNGKey(3), jhp))
+    params = load_encoder_stack(jenc.init_encoder(jax.random.PRNGKey(3), jhp))
     m = tenc.EncoderMasks(torch.ones(L), torch.ones(H), torch.ones(Dh),
                           torch.ones(4 * H * Dh))
     hp = tenc.EncoderHParams(embed_dim_in=E, num_heads=H, head_dim=Dh, layers=L,

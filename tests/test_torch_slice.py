@@ -232,12 +232,14 @@ def test_streaming_predictor_cpu():
 
 @pytest.mark.parametrize("kwargs", [dict(attn_impl="flash"), dict(bert_dir="/nonexistent")])
 def test_streaming_predictor_unported_options_raise(kwargs):
-    """``--attn_impl flash`` waits for K5, which no model reaches (every trunk
-    stack is T==1); ``--bert_dir`` waits for the checkpoint port."""
+    """``attn_impl`` with a caller's own spec raises, as in the JAX package
+    (it feeds the default MOSEI spec only); ``--bert_dir`` waits for the
+    checkpoint port."""
     from multimodal_transformer_robustness_tpu_torch.cli.realtime import StreamingPredictor
 
-    match = "no model reaches" if "attn_impl" in kwargs else "ROADMAP"
-    with pytest.raises(NotImplementedError, match=match):
+    error, match = ((ValueError, "default ModelSpec") if "attn_impl" in kwargs
+                    else (NotImplementedError, "ROADMAP"))
+    with pytest.raises(error, match=match):
         StreamingPredictor(spec=tcfg.ModelSpec(**_TINY),
                            bert_cfg=tbert.tiny_bert_config(), **kwargs)
 

@@ -40,7 +40,8 @@ from multimodal_transformer_robustness_tpu_torch.ops.dropout import dropout
 from multimodal_transformer_robustness_tpu_torch.train import TrainHParams, Trainer
 from multimodal_transformer_robustness_tpu_torch.train.sampling import (
     sample_train_config as t_sample)
-from test_torch_ops import _spec, _stack_layers
+from multimodal_transformer_robustness_tpu_torch.weights import load_encoder_stack
+from test_torch_ops import _spec
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -169,7 +170,7 @@ def test_train_mode_encoder_matches(mode, t, tk):
 
     thp = tenc.EncoderHParams(embed_dim_in=E, num_heads=H, head_dim=Dh, layers=L,
                               attn_mask=True)
-    tp = _stack_layers(params)
+    tp = load_encoder_stack(params)
     leaves = [a.requires_grad_(True) for a in jax.tree.leaves(tp)]
     tx = torch.from_numpy(x).requires_grad_(True)
     tk_in = None if kv is None else torch.from_numpy(kv).requires_grad_(True)
@@ -177,7 +178,7 @@ def test_train_mode_encoder_matches(mode, t, tk):
                                generator=torch.Generator().manual_seed(0))
     (out * torch.from_numpy(ct)).sum().backward()
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(ref), **TOL)
-    j_leaves = jax.tree.leaves(_stack_layers(grads[0]))
+    j_leaves = jax.tree.leaves(load_encoder_stack(grads[0]))
     assert len(j_leaves) == len(leaves)
     for a, b in zip(leaves, j_leaves):
         np.testing.assert_allclose(a.grad.numpy(), b.numpy(), **TOL)
