@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("bigru.cu", "bigru_bwd.cu", "bert_attn.cu", "bert_ffn.cu", "bert_ffn_q.cu",
-           "flash_attn.cu")
+           "flash_attn.cu", "gru_recurrence.cu", "trunk_block.cu")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
@@ -47,6 +47,10 @@ _SIGNATURES = {
     "mmtr_flash_fwd": (_I, [_P] * 8 + [_I] * 8 + [_P]),
     "mmtr_flash_bwd_dq": (_I, [_P] * 9 + [_I] * 7 + [_P]),
     "mmtr_flash_bwd_dkv": (_I, [_P] * 10 + [_I] * 7 + [_P]),
+    "mmtr_gru_rec_fwd": (_I, [_P] * 10 + [_I] * 4 + [_P]),
+    "mmtr_gru_rec_bwd": (_I, [_P] * 15 + [_I] * 4 + [_P]),
+    "mmtr_trunk_block_fwd": (_I, [_P] * 12 + [_I] * 9 + [_F] * 3 + [_P]),
+    "mmtr_trunk_block_bwd": (_I, [_P] * 19 + [_I] * 11 + [_F] * 3 + [_P]),
 }
 
 

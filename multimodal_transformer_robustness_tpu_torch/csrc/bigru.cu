@@ -25,10 +25,6 @@
 
 namespace {
 
-__device__ __forceinline__ float sigmoid_f(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
-
 __global__ void gru_recurrence_kernel(const float* __restrict__ G,
                                       const float* __restrict__ wt,
                                       const float* __restrict__ bhn,

@@ -37,10 +37,6 @@
 
 namespace {
 
-__device__ __forceinline__ float sigmoid_f(float v) {
-  return 1.0f / (1.0f + expf(-v));
-}
-
 __global__ void gru_bwd_recurrence_kernel(
     const float* __restrict__ G, const float* __restrict__ hs,
     const float* __restrict__ dhs, const float* __restrict__ wt,

@@ -4,7 +4,9 @@
 //   * its transposed-A form with split-K, C = A^T @ B over very long K,
 //     and column sums, both writing per-split partials that a second pass
 //     adds in a fixed order (deterministic: no float atomics);
-//   * a row LayerNorm with float32 centered two-pass moments.
+//   * a row LayerNorm with float32 centered two-pass moments;
+//   * the logistic sigmoid of the GRU kernels, and the position hash of the
+//     dropout in the flash and trunk-block kernels.
 // Everything sits in an anonymous namespace, so each .cu file that includes
 // this header gets its own copy and the shared library links cleanly.
 //
@@ -15,8 +17,28 @@
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
+
+__device__ __forceinline__ float sigmoid_f(float v) {
+  return 1.0f / (1.0f + expf(-v));
+}
+
+// The dropout draw of position (row, col): murmur3 fmix32 of
+// seed ^ row*0x9E3779B1 ^ col*0x85EBCA77 in uint32 arithmetic, top 24 bits
+// times 2^-24.  It equals the JAX package's _hash_uniform
+// (ops/attention_pallas.py) and the port's ops/attention_cuda.hash_uniform
+// bit for bit, so a kernel regenerates the same mask at any tiling.
+__device__ __forceinline__ float hash_uniform(uint32_t seed, int row, int col) {
+  uint32_t h = ((uint32_t)row * 0x9E3779B1u) ^ ((uint32_t)col * 0x85EBCA77u) ^ seed;
+  h ^= h >> 16;
+  h *= 0x85EBCA6Bu;
+  h ^= h >> 13;
+  h *= 0xC2B2AE35u;
+  h ^= h >> 16;
+  return (float)(h >> 8) * (1.0f / 16777216.0f);
+}
 
 constexpr int GEMM_TM = 64;
 constexpr int GEMM_TN = 64;

@@ -44,9 +44,7 @@
 // are float32 FMAs on the CUDA cores (tensor cores are later work).  No
 // float atomics: dq loops over key tiles and dk/dv over query tiles inside
 // one block each, so a rerun gives the same bits.
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
+#include "common.cuh"
 
 namespace {
 
@@ -55,16 +53,6 @@ constexpr int FA_BK = 64;        // key rows per tile
 constexpr int FA_THREADS = 256;  // 16 x 16 threads, a 4 x 4 score micro-tile each
 constexpr int FA_LD = 65;        // row stride of a transposed [D][64] tile
 constexpr float FA_NEG_INF = -1e30f;
-
-__device__ __forceinline__ float hash_uniform(uint32_t seed, int row, int col) {
-  uint32_t h = ((uint32_t)row * 0x9E3779B1u) ^ ((uint32_t)col * 0x85EBCA77u) ^ seed;
-  h ^= h >> 16;
-  h *= 0x85EBCA6Bu;
-  h ^= h >> 13;
-  h *= 0xC2B2AE35u;
-  h ^= h >> 16;
-  return (float)(h >> 8) * (1.0f / 16777216.0f);
-}
 
 // The inverted-dropout factor M of weight (row, col): keep / (1 - rate).
 __device__ __forceinline__ float keep_factor(int use_dropout, uint32_t seed, float rate,

@@ -1,0 +1,157 @@
+"""K7f / K7b: the whole-sequence GRU recurrence over pre-projected gates,
+through hand-written CUDA kernels, forward and backward.
+
+Counterpart of ``multimodal_transformer_robustness_tpu/ops/gru_pallas.py``.
+The contract is the TPU kernel's: per-gate input projections ``gi_r, gi_z,
+gi_n [G, T, N, H]`` (already ``x W_ix^T + b_ix``), transposed recurrent
+weights ``wr, wz, wn [G, H, H]`` (``W_hx^T``, so ``gh_x = h @ w_x + b_x``)
+and recurrent biases ``br, bz, bn [G, H]``; ``h0 = 0``; the hidden states
+``hs [G, T, N, H]``.  ``G`` runs independent recurrences, each with its own
+weights (the two directions of a bidirectional GRU).
+
+:func:`gru_recurrence_cuda` launches ``csrc/gru_recurrence.cu``'s forward
+(replacing ``gru_pallas._recurrence_fwd_impl``) on a CUDA tensor and runs
+:func:`gru_recurrence_plain` on a CPU tensor.  :func:`gru_recurrence_bwd_cuda`
+is its backward (replacing ``gru_pallas._recurrence_bwd_impl``): newest
+step first, r / z / n recomputed from ``h_{t-1}``, it gives the gate
+gradients ``da_r, da_z, da_n`` and ``dghn = da_n * r``.  :class:`GruRecurrence` joins
+the two as ``gru_recurrence_pallas``'s custom VJP does, and reduces the
+weight and bias gradients outside the kernel with ``torch.einsum`` / ``sum``,
+as the JAX package leaves them to XLA.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+
+
+def _hidden_gates(h, wr, wz, wn, br, bz, bn):
+    return (torch.matmul(h, wr) + br[:, None], torch.matmul(h, wz) + bz[:, None],
+            torch.matmul(h, wn) + bn[:, None])
+
+
+def gru_recurrence_plain(gi_r, gi_z, gi_n, wr, wz, wn, br, bz, bn) -> torch.Tensor:
+    """Plain PyTorch version of K7f: the time loop -> ``hs [G, T, N, H]``."""
+    g, t_len, n, h_dim = gi_r.shape
+    h = gi_r.new_zeros(g, n, h_dim)
+    out = []
+    for t in range(t_len):
+        gh_r, gh_z, gh_n = _hidden_gates(h, wr, wz, wn, br, bz, bn)
+        r = torch.sigmoid(gi_r[:, t] + gh_r)
+        z = torch.sigmoid(gi_z[:, t] + gh_z)
+        nn = torch.tanh(gi_n[:, t] + r * gh_n)
+        h = (1.0 - z) * nn + z * h
+        out.append(h)
+    return torch.stack(out, dim=1)
+
+
+def gru_recurrence_bwd_plain(gi_r, gi_z, gi_n, hs, dhs, wr, wz, wn, br, bz, bn):
+    """Plain PyTorch version of K7b: the newest-first loop of the TPU
+    kernel -> ``(da_r, da_z, da_n, dghn)``, each ``[G, T, N, H]``."""
+    t_len = gi_r.shape[1]
+    dh = torch.zeros_like(hs[:, 0])
+    outs = [torch.empty_like(gi_r) for _ in range(4)]
+    for t in range(t_len - 1, -1, -1):
+        h_prev = hs[:, t - 1] if t > 0 else torch.zeros_like(dh)
+        gh_r, gh_z, gh_n = _hidden_gates(h_prev, wr, wz, wn, br, bz, bn)
+        r = torch.sigmoid(gi_r[:, t] + gh_r)
+        z = torch.sigmoid(gi_z[:, t] + gh_z)
+        nn = torch.tanh(gi_n[:, t] + r * gh_n)
+        dht = dhs[:, t] + dh
+        dz = dht * (h_prev - nn)
+        da_n = dht * (1.0 - z) * (1.0 - nn * nn)
+        dghn = da_n * r
+        da_r = da_n * gh_n * r * (1.0 - r)
+        da_z = dz * z * (1.0 - z)
+        dh = (dht * z + torch.matmul(da_r, wr.transpose(1, 2))
+              + torch.matmul(da_z, wz.transpose(1, 2)) + torch.matmul(dghn, wn.transpose(1, 2)))
+        for o, v in zip(outs, (da_r, da_z, da_n, dghn)):
+            o[:, t] = v
+    return tuple(outs)
+
+
+def _check_operands(gates, weights, biases, dev):
+    g, t_len, n, h = gates[0].shape
+    for name, a in zip(("gi_r", "gi_z", "gi_n", "hs", "dhs"), gates):
+        _build.require(a, name, (g, t_len, n, h), dev)
+    for name, a in zip(("wr", "wz", "wn"), weights):
+        _build.require(a, name, (g, h, h), dev)
+    for name, a in zip(("br", "bz", "bn"), biases):
+        _build.require(a, name, (g, h), dev)
+    return g, t_len, n, h
+
+
+def gru_recurrence_cuda(gi_r, gi_z, gi_n, wr, wz, wn, br, bz, bn) -> torch.Tensor:
+    """K7f: ``hs [G, T, N, H]``.  CPU tensors take :func:`gru_recurrence_plain`;
+    CUDA tensors launch the kernel (or raise)."""
+    if gi_r.device.type == "cpu":
+        return gru_recurrence_plain(gi_r, gi_z, gi_n, wr, wz, wn, br, bz, bn)
+    dev = _build.device_of(gi_r)
+    g, t_len, n, h = _check_operands((gi_r, gi_z, gi_n), (wr, wz, wn), (br, bz, bn), dev)
+    lib = _build.load_library()
+    hs = torch.empty_like(gi_r)
+    err = lib.mmtr_gru_rec_fwd(
+        *(a.data_ptr() for a in (gi_r, gi_z, gi_n, wr, wz, wn, br, bz, bn, hs)),
+        g, t_len, n, h, _build.stream_ptr(dev))
+    _build.check(err, "gru_recurrence forward kernel")
+    gru_recurrence_cuda.launches += 1
+    return hs
+
+
+gru_recurrence_cuda.launches = 0
+
+
+def gru_recurrence_bwd_cuda(gi_r, gi_z, gi_n, hs, dhs, wr, wz, wn, br, bz, bn):
+    """K7b: ``(da_r, da_z, da_n, dghn)``, each ``[G, T, N, H]``.  CPU tensors
+    take :func:`gru_recurrence_bwd_plain`; CUDA tensors launch the kernel
+    (or raise)."""
+    if gi_r.device.type == "cpu":
+        return gru_recurrence_bwd_plain(gi_r, gi_z, gi_n, hs, dhs, wr, wz, wn, br, bz, bn)
+    dev = _build.device_of(gi_r)
+    g, t_len, n, h = _check_operands((gi_r, gi_z, gi_n, hs, dhs), (wr, wz, wn),
+                                     (br, bz, bn), dev)
+    lib = _build.load_library()
+    outs = [torch.empty_like(gi_r) for _ in range(4)]
+    err = lib.mmtr_gru_rec_bwd(
+        *(a.data_ptr() for a in (gi_r, gi_z, gi_n, hs, dhs, wr, wz, wn, br, bz, bn, *outs)),
+        g, t_len, n, h, _build.stream_ptr(dev))
+    _build.check(err, "gru_recurrence backward kernel")
+    gru_recurrence_bwd_cuda.launches += 1
+    return tuple(outs)
+
+
+gru_recurrence_bwd_cuda.launches = 0
+
+
+class GruRecurrence(torch.autograd.Function):
+    """The recurrence whose forward is K7f and whose backward is K7b plus
+    the weight and bias reductions, ``dW_x[g] = sum over t >= 1 of
+    h_{t-1}^T da_x[t]`` (``dghn`` for the n gate) and ``db_x = sum da_x``."""
+
+    @staticmethod
+    def forward(ctx, gi_r, gi_z, gi_n, wr, wz, wn, br, bz, bn):
+        hs = gru_recurrence_cuda(gi_r, gi_z, gi_n, wr, wz, wn, br, bz, bn)
+        ctx.save_for_backward(gi_r, gi_z, gi_n, wr, wz, wn, br, bz, bn, hs)
+        return hs
+
+    @staticmethod
+    def backward(ctx, dhs):
+        gi_r, gi_z, gi_n, wr, wz, wn, br, bz, bn, hs = ctx.saved_tensors
+        da_r, da_z, da_n, dghn = gru_recurrence_bwd_cuda(
+            gi_r, gi_z, gi_n, hs, dhs.contiguous(), wr, wz, wn, br, bz, bn)
+        return (da_r, da_z, da_n, *weight_grads(hs, da_r, da_z, dghn))
+
+
+def weight_grads(hs, da_r, da_z, dghn):
+    """``(dwr, dwz, dwn, dbr, dbz, dbn)`` from K7b's gate gradients: the
+    reductions over t and n that the JAX package leaves to XLA.  Each weight
+    gradient is one [H, N] x [N, H] product per (g, t), batched, then summed
+    over t: a single product over all T*N rows into an [H, H] output (the
+    einsum's form) fills only a few blocks of the card: on an H100 it took
+    22.5 ms of the 45.7 ms fwd+bwd at the MOSEI header level
+    (chip_smoke.py, phase gru-recurrence)."""
+    hsl = hs[:, :-1].transpose(-1, -2)
+    dws = [torch.matmul(hsl, d[:, 1:]).sum(dim=1) for d in (da_r, da_z, dghn)]
+    return (*dws, *(d.sum(dim=(1, 2)) for d in (da_r, da_z, dghn)))

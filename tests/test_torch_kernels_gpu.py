@@ -14,7 +14,12 @@ GEMM's int32 products must equal exact float64 sums, and its dequant + bias
 epilogue the plain version's bits.  K4's hidden int8 codes may differ from
 the plain version's in at most 1e-3 of places (a value one float32 step from
 a rounding edge); each output row is held to 1e-4 plus, per flipped code in
-it, twice the largest move one code can make (``_k4_row_bound``).
+it, twice the largest move one code can make (``_k4_row_bound``).  K7f and
+K9f are held to 1e-4 absolute, K7b and K9b to 1e-4 of each output's max
+|ref| (sums over T*N or R rows in another order), K9b beyond what entries
+of its hidden pre-activation within 1e-4 of relu's kink may move it
+(``relu_kink_bound``: either side of the kink is a valid derivative), and
+K7b and K9b reruns must give the same bits (no float atomics).
 """
 
 import numpy as np
@@ -26,6 +31,8 @@ from multimodal_transformer_robustness_tpu_torch.models.mult import to_device
 from multimodal_transformer_robustness_tpu_torch.ops import attention_cuda, bert_attn_cuda
 from multimodal_transformer_robustness_tpu_torch.ops import bert_ffn_cuda, bigru_cuda
 from multimodal_transformer_robustness_tpu_torch.ops import encoder as tenc
+from multimodal_transformer_robustness_tpu_torch.ops import gru as tgru
+from multimodal_transformer_robustness_tpu_torch.ops import gru_cuda, trunk_block_cuda
 
 
 def gru_torch_layout(rng, in_dim, hidden):
@@ -406,6 +413,118 @@ def test_flash_encoder_on_card_matches_cpu(cuda, mode):
                                  generator=torch.Generator(device=dev).manual_seed(0))
         y.square().sum().backward()
         out[str(dev)] = [y] + [t.grad for t in leaves]
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4 * max(a.abs().max().item(), 1.0),
+                                   rtol=0)
+
+
+def _rec_inputs(rng, G, T, N, H, dev):
+    """gi_r, gi_z, gi_n [G, T, N, H], w_r/z/n [G, H, H] (torch's init range),
+    b_r/z/n [G, H] and a cotangent dhs, float32 on ``dev``."""
+    k = 1.0 / np.sqrt(H)
+
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    gates = [t(rng.standard_normal((G, T, N, H))) for _ in range(3)]
+    weights = [t(rng.uniform(-k, k, (G, H, H))) for _ in range(3)]
+    biases = [t(rng.uniform(-k, k, (G, H))) for _ in range(3)]
+    return gates, weights, biases, t(rng.standard_normal((G, T, N, H)))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,T,N,H", [(2, 50, 300, 100), (2, 64, 1, 100), (3, 7, 5, 12)])
+def test_gru_recurrence_kernels_match_plain(cuda, G, T, N, H):
+    gates, weights, biases, dhs = _rec_inputs(np.random.default_rng(17), G, T, N, H, cuda)
+    args = (*gates, *weights, *biases)
+    n0 = gru_cuda.gru_recurrence_cuda.launches
+    hs = gru_cuda.gru_recurrence_cuda(*args)
+    torch.cuda.synchronize()
+    assert gru_cuda.gru_recurrence_cuda.launches == n0 + 1
+    torch.testing.assert_close(hs, gru_cuda.gru_recurrence_plain(*args), atol=1e-4, rtol=0)
+    bwd_args = (*gates, hs, dhs, *weights, *biases)
+    got = gru_cuda.gru_recurrence_bwd_cuda(*bwd_args)
+    torch.cuda.synchronize()
+    ref = gru_cuda.gru_recurrence_bwd_plain(*bwd_args)
+    again = gru_cuda.gru_recurrence_bwd_cuda(*bwd_args)
+    for a, r, b in zip(got, ref, again):
+        torch.testing.assert_close(a, r, atol=1e-4 * r.abs().max().item(), rtol=0)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_bigru_forward_on_card_matches_cpu(cuda):
+    """bigru_forward through K7f / K7b: outputs and every gradient."""
+    rng = np.random.default_rng(18)
+    params = gru_torch_layout(rng, 20, 16)
+    x = torch.from_numpy(rng.standard_normal((6, 11, 20)).astype(np.float32))
+    out = {}
+    for dev in ("cpu", cuda):
+        p = {d: {k: v.to(dev, copy=True).requires_grad_(True) for k, v in params[d].items()}
+             for d in ("fwd", "bwd")}
+        xd = x.to(dev, copy=True).requires_grad_(True)
+        y, fin = tgru.bigru_forward(p, xd)
+        (y.sin().sum() + fin.sum()).backward()
+        out[str(dev)] = [y, fin, xd.grad] + [v.grad for d in ("fwd", "bwd")
+                                              for v in p[d].values()]
+    for a, b in zip(out["cpu"], out[str(cuda)]):
+        torch.testing.assert_close(b.cpu(), a, atol=1e-4 * max(a.abs().max().item(), 1.0),
+                                   rtol=0)
+
+
+def _block_inputs(rng, R, E, F, dev, masked):
+    def t(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).to(dev)
+
+    x, src, dout = (t(rng.standard_normal((R, E))) for _ in range(3))
+    params = [t(rng.standard_normal((F, E)) / np.sqrt(E)), t(rng.standard_normal(F) * 0.1),
+              t(rng.standard_normal((E, F)) / np.sqrt(F)), t(rng.standard_normal(E) * 0.1),
+              t(1 + 0.1 * rng.standard_normal(E)), t(0.1 * rng.standard_normal(E))]
+    masks = [t((np.arange(n) < (n * 3) // 4) if masked else np.ones(n)) for n in (E, F, E)]
+    return x, src, dout, params, masks
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,E,F,act,rep,masked", [
+    (4096, 200, 200, "id", 25, False), (4096, 1000, 800, "relu", 1, True),
+    (1, 200, 800, "relu", 1, False), (13, 16, 24, "id", 4, True)])
+def test_trunk_block_kernels_match_plain(cuda, R, E, F, act, rep, masked):
+    x, src, dout, params, masks = _block_inputs(np.random.default_rng(19), R, E, F, cuda,
+                                                masked)
+    cfg = trunk_block_cuda.BlockConfig(act, rep, 0.1, 0.3, 11, -7, True, True)
+    n0 = trunk_block_cuda.trunk_block_fwd.launches
+    out = trunk_block_cuda.trunk_block_fwd(x, src, *params, *masks, cfg)
+    torch.cuda.synchronize()
+    assert trunk_block_cuda.trunk_block_fwd.launches == n0 + 1
+    ref = trunk_block_cuda.fused_residual_block_reference(x, src, *params, *masks, cfg)
+    torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    bargs = (x, src, dout, *params, *masks, cfg)
+    got = trunk_block_cuda.trunk_block_bwd(*bargs)
+    torch.cuda.synchronize()
+    ref = trunk_block_cuda.trunk_block_bwd_plain(*bargs)
+    again = trunk_block_cuda.trunk_block_bwd(*bargs)
+    _, slack = trunk_block_cuda.relu_kink_bound(*bargs)
+    for a, r, b, s in zip(got, ref, again, slack):
+        # beyond what entries at relu's kink may move it, 1e-4 of max |ref|
+        assert ((a - r).abs() - s).max().item() <= 1e-4 * max(r.abs().max().item(), 1e-30)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+def test_fused_residual_block_on_card_matches_cpu(cuda):
+    """The public op in self mode, dropout on: the position hash makes the
+    two devices' masks identical, so outputs and gradients agree."""
+    x, _, dout, params, masks = _block_inputs(np.random.default_rng(20), 37, 40, 96, "cpu",
+                                              True)
+    kw = dict(act="relu", rate_mid=0.1, rate_res=0.3, seed_mid=3, seed_res=4,
+              use_drop_mid=True, use_drop_res=True)
+    out = {}
+    for dev in ("cpu", cuda):
+        leaves = [a.to(dev, copy=True).requires_grad_(True) for a in [x] + params]
+        y = trunk_block_cuda.fused_residual_block(leaves[0], leaves[0], *leaves[1:],
+                                                  *(m.to(dev) for m in masks), **kw)
+        (y * dout.to(dev)).sum().backward()
+        out[str(dev)] = [y] + [a.grad for a in leaves]
     for a, b in zip(out["cpu"], out[str(cuda)]):
         torch.testing.assert_close(b.cpu(), a, atol=1e-4 * max(a.abs().max().item(), 1.0),
                                    rtol=0)
