@@ -25,7 +25,10 @@ Phases, each fatal on failure:
                 N=1 beside cuDNN's bidirectional GRU, K7b rerun for the same
                 bits; K9f / K9b (the T==1 residual block) at the four MOSEI
                 blocks, R=4096 train (K9b rerun for the same bits) and R=1
-                eval;
+                eval; K1f and K6a at the edges of their launch plans (rerun
+                for the same bits); then the device split: torch.profiler's
+                device ms by kernel of K1f (projection, recurrence) and K6a
+                at their two timed shapes, beside their CUDA-event ms;
   4. serving  - StreamingPredictor at the reference's MOSEI serving
                 configuration (d=200, 8x25 heads, layers 3/4/2, 4-layer
                 BERT-base-width text encoder, random weights from seed 0)
@@ -76,8 +79,8 @@ Phases, each fatal on failure:
                 encoder's ops; card vs CPU at R=8 with the same hash masks.
 Every phase sets the launch counters to 0 just before it drives its path
 and fails unless each kernel of the path ran the expected number of times.
-Then the int8 projections' line, one JSON line with the kernels' results,
-and the last line ``{"ok": true, "device": {...}}``.
+Then the int8 projections' and the device split's lines, one JSON line with
+the kernels' results, and the last line ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -137,10 +140,12 @@ SERVE_TOL = 1e-3   # end-to-end sentiment, card against CPU
 # levels over 50 steps and eleven encoder stacks
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
 
-# H100 SXM peaks (NVIDIA data sheet): float32 on the CUDA cores, not the
-# tensor cores, since every float kernel here is a float32 FMA kernel; the
-# int8 tensor cores for K4's products; HBM3 rate
-PEAK_F32_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 67e12, 1979e12, 3.35e12
+# H100 SXM peaks (NVIDIA data sheet).  Float32 products at the rate the card
+# can do them to float32 accuracy: on the tensor cores in 3xTF32 (three TF32
+# MMAs a product, as csrc/gemm_tc.cuh), 495 / 3 = 165 TFLOP/s, above the CUDA
+# cores' 67, so every float32 row shares one yardstick that no kernel can
+# beat; the int8 tensor cores for K4's products; HBM3 rate
+PEAK_F32_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 495e12 / 3, 1979e12, 3.35e12
 # the 7 non-empty modality subsets (bench.py's training pool)
 POOL = [[0], [1], [2], [0, 1], [0, 2], [1, 2], [0, 1, 2]]
 PKG = "multimodal_transformer_robustness_tpu_torch"
@@ -307,6 +312,7 @@ def check_kernels(dev, rng):
                        lambda: bigru_cuda.gru_dir_plain(x, *args, rev),
                        work=k1f_work(T, B, in_dim, H) if timed else None,
                        library_fn=library, iters=5 if B == 4096 else 20)
+    check_k1f_k6a_edges(dev, rng, t, record, failures)
     rows += check_k1b(dev, rng, t, failures)
 
     # K2 and K3 at BERT-base width (weights at HF's init scale), at the
@@ -353,6 +359,111 @@ def check_kernels(dev, rng):
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
     return rows
+
+
+def check_k1f_k6a_edges(dev, rng, t, record, failures):
+    """K1f and K6a at the edges of their launch plans, both held to TOL and
+    rerun for the same bits: K1f at B = 1, 31, 33, 4095 (small and tiled
+    recurrence forms, a ragged last block), T = 1, in=7 H=12 (4-byte
+    projection copies) and in=20 H=13 (4-byte gate copies, padded columns),
+    both directions; K6a at L = 1, 31, 33, 64, 65,
+    512 (unit and tiled paths) and head_dim 8 and 64, item 0 fully masked."""
+    from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bigru_cuda
+
+    for in_dim, H, T, B in ((768, 100, 50, 1), (768, 100, 50, 31), (768, 100, 50, 33),
+                            (768, 100, 50, 4095), (768, 100, 1, 1), (768, 100, 1, 4096),
+                            (7, 12, 5, 3), (7, 12, 9, 600), (20, 13, 6, 5),
+                            (20, 13, 6, 700)):
+        ops = bigru_cuda.dir_operands(gru_weights(rng, in_dim, H, dev))
+        args = (ops["wp"], ops["wt"], ops["bc"], ops["bhn"])
+        x = t(rng.standard_normal((T, B, in_dim)))
+        for rev in (False, True):
+            out = bigru_cuda.gru_dir(x, *args, rev)
+            again = bigru_cuda.gru_dir(x, *args, rev)
+            torch.cuda.synchronize()
+            ref = bigru_cuda.gru_dir_plain(x, *args, rev)
+            shape = f"edge in={in_dim} H={H} T={T} B={B} {'bwd' if rev else 'fwd'}"
+            record("K1", shape, out, ref, None, None)
+            if not torch.equal(out, again):
+                failures.append(f"K1 {shape}: rerun differs")
+    for L in (1, 31, 33, 64, 65, 512):
+        for heads, dh in ((12, 64), (2, 8)):
+            B = 3
+            q, k, v = (t(rng.standard_normal((B, L, heads, dh))) for _ in range(3))
+            mask = np.zeros((B, L), np.float32)
+            for i in range(1, B):
+                mask[i, : rng.integers(1, L + 1)] = 1.0
+            mask = t(mask)
+            out = bert_attn_cuda.dense_attention_blockdiag(q, k, v, mask)
+            again = bert_attn_cuda.dense_attention_blockdiag(q, k, v, mask)
+            torch.cuda.synchronize()
+            ref = bert_attn_cuda.dense_attention_plain(q, k, v, mask)
+            shape = f"edge B={B} L={L} heads={heads} dh={dh}"
+            record("K6a", shape, out, ref, None, None)
+            if not torch.equal(out, again):
+                failures.append(f"K6a {shape}: rerun differs")
+
+
+def profile_ms(fn, iters: int = 10, warmup: int = 3) -> dict:
+    """Device milliseconds per call of ``fn`` by kernel name, from
+    ``torch.profiler`` over ``iters`` warm calls (empty if the profiler saw
+    no device activity)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    per = {}
+    for evt in prof.key_averages():
+        if evt.device_type == torch.autograd.DeviceType.CUDA and evt.self_device_time_total > 0:
+            name = evt.key.replace("(anonymous namespace)::", "").removeprefix("void ")
+            name = name.split("(")[0]
+            per[name] = per.get(name, 0.0) + evt.self_device_time_total / iters / 1e3
+    return per
+
+
+def device_split(dev, rng):
+    """K1f's device time split between its kernels (input projection,
+    recurrence) and, for K1f and K6a at their two timed shapes, the device
+    time of a call (torch.profiler) beside its CUDA-event time: the gap is
+    host time the card waits for.  Returns one dict per shape."""
+    from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bigru_cuda
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+
+    out = []
+    H, in_dim = 100, 768
+    ops = bigru_cuda.dir_operands(gru_weights(rng, in_dim, H, dev))
+    args = (ops["wp"], ops["wt"], ops["bc"], ops["bhn"])
+    cases = []
+    for T, B in ((64, 1), (50, 4096)):
+        x = t(rng.standard_normal((T, B, in_dim)))
+        cases.append((f"K1f in={in_dim} H={H} T={T} B={B} fwd",
+                      lambda x=x: bigru_cuda.gru_dir(x, *args, False), 5 if B > 1 else 20))
+    heads, dh = 12, 64
+    for B, L in ((1, 8), (4096, 32)):
+        q, k, v = (t(rng.standard_normal((B, L, heads, dh))) for _ in range(3))
+        mask = np.zeros((B, L), np.float32)
+        for i in range(1, B):
+            mask[i, : rng.integers(1, L + 1)] = 1.0
+        mask = t(mask)
+        cases.append((f"K6a B={B} L={L} h={heads * dh}",
+                      lambda q=q, k=k, v=v, m=mask: bert_attn_cuda.dense_attention_blockdiag(
+                          q, k, v, m), 5 if B > 1 else 20))
+    for name, fn, iters in cases:
+        per = profile_ms(fn, iters)
+        event = cuda_ms(fn, iters)
+        device = sum(per.values())
+        out.append({"shape": name, "event_ms": event, "device_ms": device, "kernels_ms": per})
+        split = ", ".join(f"{k} {v:.4f}" for k, v in per.items()) or "no device time seen"
+        print(f"split {name}: CUDA-event {event:.4f} ms, device {device:.4f} ms "
+              f"(host gap {event - device:.4f}): {split}", flush=True)
+    return out
 
 
 def k4_row_bound(x, codes, scales, w2, b2, ln_g, flips_per_row):
@@ -1207,11 +1318,12 @@ def train(dev, spec, bert_cfg, label="train", per_step=None, bert_int8=False,
 def train_breakdown(trainer, batch, masks, label="train", repeats=3):
     """Where one step's time goes, by CUDA events over separate runs of its
     parts: the frozen BERT (K2 + K3 or K4; none on features), the headers
-    forward and backward (K1 + K1b, BERT excluded), the optimizer (clip +
-    Adam) and the rest (the trunk forward and backward, the loss)."""
+    forward and backward (K1 + K1b, BERT excluded), the optimizer (the
+    global-norm clip + Adam) and the rest (the trunk forward and backward, the loss)."""
     from multimodal_transformer_robustness_tpu_torch.models import supernet_headers
     from multimodal_transformer_robustness_tpu_torch.models.headers import bert_text_features
     from multimodal_transformer_robustness_tpu_torch.train.loop import tree_leaves
+    from multimodal_transformer_robustness_tpu_torch.train.optim import clip_by_global_norm_
 
     dev = trainer.device
     inputs = [torch.as_tensor(x, device=dev) for x in batch.inputs]
@@ -1233,7 +1345,8 @@ def train_breakdown(trainer, batch, masks, label="train", repeats=3):
                            trainer.generator)
 
     def optimizer():
-        torch.nn.utils.clip_grad_norm_(tree_leaves(params), trainer.hp.clip)
+        clip_by_global_norm_([p.grad for p in tree_leaves(params) if p.grad is not None],
+                             trainer.hp.clip)
         trainer.opt_state.step()
 
     parts = [("step", step), ("headers_incl_bert", headers), ("optimizer", optimizer)]
@@ -1851,12 +1964,13 @@ def main() -> int:
     _build.load_library()
     print(f"built {_build.BuildInfo.path} in {_build.BuildInfo.seconds:.1f} s", flush=True)
     for line in _build.BuildInfo.log.splitlines():
-        if "registers" in line or "Compiling entry" in line:
+        if "registers" in line or "Compiling entry" in line or "spill" in line:
             print("  " + line.strip())
 
     phase("kernels")
     rows = check_kernels(dev, np.random.default_rng(0))
     torch.cuda.empty_cache()
+    splits = device_split(dev, np.random.default_rng(1))
 
     phase("serving")
     pred, cpu, serve_launches, warm_ms, plain_ms = serve(dev)
@@ -1939,6 +2053,7 @@ def main() -> int:
     print("trunk-block " + json.dumps(block_stats), flush=True)
     print("int8 projections " + json.dumps(int8_projection_entries(rows, launches)),
           flush=True)
+    print("device split " + json.dumps(splits), flush=True)
     print(f"total {time.perf_counter() - t_start:.1f} s", flush=True)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

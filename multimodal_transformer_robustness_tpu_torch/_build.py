@@ -30,15 +30,23 @@ SOURCES = ("bigru.cu", "bigru_bwd.cu", "bert_attn.cu", "bert_ffn.cu", "bert_ffn_
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
+# H100 SXM: 132 SMs; a block may take 227 KB of an SM's 228 KB of shared
+# memory, and each resident block reserves 1 KB more.  The wrappers read the
+# card's own SM count (num_sms); the launch plans take it as an argument so
+# that the CPU tests can check them.
+NUM_SMS = 132
+MAX_SMEM = 232448
+SM_SMEM = 233472
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
-    "mmtr_gru_dir_fwd": (_I, [_P] * 7 + [_I] * 5 + [_P]),
+    "mmtr_gru_dir_fwd": (_I, [_P] * 8 + [_I] * 5 + [_P, _P]),
     "mmtr_gru_dir_bwd": (_I, [_P] * 12 + [_I] * 8 + [_P]),
     "mmtr_ffn_ln_fwd": (_I, [_P] * 10 + [_I] * 3 + [_F, _P]),
-    "mmtr_attn_block_fwd": (_I, [_P] * 16 + [_I] * 4 + [_F, _P]),
-    "mmtr_attention_fwd": (_I, [_P] * 5 + [_I] * 4 + [_P]),
+    "mmtr_attn_block_fwd": (_I, [_P] * 16 + [_I] * 4 + [_F, _P, _P]),
+    "mmtr_attention_fwd": (_I, [_P] * 5 + [_I] * 4 + [_P, _P]),
     "mmtr_proj_ln_fwd": (_I, [_P] * 8 + [_I] * 2 + [_F, _P]),
     "mmtr_qrows": (_I, [_P] * 3 + [_I] * 2 + [_P]),
     "mmtr_qgemm_i32": (_I, [_P] * 3 + [_I] * 3 + [_P]),
@@ -77,7 +85,7 @@ def _nvcc() -> str:
 @functools.lru_cache(maxsize=None)
 def load_library() -> ctypes.CDLL:
     """Compile (once per source hash) and load the kernels' shared library."""
-    files = [_CSRC / s for s in SOURCES] + [_CSRC / "common.cuh"]
+    files = [_CSRC / s for s in SOURCES] + sorted(_CSRC.glob("*.cuh"))
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for f in files:
         digest.update(f.read_bytes())
@@ -124,7 +132,20 @@ def check(err: int, what: str) -> None:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The raw ``cudaStream_t`` of the device's current stream (the raw
+    getter skips building a Stream object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(device.index)
+
+
+def round_up(n: int, m: int) -> int:
+    return -(-n // m) * m
+
+
+def host_ints(values) -> tuple:
+    """A launch plan as a C int array the kernels read from host memory:
+    ``(array, its address)``; keep the array while the address is used."""
+    arr = (ctypes.c_int * len(values))(*values)
+    return arr, ctypes.addressof(arr)
 
 
 def require(t: torch.Tensor, name: str, shape: tuple, device: torch.device,
@@ -140,6 +161,23 @@ def require(t: torch.Tensor, name: str, shape: tuple, device: torch.device,
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
     if not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def require_all(device: torch.device, specs, dtype: torch.dtype = torch.float32) -> None:
+    """:func:`require` over ``(tensor, name, shape)`` triples in one pass:
+    the common case costs one comparison chain a tensor, and the first
+    tensor that fails raises :func:`require`'s message."""
+    for t, name, shape in specs:
+        if (t.device != device or t.dtype != dtype or t.shape != shape
+                or not t.is_contiguous()):
+            require(t, name, shape, device, dtype)
+
+
+@functools.lru_cache(maxsize=None)
+def num_sms(device: torch.device) -> int:
+    """The card's streaming-multiprocessor count (launch plans size grids
+    by it)."""
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def resolve_device(device) -> torch.device:

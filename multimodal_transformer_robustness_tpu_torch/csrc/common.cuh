@@ -6,7 +6,10 @@
 //     adds in a fixed order (deterministic: no float atomics);
 //   * a row LayerNorm with float32 centered two-pass moments;
 //   * the logistic sigmoid of the GRU kernels, and the position hash of the
-//     dropout in the flash and trunk-block kernels.
+//     dropout in the flash and trunk-block kernels;
+//   * asynchronous global-to-shared copies (cp.async, 4 or 16 bytes, zero
+//     fill for a ragged edge), and the per-process raise of a kernel's
+//     dynamic shared-memory cap.
 // Everything sits in an anonymous namespace, so each .cu file that includes
 // this header gets its own copy and the shared library links cleanly.
 //
@@ -38,6 +41,49 @@ __device__ __forceinline__ float hash_uniform(uint32_t seed, int row, int col) {
   h *= 0xC2B2AE35u;
   h ^= h >> 16;
   return (float)(h >> 8) * (1.0f / 16777216.0f);
+}
+
+// What one block may take of an SM's shared memory on Hopper (227 KB).
+constexpr int MAX_SMEM_BYTES = 232448;
+
+// Raise a kernel's dynamic shared-memory cap to MAX_SMEM_BYTES once per
+// device and process: *done is the caller's static, one bit per device.
+inline cudaError_t allow_smem_once(const void* kernel, unsigned long long* done) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if ((*done >> dev) & 1ull) return cudaSuccess;
+  err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             MAX_SMEM_BYTES);
+  if (err == cudaSuccess) *done |= 1ull << dev;
+  return err;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// Copy 16 (4) bytes from global to shared memory without holding a
+// register; !valid writes zeros and reads nothing (src must still be a
+// mapped address).  16-byte copies need both addresses 16-byte aligned.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 16 : 0));
+}
+
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
+               "l"(src), "r"(valid ? 4 : 0));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+// Wait until at most N of this thread's committed copy groups are pending.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
 constexpr int GEMM_TM = 64;

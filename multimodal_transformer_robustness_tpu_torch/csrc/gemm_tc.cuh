@@ -1,0 +1,493 @@
+// A float32-accurate GEMM on Hopper's tensor cores: C = A @ B + bias in
+// 3xTF32.
+//
+// Each operand element x is split into hi = tf32(x) and lo = tf32(x - hi)
+// (10-bit mantissas each, 21 bits together), and every product is summed as
+// lo*hi + hi*lo + hi*hi in float32 accumulators (TF32 MMAs, mma.sync or
+// wgmma): what is dropped (lo*lo, and lo's cut) is ~2^-21 relative, so the result
+// agrees with a float32 FMA GEMM to within a few float32 roundings, at the
+// tensor cores' rate (495 TFLOP/s TF32 dense on an H100 SXM; 165 TFLOP/s of
+// float32 products at three MMAs each) rather than the CUDA cores' 67.  A
+// single TF32 product (errors ~1e-3) would not do for the float32 kernels.
+//
+// Operands, row-major: A [M, K]; B "gated" [G, K, hg] with N = G*hg columns,
+// column c = g*hg + j read at B[g][k][j] (G = 1, hg = N: a plain [K, N]);
+// bias [N]; C written gated too, C[g][m][j] for column c = g*hg + j (G = 1:
+// a plain [M, N]).  So the GRU's input projection runs as ONE N = 3H product
+// over x [T*B, in] into its [3, T*B, H] gate scratch, and x is read once.
+//
+// Two kernels, picked by the caller's plan: wgmma over 128 x 152 tiles
+// where the rows fill the card (below), and 64 x 64 mma.sync tiles for few
+// rows.  Both: 32-deep k steps in a ring of shared-memory tiles fed by
+// 16-byte cp.async (the mma.sync tiles fall back to 4-byte copies where a
+// row is not 16-byte aligned: K or hg not a multiple of 4), one barrier per
+// k step, fragment loads free of bank conflicts (padded or swizzled rows);
+// the column tile is the fastest grid axis, so the column tiles of one row
+// tile run together and x comes from L2 after its first read.
+#pragma once
+
+#include "common.cuh"
+
+namespace {
+
+constexpr int TC_BK = 32;
+constexpr int TC_STAGES = 3;
+constexpr int TC_LDA = TC_BK + 4;
+
+// hi: x rounded to TF32's 10-bit mantissa (to nearest, ties away from zero)
+// and lo: x - hi (exact in float32) cut to TF32, in integer ops and a float
+// add: the conversion instruction (cvt.rna.tf32) issues at a quarter of
+// their rate, and the split runs for every fragment.  |lo| <= 2^-11 |x|,
+// cut with an error below 2^-10 |lo|: 2^-21 |x| at most, beside the dropped
+// lo*lo term's 2^-22.
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+}
+
+// Not volatile: the compiler may interleave independent MMAs.
+__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// An mma.sync block tile: BM x BN outputs, WARPS_M x WARPS_N warps each
+// owning a (BM / WARPS_M) x (BN / WARPS_N) warp tile of m16 x n8 MMA tiles.
+template <int BM_, int BN_, int WARPS_M_, int WARPS_N_>
+struct TcTile {
+  static constexpr int BM = BM_, BN = BN_, WARPS_M = WARPS_M_, WARPS_N = WARPS_N_;
+  static constexpr int THREADS = 32 * WARPS_M * WARPS_N;
+  static constexpr int WM = BM / WARPS_M, WN = BN / WARPS_N;
+  static constexpr int MT = WM / 16, NT = WN / 8;
+  // BN a multiple of 32, so LDB = 8 mod 32 and the B fragment loads, bank
+  // (8 t4 + g8) mod 32, are conflict-free
+  static constexpr int LDB = BN + 8;
+  static constexpr int SMEM = (int)sizeof(float) * TC_STAGES * (BM * TC_LDA + TC_BK * LDB);
+};
+
+// Stage one BM x 32 tile of A and one 32 x BN tile of B into the ring.
+template <class Tile, bool VEC>
+__device__ __forceinline__ void gemm_tc_load(float* As, float* Bs, const float* A,
+                                             const float* B, int M, int N, int K, int hg,
+                                             int row0, int col0, int k0) {
+  constexpr int BM = Tile::BM, BN = Tile::BN, T = Tile::THREADS, LDB = Tile::LDB;
+  const int tid = threadIdx.x;
+  if (VEC) {
+    for (int i = tid; i < BM * (TC_BK / 4); i += T) {
+      const int r = i / (TC_BK / 4), c = (i % (TC_BK / 4)) * 4;
+      const bool ok = row0 + r < M && k0 + c < K;
+      cp_async16(As + r * TC_LDA + c, ok ? A + (long long)(row0 + r) * K + k0 + c : A, ok);
+    }
+    for (int i = tid; i < TC_BK * (BN / 4); i += T) {
+      const int kr = i / (BN / 4), c = (i % (BN / 4)) * 4;
+      const int col = col0 + c, g = col / hg, j = col - g * hg;
+      const bool ok = k0 + kr < K && col < N;
+      cp_async16(Bs + kr * LDB + c, ok ? B + ((long long)g * K + k0 + kr) * hg + j : B, ok);
+    }
+  } else {
+    for (int i = tid; i < BM * TC_BK; i += T) {
+      const int r = i / TC_BK, c = i % TC_BK;
+      const bool ok = row0 + r < M && k0 + c < K;
+      cp_async4(As + r * TC_LDA + c, ok ? A + (long long)(row0 + r) * K + k0 + c : A, ok);
+    }
+    for (int i = tid; i < TC_BK * BN; i += T) {
+      const int kr = i / BN, c = i % BN;
+      const int col = col0 + c, g = col / hg, j = col - g * hg;
+      const bool ok = k0 + kr < K && col < N;
+      cp_async4(Bs + kr * LDB + c, ok ? B + ((long long)g * K + k0 + kr) * hg + j : B, ok);
+    }
+  }
+}
+
+// VEC: K and hg multiples of 4 and A, B 16-byte aligned.  Split-K: block z
+// sums k tiles [z * kps, (z + 1) * kps) into plane z of C (M * N words a
+// plane, no bias) when gridDim.z > 1, for gemm_splitk_sum to add in order.
+template <class Tile, bool VEC>
+__global__ void __launch_bounds__(Tile::THREADS)
+gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
+               const float* __restrict__ bias, float* __restrict__ C, int M, int N, int K,
+               int hg, int kps) {
+  constexpr int BM = Tile::BM, BN = Tile::BN, LDB = Tile::LDB;
+  constexpr int MT = Tile::MT, NT = Tile::NT;
+  extern __shared__ float4 tc_smem4[];
+  float* As = reinterpret_cast<float*>(tc_smem4);    // [STAGES][BM][LDA]
+  float* Bs = As + TC_STAGES * BM * TC_LDA;          // [STAGES][BK][LDB]
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g8 = lane / 4, t4 = lane % 4;            // mma group / thread in group
+  const int wm0 = (warp / Tile::WARPS_N) * Tile::WM, wn0 = (warp % Tile::WARPS_N) * Tile::WN;
+  const int row0 = blockIdx.y * BM, col0 = blockIdx.x * BN;
+  const int kt0 = blockIdx.z * kps;
+  const int ktiles = min(kps, (K + TC_BK - 1) / TC_BK - kt0);
+
+  float acc[MT][NT][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < TC_STAGES - 1; ++s) {
+    if (s < ktiles)
+      gemm_tc_load<Tile, VEC>(As + s * BM * TC_LDA, Bs + s * TC_BK * LDB, A, B, M, N, K, hg,
+                              row0, col0, (kt0 + s) * TC_BK);
+    cp_async_commit();
+  }
+
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<TC_STAGES - 2>();
+    __syncthreads();   // tile kt landed for all; stage (kt-1) % STAGES is free
+    const int nk = kt + TC_STAGES - 1;
+    if (nk < ktiles) {
+      const int s = nk % TC_STAGES;
+      gemm_tc_load<Tile, VEC>(As + s * BM * TC_LDA, Bs + s * TC_BK * LDB, A, B, M, N, K, hg,
+                              row0, col0, (kt0 + nk) * TC_BK);
+    }
+    cp_async_commit();
+
+    const float* as = As + (kt % TC_STAGES) * BM * TC_LDA;
+    const float* bs = Bs + (kt % TC_STAGES) * TC_BK * LDB;
+#pragma unroll
+    for (int kk = 0; kk < TC_BK; kk += 8) {
+      uint32_t ah[MT][4], al[MT][4], bh[NT][2], bl[NT][2];
+#pragma unroll
+      for (int i = 0; i < MT; ++i) {
+        const float* a = as + (wm0 + i * 16 + g8) * TC_LDA + kk + t4;
+        split_tf32(a[0], ah[i][0], al[i][0]);
+        split_tf32(a[8 * TC_LDA], ah[i][1], al[i][1]);
+        split_tf32(a[4], ah[i][2], al[i][2]);
+        split_tf32(a[8 * TC_LDA + 4], ah[i][3], al[i][3]);
+      }
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const float* b = bs + (kk + t4) * LDB + wn0 + j * 8 + g8;
+        split_tf32(b[0], bh[j][0], bl[j][0]);
+        split_tf32(b[4 * LDB], bh[j][1], bl[j][1]);
+      }
+      // the small terms first, each pass over all MT x NT tiles, so that
+      // no MMA waits on the one just issued
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], al[i], bh[j]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ah[i], bl[j]);
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int j = 0; j < NT; ++j) mma_tf32(acc[i][j], ah[i], bh[j]);
+    }
+  }
+  cp_async_wait<0>();
+
+  // c0/c1: row g8, columns 2*t4 and 2*t4+1; c2/c3: row g8 + 8
+  const bool split = gridDim.z > 1;
+  C += split ? (long long)blockIdx.z * M * N : 0;
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row0 + wm0 + i * 16 + g8 + (e >= 2 ? 8 : 0);
+        const int c = col0 + wn0 + j * 8 + 2 * t4 + (e & 1);
+        if (r < M && c < N) {
+          const int g = c / hg, jj = c - g * hg;
+          C[((long long)g * M + r) * hg + jj] = acc[i][j][e] + (split ? 0.f : bias[c]);
+        }
+      }
+}
+
+// C[i] = P[0][i] + ... + P[splits-1][i] + bias[column of i], in that order
+// (a rerun gives the same bits), over the gated [N/hg, M, hg] layout.
+__global__ void gemm_splitk_sum(const float* __restrict__ P, const float* __restrict__ bias,
+                                float* __restrict__ C, long long total, int M, int hg,
+                                int splits) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  float v = 0.f;
+  for (int z = 0; z < splits; ++z) v += P[z * total + i];
+  const int g = (int)(i / ((long long)M * hg)), j = (int)(i % hg);
+  C[i] = v + bias[g * hg + j];
+}
+
+// Few rows: 64 x 64 mma.sync tiles (4 warps of 32 x 32), where more blocks
+// matter more than the tensor cores' rate; split over K into `splits`
+// partial planes (scratch, splits * M * N floats) and summed by a second
+// launch where the tiles alone would leave the card idle: at the serving
+// batch of 1 a block's 24 serial k tiles, not its MMAs, set the time.
+using TcSmall = TcTile<64, 64, 2, 2>;
+
+template <bool VEC>
+cudaError_t launch_gemm_tc_small(const float* A, const float* B, const float* bias,
+                                 float* C, int M, int N, int K, int hg, int splits,
+                                 float* partials, cudaStream_t stream) {
+  static unsigned long long smem_set = 0;
+  cudaError_t err = allow_smem_once((const void*)gemm_tc_kernel<TcSmall, VEC>, &smem_set);
+  if (err != cudaSuccess) return err;
+  const int ktiles = (K + TC_BK - 1) / TC_BK;
+  const int kps = (ktiles + splits - 1) / splits;
+  const dim3 grid((N + TcSmall::BN - 1) / TcSmall::BN, (M + TcSmall::BM - 1) / TcSmall::BM,
+                  splits);
+  gemm_tc_kernel<TcSmall, VEC><<<grid, TcSmall::THREADS, TcSmall::SMEM, stream>>>(
+      A, B, bias, splits > 1 ? partials : C, M, N, K, hg, kps);
+  if (splits > 1) {
+    const long long total = (long long)M * N;
+    gemm_splitk_sum<<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
+        partials, bias, C, total, M, hg, splits);
+  }
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// Many rows: warpgroup MMA (wgmma).  A block of two warpgroups computes a
+// 128 x 152 tile (152 = 8 * 19: two column tiles cover the GRU's N = 3H =
+// 300 with 1% to spare), 32-deep k steps in a 4-stage cp.async ring loaded
+// two tiles ahead.  A comes from shared memory into registers in the
+// mma.sync fragment layout and is split there; B is split once per call
+// into TF32 hi and lo planes, K-major (wgmma takes TF32 operands K-major
+// only), by gemm_tc_presplit.  Both are staged in 128-byte-swizzled rows
+// (row r's 16-byte chunk c at c ^ (r % 8), 1024-byte atoms), which the B
+// descriptors and the A fragment loads read without bank conflicts.  Per
+// k step of 8: wgmma(A_lo, B_hi), wgmma(A_hi, B_lo), wgmma(A_hi, B_hi); a
+// k tile's 12 form one batch, and one batch stays in flight while the next
+// tile's A is split (its registers double-buffered, the k loop unrolled by
+// two), so the stage a batch reads is refilled two tiles later.
+constexpr int WG_BM = 128;
+constexpr int WG_N = 152;
+constexpr int WG_THREADS = 256;
+constexpr int WG_STAGES = 4;
+constexpr int WG_APLANE = WG_BM * TC_BK;                 // floats of one A stage
+constexpr int WG_BPLANE = WG_N * TC_BK;                  // 32-bit words of one B plane
+constexpr int WG_SMEM = (int)sizeof(float) * WG_STAGES * (WG_APLANE + 2 * WG_BPLANE) +
+                        1024;                            // + alignment of the swizzle atoms
+
+// D [64 x 152] += A [64 x 8] (registers, the mma.sync A fragment layout
+// per warp) x B [8 x 152] (shared memory, by descriptor), TF32 in, float32
+// accumulate; the warpgroup's 128 threads issue it together.
+__device__ __forceinline__ void wgmma_m64n152k8_tf32(float (&d)[WG_N / 2],
+                                                     const uint32_t (&a)[4],
+                                                     uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %81, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n152k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75 "
+      "}, "
+      "{%76, %77, %78, %79}, %80, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]),
+        "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// A shared-memory matrix descriptor: 128-byte swizzle, K-major; the 8-row
+// groups 1024 bytes apart.
+__device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* smem_ptr) {
+  return ((uint64_t)(smem_addr(smem_ptr) & 0x3FFFFu) >> 4) | (1ull << 16) |
+         ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
+}
+
+// B (gated [G][K][hg]) -> hi, lo [N][K] TF32 planes, K-major.
+__global__ void gemm_tc_presplit(const float* __restrict__ B, uint32_t* __restrict__ hi,
+                                 uint32_t* __restrict__ lo, int N, int K, int hg) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)N * K) return;
+  const int n = (int)(i / K), k = (int)(i - (long long)n * K);
+  const int g = n / hg, j = n - g * hg;
+  uint32_t h, l;
+  split_tf32(B[((long long)g * K + k) * hg + j], h, l);
+  hi[i] = h;
+  lo[i] = l;
+}
+
+// Keep the compiler from moving accumulator reads or writes across a wgmma
+// batch still in flight (ptxas would otherwise serialize the batches).
+__device__ __forceinline__ void wgmma_fence_acc(float (&acc)[WG_N / 2]) {
+#pragma unroll
+  for (int i = 0; i < WG_N / 2; ++i) asm volatile("" : "+f"(acc[i])::"memory");
+}
+
+// Word k of row r in a 128-byte-swizzled [rows][32] stage.
+__device__ __forceinline__ int sw128(int r, int k) {
+  return r * TC_BK + ((((k >> 2) ^ (r & 7))) << 2) + (k & 3);
+}
+
+// One stage: the A tile [128 r][32 k] and the two B planes' [152 n][32 k]
+// tiles, swizzled; rows past M or N and k past K read as zero.
+__device__ __forceinline__ void wgmma_load(float* as, uint32_t* bs, const float* A,
+                                           const uint32_t* Bhi, const uint32_t* Blo, int M,
+                                           int N, int K, int row0, int col0, int k0) {
+  for (int i = threadIdx.x; i < WG_BM * (TC_BK / 4); i += WG_THREADS) {
+    const int r = i / (TC_BK / 4), c = i % (TC_BK / 4);
+    const bool ok = row0 + r < M && k0 + c * 4 < K;
+    cp_async16(as + sw128(r, c * 4), ok ? A + (long long)(row0 + r) * K + k0 + c * 4 : A, ok);
+  }
+  for (int i = threadIdx.x; i < 2 * WG_N * (TC_BK / 4); i += WG_THREADS) {
+    const int plane = i / (WG_N * (TC_BK / 4)), rest = i - plane * (WG_N * (TC_BK / 4));
+    const int n = rest / (TC_BK / 4), c = rest % (TC_BK / 4);
+    const bool ok = col0 + n < N && k0 + c * 4 < K;
+    const uint32_t* src = plane ? Blo : Bhi;
+    cp_async16(bs + plane * WG_BPLANE + sw128(n, c * 4),
+               ok ? src + (long long)(col0 + n) * K + k0 + c * 4 : src, ok);
+  }
+}
+
+// Wait for k tile kt, start loading tile kt + 2 (its stage was read by the
+// batch of tile kt - 2, retired by the last wait_group 1 in both
+// warpgroups before this barrier), split tile kt's A into ah / al, and
+// issue its batch, leaving one batch in flight.
+__device__ __forceinline__ void wgmma_k_tile(float (&acc)[WG_N / 2], uint32_t (&ah)[4][4],
+                                             uint32_t (&al)[4][4], float* As, uint32_t* Bs,
+                                             const float* A, const uint32_t* Bhi,
+                                             const uint32_t* Blo, int M, int N, int K, int row0,
+                                             int col0, int kt, int ktiles, int wrow) {
+  cp_async_wait<1>();
+  // this thread's copies visible to the wgmma (async) proxy, then to all
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (kt + 2 < ktiles) {
+    const int s = (kt + 2) % WG_STAGES;
+    wgmma_load(As + s * WG_APLANE, Bs + s * 2 * WG_BPLANE, A, Bhi, Blo, M, N, K, row0, col0,
+               (kt + 2) * TC_BK);
+  }
+  cp_async_commit();
+  const int s = kt % WG_STAGES, lane = threadIdx.x % 32;
+  const int r = wrow + lane / 4, t4 = lane % 4;
+  const float* as = As + s * WG_APLANE;
+  const uint32_t* bh = Bs + s * 2 * WG_BPLANE;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    split_tf32(as[sw128(r, q * 8 + t4)], ah[q][0], al[q][0]);
+    split_tf32(as[sw128(r + 8, q * 8 + t4)], ah[q][1], al[q][1]);
+    split_tf32(as[sw128(r, q * 8 + t4 + 4)], ah[q][2], al[q][2]);
+    split_tf32(as[sw128(r + 8, q * 8 + t4 + 4)], ah[q][3], al[q][3]);
+  }
+  wgmma_fence_acc(acc);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {   // k step q: 32 bytes into each 128-byte row
+    const uint64_t dh = wgmma_desc_sw128(bh + q * 8);
+    const uint64_t dl = wgmma_desc_sw128(bh + WG_BPLANE + q * 8);
+    wgmma_m64n152k8_tf32(acc, al[q], dh);
+    wgmma_m64n152k8_tf32(acc, ah[q], dl);
+    wgmma_m64n152k8_tf32(acc, ah[q], dh);
+  }
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  wgmma_fence_acc(acc);
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+  wgmma_fence_acc(acc);
+}
+
+// K and hg multiples of 4, A 16-byte aligned; Bhi / Blo from gemm_tc_presplit.
+__global__ void __launch_bounds__(WG_THREADS)
+gemm_wgmma_kernel(const float* __restrict__ A, const uint32_t* __restrict__ Bhi,
+                  const uint32_t* __restrict__ Blo, const float* __restrict__ bias,
+                  float* __restrict__ C, int M, int N, int K, int hg) {
+  extern __shared__ float4 wg_smem4[];
+  uint32_t* Bs = reinterpret_cast<uint32_t*>(
+      (reinterpret_cast<uintptr_t>(wg_smem4) + 1023) & ~uintptr_t(1023));   // [S][2][plane]
+  float* As = reinterpret_cast<float*>(Bs + WG_STAGES * 2 * WG_BPLANE);     // [S][128][32]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int wrow = (warp / 4) * 64 + (warp % 4) * 16;   // warpgroup's 64 rows, warp's 16
+  const int row0 = blockIdx.y * WG_BM, col0 = blockIdx.x * WG_N;
+  // an even number of k tiles (an odd last one reads zeros), so the loop
+  // below, unrolled by two for the two A register buffers, has no tail
+  const int ktiles = ((K + TC_BK - 1) / TC_BK + 1) & ~1;
+
+  float acc[WG_N / 2];
+#pragma unroll
+  for (int i = 0; i < WG_N / 2; ++i) acc[i] = 0.f;
+  wgmma_fence_acc(acc);
+  uint32_t ah0[4][4], al0[4][4], ah1[4][4], al1[4][4];
+
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    wgmma_load(As + s * WG_APLANE, Bs + s * 2 * WG_BPLANE, A, Bhi, Blo, M, N, K, row0, col0,
+               s * TC_BK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; kt += 2) {
+    wgmma_k_tile(acc, ah0, al0, As, Bs, A, Bhi, Blo, M, N, K, row0, col0, kt, ktiles, wrow);
+    wgmma_k_tile(acc, ah1, al1, As, Bs, A, Bhi, Blo, M, N, K, row0, col0, kt + 1, ktiles,
+                 wrow);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wgmma_fence_acc(acc);
+  cp_async_wait<0>();
+
+  // acc[4i + e]: row g8 (+8 for e >= 2), column 8i + 2 t4 + (e & 1)
+#pragma unroll
+  for (int i = 0; i < WG_N / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = row0 + wrow + g8 + (e >= 2 ? 8 : 0);
+      const int c = col0 + i * 8 + 2 * t4 + (e & 1);
+      if (r < M && c < N) {
+        const int g = c / hg, jj = c - g * hg;
+        C[((long long)g * M + r) * hg + jj] = acc[i * 4 + e] + bias[c];
+      }
+    }
+}
+
+cudaError_t launch_gemm_wgmma(const float* A, const float* B, const float* bias, float* C,
+                              int M, int N, int K, int hg, uint32_t* planes,
+                              cudaStream_t stream) {
+  uint32_t* hi = planes;
+  uint32_t* lo = planes + (long long)N * K;
+  const long long nk = (long long)N * K;
+  gemm_tc_presplit<<<(unsigned)((nk + 255) / 256), 256, 0, stream>>>(B, hi, lo, N, K, hg);
+  static unsigned long long smem_set = 0;
+  cudaError_t err = allow_smem_once((const void*)gemm_wgmma_kernel, &smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((N + WG_N - 1) / WG_N, (M + WG_BM - 1) / WG_BM);
+  gemm_wgmma_kernel<<<grid, WG_THREADS, WG_SMEM, stream>>>(A, hi, lo, bias, C, M, N, K, hg);
+  return cudaGetLastError();
+}
+
+// C (gated [N/hg, M, hg]) = A [M, K] @ B (gated [N/hg, K, hg]) + bias [N] in
+// 3xTF32, by the caller's plan: wgmma (many rows; needs vec and 2 * N * K
+// words of `scratch` for B's hi / lo planes) or the 64 x 64 mma.sync tiles
+// over `splits` k ranges (splits > 1: splits * M * N floats of `scratch`).
+// vec: K and hg multiples of 4 and A, B 16-byte aligned.  Returns the
+// launch's cudaError_t.
+cudaError_t launch_gemm_tc(bool wgmma, bool vec, int splits, const float* A, const float* B,
+                           const float* bias, float* C, int M, int N, int K, int hg,
+                           void* scratch, cudaStream_t stream) {
+  if (wgmma) {
+    if (!vec || scratch == nullptr) return cudaErrorInvalidValue;
+    return launch_gemm_wgmma(A, B, bias, C, M, N, K, hg, static_cast<uint32_t*>(scratch),
+                             stream);
+  }
+  if (splits < 1 || (splits > 1 && scratch == nullptr)) return cudaErrorInvalidValue;
+  float* partials = static_cast<float*>(scratch);
+  return vec ? launch_gemm_tc_small<true>(A, B, bias, C, M, N, K, hg, splits, partials, stream)
+             : launch_gemm_tc_small<false>(A, B, bias, C, M, N, K, hg, splits, partials,
+                                           stream);
+}
+
+}  // namespace

@@ -18,6 +18,7 @@ The key-padding bias is HF's additive ``(1 - mask) * -10000``.
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
@@ -25,8 +26,54 @@ import torch
 from .. import _build
 from .layernorm import masked_layer_norm
 
-# the kernel keeps up to 16 query rows x head_dim outputs per block in registers
+# a lane holds up to 4 output columns (lane + 32c) of 8 query rows
 _MAX_HEAD_DIM = 128
+_ATT_RQ, _ATT_KT, _ATT_QT, _ATT_WARPS = 8, 64, 32, 4   # csrc/bert_attn.cu
+_UNIT_BLOCKS_PER_SM = 4    # attention_unit_kernel's launch bound
+
+
+def _plan_attention(B: int, L: int, n_heads: int, dh: int, num_sms: int = _build.NUM_SMS,
+                    aligned: bool = True) -> dict:
+    """The attention stage's launch plan (K6a, and K2's attention stage).
+
+    ``dp``: dh rounded up to 4; ``ldk``: a shared row, ``dp`` or ``dp + 4``
+    so that it is an odd number of 16-byte words (conflict-free float4
+    reads); ``nc``: output columns a lane holds (1, 2 or 4).  L <= 64 takes
+    the unit path: q rows padded to 8, keys to 32 or 64, two units' tiles in
+    the ring, and a persistent grid of at most four blocks an SM (fewer
+    where shared memory allows fewer).  L > 64 takes the tiled path, a block
+    per (unit, 32 queries) over 64-key tiles.  16-byte copies (``vec``) need
+    dh a multiple of 4 and 16-byte aligned q, k, v."""
+    if not 1 <= dh <= _MAX_HEAD_DIM or L < 1:
+        raise ValueError(f"head_dim {dh}, L {L}: the kernel takes 1 <= head_dim <= "
+                         f"{_MAX_HEAD_DIM} and L >= 1")
+    dp = _build.round_up(dh, 4)
+    ldk = dp if (dp // 4) % 2 else dp + 4
+    nc = {1: 1, 2: 2, 3: 4, 4: 4}[-(-dp // 32)]
+    units = B * n_heads
+    if L <= 64:
+        qrows, krows = _build.round_up(L, 8), (32 if L <= 32 else 64)
+        smem = 4 * (2 * ((qrows + 2 * krows) * ldk + krows) + _ATT_WARPS * _ATT_RQ * krows)
+        per_sm = min(_UNIT_BLOCKS_PER_SM, _build.SM_SMEM // (smem + 1024))
+        path, blocks = 0, min(units, per_sm * num_sms)
+    else:
+        qrows, krows = _ATT_QT, _ATT_KT
+        smem = 4 * (_ATT_QT * ldk + 2 * (2 * _ATT_KT * ldk + _ATT_KT)
+                    + _ATT_WARPS * _ATT_RQ * _ATT_KT)
+        path, blocks = 1, units * -(-L // _ATT_QT)
+    if smem > _build.MAX_SMEM:
+        raise ValueError(f"attention at L={L}, head_dim={dh} needs {smem} bytes of "
+                         f"shared memory, more than the card's {_build.MAX_SMEM}")
+    return {"path": path, "vec": int(aligned and dh % 4 == 0), "blocks": blocks,
+            "smem": smem, "dp": dp, "ldk": ldk, "qrows": qrows, "krows": krows, "nc": nc}
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_plan(B, L, n_heads, dh, num_sms, aligned):
+    """The plan as csrc/bert_attn.cu reads it: (C int array, its address)."""
+    p = _plan_attention(B, L, n_heads, dh, num_sms, aligned)
+    return _build.host_ints([p[k] for k in ("path", "vec", "blocks", "smem", "dp", "ldk",
+                                            "qrows", "krows", "nc")])
 
 
 def dense_attention_plain(q, k, v, key_mask) -> torch.Tensor:
@@ -67,14 +114,15 @@ def attention_block_fused(x: torch.Tensor, key_mask: torch.Tensor,
     if h % n_heads or h // n_heads > _MAX_HEAD_DIM:
         raise ValueError(f"width {h} with {n_heads} heads: the kernel takes "
                          f"head_dim = h / n_heads <= {_MAX_HEAD_DIM}")
-    _build.require(x, "x", (b, L, h), dev)
-    for name, t in (("wq_t", wq_t), ("wk_t", wk_t), ("wv_t", wv_t), ("wo_t", wo_t)):
-        _build.require(t, name, (h, h), dev)
-    for name, t in (("qb", qb), ("kb", kb), ("vb", vb), ("ob", ob),
-                    ("ln_g", ln_g), ("ln_b", ln_b)):
-        _build.require(t, name, (h,), dev)
     mask = key_mask.to(device=dev, dtype=torch.float32).contiguous()
-    _build.require(mask, "key_mask", (b, L), dev)
+    _build.require_all(dev, [(x, "x", (b, L, h)), (mask, "key_mask", (b, L))]
+                       + [(t, name, (h, h)) for name, t in (("wq_t", wq_t), ("wk_t", wk_t),
+                                                           ("wv_t", wv_t), ("wo_t", wo_t))]
+                       + [(t, name, (h,)) for name, t in (("qb", qb), ("kb", kb), ("vb", vb),
+                                                         ("ob", ob), ("ln_g", ln_g),
+                                                         ("ln_b", ln_b))])
+    # the q/k/v planes of the fresh scratch are 16-byte aligned when h is
+    plan = _cached_plan(b, L, n_heads, h // n_heads, _build.num_sms(dev), h % 4 == 0)
     lib = _build.load_library()
     qkv = torch.empty(3, b * L, h, dtype=torch.float32, device=dev)
     attn = torch.empty(b * L, h, dtype=torch.float32, device=dev)
@@ -85,7 +133,7 @@ def attention_block_fused(x: torch.Tensor, key_mask: torch.Tensor,
         wk_t.data_ptr(), kb.data_ptr(), wv_t.data_ptr(), vb.data_ptr(),
         wo_t.data_ptr(), ob.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(),
         qkv.data_ptr(), attn.data_ptr(), resid_sum.data_ptr(), out.data_ptr(),
-        b, L, h, n_heads, eps, _build.stream_ptr(dev))
+        b, L, h, n_heads, eps, plan[1], _build.stream_ptr(dev))
     _build.check(err, "attention_block_fused kernel")
     attention_block_fused.launches += 1
     return out
@@ -103,16 +151,16 @@ def dense_attention_blockdiag(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return dense_attention_plain(q, k, v, key_mask)
     dev = _build.device_of(q)
     b, L, n_heads, dh = q.shape
-    if dh > _MAX_HEAD_DIM:
-        raise ValueError(f"head_dim {dh}: the kernel takes head_dim <= {_MAX_HEAD_DIM}")
-    for name, t in (("q", q), ("k", k), ("v", v)):
-        _build.require(t, name, (b, L, n_heads, dh), dev)
+    shape = (b, L, n_heads, dh)
     mask = key_mask.to(device=dev, dtype=torch.float32).contiguous()
-    _build.require(mask, "key_mask", (b, L), dev)
+    _build.require_all(dev, ((q, "q", shape), (k, "k", shape), (v, "v", shape),
+                             (mask, "key_mask", (b, L))))
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    plan = _cached_plan(b, L, n_heads, dh, _build.num_sms(dev), (qp | kp | vp) % 16 == 0)
     out = torch.empty(b, L, n_heads * dh, dtype=torch.float32, device=dev)
     err = _build.load_library().mmtr_attention_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), out.data_ptr(),
-        b, L, n_heads * dh, n_heads, _build.stream_ptr(dev))
+        qp, kp, vp, mask.data_ptr(), out.data_ptr(), b, L, n_heads * dh, n_heads, plan[1],
+        _build.stream_ptr(dev))
     _build.check(err, "dense_attention_blockdiag kernel")
     dense_attention_blockdiag.launches += 1
     return out

@@ -20,6 +20,8 @@ no packing, no length masking.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import _build
@@ -58,24 +60,97 @@ def gru_dir_plain(x: torch.Tensor, wp: torch.Tensor, wt: torch.Tensor,
     return torch.stack(out)
 
 
+_GEMM_BK, _GEMM_STAGES, _GEMM_LDA = 32, 3, 36  # gemm_tc.cuh's k step, ring, A's padded row
+_WG_BM, _WG_BN, _WG_STAGES = 128, 152, 4      # the wgmma tile and ring
+_SMALL_BM = 64                                # the mma.sync tile's rows
+_TILED_MAX_THREADS, _TILED_RT = 256, 4        # the tiled form's launch bound, rows a thread
+_SMALL_KS, _SMALL_MAXK = 8, 13                # lanes a column, W terms a lane (bigru.cu)
+
+
+def _plan_gru_fwd(T: int, B: int, in_dim: int, H: int, num_sms: int = _build.NUM_SMS,
+                  aligned: bool = True) -> dict:
+    """K1f's launch plan (``csrc/bigru.cu`` takes it as given).
+
+    The projection: the wgmma 3xTF32 GEMM (128 x 152 tiles) where those
+    tiles give every SM at least two blocks and the copies can be 16 bytes
+    wide (``in`` and ``H`` multiples of 4, the operands ``aligned``), else
+    64 x 64 mma.sync tiles (16-byte copies where they can be), split over K
+    into up to 8 ranges of at least 3 k tiles while that still leaves two
+    blocks an SM or fewer (at B=1, in=768: 8 splits of 3 k tiles, not 24
+    serial ones).  ``gemm_scratch``: the floats of scratch either needs.
+    The recurrence: the small form (a block a batch row, 8 lanes a column
+    holding W_hh^T in registers) while B <= ``num_sms`` and H <= 104, else
+    the tiled form with rows a multiple of 4, as few as give every SM a
+    block (32 at B=4096: 128 blocks, one wave), capped by shared memory and
+    the kernel's 256 threads.  Raises where the tiled form's ``W_hh^T`` and
+    state do not fit a block's 227 KB (H above ~130)."""
+    hp = _build.round_up(H, 4)
+    vec = int(aligned and in_dim % 4 == 0 and H % 4 == 0)
+    wgmma = int(vec and -(-T * B // _WG_BM) * -(-3 * H // _WG_BN) >= 2 * num_sms)
+    splits = 1
+    if not wgmma:
+        tiles = -(-T * B // _SMALL_BM) * -(-3 * H // _SMALL_BM)
+        splits = max(1, min(8, 2 * num_sms // tiles, -(-in_dim // _GEMM_BK) // 3))
+    plan = {"gemm_wgmma": wgmma, "gemm_vec": vec, "gemm_splits": splits,
+            "gemm_smem": (4 * _WG_STAGES * (_WG_BM + 2 * _WG_BN) * _GEMM_BK + 1024 if wgmma
+                          else 4 * _GEMM_STAGES * (_SMALL_BM * _GEMM_LDA + _GEMM_BK * (64 + 8))),
+            "gemm_scratch": (2 * 3 * H * in_dim if wgmma
+                             else splits * T * B * 3 * H if splits > 1 else 0),
+            "hp": hp}
+    w_floats = 3 * H * hp
+    per_block = -(-B // num_sms)
+    if B <= num_sms and H <= _SMALL_KS * _SMALL_MAXK:
+        plan.update(rec_small=1, rec_rows=1, rec_ks=_SMALL_KS, rec_vec=0,
+                    rec_threads=_build.round_up(H * _SMALL_KS, 32), rec_smem=4 * 2 * hp)
+    else:
+        def smem(r):
+            return 4 * (w_floats + 8 * r * hp + 8 * hp)
+
+        r_max = 0
+        for r in range(_TILED_RT, _TILED_RT * _TILED_MAX_THREADS + 1, _TILED_RT):
+            if smem(r) > _build.MAX_SMEM or (r // _TILED_RT) * (hp // 4) > _TILED_MAX_THREADS:
+                break
+            r_max = r
+        if r_max == 0:
+            raise ValueError(f"gru_dir: H={H} leaves no room for an {_TILED_RT}-row tile "
+                             f"in {_build.MAX_SMEM} bytes of shared memory")
+        rows = min(_build.round_up(per_block, _TILED_RT), r_max)
+        plan.update(rec_small=0, rec_rows=rows, rec_ks=0, rec_vec=int(H % 4 == 0),
+                    rec_threads=(rows // _TILED_RT) * (hp // 4), rec_smem=smem(rows))
+    plan["rec_blocks"] = -(-B // plan["rec_rows"])
+    return plan
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_plan(T, B, in_dim, H, num_sms, aligned):
+    """The plan as csrc/bigru.cu reads it: (C int array, its address, the
+    floats of GEMM scratch to allocate)."""
+    p = _plan_gru_fwd(T, B, in_dim, H, num_sms, aligned)
+    ints = _build.host_ints([p[k] for k in ("gemm_wgmma", "gemm_vec", "gemm_splits",
+                                            "rec_small", "rec_rows", "rec_threads",
+                                            "rec_smem", "rec_ks", "rec_vec", "hp")])
+    return ints + (p["gemm_scratch"],)
+
+
 def _launch_fwd(x, wp, wt, bc, bhn, reverse: bool):
     """Launch K1 on the card -> (h [T, B, H], the input-side gate
     pre-activations [3, T*B, H] that K1b reads back)."""
     dev = _build.device_of(x)
     t_len, b, in_dim = x.shape
     h_dim = wt.shape[-1]
-    _build.require(x, "x", (t_len, b, in_dim), dev)
-    _build.require(wp, "wp", (3, in_dim, h_dim), dev)
-    _build.require(wt, "wt", (3, h_dim, h_dim), dev)
-    _build.require(bc, "bc", (3, h_dim), dev)
-    _build.require(bhn, "bhn", (h_dim,), dev)
-    lib = _build.load_library()
+    _build.require_all(dev, ((x, "x", (t_len, b, in_dim)), (wp, "wp", (3, in_dim, h_dim)),
+                             (wt, "wt", (3, h_dim, h_dim)), (bc, "bc", (3, h_dim)),
+                             (bhn, "bhn", (h_dim,))))
+    plan = _cached_plan(t_len, b, in_dim, h_dim, _build.num_sms(dev),
+                        x.data_ptr() % 16 == 0 and wp.data_ptr() % 16 == 0)
     gates = torch.empty(3, t_len * b, h_dim, dtype=torch.float32, device=dev)
     out = torch.empty(t_len, b, h_dim, dtype=torch.float32, device=dev)
-    err = lib.mmtr_gru_dir_fwd(
+    # the GEMM's scratch: W_ih's TF32 planes (wgmma) or the split-K partials
+    scratch = torch.empty(plan[2], dtype=torch.float32, device=dev) if plan[2] else None
+    err = _build.load_library().mmtr_gru_dir_fwd(
         x.data_ptr(), wp.data_ptr(), wt.data_ptr(), bc.data_ptr(), bhn.data_ptr(),
-        gates.data_ptr(), out.data_ptr(), t_len, b, in_dim, h_dim, int(reverse),
-        _build.stream_ptr(dev))
+        gates.data_ptr(), out.data_ptr(), scratch.data_ptr() if scratch is not None else 0,
+        t_len, b, in_dim, h_dim, int(reverse), plan[1], _build.stream_ptr(dev))
     _build.check(err, "gru_dir kernel")
     gru_dir.launches += 1
     return out, gates

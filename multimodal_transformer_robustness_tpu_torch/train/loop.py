@@ -29,7 +29,7 @@ from ..config import ModelSpec
 from ..masks import SupernetMasks, build_masks
 from ..models.bert import BertConfig
 from ..models.mult import supernet_apply, to_device
-from .optim import make_optimizer
+from .optim import clip_by_global_norm_, make_optimizer
 from .sampling import sample_train_config
 
 
@@ -188,11 +188,14 @@ class Trainer:
 
     def train_step(self, params, opt_state, masks: SupernetMasks, inputs, labels,
                    valid, generator):
-        """Forward in train mode, loss, backward, ``clip_grad_norm_`` and one
-        optimizer step, in place on ``params`` and ``opt_state``.  Returns
-        ``(params, opt_state, loss)``, the loss still on the device."""
+        """Forward in train mode, loss, backward, optax's global-norm clip
+        (:func:`~.optim.clip_by_global_norm_`, as the JAX package chains
+        ``optax.clip_by_global_norm``) and one optimizer step, in place on
+        ``params`` and ``opt_state``.  Returns ``(params, opt_state, loss)``,
+        the loss still on the device."""
         loss = self._backward(params, masks, inputs, labels, valid, generator)
-        torch.nn.utils.clip_grad_norm_(tree_leaves(params), self.hp.clip)
+        clip_by_global_norm_([p.grad for p in tree_leaves(params) if p.grad is not None],
+                             self.hp.clip)
         opt_state.step()
         return params, opt_state, loss
 

@@ -103,14 +103,39 @@ def test_gru_dir_kernel_matches_plain(cuda, B, T, I, H):
 
 
 @pytest.mark.gpu
+@pytest.mark.parametrize("B,T,I,H", [(1, 50, 768, 100), (31, 50, 768, 100),
+                                     (33, 50, 768, 100), (4095, 50, 768, 100),
+                                     (1, 1, 768, 100), (600, 1, 200, 100), (3, 5, 7, 12),
+                                     (700, 6, 20, 13)])
+def test_gru_dir_kernel_plan_edges(cuda, B, T, I, H):
+    """K1f across its launch plans: the small recurrence form (B <= 528)
+    and the tiled one with a ragged last block (B = 33, 600, 700, 4095),
+    T = 1, 4-byte projection copies (in=7) and padded gate columns (H=13),
+    both directions; a rerun gives the same bits."""
+    rng = np.random.default_rng(12)
+    tp = gru_torch_layout(rng, I, H)
+    x = torch.from_numpy(rng.standard_normal((T, B, I)).astype(np.float32)).to(cuda)
+    for d, rev in (("fwd", False), ("bwd", True)):
+        ops = {k: v.to(cuda) for k, v in bigru_cuda.dir_operands(tp[d]).items()}
+        args = (x, ops["wp"], ops["wt"], ops["bc"], ops["bhn"], rev)
+        out = bigru_cuda.gru_dir(*args)
+        again = bigru_cuda.gru_dir(*args)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out, bigru_cuda.gru_dir_plain(*args), atol=1e-4, rtol=1e-4)
+        assert torch.equal(out, again)
+
+
+@pytest.mark.gpu
 @pytest.mark.parametrize("B,L,heads,h", [(1, 8, 12, 768), (2, 200, 12, 768), (3, 13, 2, 16)])
 def test_attention_block_kernel_matches_plain(cuda, B, L, heads, h):
     rng = np.random.default_rng(4)
     args = [a.to(cuda) for a in attn_torch_args(*attn_inputs(rng, B, L, h))]
     out = bert_attn_cuda.attention_block_fused(*args, n_heads=heads, eps=1e-12)
+    again = bert_attn_cuda.attention_block_fused(*args, n_heads=heads, eps=1e-12)
     torch.cuda.synchronize()
     ref = bert_attn_cuda.attention_block_plain(*args, n_heads=heads, eps=1e-12)
     torch.testing.assert_close(out, ref, atol=1e-3, rtol=1e-3)
+    assert torch.equal(out, again)
 
 
 @pytest.mark.gpu
@@ -242,6 +267,28 @@ def test_dense_attention_kernel_matches_plain(cuda, B, L, heads, h):
     torch.cuda.synchronize()
     ref = bert_attn_cuda.dense_attention_plain(q, k, v, mask)
     torch.testing.assert_close(out, ref, atol=1e-3, rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dh", [8, 64])
+@pytest.mark.parametrize("L", [1, 31, 33, 64, 65, 512])
+def test_dense_attention_kernel_plan_edges(cuda, L, dh):
+    """K6a across its launch plans: the unit path (L <= 64, 32 or 64 key
+    rows) and the tiled path (L > 64, a ragged last key tile), head_dim 8
+    and 64, item 0 fully masked (finite, as HF's bias leaves it); a rerun
+    gives the same bits."""
+    rng = np.random.default_rng(13)
+    B, heads = 3, (12 if dh == 64 else 2)
+    mask = torch.from_numpy(attn_inputs(rng, B, L, heads * dh)[-1]).to(cuda)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, L, heads, dh))
+                                .astype(np.float32)).to(cuda) for _ in range(3))
+    out = bert_attn_cuda.dense_attention_blockdiag(q, k, v, mask)
+    again = bert_attn_cuda.dense_attention_blockdiag(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert torch.isfinite(out).all()
+    ref = bert_attn_cuda.dense_attention_plain(q, k, v, mask)
+    torch.testing.assert_close(out, ref, atol=1e-3, rtol=1e-3)
+    assert torch.equal(out, again)
 
 
 @pytest.mark.gpu
