@@ -13,14 +13,17 @@ Phases, each fatal on failure:
                 the stated tolerance; median CUDA-event ms of the kernel, of
                 the plain version and, where one PyTorch call computes the
                 same function (cuDNN's GRU for K1 / K1b, scaled_dot_product_
-                attention for K6a, K5 and K8), of that call; K1b, K5dq and
-                K5dkv are also run twice to show bit-identical gradients;
+                attention for K6a, K5 and K8), of that call; K1b, K5dq,
+                K5dkv and K5b are also run twice to show bit-identical
+                gradients;
                 K4's int32 products are checked exact and its flipped hidden
                 codes counted; the int8 GEMM (qdot) exact at M=8 and
                 M=131,072; the flash kernels (K5f, K5dq, K5dkv) at the MOSEI
                 stack shapes (self T=50, cross Tq=50 Tk=32) and a long causal
                 shape (T=2048), each without dropout and at rate 0.1 with the
-                same seeds on both sides, and K8 at the BERT's shapes; K7f /
+                same seeds on both sides, K5b (the fused backward) at the
+                MOSEI shapes beside the pair + delta op it replaces, and K8
+                at the BERT's shapes; K7f /
                 K7b (the GRU recurrence) at G=2 T=50 N=4096 H=100 and T=64
                 N=1 beside cuDNN's bidirectional GRU, K7b rerun for the same
                 bits; K9f / K9b (the T==1 residual block) at the four MOSEI
@@ -28,7 +31,9 @@ Phases, each fatal on failure:
                 eval; K1f and K6a at the edges of their launch plans (rerun
                 for the same bits); then the device split: torch.profiler's
                 device ms by kernel of K1f (projection, recurrence) and K6a
-                at their two timed shapes, beside their CUDA-event ms;
+                at their two timed shapes, and of the flash backward's calls
+                (the delta op, K5dq, K5dkv, K5b) at the MOSEI shapes, beside
+                their CUDA-event ms;
   4. serving  - StreamingPredictor at the reference's MOSEI serving
                 configuration (d=200, 8x25 heads, layers 3/4/2, 4-layer
                 BERT-base-width text encoder, random weights from seed 0)
@@ -59,9 +64,12 @@ Phases, each fatal on failure:
                 stack (4 layers, Tq=50 Tk=32) and a mems0 self stack (3
                 layers, T=50) at B=4096 in train mode with attention dropout
                 0.1 through the kernels, then the backward of a scalar loss:
-                K5f, K5dq and K5dkv once per layer; fwd+bwd ms beside the same
-                stack with attn_impl="xla", eval-forward ms at B=16 T=2048;
-                card vs CPU at B=8, dropout off, eval and train;
+                K5f and K5b (the fused backward) once per layer; fwd+bwd ms
+                beside the same stack with attn_impl="xla", eval-forward ms
+                at B=16 T=2048; card vs CPU at B=8, dropout off, eval and
+                train; then a T=96 self stack at B=8, train, dropout 0: K5f,
+                K5dq and K5dkv once per layer (the backward's T > 64 path),
+                card vs CPU;
  15. serving-flash - StreamingPredictor(attn_impl="flash"), 2 requests: the
                 T==1 rule keeps K5f at 0 launches (K1 12, K2 4, K3 4 per
                 request), predictions bit-identical to attn_impl="xla";
@@ -115,8 +123,9 @@ import torch
 # (sg * max|w2| through the LayerNorm: * max|ln_g| / the row's std); see
 # k4_row_bound.
 # K5f and K8 (flash forward) are held to 1e-4 absolute on outputs of order
-# 1 (and K5f's log-sum-exp); K5dq / K5dkv to 1e-4 of each gradient's max
-# |ref|, sums over up to Tk or Tq score entries in another order.
+# 1 (and K5f's log-sum-exp); K5dq / K5dkv and K5b (the fused backward) to
+# 1e-4 of each gradient's max |ref|, sums over up to Tk or Tq score entries
+# in another order.
 # K7f (the GRU recurrence) and K9f (the T==1 residual block) are held to
 # 1e-4 absolute on outputs of order 1, summation order only (the hash
 # dropout is integer math, the same bits on both sides); K7b and K9b to 1e-4
@@ -128,10 +137,10 @@ import torch
 # flipping the entries within 1e-4 of the kink can move each gradient
 # (relu_kink_bound) before the tolerance applies.
 TOL = {"K1": 1e-4, "K1b": 1e-4, "K2": 1e-3, "K3": 1e-4, "K4": 1e-4, "K6a": 1e-3,
-       "K6b": 1e-4, "K5f": 1e-4, "K5dq": 1e-4, "K5dkv": 1e-4, "K8": 1e-4,
+       "K6b": 1e-4, "K5f": 1e-4, "K5dq": 1e-4, "K5dkv": 1e-4, "K5b": 1e-4, "K8": 1e-4,
        "K7f": 1e-4, "K7b": 1e-4, "K9f": 1e-4, "K9b": 1e-4}
 # the kernels held to TOL as a share of max |ref| rather than absolutely
-NORMALISED = {"K5dq", "K5dkv", "K7b", "K9b"}
+NORMALISED = {"K5dq", "K5dkv", "K5b", "K7b", "K9b"}
 K4_MAX_FLIP_SHARE = 1e-3
 SERVE_TOL = 1e-3   # end-to-end sentiment, card against CPU
 # one training step, card against CPU: the loss relative, each gradient
@@ -256,18 +265,19 @@ def check_kernels(dev, rng):
     rows, failures = [], []
 
     def record(kid, shape, out, ref, kernel_fn, plain_fn, work=None, library_fn=None,
-               iters=20, slack=None):
+               iters=20, slack=None, extra=None):
         """``out`` / ``ref``: a tensor, or a tuple of tensors each held to the
         tolerance on its own (relative to its own max |ref| in NORMALISED).
         ``slack``: per output, an elementwise allowance the error may use
-        before the tolerance applies (K9b's relu kink, relu_kink_bound)."""
+        before the tolerance applies (K9b's relu kink, relu_kink_bound).
+        ``extra``: more fields for the row (K5b: the pair's time)."""
         pairs = list(zip(out, ref) if isinstance(out, tuple) else [(out, ref)])
         errs = [errors(o, r) for o, r in pairs]
         abs_err, rel_err = max(e[0] for e in errs), max(e[1] for e in errs)
         judged = (abs_err, rel_err) if slack is None else beyond_allowance(pairs, slack)
         normalised = kid in NORMALISED
         ok = (judged[1] if normalised else judged[0]) <= TOL[kid]
-        row = dict(kid=kid, shape=shape, abs=abs_err, rel=rel_err)
+        row = dict(kid=kid, shape=shape, abs=abs_err, rel=rel_err, **(extra or {}))
         if slack is not None:
             row["rel_beyond_allowance"] = judged[1]
         msg = (f"{kid} {shape}: max_abs {abs_err:.3e} max_rel {rel_err:.3e}"
@@ -426,11 +436,41 @@ def profile_ms(fn, iters: int = 10, warmup: int = 3) -> dict:
     return per
 
 
+def flash_bwd_cases(dev, rng, t, B=4096, heads=8, d=25, rate=0.1):
+    """The flash backward's calls at the MOSEI stack shapes (cross Tq=50
+    Tk=32 offset 19, self T=50 offset 1, dropout 0.1), each alone for the
+    device split: the delta op, K5dq and K5dkv (the pair K5b replaces
+    there), and K5b."""
+    from multimodal_transformer_robustness_tpu_torch.ops import attention_cuda as ac
+
+    cases = []
+    for name, tq, tk in (("cross", 50, 32), ("self", 50, 50)):
+        offset, bh = 1 + abs(tk - tq), B * heads
+        q = t(rng.standard_normal((B, heads, tq, d)) / np.sqrt(d))
+        k, v = (t(rng.standard_normal((B, heads, tk, d))) for _ in range(2))
+        dout = t(rng.standard_normal((B, heads, tq, d)))
+        seeds = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, bh).astype(np.int32)).to(dev)
+        rates = torch.full((bh,), rate, device=dev)
+        out, lse = ac.flash_fwd(q, k, v, seeds, rates, True, offset)
+        delta = (dout * out).sum(-1).reshape(bh, tq)
+        args = (q, k, v, dout, lse, delta, seeds, rates, True, offset)
+        shape = f"{name} B={B} H={heads} Tq={tq} Tk={tk} D={d} rate={rate}"
+        cases += [(f"delta op {shape}",
+                   lambda dout=dout, out=out, bh=bh, tq=tq: (dout * out).sum(-1).reshape(bh, tq),
+                   5),
+                  (f"K5dq {shape}", lambda args=args: ac.flash_bwd_dq(*args), 5),
+                  (f"K5dkv {shape}", lambda args=args: ac.flash_bwd_dkv(*args), 5),
+                  (f"K5b {shape}", lambda args=args[:4] + (out,) + args[4:5] + args[6:]:
+                   ac.flash_bwd(*args), 5)]
+    return cases
+
+
 def device_split(dev, rng):
     """K1f's device time split between its kernels (input projection,
-    recurrence) and, for K1f and K6a at their two timed shapes, the device
-    time of a call (torch.profiler) beside its CUDA-event time: the gap is
-    host time the card waits for.  Returns one dict per shape."""
+    recurrence) and, for K1f and K6a at their two timed shapes and the
+    flash backward's calls (flash_bwd_cases), the device time of a call
+    (torch.profiler) beside its CUDA-event time: the gap is host time the
+    card waits for.  Returns one dict per shape."""
     from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bigru_cuda
 
     def t(a):
@@ -455,6 +495,7 @@ def device_split(dev, rng):
         cases.append((f"K6a B={B} L={L} h={heads * dh}",
                       lambda q=q, k=k, v=v, m=mask: bert_attn_cuda.dense_attention_blockdiag(
                           q, k, v, m), 5 if B > 1 else 20))
+    cases += flash_bwd_cases(dev, rng, t)
     for name, fn, iters in cases:
         per = profile_ms(fn, iters)
         event = cuda_ms(fn, iters)
@@ -614,15 +655,19 @@ def check_bert_variants(dev, rng, t, record, failures,
 
 
 def flash_work(kind, bh, tq, tk, d, offset, dropout):
-    """(FLOPs, bytes) of K5f ("fwd"), K5dq ("dq") or K5dkv ("dkv") over
-    ``bh`` slices: 4, 6 or 8 FLOPs a score pair and head column, counting
-    only the pairs the causal rule leaves visible; q, k, v (and dout, lse,
-    delta for the backward) read once, the outputs written once, 8 bytes of
-    seed and rate a slice with dropout."""
+    """(FLOPs, bytes) of K5f ("fwd"), K5dq ("dq"), K5dkv ("dkv") or K5b
+    ("bwd", the whole backward in one pass) over ``bh`` slices: 4, 6, 8 or
+    10 FLOPs a score pair and head column, counting only the pairs the
+    causal rule leaves visible; q, k, v (and dout, lse, delta for K5dq /
+    K5dkv, dout, out and lse for K5b) read once, the outputs written once,
+    8 bytes of seed and rate a slice with dropout."""
     pairs = sum(min(tk, r + offset) for r in range(tq))
     ins = 4 * bh * d * (tq + 2 * tk) + (8 * bh if dropout else 0)
     if kind == "fwd":
         return 4 * bh * pairs * d, ins + 4 * bh * tq * (d + 1)
+    if kind == "bwd":
+        return (10 * bh * pairs * d,
+                ins + 4 * bh * tq * (2 * d + 1) + 4 * bh * d * (tq + 2 * tk))
     ins += 4 * bh * tq * (d + 2)
     if kind == "dq":
         return 6 * bh * pairs * d, ins + 4 * bh * tq * d
@@ -655,7 +700,9 @@ def check_flash(dev, rng, t, record, failures,
     dropout and at rate 0.1, the kernel and the plain version given the same
     seeds.  The backward reads the kernel forward's out and lse and is held
     against autograd through the plain version, then rerun for identical
-    bits.  K8 at the BERT's shapes (12 heads of 64): B=1 at L=8 and 512, all
+    bits; at self and cross also K5b, the fused backward that
+    FlashAttention.backward runs at T <= 64, timed beside the pair it
+    replaces (K5dq + K5dkv + the delta op) and SDPA's backward.  K8 at the BERT's shapes (12 heads of 64): B=1 at L=8 and 512, all
     keys masked (the serving path's mask swap, rewritten to all ones), and
     B=4096 at L=32 with ragged masks and one all-zero row.  Yardstick:
     scaled_dot_product_attention with the same boolean mask and scale 1,
@@ -720,6 +767,29 @@ def check_flash(dev, rng, t, record, failures,
             record("K5dkv", shape, (dk, dv), (rdk, rdv), lambda: ac.flash_bwd_dkv(*bwd_args),
                    plain_bwd, work=flash_work("dkv", bh, tq, tk, d, offset, bool(rate)),
                    library_fn=library, iters=5)
+            if max(tq, tk) <= 64:
+                # K5b: what FlashAttention.backward runs here, delta inside,
+                # beside the pair it replaces (with the delta op)
+                fused_args = (q, k, v, dout, out, lse, seeds, rates, True, offset)
+                got = ac.flash_bwd(*fused_args)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, b) for a, b in zip(got, ac.flash_bwd(*fused_args)))
+                print(f"  K5b {shape}: rerun bit-identical {same}", flush=True)
+                if not same:
+                    failures.append(f"K5b {shape} not deterministic")
+
+                def pair(args=bwd_args, out=out, bh=bh, tq=tq):
+                    delta = (dout * out).sum(-1).reshape(bh, tq)
+                    a = args[:5] + (delta,) + args[6:]
+                    return ac.flash_bwd_dq(*a), ac.flash_bwd_dkv(*a)
+
+                pair_ms = cuda_ms(pair, 5)
+                record("K5b", shape, got, (rdq, rdk, rdv), lambda: ac.flash_bwd(*fused_args),
+                       plain_bwd, work=flash_work("bwd", bh, tq, tk, d, offset, bool(rate)),
+                       library_fn=library, iters=5, extra={"pair_with_delta_ms": pair_ms})
+                print(f"  K5b {shape}: the pair it replaces, K5dq + K5dkv + the delta op, "
+                      f"{pair_ms:.4f} ms", flush=True)
+                del got
             del out, lse, delta, dq, dk, dv, rdq, rdk, rdv, qg, kg, vg, y
         del q, k, v, dout
         torch.cuda.empty_cache()
@@ -988,6 +1058,7 @@ def counters():
             "K6b": bert_ffn_cuda.proj_ln_block,
             "qrows": bert_ffn_cuda.qrows, "qdot": bert_ffn_cuda.qdot,
             "K5f": ac.flash_fwd, "K5dq": ac.flash_bwd_dq, "K5dkv": ac.flash_bwd_dkv,
+            "K5b": ac.flash_bwd,
             "K8": ac.flash_attention_masked, "K7f": gru_cuda.gru_recurrence_cuda,
             "K7b": gru_cuda.gru_recurrence_bwd_cuda, "K9f": tb.trunk_block_fwd,
             "K9b": tb.trunk_block_bwd}
@@ -1505,12 +1576,13 @@ def flash_stack(dev, spec, B=4096, long=(16, 2048), iters=3):
     and a mems0 self stack (``layers_single_attn``, T=50), E=200, 8x25
     heads, FFN 800, the future-mask rule, in train mode at B=4096 with
     attention dropout 0.1 inside the kernels and the spec's other dropouts,
-    then the gradient of a scalar loss.  Launches: K5f, K5dq and K5dkv once
-    per layer.  Times (CUDA events): fwd+bwd against the same stack with
+    then the gradient of a scalar loss.  Launches: K5f and K5b (the fused
+    backward, T <= 64) once per layer.  Times (CUDA events): fwd+bwd against the same stack with
     attn_impl="xla" (the port's dense attention with the additive future
     mask), and the eval forward of both at B=16 T=2048.  Then the card
     against the CPU at B=8 on the same weights, dropout off (the kernels'
-    dropout path at rate 0), in eval and in train mode."""
+    dropout path at rate 0), in eval and in train mode.  Last, a small T=96
+    stack (:func:`flash_stack_long`) for the backward's other path."""
     from multimodal_transformer_robustness_tpu_torch.models.mult import to_device
     from multimodal_transformer_robustness_tpu_torch.ops.encoder import (
         EncoderHParams, EncoderMasks, encoder_forward, init_encoder)
@@ -1559,7 +1631,7 @@ def flash_stack(dev, spec, B=4096, long=(16, 2048), iters=3):
         loss, grads = step(hp)
         torch.cuda.synchronize()
         got = read_counters()
-        expected = expect(K5f=layers, K5dq=layers, K5dkv=layers)
+        expected = expect(K5f=layers, K5b=layers)
         finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)
         print(f"{label} B={B} Tq={tq} Tk={tk or tq} layers={layers}: loss {loss.item():.6f}, "
               f"{len(grads)} gradients finite {finite}; launches {got} expected {expected}",
@@ -1607,7 +1679,51 @@ def flash_stack(dev, spec, B=4096, long=(16, 2048), iters=3):
         if not ok:
             raise RuntimeError(f"{label}: card and CPU disagree")
         stats[label] = ms
+    launches["flash-stack-long"], stats["flash-stack-long"] = flash_stack_long(dev, spec)
     return launches, stats
+
+
+def flash_stack_long(dev, spec, B=8, T=96):
+    """The flash backward's second path on a stack: a self stack
+    (``layers_single_attn`` layers, MOSEI widths) at T=96 > 64 in train
+    mode, every dropout 0, the gradient of a scalar loss: K5f, K5dq and
+    K5dkv once per layer (and no K5b); output and every gradient on the card
+    against the CPU (1e-4)."""
+    from multimodal_transformer_robustness_tpu_torch.models.mult import to_device
+    from multimodal_transformer_robustness_tpu_torch.ops.encoder import (
+        EncoderHParams, EncoderMasks, encoder_forward, init_encoder)
+    from multimodal_transformer_robustness_tpu_torch.train.loop import tree_leaves
+
+    E, H, Dh, layers = spec.dimension, spec.num_heads, spec.head_dim, spec.layers_single_attn
+    hp = EncoderHParams(embed_dim_in=E, num_heads=H, head_dim=Dh, layers=layers,
+                        attn_mask=True, attn_impl="flash")
+    params = init_encoder(torch.Generator().manual_seed(0), hp)
+    rng = np.random.default_rng(12)
+    x, ct = (torch.from_numpy(rng.standard_normal((B, T, E), dtype=np.float32))
+             for _ in range(2))
+    res = {}
+    for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        p = to_device(params, device)
+        leaves = [a.requires_grad_(True) for a in tree_leaves(p)]
+        m = EncoderMasks(*(torch.ones(n, device=device) for n in (layers, H, Dh, 4 * H * Dh)))
+        reset_counters()
+        y = encoder_forward(p, x.to(device), None, hp=hp, masks=m, attn_rate=0.0, train=True,
+                            generator=torch.Generator(device=device).manual_seed(0))
+        g = torch.autograd.grad((y * ct.to(device)).mean(), leaves)
+        if key == "card":
+            torch.cuda.synchronize()
+            got = read_counters()
+        res[key] = [y.detach().cpu()] + [a.cpu() for a in g]
+    expected = expect(K5f=layers, K5dq=layers, K5dkv=layers)
+    out_err = errors(res["card"][0], res["cpu"][0])[0]
+    grad_err = max(errors(a, b)[1] for a, b in zip(res["card"][1:], res["cpu"][1:]))
+    ok = got == expected and max(out_err, grad_err) <= 1e-4
+    print(f"flash-stack-long B={B} T={T} layers={layers}, train, dropout 0: launches {got} "
+          f"expected {expected}; card vs CPU max_abs {out_err:.3e}, gradients {grad_err:.3e} "
+          f"of max|ref| (tol 1e-4) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+        raise RuntimeError("flash-stack-long: launch counts, or card and CPU disagree")
+    return got, {"card_vs_cpu_train_abs": out_err, "card_vs_cpu_grad_rel": grad_err}
 
 
 def serving_flash(dev, n=2):
@@ -1878,7 +1994,7 @@ def kernel_entries(rows, launches):
                   "K4": "B=1 L=8 h=768 ffn=3072", "K6a": "B=1 L=8 h=768",
                   "K6b": "B=1 L=8 h=768",
                   "K5f": FLASH_MAIN, "K5dq": FLASH_MAIN, "K5dkv": FLASH_MAIN,
-                  "K8": "B=1 L=8 H=12 D=64", "K7f": K7_MAIN, "K7b": K7_MAIN,
+                  "K5b": FLASH_MAIN, "K8": "B=1 L=8 H=12 D=64", "K7f": K7_MAIN, "K7b": K7_MAIN,
                   "K9f": K9_MAIN, "K9b": K9_MAIN}
     train_shape = {"K1": "in=768 H=100 T=50 B=4096 fwd", "K2": "B=4096 L=32 h=768",
                    "K3": "B=4096 L=32 h=768 ffn=3072",
@@ -1886,6 +2002,7 @@ def kernel_entries(rows, launches):
                    "K4": "B=4096 L=32 h=768 ffn=3072", "K6a": "B=4096 L=32 h=768",
                    "K6b": "B=4096 L=32 h=768",
                    "K5f": FLASH_CROSS, "K5dq": FLASH_CROSS, "K5dkv": FLASH_CROSS,
+                   "K5b": FLASH_CROSS,
                    "K8": "B=4096 L=32 H=12 D=64", "K7f": K7_SERVE, "K7b": K7_SERVE,
                    "K9f": K9_STREAM, "K9b": K9_STREAM}
     meta = {
@@ -1900,6 +2017,7 @@ def kernel_entries(rows, launches):
         "K5f": ("flash_fwd", "csrc/flash_attn.cu", "ops/attention_pallas.py:197"),
         "K5dq": ("flash_bwd_dq", "csrc/flash_attn.cu", "ops/attention_pallas_bwd.py:77"),
         "K5dkv": ("flash_bwd_dkv", "csrc/flash_attn.cu", "ops/attention_pallas_bwd.py:120"),
+        "K5b": ("flash_bwd", "csrc/flash_attn.cu", "ops/attention_pallas_bwd.py:178"),
         "K8": ("flash_attention_masked", "csrc/flash_attn.cu", "ops/attention_pallas.py:383"),
         "K7f": ("gru_recurrence_cuda", "csrc/gru_recurrence.cu", "ops/gru_pallas.py:113"),
         "K7b": ("gru_recurrence_bwd_cuda", "csrc/gru_recurrence.cu", "ops/gru_pallas.py:187"),
@@ -1924,6 +2042,9 @@ def kernel_entries(rows, launches):
         if kid == "K4":
             kernels[-1].update(int32_exact=all(r["int32_exact"] for r in mine),
                                max_flipped_share=max(r["flipped_share"] for r in mine))
+        if kid == "K5b":   # the pair K5b replaces at T <= 64, with the delta op
+            kernels[-1]["pair_with_delta_ms"] = at["pair_with_delta_ms"]
+            kernels[-1]["at_train_shape"]["pair_with_delta_ms"] = tr["pair_with_delta_ms"]
         if kid == "K9b":   # the errors above include relu-kink flips; this is what is held
             kernels[-1]["max_err_over_max_ref_beyond_kink_allowance"] = max(
                 r["rel_beyond_allowance"] for r in mine)

@@ -4,7 +4,7 @@
 // Each operand element x is split into hi = tf32(x) and lo = tf32(x - hi)
 // (10-bit mantissas each, 21 bits together), and every product is summed as
 // lo*hi + hi*lo + hi*hi in float32 accumulators (TF32 MMAs, mma.sync or
-// wgmma): what is dropped (lo*lo, and lo's cut) is ~2^-21 relative, so the result
+// wgmma): what is dropped (lo*lo, and lo's cut) is ~2^-20 relative, so the result
 // agrees with a float32 FMA GEMM to within a few float32 roundings, at the
 // tensor cores' rate (495 TFLOP/s TF32 dense on an H100 SXM; 165 TFLOP/s of
 // float32 products at three MMAs each) rather than the CUDA cores' 67.  A
@@ -34,15 +34,17 @@ constexpr int TC_BK = 32;
 constexpr int TC_STAGES = 3;
 constexpr int TC_LDA = TC_BK + 4;
 
-// hi: x rounded to TF32's 10-bit mantissa (to nearest, ties away from zero)
-// and lo: x - hi (exact in float32) cut to TF32, in integer ops and a float
-// add: the conversion instruction (cvt.rna.tf32) issues at a quarter of
-// their rate, and the split runs for every fragment.  |lo| <= 2^-11 |x|,
-// cut with an error below 2^-10 |lo|: 2^-21 |x| at most, beside the dropped
-// lo*lo term's 2^-22.
+// hi: x cut to TF32's 10-bit mantissa (toward zero) and lo: x - hi (exact
+// in float32), in a mask and a float subtract: the conversion instruction
+// (cvt.rna.tf32) issues at a quarter of their rate, and the split runs for
+// every fragment (K1f's projection and K5b share it).  The TF32 MMAs read
+// the top 19 bits of a 32-bit operand, so lo is cut there with no mask of
+// its own.  |lo| < 2^-10 |x|, cut with an error below 2^-10 |lo|: 2^-20
+// |x| at most, the size of the dropped lo*lo term.  Rounding hi to nearest
+// (an integer add more) halves both and costs K5b ~4% (tools/k5b_trials.py).
 __device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
-  hi = (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
-  lo = __float_as_uint(x - __uint_as_float(hi)) & 0xffffe000u;
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
 }
 
 // Not volatile: the compiler may interleave independent MMAs.

@@ -7,26 +7,29 @@ on a CUDA tensor and runs its plain PyTorch version on a CPU tensor:
 
   * :func:`flash_fwd` (K5f): ``softmax(q k^T + future-mask rule) v`` and its
     log-sum-exp, replacing ``attention_pallas._flash_fwd_impl``;
-  * :func:`flash_bwd_dq` (K5dq) and :func:`flash_bwd_dkv` (K5dkv): the
-    backward from the saved log-sum-exp, replacing the two pallas_calls of
-    ``attention_pallas_bwd.flash_attention_bwd``;
+  * :func:`flash_bwd`: the backward from the saved log-sum-exp, replacing
+    ``attention_pallas_bwd.flash_attention_bwd`` (its two pallas_calls and
+    the XLA delta): K5b, one fused pass a (b*h) slice, where Tq and Tk are
+    at most 64, else the delta op and :func:`flash_bwd_dq` (K5dq) and
+    :func:`flash_bwd_dkv` (K5dkv), which also stay entries of their own;
   * :func:`flash_attention_masked` (K8): the forward with a per-sample
     key-padding mask, replacing ``attention_pallas.flash_attention_masked``;
     forward only, as there.
 
-:func:`flash_attention` joins K5f, K5dq and K5dkv as an autograd function,
+:func:`flash_attention` joins K5f and :func:`flash_bwd` as an autograd function,
 as the JAX package's custom VJP does.  q arrives pre-scaled; the future-mask
 rule masks ``col - row >= offset`` (the reference's ``offset = 1 + |Tk -
 Tq|``).  The in-softmax dropout keeps weight ``(row, col)`` of slice ``b*h``
 where :func:`hash_uniform` ``(seed[b*h], row, col) >= rate``: integer math,
 so it reproduces the JAX package's draws bit for bit, and the forward and
-both backward kernels regenerate one mask without storing it.  The softmax
+backward kernels regenerate one mask without storing it.  The softmax
 normalizer sums the raw weights; only the value product sees the dropped
 and rescaled ones (torch drops after the softmax).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
@@ -95,7 +98,7 @@ def flash_attention_plain(q, k, v, causal: bool = True, offset: Optional[int] = 
     """Plain PyTorch version of K5f: dense logits with the same causal rule,
     finite fill, normalizer floor and hash field -> ``(out [B, H, Tq, D],
     lse [B*H, Tq])``.  Differentiable by autograd: the gradient oracle of
-    K5dq / K5dkv."""
+    K5b, K5dq and K5dkv."""
     b, h, tq, _ = q.shape
     tk = k.shape[2]
     offset = _offset(tq, tk, causal, offset)
@@ -218,10 +221,95 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, seeds=None, rates=None, causal: boo
 flash_bwd_dkv.launches = 0
 
 
+def _plan_flash_bwd(BH: int, Tq: int, Tk: int, D: int,
+                    num_sms: int = _build.NUM_SMS) -> dict:
+    """The flash backward's launch plan.  Path 0 (Tq, Tk <= 64, every MOSEI
+    flash stack): one K5b launch, a persistent grid of at most
+    ``_build.FB_BLOCKS_PER_SM`` blocks an SM (the kernel's launch bound;
+    fewer where shared memory holds fewer), each block a (b*h) slice at a
+    time, staged into one shared-memory slot by 4-byte copies.  Path 1
+    (longer): the delta op, K5dq and K5dkv.
+
+    The tensor-core tiles set the padding: ``dp4``: D rounded up to 8, in
+    groups of 4 (k steps of the score products, 8-column tiles of the
+    gradients); ``qp8`` / ``kp8``: Tq / Tk rounded up to 8 (staged rows);
+    ``mq`` / ``mk``: 16-row tiles over the queries / keys; ``nk``: 8-key
+    tiles; ``ld``: a staged row, 4 mod 8 words, and ``ldp``: a row of the
+    M*p and dS tiles, 8 mod 32 words and at least 16 * mk (bank-conflict
+    free fragment loads); ``ng1``: key tiles a phase-1 warp takes, 2, or 4
+    where 2 would give more than the block's 8 warps."""
+    if not 1 <= D <= _MAX_HEAD_DIM or min(BH, Tq, Tk) < 1:
+        raise ValueError(f"head_dim {D}, Tq {Tq}, Tk {Tk}: the kernels take 1 <= head_dim "
+                         f"<= {_MAX_HEAD_DIM} and nonempty slices")
+    if Tq > 64 or Tk > 64:
+        return {"path": 1}
+    dp = _build.round_up(D, 8)
+    ld = dp + 4
+    qp8, kp8 = _build.round_up(Tq, 8), _build.round_up(Tk, 8)
+    mq, mk, nk = -(-Tq // 16), -(-Tk // 16), kp8 // 8
+    ldp = _build.round_up(max(kp8, 16 * mk) - 8, 32) + 8
+    ng1 = 2 if mq * -(-nk // 2) <= 8 else 4
+    # one slice's operands, then the M*p and dS tiles; at most 64 x 64 x 128
+    # they come to 206,096 bytes, within MAX_SMEM
+    smem = 4 * (ld * (3 * qp8 + 2 * kp8) + qp8 + 4 + (qp8 + 16 * mq) * ldp)
+    per_sm = min(_build.FB_BLOCKS_PER_SM, _build.SM_SMEM // (smem + 1024))
+    return {"path": 0, "blocks": min(BH, per_sm * num_sms), "smem": smem, "dp4": dp // 4,
+            "ld": ld, "qp8": qp8, "kp8": kp8, "mq": mq, "mk": mk, "nk": nk, "ldp": ldp,
+            "ng1": ng1}
+
+
+_FB_PLAN_KEYS = ("path", "blocks", "smem", "dp4", "ld", "qp8", "kp8", "mq", "mk", "nk", "ldp",
+                 "ng1")
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_bwd_plan(BH, Tq, Tk, D, num_sms):
+    """The plan as csrc/flash_attn.cu reads it: (C int array, its address),
+    or None for path 1."""
+    p = _plan_flash_bwd(BH, Tq, Tk, D, num_sms)
+    return _build.host_ints([p[k] for k in _FB_PLAN_KEYS]) if p["path"] == 0 else None
+
+
+def flash_bwd(q, k, v, dout, out, lse, seeds=None, rates=None, causal: bool = True,
+              offset: Optional[int] = None):
+    """The flash backward: ``(dq, dk, dv)`` from the forward's inputs, its
+    output ``out`` and log-sum-exp ``lse [B*H, Tq]``, and ``dout``.  CPU
+    tensors take the plain version (autograd through
+    :func:`flash_attention_plain`; ``out`` and ``lse`` are not read).  On
+    the card the plan picks by shape: Tq, Tk <= 64 launch K5b once (delta =
+    rowsum(dout * out) inside); longer slices take the delta op, K5dq and
+    K5dkv.  A refused launch raises."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, dout, causal, offset, seeds, rates)
+    dev = _build.device_of(q)
+    b, h, tq, tk, d = _check_qkv(q, k, v, dev)
+    offset = _offset(tq, tk, causal, offset)
+    plan = _cached_bwd_plan(b * h, tq, tk, d, _build.num_sms(dev))
+    if plan is None:
+        delta = (dout * out).sum(-1).reshape(b * h, tq)
+        args = (q, k, v, dout, lse, delta, seeds, rates, causal, offset)
+        return (flash_bwd_dq(*args),) + flash_bwd_dkv(*args)
+    _build.require_all(dev, [(dout, "dout", (b, h, tq, d)), (out, "out", (b, h, tq, d)),
+                             (lse, "lse", (b * h, tq))])
+    p_seeds, p_rates, use_dropout = _check_dropout(seeds, rates, b * h, dev)
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    err = _build.load_library().mmtr_flash_bwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), out.data_ptr(),
+        lse.data_ptr(), p_seeds, p_rates, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        b * h, tq, tk, d, int(causal), offset, use_dropout, plan[1],
+        _build.stream_ptr(dev))
+    _build.check(err, "flash attention fused backward kernel")
+    flash_bwd.launches += 1
+    return dq, dk, dv
+
+
+flash_bwd.launches = 0
+
+
 class FlashAttention(torch.autograd.Function):
-    """Forward K5f, backward K5dq + K5dkv; ``delta = rowsum(dO * O)`` is a
-    plain torch op between them, as the JAX package computes it in XLA.
-    No gradient reaches the seeds or the rates."""
+    """Forward K5f; backward :func:`flash_bwd` (K5b at Tq, Tk <= 64, else
+    the delta op, K5dq and K5dkv).  No gradient reaches the seeds or the
+    rates."""
 
     @staticmethod
     def forward(ctx, q, k, v, seeds, rates, causal: bool, offset: int):
@@ -233,11 +321,8 @@ class FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, seeds, rates, out, lse = ctx.saved_tensors
-        dout = dout.contiguous()
-        delta = (dout * out).sum(-1).reshape(-1, q.shape[2])
-        args = (q, k, v, dout, lse, delta, seeds, rates, ctx.causal, ctx.offset)
-        dq = flash_bwd_dq(*args)
-        dk, dv = flash_bwd_dkv(*args)
+        dq, dk, dv = flash_bwd(q, k, v, dout.contiguous(), out, lse, seeds, rates, ctx.causal,
+                               ctx.offset)
         return dq, dk, dv, None, None, None, None
 
 
@@ -249,7 +334,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``k``, ``v [B, H, Tk, D]`` -> ``[B, H, Tq, D]``.  ``offset`` defaults to
     the reference's ``1 + |Tk - Tq|``; pass ``dropout_seeds [B*H]`` int32 and
     ``dropout_rates [B*H]`` for the in-softmax dropout.  CPU tensors run the
-    plain version under autograd; CUDA tensors run K5f / K5dq / K5dkv."""
+    plain version under autograd; CUDA tensors run K5f and :func:`flash_bwd`."""
     offset = _offset(q.shape[2], k.shape[2], causal, offset)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, offset, dropout_seeds,

@@ -63,7 +63,7 @@ def test_flash_plain_matches_pallas(case):
     """K5's plain version against JAX ``flash_attention(interpret=True)``
     with the same seeds and rates: the output, the log-sum-exp and the
     gradients of ``sum(sin(out))``, which the CPU wrappers of K5dq and
-    K5dkv give alone."""
+    K5dkv, and ``flash_bwd``, give alone."""
     b, h, tq, tk, d, causal, rate = _K5_CASES[case]
     rng = np.random.default_rng(0)
     q, k, v = _np(rng, b, h, tq, d), _np(rng, b, h, tk, d), _np(rng, b, h, tk, d)
@@ -103,6 +103,10 @@ def test_flash_plain_matches_pallas(case):
     dk, dv = tac.flash_bwd_dkv(*args, dout, lse, delta, t_seeds, t_rates, causal, offset)
     for a, r in zip((dq, dk, dv), (tq_.grad, tk_.grad, tv_.grad)):
         torch.testing.assert_close(a, r, atol=1e-6, rtol=1e-6)
+    # the entry FlashAttention.backward calls: it takes out, not delta
+    grads = tac.flash_bwd(*args, dout, fwd_out, lse, t_seeds, t_rates, causal, offset)
+    for a, r in zip(grads, j_grads):
+        np.testing.assert_allclose(a.numpy(), np.asarray(r), atol=5e-5)
 
 
 def test_flash_refuses_what_it_cannot_honour():

@@ -19,7 +19,10 @@ K9f are held to 1e-4 absolute, K7b and K9b to 1e-4 of each output's max
 |ref| (sums over T*N or R rows in another order), K9b beyond what entries
 of its hidden pre-activation within 1e-4 of relu's kink may move it
 (``relu_kink_bound``: either side of the kink is a valid derivative), and
-K7b and K9b reruns must give the same bits (no float atomics).
+K7b and K9b reruns must give the same bits (no float atomics).  K5b (the
+fused flash backward) is held to 1e-4 of each gradient's max |ref| (its
+products run on the tensor cores in 3xTF32, float32-accurate), and its
+reruns must give the same bits too.
 """
 
 import numpy as np
@@ -390,10 +393,68 @@ def test_flash_bwd_kernels_match_plain(cuda, b, h, tq, tk, d, causal, rate):
         assert torch.equal(a, b_)              # no float atomics: the same bits
 
 
+# K5b at the edges of its plan: one row and key, a ragged cross shape, the
+# MOSEI cross and self shapes, the largest slice it takes
+_FUSED_BWD_SHAPES = [(1, 1), (7, 20), (50, 32), (50, 50), (64, 64)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tq,tk", _FUSED_BWD_SHAPES)
+@pytest.mark.parametrize("d", [8, 25, 64])
+@pytest.mark.parametrize("causal,rate", [(True, 0.0), (True, 0.3), (False, 0.0), (False, 0.3)])
+def test_flash_bwd_fused_kernel_matches_plain(cuda, tq, tk, d, causal, rate):
+    """K5b (``flash_bwd`` at Tq, Tk <= 64, delta inside) from the plain
+    forward's out and lse, against autograd through the plain version; one
+    launch a call, none of K5dq / K5dkv; a rerun gives the same bits.  Each
+    gradient is held to 1e-4 of its max |ref|; at Tk = 1 the softmax has one
+    key, so dq and dk are zero in exact arithmetic and both sides leave only
+    rounding: they are held to 1e-4 of dv's max |ref| there."""
+    b, h = 2, 3
+    q, k, v, seeds, rates = _flash_inputs(cuda, b, h, tq, tk, d, rate)
+    dout = torch.from_numpy(np.random.default_rng(14).standard_normal(q.shape)
+                            .astype(np.float32)).to(cuda)
+    out, lse = attention_cuda.flash_attention_plain(q, k, v, causal, None, seeds, rates)
+    args = (q, k, v, dout, out, lse, seeds, rates, causal)
+    n0 = (attention_cuda.flash_bwd.launches, attention_cuda.flash_bwd_dq.launches,
+          attention_cuda.flash_bwd_dkv.launches)
+    got = attention_cuda.flash_bwd(*args)
+    torch.cuda.synchronize()
+    assert (attention_cuda.flash_bwd.launches, attention_cuda.flash_bwd_dq.launches,
+            attention_cuda.flash_bwd_dkv.launches) == (n0[0] + 1, n0[1], n0[2])
+    ref = attention_cuda.flash_attention_bwd_plain(q, k, v, dout, causal, None, seeds, rates)
+    again = attention_cuda.flash_bwd(*args)
+    scale_dv = ref[2].abs().max().item()
+    for a, r, b_ in zip(got, ref, again):
+        scale = scale_dv if tk == 1 else r.abs().max().item()
+        torch.testing.assert_close(a, r, atol=1e-4 * scale, rtol=0)
+        assert torch.equal(a, b_)              # no float atomics: the same bits
+
+
+@pytest.mark.gpu
+def test_flash_bwd_takes_the_pair_past_64(cuda):
+    """Past 64 rows or keys ``flash_bwd`` runs the delta op, K5dq and K5dkv
+    (one launch each), equal to those entries called directly."""
+    q, k, v, seeds, rates = _flash_inputs(cuda, 1, 2, 64, 65, 25, 0.1)
+    dout = torch.from_numpy(np.random.default_rng(14).standard_normal(q.shape)
+                            .astype(np.float32)).to(cuda)
+    out, lse = attention_cuda.flash_fwd(q, k, v, seeds, rates, True)
+    n0 = (attention_cuda.flash_bwd.launches, attention_cuda.flash_bwd_dq.launches,
+          attention_cuda.flash_bwd_dkv.launches)
+    got = attention_cuda.flash_bwd(q, k, v, dout, out, lse, seeds, rates, True)
+    assert (attention_cuda.flash_bwd.launches, attention_cuda.flash_bwd_dq.launches,
+            attention_cuda.flash_bwd_dkv.launches) == (n0[0], n0[1] + 1, n0[2] + 1)
+    delta = (dout * out).sum(-1).reshape(2, 64)
+    pair_args = (q, k, v, dout, lse, delta, seeds, rates, True)
+    pair = (attention_cuda.flash_bwd_dq(*pair_args),) + attention_cuda.flash_bwd_dkv(*pair_args)
+    for a, b_ in zip(got, pair):
+        assert torch.equal(a, b_)
+
+
 @pytest.mark.gpu
 def test_flash_autograd_on_card_matches_cpu(cuda):
-    """``flash_attention`` (K5f forward, K5dq + K5dkv backward) against the
-    same function on the CPU (the plain version under autograd)."""
+    """``flash_attention`` (K5f forward, ``flash_bwd`` backward: K5b here,
+    Tq=40 Tk=57) against the same function on the CPU (the plain version
+    under autograd)."""
     q, k, v, seeds, rates = _flash_inputs("cpu", 2, 3, 40, 57, 25, 0.2)
     out = {}
     for dev in ("cpu", cuda):

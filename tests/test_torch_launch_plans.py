@@ -1,19 +1,23 @@
-"""Launch plans of the port's K1f and attention kernels, on the CPU.
+"""Launch plans of the port's K1f, attention and flash-backward kernels,
+on the CPU.
 
 The CUDA kernels run only on the card, but their launch plans are computed
 in Python (``ops.bigru_cuda._plan_gru_fwd``, ``ops.bert_attn_cuda.
-_plan_attention``) and handed to ``csrc/bigru.cu`` / ``csrc/bert_attn.cu``
-as given.  These tests hold every plan the model's shapes can produce to
-what an H100 takes: at most 232,448 bytes of shared memory and 1,024
+_plan_attention``, ``ops.attention_cuda._plan_flash_bwd``) and handed to
+``csrc/bigru.cu`` / ``csrc/bert_attn.cu`` / ``csrc/flash_attn.cu`` as given.
+These tests hold every plan the model's shapes can produce to what an H100
+takes: at most 232,448 bytes of shared memory and 1,024
 threads a block (256 for the tiled GRU recurrence, its launch bound), the
 shared-memory carve-up the kernels make, and the grids the design asks for:
-the B=4096 recurrence in one wave of 132 SMs, a persistent attention grid
-no larger than the card holds at once.
+the B=4096 recurrence in one wave of 132 SMs, persistent attention and
+flash-backward grids no larger than the card holds at once, and the flash
+backward's choice between its fused kernel (Tq, Tk <= 64) and the pair.
 """
 
 import pytest
 
-from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bigru_cuda
+from multimodal_transformer_robustness_tpu_torch.ops import (attention_cuda, bert_attn_cuda,
+                                                              bigru_cuda)
 
 MAX_SMEM = 232448
 SM_SMEM = 233472   # an SM's shared memory; each resident block reserves 1 KB more
@@ -130,3 +134,70 @@ def test_attention_plan_at_the_training_shape():
 def test_attention_plan_refuses_wide_heads():
     with pytest.raises(ValueError, match="head_dim"):
         bert_attn_cuda._plan_attention(1, 8, 6, 129)
+
+
+def _flash_bwd_smem(p):
+    """csrc/flash_attn.cu's K5b carve-up, in bytes: one slot of q, dO, O
+    [qp8][ld], k, v [kp8][ld], lse [qp8] and (seed, rate) padded to 4; the
+    M*p tile [qp8][ldp] and the dS tile [16 mq][ldp]."""
+    ld, qp8, kp8 = p["ld"], p["qp8"], p["kp8"]
+    return 4 * (ld * (3 * qp8 + 2 * kp8) + qp8 + 4 + (qp8 + 16 * p["mq"]) * p["ldp"])
+
+
+@pytest.mark.parametrize("tq,tk,path", [(1, 1, 0), (1, 64, 0), (64, 1, 0), (50, 32, 0),
+                                        (50, 50, 0), (64, 64, 0), (64, 65, 1), (65, 64, 1),
+                                        (1, 65, 1), (2048, 2048, 1)])
+def test_flash_bwd_plan_picks_the_path_by_shape(tq, tk, path):
+    for D in (8, 25, 64, 128):
+        assert attention_cuda._plan_flash_bwd(4096 * 8, tq, tk, D)["path"] == path
+
+
+@pytest.mark.parametrize("D", [8, 25, 64, 128])
+def test_flash_bwd_plans_fit_the_card(D):
+    for tq in range(1, 65):
+        for tk in (1, 7, 8, 9, 20, 32, 33, 50, 63, 64):
+            for bh in (1, 6, 264, 32768):
+                p = attention_cuda._plan_flash_bwd(bh, tq, tk, D)
+                assert p["path"] == 0
+                assert p["smem"] == _flash_bwd_smem(p) <= MAX_SMEM
+                # k steps / column tiles of 8, rows to 8, 16-row tiles
+                assert 4 * p["dp4"] % 8 == 0 and D <= 4 * p["dp4"] < D + 8
+                assert p["qp8"] % 8 == 0 and tq <= p["qp8"] < tq + 8
+                assert p["kp8"] % 8 == 0 and tk <= p["kp8"] < tk + 8
+                assert p["mq"] == -(-tq // 16) and p["mk"] == -(-tk // 16)
+                assert p["nk"] * 8 == p["kp8"]
+                # the fragments of a 16-row tile read at most 8 rows past qp8,
+                # into the next operand of the slot (k holds at least 8 rows)
+                assert 16 * p["mq"] <= p["qp8"] + 8 and p["kp8"] >= 8
+                # fragment loads free of bank conflicts: ld 4 mod 8 words (g *
+                # ld + t distinct banks), ldp 8 mod 32 (8 t + g distinct), the
+                # dV / dK fragments' 16 * mk keys inside a tile row
+                assert p["ld"] >= 4 * p["dp4"] and p["ld"] % 8 == 4
+                assert p["ldp"] % 32 == 8 and p["ldp"] >= max(p["kp8"], 16 * p["mk"])
+                # phase 1: a warp a (16-row tile, ng1 key tiles), at most 8 such
+                # items where 4 key tiles a warp get there
+                assert p["ng1"] in (2, 4)
+                assert p["mq"] * -(-p["nk"] // p["ng1"]) <= 8 or p["ng1"] == 4
+                # a persistent grid resident at once (the kernel's launch bound:
+                # 3 blocks an SM), never more blocks than slices, and as many
+                # as fit where the slices are many
+                per_sm = -(-p["blocks"] // SMS)
+                assert 1 <= p["blocks"] <= bh and per_sm <= 3
+                assert per_sm * (p["smem"] + 1024) <= SM_SMEM
+                if bh >= 3 * SMS:
+                    assert p["blocks"] == min(3, SM_SMEM // (p["smem"] + 1024)) * SMS
+
+
+def test_flash_bwd_plan_at_the_mosei_shapes():
+    cross = attention_cuda._plan_flash_bwd(4096 * 8, 50, 32, 25)
+    self_ = attention_cuda._plan_flash_bwd(4096 * 8, 50, 50, 25)
+    for p in (cross, self_):
+        # D = 25: columns padded to 32 in rows of 36 floats; three blocks an SM
+        assert p["ld"] == 36 and p["blocks"] == 3 * SMS
+    assert (cross["smem"], cross["ldp"], cross["ng1"]) == (52848, 40, 2)
+    assert (self_["smem"], self_["ldp"], self_["ng1"]) == (75120, 72, 4)
+
+
+def test_flash_bwd_plan_refuses_wide_heads():
+    with pytest.raises(ValueError, match="head_dim"):
+        attention_cuda._plan_flash_bwd(8, 50, 32, 129)
