@@ -23,7 +23,8 @@ Phases, each fatal on failure:
                 shape (T=2048), each without dropout and at rate 0.1 with the
                 same seeds on both sides, K5b (the fused backward) at the
                 MOSEI shapes beside the pair + delta op it replaces, and K8
-                at the BERT's shapes; K7f /
+                at the BERT's shapes (K6a's unit kernel up to 64 keys, its
+                tiled kernel at L=512); K7f /
                 K7b (the GRU recurrence) at G=2 T=50 N=4096 H=100 and T=64
                 N=1 beside cuDNN's bidirectional GRU, K7b rerun for the same
                 bits; K9f / K9b (the T==1 residual block) at the four MOSEI
@@ -467,11 +468,13 @@ def flash_bwd_cases(dev, rng, t, B=4096, heads=8, d=25, rate=0.1):
 
 def device_split(dev, rng):
     """K1f's device time split between its kernels (input projection,
-    recurrence) and, for K1f and K6a at their two timed shapes and the
-    flash backward's calls (flash_bwd_cases), the device time of a call
+    recurrence) and, for K1f, K6a, K8 and K7f at their two timed shapes and
+    the flash backward's calls (flash_bwd_cases), the device time of a call
     (torch.profiler) beside its CUDA-event time: the gap is host time the
     card waits for.  Returns one dict per shape."""
+    from multimodal_transformer_robustness_tpu_torch.ops import attention_cuda as ac
     from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bigru_cuda
+    from multimodal_transformer_robustness_tpu_torch.ops import gru_cuda
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
@@ -495,6 +498,17 @@ def device_split(dev, rng):
         cases.append((f"K6a B={B} L={L} h={heads * dh}",
                       lambda q=q, k=k, v=v, m=mask: bert_attn_cuda.dense_attention_blockdiag(
                           q, k, v, m), 5 if B > 1 else 20))
+        hf = [a.transpose(1, 2).contiguous() for a in (q, k, v)]
+        km = ragged_key_mask(rng, B, L, dev)
+        cases.append((f"K8 B={B} L={L} H={heads} D={dh}",
+                      lambda hf=hf, km=km: ac.flash_attention_masked(*hf, km),
+                      5 if B > 1 else 20))
+    for G, T, N in ((2, 50, 4096), (2, 64, 1)):
+        rec = ([t(rng.standard_normal((G, T, N, H))) for _ in range(3)]
+               + [t(rng.uniform(-0.1, 0.1, (G, H, H))) for _ in range(3)]
+               + [t(rng.uniform(-0.1, 0.1, (G, H))) for _ in range(3)])
+        cases.append((f"K7f G={G} T={T} N={N} H={H}",
+                      lambda rec=rec: gru_cuda.gru_recurrence_cuda(*rec), 5 if N > 1 else 20))
     cases += flash_bwd_cases(dev, rng, t)
     for name, fn, iters in cases:
         per = profile_ms(fn, iters)
@@ -2018,7 +2032,7 @@ def kernel_entries(rows, launches):
         "K5dq": ("flash_bwd_dq", "csrc/flash_attn.cu", "ops/attention_pallas_bwd.py:77"),
         "K5dkv": ("flash_bwd_dkv", "csrc/flash_attn.cu", "ops/attention_pallas_bwd.py:120"),
         "K5b": ("flash_bwd", "csrc/flash_attn.cu", "ops/attention_pallas_bwd.py:178"),
-        "K8": ("flash_attention_masked", "csrc/flash_attn.cu", "ops/attention_pallas.py:383"),
+        "K8": ("flash_attention_masked", "csrc/bert_attn.cu", "ops/attention_pallas.py:383"),
         "K7f": ("gru_recurrence_cuda", "csrc/gru_recurrence.cu", "ops/gru_pallas.py:113"),
         "K7b": ("gru_recurrence_bwd_cuda", "csrc/gru_recurrence.cu", "ops/gru_pallas.py:187"),
         "K9f": ("trunk_block_fwd", "csrc/trunk_block.cu", "ops/trunk_block_pallas.py:270"),

@@ -1,4 +1,4 @@
-// K5 and K8: flash attention over already-projected q / k / v, forward with
+// K5: flash attention over already-projected q / k / v, forward with
 // its log-sum-exp, and the backward (K5b at Tq, Tk <= 64; K5dq + K5dkv).
 //
 // Replaces the TPU kernels of multimodal_transformer_robustness_tpu/ops/:
@@ -11,18 +11,15 @@
 //     slice that computes delta itself, where both lengths are at most 64
 //     (every MOSEI flash stack); K5dq and K5dkv (with delta = rowsum(dO * O)
 //     from the caller) otherwise;
-//   * attention_pallas.py::flash_attention_masked (K8, _flash_kpm_kernel):
-//     the forward with a per-sample key-padding mask instead of the causal
-//     rule, no dropout and no lse.  K8 is a second entry over K5f's kernel.
 //
 // Layout: q/out [B*H, Tq, D], k/v [B*H, Tk, D] row-major float32 (q already
 // scaled); lse and delta = rowsum(dO * O) [B*H, Tq]; seeds int32 and rates
-// float32 [B*H]; key_mask int32 [B, Tk] (1 = attend), shared by the heads
-// of a sample.  The future-mask rule masks col - row >= offset; the key
+// float32 [B*H].  The future-mask rule masks col - row >= offset; the key
 // padding col >= Tk.  Masked weights are exactly 0 (the TPU kernel fills
 // the finite -1e30 and lets a later tile's rescale wipe them; the result is
 // the same for every row that sees at least one key, which the causal rule
-// with offset >= 1 and K8's all-zero-row rewrite guarantee).
+// with offset >= 1 guarantees).  K8, the key-padding forward, runs
+// bert_attn.cu's kernels.
 //
 // Dropout: the keep bit of weight (row, col) is murmur3 fmix32 of
 // seed ^ row*0x9E3779B1 ^ col*0x85EBCA77 (uint32 arithmetic), top 24 bits
@@ -39,7 +36,7 @@
 // bytes (q, k, v, dO, O, lse read once, outputs written once: 0.2 ms for
 // the forward, 0.32 / 0.39 ms for K5b at the cross / self shapes at
 // B*H = 32768).  At long T (2048) the products set the bound (operations).
-// K5f, K8, K5dq and K5dkv keep the whole [64, 64] score tile, the running
+// K5f, K5dq and K5dkv keep the whole [64, 64] score tile, the running
 // max and normalizer and the output accumulator on chip, so no [Tq, Tk]
 // tensor touches device memory; each tile is staged once in shared memory,
 // transposed with a row stride of 65 floats so that both the score product
@@ -90,16 +87,15 @@ __device__ __forceinline__ float row_sum16(float v) {
   return v;
 }
 
-// K5f / K8.  One block per (b*h, 64-query tile); DJ = ceil(D / 16) output
-// columns per thread.  key_mask null: the causal rule (if causal); LSE null:
-// no log-sum-exp store (K8).
+// K5f.  One block per (b*h, 64-query tile); DJ = ceil(D / 16) output
+// columns per thread.
 template <int DJ>
 __global__ void __launch_bounds__(FA_THREADS)
 flash_fwd_kernel(const float* __restrict__ Q, const float* __restrict__ K,
                  const float* __restrict__ V, const int* __restrict__ seeds,
-                 const float* __restrict__ rates, const int* __restrict__ key_mask,
-                 float* __restrict__ O, float* __restrict__ LSE, int H, int Tq, int Tk,
-                 int D, int causal, int offset, int use_dropout) {
+                 const float* __restrict__ rates, float* __restrict__ O,
+                 float* __restrict__ LSE, int Tq, int Tk, int D, int causal, int offset,
+                 int use_dropout) {
   extern __shared__ float smem[];
   float* qt = smem;                       // [D][LD] query tile
   float* kt = qt + D * FA_LD;             // [D][LD] key tile
@@ -110,7 +106,6 @@ flash_fwd_kernel(const float* __restrict__ Q, const float* __restrict__ K,
   const int bh = blockIdx.x, q0 = blockIdx.y * FA_BQ;
   const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
   const long long qoff = (long long)bh * Tq * D, koff = (long long)bh * Tk * D;
-  const int* mrow = key_mask ? key_mask + (long long)(bh / H) * Tk : nullptr;
   load_tile_t(qt, Q + qoff, q0, Tq, D);
 
   // the last query row of the tile sees columns < q_last + offset
@@ -133,10 +128,7 @@ flash_fwd_kernel(const float* __restrict__ Q, const float* __restrict__ K,
     __syncthreads();  // the previous tile's reads are done
     load_tile_t(kt, K + koff, k0, Tk, D);
     load_tile_t(vt, V + koff, k0, Tk, D);
-    if (tid < FA_BK) {
-      const int c = k0 + tid;
-      kok[tid] = c < Tk && (mrow == nullptr || mrow[c] > 0);
-    }
+    if (tid < FA_BK) kok[tid] = k0 + tid < Tk;
     __syncthreads();
 
     float s[4][4];
@@ -213,7 +205,7 @@ flash_fwd_kernel(const float* __restrict__ Q, const float* __restrict__ K,
       const int d = tx + 16 * jj;
       if (d < D) O[qoff + (long long)row * D + d] = acc[i][jj] / l_safe;
     }
-    if (LSE != nullptr && tx == 0) LSE[(long long)bh * Tq + row] = m[i] + logf(l_safe);
+    if (tx == 0) LSE[(long long)bh * Tq + row] = m[i] + logf(l_safe);
   }
 }
 
@@ -801,16 +793,15 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
 
 template <int DJ>
 cudaError_t launch_fwd(const float* q, const float* k, const float* v, const int* seeds,
-                       const float* rates, const int* key_mask, float* out, float* lse,
-                       int BH, int H, int Tq, int Tk, int D, int causal, int offset,
-                       int use_dropout, cudaStream_t stream) {
+                       const float* rates, float* out, float* lse, int BH, int Tq, int Tk,
+                       int D, int causal, int offset, int use_dropout, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (3 * (size_t)D * FA_LD + FA_BQ * FA_LD) +
                       sizeof(int) * FA_BK;
   cudaError_t err = prepare(flash_fwd_kernel<DJ>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid(BH, (Tq + FA_BQ - 1) / FA_BQ);
   flash_fwd_kernel<DJ><<<grid, FA_THREADS, smem, stream>>>(
-      q, k, v, seeds, rates, key_mask, out, lse, H, Tq, Tk, D, causal, offset, use_dropout);
+      q, k, v, seeds, rates, out, lse, Tq, Tk, D, causal, offset, use_dropout);
   return cudaGetLastError();
 }
 
@@ -860,15 +851,14 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v, const flo
     default: return (int)cudaErrorInvalidValue;          \
   }
 
-// K5f (key_mask null, lse written) and K8 (key_mask [B, Tk], H heads per
-// sample, causal 0, no dropout, lse null).  Each entry returns the
+// K5f: out [B*H, Tq, D] and lse [B*H, Tq].  Each entry returns the
 // launch's cudaError_t.
 extern "C" int mmtr_flash_fwd(const float* q, const float* k, const float* v,
-                              const int* seeds, const float* rates, const int* key_mask,
-                              float* out, float* lse, int BH, int H, int Tq, int Tk, int D,
-                              int causal, int offset, int use_dropout, void* stream_ptr) {
-  FA_CASES(launch_fwd, q, k, v, seeds, rates, key_mask, out, lse, BH, H, Tq, Tk, D, causal,
-           offset, use_dropout, (cudaStream_t)stream_ptr)
+                              const int* seeds, const float* rates, float* out, float* lse,
+                              int BH, int Tq, int Tk, int D, int causal, int offset,
+                              int use_dropout, void* stream_ptr) {
+  FA_CASES(launch_fwd, q, k, v, seeds, rates, out, lse, BH, Tq, Tk, D, causal, offset,
+           use_dropout, (cudaStream_t)stream_ptr)
 }
 
 // K5dq: dq [B*H, Tq, D] from q, k, v, dout, lse and delta.

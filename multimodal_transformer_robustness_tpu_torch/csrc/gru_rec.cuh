@@ -1,0 +1,370 @@
+// The GRU recurrence over pre-projected gates, G independent recurrences,
+// shared by K1f (bigru.cu: one direction, G = 1, the projection's [3, T*B,
+// H] gate scratch with the input biases folded in) and K7f
+// (gru_recurrence.cu: G recurrences with their own weights over three gate
+// arrays [G, T, N, H], the recurrent biases b_hr and b_hz added to h W^T).
+// Per group g and step:
+//
+//   r = sigmoid(gate_r + h W_hr^T (+ b_hr))
+//   z = sigmoid(gate_z + h W_hz^T (+ b_hz))
+//   n = tanh(gate_n + r * (h W_hn^T + b_hn))
+//   h' = (1 - z) n + z h
+//
+// h starts at zero and is carried in float32; `reverse` walks t = T-1 .. 0
+// (K1's backward direction; K7 runs forward only, its caller flips).  Every
+// step is a [rows, H] x [H, 3H] product and the gate math, sequential in T,
+// so a block's per-step latency is what the recurrence pays.  Two forms, the
+// launch plan's (ops/bigru_cuda._plan_recurrence) choice:
+//   * tiled (many rows): a block holds W_hh^T of its group in shared memory
+//     for the whole time loop; 4 x 4 (row, column) register tiles for all
+//     three gates, so one float4 of h and three of W feed 48 FMAs; the next
+//     step's gate rows stream in by cp.async while this step's product runs;
+//     h double-buffered in shared memory, each thread keeping its own
+//     previous h in registers: one barrier a step.  W_hh^T (120 KB at
+//     H = 100) leaves room for one block an SM, so the plan picks the rows
+//     that give the fewest waves of blocks, and the fewest rows in them;
+//   * small (G * rows <= the SM count, H <= 104): a block a (row, group), a
+//     thread per (column, k-slice) of KS = 8 lanes holding its slice of
+//     W_hh^T in registers, so a step reads only h from shared memory; a
+//     shuffle reduction adds the slices, so a step's dependent chain is
+//     ~H/(2 KS) FMAs rather than H.
+// BIAS_RZ is a template parameter, so K1's instance carries no bias adds.
+#pragma once
+
+#include "common.cuh"
+
+namespace {
+
+// The small form: KS lanes a column, each holding up to MAXK terms of each
+// gate's W_hh^T column (H <= KS * MAXK = 104), so H * KS <= 832 threads and
+// the launch bound leaves 78 registers a thread.
+constexpr int REC_SMALL_KS = 8;
+constexpr int REC_SMALL_MAXK = 13;
+constexpr int REC_SMALL_THREADS = 832;
+constexpr int REC_TILED_THREADS = 256;   // the tiled form's launch bound
+constexpr int REC_RT = 4;                // rows a thread of the tiled form owns
+
+// The operands of G recurrences.  Group g's gate and output arrays start
+// g * group floats past these pointers, its weights g * H * H and its
+// biases g * H.
+struct GruRec {
+  const float* gate[3];      // input-side pre-activations r, z, n: [T, B, H] a group
+  const float* w[3];         // W_hh^T of the gates r, z, n: [H, H] a group
+  const float* bias_rz[2];   // b_hr, b_hz [H] a group (read only when BIAS_RZ)
+  const float* bhn;          // b_hn [H] a group
+  float* out;                // h [T, B, H] a group
+  long long group;
+  int T, B, H, hp, reverse;
+};
+
+// The gate nonlinearities on the fast exponential and divide (MUFU): with
+// the accurate expf / tanhf / IEEE division the gate math and stores took a
+// large share of a tiled step in an instrumented trial.  Relative error ~1e-6
+// (__expf: 2 + 1.2 |x| ulp), far inside K1's and K7's 1e-4; tanh via
+// 1 - 2 / (e^2x + 1) is exact to ~1e-7 absolute, and saturates to +-1
+// where e^2x overflows or vanishes.
+__device__ __forceinline__ float gate_sigmoid(float v) {
+  return __fdividef(1.0f, 1.0f + __expf(-v));
+}
+
+__device__ __forceinline__ float gate_tanh(float v) {
+  return 1.0f - __fdividef(2.0f, __expf(2.0f * v) + 1.0f);
+}
+
+// Group g's W_hh^T (w0, w1, w2: the gates' [H, H] arrays of group 0) into
+// shared memory as [3][H][hp], columns H..hp-1 zero.
+__device__ __forceinline__ void load_wt(float* w, const float* w0, const float* w1,
+                                        const float* w2, int g, int H, int hp) {
+  const long long wo = (long long)g * H * H;
+  for (int i = threadIdx.x; i < 3 * H * hp; i += blockDim.x) {
+    const int gk = i / hp, j = i - gk * hp;
+    const int gate = gk / H, k = gk - gate * H;
+    const float* src = gate == 0 ? w0 : (gate == 1 ? w1 : w2);
+    w[i] = j < H ? src[wo + (long long)k * H + j] : 0.f;
+  }
+}
+
+// The tiled form's copies of one step's gate rows into this thread's slots
+// (buffer `buf` of gs [2][3 * RT][threads] float4): rows b0 + r0 .. + RT-1,
+// columns j0 .. j0 + 3 of the three gates (gate[]: the group's arrays);
+// rows past B read as zero.
+template <bool VEC>
+__device__ __forceinline__ void tiled_prefetch(float4* gs, const float* const (&gate)[3], int t,
+                                               int buf, int B, int H, int b0, int r0, int j0) {
+  const int nthreads = blockDim.x, tid = threadIdx.x;
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int i = 0; i < REC_RT; ++i) {
+      const int b = b0 + r0 + i;
+      float4* dst = gs + (buf * 3 * REC_RT + g * REC_RT + i) * nthreads + tid;
+      const float* src = gate[g] + ((long long)t * B + b) * H + j0;
+      if (VEC) {
+        cp_async16(dst, b < B ? src : gate[g], b < B);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const bool ok = b < B && j0 + c < H;
+          cp_async4(reinterpret_cast<float*>(dst) + c, ok ? src + c : gate[g], ok);
+        }
+      }
+    }
+}
+
+// Tiled form, block (group of R rows, g).  Thread (rg, jg) owns rows
+// 4rg..4rg+3 and columns 4jg..4jg+3 of the block's R rows, for all three
+// gates: per k, one float4 of h and three of W feed 48 FMAs (8-row tiles,
+// 96 FMAs on five float4s, halved the warps and ran slower on the card).
+// Shared memory: w [3][H][hp], hT [2][hp][R+4] (h transposed, so a float4
+// is four rows of one column), gs [2][3 * 4][threads] float4 (each thread's
+// own gate rows, double-buffered).  VEC: H a multiple of 4 (hp == H,
+// 16-byte gate rows).
+template <bool VEC, bool BIAS_RZ>
+__global__ void __launch_bounds__(REC_TILED_THREADS)
+gru_rec_tiled_kernel(const GruRec p, int R) {
+  extern __shared__ float4 rec_smem4[];
+  const int T = p.T, B = p.B, H = p.H, hp = p.hp;
+  float* w = reinterpret_cast<float*>(rec_smem4);
+  const int ldh = R + 4;
+  float* hT = w + 3 * H * hp;
+  float4* gs = reinterpret_cast<float4*>(hT + 2 * hp * ldh);
+  const int nthreads = blockDim.x, tid = threadIdx.x;
+  const int jgroups = hp / 4;
+  const int jg = tid % jgroups, rg = tid / jgroups;
+  const int j0 = 4 * jg, r0 = REC_RT * rg;
+  const int b0 = blockIdx.x * R, g = blockIdx.y;
+  const long long goff = (long long)g * p.group;
+  const float* const gate[3] = {p.gate[0] + goff, p.gate[1] + goff, p.gate[2] + goff};
+  float* const out = p.out + goff;
+
+  load_wt(w, p.w[0], p.w[1], p.w[2], g, H, hp);
+  for (int i = tid; i < 2 * hp * ldh; i += nthreads) hT[i] = 0.f;
+
+  float bn[4], br[4], bz[4], hold[REC_RT][4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const bool ok = j0 + c < H;
+    bn[c] = ok ? p.bhn[g * H + j0 + c] : 0.f;
+    if constexpr (BIAS_RZ) {
+      br[c] = ok ? p.bias_rz[0][g * H + j0 + c] : 0.f;
+      bz[c] = ok ? p.bias_rz[1][g * H + j0 + c] : 0.f;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < REC_RT; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) hold[i][c] = 0.f;
+
+  tiled_prefetch<VEC>(gs, gate, p.reverse ? T - 1 : 0, 0, B, H, b0, r0, j0);
+  cp_async_commit();
+  __syncthreads();
+
+  for (int step = 0; step < T; ++step) {
+    const int cur = step & 1;
+    if (step + 1 < T)
+      tiled_prefetch<VEC>(gs, gate, p.reverse ? T - 2 - step : step + 1, cur ^ 1, B, H, b0,
+                          r0, j0);
+    cp_async_commit();
+
+    float acc[3][REC_RT][4];
+#pragma unroll
+    for (int gt = 0; gt < 3; ++gt)
+#pragma unroll
+      for (int i = 0; i < REC_RT; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[gt][i][c] = 0.f;
+    const float* h = hT + cur * hp * ldh + r0;
+#pragma unroll 2
+    for (int k = 0; k < H; ++k) {
+      float hr[REC_RT];
+#pragma unroll
+      for (int q = 0; q < REC_RT; q += 4) {
+        const float4 hv = *reinterpret_cast<const float4*>(h + k * ldh + q);
+        hr[q] = hv.x, hr[q + 1] = hv.y, hr[q + 2] = hv.z, hr[q + 3] = hv.w;
+      }
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt) {
+        const float4 wv = *reinterpret_cast<const float4*>(w + (gt * H + k) * hp + j0);
+        const float wc[4] = {wv.x, wv.y, wv.z, wv.w};
+#pragma unroll
+        for (int i = 0; i < REC_RT; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[gt][i][c] = fmaf(hr[i], wc[c], acc[gt][i][c]);
+      }
+    }
+
+    cp_async_wait<1>();   // this step's gate rows (this thread's own copies)
+    const int t = p.reverse ? T - 1 - step : step;
+    float* hn_next = hT + (cur ^ 1) * hp * ldh + r0;
+#pragma unroll
+    for (int i = 0; i < REC_RT; ++i) {
+      const float4 gr = gs[(cur * 3 * REC_RT + 0 * REC_RT + i) * nthreads + tid];
+      const float4 gz = gs[(cur * 3 * REC_RT + 1 * REC_RT + i) * nthreads + tid];
+      const float4 gn = gs[(cur * 3 * REC_RT + 2 * REC_RT + i) * nthreads + tid];
+      const float xr[4] = {gr.x, gr.y, gr.z, gr.w};
+      const float xz[4] = {gz.x, gz.y, gz.z, gz.w};
+      const float xn[4] = {gn.x, gn.y, gn.z, gn.w};
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        float ar = acc[0][i][c], az = acc[1][i][c];
+        if constexpr (BIAS_RZ) ar += br[c], az += bz[c];
+        const float r = gate_sigmoid(xr[c] + ar);
+        const float z = gate_sigmoid(xz[c] + az);
+        const float n = gate_tanh(xn[c] + r * (acc[2][i][c] + bn[c]));
+        hold[i][c] = j0 + c < H ? (1.0f - z) * n + z * hold[i][c] : 0.f;
+      }
+    }
+#pragma unroll
+    for (int c = 0; c < 4; ++c)
+#pragma unroll
+      for (int q = 0; q < REC_RT; q += 4)
+        *reinterpret_cast<float4*>(hn_next + (j0 + c) * ldh + q) =
+            make_float4(hold[q][c], hold[q + 1][c], hold[q + 2][c], hold[q + 3][c]);
+#pragma unroll
+    for (int i = 0; i < REC_RT; ++i) {
+      const int b = b0 + r0 + i;
+      if (b >= B) continue;
+      float* o = out + ((long long)t * B + b) * H + j0;
+      if (VEC) {
+        *reinterpret_cast<float4*>(o) = make_float4(hold[i][0], hold[i][1], hold[i][2],
+                                                    hold[i][3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (j0 + c < H) o[c] = hold[i][c];
+      }
+    }
+    __syncthreads();   // h of step+1 complete; this step's h buffer free
+  }
+  cp_async_wait<0>();
+}
+
+// Small form, block (row, g).  Thread (j, ks), ks fastest over KS lanes of
+// one warp, keeps its slice k = ks, ks+KS, ... of column j of the three
+// W_hh^T gates in registers for the whole time loop, so a step reads only h
+// from shared memory (one broadcast word per FMA triple); the KS lanes add
+// their sums by shuffles, and lane 0 does column j's gate math, its next
+// step's three gate values loaded into registers a step ahead.  The gate
+// and output elements of a step are found by one 64-bit index off the
+// parameter pointers, and b_hr, b_hz sit in shared memory: the launch
+// bound leaves 72 registers, and three gate pointers, an output pointer or
+// two bias registers more spill.  Shared memory: hs [2][hp], then b_hr and
+// b_hz [2][hp] (BIAS_RZ).
+template <bool BIAS_RZ>
+__global__ void __launch_bounds__(REC_SMALL_THREADS)
+gru_rec_small_kernel(const GruRec p) {
+  constexpr int KS = REC_SMALL_KS;
+  extern __shared__ float4 rec_smem4[];
+  float* hs = reinterpret_cast<float*>(rec_smem4);
+  const int T = p.T, B = p.B, H = p.H, hp = p.hp;
+  float* hb = hs + 2 * hp;
+  const int tid = threadIdx.x, g = blockIdx.y;
+  const int j = tid / KS, ks = tid % KS;
+  const bool active = j < H;
+  const bool owner = active && ks == 0;
+  // this column's gate values and output at step 0; a step moves them by +-B*H
+  const long long step_stride = p.reverse ? -(long long)B * H : (long long)B * H;
+  long long at = (long long)g * p.group +
+                 ((long long)(p.reverse ? T - 1 : 0) * B + blockIdx.x) * H + j;
+
+  float w[3][REC_SMALL_MAXK];
+  const long long wo = (long long)g * H * H;
+#pragma unroll
+  for (int i = 0; i < REC_SMALL_MAXK; ++i) {
+    const int k = ks + KS * i;
+#pragma unroll
+    for (int gt = 0; gt < 3; ++gt)
+      w[gt][i] = active && k < H ? p.w[gt][wo + (long long)k * H + j] : 0.f;
+  }
+  for (int i = tid; i < 2 * hp; i += blockDim.x) hs[i] = 0.f;
+
+  if constexpr (BIAS_RZ) {
+    for (int i = tid; i < H; i += blockDim.x) {
+      hb[i] = p.bias_rz[0][g * H + i];
+      hb[hp + i] = p.bias_rz[1][g * H + i];
+    }
+  }
+  const float bn = active ? p.bhn[g * H + j] : 0.f;
+  float gx[3] = {0.f, 0.f, 0.f};
+  if (owner) {
+#pragma unroll
+    for (int gt = 0; gt < 3; ++gt) gx[gt] = p.gate[gt][at];
+  }
+  float hold = 0.f;
+  __syncthreads();
+
+  for (int step = 0; step < T; ++step) {
+    const int cur = step & 1;
+    float gnext[3] = {0.f, 0.f, 0.f};
+    if (owner && step + 1 < T) {
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt) gnext[gt] = p.gate[gt][at + step_stride];
+    }
+
+    // two partial sums a gate halve the dependent chain
+    float acc[3][2] = {{0.f, 0.f}, {0.f, 0.f}, {0.f, 0.f}};
+    const float* h = hs + cur * hp;
+#pragma unroll
+    for (int i = 0; i < REC_SMALL_MAXK; ++i) {
+      const int k = ks + KS * i;
+      if (k < H) {
+        const float hv = h[k];
+#pragma unroll
+        for (int gt = 0; gt < 3; ++gt) acc[gt][i & 1] = fmaf(hv, w[gt][i], acc[gt][i & 1]);
+      }
+    }
+    float gh[3];
+#pragma unroll
+    for (int gt = 0; gt < 3; ++gt) gh[gt] = acc[gt][0] + acc[gt][1];
+#pragma unroll
+    for (int off = KS / 2; off > 0; off >>= 1)
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt) gh[gt] += __shfl_xor_sync(0xffffffffu, gh[gt], off);
+
+    if (owner) {
+      if constexpr (BIAS_RZ) gh[0] += hb[j], gh[1] += hb[hp + j];
+      const float r = gate_sigmoid(gx[0] + gh[0]);
+      const float z = gate_sigmoid(gx[1] + gh[1]);
+      const float n = gate_tanh(gx[2] + r * (gh[2] + bn));
+      hold = (1.0f - z) * n + z * hold;
+      hs[(cur ^ 1) * hp + j] = hold;
+      p.out[at] = hold;
+    }
+    at += step_stride;
+#pragma unroll
+    for (int gt = 0; gt < 3; ++gt) gx[gt] = gnext[gt];
+    __syncthreads();
+  }
+}
+
+// Launch the recurrence of `groups` groups by the plan's seven host ints
+// (ops/bigru_cuda._plan_recurrence): small (1: the small form, a block a
+// row), rows (rows a block), threads, smem (bytes), ks (lanes a column in
+// the small form), vec (tiled form: H a multiple of 4, 16-byte aligned gate
+// and output arrays) and hp (H rounded up to 4, already in p).  The grid is
+// (ceil(B / rows), groups).  Returns the launch's cudaError_t.
+template <bool BIAS_RZ>
+cudaError_t launch_gru_rec(const GruRec& p, int groups, const int* rec, cudaStream_t stream) {
+  const int small = rec[0], rows = rec[1], threads = rec[2], smem = rec[3], ks = rec[4],
+            vec = rec[5];
+  const dim3 grid((p.B + rows - 1) / rows, groups);
+  if (small) {
+    if (ks != REC_SMALL_KS || rows != 1) return cudaErrorInvalidValue;
+    gru_rec_small_kernel<BIAS_RZ><<<grid, threads, smem, stream>>>(p);
+  } else if (vec) {
+    static unsigned long long smem_set = 0;
+    const cudaError_t err =
+        allow_smem_once((const void*)gru_rec_tiled_kernel<true, BIAS_RZ>, &smem_set);
+    if (err != cudaSuccess) return err;
+    gru_rec_tiled_kernel<true, BIAS_RZ><<<grid, threads, smem, stream>>>(p, rows);
+  } else {
+    static unsigned long long smem_set = 0;
+    const cudaError_t err =
+        allow_smem_once((const void*)gru_rec_tiled_kernel<false, BIAS_RZ>, &smem_set);
+    if (err != cudaSuccess) return err;
+    gru_rec_tiled_kernel<false, BIAS_RZ><<<grid, threads, smem, stream>>>(p, rows);
+  }
+  return cudaGetLastError();
+}
+
+}  // namespace

@@ -19,18 +19,28 @@
 //
 // What bounds it on the H100: at the MOSEI header level (G=2, T=50,
 // N=4096, H=100) the recurrent products are 2*G*T*N*3*H*H = 24.6 GFLOP
-// forward (0.37 ms at 67 TFLOP/s float32) and twice that backward, against
-// 0.66 GB of gates and states; the float32 CUDA-core FMAs bound it, but the
-// 50 steps are sequential, so each block's per-step latency (two or three
-// block barriers, one 100-long dot product a thread) is what it pays.  The
-// design is K1's recurrence (bigru.cu): one block per (g, group of rows),
-// the three [H, H] weights of its g in shared memory for the whole time
-// loop (rows padded to H+1 floats, 121 KB at H=100, so the backward's
-// da @ w^T, which reads a weight row per thread, is free of bank
-// conflicts), with the rows' h and the step's h @ w; a step reads only its
-// gate rows from device memory.  No float atomics: a rerun gives the same
-// bits.
-#include "common.cuh"
+// forward (0.15 ms at 165 TFLOP/s of float32-accurate products) and twice
+// that backward, against 0.66 GB of gates and states (0.2 ms); but the 50
+// steps are sequential, so each block's per-step latency is what it pays.
+//
+// K7f runs gru_rec.cuh's recurrence, the code of K1f's (bigru.cu), with a
+// group axis (grid y), three gate arrays and b_hr / b_hz added to h W^T:
+// the tiled form (W_hh^T of the block's group in shared memory, 4 x 4
+// register tiles, cp.async prefetch of the next step's gates, one barrier a
+// step) where G * N rows exceed the SM count, else the small form (a block
+// a (row, g), W_hh^T in registers).  At G * N = 8192 the tiled blocks hold
+// 32 rows (225,600 bytes of shared memory, one block an SM): 256 blocks, two
+// waves on 132 SMs; one wave would need 64-row blocks, 328,000 bytes.  The
+// launch plan is ops/bigru_cuda._plan_recurrence's.
+//
+// K7b keeps its own loop: one block per (g, group of rows), the three
+// [H, H] weights of its g in shared memory for the whole time loop (rows
+// padded to H+1 floats, 121 KB at H=100, so da @ w^T, which reads a weight
+// row per thread, is free of bank conflicts), recomputing r, z, n from the
+// stored h_{t-1} with the accurate expf / tanhf; a step reads its gate rows
+// and h_{t-1} from device memory.  No float atomics: a rerun gives the
+// same bits.
+#include "gru_rec.cuh"
 
 namespace {
 
@@ -55,9 +65,11 @@ __device__ __forceinline__ void load_weights(float* w, float* b, const float* wr
   }
 }
 
-// gh[n][gate*H + j] = h[n] @ w[gate][:, j] + b[gate][j] for the block's rows;
-// the forward and the backward's recompute run this same loop, so r, z and
-// n come out of both with the same bits.
+// gh[n][gate*H + j] = h[n] @ w[gate][:, j] + b[gate][j] for the block's rows:
+// K7b's recompute of r, z and n from the stored h_{t-1}.  K7f runs
+// gru_rec.cuh's forms (other summation order, fast gate math), so the
+// recomputed gates may differ from the forward's in the last bits; K7b's
+// outputs depend only on hs, not on how the forward computed it.
 __device__ __forceinline__ void hidden_gates(float* gh, const float* h, const float* w,
                                              const float* b, int nrows, int H) {
   const int H3 = 3 * H, HP = H + 1;
@@ -69,46 +81,6 @@ __device__ __forceinline__ void hidden_gates(float* gh, const float* h, const fl
     float acc = 0.f;
     for (int k = 0; k < H; ++k) acc = fmaf(hn[k], wg[k * HP], acc);
     gh[idx] = acc + b[j3];
-  }
-}
-
-__global__ void gru_rec_fwd_kernel(const float* __restrict__ gi_r,
-                                   const float* __restrict__ gi_z,
-                                   const float* __restrict__ gi_n,
-                                   const float* __restrict__ wr, const float* __restrict__ wz,
-                                   const float* __restrict__ wn, const float* __restrict__ br,
-                                   const float* __restrict__ bz, const float* __restrict__ bn,
-                                   float* __restrict__ hs, int T, int N, int H,
-                                   int rows_per_block) {
-  extern __shared__ float smem[];
-  const int H3 = 3 * H;
-  float* w = smem;                                // [3, H, H+1]
-  float* b = w + 3 * H * (H + 1);                 // [3, H]
-  float* h = b + H3;                              // [rows, H]   carried state
-  float* gh = h + rows_per_block * H;             // [rows, 3H]  h @ w + b
-  const int g = blockIdx.y, n0 = blockIdx.x * rows_per_block;
-  const int nrows = min(rows_per_block, N - n0);
-
-  load_weights(w, b, wr, wz, wn, br, bz, bn, g, H);
-  for (int i = threadIdx.x; i < nrows * H; i += blockDim.x) h[i] = 0.f;
-  __syncthreads();
-
-  for (int t = 0; t < T; ++t) {
-    hidden_gates(gh, h, w, b, nrows, H);
-    __syncthreads();
-    const long long base = (((long long)g * T + t) * N + n0) * H;
-    for (int idx = threadIdx.x; idx < nrows * H; idx += blockDim.x) {
-      const int n = idx / H, j = idx - n * H;
-      const long long at = base + idx;
-      const float* ghn = gh + n * H3;
-      const float r = sigmoid_f(gi_r[at] + ghn[j]);
-      const float z = sigmoid_f(gi_z[at] + ghn[H + j]);
-      const float nn = tanhf(gi_n[at] + r * ghn[2 * H + j]);
-      const float h_new = (1.0f - z) * nn + z * h[idx];
-      h[idx] = h_new;
-      hs[at] = h_new;
-    }
-    __syncthreads();
   }
 }
 
@@ -187,10 +159,11 @@ __global__ void gru_rec_bwd_kernel(const float* __restrict__ gi_r,
   }
 }
 
-// Rows per block: enough blocks for every SM (132) before a block takes more
-// than one row, at most 8, and fewer if shared memory runs out; `per_row`
-// floats of shared memory a row besides the weights.
-void launch_shape(int G, int N, int H, int per_row, int* rpb, int* threads, size_t* smem) {
+// K7b's rows per block: enough blocks for every SM (132) before a block
+// takes more than one row, at most 8, and fewer if shared memory runs out
+// (8 * H floats a row besides the weights: h_{t-1}, dh, gh, da).
+void launch_shape(int G, int N, int H, int* rpb, int* threads, size_t* smem) {
+  const int per_row = 8 * H;
   int r = (G * N + 131) / 132;
   r = r < 1 ? 1 : (r > 8 ? 8 : r);
   const size_t fixed = 3ULL * H * (H + 1) + 3ULL * H;
@@ -203,21 +176,16 @@ void launch_shape(int G, int N, int H, int per_row, int* rpb, int* threads, size
 
 }  // namespace
 
+// K7f: hs [G, T, N, H]; the plan's seven host ints as gru_rec.cuh's
+// launch_gru_rec reads them (ops/gru_cuda._cached_plan).
 extern "C" int mmtr_gru_rec_fwd(const float* gi_r, const float* gi_z, const float* gi_n,
                                 const float* wr, const float* wz, const float* wn,
                                 const float* br, const float* bz, const float* bn,
-                                float* hs, int G, int T, int N, int H, void* stream_ptr) {
-  int rpb, threads;
-  size_t smem;
-  launch_shape(G, N, H, 4 * H, &rpb, &threads, &smem);
-  // more than the card allows refuses the launch, reported below
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_rec_fwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + rpb - 1) / rpb, G);
-  gru_rec_fwd_kernel<<<grid, threads, smem, (cudaStream_t)stream_ptr>>>(
-      gi_r, gi_z, gi_n, wr, wz, wn, br, bz, bn, hs, T, N, H, rpb);
-  return (int)cudaGetLastError();
+                                float* hs, int G, int T, int N, int H, const int* plan,
+                                void* stream_ptr) {
+  const GruRec p{{gi_r, gi_z, gi_n}, {wr, wz, wn}, {br, bz}, bn, hs, (long long)T * N * H,
+                 T, N, H, plan[6], 0};
+  return (int)launch_gru_rec<true>(p, G, plan, (cudaStream_t)stream_ptr);
 }
 
 extern "C" int mmtr_gru_rec_bwd(const float* gi_r, const float* gi_z, const float* gi_n,
@@ -228,7 +196,7 @@ extern "C" int mmtr_gru_rec_bwd(const float* gi_r, const float* gi_z, const floa
                                 void* stream_ptr) {
   int rpb, threads;
   size_t smem;
-  launch_shape(G, N, H, 8 * H, &rpb, &threads, &smem);
+  launch_shape(G, N, H, &rpb, &threads, &smem);
   cudaError_t err = cudaFuncSetAttribute(
       gru_rec_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;

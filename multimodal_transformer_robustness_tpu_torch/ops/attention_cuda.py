@@ -14,7 +14,10 @@ on a CUDA tensor and runs its plain PyTorch version on a CPU tensor:
     :func:`flash_bwd_dkv` (K5dkv), which also stay entries of their own;
   * :func:`flash_attention_masked` (K8): the forward with a per-sample
     key-padding mask, replacing ``attention_pallas.flash_attention_masked``;
-    forward only, as there.
+    forward only, as there.  It runs K6a's kernels (``csrc/bert_attn.cu``)
+    under a hard key mask: the persistent unit kernel where Tq and Tk are
+    at most 64, the tiled one beyond; either makes the all-zero-row rewrite
+    itself, so a call is one launch.
 
 :func:`flash_attention` joins K5f and :func:`flash_bwd` as an autograd function,
 as the JAX package's custom VJP does.  q arrives pre-scaled; the future-mask
@@ -35,6 +38,7 @@ from typing import Optional
 import torch
 
 from .. import _build
+from . import bert_attn_cuda
 
 NEG_INF = -1e30   # finite fill: a masked logit never makes a NaN
 _MAX_HEAD_DIM = 128
@@ -162,8 +166,8 @@ def flash_fwd(q, k, v, seeds=None, rates=None, causal: bool = True,
     out = torch.empty_like(q)
     lse = torch.empty(b * h, tq, dtype=torch.float32, device=dev)
     err = _build.load_library().mmtr_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), p_seeds, p_rates, 0, out.data_ptr(),
-        lse.data_ptr(), b * h, 1, tq, tk, d, int(causal), offset, use_dropout,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), p_seeds, p_rates, out.data_ptr(),
+        lse.data_ptr(), b * h, tq, tk, d, int(causal), offset, use_dropout,
         _build.stream_ptr(dev))
     _build.check(err, "flash attention forward kernel")
     flash_fwd.launches += 1
@@ -344,7 +348,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def _effective_key_mask(key_mask: torch.Tensor) -> torch.Tensor:
     """int32 ``[B, Tk]``; an all-zero row (a uniform -10000 bias, which the
-    softmax cancels) becomes all ones."""
+    softmax cancels) becomes all ones.  The plain version's composition; the
+    kernels make the same rewrite from the mask row they read."""
     km = key_mask.to(torch.int32)
     return torch.where((km > 0).any(dim=1, keepdim=True), km, torch.ones_like(km))
 
@@ -366,7 +371,10 @@ def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     attend, shared by a sample's heads) over pre-scaled ``q [B, H, Tq, D]``,
     ``k``, ``v [B, H, Tk, D]``; no causal rule, no dropout.  Forward only,
     as in the JAX package: on the card an input that requires grad raises
-    rather than losing its gradient.  CPU tensors take the plain version."""
+    rather than losing its gradient.  CPU tensors take the plain version.
+    On the card one launch (a mask that is not int32 on the card is
+    converted first), planned by ``bert_attn_cuda._plan_attention`` with
+    ``Lk=Tk``: the unit path at Tq, Tk <= 64, else the tiled path."""
     if q.device.type == "cpu":
         return flash_attention_masked_plain(q, k, v, key_mask)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -374,12 +382,15 @@ def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "not require grad")
     dev = _build.device_of(q)
     b, h, tq, tk, d = _check_qkv(q, k, v, dev)
-    km = _effective_key_mask(key_mask.to(dev)).contiguous()
+    km = key_mask.to(device=dev, dtype=torch.int32).contiguous()
     _build.require(km, "key_mask", (b, tk), dev, torch.int32)
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    plan = bert_attn_cuda._cached_plan(b, tq, h, d, _build.num_sms(dev),
+                                       (qp | kp | vp) % 16 == 0, tk)
     out = torch.empty_like(q)
-    err = _build.load_library().mmtr_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), 0, 0, km.data_ptr(), out.data_ptr(), 0,
-        b * h, h, tq, tk, d, 0, 1, 0, _build.stream_ptr(dev))
+    err = _build.load_library().mmtr_attention_masked_fwd(
+        qp, kp, vp, km.data_ptr(), out.data_ptr(), b, h, tq, tk, d, plan[1],
+        _build.stream_ptr(dev))
     _build.check(err, "flash attention masked kernel")
     flash_attention_masked.launches += 1
     return out

@@ -11,7 +11,8 @@ and run their plain PyTorch versions on a CPU tensor:
   * :func:`dense_attention_blockdiag` (K6a): the projection-free attention
     core over q/k/v ``[B, L, H, dh]``, replaces
     ``bert_attn_pallas._dense_attn_kernel``; the same attention kernel as
-    K2's attention stage.
+    K2's attention stage, and as K8's
+    (``attention_cuda.flash_attention_masked``) under a hard key mask.
 
 The key-padding bias is HF's additive ``(1 - mask) * -10000``.
 """
@@ -33,26 +34,29 @@ _UNIT_BLOCKS_PER_SM = 4    # attention_unit_kernel's launch bound
 
 
 def _plan_attention(B: int, L: int, n_heads: int, dh: int, num_sms: int = _build.NUM_SMS,
-                    aligned: bool = True) -> dict:
-    """The attention stage's launch plan (K6a, and K2's attention stage).
+                    aligned: bool = True, Lk: int | None = None) -> dict:
+    """The attention kernels' launch plan (K6a, K2's attention stage, and
+    K8, ``attention_cuda.flash_attention_masked``): ``L`` query rows a unit
+    and ``Lk`` key rows (``L`` where None: self-attention).
 
     ``dp``: dh rounded up to 4; ``ldk``: a shared row, ``dp`` or ``dp + 4``
     so that it is an odd number of 16-byte words (conflict-free float4
-    reads); ``nc``: output columns a lane holds (1, 2 or 4).  L <= 64 takes
-    the unit path: q rows padded to 8, keys to 32 or 64, two units' tiles in
-    the ring, and a persistent grid of at most four blocks an SM (fewer
-    where shared memory allows fewer).  L > 64 takes the tiled path, a block
-    per (unit, 32 queries) over 64-key tiles.  16-byte copies (``vec``) need
-    dh a multiple of 4 and 16-byte aligned q, k, v."""
-    if not 1 <= dh <= _MAX_HEAD_DIM or L < 1:
-        raise ValueError(f"head_dim {dh}, L {L}: the kernel takes 1 <= head_dim <= "
-                         f"{_MAX_HEAD_DIM} and L >= 1")
+    reads); ``nc``: output columns a lane holds (1, 2 or 4).  L, Lk <= 64
+    take the unit path: q rows padded to 8, keys to 32 or 64, two units'
+    tiles in the ring, and a persistent grid of at most four blocks an SM
+    (fewer where shared memory allows fewer).  Longer units take the tiled
+    path, a block per (unit, 32 queries) over 64-key tiles.  16-byte copies
+    (``vec``) need dh a multiple of 4 and 16-byte aligned q, k, v."""
+    Lk = L if Lk is None else Lk
+    if not 1 <= dh <= _MAX_HEAD_DIM or min(L, Lk) < 1:
+        raise ValueError(f"head_dim {dh}, L {L}, Lk {Lk}: the kernel takes 1 <= head_dim <= "
+                         f"{_MAX_HEAD_DIM} and L, Lk >= 1")
     dp = _build.round_up(dh, 4)
     ldk = dp if (dp // 4) % 2 else dp + 4
     nc = {1: 1, 2: 2, 3: 4, 4: 4}[-(-dp // 32)]
     units = B * n_heads
-    if L <= 64:
-        qrows, krows = _build.round_up(L, 8), (32 if L <= 32 else 64)
+    if max(L, Lk) <= 64:
+        qrows, krows = _build.round_up(L, 8), (32 if Lk <= 32 else 64)
         smem = 4 * (2 * ((qrows + 2 * krows) * ldk + krows) + _ATT_WARPS * _ATT_RQ * krows)
         per_sm = min(_UNIT_BLOCKS_PER_SM, _build.SM_SMEM // (smem + 1024))
         path, blocks = 0, min(units, per_sm * num_sms)
@@ -62,16 +66,16 @@ def _plan_attention(B: int, L: int, n_heads: int, dh: int, num_sms: int = _build
                     + _ATT_WARPS * _ATT_RQ * _ATT_KT)
         path, blocks = 1, units * -(-L // _ATT_QT)
     if smem > _build.MAX_SMEM:
-        raise ValueError(f"attention at L={L}, head_dim={dh} needs {smem} bytes of "
+        raise ValueError(f"attention at L={L}, Lk={Lk}, head_dim={dh} needs {smem} bytes of "
                          f"shared memory, more than the card's {_build.MAX_SMEM}")
     return {"path": path, "vec": int(aligned and dh % 4 == 0), "blocks": blocks,
             "smem": smem, "dp": dp, "ldk": ldk, "qrows": qrows, "krows": krows, "nc": nc}
 
 
 @functools.lru_cache(maxsize=None)
-def _cached_plan(B, L, n_heads, dh, num_sms, aligned):
+def _cached_plan(B, L, n_heads, dh, num_sms, aligned, Lk=None):
     """The plan as csrc/bert_attn.cu reads it: (C int array, its address)."""
-    p = _plan_attention(B, L, n_heads, dh, num_sms, aligned)
+    p = _plan_attention(B, L, n_heads, dh, num_sms, aligned, Lk)
     return _build.host_ints([p[k] for k in ("path", "vec", "blocks", "smem", "dp", "ldk",
                                             "qrows", "krows", "nc")])
 

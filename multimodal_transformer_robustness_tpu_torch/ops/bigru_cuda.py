@@ -67,6 +67,54 @@ _TILED_MAX_THREADS, _TILED_RT = 256, 4        # the tiled form's launch bound, r
 _SMALL_KS, _SMALL_MAXK = 8, 13                # lanes a column, W terms a lane (bigru.cu)
 
 
+def _plan_recurrence(G: int, B: int, H: int, num_sms: int = _build.NUM_SMS,
+                     aligned: bool = True) -> dict:
+    """The launch plan of ``csrc/gru_rec.cuh``'s recurrence over ``G`` groups
+    of ``B`` rows (K1f: G = 1; K7f: G recurrences of N rows).
+
+    The small form (a block a (row, group), 8 lanes a column holding W_hh^T
+    in registers; h and K7f's b_hr, b_hz in shared memory) while ``G * B <=
+    num_sms`` and H <= 104.  Else the tiled
+    form: W_hh^T in shared memory, so one block an SM, rows a multiple of 4
+    up to what shared memory and the kernel's 256 threads allow (32 at
+    H = 100).  Its rows give the fewest waves of ``G * ceil(B / rows)``
+    blocks over the SMs, and are the fewest that do: a step's time grows
+    with a block's rows.  At G * B = 4096 (K1f's training shape) that is
+    one wave of 32-row blocks; at G = 2, B = 4096 (K7f at the MOSEI header
+    level) two waves of 32-row blocks, since one wave would need 64-row
+    blocks (328,000 bytes of shared memory, 400 threads).  ``rec_vec``
+    (16-byte gate copies) needs H a multiple of 4 and ``aligned`` gate and
+    output arrays.  Raises where a 4-row tile's W_hh^T and state do not fit
+    a block's 227 KB (H above ~130)."""
+    hp = _build.round_up(H, 4)
+    if G * B <= num_sms and H <= _SMALL_KS * _SMALL_MAXK:
+        return {"rec_small": 1, "rec_rows": 1, "rec_ks": _SMALL_KS, "rec_vec": 0,
+                "rec_threads": _build.round_up(H * _SMALL_KS, 32), "rec_smem": 4 * 4 * hp,
+                "hp": hp, "rec_blocks": B}
+
+    def smem(r):
+        return 4 * (3 * H * hp + 8 * r * hp + 8 * hp)
+
+    r_max = 0
+    for r in range(_TILED_RT, _TILED_RT * _TILED_MAX_THREADS + 1, _TILED_RT):
+        if smem(r) > _build.MAX_SMEM or (r // _TILED_RT) * (hp // 4) > _TILED_MAX_THREADS:
+            break
+        r_max = r
+    if r_max == 0:
+        raise ValueError(f"gru recurrence: H={H} leaves no room for an {_TILED_RT}-row tile "
+                         f"in {_build.MAX_SMEM} bytes of shared memory")
+    waves = -(-G * -(-B // r_max) // num_sms)
+    rows = next(r for r in range(_TILED_RT, r_max + 1, _TILED_RT)
+                if G * -(-B // r) <= waves * num_sms)
+    return {"rec_small": 0, "rec_rows": rows, "rec_ks": 0,
+            "rec_vec": int(aligned and H % 4 == 0),
+            "rec_threads": (rows // _TILED_RT) * (hp // 4), "rec_smem": smem(rows), "hp": hp,
+            "rec_blocks": -(-B // rows)}
+
+
+REC_PLAN_KEYS = ("rec_small", "rec_rows", "rec_threads", "rec_smem", "rec_ks", "rec_vec", "hp")
+
+
 def _plan_gru_fwd(T: int, B: int, in_dim: int, H: int, num_sms: int = _build.NUM_SMS,
                   aligned: bool = True) -> dict:
     """K1f's launch plan (``csrc/bigru.cu`` takes it as given).
@@ -78,13 +126,10 @@ def _plan_gru_fwd(T: int, B: int, in_dim: int, H: int, num_sms: int = _build.NUM
     into up to 8 ranges of at least 3 k tiles while that still leaves two
     blocks an SM or fewer (at B=1, in=768: 8 splits of 3 k tiles, not 24
     serial ones).  ``gemm_scratch``: the floats of scratch either needs.
-    The recurrence: the small form (a block a batch row, 8 lanes a column
-    holding W_hh^T in registers) while B <= ``num_sms`` and H <= 104, else
-    the tiled form with rows a multiple of 4, as few as give every SM a
-    block (32 at B=4096: 128 blocks, one wave), capped by shared memory and
-    the kernel's 256 threads.  Raises where the tiled form's ``W_hh^T`` and
-    state do not fit a block's 227 KB (H above ~130)."""
-    hp = _build.round_up(H, 4)
+    The recurrence: :func:`_plan_recurrence` with G = 1 over the gate
+    scratch the wrapper allocates (aligned): the small form while B <=
+    ``num_sms``, else the tiled one (32 rows at B=4096: 128 blocks, one
+    wave)."""
     vec = int(aligned and in_dim % 4 == 0 and H % 4 == 0)
     wgmma = int(vec and -(-T * B // _WG_BM) * -(-3 * H // _WG_BN) >= 2 * num_sms)
     splits = 1
@@ -95,29 +140,8 @@ def _plan_gru_fwd(T: int, B: int, in_dim: int, H: int, num_sms: int = _build.NUM
             "gemm_smem": (4 * _WG_STAGES * (_WG_BM + 2 * _WG_BN) * _GEMM_BK + 1024 if wgmma
                           else 4 * _GEMM_STAGES * (_SMALL_BM * _GEMM_LDA + _GEMM_BK * (64 + 8))),
             "gemm_scratch": (2 * 3 * H * in_dim if wgmma
-                             else splits * T * B * 3 * H if splits > 1 else 0),
-            "hp": hp}
-    w_floats = 3 * H * hp
-    per_block = -(-B // num_sms)
-    if B <= num_sms and H <= _SMALL_KS * _SMALL_MAXK:
-        plan.update(rec_small=1, rec_rows=1, rec_ks=_SMALL_KS, rec_vec=0,
-                    rec_threads=_build.round_up(H * _SMALL_KS, 32), rec_smem=4 * 2 * hp)
-    else:
-        def smem(r):
-            return 4 * (w_floats + 8 * r * hp + 8 * hp)
-
-        r_max = 0
-        for r in range(_TILED_RT, _TILED_RT * _TILED_MAX_THREADS + 1, _TILED_RT):
-            if smem(r) > _build.MAX_SMEM or (r // _TILED_RT) * (hp // 4) > _TILED_MAX_THREADS:
-                break
-            r_max = r
-        if r_max == 0:
-            raise ValueError(f"gru_dir: H={H} leaves no room for an {_TILED_RT}-row tile "
-                             f"in {_build.MAX_SMEM} bytes of shared memory")
-        rows = min(_build.round_up(per_block, _TILED_RT), r_max)
-        plan.update(rec_small=0, rec_rows=rows, rec_ks=0, rec_vec=int(H % 4 == 0),
-                    rec_threads=(rows // _TILED_RT) * (hp // 4), rec_smem=smem(rows))
-    plan["rec_blocks"] = -(-B // plan["rec_rows"])
+                             else splits * T * B * 3 * H if splits > 1 else 0)}
+    plan.update(_plan_recurrence(1, B, H, num_sms))
     return plan
 
 
@@ -126,9 +150,8 @@ def _cached_plan(T, B, in_dim, H, num_sms, aligned):
     """The plan as csrc/bigru.cu reads it: (C int array, its address, the
     floats of GEMM scratch to allocate)."""
     p = _plan_gru_fwd(T, B, in_dim, H, num_sms, aligned)
-    ints = _build.host_ints([p[k] for k in ("gemm_wgmma", "gemm_vec", "gemm_splits",
-                                            "rec_small", "rec_rows", "rec_threads",
-                                            "rec_smem", "rec_ks", "rec_vec", "hp")])
+    ints = _build.host_ints([p[k] for k in ("gemm_wgmma", "gemm_vec", "gemm_splits")
+                             + REC_PLAN_KEYS])
     return ints + (p["gemm_scratch"],)
 
 

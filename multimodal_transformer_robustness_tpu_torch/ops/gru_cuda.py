@@ -11,7 +11,9 @@ weights (the two directions of a bidirectional GRU).
 
 :func:`gru_recurrence_cuda` launches ``csrc/gru_recurrence.cu``'s forward
 (replacing ``gru_pallas._recurrence_fwd_impl``) on a CUDA tensor and runs
-:func:`gru_recurrence_plain` on a CPU tensor.  :func:`gru_recurrence_bwd_cuda`
+:func:`gru_recurrence_plain` on a CPU tensor.  The forward runs K1f's
+recurrence (``csrc/gru_rec.cuh``) with a group axis; its launch plan is
+``bigru_cuda._plan_recurrence`` over G groups of N rows.  :func:`gru_recurrence_bwd_cuda`
 is its backward (replacing ``gru_pallas._recurrence_bwd_impl``): newest
 step first, r / z / n recomputed from ``h_{t-1}``, it gives the gate
 gradients ``da_r, da_z, da_n`` and ``dghn = da_n * r``.  :class:`GruRecurrence` joins
@@ -22,9 +24,12 @@ as the JAX package leaves them to XLA.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from .. import _build
+from .bigru_cuda import REC_PLAN_KEYS, _plan_recurrence
 
 
 def _hidden_gates(h, wr, wz, wn, br, bz, bn):
@@ -83,6 +88,14 @@ def _check_operands(gates, weights, biases, dev):
     return g, t_len, n, h
 
 
+@functools.lru_cache(maxsize=None)
+def _cached_plan(G, N, H, num_sms, aligned):
+    """K7f's plan as csrc/gru_recurrence.cu reads it: (C int array, its
+    address)."""
+    p = _plan_recurrence(G, N, H, num_sms, aligned)
+    return _build.host_ints([p[k] for k in REC_PLAN_KEYS])
+
+
 def gru_recurrence_cuda(gi_r, gi_z, gi_n, wr, wz, wn, br, bz, bn) -> torch.Tensor:
     """K7f: ``hs [G, T, N, H]``.  CPU tensors take :func:`gru_recurrence_plain`;
     CUDA tensors launch the kernel (or raise)."""
@@ -92,9 +105,12 @@ def gru_recurrence_cuda(gi_r, gi_z, gi_n, wr, wz, wn, br, bz, bn) -> torch.Tenso
     g, t_len, n, h = _check_operands((gi_r, gi_z, gi_n), (wr, wz, wn), (br, bz, bn), dev)
     lib = _build.load_library()
     hs = torch.empty_like(gi_r)
+    # 16-byte gate copies need the gate arrays 16-byte aligned (hs is fresh)
+    aligned = (gi_r.data_ptr() | gi_z.data_ptr() | gi_n.data_ptr()) % 16 == 0
+    plan = _cached_plan(g, n, h, _build.num_sms(dev), aligned)
     err = lib.mmtr_gru_rec_fwd(
         *(a.data_ptr() for a in (gi_r, gi_z, gi_n, wr, wz, wn, br, bz, bn, hs)),
-        g, t_len, n, h, _build.stream_ptr(dev))
+        g, t_len, n, h, plan[1], _build.stream_ptr(dev))
     _build.check(err, "gru_recurrence forward kernel")
     gru_recurrence_cuda.launches += 1
     return hs

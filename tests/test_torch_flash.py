@@ -125,15 +125,19 @@ def test_flash_refuses_what_it_cannot_honour():
                             attn_bias=future_mask(4, 4), impl="flash", causal_offset=1)
 
 
-@pytest.mark.parametrize("b,h,t,d", [(3, 2, 32, 64), (2, 2, 48, 16), (2, 1, 9, 25)])
+@pytest.mark.parametrize("b,h,t,d", [(3, 2, 32, 64), (2, 2, 48, 16), (2, 1, 9, 25),
+                                     (3, 2, (9, 40), 25)])
 def test_flash_masked_plain_matches_pallas(b, h, t, d):
     """K8's plain version against JAX ``flash_attention_masked(interpret=
-    True)``: ragged and non-contiguous key masks and one all-zero row."""
+    True)``: ragged and non-contiguous key masks and one all-zero row; ``t``
+    is T or (Tq, Tk)."""
+    tq, tk = t if isinstance(t, tuple) else (t, t)
     rng = np.random.default_rng(1)
-    q, k, v = (_np(rng, b, h, t, d) for _ in range(3))
-    mask = (rng.random((b, t)) > 0.4).astype(np.int32)
+    q = _np(rng, b, h, tq, d)
+    k, v = (_np(rng, b, h, tk, d) for _ in range(2))
+    mask = (rng.random((b, tk)) > 0.4).astype(np.int32)
     mask[0] = 0                                          # all keys masked
-    mask[1, : rng.integers(1, t)] = 1
+    mask[1, : rng.integers(1, tk)] = 1
     ref = jap.flash_attention_masked(*(jnp.asarray(a) for a in (q, k, v)),
                                      jnp.asarray(mask), interpret=True)
     out = tac.flash_attention_masked(*(torch.from_numpy(a) for a in (q, k, v)),

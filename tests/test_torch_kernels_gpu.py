@@ -468,15 +468,24 @@ def test_flash_autograd_on_card_matches_cpu(cuda):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("b,h,t,d", [(1, 12, 8, 64), (3, 12, 32, 64), (2, 2, 100, 25),
-                                     (1, 12, 512, 64)])
+                                     (1, 12, 512, 64), (3, 2, (9, 40), 25),
+                                     (3, 12, (64, 33), 64), (4, 3, (50, 32), 25),
+                                     (3, 2, (100, 70), 25), (2, 12, (1, 129), 64)])
 def test_flash_masked_kernel_matches_plain(cuda, b, h, t, d):
-    """K8 with ragged masks, a mask with holes and an all-zero row."""
+    """K8 with ragged masks, a mask with holes and an all-zero row (the
+    rewrite inside the kernel); ``t`` is T or (Tq, Tk).  Tq, Tk <= 64 run
+    K6a's unit kernel, longer ones its tiled kernel.  One launch a call; a
+    rerun gives the same bits."""
+    tq, tk = t if isinstance(t, tuple) else (t, t)
     rng = np.random.default_rng(15)
-    q, k, v = (torch.from_numpy(rng.standard_normal((b, h, t, d)).astype(np.float32)).to(cuda)
-               for _ in range(3))
-    mask = np.ones((b, t), np.int32)
+
+    def randn(*shape):
+        return torch.from_numpy(rng.standard_normal(shape).astype(np.float32)).to(cuda)
+
+    q, k, v = randn(b, h, tq, d), randn(b, h, tk, d), randn(b, h, tk, d)
+    mask = np.ones((b, tk), np.int32)
     for i in range(b):
-        mask[i, rng.integers(1, t + 1):] = 0
+        mask[i, rng.integers(1, tk + 1):] = 0
     mask[0] = 0
     if b > 2:
         mask[2, ::3] = 0
@@ -487,6 +496,7 @@ def test_flash_masked_kernel_matches_plain(cuda, b, h, t, d):
     assert attention_cuda.flash_attention_masked.launches == n0 + 1
     ref = attention_cuda.flash_attention_masked_plain(q, k, v, mask)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
+    assert torch.equal(out, attention_cuda.flash_attention_masked(q, k, v, mask))
 
 
 @pytest.mark.gpu
@@ -541,8 +551,14 @@ def _rec_inputs(rng, G, T, N, H, dev):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("G,T,N,H", [(2, 50, 300, 100), (2, 64, 1, 100), (3, 7, 5, 12)])
+@pytest.mark.parametrize("G,T,N,H", [(2, 50, 300, 100), (2, 64, 1, 100), (3, 7, 5, 12),
+                                     (2, 50, 4096, 100), (3, 12, 45, 99), (2, 30, 70, 101),
+                                     (3, 11, 40, 13)])
 def test_gru_recurrence_kernels_match_plain(cuda, G, T, N, H):
+    """K7f on K1f's two recurrence forms: tiled (N=300, 4096; odd H=99, 101
+    with N not a multiple of the block's rows) and small (G*N <= 132: N=1,
+    G=3 with H=12 and odd H=13); K7b held to its plain version and rerun
+    for the same bits."""
     gates, weights, biases, dhs = _rec_inputs(np.random.default_rng(17), G, T, N, H, cuda)
     args = (*gates, *weights, *biases)
     n0 = gru_cuda.gru_recurrence_cuda.launches

@@ -1,17 +1,20 @@
-"""Launch plans of the port's K1f, attention and flash-backward kernels,
-on the CPU.
+"""Launch plans of the port's K1f, K7f, attention (K6a, K2, K8) and
+flash-backward kernels, on the CPU.
 
 The CUDA kernels run only on the card, but their launch plans are computed
-in Python (``ops.bigru_cuda._plan_gru_fwd``, ``ops.bert_attn_cuda.
-_plan_attention``, ``ops.attention_cuda._plan_flash_bwd``) and handed to
-``csrc/bigru.cu`` / ``csrc/bert_attn.cu`` / ``csrc/flash_attn.cu`` as given.
-These tests hold every plan the model's shapes can produce to what an H100
-takes: at most 232,448 bytes of shared memory and 1,024
+in Python (``ops.bigru_cuda._plan_gru_fwd`` and ``_plan_recurrence``,
+``ops.bert_attn_cuda._plan_attention``, ``ops.attention_cuda.
+_plan_flash_bwd``) and handed to ``csrc/bigru.cu`` /
+``csrc/gru_recurrence.cu`` / ``csrc/bert_attn.cu`` / ``csrc/flash_attn.cu``
+as given.  These tests hold every plan the model's shapes can produce to
+what an H100 takes: at most 232,448 bytes of shared memory and 1,024
 threads a block (256 for the tiled GRU recurrence, its launch bound), the
 shared-memory carve-up the kernels make, and the grids the design asks for:
-the B=4096 recurrence in one wave of 132 SMs, persistent attention and
-flash-backward grids no larger than the card holds at once, and the flash
-backward's choice between its fused kernel (Tq, Tk <= 64) and the pair.
+the B=4096 recurrence in one wave of 132 SMs and K7f's G=2 N=4096 in two,
+persistent attention and flash-backward grids no larger than the card holds
+at once, K8's unit path at Tq, Tk <= 64 and tiled path beyond, and the
+flash backward's choice between its fused kernel (Tq, Tk <= 64) and the
+pair.
 """
 
 import pytest
@@ -25,12 +28,13 @@ SMS = 132
 
 
 def _gru_rec_smem(plan, H):
-    """csrc/bigru.cu's carve-up, in bytes: the small form's hs [2][hp]
-    (W_hh^T and the gate values in registers), or the tiled form's W_hh^T
-    [3][H][hp], hT [2][hp][R+4] and gs [2][12][threads] float4s."""
+    """csrc/gru_rec.cuh's carve-up, in bytes: the small form's hs [2][hp]
+    and b_hr, b_hz [2][hp] (W_hh^T and the gate values in registers), or the
+    tiled form's W_hh^T [3][H][hp], hT [2][hp][R+4] and gs [2][12][threads]
+    float4s."""
     hp, R = plan["hp"], plan["rec_rows"]
     if plan["rec_small"]:
-        return 4 * 2 * hp
+        return 4 * 4 * hp
     return 4 * (3 * H * hp + 2 * hp * (R + 4) + 2 * 12 * 4 * plan["rec_threads"])
 
 
@@ -87,6 +91,46 @@ def test_gru_fwd_plan_unaligned_inputs_take_4_byte_copies():
     assert bigru_cuda._plan_gru_fwd(50, 4096, 768, 100)["gemm_wgmma"] == 1
 
 
+@pytest.mark.parametrize("G,N,H", [(2, 4096, 100), (2, 1, 100), (3, 300, 13), (2, 66, 100),
+                                   (2, 67, 100), (1, 5000, 100), (3, 7, 12), (2, 4096, 104)])
+def test_gru_rec_plans_fit_the_card(G, N, H):
+    """K7f's plan (K1f's recurrence over G groups): the small form while G*N
+    fits one block an SM and H <= 104, else the tiled form, whose W_hh^T
+    allows one block an SM, in the fewest waves and the fewest rows that
+    give them."""
+    p = bigru_cuda._plan_recurrence(G, N, H)
+    assert p["rec_smem"] == _gru_rec_smem(p, H) <= MAX_SMEM
+    assert p["rec_blocks"] * p["rec_rows"] >= N > (p["rec_blocks"] - 1) * p["rec_rows"]
+    blocks = G * p["rec_blocks"]
+    if p["rec_small"]:
+        assert G * N <= SMS and H <= 104 and blocks == G * N
+        assert H * p["rec_ks"] <= p["rec_threads"] <= 832
+    else:
+        assert G * N > SMS or H > 104
+        assert p["rec_rows"] % 4 == 0 and p["rec_threads"] <= 256
+        if H >= 100:   # W_hh^T alone leaves room for one block an SM
+            assert p["rec_smem"] + 1024 > SM_SMEM // 2
+        waves = -(-blocks // SMS)
+        if p["rec_rows"] > 4:   # fewer rows would take another wave
+            assert G * -(-N // (p["rec_rows"] - 4)) > waves * SMS
+
+
+def test_gru_rec_plan_at_the_mosei_header_level():
+    """G=2 directions of N=4096 rows, H=100: 32-row blocks, 256 of them,
+    two full waves of the card's 132 SMs (64-row blocks, one wave, need
+    328,000 bytes of shared memory and 400 threads); the serving shape
+    N=1 takes the small form; H > 104 never does."""
+    p = bigru_cuda._plan_recurrence(2, 4096, 100)
+    assert (p["rec_small"], p["rec_rows"], p["rec_blocks"]) == (0, 32, 128)
+    assert 2 * p["rec_blocks"] > SMS and -(-2 * p["rec_blocks"] // SMS) == 2
+    assert p["rec_smem"] == 225600 and p["rec_vec"] == 1
+    assert 4 * (3 * 100 * 100 + 8 * 64 * 100 + 8 * 100) > MAX_SMEM
+    assert bigru_cuda._plan_recurrence(2, 1, 100)["rec_small"] == 1
+    for H in (105, 112, 128):
+        assert bigru_cuda._plan_recurrence(2, 1, H)["rec_small"] == 0
+    assert bigru_cuda._plan_recurrence(2, 4096, 100, aligned=False)["rec_vec"] == 0
+
+
 def test_gru_fwd_plan_refuses_what_shared_memory_cannot_hold():
     with pytest.raises(ValueError, match="shared memory"):
         bigru_cuda._plan_gru_fwd(50, 4096, 768, 200)
@@ -134,6 +178,51 @@ def test_attention_plan_at_the_training_shape():
 def test_attention_plan_refuses_wide_heads():
     with pytest.raises(ValueError, match="head_dim"):
         bert_attn_cuda._plan_attention(1, 8, 6, 129)
+
+
+@pytest.mark.parametrize("D", [8, 25, 64, 128])
+def test_masked_plans_take_the_unit_path_up_to_64(D):
+    """K8 at Tq, Tk <= 64: K6a's unit path over [B, H, T, D] slices
+    (``_plan_attention`` with ``Lk``), a persistent grid resident at once,
+    shared memory within the card's."""
+    for B, H in ((1, 12), (3, 2), (4096, 12)):
+        units = B * H
+        for tq in range(1, 65):
+            for tk in (1, 7, 8, 31, 32, 33, 50, 63, 64):
+                p = bert_attn_cuda._plan_attention(B, tq, H, D, Lk=tk)
+                assert p["path"] == 0
+                assert p["smem"] == _attention_smem(p) <= MAX_SMEM
+                assert p["qrows"] >= tq and p["qrows"] % 8 == 0
+                assert p["krows"] == (32 if tk <= 32 else 64)
+                assert p["vec"] == int(D % 4 == 0)
+                per_sm = -(-p["blocks"] // SMS)
+                assert 1 <= p["blocks"] <= units and per_sm <= 4
+                assert per_sm * (p["smem"] + 1024) <= SM_SMEM
+
+
+def test_masked_plan_at_the_bert_shapes():
+    """The training bucket (B=4096, L=32, 12 heads of 64): K6a's own plan,
+    four blocks an SM; the trunk's D=25 heads take the 4-byte copy form, as
+    do q, k, v that are not 16-byte aligned."""
+    p = bert_attn_cuda._plan_attention(4096, 32, 12, 64, Lk=32)
+    assert p == bert_attn_cuda._plan_attention(4096, 32, 12, 64)
+    assert p["path"] == 0 and p["vec"] == 1 and p["blocks"] == 4 * SMS
+    for tq, tk in ((9, 17), (50, 32), (64, 64)):
+        p = bert_attn_cuda._plan_attention(2, tq, 3, 25, Lk=tk)
+        assert p["path"] == 0 and p["vec"] == 0 and (p["dp"], p["ldk"]) == (28, 28)
+    assert bert_attn_cuda._plan_attention(8, 32, 12, 64, aligned=False, Lk=32)["vec"] == 0
+
+
+@pytest.mark.parametrize("tq,tk", [(65, 65), (64, 65), (65, 64), (1, 512), (512, 512)])
+def test_masked_plan_takes_the_tiled_path_past_64(tq, tk):
+    """Tq or Tk > 64: the tiled path, a block per (unit, 32 queries), over
+    64-key tiles (K6a's L > 64 branch, faster than K5f's kernel at L=512)."""
+    for D in (25, 64):
+        p = bert_attn_cuda._plan_attention(1, tq, 12, D, Lk=tk)
+        assert p["path"] == 1 and p["blocks"] == 12 * -(-tq // 32)
+        assert p["smem"] == _attention_smem(p) <= MAX_SMEM
+    with pytest.raises(ValueError, match="head_dim"):
+        bert_attn_cuda._plan_attention(1, tq, 12, 129, Lk=tk)
 
 
 def _flash_bwd_smem(p):
