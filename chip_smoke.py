@@ -15,7 +15,7 @@ Phases, each fatal on failure:
                 same function (cuDNN's GRU for K1 / K1b, scaled_dot_product_
                 attention for K6a, K5 and K8), of that call; K1b, K5dq,
                 K5dkv and K5b are also run twice to show bit-identical
-                gradients;
+                gradients, K3 to show a bit-identical output;
                 K4's int32 products are checked exact and its flipped hidden
                 codes counted; the int8 GEMM (qdot) exact at M=8 and
                 M=131,072; the flash kernels (K5f, K5dq, K5dkv) at the MOSEI
@@ -31,9 +31,11 @@ Phases, each fatal on failure:
                 blocks, R=4096 train (K9b rerun for the same bits) and R=1
                 eval; K1f and K6a at the edges of their launch plans (rerun
                 for the same bits); then the device split: torch.profiler's
-                device ms by kernel of K1f (projection, recurrence) and K6a
-                at their two timed shapes, and of the flash backward's calls
-                (the delta op, K5dq, K5dkv, K5b) at the MOSEI shapes, beside
+                device ms by kernel of K1f (projection, recurrence), K3
+                (fc1, fc2, LayerNorm), K6a, K8 and K7f at their two timed
+                shapes, of K1b (recurrence, products, sums) at its three
+                training-path shapes, and of the flash backward's calls (the
+                delta op, K5dq, K5dkv, K5b) at the MOSEI shapes, beside
                 their CUDA-event ms;
   4. serving  - StreamingPredictor at the reference's MOSEI serving
                 configuration (d=200, 8x25 heads, layers 3/4/2, 4-layer
@@ -356,13 +358,18 @@ def check_kernels(dev, rng):
         del out, ref
         f_args = (x, w1t, b1, w2t, b2, g, b)
         out = bert_ffn_cuda.ffn_ln_block(*f_args, eps=eps)
+        again = bert_ffn_cuda.ffn_ln_block(*f_args, eps=eps)
         torch.cuda.synchronize()
         ref = bert_ffn_cuda.ffn_ln_block_plain(*f_args, eps=eps)
+        same = torch.equal(out, again)
         record("K3", f"B={B} L={L} h={h} ffn={ffn}", out, ref,
                lambda: bert_ffn_cuda.ffn_ln_block(*f_args, eps=eps),
                lambda: bert_ffn_cuda.ffn_ln_block_plain(*f_args, eps=eps),
-               work=k3_work(B, L, h, ffn) if timed else None, iters=iters)
-        del out, ref, x
+               work=k3_work(B, L, h, ffn) if timed else None, iters=iters,
+               extra={"rerun_bit_identical": same})
+        if not same:
+            failures.append(f"K3 B={B} L={L}: rerun differs")
+        del out, again, ref, x
     rows += check_bert_variants(dev, rng, t, record, failures)
     check_flash(dev, rng, t, record, failures)
     check_k7(dev, rng, t, record, failures)
@@ -466,15 +473,38 @@ def flash_bwd_cases(dev, rng, t, B=4096, heads=8, d=25, rate=0.1):
     return cases
 
 
+def k1b_split_cases(dev, rng, B=4096, T=50, H=100):
+    """K1b at the training path's three shapes (in=768 and 512 without dx,
+    in=200 with it), each alone, for the device split by kernel: the
+    recurrence, the weight products, their sums (and dx).  Only the public
+    ``gru_dir_bwd`` / ``_launch_fwd`` are used, so tools/k1b_split.py runs
+    the same cases against another tree's package."""
+    from multimodal_transformer_robustness_tpu_torch.ops import bigru_cuda
+
+    cases = []
+    for in_dim, need_dx in ((768, False), (512, False), (200, True)):
+        ops = bigru_cuda.dir_operands(gru_weights(rng, in_dim, H, dev))
+        args = (ops["wp"], ops["wt"], ops["bc"], ops["bhn"])
+        x = torch.from_numpy(rng.standard_normal((T, B, in_dim)).astype(np.float32)).to(dev)
+        dhs = torch.from_numpy(rng.standard_normal((T, B, H)).astype(np.float32)).to(dev)
+        hs, gates = bigru_cuda._launch_fwd(x, *args, False)
+        cases.append((f"K1b in={in_dim} H={H} T={T} B={B} fwd need_dx={need_dx}",
+                      lambda x=x, args=args, hs=hs, gates=gates, dhs=dhs, d=need_dx:
+                      bigru_cuda.gru_dir_bwd(x, *args, hs, gates, dhs, False, d), 5))
+    return cases
+
+
 def device_split(dev, rng):
     """K1f's device time split between its kernels (input projection,
-    recurrence) and, for K1f, K6a, K8 and K7f at their two timed shapes and
-    the flash backward's calls (flash_bwd_cases), the device time of a call
-    (torch.profiler) beside its CUDA-event time: the gap is host time the
-    card waits for.  Returns one dict per shape."""
+    recurrence), K1b's (recurrence, products, sums: k1b_split_cases) and
+    K3's (fc1, fc2, LayerNorm) and, for K1f, K3, K6a, K8 and K7f at their
+    two timed shapes, K1b at its three path shapes and the flash backward's
+    calls (flash_bwd_cases), the device time of a call (torch.profiler)
+    beside its CUDA-event time: the gap is host time the card waits for.
+    Returns one dict per shape."""
     from multimodal_transformer_robustness_tpu_torch.ops import attention_cuda as ac
     from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bigru_cuda
-    from multimodal_transformer_robustness_tpu_torch.ops import gru_cuda
+    from multimodal_transformer_robustness_tpu_torch.ops import bert_ffn_cuda, gru_cuda
 
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
@@ -488,6 +518,16 @@ def device_split(dev, rng):
         x = t(rng.standard_normal((T, B, in_dim)))
         cases.append((f"K1f in={in_dim} H={H} T={T} B={B} fwd",
                       lambda x=x: bigru_cuda.gru_dir(x, *args, False), 5 if B > 1 else 20))
+    cases += k1b_split_cases(dev, rng)
+    h, ffn = 768, 3072
+    w1t, w2t = t(rng.standard_normal((h, ffn)) * 0.02), t(rng.standard_normal((ffn, h)) * 0.02)
+    b1, b2 = t(rng.standard_normal(ffn) * 0.02), t(rng.standard_normal(h) * 0.02)
+    g, b = t(1.0 + 0.1 * rng.standard_normal(h)), t(0.1 * rng.standard_normal(h))
+    for B, L in ((1, 8), (4096, 32)):
+        f_args = (t(rng.standard_normal((B, L, h))), w1t, b1, w2t, b2, g, b)
+        cases.append((f"K3 B={B} L={L} h={h} ffn={ffn}",
+                      lambda f_args=f_args: bert_ffn_cuda.ffn_ln_block(*f_args, eps=1e-12),
+                      5 if B > 1 else 20))
     heads, dh = 12, 64
     for B, L in ((1, 8), (4096, 32)):
         q, k, v = (t(rng.standard_normal((B, L, heads, dh))) for _ in range(3))

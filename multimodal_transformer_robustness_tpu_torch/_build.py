@@ -46,8 +46,8 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _SIGNATURES = {
     "mmtr_gru_dir_fwd": (_I, [_P] * 8 + [_I] * 5 + [_P, _P]),
-    "mmtr_gru_dir_bwd": (_I, [_P] * 12 + [_I] * 8 + [_P]),
-    "mmtr_ffn_ln_fwd": (_I, [_P] * 10 + [_I] * 3 + [_F, _P]),
+    "mmtr_gru_dir_bwd": (_I, [_P] * 12 + [_I] * 6 + [_P, _P]),
+    "mmtr_ffn_ln_fwd": (_I, [_P] * 11 + [_I] * 3 + [_F, _P, _P]),
     "mmtr_attn_block_fwd": (_I, [_P] * 16 + [_I] * 4 + [_F, _P, _P]),
     "mmtr_attention_fwd": (_I, [_P] * 5 + [_I] * 4 + [_P, _P]),
     "mmtr_attention_masked_fwd": (_I, [_P] * 5 + [_I] * 5 + [_P, _P]),

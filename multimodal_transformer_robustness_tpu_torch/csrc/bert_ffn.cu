@@ -7,13 +7,26 @@
 // LayerNorm moments are float32, centered, two-pass; no block splits a
 // row's LN reduction (one block owns a whole row).
 //
-// Bound: at BERT-base width (h=768, F=3072) both products are 2*R*h*F FLOPs
-// against 2*h*F weight floats, so at serving rows (R = L <= 512) the kernel
-// reads about as many bytes as it computes FLOPs: it is weight-bandwidth and
-// latency bound, not FLOP bound.  This first form runs three launches:
-// fc1 with the bias+gelu epilogue into an [R, F] scratch, fc2 with the
-// bias+residual epilogue, then the row LayerNorm.  Keeping the [R, F]
-// activation on chip (one fused pass, wgmma) is later work.
+// Bound: at BERT-base width (h=768, F=3072) the two products are 4*R*h*F
+// FLOPs, 1.24 TFLOP at the training rows (R = 131,072): 7.5 ms at the
+// 165 TFLOP/s of float32-accurate (3xTF32) tensor-core products, against
+// ~0.8 GB of x, out and weights, so it is bound by operations; at serving
+// rows (R = L <= 512) it reads about as many weight bytes as it computes
+// FLOPs, and a block's serial k steps and the launches set the time.
+// Both products run on gemm_tc.cuh's 3xTF32 tensor-core GEMM, each by its
+// own plan (ops/bert_ffn_cuda._plan_ffn): fc1 with the bias + gelu epilogue
+// into an [R, F] scratch, fc2 with the bias + residual epilogue into [R, h],
+// then the row LayerNorm; both promote their MMA sums every 8 k tiles
+// (K3_PROMOTE).  Many rows: wgmma over 128 x 128 tiles (both N
+// divide by 128), W1^T's and W2^T's TF32 planes split per call into
+// `scratch` (2 * h * F words, reused by fc2 after fc1; ~57 MB of traffic, a
+// few tens of microseconds beside a call of milliseconds).  Few rows: 64 x 64
+// mma.sync tiles split over K so that the card has blocks to run (fc2's 96
+// k tiles at R = 8: 20 ranges of 5, not 12 blocks walking all 96), the
+// split planes in `scratch`; fc2's planes are then added, in order, by the
+// LayerNorm's own launch (bias, residual, LN: one block a row), which saves
+// a launch at serving.  Keeping the [R, F] activation on chip (one fused
+// pass) is later work.
 //
 // K6b, mmtr_proj_ln_fwd, is the attention epilogue LN(resid + a @ w_t + b)
 // (HF BertSelfOutput) for the frozen BERT's unfused attention paths
@@ -22,27 +35,79 @@
 // resid, a [R, h], w_t [h, h] (= o_proj.weight^T), b, LN g/b [h].  The same
 // two stages as K2's tail: the GEMM with the bias+residual epilogue, then the
 // row LayerNorm.  Bound: 2*R*h^2 FLOPs (1.55e11 at R = 131,072, h = 768:
-// 2.3 ms at the 67 TFLOP/s float32 CUDA-core peak); at serving rows the
-// 2.4 MB weight read and the launch latency.
-#include "common.cuh"
+// 0.94 ms at 165 TFLOP/s); at serving rows the 2.4 MB weight read and the
+// launch latency.  It stays on common.cuh's CUDA-core GEMM.
+#include "gemm_tc.cuh"
 
+namespace {
+
+// K3's products promote their tensor-core sums every 8 k tiles (256 k; see
+// gemm_tc.cuh): fc2's 3072-deep chain otherwise left 6e-5 of the 1e-4
+// allowed (B=4096 L=32, HF-scale weights).
+constexpr int K3_PROMOTE = 8;
+
+// out[row] = LN(resid[row] + (P[0][row] + ... + P[splits-1][row] + bias)):
+// fc2's split-K planes [splits][R][n] added in order, then the row
+// LayerNorm as layernorm_rows_kernel computes it; one block a row, the row
+// staged in shared memory (n floats).
+__global__ void __launch_bounds__(LN_THREADS)
+splitk_resid_ln_kernel(const float* __restrict__ P, const float* __restrict__ bias,
+                       const float* __restrict__ resid, const float* __restrict__ g,
+                       const float* __restrict__ b, float* __restrict__ out, int rows, int n,
+                       int splits, float eps) {
+  extern __shared__ float srow[];
+  __shared__ float red[33];
+  const long long row = blockIdx.x;
+  const long long plane = (long long)rows * n;
+  float sum = 0.f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    float v = 0.f;
+    for (int z = 0; z < splits; ++z) v += P[z * plane + row * n + i];
+    const float s = resid[row * n + i] + (v + bias[i]);
+    srow[i] = s;
+    sum += s;
+  }
+  const float mu = block_sum(sum, red) / (float)n;
+  float sq = 0.f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float d = srow[i] - mu;
+    sq = fmaf(d, d, sq);
+  }
+  const float var = block_sum(sq, red) / (float)n;
+  const float inv = 1.0f / sqrtf(var + eps);
+  float* o = out + row * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    o[i] = ((srow[i] - mu) * inv) * g[i] + b[i];
+}
+
+}  // namespace
+
+// plan: eight host ints from ops/bert_ffn_cuda._plan_ffn, fc1's TcPlan then
+// fc2's.  scratch: the larger of the two plans' needs (the wgmma's TF32
+// planes or the split planes).  resid_sum [R, h] is written unless fc2
+// splits over K on the mma.sync tiles (its LayerNorm then adds the planes).
 extern "C" int mmtr_ffn_ln_fwd(const float* x, const float* w1t, const float* b1,
                                const float* w2t, const float* b2,
                                const float* ln_g, const float* ln_b,
-                               float* hidden, float* resid_sum, float* out,
-                               int rows, int h, int ffn, float eps,
+                               float* hidden, float* resid_sum, float* out, void* scratch,
+                               int rows, int h, int ffn, float eps, const int* plan,
                                void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  launch_gemm<EPI_BIAS_GELU>(x, w1t, b1, nullptr, hidden, rows, ffn, h, 1, 0,
-                             0, 0, 0, stream);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_gemm_tc<EPI_BIAS_GELU, K3_PROMOTE>(
+      tc_plan(plan), x, h, w1t, b1, nullptr, hidden, rows, ffn, h, ffn, scratch, stream);
   if (err != cudaSuccess) return (int)err;
-  launch_gemm<EPI_BIAS_RESIDUAL>(hidden, w2t, b2, x, resid_sum, rows, h, ffn, 1,
-                                 0, 0, 0, 0, stream);
-  err = cudaGetLastError();
+  const TcPlan fc2 = tc_plan(plan + 4);
+  const bool fused = !fc2.wgmma && fc2.splits > 1;
+  err = launch_gemm_tc<EPI_BIAS_RESIDUAL, K3_PROMOTE>(fc2, hidden, ffn, w2t, b2, x, resid_sum,
+                                                      rows, h, ffn, h, scratch, stream, !fused);
   if (err != cudaSuccess) return (int)err;
-  layernorm_rows_kernel<<<rows, LN_THREADS, 0, stream>>>(resid_sum, ln_g, ln_b,
-                                                         out, h, eps);
+  if (fused) {
+    splitk_resid_ln_kernel<<<rows, LN_THREADS, sizeof(float) * h, stream>>>(
+        static_cast<const float*>(scratch), b2, x, ln_g, ln_b, out, rows, h, fc2.splits, eps);
+  } else {
+    layernorm_rows_kernel<<<rows, LN_THREADS, 0, stream>>>(resid_sum, ln_g, ln_b, out, h,
+                                                           eps);
+  }
   return (int)cudaGetLastError();
 }
 

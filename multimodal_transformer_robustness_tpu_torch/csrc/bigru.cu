@@ -32,25 +32,23 @@
 #include "gemm_tc.cuh"
 #include "gru_rec.cuh"
 
-// The launch plan comes from ops/bigru_cuda._plan_gru_fwd, as ten host ints
-// at `plan`: gemm_wgmma (1: the wgmma GEMM, W_ih's TF32 planes in `scratch`,
-// 2 * 3H * in words; 0: 64 x 64 mma.sync tiles), gemm_vec and gemm_splits
-// (the mma.sync tiles' k ranges; > 1: splits * T*B * 3H floats of
-// `scratch`) for the projection; then the recurrence's seven
-// (gru_rec.cuh's launch_gru_rec): rec_small, rec_rows, rec_threads,
+// The launch plan comes from ops/bigru_cuda._plan_gru_fwd, as eleven host
+// ints at `plan`: the projection's four (gemm_tc.cuh's TcPlan: gemm_wgmma,
+// gemm_vec, gemm_splits, gemm_bn; its scratch: W_ih's TF32 planes, 2 * 3H *
+// in words, or splits * T*B * 3H floats of partials), then the recurrence's
+// seven (gru_rec.cuh's launch_gru_rec): rec_small, rec_rows, rec_threads,
 // rec_smem, rec_ks, rec_vec and hp.
 extern "C" int mmtr_gru_dir_fwd(const float* x, const float* wp, const float* wt,
                                 const float* bc, const float* bhn, float* gates,
                                 float* out, void* scratch, int T, int B, int in_dim,
                                 int H, int reverse, const int* plan, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const int gemm_wgmma = plan[0], gemm_vec = plan[1], gemm_splits = plan[2];
-  cudaError_t err = launch_gemm_tc(gemm_wgmma != 0, gemm_vec != 0, gemm_splits, x, wp, bc,
-                                   gates, T * B, 3 * H, in_dim, H, scratch, stream);
+  cudaError_t err = launch_gemm_tc<EPI_BIAS>(tc_plan(plan), x, in_dim, wp, bc, nullptr, gates,
+                                             T * B, 3 * H, in_dim, H, scratch, stream);
   if (err != cudaSuccess) return (int)err;
   const long long plane = (long long)T * B * H;
   const GruRec p{{gates, gates + plane, gates + 2 * plane},
                  {wt, wt + (long long)H * H, wt + 2LL * H * H},
-                 {nullptr, nullptr}, bhn, out, 0, T, B, H, plan[9], reverse};
-  return (int)launch_gru_rec<false>(p, 1, plan + 3, stream);
+                 {nullptr, nullptr}, bhn, out, 0, T, B, H, plan[10], reverse};
+  return (int)launch_gru_rec<false>(p, 1, plan + 4, stream);
 }

@@ -2,8 +2,8 @@
 //   * a tiled float32 GEMM, C = A @ B (+ epilogue), row-major operands,
 //     written with shared-memory tiles and FMA loops (no library GEMM);
 //   * its transposed-A form with split-K, C = A^T @ B over very long K,
-//     and column sums, both writing per-split partials that a second pass
-//     adds in a fixed order (deterministic: no float atomics);
+//     writing per-split partials that a second pass adds in a fixed order
+//     (deterministic: no float atomics);
 //   * a row LayerNorm with float32 centered two-pass moments;
 //   * the logistic sigmoid of the GRU kernels, and the position hash of the
 //     dropout in the flash and trunk-block kernels;
@@ -14,8 +14,8 @@
 // this header gets its own copy and the shared library links cleanly.
 //
 // The GEMM is the first, simple form: 64x64 output tiles, 16-deep k steps,
-// 256 threads with a 4x4 micro-tile each, CUDA-core FMAs.  It leaves the
-// tensor cores (wgmma) and TMA for later work.
+// 256 threads with a 4x4 micro-tile each, CUDA-core FMAs (K2, K6b, K9b);
+// the tensor-core GEMMs are gemm_tc.cuh's.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -186,14 +186,12 @@ void launch_gemm(const float* A, const float* B, const float* bias,
 
 // Transposed-A split-K product: split z of C_part = sum over k in
 // [z*kchunk, min(K, (z+1)*kchunk)) of At(k, m) * B(k, n), written row-major
-// [M, N] at C + z*stride_c.  At(k, m) = A[(k + a_shift)*lda + m], read as
-// zero unless 0 <= k + a_shift < K (so a time-shifted view of a [T*B, H]
-// state tensor needs no copy); B(k, n) = B[k*ldb + n].  Both tile loads
-// walk the contiguous (m or n) axis across threads.
+// [M, N] at C + z*stride_c.  At(k, m) = A[k*lda + m], B(k, n) = B[k*ldb +
+// n].  Both tile loads walk the contiguous (m or n) axis across threads.
 __global__ void __launch_bounds__(GEMM_THREADS)
 gemm_f32_tn_splitk_kernel(const float* __restrict__ A, const float* __restrict__ B,
                           float* __restrict__ C, int M, int N, int K, int lda,
-                          int ldb, int a_shift, int kchunk, long long stride_c) {
+                          int ldb, int kchunk, long long stride_c) {
   __shared__ float As[GEMM_TK][GEMM_TM + 4];
   __shared__ float Bs[GEMM_TK][GEMM_TN];
   const int tid = threadIdx.x;
@@ -212,9 +210,8 @@ gemm_f32_tn_splitk_kernel(const float* __restrict__ A, const float* __restrict__
   for (int k0 = kbeg; k0 < kend; k0 += GEMM_TK) {
     for (int i = tid; i < GEMM_TM * GEMM_TK; i += GEMM_THREADS) {
       const int m = i % GEMM_TM, k = i / GEMM_TM;
-      const int gm = row0 + m, gk = k0 + k, ak = gk + a_shift;
-      As[k][m] = (gm < M && gk < kend && ak >= 0 && ak < K)
-                     ? A[(long long)ak * lda + gm] : 0.f;
+      const int gm = row0 + m, gk = k0 + k;
+      As[k][m] = (gm < M && gk < kend) ? A[(long long)gk * lda + gm] : 0.f;
     }
     for (int i = tid; i < GEMM_TK * GEMM_TN; i += GEMM_THREADS) {
       const int n = i % GEMM_TN, k = i / GEMM_TN;
@@ -250,38 +247,16 @@ gemm_f32_tn_splitk_kernel(const float* __restrict__ A, const float* __restrict__
 }
 
 void launch_gemm_tn_splitk(const float* A, const float* B, float* C, int M,
-                           int N, int K, int lda, int ldb, int a_shift,
+                           int N, int K, int lda, int ldb,
                            int kchunk, int splits, long long stride_c,
                            cudaStream_t stream) {
   const dim3 grid((N + GEMM_TN - 1) / GEMM_TN, (M + GEMM_TM - 1) / GEMM_TM,
                   splits);
   gemm_f32_tn_splitk_kernel<<<grid, GEMM_THREADS, 0, stream>>>(
-      A, B, C, M, N, K, lda, ldb, a_shift, kchunk, stride_c);
+      A, B, C, M, N, K, lda, ldb, kchunk, stride_c);
 }
 
 constexpr int RED_THREADS = 256;
-
-// Split z of the column sums of D [K, N] (row stride ldd): rows
-// [z*kchunk, min(K, (z+1)*kchunk)), summed in order, to P + z*stride_p.
-__global__ void __launch_bounds__(RED_THREADS)
-colsum_splitk_kernel(const float* __restrict__ D, float* __restrict__ P, int K,
-                     int N, int ldd, int kchunk, long long stride_p) {
-  const int col = blockIdx.x * RED_THREADS + threadIdx.x;
-  if (col >= N) return;
-  const int kbeg = blockIdx.y * kchunk;
-  const int kend = min(K, kbeg + kchunk);
-  float s = 0.f;
-  for (int k = kbeg; k < kend; ++k) s += D[(long long)k * ldd + col];
-  P[blockIdx.y * stride_p + col] = s;
-}
-
-void launch_colsum_splitk(const float* D, float* P, int K, int N, int ldd,
-                          int kchunk, int splits, long long stride_p,
-                          cudaStream_t stream) {
-  const dim3 grid((N + RED_THREADS - 1) / RED_THREADS, splits);
-  colsum_splitk_kernel<<<grid, RED_THREADS, 0, stream>>>(D, P, K, N, ldd,
-                                                         kchunk, stride_p);
-}
 
 // The second pass: out[i] = sum over z = 0 .. splits-1 of P[z*n + i], in
 // that order, so a rerun on the same inputs gives the same bits.

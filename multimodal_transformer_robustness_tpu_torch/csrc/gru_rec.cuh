@@ -29,6 +29,12 @@
 //     shuffle reduction adds the slices, so a step's dependent chain is
 //     ~H/(2 KS) FMAs rather than H.
 // BIAS_RZ is a template parameter, so K1's instance carries no bias adds.
+//
+// The backward form (gru_rec_bwd_tiled_kernel, K1b's recurrence in bigru_bwd.cu)
+// walks the steps newest-first with the same tiling ideas: rows per block
+// chosen so that B=4096 runs in one wave, W_hh^T staged once in shared
+// memory, register tiles for both of a step's products, the next step's
+// h_prev copied in by cp.async a step ahead; see its comment.
 #pragma once
 
 #include "common.cuh"
@@ -335,6 +341,246 @@ gru_rec_small_kernel(const GruRec p) {
     for (int gt = 0; gt < 3; ++gt) gx[gt] = gnext[gt];
     __syncthreads();
   }
+}
+
+// ---------------------------------------------------------------------------
+// The backward form: the gradients of G recurrences (K1b: G = 1) walked
+// newest-first.  Per group and step t, for h_prev = h[t-1] (h[t+1] in
+// reverse; zero at the sequence's start) and the carried dh:
+//
+//   gh_g = h_prev W_hg^T (g = r, z, n), recomputed in the forward's order,
+//   so r, z, n come out as the forward's tiled form made them
+//   r = sigmoid(gate_r + gh_r), z = sigmoid(gate_z + gh_z),
+//   n = tanh(gate_n + r * (gh_n + b_hn))
+//   dht = dh_in[t] + dh;  da_n = dht (1 - z) (1 - n^2);  dghn = da_n r
+//   da_r = da_n (gh_n + b_hn) r (1 - r);  da_z = dht (h_prev - n) z (1 - z)
+//   dh <- dht z + [da_r da_z dghn] W_hh      (the carry, a [3H] x [3H, H] product)
+//
+// and writes the row (da_n, da_r, da_z, dghn) of dg [T*B, 4H]: columns
+// 0..3H are the input-side pre-activation gradients (dwp = x^T dg[:, :3H],
+// dx = dg[:, :3H] wp^T in that gate order) and H..4H the recurrent ones
+// (dwt = h_prev^T dg[:, H:], taken from [h_prev | 1]^T dg with the column
+// sums), so each weight reduction reads one contiguous column range.  Thread (rg, jg) owns rows 4rg..4rg+3 and the
+// strided columns jg + js*c (c < 4, js = ceil(H / 4)) of the block's R
+// rows, in the gate math and in both products, so the carried dh stays in
+// its registers from one step to the next.  Both products read W_hh^T from
+// one copy in shared memory, w [3][4js][wp] with an odd row pitch wp:
+// the recompute reads w[g][k][jg + js c] (consecutive jg, consecutive
+// words), the carry w[g][jg + js c][j] (consecutive jg, words wp apart:
+// distinct banks because wp is odd), both free of bank conflicts, one
+// broadcast float4 of the other operand (h_prev or da, stored transposed,
+// four rows of one column) per 12 or 4 words of w.  Shared memory: w, then
+// hT [2][4js][R+4] (h_prev transposed, double-buffered: the next step's
+// rows arrive by 4-byte cp.async while this step computes) and daT
+// [3][4js][R+4] (da_r, da_z, dghn transposed, for the carry).  The gate
+// rows and dh_in come from global memory into registers at the start of a
+// step and are used after the recompute (W_hh^T and these leave no room
+// for a shared-memory copy of them).  Two barriers a step: da complete
+// before the carry reads it, the carry done (and the next h_prev landed)
+// before the next step writes da.  The gate math is the forward's fast
+// gate_sigmoid / gate_tanh, so r, z, n match the forward's tiled form bit
+// for bit.  Group g (blockIdx.y) reads its arrays `group` floats (dg: 4
+// group) past the pointers, its weights g*H*H and b_hn g*H, so a G-group
+// caller (K7b) can take this form with its own gate layout.
+struct GruRecBwd {
+  const float* gate[3];   // input-side pre-activations r, z, n: [T, B, H] a group
+  const float* w[3];      // W_hh^T of r, z, n: [H, H] a group
+  const float* bhn;       // b_hn [H] a group
+  const float* hs;        // the forward's h [T, B, H] a group
+  const float* dhs;       // its cotangent [T, B, H] a group
+  float* dg;              // [T*B, 4H] a group: da_n, da_r, da_z, dghn
+  long long group;
+  int T, B, H, js, wp, reverse;
+};
+
+// hT[j][r] = h[tp][b][j] for this thread's own rows b = b0 + r0 .. + 3 and
+// columns j = jg + js c (zero where tp falls outside [0, T) or b >= B):
+// 4-byte copies, coalesced along j across the warp.
+__device__ __forceinline__ void bwd_stage_h(float* hT, const float* hs, int tp, int T, int B,
+                                            int H, int b0, int r0, int jg, int js, int ldr) {
+  const bool has = tp >= 0 && tp < T;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int b = b0 + r0 + i;
+    const float* row = hs + ((long long)tp * B + b) * H;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = jg + js * c;
+      const bool ok = has && b < B && j < H;
+      cp_async4(hT + j * ldr + r0 + i, ok ? row + j : hs, ok);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(REC_TILED_THREADS)
+gru_rec_bwd_tiled_kernel(const GruRecBwd p, int R) {
+  extern __shared__ float4 rec_smem4[];
+  const int T = p.T, B = p.B, H = p.H, js = p.js, hk = 4 * js, wp = p.wp, ldr = R + 4;
+  float* w = reinterpret_cast<float*>(rec_smem4);   // [3][hk][wp]
+  float* hT = w + 3 * hk * wp;                      // [2][hk][ldr]
+  float* daT = hT + 2 * hk * ldr;                   // [3][hk][ldr]
+  const int tid = threadIdx.x;
+  const int jg = tid % js, rg = tid / js, r0 = 4 * rg;
+  const int b0 = blockIdx.x * R, g = blockIdx.y;
+  const long long goff = (long long)g * p.group;
+  const float* const gate[3] = {p.gate[0] + goff, p.gate[1] + goff, p.gate[2] + goff};
+  const float* const hs = p.hs + goff;
+  const float* const dhs = p.dhs + goff;
+  float* const dg = p.dg + 4 * goff;
+  const int H4 = 4 * H;
+
+  const long long wo = (long long)g * H * H;
+  for (int i = tid; i < 3 * hk * wp; i += blockDim.x) {
+    const int gk = i / wp, j = i - gk * wp;
+    const int gt = gk / hk, k = gk - gt * hk;
+    // a select, not p.w[gt]: a runtime index into the parameter struct
+    // would copy it to local memory
+    const float* src = gt == 0 ? p.w[0] : (gt == 1 ? p.w[1] : p.w[2]);
+    w[i] = k < H && j < H ? src[wo + (long long)k * H + j] : 0.f;
+  }
+  float bn[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const int j = jg + js * c;
+    bn[c] = j < H ? p.bhn[g * H + j] : 0.f;
+  }
+  for (int i = tid; i < 2 * hk * ldr; i += blockDim.x) hT[i] = 0.f;   // rows H.. stay 0
+  __syncthreads();
+  // newest first: the forward direction's last step is t = T-1, the
+  // reverse direction's is t = 0; step t's h_prev is h[t + dt]
+  const int t_first = p.reverse ? 0 : T - 1, dt = p.reverse ? 1 : -1;
+  bwd_stage_h(hT, hs, t_first + dt, T, B, H, b0, r0, jg, js, ldr);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  float dh[4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dh[i][c] = 0.f;
+
+  for (int step = 0; step < T; ++step) {
+    const int t = t_first + dt * step, cur = step & 1;
+    if (step + 1 < T)
+      bwd_stage_h(hT + (cur ^ 1) * hk * ldr, hs, t + 2 * dt, T, B, H, b0, r0, jg, js, ldr);
+    cp_async_commit();
+
+    // this step's gate inputs and incoming dh, used after the recompute
+    float gx[3][4][4], dy[4][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int b = b0 + r0 + i, j = jg + js * c;
+        const bool ok = b < B && j < H;
+        const long long at = ((long long)t * B + b) * H + j;
+#pragma unroll
+        for (int gt = 0; gt < 3; ++gt) gx[gt][i][c] = ok ? gate[gt][at] : 0.f;
+        dy[i][c] = ok ? dhs[at] : 0.f;
+      }
+
+    // the recompute, h_prev W^T, in the forward's k order
+    float acc[3][4][4];
+#pragma unroll
+    for (int gt = 0; gt < 3; ++gt)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) acc[gt][i][c] = 0.f;
+    const float* h = hT + cur * hk * ldr + r0;
+#pragma unroll 2
+    for (int k = 0; k < H; ++k) {
+      const float4 hv = *reinterpret_cast<const float4*>(h + k * ldr);
+      const float hr[4] = {hv.x, hv.y, hv.z, hv.w};
+#pragma unroll
+      for (int gt = 0; gt < 3; ++gt) {
+        const float* wk = w + (gt * hk + k) * wp + jg;
+        float wc[4];
+#pragma unroll
+        for (int c = 0; c < 4; ++c) wc[c] = wk[js * c];
+#pragma unroll
+        for (int i = 0; i < 4; ++i)
+#pragma unroll
+          for (int c = 0; c < 4; ++c) acc[gt][i][c] = fmaf(hr[i], wc[c], acc[gt][i][c]);
+      }
+    }
+
+    // the gate math: dg's row, da for the carry, dht z as the carry's start
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = jg + js * c;
+      const float4 hv = *reinterpret_cast<const float4*>(h + j * ldr);
+      const float hprev[4] = {hv.x, hv.y, hv.z, hv.w};
+      float dar[4], daz[4], dgn[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float r = gate_sigmoid(gx[0][i][c] + acc[0][i][c]);
+        const float z = gate_sigmoid(gx[1][i][c] + acc[1][i][c]);
+        const float ghn = acc[2][i][c] + bn[c];
+        const float n = gate_tanh(gx[2][i][c] + r * ghn);
+        const float dht = dy[i][c] + dh[i][c];
+        const float da_n = dht * (1.0f - z) * (1.0f - n * n);
+        dgn[i] = da_n * r;
+        dar[i] = da_n * ghn * r * (1.0f - r);
+        daz[i] = dht * (hprev[i] - n) * z * (1.0f - z);
+        dh[i][c] = dht * z;
+        const int b = b0 + r0 + i;
+        if (b < B && j < H) {
+          float* o = dg + ((long long)t * B + b) * H4 + j;
+          o[0] = da_n;
+          o[H] = dar[i];
+          o[2 * H] = daz[i];
+          o[3 * H] = dgn[i];
+        }
+      }
+      *reinterpret_cast<float4*>(daT + (0 * hk + j) * ldr + r0) =
+          make_float4(dar[0], dar[1], dar[2], dar[3]);
+      *reinterpret_cast<float4*>(daT + (1 * hk + j) * ldr + r0) =
+          make_float4(daz[0], daz[1], daz[2], daz[3]);
+      *reinterpret_cast<float4*>(daT + (2 * hk + j) * ldr + r0) =
+          make_float4(dgn[0], dgn[1], dgn[2], dgn[3]);
+    }
+    __syncthreads();   // da of every row and column in daT
+
+    // the carry: dh[k] = dht z + sum over (g, j) of da_g[j] W_hg^T[k][j]
+#pragma unroll
+    for (int gt = 0; gt < 3; ++gt) {
+      const float* wk = w + (gt * hk + jg) * wp;
+      const float* da = daT + gt * hk * ldr + r0;
+#pragma unroll 4
+      for (int j = 0; j < H; ++j) {
+        const float4 dv = *reinterpret_cast<const float4*>(da + j * ldr);
+        const float dr[4] = {dv.x, dv.y, dv.z, dv.w};
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const float wv = wk[js * c * wp + j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) dh[i][c] = fmaf(dr[i], wv, dh[i][c]);
+        }
+      }
+    }
+    cp_async_wait<0>();   // this thread's copies of the next h_prev
+    __syncthreads();      // ... everyone's; daT free for the next step
+  }
+}
+
+// Launch the backward form over `groups` groups by the plan's five host
+// ints (ops/bigru_cuda._plan_gru_bwd): rows (a block's, a multiple of 4),
+// threads (rows / 4 * js), smem (bytes), js and wp (already in p).  The grid
+// is (ceil(B / rows), groups).  Returns the launch's cudaError_t.
+cudaError_t launch_gru_rec_bwd_tiled(const GruRecBwd& p, int groups, const int* rec,
+                               cudaStream_t stream) {
+  const int rows = rec[0], threads = rec[1], smem = rec[2];
+  if (rows % 4 != 0 || threads != rows / 4 * p.js || threads > REC_TILED_THREADS ||
+      p.wp % 2 == 0 || p.wp < 4 * p.js || 4 * p.js < p.H)
+    return cudaErrorInvalidValue;
+  static unsigned long long smem_set = 0;
+  const cudaError_t err = allow_smem_once((const void*)gru_rec_bwd_tiled_kernel, &smem_set);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((p.B + rows - 1) / rows, groups);
+  gru_rec_bwd_tiled_kernel<<<grid, threads, smem, stream>>>(p, rows);
+  return cudaGetLastError();
 }
 
 // Launch the recurrence of `groups` groups by the plan's seven host ints

@@ -359,9 +359,9 @@ extern "C" int mmtr_trunk_block_bwd(const float* src, const float* dout, const f
   if (cerr != cudaSuccess) return (int)cerr;
 
   const long long wsize = (long long)E * F1, total = 2 * wsize;
-  launch_gemm_tn_splitk(dp_buf, s_buf, partial, F1, E, R, F1, E, 0, kchunk, splits, total,
+  launch_gemm_tn_splitk(dp_buf, s_buf, partial, F1, E, R, F1, E, kchunk, splits, total,
                         stream);
-  launch_gemm_tn_splitk(dz_buf, ad_buf, partial + wsize, E, F1, R, E, F1, 0, kchunk, splits,
+  launch_gemm_tn_splitk(dz_buf, ad_buf, partial + wsize, E, F1, R, E, F1, kchunk, splits,
                         total, stream);
   cerr = cudaGetLastError();
   if (cerr != cudaSuccess) return (int)cerr;

@@ -18,7 +18,9 @@ tensor and runs its plain PyTorch version on a CPU tensor:
     ``models/bert._qrows`` / ``_qdot``, an XLA int8 dot there);
     :func:`int8_matmul` exposes the raw int32 product to check it exact.
 
-Float weights come pre-transposed (``w_t = weight.T``, made once at load
+K3's two products run on ``csrc/gemm_tc.cuh``'s 3xTF32 tensor-core GEMM by
+the plan :func:`_plan_ffn` computes on the host.  Float weights come
+pre-transposed (``w_t = weight.T``, made once at load
 time).  Quantized weights are ``{"q": int8 [out, in], "s": float32 [out]}``
 dicts as ``models/bert.quantize_bert_params`` makes them, never transposed.
 """
@@ -28,7 +30,10 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+import functools
+
 from .. import _build
+from . import gemm_tc
 from .layernorm import masked_layer_norm
 
 # XLA's float32 erf rational approximation, as the JAX int8 kernel inlines it
@@ -48,31 +53,65 @@ def ffn_ln_block_plain(x, w1t, b1, w2t, b2, ln_g, ln_b, *, eps: float) -> torch.
     return masked_layer_norm(x + y, ln_g, ln_b, eps=eps)
 
 
+def _plan_ffn(rows: int, h: int, ffn: int, num_sms: int = _build.NUM_SMS,
+              aligned: bool = True) -> dict:
+    """K3's launch plan (``csrc/bert_ffn.cu`` takes it as given): for fc1
+    (``[rows, h] x [h, ffn]``) and fc2 (``[rows, ffn] x [ffn, h]``) each,
+    :func:`gemm_tc.plan_product`: the wgmma tiles (128 x 128 at BERT-base
+    width) where they give every SM at least two blocks, else the 64 x 64
+    mma.sync tiles split over K into up to 32 ranges (fc2 at 8 rows: 20
+    ranges of 5 of its 96 k tiles, 240 blocks); both promote their tensor-core
+    sums (``csrc/bert_ffn.cu``'s K3_PROMOTE), so their wgmma tiles are 104 or
+    128 wide (:data:`gemm_tc.PROMOTED_WIDTHS`); 4-byte copies where ``h``
+    or ``ffn`` is not a multiple of 4 or an operand is not ``aligned``.
+    ``fused_ln``: fc2 split on the mma.sync tiles, its planes added by the
+    LayerNorm's launch.  ``scratch``: the floats the larger of the two
+    needs (they run one after the other)."""
+    vec = aligned and h % 4 == 0 and ffn % 4 == 0
+    fc1, fc2 = (gemm_tc.plan_product(m, n, k, vec, num_sms, max_splits=32,
+                                     widths=gemm_tc.PROMOTED_WIDTHS)
+                for m, n, k in ((rows, ffn, h), (rows, h, ffn)))
+    return {"fc1": fc1, "fc2": fc2, "fused_ln": int(not fc2["wgmma"] and fc2["splits"] > 1),
+            "scratch": max(fc1["scratch"], fc2["scratch"])}
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_ffn_plan(rows, h, ffn, num_sms, aligned):
+    """The plan as csrc/bert_ffn.cu reads it: (C int array, its address,
+    the floats of scratch, whether fc2's sum is fused into the LN)."""
+    p = _plan_ffn(rows, h, ffn, num_sms, aligned)
+    ints = _build.host_ints([p[fc][k] for fc in ("fc1", "fc2") for k in gemm_tc.PLAN_KEYS])
+    return ints + (p["scratch"], p["fused_ln"])
+
+
 def ffn_ln_block(x: torch.Tensor, w1t: torch.Tensor, b1: torch.Tensor,
                  w2t: torch.Tensor, b2: torch.Tensor, ln_g: torch.Tensor,
                  ln_b: torch.Tensor, *, eps: float) -> torch.Tensor:
     """``LN(x + (gelu(x @ w1t + b1) @ w2t + b2))`` for ``x [..., h]``,
-    ``w1t [h, F]``, ``w2t [F, h]``."""
+    ``w1t [h, F]``, ``w2t [F, h]``.  W1^T's and W2^T's TF32 planes are made
+    per call (the wgmma path's ``scratch``), so the signature and the plain
+    version stay the frozen weights'."""
     if x.device.type == "cpu":
         return ffn_ln_block_plain(x, w1t, b1, w2t, b2, ln_g, ln_b, eps=eps)
     dev = _build.device_of(x)
     h = x.shape[-1]
     ffn = w1t.shape[-1]
     rows = x.numel() // h
-    _build.require(x, "x", tuple(x.shape), dev)
-    _build.require(w1t, "w1t", (h, ffn), dev)
-    _build.require(b1, "b1", (ffn,), dev)
-    _build.require(w2t, "w2t", (ffn, h), dev)
-    for name, t in (("b2", b2), ("ln_g", ln_g), ("ln_b", ln_b)):
-        _build.require(t, name, (h,), dev)
-    lib = _build.load_library()
-    hidden = torch.empty(rows, ffn, dtype=torch.float32, device=dev)
-    resid_sum = torch.empty(rows, h, dtype=torch.float32, device=dev)
+    _build.require_all(dev, ((x, "x", x.shape), (w1t, "w1t", (h, ffn)), (b1, "b1", (ffn,)),
+                             (w2t, "w2t", (ffn, h)), (b2, "b2", (h,)), (ln_g, "ln_g", (h,)),
+                             (ln_b, "ln_b", (h,))))
+    plan = _cached_ffn_plan(rows, h, ffn, _build.num_sms(dev),
+                            all(t.data_ptr() % 16 == 0 for t in (x, w1t, w2t)))
+    f32 = dict(dtype=torch.float32, device=dev)
+    hidden = torch.empty(rows, ffn, **f32)
+    resid_sum = torch.empty(0 if plan[3] else rows * h, **f32)
+    scratch = torch.empty(plan[2], **f32) if plan[2] else None
     out = torch.empty_like(x)
-    err = lib.mmtr_ffn_ln_fwd(
+    err = _build.load_library().mmtr_ffn_ln_fwd(
         x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
         ln_g.data_ptr(), ln_b.data_ptr(), hidden.data_ptr(), resid_sum.data_ptr(),
-        out.data_ptr(), rows, h, ffn, eps, _build.stream_ptr(dev))
+        out.data_ptr(), scratch.data_ptr() if scratch is not None else 0, rows, h, ffn, eps,
+        plan[1], _build.stream_ptr(dev))
     _build.check(err, "ffn_ln_block kernel")
     ffn_ln_block.launches += 1
     return out

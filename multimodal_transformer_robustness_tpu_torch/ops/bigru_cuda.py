@@ -25,6 +25,7 @@ import functools
 import torch
 
 from .. import _build
+from . import gemm_tc
 
 
 def dir_operands(p: dict) -> dict:
@@ -60,9 +61,6 @@ def gru_dir_plain(x: torch.Tensor, wp: torch.Tensor, wt: torch.Tensor,
     return torch.stack(out)
 
 
-_GEMM_BK, _GEMM_STAGES, _GEMM_LDA = 32, 3, 36  # gemm_tc.cuh's k step, ring, A's padded row
-_WG_BM, _WG_BN, _WG_STAGES = 128, 152, 4      # the wgmma tile and ring
-_SMALL_BM = 64                                # the mma.sync tile's rows
 _TILED_MAX_THREADS, _TILED_RT = 256, 4        # the tiled form's launch bound, rows a thread
 _SMALL_KS, _SMALL_MAXK = 8, 13                # lanes a column, W terms a lane (bigru.cu)
 
@@ -119,7 +117,8 @@ def _plan_gru_fwd(T: int, B: int, in_dim: int, H: int, num_sms: int = _build.NUM
                   aligned: bool = True) -> dict:
     """K1f's launch plan (``csrc/bigru.cu`` takes it as given).
 
-    The projection: the wgmma 3xTF32 GEMM (128 x 152 tiles) where those
+    The projection: :func:`gemm_tc.plan_product` over ``[T*B, in] x [in,
+    3H]``: the wgmma 3xTF32 GEMM (128 x 152 tiles at 3H = 300) where those
     tiles give every SM at least two blocks and the copies can be 16 bytes
     wide (``in`` and ``H`` multiples of 4, the operands ``aligned``), else
     64 x 64 mma.sync tiles (16-byte copies where they can be), split over K
@@ -130,19 +129,14 @@ def _plan_gru_fwd(T: int, B: int, in_dim: int, H: int, num_sms: int = _build.NUM
     scratch the wrapper allocates (aligned): the small form while B <=
     ``num_sms``, else the tiled one (32 rows at B=4096: 128 blocks, one
     wave)."""
-    vec = int(aligned and in_dim % 4 == 0 and H % 4 == 0)
-    wgmma = int(vec and -(-T * B // _WG_BM) * -(-3 * H // _WG_BN) >= 2 * num_sms)
-    splits = 1
-    if not wgmma:
-        tiles = -(-T * B // _SMALL_BM) * -(-3 * H // _SMALL_BM)
-        splits = max(1, min(8, 2 * num_sms // tiles, -(-in_dim // _GEMM_BK) // 3))
-    plan = {"gemm_wgmma": wgmma, "gemm_vec": vec, "gemm_splits": splits,
-            "gemm_smem": (4 * _WG_STAGES * (_WG_BM + 2 * _WG_BN) * _GEMM_BK + 1024 if wgmma
-                          else 4 * _GEMM_STAGES * (_SMALL_BM * _GEMM_LDA + _GEMM_BK * (64 + 8))),
-            "gemm_scratch": (2 * 3 * H * in_dim if wgmma
-                             else splits * T * B * 3 * H if splits > 1 else 0)}
+    vec = aligned and in_dim % 4 == 0 and H % 4 == 0
+    g = gemm_tc.plan_product(T * B, 3 * H, in_dim, vec, num_sms)
+    plan = {f"gemm_{k}": g[k] for k in gemm_tc.PLAN_KEYS + ("smem", "scratch")}
     plan.update(_plan_recurrence(1, B, H, num_sms))
     return plan
+
+
+GEMM_PLAN_KEYS = tuple(f"gemm_{k}" for k in gemm_tc.PLAN_KEYS)
 
 
 @functools.lru_cache(maxsize=None)
@@ -150,8 +144,7 @@ def _cached_plan(T, B, in_dim, H, num_sms, aligned):
     """The plan as csrc/bigru.cu reads it: (C int array, its address, the
     floats of GEMM scratch to allocate)."""
     p = _plan_gru_fwd(T, B, in_dim, H, num_sms, aligned)
-    ints = _build.host_ints([p[k] for k in ("gemm_wgmma", "gemm_vec", "gemm_splits")
-                             + REC_PLAN_KEYS])
+    ints = _build.host_ints([p[k] for k in GEMM_PLAN_KEYS + REC_PLAN_KEYS])
     return ints + (p["gemm_scratch"],)
 
 
@@ -205,6 +198,74 @@ def gru_dir_bwd_plain(x, wp, wt, bc, bhn, hs, gates, dhs, reverse: bool = False,
     return ((grads[0],) if need_dx else (None,)) + tuple(grads[-4:])
 
 
+def _plan_gru_bwd(T: int, B: int, in_dim: int, H: int, need_dx: bool,
+                  num_sms: int = _build.NUM_SMS, aligned: bool = True) -> dict:
+    """K1b's launch plan (``csrc/bigru_bwd.cu`` takes it as given).
+
+    The recurrence (``csrc/gru_rec.cuh``'s backward form): thread tiles of
+    4 rows by 4 strided columns, ``js = ceil(H / 4)`` threads across a row
+    group; W_hh^T in shared memory once, ``[3][4 js][wp]`` with the odd
+    pitch ``wp = 4 js + 1`` that keeps both products' reads free of bank
+    conflicts, beside h_prev ``[2][4 js][rows + 4]`` and da ``[3][4 js][rows
+    + 4]``.  Rows a block: a multiple of 4, as many as shared memory and the
+    kernel's 256 threads allow at most, then the fewest that give the
+    fewest waves of ``ceil(B / rows)`` blocks (B=4096, H=100: 32 rows, 128
+    blocks, one wave; B <= 528: 4 rows).  Raises where W_hh^T and a 4-row
+    tile do not fit a block's 227 KB (H above ~130).
+
+    The products over T*B rows (``gemm_tc.plan_tn``, k ranges that fill one
+    wave): dwp over ``[in, 3H]``, and dwt with the bias sums over ``[H + 1,
+    4H]`` (a row of ones appended to h_prev); ``tn_vec`` takes 16-byte
+    copies (``in`` and ``H`` multiples of 4, ``aligned`` operands).
+    ``partial``: the floats of both products' planes.  dx only when
+    ``need_dx``: :func:`gemm_tc.plan_product` over ``[T*B, 3H] x [3H,
+    in]`` (``dx_*``; all zero without dx)."""
+    js = -(-H // 4)
+    hk = 4 * js
+    wp = hk + 1
+
+    def smem(r):
+        return 4 * (3 * hk * wp + 5 * hk * (r + 4))
+
+    r_max = 0
+    for r in range(_TILED_RT, _TILED_RT * _TILED_MAX_THREADS + 1, _TILED_RT):
+        if smem(r) > _build.MAX_SMEM or (r // _TILED_RT) * js > _TILED_MAX_THREADS:
+            break
+        r_max = r
+    if r_max == 0:
+        raise ValueError(f"gru backward: H={H} leaves no room for a {_TILED_RT}-row tile "
+                         f"in {_build.MAX_SMEM} bytes of shared memory")
+    fewest_blocks = -(-B // r_max)
+    waves = -(-fewest_blocks // num_sms)
+    rows = next(r for r in range(_TILED_RT, r_max + 1, _TILED_RT)
+                if -(-B // r) <= waves * num_sms)
+    plan = {"rows": rows, "threads": rows // _TILED_RT * js, "smem": smem(rows), "js": js,
+            "wp": wp, "blocks": -(-B // rows),
+            "tn_vec": int(aligned and in_dim % 4 == 0 and H % 4 == 0)}
+    dwp = gemm_tc.plan_tn(in_dim, 3 * H, T * B, num_sms)
+    dwt = gemm_tc.plan_tn(H + 1, 4 * H, T * B, num_sms)
+    plan.update(dwp_splits=dwp["splits"], dwp_kps=dwp["kps"], dwt_splits=dwt["splits"],
+                dwt_kps=dwt["kps"], partial=dwp["partial"] + dwt["partial"])
+    dx = (gemm_tc.plan_product(T * B, in_dim, 3 * H, aligned and in_dim % 4 == 0
+                               and H % 4 == 0, num_sms) if need_dx else None)
+    plan.update({f"dx_{k}": dx[k] if dx else 0
+                 for k in gemm_tc.PLAN_KEYS + ("smem", "scratch")})
+    return plan
+
+
+BWD_PLAN_KEYS = ("rows", "threads", "smem", "js", "wp", "tn_vec", "dwp_splits", "dwp_kps",
+                 "dwt_splits", "dwt_kps") + tuple(f"dx_{k}" for k in gemm_tc.PLAN_KEYS)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_bwd_plan(T, B, in_dim, H, need_dx, num_sms, aligned):
+    """The plan as csrc/bigru_bwd.cu reads it: (C int array, its address,
+    the floats of partial planes, the floats of dx's scratch)."""
+    p = _plan_gru_bwd(T, B, in_dim, H, need_dx, num_sms, aligned)
+    ints = _build.host_ints([p[k] for k in BWD_PLAN_KEYS])
+    return ints + (p["partial"], p["dx_scratch"])
+
+
 def gru_dir_bwd(x, wp, wt, bc, bhn, hs, gates, dhs, reverse: bool = False,
                 need_dx: bool = True):
     """Backward of one direction: ``x [T, B, in]``, the forward's ``hs``
@@ -218,41 +279,38 @@ def gru_dir_bwd(x, wp, wt, bc, bhn, hs, gates, dhs, reverse: bool = False,
     h = wt.shape[-1]
     rows = t_len * b
     dhs = dhs.contiguous()
-    _build.require(x, "x", (t_len, b, in_dim), dev)
-    for name, t in (("hs", hs), ("dhs", dhs)):
-        _build.require(t, name, (t_len, b, h), dev)
-    _build.require(gates, "gates", (3, rows, h), dev)
-    _build.require(wt, "wt", (3, h, h), dev)
-    _build.require(bhn, "bhn", (h,), dev)
-    lib = _build.load_library()
-    # split the T*B-row reductions into <= 64 chunks of >= 256 rows
-    kchunk = max(256, -(-rows // 64))
-    kchunk = -(-kchunk // 16) * 16
-    splits = -(-rows // kchunk)
-    total = in_dim * 3 * h + 3 * h * h + 4 * h
+    _build.require_all(dev, ((x, "x", (t_len, b, in_dim)), (hs, "hs", (t_len, b, h)),
+                             (dhs, "dhs", (t_len, b, h)), (gates, "gates", (3, rows, h)),
+                             (wp, "wp", (3, in_dim, h)), (wt, "wt", (3, h, h)),
+                             (bhn, "bhn", (h,))))
+    plan = _cached_bwd_plan(t_len, b, in_dim, h, bool(need_dx), _build.num_sms(dev),
+                            x.data_ptr() % 16 == 0 and hs.data_ptr() % 16 == 0)
     f32 = dict(dtype=torch.float32, device=dev)
-    wpT = wp.transpose(1, 2).reshape(3 * h, in_dim).contiguous()
-    dg = torch.empty(rows, 3 * h, **f32)
-    dghn = torch.empty(rows, h, **f32)
-    partial = torch.empty(splits, total, **f32)
-    red = torch.empty(total, **f32)
+    # dg's gate blocks run n, r, z (then dghn): wp^T's rows in that order
+    # (roll, not a list index, which would upload the index and stall the host)
+    wpT = (wp.roll(1, 0).transpose(1, 2).reshape(3 * h, in_dim).contiguous()
+           if need_dx else None)
+    dg = torch.empty(rows, 4 * h, **f32)
+    partial = torch.empty(plan[2], **f32)
+    n_wp = in_dim * 3 * h
+    red = torch.empty(n_wp + (h + 1) * 4 * h, **f32)
     dx = torch.empty(t_len, b, in_dim, **f32) if need_dx else None
-    err = lib.mmtr_gru_dir_bwd(
+    scratch = torch.empty(plan[3], **f32) if plan[3] else None
+    err = _build.load_library().mmtr_gru_dir_bwd(
         x.data_ptr(), hs.data_ptr(), gates.data_ptr(), dhs.data_ptr(), wt.data_ptr(),
-        bhn.data_ptr(), wpT.data_ptr(), dg.data_ptr(), dghn.data_ptr(),
-        partial.data_ptr(), red.data_ptr(), dx.data_ptr() if need_dx else 0,
-        t_len, b, in_dim, h, int(reverse), int(need_dx), kchunk, splits,
-        _build.stream_ptr(dev))
+        bhn.data_ptr(), wpT.data_ptr() if need_dx else 0, dg.data_ptr(), partial.data_ptr(),
+        red.data_ptr(), dx.data_ptr() if need_dx else 0,
+        scratch.data_ptr() if scratch is not None else 0, t_len, b, in_dim, h, int(reverse),
+        int(need_dx), plan[1], _build.stream_ptr(dev))
     _build.check(err, "gru_dir_bwd kernel")
     gru_dir_bwd.launches += 1
     gru_dir_bwd.launches_no_dx += int(not need_dx)
-    o1 = in_dim * 3 * h
-    o2 = o1 + 2 * h * h
-    o3 = o2 + h * h
-    dwp = red[:o1].view(in_dim, 3, h).permute(1, 0, 2).contiguous()
-    dwt = torch.cat([red[o1:o2].view(h, 2, h), red[o2:o3].view(h, 1, h)], dim=1)
-    dwt = dwt.permute(1, 0, 2).contiguous()
-    return dx, dwp, dwt, red[o3:o3 + 3 * h].view(3, h), red[o3 + 3 * h:]
+    # dwp's column blocks (n, r, z) -> (r, z, n); dwt's rows 0..H-1, blocks
+    # r, z, dghn; its row H: the column sums (n, r, z, dghn)
+    dwp = red[:n_wp].view(in_dim, 3, h).roll(-1, 1).permute(1, 0, 2).contiguous()
+    blk = red[n_wp:].view(h + 1, 4, h)
+    dwt = blk[:h, 1:].permute(1, 0, 2).contiguous()
+    return dx, dwp, dwt, blk[h, :3].roll(-1, 0), blk[h, 3].contiguous()
 
 
 gru_dir_bwd.launches = 0

@@ -142,22 +142,37 @@ def test_attention_block_kernel_matches_plain(cuda, B, L, heads, h):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,h,ffn", [(8, 768, 3072), (300, 768, 3072), (7, 32, 128)])
+@pytest.mark.parametrize("rows,h,ffn", [(8, 768, 3072), (300, 768, 3072), (7, 32, 128),
+                                        (9001, 768, 3072)])
 def test_ffn_ln_kernel_matches_plain(cuda, rows, h, ffn):
+    """K3 across its plan: split-K mma.sync tiles with the LayerNorm adding
+    fc2's planes (8 rows), unsplit mma.sync tiles (300, 7), and both
+    products on the wgmma tiles with a ragged last row tile (9001); a rerun
+    gives the same bits."""
     rng = np.random.default_rng(5)
     x, w1, b1, w2, b2, g, b = ffn_inputs(rng, rows, h, ffn)
     args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
             for a in (x, w1.T, b1, w2.T, b2, g, b)]
+    n0 = bert_ffn_cuda.ffn_ln_block.launches
     out = bert_ffn_cuda.ffn_ln_block(*args, eps=1e-12)
+    again = bert_ffn_cuda.ffn_ln_block(*args, eps=1e-12)
     torch.cuda.synchronize()
+    assert bert_ffn_cuda.ffn_ln_block.launches == n0 + 2
     ref = bert_ffn_cuda.ffn_ln_block_plain(*args, eps=1e-12)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    assert torch.equal(out, again)
 
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("need_dx", [True, False])
-@pytest.mark.parametrize("B,T,I,H", [(1, 8, 768, 100), (67, 50, 200, 100), (3, 5, 7, 12)])
+@pytest.mark.parametrize("B,T,I,H", [(1, 8, 768, 100), (67, 50, 200, 100), (3, 5, 7, 12),
+                                     (4096, 8, 768, 100), (4096, 8, 200, 100),
+                                     (64, 5, 512, 100), (5, 6, 20, 13)])
 def test_gru_dir_bwd_kernel_matches_plain(cuda, B, T, I, H, need_dx):
+    """K1b across its plan: 4-row blocks (B <= 528) and the one-wave 32-row
+    form (B=4096), dx on the mma.sync or the wgmma tiles, 4-byte copies in
+    the reductions (in=7, H=13), both directions; reruns give the same
+    bits."""
     rng = np.random.default_rng(6)
     tp = gru_torch_layout(rng, I, H)
     x = torch.from_numpy(rng.standard_normal((T, B, I)).astype(np.float32)).to(cuda)

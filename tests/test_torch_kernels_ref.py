@@ -75,9 +75,10 @@ def test_attention_block_plain_matches_pallas_interpret(B, L, heads, h):
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
-@pytest.mark.parametrize("rows,h,ffn", [(20, 128, 512), (7, 32, 128)])
+@pytest.mark.parametrize("rows,h,ffn", [(20, 128, 512), (7, 32, 128), (8, 768, 3072)])
 def test_ffn_ln_plain_matches_pallas_interpret(rows, h, ffn):
-    """K3: exact-erf gelu, centered float32 LN moments."""
+    """K3: exact-erf gelu, centered float32 LN moments; the last case at
+    BERT-base width and the serving bucket's 8 rows."""
     rng = np.random.default_rng(2)
     x, w1, b1, w2, b2, g, b = ffn_inputs(rng, rows, h, ffn)
     eps = 1e-12

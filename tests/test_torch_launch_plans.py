@@ -1,16 +1,19 @@
-"""Launch plans of the port's K1f, K7f, attention (K6a, K2, K8) and
-flash-backward kernels, on the CPU.
+"""Launch plans of the port's K1f, K1b, K3, K7f, attention (K6a, K2, K8)
+and flash-backward kernels, on the CPU.
 
 The CUDA kernels run only on the card, but their launch plans are computed
-in Python (``ops.bigru_cuda._plan_gru_fwd`` and ``_plan_recurrence``,
+in Python (``ops.bigru_cuda._plan_gru_fwd``, ``_plan_gru_bwd`` and
+``_plan_recurrence``, ``ops.bert_ffn_cuda._plan_ffn``,
 ``ops.bert_attn_cuda._plan_attention``, ``ops.attention_cuda.
-_plan_flash_bwd``) and handed to ``csrc/bigru.cu`` /
-``csrc/gru_recurrence.cu`` / ``csrc/bert_attn.cu`` / ``csrc/flash_attn.cu``
-as given.  These tests hold every plan the model's shapes can produce to
+_plan_flash_bwd``) and handed to ``csrc/bigru.cu`` / ``csrc/bigru_bwd.cu``
+/ ``csrc/bert_ffn.cu`` / ``csrc/gru_recurrence.cu`` / ``csrc/bert_attn.cu``
+/ ``csrc/flash_attn.cu`` as given.  These tests hold every plan the model's shapes can produce to
 what an H100 takes: at most 232,448 bytes of shared memory and 1,024
 threads a block (256 for the tiled GRU recurrence, its launch bound), the
 shared-memory carve-up the kernels make, and the grids the design asks for:
-the B=4096 recurrence in one wave of 132 SMs and K7f's G=2 N=4096 in two,
+the B=4096 recurrences (K1f's and K1b's) in one wave of 132 SMs and
+K7f's G=2 N=4096 in two, the BERT FFN's products on the wgmma tiles at the
+training rows and split over K at the serving rows,
 persistent attention and flash-backward grids no larger than the card holds
 at once, K8's unit path at Tq, Tk <= 64 and tiled path beyond, and the
 flash backward's choice between its fused kernel (Tq, Tk <= 64) and the
@@ -20,7 +23,8 @@ pair.
 import pytest
 
 from multimodal_transformer_robustness_tpu_torch.ops import (attention_cuda, bert_attn_cuda,
-                                                              bigru_cuda)
+                                                              bert_ffn_cuda, bigru_cuda,
+                                                              gemm_tc)
 
 MAX_SMEM = 232448
 SM_SMEM = 233472   # an SM's shared memory; each resident block reserves 1 KB more
@@ -134,6 +138,136 @@ def test_gru_rec_plan_at_the_mosei_header_level():
 def test_gru_fwd_plan_refuses_what_shared_memory_cannot_hold():
     with pytest.raises(ValueError, match="shared memory"):
         bigru_cuda._plan_gru_fwd(50, 4096, 768, 200)
+
+
+def _check_product(p, M, N, K):
+    """A gemm_tc.cuh product plan: the wgmma tiles (a 4-stage ring of A
+    [128][32] and B's two TF32 planes [bn][32], + 1 KB; B's planes in
+    scratch) only with 16-byte copies and two blocks an SM, else the 64 x
+    64 mma.sync tiles over k ranges of >= 3 tiles of 32, none empty, no
+    more blocks than two an SM; every block within the card's shared
+    memory."""
+    assert p["bn"] in gemm_tc.WG_WIDTHS and p["bn"] % 8 == 0
+    if p["wgmma"]:
+        assert p["vec"] == 1 and p["splits"] == 1
+        assert -(-M // 128) * -(-N // p["bn"]) >= 2 * SMS
+        assert p["smem"] == 4 * 4 * (128 * 32 + 2 * p["bn"] * 32) + 1024 <= MAX_SMEM
+        assert p["scratch"] == 2 * N * K
+    else:
+        assert p["smem"] == 4 * 3 * (64 * 36 + 32 * 72) <= MAX_SMEM
+        ktiles, blocks = -(-K // 32), -(-M // 64) * -(-N // 64)
+        kps = -(-ktiles // p["splits"])
+        assert 1 <= p["splits"] and (p["splits"] - 1) * kps < ktiles   # no empty range
+        assert p["splits"] == 1 or (ktiles // p["splits"] >= 3
+                                    and blocks * p["splits"] <= 2 * SMS)
+        assert p["scratch"] == (p["splits"] * M * N if p["splits"] > 1 else 0)
+
+
+@pytest.mark.parametrize("h,ffn", [(768, 3072), (32, 128), (36, 100), (30, 70), (76, 300)])
+def test_ffn_plans_fit_the_card(h, ffn):
+    for rows in (1, 7, 8, 32, 64, 128, 512, 513, 1000, 4096, 9001, 131072):
+        p = bert_ffn_cuda._plan_ffn(rows, h, ffn)
+        _check_product(p["fc1"], rows, ffn, h)
+        _check_product(p["fc2"], rows, h, ffn)
+        # the promoted wgmma instances exist at 104 and 128 only (152 spills)
+        assert p["fc1"]["bn"] in (104, 128) and p["fc2"]["bn"] in (104, 128)
+        assert p["fc1"]["vec"] == p["fc2"]["vec"] == int(h % 4 == 0 and ffn % 4 == 0)
+        assert p["fused_ln"] == int(not p["fc2"]["wgmma"] and p["fc2"]["splits"] > 1)
+        assert p["scratch"] == max(p["fc1"]["scratch"], p["fc2"]["scratch"])
+
+
+def test_ffn_plan_at_the_bert_shapes():
+    """BERT-base width: at the training rows (B=4096, L=32) both products
+    take the wgmma tiles, 128 wide (no column tile more than half empty:
+    none is empty at all); at the serving rows (B=1, L=8) the mma.sync tiles
+    split over K, fc2's 96 k tiles into 20 ranges of 5 (240 blocks, not
+    12), its planes summed by the LayerNorm's launch."""
+    p = bert_ffn_cuda._plan_ffn(131072, 768, 3072)
+    for fc, n in (("fc1", 3072), ("fc2", 768)):
+        assert p[fc]["wgmma"] == 1 and p[fc]["bn"] == 128
+        assert -(-n // p[fc]["bn"]) * p[fc]["bn"] - n < p[fc]["bn"] // 2
+    assert p["fused_ln"] == 0 and p["scratch"] == 2 * 768 * 3072
+    p = bert_ffn_cuda._plan_ffn(8, 768, 3072)
+    assert p["fc1"]["wgmma"] == p["fc2"]["wgmma"] == 0
+    assert p["fc2"]["splits"] == 20 and p["fc2"]["splits"] * 12 >= SMS
+    assert p["fc1"]["splits"] * 48 >= SMS
+    assert p["fused_ln"] == 1
+    assert bert_ffn_cuda._plan_ffn(9001, 768, 3072)["fc2"]["wgmma"] == 1   # a ragged row tile
+
+
+def test_ffn_plan_unaligned_operands_take_4_byte_copies():
+    for rows in (8, 131072):
+        p = bert_ffn_cuda._plan_ffn(rows, 768, 3072, aligned=False)
+        for fc in ("fc1", "fc2"):
+            assert p[fc]["vec"] == 0 and p[fc]["wgmma"] == 0
+
+
+@pytest.mark.parametrize("n,bn", [(300, 152), (3072, 128), (768, 128), (200, 104), (400, 104)])
+def test_wgmma_width_wastes_less_than_half_a_tile(n, bn):
+    assert gemm_tc.wgmma_width(n) == bn
+    assert -(-n // bn) * bn - n < bn // 2
+
+
+def _gru_bwd_smem(p, H):
+    """csrc/gru_rec.cuh's backward carve-up, in bytes: W_hh^T [3][4 js][wp],
+    h_prev [2][4 js][rows + 4] and da [3][4 js][rows + 4]."""
+    hk = 4 * p["js"]
+    return 4 * (3 * hk * p["wp"] + 5 * hk * (p["rows"] + 4))
+
+
+@pytest.mark.parametrize("in_dim,H", [(768, 100), (512, 100), (200, 100), (7, 12), (20, 13),
+                                      (20, 16)])
+def test_gru_bwd_plans_fit_the_card(in_dim, H):
+    for T in (1, 5, 8, 50):
+        for B in (1, 3, 64, 67, 132, 528, 529, 4095, 4096, 5000):
+            for need_dx in (True, False):
+                p = bigru_cuda._plan_gru_bwd(T, B, in_dim, H, need_dx)
+                # 4 rows by 4 strided columns a thread; an odd W pitch
+                assert p["js"] == -(-H // 4) and p["wp"] % 2 == 1 and p["wp"] >= 4 * p["js"]
+                assert p["rows"] % 4 == 0 and p["threads"] == p["rows"] // 4 * p["js"] <= 256
+                assert p["smem"] == _gru_bwd_smem(p, H) <= MAX_SMEM
+                assert p["blocks"] * p["rows"] >= B > (p["blocks"] - 1) * p["rows"]
+                if p["rows"] > 4:   # fewer rows would take another wave
+                    assert -(-B // (p["rows"] - 4)) > -(-p["blocks"] // SMS) * SMS
+                assert p["tn_vec"] == int(in_dim % 4 == 0 and H % 4 == 0)
+                # the reductions: no empty k range, one wave of two blocks an SM
+                for name, m, n in (("dwp", in_dim, 3 * H), ("dwt", H + 1, 4 * H)):
+                    splits, kps, ktiles = p[f"{name}_splits"], p[f"{name}_kps"], -(-T * B // 32)
+                    assert (splits - 1) * kps < ktiles <= splits * kps
+                    assert splits == 1 or splits * -(-m // 128) * -(-n // 80) <= 2 * SMS
+                assert p["partial"] == (p["dwp_splits"] * in_dim * 3 * H
+                                        + p["dwt_splits"] * (H + 1) * 4 * H)
+                if need_dx:
+                    _check_product({k: p[f"dx_{k}"] for k in ("wgmma", "vec", "splits", "bn",
+                                                              "smem", "scratch")},
+                                   T * B, in_dim, 3 * H)
+                else:
+                    assert all(p[f"dx_{k}"] == 0 for k in ("wgmma", "vec", "splits", "bn",
+                                                          "smem", "scratch"))
+
+
+def test_gru_bwd_plan_at_the_training_shapes():
+    """B=4096 H=100: 32-row blocks, 128 of them, one wave of the card's
+    132 SMs (28-row blocks would need 147); dx only at the header's second
+    level (in=200), on the wgmma tiles 104 wide (two tiles over 200); the
+    small batches take 4-row blocks, one wave."""
+    for in_dim, need_dx in ((768, False), (512, False), (200, True)):
+        p = bigru_cuda._plan_gru_bwd(50, 4096, in_dim, 100, need_dx)
+        assert (p["rows"], p["threads"], p["blocks"], p["js"], p["wp"]) == (32, 200, 128, 25,
+                                                                            101)
+        assert p["smem"] == 193200 and p["tn_vec"] == 1
+        assert p["dx_wgmma"] == int(need_dx) and p["dx_bn"] == (104 if need_dx else 0)
+    for B in (1, 64, 67):
+        p = bigru_cuda._plan_gru_bwd(8, B, 768, 100, True)
+        assert p["rows"] == 4 and p["blocks"] == -(-B // 4) <= SMS
+    assert bigru_cuda._plan_gru_bwd(50, 4096, 768, 100, False, aligned=False)["tn_vec"] == 0
+    # the reductions' plan counts on two of their blocks an SM
+    assert gemm_tc.TN_BLOCKS_PER_SM * (gemm_tc.TN_SMEM + 1024) <= SM_SMEM
+
+
+def test_gru_bwd_plan_refuses_what_shared_memory_cannot_hold():
+    with pytest.raises(ValueError, match="shared memory"):
+        bigru_cuda._plan_gru_bwd(50, 4096, 768, 200, False)
 
 
 def _attention_smem(p):
