@@ -30,10 +30,13 @@ Phases, each fatal on failure:
                 bits; K9f / K9b (the T==1 residual block) at the four MOSEI
                 blocks, R=4096 train (K9b rerun for the same bits) and R=1
                 eval; K1f and K6a at the edges of their launch plans (rerun
-                for the same bits); then the device split: torch.profiler's
-                device ms by kernel of K1f (projection, recurrence), K3
-                (fc1, fc2, LayerNorm), K6a, K8 and K7f at their two timed
-                shapes, of K1b (recurrence, products, sums) at its three
+                for the same bits); K2 rerun for the same bits at every
+                shape and timed also at B=1 L=512; then the device split:
+                torch.profiler's device ms by kernel of K1f (projection,
+                recurrence), K3 (fc1, fc2, LayerNorm), K2 (q/k/v product,
+                attention, o-projection, LayerNorm), K4 (quantize x, GEMM1,
+                quantize g1, GEMM2, LayerNorm), K6a, K8 and K7f at their two
+                timed shapes, of K1b (recurrence, products, sums) at its three
                 training-path shapes, and of the flash backward's calls (the
                 delta op, K5dq, K5dkv, K5b) at the MOSEI shapes, beside
                 their CUDA-event ms;
@@ -333,6 +336,9 @@ def check_kernels(dev, rng):
     h, ffn, heads, eps = 768, 3072, 12, 1e-12
     aw = [t(rng.standard_normal((h, h)) * 0.02) for _ in range(4)]
     ab = [t(rng.standard_normal(h) * 0.02) for _ in range(4)]
+    # q/k/v as views of one stacked weight and bias, as models/bert.prepare_bert
+    # lays them out for K2's one q/k/v product
+    aw[:3], ab[:3] = torch.stack(aw[:3]).unbind(0), torch.cat(ab[:3]).split(h)
     w1t, w2t = t(rng.standard_normal((h, ffn)) * 0.02), t(rng.standard_normal((ffn, h)) * 0.02)
     b1, b2 = t(rng.standard_normal(ffn) * 0.02), t(rng.standard_normal(h) * 0.02)
     g, b = t(1.0 + 0.1 * rng.standard_normal(h)), t(0.1 * rng.standard_normal(h))
@@ -349,13 +355,19 @@ def check_kernels(dev, rng):
         iters = 5 if B == 4096 else 20
         a_args = (x, mask, aw[0], ab[0], aw[1], ab[1], aw[2], ab[2], aw[3], ab[3], g, b)
         out = bert_attn_cuda.attention_block_fused(*a_args, n_heads=heads, eps=eps)
+        again = bert_attn_cuda.attention_block_fused(*a_args, n_heads=heads, eps=eps)
         torch.cuda.synchronize()
         ref = bert_attn_cuda.attention_block_plain(*a_args, n_heads=heads, eps=eps)
+        same = torch.equal(out, again)
+        # K2 is also timed at the longest text bucket, B=1 L=512
         record("K2", f"B={B} L={L} h={h}", out, ref,
                lambda: bert_attn_cuda.attention_block_fused(*a_args, n_heads=heads, eps=eps),
                lambda: bert_attn_cuda.attention_block_plain(*a_args, n_heads=heads, eps=eps),
-               work=k2_work(B, L, h) if timed else None, iters=iters)
-        del out, ref
+               work=k2_work(B, L, h) if timed or (B, L) == (1, 512) else None, iters=iters,
+               extra={"rerun_bit_identical": same})
+        if not same:
+            failures.append(f"K2 B={B} L={L}: rerun differs")
+        del out, again, ref
         f_args = (x, w1t, b1, w2t, b2, g, b)
         out = bert_ffn_cuda.ffn_ln_block(*f_args, eps=eps)
         again = bert_ffn_cuda.ffn_ln_block(*f_args, eps=eps)
@@ -494,13 +506,50 @@ def k1b_split_cases(dev, rng, B=4096, T=50, H=100):
     return cases
 
 
+def bert_split_cases(dev, rng, h=768, ffn=3072, heads=12):
+    """K2 and K4 at B=1 L=8, B=1 L=512 (the longest text bucket) and B=4096
+    L=32, BERT-base width, HF-scale weights (K2's q/k/v stacked as
+    prepare_bert makes them), for the device
+    split by kernel: K2's q/k/v product, attention, o-projection and LN,
+    K4's quantize of x, GEMM1, quantize of g1, GEMM2 and LN.  Only the
+    public wrappers are called, so tools/tree_probe.py runs the same cases
+    against another tree's package."""
+    from multimodal_transformer_robustness_tpu_torch.models.bert import _quantize
+    from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bert_ffn_cuda
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+
+    wqkv, bqkv = t(rng.standard_normal((3, h, h)) * 0.02), t(rng.standard_normal(3 * h) * 0.02)
+    wo, bo = t(rng.standard_normal((h, h)) * 0.02), t(rng.standard_normal(h) * 0.02)
+    g, b = t(1.0 + 0.1 * rng.standard_normal(h)), t(0.1 * rng.standard_normal(h))
+    w1q, w2q = (_quantize(t(rng.standard_normal(s) * 0.02)) for s in ((ffn, h), (h, ffn)))
+    b1, b2 = t(rng.standard_normal(ffn) * 0.02), t(rng.standard_normal(h) * 0.02)
+    cases = []
+    for B, L in ((1, 8), (1, 512), (4096, 32)):
+        x = t(rng.standard_normal((B, L, h)))
+        mask = np.zeros((B, L), np.float32)
+        for i in range(1, B):
+            mask[i, : rng.integers(1, L + 1)] = 1.0
+        a_args = (x, t(mask), wqkv[0], bqkv[:h], wqkv[1], bqkv[h:2 * h], wqkv[2],
+                  bqkv[2 * h:], wo, bo, g, b)
+        k_args = (x, w1q, b1, w2q, b2, g, b)
+        it = 5 if B > 1 else 20
+        cases += [(f"K2 B={B} L={L} h={h}", lambda a_args=a_args: bert_attn_cuda
+                   .attention_block_fused(*a_args, n_heads=heads, eps=1e-12), it),
+                  (f"K4 B={B} L={L} h={h} ffn={ffn}", lambda k_args=k_args: bert_ffn_cuda
+                   .ffn_ln_block_q(*k_args, eps=1e-12), it)]
+    return cases
+
+
 def device_split(dev, rng):
     """K1f's device time split between its kernels (input projection,
-    recurrence), K1b's (recurrence, products, sums: k1b_split_cases) and
-    K3's (fc1, fc2, LayerNorm) and, for K1f, K3, K6a, K8 and K7f at their
-    two timed shapes, K1b at its three path shapes and the flash backward's
-    calls (flash_bwd_cases), the device time of a call (torch.profiler)
-    beside its CUDA-event time: the gap is host time the card waits for.
+    recurrence), K1b's (recurrence, products, sums: k1b_split_cases), K3's
+    (fc1, fc2, LayerNorm), K2's and K4's (bert_split_cases, also at B=1
+    L=512) and, for K1f, K3, K6a, K8, K7f, K2 and K4 at their timed
+    shapes, K1b at its three path shapes and the flash backward's calls
+    (flash_bwd_cases), the device time of a call (torch.profiler) beside
+    its CUDA-event time: the gap is host time the card waits for.
     Returns one dict per shape."""
     from multimodal_transformer_robustness_tpu_torch.ops import attention_cuda as ac
     from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bigru_cuda
@@ -550,6 +599,7 @@ def device_split(dev, rng):
         cases.append((f"K7f G={G} T={T} N={N} H={H}",
                       lambda rec=rec: gru_cuda.gru_recurrence_cuda(*rec), 5 if N > 1 else 20))
     cases += flash_bwd_cases(dev, rng, t)
+    cases += bert_split_cases(dev, rng)
     for name, fn, iters in cases:
         per = profile_ms(fn, iters)
         event = cuda_ms(fn, iters)
@@ -1784,7 +1834,8 @@ def serving_flash(dev, n=2):
     """StreamingPredictor(attn_impl="flash") at the MOSEI serving
     configuration: every trunk stack is T==1, so the flash option takes the
     T==1 rule and launches no K5f; K1 12, K2 4, K3 4 per request, and the
-    same predictions, bit for bit, as attn_impl="xla" on the same weights."""
+    same predictions, bit for bit, as attn_impl="xla" on the same weights;
+    then warm ms a request."""
     from multimodal_transformer_robustness_tpu_torch.cli.realtime import StreamingPredictor
 
     preds = {impl: StreamingPredictor(seed=0, device=dev, attn_impl=impl)
@@ -1799,6 +1850,8 @@ def serving_flash(dev, n=2):
           f"(bit-identical {got == ref}); launches {launches} expected {expected}", flush=True)
     if launches != expected or got != ref or not all(np.isfinite(got)):
         raise RuntimeError("serving-flash: launch counts or predictions differ")
+    warm_ms = [1000 * _timed(lambda r=r: preds["flash"].forward(*r)) for r in requests]
+    print(f"serving-flash warm request ms, kernels {warm_ms}", flush=True)
     return launches
 
 

@@ -30,14 +30,24 @@
 // H100's 1,979 TOP/s int8 tensor-core peak, against ~0.8 GB of float32
 // activations in and out (0.24 ms at 3.35 TB/s): operations bound.  At
 // serving rows (R = 8..512) the 4.7 MB of int8 weights and the launch
-// latency bound it.  This first form runs the products on the int8 tensor
-// cores with mma.sync.m16n8k32 (no wgmma, no TMA, no pipelining): 64x64
-// output tiles, 64-byte k steps from shared memory, four warps of 32x32.
+// latency bound it.
+// Each product takes its plan's tiles (ops/bert_ffn_cuda._plan_ffn_q): where
+// the rows fill the card, a persistent, warp-specialized kernel of
+// wgmma.mma_async m64n128k32 s32.s8.s8 over 128 x 128 tiles, both operands
+// read K-major from shared memory, the layout xq, the hidden codes and the
+// [out, in] weights already have, the epilogue overlapping the MMAs (below);
+// for few rows the 64 x 64 mma.sync.m16n8k32 tiles (64-byte k steps, four
+// warps of 32 x 32).
 // The per-row scale of g1 needs the max over a whole F-wide row before any
 // of it is quantized, so the block runs in five launches: quantize x; GEMM1
-// with the dequant + bias + gelu epilogue into an [R, F] float32 scratch;
-// quantize g1; GEMM2 with the dequant + bias + residual epilogue; the row
-// LayerNorm.  Keeping g1 on chip is later work.
+// with the dequant + bias epilogue into an [R, F] float32 scratch (h1);
+// gelu and quantize h1 (g1 = gelu(h1) kept in registers between the row's
+// max and its codes, never written: the gelu's ~60 instructions an output
+// run in a streaming pass at full occupancy rather than in the GEMM's
+// epilogue); GEMM2 with the dequant + bias + residual epilogue; the row
+// LayerNorm.  The hidden round trip is h1 written and read once (1.61 GB
+// each at the training rows) and its codes written and read once (0.40 GB
+// each).  Keeping h1 on chip is later work.
 //
 // The same source exports the int8 GEMM with the dequant + bias epilogue as
 // mmtr_qdot (the int8 q/k/v/o projections of a fully quantized BERT, XLA's
@@ -45,40 +55,12 @@
 // check exactness on the card), and the row quantization as mmtr_qrows.
 #include <stdint.h>
 
-#include "common.cuh"
+#include "gemm_tc.cuh"
 
 namespace {
 
 constexpr int Q_THREADS = 256;
-
-// One block per row: sx = max(max|x|, 1e-8) / 127, q = clamp(rint(x / sx)).
-__global__ void __launch_bounds__(Q_THREADS)
-qrows_kernel(const float* __restrict__ X, int8_t* __restrict__ Q,
-             float* __restrict__ S, int n) {
-  __shared__ float red[Q_THREADS / 32];
-  __shared__ float row_max;
-  const long long row = blockIdx.x;
-  const float* x = X + row * n;
-  int8_t* q = Q + row * n;
-  float m = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) m = fmaxf(m, fabsf(x[i]));
-  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  if (lane == 0) red[warp] = m;
-  __syncthreads();
-  if (warp == 0) {
-    m = lane < Q_THREADS / 32 ? red[lane] : 0.f;
-    for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-    if (lane == 0) row_max = m;
-  }
-  __syncthreads();
-  const float sx = __fdiv_rn(fmaxf(row_max, (float)1e-8), 127.0f);
-  if (threadIdx.x == 0) S[row] = sx;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float v = fminf(fmaxf(rintf(__fdiv_rn(x[i], sx)), -127.f), 127.f);
-    q[i] = (int8_t)v;
-  }
-}
+constexpr int Q_VECS = 4;   // float4s of a row a thread keeps in registers
 
 // XLA's float32 erf rational approximation (the JAX kernel's _ERF_P/_ERF_Q):
 // erf(w) = w * P(w^2) / Q(w^2), w clamped to [-4, 4]; gelu(v) = v/2 (1+erf).
@@ -101,6 +83,106 @@ __device__ __forceinline__ float gelu_erf_poly(float v) {
   return __fmul_rn(__fmul_rn(v, 0.5f), __fadd_rn(1.0f, erf));
 }
 
+// Row quantization: v = x (GELU: gelu_erf_poly(x), K4's g1 from GEMM1's
+// dequantized sums h1), sx = max(max|v|, 1e-8) / 127, q = clamp(rint(v /
+// sx)), TPR threads a row (64, four rows a block, or Q_THREADS).  The row's
+// v stay in registers between the max and the codes (Q_VECS float4s a
+// thread; a longer row's tail is recomputed), so x is read once and g1 is
+// never written; 16-byte loads and 4-byte stores where n is a multiple of 4
+// and X, Q aligned.  The max is exact in any order, so the codes do not
+// depend on the path.
+template <bool GELU>
+__device__ __forceinline__ float q_value(float v) {
+  return GELU ? gelu_erf_poly(v) : v;
+}
+
+template <bool GELU>
+__device__ __forceinline__ float4 q_value4(float4 v) {
+  return make_float4(q_value<GELU>(v.x), q_value<GELU>(v.y), q_value<GELU>(v.z),
+                     q_value<GELU>(v.w));
+}
+
+__device__ __forceinline__ float q_max4(float m, float4 v) {
+  return fmaxf(fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y))), fmaxf(fabsf(v.z), fabsf(v.w)));
+}
+
+__device__ __forceinline__ int q_code(float v, float sx) {
+  return (int)fminf(fmaxf(rintf(__fdiv_rn(v, sx)), -127.f), 127.f);
+}
+
+// Four codes in one word, the lower k in the lower byte.
+__device__ __forceinline__ int q_code4(float4 v, float sx) {
+  return (q_code(v.x, sx) & 0xff) | (q_code(v.y, sx) & 0xff) << 8 |
+         (q_code(v.z, sx) & 0xff) << 16 | (int)((unsigned)q_code(v.w, sx) << 24);
+}
+
+template <bool GELU, int TPR>
+__global__ void __launch_bounds__(Q_THREADS)
+qrows_kernel(const float* __restrict__ X, int8_t* __restrict__ Q, float* __restrict__ S,
+             int rows, int n) {
+  __shared__ float red[Q_THREADS / 32];
+  const int lt = threadIdx.x % TPR;   // this thread's place in its row
+  const long long row = (long long)blockIdx.x * (Q_THREADS / TPR) + threadIdx.x / TPR;
+  const bool live = TPR == Q_THREADS || row < rows;   // a block a row: the grid has rows
+  const float* x = X + (live ? row : 0) * n;
+  int8_t* q = Q + (live ? row : 0) * n;
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(X) % 16 == 0 &&
+                   reinterpret_cast<uintptr_t>(Q) % 4 == 0;
+  const float4* x4 = reinterpret_cast<const float4*>(x);
+  const int n4 = vec && live ? n / 4 : 0;
+  float4 keep[Q_VECS];
+#pragma unroll
+  for (int j = 0; j < Q_VECS; ++j) {
+    const int i = lt + j * TPR;
+    keep[j] = i < n4 ? q_value4<GELU>(x4[i]) : make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  float m = 0.f;
+#pragma unroll
+  for (int j = 0; j < Q_VECS; ++j) m = q_max4(m, keep[j]);
+  for (int i = lt + Q_VECS * TPR; i < n4; i += TPR) m = q_max4(m, q_value4<GELU>(x4[i]));
+  if (!vec && live)
+    for (int i = lt; i < n; i += TPR) m = fmaxf(m, fabsf(q_value<GELU>(x[i])));
+  for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+  const int warp = threadIdx.x / 32;
+  if (threadIdx.x % 32 == 0) red[warp] = m;
+  __syncthreads();
+  const int w0 = warp - lt / 32;   // the row's first warp
+#pragma unroll
+  for (int w = 0; w < TPR / 32; ++w) m = fmaxf(m, red[w0 + w]);
+  if (!live) return;
+  const float sx = __fdiv_rn(fmaxf(m, (float)1e-8), 127.0f);
+  if (lt == 0) S[row] = sx;
+  int* q4 = reinterpret_cast<int*>(q);
+#pragma unroll
+  for (int j = 0; j < Q_VECS; ++j) {
+    const int i = lt + j * TPR;
+    if (i < n4) q4[i] = q_code4(keep[j], sx);
+  }
+  for (int i = lt + Q_VECS * TPR; i < n4; i += TPR) q4[i] = q_code4(q_value4<GELU>(x4[i]), sx);
+  if (!vec)
+    for (int i = lt; i < n; i += TPR) q[i] = (int8_t)q_code(q_value<GELU>(x[i]), sx);
+}
+
+// Rows of up to 4 * Q_VECS * 64 = 1,024 (x at BERT-base width) share a
+// block four to one; longer ones (the hidden 3,072) take a block each.
+template <bool GELU>
+void launch_qrows_t(const float* x, int8_t* xq, float* sx, int rows, int n,
+                    cudaStream_t stream) {
+  if (n <= 4 * Q_VECS * 64)
+    qrows_kernel<GELU, 64><<<(rows + 3) / 4, Q_THREADS, 0, stream>>>(x, xq, sx, rows, n);
+  else
+    qrows_kernel<GELU, Q_THREADS><<<rows, Q_THREADS, 0, stream>>>(x, xq, sx, rows, n);
+}
+
+cudaError_t launch_qrows(const float* x, int8_t* xq, float* sx, int rows, int n, bool gelu,
+                         cudaStream_t stream) {
+  if (gelu)
+    launch_qrows_t<true>(x, xq, sx, rows, n, stream);
+  else
+    launch_qrows_t<false>(x, xq, sx, rows, n, stream);
+  return cudaGetLastError();
+}
+
 constexpr int QG_BM = 64;
 constexpr int QG_BN = 64;
 constexpr int QG_BK = 64;            // bytes of k per shared-memory tile
@@ -110,9 +192,19 @@ constexpr int QG_THREADS = 128;      // four warps, 2 x 2, each 32 x 32 outputs
 enum QEpilogue {
   QEPI_I32 = 0,           // Ci = A @ B^T (int32)
   QEPI_BIAS = 1,          // C = float(A @ B^T) * sa * sb + bias
-  QEPI_BIAS_GELU = 2,     // C = gelu(float(A @ B^T) * sa * sb + bias)
-  QEPI_BIAS_RESIDUAL = 3, // C = resid + (float(A @ B^T) * sa * sb + bias)
+  QEPI_BIAS_RESIDUAL = 2, // C = resid + (float(A @ B^T) * sa * sb + bias)
 };
+
+// Output o = (r, c) of a product from its exact int32 sum v, the row's
+// scale sa_r and the column's scale and bias: float(v) * sa_r * sb_c +
+// bias_c (then resid[o] + it), each operation rounded on its own, in the
+// plain version's order.
+template <int EPI>
+__device__ __forceinline__ float q_epilogue(int v, float sa_r, float sb_c, float bias_c,
+                                            const float* __restrict__ resid, long long o) {
+  const float f = __fadd_rn(__fmul_rn(__fmul_rn((float)v, sa_r), sb_c), bias_c);
+  return EPI == QEPI_BIAS_RESIDUAL ? __fadd_rn(resid[o], f) : f;
+}
 
 // D += A (16x32, row) * B (32x8, col), int8 in, int32 accumulators.
 __device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
@@ -210,21 +302,17 @@ qgemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B, int M,
         if (r >= M || c >= N) continue;
         const long long o = (long long)r * N + c;
         const int v = acc[mi][ni][j];
-        if (EPI == QEPI_I32) {
+        if (EPI == QEPI_I32)
           Ci[o] = v;
-        } else {
-          float f = __fadd_rn(__fmul_rn(__fmul_rn((float)v, sa[r]), sb[c]), bias[c]);
-          if (EPI == QEPI_BIAS_GELU) f = gelu_erf_poly(f);
-          if (EPI == QEPI_BIAS_RESIDUAL) f = __fadd_rn(resid[o], f);
-          C[o] = f;
-        }
+        else
+          C[o] = q_epilogue<EPI>(v, sa[r], sb[c], bias[c], resid, o);
       }
 }
 
 template <int EPI>
-cudaError_t launch_qgemm(const int8_t* A, const int8_t* B, int M, int N, int K,
-                         const float* sa, const float* sb, const float* bias,
-                         const float* resid, float* C, int* Ci, cudaStream_t stream) {
+cudaError_t launch_qgemm_sync(const int8_t* A, const int8_t* B, int M, int N, int K,
+                              const float* sa, const float* sb, const float* bias,
+                              const float* resid, float* C, int* Ci, cudaStream_t stream) {
   const bool vec_ok = K % 16 == 0 && (reinterpret_cast<uintptr_t>(A) % 16) == 0 &&
                       (reinterpret_cast<uintptr_t>(B) % 16) == 0;
   const dim3 grid((N + QG_BN - 1) / QG_BN, (M + QG_BM - 1) / QG_BM);
@@ -233,44 +321,315 @@ cudaError_t launch_qgemm(const int8_t* A, const int8_t* B, int M, int N, int K,
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// Many rows: warpgroup MMA.  wgmma.mma_async m64n128k32 s32.s8.s8 reads both
+// operands from shared memory K-major (for 8-bit types the only layout it
+// takes), which is how A [M, K] (xq, the hidden codes) and B [N, K] (the
+// [out, in] weights) lie in memory: nothing is transposed.
+//
+// On an H100 the products alone run about as fast as cuBLAS's int8 GEMM
+// (tools/k4_trials.py times both), and an epilogue that follows the MMAs in
+// the same warps cost as much again: GEMM2's residual stream, and GEMM1's
+// gelu, ~60 float32 instructions an output at 402M outputs.  So the gelu
+// moved to the quantize pass (qrows_kernel), and the kernel is persistent
+// (one block an SM walks 128 x 128 output tiles, the column tiles of a row
+// tile together) and warp-specialized:
+//   * two MMA warpgroups, 64 rows x 128 columns each, feed a 4-stage ring of
+//     128-byte k tiles (four k32 steps) by 16-byte cp.async two tiles ahead,
+//     in 128-byte-swizzled rows (16-byte chunk c of row r at c ^ (r % 8),
+//     1024-byte atoms: gemm_tc.cuh's TF32 stages' byte geometry, so its
+//     descriptor), one named barrier a k tile, a batch in flight while the
+//     next tile's copies go out; at a tile's end they hand the int32 sums
+//     to shared memory (Cs) and start the next tile;
+//   * two epilogue warpgroups take Cs row by row (a warp a row, four
+//     columns a lane: 16-byte loads of the residual and stores of C) while
+//     the MMAs of the next tile run.
+// Cs is handed over by two named barriers (full / empty).  The accumulator
+// reset and the handoff sit outside the k loop: a branch in it that reads
+// the sums made ptxas serialize the wgmmas (its C7518 note).  A thread holds
+// at most 64 int32 sums; int32 sums of int8 products are exact in any order,
+// so nothing is promoted and the sums equal the mma.sync tiles' and the
+// plain version's.
+constexpr int QW_BM = 128;                                // rows of a tile
+constexpr int QW_BN = 128;                                // columns of a tile
+constexpr int QW_BK = 128;                                // k bytes of a tile
+constexpr int QW_STAGES = 4;
+constexpr int QW_MMA_THREADS = 256;                       // two MMA warpgroups
+constexpr int QW_THREADS = 512;                           // + two epilogue warpgroups
+constexpr int QW_TILE = QW_BM * QW_BK;                    // bytes of one A or B stage
+constexpr int QW_LDC = QW_BN + 8;                         // Cs row, int32 words
+constexpr int QW_SMEM = QW_STAGES * 2 * QW_TILE + 4 * QW_BM * QW_LDC + 1024;  // + atoms
+static_assert(QW_BM == QW_BN && QW_SMEM <= MAX_SMEM_BYTES, "wgmma tile");
+
+// Named barriers (0 is __syncthreads, which this kernel never uses): the
+// MMA warpgroups' ring, and Cs empty / full between them and the epilogue.
+constexpr int QW_BAR_RING = 1, QW_BAR_EMPTY = 2, QW_BAR_FULL = 3;
+
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// D [64 x 128] += A [64 x 32] x B [32 x 128], both by descriptor, int8 in,
+// int32 accumulate; the warpgroup's 128 threads issue it together.
+__device__ __forceinline__ void wgmma_s8_n128(int (&d)[64], uint64_t desc_a,
+                                              uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63 "
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(1));
+}
+
+// Keep the compiler from moving accumulator reads or writes across a batch
+// in flight (gemm_tc.cuh's wgmma_fence_acc for int32 sums).
+__device__ __forceinline__ void wgmma_fence_acc_s32(int (&acc)[64]) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+r"(acc[i])::"memory");
+}
+
+// One stage, by the MMA warpgroups: rows [row0, +128) of A and [col0, +128)
+// of B at k bytes [k0, +128), swizzled; rows past M or N and k past K read
+// as zero.  K a multiple of 16, A and B 16-byte aligned.
+__device__ __forceinline__ void qw_load(int8_t* as, int8_t* bs, const int8_t* A,
+                                        const int8_t* B, int M, int N, int K, int row0,
+                                        int col0, int k0) {
+  constexpr int CHUNKS = QW_BM * (QW_BK / 16);            // 16-byte copies an operand
+  for (int i = threadIdx.x; i < 2 * CHUNKS; i += QW_MMA_THREADS) {
+    const bool is_b = i >= CHUNKS;
+    const int rest = is_b ? i - CHUNKS : i, r = rest / (QW_BK / 16), c = rest % (QW_BK / 16);
+    const int g = (is_b ? col0 : row0) + r, k = k0 + c * 16;
+    const bool ok = g < (is_b ? N : M) && k < K;
+    const int8_t* src = is_b ? B : A;
+    cp_async16((is_b ? bs : as) + r * QW_BK + ((c ^ (r & 7)) << 4),
+               ok ? src + (long long)g * K + k : src, ok);
+  }
+}
+
+// One output tile's sums, by the MMA warpgroups, into acc.
+__device__ __forceinline__ void qw_mma_tile(int (&acc)[64], int8_t* As, int8_t* Bs,
+                                            const int8_t* A, const int8_t* B, int M, int N,
+                                            int K, int row0, int col0) {
+  const int wg = threadIdx.x / 128, ktiles = (K + QW_BK - 1) / QW_BK;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0;
+  wgmma_fence_acc_s32(acc);
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    if (s < ktiles)
+      qw_load(As + s * QW_TILE, Bs + s * QW_TILE, A, B, M, N, K, row0, col0, s * QW_BK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<1>();
+    // this thread's copies visible to the wgmma (async) proxy, then to both
+    // warpgroups; stage (kt + 2) % 4 was read by tile kt - 2's batch,
+    // retired by both warpgroups' wait_group 1 before this barrier
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+    named_sync(QW_BAR_RING, QW_MMA_THREADS);
+    if (kt + 2 < ktiles) {
+      const int ns = (kt + 2) % QW_STAGES;
+      qw_load(As + ns * QW_TILE, Bs + ns * QW_TILE, A, B, M, N, K, row0, col0,
+              (kt + 2) * QW_BK);
+    }
+    cp_async_commit();
+    const int s = kt % QW_STAGES;
+    const int8_t* as = As + s * QW_TILE + wg * 64 * QW_BK;
+    const int8_t* bs = Bs + s * QW_TILE;
+    wgmma_fence_acc_s32(acc);
+    asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+    for (int q = 0; q < QW_BK / 32; ++q)   // k step q: 32 bytes into each 128-byte row
+      wgmma_s8_n128(acc, wgmma_desc_sw128(as + q * 32), wgmma_desc_sw128(bs + q * 32));
+    asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+    wgmma_fence_acc_s32(acc);
+    asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+    wgmma_fence_acc_s32(acc);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wgmma_fence_acc_s32(acc);
+  cp_async_wait<0>();
+}
+
+// One staged row of a tile, by one epilogue warp: columns c = col0 + 4 lane
+// .. + 3 of row r (< M) from its sums cs, the columns' scales and biases
+// sbv, bv already in registers; 16-byte stores where the four are in the
+// matrix and N is a multiple of 4.
+template <int EPI>
+__device__ __forceinline__ void qw_epilogue_row(const int* cs, int r, int c, int N,
+                                                const float* __restrict__ sa,
+                                                const float (&sbv)[4], const float (&bv)[4],
+                                                const float* __restrict__ resid,
+                                                float* __restrict__ C, int* __restrict__ Ci) {
+  const int lane = threadIdx.x % 32;
+  const int4 v = *reinterpret_cast<const int4*>(cs + 4 * lane);
+  const int vs[4] = {v.x, v.y, v.z, v.w};
+  const long long o = (long long)r * N + c;
+  const bool four = c + 3 < N && N % 4 == 0;
+  if (EPI == QEPI_I32) {
+    if (four) {
+      *reinterpret_cast<int4*>(Ci + o) = v;
+    } else {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (c + e < N) Ci[o + e] = vs[e];
+    }
+    return;
+  }
+  const float sa_r = sa[r];
+  float f[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e)
+    f[e] = c + e < N ? q_epilogue<EPI>(vs[e], sa_r, sbv[e], bv[e], resid, o + e) : 0.f;
+  if (four) {
+    *reinterpret_cast<float4*>(C + o) = make_float4(f[0], f[1], f[2], f[3]);
+  } else {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (c + e < N) C[o + e] = f[e];
+  }
+}
+
+// C [M, N] = epilogue(A [M, K] @ B [N, K]^T), tiles t = blockIdx.x, +
+// gridDim.x, ...
+template <int EPI>
+__global__ void __launch_bounds__(QW_THREADS, 1)
+qgemm_wgmma_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B, int M, int N,
+                   int K, const float* __restrict__ sa, const float* __restrict__ sb,
+                   const float* __restrict__ bias, const float* __restrict__ resid,
+                   float* __restrict__ C, int* __restrict__ Ci) {
+  extern __shared__ float4 qw_smem4[];
+  int8_t* As = reinterpret_cast<int8_t*>(
+      (reinterpret_cast<uintptr_t>(qw_smem4) + 1023) & ~uintptr_t(1023));   // [S][128][128]
+  int8_t* Bs = As + QW_STAGES * QW_TILE;                                    // [S][128][128]
+  int* Cs = reinterpret_cast<int*>(Bs + QW_STAGES * QW_TILE);               // [128][LDC]
+  const int tiles_n = (N + QW_BN - 1) / QW_BN;
+  const int tiles = tiles_n * ((M + QW_BM - 1) / QW_BM);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x < QW_MMA_THREADS) {
+    const int g8 = lane / 4, t4 = lane % 4;
+    const int wrow = (warp / 4) * 64 + (warp % 4) * 16;   // warpgroup's 64 rows, warp's 16
+    int acc[64];
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      qw_mma_tile(acc, As, Bs, A, B, M, N, K, (t / tiles_n) * QW_BM, (t % tiles_n) * QW_BN);
+      // the epilogue has read the last tile out of Cs (and both MMA
+      // warpgroups retired their batches, so the ring is free)
+      named_sync(QW_BAR_EMPTY, QW_THREADS);
+      // acc[4i + e]: row wrow + g8 (+8 for e >= 2), column 8i + 2 t4 + (e & 1)
+#pragma unroll
+      for (int i = 0; i < QW_BN / 8; ++i)
+#pragma unroll
+        for (int half = 0; half < 2; ++half)
+          *reinterpret_cast<int2*>(Cs + (wrow + g8 + 8 * half) * QW_LDC + 8 * i + 2 * t4) =
+              make_int2(acc[4 * i + 2 * half], acc[4 * i + 2 * half + 1]);
+      named_arrive(QW_BAR_FULL, QW_THREADS);
+    }
+  } else {
+    const int ew = warp - QW_MMA_THREADS / 32;            // epilogue warp, 0..7
+    constexpr int EWARPS = (QW_THREADS - QW_MMA_THREADS) / 32;
+    named_arrive(QW_BAR_EMPTY, QW_THREADS);              // Cs starts empty
+    for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
+      const int row0 = (t / tiles_n) * QW_BM, c = (t % tiles_n) * QW_BN + 4 * lane;
+      float sbv[4], bv[4];   // this lane's columns' scales and biases, for every row
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool in = EPI != QEPI_I32 && c + e < N;
+        sbv[e] = in ? sb[c + e] : 0.f;
+        bv[e] = in ? bias[c + e] : 0.f;
+      }
+      named_sync(QW_BAR_FULL, QW_THREADS);
+      if (c < N) {
+#pragma unroll 4
+        for (int rl = ew; rl < QW_BM; rl += EWARPS)
+          if (row0 + rl < M)
+            qw_epilogue_row<EPI>(Cs + rl * QW_LDC, row0 + rl, c, N, sa, sbv, bv, resid, C,
+                                 Ci);
+      }
+      if (t + (int)gridDim.x < tiles) named_arrive(QW_BAR_EMPTY, QW_THREADS);
+    }
+  }
+}
+
+// A product's plan, three host ints from ops/bert_ffn_cuda._plan_qgemm: wgmma
+// (1: the persistent wgmma kernel over 128 x 128 tiles; 0: the 64 x 64
+// mma.sync tiles), vec (K a multiple of 16, A and B 16-byte aligned: the
+// wgmma tiles need it) and grid (the wgmma kernel's blocks: one an SM, at
+// most one a tile).  Returns the launch's cudaError_t.
+template <int EPI>
+cudaError_t launch_qgemm(const int* plan, const int8_t* A, const int8_t* B, int M, int N,
+                         int K, const float* sa, const float* sb, const float* bias,
+                         const float* resid, float* C, int* Ci, cudaStream_t stream) {
+  if (!plan[0])
+    return launch_qgemm_sync<EPI>(A, B, M, N, K, sa, sb, bias, resid, C, Ci, stream);
+  if (!plan[1] || plan[2] < 1) return cudaErrorInvalidValue;
+  static unsigned long long smem_set = 0;
+  const cudaError_t err = allow_smem_once((const void*)qgemm_wgmma_kernel<EPI>, &smem_set);
+  if (err != cudaSuccess) return err;
+  qgemm_wgmma_kernel<EPI><<<plan[2], QW_THREADS, QW_SMEM, stream>>>(A, B, M, N, K, sa, sb,
+                                                                    bias, resid, C, Ci);
+  return cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int mmtr_qrows(const float* x, int8_t* xq, float* sx, int rows, int n,
                           void* stream_ptr) {
-  qrows_kernel<<<rows, Q_THREADS, 0, (cudaStream_t)stream_ptr>>>(x, xq, sx, n);
-  return (int)cudaGetLastError();
+  return (int)launch_qrows(x, xq, sx, rows, n, false, (cudaStream_t)stream_ptr);
 }
 
+// plan: a product's three host ints from ops/bert_ffn_cuda._plan_qgemm.
 extern "C" int mmtr_qgemm_i32(const int8_t* a, const int8_t* b, int* out, int M,
-                              int N, int K, void* stream_ptr) {
-  return (int)launch_qgemm<QEPI_I32>(a, b, M, N, K, nullptr, nullptr, nullptr,
-                                     nullptr, nullptr, out, (cudaStream_t)stream_ptr);
+                              int N, int K, const int* plan, void* stream_ptr) {
+  return (int)launch_qgemm<QEPI_I32>(plan, a, b, M, N, K, nullptr, nullptr, nullptr, nullptr,
+                                     nullptr, out, (cudaStream_t)stream_ptr);
 }
 
 extern "C" int mmtr_qdot(const int8_t* xq, const float* sx, const int8_t* wq,
                          const float* ws, const float* bias, float* out, int M,
-                         int N, int K, void* stream_ptr) {
-  return (int)launch_qgemm<QEPI_BIAS>(xq, wq, M, N, K, sx, ws, bias, nullptr, out,
+                         int N, int K, const int* plan, void* stream_ptr) {
+  return (int)launch_qgemm<QEPI_BIAS>(plan, xq, wq, M, N, K, sx, ws, bias, nullptr, out,
                                       nullptr, (cudaStream_t)stream_ptr);
 }
 
+// plan: six host ints from ops/bert_ffn_cuda._plan_ffn_q, GEMM1's then
+// GEMM2's.  hidden [rows, ffn]: GEMM1's dequantized sums h1 (g1 = gelu(h1)
+// is formed, quantized and dropped in the quantize pass).
 extern "C" int mmtr_ffn_ln_q_fwd(const float* x, const int8_t* w1q, const float* w1s,
                                  const float* b1, const int8_t* w2q, const float* w2s,
                                  const float* b2, const float* ln_g, const float* ln_b,
                                  int8_t* xq, float* sx, float* hidden, int8_t* hq,
-                                 float* sh, float* resid_sum, float* out, int rows,
-                                 int h, int ffn, float eps, void* stream_ptr) {
+                                 float* sh, float* resid_sum, float* out, int rows, int h,
+                                 int ffn, float eps, const int* plan, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  qrows_kernel<<<rows, Q_THREADS, 0, stream>>>(x, xq, sx, h);
-  cudaError_t err = cudaGetLastError();
+  cudaError_t err = launch_qrows(x, xq, sx, rows, h, false, stream);
   if (err != cudaSuccess) return (int)err;
-  err = launch_qgemm<QEPI_BIAS_GELU>(xq, w1q, rows, ffn, h, sx, w1s, b1, nullptr,
-                                     hidden, nullptr, stream);
+  err = launch_qgemm<QEPI_BIAS>(plan, xq, w1q, rows, ffn, h, sx, w1s, b1, nullptr, hidden,
+                                nullptr, stream);
   if (err != cudaSuccess) return (int)err;
-  qrows_kernel<<<rows, Q_THREADS, 0, stream>>>(hidden, hq, sh, ffn);
-  err = cudaGetLastError();
+  err = launch_qrows(hidden, hq, sh, rows, ffn, true, stream);
   if (err != cudaSuccess) return (int)err;
-  err = launch_qgemm<QEPI_BIAS_RESIDUAL>(hq, w2q, rows, h, ffn, sh, w2s, b2, x,
+  err = launch_qgemm<QEPI_BIAS_RESIDUAL>(plan + 3, hq, w2q, rows, h, ffn, sh, w2s, b2, x,
                                          resid_sum, nullptr, stream);
   if (err != cudaSuccess) return (int)err;
   layernorm_rows_kernel<<<rows, LN_THREADS, 0, stream>>>(resid_sum, ln_g, ln_b,

@@ -14,7 +14,7 @@
 // this header gets its own copy and the shared library links cleanly.
 //
 // The GEMM is the first, simple form: 64x64 output tiles, 16-deep k steps,
-// 256 threads with a 4x4 micro-tile each, CUDA-core FMAs (K2, K6b, K9b);
+// 256 threads with a 4x4 micro-tile each, CUDA-core FMAs (K6b, K9b);
 // the tensor-core GEMMs are gemm_tc.cuh's.
 #pragma once
 

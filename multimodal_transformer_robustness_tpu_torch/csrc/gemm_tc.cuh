@@ -845,4 +845,39 @@ cudaError_t launch_gemm_tc_tn(const float* A, int lda, int shift, int Mdata, int
   return cudaGetLastError();
 }
 
+// ---------------------------------------------------------------------------
+// out[row] = LN(resid[row] + (P[0][row] + ... + P[splits-1][row] + bias)):
+// a product's split-K planes [splits][R][n] (K3's fc2, K2's o-projection)
+// added in order, then the row LayerNorm as layernorm_rows_kernel computes
+// it; one block a row, the row staged in shared memory (n floats).
+__global__ void __launch_bounds__(LN_THREADS)
+splitk_resid_ln_kernel(const float* __restrict__ P, const float* __restrict__ bias,
+                       const float* __restrict__ resid, const float* __restrict__ g,
+                       const float* __restrict__ b, float* __restrict__ out, int rows, int n,
+                       int splits, float eps) {
+  extern __shared__ float srow[];
+  __shared__ float red[33];
+  const long long row = blockIdx.x;
+  const long long plane = (long long)rows * n;
+  float sum = 0.f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    float v = 0.f;
+    for (int z = 0; z < splits; ++z) v += P[z * plane + row * n + i];
+    const float s = resid[row * n + i] + (v + bias[i]);
+    srow[i] = s;
+    sum += s;
+  }
+  const float mu = block_sum(sum, red) / (float)n;
+  float sq = 0.f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    const float d = srow[i] - mu;
+    sq = fmaf(d, d, sq);
+  }
+  const float var = block_sum(sq, red) / (float)n;
+  const float inv = 1.0f / sqrtf(var + eps);
+  float* o = out + row * n;
+  for (int i = threadIdx.x; i < n; i += blockDim.x)
+    o[i] = ((srow[i] - mu) * inv) * g[i] + b[i];
+}
+
 }  // namespace

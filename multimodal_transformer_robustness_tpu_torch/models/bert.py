@@ -36,7 +36,9 @@ stacked ``[L, ...]`` (the JAX package's layout, float or quantized), and
 :func:`prepare_bert` turns them, once, into the kernels' layout: one dict
 per layer with every float weight transposed to ``x @ w_t`` orientation
 (``<name>t``) and every quantized weight kept ``{"q": int8 [out, in], "s":
-float32 [out]}`` under its own name.
+float32 [out]}`` under its own name.  Float q/k/v weights are views of one
+``[3, h, h]`` tensor and their biases of one ``[3h]`` vector, so that K2
+runs them as one product.
 """
 
 from __future__ import annotations
@@ -127,12 +129,15 @@ def prepare_bert(bert: dict, device="cpu") -> dict:
     quantized ``{"q": int8 [L, out, in], "s": [L, out]}`` dict, as the JAX
     package's ``quantize_bert_params`` makes it) -> the kernels' layout on
     ``device``: per-layer dicts, float weights as ``<name>t = w.T``,
-    quantized ones kept ``[out, in]``."""
+    quantized ones kept ``[out, in]``; float ``q_wt, k_wt, v_wt`` views of
+    one ``[3, h, h]`` tensor, ``q_b, k_b, v_b`` of one ``[3h]``
+    (:func:`..models.mult.to_device` keeps them so)."""
 
     def dev(a, dtype=torch.float32):
         return torch.tensor(np.asarray(a), dtype=dtype, device=device)
 
     n = len(bert["layers"]["q_b"])
+    qkv = ("q_w", "k_w", "v_w")
     layers = []
     for i in range(n):
         lp = {}
@@ -143,6 +148,11 @@ def prepare_bert(bert: dict, device="cpu") -> dict:
             else:
                 lp[f"{w}t"] = dev(a[i]).t().contiguous()
         lp.update({v: dev(bert["layers"][v][i]) for v in _VECTORS})
+        if all(f"{w}t" in lp for w in qkv):   # K2's gated operand: views of one tensor
+            stacked = torch.stack([lp[f"{w}t"] for w in qkv])
+            biases = torch.cat([lp[f"{w[0]}_b"] for w in qkv]).chunk(3)
+            for w, wt, b in zip(qkv, stacked, biases):
+                lp[f"{w}t"], lp[f"{w[0]}_b"] = wt, b
         layers.append(lp)
     out = {k: dev(bert[k]) for k in ("word_emb", "pos_emb", "type_emb",
                                      "emb_ln_g", "emb_ln_b")}

@@ -53,16 +53,24 @@ def as_f32(a) -> torch.Tensor:
     return torch.tensor(np.asarray(a), dtype=torch.float32)
 
 
-def to_device(tree, device):
+def to_device(tree, device, _bases=None):
     """Nested dicts / lists of arrays -> tensors on ``device``: float32, but
-    integer arrays (the int8 weights of a quantized BERT) keep their dtype."""
+    integer arrays (the int8 weights of a quantized BERT) keep their dtype.
+    Float tensors that are views of one contiguous tensor (``prepare_bert``'s
+    q/k/v weights) stay views of one moved copy."""
+    bases = {} if _bases is None else _bases
     if isinstance(tree, dict):
-        return {k: to_device(v, device) for k, v in tree.items()}
+        return {k: to_device(v, device, bases) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
-        return type(tree)(to_device(v, device) for v in tree)
+        return type(tree)(to_device(v, device, bases) for v in tree)
     t = tree if isinstance(tree, torch.Tensor) else torch.as_tensor(np.asarray(tree))
     if not t.is_floating_point():
         return t.detach().to(device, copy=True).contiguous()
+    base = t._base
+    if base is not None and base.is_contiguous() and base.dtype == t.dtype:
+        # keyed by id, with the base kept alive so that the id is not reused
+        moved = bases.setdefault(id(base), (base, as_f32(base).to(device)))[1]
+        return moved.as_strided(t.shape, t.stride(), t.storage_offset() - base.storage_offset())
     return as_f32(t).to(device).contiguous()
 
 

@@ -7,7 +7,11 @@ and run their plain PyTorch versions on a CPU tensor:
   * :func:`attention_block_fused` (K2): the whole block ``LN(x +
     o_proj(MHA(x)))``, replaces ``bert_attn_pallas._attn_block_kernel``;
     weights come pre-transposed (``w*_t = weight.T``), made once at load
-    time;
+    time, q/k/v's as views of one ``[3, h, h]`` tensor and their biases of
+    one ``[3h]`` vector (``models/bert.prepare_bert``), so that its q/k/v
+    product on ``csrc/gemm_tc.cuh``'s 3xTF32 tensor cores is one N = 3h
+    product that reads ``x`` once; its launch plan is
+    :func:`_plan_attn_block`;
   * :func:`dense_attention_blockdiag` (K6a): the projection-free attention
     core over q/k/v ``[B, L, H, dh]``, replaces
     ``bert_attn_pallas._dense_attn_kernel``; the same attention kernel as
@@ -25,12 +29,18 @@ import math
 import torch
 
 from .. import _build
+from . import gemm_tc
 from .layernorm import masked_layer_norm
 
 # a lane holds up to 4 output columns (lane + 32c) of 8 query rows
 _MAX_HEAD_DIM = 128
 _ATT_RQ, _ATT_KT, _ATT_QT, _ATT_WARPS = 8, 64, 32, 4   # csrc/bert_attn.cu
 _UNIT_BLOCKS_PER_SM = 4    # attention_unit_kernel's launch bound
+# the wgmma widths K2's products may take: csrc/bert_attn.cu's K2_PROMOTE is
+# 0, so every width the header instantiates (promoted sums would need
+# gemm_tc.PROMOTED_WIDTHS)
+_K2_WIDTHS = gemm_tc.WG_WIDTHS
+_ATTN_PLAN_KEYS = ("path", "vec", "blocks", "smem", "dp", "ldk", "qrows", "krows", "nc")
 
 
 def _plan_attention(B: int, L: int, n_heads: int, dh: int, num_sms: int = _build.NUM_SMS,
@@ -76,8 +86,54 @@ def _plan_attention(B: int, L: int, n_heads: int, dh: int, num_sms: int = _build
 def _cached_plan(B, L, n_heads, dh, num_sms, aligned, Lk=None):
     """The plan as csrc/bert_attn.cu reads it: (C int array, its address)."""
     p = _plan_attention(B, L, n_heads, dh, num_sms, aligned, Lk)
-    return _build.host_ints([p[k] for k in ("path", "vec", "blocks", "smem", "dp", "ldk",
-                                            "qrows", "krows", "nc")])
+    return _build.host_ints([p[k] for k in _ATTN_PLAN_KEYS])
+
+
+def _plan_attn_block(B: int, L: int, h: int, n_heads: int, num_sms: int = _build.NUM_SMS,
+                     aligned: bool = True) -> dict:
+    """K2's launch plan (``csrc/bert_attn.cu`` takes it as given), built as
+    ``bert_ffn_cuda._plan_ffn`` is: for the q/k/v product (``[B*L, h] x [h,
+    3h]``) and the o-projection (``[B*L, h] x [h, h]``) each,
+    :func:`gemm_tc.plan_product`: the wgmma tiles (128 x 128 at BERT-base
+    width: 18 and 6 column tiles) where they give every SM at least two
+    blocks, else the 64 x 64 mma.sync tiles split over K (at B=1 L=8: the
+    q/k/v product into 6 ranges, the o-projection into 8); 4-byte copies
+    where ``h`` is not a multiple of 4 or an operand is not ``aligned``.
+    ``attention``: :func:`_plan_attention` for the q, k, v planes of the
+    product's fresh scratch (16-byte aligned when ``h`` is a multiple of 4).
+    ``fused_ln``: the o-projection split on the mma.sync tiles, its planes
+    added by the LayerNorm's launch.  ``scratch``: the floats the larger of
+    the two products needs (they run one after the other)."""
+    rows, vec = B * L, aligned and h % 4 == 0
+    qkv, o = (gemm_tc.plan_product(rows, n, h, vec, num_sms, widths=_K2_WIDTHS)
+              for n in (3 * h, h))
+    return {"qkv": qkv, "o": o,
+            "attention": _plan_attention(B, L, n_heads, h // n_heads, num_sms, h % 4 == 0),
+            "fused_ln": int(not o["wgmma"] and o["splits"] > 1),
+            "scratch": max(qkv["scratch"], o["scratch"])}
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_block_plan(B, L, h, n_heads, num_sms, aligned):
+    """K2's plan as csrc/bert_attn.cu reads it: (C int array, its address,
+    the floats of scratch, whether the o-projection's sum is fused into the
+    LN)."""
+    p = _plan_attn_block(B, L, h, n_heads, num_sms, aligned)
+    ints = ([p[k][key] for k in ("qkv", "o") for key in gemm_tc.PLAN_KEYS]
+            + [p["attention"][key] for key in _ATTN_PLAN_KEYS])
+    return _build.host_ints(ints) + (p["scratch"], p["fused_ln"])
+
+
+def _gated(parts, n: int):
+    """``parts`` (contiguous, ``n`` float32s each) as one operand: (its
+    address, a tensor to keep alive while it is read).  In place where each
+    starts where the one before it ends, as the views of one stacked tensor
+    do (None to keep); else stacked by ``torch.cat``."""
+    base = parts[0].data_ptr()
+    if all(p.data_ptr() == base + 4 * n * i for i, p in enumerate(parts)):
+        return base, None
+    stacked = torch.cat(parts)
+    return stacked.data_ptr(), stacked
 
 
 def dense_attention_plain(q, k, v, key_mask) -> torch.Tensor:
@@ -109,7 +165,11 @@ def attention_block_fused(x: torch.Tensor, key_mask: torch.Tensor,
                           *, n_heads: int, eps: float) -> torch.Tensor:
     """HF BertSelfAttention + BertSelfOutput: ``x [B, L, h]``,
     ``key_mask [B, L]`` (1 = attend), weights ``[h, h]`` in ``x @ w_t``
-    orientation, biases and LN params ``[h]``."""
+    orientation, biases and LN params ``[h]``.  ``wq_t, wk_t, wv_t`` that
+    lie one after the other in memory (views of one ``[3, h, h]`` tensor,
+    as ``models/bert.prepare_bert`` makes them) are the q/k/v product's
+    operand in place, as are ``qb, kb, vb`` (of one ``[3h]``); others are
+    stacked into one per call."""
     if x.device.type == "cpu":
         return attention_block_plain(x, key_mask, wq_t, qb, wk_t, kb, wv_t, vb,
                                      wo_t, ob, ln_g, ln_b, n_heads=n_heads, eps=eps)
@@ -125,18 +185,20 @@ def attention_block_fused(x: torch.Tensor, key_mask: torch.Tensor,
                        + [(t, name, (h,)) for name, t in (("qb", qb), ("kb", kb), ("vb", vb),
                                                          ("ob", ob), ("ln_g", ln_g),
                                                          ("ln_b", ln_b))])
-    # the q/k/v planes of the fresh scratch are 16-byte aligned when h is
-    plan = _cached_plan(b, L, n_heads, h // n_heads, _build.num_sms(dev), h % 4 == 0)
-    lib = _build.load_library()
-    qkv = torch.empty(3, b * L, h, dtype=torch.float32, device=dev)
-    attn = torch.empty(b * L, h, dtype=torch.float32, device=dev)
-    resid_sum = torch.empty(b * L, h, dtype=torch.float32, device=dev)
+    wqkv, _w = _gated((wq_t, wk_t, wv_t), h * h)
+    bqkv, _b = _gated((qb, kb, vb), h)
+    plan = _cached_block_plan(b, L, h, n_heads, _build.num_sms(dev),
+                              (x.data_ptr() | wqkv | wo_t.data_ptr()) % 16 == 0)
+    f32 = dict(dtype=torch.float32, device=dev)
+    qkv = torch.empty(3, b * L, h, **f32)
+    attn = torch.empty(b * L, h, **f32)
+    resid_sum = torch.empty(0 if plan[3] else b * L * h, **f32)
+    scratch = torch.empty(plan[2], **f32) if plan[2] else None
     out = torch.empty_like(x)
-    err = lib.mmtr_attn_block_fwd(
-        x.data_ptr(), mask.data_ptr(), wq_t.data_ptr(), qb.data_ptr(),
-        wk_t.data_ptr(), kb.data_ptr(), wv_t.data_ptr(), vb.data_ptr(),
-        wo_t.data_ptr(), ob.data_ptr(), ln_g.data_ptr(), ln_b.data_ptr(),
-        qkv.data_ptr(), attn.data_ptr(), resid_sum.data_ptr(), out.data_ptr(),
+    err = _build.load_library().mmtr_attn_block_fwd(
+        x.data_ptr(), mask.data_ptr(), wqkv, bqkv, wo_t.data_ptr(), ob.data_ptr(),
+        ln_g.data_ptr(), ln_b.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
+        resid_sum.data_ptr(), out.data_ptr(), scratch.data_ptr() if scratch is not None else 0,
         b, L, h, n_heads, eps, plan[1], _build.stream_ptr(dev))
     _build.check(err, "attention_block_fused kernel")
     attention_block_fused.launches += 1

@@ -11,12 +11,15 @@ tensor and runs its plain PyTorch version on a CPU tensor:
     ``bert_ffn_pallas._proj_ln_kernel``;
   * :func:`ffn_ln_block_q` (K4, ``csrc/bert_ffn_q.cu``): K3 with int8 weights
     and dynamic per-row int8 activations (``--bert_int8``), replaces
-    ``bert_ffn_pallas._ffn_ln_kernel_q``;
+    ``bert_ffn_pallas._ffn_ln_kernel_q``; its products run on a persistent
+    int8 wgmma kernel where the rows fill the card, by the plan
+    :func:`_plan_ffn_q`;
   * :func:`qrows` and :func:`qdot`, the row quantization and the int8 GEMM
     with its dequant + bias epilogue from K4's source: the int8 q/k/v/o
     projections of a fully quantized BERT (the JAX package's
     ``models/bert._qrows`` / ``_qdot``, an XLA int8 dot there);
-    :func:`int8_matmul` exposes the raw int32 product to check it exact.
+    :func:`int8_matmul` exposes the raw int32 product to check it exact;
+    each product takes :func:`_plan_qgemm`'s tiles.
 
 K3's two products run on ``csrc/gemm_tc.cuh``'s 3xTF32 tensor-core GEMM by
 the plan :func:`_plan_ffn` computes on the host.  Float weights come
@@ -159,6 +162,63 @@ proj_ln_block.launches = 0
 
 # ------------------------------------------------------------------ int8
 
+# csrc/bert_ffn_q.cu's int8 tiles: the persistent wgmma kernel's (rows,
+# columns, k bytes, ring stages; its shared memory: the ring, the staged
+# int32 tile [128][136], + 1 KB to align the swizzle atoms; one block an SM)
+# and the mma.sync tile (64 x 64, two 64 x 80-byte stages, static)
+QW_BM, QW_BN, QW_BK, QW_STAGES = 128, 128, 128, 4
+QW_SMEM = QW_STAGES * (QW_BM + QW_BN) * QW_BK + 4 * QW_BM * (QW_BN + 8) + 1024
+QG_BM = QG_BN = 64
+QG_SMEM = 2 * 64 * 80
+QPLAN_KEYS = ("wgmma", "vec", "grid")
+
+
+def _plan_qgemm(M: int, N: int, K: int, num_sms: int = _build.NUM_SMS,
+                aligned: bool = True) -> dict:
+    """One int8 ``[M, K] x [N, K]^T`` product (``csrc/bert_ffn_q.cu``): the
+    persistent wgmma kernel over 128 x 128 tiles (``grid``: one block an SM,
+    at most one a tile) where the tiles fill at least two waves of the card
+    and the copies can be 16 bytes wide (``vec``: K a multiple of 16, both
+    operands ``aligned``), else the 64 x 64 mma.sync tiles (``grid``: 0, the
+    kernel's own).  ``tiles``: (column tiles, row tiles); ``smem``: a
+    block's shared memory."""
+    vec = int(aligned and K % 16 == 0)
+    tiles = (-(-N // QW_BN), -(-M // QW_BM))
+    wgmma = int(vec and tiles[0] * tiles[1] >= 2 * num_sms)
+    if not wgmma:
+        tiles = (-(-N // QG_BN), -(-M // QG_BM))
+    return {"wgmma": wgmma, "vec": vec, "tiles": tiles,
+            "grid": min(tiles[0] * tiles[1], num_sms) if wgmma else 0,
+            "bn": QW_BN if wgmma else QG_BN, "stages": QW_STAGES if wgmma else 1,
+            "smem": QW_SMEM if wgmma else QG_SMEM}
+
+
+def _plan_ffn_q(rows: int, h: int, ffn: int, num_sms: int = _build.NUM_SMS,
+                aligned: bool = True) -> dict:
+    """K4's launch plan (``csrc/bert_ffn_q.cu`` takes it as given): GEMM1
+    (``[rows, h] x [ffn, h]^T``) and GEMM2 (``[rows, ffn] x [h, ffn]^T``)
+    each by :func:`_plan_qgemm`: at the training rows (131,072) both on the
+    persistent wgmma kernel, at the serving rows (8-512) both on the
+    mma.sync tiles."""
+    return {"gemm1": _plan_qgemm(rows, ffn, h, num_sms, aligned),
+            "gemm2": _plan_qgemm(rows, h, ffn, num_sms, aligned)}
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_qgemm_plan(M, N, K, num_sms, aligned):
+    """A product's plan as csrc/bert_ffn_q.cu reads it: (C int array, its
+    address)."""
+    p = _plan_qgemm(M, N, K, num_sms, aligned)
+    return _build.host_ints([p[k] for k in QPLAN_KEYS])
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_ffn_q_plan(rows, h, ffn, num_sms, aligned):
+    """K4's plan as csrc/bert_ffn_q.cu reads it: (C int array, its address)."""
+    p = _plan_ffn_q(rows, h, ffn, num_sms, aligned)
+    return _build.host_ints([p[g][k] for g in ("gemm1", "gemm2") for k in QPLAN_KEYS])
+
+
 def gelu_erf_poly(x: torch.Tensor) -> torch.Tensor:
     """Exact-erf gelu through the JAX int8 kernel's float32 erf polynomial,
     one operation at a time (K4's epilogue computes the same sequence)."""
@@ -212,8 +272,10 @@ def int8_matmul(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
     _build.require(xq, "xq", (m, k), dev, torch.int8)
     _build.require(wq, "wq", (n, k), dev, torch.int8)
     out = torch.empty(m, n, dtype=torch.int32, device=dev)
+    plan = _cached_qgemm_plan(m, n, k, _build.num_sms(dev),
+                              (xq.data_ptr() | wq.data_ptr()) % 16 == 0)
     err = _build.load_library().mmtr_qgemm_i32(
-        xq.data_ptr(), wq.data_ptr(), out.data_ptr(), m, n, k, _build.stream_ptr(dev))
+        xq.data_ptr(), wq.data_ptr(), out.data_ptr(), m, n, k, plan[1], _build.stream_ptr(dev))
     _build.check(err, "int8_matmul kernel")
     int8_matmul.launches += 1
     return out
@@ -263,9 +325,11 @@ def qdot(xq: torch.Tensor, sx: torch.Tensor, wq: dict, bias: torch.Tensor) -> to
     _build.require(wq["s"], "ws", (n,), dev)
     _build.require(bias, "bias", (n,), dev)
     out = torch.empty(m, n, dtype=torch.float32, device=dev)
+    plan = _cached_qgemm_plan(m, n, k, _build.num_sms(dev),
+                              (xq.data_ptr() | wq["q"].data_ptr()) % 16 == 0)
     err = _build.load_library().mmtr_qdot(
         xq.data_ptr(), sx.data_ptr(), wq["q"].data_ptr(), wq["s"].data_ptr(),
-        bias.data_ptr(), out.data_ptr(), m, n, k, _build.stream_ptr(dev))
+        bias.data_ptr(), out.data_ptr(), m, n, k, plan[1], _build.stream_ptr(dev))
     _build.check(err, "qdot kernel")
     qdot.launches += 1
     return out
@@ -306,19 +370,21 @@ def ffn_ln_block_q(x: torch.Tensor, w1: dict, b1: torch.Tensor, w2: dict,
     for name, t, n in (("w1s", w1["s"], ffn), ("b1", b1, ffn), ("w2s", w2["s"], h),
                        ("b2", b2, h), ("ln_g", ln_g, h), ("ln_b", ln_b, h)):
         _build.require(t, name, (n,), dev)
-    lib = _build.load_library()
-    xq = torch.empty(rows, h, dtype=torch.int8, device=dev)
-    sx = torch.empty(rows, 1, dtype=torch.float32, device=dev)
-    hidden = torch.empty(rows, ffn, dtype=torch.float32, device=dev)
-    hq = torch.empty(rows, ffn, dtype=torch.int8, device=dev)
-    sh = torch.empty(rows, 1, dtype=torch.float32, device=dev)
-    resid_sum = torch.empty(rows, h, dtype=torch.float32, device=dev)
+    plan = _cached_ffn_q_plan(rows, h, ffn, _build.num_sms(dev),
+                              (w1["q"].data_ptr() | w2["q"].data_ptr()) % 16 == 0)
+    i8, f32 = dict(dtype=torch.int8, device=dev), dict(dtype=torch.float32, device=dev)
+    xq = torch.empty(rows, h, **i8)
+    sx = torch.empty(rows, 1, **f32)
+    hidden = torch.empty(rows, ffn, **f32)
+    hq = torch.empty(rows, ffn, **i8)
+    sh = torch.empty(rows, 1, **f32)
+    resid_sum = torch.empty(rows, h, **f32)
     out = torch.empty_like(x)
-    err = lib.mmtr_ffn_ln_q_fwd(
+    err = _build.load_library().mmtr_ffn_ln_q_fwd(
         x.data_ptr(), w1["q"].data_ptr(), w1["s"].data_ptr(), b1.data_ptr(),
         w2["q"].data_ptr(), w2["s"].data_ptr(), b2.data_ptr(), ln_g.data_ptr(),
         ln_b.data_ptr(), xq.data_ptr(), sx.data_ptr(), hidden.data_ptr(), hq.data_ptr(),
-        sh.data_ptr(), resid_sum.data_ptr(), out.data_ptr(), rows, h, ffn, eps,
+        sh.data_ptr(), resid_sum.data_ptr(), out.data_ptr(), rows, h, ffn, eps, plan[1],
         _build.stream_ptr(dev))
     _build.check(err, "ffn_ln_block_q kernel")
     ffn_ln_block_q.launches += 1

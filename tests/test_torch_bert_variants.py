@@ -337,6 +337,33 @@ def test_streaming_predictor_int8_matches_jax():
                            np.array([[jpred.forward(*req)]]))
 
 
+def test_prepared_qkv_stay_one_operand_on_the_way_to_the_device():
+    """``prepare_bert`` lays each layer's float q/k/v weights out as views
+    of one ``[3, h, h]`` tensor and their biases of one ``[3h]`` (K2's one
+    q/k/v product reads them in place), equal to the JAX weights
+    transposed; ``to_device`` (the Trainer moves ``frozen`` with it) keeps
+    them so in a copy of its own; int8 attention weights replace them."""
+    cfg = jbert.tiny_bert_config(hidden=32, heads=2, layers=2)
+    params = _np_tree(_float_bert(cfg))
+    prepared = tbert.prepare_bert(params)
+    moved = to_device(prepared, "cpu")
+    for i, (lp, mp) in enumerate(zip(prepared["layers"], moved["layers"])):
+        for tree in (lp, mp):
+            ws = [tree[f"{n}_wt"] for n in "qkv"]
+            bs = [tree[f"{n}_b"] for n in "qkv"]
+            assert bert_attn_cuda._gated(ws, 32 * 32) == (ws[0].data_ptr(), None)
+            assert bert_attn_cuda._gated(bs, 32) == (bs[0].data_ptr(), None)
+            for n, w, b in zip("qkv", ws, bs):
+                np.testing.assert_array_equal(w.numpy(), params["layers"][f"{n}_w"][i].T)
+                np.testing.assert_array_equal(b.numpy(), params["layers"][f"{n}_b"][i])
+        assert mp["q_wt"].data_ptr() != lp["q_wt"].data_ptr()   # moved, not aliased
+    block = torch.arange(3 * 32 * 32, dtype=torch.float32).reshape(3, 32, 32)
+    _, copy = bert_attn_cuda._gated([block[0], block[2], block[1]], 32 * 32)
+    assert torch.equal(copy, block[[0, 2, 1]].reshape(96, 32))   # stacked per call
+    quantized = tbert.quantize_bert_params(moved, attn=True)["layers"][0]
+    assert "q_wt" not in quantized and quantized["q_w"]["q"].dtype == torch.int8
+
+
 def test_quantized_frozen_keeps_int8_on_the_way_to_the_device():
     """``to_device`` (the Trainer moves ``frozen`` with it) and the state-dict
     loader keep int8 weights int8 and float ones float32."""

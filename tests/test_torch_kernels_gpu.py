@@ -129,8 +129,13 @@ def test_gru_dir_kernel_plan_edges(cuda, B, T, I, H):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("B,L,heads,h", [(1, 8, 12, 768), (2, 200, 12, 768), (3, 13, 2, 16)])
+@pytest.mark.parametrize("B,L,heads,h", [(1, 8, 12, 768), (2, 200, 12, 768), (3, 13, 2, 16),
+                                         (300, 31, 12, 768)])
 def test_attention_block_kernel_matches_plain(cuda, B, L, heads, h):
+    """K2 across its plan: split-K mma.sync products with the LayerNorm
+    adding the o-projection's planes (B=1 L=8), the unsplit q/k/v product
+    (L=200), 4-wide heads (h=16), and both products on the wgmma tiles with
+    a ragged last row tile (9,300 rows); a rerun gives the same bits."""
     rng = np.random.default_rng(4)
     args = [a.to(cuda) for a in attn_torch_args(*attn_inputs(rng, B, L, h))]
     out = bert_attn_cuda.attention_block_fused(*args, n_heads=heads, eps=1e-12)
@@ -226,10 +231,11 @@ def _k4_row_bound(x, codes, scales, w2, b2, ln_g, flips_per_row):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("rows,h,ffn", [(8, 768, 3072), (300, 768, 3072), (7, 32, 128),
-                                        (33, 40, 100)])
+                                        (33, 40, 100), (9001, 768, 3072)])
 def test_ffn_ln_q_kernel_matches_plain(cuda, rows, h, ffn):
     """K4; (33, 40, 100) has no dimension a multiple of the 64-wide tiles or
-    of the 16-byte loads."""
+    of the 16-byte loads; 9,001 rows take the wgmma tiles (a ragged last row
+    tile) and GEMM1's row maxima."""
     rng = np.random.default_rng(8)
     x, w1, b1, w2, b2, g, b = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
                                for a in ffn_inputs(rng, rows, h, ffn)]
@@ -252,10 +258,13 @@ def test_ffn_ln_q_kernel_matches_plain(cuda, rows, h, ffn):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("M,N,K", [(8, 768, 768), (1000, 300, 768), (5, 7, 37), (70, 64, 3072)])
+@pytest.mark.parametrize("M,N,K", [(8, 768, 768), (1000, 300, 768), (5, 7, 37), (70, 64, 3072),
+                                   (9001, 768, 768), (20000, 300, 3072)])
 def test_int8_gemm_exact(cuda, M, N, K):
-    """int32 products equal exact sums (the last case at the extreme codes,
-    |sum| = 127^2 * 3072); the dequant + bias epilogue is bit-identical."""
+    """int32 products equal exact sums (the K=3072 cases at the extreme
+    codes, |sum| = 127^2 * 3072); the dequant + bias epilogue is
+    bit-identical.  The last two take the wgmma tiles (ragged row and column
+    tiles)."""
     rng = np.random.default_rng(9)
     a = torch.from_numpy(rng.integers(-127, 128, (M, K)).astype(np.int8)).to(cuda)
     w = torch.from_numpy(rng.integers(-127, 128, (N, K)).astype(np.int8)).to(cuda)

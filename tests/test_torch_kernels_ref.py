@@ -18,10 +18,11 @@ from multimodal_transformer_robustness_tpu.ops.bert_attn_pallas import attention
 from multimodal_transformer_robustness_tpu.ops.bert_ffn_pallas import ffn_ln_block
 from multimodal_transformer_robustness_tpu.ops.bigru_pallas import (
     bigru_finals_tmajor, bigru_level_tmajor)
+from multimodal_transformer_robustness_tpu_torch.models import bert as tbert
 from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bert_ffn_cuda
 from multimodal_transformer_robustness_tpu_torch.ops import bigru_cuda
 from multimodal_transformer_robustness_tpu_torch.ops import gru as tgru
-from test_torch_kernels_gpu import attn_inputs, attn_torch_args, ffn_inputs
+from test_torch_kernels_gpu import attn_inputs, ffn_inputs
 
 TOL = dict(atol=1e-5, rtol=1e-5)
 
@@ -56,9 +57,31 @@ def test_bigru_plain_matches_pallas_interpret(B, T, I, H):
                                ref_fin.numpy(), **TOL)
 
 
-@pytest.mark.parametrize("B,L,heads,h", [(3, 8, 2, 16), (2, 13, 4, 32)])
+def _prepared_attn_args(x, ws, bs, ln_g, ln_b, mask):
+    """K2's operands as the port's model hands them over: the HF-layout
+    weights (the JAX package's) through ``models.bert.prepare_bert``, whose
+    q/k/v weights are views of one stacked ``[3, h, h]`` tensor and biases of
+    one ``[3h]`` (the FFN and embedding entries are placeholders)."""
+    h = x.shape[-1]
+    layer = {f"{n}_{k}": a[None] for n, w, b in zip("qkvo", ws, bs)
+             for k, a in (("w", w), ("b", b))}
+    layer.update(ln1_g=ln_g[None], ln1_b=ln_b[None], ln2_g=np.ones((1, h)),
+                 ln2_b=np.zeros((1, h)), fc1_w=np.zeros((1, 4, h)), fc1_b=np.zeros((1, 4)),
+                 fc2_w=np.zeros((1, h, 4)), fc2_b=np.zeros((1, h)))
+    bert = {k: np.zeros((1, h)) for k in ("word_emb", "pos_emb", "type_emb")}
+    bert.update(emb_ln_g=np.ones(h), emb_ln_b=np.zeros(h), layers=layer)
+    lp = tbert.prepare_bert(bert)["layers"][0]
+    assert lp["k_wt"].data_ptr() == lp["q_wt"].data_ptr() + 4 * h * h   # one stacked operand
+    return [torch.from_numpy(x), torch.from_numpy(mask)] + [
+        lp[k] for k in ("q_wt", "q_b", "k_wt", "k_b", "v_wt", "v_b", "o_wt", "o_b", "ln1_g",
+                        "ln1_b")]
+
+
+@pytest.mark.parametrize("B,L,heads,h", [(3, 8, 2, 16), (2, 13, 4, 32), (1, 8, 12, 768)])
 def test_attention_block_plain_matches_pallas_interpret(B, L, heads, h):
-    """K2: ragged key mask with one fully masked item."""
+    """K2: ragged key mask with one fully masked item; the last case at
+    BERT-base width and the serving bucket's 8 tokens.  The port's weights
+    come through ``prepare_bert``, stacked as its q/k/v product reads them."""
     rng = np.random.default_rng(1)
     x, ws, bs, ln_g, ln_b, mask = attn_inputs(rng, B, L, h)
     eps = 1e-12
@@ -69,7 +92,7 @@ def test_attention_block_plain_matches_pallas_interpret(B, L, heads, h):
                                 n_heads=heads, eps=eps, interpret=True)
     n0 = bert_attn_cuda.attention_block_fused.launches
     out = bert_attn_cuda.attention_block_fused(
-        *attn_torch_args(x, ws, bs, ln_g, ln_b, mask), n_heads=heads, eps=eps)
+        *_prepared_attn_args(x, ws, bs, ln_g, ln_b, mask), n_heads=heads, eps=eps)
     assert bert_attn_cuda.attention_block_fused.launches == n0
     assert torch.isfinite(out).all()
     np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)

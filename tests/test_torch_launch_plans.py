@@ -424,3 +424,120 @@ def test_flash_bwd_plan_at_the_mosei_shapes():
 def test_flash_bwd_plan_refuses_wide_heads():
     with pytest.raises(ValueError, match="head_dim"):
         attention_cuda._plan_flash_bwd(8, 50, 32, 129)
+
+
+@pytest.mark.parametrize("h,heads", [(768, 12), (16, 2), (32, 4), (36, 4), (1024, 16)])
+def test_attn_block_plans_fit_the_card(h, heads):
+    """K2's plan: both products as gemm_tc.cuh plans (q/k/v over N = 3h, the
+    o-projection over N = h, both h deep), the attention stage as
+    _plan_attention's, within the card's shared memory at every shape."""
+    for B, L in ((1, 1), (1, 8), (1, 33), (1, 128), (1, 512), (8, 32), (300, 31),
+                 (4096, 32)):
+        rows = B * L
+        p = bert_attn_cuda._plan_attn_block(B, L, h, heads)
+        _check_product(p["qkv"], rows, 3 * h, h)
+        _check_product(p["o"], rows, h, h)
+        assert p["attention"] == bert_attn_cuda._plan_attention(B, L, heads, h // heads,
+                                                                aligned=h % 4 == 0)
+        assert p["attention"]["smem"] <= MAX_SMEM
+        assert p["fused_ln"] == int(not p["o"]["wgmma"] and p["o"]["splits"] > 1)
+        assert p["scratch"] == max(p["qkv"]["scratch"], p["o"]["scratch"])
+
+
+def test_attn_block_plan_at_the_bert_shapes():
+    """BERT-base width: at the training rows (B=4096, L=32) both products
+    take the wgmma tiles, 128 wide, over 1,024 row tiles (18 column tiles
+    for q/k/v, 6 for o); at the serving rows (B=1, L=8) the mma.sync tiles
+    split over K, the o-projection's planes summed by the LayerNorm's
+    launch; 9,300 rows (B=300, L=31) take the wgmma tiles with a ragged row
+    tile."""
+    p = bert_attn_cuda._plan_attn_block(4096, 32, 768, 12)
+    for name, n in (("qkv", 2304), ("o", 768)):
+        assert p[name]["wgmma"] == 1 and p[name]["bn"] == 128
+        assert -(-131072 // 128) == 1024 and -(-n // p[name]["bn"]) == n // 128
+    assert p["fused_ln"] == 0 and p["scratch"] == 2 * 2304 * 768
+    assert p["attention"]["path"] == 0
+    p = bert_attn_cuda._plan_attn_block(1, 8, 768, 12)
+    assert p["qkv"]["wgmma"] == p["o"]["wgmma"] == 0
+    assert p["qkv"]["splits"] > 1 and p["o"]["splits"] > 1 and p["fused_ln"] == 1
+    assert p["qkv"]["splits"] * 36 <= 2 * SMS and p["o"]["splits"] * 12 <= 2 * SMS
+    p = bert_attn_cuda._plan_attn_block(300, 31, 768, 12)
+    assert p["qkv"]["wgmma"] == p["o"]["wgmma"] == 1 and 9300 % 128
+
+
+@pytest.mark.parametrize("rows", [1, 8, 512, 9300, 131072])
+def test_attn_block_qkv_tiles_cover_3h(rows):
+    """The q/k/v product's column tiles cover N = 2304 with no tile more
+    than half empty, on either tile (wgmma 128 wide, mma.sync 64)."""
+    p = bert_attn_cuda._plan_attn_block(1, rows, 768, 12)["qkv"]
+    width = p["bn"] if p["wgmma"] else gemm_tc.SMALL_BN
+    assert -(-2304 // width) * width - 2304 < width // 2
+
+
+def test_attn_block_plan_unaligned_operands_take_4_byte_copies():
+    for B, L in ((1, 8), (4096, 32)):
+        p = bert_attn_cuda._plan_attn_block(B, L, 768, 12, aligned=False)
+        for name in ("qkv", "o"):
+            assert p[name]["vec"] == 0 and p[name]["wgmma"] == 0
+        # the attention stage reads the fresh q/k/v scratch, aligned at h = 768
+        assert p["attention"]["vec"] == 1
+    p = bert_attn_cuda._plan_attn_block(4096, 32, 36, 4)   # h a multiple of 4, dh = 9 is not
+    assert p["qkv"]["vec"] == 1 and p["attention"]["vec"] == 0
+    p = bert_attn_cuda._plan_attn_block(4096, 32, 30, 3)   # h not a multiple of 4
+    assert p["qkv"]["vec"] == p["o"]["vec"] == 0 and p["qkv"]["wgmma"] == 0
+
+
+def _check_qgemm(p, M, N, K):
+    """A csrc/bert_ffn_q.cu product plan: the persistent wgmma kernel (a
+    4-stage ring of A and B [128][128 bytes] and the staged int32 tile
+    [128][136], + 1 KB; one block an SM, no more blocks than tiles) only
+    with 16-byte copies and two waves of 128 x 128 tiles, else the 64 x 64
+    mma.sync tiles; the tiles cover the product."""
+    if p["wgmma"]:
+        assert p["vec"] == 1 and K % 16 == 0
+        assert p["smem"] == 4 * 2 * 128 * 128 + 4 * 128 * 136 + 1024 <= MAX_SMEM
+        assert p["smem"] + 1024 <= SM_SMEM
+        assert p["tiles"] == (-(-N // 128), -(-M // 128))
+        assert p["tiles"][0] * p["tiles"][1] >= 2 * SMS and p["grid"] == SMS
+    else:
+        assert p["smem"] == 2 * 64 * 80 <= 48 * 1024        # static shared memory
+        assert p["tiles"] == (-(-N // 64), -(-M // 64)) and p["grid"] == 0
+    assert p["vec"] == int(K % 16 == 0)
+
+
+@pytest.mark.parametrize("h,ffn", [(768, 3072), (32, 128), (40, 100), (64, 256)])
+def test_ffn_q_plans_fit_the_card(h, ffn):
+    for rows in (1, 7, 8, 32, 300, 512, 513, 4096, 9001, 131072):
+        p = bert_ffn_cuda._plan_ffn_q(rows, h, ffn)
+        _check_qgemm(p["gemm1"], rows, ffn, h)
+        _check_qgemm(p["gemm2"], rows, h, ffn)
+
+
+@pytest.mark.parametrize("rows,wgmma", [(1, 0), (8, 0), (32, 0), (128, 0), (512, 0),
+                                        (4096, 1), (9001, 1), (131072, 1)])
+def test_ffn_q_plan_picks_the_path_by_rows(rows, wgmma):
+    """BERT-base width: the serving rows (B=1, L=8-512) stay on the mma.sync
+    tiles; from a few thousand rows GEMM1 takes the wgmma tiles, and from
+    9,001 both (B=4096 L=32 trains at 131,072)."""
+    p = bert_ffn_cuda._plan_ffn_q(rows, 768, 3072)
+    assert p["gemm1"]["wgmma"] == wgmma
+    if rows >= 9001:
+        assert p["gemm2"]["wgmma"] == 1
+    if not wgmma:
+        assert p["gemm2"]["wgmma"] == 0
+
+
+@pytest.mark.parametrize("n", [3072, 768])
+def test_ffn_q_tiles_cover_the_columns(n):
+    """GEMM1's N = 3072 and GEMM2's 768 divide into whole tiles on either
+    path: 24 and 6 wgmma tiles of 128, 48 and 12 mma.sync tiles of 64."""
+    for rows in (8, 131072):
+        p = bert_ffn_cuda._plan_ffn_q(rows, 768, 3072)["gemm1" if n == 3072 else "gemm2"]
+        assert p["tiles"][0] * p["bn"] == n
+    assert bert_ffn_cuda._plan_ffn_q(131072, 768, 3072)["gemm1"]["tiles"] == (24, 1024)
+
+
+def test_ffn_q_plan_unaligned_weights_take_the_mma_sync_tiles():
+    p = bert_ffn_cuda._plan_ffn_q(131072, 768, 3072, aligned=False)
+    for g in ("gemm1", "gemm2"):
+        assert p[g]["wgmma"] == 0 and p[g]["vec"] == 0

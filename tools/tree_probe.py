@@ -1,6 +1,7 @@
-"""K1b's device time by kernel (torch.profiler) at the training path's three
-shapes, beside its CUDA-event time, and a digest of K1f's outputs, for the
-port package of any tree.
+"""K1b's, K2's and K4's device time by kernel (torch.profiler) at their
+path shapes, beside their CUDA-event time, digests of K1f's and K4's
+outputs, and warm serving ms (float, int8 and flash requests), for the port
+package of any tree.
 
 Run from the repository root on a card:
 
@@ -9,10 +10,13 @@ Run from the repository root on a card:
 ``--tree`` (default: this checkout) names the directory whose
 ``multimodal_transformer_robustness_tpu_torch`` is measured, so that a
 parent commit unpacked with ``git archive`` under ``build/`` is measured by
-the same cases (``chip_smoke.k1b_split_cases``, ``profile_ms``,
-``cuda_ms``) in the same call, and two trees' K1f outputs can be held
-bit for bit (sha256 of ``gru_dir``'s output at the training and serving
-shapes, inputs from a fixed seed).  Prints one JSON line per shape.
+the same cases (``chip_smoke.k1b_split_cases``, ``bert_split_cases``,
+``profile_ms``, ``cuda_ms``) in the same call, and two trees' K1f and K4
+outputs can be held bit for bit (sha256 of ``gru_dir``'s output, and of
+``ffn_ln_block_q``'s output, hidden codes and scales, at the training and
+serving shapes, inputs from a fixed seed), and both trees serve the same
+synthetic requests (``chip_smoke.synthetic_requests``, ``_timed``: the
+median host ms of 5 warm calls).  Prints one JSON line per shape.
 """
 
 from __future__ import annotations
@@ -57,7 +61,39 @@ def main() -> int:
             digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
             print(json.dumps({"tree": args.tree, "shape": f"K1f in={in_dim} T={T} B={B} "
                               f"{'bwd' if rev else 'fwd'}", "sha256": digest}), flush=True)
-    for name, fn, iters in cs.k1b_split_cases(dev, np.random.default_rng(1)):
+    from multimodal_transformer_robustness_tpu_torch.models.bert import _quantize
+    from multimodal_transformer_robustness_tpu_torch.ops import bert_ffn_cuda
+
+    rng = np.random.default_rng(3)
+    h, ffn = 768, 3072
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
+
+    w1q, w2q = (_quantize(t(rng.standard_normal(s) * 0.02)) for s in ((ffn, h), (h, ffn)))
+    b1, b2 = t(rng.standard_normal(ffn) * 0.02), t(rng.standard_normal(h) * 0.02)
+    g, b = t(1.0 + 0.1 * rng.standard_normal(h)), t(0.1 * rng.standard_normal(h))
+    for B, L in ((1, 8), (1, 512), (4096, 32)):
+        x = t(rng.standard_normal((B, L, h)))
+        got = bert_ffn_cuda.ffn_ln_block_q(x, w1q, b1, w2q, b2, g, b, eps=1e-12,
+                                           return_codes=True)
+        digests = [hashlib.sha256(a.cpu().numpy().tobytes()).hexdigest()[:16] for a in got]
+        print(json.dumps({"tree": args.tree, "shape": f"K4 B={B} L={L} h={h} ffn={ffn}",
+                          "sha256_out_codes_scales": digests}), flush=True)
+        del got, x
+    cases = (cs.k1b_split_cases(dev, np.random.default_rng(1))
+             + cs.bert_split_cases(dev, np.random.default_rng(4)))
+    from multimodal_transformer_robustness_tpu_torch.cli.realtime import StreamingPredictor
+
+    for label, options in (("float", {}), ("int8", {"bert_int8": True}),
+                           ("flash", {"attn_impl": "flash"})):
+        pred = StreamingPredictor(seed=0, device=dev, **options)
+        requests = cs.synthetic_requests(pred)
+        warm = [1000 * cs._timed(lambda r=r: pred.forward(*r)) for r in requests]
+        print(json.dumps({"tree": args.tree, "shape": f"serving {label}",
+                          "warm_request_ms": warm}), flush=True)
+        del pred
+    for name, fn, iters in cases:
         per = cs.profile_ms(fn, iters)
         print(json.dumps({"tree": args.tree, "package": _build.__file__, "shape": name,
                           "event_ms": cs.cuda_ms(fn, iters), "device_ms": sum(per.values()),
