@@ -31,11 +31,13 @@ Phases, each fatal on failure:
                 blocks, R=4096 train (K9b rerun for the same bits) and R=1
                 eval; K1f and K6a at the edges of their launch plans (rerun
                 for the same bits); K2 rerun for the same bits at every
-                shape and timed also at B=1 L=512; then the device split:
-                torch.profiler's device ms by kernel of K1f (projection,
-                recurrence), K3 (fc1, fc2, LayerNorm), K2 (q/k/v product,
-                attention, o-projection, LayerNorm), K4 (quantize x, GEMM1,
-                quantize g1, GEMM2, LayerNorm), K6a, K8 and K7f at their two
+                shape and timed also at B=1 L=512; K6b timed at every
+                shape (split-K at B=1, wgmma at B=4096); then the device
+                split: torch.profiler's device ms by kernel of K1f
+                (projection, recurrence), K3 (fc1, fc2, LayerNorm), K2
+                (q/k/v product, attention, o-projection, LayerNorm), K4
+                (quantize x, GEMM1, quantize g1, GEMM2, LayerNorm), K6b
+                (product, LayerNorm), K6a, K8, K7f and K7b at their two
                 timed shapes, of K1b (recurrence, products, sums) at its three
                 training-path shapes, and of the flash backward's calls (the
                 delta op, K5dq, K5dkv, K5b) at the MOSEI shapes, beside
@@ -507,13 +509,14 @@ def k1b_split_cases(dev, rng, B=4096, T=50, H=100):
 
 
 def bert_split_cases(dev, rng, h=768, ffn=3072, heads=12):
-    """K2 and K4 at B=1 L=8, B=1 L=512 (the longest text bucket) and B=4096
-    L=32, BERT-base width, HF-scale weights (K2's q/k/v stacked as
-    prepare_bert makes them), for the device
-    split by kernel: K2's q/k/v product, attention, o-projection and LN,
-    K4's quantize of x, GEMM1, quantize of g1, GEMM2 and LN.  Only the
-    public wrappers are called, so tools/tree_probe.py runs the same cases
-    against another tree's package."""
+    """K2, K4 and K6b at B=1 L=8, B=1 L=512 (the longest text bucket) and
+    B=4096 L=32, BERT-base width, HF-scale weights (K2's q/k/v stacked as
+    prepare_bert makes them), for the device split by kernel: K2's q/k/v
+    product, attention, o-projection and LN, K4's quantize of x, GEMM1,
+    quantize of g1, GEMM2 and LN, K6b's product and LN.  Only the public
+    wrappers are called, so tools/tree_probe.py runs the same cases against
+    another tree's package.  K6b's attention input comes from its own seed,
+    so K2's and K4's inputs are the draws they were."""
     from multimodal_transformer_robustness_tpu_torch.models.bert import _quantize
     from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bert_ffn_cuda
 
@@ -534,20 +537,23 @@ def bert_split_cases(dev, rng, h=768, ffn=3072, heads=12):
         a_args = (x, t(mask), wqkv[0], bqkv[:h], wqkv[1], bqkv[h:2 * h], wqkv[2],
                   bqkv[2 * h:], wo, bo, g, b)
         k_args = (x, w1q, b1, w2q, b2, g, b)
+        p_args = (x, t(np.random.default_rng(L).standard_normal((B, L, h))), wo, bo, g, b)
         it = 5 if B > 1 else 20
         cases += [(f"K2 B={B} L={L} h={h}", lambda a_args=a_args: bert_attn_cuda
                    .attention_block_fused(*a_args, n_heads=heads, eps=1e-12), it),
                   (f"K4 B={B} L={L} h={h} ffn={ffn}", lambda k_args=k_args: bert_ffn_cuda
-                   .ffn_ln_block_q(*k_args, eps=1e-12), it)]
+                   .ffn_ln_block_q(*k_args, eps=1e-12), it),
+                  (f"K6b B={B} L={L} h={h}", lambda p_args=p_args: bert_ffn_cuda
+                   .proj_ln_block(*p_args, eps=1e-12), it)]
     return cases
 
 
 def device_split(dev, rng):
     """K1f's device time split between its kernels (input projection,
     recurrence), K1b's (recurrence, products, sums: k1b_split_cases), K3's
-    (fc1, fc2, LayerNorm), K2's and K4's (bert_split_cases, also at B=1
-    L=512) and, for K1f, K3, K6a, K8, K7f, K2 and K4 at their timed
-    shapes, K1b at its three path shapes and the flash backward's calls
+    (fc1, fc2, LayerNorm), K2's, K4's and K6b's (bert_split_cases, also at
+    B=1 L=512) and, for K1f, K3, K6a, K8, K7f, K7b, K2, K4 and K6b at their
+    timed shapes, K1b at its three path shapes and the flash backward's calls
     (flash_bwd_cases), the device time of a call (torch.profiler) beside
     its CUDA-event time: the gap is host time the card waits for.
     Returns one dict per shape."""
@@ -598,6 +604,10 @@ def device_split(dev, rng):
                + [t(rng.uniform(-0.1, 0.1, (G, H))) for _ in range(3)])
         cases.append((f"K7f G={G} T={T} N={N} H={H}",
                       lambda rec=rec: gru_cuda.gru_recurrence_cuda(*rec), 5 if N > 1 else 20))
+        bwd = (*rec[:3], gru_cuda.gru_recurrence_cuda(*rec), t(rng.standard_normal((G, T, N, H))),
+               *rec[3:])
+        cases.append((f"K7b G={G} T={T} N={N} H={H}",
+                      lambda bwd=bwd: gru_cuda.gru_recurrence_bwd_cuda(*bwd), 5 if N > 1 else 20))
     cases += flash_bwd_cases(dev, rng, t)
     cases += bert_split_cases(dev, rng)
     for name, fn, iters in cases:
@@ -717,7 +727,9 @@ def check_bert_variants(dev, rng, t, record, failures,
                work=k6a_work(B, L, h) if timed else None, library_fn=library, iters=iters)
         del out, ref, q, k, v, qt, kt, vt
 
-        # K6b: o-proj + residual + LN1
+        # K6b: o-proj + residual + LN1, timed at every shape: its plan
+        # (K2's o-projection's) splits over K at B=1 (8 planes up to L=128,
+        # 2 at L=512) and takes the wgmma tiles at B=4096
         a = t(rng.standard_normal((B, L, h)))
         p_args = (x, a, wo_t, bo, g, b)
         out = bert_ffn_cuda.proj_ln_block(*p_args, eps=eps)
@@ -725,7 +737,7 @@ def check_bert_variants(dev, rng, t, record, failures,
         ref = bert_ffn_cuda.proj_ln_block_plain(*p_args, eps=eps)
         record("K6b", shape, out, ref, lambda: bert_ffn_cuda.proj_ln_block(*p_args, eps=eps),
                lambda: bert_ffn_cuda.proj_ln_block_plain(*p_args, eps=eps),
-               work=k6b_work(R, h) if timed else None, iters=iters)
+               work=k6b_work(R, h), iters=iters)
         del out, ref, a, x
 
     # the int8 GEMM of the fully quantized BERT's projections: exact int32

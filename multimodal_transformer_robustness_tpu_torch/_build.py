@@ -51,7 +51,7 @@ _SIGNATURES = {
     "mmtr_attn_block_fwd": (_I, [_P] * 13 + [_I] * 4 + [_F, _P, _P]),
     "mmtr_attention_fwd": (_I, [_P] * 5 + [_I] * 4 + [_P, _P]),
     "mmtr_attention_masked_fwd": (_I, [_P] * 5 + [_I] * 5 + [_P, _P]),
-    "mmtr_proj_ln_fwd": (_I, [_P] * 8 + [_I] * 2 + [_F, _P]),
+    "mmtr_proj_ln_fwd": (_I, [_P] * 9 + [_I] * 2 + [_F, _P, _P]),
     "mmtr_qrows": (_I, [_P] * 3 + [_I] * 2 + [_P]),
     "mmtr_qgemm_i32": (_I, [_P] * 3 + [_I] * 3 + [_P, _P]),
     "mmtr_qdot": (_I, [_P] * 6 + [_I] * 3 + [_P, _P]),
@@ -61,7 +61,7 @@ _SIGNATURES = {
     "mmtr_flash_bwd_dkv": (_I, [_P] * 10 + [_I] * 7 + [_P]),
     "mmtr_flash_bwd": (_I, [_P] * 11 + [_I] * 7 + [_P, _P]),
     "mmtr_gru_rec_fwd": (_I, [_P] * 10 + [_I] * 4 + [_P, _P]),
-    "mmtr_gru_rec_bwd": (_I, [_P] * 15 + [_I] * 4 + [_P]),
+    "mmtr_gru_rec_bwd": (_I, [_P] * 12 + [_I] * 4 + [_P, _P]),
     "mmtr_trunk_block_fwd": (_I, [_P] * 12 + [_I] * 9 + [_F] * 3 + [_P]),
     "mmtr_trunk_block_bwd": (_I, [_P] * 19 + [_I] * 11 + [_F] * 3 + [_P]),
 }

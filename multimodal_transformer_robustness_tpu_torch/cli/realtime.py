@@ -27,8 +27,10 @@ from ..masks import build_masks
 from ..models.bert import BertConfig, quantize_bert_params
 from ..models.mult import init_supernet, supernet_apply
 
-TORCH_FEATURES_TODO = ("--features torch (MTCNN / wav2vec2 extraction) is not "
-                       "ported yet: ROADMAP Queue 1, 'cli/realtime.py'")
+TORCH_FEATURES_TODO = ("--features torch (MTCNN / wav2vec2 extraction) is not ported "
+                       "and not queued: it needs facenet_pytorch, torchaudio and their "
+                       "pretrained weights, none of which is in the repo (ROADMAP Queue 1 "
+                       "item 6)")
 BERT_DIR_TODO = ("--bert_dir (pretrained HF BERT weights) is not ported yet: "
                  "ROADMAP Queue 1, 'checkpoint.py'")
 

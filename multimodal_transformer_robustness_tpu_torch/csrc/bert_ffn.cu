@@ -32,11 +32,17 @@
 // (HF BertSelfOutput) for the frozen BERT's unfused attention paths
 // (ATTN_IMPL "dense" and "xla").  It replaces the TPU kernel
 // bert_ffn_pallas.py::_proj_ln_kernel (public proj_ln_block via _rows_call):
-// resid, a [R, h], w_t [h, h] (= o_proj.weight^T), b, LN g/b [h].  The same
-// two stages as K2's tail: the GEMM with the bias+residual epilogue, then the
-// row LayerNorm.  Bound: 2*R*h^2 FLOPs (1.55e11 at R = 131,072, h = 768:
-// 0.94 ms at 165 TFLOP/s); at serving rows the 2.4 MB weight read and the
-// launch latency.  It stays on common.cuh's CUDA-core GEMM.
+// resid, a [R, h], w_t [h, h] (= o_proj.weight^T), b, LN g/b [h].  Bound:
+// 2*R*h^2 FLOPs (1.55e11 at R = 131,072, h = 768: 0.94 ms at 165 TFLOP/s);
+// at serving rows the 2.4 MB weight read and the launch latency.  It is
+// exactly K2's tail (bert_attn.cu), so it runs the same host function,
+// gemm_tc.cuh's launch_proj_resid_ln, by the same plan
+// (ops/bert_ffn_cuda._plan_proj_ln, K2's "o" entry): the 3xTF32 product
+// with the bias + residual epilogue on the wgmma tiles (128 x 128 at h =
+// 768, W^T's TF32 planes split per call into `scratch`) then the row
+// LayerNorm, or at few rows split-K mma.sync tiles whose planes (in
+// `scratch`) the LayerNorm's launch adds.  Its sums are 768 deep and stay
+// unpromoted, as K2's (K6B_PROMOTE).
 #include "gemm_tc.cuh"
 
 namespace {
@@ -45,6 +51,12 @@ namespace {
 // gemm_tc.cuh): fc2's 3072-deep chain otherwise left 6e-5 of the 1e-4
 // allowed (B=4096 L=32, HF-scale weights).
 constexpr int K3_PROMOTE = 8;
+
+// K6b's product, as K2's o-projection (K2_PROMOTE): unpromoted, so every
+// wgmma width the header instantiates may serve it (_plan_proj_ln); its
+// 768-deep sums left 2.2e-5 of the 1e-4 allowed (B=4096 L=32, HF-scale
+// weights).
+constexpr int K6B_PROMOTE = 0;
 
 }  // namespace
 
@@ -62,31 +74,19 @@ extern "C" int mmtr_ffn_ln_fwd(const float* x, const float* w1t, const float* b1
   cudaError_t err = launch_gemm_tc<EPI_BIAS_GELU, K3_PROMOTE>(
       tc_plan(plan), x, h, w1t, b1, nullptr, hidden, rows, ffn, h, ffn, scratch, stream);
   if (err != cudaSuccess) return (int)err;
-  const TcPlan fc2 = tc_plan(plan + 4);
-  const bool fused = !fc2.wgmma && fc2.splits > 1;
-  err = launch_gemm_tc<EPI_BIAS_RESIDUAL, K3_PROMOTE>(fc2, hidden, ffn, w2t, b2, x, resid_sum,
-                                                      rows, h, ffn, h, scratch, stream, !fused);
-  if (err != cudaSuccess) return (int)err;
-  if (fused) {
-    splitk_resid_ln_kernel<<<rows, LN_THREADS, sizeof(float) * h, stream>>>(
-        static_cast<const float*>(scratch), b2, x, ln_g, ln_b, out, rows, h, fc2.splits, eps);
-  } else {
-    layernorm_rows_kernel<<<rows, LN_THREADS, 0, stream>>>(resid_sum, ln_g, ln_b, out, h,
-                                                           eps);
-  }
-  return (int)cudaGetLastError();
+  return (int)launch_proj_resid_ln<K3_PROMOTE>(tc_plan(plan + 4), hidden, ffn, w2t, b2, x,
+                                               ln_g, ln_b, resid_sum, out, rows, h, ffn, eps,
+                                               scratch, stream);
 }
 
+// plan: the four host ints of ops/bert_ffn_cuda._plan_proj_ln (a TcPlan).
+// scratch: its need (W^T's TF32 planes or the split planes); resid_sum [R,
+// h] is written unless the product splits over K on the mma.sync tiles.
 extern "C" int mmtr_proj_ln_fwd(const float* resid, const float* a, const float* w_t,
                                 const float* b, const float* ln_g, const float* ln_b,
-                                float* resid_sum, float* out, int rows, int h,
-                                float eps, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  launch_gemm<EPI_BIAS_RESIDUAL>(a, w_t, b, resid, resid_sum, rows, h, h, 1, 0, 0,
-                                 0, 0, stream);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  layernorm_rows_kernel<<<rows, LN_THREADS, 0, stream>>>(resid_sum, ln_g, ln_b,
-                                                         out, h, eps);
-  return (int)cudaGetLastError();
+                                float* resid_sum, float* out, void* scratch, int rows, int h,
+                                float eps, const int* plan, void* stream_ptr) {
+  return (int)launch_proj_resid_ln<K6B_PROMOTE>(tc_plan(plan), a, h, w_t, b, resid, ln_g, ln_b,
+                                                resid_sum, out, rows, h, h, eps, scratch,
+                                                (cudaStream_t)stream_ptr);
 }

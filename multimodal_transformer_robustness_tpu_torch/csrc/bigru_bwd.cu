@@ -61,8 +61,9 @@ extern "C" int mmtr_gru_dir_bwd(const float* x, const float* hs, const float* ga
   const long long plane = (long long)rows * H;
   const GruRecBwd p{{gates, gates + plane, gates + 2 * plane},
                     {wt, wt + (long long)H * H, wt + 2LL * H * H},
-                    bhn, hs, dhs, dg, 0, T, B, H, plan[3], plan[4], reverse};
-  cudaError_t err = launch_gru_rec_bwd_tiled(p, 1, plan, stream);
+                    {nullptr, nullptr}, bhn, hs, dhs, dg, 0, T, B, H, plan[3], plan[4],
+                    reverse};
+  cudaError_t err = launch_gru_rec_bwd_tiled<false>(p, 1, plan, stream);
   if (err != cudaSuccess) return (int)err;
 
   if (need_dx) {

@@ -1,9 +1,9 @@
 // Building blocks shared by the port's hand-written Hopper kernels:
-//   * a tiled float32 GEMM, C = A @ B (+ epilogue), row-major operands,
-//     written with shared-memory tiles and FMA loops (no library GEMM);
-//   * its transposed-A form with split-K, C = A^T @ B over very long K,
-//     writing per-split partials that a second pass adds in a fixed order
-//     (deterministic: no float atomics);
+//   * the GEMM epilogues (GemmEpilogue) of gemm_tc.cuh's products;
+//   * a transposed-A float32 product with split-K, C = A^T @ B over very
+//     long K, written with shared-memory tiles and FMA loops (no library
+//     GEMM), writing per-split partials that a second pass adds in a fixed
+//     order (deterministic: no float atomics);
 //   * a row LayerNorm with float32 centered two-pass moments;
 //   * the logistic sigmoid of the GRU kernels, and the position hash of the
 //     dropout in the flash and trunk-block kernels;
@@ -13,9 +13,9 @@
 // Everything sits in an anonymous namespace, so each .cu file that includes
 // this header gets its own copy and the shared library links cleanly.
 //
-// The GEMM is the first, simple form: 64x64 output tiles, 16-deep k steps,
-// 256 threads with a 4x4 micro-tile each, CUDA-core FMAs (K6b, K9b);
-// the tensor-core GEMMs are gemm_tc.cuh's.
+// The transposed-A product is the first, simple form: 64x64 output tiles,
+// 16-deep k steps, 256 threads with a 4x4 micro-tile each, CUDA-core FMAs
+// (K9b's weight gradients); the tensor-core GEMMs are gemm_tc.cuh's.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -100,88 +100,6 @@ enum GemmEpilogue {
 
 __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
-}
-
-// A [M, K], B [K, N], C [M, N], all contiguous row-major; blockIdx.z walks a
-// batch of independent products with the given element strides (resid is
-// only read with a batch of one).
-template <int EPI>
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_f32_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                const float* __restrict__ bias, const float* __restrict__ resid,
-                float* __restrict__ C, int M, int N, int K, long long stride_a,
-                long long stride_b, long long stride_bias, long long stride_c) {
-  const long long z = blockIdx.z;
-  A += z * stride_a;
-  B += z * stride_b;
-  bias += z * stride_bias;
-  C += z * stride_c;
-
-  __shared__ float As[GEMM_TK][GEMM_TM + 4];  // k-major copy of the A tile
-  __shared__ float Bs[GEMM_TK][GEMM_TN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int row0 = blockIdx.y * GEMM_TM, col0 = blockIdx.x * GEMM_TN;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += GEMM_TK) {
-    for (int i = tid; i < GEMM_TM * GEMM_TK; i += GEMM_THREADS) {
-      const int m = i / GEMM_TK, k = i % GEMM_TK;
-      const int gr = row0 + m, gk = k0 + k;
-      As[k][m] = (gr < M && gk < K) ? A[(long long)gr * K + gk] : 0.f;
-    }
-    for (int i = tid; i < GEMM_TK * GEMM_TN; i += GEMM_THREADS) {
-      const int k = i / GEMM_TN, n = i % GEMM_TN;
-      const int gk = k0 + k, gc = col0 + n;
-      Bs[k][n] = (gk < K && gc < N) ? B[(long long)gk * N + gc] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < GEMM_TK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx + 16 * j;
-      if (c >= N) continue;
-      float v = acc[i][j];
-      if (EPI != EPI_NONE) v += bias[c];
-      if (EPI == EPI_BIAS_GELU) v = gelu_erf(v);
-      if (EPI == EPI_BIAS_RESIDUAL) v = resid[(long long)r * N + c] + v;
-      C[(long long)r * N + c] = v;
-    }
-  }
-}
-
-template <int EPI>
-void launch_gemm(const float* A, const float* B, const float* bias,
-                 const float* resid, float* C, int M, int N, int K, int batch,
-                 long long stride_a, long long stride_b, long long stride_bias,
-                 long long stride_c, cudaStream_t stream) {
-  const dim3 grid((N + GEMM_TN - 1) / GEMM_TN, (M + GEMM_TM - 1) / GEMM_TM,
-                  batch);
-  gemm_f32_kernel<EPI><<<grid, GEMM_THREADS, 0, stream>>>(
-      A, B, bias, resid, C, M, N, K, stride_a, stride_b, stride_bias, stride_c);
 }
 
 // Transposed-A split-K product: split z of C_part = sum over k in

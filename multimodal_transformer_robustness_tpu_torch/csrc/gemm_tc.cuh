@@ -847,7 +847,7 @@ cudaError_t launch_gemm_tc_tn(const float* A, int lda, int shift, int Mdata, int
 
 // ---------------------------------------------------------------------------
 // out[row] = LN(resid[row] + (P[0][row] + ... + P[splits-1][row] + bias)):
-// a product's split-K planes [splits][R][n] (K3's fc2, K2's o-projection)
+// a product's split-K planes [splits][R][n] (launch_proj_resid_ln's)
 // added in order, then the row LayerNorm as layernorm_rows_kernel computes
 // it; one block a row, the row staged in shared memory (n floats).
 __global__ void __launch_bounds__(LN_THREADS)
@@ -878,6 +878,33 @@ splitk_resid_ln_kernel(const float* __restrict__ P, const float* __restrict__ bi
   float* o = out + row * n;
   for (int i = threadIdx.x; i < n; i += blockDim.x)
     o[i] = ((srow[i] - mu) * inv) * g[i] + b[i];
+}
+
+// out = LN(resid + (A @ B + bias)) over [rows, n], A [rows, K] with row
+// stride lda, B [K, n]: the tail of K2 (the o-projection), K6b (the same
+// function alone) and K3 (fc2, K = ffn), one plan each (ops/gemm_tc.py
+// plan_product; K2's and K6b's from ops/bert_ffn_cuda._plan_proj_ln).  The
+// product runs with the bias + residual epilogue into resid_sum, then
+// layernorm_rows_kernel; where the plan splits over K on the mma.sync
+// tiles, the split planes go to `scratch` (resid_sum is not written) and
+// splitk_resid_ln_kernel adds them, the bias and the residual and applies
+// the LN in one launch.  Returns the launches' cudaError_t.
+template <int PROMOTE>
+cudaError_t launch_proj_resid_ln(const TcPlan& p, const float* A, int lda, const float* B,
+                                 const float* bias, const float* resid, const float* ln_g,
+                                 const float* ln_b, float* resid_sum, float* out, int rows,
+                                 int n, int K, float eps, void* scratch, cudaStream_t stream) {
+  const bool fused = !p.wgmma && p.splits > 1;
+  const cudaError_t err = launch_gemm_tc<EPI_BIAS_RESIDUAL, PROMOTE>(
+      p, A, lda, B, bias, resid, resid_sum, rows, n, K, n, scratch, stream, !fused);
+  if (err != cudaSuccess) return err;
+  if (fused)
+    splitk_resid_ln_kernel<<<rows, LN_THREADS, sizeof(float) * n, stream>>>(
+        static_cast<const float*>(scratch), bias, resid, ln_g, ln_b, out, rows, n, p.splits,
+        eps);
+  else
+    layernorm_rows_kernel<<<rows, LN_THREADS, 0, stream>>>(resid_sum, ln_g, ln_b, out, n, eps);
+  return cudaGetLastError();
 }
 
 }  // namespace

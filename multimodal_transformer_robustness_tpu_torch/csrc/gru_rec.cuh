@@ -30,11 +30,12 @@
 //     ~H/(2 KS) FMAs rather than H.
 // BIAS_RZ is a template parameter, so K1's instance carries no bias adds.
 //
-// The backward form (gru_rec_bwd_tiled_kernel, K1b's recurrence in bigru_bwd.cu)
-// walks the steps newest-first with the same tiling ideas: rows per block
-// chosen so that B=4096 runs in one wave, W_hh^T staged once in shared
-// memory, register tiles for both of a step's products, the next step's
-// h_prev copied in by cp.async a step ahead; see its comment.
+// The backward form (gru_rec_bwd_tiled_kernel: K1b's recurrence in
+// bigru_bwd.cu, K7b's in gru_recurrence.cu) walks the steps newest-first
+// with the same tiling ideas: rows per block chosen so that B=4096 runs in
+// one wave, W_hh^T staged once in shared memory, register tiles for both of
+// a step's products, the next step's h_prev copied in by cp.async a step
+// ahead; see its comment.
 #pragma once
 
 #include "common.cuh"
@@ -350,7 +351,7 @@ gru_rec_small_kernel(const GruRec p) {
 //
 //   gh_g = h_prev W_hg^T (g = r, z, n), recomputed in the forward's order,
 //   so r, z, n come out as the forward's tiled form made them
-//   r = sigmoid(gate_r + gh_r), z = sigmoid(gate_z + gh_z),
+//   r = sigmoid(gate_r + gh_r (+ b_hr)), z = sigmoid(gate_z + gh_z (+ b_hz)),
 //   n = tanh(gate_n + r * (gh_n + b_hn))
 //   dht = dh_in[t] + dh;  da_n = dht (1 - z) (1 - n^2);  dghn = da_n r
 //   da_r = da_n (gh_n + b_hn) r (1 - r);  da_z = dht (h_prev - n) z (1 - z)
@@ -379,16 +380,19 @@ gru_rec_small_kernel(const GruRec p) {
 // before the carry reads it, the carry done (and the next h_prev landed)
 // before the next step writes da.  The gate math is the forward's fast
 // gate_sigmoid / gate_tanh, so r, z, n match the forward's tiled form bit
-// for bit.  Group g (blockIdx.y) reads its arrays `group` floats (dg: 4
-// group) past the pointers, its weights g*H*H and b_hn g*H, so a G-group
-// caller (K7b) can take this form with its own gate layout.
+// for bit (BIAS_RZ, as the forward's: b_hr and b_hz added to h W^T where
+// its tiled form adds them).  Group g (blockIdx.y) reads its arrays `group`
+// floats (dg: 4 group) past the pointers, its weights g*H*H and biases g*H:
+// K1b runs one group over the [3, T*B, H] gate scratch with the biases
+// folded in (BIAS_RZ false), K7b G groups over [G, T, N, H] gate arrays.
 struct GruRecBwd {
-  const float* gate[3];   // input-side pre-activations r, z, n: [T, B, H] a group
-  const float* w[3];      // W_hh^T of r, z, n: [H, H] a group
-  const float* bhn;       // b_hn [H] a group
-  const float* hs;        // the forward's h [T, B, H] a group
-  const float* dhs;       // its cotangent [T, B, H] a group
-  float* dg;              // [T*B, 4H] a group: da_n, da_r, da_z, dghn
+  const float* gate[3];     // input-side pre-activations r, z, n: [T, B, H] a group
+  const float* w[3];        // W_hh^T of r, z, n: [H, H] a group
+  const float* bias_rz[2];  // b_hr, b_hz [H] a group (read only when BIAS_RZ)
+  const float* bhn;         // b_hn [H] a group
+  const float* hs;          // the forward's h [T, B, H] a group
+  const float* dhs;         // its cotangent [T, B, H] a group
+  float* dg;                // [T*B, 4H] a group: da_n, da_r, da_z, dghn
   long long group;
   int T, B, H, js, wp, reverse;
 };
@@ -412,6 +416,7 @@ __device__ __forceinline__ void bwd_stage_h(float* hT, const float* hs, int tp, 
   }
 }
 
+template <bool BIAS_RZ>
 __global__ void __launch_bounds__(REC_TILED_THREADS)
 gru_rec_bwd_tiled_kernel(const GruRecBwd p, int R) {
   extern __shared__ float4 rec_smem4[];
@@ -438,11 +443,15 @@ gru_rec_bwd_tiled_kernel(const GruRecBwd p, int R) {
     const float* src = gt == 0 ? p.w[0] : (gt == 1 ? p.w[1] : p.w[2]);
     w[i] = k < H && j < H ? src[wo + (long long)k * H + j] : 0.f;
   }
-  float bn[4];
+  float bn[4], br[4], bz[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     const int j = jg + js * c;
     bn[c] = j < H ? p.bhn[g * H + j] : 0.f;
+    if constexpr (BIAS_RZ) {
+      br[c] = j < H ? p.bias_rz[0][g * H + j] : 0.f;
+      bz[c] = j < H ? p.bias_rz[1][g * H + j] : 0.f;
+    }
   }
   for (int i = tid; i < 2 * hk * ldr; i += blockDim.x) hT[i] = 0.f;   // rows H.. stay 0
   __syncthreads();
@@ -515,8 +524,10 @@ gru_rec_bwd_tiled_kernel(const GruRecBwd p, int R) {
       float dar[4], daz[4], dgn[4];
 #pragma unroll
       for (int i = 0; i < 4; ++i) {
-        const float r = gate_sigmoid(gx[0][i][c] + acc[0][i][c]);
-        const float z = gate_sigmoid(gx[1][i][c] + acc[1][i][c]);
+        float ar = acc[0][i][c], az = acc[1][i][c];
+        if constexpr (BIAS_RZ) ar += br[c], az += bz[c];
+        const float r = gate_sigmoid(gx[0][i][c] + ar);
+        const float z = gate_sigmoid(gx[1][i][c] + az);
         const float ghn = acc[2][i][c] + bn[c];
         const float n = gate_tanh(gx[2][i][c] + r * ghn);
         const float dht = dy[i][c] + dh[i][c];
@@ -566,20 +577,22 @@ gru_rec_bwd_tiled_kernel(const GruRecBwd p, int R) {
 }
 
 // Launch the backward form over `groups` groups by the plan's five host
-// ints (ops/bigru_cuda._plan_gru_bwd): rows (a block's, a multiple of 4),
+// ints (ops/bigru_cuda._plan_rec_bwd): rows (a block's, a multiple of 4),
 // threads (rows / 4 * js), smem (bytes), js and wp (already in p).  The grid
 // is (ceil(B / rows), groups).  Returns the launch's cudaError_t.
+template <bool BIAS_RZ>
 cudaError_t launch_gru_rec_bwd_tiled(const GruRecBwd& p, int groups, const int* rec,
-                               cudaStream_t stream) {
+                                     cudaStream_t stream) {
   const int rows = rec[0], threads = rec[1], smem = rec[2];
   if (rows % 4 != 0 || threads != rows / 4 * p.js || threads > REC_TILED_THREADS ||
       p.wp % 2 == 0 || p.wp < 4 * p.js || 4 * p.js < p.H)
     return cudaErrorInvalidValue;
   static unsigned long long smem_set = 0;
-  const cudaError_t err = allow_smem_once((const void*)gru_rec_bwd_tiled_kernel, &smem_set);
+  const cudaError_t err =
+      allow_smem_once((const void*)gru_rec_bwd_tiled_kernel<BIAS_RZ>, &smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.B + rows - 1) / rows, groups);
-  gru_rec_bwd_tiled_kernel<<<grid, threads, smem, stream>>>(p, rows);
+  gru_rec_bwd_tiled_kernel<BIAS_RZ><<<grid, threads, smem, stream>>>(p, rows);
   return cudaGetLastError();
 }
 

@@ -33,18 +33,28 @@
 // waves on 132 SMs; one wave would need 64-row blocks, 328,000 bytes.  The
 // launch plan is ops/bigru_cuda._plan_recurrence's.
 //
-// K7b keeps its own loop: one block per (g, group of rows), the three
-// [H, H] weights of its g in shared memory for the whole time loop (rows
-// padded to H+1 floats, 121 KB at H=100, so da @ w^T, which reads a weight
-// row per thread, is free of bank conflicts), recomputing r, z, n from the
-// stored h_{t-1} with the accurate expf / tanhf; a step reads its gate rows
-// and h_{t-1} from device memory.  No float atomics: a rerun gives the
+// K7b runs gru_rec.cuh's backward form, K1b's recurrence
+// (gru_rec_bwd_tiled_kernel), over the G groups of grid y with b_hr / b_hz
+// added where the forward's tiled form adds them (BIAS_RZ), so its
+// recomputed r, z, n are the ones K7f's tiled form made, bit for bit: W_hh^T
+// of the block's group staged once in shared memory for both of a step's
+// products (the recompute h_{t-1} W^T and the carry da W), 4-row x 4-column
+// register tiles, h_{t-1} copied in a step ahead by cp.async, the carried
+// dh in registers.  It writes dg [G, T*N, 4H], a row (da_n, da_r, da_z,
+// dghn) per (g, t, n): K1b's layout, which the wrapper hands out as four
+// strided [G, T, N, H] views.  Rows a block by the plan
+// (ops/bigru_cuda._plan_rec_bwd): at G=2 N=4096 H=100, 32 rows (40 fit the
+// 256-thread bound, but 40 give 206 blocks, already two waves), 256 blocks
+// in two waves of one block an SM.  While G * N is at most four times the
+// SM count (ops/gru_cuda._plan_gru_rec_bwd), a block owns one row and its
+// threads split the row's 3H gate columns (gru_rec_bwd_row_kernel below):
+// at few rows the tiled form's 4-row tiles leave a block one 25-thread warp
+// with four rows of serial work, 1.37 ms at G=2 T=64 N=1 against the row
+// form's 0.32 (tools/k7b_trials.py).  No float atomics: a rerun gives the
 // same bits.
 #include "gru_rec.cuh"
 
 namespace {
-
-constexpr int SMEM_LIMIT = 232448;   // bytes of shared memory a block may use
 
 // The three weights of group g into w[gate][k][0..H) with row stride H+1,
 // and the biases into b[gate][j].
@@ -65,113 +75,82 @@ __device__ __forceinline__ void load_weights(float* w, float* b, const float* wr
   }
 }
 
-// gh[n][gate*H + j] = h[n] @ w[gate][:, j] + b[gate][j] for the block's rows:
-// K7b's recompute of r, z and n from the stored h_{t-1}.  K7f runs
-// gru_rec.cuh's forms (other summation order, fast gate math), so the
-// recomputed gates may differ from the forward's in the last bits; K7b's
-// outputs depend only on hs, not on how the forward computed it.
-__device__ __forceinline__ void hidden_gates(float* gh, const float* h, const float* w,
-                                             const float* b, int nrows, int H) {
-  const int H3 = 3 * H, HP = H + 1;
-  for (int idx = threadIdx.x; idx < nrows * H3; idx += blockDim.x) {
-    const int n = idx / H3, j3 = idx - n * H3;
-    const int gate = j3 / H, j = j3 - gate * H;
-    const float* wg = w + gate * H * HP + j;
-    const float* hn = h + n * H;
-    float acc = 0.f;
-    for (int k = 0; k < H; ++k) acc = fmaf(hn[k], wg[k * HP], acc);
-    gh[idx] = acc + b[j3];
-  }
-}
-
-__global__ void gru_rec_bwd_kernel(const float* __restrict__ gi_r,
-                                   const float* __restrict__ gi_z,
-                                   const float* __restrict__ gi_n,
-                                   const float* __restrict__ hs, const float* __restrict__ dhs,
-                                   const float* __restrict__ wr, const float* __restrict__ wz,
-                                   const float* __restrict__ wn, const float* __restrict__ br,
-                                   const float* __restrict__ bz, const float* __restrict__ bn,
-                                   float* __restrict__ dar, float* __restrict__ daz,
-                                   float* __restrict__ dan, float* __restrict__ dghn_out,
-                                   int T, int N, int H, int rows_per_block) {
+// Few rows: block (n, g) walks row n of group g newest-first.  Shared
+// memory: the weights w [3][H][H+1] (odd row pitch: the carry reads a
+// weight row a thread, free of bank conflicts), the biases [3][H], then
+// h_{t-1} [H], dh [H], gh = h_{t-1} W^T + b [3H] and da_r, da_z, dghn [3H].
+// A thread a gate column for the recompute, a thread a column of dh for
+// the carry; accurate expf / tanhf.
+__global__ void gru_rec_bwd_row_kernel(const float* __restrict__ gi_r,
+                                       const float* __restrict__ gi_z,
+                                       const float* __restrict__ gi_n,
+                                       const float* __restrict__ hs,
+                                       const float* __restrict__ dhs,
+                                       const float* __restrict__ wr, const float* __restrict__ wz,
+                                       const float* __restrict__ wn, const float* __restrict__ br,
+                                       const float* __restrict__ bz, const float* __restrict__ bn,
+                                       float* __restrict__ dg, int T, int N, int H) {
   extern __shared__ float smem[];
   const int H3 = 3 * H, HP = H + 1;
-  float* w = smem;                                // [3, H, H+1]
-  float* b = w + 3 * H * HP;                      // [3, H]
-  float* hp = b + H3;                             // [rows, H]   h_{t-1}
-  float* dh = hp + rows_per_block * H;            // [rows, H]   carried dh
-  float* gh = dh + rows_per_block * H;            // [rows, 3H]  h_{t-1} @ w + b
-  float* da = gh + rows_per_block * H3;           // [rows, 3H]  da_r, da_z, dghn
-  const int g = blockIdx.y, n0 = blockIdx.x * rows_per_block;
-  const int nrows = min(rows_per_block, N - n0);
+  float* w = smem;                  // [3, H, H+1]
+  float* b = w + 3 * H * HP;        // [3, H]
+  float* hp = b + H3;               // [H]   h_{t-1}
+  float* dh = hp + H;               // [H]   carried dh
+  float* gh = dh + H;               // [3H]  h_{t-1} @ w + b
+  float* da = gh + H3;              // [3H]  da_r, da_z, dghn
+  const int g = blockIdx.y, n = blockIdx.x;
 
   load_weights(w, b, wr, wz, wn, br, bz, bn, g, H);
-  for (int i = threadIdx.x; i < nrows * H; i += blockDim.x) dh[i] = 0.f;
+  for (int i = threadIdx.x; i < H; i += blockDim.x) dh[i] = 0.f;
   __syncthreads();
 
   for (int t = T - 1; t >= 0; --t) {
-    const long long base = (((long long)g * T + t) * N + n0) * H;
-    for (int i = threadIdx.x; i < nrows * H; i += blockDim.x)
-      hp[i] = t > 0 ? hs[base - (long long)N * H + i] : 0.f;
+    const long long row = ((long long)g * T + t) * N + n;   // of [G*T*N] rows
+    for (int j = threadIdx.x; j < H; j += blockDim.x)
+      hp[j] = t > 0 ? hs[(row - N) * H + j] : 0.f;
     __syncthreads();
-    hidden_gates(gh, hp, w, b, nrows, H);
+    for (int j3 = threadIdx.x; j3 < H3; j3 += blockDim.x) {
+      const int gate = j3 / H, j = j3 - gate * H;
+      const float* wg = w + gate * H * HP + j;
+      float acc = 0.f;
+      for (int k = 0; k < H; ++k) acc = fmaf(hp[k], wg[k * HP], acc);
+      gh[j3] = acc + b[j3];
+    }
     __syncthreads();
-    for (int idx = threadIdx.x; idx < nrows * H; idx += blockDim.x) {
-      const int n = idx / H, j = idx - n * H;
-      const long long at = base + idx;
-      const float* ghn = gh + n * H3;
-      const float r = sigmoid_f(gi_r[at] + ghn[j]);
-      const float z = sigmoid_f(gi_z[at] + ghn[H + j]);
-      const float gh_n = ghn[2 * H + j];
+    for (int j = threadIdx.x; j < H; j += blockDim.x) {
+      const long long at = row * H + j;
+      const float r = sigmoid_f(gi_r[at] + gh[j]);
+      const float z = sigmoid_f(gi_z[at] + gh[H + j]);
+      const float gh_n = gh[2 * H + j];
       const float nn = tanhf(gi_n[at] + r * gh_n);
-      const float dht = dhs[at] + dh[idx];
-      const float dz = dht * (hp[idx] - nn);
-      const float dn = dht * (1.0f - z);
-      const float da_n = dn * (1.0f - nn * nn);
+      const float dht = dhs[at] + dh[j];
+      const float da_n = dht * (1.0f - z) * (1.0f - nn * nn);
       const float dghn = da_n * r;
-      const float dr = da_n * gh_n;
-      const float da_r = dr * r * (1.0f - r);
-      const float da_z = dz * z * (1.0f - z);
-      dar[at] = da_r;
-      daz[at] = da_z;
-      dan[at] = da_n;
-      dghn_out[at] = dghn;
-      float* dan_s = da + n * H3;
-      dan_s[j] = da_r;
-      dan_s[H + j] = da_z;
-      dan_s[2 * H + j] = dghn;
-      dh[idx] = dht * z;
+      const float da_r = da_n * gh_n * r * (1.0f - r);
+      const float da_z = dht * (hp[j] - nn) * z * (1.0f - z);
+      float* o = dg + row * 4 * H + j;
+      o[0] = da_n;
+      o[H] = da_r;
+      o[2 * H] = da_z;
+      o[3 * H] = dghn;
+      da[j] = da_r;
+      da[H + j] = da_z;
+      da[2 * H + j] = dghn;
+      dh[j] = dht * z;
     }
     __syncthreads();
     // dh_{t-1}[k] = dht z + sum over gates and j of da_gate[j] w[gate][k][j]
-    for (int idx = threadIdx.x; idx < nrows * H; idx += blockDim.x) {
-      const int n = idx / H, k = idx - n * H;
-      const float* dan_s = da + n * H3;
-      float acc = dh[idx];
+    for (int k = threadIdx.x; k < H; k += blockDim.x) {
+      float acc = dh[k];
       for (int gate = 0; gate < 3; ++gate) {
         const float* wk = w + (gate * H + k) * HP;
-        const float* dg = dan_s + gate * H;
-        for (int j = 0; j < H; ++j) acc = fmaf(dg[j], wk[j], acc);
+        const float* dgt = da + gate * H;
+        for (int j = 0; j < H; ++j) acc = fmaf(dgt[j], wk[j], acc);
       }
-      dh[idx] = acc;
+      dh[k] = acc;
     }
     __syncthreads();
   }
-}
-
-// K7b's rows per block: enough blocks for every SM (132) before a block
-// takes more than one row, at most 8, and fewer if shared memory runs out
-// (8 * H floats a row besides the weights: h_{t-1}, dh, gh, da).
-void launch_shape(int G, int N, int H, int* rpb, int* threads, size_t* smem) {
-  const int per_row = 8 * H;
-  int r = (G * N + 131) / 132;
-  r = r < 1 ? 1 : (r > 8 ? 8 : r);
-  const size_t fixed = 3ULL * H * (H + 1) + 3ULL * H;
-  while (r > 1 && sizeof(float) * (fixed + (size_t)r * per_row) > SMEM_LIMIT) --r;
-  int th = ((r * 3 * H + 31) / 32) * 32;
-  *threads = th < 64 ? 64 : (th > 1024 ? 1024 : th);
-  *rpb = r;
-  *smem = sizeof(float) * (fixed + (size_t)r * per_row);
 }
 
 }  // namespace
@@ -188,20 +167,25 @@ extern "C" int mmtr_gru_rec_fwd(const float* gi_r, const float* gi_z, const floa
   return (int)launch_gru_rec<true>(p, G, plan, (cudaStream_t)stream_ptr);
 }
 
+// K7b: dg [G, T*N, 4H] (da_n, da_r, da_z, dghn a row); the plan's six host
+// ints (ops/gru_cuda._plan_gru_rec_bwd): row (1: gru_rec_bwd_row_kernel, a
+// block a row), then rows, threads, smem (bytes), js and wp as
+// launch_gru_rec_bwd_tiled reads them.
 extern "C" int mmtr_gru_rec_bwd(const float* gi_r, const float* gi_z, const float* gi_n,
                                 const float* hs, const float* dhs, const float* wr,
                                 const float* wz, const float* wn, const float* br,
-                                const float* bz, const float* bn, float* dar, float* daz,
-                                float* dan, float* dghn, int G, int T, int N, int H,
-                                void* stream_ptr) {
-  int rpb, threads;
-  size_t smem;
-  launch_shape(G, N, H, &rpb, &threads, &smem);
-  cudaError_t err = cudaFuncSetAttribute(
-      gru_rec_bwd_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid((N + rpb - 1) / rpb, G);
-  gru_rec_bwd_kernel<<<grid, threads, smem, (cudaStream_t)stream_ptr>>>(
-      gi_r, gi_z, gi_n, hs, dhs, wr, wz, wn, br, bz, bn, dar, daz, dan, dghn, T, N, H, rpb);
-  return (int)cudaGetLastError();
+                                const float* bz, const float* bn, float* dg, int G, int T,
+                                int N, int H, const int* plan, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (plan[0]) {
+    static unsigned long long smem_set = 0;
+    const cudaError_t err = allow_smem_once((const void*)gru_rec_bwd_row_kernel, &smem_set);
+    if (err != cudaSuccess) return (int)err;
+    gru_rec_bwd_row_kernel<<<dim3(N, G), plan[2], plan[3], stream>>>(
+        gi_r, gi_z, gi_n, hs, dhs, wr, wz, wn, br, bz, bn, dg, T, N, H);
+    return (int)cudaGetLastError();
+  }
+  const GruRecBwd p{{gi_r, gi_z, gi_n}, {wr, wz, wn}, {br, bz}, bn, hs, dhs, dg,
+                    (long long)T * N * H, T, N, H, plan[4], plan[5], 0};
+  return (int)launch_gru_rec_bwd_tiled<true>(p, G, plan + 1, stream);
 }

@@ -30,15 +30,16 @@ import torch
 
 from .. import _build
 from . import gemm_tc
+from .bert_ffn_cuda import _plan_proj_ln
 from .layernorm import masked_layer_norm
 
 # a lane holds up to 4 output columns (lane + 32c) of 8 query rows
 _MAX_HEAD_DIM = 128
 _ATT_RQ, _ATT_KT, _ATT_QT, _ATT_WARPS = 8, 64, 32, 4   # csrc/bert_attn.cu
 _UNIT_BLOCKS_PER_SM = 4    # attention_unit_kernel's launch bound
-# the wgmma widths K2's products may take: csrc/bert_attn.cu's K2_PROMOTE is
-# 0, so every width the header instantiates (promoted sums would need
-# gemm_tc.PROMOTED_WIDTHS)
+# the wgmma widths K2's q/k/v product may take: csrc/bert_attn.cu's
+# K2_PROMOTE is 0, so every width the header instantiates (promoted sums
+# would need gemm_tc.PROMOTED_WIDTHS)
 _K2_WIDTHS = gemm_tc.WG_WIDTHS
 _ATTN_PLAN_KEYS = ("path", "vec", "blocks", "smem", "dp", "ldk", "qrows", "krows", "nc")
 
@@ -93,24 +94,25 @@ def _plan_attn_block(B: int, L: int, h: int, n_heads: int, num_sms: int = _build
                      aligned: bool = True) -> dict:
     """K2's launch plan (``csrc/bert_attn.cu`` takes it as given), built as
     ``bert_ffn_cuda._plan_ffn`` is: for the q/k/v product (``[B*L, h] x [h,
-    3h]``) and the o-projection (``[B*L, h] x [h, h]``) each,
-    :func:`gemm_tc.plan_product`: the wgmma tiles (128 x 128 at BERT-base
-    width: 18 and 6 column tiles) where they give every SM at least two
-    blocks, else the 64 x 64 mma.sync tiles split over K (at B=1 L=8: the
-    q/k/v product into 6 ranges, the o-projection into 8); 4-byte copies
-    where ``h`` is not a multiple of 4 or an operand is not ``aligned``.
+    3h]``), :func:`gemm_tc.plan_product`: the wgmma tiles (128 x 128 at
+    BERT-base width: 18 column tiles) where they give every SM at least two
+    blocks, else the 64 x 64 mma.sync tiles split over K (6 ranges at B=1
+    L=8), widths :data:`_K2_WIDTHS`; 4-byte copies where ``h`` is not a
+    multiple of 4 or an operand is not ``aligned``.  ``o``: the o-projection
+    + LN's, K6b's plan (:func:`bert_ffn_cuda._plan_proj_ln`) at the same
+    rows.
     ``attention``: :func:`_plan_attention` for the q, k, v planes of the
     product's fresh scratch (16-byte aligned when ``h`` is a multiple of 4).
     ``fused_ln``: the o-projection split on the mma.sync tiles, its planes
     added by the LayerNorm's launch.  ``scratch``: the floats the larger of
     the two products needs (they run one after the other)."""
-    rows, vec = B * L, aligned and h % 4 == 0
-    qkv, o = (gemm_tc.plan_product(rows, n, h, vec, num_sms, widths=_K2_WIDTHS)
-              for n in (3 * h, h))
+    rows = B * L
+    qkv = gemm_tc.plan_product(rows, 3 * h, h, aligned and h % 4 == 0, num_sms,
+                               widths=_K2_WIDTHS)
+    o = _plan_proj_ln(rows, h, num_sms, aligned)
     return {"qkv": qkv, "o": o,
             "attention": _plan_attention(B, L, n_heads, h // n_heads, num_sms, h % 4 == 0),
-            "fused_ln": int(not o["wgmma"] and o["splits"] > 1),
-            "scratch": max(qkv["scratch"], o["scratch"])}
+            "fused_ln": o["fused_ln"], "scratch": max(qkv["scratch"], o["scratch"])}
 
 
 @functools.lru_cache(maxsize=None)

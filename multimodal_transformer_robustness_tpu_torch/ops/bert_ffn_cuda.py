@@ -8,7 +8,8 @@ tensor and runs its plain PyTorch version on a CPU tensor:
     x)))``, replaces ``bert_ffn_pallas._ffn_ln_kernel``;
   * :func:`proj_ln_block` (K6b, ``csrc/bert_ffn.cu``): ``LN(resid + a @ w_t +
     b)``, the attention epilogue of the unfused attention paths, replaces
-    ``bert_ffn_pallas._proj_ln_kernel``;
+    ``bert_ffn_pallas._proj_ln_kernel``; K2's tail, the same host function
+    by the same plan, :func:`_plan_proj_ln`;
   * :func:`ffn_ln_block_q` (K4, ``csrc/bert_ffn_q.cu``): K3 with int8 weights
     and dynamic per-row int8 activations (``--bert_int8``), replaces
     ``bert_ffn_pallas._ffn_ln_kernel_q``; its products run on a persistent
@@ -21,10 +22,10 @@ tensor and runs its plain PyTorch version on a CPU tensor:
     :func:`int8_matmul` exposes the raw int32 product to check it exact;
     each product takes :func:`_plan_qgemm`'s tiles.
 
-K3's two products run on ``csrc/gemm_tc.cuh``'s 3xTF32 tensor-core GEMM by
-the plan :func:`_plan_ffn` computes on the host.  Float weights come
-pre-transposed (``w_t = weight.T``, made once at load
-time).  Quantized weights are ``{"q": int8 [out, in], "s": float32 [out]}``
+K3's two products and K6b's run on ``csrc/gemm_tc.cuh``'s 3xTF32 tensor-core
+GEMM by the plans :func:`_plan_ffn` and :func:`_plan_proj_ln` compute on the
+host.  Float weights come pre-transposed (``w_t = weight.T``, made once at
+load time).  Quantized weights are ``{"q": int8 [out, in], "s": float32 [out]}``
 dicts as ``models/bert.quantize_bert_params`` makes them, never transposed.
 """
 
@@ -130,27 +131,55 @@ def proj_ln_block_plain(resid, a, w_t, b, ln_g, ln_b, *, eps: float) -> torch.Te
     return masked_layer_norm(resid + (torch.matmul(a, w_t) + b), ln_g, ln_b, eps=eps)
 
 
+def _plan_proj_ln(rows: int, h: int, num_sms: int = _build.NUM_SMS,
+                  aligned: bool = True) -> dict:
+    """K6b's launch plan, and K2's for its o-projection + LN
+    (``bert_attn_cuda._plan_attn_block``'s ``"o"``): the ``[rows, h] x [h,
+    h]`` product by :func:`gemm_tc.plan_product`, the wgmma tiles (128 x 128
+    at BERT-base width) where they give every SM at least two blocks, else
+    the 64 x 64 mma.sync tiles split over K (8 ranges at 8 rows); every wgmma
+    width, since the sums stay unpromoted (``K2_PROMOTE`` / ``K6B_PROMOTE``
+    0); 4-byte copies where ``h`` is not a multiple of 4 or an operand is not
+    ``aligned``.  ``fused_ln``: split on the mma.sync tiles, the planes
+    added by the LayerNorm's launch (``csrc/gemm_tc.cuh``
+    ``launch_proj_resid_ln``).  ``scratch``: the floats it needs."""
+    p = gemm_tc.plan_product(rows, h, h, aligned and h % 4 == 0, num_sms)
+    return {**p, "fused_ln": int(not p["wgmma"] and p["splits"] > 1)}
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_proj_ln_plan(rows, h, num_sms, aligned):
+    """The plan as csrc/bert_ffn.cu reads it: (C int array, its address,
+    the floats of scratch, whether the sum is fused into the LN)."""
+    p = _plan_proj_ln(rows, h, num_sms, aligned)
+    return _build.host_ints([p[k] for k in gemm_tc.PLAN_KEYS]) + (p["scratch"], p["fused_ln"])
+
+
 def proj_ln_block(resid: torch.Tensor, a: torch.Tensor, w_t: torch.Tensor,
                   b: torch.Tensor, ln_g: torch.Tensor, ln_b: torch.Tensor, *,
                   eps: float) -> torch.Tensor:
     """``LN(resid + a @ w_t + b)``, HF BertSelfOutput: ``resid`` and ``a``
-    ``[..., h]`` with the same leading dims, ``w_t [h, h]`` (= weight.T)."""
+    ``[..., h]`` with the same leading dims, ``w_t [h, h]`` (= weight.T).
+    W^T's TF32 planes are made per call (the wgmma path's ``scratch``), as
+    K2's are."""
     if resid.device.type == "cpu":
         return proj_ln_block_plain(resid, a, w_t, b, ln_g, ln_b, eps=eps)
     dev = _build.device_of(resid)
     h = resid.shape[-1]
     rows = resid.numel() // h
-    _build.require(resid, "resid", tuple(resid.shape), dev)
-    _build.require(a, "a", tuple(resid.shape), dev)
-    _build.require(w_t, "w_t", (h, h), dev)
-    for name, t in (("b", b), ("ln_g", ln_g), ("ln_b", ln_b)):
-        _build.require(t, name, (h,), dev)
-    lib = _build.load_library()
-    resid_sum = torch.empty(rows, h, dtype=torch.float32, device=dev)
+    _build.require_all(dev, ((resid, "resid", resid.shape), (a, "a", resid.shape),
+                             (w_t, "w_t", (h, h)), (b, "b", (h,)), (ln_g, "ln_g", (h,)),
+                             (ln_b, "ln_b", (h,))))
+    plan = _cached_proj_ln_plan(rows, h, _build.num_sms(dev),
+                                (a.data_ptr() | w_t.data_ptr()) % 16 == 0)
+    f32 = dict(dtype=torch.float32, device=dev)
+    resid_sum = torch.empty(0 if plan[3] else rows * h, **f32)
+    scratch = torch.empty(plan[2], **f32) if plan[2] else None
     out = torch.empty_like(resid)
-    err = lib.mmtr_proj_ln_fwd(
+    err = _build.load_library().mmtr_proj_ln_fwd(
         resid.data_ptr(), a.data_ptr(), w_t.data_ptr(), b.data_ptr(), ln_g.data_ptr(),
-        ln_b.data_ptr(), resid_sum.data_ptr(), out.data_ptr(), rows, h, eps,
+        ln_b.data_ptr(), resid_sum.data_ptr(), out.data_ptr(),
+        scratch.data_ptr() if scratch is not None else 0, rows, h, eps, plan[1],
         _build.stream_ptr(dev))
     _build.check(err, "proj_ln_block kernel")
     proj_ln_block.launches += 1

@@ -198,28 +198,22 @@ def gru_dir_bwd_plain(x, wp, wt, bc, bhn, hs, gates, dhs, reverse: bool = False,
     return ((grads[0],) if need_dx else (None,)) + tuple(grads[-4:])
 
 
-def _plan_gru_bwd(T: int, B: int, in_dim: int, H: int, need_dx: bool,
-                  num_sms: int = _build.NUM_SMS, aligned: bool = True) -> dict:
-    """K1b's launch plan (``csrc/bigru_bwd.cu`` takes it as given).
+def _plan_rec_bwd(G: int, B: int, H: int, num_sms: int = _build.NUM_SMS) -> dict:
+    """The launch plan of ``csrc/gru_rec.cuh``'s backward recurrence
+    (``gru_rec_bwd_tiled_kernel``) over ``G`` groups of ``B`` rows (K1b: G =
+    1; K7b: G recurrences of N rows).
 
-    The recurrence (``csrc/gru_rec.cuh``'s backward form): thread tiles of
-    4 rows by 4 strided columns, ``js = ceil(H / 4)`` threads across a row
-    group; W_hh^T in shared memory once, ``[3][4 js][wp]`` with the odd
-    pitch ``wp = 4 js + 1`` that keeps both products' reads free of bank
-    conflicts, beside h_prev ``[2][4 js][rows + 4]`` and da ``[3][4 js][rows
-    + 4]``.  Rows a block: a multiple of 4, as many as shared memory and the
-    kernel's 256 threads allow at most, then the fewest that give the
-    fewest waves of ``ceil(B / rows)`` blocks (B=4096, H=100: 32 rows, 128
-    blocks, one wave; B <= 528: 4 rows).  Raises where W_hh^T and a 4-row
-    tile do not fit a block's 227 KB (H above ~130).
-
-    The products over T*B rows (``gemm_tc.plan_tn``, k ranges that fill one
-    wave): dwp over ``[in, 3H]``, and dwt with the bias sums over ``[H + 1,
-    4H]`` (a row of ones appended to h_prev); ``tn_vec`` takes 16-byte
-    copies (``in`` and ``H`` multiples of 4, ``aligned`` operands).
-    ``partial``: the floats of both products' planes.  dx only when
-    ``need_dx``: :func:`gemm_tc.plan_product` over ``[T*B, 3H] x [3H,
-    in]`` (``dx_*``; all zero without dx)."""
+    Thread tiles of 4 rows by 4 strided columns, ``js = ceil(H / 4)``
+    threads across a row group; W_hh^T in shared memory once, ``[3][4
+    js][wp]`` with the odd pitch ``wp = 4 js + 1`` that keeps both products'
+    reads free of bank conflicts, beside h_prev ``[2][4 js][rows + 4]`` and
+    da ``[3][4 js][rows + 4]``.  Rows a block: a multiple of 4, as many as
+    shared memory and the kernel's 256 threads allow at most, then the
+    fewest that give the fewest waves of ``G * ceil(B / rows)`` blocks (one
+    an SM): B=4096, H=100, G=1: 32 rows, 128 blocks, one wave; G=2: 40 rows
+    fit, but give 206 blocks, two waves, so 32 rows, 256 blocks; G * B <=
+    528: 4 rows.  Raises where W_hh^T and a 4-row tile do not fit a block's
+    227 KB (H above ~130)."""
     js = -(-H // 4)
     hk = 4 * js
     wp = hk + 1
@@ -235,13 +229,32 @@ def _plan_gru_bwd(T: int, B: int, in_dim: int, H: int, need_dx: bool,
     if r_max == 0:
         raise ValueError(f"gru backward: H={H} leaves no room for a {_TILED_RT}-row tile "
                          f"in {_build.MAX_SMEM} bytes of shared memory")
-    fewest_blocks = -(-B // r_max)
-    waves = -(-fewest_blocks // num_sms)
+    waves = -(-G * -(-B // r_max) // num_sms)
     rows = next(r for r in range(_TILED_RT, r_max + 1, _TILED_RT)
-                if -(-B // r) <= waves * num_sms)
-    plan = {"rows": rows, "threads": rows // _TILED_RT * js, "smem": smem(rows), "js": js,
-            "wp": wp, "blocks": -(-B // rows),
-            "tn_vec": int(aligned and in_dim % 4 == 0 and H % 4 == 0)}
+                if G * -(-B // r) <= waves * num_sms)
+    return {"rows": rows, "threads": rows // _TILED_RT * js, "smem": smem(rows), "js": js,
+            "wp": wp, "blocks": G * -(-B // rows)}
+
+
+REC_BWD_PLAN_KEYS = ("rows", "threads", "smem", "js", "wp")
+
+
+def _plan_gru_bwd(T: int, B: int, in_dim: int, H: int, need_dx: bool,
+                  num_sms: int = _build.NUM_SMS, aligned: bool = True) -> dict:
+    """K1b's launch plan (``csrc/bigru_bwd.cu`` takes it as given).
+
+    The recurrence: :func:`_plan_rec_bwd` with G = 1 (B=4096, H=100: 32
+    rows, 128 blocks, one wave; B <= 528: 4 rows).
+
+    The products over T*B rows (``gemm_tc.plan_tn``, k ranges that fill one
+    wave): dwp over ``[in, 3H]``, and dwt with the bias sums over ``[H + 1,
+    4H]`` (a row of ones appended to h_prev); ``tn_vec`` takes 16-byte
+    copies (``in`` and ``H`` multiples of 4, ``aligned`` operands).
+    ``partial``: the floats of both products' planes.  dx only when
+    ``need_dx``: :func:`gemm_tc.plan_product` over ``[T*B, 3H] x [3H,
+    in]`` (``dx_*``; all zero without dx)."""
+    plan = _plan_rec_bwd(1, B, H, num_sms)
+    plan["tn_vec"] = int(aligned and in_dim % 4 == 0 and H % 4 == 0)
     dwp = gemm_tc.plan_tn(in_dim, 3 * H, T * B, num_sms)
     dwt = gemm_tc.plan_tn(H + 1, 4 * H, T * B, num_sms)
     plan.update(dwp_splits=dwp["splits"], dwp_kps=dwp["kps"], dwt_splits=dwt["splits"],
@@ -253,8 +266,8 @@ def _plan_gru_bwd(T: int, B: int, in_dim: int, H: int, need_dx: bool,
     return plan
 
 
-BWD_PLAN_KEYS = ("rows", "threads", "smem", "js", "wp", "tn_vec", "dwp_splits", "dwp_kps",
-                 "dwt_splits", "dwt_kps") + tuple(f"dx_{k}" for k in gemm_tc.PLAN_KEYS)
+BWD_PLAN_KEYS = REC_BWD_PLAN_KEYS + ("tn_vec", "dwp_splits", "dwp_kps", "dwt_splits",
+                                     "dwt_kps") + tuple(f"dx_{k}" for k in gemm_tc.PLAN_KEYS)
 
 
 @functools.lru_cache(maxsize=None)

@@ -13,10 +13,13 @@ weights (the two directions of a bidirectional GRU).
 (replacing ``gru_pallas._recurrence_fwd_impl``) on a CUDA tensor and runs
 :func:`gru_recurrence_plain` on a CPU tensor.  The forward runs K1f's
 recurrence (``csrc/gru_rec.cuh``) with a group axis; its launch plan is
-``bigru_cuda._plan_recurrence`` over G groups of N rows.  :func:`gru_recurrence_bwd_cuda`
-is its backward (replacing ``gru_pallas._recurrence_bwd_impl``): newest
-step first, r / z / n recomputed from ``h_{t-1}``, it gives the gate
-gradients ``da_r, da_z, da_n`` and ``dghn = da_n * r``.  :class:`GruRecurrence` joins
+``bigru_cuda._plan_recurrence`` over G groups of N rows.
+:func:`gru_recurrence_bwd_cuda` is its backward (replacing
+``gru_pallas._recurrence_bwd_impl``): newest step first, r / z / n
+recomputed from ``h_{t-1}``, it gives the gate gradients ``da_r, da_z,
+da_n`` and ``dghn = da_n * r``.  It runs K1b's backward recurrence
+(``csrc/gru_rec.cuh``) with a group axis, or at few rows a block a row,
+by the plan :func:`_plan_gru_rec_bwd`.  :class:`GruRecurrence` joins
 the two as ``gru_recurrence_pallas``'s custom VJP does, and reduces the
 weight and bias gradients outside the kernel with ``torch.einsum`` / ``sum``,
 as the JAX package leaves them to XLA.
@@ -29,7 +32,7 @@ import functools
 import torch
 
 from .. import _build
-from .bigru_cuda import REC_PLAN_KEYS, _plan_recurrence
+from .bigru_cuda import REC_BWD_PLAN_KEYS, REC_PLAN_KEYS, _plan_rec_bwd, _plan_recurrence
 
 
 def _hidden_gates(h, wr, wz, wn, br, bz, bn):
@@ -119,23 +122,60 @@ def gru_recurrence_cuda(gi_r, gi_z, gi_n, wr, wz, wn, br, bz, bn) -> torch.Tenso
 gru_recurrence_cuda.launches = 0
 
 
+# K7b's row form up to this many waves of one block an SM: at H=100 a row
+# block's step took ~5 us, a tiled block's ~23-26 us however few its rows
+# (one 25-thread warp at 4 rows), and the tiled form fits the rows left
+# into one wave (tools/k7b_trials.py: 1.236 ms against 1.364 at G*N = 528,
+# T=50)
+_ROW_WAVES = 4
+
+
+def _plan_gru_rec_bwd(G: int, N: int, H: int, num_sms: int = _build.NUM_SMS) -> dict:
+    """K7b's launch plan (``csrc/gru_recurrence.cu`` takes it as given).
+    While ``G * N <= _ROW_WAVES * num_sms``, ``row``: a block a (row, group)
+    (``gru_rec_bwd_row_kernel``: the weights ``[3][H][H + 1]`` and biases,
+    then h_{t-1}, dh, gh and da of the row in shared memory, a thread a gate
+    column), as K7f keeps its small form.  Else K1b's tiled backward
+    recurrence over ``G`` groups, :func:`bigru_cuda._plan_rec_bwd` (G=2
+    N=4096 H=100: 32 rows, 256 blocks, two waves).  Raises where the weights
+    do not fit a block's 227 KB."""
+    if G * N > _ROW_WAVES * num_sms:
+        return {"row": 0, **_plan_rec_bwd(G, N, H, num_sms)}
+    smem = 4 * (3 * H * (H + 1) + 11 * H)
+    if smem > _build.MAX_SMEM:
+        raise ValueError(f"gru recurrence backward: H={H} needs {smem} bytes of shared "
+                         f"memory, more than the card's {_build.MAX_SMEM}")
+    return {"row": 1, "rows": 1, "threads": min(1024, max(64, _build.round_up(3 * H, 32))),
+            "smem": smem, "js": 0, "wp": 0, "blocks": G * N}
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_bwd_plan(G, N, H, num_sms):
+    """K7b's plan as csrc/gru_recurrence.cu reads it: (C int array, its
+    address)."""
+    p = _plan_gru_rec_bwd(G, N, H, num_sms)
+    return _build.host_ints([p[k] for k in ("row",) + REC_BWD_PLAN_KEYS])
+
+
 def gru_recurrence_bwd_cuda(gi_r, gi_z, gi_n, hs, dhs, wr, wz, wn, br, bz, bn):
     """K7b: ``(da_r, da_z, da_n, dghn)``, each ``[G, T, N, H]``.  CPU tensors
     take :func:`gru_recurrence_bwd_plain`; CUDA tensors launch the kernel
-    (or raise)."""
+    (or raise), which writes one ``dg [G, T, N, 4H]`` of rows (da_n, da_r,
+    da_z, dghn): the four are strided views of it."""
     if gi_r.device.type == "cpu":
         return gru_recurrence_bwd_plain(gi_r, gi_z, gi_n, hs, dhs, wr, wz, wn, br, bz, bn)
     dev = _build.device_of(gi_r)
     g, t_len, n, h = _check_operands((gi_r, gi_z, gi_n, hs, dhs), (wr, wz, wn),
                                      (br, bz, bn), dev)
-    lib = _build.load_library()
-    outs = [torch.empty_like(gi_r) for _ in range(4)]
-    err = lib.mmtr_gru_rec_bwd(
-        *(a.data_ptr() for a in (gi_r, gi_z, gi_n, hs, dhs, wr, wz, wn, br, bz, bn, *outs)),
-        g, t_len, n, h, _build.stream_ptr(dev))
+    plan = _cached_bwd_plan(g, n, h, _build.num_sms(dev))
+    dg = torch.empty(g, t_len, n, 4, h, dtype=torch.float32, device=dev)
+    err = _build.load_library().mmtr_gru_rec_bwd(
+        *(a.data_ptr() for a in (gi_r, gi_z, gi_n, hs, dhs, wr, wz, wn, br, bz, bn, dg)),
+        g, t_len, n, h, plan[1], _build.stream_ptr(dev))
     _build.check(err, "gru_recurrence backward kernel")
     gru_recurrence_bwd_cuda.launches += 1
-    return tuple(outs)
+    da_n, da_r, da_z, dghn = dg.unbind(3)
+    return da_r, da_z, da_n, dghn
 
 
 gru_recurrence_bwd_cuda.launches = 0

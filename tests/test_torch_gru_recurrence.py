@@ -17,7 +17,8 @@ import pytest
 import torch
 
 from multimodal_transformer_robustness_tpu.ops import gru as jgru
-from multimodal_transformer_robustness_tpu.ops.gru_pallas import gru_recurrence_pallas
+from multimodal_transformer_robustness_tpu.ops.gru_pallas import (_recurrence_bwd_impl,
+                                                                   gru_recurrence_pallas)
 from multimodal_transformer_robustness_tpu_torch.ops import gru as tgru
 from multimodal_transformer_robustness_tpu_torch.ops import gru_cuda
 
@@ -76,6 +77,24 @@ def test_recurrence_bwd_plain_matches_autograd():
     ref = torch.autograd.grad(tgru.gru_recurrence_plain(*leaves), leaves, dhs)
     for name, a, b in zip(NAMES, got, ref):
         torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6, msg=name)
+
+
+def test_recurrence_bwd_plain_matches_pallas_interpret():
+    """K7b's plain version against the JAX kernel's backward itself
+    (``_recurrence_bwd_impl``, interpret mode) on the four gate gradients,
+    the same hs and cotangent on both sides: the same newest-first loop,
+    float32 sums in another order."""
+    rng = np.random.default_rng(5)
+    G, T, N, H = 2, 7, 5, 12
+    arrays = _recurrence_inputs(rng, G, T, N, H)
+    hs = np.asarray(gru_recurrence_pallas(*map(jnp.asarray, arrays), True))
+    dhs = rng.standard_normal((G, T, N, H)).astype(np.float32)
+    operands = [*arrays[:3], hs, dhs, *arrays[3:]]
+    want = _recurrence_bwd_impl(*map(jnp.asarray, operands), interpret=True)
+    got = gru_cuda.gru_recurrence_bwd_plain(*(torch.from_numpy(np.array(a)) for a in operands))
+    for name, a, b in zip(("da_r", "da_z", "da_n", "dghn"), got, want):
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=1e-5, atol=1e-5,
+                                   err_msg=name)
 
 
 def test_group_axis_is_independent():

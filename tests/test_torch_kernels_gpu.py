@@ -319,18 +319,28 @@ def test_dense_attention_kernel_plan_edges(cuda, L, dh):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("rows,h", [(8, 768), (300, 768), (7, 32)])
+@pytest.mark.parametrize("rows,h", [(8, 768), (300, 768), (7, 32), (9001, 768),
+                                    (131072, 768), (8, 13), (9001, 13)])
 def test_proj_ln_kernel_matches_plain(cuda, rows, h):
+    """K6b across its plan (K2's o-projection + LN): split-K mma.sync tiles
+    with the LayerNorm adding the planes (8 rows), unsplit mma.sync tiles
+    (300, 7), the wgmma tiles with a ragged last row tile (9,001) and at the
+    training rows (131,072), and h = 13 on 4-byte copies; a rerun gives the
+    same bits."""
     rng = np.random.default_rng(11)
     resid, a = (rng.standard_normal((rows, h)).astype(np.float32) for _ in range(2))
     w_t = (rng.standard_normal((h, h)) * 0.05).astype(np.float32)
     b, bb = ((rng.standard_normal(h) * 0.05).astype(np.float32) for _ in range(2))
     g = (1.0 + 0.2 * rng.standard_normal(h)).astype(np.float32)
     args = [torch.from_numpy(t).to(cuda) for t in (resid, a, w_t, b, g, bb)]
+    n0 = bert_ffn_cuda.proj_ln_block.launches
     out = bert_ffn_cuda.proj_ln_block(*args, eps=1e-12)
+    again = bert_ffn_cuda.proj_ln_block(*args, eps=1e-12)
     torch.cuda.synchronize()
+    assert bert_ffn_cuda.proj_ln_block.launches == n0 + 2
     ref = bert_ffn_cuda.proj_ln_block_plain(*args, eps=1e-12)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=1e-4)
+    assert torch.equal(out, again)
 
 
 @pytest.mark.gpu
@@ -596,6 +606,31 @@ def test_gru_recurrence_kernels_match_plain(cuda, G, T, N, H):
     ref = gru_cuda.gru_recurrence_bwd_plain(*bwd_args)
     again = gru_cuda.gru_recurrence_bwd_cuda(*bwd_args)
     for a, r, b in zip(got, ref, again):
+        torch.testing.assert_close(a, r, atol=1e-4 * r.abs().max().item(), rtol=0)
+        assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,T,N,H", [(2, 8, 4096, 100), (2, 64, 1, 100), (3, 9, 300, 13),
+                                     (3, 9, 40, 13), (2, 6, 265, 100), (2, 6, 264, 100)])
+def test_gru_recurrence_bwd_kernel_matches_plain(cuda, G, T, N, H):
+    """K7b by its plan: K1b's tiled backward recurrence over G groups (two
+    waves at G=2 N=4096; H=13 at N=300; just past the row form's four waves
+    at G*N=530) and a block a row (N=1, G=3 N=40, G*N=528); four [G, T, N,
+    H] views of one
+    [G, T*N, 4H] output, held to the plain version at 1e-4 of max |ref|;
+    a rerun gives the same bits."""
+    gates, weights, biases, dhs = _rec_inputs(np.random.default_rng(20), G, T, N, H, cuda)
+    hs = gru_cuda.gru_recurrence_plain(*gates, *weights, *biases)
+    bwd_args = (*gates, hs, dhs, *weights, *biases)
+    n0 = gru_cuda.gru_recurrence_bwd_cuda.launches
+    got = gru_cuda.gru_recurrence_bwd_cuda(*bwd_args)
+    again = gru_cuda.gru_recurrence_bwd_cuda(*bwd_args)
+    torch.cuda.synchronize()
+    assert gru_cuda.gru_recurrence_bwd_cuda.launches == n0 + 2
+    ref = gru_cuda.gru_recurrence_bwd_plain(*bwd_args)
+    for a, r, b in zip(got, ref, again):
+        assert a.shape == (G, T, N, H)
         torch.testing.assert_close(a, r, atol=1e-4 * r.abs().max().item(), rtol=0)
         assert torch.equal(a, b)
 

@@ -1,9 +1,10 @@
-"""Launch plans of the port's K1f, K1b, K3, K7f, attention (K6a, K2, K8)
-and flash-backward kernels, on the CPU.
+"""Launch plans of the port's K1f, K1b, K3, K6b, K7f, K7b, attention (K6a,
+K2, K8) and flash-backward kernels, on the CPU.
 
 The CUDA kernels run only on the card, but their launch plans are computed
-in Python (``ops.bigru_cuda._plan_gru_fwd``, ``_plan_gru_bwd`` and
-``_plan_recurrence``, ``ops.bert_ffn_cuda._plan_ffn``,
+in Python (``ops.bigru_cuda._plan_gru_fwd``, ``_plan_gru_bwd``,
+``_plan_rec_bwd`` and ``_plan_recurrence``, ``ops.gru_cuda.
+_plan_gru_rec_bwd``, ``ops.bert_ffn_cuda._plan_ffn`` and ``_plan_proj_ln``,
 ``ops.bert_attn_cuda._plan_attention``, ``ops.attention_cuda.
 _plan_flash_bwd``) and handed to ``csrc/bigru.cu`` / ``csrc/bigru_bwd.cu``
 / ``csrc/bert_ffn.cu`` / ``csrc/gru_recurrence.cu`` / ``csrc/bert_attn.cu``
@@ -12,8 +13,9 @@ what an H100 takes: at most 232,448 bytes of shared memory and 1,024
 threads a block (256 for the tiled GRU recurrence, its launch bound), the
 shared-memory carve-up the kernels make, and the grids the design asks for:
 the B=4096 recurrences (K1f's and K1b's) in one wave of 132 SMs and
-K7f's G=2 N=4096 in two, the BERT FFN's products on the wgmma tiles at the
-training rows and split over K at the serving rows,
+K7f's and K7b's G=2 N=4096 in two, the BERT FFN's and the o-projection's
+(K2's and K6b's, one plan) products on the wgmma tiles at the training rows
+and split over K at the serving rows,
 persistent attention and flash-backward grids no larger than the card holds
 at once, K8's unit path at Tq, Tk <= 64 and tiled path beyond, and the
 flash backward's choice between its fused kernel (Tq, Tk <= 64) and the
@@ -24,7 +26,7 @@ import pytest
 
 from multimodal_transformer_robustness_tpu_torch.ops import (attention_cuda, bert_attn_cuda,
                                                               bert_ffn_cuda, bigru_cuda,
-                                                              gemm_tc)
+                                                              gemm_tc, gru_cuda)
 
 MAX_SMEM = 232448
 SM_SMEM = 233472   # an SM's shared memory; each resident block reserves 1 KB more
@@ -270,6 +272,108 @@ def test_gru_bwd_plan_refuses_what_shared_memory_cannot_hold():
         bigru_cuda._plan_gru_bwd(50, 4096, 768, 200, False)
 
 
+# K1b's plan ints (BWD_PLAN_KEYS, then partial and dx_scratch) before its
+# recurrence plan took a group axis: at the training shapes and a few
+# small ones, and a sha256 over every shape test_gru_bwd_plans_fit_the_card
+# walks
+_K1B_PLAN_INTS = {
+    (50, 4096, 768, 100, False): (32, 200, 193200, 25, 101, 1, 11, 582, 52, 124, 0, 0, 0, 0,
+                                  4635200, 0),
+    (50, 4096, 512, 100, False): (32, 200, 193200, 25, 101, 1, 16, 400, 52, 124, 0, 0, 0, 0,
+                                  4558400, 0),
+    (50, 4096, 200, 100, True): (32, 200, 193200, 25, 101, 1, 33, 194, 52, 124, 1, 1, 1, 104,
+                                 4080800, 120000),
+    (8, 1, 768, 100, True): (4, 25, 137200, 25, 101, 1, 1, 1, 1, 1, 0, 1, 3, 128, 270800,
+                             18432),
+    (5, 67, 20, 13, True): (4, 4, 5824, 4, 17, 0, 11, 1, 11, 1, 0, 0, 1, 104, 16588, 0),
+    (1, 529, 7, 12, False): (8, 6, 4752, 3, 13, 0, 17, 1, 17, 1, 0, 0, 0, 0, 14892, 0),
+}
+_K1B_PLAN_SHA256 = "573410004a378068128f240b18f6cea84b87588f2f71d204b675c0757cb6510a"
+
+
+def test_gru_bwd_plan_ints_stay_as_they_were():
+    """K1b's plan through the G-group recurrence plan (G = 1) gives the same
+    ints as before, so K1b launches as it did."""
+    import hashlib
+
+    keys = bigru_cuda.BWD_PLAN_KEYS + ("partial", "dx_scratch")
+
+    def ints(*args):
+        p = bigru_cuda._plan_gru_bwd(*args)
+        return [p[k] for k in keys]
+
+    for args, want in _K1B_PLAN_INTS.items():
+        assert tuple(ints(*args)) == want, args
+    digest = hashlib.sha256()
+    for in_dim, H in ((768, 100), (512, 100), (200, 100), (7, 12), (20, 13), (20, 16)):
+        for T in (1, 5, 8, 50):
+            for B in (1, 3, 64, 67, 132, 528, 529, 4095, 4096, 5000):
+                for need_dx in (True, False):
+                    digest.update(repr(ints(T, B, in_dim, H, need_dx)).encode())
+    assert digest.hexdigest() == _K1B_PLAN_SHA256
+
+
+@pytest.mark.parametrize("G,N,H", [(2, 4096, 100), (1, 4096, 100), (2, 1, 100), (3, 300, 13),
+                                   (3, 40, 13), (2, 264, 100), (2, 265, 100), (3, 7, 12),
+                                   (2, 5000, 101), (4, 133, 100), (3, 176, 99)])
+def test_gru_rec_bwd_plans_fit_the_card(G, N, H):
+    """K7b's plan: a block a (row, group) while G*N fills at most four waves
+    of one block an SM, its weights, biases and row state within a block's
+    shared memory; else
+    the tiled backward recurrence over G groups (bigru_cuda._plan_rec_bwd,
+    K1b's form): 4 rows by 4 strided columns a thread, within the launch
+    bound and the carve-up, in the fewest waves of one block an SM and the
+    fewest rows that give them."""
+    p = gru_cuda._plan_gru_rec_bwd(G, N, H)
+    if p["row"]:
+        assert G * N <= 4 * SMS and p["rows"] == 1 and p["blocks"] == G * N
+        assert p["smem"] == 4 * (3 * H * (H + 1) + 3 * H + 8 * H) <= MAX_SMEM
+        assert 3 * H <= p["threads"] <= 1024 and p["threads"] % 32 == 0
+    else:
+        assert G * N > 4 * SMS
+        assert p == {"row": 0, **bigru_cuda._plan_rec_bwd(G, N, H)}
+        assert p["js"] == -(-H // 4) and p["wp"] % 2 == 1 and p["wp"] >= 4 * p["js"]
+        assert p["rows"] % 4 == 0 and p["threads"] == p["rows"] // 4 * p["js"] <= 256
+        assert p["smem"] == _gru_bwd_smem(p, H) <= MAX_SMEM
+        per_group = -(-N // p["rows"])
+        assert p["blocks"] == G * per_group and per_group * p["rows"] >= N
+        if p["rows"] > 4:   # fewer rows would take another wave
+            assert G * -(-N // (p["rows"] - 4)) > -(-p["blocks"] // SMS) * SMS
+
+
+def test_gru_rec_bwd_plan_at_the_mosei_header_level():
+    """G=2 directions of N=4096 rows, H=100: 40-row blocks fit the 256-thread
+    bound (shared memory would allow 48), but give 206 blocks, already two
+    waves, so 32 rows: 256 blocks, two waves of one block an SM.  G=1
+    B=4096 is K1b's one wave of 128 32-row blocks."""
+    p = bigru_cuda._plan_rec_bwd(2, 4096, 100)
+    assert (p["rows"], p["threads"], p["blocks"], p["js"], p["wp"]) == (32, 200, 256, 25, 101)
+    assert -(-p["blocks"] // SMS) == 2 and -(-2 * -(-4096 // 40) // SMS) == 2
+    assert 40 // 4 * 25 <= 256 < 44 // 4 * 25
+    assert _gru_bwd_smem(dict(p, rows=48), 100) <= MAX_SMEM < _gru_bwd_smem(dict(p, rows=52), 100)
+    p = bigru_cuda._plan_rec_bwd(1, 4096, 100)
+    assert (p["rows"], p["blocks"]) == (32, 128) and p["blocks"] <= SMS
+    assert gru_cuda._plan_gru_rec_bwd(2, 4096, 100)["row"] == 0
+    assert gru_cuda._plan_gru_rec_bwd(2, 1, 100)["row"] == 1
+    # the row form up to four waves (2 * 264 = 4 * 132 rows), one block an SM
+    p = gru_cuda._plan_gru_rec_bwd(2, 264, 100)
+    assert (p["row"], p["threads"], p["smem"]) == (1, 320, 125600)
+    assert p["smem"] + 1024 > SM_SMEM // 2
+    assert gru_cuda._plan_gru_rec_bwd(2, 265, 100)["row"] == 0
+    p = bigru_cuda._plan_rec_bwd(3, 300, 13)
+    assert (p["js"], p["wp"]) == (4, 17) and p["smem"] <= MAX_SMEM
+
+
+def test_gru_rec_bwd_plan_refuses_what_shared_memory_cannot_hold():
+    for G in (1, 2):
+        with pytest.raises(ValueError, match="4-row tile"):
+            bigru_cuda._plan_rec_bwd(G, 4096, 140)
+        with pytest.raises(ValueError, match="shared memory"):
+            gru_cuda._plan_gru_rec_bwd(G, 4096, 140)
+    with pytest.raises(ValueError, match="shared memory"):
+        gru_cuda._plan_gru_rec_bwd(2, 1, 300)
+
+
 def _attention_smem(p):
     """csrc/bert_attn.cu's carve-up, in bytes: the unit path's two (q, k, v,
     mask) buffers and [4][8][krows] probabilities, or the tiled path's q
@@ -472,6 +576,49 @@ def test_attn_block_qkv_tiles_cover_3h(rows):
     p = bert_attn_cuda._plan_attn_block(1, rows, 768, 12)["qkv"]
     width = p["bn"] if p["wgmma"] else gemm_tc.SMALL_BN
     assert -(-2304 // width) * width - 2304 < width // 2
+
+
+@pytest.mark.parametrize("h", [768, 13, 16, 1024])
+def test_proj_ln_plans_fit_the_card(h):
+    """K6b's plan: one gemm_tc.cuh product over N = K = h, its split planes
+    added by the LayerNorm's launch exactly where it splits on the mma.sync
+    tiles; 16-byte copies only where h is a multiple of 4."""
+    for rows in (1, 8, 9, 32, 128, 512, 4096, 9001, 131072):
+        p = bert_ffn_cuda._plan_proj_ln(rows, h)
+        _check_product(p, rows, h, h)
+        assert p["vec"] == int(h % 4 == 0)
+        assert p["fused_ln"] == int(not p["wgmma"] and p["splits"] > 1)
+
+
+def test_proj_ln_plan_at_the_bert_shapes():
+    """BERT-base width: at the training rows (B=4096, L=32) the wgmma tiles,
+    128 wide (6 column tiles); at the serving rows (B=1, L=8) the mma.sync
+    tiles split over K into 8 ranges of 3 k tiles, summed by the LayerNorm's
+    launch; a ragged 9,001 rows on the wgmma tiles; 4,096 rows on unsplit
+    mma.sync tiles; h = 13 on 4-byte copies."""
+    p = bert_ffn_cuda._plan_proj_ln(131072, 768)
+    assert (p["wgmma"], p["bn"], p["fused_ln"], p["scratch"]) == (1, 128, 0, 2 * 768 * 768)
+    p = bert_ffn_cuda._plan_proj_ln(8, 768)
+    assert (p["wgmma"], p["splits"], p["fused_ln"], p["scratch"]) == (0, 8, 1, 8 * 8 * 768)
+    p = bert_ffn_cuda._plan_proj_ln(9001, 768)
+    assert p["wgmma"] == 1 and 9001 % 128
+    p = bert_ffn_cuda._plan_proj_ln(4096, 768)
+    assert (p["wgmma"], p["splits"], p["fused_ln"]) == (0, 1, 0)
+    for rows in (8, 9001, 131072):
+        p = bert_ffn_cuda._plan_proj_ln(rows, 13)
+        assert p["vec"] == p["wgmma"] == 0
+        p = bert_ffn_cuda._plan_proj_ln(rows, 768, aligned=False)
+        assert p["vec"] == p["wgmma"] == 0
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("h,heads", [(768, 12), (16, 2), (36, 4), (30, 3)])
+def test_attn_block_o_plan_is_proj_ln(h, heads, aligned):
+    """K2's o-projection + LN and K6b take one plan at the same rows."""
+    for B, L in ((1, 1), (1, 8), (1, 512), (300, 31), (4096, 32)):
+        p = bert_attn_cuda._plan_attn_block(B, L, h, heads, aligned=aligned)
+        assert p["o"] == bert_ffn_cuda._plan_proj_ln(B * L, h, aligned=aligned)
+        assert p["fused_ln"] == p["o"]["fused_ln"]
 
 
 def test_attn_block_plan_unaligned_operands_take_4_byte_copies():

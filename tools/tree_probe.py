@@ -1,7 +1,7 @@
-"""K1b's, K2's and K4's device time by kernel (torch.profiler) at their
-path shapes, beside their CUDA-event time, digests of K1f's and K4's
-outputs, and warm serving ms (float, int8 and flash requests), for the port
-package of any tree.
+"""K1b's, K2's, K4's and K6b's device time by kernel (torch.profiler) at
+their path shapes, beside their CUDA-event time, digests of their outputs
+and of K1f's, and warm serving ms (float, int8 and flash
+requests), for the port package of any tree.
 
 Run from the repository root on a card:
 
@@ -11,11 +11,12 @@ Run from the repository root on a card:
 ``multimodal_transformer_robustness_tpu_torch`` is measured, so that a
 parent commit unpacked with ``git archive`` under ``build/`` is measured by
 the same cases (``chip_smoke.k1b_split_cases``, ``bert_split_cases``,
-``profile_ms``, ``cuda_ms``) in the same call, and two trees' K1f and K4
-outputs can be held bit for bit (sha256 of ``gru_dir``'s output, and of
+``profile_ms``, ``cuda_ms``) in the same call, and two trees' outputs can
+be held bit for bit (sha256 of ``gru_dir``'s output, of
 ``ffn_ln_block_q``'s output, hidden codes and scales, at the training and
-serving shapes, inputs from a fixed seed), and both trees serve the same
-synthetic requests (``chip_smoke.synthetic_requests``, ``_timed``: the
+serving shapes, and of every split case's outputs: K1b's gradients, K2's,
+K4's and K6b's outputs; inputs from fixed seeds), and both trees serve the
+same synthetic requests (``chip_smoke.synthetic_requests``, ``_timed``: the
 median host ms of 5 warm calls).  Prints one JSON line per shape.
 """
 
@@ -94,10 +95,13 @@ def main() -> int:
                           "warm_request_ms": warm}), flush=True)
         del pred
     for name, fn, iters in cases:
+        out = fn()
+        digests = [hashlib.sha256(a.cpu().numpy().tobytes()).hexdigest()[:16]
+                   for a in (out if isinstance(out, tuple) else (out,)) if a is not None]
         per = cs.profile_ms(fn, iters)
         print(json.dumps({"tree": args.tree, "package": _build.__file__, "shape": name,
                           "event_ms": cs.cuda_ms(fn, iters), "device_ms": sum(per.values()),
-                          "kernels_ms": per}), flush=True)
+                          "kernels_ms": per, "sha256": digests}), flush=True)
     return 0
 
 
