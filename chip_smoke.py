@@ -39,9 +39,12 @@ Phases, each fatal on failure:
                 (quantize x, GEMM1, quantize g1, GEMM2, LayerNorm), K6b
                 (product, LayerNorm), K6a, K8, K7f and K7b at their two
                 timed shapes, of K1b (recurrence, products, sums) at its three
-                training-path shapes, and of the flash backward's calls (the
-                delta op, K5dq, K5dkv, K5b) at the MOSEI shapes, beside
-                their CUDA-event ms;
+                training-path shapes, of the flash backward's calls (the
+                delta op, K5dq, K5dkv, K5b) at the MOSEI shapes, and of K9f
+                (LN rows, its two products) and K9b (rows, the recompute,
+                dp, ds, LN backward, weight reductions, sums) at the top
+                FFN block, R=4096 train and R=1, and K9f at R=1 at the
+                other three blocks, beside their CUDA-event ms;
   4. serving  - StreamingPredictor at the reference's MOSEI serving
                 configuration (d=200, 8x25 heads, layers 3/4/2, 4-layer
                 BERT-base-width text encoder, random weights from seed 0)
@@ -548,14 +551,40 @@ def bert_split_cases(dev, rng, h=768, ffn=3072, heads=12):
     return cases
 
 
+def k9_split_cases(dev, rng):
+    """K9f and K9b at the top FFN block (E=1000, F1=800, relu, channel
+    mask) at R=4096 in train mode (d_mid 0.1, d_res 0.3) and R=1 in eval,
+    and K9f at R=1 in eval at the other three MOSEI blocks, for the device
+    split by kernel: K9f's LN rows and two products, K9b's rows, recompute,
+    dp and ds products, LN backward, weight reductions and sums.  Only the
+    public wrappers are called, so tools/tree_probe.py runs the same cases
+    against another tree's package."""
+    from multimodal_transformer_robustness_tpu_torch.ops import trunk_block_cuda as tb
+
+    cases = []
+    for name, E, F1, act, rep, _, masked in TRUNK_BLOCKS[::-1]:
+        top_ffn = name == "top-ffn"
+        for R, train in ((4096, True), (1, False)) if top_ffn else ((1, False),):
+            x, _, dout, params, masks = trunk_block_operands(rng, R, E, F1, masked, dev)
+            cfg = tb.BlockConfig(act, rep, 0.1, 0.3, 5, 6, train, train)
+            shape = f"{name} E={E} F1={F1} R={R} {'train' if train else 'eval'}"
+            it = 5 if R > 1 else 20
+            fargs, bargs = (x, x, *params, *masks, cfg), (x, x, dout, *params, *masks, cfg)
+            cases.append((f"K9f {shape}", lambda a=fargs: tb.trunk_block_fwd(*a), it))
+            if top_ffn:
+                cases.append((f"K9b {shape}", lambda a=bargs: tb.trunk_block_bwd(*a), it))
+    return cases
+
+
 def device_split(dev, rng):
     """K1f's device time split between its kernels (input projection,
     recurrence), K1b's (recurrence, products, sums: k1b_split_cases), K3's
     (fc1, fc2, LayerNorm), K2's, K4's and K6b's (bert_split_cases, also at
-    B=1 L=512) and, for K1f, K3, K6a, K8, K7f, K7b, K2, K4 and K6b at their
-    timed shapes, K1b at its three path shapes and the flash backward's calls
-    (flash_bwd_cases), the device time of a call (torch.profiler) beside
-    its CUDA-event time: the gap is host time the card waits for.
+    B=1 L=512), K9f's and K9b's (k9_split_cases) and, for K1f, K3, K6a, K8,
+    K7f, K7b, K2, K4 and K6b at their timed shapes, K1b at its three path
+    shapes, the flash backward's calls (flash_bwd_cases) and K9 at the top
+    FFN block, the device time of a call (torch.profiler) beside its
+    CUDA-event time: the gap is host time the card waits for.
     Returns one dict per shape."""
     from multimodal_transformer_robustness_tpu_torch.ops import attention_cuda as ac
     from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bigru_cuda
@@ -610,6 +639,7 @@ def device_split(dev, rng):
                       lambda bwd=bwd: gru_cuda.gru_recurrence_bwd_cuda(*bwd), 5 if N > 1 else 20))
     cases += flash_bwd_cases(dev, rng, t)
     cases += bert_split_cases(dev, rng)
+    cases += k9_split_cases(dev, rng)
     for name, fn, iters in cases:
         per = profile_ms(fn, iters)
         event = cuda_ms(fn, iters)

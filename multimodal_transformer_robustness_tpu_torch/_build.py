@@ -62,8 +62,8 @@ _SIGNATURES = {
     "mmtr_flash_bwd": (_I, [_P] * 11 + [_I] * 7 + [_P, _P]),
     "mmtr_gru_rec_fwd": (_I, [_P] * 10 + [_I] * 4 + [_P, _P]),
     "mmtr_gru_rec_bwd": (_I, [_P] * 12 + [_I] * 4 + [_P, _P]),
-    "mmtr_trunk_block_fwd": (_I, [_P] * 12 + [_I] * 9 + [_F] * 3 + [_P]),
-    "mmtr_trunk_block_bwd": (_I, [_P] * 19 + [_I] * 11 + [_F] * 3 + [_P]),
+    "mmtr_trunk_block_fwd": (_I, [_P] * 15 + [_I] * 9 + [_F] * 3 + [_P, _P]),
+    "mmtr_trunk_block_bwd": (_I, [_P] * 21 + [_I] * 9 + [_F] * 3 + [_P, _P]),
 }
 
 

@@ -1,9 +1,7 @@
 // Building blocks shared by the port's hand-written Hopper kernels:
-//   * the GEMM epilogues (GemmEpilogue) of gemm_tc.cuh's products;
-//   * a transposed-A float32 product with split-K, C = A^T @ B over very
-//     long K, written with shared-memory tiles and FMA loops (no library
-//     GEMM), writing per-split partials that a second pass adds in a fixed
-//     order (deterministic: no float atomics);
+//   * the GEMM epilogues (GemmEpilogue, EpiArgs) of gemm_tc.cuh's products;
+//   * the fixed-order sum of split-K partial planes (deterministic: no float
+//     atomics);
 //   * a row LayerNorm with float32 centered two-pass moments;
 //   * the logistic sigmoid of the GRU kernels, and the position hash of the
 //     dropout in the flash and trunk-block kernels;
@@ -12,10 +10,6 @@
 //     dynamic shared-memory cap.
 // Everything sits in an anonymous namespace, so each .cu file that includes
 // this header gets its own copy and the shared library links cleanly.
-//
-// The transposed-A product is the first, simple form: 64x64 output tiles,
-// 16-deep k steps, 256 threads with a 4x4 micro-tile each, CUDA-core FMAs
-// (K9b's weight gradients); the tensor-core GEMMs are gemm_tc.cuh's.
 #pragma once
 
 #include <cuda_runtime.h>
@@ -86,92 +80,31 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-constexpr int GEMM_TM = 64;
-constexpr int GEMM_TN = 64;
-constexpr int GEMM_TK = 16;
-constexpr int GEMM_THREADS = 256;
-
 enum GemmEpilogue {
   EPI_BIAS = 0,           // C = A@B + bias
   EPI_BIAS_GELU = 1,      // C = gelu_erf(A@B + bias)
   EPI_BIAS_RESIDUAL = 2,  // C = resid + (A@B + bias)
   EPI_NONE = 3,           // C = A@B (bias is not read)
+  // K9's (trunk_block.cu), with EpiArgs; d(r, c): the dropout factor
+  // keep or 0 drawn at (global row r, c / rep), 1 without dropout
+  EPI_K9_MID = 4,         // C = d * act((A@B + bias) * mask)
+  EPI_K9_OUT = 5,         // C = resid + ((A@B + bias) * mask) * d
+  EPI_K9_DP = 6,          // C = A@B * (d * act'(resid) * mask), resid the
+                          //     EPI_K9_MID output (act' from its sign)
+};
+
+// What the K9 epilogues read besides bias and resid; the other epilogues
+// take it zeroed and read nothing of it.
+struct EpiArgs {
+  const float* mask;      // [N]
+  int act;                // 1: relu, 0: identity
+  int use_drop, rep;      // dropout on; columns per draw
+  uint32_t seed;
+  float rate, keep;       // keep = 1 / (1 - rate)
 };
 
 __device__ __forceinline__ float gelu_erf(float v) {
   return 0.5f * v * (1.0f + erff(v * 0.70710678118654752f));
-}
-
-// Transposed-A split-K product: split z of C_part = sum over k in
-// [z*kchunk, min(K, (z+1)*kchunk)) of At(k, m) * B(k, n), written row-major
-// [M, N] at C + z*stride_c.  At(k, m) = A[k*lda + m], B(k, n) = B[k*ldb +
-// n].  Both tile loads walk the contiguous (m or n) axis across threads.
-__global__ void __launch_bounds__(GEMM_THREADS)
-gemm_f32_tn_splitk_kernel(const float* __restrict__ A, const float* __restrict__ B,
-                          float* __restrict__ C, int M, int N, int K, int lda,
-                          int ldb, int kchunk, long long stride_c) {
-  __shared__ float As[GEMM_TK][GEMM_TM + 4];
-  __shared__ float Bs[GEMM_TK][GEMM_TN];
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;
-  const int row0 = blockIdx.y * GEMM_TM, col0 = blockIdx.x * GEMM_TN;
-  const int kbeg = blockIdx.z * kchunk;
-  const int kend = min(K, kbeg + kchunk);
-  C += blockIdx.z * stride_c;
-
-  float acc[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = kbeg; k0 < kend; k0 += GEMM_TK) {
-    for (int i = tid; i < GEMM_TM * GEMM_TK; i += GEMM_THREADS) {
-      const int m = i % GEMM_TM, k = i / GEMM_TM;
-      const int gm = row0 + m, gk = k0 + k;
-      As[k][m] = (gm < M && gk < kend) ? A[(long long)gk * lda + gm] : 0.f;
-    }
-    for (int i = tid; i < GEMM_TK * GEMM_TN; i += GEMM_THREADS) {
-      const int n = i % GEMM_TN, k = i / GEMM_TN;
-      const int gk = k0 + k, gc = col0 + n;
-      Bs[k][n] = (gk < kend && gc < N) ? B[(long long)gk * ldb + gc] : 0.f;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < GEMM_TK; ++k) {
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = As[k][ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = Bs[k][tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = row0 + ty + 16 * i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = col0 + tx + 16 * j;
-      if (c < N) C[(long long)r * N + c] = acc[i][j];
-    }
-  }
-}
-
-void launch_gemm_tn_splitk(const float* A, const float* B, float* C, int M,
-                           int N, int K, int lda, int ldb,
-                           int kchunk, int splits, long long stride_c,
-                           cudaStream_t stream) {
-  const dim3 grid((N + GEMM_TN - 1) / GEMM_TN, (M + GEMM_TM - 1) / GEMM_TM,
-                  splits);
-  gemm_f32_tn_splitk_kernel<<<grid, GEMM_THREADS, 0, stream>>>(
-      A, B, C, M, N, K, lda, ldb, kchunk, stride_c);
 }
 
 constexpr int RED_THREADS = 256;

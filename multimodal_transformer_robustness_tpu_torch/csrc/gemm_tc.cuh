@@ -24,10 +24,17 @@
 // (G = 1, hg = N: a plain [K, N]); bias [N]; C written gated too,
 // C[g][m][j] for column c = g*hg + j (G = 1: a plain [M, N]).  So the GRU's
 // input projection runs as ONE N = 3H product over x [T*B, in] into its
-// [3, T*B, H] gate scratch, and x is read once.  The epilogue is a template
-// parameter (common.cuh's GemmEpilogue): + bias (K1f), + bias then exact-erf
-// gelu (K3's fc1), + bias + a row-major resid [M, N] (K3's fc2), or none
-// (K1b's dx); with split-K it runs once, after the fixed-order sum.
+// [3, T*B, H] gate scratch, and x is read once.  With the template flag BT,
+// B is given as [N, K] instead (a torch Linear weight as it is stored, read
+// without a transpose; G = 1).  The epilogue is a template parameter
+// (common.cuh's GemmEpilogue): + bias (K1f), + bias then exact-erf gelu
+// (K3's fc1), + bias + a row-major resid [M, N] (K3's fc2), none (K1b's
+// dx), or K9's three, which read EpiArgs (a mask, the act flag and the hash
+// dropout's seed and rate) and the output's global row: EPI_K9_MID (bias,
+// mask, act, dropout: K9's hidden activation), EPI_K9_OUT (bias, mask,
+// dropout, + resid: the block's residual output) and EPI_K9_DP (the
+// backward's dp, gated by the hidden activation's sign); with split-K each
+// runs once, after the fixed-order sum.
 //
 // Two kernels for C = A @ B, picked by the caller's plan (ops/gemm_tc.py):
 // wgmma over 128-row tiles of a plan-chosen width where the rows fill the
@@ -74,17 +81,37 @@ __device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
 }
 
+// K9's dropout factor of output (r, c): keep where the position hash at
+// (r, c / rep) is at least rate, else 0; 1 without dropout.
+__device__ __forceinline__ float tc_drop(const EpiArgs& ex, int r, int c) {
+  if (!ex.use_drop) return 1.f;
+  return hash_uniform(ex.seed, r, ex.rep > 1 ? c / ex.rep : c) >= ex.rate ? ex.keep : 0.f;
+}
+
 // The epilogue of output (r, c) of an [M, N] product: acc (+ bias[c])
-// (then gelu_erf) (then resid[r][c] + it).
+// (then gelu_erf) (then resid[r][c] + it); or K9's (common.cuh's
+// GemmEpilogue).
 template <int EPI>
 __device__ __forceinline__ float tc_epilogue(float acc, const float* __restrict__ bias,
                                              const float* __restrict__ resid, int r, int c,
-                                             int N) {
-  float v = acc;
-  if (EPI != EPI_NONE) v += bias[c];
-  if (EPI == EPI_BIAS_GELU) v = gelu_erf(v);
-  if (EPI == EPI_BIAS_RESIDUAL) v = resid[(long long)r * N + c] + v;
-  return v;
+                                             int N, const EpiArgs& ex) {
+  if constexpr (EPI == EPI_K9_MID) {
+    const float u = (acc + bias[c]) * ex.mask[c];
+    return (ex.act ? fmaxf(u, 0.f) : u) * tc_drop(ex, r, c);
+  } else if constexpr (EPI == EPI_K9_OUT) {
+    return resid[(long long)r * N + c] + ((acc + bias[c]) * ex.mask[c]) * tc_drop(ex, r, c);
+  } else if constexpr (EPI == EPI_K9_DP) {
+    // relu' from the sign of EPI_K9_MID's output: d * relu(u) > 0 iff u > 0
+    // where d > 0, and the factor is 0 anyway where d = 0
+    const bool dead = ex.act && !(resid[(long long)r * N + c] > 0.f);
+    return acc * (tc_drop(ex, r, c) * (dead ? 0.f : 1.f) * ex.mask[c]);
+  } else {
+    float v = acc;
+    if (EPI != EPI_NONE) v += bias[c];
+    if (EPI == EPI_BIAS_GELU) v = gelu_erf(v);
+    if (EPI == EPI_BIAS_RESIDUAL) v = resid[(long long)r * N + c] + v;
+    return v;
+  }
 }
 
 // An mma.sync block tile: BM x BN outputs, WARPS_M x WARPS_N warps each
@@ -102,8 +129,9 @@ struct TcTile {
   static constexpr int SMEM = (int)sizeof(float) * TC_STAGES * (BM * TC_LDA + TC_BK * LDB);
 };
 
-// Stage one BM x 32 tile of A and one 32 x BN tile of B into the ring.
-template <class Tile, bool VEC>
+// Stage one BM x 32 tile of A and one 32 x BN tile of B into the ring; BT:
+// B [N, K], staged as [BN][TC_LDA] (k fastest, as A).
+template <class Tile, bool VEC, bool BT = false>
 __device__ __forceinline__ void gemm_tc_load(float* As, float* Bs, const float* A,
                                              const float* B, int M, int N, int K, int lda,
                                              int hg, int row0, int col0, int k0) {
@@ -115,11 +143,13 @@ __device__ __forceinline__ void gemm_tc_load(float* As, float* Bs, const float* 
       const bool ok = row0 + r < M && k0 + c < K;
       cp_async16(As + r * TC_LDA + c, ok ? A + (long long)(row0 + r) * lda + k0 + c : A, ok);
     }
-    for (int i = tid; i < TC_BK * (BN / 4); i += T) {
-      const int kr = i / (BN / 4), c = (i % (BN / 4)) * 4;
-      const int col = col0 + c, g = col / hg, j = col - g * hg;
-      const bool ok = k0 + kr < K && col < N;
-      cp_async16(Bs + kr * LDB + c, ok ? B + ((long long)g * K + k0 + kr) * hg + j : B, ok);
+    if constexpr (!BT) {
+      for (int i = tid; i < TC_BK * (BN / 4); i += T) {
+        const int kr = i / (BN / 4), c = (i % (BN / 4)) * 4;
+        const int col = col0 + c, g = col / hg, j = col - g * hg;
+        const bool ok = k0 + kr < K && col < N;
+        cp_async16(Bs + kr * LDB + c, ok ? B + ((long long)g * K + k0 + kr) * hg + j : B, ok);
+      }
     }
   } else {
     for (int i = tid; i < BM * TC_BK; i += T) {
@@ -127,25 +157,45 @@ __device__ __forceinline__ void gemm_tc_load(float* As, float* Bs, const float* 
       const bool ok = row0 + r < M && k0 + c < K;
       cp_async4(As + r * TC_LDA + c, ok ? A + (long long)(row0 + r) * lda + k0 + c : A, ok);
     }
-    for (int i = tid; i < TC_BK * BN; i += T) {
-      const int kr = i / BN, c = i % BN;
-      const int col = col0 + c, g = col / hg, j = col - g * hg;
-      const bool ok = k0 + kr < K && col < N;
-      cp_async4(Bs + kr * LDB + c, ok ? B + ((long long)g * K + k0 + kr) * hg + j : B, ok);
+    if constexpr (!BT) {
+      for (int i = tid; i < TC_BK * BN; i += T) {
+        const int kr = i / BN, c = i % BN;
+        const int col = col0 + c, g = col / hg, j = col - g * hg;
+        const bool ok = k0 + kr < K && col < N;
+        cp_async4(Bs + kr * LDB + c, ok ? B + ((long long)g * K + k0 + kr) * hg + j : B, ok);
+      }
+    }
+  }
+  if constexpr (BT) {
+    constexpr int CW = VEC ? 4 : 1;   // floats a copy
+    for (int i = tid; i < BN * (TC_BK / CW); i += T) {
+      const int n = i / (TC_BK / CW), c = (i % (TC_BK / CW)) * CW;
+      const bool ok = col0 + n < N && k0 + c < K;
+      const float* src = ok ? B + (long long)(col0 + n) * K + k0 + c : B;
+      if (VEC) cp_async16(Bs + n * TC_LDA + c, src, ok);
+      else cp_async4(Bs + n * TC_LDA + c, src, ok);
     }
   }
 }
 
 // Load the B fragments of k step kk (rows kk + t4, kk + t4 + 4 of a staged
-// [32][LDB] tile) for NT n8 tiles at column n0, split into hi and lo.
-template <int NT, int LDB>
+// [32][LDB] tile; BT: columns kk + t4, kk + t4 + 4 of a staged [BN][TC_LDA]
+// one, bank 4 g8 + t4, conflict-free) for NT n8 tiles at column n0, split
+// into hi and lo.
+template <int NT, int LDB, bool BT = false>
 __device__ __forceinline__ void tc_b_frags(const float* bs, int kk, int n0, int g8, int t4,
                                            uint32_t (&bh)[NT][2], uint32_t (&bl)[NT][2]) {
 #pragma unroll
   for (int j = 0; j < NT; ++j) {
-    const float* b = bs + (kk + t4) * LDB + n0 + j * 8 + g8;
-    split_tf32(b[0], bh[j][0], bl[j][0]);
-    split_tf32(b[4 * LDB], bh[j][1], bl[j][1]);
+    if constexpr (BT) {
+      const float* b = bs + (n0 + j * 8 + g8) * TC_LDA + kk + t4;
+      split_tf32(b[0], bh[j][0], bl[j][0]);
+      split_tf32(b[4], bh[j][1], bl[j][1]);
+    } else {
+      const float* b = bs + (kk + t4) * LDB + n0 + j * 8 + g8;
+      split_tf32(b[0], bh[j][0], bl[j][0]);
+      split_tf32(b[4 * LDB], bh[j][1], bl[j][1]);
+    }
   }
 }
 
@@ -187,14 +237,16 @@ __device__ __forceinline__ void tc_promote(float (&sum)[MT][NT][4], float (&acc)
 // VEC: K, lda and hg multiples of 4 and A, B 16-byte aligned.  Split-K:
 // block z sums k tiles [z * kps, (z + 1) * kps) into plane z of C (M * N
 // words a plane, no epilogue) when gridDim.z > 1, for gemm_splitk_sum (or
-// the caller's own pass) to add in order.
-template <class Tile, bool VEC, int EPI, int PROMOTE>
+// the caller's own pass) to add in order.  BT: B [N, K] (hg = N).
+template <class Tile, bool VEC, int EPI, int PROMOTE, bool BT = false>
 __global__ void __launch_bounds__(Tile::THREADS)
 gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
                const float* __restrict__ bias, const float* __restrict__ resid,
-               float* __restrict__ C, int M, int N, int K, int lda, int hg, int kps) {
+               float* __restrict__ C, int M, int N, int K, int lda, int hg, int kps,
+               EpiArgs ex) {
   constexpr int BM = Tile::BM, BN = Tile::BN, LDB = Tile::LDB;
   constexpr int MT = Tile::MT, NT = Tile::NT;
+  static_assert(!BT || Tile::BN * TC_LDA <= TC_BK * LDB, "a B^T stage fits B's slot");
   extern __shared__ float4 tc_smem4[];
   float* As = reinterpret_cast<float*>(tc_smem4);    // [STAGES][BM][LDA]
   float* Bs = As + TC_STAGES * BM * TC_LDA;          // [STAGES][BK][LDB]
@@ -220,8 +272,8 @@ gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
 #pragma unroll
   for (int s = 0; s < TC_STAGES - 1; ++s) {
     if (s < ktiles)
-      gemm_tc_load<Tile, VEC>(As + s * BM * TC_LDA, Bs + s * TC_BK * LDB, A, B, M, N, K, lda,
-                              hg, row0, col0, (kt0 + s) * TC_BK);
+      gemm_tc_load<Tile, VEC, BT>(As + s * BM * TC_LDA, Bs + s * TC_BK * LDB, A, B, M, N, K,
+                                  lda, hg, row0, col0, (kt0 + s) * TC_BK);
     cp_async_commit();
   }
 
@@ -231,8 +283,8 @@ gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
     const int nk = kt + TC_STAGES - 1;
     if (nk < ktiles) {
       const int s = nk % TC_STAGES;
-      gemm_tc_load<Tile, VEC>(As + s * BM * TC_LDA, Bs + s * TC_BK * LDB, A, B, M, N, K, lda,
-                              hg, row0, col0, (kt0 + nk) * TC_BK);
+      gemm_tc_load<Tile, VEC, BT>(As + s * BM * TC_LDA, Bs + s * TC_BK * LDB, A, B, M, N, K,
+                                  lda, hg, row0, col0, (kt0 + nk) * TC_BK);
     }
     cp_async_commit();
 
@@ -249,7 +301,7 @@ gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
         split_tf32(a[4], ah[i][2], al[i][2]);
         split_tf32(a[8 * TC_LDA + 4], ah[i][3], al[i][3]);
       }
-      tc_b_frags<NT, LDB>(bs, kk, wn0, g8, t4, bh, bl);
+      tc_b_frags<NT, LDB, BT>(bs, kk, wn0, g8, t4, bh, bl);
       tc_mma_3x<MT, NT>(acc, ah, al, bh, bl);
     }
     if constexpr (PROMOTE > 0) {
@@ -273,7 +325,7 @@ gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
           const int g = c / hg, jj = c - g * hg;
           const float v = PROMOTE ? sum[PROMOTE ? i : 0][j][e] : acc[i][j][e];
           C[((long long)g * M + r) * hg + jj] =
-              split ? v : tc_epilogue<EPI>(v, bias, resid, r, c, N);
+              split ? v : tc_epilogue<EPI>(v, bias, resid, r, c, N, ex);
         }
       }
 }
@@ -283,14 +335,15 @@ gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
 template <int EPI>
 __global__ void gemm_splitk_sum(const float* __restrict__ P, const float* __restrict__ bias,
                                 const float* __restrict__ resid, float* __restrict__ C,
-                                long long total, int M, int N, int hg, int splits) {
+                                long long total, int M, int N, int hg, int splits,
+                                EpiArgs ex) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= total) return;
   float v = 0.f;
   for (int z = 0; z < splits; ++z) v += P[z * total + i];
   const int g = (int)(i / ((long long)M * hg)), j = (int)(i % hg);
   const int r = (int)((i / hg) % M);
-  C[i] = tc_epilogue<EPI>(v, bias, resid, r, g * hg + j, N);
+  C[i] = tc_epilogue<EPI>(v, bias, resid, r, g * hg + j, N, ex);
 }
 
 // Few rows: 64 x 64 mma.sync tiles (4 warps of 32 x 32), where more blocks
@@ -301,25 +354,26 @@ __global__ void gemm_splitk_sum(const float* __restrict__ P, const float* __rest
 // batch of 1 a block's 24 serial k tiles, not its MMAs, set the time.
 using TcSmall = TcTile<64, 64, 2, 2>;
 
-template <bool VEC, int EPI, int PROMOTE>
+template <bool VEC, int EPI, int PROMOTE, bool BT>
 cudaError_t launch_gemm_tc_small(const float* A, int lda, const float* B, const float* bias,
                                  const float* resid, float* C, int M, int N, int K, int hg,
-                                 int splits, float* partials, bool sum, cudaStream_t stream) {
+                                 int splits, float* partials, bool sum, const EpiArgs& ex,
+                                 cudaStream_t stream) {
   static unsigned long long smem_set = 0;
   cudaError_t err =
-      allow_smem_once((const void*)gemm_tc_kernel<TcSmall, VEC, EPI, PROMOTE>, &smem_set);
+      allow_smem_once((const void*)gemm_tc_kernel<TcSmall, VEC, EPI, PROMOTE, BT>, &smem_set);
   if (err != cudaSuccess) return err;
   const int ktiles = (K + TC_BK - 1) / TC_BK;
   const int kps = (ktiles + splits - 1) / splits;
   const dim3 grid((N + TcSmall::BN - 1) / TcSmall::BN, (M + TcSmall::BM - 1) / TcSmall::BM,
                   splits);
-  gemm_tc_kernel<TcSmall, VEC, EPI, PROMOTE><<<grid, TcSmall::THREADS, TcSmall::SMEM,
-                                               stream>>>(
-      A, B, bias, resid, splits > 1 ? partials : C, M, N, K, lda, hg, kps);
+  gemm_tc_kernel<TcSmall, VEC, EPI, PROMOTE, BT><<<grid, TcSmall::THREADS, TcSmall::SMEM,
+                                                   stream>>>(
+      A, B, bias, resid, splits > 1 ? partials : C, M, N, K, lda, hg, kps, ex);
   if (splits > 1 && sum) {
     const long long total = (long long)M * N;
     gemm_splitk_sum<EPI><<<(unsigned)((total + 255) / 256), 256, 0, stream>>>(
-        partials, bias, resid, C, total, M, N, hg, splits);
+        partials, bias, resid, C, total, M, N, hg, splits, ex);
   }
   return cudaGetLastError();
 }
@@ -454,15 +508,21 @@ __device__ __forceinline__ uint64_t wgmma_desc_sw128(const void* smem_ptr) {
          ((uint64_t)(1024 >> 4) << 32) | (1ull << 62);
 }
 
-// B (gated [G][K][hg]) -> hi, lo [N][K] TF32 planes, K-major.
+// B (gated [G][K][hg]; BT: [N][K] as it is) -> hi, lo [N][K] TF32 planes,
+// K-major.
+template <bool BT>
 __global__ void gemm_tc_presplit(const float* __restrict__ B, uint32_t* __restrict__ hi,
                                  uint32_t* __restrict__ lo, int N, int K, int hg) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= (long long)N * K) return;
-  const int n = (int)(i / K), k = (int)(i - (long long)n * K);
-  const int g = n / hg, j = n - g * hg;
   uint32_t h, l;
-  split_tf32(B[((long long)g * K + k) * hg + j], h, l);
+  if constexpr (BT) {
+    split_tf32(B[i], h, l);
+  } else {
+    const int n = (int)(i / K), k = (int)(i - (long long)n * K);
+    const int g = n / hg, j = n - g * hg;
+    split_tf32(B[((long long)g * K + k) * hg + j], h, l);
+  }
   hi[i] = h;
   lo[i] = l;
 }
@@ -559,7 +619,7 @@ __global__ void __launch_bounds__(WG_THREADS)
 gemm_wgmma_kernel(const float* __restrict__ A, const uint32_t* __restrict__ Bhi,
                   const uint32_t* __restrict__ Blo, const float* __restrict__ bias,
                   const float* __restrict__ resid, float* __restrict__ C, int M, int N, int K,
-                  int lda, int hg) {
+                  int lda, int hg, EpiArgs ex) {
   extern __shared__ float4 wg_smem4[];
   uint32_t* Bs = reinterpret_cast<uint32_t*>(
       (reinterpret_cast<uintptr_t>(wg_smem4) + 1023) & ~uintptr_t(1023));   // [S][2][plane]
@@ -619,26 +679,27 @@ gemm_wgmma_kernel(const float* __restrict__ A, const uint32_t* __restrict__ Bhi,
       if (r < M && c < N) {
         const int g = c / hg, jj = c - g * hg;
         C[((long long)g * M + r) * hg + jj] = tc_epilogue<EPI>(
-            PROMOTE ? sum[PROMOTE ? i * 4 + e : 0] : acc[i * 4 + e], bias, resid, r, c, N);
+            PROMOTE ? sum[PROMOTE ? i * 4 + e : 0] : acc[i * 4 + e], bias, resid, r, c, N,
+            ex);
       }
     }
 }
 
-template <int BN, int EPI, int PROMOTE>
+template <int BN, int EPI, int PROMOTE, bool BT>
 cudaError_t launch_gemm_wgmma(const float* A, int lda, const float* B, const float* bias,
                               const float* resid, float* C, int M, int N, int K, int hg,
-                              uint32_t* planes, cudaStream_t stream) {
+                              uint32_t* planes, const EpiArgs& ex, cudaStream_t stream) {
   uint32_t* hi = planes;
   uint32_t* lo = planes + (long long)N * K;
   const long long nk = (long long)N * K;
-  gemm_tc_presplit<<<(unsigned)((nk + 255) / 256), 256, 0, stream>>>(B, hi, lo, N, K, hg);
+  gemm_tc_presplit<BT><<<(unsigned)((nk + 255) / 256), 256, 0, stream>>>(B, hi, lo, N, K, hg);
   static unsigned long long smem_set = 0;
   cudaError_t err =
       allow_smem_once((const void*)gemm_wgmma_kernel<BN, EPI, PROMOTE>, &smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((N + BN - 1) / BN, (M + WG_BM - 1) / WG_BM);
   gemm_wgmma_kernel<BN, EPI, PROMOTE><<<grid, WG_THREADS, WgTile<BN>::SMEM, stream>>>(
-      A, hi, lo, bias, resid, C, M, N, K, lda, hg);
+      A, hi, lo, bias, resid, C, M, N, K, lda, hg, ex);
   return cudaGetLastError();
 }
 
@@ -654,29 +715,31 @@ struct TcPlan {
 inline TcPlan tc_plan(const int* p) { return TcPlan{p[0], p[1], p[2], p[3]}; }
 
 // C (gated [N/hg, M, hg]) = epilogue(A [M, K] (row stride lda) @ B (gated
-// [N/hg, K, hg])) in 3xTF32, by the caller's plan.  With `sum` false and
-// the plan's mma.sync splits > 1, only the partial planes are written (to
-// scratch), for the caller's own pass to add.  PROMOTE: gemm_tc_kernel's
-// and gemm_wgmma_kernel's (k tiles, even; 0: never).  Returns the
-// launches' cudaError_t.
-template <int EPI, int PROMOTE = 0>
+// [N/hg, K, hg]; BT: [N, K], hg = N)) in 3xTF32, by the caller's plan.
+// With `sum` false and the plan's mma.sync splits > 1, only the partial
+// planes are written (to scratch), for the caller's own pass to add.
+// PROMOTE: gemm_tc_kernel's and gemm_wgmma_kernel's (k tiles, even; 0:
+// never).  `ex`: the K9 epilogues' arguments.  Returns the launches'
+// cudaError_t.
+template <int EPI, int PROMOTE = 0, bool BT = false>
 cudaError_t launch_gemm_tc(const TcPlan& p, const float* A, int lda, const float* B,
                            const float* bias, const float* resid, float* C, int M, int N,
-                           int K, int hg, void* scratch, cudaStream_t stream, bool sum = true) {
+                           int K, int hg, void* scratch, cudaStream_t stream, bool sum = true,
+                           const EpiArgs& ex = EpiArgs{}) {
   if (p.wgmma) {
     if (!p.vec || scratch == nullptr) return cudaErrorInvalidValue;
     uint32_t* planes = static_cast<uint32_t*>(scratch);
     switch (p.bn) {
       case 104:
-        return launch_gemm_wgmma<104, EPI, PROMOTE>(A, lda, B, bias, resid, C, M, N, K, hg,
-                                                    planes, stream);
+        return launch_gemm_wgmma<104, EPI, PROMOTE, BT>(A, lda, B, bias, resid, C, M, N, K,
+                                                        hg, planes, ex, stream);
       case 128:
-        return launch_gemm_wgmma<128, EPI, PROMOTE>(A, lda, B, bias, resid, C, M, N, K, hg,
-                                                    planes, stream);
+        return launch_gemm_wgmma<128, EPI, PROMOTE, BT>(A, lda, B, bias, resid, C, M, N, K,
+                                                        hg, planes, ex, stream);
       case 152:   // promoted, a thread's BN / 2 sums more spill at 152
         if constexpr (PROMOTE == 0)
-          return launch_gemm_wgmma<152, EPI, 0>(A, lda, B, bias, resid, C, M, N, K, hg, planes,
-                                                stream);
+          return launch_gemm_wgmma<152, EPI, 0, BT>(A, lda, B, bias, resid, C, M, N, K, hg,
+                                                    planes, ex, stream);
         else
           return cudaErrorInvalidValue;
       default:
@@ -685,10 +748,12 @@ cudaError_t launch_gemm_tc(const TcPlan& p, const float* A, int lda, const float
   }
   if (p.splits < 1 || (p.splits > 1 && scratch == nullptr)) return cudaErrorInvalidValue;
   float* partials = static_cast<float*>(scratch);
-  return p.vec ? launch_gemm_tc_small<true, EPI, PROMOTE>(A, lda, B, bias, resid, C, M, N, K,
-                                                          hg, p.splits, partials, sum, stream)
-               : launch_gemm_tc_small<false, EPI, PROMOTE>(A, lda, B, bias, resid, C, M, N, K,
-                                                           hg, p.splits, partials, sum, stream);
+  return p.vec ? launch_gemm_tc_small<true, EPI, PROMOTE, BT>(A, lda, B, bias, resid, C, M, N,
+                                                              K, hg, p.splits, partials, sum,
+                                                              ex, stream)
+               : launch_gemm_tc_small<false, EPI, PROMOTE, BT>(A, lda, B, bias, resid, C, M,
+                                                               N, K, hg, p.splits, partials,
+                                                               sum, ex, stream);
 }
 
 // ---------------------------------------------------------------------------

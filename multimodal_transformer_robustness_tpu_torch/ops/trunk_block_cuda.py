@@ -24,20 +24,32 @@ seeds give the same masks in both packages, in forward and backward.
 tensors and runs :func:`fused_residual_block_reference` on CPU tensors;
 :func:`trunk_block_bwd` launches the backward (every parameter gradient
 reduced inside, no float atomics) or runs :func:`trunk_block_bwd_plain`.
-:func:`fused_residual_block` joins them as an autograd function.
+:func:`fused_residual_block` joins them as an autograd function.  On the
+card each half is masked-LN row passes plus products on ``csrc/gemm_tc.cuh``'s
+3xTF32 tensor-core GEMM whose epilogues carry the block's masks, act and
+hash dropout, by the launch plan :func:`_plan_block` computes here.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import torch
 
 from .. import _build
+from . import gemm_tc
 from .attention_cuda import hash_uniform
 
 _EPS = 1e-5
-_TILE_ROWS = 16   # rows per block of the backward's first pass (TB_ROWS in trunk_block.cu)
+# csrc/trunk_block.cu's LN backward: a warp a row, 16 warps and 32 rows a
+# block, each warp's column sums [2][E] kept in shared memory
+_LN_BWD_WARPS, _LN_BWD_ROWS = 16, 32
+# the products promote their sums (K9_PROMOTE = 8 in trunk_block.cu), so
+# their wgmma tiles are 104 or 128 wide
+_K9_WIDTHS = gemm_tc.PROMOTED_WIDTHS
+PRODUCTS = ("u", "y", "dp", "ds")
+TN_KEYS = ("tn_vec", "dw1_splits", "dw1_kps", "dw2_splits", "dw2_kps")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -105,11 +117,13 @@ def relu_kink_bound(x, src, dout, w1, b1, w2, b2, ln_g, ln_b, m_in, m_mid, m_out
     """How far a correct backward may stand from :func:`trunk_block_bwd_plain`
     at relu's kink: an entry of ``u = (s W1^T + b1) * m_mid`` within ``tau``
     of 0 may land on the other side of it when the product is summed in
-    another order (K9b recomputes u on the CUDA cores, the plain version
-    with cuBLAS), and either side is a valid derivative.  Returns the number
-    of such entries and, per gradient of :func:`trunk_block_bwd`, the sum of
-    the absolute changes that flipping any of them can make (the dropout
-    factors d_mid and d_res as drawn).  Identity blocks have no kink: zeros."""
+    another order (K9b recomputes u by the forward's own 3xTF32 tensor-core
+    product and plan, so its u carries the forward's bits; the plain version
+    sums it with cuBLAS), and either side is a valid derivative.  Returns the
+    number of such entries and, per gradient of :func:`trunk_block_bwd`, the
+    sum of the absolute changes that flipping any of them can make (the
+    dropout factors d_mid and d_res as drawn).  Identity blocks have no kink:
+    zeros."""
     rows, e = x.shape
     zeros = [torch.zeros_like(a) for a in (src, w1, b1, w2, b2, ln_g, ln_b)]
     if cfg.act != "relu":
@@ -156,6 +170,96 @@ def _check(dev, x, rows_named, w1, b1, w2, b2, ln_g, ln_b, m_in, m_mid, m_out):
     return rows, e, f1
 
 
+def _plan_block(rows: int, e: int, f1: int, num_sms: int = _build.NUM_SMS,
+                aligned: bool = True) -> dict:
+    """K9's launch plan (``csrc/trunk_block.cu`` takes it as given), one for
+    both halves.  Products (:func:`gemm_tc.plan_product`, promoted widths):
+    ``u`` = s W1^T ``[rows, e] x [e, f1]`` (the forward's first product, and
+    the backward's recompute of it, by this same plan, so the two give the
+    same bits), ``y`` = a W2^T ``[rows, f1] x [f1, e]``, ``dp`` = dz W2 (the
+    shape of ``u``) and ``ds`` = dp W1 (the shape of ``y``): the wgmma tiles
+    where they give every SM two blocks (``tools/k9_trials.py``: at R=4096
+    the 256 wgmma tiles of N = 800 or 1000 win neither half), else the 64 x
+    64 mma.sync tiles split over K (at the serving rows across the card, not
+    one block); 16-byte
+    copies where ``e`` and ``f1`` are multiples of 4 and the weights are
+    ``aligned`` (the other operands are the kernel's own scratch).  The
+    weight gradients (:func:`gemm_tc.plan_tn`): dW1^T over ``[e + 1, f1]``
+    and dW2^T over ``[f1 + 1, e]``, a ones row each for db1 and db2, split
+    over the ``rows``.  ``scratch``: the floats the largest product needs
+    (they run one after another); ``partial``: the reductions' planes;
+    ``ln_tiles``: the LN backward's blocks."""
+    if 4 * _LN_BWD_WARPS * 2 * e > _build.MAX_SMEM:
+        raise ValueError(f"E={e}: the LN backward's column sums exceed shared memory")
+    vec = bool(aligned and e % 4 == 0 and f1 % 4 == 0)
+    plan = {name: gemm_tc.plan_product(rows, n, k, vec, num_sms, widths=_K9_WIDTHS)
+            for name, n, k in (("u", f1, e), ("y", e, f1), ("dp", f1, e), ("ds", e, f1))}
+    dw1, dw2 = gemm_tc.plan_tn(e + 1, f1, rows, num_sms), gemm_tc.plan_tn(f1 + 1, e, rows,
+                                                                           num_sms)
+    plan.update(tn_vec=int(vec), dw1_splits=dw1["splits"], dw1_kps=dw1["kps"],
+                dw2_splits=dw2["splits"], dw2_kps=dw2["kps"],
+                scratch=max(plan[k]["scratch"] for k in PRODUCTS),
+                partial=dw1["partial"] + dw2["partial"], ln_tiles=-(-rows // _LN_BWD_ROWS))
+    return plan
+
+
+def plan_ints(plan: dict) -> list:
+    """The 21 ints the C entries read: each product's TcPlan
+    (``gemm_tc.PLAN_KEYS``) in :data:`PRODUCTS` order, then :data:`TN_KEYS`."""
+    return [plan[p][k] for p in PRODUCTS for k in gemm_tc.PLAN_KEYS] + [plan[k] for k in TN_KEYS]
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_plan(rows, e, f1, num_sms, aligned):
+    """(C int array, its address, the plan) for both entries."""
+    plan = _plan_block(rows, e, f1, num_sms, aligned)
+    return _build.host_ints(plan_ints(plan)) + (plan,)
+
+
+def _workspace(dev, sizes):
+    """Views of one float32 allocation, ``sizes`` floats each, every view
+    starting on a 256-byte boundary (the products' 16-byte copies)."""
+    starts, total = [], 0
+    for n in sizes:
+        starts.append(total)
+        total += _build.round_up(max(n, 1), 64)
+    base = torch.empty(total, dtype=torch.float32, device=dev)
+    return [base[s:s + n] for s, n in zip(starts, sizes)]
+
+
+def fwd_workspace(plan: dict, rows: int, e: int, f1: int) -> list:
+    """The forward's scratch in floats: s, a and the products' scratch."""
+    return [rows * e, rows * f1, plan["scratch"]]
+
+
+def bwd_workspace(plan: dict, rows: int, e: int, f1: int) -> list:
+    """The backward's scratch in floats: s, dz, ds, a_d, dp, each row's mean
+    and 1/std, the LN backward's tile sums, the reductions' planes and the
+    products' scratch."""
+    return [rows * e] * 3 + [rows * f1] * 2 + [2 * rows, plan["ln_tiles"] * 2 * e,
+                                               plan["partial"], plan["scratch"]]
+
+
+def _plan_for(dev, rows, e, f1, w1, w2):
+    return _cached_plan(rows, e, f1, _build.num_sms(dev),
+                        (w1.data_ptr() | w2.data_ptr()) % 16 == 0)
+
+
+def _launch_fwd(dev, x, src, w1, b1, w2, b2, ln_g, ln_b, m_in, m_mid, m_out, cfg):
+    rows, e, f1 = _check(dev, x, (("x", x), ("src", src)), w1, b1, w2, b2, ln_g, ln_b,
+                         m_in, m_mid, m_out)
+    _, addr, plan = _plan_for(dev, rows, e, f1, w1, w2)
+    s, a, scratch = _workspace(dev, fwd_workspace(plan, rows, e, f1))
+    out = torch.empty_like(x)
+    ints, floats = _flags(cfg)
+    err = _build.load_library().mmtr_trunk_block_fwd(
+        *(t.data_ptr() for t in (x, src, w1, b1, w2, b2, ln_g, ln_b, m_in, m_mid, m_out, out,
+                                 s, a, scratch)),
+        rows, e, f1, *ints, *floats, addr, _build.stream_ptr(dev))
+    _build.check(err, "trunk_block forward kernel")
+    return out
+
+
 def trunk_block_fwd(x, src, w1, b1, w2, b2, ln_g, ln_b, m_in, m_mid, m_out,
                     cfg: BlockConfig) -> torch.Tensor:
     """K9f over rows ``[R, E]``.  CPU tensors take
@@ -164,18 +268,8 @@ def trunk_block_fwd(x, src, w1, b1, w2, b2, ln_g, ln_b, m_in, m_mid, m_out,
     if x.device.type == "cpu":
         return fused_residual_block_reference(x, src, w1, b1, w2, b2, ln_g, ln_b,
                                               m_in, m_mid, m_out, cfg)
-    dev = _build.device_of(x)
-    rows, e, f1 = _check(dev, x, (("x", x), ("src", src)), w1, b1, w2, b2, ln_g, ln_b,
-                         m_in, m_mid, m_out)
-    lib = _build.load_library()
-    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
-    out = torch.empty_like(x)
-    ints, floats = _flags(cfg)
-    err = lib.mmtr_trunk_block_fwd(
-        *(t.data_ptr() for t in (x, src, w1t, b1, w2t, b2, ln_g, ln_b, m_in, m_mid, m_out,
-                                 out)),
-        rows, e, f1, *ints, *floats, _build.stream_ptr(dev))
-    _build.check(err, "trunk_block forward kernel")
+    out = _launch_fwd(_build.device_of(x), x, src, w1, b1, w2, b2, ln_g, ln_b, m_in, m_mid,
+                      m_out, cfg)
     trunk_block_fwd.launches += 1
     return out
 
@@ -194,6 +288,26 @@ def trunk_block_bwd_plain(x, src, dout, w1, b1, w2, b2, ln_g, ln_b, m_in, m_mid,
         return torch.autograd.grad(out, leaves, dout)
 
 
+def _launch_bwd(dev, x, src, dout, w1, b1, w2, b2, ln_g, ln_b, m_in, m_mid, m_out, cfg):
+    rows, e, f1 = _check(dev, x, (("src", src), ("dout", dout)), w1, b1, w2, b2, ln_g, ln_b,
+                         m_in, m_mid, m_out)
+    _, addr, plan = _plan_for(dev, rows, e, f1, w1, w2)
+    work = _workspace(dev, bwd_workspace(plan, rows, e, f1))
+    wsize = e * f1
+    dsrc = torch.empty(rows, e, dtype=torch.float32, device=dev)
+    red = torch.empty(2 * wsize + f1 + 3 * e, dtype=torch.float32, device=dev)
+    ints, floats = _flags(cfg)
+    err = _build.load_library().mmtr_trunk_block_bwd(
+        *(t.data_ptr() for t in (src, dout, w1, b1, w2, ln_g, ln_b, m_in, m_mid, m_out, dsrc,
+                                 red, *work)),
+        rows, e, f1, *ints, *floats, addr, _build.stream_ptr(dev))
+    _build.check(err, "trunk_block backward kernel")
+    dw1 = red[:wsize].view(f1, e)
+    dw2 = red[wsize:2 * wsize].view(e, f1)
+    db1, db2, dg, dlb = red[2 * wsize:].split([f1, e, e, e])
+    return dsrc, dw1, db1, dw2, db2, dg, dlb
+
+
 def trunk_block_bwd(x, src, dout, w1, b1, w2, b2, ln_g, ln_b, m_in, m_mid, m_out,
                     cfg: BlockConfig):
     """K9b: ``(dsrc, dw1, db1, dw2, db2, dln_g, dln_b)`` for rows ``[R, E]``
@@ -202,33 +316,10 @@ def trunk_block_bwd(x, src, dout, w1, b1, w2, b2, ln_g, ln_b, m_in, m_mid, m_out
     if x.device.type == "cpu":
         return trunk_block_bwd_plain(x, src, dout, w1, b1, w2, b2, ln_g, ln_b, m_in, m_mid,
                                      m_out, cfg)
-    dev = _build.device_of(x)
-    rows, e, f1 = _check(dev, x, (("src", src), ("dout", dout)), w1, b1, w2, b2, ln_g, ln_b,
-                         m_in, m_mid, m_out)
-    lib = _build.load_library()
-    # split the R-row weight products into <= 64 chunks of >= 256 rows, as K1b
-    kchunk = -(-max(256, -(-rows // 64)) // 16) * 16
-    splits = -(-rows // kchunk)
-    tiles = -(-rows // _TILE_ROWS)
-    wsize = e * f1
-    f32 = dict(dtype=torch.float32, device=dev)
-    dsrc, s_buf, dz_buf = (torch.empty(rows, e, **f32) for _ in range(3))
-    ad_buf, dp_buf = (torch.empty(rows, f1, **f32) for _ in range(2))
-    part = torch.empty(tiles, f1 + 3 * e, **f32)
-    partial = torch.empty(splits, 2 * wsize, **f32)
-    red = torch.empty(2 * wsize + f1 + 3 * e, **f32)
-    ints, floats = _flags(cfg)
-    err = lib.mmtr_trunk_block_bwd(
-        *(t.data_ptr() for t in (src, dout, w1.t().contiguous(), w1, w2, b1, ln_g, ln_b, m_in,
-                                 m_mid, m_out, dsrc, s_buf, dz_buf, ad_buf, dp_buf, part,
-                                 partial, red)),
-        rows, e, f1, *ints, kchunk, splits, *floats, _build.stream_ptr(dev))
-    _build.check(err, "trunk_block backward kernel")
+    grads = _launch_bwd(_build.device_of(x), x, src, dout, w1, b1, w2, b2, ln_g, ln_b, m_in,
+                        m_mid, m_out, cfg)
     trunk_block_bwd.launches += 1
-    dw1 = red[:wsize].view(f1, e)
-    dw2 = red[wsize:2 * wsize].view(e, f1)
-    db1, db2, dg, dlb = red[2 * wsize:].split([f1, e, e, e])
-    return dsrc, dw1, db1, dw2, db2, dg, dlb
+    return grads
 
 
 trunk_block_bwd.launches = 0

@@ -670,7 +670,11 @@ def _block_inputs(rng, R, E, F, dev, masked):
 @pytest.mark.gpu
 @pytest.mark.parametrize("R,E,F,act,rep,masked", [
     (4096, 200, 200, "id", 25, False), (4096, 1000, 800, "relu", 1, True),
-    (1, 200, 800, "relu", 1, False), (13, 16, 24, "id", 4, True)])
+    (1, 200, 800, "relu", 1, False), (13, 16, 24, "id", 4, True),
+    # K9's plan branches: split-K at few rows, a ragged last row tile (the
+    # hash sees the global row), 4-byte copies (E, F1 not multiples of 4)
+    (8, 1000, 800, "relu", 1, True), (4095, 1000, 800, "relu", 1, True),
+    (13, 30, 50, "relu", 5, True)])
 def test_trunk_block_kernels_match_plain(cuda, R, E, F, act, rep, masked):
     x, src, dout, params, masks = _block_inputs(np.random.default_rng(19), R, E, F, cuda,
                                                 masked)
@@ -682,10 +686,13 @@ def test_trunk_block_kernels_match_plain(cuda, R, E, F, act, rep, masked):
     ref = trunk_block_cuda.fused_residual_block_reference(x, src, *params, *masks, cfg)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
     bargs = (x, src, dout, *params, *masks, cfg)
+    n0 = trunk_block_cuda.trunk_block_bwd.launches
     got = trunk_block_cuda.trunk_block_bwd(*bargs)
     torch.cuda.synchronize()
+    assert trunk_block_cuda.trunk_block_bwd.launches == n0 + 1
     ref = trunk_block_cuda.trunk_block_bwd_plain(*bargs)
     again = trunk_block_cuda.trunk_block_bwd(*bargs)
+    assert trunk_block_cuda.trunk_block_bwd.launches == n0 + 2
     _, slack = trunk_block_cuda.relu_kink_bound(*bargs)
     for a, r, b, s in zip(got, ref, again, slack):
         # beyond what entries at relu's kink may move it, 1e-4 of max |ref|

@@ -1,14 +1,15 @@
-"""Launch plans of the port's K1f, K1b, K3, K6b, K7f, K7b, attention (K6a,
-K2, K8) and flash-backward kernels, on the CPU.
+"""Launch plans of the port's K1f, K1b, K3, K6b, K7f, K7b, K9f / K9b,
+attention (K6a, K2, K8) and flash-backward kernels, on the CPU.
 
 The CUDA kernels run only on the card, but their launch plans are computed
 in Python (``ops.bigru_cuda._plan_gru_fwd``, ``_plan_gru_bwd``,
 ``_plan_rec_bwd`` and ``_plan_recurrence``, ``ops.gru_cuda.
 _plan_gru_rec_bwd``, ``ops.bert_ffn_cuda._plan_ffn`` and ``_plan_proj_ln``,
 ``ops.bert_attn_cuda._plan_attention``, ``ops.attention_cuda.
-_plan_flash_bwd``) and handed to ``csrc/bigru.cu`` / ``csrc/bigru_bwd.cu``
-/ ``csrc/bert_ffn.cu`` / ``csrc/gru_recurrence.cu`` / ``csrc/bert_attn.cu``
-/ ``csrc/flash_attn.cu`` as given.  These tests hold every plan the model's shapes can produce to
+_plan_flash_bwd``, ``ops.trunk_block_cuda._plan_block``) and handed to
+``csrc/bigru.cu`` / ``csrc/bigru_bwd.cu`` / ``csrc/bert_ffn.cu`` /
+``csrc/gru_recurrence.cu`` / ``csrc/bert_attn.cu`` / ``csrc/flash_attn.cu``
+/ ``csrc/trunk_block.cu`` as given.  These tests hold every plan the model's shapes can produce to
 what an H100 takes: at most 232,448 bytes of shared memory and 1,024
 threads a block (256 for the tiled GRU recurrence, its launch bound), the
 shared-memory carve-up the kernels make, and the grids the design asks for:
@@ -17,16 +18,22 @@ K7f's and K7b's G=2 N=4096 in two, the BERT FFN's and the o-projection's
 (K2's and K6b's, one plan) products on the wgmma tiles at the training rows
 and split over K at the serving rows,
 persistent attention and flash-backward grids no larger than the card holds
-at once, K8's unit path at Tq, Tk <= 64 and tiled path beyond, and the
+at once, K8's unit path at Tq, Tk <= 64 and tiled path beyond, the
 flash backward's choice between its fused kernel (Tq, Tk <= 64) and the
-pair.
+pair, and K9's products split over K across the card at the serving rows,
+its backward recomputing the hidden activation by the forward's plan.
 """
 
-import pytest
+import ctypes
 
+import pytest
+import torch
+
+from multimodal_transformer_robustness_tpu_torch import _build
 from multimodal_transformer_robustness_tpu_torch.ops import (attention_cuda, bert_attn_cuda,
                                                               bert_ffn_cuda, bigru_cuda,
-                                                              gemm_tc, gru_cuda)
+                                                              gemm_tc, gru_cuda,
+                                                              trunk_block_cuda)
 
 MAX_SMEM = 232448
 SM_SMEM = 233472   # an SM's shared memory; each resident block reserves 1 KB more
@@ -688,3 +695,150 @@ def test_ffn_q_plan_unaligned_weights_take_the_mma_sync_tiles():
     p = bert_ffn_cuda._plan_ffn_q(131072, 768, 3072, aligned=False)
     for g in ("gemm1", "gemm2"):
         assert p[g]["wgmma"] == 0 and p[g]["vec"] == 0
+
+
+# the MOSEI model's four T==1 residual blocks (E, F1) and one odd shape
+# (E, F1 not multiples of 4: 4-byte copies)
+K9_BLOCKS = [(200, 200), (200, 800), (1000, 200), (1000, 800), (30, 50)]
+
+
+def _k9_rows(e):
+    return (13,) if e == 30 else (1, 8, 4096)
+
+
+@pytest.mark.parametrize("E,F1", K9_BLOCKS)
+def test_trunk_block_plans_fit_the_card(E, F1):
+    """Each of K9's four products is a gemm_tc.cuh plan with promoted sums
+    (wgmma widths 104 or 128: K9_PROMOTE); ``u`` and ``dp`` are [R, E] x
+    [E, F1], ``y`` and ``ds`` [R, F1] x [F1, E]; 16-byte copies exactly
+    where E and F1 are multiples of 4; scratch the largest product's."""
+    for R in _k9_rows(E):
+        p = trunk_block_cuda._plan_block(R, E, F1)
+        for name, n, k in (("u", F1, E), ("y", E, F1), ("dp", F1, E), ("ds", E, F1)):
+            _check_product(p[name], R, n, k)
+            assert p[name]["bn"] in gemm_tc.PROMOTED_WIDTHS
+            assert p[name]["vec"] == p["tn_vec"] == int(E % 4 == 0 and F1 % 4 == 0)
+        assert p["u"] == p["dp"] and p["y"] == p["ds"]
+        assert p["scratch"] == max(p[k]["scratch"] for k in trunk_block_cuda.PRODUCTS)
+        assert p["ln_tiles"] == -(-R // 32)
+        assert 4 * 16 * 2 * E <= MAX_SMEM   # the LN backward's per-warp column sums
+
+
+@pytest.mark.parametrize("E,F1", K9_BLOCKS)
+def test_trunk_block_reduction_splits(E, F1):
+    """dW1^T [E + 1, F1] and dW2^T [F1 + 1, E] (a ones row each for the
+    bias sums) on the transposed-A tiles, split over the R rows into k
+    ranges that fill one wave of two blocks an SM, none empty; partial
+    holds both products' planes."""
+    for R in _k9_rows(E):
+        p = trunk_block_cuda._plan_block(R, E, F1)
+        ktiles = -(-R // 32)
+        for name, m, n in (("dw1", E + 1, F1), ("dw2", F1 + 1, E)):
+            splits, kps = p[f"{name}_splits"], p[f"{name}_kps"]
+            assert (splits - 1) * kps < ktiles <= splits * kps
+            assert splits == 1 or splits * -(-m // 128) * -(-n // 80) <= 2 * SMS
+            assert (splits, kps) == tuple(gemm_tc.plan_tn(m, n, R)[k] for k in ("splits", "kps"))
+        assert p["partial"] == p["dw1_splits"] * (E + 1) * F1 + p["dw2_splits"] * (F1 + 1) * E
+
+
+# (R, E, F1) -> each product's (wgmma, splits, bn) in PRODUCTS order u, y,
+# dp, ds, then the reductions' (splits, kps)
+_K9_PLANS = {
+    (4096, 1000, 800): ([(0, 1, 104), (0, 1, 128), (0, 1, 104), (0, 1, 128)], (3, 43, 2, 64)),
+    (4096, 200, 200): ([(0, 1, 104)] * 4, (43, 3, 43, 3)),
+    (1, 1000, 800): ([(0, 8, 104), (0, 7, 128), (0, 8, 104), (0, 7, 128)], (1, 1, 1, 1)),
+    (1, 200, 200): ([(0, 2, 104)] * 4, (1, 1, 1, 1)),
+    (8, 200, 800): ([(0, 2, 104), (0, 7, 104), (0, 2, 104), (0, 7, 104)], (1, 1, 1, 1)),
+    (13, 30, 50): ([(0, 1, 104)] * 4, (1, 1, 1, 1)),
+}
+
+
+@pytest.mark.parametrize("shape", list(_K9_PLANS))
+def test_trunk_block_plan_paths(shape):
+    """At R=4096 the MOSEI blocks' products stay on the mma.sync tiles (256
+    wgmma tiles at N = 800 or 1000, under two an SM) unsplit; at the serving
+    rows (R=1) and R=8 they split over K across the card rather than run in
+    one block; the odd shape takes one 4-byte-copy tile a product."""
+    p = trunk_block_cuda._plan_block(*shape)
+    products, tn = _K9_PLANS[shape]
+    assert [tuple(p[k][f] for f in ("wgmma", "splits", "bn"))
+            for k in trunk_block_cuda.PRODUCTS] == products
+    assert (p["dw1_splits"], p["dw1_kps"], p["dw2_splits"], p["dw2_kps"]) == tn
+    if shape[0] == 1:
+        assert all(p[k]["splits"] > 1 for k in trunk_block_cuda.PRODUCTS)
+
+
+def test_trunk_block_plan_takes_wgmma_tiles_where_rows_fill_the_card():
+    """From 8,448 rows (66 row tiles: 528 wgmma tiles at N = 800) the top
+    FFN's products take the wgmma tiles, B's TF32 planes in scratch;
+    unaligned weights keep the mma.sync tiles and 4-byte copies."""
+    p = trunk_block_cuda._plan_block(8448, 1000, 800)
+    assert all(p[k]["wgmma"] == 1 for k in trunk_block_cuda.PRODUCTS)
+    assert p["scratch"] == 2 * 1000 * 800
+    p = trunk_block_cuda._plan_block(8448, 1000, 800, aligned=False)
+    assert all(p[k]["wgmma"] == 0 and p[k]["vec"] == 0 for k in trunk_block_cuda.PRODUCTS)
+    assert p["tn_vec"] == 0
+
+
+class _FakeLib:
+    """Records what the trunk-block entries are handed (the plan ints read
+    from the host array, as the C side reads them)."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def _record(self, name, args):
+        ints = (ctypes.c_int * 21).from_address(args[-2])
+        self.calls[name] = {"plan": list(ints), "args": args}
+        return 0
+
+    def mmtr_trunk_block_fwd(self, *args):
+        return self._record("fwd", args)
+
+    def mmtr_trunk_block_bwd(self, *args):
+        return self._record("bwd", args)
+
+
+@pytest.mark.parametrize("R,E,F1", [(13, 30, 50), (8, 200, 800), (5, 1000, 200)])
+def test_trunk_block_wrapper_allocates_what_the_plan_says(monkeypatch, R, E, F1):
+    """Through the wrappers' launch paths with the C entries replaced: both
+    entries get the same 21 plan ints (so the backward's recompute of u runs
+    the forward's product-1 plan), and each scratch view is as many floats
+    as the plan asks for, on a 256-byte boundary."""
+    lib = _FakeLib()
+    sizes = []
+    real_workspace = trunk_block_cuda._workspace
+
+    def workspace(dev, wanted):
+        views = real_workspace(dev, wanted)
+        sizes.append([v.numel() for v in views])
+        assert all((v.data_ptr() - views[0].data_ptr()) % 256 == 0 for v in views if v.numel())
+        return views
+
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(_build, "num_sms", lambda dev: SMS)
+    monkeypatch.setattr(_build, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(trunk_block_cuda, "_workspace", workspace)
+    g = torch.Generator().manual_seed(0)
+    x, src, dout = (torch.randn(R, E, generator=g) for _ in range(3))
+    params = [torch.randn(F1, E, generator=g), torch.randn(F1, generator=g),
+              torch.randn(E, F1, generator=g), torch.randn(E, generator=g),
+              torch.ones(E), torch.zeros(E)]
+    masks = [torch.ones(E), torch.ones(F1), torch.ones(E)]
+    cfg = trunk_block_cuda.BlockConfig("relu", 1, 0.1, 0.3, 1, 2, True, True)
+    dev = torch.device("cpu")
+    out = trunk_block_cuda._launch_fwd(dev, x, src, *params, *masks, cfg)
+    grads = trunk_block_cuda._launch_bwd(dev, x, src, dout, *params, *masks, cfg)
+    plan = trunk_block_cuda._plan_block(R, E, F1)
+    ints = trunk_block_cuda.plan_ints(plan)
+    assert lib.calls["fwd"]["plan"] == lib.calls["bwd"]["plan"] == ints
+    assert ints[:4] == [plan["u"][k] for k in gemm_tc.PLAN_KEYS]
+    assert sizes == [trunk_block_cuda.fwd_workspace(plan, R, E, F1),
+                     trunk_block_cuda.bwd_workspace(plan, R, E, F1)]
+    assert sizes[1][-2:] == [plan["partial"], plan["scratch"]]
+    assert out.shape == (R, E)
+    assert [tuple(a.shape) for a in grads] == [(R, E), (F1, E), (F1,), (E, F1), (E,), (E,),
+                                               (E,)]
+    # the rows, the dimensions and the dropout flags follow the pointers
+    for name, npt in (("fwd", 15), ("bwd", 21)):
+        assert lib.calls[name]["args"][npt:npt + 9] == (R, E, F1, 1, 1, 1, 1, 1, 2)

@@ -1,6 +1,6 @@
-"""K1b's, K2's, K4's and K6b's device time by kernel (torch.profiler) at
-their path shapes, beside their CUDA-event time, digests of their outputs
-and of K1f's, and warm serving ms (float, int8 and flash
+"""K1b's, K2's, K4's, K6b's and K9's device time by kernel (torch.profiler)
+at their path shapes, beside their CUDA-event time, digests of their outputs
+and of K1f's and K3's, and warm serving ms (float, int8 and flash
 requests), for the port package of any tree.
 
 Run from the repository root on a card:
@@ -13,9 +13,10 @@ parent commit unpacked with ``git archive`` under ``build/`` is measured by
 the same cases (``chip_smoke.k1b_split_cases``, ``bert_split_cases``,
 ``profile_ms``, ``cuda_ms``) in the same call, and two trees' outputs can
 be held bit for bit (sha256 of ``gru_dir``'s output, of
-``ffn_ln_block_q``'s output, hidden codes and scales, at the training and
-serving shapes, and of every split case's outputs: K1b's gradients, K2's,
-K4's and K6b's outputs; inputs from fixed seeds), and both trees serve the
+``ffn_ln_block``'s, of ``ffn_ln_block_q``'s output, hidden codes and
+scales, at the training and serving shapes, and of every split case's
+outputs: K1b's gradients, K2's, K4's, K6b's and K9's outputs; inputs from
+fixed seeds; ``chip_smoke.k9_split_cases``), and both trees serve the
 same synthetic requests (``chip_smoke.synthetic_requests``, ``_timed``: the
 median host ms of 5 warm calls).  Prints one JSON line per shape.
 """
@@ -71,6 +72,17 @@ def main() -> int:
     def t(a):
         return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(dev)
 
+    r3 = np.random.default_rng(6)   # K3's own draws: K4's stay what they were
+    w1t, w2t = t(r3.standard_normal((h, ffn)) * 0.02), t(r3.standard_normal((ffn, h)) * 0.02)
+    fb1, fb2 = t(r3.standard_normal(ffn) * 0.02), t(r3.standard_normal(h) * 0.02)
+    fg, fb = t(1.0 + 0.1 * r3.standard_normal(h)), t(0.1 * r3.standard_normal(h))
+    for B, L in ((1, 8), (4096, 32)):
+        x = t(r3.standard_normal((B, L, h)))
+        out = bert_ffn_cuda.ffn_ln_block(x, w1t, fb1, w2t, fb2, fg, fb, eps=1e-12)
+        digest = hashlib.sha256(out.cpu().numpy().tobytes()).hexdigest()[:16]
+        print(json.dumps({"tree": args.tree, "shape": f"K3 B={B} L={L} h={h} ffn={ffn}",
+                          "sha256": digest}), flush=True)
+        del out, x
     w1q, w2q = (_quantize(t(rng.standard_normal(s) * 0.02)) for s in ((ffn, h), (h, ffn)))
     b1, b2 = t(rng.standard_normal(ffn) * 0.02), t(rng.standard_normal(h) * 0.02)
     g, b = t(1.0 + 0.1 * rng.standard_normal(h)), t(0.1 * rng.standard_normal(h))
@@ -83,7 +95,8 @@ def main() -> int:
                           "sha256_out_codes_scales": digests}), flush=True)
         del got, x
     cases = (cs.k1b_split_cases(dev, np.random.default_rng(1))
-             + cs.bert_split_cases(dev, np.random.default_rng(4)))
+             + cs.bert_split_cases(dev, np.random.default_rng(4))
+             + cs.k9_split_cases(dev, np.random.default_rng(5)))
     from multimodal_transformer_robustness_tpu_torch.cli.realtime import StreamingPredictor
 
     for label, options in (("float", {}), ("int8", {"bert_int8": True}),
