@@ -15,7 +15,7 @@ Phases, each fatal on failure:
                 same function (cuDNN's GRU for K1 / K1b, scaled_dot_product_
                 attention for K6a, K5 and K8), of that call; K1b, K5dq,
                 K5dkv and K5b are also run twice to show bit-identical
-                gradients, K3 to show a bit-identical output;
+                gradients, K3 and K5f to show a bit-identical output;
                 K4's int32 products are checked exact and its flipped hidden
                 codes counted; the int8 GEMM (qdot) exact at M=8 and
                 M=131,072; the flash kernels (K5f, K5dq, K5dkv) at the MOSEI
@@ -40,7 +40,9 @@ Phases, each fatal on failure:
                 (product, LayerNorm), K6a, K8, K7f and K7b at their two
                 timed shapes, of K1b (recurrence, products, sums) at its three
                 training-path shapes, of the flash backward's calls (the
-                delta op, K5dq, K5dkv, K5b) at the MOSEI shapes, and of K9f
+                delta op, K5dq, K5dkv, K5b) at the MOSEI shapes, of K5f's
+                unit path (MOSEI self and cross) and tiled path (B=16
+                T=2048) and K5dkv at T=2048, and of K9f
                 (LN rows, its two products) and K9b (rows, the recompute,
                 dp, ds, LN backward, weight reductions, sums) at the top
                 FFN block, R=4096 train and R=1, and K9f at R=1 at the
@@ -490,6 +492,37 @@ def flash_bwd_cases(dev, rng, t, B=4096, heads=8, d=25, rate=0.1):
     return cases
 
 
+def flash_kernel_cases(dev, rng, t, heads=8, d=25):
+    """K5f and K5dkv alone, for the device split: K5f's unit path at the
+    MOSEI self (B=4096 T=50, offset 1) and cross (Tq=50 Tk=32, offset 19)
+    shapes at rate 0.1, its tiled path at B=16 T=2048 (causal, rate 0), and
+    K5dkv at B=16 T=2048 from the plain forward's out and lse."""
+    from multimodal_transformer_robustness_tpu_torch.ops import attention_cuda as ac
+
+    cases = []
+    for name, B, tq, tk, rate in (("self", 4096, 50, 50, 0.1), ("cross", 4096, 50, 32, 0.1),
+                                  ("long", 16, 2048, 2048, 0.0)):
+        offset, bh = 1 + abs(tk - tq), B * heads
+        q = t(rng.standard_normal((B, heads, tq, d)) / np.sqrt(d))
+        k, v = (t(rng.standard_normal((B, heads, tk, d))) for _ in range(2))
+        seeds = rates = None
+        if rate:
+            seeds = torch.from_numpy(rng.integers(-2**31, 2**31 - 1, bh).astype(np.int32)).to(dev)
+            rates = torch.full((bh,), rate, device=dev)
+        path = "unit" if max(tq, tk) <= 64 else "tiled"
+        shape = f"{name} B={B} H={heads} Tq={tq} Tk={tk} D={d} rate={rate}"
+        fwd = (q, k, v, seeds, rates, True, offset)
+        cases.append((f"K5f {path} {shape}", lambda fwd=fwd: ac.flash_fwd(*fwd), 5))
+        if name == "long":
+            dout = t(rng.standard_normal((B, heads, tq, d)))
+            out, lse = ac.flash_attention_plain(q, k, v, True, offset)
+            delta = (dout * out).sum(-1).reshape(bh, tq)
+            args = (q, k, v, dout, lse.contiguous(), delta, None, None, True, offset)
+            del out
+            cases.append((f"K5dkv {shape}", lambda args=args: ac.flash_bwd_dkv(*args), 5))
+    return cases
+
+
 def k1b_split_cases(dev, rng, B=4096, T=50, H=100):
     """K1b at the training path's three shapes (in=768 and 512 without dx,
     in=200 with it), each alone, for the device split by kernel: the
@@ -582,9 +615,10 @@ def device_split(dev, rng):
     (fc1, fc2, LayerNorm), K2's, K4's and K6b's (bert_split_cases, also at
     B=1 L=512), K9f's and K9b's (k9_split_cases) and, for K1f, K3, K6a, K8,
     K7f, K7b, K2, K4 and K6b at their timed shapes, K1b at its three path
-    shapes, the flash backward's calls (flash_bwd_cases) and K9 at the top
-    FFN block, the device time of a call (torch.profiler) beside its
-    CUDA-event time: the gap is host time the card waits for.
+    shapes, the flash backward's calls (flash_bwd_cases), K5f's two paths
+    and K5dkv (flash_kernel_cases) and K9 at the top FFN block, the device
+    time of a call (torch.profiler) beside its CUDA-event time: the gap is
+    host time the card waits for.
     Returns one dict per shape."""
     from multimodal_transformer_robustness_tpu_torch.ops import attention_cuda as ac
     from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bigru_cuda
@@ -638,6 +672,7 @@ def device_split(dev, rng):
         cases.append((f"K7b G={G} T={T} N={N} H={H}",
                       lambda bwd=bwd: gru_cuda.gru_recurrence_bwd_cuda(*bwd), 5 if N > 1 else 20))
     cases += flash_bwd_cases(dev, rng, t)
+    cases += flash_kernel_cases(dev, rng, t)
     cases += bert_split_cases(dev, rng)
     cases += k9_split_cases(dev, rng)
     for name, fn, iters in cases:
@@ -876,6 +911,10 @@ def check_flash(dev, rng, t, record, failures,
             plain_args = (q, k, v, True, offset, seeds, rates)
             out, lse = ac.flash_fwd(*fwd_args)
             torch.cuda.synchronize()
+            same = all(torch.equal(a, b) for a, b in zip((out, lse), ac.flash_fwd(*fwd_args)))
+            print(f"  K5f {shape}: rerun bit-identical {same}", flush=True)
+            if not same:
+                failures.append(f"K5f {shape} not deterministic")
             ref, ref_lse = ac.flash_attention_plain(*plain_args)
             record("K5f", shape, torch.cat([out.flatten(), lse.flatten()]),
                    torch.cat([ref.flatten(), ref_lse.flatten()]),

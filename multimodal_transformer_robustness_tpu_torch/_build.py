@@ -27,11 +27,14 @@ _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("bigru.cu", "bigru_bwd.cu", "bert_attn.cu", "bert_ffn.cu", "bert_ffn_q.cu",
            "flash_attn.cu", "gru_recurrence.cu", "trunk_block.cu")
-# K5b's launch bound, blocks an SM: csrc/flash_attn.cu reads it as a macro and
-# ops/attention_cuda._plan_flash_bwd sizes its persistent grid by it.
+# The launch bounds of K5b and of K5f's unit path, blocks an SM:
+# csrc/flash_attn.cu reads them as macros, and ops/attention_cuda.
+# _plan_flash_bwd / _plan_flash_fwd size their persistent grids by them.
 FB_BLOCKS_PER_SM = 3
+FU_BLOCKS_PER_SM = 4
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-Xcompiler", "-fPIC", "-Xptxas=-v", f"-DFB_BLOCKS_PER_SM={FB_BLOCKS_PER_SM}")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v", f"-DFB_BLOCKS_PER_SM={FB_BLOCKS_PER_SM}",
+              f"-DFU_BLOCKS_PER_SM={FU_BLOCKS_PER_SM}")
 
 # H100 SXM: 132 SMs; a block may take 227 KB of an SM's 228 KB of shared
 # memory, and each resident block reserves 1 KB more.  The wrappers read the
@@ -56,9 +59,9 @@ _SIGNATURES = {
     "mmtr_qgemm_i32": (_I, [_P] * 3 + [_I] * 3 + [_P, _P]),
     "mmtr_qdot": (_I, [_P] * 6 + [_I] * 3 + [_P, _P]),
     "mmtr_ffn_ln_q_fwd": (_I, [_P] * 16 + [_I] * 3 + [_F, _P, _P]),
-    "mmtr_flash_fwd": (_I, [_P] * 7 + [_I] * 7 + [_P]),
+    "mmtr_flash_fwd": (_I, [_P] * 7 + [_I] * 7 + [_P, _P]),
     "mmtr_flash_bwd_dq": (_I, [_P] * 9 + [_I] * 7 + [_P]),
-    "mmtr_flash_bwd_dkv": (_I, [_P] * 10 + [_I] * 7 + [_P]),
+    "mmtr_flash_bwd_dkv": (_I, [_P] * 10 + [_I] * 7 + [_P, _P]),
     "mmtr_flash_bwd": (_I, [_P] * 11 + [_I] * 7 + [_P, _P]),
     "mmtr_gru_rec_fwd": (_I, [_P] * 10 + [_I] * 4 + [_P, _P]),
     "mmtr_gru_rec_bwd": (_I, [_P] * 12 + [_I] * 4 + [_P, _P]),

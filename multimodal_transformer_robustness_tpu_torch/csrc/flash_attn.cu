@@ -28,25 +28,62 @@
 // equals the JAX package's _hash_uniform bit for bit.  The normalizer
 // sums the raw p; only the value accumulation sees p * keep / (1 - rate).
 //
-// What bounds it on the H100: at the MOSEI stack shapes (T <= 64, D = 25)
-// a slice's work is a few products of at most 64 x 64 x 25, about 2.5
-// FLOPs (forward) to 6 (backward) per byte each kernel must move, far
-// below the card's 49 float32 FLOPs a byte at the 3xTF32 tensor-core rate
-// (165 TFLOP/s of float32-accurate products, 3.35 TB/s): the bound is
-// bytes (q, k, v, dO, O, lse read once, outputs written once: 0.2 ms for
-// the forward, 0.32 / 0.39 ms for K5b at the cross / self shapes at
-// B*H = 32768).  At long T (2048) the products set the bound (operations).
-// K5f, K5dq and K5dkv keep the whole [64, 64] score tile, the running
-// max and normalizer and the output accumulator on chip, so no [Tq, Tk]
-// tensor touches device memory; each tile is staged once in shared memory,
-// transposed with a row stride of 65 floats so that both the score product
-// (reading along rows) and the value product (reading along columns) are
-// free of bank conflicts; key tiles a causal query tile cannot see, and
-// query tiles that cannot see a key tile in dkv, are skipped.  Their
-// products are float32 FMAs on the CUDA cores; K5b's (below) run on the
-// tensor cores.  No float atomics: dq loops over key tiles and dk/dv over
-// query tiles inside one block each, and K5b's block owns a slice, so a
-// rerun gives the same bits.
+// What bounds them on the H100 (bytes: every input read once, every output
+// written once, at 3.35 TB/s; operations: the visible score pairs' products
+// at the 3xTF32 rate, 165 TFLOP/s): at the MOSEI stack shapes (T <= 64,
+// D = 25, B*H = 32768) a slice's work is a few products of at most
+// 64 x 64 x 25, a few FLOPs per byte against the card's 49, so bytes bound
+// them: K5f 0.198 ms (self T=50) and 0.163 (cross Tq=50 Tk=32), K5b 0.39 /
+// 0.32, K5dkv 0.30 / 0.23.  At T = 2048 (B*H = 128, causal) the products
+// do: K5f 0.163 ms, K5dq 0.244, K5dkv 0.326.  No [Tq, Tk] tensor touches
+// device memory, key tiles a causal query tile cannot see (and query tiles
+// that cannot see a key tile) are skipped, and no kernel uses float
+// atomics, so a rerun gives the same bits.
+//
+// K5f, K5dkv and K5b run their products on the tensor cores in 3xTF32
+// (mma.sync m16n8k8 from gemm_tc.cuh, operands split into TF32 hi + lo:
+// float32 accuracy); their operands arrive by 4-byte cp.async (a [T][25]
+// slice starts only 4-byte aligned) into rows of ld = 4 mod 8 floats,
+// zero-filled past D and past the slice, so the fragment loads are free of
+// bank conflicts.  A score tile's C fragments feed the value product
+// without a trip through shared memory: the product's k index is permuted
+// (k = t for column 2t, k = t + 4 for 2t + 1: c_to_a, frag_b_perm).  Each
+// pair's mask, exp and dropout draw run without a branch, and every warp
+// runs the products, a warp past the slice on zero rows that it does not
+// store: a branch the compiler cannot prove warp-uniform costs each shuffle
+// and MMA under it a convergence step.
+//   * K5f, path 0 (Tq, Tk <= 64, every MOSEI stack): a persistent block of
+//     4 warps walks slices u = blockIdx.x, + gridDim.x, ...; one barrier a
+//     slice, after which the next slice goes in flight into the other of
+//     two shared-memory slots.  A warp takes 16 query rows against every
+//     key of the slice, so the row max and sum are taken once, in
+//     registers, by quad shuffles; out / l is stored from the registers.
+//   * K5f, path 1 (longer): a block per (slice, 128 query rows; 64 where
+//     D > 64, for shared memory), the heaviest query tiles first under the
+//     causal rule; 64-key tiles of k and v in a 2-stage cp.async ring; q
+//     split into hi / lo once, into two shared-memory planes; the online
+//     softmax keeps m and l per row in registers, and only the tiles the
+//     rule or Tk cuts test each pair.
+//   * K5dkv: a block per (slice, 64 keys), 16 keys a warp, the key tile
+//     that the most queries see first; from the first query tile that sees
+//     its keys it walks 64-query tiles of q, dO, lse and delta in a 2-stage
+//     cp.async ring, 32 queries at a time: S^T = K Q^T and dP'^T = V dO^T,
+//     then p, M, M*p and dS in registers, and dV += (M p)^T dO, dK += dS^T
+//     Q into accumulators that stay in registers for the whole walk,
+//     unpromoted (2.8e-5 of max |ref| at T=2048 against 7.6e-6 promoted
+//     every 4 query tiles, which cost 1-4% more time: tools/k5_trials.py).
+// What holds them above their bounds (PERF.md, tools/k5_trials.py): path 0
+// stages a slice in about its byte time but computes for 2.7 times it
+// (16 warps an SM, latency-bound: a fifth of it the 3xTF32 corrections, a
+// sixth the hash); path 1 and K5dkv spend two fifths of their time in the
+// correction MMAs and most of the rest loading and splitting B fragments,
+// which each warp of a block repeats for the same tile.
+// K5dq's products are float32 FMAs on the CUDA cores: one block per (b*h,
+// 64-query tile), each tile staged transposed with a row stride of 65
+// floats so that the score product (reading along rows) and the value
+// product (reading along columns) are free of bank conflicts.  The plans
+// are Python: ops/attention_cuda._plan_flash_fwd, _plan_flash_dkv and
+// _plan_flash_bwd (K5b).
 #include "gemm_tc.cuh"
 
 namespace {
@@ -73,139 +110,6 @@ __device__ __forceinline__ void load_tile_t(float* dst, const float* __restrict_
   for (int i = threadIdx.x; i < FA_BQ * D; i += FA_THREADS) {
     const int r = i / D, d = i - r * D;
     dst[d * FA_LD + r] = i < valid ? base[i] : 0.f;
-  }
-}
-
-// max / sum over the 16 lanes that share a score row
-__device__ __forceinline__ float row_max16(float v) {
-  for (int o = 8; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
-}
-
-__device__ __forceinline__ float row_sum16(float v) {
-  for (int o = 8; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
-}
-
-// K5f.  One block per (b*h, 64-query tile); DJ = ceil(D / 16) output
-// columns per thread.
-template <int DJ>
-__global__ void __launch_bounds__(FA_THREADS)
-flash_fwd_kernel(const float* __restrict__ Q, const float* __restrict__ K,
-                 const float* __restrict__ V, const int* __restrict__ seeds,
-                 const float* __restrict__ rates, float* __restrict__ O,
-                 float* __restrict__ LSE, int Tq, int Tk, int D, int causal, int offset,
-                 int use_dropout) {
-  extern __shared__ float smem[];
-  float* qt = smem;                       // [D][LD] query tile
-  float* kt = qt + D * FA_LD;             // [D][LD] key tile
-  float* vt = kt + D * FA_LD;             // [D][LD] value tile
-  float* ps = vt + D * FA_LD;             // [BQ][LD] weights for the value product
-  int* kok = reinterpret_cast<int*>(ps + FA_BQ * FA_LD);  // [BK] key column valid
-
-  const int bh = blockIdx.x, q0 = blockIdx.y * FA_BQ;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const long long qoff = (long long)bh * Tq * D, koff = (long long)bh * Tk * D;
-  load_tile_t(qt, Q + qoff, q0, Tq, D);
-
-  // the last query row of the tile sees columns < q_last + offset
-  const int q_last = min(q0 + FA_BQ, Tq) - 1;
-  const int k_end = causal ? min(Tk, q_last + offset) : Tk;
-  const uint32_t seed = use_dropout ? (uint32_t)seeds[bh] : 0u;
-  const float rate = use_dropout ? rates[bh] : 0.f;
-  const float keep_scale = use_dropout ? 1.0f / (1.0f - rate) : 1.f;
-
-  float m[4], l[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    m[i] = FA_NEG_INF;
-    l[i] = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) acc[i][jj] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < k_end; k0 += FA_BK) {
-    __syncthreads();  // the previous tile's reads are done
-    load_tile_t(kt, K + koff, k0, Tk, D);
-    load_tile_t(vt, V + koff, k0, Tk, D);
-    if (tid < FA_BK) kok[tid] = k0 + tid < Tk;
-    __syncthreads();
-
-    float s[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      const float* qd = qt + d * FA_LD;
-      const float* kd = kt + d * FA_LD;
-      float a[4], b[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = qd[ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < 4; ++j) b[j] = kd[tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) s[i][j] = fmaf(a[i], b[j], s[i][j]);
-    }
-
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-      bool ok[4];
-      float mx = FA_NEG_INF;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        ok[j] = kok[tx + 16 * j] && (!causal || col - row < offset);
-        if (ok[j]) mx = fmaxf(mx, s[i][j]);
-      }
-      mx = row_max16(mx);
-      const float m_new = fmaxf(m[i], mx);
-      const float alpha = expf(m[i] - m_new);
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const float p = ok[j] ? expf(s[i][j] - m_new) : 0.f;
-        rs += p;
-        ps[(ty + 16 * i) * FA_LD + tx + 16 * j] =
-            ok[j] ? p * keep_factor(use_dropout, seed, rate, keep_scale, row, col) : 0.f;
-      }
-      rs = row_sum16(rs);
-      l[i] = alpha * l[i] + rs;
-      m[i] = m_new;
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) acc[i][jj] *= alpha;
-    }
-    __syncthreads();
-
-    const int nk = min(FA_BK, Tk - k0);
-    for (int c = 0; c < nk; ++c) {
-      float p[4], vv[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) p[i] = ps[(ty + 16 * i) * FA_LD + c];
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) vv[jj] = vt[min(tx + 16 * jj, D - 1) * FA_LD + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < DJ; ++jj) acc[i][jj] = fmaf(p[i], vv[jj], acc[i][jj]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Tq) continue;
-    const float l_safe = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) {
-      const int d = tx + 16 * jj;
-      if (d < D) O[qoff + (long long)row * D + d] = acc[i][jj] / l_safe;
-    }
-    if (tx == 0) LSE[(long long)bh * Tq + row] = m[i] + logf(l_safe);
   }
 }
 
@@ -318,145 +222,6 @@ flash_bwd_dq_kernel(const float* __restrict__ Q, const float* __restrict__ K,
     for (int jj = 0; jj < DJ; ++jj) {
       const int d = tx + 16 * jj;
       if (d < D) dQ[qoff + (long long)row * D + d] = acc[i][jj];
-    }
-  }
-}
-
-// K5dkv.  One block per (b*h, 64-key tile), looping over the query tiles
-// that can see it: dV = (M p)^T dO, dK = dS^T Q.  A thread holds key rows
-// ty + 16i and query columns tx + 16j of the transposed score tile.
-template <int DJ>
-__global__ void __launch_bounds__(FA_THREADS)
-flash_bwd_dkv_kernel(const float* __restrict__ Q, const float* __restrict__ K,
-                     const float* __restrict__ V, const float* __restrict__ dO,
-                     const float* __restrict__ LSE, const float* __restrict__ DELTA,
-                     const int* __restrict__ seeds, const float* __restrict__ rates,
-                     float* __restrict__ dK, float* __restrict__ dV, int Tq, int Tk, int D,
-                     int causal, int offset, int use_dropout) {
-  extern __shared__ float smem[];
-  float* kt = smem;
-  float* vt = kt + D * FA_LD;
-  float* qt = vt + D * FA_LD;
-  float* dot = qt + D * FA_LD;
-  float* ts = dot + D * FA_LD;       // [BK][LD]: (M p)^T, then dS^T
-  float* lse_s = ts + FA_BK * FA_LD;  // [BQ]
-  float* del_s = lse_s + FA_BQ;       // [BQ]
-
-  const int bh = blockIdx.x, k0 = blockIdx.y * FA_BK;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const long long qoff = (long long)bh * Tq * D, koff = (long long)bh * Tk * D;
-  load_tile_t(kt, K + koff, k0, Tk, D);
-  load_tile_t(vt, V + koff, k0, Tk, D);
-  const uint32_t seed = use_dropout ? (uint32_t)seeds[bh] : 0u;
-  const float rate = use_dropout ? rates[bh] : 0.f;
-  const float keep_scale = use_dropout ? 1.0f / (1.0f - rate) : 1.f;
-
-  float dk[4][DJ], dv[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) dk[i][jj] = dv[i][jj] = 0.f;
-
-  // the first query row that sees column k0 is k0 - offset + 1
-  const int q_begin = causal ? max(0, k0 - offset + 1) / FA_BQ * FA_BQ : 0;
-  for (int q0 = q_begin; q0 < Tq; q0 += FA_BQ) {
-    __syncthreads();
-    load_tile_t(qt, Q + qoff, q0, Tq, D);
-    load_tile_t(dot, dO + qoff, q0, Tq, D);
-    if (tid < FA_BQ) {
-      const int r = q0 + tid;
-      lse_s[tid] = r < Tq ? LSE[(long long)bh * Tq + r] : 0.f;
-      del_s[tid] = r < Tq ? DELTA[(long long)bh * Tq + r] : 0.f;
-    }
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float a[4], b[4], a2[4], b2[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = kt[d * FA_LD + ty + 16 * i];
-        a2[i] = vt[d * FA_LD + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = qt[d * FA_LD + tx + 16 * j];
-        b2[j] = dot[d * FA_LD + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(a2[i], b2[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int col = k0 + ty + 16 * i;  // key index
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int row = q0 + tx + 16 * j;  // query index
-        const bool ok = row < Tq && col < Tk && (!causal || col - row < offset);
-        float pm = 0.f, ds = 0.f;
-        if (ok) {
-          const float p = expf(s[i][j] - lse_s[tx + 16 * j]);
-          const float mk = keep_factor(use_dropout, seed, rate, keep_scale, row, col);
-          pm = p * mk;
-          ds = p * (dp[i][j] * mk - del_s[tx + 16 * j]);
-        }
-        ts[(ty + 16 * i) * FA_LD + tx + 16 * j] = pm;
-        s[i][j] = ds;
-      }
-    }
-    __syncthreads();
-
-    const int nq = min(FA_BQ, Tq - q0);
-    for (int r = 0; r < nq; ++r) {
-      float a[4], o[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = ts[(ty + 16 * i) * FA_LD + r];
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) o[jj] = dot[min(tx + 16 * jj, D - 1) * FA_LD + r];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < DJ; ++jj) dv[i][jj] = fmaf(a[i], o[jj], dv[i][jj]);
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) ts[(ty + 16 * i) * FA_LD + tx + 16 * j] = s[i][j];
-    __syncthreads();
-    for (int r = 0; r < nq; ++r) {
-      float a[4], qq[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = ts[(ty + 16 * i) * FA_LD + r];
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) qq[jj] = qt[min(tx + 16 * jj, D - 1) * FA_LD + r];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < DJ; ++jj) dk[i][jj] = fmaf(a[i], qq[jj], dk[i][jj]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int c = k0 + ty + 16 * i;
-    if (c >= Tk) continue;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) {
-      const int d = tx + 16 * jj;
-      if (d < D) {
-        dK[koff + (long long)c * D + d] = dk[i][jj];
-        dV[koff + (long long)c * D + d] = dv[i][jj];
-      }
     }
   }
 }
@@ -783,6 +548,673 @@ cudaError_t launch_fused_bwd(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
+// ---- K5f and K5dkv on the tensor cores ------------------------------------
+
+// K5f's and K5dkv's launch, from the plan (ops/attention_cuda.
+// _plan_flash_fwd / _plan_flash_dkv) and the call.
+struct FlashDims {
+  int Tq, Tk, D, causal, offset, use_dropout;
+  int dt;            // 8-column tiles over D, a power of two: the padded width 8 dt
+  int ld;            // a staged row's stride, 8 dt + 4 (4 mod 8) floats
+  int qp, kp;        // K5f path 0: staged query rows (16 a warp), key rows (8 NKT)
+  int slot;          // K5f path 0: floats a shared-memory slot (of two)
+  int bq;            // K5f path 1: query rows a block
+};
+
+constexpr int FK_TILE = 64;    // keys (K5f path 1) or queries (K5dkv) a ring stage holds
+constexpr int FK_STAGES = 2;   // the ring's stages (K5f path 1, K5dkv)
+
+// The loops over tiles below run to bounds known at compile time (DT, NK,
+// the FULL flag) on every tile but the edges of a key range: a loop that
+// leaves early on a runtime count makes each tile a basic block of its own,
+// and the dependent MMAs of one tile then run back to back instead of
+// interleaving with the next tile's.
+
+__device__ __forceinline__ float quad_max(float v) {
+  v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 1));
+  return fmaxf(v, __shfl_xor_sync(0xffffffffu, v, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float v) {
+  v += __shfl_xor_sync(0xffffffffu, v, 1);
+  return v + __shfl_xor_sync(0xffffffffu, v, 2);
+}
+
+// The A fragment (16 x 8) of a tile whose C fragments the thread holds
+// (rows g and g + 8, columns 2t and 2t + 1 of an 8-column tile), with the
+// product's k index permuted: k = t stands for column 2t, k = t + 4 for
+// column 2t + 1.  A sum over k does not care about the order, so scores go
+// from one product's accumulators into the next product's A operand in
+// registers; frag_b_perm reads the B rows in the same order.
+__device__ __forceinline__ void c_to_a(const float (&c)[4], uint32_t (&hi)[4],
+                                       uint32_t (&lo)[4]) {
+  split_tf32(c[0], hi[0], lo[0]);
+  split_tf32(c[2], hi[1], lo[1]);
+  split_tf32(c[1], hi[2], lo[2]);
+  split_tf32(c[3], hi[3], lo[3]);
+}
+
+// The B fragment (8 x 8) that pairs with c_to_a: B(k, n) = p[row * ld + n]
+// at rows k0 + 2t (k = t) and k0 + 2t + 1 (k = t + 4), columns n0 + g.
+__device__ __forceinline__ void frag_b_perm(const float* p, int ld, int k0, int n0,
+                                            uint32_t (&hi)[2], uint32_t (&lo)[2]) {
+  const int g = (threadIdx.x % 32) >> 2, t = threadIdx.x & 3;
+  const float* b = p + (k0 + 2 * t) * ld + n0 + g;
+  split_tf32(b[0], hi[0], lo[0]);
+  split_tf32(b[ld], hi[1], lo[1]);
+}
+
+// An A fragment already split, from two uint32 planes (hi, lo) of rows m0..
+// and columns k0.. at row stride ld.
+__device__ __forceinline__ void frag_a_planes(const uint32_t* hp, const uint32_t* lp, int ld,
+                                              int m0, int k0, uint32_t (&hi)[4],
+                                              uint32_t (&lo)[4]) {
+  const int g = (threadIdx.x % 32) >> 2, t = threadIdx.x & 3;
+  const int i = (m0 + g) * ld + k0 + t;
+  hi[0] = hp[i];
+  hi[1] = hp[i + 8 * ld];
+  hi[2] = hp[i + 4];
+  hi[3] = hp[i + 8 * ld + 4];
+  lo[0] = lp[i];
+  lo[1] = lp[i + 8 * ld];
+  lo[2] = lp[i + 4];
+  lo[3] = lp[i + 8 * ld + 4];
+}
+
+// Rows [0, n) of a row-major [., D] source into dst[r * ld + c] for c < dp,
+// zero past column D and in rows n .. fill-1, by 4-byte cp.async: the
+// block's warps over rows, lanes over columns (one coalesced read a row).
+__device__ __forceinline__ void stage_rows4(float* dst, const float* src, int n, int fill,
+                                            int D, int dp, int ld) {
+  const int nw = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int c = lane; c < dp; c += 32) {
+    const bool col_ok = c < D;
+    const float* sp = src + (long long)warp * D + c;
+    float* dst_ = dst + warp * ld + c;
+    int r = warp;
+    for (; r < n; r += nw, sp += (long long)nw * D, dst_ += nw * ld)
+      cp_async4(dst_, col_ok ? sp : src, col_ok);
+    for (; r < fill; r += nw, dst_ += nw * ld) cp_async4(dst_, src, false);
+  }
+}
+
+// Rows [0, n) of src [.][ld], columns < D, to a row-major [., D] dst: the
+// block's warps over rows, lanes over columns (one coalesced store a row).
+__device__ __forceinline__ void store_rows(float* dst, const float* src, int n, int D,
+                                           int ld) {
+  const int nw = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int r = warp; r < n; r += nw)
+    for (int c = lane; c < D; c += 32) dst[(long long)r * D + c] = src[r * ld + c];
+}
+
+// C fragments (rows m0 + g and + 8, all 8 DT columns) into rows m0.. of
+// dst [.][ld].
+template <int DT>
+__device__ __forceinline__ void put_rows(float* dst, int ld, int m0, const float (&o)[DT][4]) {
+  const int g = (threadIdx.x % 32) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int n = 0; n < DT; ++n) {
+    const int c = 8 * n + 2 * t;
+    *reinterpret_cast<float2*>(dst + (m0 + g) * ld + c) = make_float2(o[n][0], o[n][1]);
+    *reinterpret_cast<float2*>(dst + (m0 + g + 8) * ld + c) = make_float2(o[n][2], o[n][3]);
+  }
+}
+
+// out / l of C fragments (rows row0 + g and + 8, inv_a and inv_b their
+// 1 / l) to the slice's rows of a row-major [Tq, D] out, rows < Tq and
+// columns < D only: 4-byte stores straight from the registers.
+template <int DT>
+__device__ __forceinline__ void store_out(float* out, int row0, const FlashDims& d,
+                                          const float (&o)[DT][4], float inv_a, float inv_b) {
+  const int g = (threadIdx.x % 32) >> 2, t = threadIdx.x & 3;
+  const int ra = row0 + g, rb = ra + 8;
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = e < 2 ? ra : rb, c = 8 * n + 2 * t + (e & 1);
+      if (r < d.Tq && c < d.D) out[(long long)r * d.D + c] = o[n][e] * (e < 2 ? inv_a : inv_b);
+    }
+}
+
+// The score tile of one warp: s[j] (j < nk <= NK, 8 keys each) = Q K^T for
+// query rows m0.. (A fragments from aq(kk, hi, lo)) against key rows 8j..
+// of ks; s[j] for j >= nk stays zero.  Callers pass nk = NK where they can
+// (the test folds away); an edge tile passes its count.
+template <int DT, int NK, typename QFrag>
+__device__ __forceinline__ void score_tile(float (&s)[8][4], QFrag aq, const float* ks, int ld,
+                                           int nk) {
+#pragma unroll
+  for (int j = 0; j < NK; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+  for (int kk = 0; kk < DT; ++kk) {
+    uint32_t ah[4], al[4];
+    aq(kk, ah, al);
+#pragma unroll
+    for (int j = 0; j < NK; ++j) {
+      if (j >= nk) break;
+      uint32_t bh[2], bl[2];
+      fb_frag_b(ks, 1, ld, 8 * kk, 8 * j, bh, bl);
+      fb_mma3(s[j], ah, al, bh, bl);
+    }
+  }
+}
+
+// s[j][e] (j < NK) -> -inf where the pair at (query row0 + g (+8), key col0
+// + 8j + 2t (+1)) is past Tk or hidden by the causal rule (only if TEST);
+// then the rows' maxima over the tile (quad-reduced).
+template <int NK, bool TEST>
+__device__ __forceinline__ void mask_and_max(float (&s)[8][4], int row0, int col0,
+                                             const FlashDims& d, float& mx_a, float& mx_b) {
+  const int g = (threadIdx.x % 32) >> 2, t = threadIdx.x & 3;
+  mx_a = mx_b = -INFINITY;
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    if constexpr (TEST) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + g + (e < 2 ? 0 : 8), col = col0 + 8 * j + 2 * t + (e & 1);
+        if (col >= d.Tk || (d.causal && col - row >= d.offset)) s[j][e] = -INFINITY;
+      }
+    }
+    mx_a = fmaxf(mx_a, fmaxf(s[j][0], s[j][1]));
+    mx_b = fmaxf(mx_b, fmaxf(s[j][2], s[j][3]));
+  }
+  mx_a = quad_max(mx_a);
+  mx_b = quad_max(mx_b);
+}
+
+// p = exp(s - m) in place (j < NK), its raw row sums added to l_a / l_b
+// (this thread's share), then p * M, M the dropout factor at (row, col):
+// no branch a pair, the hash drawn for every pair of the tile.
+template <int NK>
+__device__ __forceinline__ void exp_and_drop(float (&s)[8][4], int row0, int col0, float m_a,
+                                             float m_b, float& l_a, float& l_b,
+                                             const FlashDims& d, uint32_t seed, float rate,
+                                             float keep_scale) {
+  const int g = (threadIdx.x % 32) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int j = 0; j < NK; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float p = __expf(s[j][e] - (e < 2 ? m_a : m_b));
+      if (e < 2) l_a += p; else l_b += p;
+      s[j][e] = p;
+    }
+  if (!d.use_dropout) return;
+#pragma unroll
+  for (int j = 0; j < NK; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float u = hash_uniform(seed, row0 + g + (e < 2 ? 0 : 8),
+                                   col0 + 8 * j + 2 * t + (e & 1));
+      s[j][e] = u >= rate ? s[j][e] * keep_scale : 0.f;
+    }
+}
+
+// o[n] + oc[n] += P V over nk <= NK 8-key tiles (nk as in score_tile): P
+// from the score registers (c_to_a), V rows [8 nk][ld] at vs.  The hi * hi
+// products go to o, the two corrections (lo * hi, hi * lo) to oc: two
+// shorter chains of dependent MMAs.
+template <int DT, int NK>
+__device__ __forceinline__ void value_product(float (&o)[DT][4], float (&oc)[DT][4],
+                                              const float (&s)[8][4], const float* vs, int ld,
+                                              int nk) {
+#pragma unroll
+  for (int j = 0; j < NK; ++j) {
+    if (j >= nk) break;
+    uint32_t ah[4], al[4];
+    c_to_a(s[j], ah, al);
+#pragma unroll
+    for (int n = 0; n < DT; ++n) {
+      uint32_t bh[2], bl[2];
+      frag_b_perm(vs, ld, 8 * j, 8 * n, bh, bl);
+      mma_tf32(oc[n], al, bh);
+      mma_tf32(oc[n], ah, bl);
+      mma_tf32(o[n], ah, bh);
+    }
+  }
+}
+
+// K5f path 0 for one warp: query rows m0 .. m0+15 of a slice staged whole
+// (qs [64][ld], ks and vs [8 NKT][ld], zero-padded) against all NKT key
+// tiles (the causal rule masks pairs; every warp does the same work, so the
+// block's barrier waits for none).  Every key is in the tile, so max and
+// sum are taken in one pass.  Writes out / l and lse.
+template <int DT, int NKT>
+__device__ __forceinline__ void fwd_unit_rows(const float* qs, const float* ks, const float* vs,
+                                              float* out, float* lse_row, int m0,
+                                              const FlashDims& d, uint32_t seed, float rate,
+                                              float keep_scale) {
+  const int g = (threadIdx.x % 32) >> 2, t = threadIdx.x & 3;
+  float s[8][4];
+  score_tile<DT, NKT>(s, [&](int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+    fb_frag_a(qs, d.ld, 1, m0, 8 * kk, ah, al);
+  }, ks, d.ld, NKT);
+  float m_a, m_b, l_a = 0.f, l_b = 0.f;
+  mask_and_max<NKT, true>(s, m0, 0, d, m_a, m_b);
+  m_a = fmaxf(m_a, FA_NEG_INF);   // a row that sees no key: p = 0, out 0
+  m_b = fmaxf(m_b, FA_NEG_INF);
+  exp_and_drop<NKT>(s, m0, 0, m_a, m_b, l_a, l_b, d, seed, rate, keep_scale);
+  l_a = fmaxf(quad_sum(l_a), 1e-30f);
+  l_b = fmaxf(quad_sum(l_b), 1e-30f);
+  float o[DT][4], oc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = oc[n][e] = 0.f;
+  value_product<DT, NKT>(o, oc, s, vs, d.ld, NKT);
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] += oc[n][e];
+  store_out<DT>(out, m0, d, o, 1.f / l_a, 1.f / l_b);
+  if (t == 0) {
+    if (m0 + g < d.Tq) lse_row[m0 + g] = m_a + logf(l_a);
+    if (m0 + g + 8 < d.Tq) lse_row[m0 + g + 8] = m_b + logf(l_b);
+  }
+}
+
+// One slice's q, k, v (and seed, rate) into a slot of path 0: q [qp][ld],
+// k and v [kp][ld], then seed and rate.
+__device__ __forceinline__ void fwd_stage_slice(float* qs, const float* Q, const float* K,
+                                                const float* V, const int* seeds,
+                                                const float* rates, int u,
+                                                const FlashDims& d) {
+  float* ks = qs + d.qp * d.ld;
+  float* vs = ks + d.kp * d.ld;
+  const long long qo = (long long)u * d.Tq * d.D, ko = (long long)u * d.Tk * d.D;
+  stage_rows4(qs, Q + qo, d.Tq, d.qp, d.D, 8 * d.dt, d.ld);
+  stage_rows4(ks, K + ko, d.Tk, d.kp, d.D, 8 * d.dt, d.ld);
+  stage_rows4(vs, V + ko, d.Tk, d.kp, d.D, 8 * d.dt, d.ld);
+  if (d.use_dropout && threadIdx.x == 0) {
+    cp_async4(vs + d.kp * d.ld, seeds + u, true);
+    cp_async4(vs + d.kp * d.ld + 1, rates + u, true);
+  }
+}
+
+// K5f, path 0 (Tq, Tk <= 64): persistent blocks of 4 warps, a warp a
+// 16-row query tile (qp = 64 staged rows), NKT = 4 or 8 key tiles (kp =
+// 8 NKT staged key rows); FU_BLOCKS_PER_SM (the build's flag, which the
+// plan sizes its grid by) blocks an SM where D <= 32; wider slots hold
+// fewer (2 at D <= 64, 1 beyond), and the launch bound leaves those
+// instances the registers.
+constexpr int FU_THREADS = 128;
+
+template <int DT, int NKT>
+__global__ void __launch_bounds__(FU_THREADS, DT <= 4 ? FU_BLOCKS_PER_SM : 16 / DT)
+flash_fwd_unit_kernel(const float* __restrict__ Q, const float* __restrict__ K,
+                      const float* __restrict__ V, const int* __restrict__ seeds,
+                      const float* __restrict__ rates, float* __restrict__ O,
+                      float* __restrict__ LSE, int units, FlashDims d) {
+  extern __shared__ float4 fu_smem4[];
+  float* smem = reinterpret_cast<float*>(fu_smem4);
+  const int m0 = 16 * (threadIdx.x / 32);
+  int u = blockIdx.x;
+  if (u < units) fwd_stage_slice(smem, Q, K, V, seeds, rates, u, d);
+  cp_async_commit();
+  for (int it = 0; u < units; ++it, u += gridDim.x) {
+    const float* qs = smem + (it & 1) * d.slot;
+    cp_async_wait<0>();
+    // slice u landed, from every thread's copies, and every warp is done
+    // with the other slot, which takes the next slice now
+    __syncthreads();
+    if (u + (int)gridDim.x < units)
+      fwd_stage_slice(smem + ((it + 1) & 1) * d.slot, Q, K, V, seeds, rates, u + gridDim.x, d);
+    cp_async_commit();
+    const float* ks = qs + d.qp * d.ld;
+    const float* vs = ks + d.kp * d.ld;
+    const float* sr = vs + d.kp * d.ld;
+    const uint32_t seed = d.use_dropout ? __float_as_uint(sr[0]) : 0u;
+    const float rate = d.use_dropout ? sr[1] : 0.f;
+    const float keep_scale = d.use_dropout ? 1.0f / (1.0f - rate) : 1.f;
+    // every warp computes: rows past Tq read zeros and store nothing
+    fwd_unit_rows<DT, NKT>(qs, ks, vs, O + (long long)u * d.Tq * d.D,
+                           LSE + (long long)u * d.Tq, m0, d, seed, rate, keep_scale);
+  }
+}
+
+// 64 rows of k and of v from row t0 (zero past Tk) into a ring stage [2][64][ld].
+__device__ __forceinline__ void fwd_stage_kv(float* ks, const float* K, const float* V,
+                                             int t0, const FlashDims& d) {
+  const int n = min(FK_TILE, d.Tk - t0);
+  const long long o = (long long)t0 * d.D;
+  stage_rows4(ks, K + o, n, FK_TILE, d.D, 8 * d.dt, d.ld);
+  stage_rows4(ks + FK_TILE * d.ld, V + o, n, FK_TILE, d.D, 8 * d.dt, d.ld);
+}
+
+// One 64-key tile of K5f path 1 for one warp: the online-softmax update of
+// (m, l) and the value accumulators.  FULL: all 8 key tiles, no pair
+// masked (the block's interior tiles); else nk 8-key tiles and each pair
+// tested.
+template <int DT, bool FULL, typename QFrag>
+__device__ __forceinline__ void fwd_key_tile(QFrag aq, const float* ks, const float* vs,
+                                             int nk, int row0, int k0, const FlashDims& d,
+                                             float& m_a, float& m_b, float& l_a, float& l_b,
+                                             float (&o)[DT][4], float (&oc)[DT][4],
+                                             uint32_t seed, float rate, float keep_scale) {
+  float s[8][4], mx_a, mx_b;
+  score_tile<DT, 8>(s, aq, ks, d.ld, FULL ? 8 : nk);
+  // an edge tile's tiles past nk hold zeros: masked like any pair past Tk
+  // or hidden by the rule
+  mask_and_max<8, !FULL>(s, row0, k0, d, mx_a, mx_b);
+  const float n_a = fmaxf(m_a, mx_a), n_b = fmaxf(m_b, mx_b);
+  const float c_a = __expf(m_a - n_a), c_b = __expf(m_b - n_b);
+  m_a = n_a;
+  m_b = n_b;
+  l_a *= c_a;
+  l_b *= c_b;
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      o[n][e] *= e < 2 ? c_a : c_b;
+      oc[n][e] *= e < 2 ? c_a : c_b;
+    }
+  exp_and_drop<8>(s, row0, k0, m_a, m_b, l_a, l_b, d, seed, rate, keep_scale);
+  value_product<DT, 8>(o, oc, s, vs, d.ld, FULL ? 8 : nk);
+}
+
+// K5f, path 1 (Tq or Tk > 64): a block per (slice, bq query rows), bq / 16
+// warps, 64-key tiles through a ring of FK_STAGES; online softmax.  The
+// warp's q rows are split once and stay in shared memory as a hi and a lo
+// plane.
+template <int DT>
+__global__ void __launch_bounds__(256)
+flash_fwd_tiled_kernel(const float* __restrict__ Q, const float* __restrict__ K,
+                       const float* __restrict__ V, const int* __restrict__ seeds,
+                       const float* __restrict__ rates, float* __restrict__ O,
+                       float* __restrict__ LSE, int BH, FlashDims d) {
+  extern __shared__ float4 ft_smem4[];
+  float* smem = reinterpret_cast<float*>(ft_smem4);
+  const int ld = d.ld, stage = 2 * FK_TILE * ld;
+  float* qs = smem + FK_STAGES * stage;   // [bq][ld], then the lo plane
+  const int nqt = (d.Tq + d.bq - 1) / d.bq;
+  const int qt = nqt - 1 - (int)blockIdx.x / BH, bh = blockIdx.x % BH;   // heaviest first
+  const int q0 = qt * d.bq, nq = min(d.bq, d.Tq - q0);
+  const int lane = threadIdx.x % 32, g = lane >> 2, t = lane & 3;
+  const int m0 = 16 * (threadIdx.x / 32), row0 = q0 + m0;
+  const long long qo = ((long long)bh * d.Tq + q0) * d.D, ko = (long long)bh * d.Tk * d.D;
+  const int k_end = d.causal ? min(d.Tk, q0 + nq - 1 + d.offset) : d.Tk;
+  const int ntiles = (k_end + FK_TILE - 1) / FK_TILE;
+  const uint32_t seed = d.use_dropout ? (uint32_t)seeds[bh] : 0u;
+  const float rate = d.use_dropout ? rates[bh] : 0.f;
+  const float keep_scale = d.use_dropout ? 1.0f / (1.0f - rate) : 1.f;
+
+  stage_rows4(qs, Q + qo, nq, d.bq, d.D, 8 * DT, ld);   // joins tile 0's group
+  for (int s = 0; s < FK_STAGES - 1; ++s) {
+    if (s < ntiles) fwd_stage_kv(smem + s * stage, K + ko, V + ko, s * FK_TILE, d);
+    cp_async_commit();
+  }
+  const uint32_t* qhp = reinterpret_cast<const uint32_t*>(qs);
+  const uint32_t* qlp = qhp + d.bq * ld;
+  const auto aq = [&](int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+    frag_a_planes(qhp, qlp, ld, m0, 8 * kk, ah, al);
+  };
+  float m_a = FA_NEG_INF, m_b = FA_NEG_INF, l_a = 0.f, l_b = 0.f, o[DT][4], oc[DT][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] = oc[n][e] = 0.f;
+
+  for (int kt = 0; kt < ntiles; ++kt) {
+    cp_async_wait<FK_STAGES - 2>();
+    __syncthreads();   // tile kt landed; the stage refilled below was read last iteration
+    const int next = kt + FK_STAGES - 1;
+    if (next < ntiles) fwd_stage_kv(smem + (next % FK_STAGES) * stage, K + ko, V + ko,
+                                    next * FK_TILE, d);
+    cp_async_commit();
+    // every warp computes: rows past the tile's nq read zeros and store nothing
+    if (kt == 0) {   // q landed with tile 0: split the warp's rows once
+      uint32_t* hp = reinterpret_cast<uint32_t*>(qs) + m0 * ld;
+      uint32_t* lp = hp + d.bq * ld;
+      for (int r = 0; r < 16; ++r)
+        for (int c = lane; c < 8 * DT; c += 32) {
+          uint32_t h, l;
+          split_tf32(qs[(m0 + r) * ld + c], h, l);
+          hp[r * ld + c] = h;
+          lp[r * ld + c] = l;
+        }
+      __syncwarp();
+    }
+    const int k0 = kt * FK_TILE;
+    if (d.causal && k0 - (row0 + 15) >= d.offset) continue;   // the warp sees none of it
+    const float* ks = smem + (kt % FK_STAGES) * stage;
+    const float* vs = ks + FK_TILE * ld;
+    // the interior of the block's key range: every pair of the 64 x 16 tile visible
+    if (k0 + FK_TILE <= d.Tk && (!d.causal || k0 + FK_TILE - 1 - row0 < d.offset)) {
+      fwd_key_tile<DT, true>(aq, ks, vs, 8, row0, k0, d, m_a, m_b, l_a, l_b, o, oc, seed, rate,
+                             keep_scale);
+    } else {
+      int nk = min(8, (d.Tk - k0 + 7) / 8);
+      if (d.causal) nk = min(nk, (row0 + 15 + d.offset - k0 + 7) / 8);
+      fwd_key_tile<DT, false>(aq, ks, vs, nk, row0, k0, d, m_a, m_b, l_a, l_b, o, oc, seed,
+                              rate, keep_scale);
+    }
+  }
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[n][e] += oc[n][e];
+  l_a = fmaxf(quad_sum(l_a), 1e-30f);
+  l_b = fmaxf(quad_sum(l_b), 1e-30f);
+  store_out<DT>(O + (long long)bh * d.Tq * d.D, row0, d, o, 1.f / l_a, 1.f / l_b);
+  float* lse_row = LSE + (long long)bh * d.Tq;
+  if (t == 0) {
+    if (row0 + g < d.Tq) lse_row[row0 + g] = m_a + logf(l_a);
+    if (row0 + g + 8 < d.Tq) lse_row[row0 + g + 8] = m_b + logf(l_b);
+  }
+}
+
+// K5dkv: dK and dV of a (slice, 64 keys) block, 4 warps of 16 keys, over
+// the query tiles that see its keys.  dV and dK sum over up to Tq queries
+// in the tensor cores' truncating accumulators; DKV_PROMOTE > 0 adds them
+// into float32 sums every DKV_PROMOTE query tiles (0: never; PERF.md,
+// tools/k5_trials.py).
+constexpr int FD_THREADS = 128;
+constexpr int DKV_PROMOTE = 0;
+
+// 64 query rows of q and dO, lse and delta from row t0 (zero past Tq) into
+// a ring stage: q, dO [64][ld], lse [64], delta [64].
+__device__ __forceinline__ void dkv_stage_q(float* qs, const float* Q, const float* dO,
+                                            const float* lse, const float* delta, int t0,
+                                            const FlashDims& d) {
+  const int n = min(FK_TILE, d.Tq - t0);
+  const long long o = (long long)t0 * d.D;
+  float* ls = qs + 2 * FK_TILE * d.ld;
+  stage_rows4(qs, Q + o, n, FK_TILE, d.D, 8 * d.dt, d.ld);
+  stage_rows4(qs + FK_TILE * d.ld, dO + o, n, FK_TILE, d.D, 8 * d.dt, d.ld);
+  for (int i = threadIdx.x; i < FK_TILE; i += blockDim.x) {
+    const bool ok = i < n;
+    cp_async4(ls + i, ok ? lse + t0 + i : lse, ok);
+    cp_async4(ls + FK_TILE + i, ok ? delta + t0 + i : delta, ok);
+  }
+}
+
+// One warp's 16 keys (first key c0) against 32 staged queries (rows h0..
+// of qs / dos, the first q0 + h0): S^T = K Q^T and dP'^T = V dO^T (K and V
+// fragments from akv(kk, which, hi, lo)), then M p and dS in registers,
+// then dV += (M p)^T dO and dK += dS^T Q.  FULL: every pair visible (no
+// test); else 8-query tiles that see none of the keys are skipped and each
+// pair is tested.
+template <int DT, bool FULL, typename KVFrag>
+__device__ __forceinline__ void dkv_half(KVFrag akv, const float* qs, const float* dos,
+                                         const float* ls, int h0, int q0, int c0,
+                                         const FlashDims& d, float (&dk)[DT][4],
+                                         float (&dv)[DT][4], uint32_t seed, float rate,
+                                         float keep_scale) {
+  const int g = (threadIdx.x % 32) >> 2, t = threadIdx.x & 3, ld = d.ld;
+  const int qa = q0 + h0;
+  bool on[4];
+  float st[4][4], dpt[4][4];
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    // an 8-query tile sees the warp's keys: its last query against the first key
+    on[n] = FULL || (qa + 8 * n < d.Tq && (!d.causal || c0 - (qa + 8 * n + 7) < d.offset));
+#pragma unroll
+    for (int e = 0; e < 4; ++e) st[n][e] = dpt[n][e] = 0.f;
+  }
+#pragma unroll
+  for (int kk = 0; kk < DT; ++kk) {
+    uint32_t ka[4], kb[4], va[4], vb[4];   // hi, lo
+    akv(kk, 0, ka, kb);
+    akv(kk, 1, va, vb);
+#pragma unroll
+    for (int n = 0; n < 4; ++n) {
+      if (!FULL && !on[n]) continue;
+      uint32_t bh[2], bl[2];
+      fb_frag_b(qs, 1, ld, 8 * kk, h0 + 8 * n, bh, bl);
+      fb_mma3(st[n], ka, kb, bh, bl);
+      fb_frag_b(dos, 1, ld, 8 * kk, h0 + 8 * n, bh, bl);
+      fb_mma3(dpt[n], va, vb, bh, bl);
+    }
+  }
+  // S^T and dP'^T (keys g / g + 8, queries 2t / 2t + 1) -> M p and dS, no
+  // branch a pair
+#pragma unroll
+  for (int n = 0; n < 4; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int key = c0 + g + (e < 2 ? 0 : 8), lq = h0 + 8 * n + 2 * t + (e & 1);
+      const int row = q0 + lq;
+      float p = __expf(st[n][e] - ls[lq]);
+      if constexpr (!FULL) {
+        const bool ok = on[n] && row < d.Tq && key < d.Tk &&
+                        (!d.causal || key - row < d.offset);
+        p = ok ? p : 0.f;
+      }
+      float mk = 1.f;
+      if (d.use_dropout) mk = hash_uniform(seed, row, key) >= rate ? keep_scale : 0.f;
+      st[n][e] = p * mk;
+      dpt[n][e] = p * (dpt[n][e] * mk - ls[FK_TILE + lq]);
+    }
+  // dV += (M p)^T dO and dK += dS^T Q, the 8-query tiles as k steps
+#pragma unroll
+  for (int n = 0; n < 4; ++n) {
+    if (!FULL && !on[n]) continue;
+    uint32_t ph[4], pl[4], sh[4], sl[4];
+    c_to_a(st[n], ph, pl);
+    c_to_a(dpt[n], sh, sl);
+#pragma unroll
+    for (int m = 0; m < DT; ++m) {
+      uint32_t bh[2], bl[2];
+      frag_b_perm(dos, ld, h0 + 8 * n, 8 * m, bh, bl);
+      fb_mma3(dv[m], ph, pl, bh, bl);
+      frag_b_perm(qs, ld, h0 + 8 * n, 8 * m, bh, bl);
+      fb_mma3(dk[m], sh, sl, bh, bl);
+    }
+  }
+}
+
+template <int DT>
+__global__ void __launch_bounds__(FD_THREADS)
+flash_bwd_dkv_kernel(const float* __restrict__ Q, const float* __restrict__ K,
+                     const float* __restrict__ V, const float* __restrict__ dO,
+                     const float* __restrict__ LSE, const float* __restrict__ DELTA,
+                     const int* __restrict__ seeds, const float* __restrict__ rates,
+                     float* __restrict__ dK, float* __restrict__ dV, int BH, FlashDims d) {
+  extern __shared__ float4 fd_smem4[];
+  float* smem = reinterpret_cast<float*>(fd_smem4);
+  const int ld = d.ld, stage = 2 * FK_TILE * ld + 2 * FK_TILE;
+  float* ks = smem;                       // [64][ld] keys, then v [64][ld]
+  float* vs = ks + FK_TILE * ld;
+  float* ring = vs + FK_TILE * ld;
+  const int kt = blockIdx.x / BH, bh = blockIdx.x % BH;   // key tile 0, the heaviest, first
+  const int k0 = kt * FK_TILE, nkeys = min(FK_TILE, d.Tk - k0);
+  const int w0 = 16 * (threadIdx.x / 32), c0 = k0 + w0;   // the warp's first key
+  const long long qo = (long long)bh * d.Tq * d.D, ko = ((long long)bh * d.Tk + k0) * d.D;
+  const float* lse = LSE + (long long)bh * d.Tq;
+  const float* delta = DELTA + (long long)bh * d.Tq;
+  const uint32_t seed = d.use_dropout ? (uint32_t)seeds[bh] : 0u;
+  const float rate = d.use_dropout ? rates[bh] : 0.f;
+  const float keep_scale = d.use_dropout ? 1.0f / (1.0f - rate) : 1.f;
+  // the first query row that sees key k0 is k0 - offset + 1
+  const int q_first = d.causal ? max(0, k0 - d.offset + 1) / FK_TILE : 0;
+  const int ntiles = max(0, (d.Tq + FK_TILE - 1) / FK_TILE - q_first);
+
+  stage_rows4(ks, K + ko, nkeys, FK_TILE, d.D, 8 * DT, ld);   // join query tile 0's group
+  stage_rows4(vs, V + ko, nkeys, FK_TILE, d.D, 8 * DT, ld);
+  for (int s = 0; s < FK_STAGES - 1; ++s) {
+    if (s < ntiles) dkv_stage_q(ring + s * stage, Q + qo, dO + qo, lse, delta,
+                                (q_first + s) * FK_TILE, d);
+    cp_async_commit();
+  }
+  float dk[DT][4], dv[DT][4], dk_sum[DKV_PROMOTE ? DT : 1][4], dv_sum[DKV_PROMOTE ? DT : 1][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dk[n][e] = dv[n][e] = 0.f;
+  if constexpr (DKV_PROMOTE > 0) {
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dk_sum[n][e] = dv_sum[n][e] = 0.f;
+  }
+  // the warp's k (which 0) and v (1) fragments, split as they are read: held
+  // in registers for the whole walk instead, they cost the kernel a block an
+  // SM and ran 10-25% slower (tools/k5_trials.py)
+  const auto akv = [&](int kk, int which, uint32_t (&hi)[4], uint32_t (&lo)[4]) {
+    fb_frag_a(which ? vs : ks, ld, 1, w0, 8 * kk, hi, lo);
+  };
+
+  for (int it = 0; it < ntiles; ++it) {
+    cp_async_wait<FK_STAGES - 2>();
+    __syncthreads();   // query tile it landed; the stage refilled below was read last iteration
+    const int next = it + FK_STAGES - 1;
+    if (next < ntiles) dkv_stage_q(ring + (next % FK_STAGES) * stage, Q + qo, dO + qo, lse,
+                                   delta, (q_first + next) * FK_TILE, d);
+    cp_async_commit();
+    // every warp computes: keys past Tk read zeros and store nothing
+    const float* qs = ring + (it % FK_STAGES) * stage;
+    const float* dos = qs + FK_TILE * ld;
+    const float* ls = dos + FK_TILE * ld;
+    const int q0 = (q_first + it) * FK_TILE;
+#pragma unroll 1
+    for (int h0 = 0; h0 < FK_TILE; h0 += 32) {   // 32 queries at a time
+      const int qa = q0 + h0;
+      if (qa >= d.Tq) break;
+      if (d.causal && c0 - (qa + 31) >= d.offset) continue;   // sees none of the warp's keys
+      if (qa + 32 <= d.Tq && c0 + 16 <= d.Tk && (!d.causal || c0 + 15 - qa < d.offset))
+        dkv_half<DT, true>(akv, qs, dos, ls, h0, q0, c0, d, dk, dv, seed, rate, keep_scale);
+      else
+        dkv_half<DT, false>(akv, qs, dos, ls, h0, q0, c0, d, dk, dv, seed, rate, keep_scale);
+    }
+    if constexpr (DKV_PROMOTE > 0) {
+      if ((it + 1) % max(DKV_PROMOTE, 1) == 0 || it + 1 == ntiles) {
+#pragma unroll
+        for (int n = 0; n < DT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            dk_sum[n][e] += dk[n][e];
+            dv_sum[n][e] += dv[n][e];
+            dk[n][e] = dv[n][e] = 0.f;
+          }
+      }
+    }
+  }
+  if constexpr (DKV_PROMOTE > 0) {
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        dk[n][e] = dk_sum[n][e];
+        dv[n][e] = dv_sum[n][e];
+      }
+  }
+  // the warp's own key rows of ks / vs take its dK / dV (no other warp reads
+  // them); every copy into ks / vs has landed first, also where the causal
+  // rule hides the block's keys from every query and the walk never ran
+  cp_async_wait<0>();
+  __syncthreads();
+  put_rows<DT>(ks, ld, w0, dk);
+  put_rows<DT>(vs, ld, w0, dv);
+  __syncthreads();
+  store_rows(dK + ko, ks, nkeys, d.D, ld);
+  store_rows(dV + ko, vs, nkeys, d.D, ld);
+}
+
 // Shared memory per block, in bytes, and the launch itself; more than the
 // card allows refuses the launch (the error comes back to the wrapper).
 template <typename Kernel>
@@ -791,19 +1223,6 @@ cudaError_t prepare(Kernel kernel, size_t smem) {
                               (int)smem);
 }
 
-template <int DJ>
-cudaError_t launch_fwd(const float* q, const float* k, const float* v, const int* seeds,
-                       const float* rates, float* out, float* lse, int BH, int Tq, int Tk,
-                       int D, int causal, int offset, int use_dropout, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (3 * (size_t)D * FA_LD + FA_BQ * FA_LD) +
-                      sizeof(int) * FA_BK;
-  cudaError_t err = prepare(flash_fwd_kernel<DJ>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(BH, (Tq + FA_BQ - 1) / FA_BQ);
-  flash_fwd_kernel<DJ><<<grid, FA_THREADS, smem, stream>>>(
-      q, k, v, seeds, rates, out, lse, Tq, Tk, D, causal, offset, use_dropout);
-  return cudaGetLastError();
-}
 
 template <int DJ>
 cudaError_t launch_dq(const float* q, const float* k, const float* v, const float* dout,
@@ -819,28 +1238,123 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v, const floa
   return cudaGetLastError();
 }
 
-template <int DJ>
+// K5f's and K5dkv's launches.  Each kernel's dynamic shared-memory cap is
+// raised once per process (allow_smem_once); the plan's carve-up is checked
+// against the card by the launch itself.
+template <int DT, int NKT>
+cudaError_t launch_fwd_unit_nk(const float* q, const float* k, const float* v,
+                               const int* seeds, const float* rates, float* out, float* lse,
+                               int BH, const FlashDims& d, int blocks, int smem,
+                               cudaStream_t stream) {
+  static unsigned long long set = 0;
+  const cudaError_t err = allow_smem_once((const void*)flash_fwd_unit_kernel<DT, NKT>, &set);
+  if (err != cudaSuccess) return err;
+  flash_fwd_unit_kernel<DT, NKT><<<blocks, FU_THREADS, smem, stream>>>(q, k, v, seeds, rates,
+                                                                      out, lse, BH, d);
+  return cudaGetLastError();
+}
+
+// path 0's key tiles: NKT = kp / 8, 4 (Tk <= 32) or 8
+template <int DT>
+cudaError_t launch_fwd_unit(const float* q, const float* k, const float* v, const int* seeds,
+                            const float* rates, float* out, float* lse, int BH,
+                            const FlashDims& d, int blocks, int smem, cudaStream_t stream) {
+  if (d.kp == 32)
+    return launch_fwd_unit_nk<DT, 4>(q, k, v, seeds, rates, out, lse, BH, d, blocks, smem,
+                                     stream);
+  return launch_fwd_unit_nk<DT, 8>(q, k, v, seeds, rates, out, lse, BH, d, blocks, smem,
+                                   stream);
+}
+
+template <int DT>
+cudaError_t launch_fwd_tiled(const float* q, const float* k, const float* v, const int* seeds,
+                             const float* rates, float* out, float* lse, int BH,
+                             const FlashDims& d, int blocks, int smem, cudaStream_t stream) {
+  static unsigned long long set = 0;
+  const cudaError_t err = allow_smem_once((const void*)flash_fwd_tiled_kernel<DT>, &set);
+  if (err != cudaSuccess) return err;
+  flash_fwd_tiled_kernel<DT><<<blocks, 2 * d.bq, smem, stream>>>(q, k, v, seeds, rates, out,
+                                                                  lse, BH, d);
+  return cudaGetLastError();
+}
+
+template <int DT>
+cudaError_t launch_dkv_tc(const float* q, const float* k, const float* v, const float* dout,
+                          const float* lse, const float* delta, const int* seeds,
+                          const float* rates, float* dk, float* dv, int BH, const FlashDims& d,
+                          int blocks, int smem, cudaStream_t stream) {
+  static unsigned long long set = 0;
+  const cudaError_t err = allow_smem_once((const void*)flash_bwd_dkv_kernel<DT>, &set);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dkv_kernel<DT><<<blocks, FD_THREADS, smem, stream>>>(
+      q, k, v, dout, lse, delta, seeds, rates, dk, dv, BH, d);
+  return cudaGetLastError();
+}
+
+// The kernels' instances: DT = d.dt, the 8-column tiles over D, rounded up
+// by the plan to 1, 2, 4, 8 or 16 (the staged columns past D are zero), so
+// D <= 128.
+#define FLASH_DT(FN, ...)                         \
+  switch (d.dt) {                                 \
+    case 1: return FN<1>(__VA_ARGS__);            \
+    case 2: return FN<2>(__VA_ARGS__);            \
+    case 4: return FN<4>(__VA_ARGS__);            \
+    case 8: return FN<8>(__VA_ARGS__);            \
+    default: return FN<16>(__VA_ARGS__);          \
+  }
+
+// The padding every plan shares: dt, the least power of two of 8-column
+// tiles that covers D (D <= 128), and rows of ld >= 8 dt floats, 4 mod 8.
+bool widths_ok(const FlashDims& d) {
+  return d.D >= 1 && d.D <= 128 && (d.dt & (d.dt - 1)) == 0 && 8 * d.dt >= d.D &&
+         (d.dt == 1 || 4 * d.dt < d.D) && d.ld >= 8 * d.dt && d.ld % 8 == 4;
+}
+
+// K5f from its plan, host ints: path (0: unit, 1: tiled), blocks, threads,
+// smem bytes, dt, ld, qp, kp (path 0), bq (path 1).
+cudaError_t launch_fwd(const float* q, const float* k, const float* v, const int* seeds,
+                       const float* rates, float* out, float* lse, int BH, int Tq, int Tk,
+                       int D, int causal, int offset, int use_dropout, const int* plan,
+                       cudaStream_t stream) {
+  const int path = plan[0], blocks = plan[1], threads = plan[2], smem = plan[3];
+  FlashDims d{Tq, Tk, D, causal, offset, use_dropout, plan[4], plan[5], plan[6], plan[7], 0,
+              plan[8]};
+  d.slot = d.ld * (d.qp + 2 * d.kp) + 4;
+  if (!widths_ok(d) || blocks < 1 || BH < 1 || Tq < 1 || Tk < 1) return cudaErrorInvalidValue;
+  if (path == 0) {
+    if (Tq > 64 || Tk > 64 || threads != FU_THREADS || d.qp != 16 * (FU_THREADS / 32) ||
+        d.kp != (Tk <= 32 ? 32 : 64) || smem < 8 * d.slot)
+      return cudaErrorInvalidValue;
+    FLASH_DT(launch_fwd_unit, q, k, v, seeds, rates, out, lse, BH, d, blocks, smem, stream)
+  }
+  if (path != 1 || (d.bq != 64 && d.bq != 128) || threads != 2 * d.bq ||
+      blocks != (Tq + d.bq - 1) / d.bq * BH ||
+      smem < 4 * (FK_STAGES * 2 * FK_TILE + 2 * d.bq) * d.ld)
+    return cudaErrorInvalidValue;
+  FLASH_DT(launch_fwd_tiled, q, k, v, seeds, rates, out, lse, BH, d, blocks, smem, stream)
+}
+
+// K5dkv from its plan, host ints: blocks, threads, smem bytes, dt, ld.
 cudaError_t launch_dkv(const float* q, const float* k, const float* v, const float* dout,
                        const float* lse, const float* delta, const int* seeds,
-                       const float* rates, float* dk, float* dv, int BH, int Tq, int Tk,
-                       int D, int causal, int offset, int use_dropout,
+                       const float* rates, float* dk, float* dv, int BH, int Tq, int Tk, int D,
+                       int causal, int offset, int use_dropout, const int* plan,
                        cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (4 * (size_t)D * FA_LD + FA_BK * FA_LD + 2 * FA_BQ);
-  cudaError_t err = prepare(flash_bwd_dkv_kernel<DJ>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(BH, (Tk + FA_BK - 1) / FA_BK);
-  flash_bwd_dkv_kernel<DJ><<<grid, FA_THREADS, smem, stream>>>(
-      q, k, v, dout, lse, delta, seeds, rates, dk, dv, Tq, Tk, D, causal, offset,
-      use_dropout);
-  return cudaGetLastError();
+  const int blocks = plan[0], threads = plan[1], smem = plan[2];
+  FlashDims d{Tq, Tk, D, causal, offset, use_dropout, plan[3], plan[4], 0, 0, 0, 0};
+  if (!widths_ok(d) || BH < 1 || Tq < 1 || Tk < 1 || threads != FD_THREADS ||
+      blocks != (Tk + FK_TILE - 1) / FK_TILE * BH ||
+      smem < 4 * (2 * FK_TILE * d.ld + FK_STAGES * (2 * FK_TILE * d.ld + 2 * FK_TILE)))
+    return cudaErrorInvalidValue;
+  FLASH_DT(launch_dkv_tc, q, k, v, dout, lse, delta, seeds, rates, dk, dv, BH, d, blocks, smem,
+           stream)
 }
 
 }  // namespace
 
-// DJ = ceil(D / 16) rounded up to 1, 2, 4 or 8 (a thread's spare columns
-// past D are neither read nor written), so D <= 128; a wider D is refused
-// with cudaErrorInvalidValue.  Four instances of each kernel keep the build
-// short.
+// K5dq's DJ = ceil(D / 16) rounded up to 1, 2, 4 or 8 (a thread's spare
+// columns past D are neither read nor written), so D <= 128; a wider D is
+// refused with cudaErrorInvalidValue.  Four instances keep the build short.
 #define FA_CASES(FN, ...)                                \
   switch ((D + 15) / 16) {                               \
     case 1: return (int)FN<1>(__VA_ARGS__);              \
@@ -851,14 +1365,14 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v, const flo
     default: return (int)cudaErrorInvalidValue;          \
   }
 
-// K5f: out [B*H, Tq, D] and lse [B*H, Tq].  Each entry returns the
-// launch's cudaError_t.
+// K5f: out [B*H, Tq, D] and lse [B*H, Tq]; plan as launch_fwd's.  Each
+// entry returns the launch's cudaError_t.
 extern "C" int mmtr_flash_fwd(const float* q, const float* k, const float* v,
                               const int* seeds, const float* rates, float* out, float* lse,
                               int BH, int Tq, int Tk, int D, int causal, int offset,
-                              int use_dropout, void* stream_ptr) {
-  FA_CASES(launch_fwd, q, k, v, seeds, rates, out, lse, BH, Tq, Tk, D, causal, offset,
-           use_dropout, (cudaStream_t)stream_ptr)
+                              int use_dropout, const int* plan, void* stream_ptr) {
+  return (int)launch_fwd(q, k, v, seeds, rates, out, lse, BH, Tq, Tk, D, causal, offset,
+                         use_dropout, plan, (cudaStream_t)stream_ptr);
 }
 
 // K5dq: dq [B*H, Tq, D] from q, k, v, dout, lse and delta.
@@ -871,14 +1385,14 @@ extern "C" int mmtr_flash_bwd_dq(const float* q, const float* k, const float* v,
            offset, use_dropout, (cudaStream_t)stream_ptr)
 }
 
-// K5dkv: dk and dv [B*H, Tk, D].
+// K5dkv: dk and dv [B*H, Tk, D]; plan as launch_dkv's.
 extern "C" int mmtr_flash_bwd_dkv(const float* q, const float* k, const float* v,
                                   const float* dout, const float* lse, const float* delta,
                                   const int* seeds, const float* rates, float* dk, float* dv,
                                   int BH, int Tq, int Tk, int D, int causal, int offset,
-                                  int use_dropout, void* stream_ptr) {
-  FA_CASES(launch_dkv, q, k, v, dout, lse, delta, seeds, rates, dk, dv, BH, Tq, Tk, D,
-           causal, offset, use_dropout, (cudaStream_t)stream_ptr)
+                                  int use_dropout, const int* plan, void* stream_ptr) {
+  return (int)launch_dkv(q, k, v, dout, lse, delta, seeds, rates, dk, dv, BH, Tq, Tk, D,
+                         causal, offset, use_dropout, plan, (cudaStream_t)stream_ptr);
 }
 
 // K5b: dq, dk and dv in one launch from q, k, v, dout, out and lse (delta

@@ -6,12 +6,15 @@ and ``attention_pallas_bwd.py``.  Each wrapper launches ``csrc/flash_attn.cu``
 on a CUDA tensor and runs its plain PyTorch version on a CPU tensor:
 
   * :func:`flash_fwd` (K5f): ``softmax(q k^T + future-mask rule) v`` and its
-    log-sum-exp, replacing ``attention_pallas._flash_fwd_impl``;
+    log-sum-exp, replacing ``attention_pallas._flash_fwd_impl``, by the plan
+    :func:`_plan_flash_fwd` (a persistent unit path at Tq, Tk <= 64, a
+    tiled one beyond);
   * :func:`flash_bwd`: the backward from the saved log-sum-exp, replacing
     ``attention_pallas_bwd.flash_attention_bwd`` (its two pallas_calls and
     the XLA delta): K5b, one fused pass a (b*h) slice, where Tq and Tk are
     at most 64, else the delta op and :func:`flash_bwd_dq` (K5dq) and
-    :func:`flash_bwd_dkv` (K5dkv), which also stay entries of their own;
+    :func:`flash_bwd_dkv` (K5dkv, by the plan :func:`_plan_flash_dkv`),
+    which also stay entries of their own;
   * :func:`flash_attention_masked` (K8): the forward with a per-sample
     key-padding mask, replacing ``attention_pallas.flash_attention_masked``;
     forward only, as there.  It runs K6a's kernels (``csrc/bert_attn.cu``)
@@ -151,23 +154,89 @@ def _check_dropout(seeds, rates, bh, dev):
     return seeds.data_ptr(), rates.data_ptr(), 1
 
 
+def _flash_widths(D: int):
+    """``(dt, ld)`` of a head width: ``dt`` 8-column tiles over D, rounded
+    up to a power of two (a kernel instance each, its loops over the k steps
+    of the score products and the column tiles of the value products fixed
+    at compile time; the staged columns past D are zero) and ``ld = 8 dt +
+    4``, a staged row's stride (4 mod 8 floats: the fragment loads are free
+    of bank conflicts)."""
+    if not 1 <= D <= _MAX_HEAD_DIM:
+        raise ValueError(f"head_dim {D}: the kernels take 1 <= head_dim <= {_MAX_HEAD_DIM}")
+    dt = 1 << (-(-D // 8) - 1).bit_length()
+    return dt, 8 * dt + 4
+
+
+_KTILE = 64     # keys (K5f's tiled path) or queries (K5dkv) a ring stage holds
+_KSTAGES = 2    # the ring's stages (csrc/flash_attn.cu's FK_STAGES)
+
+
+def _fwd_tiled_smem(ld: int, bq: int) -> int:
+    """K5f path 1's carve-up, bytes: the ring of 64-key k and v tiles, then
+    the q rows' hi and lo planes."""
+    return 4 * ld * (_KSTAGES * 2 * _KTILE + 2 * bq)
+
+
+def _plan_flash_fwd(BH: int, Tq: int, Tk: int, D: int,
+                    num_sms: int = _build.NUM_SMS) -> dict:
+    """K5f's launch plan.  Path 0 (Tq, Tk <= 64, every MOSEI flash stack): a
+    persistent grid of 4-warp blocks, at most ``_build.FU_BLOCKS_PER_SM`` an
+    SM (the kernel's launch bound; fewer where shared memory holds fewer),
+    each walking (b*h) slices with the next one in flight into the second of
+    two shared-memory slots.  A slot holds q ``[qp][ld]`` (``qp`` 64: 16
+    rows for each warp, zero past Tq), k and v ``[kp][ld]`` (``kp`` 32
+    where Tk <= 32, else 64: the kernel instance's key tiles, which every
+    warp multiplies whole) and the slice's seed and rate.  Path 1 (longer):
+    a block per (slice, ``bq`` query rows, a warp each 16), 64-key tiles of
+    k and v in a 2-stage ring, q split into TF32 hi / lo once, into two
+    shared-memory planes.  ``bq`` is 128 where that fits shared memory (D
+    <= 64), else 64: on the H100 at B=16 T=2048 D=25, 128 rows beat 64
+    (PERF.md, tools/k5_trials.py)."""
+    dt, ld = _flash_widths(D)
+    if min(BH, Tq, Tk) < 1:
+        raise ValueError(f"Tq {Tq}, Tk {Tk}, B*H {BH}: the kernels take nonempty slices")
+    if Tq <= 64 and Tk <= 64:
+        qp, kp = 64, 32 if Tk <= 32 else 64
+        smem = 8 * (ld * (qp + 2 * kp) + 4)
+        per_sm = min(_build.FU_BLOCKS_PER_SM, _build.SM_SMEM // (smem + 1024))
+        return {"path": 0, "blocks": min(BH, per_sm * num_sms), "threads": 128, "smem": smem,
+                "dt": dt, "ld": ld, "qp": qp, "kp": kp, "bq": 0}
+    bq = 128 if _fwd_tiled_smem(ld, 128) <= _build.MAX_SMEM else 64
+    return {"path": 1, "blocks": -(-Tq // bq) * BH, "threads": 2 * bq,
+            "smem": _fwd_tiled_smem(ld, bq), "dt": dt, "ld": ld, "qp": 0, "kp": 0, "bq": bq}
+
+
+_FF_PLAN_KEYS = ("path", "blocks", "threads", "smem", "dt", "ld", "qp", "kp", "bq")
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_fwd_plan(BH, Tq, Tk, D, num_sms):
+    """K5f's plan as csrc/flash_attn.cu reads it: (C int array, its address)."""
+    p = _plan_flash_fwd(BH, Tq, Tk, D, num_sms)
+    return _build.host_ints([p[k] for k in _FF_PLAN_KEYS])
+
+
 def flash_fwd(q, k, v, seeds=None, rates=None, causal: bool = True,
               offset: Optional[int] = None):
     """K5f: ``q [B, H, Tq, D]`` (pre-scaled), ``k``, ``v [B, H, Tk, D]``,
     optional ``seeds [B*H]`` int32 and ``rates [B*H]`` -> ``(out, lse [B*H,
     Tq])``.  CPU tensors take :func:`flash_attention_plain`; CUDA tensors
-    launch the kernel (or raise)."""
+    launch the kernel by :func:`_plan_flash_fwd` (or raise): at Tq, Tk <= 64
+    the persistent unit path, a warp's 16 query rows against the whole
+    slice in one pass; longer, the tiled path with the online softmax over
+    64-key tiles.  Both run their products in 3xTF32 on the tensor cores."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, offset, seeds, rates)
     dev = _build.device_of(q)
     b, h, tq, tk, d = _check_qkv(q, k, v, dev)
     offset = _offset(tq, tk, causal, offset)
     p_seeds, p_rates, use_dropout = _check_dropout(seeds, rates, b * h, dev)
+    plan = _cached_fwd_plan(b * h, tq, tk, d, _build.num_sms(dev))
     out = torch.empty_like(q)
     lse = torch.empty(b * h, tq, dtype=torch.float32, device=dev)
     err = _build.load_library().mmtr_flash_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), p_seeds, p_rates, out.data_ptr(),
-        lse.data_ptr(), b * h, tq, tk, d, int(causal), offset, use_dropout,
+        lse.data_ptr(), b * h, tq, tk, d, int(causal), offset, use_dropout, plan[1],
         _build.stream_ptr(dev))
     _build.check(err, "flash attention forward kernel")
     flash_fwd.launches += 1
@@ -208,15 +277,48 @@ def flash_bwd_dq(q, k, v, dout, lse, delta, seeds=None, rates=None, causal: bool
 flash_bwd_dq.launches = 0
 
 
+def _plan_flash_dkv(BH: int, Tq: int, Tk: int, D: int) -> dict:
+    """K5dkv's launch plan: a block per (slice, 64 keys), 4 warps of 16 keys,
+    the key tiles in order (the first, which the most queries see under the
+    causal rule, first); 64-query tiles of q and dO ``[64][ld]``, lse and
+    delta ``[64]`` in a 2-stage ring behind the block's k and v rows
+    ``[64][ld]``."""
+    dt, ld = _flash_widths(D)
+    if min(BH, Tq, Tk) < 1:
+        raise ValueError(f"Tq {Tq}, Tk {Tk}, B*H {BH}: the kernels take nonempty slices")
+    return {"blocks": -(-Tk // _KTILE) * BH, "threads": 128, "smem": _dkv_smem(ld), "dt": dt,
+            "ld": ld}
+
+
+def _dkv_smem(ld: int) -> int:
+    """K5dkv's carve-up, bytes: k and v ``[64][ld]``, then the ring."""
+    return 4 * (2 * _KTILE * ld + _KSTAGES * (2 * _KTILE * ld + 2 * _KTILE))
+
+
+_FD_PLAN_KEYS = ("blocks", "threads", "smem", "dt", "ld")
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_dkv_plan(BH, Tq, Tk, D):
+    """K5dkv's plan as csrc/flash_attn.cu reads it: (C int array, its address)."""
+    p = _plan_flash_dkv(BH, Tq, Tk, D)
+    return _build.host_ints([p[k] for k in _FD_PLAN_KEYS])
+
+
 def flash_bwd_dkv(q, k, v, dout, lse, delta, seeds=None, rates=None, causal: bool = True,
                   offset: Optional[int] = None):
-    """K5dkv: ``(dk, dv)``, operands as :func:`flash_bwd_dq`."""
+    """K5dkv: ``(dk, dv)``, operands as :func:`flash_bwd_dq`.  On the card
+    one launch by :func:`_plan_flash_dkv`: a block per 64 keys walks the
+    query tiles that see them, S^T = K Q^T and dP'^T = V dO^T, then dV +=
+    (M p)^T dO and dK += dS^T Q, all in 3xTF32 on the tensor cores, each
+    output written once (a rerun gives the same bits)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, dout, causal, offset, seeds, rates)[1:]
     dev, ptrs, ints = _bwd_operands(q, k, v, dout, lse, delta, seeds, rates, causal, offset)
+    plan = _cached_dkv_plan(*ints[:4])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
     err = _build.load_library().mmtr_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(),
-                                                   *ints, _build.stream_ptr(dev))
+                                                   *ints, plan[1], _build.stream_ptr(dev))
     _build.check(err, "flash attention dk/dv kernel")
     flash_bwd_dkv.launches += 1
     return dk, dv
@@ -280,9 +382,10 @@ def flash_bwd(q, k, v, dout, out, lse, seeds=None, rates=None, causal: bool = Tr
     output ``out`` and log-sum-exp ``lse [B*H, Tq]``, and ``dout``.  CPU
     tensors take the plain version (autograd through
     :func:`flash_attention_plain`; ``out`` and ``lse`` are not read).  On
-    the card the plan picks by shape: Tq, Tk <= 64 launch K5b once (delta =
-    rowsum(dout * out) inside); longer slices take the delta op, K5dq and
-    K5dkv.  A refused launch raises."""
+    the card :func:`_plan_flash_bwd` picks by shape: Tq, Tk <= 64 launch K5b
+    once (delta = rowsum(dout * out) inside); longer slices take the delta
+    op, K5dq (CUDA-core FMA tiles) and K5dkv (tensor cores, planned by
+    :func:`_plan_flash_dkv`).  A refused plan or launch raises."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, dout, causal, offset, seeds, rates)
     dev = _build.device_of(q)

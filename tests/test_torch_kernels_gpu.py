@@ -19,10 +19,12 @@ K9f are held to 1e-4 absolute, K7b and K9b to 1e-4 of each output's max
 |ref| (sums over T*N or R rows in another order), K9b beyond what entries
 of its hidden pre-activation within 1e-4 of relu's kink may move it
 (``relu_kink_bound``: either side of the kink is a valid derivative), and
-K7b and K9b reruns must give the same bits (no float atomics).  K5b (the
-fused flash backward) is held to 1e-4 of each gradient's max |ref| (its
-products run on the tensor cores in 3xTF32, float32-accurate), and its
-reruns must give the same bits too.
+K7b and K9b reruns must give the same bits (no float atomics).  K5f is
+held to 1e-4 absolute (out and lse), K5dq, K5dkv and K5b (the fused flash
+backward) to 1e-4 of each gradient's max |ref| (K5f's, K5dkv's and K5b's
+products run on the tensor cores in 3xTF32, float32-accurate); every flash
+kernel's reruns must give the same bits too, and each call moves its launch
+counter by exactly one.
 """
 
 import numpy as np
@@ -373,11 +375,22 @@ def test_bert_variants_on_card_match_cpu(cuda, impl, int8, monkeypatch):
         assert diff.max() <= 3e-3
 
 
-# (b, h, tq, tk, d, causal, rate): the MOSEI self and cross (offset 19)
-# shapes at small batch, several tiles, a D above 64, and a narrow D
-_FLASH_CASES = [(2, 8, 50, 50, 25, True, 0.0), (2, 8, 50, 32, 25, True, 0.1),
-                (1, 2, 130, 70, 64, True, 0.1), (2, 2, 7, 200, 128, False, 0.3),
-                (1, 1, 300, 300, 8, True, 0.0)]
+# (b, h, tq, tk, d, causal, rate, offset): the MOSEI self and cross
+# (offset 19) shapes at small batch, several tiles, a D above 64, and a
+# narrow D; then the edges of K5f's and K5dkv's plans: one row and key, the
+# largest unit slice, the first tiled shapes (65 x 65, one query over 130
+# keys), D = 1, D = 128 on both K5f paths (the tiled one with 64 query
+# rows); then offsets below the default 1 + |Tk - Tq| on the tiled path,
+# under which whole 64-key tiles are seen by no query (K5dkv writes zeros
+# there without walking a query tile).  offset None: the default.
+_FLASH_CASES = [(2, 8, 50, 50, 25, True, 0.0, None), (2, 8, 50, 32, 25, True, 0.1, None),
+                (1, 2, 130, 70, 64, True, 0.1, None), (2, 2, 7, 200, 128, False, 0.3, None),
+                (1, 1, 300, 300, 8, True, 0.0, None), (1, 2, 1, 1, 25, True, 0.1, None),
+                (2, 2, 64, 64, 25, True, 0.3, None), (1, 2, 65, 65, 25, True, 0.1, None),
+                (1, 2, 1, 130, 25, True, 0.0, None), (2, 3, 17, 9, 1, True, 0.1, None),
+                (1, 2, 40, 64, 128, True, 0.1, None), (1, 2, 150, 150, 128, True, 0.0, None),
+                (1, 2, 1, 130, 25, True, 0.0, 1), (1, 2, 65, 200, 25, True, 0.1, 1),
+                (2, 2, 130, 300, 64, True, 0.3, 40)]
 
 
 def _flash_inputs(cuda, b, h, tq, tk, d, rate, seed=13):
@@ -392,38 +405,47 @@ def _flash_inputs(cuda, b, h, tq, tk, d, rate, seed=13):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,h,tq,tk,d,causal,rate", _FLASH_CASES)
-def test_flash_fwd_kernel_matches_plain(cuda, b, h, tq, tk, d, causal, rate):
+@pytest.mark.parametrize("b,h,tq,tk,d,causal,rate,offset", _FLASH_CASES)
+def test_flash_fwd_kernel_matches_plain(cuda, b, h, tq, tk, d, causal, rate, offset):
     q, k, v, seeds, rates = _flash_inputs(cuda, b, h, tq, tk, d, rate)
     n0 = attention_cuda.flash_fwd.launches
-    out, lse = attention_cuda.flash_fwd(q, k, v, seeds, rates, causal)
+    out, lse = attention_cuda.flash_fwd(q, k, v, seeds, rates, causal, offset)
     torch.cuda.synchronize()
     assert attention_cuda.flash_fwd.launches == n0 + 1
-    ref, ref_lse = attention_cuda.flash_attention_plain(q, k, v, causal, None, seeds, rates)
+    ref, ref_lse = attention_cuda.flash_attention_plain(q, k, v, causal, offset, seeds, rates)
     torch.testing.assert_close(out, ref, atol=1e-4, rtol=0)
     torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    again = attention_cuda.flash_fwd(q, k, v, seeds, rates, causal, offset)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])   # the same bits
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("b,h,tq,tk,d,causal,rate", _FLASH_CASES)
-def test_flash_bwd_kernels_match_plain(cuda, b, h, tq, tk, d, causal, rate):
+@pytest.mark.parametrize("b,h,tq,tk,d,causal,rate,offset", _FLASH_CASES)
+def test_flash_bwd_kernels_match_plain(cuda, b, h, tq, tk, d, causal, rate, offset):
     """K5dq and K5dkv from the plain forward's out and lse, against autograd
-    through the plain version; a rerun gives the same bits."""
+    through the plain version; a rerun gives the same bits.  Each gradient
+    is held to 1e-4 of its max |ref|; where every query sees one key (Tk =
+    1, or one query under offset 1) dq and dk are zero in exact arithmetic,
+    so they are held to 1e-4 of dv's max |ref|, as in the fused backward's
+    test."""
     q, k, v, seeds, rates = _flash_inputs(cuda, b, h, tq, tk, d, rate)
     dout = torch.from_numpy(np.random.default_rng(14).standard_normal(q.shape)
                             .astype(np.float32)).to(cuda)
-    out, lse = attention_cuda.flash_attention_plain(q, k, v, causal, None, seeds, rates)
+    out, lse = attention_cuda.flash_attention_plain(q, k, v, causal, offset, seeds, rates)
     delta = (dout * out).sum(-1).reshape(b * h, tq)
-    args = (q, k, v, dout, lse, delta, seeds, rates, causal)
+    args = (q, k, v, dout, lse, delta, seeds, rates, causal, offset)
     n0 = (attention_cuda.flash_bwd_dq.launches, attention_cuda.flash_bwd_dkv.launches)
     got = (attention_cuda.flash_bwd_dq(*args),) + attention_cuda.flash_bwd_dkv(*args)
     torch.cuda.synchronize()
     assert (attention_cuda.flash_bwd_dq.launches,
             attention_cuda.flash_bwd_dkv.launches) == (n0[0] + 1, n0[1] + 1)
-    ref = attention_cuda.flash_attention_bwd_plain(q, k, v, dout, causal, None, seeds, rates)
+    ref = attention_cuda.flash_attention_bwd_plain(q, k, v, dout, causal, offset, seeds, rates)
     again = (attention_cuda.flash_bwd_dq(*args),) + attention_cuda.flash_bwd_dkv(*args)
+    scale_dv = ref[2].abs().max().item()
+    one_key = tk == 1 or (causal and tq == 1 and offset == 1)
     for a, r, b_ in zip(got, ref, again):
-        torch.testing.assert_close(a, r, atol=1e-4 * r.abs().max().item(), rtol=0)
+        scale = scale_dv if one_key else r.abs().max().item()
+        torch.testing.assert_close(a, r, atol=1e-4 * scale, rtol=0)
         assert torch.equal(a, b_)              # no float atomics: the same bits
 
 
@@ -488,16 +510,19 @@ def test_flash_bwd_takes_the_pair_past_64(cuda):
 def test_flash_autograd_on_card_matches_cpu(cuda):
     """``flash_attention`` (K5f forward, ``flash_bwd`` backward: K5b here,
     Tq=40 Tk=57) against the same function on the CPU (the plain version
-    under autograd)."""
+    under autograd), there in float64: these inputs are not pre-scaled
+    (logits of std 5, dq up to 16), where float32 on the CPU rounds
+    differently from one process to another by up to ~1e-4 in dq, so a
+    float32 reference would decide the result by its own rounding."""
     q, k, v, seeds, rates = _flash_inputs("cpu", 2, 3, 40, 57, 25, 0.2)
     out = {}
-    for dev in ("cpu", cuda):
-        leaves = [t.clone().to(dev).requires_grad_(True) for t in (q, k, v)]
+    for dev, dtype in (("cpu", torch.float64), (cuda, torch.float32)):
+        leaves = [t.to(dev, dtype).requires_grad_(True) for t in (q, k, v)]
         y = attention_cuda.flash_attention(*leaves, True, None, seeds.to(dev), rates.to(dev))
         y.sin().sum().backward()
         out[str(dev)] = [y] + [t.grad for t in leaves]
     for a, b in zip(out["cpu"], out[str(cuda)]):
-        torch.testing.assert_close(b.cpu(), a, atol=1e-4, rtol=1e-4)
+        torch.testing.assert_close(b.cpu(), a.float(), atol=1e-4, rtol=1e-4)
 
 
 @pytest.mark.gpu

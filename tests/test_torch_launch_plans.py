@@ -1,12 +1,13 @@
 """Launch plans of the port's K1f, K1b, K3, K6b, K7f, K7b, K9f / K9b,
-attention (K6a, K2, K8) and flash-backward kernels, on the CPU.
+attention (K6a, K2, K8) and flash (K5f, K5dkv, K5b) kernels, on the CPU.
 
 The CUDA kernels run only on the card, but their launch plans are computed
 in Python (``ops.bigru_cuda._plan_gru_fwd``, ``_plan_gru_bwd``,
 ``_plan_rec_bwd`` and ``_plan_recurrence``, ``ops.gru_cuda.
 _plan_gru_rec_bwd``, ``ops.bert_ffn_cuda._plan_ffn`` and ``_plan_proj_ln``,
 ``ops.bert_attn_cuda._plan_attention``, ``ops.attention_cuda.
-_plan_flash_bwd``, ``ops.trunk_block_cuda._plan_block``) and handed to
+_plan_flash_fwd``, ``_plan_flash_dkv`` and ``_plan_flash_bwd``,
+``ops.trunk_block_cuda._plan_block``) and handed to
 ``csrc/bigru.cu`` / ``csrc/bigru_bwd.cu`` / ``csrc/bert_ffn.cu`` /
 ``csrc/gru_recurrence.cu`` / ``csrc/bert_attn.cu`` / ``csrc/flash_attn.cu``
 / ``csrc/trunk_block.cu`` as given.  These tests hold every plan the model's shapes can produce to
@@ -17,10 +18,10 @@ the B=4096 recurrences (K1f's and K1b's) in one wave of 132 SMs and
 K7f's and K7b's G=2 N=4096 in two, the BERT FFN's and the o-projection's
 (K2's and K6b's, one plan) products on the wgmma tiles at the training rows
 and split over K at the serving rows,
-persistent attention and flash-backward grids no larger than the card holds
-at once, K8's unit path at Tq, Tk <= 64 and tiled path beyond, the
-flash backward's choice between its fused kernel (Tq, Tk <= 64) and the
-pair, and K9's products split over K across the card at the serving rows,
+persistent attention, flash-forward and flash-backward grids no larger than
+the card holds at once, K8's and K5f's unit path at Tq, Tk <= 64 and tiled
+path beyond, the flash backward's choice between its fused kernel (Tq, Tk
+<= 64) and the pair, and K9's products split over K across the card at the serving rows,
 its backward recomputing the hidden activation by the forward's plan.
 """
 
@@ -535,6 +536,117 @@ def test_flash_bwd_plan_at_the_mosei_shapes():
 def test_flash_bwd_plan_refuses_wide_heads():
     with pytest.raises(ValueError, match="head_dim"):
         attention_cuda._plan_flash_bwd(8, 50, 32, 129)
+
+
+def _flash_fwd_smem(p):
+    """csrc/flash_attn.cu's K5f carve-up, in bytes.  Path 0: two slots of q
+    [qp][ld], k and v [kp][ld], then seed and rate padded to 4.  Path 1:
+    the ring of 2 stages of 64-key k and v tiles [2][64][ld], then q's hi
+    and lo planes [bq][ld]."""
+    if p["path"] == 0:
+        return 4 * 2 * (p["ld"] * (p["qp"] + 2 * p["kp"]) + 4)
+    return 4 * p["ld"] * (2 * 2 * 64 + 2 * p["bq"])
+
+
+def _flash_dkv_smem(p):
+    """csrc/flash_attn.cu's K5dkv carve-up, in bytes: k and v [64][ld], then
+    2 stages of query tiles of q and dO [64][ld], lse and delta [64]."""
+    return 4 * (2 * 64 * p["ld"] + 2 * (2 * 64 * p["ld"] + 128))
+
+
+_FLASH_WIDTHS = (1, 8, 25, 64, 128)
+
+
+@pytest.mark.parametrize("tq,tk,path", [(1, 1, 0), (1, 64, 0), (64, 1, 0), (50, 32, 0),
+                                        (50, 50, 0), (64, 64, 0), (65, 65, 1), (1, 130, 1),
+                                        (130, 1, 1), (64, 65, 1), (2048, 2048, 1)])
+def test_flash_fwd_plan_picks_the_path_by_shape(tq, tk, path):
+    """K5f's unit path holds a whole slice (Tq, Tk <= 64); past 64 on
+    either side the tiled path walks 64-key tiles."""
+    for D in _FLASH_WIDTHS:
+        assert attention_cuda._plan_flash_fwd(4096 * 8, tq, tk, D)["path"] == path
+
+
+@pytest.mark.parametrize("D", _FLASH_WIDTHS)
+def test_flash_fwd_plans_fit_the_card(D):
+    """Every K5f plan: the padding the tensor-core tiles need, shared memory
+    equal to the kernel's carve-up and within the card, the unit path's
+    persistent grid resident at once (its launch bound: 4 blocks an SM),
+    the tiled path's block a (slice, bq query rows) pair of bq / 16 warps."""
+    dt = {1: 1, 8: 1, 25: 4, 64: 8, 128: 16}[D]   # ceil(D / 8) up to a power of two
+    for tq in (1, 2, 15, 16, 17, 33, 50, 63, 64, 65, 96, 128, 129, 300, 2048):
+        for tk in (1, 7, 8, 9, 32, 50, 64, 65, 130, 2048):
+            for bh in (1, 6, 264, 32768):
+                p = attention_cuda._plan_flash_fwd(bh, tq, tk, D)
+                assert p["smem"] == _flash_fwd_smem(p) <= MAX_SMEM
+                # 8-column tiles over D; rows 4 mod 8 floats (conflict-free fragments)
+                assert p["dt"] == dt and p["ld"] == 8 * dt + 4 and p["ld"] % 8 == 4
+                if p["path"] == 0:
+                    # a warp's 16 rows each for 4 warps; 4 or 8 key tiles of 8
+                    assert p["threads"] == 128 and p["qp"] == 64 and p["bq"] == 0
+                    assert p["kp"] == (32 if tk <= 32 else 64)
+                    per_sm = -(-p["blocks"] // SMS)
+                    assert 1 <= p["blocks"] <= bh and per_sm <= _build.FU_BLOCKS_PER_SM
+                    assert per_sm * (p["smem"] + 1024) <= SM_SMEM
+                    if bh >= 4 * SMS:
+                        assert p["blocks"] == min(4, SM_SMEM // (p["smem"] + 1024)) * SMS
+                else:
+                    assert p["bq"] == (128 if D <= 64 else 64)
+                    assert p["threads"] == 2 * p["bq"] and p["qp"] == p["kp"] == 0
+                    assert p["blocks"] == -(-tq // p["bq"]) * bh
+
+
+@pytest.mark.parametrize("D", _FLASH_WIDTHS)
+def test_flash_fwd_tiled_rows_by_width(D):
+    """The tiled path takes 128 query rows a block wherever their carve-up
+    fits the card's shared memory, else 64, whose carve-up always fits."""
+    ld = attention_cuda._flash_widths(D)[1]
+    p = attention_cuda._plan_flash_fwd(128, 2048, 2048, D)
+    fits_128 = _flash_fwd_smem(dict(path=1, ld=ld, bq=128)) <= MAX_SMEM
+    assert p["bq"] == (128 if fits_128 else 64)
+    assert _flash_fwd_smem(dict(path=1, ld=ld, bq=64)) <= MAX_SMEM
+    assert p["smem"] == _flash_fwd_smem(p) and p["threads"] == 2 * p["bq"]
+
+
+def test_flash_fwd_plan_at_the_mosei_and_long_shapes():
+    """The plans the flash stacks run: MOSEI self (T=50) and cross (Tq=50,
+    Tk=32) at B=4096 x 8 heads of 25, and the long eval at B=16 T=2048."""
+    self_ = attention_cuda._plan_flash_fwd(4096 * 8, 50, 50, 25)
+    cross = attention_cuda._plan_flash_fwd(4096 * 8, 50, 32, 25)
+    long_ = attention_cuda._plan_flash_fwd(16 * 8, 2048, 2048, 25)
+    assert self_ == dict(path=0, blocks=4 * SMS, threads=128, smem=55328, dt=4, ld=36, qp=64,
+                         kp=64, bq=0)
+    assert cross == dict(self_, smem=36896, kp=32)
+    assert long_ == dict(path=1, blocks=16 * 128, threads=256, smem=73728, dt=4, ld=36, qp=0,
+                         kp=0, bq=128)
+
+
+@pytest.mark.parametrize("D", _FLASH_WIDTHS)
+def test_flash_dkv_plans_fit_the_card(D):
+    """K5dkv: a block of 4 warps a (slice, 64 keys) pair; shared memory equal
+    to the kernel's carve-up and within the card at every shape."""
+    for tq in (1, 50, 64, 65, 96, 300, 2048):
+        for tk in (1, 32, 50, 64, 65, 130, 2048):
+            p = attention_cuda._plan_flash_dkv(4096 * 8, tq, tk, D)
+            assert p["smem"] == _flash_dkv_smem(p) <= MAX_SMEM
+            assert p["threads"] == 128 and p["blocks"] == -(-tk // 64) * 4096 * 8
+            assert p["dt"] == 1 << (-(-D // 8) - 1).bit_length()
+            assert p["ld"] == 8 * p["dt"] + 4
+
+
+def test_flash_dkv_plan_at_the_long_and_mosei_shapes():
+    long_ = attention_cuda._plan_flash_dkv(16 * 8, 2048, 2048, 25)
+    assert long_ == dict(blocks=32 * 128, threads=128, smem=56320, dt=4, ld=36)
+    for tk in (50, 32):
+        assert attention_cuda._plan_flash_dkv(4096 * 8, 50, tk, 25) == dict(
+            long_, blocks=4096 * 8)
+
+
+def test_flash_fwd_and_dkv_plans_refuse_wide_heads():
+    for fn in (attention_cuda._plan_flash_fwd, attention_cuda._plan_flash_dkv):
+        for tq, tk in ((50, 32), (2048, 2048)):
+            with pytest.raises(ValueError, match="head_dim"):
+                fn(8, tq, tk, 129)
 
 
 @pytest.mark.parametrize("h,heads", [(768, 12), (16, 2), (32, 4), (36, 4), (1024, 16)])
