@@ -42,7 +42,7 @@ Phases, each fatal on failure:
                 training-path shapes, of the flash backward's calls (the
                 delta op, K5dq, K5dkv, K5b) at the MOSEI shapes, of K5f's
                 unit path (MOSEI self and cross) and tiled path (B=16
-                T=2048) and K5dkv at T=2048, and of K9f
+                T=2048) and K5dkv and K5dq at T=2048, and of K9f
                 (LN rows, its two products) and K9b (rows, the recompute,
                 dp, ds, LN backward, weight reductions, sums) at the top
                 FFN block, R=4096 train and R=1, and K9f at R=1 at the
@@ -493,10 +493,11 @@ def flash_bwd_cases(dev, rng, t, B=4096, heads=8, d=25, rate=0.1):
 
 
 def flash_kernel_cases(dev, rng, t, heads=8, d=25):
-    """K5f and K5dkv alone, for the device split: K5f's unit path at the
-    MOSEI self (B=4096 T=50, offset 1) and cross (Tq=50 Tk=32, offset 19)
-    shapes at rate 0.1, its tiled path at B=16 T=2048 (causal, rate 0), and
-    K5dkv at B=16 T=2048 from the plain forward's out and lse."""
+    """K5f, K5dkv and K5dq alone, for the device split: K5f's unit path at
+    the MOSEI self (B=4096 T=50, offset 1) and cross (Tq=50 Tk=32, offset
+    19) shapes at rate 0.1, its tiled path at B=16 T=2048 (causal, rate 0),
+    and K5dkv and K5dq at B=16 T=2048 from the plain forward's out and
+    lse."""
     from multimodal_transformer_robustness_tpu_torch.ops import attention_cuda as ac
 
     cases = []
@@ -520,6 +521,7 @@ def flash_kernel_cases(dev, rng, t, heads=8, d=25):
             args = (q, k, v, dout, lse.contiguous(), delta, None, None, True, offset)
             del out
             cases.append((f"K5dkv {shape}", lambda args=args: ac.flash_bwd_dkv(*args), 5))
+            cases.append((f"K5dq {shape}", lambda args=args: ac.flash_bwd_dq(*args), 5))
     return cases
 
 
@@ -615,8 +617,8 @@ def device_split(dev, rng):
     (fc1, fc2, LayerNorm), K2's, K4's and K6b's (bert_split_cases, also at
     B=1 L=512), K9f's and K9b's (k9_split_cases) and, for K1f, K3, K6a, K8,
     K7f, K7b, K2, K4 and K6b at their timed shapes, K1b at its three path
-    shapes, the flash backward's calls (flash_bwd_cases), K5f's two paths
-    and K5dkv (flash_kernel_cases) and K9 at the top FFN block, the device
+    shapes, the flash backward's calls (flash_bwd_cases), K5f's two paths,
+    K5dkv and K5dq (flash_kernel_cases) and K9 at the top FFN block, the device
     time of a call (torch.profiler) beside its CUDA-event time: the gap is
     host time the card waits for.
     Returns one dict per shape."""

@@ -60,7 +60,7 @@ _SIGNATURES = {
     "mmtr_qdot": (_I, [_P] * 6 + [_I] * 3 + [_P, _P]),
     "mmtr_ffn_ln_q_fwd": (_I, [_P] * 16 + [_I] * 3 + [_F, _P, _P]),
     "mmtr_flash_fwd": (_I, [_P] * 7 + [_I] * 7 + [_P, _P]),
-    "mmtr_flash_bwd_dq": (_I, [_P] * 9 + [_I] * 7 + [_P]),
+    "mmtr_flash_bwd_dq": (_I, [_P] * 9 + [_I] * 7 + [_P, _P]),
     "mmtr_flash_bwd_dkv": (_I, [_P] * 10 + [_I] * 7 + [_P, _P]),
     "mmtr_flash_bwd": (_I, [_P] * 11 + [_I] * 7 + [_P, _P]),
     "mmtr_gru_rec_fwd": (_I, [_P] * 10 + [_I] * 4 + [_P, _P]),

@@ -40,7 +40,7 @@
 // that cannot see a key tile) are skipped, and no kernel uses float
 // atomics, so a rerun gives the same bits.
 //
-// K5f, K5dkv and K5b run their products on the tensor cores in 3xTF32
+// Every kernel here runs its products on the tensor cores in 3xTF32
 // (mma.sync m16n8k8 from gemm_tc.cuh, operands split into TF32 hi + lo:
 // float32 accuracy); their operands arrive by 4-byte cp.async (a [T][25]
 // slice starts only 4-byte aligned) into rows of ld = 4 mod 8 floats,
@@ -72,26 +72,29 @@
 //     Q into accumulators that stay in registers for the whole walk,
 //     unpromoted (2.8e-5 of max |ref| at T=2048 against 7.6e-6 promoted
 //     every 4 query tiles, which cost 1-4% more time: tools/k5_trials.py).
+//   * K5dq: path 1's walk, a block per (slice, bq query rows) of bq / 16
+//     warps (bq 64, 32 at D > 64 with Tk > 64 for shared memory, down to Tq
+//     rounded up to a power of two, at least 16: one warp where Tq <= 16),
+//     the heaviest query tile first, 3 blocks an SM at D <= 32; 64-key
+//     tiles of k and v in a cp.async ring (one stage where Tk <= 64); q and
+//     dO split into hi / lo once, into four planes; lse and delta in
+//     registers.  A key tile's S = Q K^T and dP' = dO V^T come from
+//     score_tile, p, M and dS from registers, dQ += dS K from value_product
+//     with k's rows as its B operand; dQ is stored once from the registers.
 // What holds them above their bounds (PERF.md, tools/k5_trials.py): path 0
 // stages a slice in about its byte time but computes for 2.7 times it
 // (16 warps an SM, latency-bound: a fifth of it the 3xTF32 corrections, a
 // sixth the hash); path 1 and K5dkv spend two fifths of their time in the
 // correction MMAs and most of the rest loading and splitting B fragments,
-// which each warp of a block repeats for the same tile.
-// K5dq's products are float32 FMAs on the CUDA cores: one block per (b*h,
-// 64-query tile), each tile staged transposed with a row stride of 65
-// floats so that the score product (reading along rows) and the value
-// product (reading along columns) are free of bank conflicts.  The plans
-// are Python: ops/attention_cuda._plan_flash_fwd, _plan_flash_dkv and
-// _plan_flash_bwd (K5b).
+// which each warp of a block repeats for the same tile; K5dq spends about
+// two fifths of its time at T = 2048 in the correction MMAs and 11-15% at
+// the MOSEI shapes in the hash, and registers hold it to 12 warps an SM.
+// The plans are Python: ops/attention_cuda._plan_flash_fwd,
+// _plan_flash_dkv, _plan_flash_dq and _plan_flash_bwd (K5b).
 #include "gemm_tc.cuh"
 
 namespace {
 
-constexpr int FA_BQ = 64;        // query rows per tile
-constexpr int FA_BK = 64;        // key rows per tile
-constexpr int FA_THREADS = 256;  // 16 x 16 threads, a 4 x 4 score micro-tile each
-constexpr int FA_LD = 65;        // row stride of a transposed [D][64] tile
 constexpr float FA_NEG_INF = -1e30f;
 
 // The inverted-dropout factor M of weight (row, col): keep / (1 - rate).
@@ -99,131 +102,6 @@ __device__ __forceinline__ float keep_factor(int use_dropout, uint32_t seed, flo
                                              float keep_scale, int row, int col) {
   if (!use_dropout) return 1.f;
   return hash_uniform(seed, row, col) >= rate ? keep_scale : 0.f;
-}
-
-// Rows [t0, t0 + 64) of a row-major [T, D] matrix into dst[d * FA_LD + r],
-// zero past row T.  The source rows are contiguous, so the reads coalesce.
-__device__ __forceinline__ void load_tile_t(float* dst, const float* __restrict__ src,
-                                            int t0, int T, int D) {
-  const float* base = src + (long long)t0 * D;
-  const int valid = min(FA_BQ, T - t0) * D;
-  for (int i = threadIdx.x; i < FA_BQ * D; i += FA_THREADS) {
-    const int r = i / D, d = i - r * D;
-    dst[d * FA_LD + r] = i < valid ? base[i] : 0.f;
-  }
-}
-
-// K5dq.  One block per (b*h, 64-query tile), looping over the key tiles it
-// sees: dS = p * (M * (dO V^T) - delta), dQ = dS K.
-template <int DJ>
-__global__ void __launch_bounds__(FA_THREADS)
-flash_bwd_dq_kernel(const float* __restrict__ Q, const float* __restrict__ K,
-                    const float* __restrict__ V, const float* __restrict__ dO,
-                    const float* __restrict__ LSE, const float* __restrict__ DELTA,
-                    const int* __restrict__ seeds, const float* __restrict__ rates,
-                    float* __restrict__ dQ, int Tq, int Tk, int D, int causal, int offset,
-                    int use_dropout) {
-  extern __shared__ float smem[];
-  float* qt = smem;
-  float* dot = qt + D * FA_LD;
-  float* kt = dot + D * FA_LD;
-  float* vt = kt + D * FA_LD;
-  float* dss = vt + D * FA_LD;  // [BQ][LD] dS tile
-
-  const int bh = blockIdx.x, q0 = blockIdx.y * FA_BQ;
-  const int tid = threadIdx.x, tx = tid & 15, ty = tid >> 4;
-  const long long qoff = (long long)bh * Tq * D, koff = (long long)bh * Tk * D;
-  load_tile_t(qt, Q + qoff, q0, Tq, D);
-  load_tile_t(dot, dO + qoff, q0, Tq, D);
-
-  float lse_r[4], del_r[4], acc[4][DJ];
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    lse_r[i] = row < Tq ? LSE[(long long)bh * Tq + row] : 0.f;
-    del_r[i] = row < Tq ? DELTA[(long long)bh * Tq + row] : 0.f;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) acc[i][jj] = 0.f;
-  }
-  const int q_last = min(q0 + FA_BQ, Tq) - 1;
-  const int k_end = causal ? min(Tk, q_last + offset) : Tk;
-  const uint32_t seed = use_dropout ? (uint32_t)seeds[bh] : 0u;
-  const float rate = use_dropout ? rates[bh] : 0.f;
-  const float keep_scale = use_dropout ? 1.0f / (1.0f - rate) : 1.f;
-
-  for (int k0 = 0; k0 < k_end; k0 += FA_BK) {
-    __syncthreads();
-    load_tile_t(kt, K + koff, k0, Tk, D);
-    load_tile_t(vt, V + koff, k0, Tk, D);
-    __syncthreads();
-
-    float s[4][4], dp[4][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-#pragma unroll
-      for (int j = 0; j < 4; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < D; ++d) {
-      float a[4], b[4], a2[4], b2[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        a[i] = qt[d * FA_LD + ty + 16 * i];
-        a2[i] = dot[d * FA_LD + ty + 16 * i];
-      }
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        b[j] = kt[d * FA_LD + tx + 16 * j];
-        b2[j] = vt[d * FA_LD + tx + 16 * j];
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          s[i][j] = fmaf(a[i], b[j], s[i][j]);
-          dp[i][j] = fmaf(a2[i], b2[j], dp[i][j]);
-        }
-    }
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const int row = q0 + ty + 16 * i;
-#pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int col = k0 + tx + 16 * j;
-        const bool ok = row < Tq && col < Tk && (!causal || col - row < offset);
-        float ds = 0.f;
-        if (ok) {
-          const float p = expf(s[i][j] - lse_r[i]);
-          const float mk = keep_factor(use_dropout, seed, rate, keep_scale, row, col);
-          ds = p * (dp[i][j] * mk - del_r[i]);
-        }
-        dss[(ty + 16 * i) * FA_LD + tx + 16 * j] = ds;
-      }
-    }
-    __syncthreads();
-
-    const int nk = min(FA_BK, Tk - k0);
-    for (int c = 0; c < nk; ++c) {
-      float a[4], kk[DJ];
-#pragma unroll
-      for (int i = 0; i < 4; ++i) a[i] = dss[(ty + 16 * i) * FA_LD + c];
-#pragma unroll
-      for (int jj = 0; jj < DJ; ++jj) kk[jj] = kt[min(tx + 16 * jj, D - 1) * FA_LD + c];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int jj = 0; jj < DJ; ++jj) acc[i][jj] = fmaf(a[i], kk[jj], acc[i][jj]);
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = q0 + ty + 16 * i;
-    if (row >= Tq) continue;
-#pragma unroll
-    for (int jj = 0; jj < DJ; ++jj) {
-      const int d = tx + 16 * jj;
-      if (d < D) dQ[qoff + (long long)row * D + d] = acc[i][jj];
-    }
-  }
 }
 
 // K5b: the whole backward of one (b*h) slice in one pass, for Tq, Tk <= 64,
@@ -548,17 +426,18 @@ cudaError_t launch_fused_bwd(const float* q, const float* k, const float* v,
   return cudaGetLastError();
 }
 
-// ---- K5f and K5dkv on the tensor cores ------------------------------------
+// ---- K5f, K5dkv and K5dq ----------------------------------------------------
 
-// K5f's and K5dkv's launch, from the plan (ops/attention_cuda.
-// _plan_flash_fwd / _plan_flash_dkv) and the call.
+// K5f's, K5dkv's and K5dq's launch, from the plan (ops/attention_cuda.
+// _plan_flash_fwd / _plan_flash_dkv / _plan_flash_dq) and the call.
 struct FlashDims {
   int Tq, Tk, D, causal, offset, use_dropout;
   int dt;            // 8-column tiles over D, a power of two: the padded width 8 dt
   int ld;            // a staged row's stride, 8 dt + 4 (4 mod 8) floats
   int qp, kp;        // K5f path 0: staged query rows (16 a warp), key rows (8 NKT)
   int slot;          // K5f path 0: floats a shared-memory slot (of two)
-  int bq;            // K5f path 1: query rows a block
+  int bq;            // K5f path 1, K5dq: query rows a block
+  int stages;        // K5dq: the key ring's stages, min(DQ_STAGES, Tk's 64-key tiles)
 };
 
 constexpr int FK_TILE = 64;    // keys (K5f path 1) or queries (K5dkv) a ring stage holds
@@ -1215,30 +1094,184 @@ flash_bwd_dkv_kernel(const float* __restrict__ Q, const float* __restrict__ K,
   store_rows(dV + ko, vs, nkeys, d.D, ld);
 }
 
-// Shared memory per block, in bytes, and the launch itself; more than the
-// card allows refuses the launch (the error comes back to the wrapper).
-template <typename Kernel>
-cudaError_t prepare(Kernel kernel, size_t smem) {
-  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                              (int)smem);
+// K5dq: dQ of a (slice, bq query rows) block, bq / 16 warps of 16 rows,
+// over the 64-key tiles its rows see, as K5f path 1 walks them.  The k and
+// v tiles go through a ring of d.stages stages (DQ_STAGES, fewer where Tk
+// has fewer tiles).  The launch bound holds 3 blocks an SM where D <= 32
+// (170 registers); 2 blocks of 256 threads (128 registers) spilled and ran
+// 3-17% slower.  dQ sums over up to Tk keys in the tensor cores'
+// truncating accumulators; DQ_PROMOTE > 0 adds them into float32 sums
+// every DQ_PROMOTE key tiles (0: never; PERF.md, tools/k5_trials.py).
+constexpr int DQ_STAGES = 2;
+constexpr int DQ_PROMOTE = 0;
+// 8-key tiles a run of dq_key_tile: an interior tile in one run, an edge
+// tile in runs of 4 (the MOSEI cross shape's 32 keys are one) where D <=
+// 32; wider, two run shapes in one kernel spill, so edges take 8 too
+constexpr int DQ_NK_FULL = 8, DQ_NK_EDGE = 4;
+
+// Rows m0 .. m0+15 of a staged [bq][ld] tile split in place into TF32 hi,
+// their lo parts into the same rows of the plane bq rows below: one warp,
+// lanes over the 8 dt columns.
+__device__ __forceinline__ void split_rows16(float* p, int bq, int m0, int ld, int cols) {
+  uint32_t* hp = reinterpret_cast<uint32_t*>(p) + m0 * ld;
+  uint32_t* lp = hp + bq * ld;
+  for (int r = 0; r < 16; ++r)
+    for (int c = threadIdx.x % 32; c < cols; c += 32) {
+      uint32_t h, l;
+      split_tf32(p[(m0 + r) * ld + c], h, l);
+      hp[r * ld + c] = h;
+      lp[r * ld + c] = l;
+    }
 }
 
-
-template <int DJ>
-cudaError_t launch_dq(const float* q, const float* k, const float* v, const float* dout,
-                      const float* lse, const float* delta, const int* seeds,
-                      const float* rates, float* dq, int BH, int Tq, int Tk, int D,
-                      int causal, int offset, int use_dropout, cudaStream_t stream) {
-  const size_t smem = sizeof(float) * (4 * (size_t)D * FA_LD + FA_BQ * FA_LD);
-  cudaError_t err = prepare(flash_bwd_dq_kernel<DJ>, smem);
-  if (err != cudaSuccess) return err;
-  const dim3 grid(BH, (Tq + FA_BQ - 1) / FA_BQ);
-  flash_bwd_dq_kernel<DJ><<<grid, FA_THREADS, smem, stream>>>(
-      q, k, v, dout, lse, delta, seeds, rates, dq, Tq, Tk, D, causal, offset, use_dropout);
-  return cudaGetLastError();
+// One 64-key tile of K5dq for one warp, in runs of NK 8-key tiles (the
+// scores of a run stay in registers): S = Q K^T and dP' = dO V^T (A
+// fragments from aq / ao), then p = exp(s - lse), M and dS = p (M dP' -
+// delta), no branch a pair, then dq + dqc += dS K.  FULL: every pair of
+// the tile visible; else each pair is tested, and the runs stop after the
+// first nk 8-key tiles (a run is multiplied whole, its tiles past nk
+// masked: a loop bound fixed at compile time).
+template <int DT, bool FULL, typename QFrag, typename OFrag>
+__device__ __forceinline__ void dq_key_tile(QFrag aq, OFrag ao, const float* ks,
+                                            const float* vs, int nk, int row0, int k0,
+                                            const FlashDims& d, float lse_a, float lse_b,
+                                            float del_a, float del_b, float (&dq)[DT][4],
+                                            float (&dqc)[DT][4], uint32_t seed, float rate,
+                                            float keep_scale) {
+  constexpr int NK = FULL || DT >= 8 ? DQ_NK_FULL : DQ_NK_EDGE;
+  const int g = (threadIdx.x % 32) >> 2, t = threadIdx.x & 3;
+#pragma unroll
+  for (int h = 0; h < 8; h += NK) {
+    if (!FULL && h >= nk) break;
+    const float* kh = ks + 8 * h * d.ld;
+    float s[8][4], dp[8][4];
+    score_tile<DT, NK>(s, aq, kh, d.ld, NK);
+    score_tile<DT, NK>(dp, ao, vs + 8 * h * d.ld, d.ld, NK);
+#pragma unroll
+    for (int j = 0; j < NK; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int row = row0 + g + (e < 2 ? 0 : 8), col = k0 + 8 * (h + j) + 2 * t + (e & 1);
+        float p = __expf(s[j][e] - (e < 2 ? lse_a : lse_b));
+        if constexpr (!FULL) {
+          const bool ok = col < d.Tk && (!d.causal || col - row < d.offset);
+          p = ok ? p : 0.f;
+        }
+        float mk = 1.f;
+        if (d.use_dropout) mk = hash_uniform(seed, row, col) >= rate ? keep_scale : 0.f;
+        s[j][e] = p * (dp[j][e] * mk - (e < 2 ? del_a : del_b));
+      }
+    value_product<DT, NK>(dq, dqc, s, kh, d.ld, NK);
+  }
 }
 
-// K5f's and K5dkv's launches.  Each kernel's dynamic shared-memory cap is
+template <int DT>
+__global__ void __launch_bounds__(128, DT <= 4 ? 3 : 1)
+flash_bwd_dq_kernel(const float* __restrict__ Q, const float* __restrict__ K,
+                    const float* __restrict__ V, const float* __restrict__ dO,
+                    const float* __restrict__ LSE, const float* __restrict__ DELTA,
+                    const int* __restrict__ seeds, const float* __restrict__ rates,
+                    float* __restrict__ dQ, int BH, FlashDims d) {
+  extern __shared__ float4 fq_smem4[];
+  float* smem = reinterpret_cast<float*>(fq_smem4);
+  const int ld = d.ld, stage = 2 * FK_TILE * ld;
+  float* qs = smem + d.stages * stage;   // q [bq][ld] and its lo plane, then dO's two
+  float* dos = qs + 2 * d.bq * ld;
+  const int nqt = (d.Tq + d.bq - 1) / d.bq;
+  const int qt = nqt - 1 - (int)blockIdx.x / BH, bh = blockIdx.x % BH;   // heaviest first
+  const int q0 = qt * d.bq, nq = min(d.bq, d.Tq - q0);
+  const int g = (threadIdx.x % 32) >> 2;
+  const int m0 = 16 * (threadIdx.x / 32), row0 = q0 + m0;
+  const long long qo = ((long long)bh * d.Tq + q0) * d.D, ko = (long long)bh * d.Tk * d.D;
+  const int k_end = d.causal ? min(d.Tk, q0 + nq - 1 + d.offset) : d.Tk;
+  const int ntiles = (k_end + FK_TILE - 1) / FK_TILE;
+  const uint32_t seed = d.use_dropout ? (uint32_t)seeds[bh] : 0u;
+  const float rate = d.use_dropout ? rates[bh] : 0.f;
+  const float keep_scale = d.use_dropout ? 1.0f / (1.0f - rate) : 1.f;
+  // the lse and delta of the thread's rows, 0 past Tq (those rows' dS is 0)
+  const long long ro = (long long)bh * d.Tq;
+  const int ra = row0 + g, rb = ra + 8;
+  const float lse_a = ra < d.Tq ? LSE[ro + ra] : 0.f, lse_b = rb < d.Tq ? LSE[ro + rb] : 0.f;
+  const float del_a = ra < d.Tq ? DELTA[ro + ra] : 0.f;
+  const float del_b = rb < d.Tq ? DELTA[ro + rb] : 0.f;
+
+  stage_rows4(qs, Q + qo, nq, d.bq, d.D, 8 * DT, ld);   // q and dO join tile 0's group
+  stage_rows4(dos, dO + qo, nq, d.bq, d.D, 8 * DT, ld);
+  for (int s = 0; s < DQ_STAGES - 1; ++s) {
+    if (s < ntiles) fwd_stage_kv(smem + s * stage, K + ko, V + ko, s * FK_TILE, d);
+    cp_async_commit();
+  }
+  const uint32_t* qhp = reinterpret_cast<const uint32_t*>(qs);
+  const uint32_t* ohp = reinterpret_cast<const uint32_t*>(dos);
+  const auto aq = [&](int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+    frag_a_planes(qhp, qhp + d.bq * ld, ld, m0, 8 * kk, ah, al);
+  };
+  const auto ao = [&](int kk, uint32_t (&ah)[4], uint32_t (&al)[4]) {
+    frag_a_planes(ohp, ohp + d.bq * ld, ld, m0, 8 * kk, ah, al);
+  };
+  float dq[DT][4], dqc[DT][4], dq_sum[DQ_PROMOTE ? DT : 1][4];
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dq[n][e] = dqc[n][e] = 0.f;
+  if constexpr (DQ_PROMOTE > 0) {
+#pragma unroll
+    for (int n = 0; n < DT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) dq_sum[n][e] = 0.f;
+  }
+
+  for (int kt = 0; kt < ntiles; ++kt) {
+    cp_async_wait<DQ_STAGES - 2>();
+    __syncthreads();   // tile kt landed; the stage refilled below was read last iteration
+    const int next = kt + DQ_STAGES - 1;
+    if (next < ntiles) fwd_stage_kv(smem + (next % d.stages) * stage, K + ko, V + ko,
+                                    next * FK_TILE, d);
+    cp_async_commit();
+    if (kt == 0) {   // q and dO landed with tile 0: split the warp's rows once
+      split_rows16(qs, d.bq, m0, ld, 8 * DT);
+      split_rows16(dos, d.bq, m0, ld, 8 * DT);
+      __syncwarp();
+    }
+    const int k0 = kt * FK_TILE;
+    // a warp whose rows are all past Tq, or see none of the tile, skips it
+    if (row0 >= d.Tq || (d.causal && k0 - (row0 + 15) >= d.offset)) continue;
+    const float* ks = smem + (kt % d.stages) * stage;
+    const float* vs = ks + FK_TILE * ld;
+    // the interior of the block's key range: every pair of the 64 x 16 tile visible
+    if (k0 + FK_TILE <= d.Tk && (!d.causal || k0 + FK_TILE - 1 - row0 < d.offset)) {
+      dq_key_tile<DT, true>(aq, ao, ks, vs, 8, row0, k0, d, lse_a, lse_b, del_a, del_b, dq,
+                            dqc, seed, rate, keep_scale);
+    } else {
+      int nk = min(8, (d.Tk - k0 + 7) / 8);
+      if (d.causal) nk = min(nk, (row0 + 15 + d.offset - k0 + 7) / 8);
+      dq_key_tile<DT, false>(aq, ao, ks, vs, nk, row0, k0, d, lse_a, lse_b, del_a, del_b, dq,
+                             dqc, seed, rate, keep_scale);
+    }
+    if constexpr (DQ_PROMOTE > 0) {
+      if ((kt + 1) % max(DQ_PROMOTE, 1) == 0) {
+#pragma unroll
+        for (int n = 0; n < DT; ++n)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            dq_sum[n][e] += dq[n][e] + dqc[n][e];
+            dq[n][e] = dqc[n][e] = 0.f;
+          }
+      }
+    }
+  }
+  cp_async_wait<0>();   // no copy still landing when the block exits
+#pragma unroll
+  for (int n = 0; n < DT; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      dq[n][e] += dqc[n][e];
+      if constexpr (DQ_PROMOTE > 0) dq[n][e] += dq_sum[n][e];
+    }
+  store_out<DT>(dQ + (long long)bh * d.Tq * d.D, row0, d, dq, 1.f, 1.f);
+}
+
+// K5f's, K5dkv's and K5dq's launches.  Each kernel's dynamic shared-memory cap is
 // raised once per process (allow_smem_once); the plan's carve-up is checked
 // against the card by the launch itself.
 template <int DT, int NKT>
@@ -1288,6 +1321,19 @@ cudaError_t launch_dkv_tc(const float* q, const float* k, const float* v, const 
   if (err != cudaSuccess) return err;
   flash_bwd_dkv_kernel<DT><<<blocks, FD_THREADS, smem, stream>>>(
       q, k, v, dout, lse, delta, seeds, rates, dk, dv, BH, d);
+  return cudaGetLastError();
+}
+
+template <int DT>
+cudaError_t launch_dq_tc(const float* q, const float* k, const float* v, const float* dout,
+                         const float* lse, const float* delta, const int* seeds,
+                         const float* rates, float* dq, int BH, const FlashDims& d, int blocks,
+                         int smem, cudaStream_t stream) {
+  static unsigned long long set = 0;
+  const cudaError_t err = allow_smem_once((const void*)flash_bwd_dq_kernel<DT>, &set);
+  if (err != cudaSuccess) return err;
+  flash_bwd_dq_kernel<DT><<<blocks, 2 * d.bq, smem, stream>>>(q, k, v, dout, lse, delta, seeds,
+                                                               rates, dq, BH, d);
   return cudaGetLastError();
 }
 
@@ -1350,20 +1396,25 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v, const flo
            stream)
 }
 
-}  // namespace
+// K5dq from its plan, host ints: blocks, threads, smem bytes, dt, ld, bq,
+// stages.
+cudaError_t launch_dq(const float* q, const float* k, const float* v, const float* dout,
+                      const float* lse, const float* delta, const int* seeds, const float* rates,
+                      float* dq, int BH, int Tq, int Tk, int D, int causal, int offset,
+                      int use_dropout, const int* plan, cudaStream_t stream) {
+  const int blocks = plan[0], threads = plan[1], smem = plan[2];
+  FlashDims d{Tq, Tk, D, causal, offset, use_dropout, plan[3], plan[4], 0, 0, 0, plan[5],
+              plan[6]};
+  if (!widths_ok(d) || BH < 1 || Tq < 1 || Tk < 1 ||
+      (d.bq != 16 && d.bq != 32 && d.bq != 64) || threads != 2 * d.bq ||
+      blocks != (Tq + d.bq - 1) / d.bq * BH ||
+      d.stages != min(DQ_STAGES, (Tk + FK_TILE - 1) / FK_TILE) ||
+      smem < 4 * d.ld * (d.stages * 2 * FK_TILE + 4 * d.bq))
+    return cudaErrorInvalidValue;
+  FLASH_DT(launch_dq_tc, q, k, v, dout, lse, delta, seeds, rates, dq, BH, d, blocks, smem, stream)
+}
 
-// K5dq's DJ = ceil(D / 16) rounded up to 1, 2, 4 or 8 (a thread's spare
-// columns past D are neither read nor written), so D <= 128; a wider D is
-// refused with cudaErrorInvalidValue.  Four instances keep the build short.
-#define FA_CASES(FN, ...)                                \
-  switch ((D + 15) / 16) {                               \
-    case 1: return (int)FN<1>(__VA_ARGS__);              \
-    case 2: return (int)FN<2>(__VA_ARGS__);              \
-    case 3: case 4: return (int)FN<4>(__VA_ARGS__);      \
-    case 5: case 6: case 7: case 8:                      \
-      return (int)FN<8>(__VA_ARGS__);                    \
-    default: return (int)cudaErrorInvalidValue;          \
-  }
+}  // namespace
 
 // K5f: out [B*H, Tq, D] and lse [B*H, Tq]; plan as launch_fwd's.  Each
 // entry returns the launch's cudaError_t.
@@ -1375,14 +1426,15 @@ extern "C" int mmtr_flash_fwd(const float* q, const float* k, const float* v,
                          use_dropout, plan, (cudaStream_t)stream_ptr);
 }
 
-// K5dq: dq [B*H, Tq, D] from q, k, v, dout, lse and delta.
+// K5dq: dq [B*H, Tq, D] from q, k, v, dout, lse and delta; plan as
+// launch_dq's.
 extern "C" int mmtr_flash_bwd_dq(const float* q, const float* k, const float* v,
                                  const float* dout, const float* lse, const float* delta,
                                  const int* seeds, const float* rates, float* dq, int BH,
                                  int Tq, int Tk, int D, int causal, int offset,
-                                 int use_dropout, void* stream_ptr) {
-  FA_CASES(launch_dq, q, k, v, dout, lse, delta, seeds, rates, dq, BH, Tq, Tk, D, causal,
-           offset, use_dropout, (cudaStream_t)stream_ptr)
+                                 int use_dropout, const int* plan, void* stream_ptr) {
+  return (int)launch_dq(q, k, v, dout, lse, delta, seeds, rates, dq, BH, Tq, Tk, D, causal,
+                        offset, use_dropout, plan, (cudaStream_t)stream_ptr);
 }
 
 // K5dkv: dk and dv [B*H, Tk, D]; plan as launch_dkv's.

@@ -12,9 +12,9 @@ on a CUDA tensor and runs its plain PyTorch version on a CPU tensor:
   * :func:`flash_bwd`: the backward from the saved log-sum-exp, replacing
     ``attention_pallas_bwd.flash_attention_bwd`` (its two pallas_calls and
     the XLA delta): K5b, one fused pass a (b*h) slice, where Tq and Tk are
-    at most 64, else the delta op and :func:`flash_bwd_dq` (K5dq) and
-    :func:`flash_bwd_dkv` (K5dkv, by the plan :func:`_plan_flash_dkv`),
-    which also stay entries of their own;
+    at most 64, else the delta op and :func:`flash_bwd_dq` (K5dq, by the
+    plan :func:`_plan_flash_dq`) and :func:`flash_bwd_dkv` (K5dkv, by the
+    plan :func:`_plan_flash_dkv`), which also stay entries of their own;
   * :func:`flash_attention_masked` (K8): the forward with a per-sample
     key-padding mask, replacing ``attention_pallas.flash_attention_masked``;
     forward only, as there.  It runs K6a's kernels (``csrc/bert_attn.cu``)
@@ -258,16 +258,64 @@ def _bwd_operands(q, k, v, dout, lse, delta, seeds, rates, causal, offset):
         (b * h, tq, tk, d, int(causal), _offset(tq, tk, causal, offset), use_dropout)
 
 
+_DQ_STAGES = 2   # K5dq's key ring (csrc/flash_attn.cu's DQ_STAGES), fewer where Tk is short
+
+
+def _dq_smem(ld: int, bq: int, stages: int) -> int:
+    """K5dq's carve-up, bytes: the ring of 64-key k and v tiles, then the
+    hi and lo planes of the q rows and of the dO rows."""
+    return 4 * ld * (stages * 2 * _KTILE + 4 * bq)
+
+
+def _plan_flash_dq(BH: int, Tq: int, Tk: int, D: int) -> dict:
+    """K5dq's launch plan: a block per (slice, ``bq`` query rows), a warp
+    each 16, the heaviest query tile first under the causal rule; 64-key
+    tiles of k and v in a ring of ``stages`` stages (2, or 1 where Tk <=
+    64); q and dO split into TF32 hi / lo once, into four shared-memory
+    planes.  ``bq`` is the largest of 64, 32 and 16 whose carve-up fits
+    shared memory (64, but 32 at D > 64 where Tk > 64) and that is no
+    larger than Tq rounded up to a power of two: at Tq <= 16 a block is one
+    warp, and no warp computes on rows that are all past Tq.  The kernel's
+    launch bound holds 3 blocks of 128 threads an SM at D <= 32 (170
+    registers): on the H100 at B=16 T=2048 D=25, 64 rows a block beat 128
+    (2 blocks of 256 threads, 128 registers, spilling; PERF.md,
+    tools/k5_trials.py)."""
+    dt, ld = _flash_widths(D)
+    if min(BH, Tq, Tk) < 1:
+        raise ValueError(f"Tq {Tq}, Tk {Tk}, B*H {BH}: the kernels take nonempty slices")
+    stages = min(_DQ_STAGES, -(-Tk // _KTILE))
+    rows = 1 << max(4, (Tq - 1).bit_length())
+    bq = next(b for b in (64, 32, 16)
+              if b <= rows and _dq_smem(ld, b, stages) <= _build.MAX_SMEM)
+    return {"blocks": -(-Tq // bq) * BH, "threads": 2 * bq, "smem": _dq_smem(ld, bq, stages),
+            "dt": dt, "ld": ld, "bq": bq, "stages": stages}
+
+
+_FQ_PLAN_KEYS = ("blocks", "threads", "smem", "dt", "ld", "bq", "stages")
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_dq_plan(BH, Tq, Tk, D):
+    """K5dq's plan as csrc/flash_attn.cu reads it: (C int array, its address)."""
+    p = _plan_flash_dq(BH, Tq, Tk, D)
+    return _build.host_ints([p[k] for k in _FQ_PLAN_KEYS])
+
+
 def flash_bwd_dq(q, k, v, dout, lse, delta, seeds=None, rates=None, causal: bool = True,
                  offset: Optional[int] = None) -> torch.Tensor:
     """K5dq: dq from the forward's inputs, ``dout``, ``lse`` and ``delta =
     rowsum(dout * out)`` ``[B*H, Tq]``.  CPU tensors take the plain version
-    (which recomputes the forward and does not read ``lse`` / ``delta``)."""
+    (which recomputes the forward and does not read ``lse`` / ``delta``).
+    On the card one launch by :func:`_plan_flash_dq`: a block of query rows
+    walks the key tiles they see, S = Q K^T and dP' = dO V^T, p and dS = p
+    (M dP' - delta) in registers, then dQ += dS K, all in 3xTF32 on the
+    tensor cores, dQ written once (a rerun gives the same bits)."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, dout, causal, offset, seeds, rates)[0]
     dev, ptrs, ints = _bwd_operands(q, k, v, dout, lse, delta, seeds, rates, causal, offset)
+    plan = _cached_dq_plan(*ints[:4])
     dq = torch.empty_like(q)
-    err = _build.load_library().mmtr_flash_bwd_dq(*ptrs, dq.data_ptr(), *ints,
+    err = _build.load_library().mmtr_flash_bwd_dq(*ptrs, dq.data_ptr(), *ints, plan[1],
                                                   _build.stream_ptr(dev))
     _build.check(err, "flash attention dq kernel")
     flash_bwd_dq.launches += 1
@@ -384,8 +432,8 @@ def flash_bwd(q, k, v, dout, out, lse, seeds=None, rates=None, causal: bool = Tr
     :func:`flash_attention_plain`; ``out`` and ``lse`` are not read).  On
     the card :func:`_plan_flash_bwd` picks by shape: Tq, Tk <= 64 launch K5b
     once (delta = rowsum(dout * out) inside); longer slices take the delta
-    op, K5dq (CUDA-core FMA tiles) and K5dkv (tensor cores, planned by
-    :func:`_plan_flash_dkv`).  A refused plan or launch raises."""
+    op, K5dq and K5dkv (tensor cores, planned by :func:`_plan_flash_dq`
+    and :func:`_plan_flash_dkv`).  A refused plan or launch raises."""
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(q, k, v, dout, causal, offset, seeds, rates)
     dev = _build.device_of(q)

@@ -21,8 +21,8 @@ of its hidden pre-activation within 1e-4 of relu's kink may move it
 (``relu_kink_bound``: either side of the kink is a valid derivative), and
 K7b and K9b reruns must give the same bits (no float atomics).  K5f is
 held to 1e-4 absolute (out and lse), K5dq, K5dkv and K5b (the fused flash
-backward) to 1e-4 of each gradient's max |ref| (K5f's, K5dkv's and K5b's
-products run on the tensor cores in 3xTF32, float32-accurate); every flash
+backward) to 1e-4 of each gradient's max |ref| (their products run on the
+tensor cores in 3xTF32, float32-accurate); every flash
 kernel's reruns must give the same bits too, and each call moves its launch
 counter by exactly one.
 """
@@ -382,7 +382,9 @@ def test_bert_variants_on_card_match_cpu(cuda, impl, int8, monkeypatch):
 # keys), D = 1, D = 128 on both K5f paths (the tiled one with 64 query
 # rows); then offsets below the default 1 + |Tk - Tq| on the tiled path,
 # under which whole 64-key tiles are seen by no query (K5dkv writes zeros
-# there without walking a query tile).  offset None: the default.
+# there without walking a query tile); last, 129 query rows against 300
+# keys, which K5dq's 64-row blocks cut one row past a block's edge.
+# offset None: the default.
 _FLASH_CASES = [(2, 8, 50, 50, 25, True, 0.0, None), (2, 8, 50, 32, 25, True, 0.1, None),
                 (1, 2, 130, 70, 64, True, 0.1, None), (2, 2, 7, 200, 128, False, 0.3, None),
                 (1, 1, 300, 300, 8, True, 0.0, None), (1, 2, 1, 1, 25, True, 0.1, None),
@@ -390,7 +392,7 @@ _FLASH_CASES = [(2, 8, 50, 50, 25, True, 0.0, None), (2, 8, 50, 32, 25, True, 0.
                 (1, 2, 1, 130, 25, True, 0.0, None), (2, 3, 17, 9, 1, True, 0.1, None),
                 (1, 2, 40, 64, 128, True, 0.1, None), (1, 2, 150, 150, 128, True, 0.0, None),
                 (1, 2, 1, 130, 25, True, 0.0, 1), (1, 2, 65, 200, 25, True, 0.1, 1),
-                (2, 2, 130, 300, 64, True, 0.3, 40)]
+                (2, 2, 130, 300, 64, True, 0.3, 40), (1, 2, 129, 300, 25, True, 0.1, None)]
 
 
 def _flash_inputs(cuda, b, h, tq, tk, d, rate, seed=13):

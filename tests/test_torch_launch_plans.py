@@ -1,12 +1,13 @@
 """Launch plans of the port's K1f, K1b, K3, K6b, K7f, K7b, K9f / K9b,
-attention (K6a, K2, K8) and flash (K5f, K5dkv, K5b) kernels, on the CPU.
+attention (K6a, K2, K8) and flash (K5f, K5dkv, K5dq, K5b) kernels, on the CPU.
 
 The CUDA kernels run only on the card, but their launch plans are computed
 in Python (``ops.bigru_cuda._plan_gru_fwd``, ``_plan_gru_bwd``,
 ``_plan_rec_bwd`` and ``_plan_recurrence``, ``ops.gru_cuda.
 _plan_gru_rec_bwd``, ``ops.bert_ffn_cuda._plan_ffn`` and ``_plan_proj_ln``,
 ``ops.bert_attn_cuda._plan_attention``, ``ops.attention_cuda.
-_plan_flash_fwd``, ``_plan_flash_dkv`` and ``_plan_flash_bwd``,
+_plan_flash_fwd``, ``_plan_flash_dkv``, ``_plan_flash_dq`` and
+``_plan_flash_bwd``,
 ``ops.trunk_block_cuda._plan_block``) and handed to
 ``csrc/bigru.cu`` / ``csrc/bigru_bwd.cu`` / ``csrc/bert_ffn.cu`` /
 ``csrc/gru_recurrence.cu`` / ``csrc/bert_attn.cu`` / ``csrc/flash_attn.cu``
@@ -642,8 +643,50 @@ def test_flash_dkv_plan_at_the_long_and_mosei_shapes():
             long_, blocks=4096 * 8)
 
 
+def _flash_dq_smem(p):
+    """csrc/flash_attn.cu's K5dq carve-up, in bytes: the ring of ``stages``
+    stages of 64-key k and v tiles [2][64][ld], then the hi and lo planes
+    of q and of dO [bq][ld]."""
+    return 4 * p["ld"] * (p["stages"] * 2 * 64 + 4 * p["bq"])
+
+
+@pytest.mark.parametrize("D", _FLASH_WIDTHS)
+def test_flash_dq_plans_fit_the_card(D):
+    """K5dq: a block of bq / 16 warps a (slice, bq query rows) pair; shared
+    memory equal to the kernel's carve-up and within the card; the ring one
+    stage where Tk has one key tile, else two; bq the largest power of two
+    from 16 to 64 that fits and is no larger than Tq rounded up to one."""
+    for tq in (1, 16, 17, 50, 64, 65, 96, 300, 2048):
+        for tk in (1, 32, 50, 64, 65, 130, 2048):
+            p = attention_cuda._plan_flash_dq(4096 * 8, tq, tk, D)
+            assert p["smem"] == _flash_dq_smem(p) <= MAX_SMEM
+            assert p["threads"] == 2 * p["bq"] and p["blocks"] == -(-tq // p["bq"]) * 4096 * 8
+            assert p["stages"] == (1 if tk <= 64 else 2)
+            assert p["dt"] == 1 << (-(-D // 8) - 1).bit_length()
+            assert p["ld"] == 8 * p["dt"] + 4
+            rows = max(16, 1 << (tq - 1).bit_length())
+            fits = [b for b in (64, 32, 16)
+                    if b <= rows and _flash_dq_smem(dict(p, bq=b)) <= MAX_SMEM]
+            assert p["bq"] == fits[0]
+
+
+def test_flash_dq_plan_at_the_long_and_mosei_shapes():
+    """The plans of the timed shapes: B=16 T=2048 and the MOSEI self (T=50)
+    and cross (Tq=50, Tk=32) shapes at B=4096, 8 heads of 25, and one
+    query row against 130 keys."""
+    long_ = attention_cuda._plan_flash_dq(16 * 8, 2048, 2048, 25)
+    assert long_ == dict(blocks=32 * 128, threads=128, smem=73728, dt=4, ld=36, bq=64,
+                         stages=2)
+    for tk in (50, 32):
+        assert attention_cuda._plan_flash_dq(4096 * 8, 50, tk, 25) == dict(
+            blocks=4096 * 8, threads=128, smem=55296, dt=4, ld=36, bq=64, stages=1)
+    assert attention_cuda._plan_flash_dq(2, 1, 130, 25) == dict(
+        blocks=2, threads=32, smem=46080, dt=4, ld=36, bq=16, stages=2)
+
+
 def test_flash_fwd_and_dkv_plans_refuse_wide_heads():
-    for fn in (attention_cuda._plan_flash_fwd, attention_cuda._plan_flash_dkv):
+    for fn in (attention_cuda._plan_flash_fwd, attention_cuda._plan_flash_dkv,
+               attention_cuda._plan_flash_dq):
         for tq, tk in ((50, 32), (2048, 2048)):
             with pytest.raises(ValueError, match="head_dim"):
                 fn(8, tq, tk, 129)
