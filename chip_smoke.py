@@ -1,4 +1,5 @@
-"""Drive the PyTorch port's serving and training paths once on an NVIDIA card.
+"""Drive the PyTorch port's serving, training and evaluation paths once on an
+NVIDIA card.
 
 Run from the repository root with no arguments: ``python3 chip_smoke.py``.
 Needs one CUDA card and the CUDA toolkit (``nvcc``); it exits non-zero
@@ -97,7 +98,24 @@ Phases, each fatal on failure:
                 four MOSEI T==1 blocks (stream / top, attention / FFN),
                 R=4096, train, dropout on: K9f 1, K9b 1 a call; fwd+bwd ms
                 beside the eager composition of the same half-layer in the
-                encoder's ops; card vs CPU at R=8 with the same hash masks.
+                encoder's ops; card vs CPU at R=8 with the same hash masks;
+ 19. fit      - Trainer.fit at the MOSEI configuration, 2 epochs: the
+                train split (2 batches of B=4096, T=50, L=32) resident on the
+                card through DeviceBatchIterator, first held to the host
+                BatchIterator bit for bit (shuffled; padded on the valid
+                split), valid and test 64 rows at the eval batch of 16; per
+                epoch K1 12 / K1b 12 / K2 4 / K3 4 a training step and K1 12
+                / K2 4 / K3 4 a header pass of one validation and one test
+                eval; epoch seconds and the curve; the same fit at B=4,
+                dropout off, card vs CPU (curve, per-epoch losses);
+ 20. sweep    - missing_modality_sweep at the MOSEI configuration over the
+                full 860-configuration grid (random_sample, cfg_chunk 64,
+                valid and test 64 rows at batch 16): the headers hoisted, K1
+                12 / K2 4 / K3 4 once per (subset, valid batch) and (subset,
+                test batch) whatever the configuration count, the trunk one
+                vmap pass a chunk; seconds, configurations/s, each subset's
+                best configuration; card vs CPU on 4 rows of one valid
+                batch, every configuration's predictions.
 Every phase sets the launch counters to 0 just before it drives its path
 and fails unless each kernel of the path ran the expected number of times.
 Then the int8 projections' and the device split's lines, one JSON line with
@@ -117,6 +135,8 @@ from unittest import mock
 
 import numpy as np
 import torch
+
+T0 = time.perf_counter()  # the script's start, for the phase headings
 
 # Tolerances, card against plain PyTorch on the same inputs, float32, TF32
 # off.  K1 and K3 differ only in summation order (atol 1e-4 on outputs of
@@ -174,7 +194,9 @@ PKG = "multimodal_transformer_robustness_tpu_torch"
 
 
 def phase(name: str) -> None:
-    print(f"== {name}", flush=True)
+    """A phase's heading, with the host seconds since the script started
+    (a phase's time is the difference to the next heading's)."""
+    print(f"== {name} (at {time.perf_counter() - T0:.1f} s)", flush=True)
 
 
 def cuda_ms(fn, iters: int = 20, warmup: int = 3) -> float:
@@ -2165,6 +2187,275 @@ def trunk_block_phase(dev, R=4096, iters=5):
     return launches, stats
 
 
+def synthetic_split(seed, n, spec, bert_cfg, T=50, L=32, tile=None):
+    """A gather-style dataset over one synthetic batch's arrays (the text a
+    [3, N, L] token stack), as the MOSEI loader serves them.  It is an
+    ``ArrayDataset`` (whose own constructor wants one row per label in
+    every input, which the token stack's axis 0 is not) so that
+    ``materialize`` takes its arrays as they are, without a copy.
+
+    With ``tile``, the audio and vision arrays repeat one draw of ``tile``
+    rows (drawing a large split's normals on the host takes seconds); the
+    token ids and labels are drawn for every row, so a gather of the wrong
+    row still shows."""
+    from multimodal_transformer_robustness_tpu_torch.data import ArrayDataset
+
+    class SyntheticSplit(ArrayDataset):
+        def __init__(self, batch):
+            self.inputs, self.labels = batch.inputs, batch.labels
+
+        def __len__(self):
+            return len(self.labels)
+
+        def gather(self, idx):
+            text, *rest = self.inputs
+            return [text[:, idx]] + [x[idx] for x in rest], self.labels[idx]
+
+    rng = np.random.default_rng(seed)
+    batch = synthetic_batch(rng, tile or n, T, L, bert_cfg.vocab_size, spec.orig_dimensions[1:])
+    if tile:
+        full = synthetic_batch(rng, n, 1, L, bert_cfg.vocab_size, (1, 1))
+        reps = -(-n // tile)
+        batch.inputs[0], batch.labels = full.inputs[0], full.labels
+        batch.inputs[1:] = [np.tile(x, (reps, 1, 1))[:n] for x in batch.inputs[1:]]
+    return SyntheticSplit(batch)
+
+
+def same_batches(host, device_iter, label):
+    """The device iterator's batches equal the host iterator's bit for bit
+    (one epoch each); returns the number of batches."""
+    n = 0
+    for b_h, b_d in zip(host, device_iter, strict=True):
+        same = all(torch.equal(x_d.cpu(), torch.as_tensor(np.asarray(x_h)))
+                   for x_h, x_d in zip(b_h.inputs + [b_h.labels], b_d.inputs + [b_d.labels]))
+        if not same or not np.array_equal(b_h.valid, b_d.valid):
+            raise RuntimeError(f"{label}: DeviceBatchIterator batch {n} differs from "
+                               "BatchIterator's")
+        n += 1
+    return n
+
+
+def fit_phase(dev, spec, bert_cfg, B=4096, n_train=8192, n_eval=64, eval_bs=16, epochs=2):
+    """``Trainer.fit`` at the MOSEI configuration: the train split (2 batches
+    of B=4096) resident on the card through ``DeviceBatchIterator`` (first
+    held to the host ``BatchIterator`` bit for bit, shuffled, and padded on
+    the valid split), valid and test 64 rows at the MOSEI eval batch of 16,
+    Adam, random_sample over the 7 subsets, 2 epochs.  Per epoch the
+    counters must show K1 12 / K1b 12 (6 without dx) / K2 4 / K3 4 a
+    training step and K1 12 / K2 4 / K3 4 a header pass of the validation
+    (one pass, not M+1) and test evals.  Then the same fit at B=4, dropout
+    off, card against CPU: the curve within SERVE_TOL, each epoch's losses
+    within TRAIN_LOSS_TOL (relative)."""
+    from multimodal_transformer_robustness_tpu_torch.data import BatchIterator, DeviceBatchIterator
+    from multimodal_transformer_robustness_tpu_torch.models import init_supernet
+    from multimodal_transformer_robustness_tpu_torch.train import TrainHParams, Trainer
+
+    t0 = time.perf_counter()
+    train_ds = synthetic_split(10, n_train, spec, bert_cfg, tile=512)
+    valid_ds, test_ds = (synthetic_split(s, n_eval, spec, bert_cfg) for s in (11, 12))
+    train_it = DeviceBatchIterator(train_ds, B, shuffle=True, seed=0, device=dev)
+    torch.cuda.synchronize()
+    made_s = time.perf_counter() - t0
+    n_same = same_batches(BatchIterator(train_ds, B, shuffle=True, seed=0), train_it, "fit")
+    train_it.set_epoch(0)
+    n_same += same_batches(BatchIterator(valid_ds, 24, shuffle=True, seed=1),
+                           DeviceBatchIterator(valid_ds, 24, shuffle=True, seed=1, device=dev),
+                           "fit")
+    resident = sum(x.nbytes for x in train_it.inputs) / 2**30
+    print(f"fit: train split {n_train} rows ({resident:.2f} GiB; audio and vision tile 512 "
+          f"rows) made and resident on the "
+          f"card in {made_s:.2f} s; {n_same} DeviceBatchIterator batches bit-equal to "
+          f"BatchIterator's (train B={B} shuffled; valid B=24 shuffled, tail padded)",
+          flush=True)
+
+    params, frozen = init_supernet(torch.Generator().manual_seed(0), spec, bert_cfg)
+    hp = TrainHParams(batch_size=B, lr=1e-4, optim="Adam", criterion="L1Loss",
+                      experiment_type="random_sample", modality_pool=POOL, num_epochs=epochs,
+                      dataset="mosei_senti")
+    trainer = Trainer(spec, params, frozen, hp, bert_cfg=bert_cfg, device=dev)
+    del params, frozen
+    valid_it, test_it = (DeviceBatchIterator(d, eval_bs, device=dev) for d in (valid_ds, test_ds))
+    per_epoch, marks = [], [time.perf_counter(), read_counters()]
+
+    def epoch_end(tr, epoch):
+        now, counts = time.perf_counter(), read_counters()
+        per_epoch.append(dict(seconds=now - marks[0],
+                              launches={k: counts[k] - marks[1][k] for k in counts},
+                              losses=tr.last_epoch_losses.tolist()))
+        marks[:] = [now, counts]
+
+    torch.cuda.synchronize()
+    reset_counters()
+    marks[:] = [time.perf_counter(), read_counters()]
+    curve = trainer.fit(train_it, valid_it, test_it, epoch_fn=epoch_end)
+    launches = read_counters()
+    steps, evals = n_train // B, 2 * (n_eval // eval_bs)
+    expected = expect(K1=12 * (steps + evals), K1b=12 * steps, K2=4 * (steps + evals),
+                      K3=4 * (steps + evals))
+    for e, rec in enumerate(per_epoch, 1):
+        print(f"fit epoch {e}: {rec['seconds']:.3f} s (host clock, epoch_fn to epoch_fn: "
+              f"{steps} steps at B={B}, {evals} eval batches at B={eval_bs}); losses "
+              f"{rec['losses']}; launches {rec['launches']}", flush=True)
+    print(f"fit curve [[valid, test], ...] {curve}; launches per epoch expected {expected} "
+          f"(K1b without dx 6 a step)", flush=True)
+    if len(per_epoch) != epochs or any(r["launches"] != expected for r in per_epoch) \
+            or counters()["K1b"].launches_no_dx != 6 * steps * epochs:
+        raise RuntimeError(f"fit launch counts per epoch {[r['launches'] for r in per_epoch]}")
+    if not np.isfinite(curve).all() or not all(np.isfinite(r["losses"]).all() and
+                                               len(r["losses"]) == steps for r in per_epoch):
+        raise RuntimeError("fit: non-finite curve or losses")
+    stats = dict(epoch_s=[r["seconds"] for r in per_epoch], curve=curve,
+                 losses=[r["losses"] for r in per_epoch], data_s=made_s, resident_gib=resident)
+    del trainer, train_it
+    torch.cuda.empty_cache()
+    stats.update(fit_card_vs_cpu(dev, spec, bert_cfg))
+    return launches, stats
+
+
+def fit_card_vs_cpu(dev, spec, bert_cfg, B=4, n_train=8, n_eval=6, epochs=2):
+    """The same fit at B=4 (train 8 rows, valid and test 6 rows with a
+    padded tail), dropout off and the 0.1 cross quirk patched to 0, on the
+    card and on the CPU from the same parameters and seeds."""
+    from multimodal_transformer_robustness_tpu_torch import ModelSpec
+    from multimodal_transformer_robustness_tpu_torch.data import BatchIterator
+    from multimodal_transformer_robustness_tpu_torch.models import init_supernet
+    from multimodal_transformer_robustness_tpu_torch.train import TrainHParams, Trainer
+
+    spec = dataclasses.replace(spec, attn_dropout=(0.0,) * 4, relu_dropout=0.0,
+                               res_dropout=0.0, out_dropout=0.0, embed_dropout=0.0)
+    train_ds = synthetic_split(20, n_train, spec, bert_cfg)
+    valid_ds, test_ds = (synthetic_split(s, n_eval, spec, bert_cfg) for s in (21, 22))
+    hp = TrainHParams(batch_size=B, lr=1e-4, optim="Adam", criterion="L1Loss",
+                      experiment_type="random_sample", modality_pool=POOL, num_epochs=epochs)
+    out = {}
+    with mock.patch.object(ModelSpec, "attn_dropout_for_cross", lambda self, idx: 0.0):
+        for key, d in (("card", dev), ("cpu", "cpu")):
+            params, frozen = init_supernet(torch.Generator().manual_seed(0), spec, bert_cfg)
+            tr = Trainer(spec, params, frozen, hp, bert_cfg=bert_cfg, device=d)
+            losses = []
+            t0 = time.perf_counter()
+            curve = tr.fit(BatchIterator(train_ds, B, shuffle=True, seed=0),
+                           BatchIterator(valid_ds, B), BatchIterator(test_ds, B),
+                           epoch_fn=lambda t, e: losses.append(t.last_epoch_losses.tolist()))
+            out[key] = (np.asarray(curve), np.asarray(losses), time.perf_counter() - t0)
+    (c_card, l_card, s_card), (c_cpu, l_cpu, s_cpu) = out["card"], out["cpu"]
+    curve_err = float(np.abs(c_card - c_cpu).max())
+    loss_err = float((np.abs(l_card - l_cpu) / np.abs(l_cpu)).max())
+    print(f"fit B={B} card vs CPU, {epochs} epochs ({s_card:.1f} s / {s_cpu:.1f} s): curve "
+          f"{c_card.tolist()} vs {c_cpu.tolist()} (max abs diff {curve_err:.2e}, tol "
+          f"{SERVE_TOL:g}); losses {l_card.tolist()} vs {l_cpu.tolist()} (max rel "
+          f"{loss_err:.2e}, tol {TRAIN_LOSS_TOL:g})", flush=True)
+    if not (c_card.shape == (epochs, 2) and curve_err <= SERVE_TOL
+            and l_card.shape == l_cpu.shape and loss_err <= TRAIN_LOSS_TOL):
+        raise RuntimeError("fit: card and CPU disagree")
+    return dict(cpu_curve_err=curve_err, cpu_loss_rel_err=loss_err)
+
+
+def sweep_phase(dev, spec, bert_cfg, n_eval=64, eval_bs=16, chunk=64):
+    """``missing_modality_sweep`` at the MOSEI configuration (seed-0
+    weights) over the full grid (7 subsets, 860 configurations),
+    random_sample, ``cfg_chunk`` 64, valid and test 64 rows at batch 16.  The
+    counters prove the hoist: the headers run once per (subset, valid
+    batch) and once per (subset, test batch) of the best configuration's
+    re-evaluation, K1 12 / K2 4 / K3 4 each, whatever the configuration
+    count.  Then, on the first 4 rows of the first valid batch, every
+    configuration's predictions [n_cfg, 4] on the card against the CPU
+    within SERVE_TOL,
+    and each configuration's accuracy equal once the rows whose prediction
+    lies within SERVE_TOL of 0 (a sign either side may take) are left out;
+    those rows are counted, and the best configurations compared (near-ties
+    between distinct configurations may flip the argmax)."""
+    from multimodal_transformer_robustness_tpu_torch import build_masks, stack_masks
+    from multimodal_transformer_robustness_tpu_torch.data import BatchIterator
+    from multimodal_transformer_robustness_tpu_torch.metrics import binary_acc
+    from multimodal_transformer_robustness_tpu_torch.models import init_supernet
+    from multimodal_transformer_robustness_tpu_torch.train import (
+        TrainHParams, Trainer, missing_modality_sweep)
+    from multimodal_transformer_robustness_tpu_torch.train.sweep import (
+        subset_choices, subset_configs)
+
+    hp = TrainHParams(batch_size=eval_bs, experiment_type="random_sample", dataset="mosei_senti")
+    trainers = {}
+    for key, d in (("card", dev), ("cpu", "cpu")):
+        params, frozen = init_supernet(torch.Generator().manual_seed(0), spec, bert_cfg)
+        trainers[key] = Trainer(spec, params, frozen, hp, bert_cfg=bert_cfg, device=d)
+    valid_ds, test_ds = (synthetic_split(s, n_eval, spec, bert_cfg) for s in (31, 32))
+    subsets = subset_choices(spec, hp.experiment_type)
+    grids = {s: subset_configs(spec, hp.experiment_type, s) for s in subsets}
+    n_cfg = sum(len(g) for g in grids.values())
+    n_valid, n_test = n_eval // eval_bs, n_eval // eval_bs
+
+    tr = trainers["card"]
+    torch.cuda.synchronize()
+    reset_counters()
+    t0 = time.perf_counter()
+    results = missing_modality_sweep(tr, BatchIterator(valid_ds, eval_bs),
+                                     BatchIterator(test_ds, eval_bs), max_cfg_chunk=chunk)
+    seconds = time.perf_counter() - t0          # the sweep ends in readbacks
+    launches = read_counters()
+    passes = len(subsets) * (n_valid + n_test)
+    expected = expect(K1=12 * passes, K2=4 * passes, K3=4 * passes)
+    print(f"sweep: {n_cfg} configurations over {len(subsets)} subsets, {n_valid} valid + "
+          f"{n_test} test batches of {eval_bs}, cfg_chunk {chunk}: {seconds:.3f} s (host "
+          f"clock, valid and test uploads included), {n_cfg / seconds:.1f} configurations/s "
+          f"on the whole valid split; launches {launches} expected {expected} (header passes "
+          f"{passes} = subsets x (valid + test batches))", flush=True)
+    for s, entry in results.items():
+        c = entry["best_cfg"]
+        print(f"sweep best {[spec.modality_set[j] for j in s]}: depths "
+              f"{c.active_single_attn_layer_num} outputs {c.active_cross_output}; valid "
+              f"{entry['valid_acc']:.4f} test {entry['test_acc']:.4f}", flush=True)
+    if launches != expected:
+        raise RuntimeError(f"sweep launch counts {launches} != {expected}")
+    if len(results) != len(subsets) or not all(np.isfinite(e["valid_acc"]) and
+                                               np.isfinite(e["test_acc"])
+                                               for e in results.values()):
+        raise RuntimeError("sweep: missing subsets or non-finite accuracies")
+
+    # card vs CPU on the first rows of the first valid batch, every
+    # configuration (the CPU's trunk over 860 configurations sets the cost)
+    rows = 4
+    batch = next(iter(BatchIterator(valid_ds, rows)))
+    truth = np.asarray(batch.labels)
+    worst, near_rows, best_same, t_cpu = 0.0, 0, 0, 0.0
+    for s in subsets:
+        cfgs = grids[s]
+        n = len(cfgs)
+        stacked = stack_masks([build_masks(spec, c) for c in cfgs])
+        preds = {}
+        for key, t in trainers.items():
+            t1 = time.perf_counter()
+            inputs = [torch.as_tensor(x, device=t.device) for x in batch.inputs]
+            flags = torch.ones(spec.modality_num, device=t.device)
+            preds[key] = t.eval_step_sweep(t.params, stacked, inputs, flags,
+                                           chunk=chunk).cpu().numpy()
+            if key == "cpu":
+                t_cpu += time.perf_counter() - t1
+        card, cpu = preds["card"], preds["cpu"]
+        if card.shape != (n, rows, 1) or not np.isfinite(card).all():
+            raise RuntimeError(f"sweep {s}: predictions {card.shape}")
+        worst = max(worst, float(np.abs(card - cpu).max()))
+        near = (np.abs(cpu[..., 0]) <= SERVE_TOL) | (np.abs(card[..., 0]) <= SERVE_TOL)
+        near_rows += int(near.sum())
+        acc = {k: [binary_acc(p[k_][~near[k_]], truth[~near[k_]]) if (~near[k_]).any()
+                   else None for k_ in range(n)] for k, p in preds.items()}
+        if acc["card"] != acc["cpu"]:
+            raise RuntimeError(f"sweep {s}: per-configuration accuracies differ beyond the "
+                               "rows near 0")
+        score = {k: [-1.0 if a is None else a for a in v] for k, v in acc.items()}
+        best_same += int(np.argmax(score["card"]) == np.argmax(score["cpu"]))
+    print(f"sweep card vs CPU on one valid batch: {n_cfg} configurations x {rows} rows, max "
+          f"abs diff {worst:.3e} (tol {SERVE_TOL:g}); rows within {SERVE_TOL:g} of 0 left out "
+          f"of the accuracies: {near_rows}; per-configuration accuracies equal; best "
+          f"configuration equal in {best_same} of {len(subsets)} subsets (CPU {t_cpu:.1f} s)",
+          flush=True)
+    if not worst <= SERVE_TOL:
+        raise RuntimeError("sweep: card and CPU disagree")
+    return launches, dict(seconds=seconds, configs=n_cfg, configs_per_s=n_cfg / seconds,
+                          header_passes=passes, cpu_max_abs_diff=worst, near_zero_rows=near_rows,
+                          best_equal_subsets=best_same)
+
+
 # the flash-stack phase's shapes: the mems0 self stack and the cross stack
 FLASH_MAIN = "self B=4096 H=8 Tq=50 Tk=50 D=25 offset=1 rate=0.1"
 FLASH_CROSS = "cross B=4096 H=8 Tq=50 Tk=32 D=25 offset=19 rate=0.1"
@@ -2344,13 +2635,22 @@ def main() -> int:
 
     phase("trunk-block")
     block_launches, block_stats = trunk_block_phase(dev)
+    torch.cuda.empty_cache()
+
+    phase("fit")
+    fit_launches, fit_stats = fit_phase(dev, spec, bert_cfg)
+    torch.cuda.empty_cache()
+
+    phase("sweep")
+    sweep_launches, sweep_stats = sweep_phase(dev, spec, bert_cfg)
 
     launches = {"serving": serve_launches, "train": train_launches,
                 "serving-int8": int8_launches, "serving-dense": dense_launches,
                 "bert-int8-full": full_launches, "train-int8": int8_train_launches,
                 "train-cached": cached_launches, **flash_launches,
                 "serving-flash": serving_flash_launches, "flash-masked": masked_launches,
-                "gru-recurrence": rec_launches, "trunk-block": block_launches}
+                "gru-recurrence": rec_launches, "trunk-block": block_launches,
+                "fit": fit_launches, "sweep": sweep_launches}
     kernels = kernel_entries(rows, launches)
     print(f"serving warm request ms, kernels {warm_ms}, plain {plain_ms}", flush=True)
     print(f"serving-int8 warm request ms, kernels {int8_warm}, plain {int8_plain}", flush=True)
@@ -2362,6 +2662,8 @@ def main() -> int:
     print("flash-stack " + json.dumps(flash_stats), flush=True)
     print("gru-recurrence " + json.dumps(rec_stats), flush=True)
     print("trunk-block " + json.dumps(block_stats), flush=True)
+    print("fit " + json.dumps(fit_stats), flush=True)
+    print("sweep " + json.dumps(sweep_stats), flush=True)
     print("int8 projections " + json.dumps(int8_projection_entries(rows, launches)),
           flush=True)
     print("device split " + json.dumps(splits), flush=True)

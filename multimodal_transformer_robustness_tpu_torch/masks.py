@@ -15,7 +15,7 @@ import torch
 
 from .config import ActiveConfig, ModelSpec
 
-__all__ = ["SupernetMasks", "build_masks"]
+__all__ = ["SupernetMasks", "build_masks", "stack_masks"]
 
 
 def _prefix(n_active: int, n_total: int) -> np.ndarray:
@@ -46,6 +46,11 @@ class SupernetMasks:
     def output_channel_mask(self, spec_dimension: int) -> torch.Tensor:
         """Global channel mask over combined_dim = M * n_slots * d."""
         return self.channel_mask(spec_dimension).reshape(-1)
+
+    def to(self, device) -> "SupernetMasks":
+        """The same masks on ``device`` (no copy where they are there)."""
+        return SupernetMasks(*(getattr(self, f.name).to(device)
+                               for f in dataclasses.fields(self)))
 
 
 def build_masks(spec: ModelSpec, cfg: ActiveConfig, device="cpu",
@@ -94,3 +99,12 @@ def build_masks(spec: ModelSpec, cfg: ActiveConfig, device="cpu",
         slot_mask=dev(slot),
         branch_gate=dev(branch),
     )
+
+
+def stack_masks(masks: "list[SupernetMasks]") -> SupernetMasks:
+    """Stack configurations along a new leading axis: the configuration
+    axis that the sweep's trunk maps over.  The stack lands where the
+    masks are (``build_masks``' default: the CPU), and moves to the card in
+    one copy a leaf (``SupernetMasks.to``)."""
+    return SupernetMasks(*(torch.stack([getattr(m, f.name) for m in masks])
+                           for f in dataclasses.fields(SupernetMasks)))

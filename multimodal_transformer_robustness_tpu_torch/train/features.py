@@ -16,7 +16,7 @@ K4 when the frozen weights are int8-quantized) unless the caller asks for
 Missing-modality parity: the reference's evaluate zero-fills the raw token
 tensor and BERT still runs on the zeros, giving a non-zero feature row; the
 cached pipeline keeps ``BERT(zero tokens)`` as :attr:`CachedTextDataset.zero_row`
-(``zero_fill_rows``) for the evaluate port to substitute.
+(``zero_fill_rows``) for ``Trainer.evaluate`` to substitute.
 """
 
 from __future__ import annotations
@@ -146,6 +146,6 @@ class CachedTextDataset:
         return inputs, labels
 
     def zero_fill_rows(self) -> dict:
-        """``{text slot: zero_row}``, for the Trainer's evaluate (not ported
-        yet) to substitute where the text modality is dropped."""
+        """``{text slot: zero_row}``, for ``Trainer.evaluate`` to substitute
+        where the text modality is dropped."""
         return {self.text_slot: self.zero_row}

@@ -1,4 +1,5 @@
-"""Training engine: the train step and the training epoch.
+"""Training / evaluation engine: the train step, the epoch, evaluation,
+the experiment loop and the sweep's batched eval steps.
 
 Counterpart of ``multimodal_transformer_robustness_tpu/train/loop.py``:
 
@@ -8,14 +9,30 @@ Counterpart of ``multimodal_transformer_robustness_tpu/train/loop.py``:
     tensors, never as new Python structure;
   * the reference's off-by-one quirk is replicated: the configuration
     sampled at batch i is applied at batch i+1;
-  * ``train_epoch`` reads the losses back once, at the epoch's end.
+  * ``train_epoch`` and ``evaluate`` read back once, at their end;
+  * ``fit`` is the reference's epoch loop: ``ReduceLROnPlateau`` on
+    ``1 - val_acc`` (it sets the lr of the optimizer's param groups), the
+    lr-floor stop, best-validation saving, and the random_sample
+    validation metric summed over (M+1) identical full-topology evals;
+  * missing-modality evaluation zero-fills inactive inputs through an [M]
+    flag tensor (``_zero_fill``), or substitutes a precomputed row where
+    the input is cached text features;
+  * the sweep's steps hoist the headers (``supernet_headers``: the frozen
+    BERT, K2 / K3, and the GRU headers, K1f) out of the configuration axis
+    and run ``supernet_trunk`` over a chunk of stacked masks in one
+    ``torch.func.vmap`` pass.
 
-Not here yet: ``evaluate``, ``fit``, the missing-modality sweep and the
-evolutionary search (ROADMAP Queue 1).
+Not here yet: the JAX package's mesh branches (the configuration axis
+sharded over a mesh, ``eval_step_sweep_chunked``; ROADMAP Queue 1,
+``parallel``), the
+profiled epoch of ``fit`` (``profile_dir``; Queue 1, ``profiling``),
+checkpoint files of the training state (Queue 1, ``checkpoint.py``) and
+the evolutionary search.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
 import time
 from typing import Callable, List, Optional, Sequence
@@ -25,23 +42,26 @@ import torch
 import torch.nn.functional as F
 
 from .. import _build
-from ..config import ModelSpec
+from ..config import ModelSpec, full_active_config
 from ..masks import SupernetMasks, build_masks
+from ..metrics import binary_acc, multiclass_acc
 from ..models.bert import BertConfig
-from ..models.mult import supernet_apply, to_device
+from ..models.mult import supernet_apply, supernet_headers, supernet_trunk, to_device
 from .optim import clip_by_global_norm_, make_optimizer
 from .sampling import sample_train_config
 
 
 @dataclasses.dataclass
 class TrainHParams:
-    """The reference's hyperparameters that the training step and epoch
-    read (``fit``'s epochs and plateau patience come with ``fit``)."""
+    """The reference's hyp_params surface (main.py:12-86) minus dataset
+    plumbing."""
 
     batch_size: int = 16
     lr: float = 1e-3
     optim: str = "Adam"
     clip: float = 1.0
+    num_epochs: int = 50
+    when: int = 10                       # plateau patience
     experiment_type: str = "random_sample"
     modality_pool: Optional[Sequence[Sequence[int]]] = None
     all_module: bool = False
@@ -49,6 +69,7 @@ class TrainHParams:
     criterion: str = "L1Loss"
     log_interval: int = 360
     seed: int = 1111
+    dataset: str = "mosei_senti"
     # gradient accumulation: each batch in this many chunks, one backward
     # per chunk, one optimizer step on the valid-weighted summed gradients
     batch_chunk: int = 1
@@ -114,6 +135,26 @@ def tree_map(fn, tree):
     return fn(tree)
 
 
+def _zero_fill(inputs: Sequence[torch.Tensor], flags: torch.Tensor,
+               fill_rows: Optional[dict] = None) -> List[torch.Tensor]:
+    """Zero out the modalities whose flag is 0 (the reference's train.py:218
+    replaces missing inputs by zero tensors); integer token stacks are
+    multiplied by the flag too (zero is the pad id).
+
+    ``fill_rows`` (modality index -> [.., feat] row) adds a precomputed row
+    where the flag is 0: the cached-text pipeline (``train/features.py``)
+    must give what the online pipeline computes from a zero-token input,
+    BERT(zeros), which is not zero."""
+    out = []
+    for i, x in enumerate(inputs):
+        y = x * flags[i].to(x.dtype)
+        if fill_rows and i in fill_rows:
+            row = torch.as_tensor(fill_rows[i], device=x.device).to(x.dtype)
+            y = y + (1.0 - flags[i]).to(x.dtype) * row[None]
+        out.append(y.to(x.dtype))
+    return out
+
+
 def _chunk(x: torch.Tensor, n: int) -> List[torch.Tensor]:
     # a text token stack [3, B, L] splits on its batch axis 1
     if x.ndim >= 2 and x.shape[0] == 3 and not torch.is_floating_point(x):
@@ -122,13 +163,19 @@ def _chunk(x: torch.Tensor, n: int) -> List[torch.Tensor]:
 
 
 class Trainer:
-    """Owns the parameters, the optimizer and the random streams on one
-    device.  ``device`` defaults to the card; asking for ``cuda`` without
-    one raises (nothing falls back to the CPU)."""
+    """Owns the parameters, the optimizer, the plateau scheduler and the
+    random streams on one device, and runs the reference's experiment loop
+    (:meth:`fit`).  ``device`` defaults to the card; asking for ``cuda``
+    without one raises (nothing falls back to the CPU)."""
 
     def __init__(self, spec: ModelSpec, params: dict, frozen: dict,
                  hp: TrainHParams, bert_cfg: Optional[BertConfig] = None,
-                 device="cuda"):
+                 zero_fill_rows: Optional[dict] = None, device="cuda"):
+        """``zero_fill_rows``: per-modality substitute rows for
+        missing-modality evaluation where that modality's input is
+        precomputed features (``CachedTextDataset.zero_fill_rows()``); a
+        loader whose dataset carries its own rows takes precedence (see
+        :meth:`loader_fill_rows`)."""
         self.device = _build.resolve_device(device)
         # the port computes float32: no TF32 in cuDNN's conv (cnn_rnn) or
         # in matmuls
@@ -141,12 +188,23 @@ class Trainer:
         for p in tree_leaves(self.params):
             p.requires_grad_(True)
         self.frozen = to_device(frozen, self.device)
+        self._fill_rows = self._device_rows(zero_fill_rows)
         self.criterion = make_criterion(hp.criterion)
+        self.scheduler = ReduceLROnPlateau(hp.lr, patience=hp.when)
         self.opt_state = make_optimizer(hp.optim, tree_leaves(self.params), hp.lr)
         self.rng = np.random.default_rng(hp.seed)
         self.generator = torch.Generator(device=self.device).manual_seed(hp.seed)
         # the per-step losses of the last train_epoch, from its one readback
         self.last_epoch_losses = np.zeros(0)
+        self.training_curve: List[List[float]] = []
+        self.best_valid = -1e8  # kept across fit() calls for an exact resume
+        # the masks fit() carries across an epoch boundary (test_single
+        # trains under its eval masks from epoch 2 on): resume state
+        self._carry_masks: Optional[SupernetMasks] = None
+
+    def _device_rows(self, rows: Optional[dict]) -> Optional[dict]:
+        return {i: torch.as_tensor(np.asarray(r), dtype=torch.float32, device=self.device)
+                for i, r in rows.items()} if rows else None
 
     def _backward(self, params, masks, inputs, labels, valid, generator) -> torch.Tensor:
         """Train-mode forward and backward into each leaf's ``.grad``;
@@ -199,6 +257,113 @@ class Trainer:
         opt_state.step()
         return params, opt_state, loss
 
+    # ------------------------------------------------------------ eval steps
+    @torch.no_grad()
+    def eval_step(self, params, masks: SupernetMasks, inputs, zero_flags: torch.Tensor,
+                  fill_rows: Optional[dict] = None) -> torch.Tensor:
+        """Eval-mode forward of one configuration on zero-filled inputs."""
+        fill_rows = fill_rows if fill_rows is not None else self._fill_rows
+        return supernet_apply(self.spec, params, masks,
+                              _zero_fill(list(inputs), zero_flags, fill_rows),
+                              frozen=self.frozen, bert_cfg=self.bert_cfg, train=False)
+
+    @torch.no_grad()
+    def sweep_base(self, params, inputs, zero_flags: torch.Tensor,
+                   fill_rows: Optional[dict] = None) -> torch.Tensor:
+        """The header hoist: the headers' output [M, B, 1, d] depends on the
+        inputs, flags and fill rows, which every stacked configuration
+        shares, and on no mask, so one header pass (the frozen BERT and the
+        GRU headers) serves a whole grid."""
+        fill_rows = fill_rows if fill_rows is not None else self._fill_rows
+        return supernet_headers(self.spec, params,
+                                _zero_fill(list(inputs), zero_flags, fill_rows),
+                                frozen=self.frozen, bert_cfg=self.bert_cfg)
+
+    @torch.no_grad()
+    def trunk_configs(self, params, stacked: SupernetMasks,
+                      base: torch.Tensor) -> torch.Tensor:
+        """``supernet_trunk`` of every configuration of ``stacked`` (leading
+        axis n) on one ``base``: [n, B, ...].
+
+        One ``torch.func.vmap`` pass over the configuration axis, so the
+        trunk's launches scale with the passes, not with the configurations.
+        ``vmap`` cannot carry a kernel bound through ctypes; the trunk over
+        the headers' one step runs none whatever ``spec.attn_impl`` (flash
+        attention launches K5f only over T > 1), so ``base`` must be T == 1."""
+        if base.shape[2] != 1:
+            raise ValueError(f"trunk_configs takes the headers' T == 1 base, got "
+                             f"{tuple(base.shape)}")
+        spec = self.spec
+        leaves = [getattr(stacked, f.name) for f in dataclasses.fields(SupernetMasks)]
+        return torch.func.vmap(
+            lambda *m: supernet_trunk(spec, params, SupernetMasks(*m), base))(*leaves)
+
+    def eval_step_sweep(self, params, stacked_masks: SupernetMasks, inputs,
+                        zero_flags: torch.Tensor, fill_rows: Optional[dict] = None,
+                        chunk: Optional[int] = None) -> torch.Tensor:
+        """Every configuration of ``stacked_masks`` on one batch: the
+        hoisted headers, then the trunk over chunks of at most ``chunk``
+        configurations (all of them in one pass when None; the last chunk
+        may be shorter), so a grid of any size fits the card.  [n, B, ...]."""
+        masks = stacked_masks.to(self.device)
+        n = masks.branch_gate.shape[0]
+        chunk = chunk or n
+        base = self.sweep_base(params, inputs, zero_flags, fill_rows)
+        fields = [f.name for f in dataclasses.fields(SupernetMasks)]
+        return torch.cat([
+            self.trunk_configs(params, SupernetMasks(*(getattr(masks, f)[start:start + chunk]
+                                                       for f in fields)), base)
+            for start in range(0, n, chunk)])
+
+    def loader_fill_rows(self, loader) -> Optional[dict]:
+        """Zero-fill substitute rows carried by a loader's dataset
+        (``CachedTextDataset``), on the Trainer's device; None otherwise."""
+        getter = getattr(getattr(loader, "dataset", None), "zero_fill_rows", None)
+        return None if getter is None else self._device_rows(getter())
+
+    def _set_lr(self, lr: float) -> None:
+        for group in self.opt_state.param_groups:
+            group["lr"] = lr
+
+    # --------------------------------------------------- exact-resume state
+    def training_state(self) -> tuple:
+        """``(arrays, meta)``: everything beyond ``params`` that :meth:`fit`
+        needs to continue a run exactly: the optimizer's state (moments and
+        the lr of its param groups), the device generator's state, the
+        carried masks (arrays), and the plateau scheduler, the numpy RNG
+        state, the curve and the best validation (meta).  A snapshot in
+        memory: nothing it holds is shared with the Trainer.  (Files come
+        with the port's ``checkpoint.py``.)"""
+        carry = self._carry_masks
+        if carry is None:  # fit()'s epoch-1 default
+            carry = build_masks(self.spec, full_active_config(self.spec), device=self.device)
+        arrays = {"opt_state": copy.deepcopy(self.opt_state.state_dict()),
+                  "generator": self.generator.get_state(), "carry_masks": carry}
+        meta = {
+            "scheduler": {"lr": self.scheduler.lr, "best": self.scheduler.best,
+                          "num_bad": self.scheduler.num_bad},
+            "np_rng_state": copy.deepcopy(self.rng.bit_generator.state),
+            "training_curve": [list(x) for x in self.training_curve],
+            "best_valid": self.best_valid,
+        }
+        return arrays, meta
+
+    def load_training_state(self, arrays: dict, meta: dict) -> None:
+        # the optimizer would keep the snapshot's tensors (same device and
+        # dtype) and update them in place: load a copy
+        self.opt_state.load_state_dict(copy.deepcopy(arrays["opt_state"]))
+        self.generator.set_state(arrays["generator"])
+        if "carry_masks" in arrays:
+            self._carry_masks = arrays["carry_masks"].to(self.device)
+        s = meta["scheduler"]
+        self.scheduler.lr = float(s["lr"])
+        self.scheduler.best = float(s["best"])
+        self.scheduler.num_bad = int(s["num_bad"])
+        self.rng.bit_generator.state = copy.deepcopy(meta["np_rng_state"])
+        self.training_curve = [list(x) for x in meta["training_curve"]]
+        self.best_valid = float(meta["best_valid"])
+
+    # ------------------------------------------------------------------
     def train_epoch(self, train_iter, current_masks: SupernetMasks,
                     epoch: int = 0) -> tuple:
         """One epoch; returns ``(epoch_loss, masks_left_active)``.
@@ -242,3 +407,122 @@ class Trainer:
         self.last_epoch_losses = loss_vec
         w = np.asarray(sizes, np.float64)
         return float(loss_vec @ w) / max(float(w.sum()), 1.0), current_masks
+
+    def evaluate(self, loader, masks: SupernetMasks,
+                 activate_modality: Sequence[int]) -> tuple:
+        """``(metric, preds, truths)``: the reference's evaluate
+        (train.py:203-248) with its per-dataset metric switch.  Predictions
+        (and labels the loader keeps on the card) stay on the device
+        through the loop and are read back once; padded rows
+        (``valid == 0``) are dropped."""
+        dev = self.device
+        flags = torch.zeros(self.spec.modality_num, dtype=torch.float32)
+        flags[list(activate_modality)] = 1.0
+        flags = flags.to(dev)
+        masks = masks.to(dev)
+        fill_rows = self.loader_fill_rows(loader) or self._fill_rows
+        preds_all, truth_all, valid_all = [], [], []
+        for batch in loader:
+            inputs = [torch.as_tensor(x, device=dev) for x in batch.inputs]
+            preds_all.append(self.eval_step(self.params, masks, inputs, flags, fill_rows))
+            truth_all.append(batch.labels)
+            valid_all.append(np.asarray(batch.valid))
+        preds = torch.cat(preds_all).cpu().numpy()              # one readback
+        if isinstance(truth_all[0], torch.Tensor):               # device labels
+            truths = torch.cat(truth_all).cpu().numpy()
+        else:
+            truths = np.concatenate([np.asarray(t) for t in truth_all])
+        keep = np.concatenate(valid_all) > 0
+        preds, truths = preds[keep], truths[keep]
+        return self._metric(preds, truths), preds, truths
+
+    def _metric(self, preds: np.ndarray, truths: np.ndarray) -> float:
+        ds = self.hp.dataset
+        if ds in ("avmnist", "enrico", "eeg2a", "urfunny", "sarcasm", "humor"):
+            return multiclass_acc(preds.argmax(axis=-1), truths)
+        if ds in ("mosei_senti", "mosi", "mosei_aligned"):
+            return binary_acc(preds, truths, True)
+        if ds == "mojupush":
+            return -float(np.mean(np.square(preds - truths)))
+        raise NotImplementedError(ds + " does not exist")
+
+    # ------------------------------------------------------------------
+    def fit(self, train_loader, valid_loader, test_loader,
+            save_fn: Optional[Callable] = None,
+            epoch_fn: Optional[Callable] = None,
+            start_epoch: int = 1) -> List[List[float]]:
+        """The reference epoch loop (train.py:436-517): train, the
+        validation metric (random_sample: (M+1) identical full-topology
+        evals), plateau scheduling on ``1 - val_acc``, best-validation
+        ``save_fn(params, epoch, val_acc)``, the lr-floor stop.
+
+        ``epoch_fn(trainer, epoch)`` runs at the end of every epoch;
+        ``start_epoch`` continues a run restored by
+        :meth:`load_training_state` (pair it with ``train_loader.set_epoch``).
+        The JAX package's profiled epoch (``profile_dir``) waits for the
+        port's ``profiling.py``."""
+        hp, spec, dev = self.hp, self.spec, self.device
+        M = spec.modality_num
+        full_masks = build_masks(spec, full_active_config(spec), device=dev)
+        # a resumed run continues under the masks the interrupted run carried
+        # into this epoch; a fresh fit() on a fitted Trainer starts full
+        current_masks = (self._carry_masks.to(dev)
+                         if self._carry_masks is not None and start_epoch > 1
+                         else full_masks)
+        single = (hp.experiment_type == "test_single" and hp.modality_pool
+                  and len(hp.modality_pool) > 1)
+        t0 = time.time()
+        for epoch in range(start_epoch, hp.num_epochs + 1):
+            ep_start = time.time()
+            _, current_masks = self.train_epoch(train_loader, current_masks, epoch)
+
+            eval_masks = full_masks
+            if single:
+                aco = [[] for _ in range(M)]
+                j = hp.modality_pool[1][0]
+                aco[j] = [spec.modality_set[j]]
+                cfg = full_active_config(spec)
+                cfg.active_cross_output = aco
+                eval_masks = build_masks(spec, cfg, device=dev)
+            if hp.experiment_type in ("baseline_ic", "random_sample"):
+                current_masks = full_masks
+            elif single:
+                current_masks = eval_masks
+
+            val1 = self.evaluate(valid_loader, eval_masks, list(range(M)))[0]
+            if hp.experiment_type == "random_sample":
+                # the reference's (M+1) full-topology validation evals
+                # (train.py:444-460, its per-modality configs shadowed)
+                # each return val1 (eval mode draws nothing, and the valid
+                # loader is restartable and unshuffled): evaluate once and
+                # sum the host-float sequence ((v + v) + v) + v the M+1
+                # passes would give, for the same printed numbers
+                val_acc = 0.0
+                for _ in range(M):
+                    val_acc += val1
+                val_acc = val_acc + val1
+            else:
+                val_acc = val1
+            test_acc = self.evaluate(test_loader, eval_masks, list(range(M)))[0]
+            self.training_curve.append([val_acc, test_acc])
+
+            new_lr = self.scheduler.step(1.0 - val_acc)
+            self._set_lr(new_lr)
+            dur = time.time() - ep_start
+            print("-" * 50)
+            print("Epoch {:2d} | Time {:5.4f} sec | Valid Acc {:5.4f} | "
+                  "Test Acc {:5.4f}".format(epoch, dur, abs(val_acc), abs(test_acc)))
+            print("-" * 50)
+            if val_acc > self.best_valid:
+                self.best_valid = val_acc
+                if save_fn is not None:
+                    save_fn(self.params, epoch, val_acc)
+            # before epoch_fn, so a saved state holds the next epoch's masks
+            self._carry_masks = current_masks
+            if epoch_fn is not None:
+                epoch_fn(self, epoch)
+            if new_lr <= 1e-16:
+                break
+        print(time.time() - t0)
+        print(self.training_curve)
+        return self.training_curve

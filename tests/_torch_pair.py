@@ -1,0 +1,102 @@
+"""One tiny supernet in both packages, for the CPU parity tests of the
+port's experiment loop (evaluate, fit, the sweep).
+
+The parameters are drawn by the port's ``init_supernet`` (quick: the JAX
+package's eager init takes ~20 s of first dispatches) and cross into the
+JAX package under the reference's names (``weights.export_reference_state_dict``
+into ``checkpoint.import_torch_state_dict``, the dead ``translation``
+linears as zeros); the frozen BERT is the JAX package's ``init_bert``, in
+the port through ``weights.load_reference_state_dict``.
+Every dropout rate is 0, and :func:`no_cross_quirk` patches both packages'
+``attn_dropout_for_cross`` to 0 (the reference's 0.1 for the later cross
+stacks would draw, and ``jax.random`` and ``torch.Generator`` draw
+different streams).  The data are a gather-style dataset in the MOSEI
+layout: a ``[3, N, L]`` token stack (with padded tokens), audio and vision
+sequences and real-valued labels, made from a seed with numpy.
+"""
+
+from contextlib import contextmanager
+from unittest import mock
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+
+from multimodal_transformer_robustness_tpu import config as jcfg
+import torch
+
+from multimodal_transformer_robustness_tpu.checkpoint import import_torch_state_dict
+from multimodal_transformer_robustness_tpu.models import bert as jbert
+from multimodal_transformer_robustness_tpu.train import loop as jloop
+from multimodal_transformer_robustness_tpu_torch import config as tcfg
+from multimodal_transformer_robustness_tpu_torch.models import bert as tbert
+from multimodal_transformer_robustness_tpu_torch.models import init_supernet as t_init
+from multimodal_transformer_robustness_tpu_torch.train import loop as tloop
+from multimodal_transformer_robustness_tpu_torch.weights import (
+    export_reference_state_dict, load_reference_state_dict)
+
+SPEC = dict(modality_set=("t", "a", "v"), orig_dimensions=(16, 6, 5), dimension=8,
+            num_heads=2, head_dim=4, layers_single_attn=1, layers_cross_attn=1,
+            layers_self_attn=1, attn_dropout=(0.0, 0.0, 0.0, 0.0), relu_dropout=0.0,
+            res_dropout=0.0, out_dropout=0.0, embed_dropout=0.0, attn_mask=True,
+            output_dim=1)
+L, T = 6, 4
+
+
+@contextmanager
+def no_cross_quirk():
+    zero = lambda self, idx: 0.0  # noqa: E731
+    with mock.patch.object(jcfg.ModelSpec, "attn_dropout_for_cross", zero), \
+            mock.patch.object(tcfg.ModelSpec, "attn_dropout_for_cross", zero):
+        yield
+
+
+class MoseiLike:
+    """``gather``-style dataset: a [3, N, L] token stack (ids, zero type
+    ids, attention mask), audio [N, T, 6], vision [N, T, 5], labels [N, 1]
+    with a few exact zeros."""
+
+    def __init__(self, n: int, seed: int, vocab: int = 64):
+        rng = np.random.default_rng(seed)
+        attn = (rng.random((n, L)) > 0.2).astype(np.int64)
+        attn[:, 0] = 1
+        self.text = np.stack([rng.integers(1, vocab, (n, L)) * attn,
+                              np.zeros((n, L), np.int64), attn])
+        self.audio = rng.standard_normal((n, T, 6)).astype(np.float32)
+        self.vision = rng.standard_normal((n, T, 5)).astype(np.float32)
+        self.labels = rng.standard_normal((n, 1)).astype(np.float32)
+        self.labels[::7] = 0.0
+
+    def __len__(self):
+        return self.text.shape[1]
+
+    def gather(self, idx):
+        return [self.text[:, idx], self.audio[idx], self.vision[idx]], self.labels[idx]
+
+
+def build(seed: int = 0, spec: dict = SPEC) -> dict:
+    js, ts = jcfg.ModelSpec(**spec), tcfg.ModelSpec(**spec)
+    jb, tb = jbert.tiny_bert_config(), tbert.tiny_bert_config()
+    params, _ = t_init(torch.Generator().manual_seed(seed), ts, tb)
+    sd = export_reference_state_dict(ts, params)
+    d = ts.dimension
+    for s in ts.cross_strings:
+        sd[f"translation.translation{s}.weight"] = np.zeros((d, d), np.float32)
+        sd[f"translation.translation{s}.bias"] = np.zeros((d,), np.float32)
+    frozen = {"bert": jbert.init_bert(jax.random.PRNGKey(seed), jb)}
+    return dict(js=js, ts=ts, jb=jb, tb=tb,
+                params_np=jax.tree.map(np.asarray, import_torch_state_dict(js, sd)),
+                frozen=frozen, bert_np=jax.tree.map(np.asarray, frozen["bert"]), sd=sd)
+
+
+def trainers(c: dict, **hp_kw):
+    """A JAX and a port Trainer (CPU) holding the same parameters."""
+    kw = dict(batch_size=4, lr=1e-2, optim="SGD", criterion="L1Loss", seed=7,
+              dataset="mosei_senti", log_interval=1000)
+    kw.update(hp_kw)
+    jt = jloop.Trainer(c["js"], jax.tree.map(jnp.asarray, c["params_np"]), c["frozen"],
+                       jloop.TrainHParams(**kw), bert_cfg=c["jb"])
+    tp, tf = load_reference_state_dict(c["ts"], c["sd"], c["bert_np"])
+    tt = tloop.Trainer(c["ts"], tp, tf, tloop.TrainHParams(**kw), bert_cfg=c["tb"],
+                       device="cpu")
+    return jt, tt
