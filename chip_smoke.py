@@ -47,7 +47,11 @@ Phases, each fatal on failure:
                 (LN rows, its two products) and K9b (rows, the recompute,
                 dp, ds, LN backward, weight reductions, sums) at the top
                 FFN block, R=4096 train and R=1, and K9f at R=1 at the
-                other three blocks, beside their CUDA-event ms;
+                other three blocks, beside their CUDA-event ms; and the
+                bf16 instances of K1f, K1b, K2 and K3 at the training
+                path's shapes against their bf16 plain versions (2e-2 of
+                max |ref|) and the float32 kernels (cosine), rerun for the
+                same bits, timed beside cuDNN's GRU in bf16 (K1f, K1b);
   4. serving  - StreamingPredictor at the reference's MOSEI serving
                 configuration (d=200, 8x25 heads, layers 3/4/2, 4-layer
                 BERT-base-width text encoder, random weights from seed 0)
@@ -115,9 +119,19 @@ Phases, each fatal on failure:
                 test batch) whatever the configuration count, the trunk one
                 vmap pass a chunk; seconds, configurations/s, each subset's
                 best configuration; card vs CPU on 4 rows of one valid
-                batch, every configuration's predictions.
+                batch, every configuration's predictions;
+ 21. train-bf16 - phase 6 under ModelSpec(compute_dtype="bfloat16"),
+                bench.py's headline, the batch stored on the card in bf16
+                (DeviceBatchIterator(store_dtype="bfloat16")): K1 12 /
+                K1b 12 / K2 4 / K3 4 a step, every one a bf16 instance;
+ 22. train-bf16-cached - the features precomputed by the bf16 BERT, then
+                phase 21's steps on them: K1 12 / K1b 12, all bf16;
+ 23. train-bf16-vs-cpu - one bf16 step (loss, float32 gradients) and one
+                Trainer.evaluate at B=8, card against the CPU's plain
+                versions.
 Every phase sets the launch counters to 0 just before it drives its path
-and fails unless each kernel of the path ran the expected number of times.
+and fails unless each kernel of the path ran the expected number of times
+(the bf16 instances counted apart: ``K1.bf16`` ... ``K3.bf16``).
 Then the int8 projections' and the device split's lines, one JSON line with
 the kernels' results, and the last line ``{"ok": true, "device": {...}}``.
 """
@@ -169,11 +183,20 @@ T0 = time.perf_counter()  # the script's start, for the phase headings
 # either derivative is valid: K9b may use, per element, the most that
 # flipping the entries within 1e-4 of the kink can move each gradient
 # (relu_kink_bound) before the tolerance applies.
+# The bf16 instances of K1f, K1b, K2 and K3 (the bf16 compute policy)
+# against their bf16 plain versions, at the same rounding points: max |out -
+# ref| within 2e-2 of max |ref| (a result one bf16 step apart where a float32
+# sum in another order lands across a rounding edge, and what that step
+# moves downstream); their cosine against the float32 kernel on the same
+# (bf16-valued) inputs is printed and held to 0.999.
+BF16_TOL, BF16_COS = 2e-2, 0.999
 TOL = {"K1": 1e-4, "K1b": 1e-4, "K2": 1e-3, "K3": 1e-4, "K4": 1e-4, "K6a": 1e-3,
        "K6b": 1e-4, "K5f": 1e-4, "K5dq": 1e-4, "K5dkv": 1e-4, "K5b": 1e-4, "K8": 1e-4,
-       "K7f": 1e-4, "K7b": 1e-4, "K9f": 1e-4, "K9b": 1e-4}
+       "K7f": 1e-4, "K7b": 1e-4, "K9f": 1e-4, "K9b": 1e-4, "K1f.bf16": BF16_TOL,
+       "K1b.bf16": BF16_TOL, "K2.bf16": BF16_TOL, "K3.bf16": BF16_TOL}
 # the kernels held to TOL as a share of max |ref| rather than absolutely
-NORMALISED = {"K5dq", "K5dkv", "K5b", "K7b", "K9b"}
+NORMALISED = {"K5dq", "K5dkv", "K5b", "K7b", "K9b", "K1f.bf16", "K1b.bf16", "K2.bf16",
+              "K3.bf16"}
 K4_MAX_FLIP_SHARE = 1e-3
 SERVE_TOL = 1e-3   # end-to-end sentiment, card against CPU
 # one training step, card against CPU: the loss relative, each gradient
@@ -181,6 +204,18 @@ SERVE_TOL = 1e-3   # end-to-end sentiment, card against CPU
 # both float32, summed in other orders through a 4-layer BERT, two GRU
 # levels over 50 steps and eleven encoder stacks
 TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
+# the bf16 policy, card against CPU (the same rounding points, float32 sums
+# in other orders): the loss within 1e-2 relative, the gradients (float32)
+# as one vector with a cosine of 0.999; evaluate's predictions within 2e-2
+# of their scale, max |ref| over the rows.  bf16 rounds every layer's
+# output, so a float32 sum in another order flips a step here and there,
+# and the flips compound through the BERT's layers and the GRU's 50 steps:
+# at MOSEI width a quarter of the headers' outputs differ from the CPU's,
+# as many on the card's cuBLAS route through the plain versions as through
+# the kernels, and a prediction, a sum of terms of the activations' scale,
+# moves by up to a bf16 step of the largest prediction, of the scale and
+# not of its own value (tools/bf16_gap.py; PERF.md)
+BF16_LOSS_TOL, BF16_PRED_TOL = 1e-2, 2e-2
 
 # H100 SXM peaks (NVIDIA data sheet).  Float32 products at the rate the card
 # can do them to float32 accuracy: on the tensor cores in 3xTF32 (three TF32
@@ -188,6 +223,8 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
 # cores' 67, so every float32 row shares one yardstick that no kernel can
 # beat; the int8 tensor cores for K4's products; HBM3 rate
 PEAK_F32_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 495e12 / 3, 1979e12, 3.35e12
+# the bf16 tensor cores (dense), the bf16 instances' yardstick
+PEAK_BF16_FLOPS = 989e12
 # the 7 non-empty modality subsets (bench.py's training pool)
 POOL = [[0], [1], [2], [0, 1], [0, 2], [1, 2], [0, 1, 2]]
 PKG = "multimodal_transformer_robustness_tpu_torch"
@@ -232,7 +269,8 @@ def beyond_allowance(pairs, slack):
 
 
 def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
-    """The least time the card could take: (ms, what bounds it)."""
+    """The least time the card could take: (ms, what bounds it).  The bf16
+    rows pass (flops, bytes, PEAK_BF16_FLOPS)."""
     t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -262,6 +300,28 @@ def k4_work(R, h, f):
     """int8 operations of the two products; float32 rows in and out, int8
     weights, float32 scales, biases and LN parameters."""
     return 4 * R * h * f, 4 * 2 * R * h + 2 * h * f + 4 * (2 * f + 4 * h)
+
+
+def k1f_bf16_work(T, B, i, H):
+    """bf16 x, weights and h; the float32 gate pre-activations K1b reads
+    back are the kernel's scratch, as in k1f_work."""
+    return 2 * T * B * 3 * H * (i + H), 2 * (T * B * i + 3 * H * (i + H) + 4 * H + T * B * H)
+
+
+def k1b_bf16_work(T, B, i, H, need_dx):
+    """bf16 x, h, dh, weights and gradients; the float32 saved gates."""
+    flops = k1b_work(T, B, i, H, need_dx)[0]
+    ins = T * B * i + 2 * T * B * H + 3 * H * H + H + (3 * H * i if need_dx else 0)
+    outs = 3 * H * (i + H) + 4 * H + (T * B * i if need_dx else 0)
+    return flops, 2 * (ins + outs) + 4 * 3 * T * B * H
+
+
+def k2_bf16_work(B, L, h):
+    return k2_work(B, L, h)[0], 2 * (2 * B * L * h + 4 * h * h + 6 * h) + 4 * B * L
+
+
+def k3_bf16_work(B, L, h, f):
+    return k3_work(B, L, h, f)[0], 2 * (2 * B * L * h + 2 * h * f + f + 3 * h)
 
 
 def k6a_work(B, L, h):
@@ -323,7 +383,8 @@ def check_kernels(dev, rng):
             row.update(ms=cuda_ms(kernel_fn, iters),
                        plain_ms=cuda_ms(plain_fn, iters),
                        library_ms=cuda_ms(library_fn, iters) if library_fn else None)
-            row["bound_ms"], row["bound_by"] = bound(*work)
+            row["bound_ms"], row["bound_by"] = bound(
+                *work, PEAK_BF16_FLOPS if kid.endswith(".bf16") else PEAK_F32_FLOPS)
             lib = f"{row['library_ms']:.4f}" if library_fn else "none"
             msg += (f"  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
                     f"library {lib} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
@@ -415,9 +476,146 @@ def check_kernels(dev, rng):
     check_flash(dev, rng, t, record, failures)
     check_k7(dev, rng, t, record, failures)
     check_k9(dev, rng, t, record, failures)
+    check_bf16(dev, rng, t, record, failures)
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
     return rows
+
+
+def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300))
+
+
+def check_bf16(dev, rng, t, record, failures):
+    """The bf16 instances of K1f, K1b, K2 and K3 at the training path's
+    shapes (K1f in=768 T=50 B=4096; K1b in=768 and 512 without dx, 200 with
+    it; K2 and K3 at B=4096 L=32): against their bf16 plain versions
+    (BF16_TOL of max |ref|), their cosine against the float32 kernel on the
+    same bf16-valued inputs (BF16_COS), a rerun for the same bits; CUDA-event
+    ms of the kernel, the plain version and, for K1f / K1b, cuDNN's GRU in
+    bf16 (forward; backward by autograd), the bound at the bf16 tensor
+    cores' 989 TFLOP/s."""
+    from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bert_ffn_cuda
+    from multimodal_transformer_robustness_tpu_torch.ops import bigru_cuda
+
+    bf = torch.bfloat16
+
+    def judge(kid, shape, outs, refs, f32s, again, **timing):
+        """Per output (None where the kernel gives none: dx without it)."""
+        kept = [q for q in zip(outs, refs, f32s, again) if q[0] is not None]
+        outs, refs, f32s, again = zip(*kept)
+        cos = min(cosine(o.float(), f) for o, f in zip(outs, f32s))
+        same = all(torch.equal(a, b) for a, b in zip(outs, again))
+        differ = max(float((o != r).float().mean()) for o, r in zip(outs, refs))
+        record(kid, shape, tuple(o.float() for o in outs), tuple(r.float() for r in refs),
+               extra={"cos_vs_float32": cos, "rerun_bit_identical": same,
+                      "share_differing": differ}, **timing)
+        print(f"  {kid} {shape}: cosine vs the float32 kernel {cos:.6f} (min {BF16_COS}), "
+              f"rerun bit-identical {same}, {differ:.2%} of elements differ from the plain "
+              "version", flush=True)
+        if cos < BF16_COS or not same:
+            failures.append(f"{kid} {shape}: cosine {cos} / rerun {same}")
+
+    H, T, B = 100, 50, 4096
+    x768 = t(rng.standard_normal((T, B, 768))).to(bf)
+    for in_dim, need_dx in ((768, False), (512, False), (200, True)):
+        w = {k: v.to(bf) for k, v in gru_weights(rng, in_dim, H, dev).items()}
+        ops = bigru_cuda.dir_operands(w)
+        args = tuple(ops[k] for k in ("wp", "wt", "bc", "bhn"))
+        args32 = tuple(a.float() for a in args)
+        x = x768 if in_dim == 768 else t(rng.standard_normal((T, B, in_dim))).to(bf)
+        dhs = t(rng.standard_normal((T, B, H))).to(bf)
+        gru = torch.nn.GRU(in_dim, H).to(dev)
+        with torch.no_grad():
+            for n, p in (("weight_ih_l0", "w_ih"), ("weight_hh_l0", "w_hh"),
+                         ("bias_ih_l0", "b_ih"), ("bias_hh_l0", "b_hh")):
+                getattr(gru, n).copy_(w[p].float())
+        gru = gru.to(bf)
+        gru.flatten_parameters()
+        try:   # cuDNN's GRU in bf16, the library yardstick, where this build has it
+            gru(x[:1])
+        except RuntimeError as e:
+            print(f"  cuDNN's GRU takes no bf16 here ({str(e).splitlines()[0]}): "
+                  "library_ms none", flush=True)
+            gru = None
+        if in_dim == 768:
+            out = bigru_cuda.gru_dir(x, *args, False)
+            again = bigru_cuda.gru_dir(x, *args, False)
+            torch.cuda.synchronize()
+            judge("K1f.bf16", f"in={in_dim} H={H} T={T} B={B} fwd", (out,),
+                  (bigru_cuda.gru_dir_plain(x, *args, False),),
+                  (bigru_cuda.gru_dir(x.float(), *args32, False),), (again,),
+                  kernel_fn=lambda: bigru_cuda.gru_dir(x, *args, False),
+                  plain_fn=lambda: bigru_cuda.gru_dir_plain(x, *args, False),
+                  work=k1f_bf16_work(T, B, in_dim, H),
+                  library_fn=(lambda: gru(x)) if gru is not None else None, iters=5)
+            del out, again
+        hs, gates = bigru_cuda._launch_fwd(x, *args, False)
+        got = bigru_cuda.gru_dir_bwd(x, *args, hs, gates, dhs, False, need_dx)
+        again = bigru_cuda.gru_dir_bwd(x, *args, hs, gates, dhs, False, need_dx)
+        torch.cuda.synchronize()
+        ref = bigru_cuda.gru_dir_bwd_plain(x, *args, hs, gates, dhs, False, need_dx)
+        hs32, gates32 = bigru_cuda._launch_fwd(x.float(), *args32, False)
+        f32 = bigru_cuda.gru_dir_bwd(x.float(), *args32, hs32, gates32, dhs.float(), False,
+                                     need_dx)
+        del hs32, gates32
+        library = None
+        if gru is not None:
+            xg = x.clone().requires_grad_(need_dx)
+            y, _ = gru(xg)
+            wrt = ([xg] if need_dx else []) + list(gru.parameters())
+
+            def library():
+                return torch.autograd.grad(y, wrt, dhs, retain_graph=True)
+        judge("K1b.bf16", f"in={in_dim} H={H} T={T} B={B} fwd need_dx={need_dx}", got, ref,
+              f32, again,
+              kernel_fn=lambda: bigru_cuda.gru_dir_bwd(x, *args, hs, gates, dhs, False, need_dx),
+              plain_fn=lambda: bigru_cuda.gru_dir_bwd_plain(x, *args, hs, gates, dhs, False,
+                                                            need_dx),
+              work=k1b_bf16_work(T, B, in_dim, H, need_dx), library_fn=library, iters=5)
+        del got, again, ref, f32, hs, gates, library
+    del x768
+    torch.cuda.empty_cache()
+
+    h, ffn, heads, eps, B, L = 768, 3072, 12, 1e-12, 4096, 32
+    aw = [t(rng.standard_normal((h, h)) * 0.02).to(bf) for _ in range(4)]
+    ab = [t(rng.standard_normal(h) * 0.02).to(bf) for _ in range(4)]
+    aw[:3], ab[:3] = torch.stack(aw[:3]).unbind(0), torch.cat(ab[:3]).split(h)
+    g, b = t(1.0 + 0.1 * rng.standard_normal(h)).to(bf), t(0.1 * rng.standard_normal(h)).to(bf)
+    x = t(rng.standard_normal((B, L, h))).to(bf)
+    mask = np.zeros((B, L), np.float32)
+    for i in range(1, B):
+        mask[i, : rng.integers(1, L + 1)] = 1.0
+    mask = t(mask)
+    a_args = (x, mask, aw[0], ab[0], aw[1], ab[1], aw[2], ab[2], aw[3], ab[3], g, b)
+    a32 = tuple(a.float() for a in a_args)
+    kw = dict(n_heads=heads, eps=eps)
+    out = bert_attn_cuda.attention_block_fused(*a_args, **kw)
+    again = bert_attn_cuda.attention_block_fused(*a_args, **kw)
+    torch.cuda.synchronize()
+    judge("K2.bf16", f"B={B} L={L} h={h}", (out,),
+          (bert_attn_cuda.attention_block_plain(*a_args, **kw),),
+          (bert_attn_cuda.attention_block_fused(*a32, **kw),), (again,),
+          kernel_fn=lambda: bert_attn_cuda.attention_block_fused(*a_args, **kw),
+          plain_fn=lambda: bert_attn_cuda.attention_block_plain(*a_args, **kw),
+          work=k2_bf16_work(B, L, h), iters=5)
+    del out, again, a32
+    w1t = t(rng.standard_normal((h, ffn)) * 0.02).to(bf)
+    w2t = t(rng.standard_normal((ffn, h)) * 0.02).to(bf)
+    b1, b2 = t(rng.standard_normal(ffn) * 0.02).to(bf), t(rng.standard_normal(h) * 0.02).to(bf)
+    f_args = (x, w1t, b1, w2t, b2, g, b)
+    out = bert_ffn_cuda.ffn_ln_block(*f_args, eps=eps)
+    again = bert_ffn_cuda.ffn_ln_block(*f_args, eps=eps)
+    torch.cuda.synchronize()
+    judge("K3.bf16", f"B={B} L={L} h={h} ffn={ffn}", (out,),
+          (bert_ffn_cuda.ffn_ln_block_plain(*f_args, eps=eps),),
+          (bert_ffn_cuda.ffn_ln_block(*(a.float() for a in f_args), eps=eps),), (again,),
+          kernel_fn=lambda: bert_ffn_cuda.ffn_ln_block(*f_args, eps=eps),
+          plain_fn=lambda: bert_ffn_cuda.ffn_ln_block_plain(*f_args, eps=eps),
+          work=k3_bf16_work(B, L, h, ffn), iters=5)
+    del out, again, x
+    torch.cuda.empty_cache()
 
 
 def check_k1f_k6a_edges(dev, rng, t, record, failures):
@@ -1254,7 +1452,26 @@ def check_k9(dev, rng, t, record, failures):
             del x, src, dout, params, masks, out, got
 
 
+class Bf16Count:
+    """A wrapper's bf16 launches (its ``launches_bf16``, a part of its
+    ``launches``) as a counter of their own."""
+
+    def __init__(self, fn):
+        self.fn = fn
+
+    @property
+    def launches(self):
+        return self.fn.launches_bf16
+
+    @launches.setter
+    def launches(self, value):
+        self.fn.launches_bf16 = value
+
+
 def counters():
+    """The launch counters: every kernel's, then the bf16 instances' of K1f,
+    K1b, K2 and K3 (``K1.bf16`` ... ``K3.bf16``), which count within K1 ...
+    K3: a phase where they equal K1 ... K3 launched no float32 instance."""
     from multimodal_transformer_robustness_tpu_torch.ops import attention_cuda as ac
     from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bert_ffn_cuda
     from multimodal_transformer_robustness_tpu_torch.ops import bigru_cuda, gru_cuda
@@ -1270,12 +1487,21 @@ def counters():
             "K5b": ac.flash_bwd,
             "K8": ac.flash_attention_masked, "K7f": gru_cuda.gru_recurrence_cuda,
             "K7b": gru_cuda.gru_recurrence_bwd_cuda, "K9f": tb.trunk_block_fwd,
-            "K9b": tb.trunk_block_bwd}
+            "K9b": tb.trunk_block_bwd, "K1.bf16": Bf16Count(bigru_cuda.gru_dir),
+            "K1b.bf16": Bf16Count(bigru_cuda.gru_dir_bwd),
+            "K2.bf16": Bf16Count(bert_attn_cuda.attention_block_fused),
+            "K3.bf16": Bf16Count(bert_ffn_cuda.ffn_ln_block)}
 
 
 def expect(**counts):
     """Expected launch counts: the given ones, 0 for every other kernel."""
     return {k: counts.get(k, 0) for k in counters()}
+
+
+def expect_bf16(**counts):
+    """Expected launch counts of a bf16 path: the given kernels' launches,
+    every one of them their bf16 instance's."""
+    return expect(**counts, **{f"{k}.bf16": v for k, v in counts.items()})
 
 
 def reset_counters():
@@ -1514,10 +1740,12 @@ def mosei():
 
 
 def train(dev, spec, bert_cfg, label="train", per_step=None, bert_int8=False,
-          cached=False, B=4096, T=50, L=32, warmup=2, steps=5):
+          cached=False, store_dtype=None, B=4096, T=50, L=32, warmup=2, steps=5):
     """Trainer.train_epoch at the training shapes: the frozen BERT in float
     (default), int8 (``bert_int8``: fc1 / fc2 through K4) or run once ahead
-    on the batch (``cached``: train/features.py, the step gets features).
+    on the batch (``cached``: train/features.py, the step gets features, in
+    ``spec.compute_dtype``); ``store_dtype``: the batch stored on the card
+    by ``DeviceBatchIterator(store_dtype=...)`` (bench.py's bf16 feed).
     Returns the launch counts and the step numbers."""
     from multimodal_transformer_robustness_tpu_torch import build_masks, full_active_config
     from multimodal_transformer_robustness_tpu_torch.data.loaders import Batch
@@ -1542,7 +1770,8 @@ def train(dev, spec, bert_cfg, label="train", per_step=None, bert_int8=False,
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         feats = precompute_text_features(trainer.frozen, bert_cfg, batch.inputs[0],
-                                         batch_size=512, device=dev)
+                                         batch_size=512, compute_dtype=spec.compute_dtype,
+                                         device=dev)
         stats["precompute_s"] = time.perf_counter() - t0
         print(f"{label}: precompute_text_features over {B} rows (L={L}) in "
               f"{stats['precompute_s']:.3f} s, features {feats.shape} float32 "
@@ -1557,6 +1786,14 @@ def train(dev, spec, bert_cfg, label="train", per_step=None, bert_int8=False,
     stats["upload_ms"] = 1e3 * (time.perf_counter() - t0)
     stats["upload_mib"] = sum(x.nbytes for x in batch.inputs) / 2**20
     del uploaded
+    if store_dtype:
+        from multimodal_transformer_robustness_tpu_torch.data import DeviceBatchIterator
+
+        batch = next(iter(DeviceBatchIterator(split_of(batch), B, store_dtype=store_dtype,
+                                              device=trainer.device)))
+        print(f"{label}: the batch stored on the card by DeviceBatchIterator(store_dtype="
+              f"{store_dtype!r}): {[str(x.dtype) for x in batch.inputs]}, "
+              f"{sum(x.nbytes for x in batch.inputs) / 2**20:.0f} MiB", flush=True)
     masks = build_masks(spec, full_active_config(spec), device=trainer.device)
 
     t0 = time.perf_counter()
@@ -1683,6 +1920,69 @@ def train_card_vs_cpu(dev, spec, bert_cfg, B=8, T=50, L=32):
     if not (loss_err <= TRAIN_LOSS_TOL and worst <= TRAIN_GRAD_TOL):
         raise RuntimeError("training step: card and CPU disagree")
     return loss_err, worst
+
+
+def train_bf16_card_vs_cpu(dev, spec, bert_cfg, B=8, T=50, L=32):
+    """The bf16 policy on the card against the CPU's plain versions, from
+    the same parameters, masks and batch, every dropout rate 0 (the
+    reference's 0.1 for the later cross stacks patched to 0): one step's
+    loss (BF16_LOSS_TOL) and its float32 gradients as one vector (cosine
+    BF16_COS); one ``Trainer.evaluate`` over two batches of B / 2 rows,
+    the predictions within BF16_PRED_TOL of their scale."""
+    from multimodal_transformer_robustness_tpu_torch import (ModelSpec, build_masks,
+                                                             full_active_config)
+    from multimodal_transformer_robustness_tpu_torch.data import BatchIterator
+    from multimodal_transformer_robustness_tpu_torch.models import init_supernet
+    from multimodal_transformer_robustness_tpu_torch.train import (
+        TrainHParams, Trainer, sample_train_config)
+    from multimodal_transformer_robustness_tpu_torch.train.loop import tree_leaves
+    from multimodal_transformer_robustness_tpu_torch.weights import export_reference_state_dict
+
+    spec = dataclasses.replace(spec, attn_dropout=(0.0,) * 4, relu_dropout=0.0,
+                               res_dropout=0.0, out_dropout=0.0, embed_dropout=0.0)
+    cfg = sample_train_config(spec, "random_sample", POOL, np.random.default_rng(3))
+    batch = synthetic_batch(np.random.default_rng(4), B, T, L, bert_cfg.vocab_size,
+                            spec.orig_dimensions[1:])
+    batch.valid[-1] = 0.0                     # a padded tail row
+    hp = TrainHParams(batch_size=B, lr=1e-4, optim="Adam", criterion="L1Loss",
+                      dataset="mosei_senti")
+    out = {}
+    reset_counters()
+    with mock.patch.object(ModelSpec, "attn_dropout_for_cross", lambda self, idx: 0.0):
+        for key, d in (("card", dev), ("cpu", "cpu")):
+            params, frozen = init_supernet(torch.Generator().manual_seed(0), spec, bert_cfg)
+            tr = Trainer(spec, params, frozen, hp, bert_cfg=bert_cfg, device=d)
+            inputs = [torch.as_tensor(x, device=tr.device) for x in batch.inputs]
+            loss, grads = tr.loss_and_grads(
+                tr.params, build_masks(spec, cfg, device=tr.device), inputs,
+                torch.as_tensor(batch.labels, device=tr.device),
+                torch.as_tensor(batch.valid, device=tr.device), tr.generator)
+            dtypes = {str(g.dtype) for g in tree_leaves(grads)}
+            metric, preds, _ = tr.evaluate(BatchIterator(split_of(batch), B // 2),
+                                           build_masks(spec, full_active_config(spec)),
+                                           [0, 1, 2])
+            out[key] = (float(loss), export_reference_state_dict(spec, grads), dtypes,
+                        metric, preds)
+    launches = read_counters()
+    (l_card, g_card, dt_card, m_card, p_card), (l_cpu, g_cpu, _, m_cpu, p_cpu) = (
+        out["card"], out["cpu"])
+    loss_err = abs(l_card - l_cpu) / max(abs(l_cpu), 1e-30)
+    names = sorted(g_cpu)
+    a = np.concatenate([g_card[n].ravel() for n in names]).astype(np.float64)
+    r = np.concatenate([g_cpu[n].ravel() for n in names]).astype(np.float64)
+    cos = float(a @ r / (np.linalg.norm(a) * np.linalg.norm(r)))
+    pred_err = float(np.max(np.abs(p_card - p_cpu)) / max(float(np.max(np.abs(p_cpu))), 1e-30))
+    print(f"train-bf16 step B={B} card vs CPU: loss {l_card:.7f} vs {l_cpu:.7f} (rel "
+          f"{loss_err:.2e}, tol {BF16_LOSS_TOL:g}); {len(names)} gradients {sorted(dt_card)}, "
+          f"cosine {cos:.6f} (min {BF16_COS}); evaluate over {len(p_cpu)} rows: predictions "
+          f"{np.ravel(p_card).tolist()} vs {np.ravel(p_cpu).tolist()}, {pred_err:.2e} of max "
+          f"|ref| (tol {BF16_PRED_TOL:g}), metric {m_card} vs {m_cpu}; card launches "
+          f"{launches}", flush=True)
+    bf16_only = all(launches[k] == launches[f"{k}.bf16"] for k in ("K1", "K1b", "K2", "K3"))
+    if not (loss_err <= BF16_LOSS_TOL and cos >= BF16_COS and dt_card == {"torch.float32"}
+            and pred_err <= BF16_PRED_TOL and bf16_only and launches["K1"] > 0):
+        raise RuntimeError("the bf16 step or evaluate: card and CPU disagree")
+    return dict(loss_rel=loss_err, grad_cos=cos, pred_rel=pred_err, metric=(m_card, m_cpu))
 
 
 def bert_int8_full(dev, bert_cfg, B=8, L=32):
@@ -2187,17 +2487,12 @@ def trunk_block_phase(dev, R=4096, iters=5):
     return launches, stats
 
 
-def synthetic_split(seed, n, spec, bert_cfg, T=50, L=32, tile=None):
-    """A gather-style dataset over one synthetic batch's arrays (the text a
-    [3, N, L] token stack), as the MOSEI loader serves them.  It is an
+def split_of(batch):
+    """A gather-style dataset over one batch's arrays (the text a [3, N, L]
+    token stack), as the MOSEI loader serves them.  It is an
     ``ArrayDataset`` (whose own constructor wants one row per label in
     every input, which the token stack's axis 0 is not) so that
-    ``materialize`` takes its arrays as they are, without a copy.
-
-    With ``tile``, the audio and vision arrays repeat one draw of ``tile``
-    rows (drawing a large split's normals on the host takes seconds); the
-    token ids and labels are drawn for every row, so a gather of the wrong
-    row still shows."""
+    ``materialize`` takes its arrays as they are, without a copy."""
     from multimodal_transformer_robustness_tpu_torch.data import ArrayDataset
 
     class SyntheticSplit(ArrayDataset):
@@ -2211,6 +2506,15 @@ def synthetic_split(seed, n, spec, bert_cfg, T=50, L=32, tile=None):
             text, *rest = self.inputs
             return [text[:, idx]] + [x[idx] for x in rest], self.labels[idx]
 
+    return SyntheticSplit(batch)
+
+
+def synthetic_split(seed, n, spec, bert_cfg, T=50, L=32, tile=None):
+    """:func:`split_of` one synthetic batch of ``n`` rows.  With ``tile``,
+    the audio and vision arrays repeat one draw of ``tile`` rows (drawing a
+    large split's normals on the host takes seconds); the token ids and
+    labels are drawn for every row, so a gather of the wrong row still
+    shows."""
     rng = np.random.default_rng(seed)
     batch = synthetic_batch(rng, tile or n, T, L, bert_cfg.vocab_size, spec.orig_dimensions[1:])
     if tile:
@@ -2218,7 +2522,7 @@ def synthetic_split(seed, n, spec, bert_cfg, T=50, L=32, tile=None):
         reps = -(-n // tile)
         batch.inputs[0], batch.labels = full.inputs[0], full.labels
         batch.inputs[1:] = [np.tile(x, (reps, 1, 1))[:n] for x in batch.inputs[1:]]
-    return SyntheticSplit(batch)
+    return split_of(batch)
 
 
 def same_batches(host, device_iter, label):
@@ -2532,6 +2836,41 @@ def kernel_entries(rows, launches):
     return kernels
 
 
+def bf16_kernel_entries(rows, launches):
+    """The bf16 instances of K1f, K1b, K2 and K3: worst error over their
+    checked shapes (each held to BF16_TOL of max |ref|), their cosine
+    against the float32 kernel, and the times at the training path's
+    shape (K1b: in=768 without dx, the most frequent; the other two in
+    ``by_shape``); launches from the bf16 phases' counters."""
+    meta = {
+        "K1f.bf16": ("gru_dir", "K1.bf16", "csrc/bigru.cu", "ops/bigru_pallas.py:127",
+                     "in=768 H=100 T=50 B=4096 fwd"),
+        "K1b.bf16": ("gru_dir_bwd", "K1b.bf16", "csrc/bigru_bwd.cu", "ops/bigru_pallas.py:284",
+                     "in=768 H=100 T=50 B=4096 fwd need_dx=False"),
+        "K2.bf16": ("attention_block_fused", "K2.bf16", "csrc/bert_attn.cu",
+                    "ops/bert_attn_pallas.py:223", "B=4096 L=32 h=768"),
+        "K3.bf16": ("ffn_ln_block", "K3.bf16", "csrc/bert_ffn.cu",
+                    "ops/bert_ffn_pallas.py:150", "B=4096 L=32 h=768 ffn=3072"),
+    }
+    timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    kernels = []
+    for kid, (name, counter, source, replaces, shape) in meta.items():
+        mine = [r for r in rows if r["kid"] == kid]
+        at = next(r for r in mine if r["shape"] == shape)
+        kernels.append({"name": f"{name} (bf16)", "route": "cuda",
+                        "source": f"{PKG}/{source} + {PKG}/csrc/gemm_bf16.cuh",
+                        "replaces": f"multimodal_transformer_robustness_tpu/{replaces} "
+                                    "(at bf16 operands)",
+                        "launches": sum(l[counter] for l in launches.values()),
+                        "max_abs_err": max(r["abs"] for r in mine),
+                        "max_err_over_max_ref": max(r["rel"] for r in mine),
+                        "min_cos_vs_float32": min(r["cos_vs_float32"] for r in mine),
+                        **{k: at[k] for k in timed}, "shape": shape,
+                        "launches_by_path": {p: l[counter] for p, l in launches.items()},
+                        "by_shape": {r["shape"]: {k: r.get(k) for k in timed} for r in mine}})
+    return kernels
+
+
 def int8_projection_entries(rows, launches):
     """The int8 projections of a fully quantized BERT (qrows + qdot): the
     JAX package runs them as XLA ops (models/bert.py _qrows / _qdot), not as
@@ -2641,6 +2980,23 @@ def main() -> int:
     fit_launches, fit_stats = fit_phase(dev, spec, bert_cfg)
     torch.cuda.empty_cache()
 
+    spec16 = dataclasses.replace(spec, compute_dtype="bfloat16")
+    phase("train-bf16")
+    bf16_launches, bf16_stats = train(
+        dev, spec16, bert_cfg, "train-bf16", expect_bf16(K1=12, K1b=12, K2=4, K3=4),
+        store_dtype="bfloat16", warmup=2, steps=3)
+    torch.cuda.empty_cache()
+
+    phase("train-bf16-cached")
+    bf16_cached_launches, bf16_cached_stats = train(
+        dev, spec16, bert_cfg, "train-bf16-cached", expect_bf16(K1=12, K1b=12), cached=True,
+        store_dtype="bfloat16", warmup=2, steps=3)
+    torch.cuda.empty_cache()
+
+    phase("train-bf16-vs-cpu")
+    bf16_agree = train_bf16_card_vs_cpu(dev, spec16, bert_cfg)
+    torch.cuda.empty_cache()
+
     phase("sweep")
     sweep_launches, sweep_stats = sweep_phase(dev, spec, bert_cfg)
 
@@ -2650,8 +3006,9 @@ def main() -> int:
                 "train-cached": cached_launches, **flash_launches,
                 "serving-flash": serving_flash_launches, "flash-masked": masked_launches,
                 "gru-recurrence": rec_launches, "trunk-block": block_launches,
-                "fit": fit_launches, "sweep": sweep_launches}
-    kernels = kernel_entries(rows, launches)
+                "fit": fit_launches, "sweep": sweep_launches, "train-bf16": bf16_launches,
+                "train-bf16-cached": bf16_cached_launches}
+    kernels = kernel_entries(rows, launches) + bf16_kernel_entries(rows, launches)
     print(f"serving warm request ms, kernels {warm_ms}, plain {plain_ms}", flush=True)
     print(f"serving-int8 warm request ms, kernels {int8_warm}, plain {int8_plain}", flush=True)
     print(f"serving-dense warm request ms, kernels {dense_warm}, plain {dense_plain}",
@@ -2664,6 +3021,9 @@ def main() -> int:
     print("trunk-block " + json.dumps(block_stats), flush=True)
     print("fit " + json.dumps(fit_stats), flush=True)
     print("sweep " + json.dumps(sweep_stats), flush=True)
+    print("train-bf16 " + json.dumps(bf16_stats), flush=True)
+    print("train-bf16-cached " + json.dumps(bf16_cached_stats), flush=True)
+    print("train-bf16-vs-cpu " + json.dumps(bf16_agree), flush=True)
     print("int8 projections " + json.dumps(int8_projection_entries(rows, launches)),
           flush=True)
     print("device split " + json.dumps(splits), flush=True)

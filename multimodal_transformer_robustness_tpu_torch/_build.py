@@ -52,6 +52,10 @@ _SIGNATURES = {
     "mmtr_gru_dir_bwd": (_I, [_P] * 12 + [_I] * 6 + [_P, _P]),
     "mmtr_ffn_ln_fwd": (_I, [_P] * 11 + [_I] * 3 + [_F, _P, _P]),
     "mmtr_attn_block_fwd": (_I, [_P] * 13 + [_I] * 4 + [_F, _P, _P]),
+    "mmtr_gru_dir_fwd_bf16": (_I, [_P] * 8 + [_I] * 5 + [_P, _P]),
+    "mmtr_gru_dir_bwd_bf16": (_I, [_P] * 12 + [_I] * 6 + [_P, _P]),
+    "mmtr_ffn_ln_fwd_bf16": (_I, [_P] * 11 + [_I] * 3 + [_F, _P, _P]),
+    "mmtr_attn_block_fwd_bf16": (_I, [_P] * 13 + [_I] * 4 + [_F, _I, _P, _P]),
     "mmtr_attention_fwd": (_I, [_P] * 5 + [_I] * 4 + [_P, _P]),
     "mmtr_attention_masked_fwd": (_I, [_P] * 5 + [_I] * 5 + [_P, _P]),
     "mmtr_proj_ln_fwd": (_I, [_P] * 9 + [_I] * 2 + [_F, _P, _P]),
@@ -156,13 +160,29 @@ def host_ints(values) -> tuple:
     return arr, ctypes.addressof(arr)
 
 
+BF16_TODO = ("has no bf16 instance yet (only K1f, K1b, K2 and K3 have one): "
+             "ROADMAP Queue 2, 'bf16'")
+
+
+def refuse_bf16(what: str, *tensors) -> None:
+    """Raise NotImplementedError where a bf16 tensor reaches a kernel (or
+    its plain version) that has no bf16 instance: nothing casts quietly
+    to float32."""
+    if any(t is not None and t.dtype == torch.bfloat16 for t in tensors):
+        raise NotImplementedError(f"{what} {BF16_TODO}")
+
+
 def require(t: torch.Tensor, name: str, shape: tuple, device: torch.device,
             dtype: torch.dtype = torch.float32) -> None:
     """Raise on what the kernels do not take: they read contiguous tensors
-    of one dtype (float32 unless the caller names another, e.g. the int8
-    weights and codes of K4) on one card, of exactly the given shape."""
+    of one dtype (float32 unless the caller names another: the int8
+    weights and codes of K4, or bfloat16 for the bf16 instances of K1f,
+    K1b, K2 and K3) on one card, of exactly the given shape.  A bfloat16
+    tensor where the kernel takes float32 raises NotImplementedError."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype == torch.bfloat16 and dtype != torch.bfloat16:
+        raise NotImplementedError(f"{name}: the kernel {BF16_TODO}")
     if t.dtype != dtype:
         raise ValueError(f"{name} is {t.dtype}; the kernel takes {dtype}")
     if tuple(t.shape) != tuple(shape):

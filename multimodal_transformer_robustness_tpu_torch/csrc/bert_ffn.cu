@@ -43,6 +43,7 @@
 // LayerNorm, or at few rows split-K mma.sync tiles whose planes (in
 // `scratch`) the LayerNorm's launch adds.  Its sums are 768 deep and stay
 // unpromoted, as K2's (K6B_PROMOTE).
+#include "gemm_bf16.cuh"
 #include "gemm_tc.cuh"
 
 namespace {
@@ -89,4 +90,31 @@ extern "C" int mmtr_proj_ln_fwd(const float* resid, const float* a, const float*
   return (int)launch_proj_resid_ln<K6B_PROMOTE>(tc_plan(plan), a, h, w_t, b, resid, ln_g, ln_b,
                                                 resid_sum, out, rows, h, h, eps, scratch,
                                                 (cudaStream_t)stream_ptr);
+}
+
+// K3's bf16 instance (the JAX kernel at bf16 operands): x, weights, biases
+// and LN parameters bf16.  fc1 on the bf16 tensor cores (gemm_bf16.cuh),
+// + b1 rounded to bf16, then the exact-erf gelu in float32, rounded: the
+// bf16 hidden [R, F]; fc2, + b2 rounded, + x rounded (resid_sum [R, h],
+// bf16); the row LayerNorm with float32 moments, rounded to bf16.  plan: ten
+// host ints, fc1's and fc2's BfPlans (ops/gemm_tc.plan_bf16); partial: the
+// larger of the two products' needs (a weight's transpose on the wgmma
+// path, or split planes).
+extern "C" int mmtr_ffn_ln_fwd_bf16(const bf16* x, const bf16* w1t, const bf16* b1,
+                                    const bf16* w2t, const bf16* b2, const bf16* ln_g,
+                                    const bf16* ln_b, bf16* hidden, bf16* resid_sum, bf16* out,
+                                    float* partial, int rows, int h, int ffn, float eps,
+                                    const int* plan, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  cudaError_t err = launch_gemm_bf16<true, EPI_BIAS_GELU>(
+      bf_plan(plan), bf_gemm(x, h, w1t, ffn, ffn, rows, ffn, h), b1, nullptr, hidden, ffn,
+      partial, stream);
+  if (err != cudaSuccess) return (int)err;
+  err = launch_gemm_bf16<true, EPI_BIAS_RESIDUAL>(
+      bf_plan(plan + 5), bf_gemm(hidden, ffn, w2t, h, h, rows, h, ffn), b2, x, resid_sum, h,
+      partial, stream);
+  if (err != cudaSuccess) return (int)err;
+  layernorm_rows_kernel<bf16><<<rows, LN_THREADS, 0, stream>>>(resid_sum, ln_g, ln_b, out, h,
+                                                               eps);
+  return (int)cudaGetLastError();
 }

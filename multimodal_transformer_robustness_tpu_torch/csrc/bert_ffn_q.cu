@@ -632,7 +632,7 @@ extern "C" int mmtr_ffn_ln_q_fwd(const float* x, const int8_t* w1q, const float*
   err = launch_qgemm<QEPI_BIAS_RESIDUAL>(plan + 3, hq, w2q, rows, h, ffn, sh, w2s, b2, x,
                                          resid_sum, nullptr, stream);
   if (err != cudaSuccess) return (int)err;
-  layernorm_rows_kernel<<<rows, LN_THREADS, 0, stream>>>(resid_sum, ln_g, ln_b,
-                                                         out, h, eps);
+  layernorm_rows_kernel<float><<<rows, LN_THREADS, 0, stream>>>(resid_sum, ln_g, ln_b,
+                                                                out, h, eps);
   return (int)cudaGetLastError();
 }

@@ -29,6 +29,7 @@
 //     runs in one wave (32 rows: 128 blocks on 132 SMs);
 //   * small (B <= 132, the serving batch of 1; H <= 104): a block a batch
 //     row, W_hh^T in registers.
+#include "gemm_bf16.cuh"
 #include "gemm_tc.cuh"
 #include "gru_rec.cuh"
 
@@ -51,4 +52,28 @@ extern "C" int mmtr_gru_dir_fwd(const float* x, const float* wp, const float* wt
                  {wt, wt + (long long)H * H, wt + 2LL * H * H},
                  {nullptr, nullptr}, bhn, out, 0, T, B, H, plan[10], reverse};
   return (int)launch_gru_rec<false>(p, 1, plan + 4, stream);
+}
+
+// The bf16 instance (the JAX kernel at bf16 operands): x, wp, wt, bc, bhn
+// bf16 -> h bf16.  The projection on the bf16 tensor cores (gemm_bf16.cuh),
+// + bc in float32, into the float32 gate scratch K1b reads back; the
+// recurrence carries h in float32 and rounds it to bf16 for h W_hh^T and
+// for the output, as the JAX kernel casts h to the weights' dtype.  plan:
+// the projection's five BfPlan ints (ops/gemm_tc.plan_bf16; partial: W_ih's
+// transpose on the wgmma path, or its split planes), then the recurrence's
+// seven, as the float entry's.
+extern "C" int mmtr_gru_dir_fwd_bf16(const bf16* x, const bf16* wp, const bf16* wt,
+                                     const bf16* bc, const bf16* bhn, float* gates, bf16* out,
+                                     float* partial, int T, int B, int in_dim, int H,
+                                     int reverse, const int* plan, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const long long plane = (long long)T * B * H;
+  const BfGemm g = bf_gemm(x, in_dim, wp, H, H, T * B, 3 * H, in_dim);
+  cudaError_t err = launch_gemm_bf16<true, EPI_BIAS>(bf_plan(plan), g, bc, nullptr, gates, H,
+                                                     partial, stream);
+  if (err != cudaSuccess) return (int)err;
+  const GruRecT<bf16> p{{gates, gates + plane, gates + 2 * plane},
+                        {wt, wt + (long long)H * H, wt + 2LL * H * H},
+                        {nullptr, nullptr}, bhn, out, 0, T, B, H, plan[11], reverse};
+  return (int)launch_gru_rec<false>(p, 1, plan + 5, stream);
 }

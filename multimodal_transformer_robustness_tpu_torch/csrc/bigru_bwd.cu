@@ -40,6 +40,7 @@
 // [H, 3H]-sized products a step (the recompute of h_prev W^T and the dh
 // carry), sequential in T: its steps' latency, not the card's rate, is
 // what it pays.
+#include "gemm_bf16.cuh"
 #include "gemm_tc.cuh"
 #include "gru_rec.cuh"
 
@@ -85,9 +86,60 @@ extern "C" int mmtr_gru_dir_bwd(const float* x, const float* hs, const float* ga
                 : launch_gemm_tc_tn<false>(hs, H, shift, H, H, dg, H4, part_wt, H4, rows,
                                            plan[8], plan[9], n_wt, stream);
   if (err != cudaSuccess) return (int)err;
-  splitk_reduce_kernel<<<(unsigned)((n_wp + RED_THREADS - 1) / RED_THREADS), RED_THREADS, 0,
-                         stream>>>(partial, red, n_wp, plan[6]);
-  splitk_reduce_kernel<<<(unsigned)((n_wt + RED_THREADS - 1) / RED_THREADS), RED_THREADS, 0,
-                         stream>>>(part_wt, red + n_wp, n_wt, plan[8]);
+  splitk_reduce_kernel<float><<<(unsigned)((n_wp + RED_THREADS - 1) / RED_THREADS),
+                                RED_THREADS, 0, stream>>>(partial, red, n_wp, plan[6]);
+  splitk_reduce_kernel<float><<<(unsigned)((n_wt + RED_THREADS - 1) / RED_THREADS),
+                                RED_THREADS, 0, stream>>>(part_wt, red + n_wp, n_wt, plan[8]);
   return (int)cudaGetLastError();
+}
+
+// The bf16 instance (the JAX kernel's VJP at bf16 operands): x, hs, dhs,
+// wt, bhn and wpT bf16, the forward's gates float32.  The recurrence as the
+// float entry's, with da_r, da_z and dghn rounded to bf16 for the carry and
+// dg [T*B, 4H] written in bf16 (gru_rec.cuh, WT = bf16); then the products
+// on the bf16 tensor cores (gemm_bf16.cuh): dx = dg[:, :3H] wpT, rounded to
+// bf16; dwp = x^T dg[:, :3H] and [h_prev | 1]^T dg over T*B rows, split
+// into float32 planes added in a fixed order, rounded to bf16 (the JAX VJP
+// rounds dW and db to the weights' dtype), into red ([in][3H] then
+// [H+1][4H], bf16).  plan: twenty host ints: the recurrence's five, then
+// the BfPlans (ops/gemm_tc.plan_bf16) of dwp, dwt and dx.  partial: dwp's
+// planes then dwt's (a product that does not split has none); dx_partial:
+// dx's split planes (when it splits).
+extern "C" int mmtr_gru_dir_bwd_bf16(const bf16* x, const bf16* hs, const float* gates,
+                                     const bf16* dhs, const bf16* wt, const bf16* bhn,
+                                     const bf16* wpT, bf16* dg, float* partial, bf16* red,
+                                     bf16* dx, float* dx_partial, int T, int B, int in_dim,
+                                     int H, int reverse, int need_dx, const int* plan,
+                                     void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const int rows = T * B, H3 = 3 * H, H4 = 4 * H;
+  const long long plane = (long long)rows * H;
+  const GruRecBwdT<bf16> p{{gates, gates + plane, gates + 2 * plane},
+                           {wt, wt + (long long)H * H, wt + 2LL * H * H},
+                           {nullptr, nullptr}, bhn, hs, dhs, dg, 0, T, B, H, plan[3], plan[4],
+                           reverse};
+  cudaError_t err = launch_gru_rec_bwd_tiled<false>(p, 1, plan, stream);
+  if (err != cudaSuccess) return (int)err;
+
+  if (need_dx) {
+    const BfGemm g = bf_gemm(dg, H4, wpT, in_dim, in_dim, rows, in_dim, H3);
+    err = launch_gemm_bf16<true, EPI_NONE>(bf_plan(plan + 15), g, nullptr, nullptr, dx, in_dim,
+                                           dx_partial, stream);
+    if (err != cudaSuccess) return (int)err;
+  }
+
+  const BfPlan pwp = bf_plan(plan + 5), pwt = bf_plan(plan + 10);
+  const long long n_wp = (long long)in_dim * H3;
+  float* part_wt = partial + (pwp.splits > 1 ? pwp.splits * n_wp : 0);
+  // dwp: At(k, m) = x[k][m], B = dg's first 3H columns
+  BfGemm gwp = bf_gemm(x, in_dim, dg, H4, H3, in_dim, H3, rows);
+  err = launch_gemm_bf16<false, EPI_NONE>(pwp, gwp, nullptr, nullptr, red, H3, partial, stream);
+  if (err != cudaSuccess) return (int)err;
+  // dwt and the bias sums: At(k, m) = h[k + shift][m] (h_prev), row H ones
+  BfGemm gwt = bf_gemm(hs, H, dg, H4, H4, H + 1, H4, rows);
+  gwt.shift = reverse ? B : -B;
+  gwt.mdata = H;
+  gwt.ones_row = H;
+  return (int)launch_gemm_bf16<false, EPI_NONE>(pwt, gwt, nullptr, nullptr, red + n_wp, H4,
+                                                part_wt, stream);
 }

@@ -12,11 +12,34 @@
 // this header gets its own copy and the shared library links cleanly.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
 namespace {
+
+// bf16 storage, float32 arithmetic (the bf16 instances of K1, K1b, K2 and
+// K3): conversions only through the intrinsics, round to nearest even.
+using bf16 = __nv_bfloat16;
+
+__device__ __forceinline__ float bf2f(bf16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ bf16 f2bf(float v) { return __float2bfloat16_rn(v); }
+// v rounded to its nearest bf16 value, kept in float32
+__device__ __forceinline__ float rbf(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+// An element of a float or bf16 array as float32, and one stored back
+// (rounded to bf16 where the array is bf16): a kernel templated on its
+// storage type reads and writes through these, so its float instance
+// compiles to plain loads and stores.
+__device__ __forceinline__ float ld_f(const float* p) { return *p; }
+__device__ __forceinline__ float ld_f(const bf16* p) { return bf2f(*p); }
+__device__ __forceinline__ void st_f(float* p, float v) { *p = v; }
+__device__ __forceinline__ void st_f(bf16* p, float v) { *p = f2bf(v); }
+// v as a value of type T holds it: itself for float, rbf(v) for bf16
+template <typename T>
+__device__ __forceinline__ float as_t(float v) { return v; }
+template <>
+__device__ __forceinline__ float as_t<bf16>(float v) { return rbf(v); }
 
 __device__ __forceinline__ float sigmoid_f(float v) {
   return 1.0f / (1.0f + expf(-v));
@@ -80,10 +103,14 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+// A product's epilogue.  The bf16 products (gemm_bf16.cuh) read a bf16
+// bias and resid and round where the JAX kernels round at bf16: r(v), v
+// rounded to bf16, and C rounded as it is stored where it is bf16; the
+// float32 products do not round (r(v) = v).
 enum GemmEpilogue {
   EPI_BIAS = 0,           // C = A@B + bias
-  EPI_BIAS_GELU = 1,      // C = gelu_erf(A@B + bias)
-  EPI_BIAS_RESIDUAL = 2,  // C = resid + (A@B + bias)
+  EPI_BIAS_GELU = 1,      // C = gelu_erf(r(A@B + bias))
+  EPI_BIAS_RESIDUAL = 2,  // C = r(resid + r(A@B + bias))
   EPI_NONE = 3,           // C = A@B (bias is not read)
   // K9's (trunk_block.cu), with EpiArgs; d(r, c): the dropout factor
   // keep or 0 drawn at (global row r, c / rep), 1 without dropout
@@ -110,15 +137,17 @@ __device__ __forceinline__ float gelu_erf(float v) {
 constexpr int RED_THREADS = 256;
 
 // The second pass: out[i] = sum over z = 0 .. splits-1 of P[z*n + i], in
-// that order, so a rerun on the same inputs gives the same bits.
+// that order, so a rerun on the same inputs gives the same bits (O = bf16:
+// the sum rounded as it is stored).
+template <typename O>
 __global__ void __launch_bounds__(RED_THREADS)
-splitk_reduce_kernel(const float* __restrict__ P, float* __restrict__ out,
+splitk_reduce_kernel(const float* __restrict__ P, O* __restrict__ out,
                      long long n, int splits) {
   const long long i = (long long)blockIdx.x * RED_THREADS + threadIdx.x;
   if (i >= n) return;
   float s = 0.f;
   for (int z = 0; z < splits; ++z) s += P[z * n + i];
-  out[i] = s;
+  st_f(out + i, s);
 }
 
 constexpr int LN_THREADS = 256;
@@ -141,27 +170,30 @@ __device__ float block_sum(float v, float* red) {
 }
 
 // out[row] = ((s - mean) / sqrt(var + eps)) * g + b over rows of length n,
-// one block per row, centered two-pass moments in float32.
+// one block per row, centered two-pass moments in float32; T = bf16: s, g,
+// b and out bf16, the arithmetic float32, out rounded as it is stored (the
+// JAX kernels' _ln_epilogue then astype).
+template <typename T>
 __global__ void __launch_bounds__(LN_THREADS)
-layernorm_rows_kernel(const float* __restrict__ S, const float* __restrict__ g,
-                      const float* __restrict__ b, float* __restrict__ out,
+layernorm_rows_kernel(const T* __restrict__ S, const T* __restrict__ g,
+                      const T* __restrict__ b, T* __restrict__ out,
                       int n, float eps) {
   __shared__ float red[33];
   const long long row = blockIdx.x;
-  const float* s = S + row * n;
-  float* o = out + row * n;
+  const T* s = S + row * n;
+  T* o = out + row * n;
   float sum = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) sum += s[i];
+  for (int i = threadIdx.x; i < n; i += blockDim.x) sum += ld_f(s + i);
   const float mu = block_sum(sum, red) / (float)n;
   float sq = 0.f;
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    const float d = s[i] - mu;
+    const float d = ld_f(s + i) - mu;
     sq = fmaf(d, d, sq);
   }
   const float var = block_sum(sq, red) / (float)n;
   const float inv = 1.0f / sqrtf(var + eps);
   for (int i = threadIdx.x; i < n; i += blockDim.x)
-    o[i] = ((s[i] - mu) * inv) * g[i] + b[i];
+    st_f(o + i, ((ld_f(s + i) - mu) * inv) * ld_f(g + i) + ld_f(b + i));
 }
 
 }  // namespace

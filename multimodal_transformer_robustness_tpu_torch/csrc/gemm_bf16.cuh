@@ -1,0 +1,496 @@
+// bf16 operands on Hopper's bf16 tensor cores, float32 sums:
+// C = epilogue(A @ B), the products of the bf16 instances of K1f (the input
+// projection), K1b (dx and the weight reductions), K2 (q/k/v and the
+// o-projection) and K3 (fc1, fc2), beside gemm_tc.cuh's 3xTF32 products of
+// their float32 instances.
+//
+// A bf16 product is one MMA (mma.sync m16n8k16, float32 accumulators), not
+// three: the operands need no hi / lo split, and the products of bf16
+// values are exact in float32, so the result is what the JAX kernels get
+// from a bf16 dot with preferred_element_type=float32 (up to the order of
+// the float32 sums).  The rounding points are the JAX kernels': the
+// epilogue, gemm_tc.cuh's tc_epilogue at T = bf16, adds the bias in float32,
+// then rounds to bf16 where they round (common.cuh's GemmEpilogue), and the
+// output rounds as it is stored where it is bf16.  Split planes are added
+// by gemm_tc.cuh's gemm_splitk_sum, at T = bf16.  The tensor cores'
+// truncating accumulation is not promoted here: the bf16 comparisons allow
+// 2e-2 of max |ref| and the truncation drifts ~1e-4 (PERF.md records the
+// measured errors).
+//
+// Operands: A bf16, either [M, K] row-major with row stride lda (AK true:
+// "K-major"), or stored transposed (AK false: At(k, m) = A[(k + shift) *
+// lda + m] for m < mdata, zero where k + shift falls outside [0, K), 1 at m
+// == ones_row, 0 beyond: K1b's x^T dg and [h_prev | 1]^T dg over T*B rows,
+// as gemm_tc_tn_kernel reads them); B bf16 "gated" [G, K, ldb] with N = G *
+// hgb columns, column n read at B[n / hgb][k][n % hgb] (G = 1, hgb = N: a
+// plain [K, N] with row stride ldb).  Both arrive in shared memory by
+// cp.async in copies of acw / bcw elements (8, 4 or 2; 1: through a
+// register), the plan's widest that the strides and the alignment allow
+// (ops/gemm_tc.plan_bf16); a copy past an edge reads only its valid
+// elements and zero-fills the rest, so padded k steps multiply zeros.
+//
+// Two kernels, picked by the plan: where the rows fill the card (two
+// 128 x 128 tiles an SM and more) and A is 16-byte aligned with K a
+// multiple of 8, warpgroup MMA (gemm_wgmma_bf16_kernel, below); else one
+// mma.sync tile kernel: 128 x 128 outputs, eight warps of 64 x 32, 32-deep
+// k steps in a 4-stage ring; A staged [m][k] (AK) or [k][m], B [k][n], rows
+// padded by 16 bytes so the ldmatrix fragment loads are conflict-free
+// (ldmatrix.trans turns the k-outer layouts into the MMA's fragments).
+// Where the tiles do not fill the card (few rows, or the reductions'
+// small M x N over a long K) the plan splits K over blockIdx.z into float32
+// planes that gemm_splitk_sum adds in a fixed order (no float atomics: a
+// rerun gives the same bits) before it applies the epilogue.  The k loops,
+// tiles, fragment loads and MMAs are this file's: bf16 operands need no hi
+// / lo split and take k steps of 16, and routing gemm_tc.cuh's float loops
+// through a ring shared with these changed the float kernels' machine code
+// (tools/float_sass_check.py), so the loops stay apart.  TMA and a
+// persistent producer warp are later work.
+#pragma once
+
+#include "common.cuh"
+#include "gemm_tc.cuh"   // the wgmma descriptor, swizzle and fence helpers
+
+namespace {
+
+constexpr int BF_BM = 128, BF_BN = 128, BF_BK = 32, BF_STAGES = 4;
+constexpr int BF_WARPS_M = 2, BF_WARPS_N = 4, BF_THREADS = 32 * BF_WARPS_M * BF_WARPS_N;
+constexpr int BF_WM = BF_BM / BF_WARPS_M, BF_WN = BF_BN / BF_WARPS_N;   // 64 x 32
+constexpr int BF_MT = BF_WM / 16, BF_NT = BF_WN / 8;                     // 4 x 4 MMA tiles
+constexpr int BF_LDK = BF_BK + 8;    // A staged [m][k]: 80-byte rows
+constexpr int BF_LDM = BF_BM + 8;    // A staged [k][m]: 272-byte rows
+constexpr int BF_LDN = BF_BN + 8;    // B staged [k][n]: 272-byte rows
+constexpr int BF_A_ELEMS =
+    BF_BM * BF_LDK > BF_BK * BF_LDM ? BF_BM * BF_LDK : BF_BK * BF_LDM;
+constexpr int BF_B_ELEMS = BF_BK * BF_LDN;
+constexpr int BF_SMEM = 2 * BF_STAGES * (BF_A_ELEMS + BF_B_ELEMS);        // 75,776 bytes
+
+struct BfGemm {
+  const bf16* A;
+  const bf16* B;
+  int M, N, K;
+  int lda, shift, mdata, ones_row;   // A's layout (shift, mdata, ones_row: AK false)
+  int ldb, hgb;                      // B's row stride and gate width
+  int acw, bcw, kps;                 // copy widths; k tiles a split
+};
+
+// Output (r, c) of an [M, N] product: epilogue v of the sum acc, stored
+// at C[c / hg][r][c % hg], rounded where O is bf16.  hg = N, a plain [M,
+// N], skips the integer division, which would run once an output (4e8 of
+// them in K3's bf16 fc1); the branch is uniform.
+template <int EPI, typename O>
+__device__ __forceinline__ void bf_store(O* C, const bf16* bias, const bf16* resid, int M,
+                                         int N, int hg, int r, int c, float acc) {
+  long long at = (long long)r * N + c;
+  if (hg != N) {
+    const int g = c / hg;
+    at = ((long long)g * M + r) * hg + (c - g * hg);
+  }
+  st_f(C + at, tc_epilogue<EPI, bf16>(acc, bias, resid, r, c, N, EpiArgs{}));
+}
+
+// Copy cw elements (8, 4 or 2 by cp.async; 1 through a register), the
+// first n of them (0 <= n <= cw) from src, zeros for the rest; src must be
+// a mapped address even where n is 0.
+__device__ __forceinline__ void bf_copy(bf16* dst, const bf16* src, int cw, int n) {
+  const unsigned d = smem_addr(dst);
+  const int bytes = 2 * n;
+  if (cw == 8) {
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src),
+                 "r"(bytes));
+  } else if (cw == 4) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src),
+                 "r"(bytes));
+  } else if (cw == 2) {
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src),
+                 "r"(bytes));
+  } else {
+    *dst = n > 0 ? *src : f2bf(0.f);
+  }
+}
+
+// Stage the A and B tiles of k step k0 into one ring slot.
+template <bool AK>
+__device__ __forceinline__ void bf_load(bf16* As, bf16* Bs, const BfGemm& p, int row0,
+                                        int col0, int k0) {
+  const int tid = threadIdx.x;
+  if constexpr (AK) {
+    const int cw = p.acw, per = BF_BK / cw;
+    for (int i = tid; i < BF_BM * per; i += BF_THREADS) {
+      const int r = i / per, c = (i - r * per) * cw;
+      const int m = row0 + r, k = k0 + c;
+      const int n = m < p.M ? max(0, min(cw, p.K - k)) : 0;
+      bf_copy(As + r * BF_LDK + c, n ? p.A + (long long)m * p.lda + k : p.A, cw, n);
+    }
+  } else {
+    // a copy never straddles mdata where a ones row follows it (the plan's
+    // acw divides mdata then)
+    const int cw = p.acw, per = BF_BM / cw;
+    for (int i = tid; i < BF_BK * per; i += BF_THREADS) {
+      const int kr = i / per, c = (i - kr * per) * cw;
+      const int k = k0 + kr, ak = k + p.shift, m = row0 + c;
+      bf16* dst = As + kr * BF_LDM + c;
+      if (m < p.mdata) {
+        const bool ok = k < p.K && ak >= 0 && ak < p.K;
+        const int n = ok ? min(cw, p.mdata - m) : 0;
+        bf_copy(dst, n ? p.A + (long long)ak * p.lda + m : p.A, cw, n);
+      } else {
+        for (int q = 0; q < cw; ++q) dst[q] = f2bf(m + q == p.ones_row && k < p.K ? 1.f : 0.f);
+      }
+    }
+  }
+  const int cw = p.bcw, per = BF_BN / cw;
+  const long long gate = (long long)p.K * p.ldb;
+  for (int i = tid; i < BF_BK * per; i += BF_THREADS) {
+    const int kr = i / per, c = (i - kr * per) * cw;
+    const int k = k0 + kr, col = col0 + c;
+    const int g = col / p.hgb, j = col - g * p.hgb;
+    const int n = k < p.K && col < p.N ? min(cw, p.N - col) : 0;
+    bf_copy(Bs + kr * BF_LDN + c, n ? p.B + g * gate + (long long)k * p.ldb + j : p.B, cw, n);
+  }
+}
+
+__device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldsm_x4_t(uint32_t (&r)[4], const bf16* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+// Not volatile: the compiler may interleave independent MMAs.
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0,%1,%2,%3}, "
+      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Block (column tile, row tile, split): the k tiles [z * kps, (z + 1) *
+// kps) of its 128 x 128 outputs.  One split: the epilogue into C; more:
+// plane z of `partial`, in C's gated layout.
+template <bool AK, int EPI, typename O>
+__global__ void __launch_bounds__(BF_THREADS)
+gemm_bf16_kernel(const BfGemm p, const bf16* __restrict__ bias, const bf16* __restrict__ resid,
+                 O* __restrict__ C, int hg, float* __restrict__ partial) {
+  extern __shared__ float4 bf_smem4[];
+  bf16* As = reinterpret_cast<bf16*>(bf_smem4);     // [STAGES][A_ELEMS]
+  bf16* Bs = As + BF_STAGES * BF_A_ELEMS;           // [STAGES][BK][LDN]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int wm0 = (warp / BF_WARPS_N) * BF_WM, wn0 = (warp % BF_WARPS_N) * BF_WN;
+  const int row0 = blockIdx.y * BF_BM, col0 = blockIdx.x * BF_BN;
+  const int kt0 = blockIdx.z * p.kps;
+  const int ktiles = min(p.kps, (p.K + BF_BK - 1) / BF_BK - kt0);
+
+  float acc[BF_MT][BF_NT][4];
+#pragma unroll
+  for (int i = 0; i < BF_MT; ++i)
+#pragma unroll
+    for (int j = 0; j < BF_NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+#pragma unroll
+  for (int s = 0; s < BF_STAGES - 1; ++s) {
+    if (s < ktiles)
+      bf_load<AK>(As + s * BF_A_ELEMS, Bs + s * BF_B_ELEMS, p, row0, col0, (kt0 + s) * BF_BK);
+    cp_async_commit();
+  }
+
+  for (int kt = 0; kt < ktiles; ++kt) {
+    cp_async_wait<BF_STAGES - 2>();
+    __syncthreads();   // tile kt landed for all; slot (kt - 1) % STAGES is free
+    const int nk = kt + BF_STAGES - 1;
+    if (nk < ktiles) {
+      const int s = nk % BF_STAGES;
+      bf_load<AK>(As + s * BF_A_ELEMS, Bs + s * BF_B_ELEMS, p, row0, col0, (kt0 + nk) * BF_BK);
+    }
+    cp_async_commit();
+
+    const bf16* as = As + (kt % BF_STAGES) * BF_A_ELEMS;
+    const bf16* bs = Bs + (kt % BF_STAGES) * BF_B_ELEMS;
+#pragma unroll
+    for (int kk = 0; kk < BF_BK; kk += 16) {
+      // A's four 8 x 8 matrices (m 0-7 | 8-15) x (k 0-7 | 8-15), B's
+      // (k 0-7 | 8-15) x (n 0-7 | 8-15): lane l addresses row l % 8 of
+      // matrix l / 8
+      uint32_t a[BF_MT][4], b[BF_NT][2];
+#pragma unroll
+      for (int i = 0; i < BF_MT; ++i) {
+        if constexpr (AK)
+          ldsm_x4(a[i], as + (wm0 + i * 16 + (lane & 15)) * BF_LDK + kk + (lane >> 4) * 8);
+        else
+          ldsm_x4_t(a[i], as + (kk + (lane >> 4) * 8 + (lane & 7)) * BF_LDM + wm0 + i * 16 +
+                              ((lane >> 3) & 1) * 8);
+      }
+#pragma unroll
+      for (int jp = 0; jp < BF_NT / 2; ++jp) {
+        uint32_t r[4];
+        ldsm_x4_t(r, bs + (kk + ((lane >> 3) & 1) * 8 + (lane & 7)) * BF_LDN + wn0 + jp * 16 +
+                         (lane >> 4) * 8);
+        b[2 * jp][0] = r[0];
+        b[2 * jp][1] = r[1];
+        b[2 * jp + 1][0] = r[2];
+        b[2 * jp + 1][1] = r[3];
+      }
+#pragma unroll
+      for (int i = 0; i < BF_MT; ++i)
+#pragma unroll
+        for (int j = 0; j < BF_NT; ++j) mma_bf16(acc[i][j], a[i], b[j][0], b[j][1]);
+    }
+  }
+  cp_async_wait<0>();
+
+  const bool split = gridDim.z > 1;
+  float* plane = partial + (long long)blockIdx.z * p.M * p.N;
+#pragma unroll
+  for (int i = 0; i < BF_MT; ++i)
+#pragma unroll
+    for (int j = 0; j < BF_NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int r = row0 + wm0 + i * 16 + g8 + (e >= 2 ? 8 : 0);
+        const int c = col0 + wn0 + j * 8 + 2 * t4 + (e & 1);
+        if (r >= p.M || c >= p.N) continue;
+        if (split)
+          bf_store<EPI_NONE>(plane, nullptr, nullptr, p.M, p.N, hg, r, c, acc[i][j][e]);
+        else
+          bf_store<EPI>(C, bias, resid, p.M, p.N, hg, r, c, acc[i][j][e]);
+      }
+}
+
+// ---------------------------------------------------------------------------
+// Many rows: warpgroup MMA, m64n128k16 bf16 with float32 accumulators.  The
+// TF32 wgmma kernel's walk (gemm_tc.cuh: two warpgroups a 128 x 128 tile,
+// a 4-stage cp.async ring loaded two tiles ahead, A from shared memory into
+// registers in the mma.sync fragment layout, B by descriptor, one batch in
+// flight), at one MMA a k step of 16 instead of three of 8: a 64-element
+// bf16 k tile is 128 bytes a row, the TF32 tile's 32 floats, so the
+// 128-byte-swizzled stages, the descriptors and the fragment words are the
+// TF32 kernel's.  B is read K-major (B^T [N][K], transposed once a call
+// into the plan's scratch by bf_transpose_b, as gemm_tc_presplit splits the
+// TF32 planes).  A thread holds 64 accumulators and 32 A registers.
+constexpr int BW_BN = 128, BW_BK = 64;
+constexpr int BW_PLANE = WG_BM * BW_BK;                           // bf16 of one stage's A or B
+constexpr int BW_SMEM = 2 * WG_STAGES * 2 * BW_PLANE + 1024;       // 132,096 bytes
+static_assert(BW_BN == WG_BM && BW_SMEM <= MAX_SMEM_BYTES, "bf16 wgmma tile");
+
+__device__ __forceinline__ void wgmma_bf16_n128(float (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t desc_b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63 "
+      "}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(1));
+}
+
+// B (gated, as BfGemm reads it) -> B^T [N][K], K-major.
+__global__ void bf_transpose_b(const bf16* __restrict__ B, bf16* __restrict__ Bt, int N,
+                               int K, int ldb, int hgb) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= (long long)N * K) return;
+  const int n = (int)(i / K), k = (int)(i - (long long)n * K);
+  const int g = n / hgb, j = n - g * hgb;
+  Bt[i] = B[(long long)g * K * ldb + (long long)k * ldb + j];
+}
+
+// One stage: A's [128 r][64 k] and B^T's [128 n][64 k] tiles in 16-byte
+// copies (8 elements; K a multiple of 8), 128-byte-swizzled as the TF32
+// kernel's 32-word rows (sw128 counts 32-bit words: two bf16 each); rows
+// past M or N and k past K read as zero.
+__device__ __forceinline__ void bw_load(bf16* as, bf16* bs, const bf16* A, const bf16* Bt,
+                                        int M, int N, int K, int lda, int row0, int col0,
+                                        int k0) {
+  for (int i = threadIdx.x; i < 2 * WG_BM * 8; i += WG_THREADS) {
+    const int b = i / (WG_BM * 8), rest = i - b * (WG_BM * 8);
+    const int r = rest / 8, c = rest % 8;
+    const bool ok = (b ? col0 + r < N : row0 + r < M) && k0 + c * 8 < K;
+    const bf16* src = b ? Bt + (long long)(col0 + r) * K : A + (long long)(row0 + r) * lda;
+    cp_async16((b ? bs : as) + 2 * sw128(r, c * 4), ok ? src + k0 + c * 8 : (b ? Bt : A), ok);
+  }
+}
+
+// gemm_tc.cuh's wgmma_k_tile at bf16: wait for k tile kt, start loading
+// tile kt + 2, load tile kt's A fragments, issue its batch of four MMAs and
+// leave one batch in flight.
+__device__ __forceinline__ void bw_k_tile(float (&acc)[64], uint32_t (&a)[4][4], bf16* As,
+                                          bf16* Bs, const bf16* A, const bf16* Bt, int M,
+                                          int N, int K, int lda, int row0, int col0, int kt,
+                                          int ktiles, int wrow) {
+  cp_async_wait<1>();
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+  if (kt + 2 < ktiles) {
+    const int s = (kt + 2) % WG_STAGES;
+    bw_load(As + s * BW_PLANE, Bs + s * BW_PLANE, A, Bt, M, N, K, lda, row0, col0,
+            (kt + 2) * BW_BK);
+  }
+  cp_async_commit();
+  const int s = kt % WG_STAGES, lane = threadIdx.x % 32;
+  const int r = wrow + lane / 4, t4 = lane % 4;
+  const uint32_t* as = reinterpret_cast<const uint32_t*>(As + s * BW_PLANE);
+  const bf16* bs = Bs + s * BW_PLANE;
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {   // (row, k pair): k 16q + 2 t4 (+ 8), rows r, r + 8
+    a[q][0] = as[sw128(r, q * 8 + t4)];
+    a[q][1] = as[sw128(r + 8, q * 8 + t4)];
+    a[q][2] = as[sw128(r, q * 8 + t4 + 4)];
+    a[q][3] = as[sw128(r + 8, q * 8 + t4 + 4)];
+  }
+  wgmma_fence_acc(acc);
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+#pragma unroll
+  for (int q = 0; q < 4; ++q)   // k step q: 32 bytes into each 128-byte row
+    wgmma_bf16_n128(acc, a[q], wgmma_desc_sw128(bs + q * 16));
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+  wgmma_fence_acc(acc);
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+  wgmma_fence_acc(acc);
+}
+
+template <int EPI, typename O>
+__global__ void __launch_bounds__(WG_THREADS)
+gemm_wgmma_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bt, int M, int N,
+                       int K, int lda, const bf16* __restrict__ bias,
+                       const bf16* __restrict__ resid, O* __restrict__ C, int hg) {
+  extern __shared__ float4 bw_smem4[];
+  bf16* Bs = reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(bw_smem4) + 1023) &
+                                     ~uintptr_t(1023));        // [S][128][64]
+  bf16* As = Bs + WG_STAGES * BW_PLANE;                        // [S][128][64]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int g8 = lane / 4, t4 = lane % 4;
+  const int wrow = (warp / 4) * 64 + (warp % 4) * 16;   // warpgroup's 64 rows, warp's 16
+  const int row0 = blockIdx.y * WG_BM, col0 = blockIdx.x * BW_BN;
+  // an even number of k tiles (an odd last one reads zeros): no loop tail
+  const int ktiles = ((K + BW_BK - 1) / BW_BK + 1) & ~1;
+
+  float acc[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+  wgmma_fence_acc(acc);
+  uint32_t a0[4][4], a1[4][4];
+#pragma unroll
+  for (int s = 0; s < 2; ++s) {
+    bw_load(As + s * BW_PLANE, Bs + s * BW_PLANE, A, Bt, M, N, K, lda, row0, col0, s * BW_BK);
+    cp_async_commit();
+  }
+  for (int kt = 0; kt < ktiles; kt += 2) {
+    bw_k_tile(acc, a0, As, Bs, A, Bt, M, N, K, lda, row0, col0, kt, ktiles, wrow);
+    bw_k_tile(acc, a1, As, Bs, A, Bt, M, N, K, lda, row0, col0, kt + 1, ktiles, wrow);
+  }
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  wgmma_fence_acc(acc);
+  cp_async_wait<0>();
+
+  // acc[4i + e]: row g8 (+8 for e >= 2), column 8i + 2 t4 + (e & 1)
+#pragma unroll
+  for (int i = 0; i < BW_BN / 8; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int r = row0 + wrow + g8 + (e >= 2 ? 8 : 0);
+      const int c = col0 + i * 8 + 2 * t4 + (e & 1);
+      if (r < M && c < N) bf_store<EPI>(C, bias, resid, M, N, hg, r, c, acc[i * 4 + e]);
+    }
+}
+
+// A product's launch plan, five host ints from ops/gemm_tc.plan_bf16:
+// wgmma (1: gemm_wgmma_bf16_kernel, B^T in `partial`, N * K bf16), splits
+// (the mma.sync kernel's blockIdx.z; > 1: splits * M * N floats of
+// `partial`), kps (k tiles a split), acw and bcw (elements an A / B copy).
+struct BfPlan {
+  int wgmma, splits, kps, acw, bcw;
+};
+
+inline BfPlan bf_plan(const int* q) { return BfPlan{q[0], q[1], q[2], q[3], q[4]}; }
+
+inline bool bf_cw_ok(int cw) { return cw == 1 || cw == 2 || cw == 4 || cw == 8; }
+
+// C (gated [N/hg, M, hg], O float32 or bf16) = epilogue(A @ B) by the
+// plan, bias and resid bf16; with splits > 1 the planes go to `partial` and
+// gemm_splitk_sum adds them and applies the epilogue.  p.M must count a
+// ones row.  Returns the launches' cudaError_t.
+template <bool AK, int EPI, typename O>
+cudaError_t launch_gemm_bf16(const BfPlan& pl, BfGemm p, const bf16* bias, const bf16* resid,
+                             O* C, int hg, float* partial, cudaStream_t stream) {
+  if (pl.wgmma) {
+    if constexpr (AK) {
+      if (pl.acw != 8 || p.K % 8 != 0 || partial == nullptr) return cudaErrorInvalidValue;
+      bf16* bt = reinterpret_cast<bf16*>(partial);
+      const long long nk = (long long)p.N * p.K;
+      bf_transpose_b<<<(unsigned)((nk + 255) / 256), 256, 0, stream>>>(p.B, bt, p.N, p.K,
+                                                                        p.ldb, p.hgb);
+      static unsigned long long wg_smem_set = 0;
+      cudaError_t err =
+          allow_smem_once((const void*)gemm_wgmma_bf16_kernel<EPI, O>, &wg_smem_set);
+      if (err != cudaSuccess) return err;
+      const dim3 grid((p.N + BW_BN - 1) / BW_BN, (p.M + WG_BM - 1) / WG_BM);
+      gemm_wgmma_bf16_kernel<EPI, O><<<grid, WG_THREADS, BW_SMEM, stream>>>(
+          p.A, bt, p.M, p.N, p.K, p.lda, bias, resid, C, hg);
+      return cudaGetLastError();
+    } else {
+      return cudaErrorInvalidValue;
+    }
+  }
+  if (pl.splits < 1 || pl.kps < 1 || !bf_cw_ok(pl.acw) || !bf_cw_ok(pl.bcw) ||
+      (pl.splits > 1 && partial == nullptr))
+    return cudaErrorInvalidValue;
+  static unsigned long long smem_set = 0;
+  cudaError_t err = allow_smem_once((const void*)gemm_bf16_kernel<AK, EPI, O>, &smem_set);
+  if (err != cudaSuccess) return err;
+  p.acw = pl.acw;
+  p.bcw = pl.bcw;
+  p.kps = pl.kps;
+  const dim3 grid((p.N + BF_BN - 1) / BF_BN, (p.M + BF_BM - 1) / BF_BM, pl.splits);
+  gemm_bf16_kernel<AK, EPI, O><<<grid, BF_THREADS, BF_SMEM, stream>>>(p, bias, resid, C, hg,
+                                                                      partial);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || pl.splits == 1) return err;
+  const long long n = (long long)p.M * p.N;
+  gemm_splitk_sum<EPI, bf16, O><<<(unsigned)((n + RED_THREADS - 1) / RED_THREADS), RED_THREADS,
+                                  0, stream>>>(partial, bias, resid, C, n, p.M, p.N, hg,
+                                               pl.splits, EpiArgs{});
+  return cudaGetLastError();
+}
+
+// A plain (G = 1) K-major product's operands: A [M, K] row stride lda, B
+// [K, N] row stride ldb.
+inline BfGemm bf_gemm(const bf16* A, int lda, const bf16* B, int ldb, int hgb, int M, int N,
+                      int K) {
+  BfGemm p{};
+  p.A = A;
+  p.B = B;
+  p.M = M;
+  p.N = N;
+  p.K = K;
+  p.lda = lda;
+  p.mdata = M;
+  p.ones_row = -1;
+  p.ldb = ldb;
+  p.hgb = hgb;
+  return p;
+}
+
+}  // namespace

@@ -90,10 +90,11 @@ __device__ __forceinline__ float tc_drop(const EpiArgs& ex, int r, int c) {
 
 // The epilogue of output (r, c) of an [M, N] product: acc (+ bias[c])
 // (then gelu_erf) (then resid[r][c] + it); or K9's (common.cuh's
-// GemmEpilogue).
-template <int EPI>
-__device__ __forceinline__ float tc_epilogue(float acc, const float* __restrict__ bias,
-                                             const float* __restrict__ resid, int r, int c,
+// GemmEpilogue).  T: the type of bias and resid, float, or bf16 for the
+// bf16 products (gemm_bf16.cuh), which round where GemmEpilogue says.
+template <int EPI, typename T = float>
+__device__ __forceinline__ float tc_epilogue(float acc, const T* __restrict__ bias,
+                                             const T* __restrict__ resid, int r, int c,
                                              int N, const EpiArgs& ex) {
   if constexpr (EPI == EPI_K9_MID) {
     const float u = (acc + bias[c]) * ex.mask[c];
@@ -107,9 +108,10 @@ __device__ __forceinline__ float tc_epilogue(float acc, const float* __restrict_
     return acc * (tc_drop(ex, r, c) * (dead ? 0.f : 1.f) * ex.mask[c]);
   } else {
     float v = acc;
-    if (EPI != EPI_NONE) v += bias[c];
+    if (EPI != EPI_NONE) v += ld_f(bias + c);
+    if (EPI != EPI_NONE && EPI != EPI_BIAS) v = as_t<T>(v);
     if (EPI == EPI_BIAS_GELU) v = gelu_erf(v);
-    if (EPI == EPI_BIAS_RESIDUAL) v = resid[(long long)r * N + c] + v;
+    if (EPI == EPI_BIAS_RESIDUAL) v = as_t<T>(ld_f(resid + (long long)r * N + c) + v);
     return v;
   }
 }
@@ -331,10 +333,11 @@ gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
 }
 
 // C[i] = epilogue(P[0][i] + ... + P[splits-1][i]), the planes added in that
-// order (a rerun gives the same bits), over the gated [N/hg, M, hg] layout.
-template <int EPI>
-__global__ void gemm_splitk_sum(const float* __restrict__ P, const float* __restrict__ bias,
-                                const float* __restrict__ resid, float* __restrict__ C,
+// order (a rerun gives the same bits), over the gated [N/hg, M, hg] layout;
+// T and O: the bf16 products' bias / resid and output types.
+template <int EPI, typename T = float, typename O = float>
+__global__ void gemm_splitk_sum(const float* __restrict__ P, const T* __restrict__ bias,
+                                const T* __restrict__ resid, O* __restrict__ C,
                                 long long total, int M, int N, int hg, int splits,
                                 EpiArgs ex) {
   const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
@@ -343,7 +346,7 @@ __global__ void gemm_splitk_sum(const float* __restrict__ P, const float* __rest
   for (int z = 0; z < splits; ++z) v += P[z * total + i];
   const int g = (int)(i / ((long long)M * hg)), j = (int)(i % hg);
   const int r = (int)((i / hg) % M);
-  C[i] = tc_epilogue<EPI>(v, bias, resid, r, g * hg + j, N, ex);
+  st_f(C + i, tc_epilogue<EPI, T>(v, bias, resid, r, g * hg + j, N, ex));
 }
 
 // Few rows: 64 x 64 mma.sync tiles (4 warps of 32 x 32), where more blocks
@@ -968,7 +971,8 @@ cudaError_t launch_proj_resid_ln(const TcPlan& p, const float* A, int lda, const
         static_cast<const float*>(scratch), bias, resid, ln_g, ln_b, out, rows, n, p.splits,
         eps);
   else
-    layernorm_rows_kernel<<<rows, LN_THREADS, 0, stream>>>(resid_sum, ln_g, ln_b, out, n, eps);
+    layernorm_rows_kernel<float><<<rows, LN_THREADS, 0, stream>>>(resid_sum, ln_g, ln_b, out, n,
+                                                                  eps);
   return cudaGetLastError();
 }
 

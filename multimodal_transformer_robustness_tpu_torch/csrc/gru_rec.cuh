@@ -29,6 +29,10 @@
 //     shuffle reduction adds the slices, so a step's dependent chain is
 //     ~H/(2 KS) FMAs rather than H.
 // BIAS_RZ is a template parameter, so K1's instance carries no bias adds.
+// WT is the storage type of the weights, b_hn and h (float, or bf16 for
+// K1f's bf16 instance: the gates stay float32, h is carried in float32 and
+// rounded to bf16 where the JAX kernel rounds it, for the recurrent
+// product and the output); the float instances compile as before.
 //
 // The backward form (gru_rec_bwd_tiled_kernel: K1b's recurrence in
 // bigru_bwd.cu, K7b's in gru_recurrence.cu) walks the steps newest-first
@@ -37,6 +41,8 @@
 // a step's products, the next step's h_prev copied in by cp.async a step
 // ahead; see its comment.
 #pragma once
+
+#include <type_traits>
 
 #include "common.cuh"
 
@@ -52,17 +58,19 @@ constexpr int REC_TILED_THREADS = 256;   // the tiled form's launch bound
 constexpr int REC_RT = 4;                // rows a thread of the tiled form owns
 
 // The operands of G recurrences.  Group g's gate and output arrays start
-// g * group floats past these pointers, its weights g * H * H and its
+// g * group elements past these pointers, its weights g * H * H and its
 // biases g * H.
-struct GruRec {
+template <typename WT>
+struct GruRecT {
   const float* gate[3];      // input-side pre-activations r, z, n: [T, B, H] a group
-  const float* w[3];         // W_hh^T of the gates r, z, n: [H, H] a group
+  const WT* w[3];            // W_hh^T of the gates r, z, n: [H, H] a group
   const float* bias_rz[2];   // b_hr, b_hz [H] a group (read only when BIAS_RZ)
-  const float* bhn;          // b_hn [H] a group
-  float* out;                // h [T, B, H] a group
+  const WT* bhn;             // b_hn [H] a group
+  WT* out;                   // h [T, B, H] a group
   long long group;
   int T, B, H, hp, reverse;
 };
+using GruRec = GruRecT<float>;
 
 // The gate nonlinearities on the fast exponential and divide (MUFU): with
 // the accurate expf / tanhf / IEEE division the gate math and stores took a
@@ -80,14 +88,15 @@ __device__ __forceinline__ float gate_tanh(float v) {
 
 // Group g's W_hh^T (w0, w1, w2: the gates' [H, H] arrays of group 0) into
 // shared memory as [3][H][hp], columns H..hp-1 zero.
-__device__ __forceinline__ void load_wt(float* w, const float* w0, const float* w1,
-                                        const float* w2, int g, int H, int hp) {
+template <typename WT>
+__device__ __forceinline__ void load_wt(float* w, const WT* w0, const WT* w1, const WT* w2,
+                                        int g, int H, int hp) {
   const long long wo = (long long)g * H * H;
   for (int i = threadIdx.x; i < 3 * H * hp; i += blockDim.x) {
     const int gk = i / hp, j = i - gk * hp;
     const int gate = gk / H, k = gk - gate * H;
-    const float* src = gate == 0 ? w0 : (gate == 1 ? w1 : w2);
-    w[i] = j < H ? src[wo + (long long)k * H + j] : 0.f;
+    const WT* src = gate == 0 ? w0 : (gate == 1 ? w1 : w2);
+    w[i] = j < H ? ld_f(src + wo + (long long)k * H + j) : 0.f;
   }
 }
 
@@ -126,9 +135,9 @@ __device__ __forceinline__ void tiled_prefetch(float4* gs, const float* const (&
 // is four rows of one column), gs [2][3 * 4][threads] float4 (each thread's
 // own gate rows, double-buffered).  VEC: H a multiple of 4 (hp == H,
 // 16-byte gate rows).
-template <bool VEC, bool BIAS_RZ>
+template <bool VEC, bool BIAS_RZ, typename WT = float>
 __global__ void __launch_bounds__(REC_TILED_THREADS)
-gru_rec_tiled_kernel(const GruRec p, int R) {
+gru_rec_tiled_kernel(const GruRecT<WT> p, int R) {
   extern __shared__ float4 rec_smem4[];
   const int T = p.T, B = p.B, H = p.H, hp = p.hp;
   float* w = reinterpret_cast<float*>(rec_smem4);
@@ -142,7 +151,7 @@ gru_rec_tiled_kernel(const GruRec p, int R) {
   const int b0 = blockIdx.x * R, g = blockIdx.y;
   const long long goff = (long long)g * p.group;
   const float* const gate[3] = {p.gate[0] + goff, p.gate[1] + goff, p.gate[2] + goff};
-  float* const out = p.out + goff;
+  WT* const out = p.out + goff;
 
   load_wt(w, p.w[0], p.w[1], p.w[2], g, H, hp);
   for (int i = tid; i < 2 * hp * ldh; i += nthreads) hT[i] = 0.f;
@@ -151,7 +160,7 @@ gru_rec_tiled_kernel(const GruRec p, int R) {
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     const bool ok = j0 + c < H;
-    bn[c] = ok ? p.bhn[g * H + j0 + c] : 0.f;
+    bn[c] = ok ? ld_f(p.bhn + g * H + j0 + c) : 0.f;
     if constexpr (BIAS_RZ) {
       br[c] = ok ? p.bias_rz[0][g * H + j0 + c] : 0.f;
       bz[c] = ok ? p.bias_rz[1][g * H + j0 + c] : 0.f;
@@ -226,13 +235,18 @@ gru_rec_tiled_kernel(const GruRec p, int R) {
 #pragma unroll
       for (int q = 0; q < REC_RT; q += 4)
         *reinterpret_cast<float4*>(hn_next + (j0 + c) * ldh + q) =
-            make_float4(hold[q][c], hold[q + 1][c], hold[q + 2][c], hold[q + 3][c]);
+            make_float4(as_t<WT>(hold[q][c]), as_t<WT>(hold[q + 1][c]),
+                        as_t<WT>(hold[q + 2][c]), as_t<WT>(hold[q + 3][c]));
 #pragma unroll
     for (int i = 0; i < REC_RT; ++i) {
       const int b = b0 + r0 + i;
       if (b >= B) continue;
-      float* o = out + ((long long)t * B + b) * H + j0;
-      if (VEC) {
+      WT* o = out + ((long long)t * B + b) * H + j0;
+      if constexpr (!std::is_same<WT, float>::value) {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (j0 + c < H) st_f(o + c, hold[i][c]);
+      } else if (VEC) {
         *reinterpret_cast<float4*>(o) = make_float4(hold[i][0], hold[i][1], hold[i][2],
                                                     hold[i][3]);
       } else {
@@ -257,9 +271,9 @@ gru_rec_tiled_kernel(const GruRec p, int R) {
 // bound leaves 72 registers, and three gate pointers, an output pointer or
 // two bias registers more spill.  Shared memory: hs [2][hp], then b_hr and
 // b_hz [2][hp] (BIAS_RZ).
-template <bool BIAS_RZ>
+template <bool BIAS_RZ, typename WT = float>
 __global__ void __launch_bounds__(REC_SMALL_THREADS)
-gru_rec_small_kernel(const GruRec p) {
+gru_rec_small_kernel(const GruRecT<WT> p) {
   constexpr int KS = REC_SMALL_KS;
   extern __shared__ float4 rec_smem4[];
   float* hs = reinterpret_cast<float*>(rec_smem4);
@@ -281,7 +295,7 @@ gru_rec_small_kernel(const GruRec p) {
     const int k = ks + KS * i;
 #pragma unroll
     for (int gt = 0; gt < 3; ++gt)
-      w[gt][i] = active && k < H ? p.w[gt][wo + (long long)k * H + j] : 0.f;
+      w[gt][i] = active && k < H ? ld_f(p.w[gt] + wo + (long long)k * H + j) : 0.f;
   }
   for (int i = tid; i < 2 * hp; i += blockDim.x) hs[i] = 0.f;
 
@@ -291,7 +305,7 @@ gru_rec_small_kernel(const GruRec p) {
       hb[hp + i] = p.bias_rz[1][g * H + i];
     }
   }
-  const float bn = active ? p.bhn[g * H + j] : 0.f;
+  const float bn = active ? ld_f(p.bhn + g * H + j) : 0.f;
   float gx[3] = {0.f, 0.f, 0.f};
   if (owner) {
 #pragma unroll
@@ -334,8 +348,8 @@ gru_rec_small_kernel(const GruRec p) {
       const float z = gate_sigmoid(gx[1] + gh[1]);
       const float n = gate_tanh(gx[2] + r * (gh[2] + bn));
       hold = (1.0f - z) * n + z * hold;
-      hs[(cur ^ 1) * hp + j] = hold;
-      p.out[at] = hold;
+      hs[(cur ^ 1) * hp + j] = as_t<WT>(hold);
+      st_f(p.out + at, hold);
     }
     at += step_stride;
 #pragma unroll
@@ -361,10 +375,11 @@ gru_rec_small_kernel(const GruRec p) {
 // 0..3H are the input-side pre-activation gradients (dwp = x^T dg[:, :3H],
 // dx = dg[:, :3H] wp^T in that gate order) and H..4H the recurrent ones
 // (dwt = h_prev^T dg[:, H:], taken from [h_prev | 1]^T dg with the column
-// sums), so each weight reduction reads one contiguous column range.  Thread (rg, jg) owns rows 4rg..4rg+3 and the
-// strided columns jg + js*c (c < 4, js = ceil(H / 4)) of the block's R
-// rows, in the gate math and in both products, so the carried dh stays in
-// its registers from one step to the next.  Both products read W_hh^T from
+// sums), so each weight reduction reads one contiguous column range.
+// Thread (rg, jg) owns rows 4rg..4rg+3 and the strided columns jg + js*c
+// (c < 4, js = ceil(H / 4)) of the block's R rows, in the gate math and in
+// both products, so the carried dh stays in its registers from one step to
+// the next.  Both products read W_hh^T from
 // one copy in shared memory, w [3][4js][wp] with an odd row pitch wp:
 // the recompute reads w[g][k][jg + js c] (consecutive jg, consecutive
 // words), the carry w[g][jg + js c][j] (consecutive jg, words wp apart:
@@ -385,17 +400,23 @@ gru_rec_small_kernel(const GruRec p) {
 // floats (dg: 4 group) past the pointers, its weights g*H*H and biases g*H:
 // K1b runs one group over the [3, T*B, H] gate scratch with the biases
 // folded in (BIAS_RZ false), K7b G groups over [G, T, N, H] gate arrays.
-struct GruRecBwd {
+// WT as the forward's: K1b's bf16 instance reads bf16 weights, h and dh,
+// rounds da_r, da_z and dghn to bf16 for the carry and writes dg in bf16,
+// where the JAX kernel casts them to the operand dtype (h_prev, read from
+// the forward's bf16 output, is then the value the JAX kernel reads too).
+template <typename WT>
+struct GruRecBwdT {
   const float* gate[3];     // input-side pre-activations r, z, n: [T, B, H] a group
-  const float* w[3];        // W_hh^T of r, z, n: [H, H] a group
+  const WT* w[3];           // W_hh^T of r, z, n: [H, H] a group
   const float* bias_rz[2];  // b_hr, b_hz [H] a group (read only when BIAS_RZ)
-  const float* bhn;         // b_hn [H] a group
-  const float* hs;          // the forward's h [T, B, H] a group
-  const float* dhs;         // its cotangent [T, B, H] a group
-  float* dg;                // [T*B, 4H] a group: da_n, da_r, da_z, dghn
+  const WT* bhn;            // b_hn [H] a group
+  const WT* hs;             // the forward's h [T, B, H] a group
+  const WT* dhs;            // its cotangent [T, B, H] a group
+  WT* dg;                   // [T*B, 4H] a group: da_n, da_r, da_z, dghn
   long long group;
   int T, B, H, js, wp, reverse;
 };
+using GruRecBwd = GruRecBwdT<float>;
 
 // hT[j][r] = h[tp][b][j] for this thread's own rows b = b0 + r0 .. + 3 and
 // columns j = jg + js c (zero where tp falls outside [0, T) or b >= B):
@@ -416,9 +437,38 @@ __device__ __forceinline__ void bwd_stage_h(float* hT, const float* hs, int tp, 
   }
 }
 
-template <bool BIAS_RZ>
+// bwd_stage_h for bf16 h (no cp.async can widen it): the same elements
+// read into registers (v), and stored by bwd_store_h.
+__device__ __forceinline__ void bwd_read_h(float (&v)[4][4], const bf16* hs, int tp, int T,
+                                           int B, int H, int b0, int r0, int jg, int js) {
+  const bool has = tp >= 0 && tp < T;
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int b = b0 + r0 + i;
+    const bf16* row = hs + ((long long)tp * B + b) * H;
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = jg + js * c;
+      v[i][c] = has && b < B && j < H ? bf2f(row[j]) : 0.f;
+    }
+  }
+}
+
+__device__ __forceinline__ void bwd_store_h(float* hT, const float (&v)[4][4], int r0, int jg,
+                                            int js, int H, int ldr) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {
+      const int j = jg + js * c;
+      if (j < H) hT[j * ldr + r0 + i] = v[i][c];
+    }
+}
+
+template <bool BIAS_RZ, typename WT = float>
 __global__ void __launch_bounds__(REC_TILED_THREADS)
-gru_rec_bwd_tiled_kernel(const GruRecBwd p, int R) {
+gru_rec_bwd_tiled_kernel(const GruRecBwdT<WT> p, int R) {
+  constexpr bool F32 = std::is_same<WT, float>::value;
   extern __shared__ float4 rec_smem4[];
   const int T = p.T, B = p.B, H = p.H, js = p.js, hk = 4 * js, wp = p.wp, ldr = R + 4;
   float* w = reinterpret_cast<float*>(rec_smem4);   // [3][hk][wp]
@@ -429,9 +479,9 @@ gru_rec_bwd_tiled_kernel(const GruRecBwd p, int R) {
   const int b0 = blockIdx.x * R, g = blockIdx.y;
   const long long goff = (long long)g * p.group;
   const float* const gate[3] = {p.gate[0] + goff, p.gate[1] + goff, p.gate[2] + goff};
-  const float* const hs = p.hs + goff;
-  const float* const dhs = p.dhs + goff;
-  float* const dg = p.dg + 4 * goff;
+  const WT* const hs = p.hs + goff;
+  const WT* const dhs = p.dhs + goff;
+  WT* const dg = p.dg + 4 * goff;
   const int H4 = 4 * H;
 
   const long long wo = (long long)g * H * H;
@@ -440,14 +490,14 @@ gru_rec_bwd_tiled_kernel(const GruRecBwd p, int R) {
     const int gt = gk / hk, k = gk - gt * hk;
     // a select, not p.w[gt]: a runtime index into the parameter struct
     // would copy it to local memory
-    const float* src = gt == 0 ? p.w[0] : (gt == 1 ? p.w[1] : p.w[2]);
-    w[i] = k < H && j < H ? src[wo + (long long)k * H + j] : 0.f;
+    const WT* src = gt == 0 ? p.w[0] : (gt == 1 ? p.w[1] : p.w[2]);
+    w[i] = k < H && j < H ? ld_f(src + wo + (long long)k * H + j) : 0.f;
   }
   float bn[4], br[4], bz[4];
 #pragma unroll
   for (int c = 0; c < 4; ++c) {
     const int j = jg + js * c;
-    bn[c] = j < H ? p.bhn[g * H + j] : 0.f;
+    bn[c] = j < H ? ld_f(p.bhn + g * H + j) : 0.f;
     if constexpr (BIAS_RZ) {
       br[c] = j < H ? p.bias_rz[0][g * H + j] : 0.f;
       bz[c] = j < H ? p.bias_rz[1][g * H + j] : 0.f;
@@ -458,9 +508,15 @@ gru_rec_bwd_tiled_kernel(const GruRecBwd p, int R) {
   // newest first: the forward direction's last step is t = T-1, the
   // reverse direction's is t = 0; step t's h_prev is h[t + dt]
   const int t_first = p.reverse ? 0 : T - 1, dt = p.reverse ? 1 : -1;
-  bwd_stage_h(hT, hs, t_first + dt, T, B, H, b0, r0, jg, js, ldr);
-  cp_async_commit();
-  cp_async_wait<0>();
+  float hnx[4][4];   // the bf16 instance's next h_prev, in flight in registers
+  if constexpr (F32) {
+    bwd_stage_h(hT, hs, t_first + dt, T, B, H, b0, r0, jg, js, ldr);
+    cp_async_commit();
+    cp_async_wait<0>();
+  } else {
+    bwd_read_h(hnx, hs, t_first + dt, T, B, H, b0, r0, jg, js);
+    bwd_store_h(hT, hnx, r0, jg, js, H, ldr);
+  }
   __syncthreads();
 
   float dh[4][4];
@@ -471,9 +527,13 @@ gru_rec_bwd_tiled_kernel(const GruRecBwd p, int R) {
 
   for (int step = 0; step < T; ++step) {
     const int t = t_first + dt * step, cur = step & 1;
-    if (step + 1 < T)
-      bwd_stage_h(hT + (cur ^ 1) * hk * ldr, hs, t + 2 * dt, T, B, H, b0, r0, jg, js, ldr);
-    cp_async_commit();
+    if constexpr (F32) {
+      if (step + 1 < T)
+        bwd_stage_h(hT + (cur ^ 1) * hk * ldr, hs, t + 2 * dt, T, B, H, b0, r0, jg, js, ldr);
+      cp_async_commit();
+    } else if (step + 1 < T) {
+      bwd_read_h(hnx, hs, t + 2 * dt, T, B, H, b0, r0, jg, js);
+    }
 
     // this step's gate inputs and incoming dh, used after the recompute
     float gx[3][4][4], dy[4][4];
@@ -486,7 +546,7 @@ gru_rec_bwd_tiled_kernel(const GruRecBwd p, int R) {
         const long long at = ((long long)t * B + b) * H + j;
 #pragma unroll
         for (int gt = 0; gt < 3; ++gt) gx[gt][i][c] = ok ? gate[gt][at] : 0.f;
-        dy[i][c] = ok ? dhs[at] : 0.f;
+        dy[i][c] = ok ? ld_f(dhs + at) : 0.f;
       }
 
     // the recompute, h_prev W^T, in the forward's k order
@@ -532,17 +592,18 @@ gru_rec_bwd_tiled_kernel(const GruRecBwd p, int R) {
         const float n = gate_tanh(gx[2][i][c] + r * ghn);
         const float dht = dy[i][c] + dh[i][c];
         const float da_n = dht * (1.0f - z) * (1.0f - n * n);
-        dgn[i] = da_n * r;
-        dar[i] = da_n * ghn * r * (1.0f - r);
-        daz[i] = dht * (hprev[i] - n) * z * (1.0f - z);
+        // the bf16 instance's carry reads these rounded, as dg holds them
+        dgn[i] = as_t<WT>(da_n * r);
+        dar[i] = as_t<WT>(da_n * ghn * r * (1.0f - r));
+        daz[i] = as_t<WT>(dht * (hprev[i] - n) * z * (1.0f - z));
         dh[i][c] = dht * z;
         const int b = b0 + r0 + i;
         if (b < B && j < H) {
-          float* o = dg + ((long long)t * B + b) * H4 + j;
-          o[0] = da_n;
-          o[H] = dar[i];
-          o[2 * H] = daz[i];
-          o[3 * H] = dgn[i];
+          WT* o = dg + ((long long)t * B + b) * H4 + j;
+          st_f(o, da_n);
+          st_f(o + H, dar[i]);
+          st_f(o + 2 * H, daz[i]);
+          st_f(o + 3 * H, dgn[i]);
         }
       }
       *reinterpret_cast<float4*>(daT + (0 * hk + j) * ldr + r0) =
@@ -571,7 +632,11 @@ gru_rec_bwd_tiled_kernel(const GruRecBwd p, int R) {
         }
       }
     }
-    cp_async_wait<0>();   // this thread's copies of the next h_prev
+    if constexpr (F32) {
+      cp_async_wait<0>();   // this thread's copies of the next h_prev
+    } else if (step + 1 < T) {
+      bwd_store_h(hT + (cur ^ 1) * hk * ldr, hnx, r0, jg, js, H, ldr);
+    }
     __syncthreads();      // ... everyone's; daT free for the next step
   }
 }
@@ -580,8 +645,8 @@ gru_rec_bwd_tiled_kernel(const GruRecBwd p, int R) {
 // ints (ops/bigru_cuda._plan_rec_bwd): rows (a block's, a multiple of 4),
 // threads (rows / 4 * js), smem (bytes), js and wp (already in p).  The grid
 // is (ceil(B / rows), groups).  Returns the launch's cudaError_t.
-template <bool BIAS_RZ>
-cudaError_t launch_gru_rec_bwd_tiled(const GruRecBwd& p, int groups, const int* rec,
+template <bool BIAS_RZ, typename WT = float>
+cudaError_t launch_gru_rec_bwd_tiled(const GruRecBwdT<WT>& p, int groups, const int* rec,
                                      cudaStream_t stream) {
   const int rows = rec[0], threads = rec[1], smem = rec[2];
   if (rows % 4 != 0 || threads != rows / 4 * p.js || threads > REC_TILED_THREADS ||
@@ -589,10 +654,10 @@ cudaError_t launch_gru_rec_bwd_tiled(const GruRecBwd& p, int groups, const int* 
     return cudaErrorInvalidValue;
   static unsigned long long smem_set = 0;
   const cudaError_t err =
-      allow_smem_once((const void*)gru_rec_bwd_tiled_kernel<BIAS_RZ>, &smem_set);
+      allow_smem_once((const void*)gru_rec_bwd_tiled_kernel<BIAS_RZ, WT>, &smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.B + rows - 1) / rows, groups);
-  gru_rec_bwd_tiled_kernel<BIAS_RZ><<<grid, threads, smem, stream>>>(p, rows);
+  gru_rec_bwd_tiled_kernel<BIAS_RZ, WT><<<grid, threads, smem, stream>>>(p, rows);
   return cudaGetLastError();
 }
 
@@ -602,26 +667,27 @@ cudaError_t launch_gru_rec_bwd_tiled(const GruRecBwd& p, int groups, const int* 
 // the small form), vec (tiled form: H a multiple of 4, 16-byte aligned gate
 // and output arrays) and hp (H rounded up to 4, already in p).  The grid is
 // (ceil(B / rows), groups).  Returns the launch's cudaError_t.
-template <bool BIAS_RZ>
-cudaError_t launch_gru_rec(const GruRec& p, int groups, const int* rec, cudaStream_t stream) {
+template <bool BIAS_RZ, typename WT = float>
+cudaError_t launch_gru_rec(const GruRecT<WT>& p, int groups, const int* rec,
+                           cudaStream_t stream) {
   const int small = rec[0], rows = rec[1], threads = rec[2], smem = rec[3], ks = rec[4],
             vec = rec[5];
   const dim3 grid((p.B + rows - 1) / rows, groups);
   if (small) {
     if (ks != REC_SMALL_KS || rows != 1) return cudaErrorInvalidValue;
-    gru_rec_small_kernel<BIAS_RZ><<<grid, threads, smem, stream>>>(p);
+    gru_rec_small_kernel<BIAS_RZ, WT><<<grid, threads, smem, stream>>>(p);
   } else if (vec) {
     static unsigned long long smem_set = 0;
     const cudaError_t err =
-        allow_smem_once((const void*)gru_rec_tiled_kernel<true, BIAS_RZ>, &smem_set);
+        allow_smem_once((const void*)gru_rec_tiled_kernel<true, BIAS_RZ, WT>, &smem_set);
     if (err != cudaSuccess) return err;
-    gru_rec_tiled_kernel<true, BIAS_RZ><<<grid, threads, smem, stream>>>(p, rows);
+    gru_rec_tiled_kernel<true, BIAS_RZ, WT><<<grid, threads, smem, stream>>>(p, rows);
   } else {
     static unsigned long long smem_set = 0;
     const cudaError_t err =
-        allow_smem_once((const void*)gru_rec_tiled_kernel<false, BIAS_RZ>, &smem_set);
+        allow_smem_once((const void*)gru_rec_tiled_kernel<false, BIAS_RZ, WT>, &smem_set);
     if (err != cudaSuccess) return err;
-    gru_rec_tiled_kernel<false, BIAS_RZ><<<grid, threads, smem, stream>>>(p, rows);
+    gru_rec_tiled_kernel<false, BIAS_RZ, WT><<<grid, threads, smem, stream>>>(p, rows);
   }
   return cudaGetLastError();
 }

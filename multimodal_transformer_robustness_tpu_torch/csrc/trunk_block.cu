@@ -292,7 +292,7 @@ extern "C" int mmtr_trunk_block_bwd(const float* src, const float* dout, const f
   if (err != cudaSuccess) return (int)err;
   err = launch_reduce_t(partial2, red + wsize, vecs + F1, F1, E, s2, stream);
   if (err != cudaSuccess) return (int)err;
-  splitk_reduce_kernel<<<(unsigned)((2LL * E + RED_THREADS - 1) / RED_THREADS), RED_THREADS, 0,
-                         stream>>>(part, vecs + F1 + E, 2LL * E, tiles);
+  splitk_reduce_kernel<float><<<(unsigned)((2LL * E + RED_THREADS - 1) / RED_THREADS),
+                                RED_THREADS, 0, stream>>>(part, vecs + F1 + E, 2LL * E, tiles);
   return (int)cudaGetLastError();
 }

@@ -2,6 +2,7 @@
 (``device``) and the tokenizers."""
 
 from .device import DeviceBatchIterator, materialize
-from .loaders import ArrayDataset, Batch, BatchIterator
+from .loaders import ArrayDataset, Batch, BatchIterator, cast_float_inputs
 
-__all__ = ["ArrayDataset", "Batch", "BatchIterator", "DeviceBatchIterator", "materialize"]
+__all__ = ["ArrayDataset", "Batch", "BatchIterator", "DeviceBatchIterator", "cast_float_inputs",
+           "materialize"]

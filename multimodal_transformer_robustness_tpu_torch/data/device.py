@@ -11,8 +11,11 @@ seeded epoch order and the same tail padding, so ``Trainer.train_epoch``,
 ``evaluate`` and ``fit`` take it unchanged (``torch.as_tensor`` of a tensor
 already on the card is a no-op).
 
-One device by design; ``store_dtype="bfloat16"`` waits for the port's
-bf16 compute policy (ROADMAP Queue 1).
+One device by design.  ``store_dtype="bfloat16"`` stores the float
+modalities in bf16 on the card, half the bytes: under the bf16 compute
+policy the model's boundary cast makes it give the same bits as a float32
+store.  A dataset already stored in bf16 (``loaders.cast_float_inputs``)
+is uploaded as it is.
 """
 
 from __future__ import annotations
@@ -23,35 +26,40 @@ import numpy as np
 import torch
 
 from .. import _build
-from .loaders import ArrayDataset, Batch, BatchIterator
+from .loaders import ArrayDataset, Batch, BatchIterator, is_float_array
 
 
 def _is_text_stack(x) -> bool:
     """A [3, N, L] stacked integer token array (the MOSEI text layout):
     gathered on axis 1; every other input on axis 0."""
-    return (getattr(x, "ndim", 0) == 3 and x.shape[0] == 3
-            and np.issubdtype(np.asarray(x).dtype, np.integer))
+    return getattr(x, "ndim", 0) == 3 and x.shape[0] == 3 and not is_float_array(x)
+
+
+def _host(x):
+    """A host array as numpy, or as the CPU tensor it is (bf16)."""
+    return x if isinstance(x, torch.Tensor) else np.asarray(x)
 
 
 def materialize(dataset, chunk: int = 512):
     """Any gather-style dataset as whole per-modality host arrays, in
     order: ``(inputs, labels)``."""
     if isinstance(dataset, ArrayDataset):
-        return [np.asarray(x) for x in dataset.inputs], np.asarray(dataset.labels)
+        return [_host(x) for x in dataset.inputs], np.asarray(dataset.labels)
     parts: List[List[np.ndarray]] = []
     labels = []
     for b in BatchIterator(dataset, chunk, shuffle=False):
         keep = b.valid > 0
         row = []
         for x in b.inputs:
-            x = np.asarray(x)
+            x = _host(x)
             row.append(x[:, keep] if _is_text_stack(x) else x[keep])
         parts.append(row)
         labels.append(np.asarray(b.labels)[keep])
     inputs = []
     for i in range(len(parts[0])):
         axis = 1 if _is_text_stack(parts[0][i]) else 0
-        inputs.append(np.concatenate([p[i] for p in parts], axis=axis))
+        cat = torch.cat if isinstance(parts[0][i], torch.Tensor) else np.concatenate
+        inputs.append(cat([p[i] for p in parts], axis))
     return inputs, np.concatenate(labels)
 
 
@@ -64,13 +72,17 @@ class DeviceBatchIterator:
     def __init__(self, dataset, batch_size: int, shuffle: bool = False,
                  seed: int = 0, drop_tail: bool = False,
                  store_dtype: Optional[str] = None, device="cuda"):
-        if store_dtype not in (None, "float32"):
-            raise NotImplementedError("store_dtype other than float32 is not ported "
-                                      "yet: ROADMAP Queue 1, 'the bf16 compute policy'")
+        stores = {None: None, "float32": torch.float32, "bfloat16": torch.bfloat16}
+        if store_dtype not in stores:
+            raise NotImplementedError(f"store_dtype {store_dtype!r} is not ported (float32 "
+                                      "and bfloat16 are): ROADMAP Queue 2, 'bf16'")
         self.device = _build.resolve_device(device)
         inputs, labels = materialize(dataset)
         self._text = [_is_text_stack(x) for x in inputs]
+        sd = stores[store_dtype]
         self.inputs = [torch.as_tensor(x, device=self.device) for x in inputs]
+        if sd is not None:
+            self.inputs = [x.to(sd) if x.is_floating_point() else x for x in self.inputs]
         self.labels = torch.as_tensor(labels, device=self.device)
         self.dataset = dataset
         self.batch_size = batch_size

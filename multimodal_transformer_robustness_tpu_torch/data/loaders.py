@@ -3,8 +3,9 @@
 Counterpart of ``multimodal_transformer_robustness_tpu/data/loaders.py``
 (without multi-host ``process_shard``, which waits for the ``parallel``
 port): every batch of a split has the same array shapes, the last short
-batch padded up to ``batch_size`` with a validity mask.  Numpy only; the
-Trainer moves each batch to its device.
+batch padded up to ``batch_size`` with a validity mask.  Numpy arrays
+(or, after :func:`cast_float_inputs` to bf16, which numpy has no type for,
+CPU torch tensors); the Trainer moves each batch to its device.
 """
 
 from __future__ import annotations
@@ -13,6 +14,7 @@ import dataclasses
 from typing import Iterator, List, Sequence
 
 import numpy as np
+import torch
 
 
 @dataclasses.dataclass
@@ -45,6 +47,41 @@ class ArrayDataset:
 
     def get_n_modalities(self) -> int:
         return len(self.inputs)
+
+
+def is_float_array(x) -> bool:
+    """A float modality array: a numpy float array or a float tensor."""
+    if isinstance(x, torch.Tensor):
+        return x.is_floating_point()
+    return np.issubdtype(np.asarray(x).dtype, np.floating)
+
+
+def cast_float_inputs(dataset, dtype) -> None:
+    """Store a dataset's float modality arrays in ``dtype`` (in place), as
+    the JAX package's ``cast_float_inputs``: under the bf16 compute policy
+    the model's boundary cast is the first op to touch float inputs, so a
+    feed stored in bf16 gives the same bits as a float32 one, at half the
+    bytes to upload.  bf16 (``"bfloat16"`` or ``torch.bfloat16``) is stored
+    as CPU torch tensors (numpy has no bf16); ``"float32"`` as numpy.
+    Integer inputs (token stacks) and labels are untouched.  Takes
+    ``ArrayDataset``s and ``CachedTextDataset`` wrappers (the wrapper's
+    feature store and its base's float arrays)."""
+    dt = {"bfloat16": torch.bfloat16, "float32": torch.float32}.get(dtype, dtype)
+
+    def cast(x):
+        if not is_float_array(x):
+            return x
+        if dt == torch.float32:
+            return np.asarray(x, np.float32)
+        return torch.as_tensor(np.asarray(x, np.float32) if not isinstance(x, torch.Tensor)
+                               else x).to(dt)
+
+    feats = getattr(dataset, "features", None)
+    if feats is not None:
+        dataset.features = cast(feats)
+    base = getattr(dataset, "base", dataset)
+    if hasattr(base, "inputs"):
+        base.inputs = [cast(x) for x in base.inputs]
 
 
 class BatchIterator:

@@ -31,6 +31,14 @@ q/k/v.  The FFN block is kernel K3 (:func:`..ops.bert_ffn_cuda.ffn_ln_block`)
 for float weights and kernel K4 (:func:`..ops.bert_ffn_cuda.ffn_ln_block_q`)
 for int8 ones.
 
+Under the bf16 compute policy (bf16 weights, as ``models/mult.compute_cast``
+or ``prepare_bert(..., dtype=torch.bfloat16)`` makes them) the embeddings
+add in bf16, the embedding LayerNorm takes float32 moments (centered) and
+rounds, and K2 and K3 run their bf16 instances; :data:`ATTN_SOFTMAX`
+selects K2's softmax tail, as in the JAX package.  The dense and xla
+attention paths (K6a, K6b) and int8 layers (K4) have no bf16 instance and
+raise NotImplementedError.
+
 Parameters come in two layouts: :func:`init_bert` makes HF-layout weights
 stacked ``[L, ...]`` (the JAX package's layout, float or quantized), and
 :func:`prepare_bert` turns them, once, into the kernels' layout: one dict
@@ -48,6 +56,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .. import _build
 from ..ops.bert_attn_cuda import (attention_block_fused, dense_attention_blockdiag,
                                   dense_attention_plain)
 from ..ops.bert_ffn_cuda import (div127, ffn_ln_block, ffn_ln_block_q, proj_ln_block, qdot,
@@ -55,6 +64,10 @@ from ..ops.bert_ffn_cuda import (div127, ffn_ln_block, ffn_ln_block_q, proj_ln_b
 from ..ops.layernorm import masked_layer_norm
 
 ATTN_IMPL = "auto"  # "auto" | "fused" | "dense" | "xla", see the docstring
+# K2's softmax exp / sum / divide dtype under bf16 activations ("float32" |
+# "bfloat16"; the max subtraction and the masks stay float32), as the JAX
+# package's ATTN_SOFTMAX
+ATTN_SOFTMAX = "float32"
 _ATTN_IMPLS = ("auto", "fused", "dense", "xla")
 # widths above this take the dense path under "auto", as in the JAX package
 _FUSED_MAX_WIDTH = 1024
@@ -124,17 +137,20 @@ def init_bert(gen: torch.Generator, cfg: BertConfig) -> dict:
     }
 
 
-def prepare_bert(bert: dict, device="cpu") -> dict:
+def prepare_bert(bert: dict, device="cpu", dtype: torch.dtype = torch.float32) -> dict:
     """HF-layout stacked weights (tensors or numpy arrays; a weight may be a
     quantized ``{"q": int8 [L, out, in], "s": [L, out]}`` dict, as the JAX
     package's ``quantize_bert_params`` makes it) -> the kernels' layout on
     ``device``: per-layer dicts, float weights as ``<name>t = w.T``,
     quantized ones kept ``[out, in]``; float ``q_wt, k_wt, v_wt`` views of
     one ``[3, h, h]`` tensor, ``q_b, k_b, v_b`` of one ``[3h]``
-    (:func:`..models.mult.to_device` keeps them so)."""
+    (:func:`..models.mult.to_device` keeps them so).  ``dtype=torch.
+    bfloat16``: the float weights (not the int8 scales) made once in bf16,
+    the float32 values rounded, as the compute policy's cast rounds them."""
 
-    def dev(a, dtype=torch.float32):
-        return torch.tensor(np.asarray(a), dtype=dtype, device=device)
+    def dev(a, dtype=dtype):
+        return torch.tensor(np.asarray(a, np.float32 if dtype != torch.int8 else None),
+                            dtype=dtype, device=device)
 
     n = len(bert["layers"]["q_b"])
     qkv = ("q_w", "k_w", "v_w")
@@ -144,7 +160,8 @@ def prepare_bert(bert: dict, device="cpu") -> dict:
         for w in _WEIGHTS:
             a = bert["layers"][w]
             if isinstance(a, dict):
-                lp[w] = {"q": dev(a["q"][i], torch.int8).contiguous(), "s": dev(a["s"][i])}
+                lp[w] = {"q": dev(a["q"][i], torch.int8).contiguous(),
+                         "s": dev(a["s"][i], torch.float32)}
             else:
                 lp[f"{w}t"] = dev(a[i]).t().contiguous()
         lp.update({v: dev(bert["layers"][v][i]) for v in _VECTORS})
@@ -195,7 +212,9 @@ def _qproj(x: torch.Tensor, wq: dict, bias: torch.Tensor) -> torch.Tensor:
 def _attention_unfused(x, mask, lp: dict, impl: str, n_heads: int, eps: float):
     """The attention block under ``"dense"`` or ``"xla"``: projections, the
     attention core (K6a or the plain composition), then the o-proj +
-    residual + LN1 (K6b, or the int8 o-proj)."""
+    residual + LN1 (K6b, or the int8 o-proj).  No bf16 instance: bf16
+    activations raise NotImplementedError."""
+    _build.refuse_bf16(f"the BERT's {impl!r} attention path (K6a / K6b)", x)
     b, L, h = x.shape
     if isinstance(lp.get("q_w"), dict):
         xq, sx = qrows(x)      # one row quantization shared by q, k and v
@@ -234,7 +253,8 @@ def bert_apply(params: dict, input_ids: torch.Tensor, attention_mask: torch.Tens
             x = attention_block_fused(
                 x, attention_mask, lp["q_wt"], lp["q_b"], lp["k_wt"], lp["k_b"],
                 lp["v_wt"], lp["v_b"], lp["o_wt"], lp["o_b"], lp["ln1_g"], lp["ln1_b"],
-                n_heads=cfg.num_heads, eps=cfg.eps)
+                n_heads=cfg.num_heads, eps=cfg.eps,
+                softmax_dtype=ATTN_SOFTMAX)
         else:
             x = _attention_unfused(x, attention_mask, lp, impl, cfg.num_heads, cfg.eps)
         if isinstance(lp.get("fc1_w"), dict):

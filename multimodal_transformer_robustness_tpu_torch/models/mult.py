@@ -23,6 +23,16 @@ top stacks, ``out_dropout`` after ``relu(proj1)``.  ``spec.attn_impl =
 stack is T==1 after the headers, so that takes the T==1 path, as in the JAX
 package, and computes what ``"xla"`` computes.
 
+``spec.compute_dtype = "bfloat16"`` is the JAX package's bf16 compute
+policy: :func:`compute_cast` casts, at the model's boundary, every float32
+tensor the forward reads (the header parameters, float inputs and the
+frozen BERT in :func:`supernet_headers`; the trunk's parameters, masks
+and base in :func:`supernet_trunk`) to bf16, differentiably, so the
+float32 master parameters get float32 gradients; integer token ids keep
+their dtype.  The kernels take their bf16 instances, the trunk rounds at
+the JAX rounding points (``ops/attention.py``, ``ops/encoder.py``), and
+the predictions come back in float32.
+
 Parameters are nested dicts of tensors: ``proj`` (one header dict per
 modality, GRU weights in the reference's torch layout), ``mems0`` /
 ``cross`` / ``mems`` (one encoder dict per stack), ``proj1`` / ``proj2`` /
@@ -38,6 +48,7 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import _build
 from ..config import ModelSpec
 from ..masks import SupernetMasks
 from ..ops.dropout import dropout
@@ -74,6 +85,45 @@ def to_device(tree, device, _bases=None):
     return as_f32(t).to(device).contiguous()
 
 
+COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def cast_tree(tree, dtype: torch.dtype, _bases: Optional[dict] = None):
+    """``tree`` with every float32 tensor cast to ``dtype`` (see
+    :func:`compute_cast`)."""
+    if dtype == torch.float32:
+        return tree
+    bases = {} if _bases is None else _bases
+    if isinstance(tree, dict):
+        return {k: cast_tree(v, dtype, bases) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(cast_tree(v, dtype, bases) for v in tree)
+    if isinstance(tree, SupernetMasks):
+        return tree.to(dtype)
+    if not isinstance(tree, torch.Tensor) or tree.dtype != torch.float32:
+        return tree
+    base = tree._base
+    if (base is not None and not tree.requires_grad and base.is_contiguous()
+            and base.dtype == torch.float32):
+        # views of one frozen tensor (prepare_bert's q/k/v) stay views of
+        # one cast copy; keyed by id, the base kept alive
+        cast = bases.setdefault(id(base), (base, base.to(dtype)))[1]
+        return cast.as_strided(tree.shape, tree.stride(),
+                               tree.storage_offset() - base.storage_offset())
+    return tree.to(dtype)
+
+
+def compute_cast(spec: ModelSpec):
+    """The compute policy's boundary cast (the JAX package's
+    ``_compute_cast``): a function taking a tree of dicts / lists / tensors
+    / :class:`SupernetMasks` to the same tree with every float32 tensor in
+    ``spec.compute_dtype`` (``Tensor.to``: its backward returns float32
+    gradients to a float32 leaf); integer and already-cast tensors are
+    kept.  The identity under float32."""
+    dtype = COMPUTE_DTYPES[spec.compute_dtype]
+    return lambda tree: cast_tree(tree, dtype)
+
+
 def _hp(spec: ModelSpec, embed_dim: int, layers: int) -> EncoderHParams:
     return EncoderHParams(embed_dim_in=embed_dim, num_heads=spec.num_heads,
                           head_dim=spec.head_dim, layers=layers,
@@ -93,10 +143,12 @@ def _hp_top(spec: ModelSpec) -> EncoderHParams:
 def _check_spec(spec: ModelSpec) -> None:
     if spec.attn_impl not in ("xla", "flash"):
         raise ValueError(f"unknown attn_impl {spec.attn_impl!r}; valid: 'xla', 'flash'")
-    if spec.compute_dtype != "float32":
-        raise NotImplementedError("compute_dtype other than float32 is not "
-                                  "ported yet (the kernels take float32): "
-                                  "ROADMAP Queue 1, 'the bf16 compute policy'")
+    if spec.compute_dtype not in COMPUTE_DTYPES:
+        raise NotImplementedError(f"compute_dtype {spec.compute_dtype!r} is not ported "
+                                  "(float32 and bfloat16 are): ROADMAP Queue 2, 'bf16'")
+    if spec.compute_dtype == "bfloat16" and spec.attn_impl == "flash":
+        raise NotImplementedError(f"attn_impl='flash' under bfloat16: the flash kernels "
+                                  f"(K5) {_build.BF16_TODO}")
 
 
 def init_supernet(gen: torch.Generator, spec: ModelSpec,
@@ -104,13 +156,15 @@ def init_supernet(gen: torch.Generator, spec: ModelSpec,
                   device="cpu") -> Tuple[dict, dict]:
     """Random init with torch's distributions -> (params, frozen) on
     ``device``.  ``frozen`` holds the BERT weights when a text modality
-    exists."""
+    exists, in the spec's compute dtype; the parameters are float32."""
     _check_spec(spec)
     M = spec.modality_num
     frozen = {}
     if any(spec.header_kind(c) == "bert_rnn" for c in spec.modality_set):
         cfg = bert_cfg or bert_mod.BertConfig()
-        frozen["bert"] = bert_mod.prepare_bert(bert_mod.init_bert(gen, cfg), device)
+        # in the compute dtype once: the boundary cast leaves it as it is
+        frozen["bert"] = bert_mod.prepare_bert(bert_mod.init_bert(gen, cfg), device,
+                                               COMPUTE_DTYPES[spec.compute_dtype])
     cdim = spec.combined_dim
     params = {
         "proj": [init_header(gen, spec, i, bert_cfg) for i in range(M)],
@@ -129,11 +183,16 @@ def init_supernet(gen: torch.Generator, spec: ModelSpec,
 def supernet_headers(spec: ModelSpec, params: dict, inputs: Sequence[torch.Tensor],
                      *, frozen: Optional[dict] = None,
                      bert_cfg: Optional[bert_mod.BertConfig] = None) -> torch.Tensor:
-    """Projection headers only: ``inputs`` -> stacked ``base`` [M, B, 1, d].
-    Every modality runs, active or not, as in the reference."""
+    """Projection headers only: ``inputs`` -> stacked ``base`` [M, B, 1, d]
+    in the compute dtype.  Every modality runs, active or not, as in the
+    reference."""
+    _check_spec(spec)
+    cast = compute_cast(spec)
+    proj, inputs = cast(params["proj"]), cast(list(inputs))
+    if frozen is not None:
+        frozen = cast(frozen)
     return torch.stack([
-        header_apply(spec.header_kind(ch), params["proj"][i], inputs[i], frozen,
-                     bert_cfg)
+        header_apply(spec.header_kind(ch), proj[i], inputs[i], frozen, bert_cfg)
         for i, ch in enumerate(spec.modality_set)])
 
 
@@ -144,8 +203,13 @@ def supernet_trunk(spec: ModelSpec, params: dict, masks: SupernetMasks,
     top -> head MLP -> predictions [B, output_dim] (or [B, T, output_dim]
     when ``spec.all_steps``).  Train mode draws its dropout from
     ``generator`` (one seeded 0 on ``base``'s device when None, as the JAX
-    package falls back to ``PRNGKey(0)``)."""
+    package falls back to ``PRNGKey(0)``).  Parameters, masks and ``base``
+    are cast to the compute dtype here; the predictions are float32."""
     _check_spec(spec)
+    cast = compute_cast(spec)
+    params = cast({k: params[k] for k in ("mems0", "cross", "mems", "proj1", "proj2",
+                                          "out_layer")})
+    masks, base = cast(masks), cast(base)
     M, d = spec.modality_num, spec.dimension
     if train and generator is None:
         generator = torch.Generator(device=base.device).manual_seed(0)
@@ -195,7 +259,7 @@ def supernet_trunk(spec: ModelSpec, params: dict, masks: SupernetMasks,
     h1 = dropout(h1, spec.out_dropout, train, generator)
     h2 = masked_linear(h1, params["proj2"]["w"], params["proj2"]["b"], mask_out=ch)
     h2 = h2 + out
-    return masked_linear(h2, params["out_layer"]["w"], params["out_layer"]["b"])
+    return masked_linear(h2, params["out_layer"]["w"], params["out_layer"]["b"]).float()
 
 
 def supernet_apply(spec: ModelSpec, params: dict, masks: SupernetMasks,

@@ -19,6 +19,14 @@ draws it.  On the T>1 path the dropout follows the softmax.
 with the future mask generated from its rule (``causal_offset``) instead of
 an additive bias, and, in train mode at a nonzero rate, the in-softmax
 position-hash dropout seeded per (batch, head) from the call's generator.
+
+bf16 activations and weights (the bf16 compute policy) round where the
+JAX package rounds: each projection (and the logits) sums in float32,
+adds its bias in float32 and is rounded once; the softmax is float32,
+its weights rounded; ``weights @ v`` sums in float32 and is rounded.  The
+products of bf16 values are taken as float32 matmuls of the upcast
+operands (exact products, float32 sums); under float32 the upcasts and
+casts are no-ops.
 """
 
 from __future__ import annotations
@@ -74,17 +82,22 @@ def multihead_attention(params: dict, query: torch.Tensor, key: torch.Tensor,
     b_in = params["in_proj_b"]
     hd = head_mask[:, None] * head_dim_mask[None, :]
 
+    dt = query.dtype
+
     def proj(x, i):
-        return (torch.einsum("btc,hdc->bthd", x, w_in[i]) + b_in[i]) * hd
+        y = torch.einsum("btc,hdc->bthd", x.float(), w_in[i].float())
+        return ((y + b_in[i]) * hd).to(dt)
 
     def out_proj(attn):
-        out = torch.einsum("bqhd,ehd->bqe", attn, params["out_w"]) + params["out_b"]
-        return out * channel_mask if channel_mask is not None else out
+        out = torch.einsum("bqhd,ehd->bqe", attn.float(), params["out_w"].float())
+        out = out + params["out_b"]
+        return (out * channel_mask if channel_mask is not None else out).to(dt)
 
     if query.shape[1] == 1 and key.shape[1] == 1 and (attn_bias is None or impl == "flash"):
         v = proj(value, 2)
         if train and attn_dropout != 0.0:
-            ones = torch.ones(query.shape[0], w_in.shape[1], 1, 1, device=query.device)
+            ones = torch.ones(query.shape[0], w_in.shape[1], 1, 1, dtype=dt,
+                              device=query.device)
             v = dropout(ones, attn_dropout, train, generator).transpose(1, 2) * v
         return out_proj(v)
 
@@ -92,7 +105,7 @@ def multihead_attention(params: dict, query: torch.Tensor, key: torch.Tensor,
     k = proj(key, 1)
     v = proj(value, 2)
     active_dh = torch.clamp(head_dim_mask.float().sum(), min=1.0)
-    q = q * torch.rsqrt(active_dh)
+    q = q * torch.rsqrt(active_dh).to(dt)
     if impl == "flash":
         if attn_bias is not None:
             raise ValueError("impl='flash' takes the future mask as causal_offset, "
@@ -112,9 +125,9 @@ def multihead_attention(params: dict, query: torch.Tensor, key: torch.Tensor,
             offset=causal_offset if causal_offset is not None else 1,
             dropout_seeds=seeds, dropout_rates=rates)
         return out_proj(attn.transpose(1, 2))
-    logits = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    logits = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float())
     if attn_bias is not None:
         logits = logits + attn_bias
-    weights = torch.softmax(logits.float(), dim=-1)
+    weights = torch.softmax(logits.float(), dim=-1).to(dt)
     weights = dropout(weights, attn_dropout, train, generator)
-    return out_proj(torch.einsum("bhqk,bkhd->bqhd", weights, v))
+    return out_proj(torch.einsum("bhqk,bkhd->bqhd", weights.float(), v.float()).to(dt))

@@ -489,7 +489,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``k``, ``v [B, H, Tk, D]`` -> ``[B, H, Tq, D]``.  ``offset`` defaults to
     the reference's ``1 + |Tk - Tq|``; pass ``dropout_seeds [B*H]`` int32 and
     ``dropout_rates [B*H]`` for the in-softmax dropout.  CPU tensors run the
-    plain version under autograd; CUDA tensors run K5f and :func:`flash_bwd`."""
+    plain version under autograd; CUDA tensors run K5f and :func:`flash_bwd`.
+    bf16 raises NotImplementedError (no bf16 instance of K5)."""
+    _build.refuse_bf16("flash_attention (K5)", q, k, v)
     offset = _offset(q.shape[2], k.shape[2], causal, offset)
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, offset, dropout_seeds,
@@ -525,7 +527,9 @@ def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rather than losing its gradient.  CPU tensors take the plain version.
     On the card one launch (a mask that is not int32 on the card is
     converted first), planned by ``bert_attn_cuda._plan_attention`` with
-    ``Lk=Tk``: the unit path at Tq, Tk <= 64, else the tiled path."""
+    ``Lk=Tk``: the unit path at Tq, Tk <= 64, else the tiled path.  bf16
+    raises NotImplementedError (no bf16 instance of K8)."""
+    _build.refuse_bf16("flash_attention_masked (K8)", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_masked_plain(q, k, v, key_mask)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

@@ -19,6 +19,17 @@ and run their plain PyTorch versions on a CPU tensor:
     (``attention_cuda.flash_attention_masked``) under a hard key mask.
 
 The key-padding bias is HF's additive ``(1 - mask) * -10000``.
+
+K2 has a bf16 instance (``mmtr_attn_block_fwd_bf16``): bf16 ``x`` and
+weights take it on the card, its plain version on the CPU, at the JAX
+kernel's rounding points (q/k/v after their float32 bias, the softmax
+probabilities, each head's output, the o-projection after its bias; the
+residual sum, then a float32-moment LN rounded to bf16), the products on
+the bf16 tensor cores (the projections on ``csrc/gemm_bf16.cuh``, Q K^T
+and P V on ``attention_bf16_kernel``); ``softmax_dtype="bfloat16"`` runs
+the exp / sum / divide tail in bf16, as ``ATTN_SOFTMAX`` selects in the
+JAX package.  It takes L <= 64 (a unit's queries and keys held at once;
+the training shape is L = 32).  K6a has no bf16 instance.
 """
 
 from __future__ import annotations
@@ -127,12 +138,13 @@ def _cached_block_plan(B, L, h, n_heads, num_sms, aligned):
 
 
 def _gated(parts, n: int):
-    """``parts`` (contiguous, ``n`` float32s each) as one operand: (its
+    """``parts`` (contiguous, ``n`` elements each) as one operand: (its
     address, a tensor to keep alive while it is read).  In place where each
     starts where the one before it ends, as the views of one stacked tensor
     do (None to keep); else stacked by ``torch.cat``."""
     base = parts[0].data_ptr()
-    if all(p.data_ptr() == base + 4 * n * i for i, p in enumerate(parts)):
+    size = parts[0].element_size()
+    if all(p.data_ptr() == base + size * n * i for i, p in enumerate(parts)):
         return base, None
     stacked = torch.cat(parts)
     return stacked.data_ptr(), stacked
@@ -150,9 +162,40 @@ def dense_attention_plain(q, k, v, key_mask) -> torch.Tensor:
     return torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, L, n_heads * dh)
 
 
+def _attention_block_plain_bf16(x, key_mask, wq_t, qb, wk_t, kb, wv_t, vb, wo_t, ob, ln_g,
+                                ln_b, n_heads: int, eps: float,
+                                softmax_dtype: str) -> torch.Tensor:
+    """The bf16 instance's plain version (JAX ``_attn_block_kernel`` at
+    bf16): products of bf16 values as float32 matmuls of the upcast
+    operands, the bias added in float32, then rounded to bf16; the
+    residual sum ``x + y`` rounded to bf16, then the LN."""
+    b, L, h = x.shape
+    dh = h // n_heads
+    bf = torch.bfloat16
+    xf = x.float()
+
+    def proj(w, bias):
+        return (xf @ w.float() + bias.float()).to(bf).float().reshape(b, L, n_heads, dh)
+
+    q, k, v = proj(wq_t, qb), proj(wk_t, kb), proj(wv_t, vb)
+    bias = (1.0 - key_mask.float()) * -10000.0
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(dh) + bias[:, None, None, :]
+    d = s - s.amax(dim=-1, keepdim=True)
+    e = torch.exp(d.to(bf)) if softmax_dtype == "bfloat16" else torch.exp(d)
+    p = (e / e.sum(dim=-1, keepdim=True)).to(bf).float()
+    attn = torch.einsum("bhqk,bkhd->bqhd", p, v).to(bf).reshape(b * L, h)
+    y = (attn.float() @ wo_t.float() + ob.float()).to(bf).reshape(b, L, h)
+    return masked_layer_norm(x + y, ln_g, ln_b, eps=eps)
+
+
 def attention_block_plain(x, key_mask, wq_t, qb, wk_t, kb, wv_t, vb, wo_t, ob,
-                          ln_g, ln_b, *, n_heads: int, eps: float) -> torch.Tensor:
-    """Plain PyTorch version of the kernel (float32 softmax)."""
+                          ln_g, ln_b, *, n_heads: int, eps: float,
+                          softmax_dtype: str = "float32") -> torch.Tensor:
+    """Plain PyTorch version of the kernel (float32 softmax; bf16 ``x``:
+    the bf16 instance's, ``softmax_dtype`` its softmax tail)."""
+    if x.dtype == torch.bfloat16:
+        return _attention_block_plain_bf16(x, key_mask, wq_t, qb, wk_t, kb, wv_t, vb, wo_t,
+                                           ob, ln_g, ln_b, n_heads, eps, softmax_dtype)
     b, L, h = x.shape
 
     def proj(w, bias):
@@ -162,25 +205,106 @@ def attention_block_plain(x, key_mask, wq_t, qb, wk_t, kb, wv_t, vb, wo_t, ob,
     return masked_layer_norm(x + (torch.matmul(attn, wo_t) + ob), ln_g, ln_b, eps=eps)
 
 
+def _plan_attn_block_bf16(B: int, L: int, h: int, n_heads: int,
+                          num_sms: int = _build.NUM_SMS, x_addr: int = 0, w_addr: int = 0,
+                          wo_addr: int = 0) -> dict:
+    """K2's bf16 plan: :func:`gemm_tc.plan_bf16` for the q/k/v product
+    (``[B*L, h] x [h, 3h]``, B gated [3, h, h]) and the o-projection (A:
+    the fresh bf16 attention output).  The attention stage
+    (``attention_bf16_kernel``, a block a unit) holds a unit's queries and
+    keys at once and reads heads in 16-byte copies: L > 64, dh > 64, or dh
+    or h not a multiple of 8 raise NotImplementedError."""
+    dh = h // n_heads
+    if L > 64 or dh > 64 or dh % 8 or h % 8:
+        raise NotImplementedError(f"the bf16 attention block at L={L}, h={h}, dh={dh}: the "
+                                  "bf16 instance takes L <= 64 and dh <= 64, dh and h "
+                                  "multiples of 8 (ROADMAP Queue 2, 'bf16')")
+    rows = B * L
+    cw_h = gemm_tc.bf16_copy_width((h,))
+    qkv = gemm_tc.plan_bf16(rows, 3 * h, h, gemm_tc.bf16_copy_width((h,), (x_addr,)),
+                            gemm_tc.bf16_copy_width((h,), (w_addr,)), num_sms)
+    o = gemm_tc.plan_bf16(rows, h, h, cw_h, gemm_tc.bf16_copy_width((h,), (wo_addr,)),
+                          num_sms)
+    return {"qkv": qkv, "o": o, "partial": max(qkv["partial"], o["partial"])}
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_block_plan_bf16(B, L, h, n_heads, num_sms, x_addr, w_addr, wo_addr):
+    """K2's bf16 plan as csrc/bert_attn.cu reads it: (C int array, its
+    address, the floats of split planes)."""
+    p = _plan_attn_block_bf16(B, L, h, n_heads, num_sms, x_addr, w_addr, wo_addr)
+    ints = [p[k][key] for k in ("qkv", "o") for key in gemm_tc.BF_PLAN_KEYS]
+    return _build.host_ints(ints) + (p["partial"],)
+
+
+def _attention_block_bf16(x, mask, wq_t, qb, wk_t, kb, wv_t, vb, wo_t, ob, ln_g, ln_b,
+                          n_heads: int, eps: float, softmax_dtype: str) -> torch.Tensor:
+    dev = x.device
+    b, L, h = x.shape
+    _build.require_all(dev, [(x, "x", (b, L, h))]
+                       + [(t, name, (h, h)) for name, t in (("wq_t", wq_t), ("wk_t", wk_t),
+                                                           ("wv_t", wv_t), ("wo_t", wo_t))]
+                       + [(t, name, (h,)) for name, t in (("qb", qb), ("kb", kb), ("vb", vb),
+                                                         ("ob", ob), ("ln_g", ln_g),
+                                                         ("ln_b", ln_b))], torch.bfloat16)
+    _build.require(mask, "key_mask", (b, L), dev)
+    wqkv, _w = _gated((wq_t, wk_t, wv_t), h * h)
+    bqkv, _b = _gated((qb, kb, vb), h)
+    plan = _cached_block_plan_bf16(b, L, h, n_heads, _build.num_sms(dev), x.data_ptr() % 16,
+                                   wqkv % 16, wo_t.data_ptr() % 16)
+    qkv = torch.empty(3, b * L, h, dtype=torch.bfloat16, device=dev)
+    attn = torch.empty(b * L, h, dtype=torch.bfloat16, device=dev)
+    resid_sum = torch.empty(b * L, h, dtype=torch.bfloat16, device=dev)
+    partial = torch.empty(plan[2], dtype=torch.float32, device=dev) if plan[2] else None
+    out = torch.empty_like(x)
+    err = _build.load_library().mmtr_attn_block_fwd_bf16(
+        x.data_ptr(), mask.data_ptr(), wqkv, bqkv, wo_t.data_ptr(), ob.data_ptr(),
+        ln_g.data_ptr(), ln_b.data_ptr(), qkv.data_ptr(), attn.data_ptr(),
+        resid_sum.data_ptr(), out.data_ptr(), partial.data_ptr() if partial is not None else 0,
+        b, L, h, n_heads, eps, int(softmax_dtype == "bfloat16"), plan[1],
+        _build.stream_ptr(dev))
+    _build.check(err, "attention_block_fused kernel (bf16)")
+    attention_block_fused.launches_bf16 += 1
+    return out
+
+
 def attention_block_fused(x: torch.Tensor, key_mask: torch.Tensor,
                           wq_t, qb, wk_t, kb, wv_t, vb, wo_t, ob, ln_g, ln_b,
-                          *, n_heads: int, eps: float) -> torch.Tensor:
+                          *, n_heads: int, eps: float,
+                          softmax_dtype: str = "float32") -> torch.Tensor:
     """HF BertSelfAttention + BertSelfOutput: ``x [B, L, h]``,
     ``key_mask [B, L]`` (1 = attend), weights ``[h, h]`` in ``x @ w_t``
     orientation, biases and LN params ``[h]``.  ``wq_t, wk_t, wv_t`` that
     lie one after the other in memory (views of one ``[3, h, h]`` tensor,
     as ``models/bert.prepare_bert`` makes them) are the q/k/v product's
     operand in place, as are ``qb, kb, vb`` (of one ``[3h]``); others are
-    stacked into one per call."""
+    stacked into one per call.  bf16 ``x`` and weights take the bf16
+    instance; ``softmax_dtype="bfloat16"`` (its softmax tail in bf16)
+    needs them."""
+    if softmax_dtype not in ("float32", "bfloat16"):
+        raise ValueError(f"unknown softmax_dtype {softmax_dtype!r}")
+    if softmax_dtype == "bfloat16" and x.dtype != torch.bfloat16:
+        raise NotImplementedError("the bf16 softmax tail on float32 activations "
+                                  + _build.BF16_TODO)
+    if x.dtype == torch.bfloat16 and x.shape[1] > _ATT_KT:
+        # on every device, so that the CPU computes nothing the card refuses
+        raise NotImplementedError(f"the bf16 attention block at L={x.shape[1]}: the bf16 "
+                                  "instance takes L <= 64 (ROADMAP Queue 2, 'bf16')")
     if x.device.type == "cpu":
         return attention_block_plain(x, key_mask, wq_t, qb, wk_t, kb, wv_t, vb,
-                                     wo_t, ob, ln_g, ln_b, n_heads=n_heads, eps=eps)
+                                     wo_t, ob, ln_g, ln_b, n_heads=n_heads, eps=eps,
+                                     softmax_dtype=softmax_dtype)
     dev = _build.device_of(x)
     b, L, h = x.shape
     if h % n_heads or h // n_heads > _MAX_HEAD_DIM:
         raise ValueError(f"width {h} with {n_heads} heads: the kernel takes "
                          f"head_dim = h / n_heads <= {_MAX_HEAD_DIM}")
     mask = key_mask.to(device=dev, dtype=torch.float32).contiguous()
+    if x.dtype == torch.bfloat16:
+        out = _attention_block_bf16(x, mask, wq_t, qb, wk_t, kb, wv_t, vb, wo_t, ob, ln_g,
+                                    ln_b, n_heads, eps, softmax_dtype)
+        attention_block_fused.launches += 1
+        return out
     _build.require_all(dev, [(x, "x", (b, L, h)), (mask, "key_mask", (b, L))]
                        + [(t, name, (h, h)) for name, t in (("wq_t", wq_t), ("wk_t", wk_t),
                                                            ("wv_t", wv_t), ("wo_t", wo_t))]
@@ -208,13 +332,16 @@ def attention_block_fused(x: torch.Tensor, key_mask: torch.Tensor,
 
 
 attention_block_fused.launches = 0
+attention_block_fused.launches_bf16 = 0
 
 
 def dense_attention_blockdiag(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               key_mask: torch.Tensor) -> torch.Tensor:
     """Multi-head attention over projected ``q, k, v [B, L, H, dh]``
     (unscaled; the 1/sqrt(dh) happens in the kernel) with ``key_mask [B, L]``
-    (1 = attend) -> ``[B, L, H * dh]``.  A fully masked item stays finite."""
+    (1 = attend) -> ``[B, L, H * dh]``.  A fully masked item stays finite.
+    No bf16 instance: bf16 q / k / v raise NotImplementedError."""
+    _build.refuse_bf16("dense_attention_blockdiag (K6a)", q, k, v)
     if q.device.type == "cpu":
         return dense_attention_plain(q, k, v, key_mask)
     dev = _build.device_of(q)

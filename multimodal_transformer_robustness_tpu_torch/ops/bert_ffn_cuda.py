@@ -24,7 +24,12 @@ tensor and runs its plain PyTorch version on a CPU tensor:
 
 K3's two products and K6b's run on ``csrc/gemm_tc.cuh``'s 3xTF32 tensor-core
 GEMM by the plans :func:`_plan_ffn` and :func:`_plan_proj_ln` compute on the
-host.  Float weights come pre-transposed (``w_t = weight.T``, made once at
+host.  K3 has a bf16 instance (``mmtr_ffn_ln_fwd_bf16``, its products on
+the bf16 tensor cores of ``csrc/gemm_bf16.cuh`` by :func:`_plan_ffn_bf16`):
+bf16 ``x`` and weights take it, or its plain version on the CPU, at the
+JAX kernel's rounding points (fc1 + b1, the gelu, fc2 + b2 and the
+residual sum each rounded to bf16; LN moments in float32).  K6b, K4 and
+the int8 projections have none: bf16 operands raise NotImplementedError.  Float weights come pre-transposed (``w_t = weight.T``, made once at
 load time).  Quantized weights are ``{"q": int8 [out, in], "s": float32 [out]}``
 dicts as ``models/bert.quantize_bert_params`` makes them, never transposed.
 """
@@ -51,7 +56,16 @@ _ERF_Q = (-1.1791602954361697e-7, 2.3547966471313185e-5,
 
 def ffn_ln_block_plain(x, w1t, b1, w2t, b2, ln_g, ln_b, *, eps: float) -> torch.Tensor:
     """Plain PyTorch version of the kernel; exact-erf gelu, float32 centered
-    LayerNorm moments."""
+    LayerNorm moments.  bf16 ``x``: the bf16 instance's, products of bf16
+    values as float32 matmuls of the upcast operands, each bias added in
+    float32 and then rounded, as JAX ``_ffn_ln_kernel`` at bf16; the
+    residual sum ``x + y`` of bf16 values rounded to bf16, then the LN."""
+    if x.dtype == torch.bfloat16:
+        bf = torch.bfloat16
+        h1 = (x.float() @ w1t.float() + b1.float()).to(bf)
+        g1 = F.gelu(h1.float(), approximate="none").to(bf)
+        y = (g1.float() @ w2t.float() + b2.float()).to(bf)
+        return masked_layer_norm(x + y, ln_g, ln_b, eps=eps)
     h1 = F.gelu(torch.matmul(x, w1t) + b1, approximate="none")
     y = torch.matmul(h1, w2t) + b2
     return masked_layer_norm(x + y, ln_g, ln_b, eps=eps)
@@ -88,6 +102,50 @@ def _cached_ffn_plan(rows, h, ffn, num_sms, aligned):
     return ints + (p["scratch"], p["fused_ln"])
 
 
+def _plan_ffn_bf16(rows: int, h: int, ffn: int, num_sms: int = _build.NUM_SMS,
+                   x_addr: int = 0, w1_addr: int = 0, w2_addr: int = 0) -> dict:
+    """K3's bf16 plan: :func:`gemm_tc.plan_bf16` for fc1 (``[rows, h] x
+    [h, ffn]``) and fc2 (``[rows, ffn] x [ffn, h]``, A the fresh bf16
+    hidden); ``partial``: the larger of their split planes."""
+    fc1 = gemm_tc.plan_bf16(rows, ffn, h, gemm_tc.bf16_copy_width((h,), (x_addr,)),
+                            gemm_tc.bf16_copy_width((ffn,), (w1_addr,)), num_sms)
+    fc2 = gemm_tc.plan_bf16(rows, h, ffn, gemm_tc.bf16_copy_width((ffn,)),
+                            gemm_tc.bf16_copy_width((h,), (w2_addr,)), num_sms)
+    return {"fc1": fc1, "fc2": fc2, "partial": max(fc1["partial"], fc2["partial"])}
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_ffn_plan_bf16(rows, h, ffn, num_sms, x_addr, w1_addr, w2_addr):
+    p = _plan_ffn_bf16(rows, h, ffn, num_sms, x_addr, w1_addr, w2_addr)
+    ints = [p[fc][k] for fc in ("fc1", "fc2") for k in gemm_tc.BF_PLAN_KEYS]
+    return _build.host_ints(ints) + (p["partial"],)
+
+
+def _ffn_ln_block_bf16(x, w1t, b1, w2t, b2, ln_g, ln_b, eps: float) -> torch.Tensor:
+    dev = x.device
+    h = x.shape[-1]
+    ffn = w1t.shape[-1]
+    rows = x.numel() // h
+    _build.require_all(dev, ((x, "x", x.shape), (w1t, "w1t", (h, ffn)), (b1, "b1", (ffn,)),
+                             (w2t, "w2t", (ffn, h)), (b2, "b2", (h,)), (ln_g, "ln_g", (h,)),
+                             (ln_b, "ln_b", (h,))), torch.bfloat16)
+    plan = _cached_ffn_plan_bf16(rows, h, ffn, _build.num_sms(dev), x.data_ptr() % 16,
+                                 w1t.data_ptr() % 16, w2t.data_ptr() % 16)
+    bf = dict(dtype=torch.bfloat16, device=dev)
+    hidden = torch.empty(rows, ffn, **bf)
+    resid_sum = torch.empty(rows, h, **bf)
+    partial = torch.empty(plan[2], dtype=torch.float32, device=dev) if plan[2] else None
+    out = torch.empty_like(x)
+    err = _build.load_library().mmtr_ffn_ln_fwd_bf16(
+        x.data_ptr(), w1t.data_ptr(), b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(),
+        ln_g.data_ptr(), ln_b.data_ptr(), hidden.data_ptr(), resid_sum.data_ptr(),
+        out.data_ptr(), partial.data_ptr() if partial is not None else 0, rows, h, ffn, eps,
+        plan[1], _build.stream_ptr(dev))
+    _build.check(err, "ffn_ln_block kernel (bf16)")
+    ffn_ln_block.launches_bf16 += 1
+    return out
+
+
 def ffn_ln_block(x: torch.Tensor, w1t: torch.Tensor, b1: torch.Tensor,
                  w2t: torch.Tensor, b2: torch.Tensor, ln_g: torch.Tensor,
                  ln_b: torch.Tensor, *, eps: float) -> torch.Tensor:
@@ -98,6 +156,10 @@ def ffn_ln_block(x: torch.Tensor, w1t: torch.Tensor, b1: torch.Tensor,
     if x.device.type == "cpu":
         return ffn_ln_block_plain(x, w1t, b1, w2t, b2, ln_g, ln_b, eps=eps)
     dev = _build.device_of(x)
+    if x.dtype == torch.bfloat16:
+        out = _ffn_ln_block_bf16(x, w1t, b1, w2t, b2, ln_g, ln_b, eps)
+        ffn_ln_block.launches += 1
+        return out
     h = x.shape[-1]
     ffn = w1t.shape[-1]
     rows = x.numel() // h
@@ -122,6 +184,7 @@ def ffn_ln_block(x: torch.Tensor, w1t: torch.Tensor, b1: torch.Tensor,
 
 
 ffn_ln_block.launches = 0
+ffn_ln_block.launches_bf16 = 0
 
 
 # ------------------------------------------------------------------- K6b
@@ -162,6 +225,7 @@ def proj_ln_block(resid: torch.Tensor, a: torch.Tensor, w_t: torch.Tensor,
     ``[..., h]`` with the same leading dims, ``w_t [h, h]`` (= weight.T).
     W^T's TF32 planes are made per call (the wgmma path's ``scratch``), as
     K2's are."""
+    _build.refuse_bf16("proj_ln_block (K6b)", resid, a, w_t)
     if resid.device.type == "cpu":
         return proj_ln_block_plain(resid, a, w_t, b, ln_g, ln_b, eps=eps)
     dev = _build.device_of(resid)
@@ -316,6 +380,7 @@ int8_matmul.launches = 0
 def qrows(x: torch.Tensor):
     """:func:`qrows_plain` through K4's row-quantize kernel on a CUDA
     tensor."""
+    _build.refuse_bf16("qrows (the int8 BERT)", x)
     if x.device.type == "cpu":
         return qrows_plain(x)
     dev = _build.device_of(x)
@@ -386,6 +451,7 @@ def ffn_ln_block_q(x: torch.Tensor, w1: dict, b1: torch.Tensor, w2: dict,
     ``w1 = {"q": int8 [F, h], "s": [F]}``, ``w2 = {"q": int8 [h, F], "s":
     [h]}``.  ``return_codes`` also returns the hidden int8 codes ``[rows, F]``
     and their row scales ``[rows, 1]``, to count flipped codes in a check."""
+    _build.refuse_bf16("ffn_ln_block_q (K4)", x)
     if x.device.type == "cpu":
         return ffn_ln_block_q_plain(x, w1, b1, w2, b2, ln_g, ln_b, eps=eps,
                                     return_codes=return_codes)

@@ -16,6 +16,16 @@ reference-layout parameters ``w_ih / w_hh / b_ih / b_hh``.
 
 The zero-padded bucket steps are run like any other step, as on the TPU:
 no packing, no length masking.
+
+bf16 operands (the JAX kernels' production dtype, under the bf16 compute
+policy) take the kernels' bf16 instances (``mmtr_gru_dir_fwd_bf16`` /
+``mmtr_gru_dir_bwd_bf16``: the products on the bf16 tensor cores,
+``csrc/gemm_bf16.cuh``) and, on the CPU, the bf16 plain versions, at the
+JAX kernels' rounding points: the gate pre-activations and h are carried
+in float32, h is rounded to bf16 for ``h W_hh^T`` and for the output; the
+backward rounds ``da`` for the carry and the reductions, and returns dx,
+dW and db rounded to bf16 (the JAX VJP's cast to the weights' dtype).
+``launches_bf16`` counts the bf16 launches within ``launches``.
 """
 
 from __future__ import annotations
@@ -42,10 +52,20 @@ def dir_operands(p: dict) -> dict:
     return {"wp": wp, "wt": wt, "bc": bc, "bhn": bh[2].contiguous()}
 
 
+_BF16 = torch.bfloat16
+
+
+def _rbf(t: torch.Tensor) -> torch.Tensor:
+    """``t`` rounded to bf16, as float32."""
+    return t.to(_BF16).float()
+
+
 def gru_dir_plain(x: torch.Tensor, wp: torch.Tensor, wt: torch.Tensor,
                   bc: torch.Tensor, bhn: torch.Tensor,
                   reverse: bool = False) -> torch.Tensor:
     """Plain PyTorch version of the kernel: x [T, B, in] -> h [T, B, H]."""
+    if x.dtype == _BF16:
+        return _gru_dir_plain_bf16(x, wp, wt, bc, bhn, reverse)
     t_len, b = x.shape[0], x.shape[1]
     h_dim = wt.shape[-1]
     g = torch.matmul(x.unsqueeze(0), wp.unsqueeze(1)) + bc[:, None, None, :]
@@ -58,6 +78,26 @@ def gru_dir_plain(x: torch.Tensor, wp: torch.Tensor, wt: torch.Tensor,
         n = torch.tanh(g[2, t] + r * (h @ wt[2] + bhn))
         h = (1.0 - z) * n + z * h
         out[t] = h
+    return torch.stack(out)
+
+
+def _gru_dir_plain_bf16(x, wp, wt, bc, bhn, reverse: bool) -> torch.Tensor:
+    """The bf16 instance's plain version: products of bf16 values as
+    float32 matmuls of the upcast operands (exact products, float32 sums),
+    h carried in float32 and rounded to bf16 for ``h W_hh^T`` and the
+    output (JAX ``bigru_pallas._fwd_kernel`` at bf16)."""
+    t_len, b = x.shape[0], x.shape[1]
+    wtf, bhnf = wt.float(), bhn.float()
+    g = torch.matmul(x.float().unsqueeze(0), wp.float().unsqueeze(1)) + bc.float()[:, None, None, :]
+    h = torch.zeros(b, wt.shape[-1], dtype=torch.float32, device=x.device)
+    out = [None] * t_len
+    for t in (range(t_len - 1, -1, -1) if reverse else range(t_len)):
+        hm = _rbf(h)
+        r = torch.sigmoid(g[0, t] + hm @ wtf[0])
+        z = torch.sigmoid(g[1, t] + hm @ wtf[1])
+        n = torch.tanh(g[2, t] + r * (hm @ wtf[2] + bhnf))
+        h = (1.0 - z) * n + z * h
+        out[t] = h.to(_BF16)
     return torch.stack(out)
 
 
@@ -139,6 +179,32 @@ def _plan_gru_fwd(T: int, B: int, in_dim: int, H: int, num_sms: int = _build.NUM
 GEMM_PLAN_KEYS = tuple(f"gemm_{k}" for k in gemm_tc.PLAN_KEYS)
 
 
+def _plan_gru_fwd_bf16(T: int, B: int, in_dim: int, H: int, num_sms: int = _build.NUM_SMS,
+                       x_addr: int = 0, wp_addr: int = 0) -> dict:
+    """The bf16 instance's plan: the projection by :func:`gemm_tc.plan_bf16`
+    (A = x with row stride ``in``, B = W_ih^T gated [3, in, H]: copies that
+    stay in one gate; ``partial``: its split planes), then
+    :func:`_plan_recurrence` as the float plan's."""
+    acw = gemm_tc.bf16_copy_width((in_dim,), (x_addr,))
+    bcw = gemm_tc.bf16_copy_width((H,), (wp_addr,))
+    g = gemm_tc.plan_bf16(T * B, 3 * H, in_dim, acw, bcw, num_sms)
+    plan = {f"gemm_{k}": g[k] for k in gemm_tc.BF_PLAN_KEYS + ("partial",)}
+    plan.update(_plan_recurrence(1, B, H, num_sms))
+    return plan
+
+
+BF_GEMM_PLAN_KEYS = tuple(f"gemm_{k}" for k in gemm_tc.BF_PLAN_KEYS)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_plan_bf16(T, B, in_dim, H, num_sms, x_addr, wp_addr):
+    """The bf16 plan as csrc/bigru.cu reads it: (C int array, its address,
+    the floats of split planes)."""
+    p = _plan_gru_fwd_bf16(T, B, in_dim, H, num_sms, x_addr, wp_addr)
+    ints = _build.host_ints([p[k] for k in BF_GEMM_PLAN_KEYS + REC_PLAN_KEYS])
+    return ints + (p["gemm_partial"],)
+
+
 @functools.lru_cache(maxsize=None)
 def _cached_plan(T, B, in_dim, H, num_sms, aligned):
     """The plan as csrc/bigru.cu reads it: (C int array, its address, the
@@ -150,13 +216,30 @@ def _cached_plan(T, B, in_dim, H, num_sms, aligned):
 
 def _launch_fwd(x, wp, wt, bc, bhn, reverse: bool):
     """Launch K1 on the card -> (h [T, B, H], the input-side gate
-    pre-activations [3, T*B, H] that K1b reads back)."""
+    pre-activations [3, T*B, H] that K1b reads back, float32 at either
+    dtype)."""
     dev = _build.device_of(x)
     t_len, b, in_dim = x.shape
     h_dim = wt.shape[-1]
+    dt = _BF16 if x.dtype == _BF16 else torch.float32
     _build.require_all(dev, ((x, "x", (t_len, b, in_dim)), (wp, "wp", (3, in_dim, h_dim)),
                              (wt, "wt", (3, h_dim, h_dim)), (bc, "bc", (3, h_dim)),
-                             (bhn, "bhn", (h_dim,))))
+                             (bhn, "bhn", (h_dim,))), dt)
+    if dt == _BF16:
+        plan = _cached_plan_bf16(t_len, b, in_dim, h_dim, _build.num_sms(dev),
+                                 x.data_ptr() % 16, wp.data_ptr() % 16)
+        gates = torch.empty(3, t_len * b, h_dim, dtype=torch.float32, device=dev)
+        out = torch.empty(t_len, b, h_dim, dtype=_BF16, device=dev)
+        partial = (torch.empty(plan[2], dtype=torch.float32, device=dev) if plan[2]
+                   else None)
+        err = _build.load_library().mmtr_gru_dir_fwd_bf16(
+            x.data_ptr(), wp.data_ptr(), wt.data_ptr(), bc.data_ptr(), bhn.data_ptr(),
+            gates.data_ptr(), out.data_ptr(), partial.data_ptr() if partial is not None else 0,
+            t_len, b, in_dim, h_dim, int(reverse), plan[1], _build.stream_ptr(dev))
+        _build.check(err, "gru_dir kernel (bf16)")
+        gru_dir.launches += 1
+        gru_dir.launches_bf16 += 1
+        return out, gates
     plan = _cached_plan(t_len, b, in_dim, h_dim, _build.num_sms(dev),
                         x.data_ptr() % 16 == 0 and wp.data_ptr() % 16 == 0)
     gates = torch.empty(3, t_len * b, h_dim, dtype=torch.float32, device=dev)
@@ -183,19 +266,69 @@ def gru_dir(x: torch.Tensor, wp: torch.Tensor, wt: torch.Tensor,
 
 
 gru_dir.launches = 0
+gru_dir.launches_bf16 = 0
 
 
 def gru_dir_bwd_plain(x, wp, wt, bc, bhn, hs, gates, dhs, reverse: bool = False,
                       need_dx: bool = True):
     """Plain PyTorch version of K1b: ``torch.autograd.grad`` through
     :func:`gru_dir_plain` -> ``(dx or None, dwp, dwt, dbc, dbhn)``.  ``hs``
-    and ``gates`` (the kernel's saved forward) are not read."""
+    and ``gates`` (the kernel's saved forward) are not read.  bf16
+    operands take :func:`_gru_dir_bwd_plain_bf16`."""
+    if x.dtype == _BF16:
+        return _gru_dir_bwd_plain_bf16(x, wp, wt, bc, bhn, hs, dhs, reverse, need_dx)
     with torch.enable_grad():
         x_ = x.detach().requires_grad_(need_dx)
         ws = [w.detach().requires_grad_(True) for w in (wp, wt, bc, bhn)]
         out = gru_dir_plain(x_, *ws, reverse)
         grads = torch.autograd.grad(out, ([x_] if need_dx else []) + ws, dhs)
     return ((grads[0],) if need_dx else (None,)) + tuple(grads[-4:])
+
+
+def _gru_dir_bwd_plain_bf16(x, wp, wt, bc, bhn, hs, dhs, reverse: bool, need_dx: bool):
+    """The bf16 instance's plain version, step by step newest first as
+    the JAX kernel (``bigru_pallas._bwd_kernel`` at bf16): the gates
+    recomputed from h_prev, the forward's bf16 output; ``da_r``, ``da_z``,
+    ``da_n`` and ``dghn`` rounded to bf16 for the carry, the reductions and
+    dx; products of bf16 values as float32 matmuls of the upcast operands;
+    dx, dW and db rounded to bf16 (the VJP's cast to the weights' dtype)."""
+    t_len, b, in_dim = x.shape
+    h_dim = wt.shape[-1]
+    xf, wpf, wtf, hsf = x.float(), wp.float(), wt.float(), hs.float()
+    g = torch.matmul(xf.unsqueeze(0), wpf.unsqueeze(1)) + bc.float()[:, None, None, :]
+    bhnf = bhn.float()
+    zero = torch.zeros(b, h_dim, dtype=torch.float32, device=x.device)
+    dh = zero
+    da = [[None] * t_len for _ in range(4)]          # da_r, da_z, da_n, dghn
+    hprev = [None] * t_len
+    for t in (range(t_len) if reverse else range(t_len - 1, -1, -1)):
+        tp = t + 1 if reverse else t - 1
+        h_prev = hsf[tp] if 0 <= tp < t_len else zero
+        r = torch.sigmoid(g[0, t] + h_prev @ wtf[0])
+        z = torch.sigmoid(g[1, t] + h_prev @ wtf[1])
+        gh_n = h_prev @ wtf[2] + bhnf
+        n = torch.tanh(g[2, t] + r * gh_n)
+        dht = dhs[t].float() + dh
+        da_n = dht * (1.0 - z) * (1.0 - n * n)
+        da_r = _rbf(da_n * gh_n * r * (1.0 - r))
+        da_z = _rbf(dht * (h_prev - n) * z * (1.0 - z))
+        dghn = _rbf(da_n * r)
+        dh = dht * z + da_r @ wtf[0].t() + da_z @ wtf[1].t() + dghn @ wtf[2].t()
+        for k, v in enumerate((da_r, da_z, _rbf(da_n), dghn)):
+            da[k][t] = v
+        hprev[t] = h_prev
+    rows = t_len * b
+    dar, daz, dan, dgn = (torch.stack(v).reshape(rows, h_dim) for v in da)
+    hp = torch.stack(hprev).reshape(rows, h_dim)
+    xr = xf.reshape(rows, in_dim)
+    dwp = torch.stack([xr.t() @ v for v in (dar, daz, dan)])
+    dwt = torch.stack([hp.t() @ v for v in (dar, daz, dgn)])
+    dbc = torch.stack([v.sum(0) for v in (dar, daz, dan)])
+    dx = None
+    if need_dx:
+        dx = (dar @ wpf[0].t() + daz @ wpf[1].t() + dan @ wpf[2].t()).reshape(
+            t_len, b, in_dim).to(_BF16)
+    return (dx, dwp.to(_BF16), dwt.to(_BF16), dbc.to(_BF16), dgn.sum(0).to(_BF16))
 
 
 def _plan_rec_bwd(G: int, B: int, H: int, num_sms: int = _build.NUM_SMS) -> dict:
@@ -279,6 +412,72 @@ def _cached_bwd_plan(T, B, in_dim, H, need_dx, num_sms, aligned):
     return ints + (p["partial"], p["dx_scratch"])
 
 
+def _plan_gru_bwd_bf16(T: int, B: int, in_dim: int, H: int, need_dx: bool,
+                       num_sms: int = _build.NUM_SMS, x_addr: int = 0,
+                       hs_addr: int = 0) -> dict:
+    """The bf16 instance's plan: the recurrence's five ints as the float
+    plan's (:func:`_plan_rec_bwd`), then :func:`gemm_tc.plan_bf16` for the
+    reductions over ``T*B`` rows, split into float32 planes (any number of
+    ranges, two blocks an SM), with A read transposed: ``dwp`` (x^T dg[:,
+    :3H], ``[in, 3H]``) and ``dwt`` ([h_prev | 1]^T dg, ``[H + 1, 4H]``;
+    its copies of h divide H, where the ones row starts); and ``dx`` (dg[:,
+    :3H] wp^T, ``[T*B, in]``; zeros without dx).  dg and wp^T are fresh
+    allocations, aligned."""
+    rows, h3, h4 = T * B, 3 * H, 4 * H
+    plan = _plan_rec_bwd(1, B, H, num_sms)
+    bcw = gemm_tc.bf16_copy_width((h4,))
+    dwp = gemm_tc.plan_bf16(in_dim, h3, rows, gemm_tc.bf16_copy_width((in_dim,), (x_addr,)),
+                            bcw, num_sms, max_splits=None, transposed_a=True)
+    dwt = gemm_tc.plan_bf16(H + 1, h4, rows, gemm_tc.bf16_copy_width((H,), (hs_addr,)), bcw,
+                            num_sms, max_splits=None, transposed_a=True)
+    dx = (gemm_tc.plan_bf16(rows, in_dim, h3, bcw, gemm_tc.bf16_copy_width((in_dim,)),
+                            num_sms) if need_dx else None)
+    for name, q in (("dwp", dwp), ("dwt", dwt), ("dx", dx)):
+        plan.update({f"{name}_{k}": q[k] if q else 0
+                     for k in gemm_tc.BF_PLAN_KEYS + ("partial",)})
+    return plan
+
+
+BWD_BF16_PLAN_KEYS = REC_BWD_PLAN_KEYS + tuple(f"{n}_{k}" for n in ("dwp", "dwt", "dx")
+                                               for k in gemm_tc.BF_PLAN_KEYS)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_bwd_plan_bf16(T, B, in_dim, H, need_dx, num_sms, x_addr, hs_addr):
+    """The bf16 plan as csrc/bigru_bwd.cu reads it: (C int array, its
+    address, the floats of the reductions' planes, of dx's split planes)."""
+    p = _plan_gru_bwd_bf16(T, B, in_dim, H, need_dx, num_sms, x_addr, hs_addr)
+    ints = _build.host_ints([p[k] for k in BWD_BF16_PLAN_KEYS])
+    return ints + (p["dwp_partial"] + p["dwt_partial"], p["dx_partial"])
+
+
+def _launch_bwd_bf16(x, wt, bhn, wpT, hs, gates, dhs, reverse: bool, need_dx: bool):
+    """K1b's bf16 instance -> (dx or None, red [in*3H + (H+1)*4H] bf16)."""
+    dev = _build.device_of(x)
+    t_len, b, in_dim = x.shape
+    h = wt.shape[-1]
+    plan = _cached_bwd_plan_bf16(t_len, b, in_dim, h, bool(need_dx), _build.num_sms(dev),
+                                 x.data_ptr() % 16, hs.data_ptr() % 16)
+    f32 = dict(dtype=torch.float32, device=dev)
+    bf = dict(dtype=_BF16, device=dev)
+    dg = torch.empty(t_len * b, 4 * h, **bf)
+    partial = torch.empty(plan[2], **f32)
+    red = torch.empty(in_dim * 3 * h + (h + 1) * 4 * h, **bf)
+    dx = torch.empty(t_len, b, in_dim, **bf) if need_dx else None
+    dx_partial = torch.empty(plan[3], **f32) if plan[3] else None
+    err = _build.load_library().mmtr_gru_dir_bwd_bf16(
+        x.data_ptr(), hs.data_ptr(), gates.data_ptr(), dhs.data_ptr(), wt.data_ptr(),
+        bhn.data_ptr(), wpT.data_ptr() if need_dx else 0, dg.data_ptr(), partial.data_ptr(),
+        red.data_ptr(), dx.data_ptr() if need_dx else 0,
+        dx_partial.data_ptr() if dx_partial is not None else 0, t_len, b, in_dim, h,
+        int(reverse), int(need_dx), plan[1], _build.stream_ptr(dev))
+    _build.check(err, "gru_dir_bwd kernel (bf16)")
+    gru_dir_bwd.launches += 1
+    gru_dir_bwd.launches_no_dx += int(not need_dx)
+    gru_dir_bwd.launches_bf16 += 1
+    return dx, red
+
+
 def gru_dir_bwd(x, wp, wt, bc, bhn, hs, gates, dhs, reverse: bool = False,
                 need_dx: bool = True):
     """Backward of one direction: ``x [T, B, in]``, the forward's ``hs``
@@ -292,17 +491,21 @@ def gru_dir_bwd(x, wp, wt, bc, bhn, hs, gates, dhs, reverse: bool = False,
     h = wt.shape[-1]
     rows = t_len * b
     dhs = dhs.contiguous()
+    dt = _BF16 if x.dtype == _BF16 else torch.float32
     _build.require_all(dev, ((x, "x", (t_len, b, in_dim)), (hs, "hs", (t_len, b, h)),
-                             (dhs, "dhs", (t_len, b, h)), (gates, "gates", (3, rows, h)),
-                             (wp, "wp", (3, in_dim, h)), (wt, "wt", (3, h, h)),
-                             (bhn, "bhn", (h,))))
-    plan = _cached_bwd_plan(t_len, b, in_dim, h, bool(need_dx), _build.num_sms(dev),
-                            x.data_ptr() % 16 == 0 and hs.data_ptr() % 16 == 0)
-    f32 = dict(dtype=torch.float32, device=dev)
+                             (dhs, "dhs", (t_len, b, h)), (wp, "wp", (3, in_dim, h)),
+                             (wt, "wt", (3, h, h)), (bhn, "bhn", (h,))), dt)
+    _build.require(gates, "gates", (3, rows, h), dev)
     # dg's gate blocks run n, r, z (then dghn): wp^T's rows in that order
     # (roll, not a list index, which would upload the index and stall the host)
     wpT = (wp.roll(1, 0).transpose(1, 2).reshape(3 * h, in_dim).contiguous()
            if need_dx else None)
+    if dt == _BF16:
+        dx, red = _launch_bwd_bf16(x, wt, bhn, wpT, hs, gates, dhs, reverse, need_dx)
+        return (dx,) + _unpack_red(red, in_dim, h)
+    plan = _cached_bwd_plan(t_len, b, in_dim, h, bool(need_dx), _build.num_sms(dev),
+                            x.data_ptr() % 16 == 0 and hs.data_ptr() % 16 == 0)
+    f32 = dict(dtype=torch.float32, device=dev)
     dg = torch.empty(rows, 4 * h, **f32)
     partial = torch.empty(plan[2], **f32)
     n_wp = in_dim * 3 * h
@@ -318,16 +521,23 @@ def gru_dir_bwd(x, wp, wt, bc, bhn, hs, gates, dhs, reverse: bool = False,
     _build.check(err, "gru_dir_bwd kernel")
     gru_dir_bwd.launches += 1
     gru_dir_bwd.launches_no_dx += int(not need_dx)
-    # dwp's column blocks (n, r, z) -> (r, z, n); dwt's rows 0..H-1, blocks
-    # r, z, dghn; its row H: the column sums (n, r, z, dghn)
+    return (dx,) + _unpack_red(red, in_dim, h)
+
+
+def _unpack_red(red, in_dim: int, h: int) -> tuple:
+    """The reductions' sums -> (dwp, dwt, dbc, dbhn): dwp's column blocks
+    (n, r, z) -> (r, z, n); dwt's rows 0..H-1, blocks r, z, dghn; its row
+    H: the column sums (n, r, z, dghn)."""
+    n_wp = in_dim * 3 * h
     dwp = red[:n_wp].view(in_dim, 3, h).roll(-1, 1).permute(1, 0, 2).contiguous()
     blk = red[n_wp:].view(h + 1, 4, h)
     dwt = blk[:h, 1:].permute(1, 0, 2).contiguous()
-    return dx, dwp, dwt, blk[h, :3].roll(-1, 0), blk[h, 3].contiguous()
+    return dwp, dwt, blk[h, :3].roll(-1, 0), blk[h, 3].contiguous()
 
 
 gru_dir_bwd.launches = 0
 gru_dir_bwd.launches_no_dx = 0
+gru_dir_bwd.launches_bf16 = 0
 
 
 class GruDir(torch.autograd.Function):

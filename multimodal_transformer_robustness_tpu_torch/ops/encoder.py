@@ -14,7 +14,8 @@ through the flash kernels (``ops/attention_cuda.py``) with the future mask
 from its rule, in eval and train mode; a nonzero attention rate runs the
 kernels' in-softmax dropout.  The JAX package's rematerialization knobs
 (``REMAT_*``) are not carried over: they trade memory for recompute and do
-not change a value.
+not change a value.  Under bf16 the embedding rounds as the JAX package's
+(the positional table cast to the activation's dtype before the add).
 """
 
 from __future__ import annotations
@@ -119,12 +120,13 @@ def encoder_forward(params: dict, x_in: torch.Tensor,
         # feature 0 of the compacted tensor is the lowest active channel
         first_active = torch.argmax((cm > 0).float()).reshape(1)
         feat0 = x_in.index_select(-1, first_active).squeeze(-1)
-    x = scale * x_in + sinusoidal_pe(make_positions(feat0), hp.embed_dim_in, cm)
+    x = scale * x_in + sinusoidal_pe(make_positions(feat0), hp.embed_dim_in, cm).to(x_in.dtype)
     x = dropout(x, hp.embed_dropout, train, generator)
 
     x_k = x_v = None
     if x_kv is not None:
-        pe_kv = sinusoidal_pe(make_positions(x_kv[:, :, 0]), hp.embed_dim_in, None)
+        pe_kv = sinusoidal_pe(make_positions(x_kv[:, :, 0]), hp.embed_dim_in,
+                              None).to(x_kv.dtype)
         kv = scale * x_kv + pe_kv
         # independent draws for k and v; one tensor when there is no draw
         x_k = dropout(kv, hp.embed_dropout, train, generator)

@@ -1,8 +1,9 @@
-"""Launch plans of ``csrc/gemm_tc.cuh``'s 3xTF32 tensor-core products.
+"""Launch plans of ``csrc/gemm_tc.cuh``'s 3xTF32 tensor-core products and
+of ``csrc/gemm_bf16.cuh``'s bf16 ones.
 
 The products run only on the card, but their plans are computed here, on
 the host, so that the CPU tests can hold them to what an H100 takes
-(``tests/test_torch_launch_plans.py``).  The constants mirror the header's.
+(``tests/test_torch_launch_plans.py``).  The constants mirror the headers'.
 """
 
 from __future__ import annotations
@@ -68,3 +69,52 @@ def plan_tn(M: int, N: int, K: int, num_sms: int = _build.NUM_SMS) -> dict:
     kps = -(-ktiles // splits)
     splits = -(-ktiles // kps)
     return {"splits": splits, "kps": kps, "partial": splits * M * N}
+
+
+# csrc/gemm_bf16.cuh: the mma.sync kernel's 128 x 128 tiles, 32-deep k
+# steps (two m16n8k16 MMAs) in a 4-stage ring, rows padded by 8 elements,
+# two blocks an SM; the wgmma kernel's 128 x 128 tiles (m64n128k16), 64-deep
+# k steps (128 bytes a row, as the TF32 tile's) in a 4-stage ring, one block
+# an SM
+BF_BM = BF_BN = 128
+BF_BK, BF_STAGES, BF_MMA_K = 32, 4, 16
+BF_LDK, BF_LDM, BF_LDN = BF_BK + 8, BF_BM + 8, BF_BN + 8
+BF_SMEM = 2 * BF_STAGES * (max(BF_BM * BF_LDK, BF_BK * BF_LDM) + BF_BK * BF_LDN)
+BF_BLOCKS_PER_SM = 2
+BW_BK = 64
+BW_SMEM = 2 * WG_STAGES * 2 * WG_BM * BW_BK + 1024
+BF_PLAN_KEYS = ("wgmma", "splits", "kps", "acw", "bcw")
+
+
+def bf16_copy_width(counts=(), addrs=()) -> int:
+    """The widest copy, in bf16 elements (8, 4, 2 by cp.async; 1 through a
+    register), that divides every element count in ``counts`` (row strides,
+    a gated operand's gate width, a ones row's offset) and keeps every
+    address in ``addrs`` (the operand's data pointer, or its residue mod 16)
+    aligned to the copy."""
+    return next(cw for cw in (8, 4, 2, 1)
+                if all(c % cw == 0 for c in counts) and all(a % (2 * cw) == 0 for a in addrs))
+
+
+def plan_bf16(M: int, N: int, K: int, acw: int, bcw: int, num_sms: int = _build.NUM_SMS,
+              max_splits: int | None = 16, transposed_a: bool = False) -> dict:
+    """One ``[M, K] x [K, N]`` bf16 product on 128 x 128 tiles: the wgmma
+    kernel where the tiles give every SM at least two and A takes 16-byte
+    copies with K a multiple of 8 (``partial``: B^T's N * K bf16, in
+    floats); else the mma.sync kernel, one split where the tiles give the
+    card two blocks an SM, else K split into up to ``max_splits`` ranges
+    (None: any number) while the tiles times the ranges fill no more than
+    two blocks an SM, no range empty (``partial``: the floats of the split
+    planes).  ``transposed_a``: A stored [K, M] (the reductions over T*B
+    rows), which only the mma.sync kernel reads."""
+    tiles = -(-M // BF_BM) * -(-N // BF_BN)
+    if not transposed_a and acw == 8 and K % 8 == 0 and tiles >= 2 * num_sms:
+        return {"wgmma": 1, "splits": 1, "kps": -(-K // BW_BK), "acw": acw, "bcw": bcw,
+                "partial": -(-N * K // 2)}
+    ktiles = -(-K // BF_BK)
+    cap = ktiles if max_splits is None else min(max_splits, ktiles)
+    splits = max(1, min(cap, BF_BLOCKS_PER_SM * num_sms // tiles))
+    kps = -(-ktiles // splits)
+    splits = -(-ktiles // kps)
+    return {"wgmma": 0, "splits": splits, "kps": kps, "acw": acw, "bcw": bcw,
+            "partial": splits * M * N if splits > 1 else 0}

@@ -353,7 +353,9 @@ def fused_residual_block(x, src, w1, b1, w2, b2, ln_g, ln_b, m_in=None, m_mid=No
     self mode: autograd sums both paths into x), ``w1 [F1, E]``, ``w2 [E,
     F1]``, masks ``[E] / [F1] / [E]`` or None (all ones).  float32 only.
     Rates are Python floats and seeds int32 Python ints; the dropout runs
-    only where ``use_drop_*`` is set."""
+    only where ``use_drop_*`` is set.  bf16 raises NotImplementedError
+    (no bf16 instance of K9)."""
+    _build.refuse_bf16("fused_residual_block (K9)", x, src, w1, w2)
     if x.dtype != torch.float32 or src.dtype != torch.float32:
         raise ValueError(f"fused_residual_block takes float32, got {x.dtype} / {src.dtype}")
     cfg = BlockConfig(act, int(mid_rep), float(rate_mid), float(rate_res), int(seed_mid),

@@ -27,18 +27,17 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..data.loaders import BatchIterator
+from ..data.loaders import BatchIterator, is_float_array
 from ..models import bert as bert_mod
 from ..models.headers import bert_text_features
-from ..models.mult import to_device
+from ..models.mult import COMPUTE_DTYPES, cast_tree, to_device
 
 
 def find_text_slot(inputs: List[np.ndarray]) -> Optional[int]:
     """Index of the stacked-token text input ([3, B, L] integer array), or
     None if the batch carries no tokenized text modality."""
     for i, x in enumerate(inputs):
-        if (getattr(x, "ndim", 0) == 3 and x.shape[0] == 3
-                and np.issubdtype(np.asarray(x).dtype, np.integer)):
+        if getattr(x, "ndim", 0) == 3 and x.shape[0] == 3 and not is_float_array(x):
             return i
     return None
 
@@ -46,14 +45,18 @@ def find_text_slot(inputs: List[np.ndarray]) -> Optional[int]:
 def _extractor(frozen: dict, bert_cfg: Optional[bert_mod.BertConfig],
                compute_dtype: str, device):
     """``[3, B, L]`` token stack (numpy) -> ``[B, L, h]`` float32 features
-    (numpy), the frozen BERT on ``device``."""
-    if compute_dtype != "float32":
-        raise NotImplementedError("compute_dtype other than float32 is not ported "
-                                  "yet (the kernels take float32): ROADMAP Queue 1, "
-                                  "'the bf16 compute policy'")
+    (numpy), the frozen BERT on ``device`` in ``compute_dtype``, which must
+    be the model spec's: the online pipeline runs the BERT on the
+    boundary-cast weights, so bf16 features are computed from the bf16
+    weights, and their float32 storage is lossless (the boundary cast
+    gives the online activations back exactly)."""
+    if compute_dtype not in COMPUTE_DTYPES:
+        raise NotImplementedError(f"compute_dtype {compute_dtype!r} is not ported "
+                                  "(float32 and bfloat16 are): ROADMAP Queue 2, 'bf16'")
     dev = _build.resolve_device(device)
     if frozen["bert"]["word_emb"].device != dev:
         frozen = to_device(frozen, dev)
+    frozen = cast_tree(frozen, COMPUTE_DTYPES[compute_dtype])
 
     def run(text: np.ndarray) -> np.ndarray:
         with torch.inference_mode():

@@ -46,7 +46,8 @@ from ..config import ModelSpec, full_active_config
 from ..masks import SupernetMasks, build_masks
 from ..metrics import binary_acc, multiclass_acc
 from ..models.bert import BertConfig
-from ..models.mult import supernet_apply, supernet_headers, supernet_trunk, to_device
+from ..models.mult import (compute_cast, supernet_apply, supernet_headers, supernet_trunk,
+                           to_device)
 from .optim import clip_by_global_norm_, make_optimizer
 from .sampling import sample_train_config
 
@@ -187,7 +188,10 @@ class Trainer:
         self.params = to_device(params, self.device)
         for p in tree_leaves(self.params):
             p.requires_grad_(True)
-        self.frozen = to_device(frozen, self.device)
+        # the frozen BERT in the compute dtype once (bf16: the cast the
+        # boundary would make every step); the parameters stay float32
+        # masters, cast at the boundary with float32 gradients
+        self.frozen = compute_cast(spec)(to_device(frozen, self.device))
         self._fill_rows = self._device_rows(zero_fill_rows)
         self.criterion = make_criterion(hp.criterion)
         self.scheduler = ReduceLROnPlateau(hp.lr, patience=hp.when)

@@ -15,6 +15,7 @@ layout: a ``[3, N, L]`` token stack (with padded tokens), audio and vision
 sequences and real-valued labels, made from a seed with numpy.
 """
 
+import functools
 from contextlib import contextmanager
 from unittest import mock
 
@@ -22,13 +23,17 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
+from multimodal_transformer_robustness_tpu import build_masks as j_build_masks
 from multimodal_transformer_robustness_tpu import config as jcfg
 import torch
 
 from multimodal_transformer_robustness_tpu.checkpoint import import_torch_state_dict
 from multimodal_transformer_robustness_tpu.models import bert as jbert
+from multimodal_transformer_robustness_tpu.ops import gru as jgru
 from multimodal_transformer_robustness_tpu.train import loop as jloop
+from multimodal_transformer_robustness_tpu.train.sampling import sample_train_config
 from multimodal_transformer_robustness_tpu_torch import config as tcfg
+from multimodal_transformer_robustness_tpu_torch.masks import build_masks as t_build_masks
 from multimodal_transformer_robustness_tpu_torch.models import bert as tbert
 from multimodal_transformer_robustness_tpu_torch.models import init_supernet as t_init
 from multimodal_transformer_robustness_tpu_torch.train import loop as tloop
@@ -100,3 +105,93 @@ def trainers(c: dict, **hp_kw):
     tt = tloop.Trainer(c["ts"], tp, tf, tloop.TrainHParams(**kw), bert_cfg=c["tb"],
                        device="cpu")
     return jt, tt
+
+
+# ------------------------------------------------------------------ bf16
+# The bf16 policy's parity model (tests/test_torch_bf16_slice.py and
+# test_torch_bf16_train.py): text and audio, one layer a stack, short
+# sequences, and a tiny BERT at width 128, so that the JAX shape gates of
+# both BERT kernels fire and the JAX Pallas kernels (interpret mode)
+# compile quickly.
+BF16_SPEC = dict(modality_set=("t", "a"), orig_dimensions=(128, 10), dimension=8,
+                 num_heads=2, head_dim=4, layers_single_attn=1, layers_cross_attn=1,
+                 layers_self_attn=1, attn_dropout=(0.0, 0.0, 0.0), relu_dropout=0.0,
+                 res_dropout=0.0, out_dropout=0.0, embed_dropout=0.0, attn_mask=True,
+                 output_dim=1, compute_dtype="bfloat16")
+BF16_B, BF16_L, BF16_TA = 4, 4, 3
+
+
+class TextAudio:
+    """``gather``-style dataset: a [3, N, L] token stack (with padded
+    tokens), audio [N, TA, 10] and real-valued labels."""
+
+    def __init__(self, n: int, seed: int, vocab: int):
+        rng = np.random.default_rng(seed)
+        attn = (rng.random((n, BF16_L)) > 0.2).astype(np.int64)
+        attn[:, 0] = 1
+        self.text = np.stack([rng.integers(1, vocab, (n, BF16_L)) * attn,
+                              np.zeros((n, BF16_L), np.int64), attn])
+        self.audio = rng.standard_normal((n, BF16_TA, 10)).astype(np.float32)
+        self.labels = rng.standard_normal((n, 1)).astype(np.float32)
+
+    def __len__(self):
+        return self.text.shape[1]
+
+    def gather(self, idx):
+        return [self.text[:, idx], self.audio[idx]], self.labels[idx]
+
+
+def use_pallas_interpret(monkeypatch) -> None:
+    """The JAX side through its Pallas kernels in interpret mode."""
+    monkeypatch.setattr(jgru, "RECURRENCE_IMPL", "pallas_interpret")
+    monkeypatch.setattr(jbert, "FFN_INTERPRET", True)
+
+
+@contextmanager
+def exact_jit():
+    """``jax.jit`` with XLA's excess precision off, so a jitted bf16 program
+    rounds every result where it is written to round, as eager JAX and the
+    port do (by default XLA keeps fused bf16 intermediates in float32)."""
+    jit = jax.jit
+    with mock.patch.object(jax, "jit", functools.partial(
+            jit, compiler_options={"xla_allow_excess_precision": False})):
+        yield
+
+
+def bf16_build(seed: int = 0) -> dict:
+    """The bf16 parity model: the port draws the weights, which cross into
+    the JAX package (``translation`` linears as zeros); the JAX package's
+    ``init_bert`` at ``tiny_bert_config(hidden=128, heads=2, layers=1)``;
+    9 rows of data and a sampled configuration."""
+    js, ts = jcfg.ModelSpec(**BF16_SPEC), tcfg.ModelSpec(**BF16_SPEC)
+    jb = jbert.tiny_bert_config(hidden=128, heads=2, layers=1)
+    tb = tbert.tiny_bert_config(hidden=128, heads=2, layers=1)
+    params, _ = t_init(torch.Generator().manual_seed(seed), ts, tb)
+    sd = export_reference_state_dict(ts, params)
+    d = ts.dimension
+    for s in ts.cross_strings:
+        sd[f"translation.translation{s}.weight"] = np.zeros((d, d), np.float32)
+        sd[f"translation.translation{s}.bias"] = np.zeros((d,), np.float32)
+    frozen = {"bert": jbert.init_bert(jax.random.PRNGKey(seed), jb)}
+    cfg = sample_train_config(js, "random_sample", None, np.random.default_rng(5))
+    return dict(js=js, ts=ts, jb=jb, tb=tb, sd=sd, frozen=frozen, cfg=cfg,
+                data=TextAudio(9, seed=1, vocab=jb.vocab_size),
+                params_np=jax.tree.map(np.asarray, import_torch_state_dict(js, sd)),
+                bert_np=jax.tree.map(np.asarray, frozen["bert"]))
+
+
+def bf16_port(c: dict):
+    """The port's (params, frozen) of :func:`bf16_build`'s model."""
+    return load_reference_state_dict(c["ts"], c["sd"], c["bert_np"])
+
+
+def bf16_batch(c: dict):
+    """The first four rows, the last one padding: (inputs, labels, valid)."""
+    inputs, labels = c["data"].gather(np.arange(BF16_B))
+    return inputs, labels, np.array([1, 1, 1, 0], np.float32)
+
+
+def bf16_masks(c: dict, cfg):
+    """``cfg``'s masks in both packages: (JAX, port)."""
+    return (jax.tree.map(jnp.asarray, j_build_masks(c["js"], cfg)),
+            t_build_masks(c["ts"], tcfg.ActiveConfig(**cfg.__dict__)))

@@ -153,7 +153,7 @@ def test_cached_dataset_delegates_and_rejects_textless(case):
 def test_unported_dtype_and_missing_card_raise(case):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tfeat.precompute_text_features(case["t_frozen"], t_tiny(), case["ds"].text,
-                                       compute_dtype="bfloat16", device="cpu")
+                                       compute_dtype="float16", device="cpu")
     if not torch.cuda.is_available():
         # the default device is the card; without one nothing falls back
         with pytest.raises(RuntimeError, match="no CUDA device"):

@@ -68,7 +68,7 @@ def test_materialize_matches_jax():
 
 def test_refuses_what_is_not_ported_and_a_missing_card(monkeypatch):
     with pytest.raises(NotImplementedError, match="bf16"):
-        DeviceBatchIterator(_array_ds(), 4, store_dtype="bfloat16", device="cpu")
+        DeviceBatchIterator(_array_ds(), 4, store_dtype="float16", device="cpu")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         DeviceBatchIterator(_array_ds(), 4)

@@ -745,3 +745,121 @@ def test_fused_residual_block_on_card_matches_cpu(cuda):
     for a, b in zip(out["cpu"], out[str(cuda)]):
         torch.testing.assert_close(b.cpu(), a, atol=1e-4 * max(a.abs().max().item(), 1.0),
                                    rtol=0)
+
+
+# ---------------------------------------------------------------- bf16
+# The bf16 instances of K1f, K1b, K2 and K3 against their bf16 plain
+# versions (the same rounding points, products as float32 matmuls of the
+# upcast operands): max |out - ref| <= 2e-2 of max |ref| (a result one
+# bf16 step apart where a float32 sum in another order lands across a
+# rounding edge, and what that step moves downstream); reruns give the
+# same bits.  The share of elements that differ is printed.
+BF16_TOL = 2e-2
+
+
+def bf16_close(out, ref, what=""):
+    assert out.dtype == ref.dtype
+    a, r = out.float(), ref.float()
+    scale = r.abs().max().item()
+    err = (a - r).abs().max().item()
+    share = (a != r).float().mean().item()
+    print(f"{what}: max |d| {err:.3e} of max |ref| {scale:.3e}, {share:.2%} differ")
+    assert err <= BF16_TOL * scale
+
+
+def _bf(t, dev):
+    return t.to(device=dev, dtype=torch.bfloat16)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,T,I,H", [(1, 8, 768, 100), (8, 37, 200, 100), (3, 5, 7, 12),
+                                     (600, 6, 20, 13), (4096, 8, 768, 100)])
+def test_gru_dir_bf16_kernel_matches_plain(cuda, B, T, I, H):
+    """K1f's bf16 instance: the small and the tiled recurrence forms, split
+    and unsplit projections, 1- and 2-element copies (in=7, H=13)."""
+    rng = np.random.default_rng(21)
+    tp = gru_torch_layout(rng, I, H)
+    x = _bf(torch.from_numpy(rng.standard_normal((T, B, I)).astype(np.float32)), cuda)
+    for d, rev in (("fwd", False), ("bwd", True)):
+        ops = {k: _bf(v, cuda) for k, v in bigru_cuda.dir_operands(tp[d]).items()}
+        args = (x, ops["wp"], ops["wt"], ops["bc"], ops["bhn"], rev)
+        n0 = bigru_cuda.gru_dir.launches_bf16
+        out = bigru_cuda.gru_dir(*args)
+        again = bigru_cuda.gru_dir(*args)
+        torch.cuda.synchronize()
+        assert bigru_cuda.gru_dir.launches_bf16 == n0 + 2
+        bf16_close(out, bigru_cuda.gru_dir_plain(*args), f"K1f bf16 {B} {T} {I} {H} {d}")
+        assert torch.equal(out, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("need_dx", [True, False])
+@pytest.mark.parametrize("B,T,I,H", [(1, 8, 768, 100), (67, 50, 200, 100), (3, 5, 7, 12),
+                                     (4096, 8, 768, 100), (5, 6, 20, 13)])
+def test_gru_dir_bwd_bf16_kernel_matches_plain(cuda, B, T, I, H, need_dx):
+    """K1b's bf16 instance against the bf16 plain backward (dx, dW, db
+    rounded to bf16), both directions; reruns give the same bits."""
+    rng = np.random.default_rng(22)
+    tp = gru_torch_layout(rng, I, H)
+    x = _bf(torch.from_numpy(rng.standard_normal((T, B, I)).astype(np.float32)), cuda)
+    dhs = _bf(torch.from_numpy(rng.standard_normal((T, B, H)).astype(np.float32)), cuda)
+    for d, rev in (("fwd", False), ("bwd", True)):
+        ops = {k: _bf(v, cuda) for k, v in bigru_cuda.dir_operands(tp[d]).items()}
+        args = (x, ops["wp"], ops["wt"], ops["bc"], ops["bhn"])
+        hs, gates = bigru_cuda._launch_fwd(*args, rev)
+        n0 = bigru_cuda.gru_dir_bwd.launches_bf16
+        got = bigru_cuda.gru_dir_bwd(*args, hs, gates, dhs, rev, need_dx)
+        again = bigru_cuda.gru_dir_bwd(*args, hs, gates, dhs, rev, need_dx)
+        torch.cuda.synchronize()
+        assert bigru_cuda.gru_dir_bwd.launches_bf16 == n0 + 2
+        ref = bigru_cuda.gru_dir_bwd_plain(*args, hs, gates, dhs, rev, need_dx)
+        for name, a, r, b in zip(("dx", "dwp", "dwt", "dbc", "dbhn"), got, ref, again):
+            if r is None:
+                assert a is None
+                continue
+            bf16_close(a, r, f"K1b bf16 {name} {B} {T} {I} {H} {d}")
+            assert torch.equal(a, b)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("softmax", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L,heads,h", [(1, 8, 12, 768), (3, 13, 2, 16), (300, 31, 12, 768),
+                                         (5, 64, 12, 768)])
+def test_attention_block_bf16_kernel_matches_plain(cuda, B, L, heads, h, softmax):
+    """K2's bf16 instance, both softmax tails; L > 64 raises."""
+    rng = np.random.default_rng(23)
+    args = [a.to(cuda) for a in attn_torch_args(*attn_inputs(rng, B, L, h))]
+    args = [a if i == 1 else a.to(torch.bfloat16) for i, a in enumerate(args)]
+    kw = dict(n_heads=heads, eps=1e-12, softmax_dtype=softmax)
+    n0 = bert_attn_cuda.attention_block_fused.launches_bf16
+    out = bert_attn_cuda.attention_block_fused(*args, **kw)
+    again = bert_attn_cuda.attention_block_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert bert_attn_cuda.attention_block_fused.launches_bf16 == n0 + 2
+    bf16_close(out, bert_attn_cuda.attention_block_plain(*args, **kw),
+               f"K2 bf16 {B} {L} {h} {softmax}")
+    assert torch.equal(out, again)
+    if (B, L) == (1, 8):
+        long = [a.to(cuda) for a in attn_torch_args(*attn_inputs(rng, 1, 65, h))]
+        long = [a if i == 1 else a.to(torch.bfloat16) for i, a in enumerate(long)]
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            bert_attn_cuda.attention_block_fused(*long, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,h,ffn", [(8, 768, 3072), (300, 768, 3072), (7, 32, 128),
+                                        (9001, 768, 3072)])
+def test_ffn_ln_bf16_kernel_matches_plain(cuda, rows, h, ffn):
+    """K3's bf16 instance: split and unsplit products, a ragged last tile."""
+    rng = np.random.default_rng(24)
+    x, w1, b1, w2, b2, g, b = ffn_inputs(rng, rows, h, ffn)
+    args = [_bf(torch.from_numpy(np.ascontiguousarray(a)), cuda)
+            for a in (x, w1.T, b1, w2.T, b2, g, b)]
+    n0 = bert_ffn_cuda.ffn_ln_block.launches_bf16
+    out = bert_ffn_cuda.ffn_ln_block(*args, eps=1e-12)
+    again = bert_ffn_cuda.ffn_ln_block(*args, eps=1e-12)
+    torch.cuda.synchronize()
+    assert bert_ffn_cuda.ffn_ln_block.launches_bf16 == n0 + 2
+    bf16_close(out, bert_ffn_cuda.ffn_ln_block_plain(*args, eps=1e-12),
+               f"K3 bf16 {rows} {h} {ffn}")
+    assert torch.equal(out, again)

@@ -24,6 +24,11 @@ the card holds at once, K8's and K5f's unit path at Tq, Tk <= 64 and tiled
 path beyond, the flash backward's choice between its fused kernel (Tq, Tk
 <= 64) and the pair, and K9's products split over K across the card at the serving rows,
 its backward recomputing the hidden activation by the forward's plan.
+The bf16 instances' plans (``ops.gemm_tc.plan_bf16`` under
+``_plan_gru_fwd_bf16``, ``_plan_gru_bwd_bf16``, ``_plan_attn_block_bf16``
+and ``_plan_ffn_bf16``) are held to ``csrc/gemm_bf16.cuh``'s tile: k steps
+of 16-deep MMAs, two blocks an SM within its shared memory, k ranges that
+cover every k tile.
 """
 
 import ctypes
@@ -997,3 +1002,122 @@ def test_trunk_block_wrapper_allocates_what_the_plan_says(monkeypatch, R, E, F1)
     # the rows, the dimensions and the dropout flags follow the pointers
     for name, npt in (("fwd", 15), ("bwd", 21)):
         assert lib.calls[name]["args"][npt:npt + 9] == (R, E, F1, 1, 1, 1, 1, 1, 2)
+
+
+# ---------------------------------------------------------------- bf16
+# csrc/gemm_bf16.cuh: the mma.sync kernel's 128 x 128 tiles (eight warps of
+# 64 x 32, m16n8k16 MMAs), 32-deep k steps in a 4-stage cp.async ring, A
+# staged [m][k] in 80-byte rows or [k][m] in 272-byte rows, B [k][n] in
+# 272-byte rows; the wgmma kernel's 128 x 128 tiles, 64-deep k steps in
+# 128-byte swizzled rows, one block an SM
+
+
+def test_bf16_tile_constants_fit_the_card():
+    """k steps of whole MMAs (16 deep), warp tiles of whole MMAs, rows an
+    odd number of 16-byte words (ldmatrix's eight row addresses land on
+    distinct bank groups), every ring slot 16-byte aligned, two blocks an
+    SM within its shared memory."""
+    assert gemm_tc.BF_BK % gemm_tc.BF_MMA_K == 0
+    assert gemm_tc.BF_BM % (2 * 16) == 0 and gemm_tc.BF_BN % (4 * 8 * 2) == 0
+    for ld in (gemm_tc.BF_LDK, gemm_tc.BF_LDM, gemm_tc.BF_LDN):
+        assert (2 * ld) % 16 == 0 and (2 * ld // 16) % 2 == 1
+    a_elems = max(gemm_tc.BF_BM * gemm_tc.BF_LDK, gemm_tc.BF_BK * gemm_tc.BF_LDM)
+    assert (2 * a_elems) % 16 == 0 and (2 * gemm_tc.BF_BK * gemm_tc.BF_LDN) % 16 == 0
+    assert gemm_tc.BF_SMEM == 75776 <= MAX_SMEM
+    assert gemm_tc.BF_BLOCKS_PER_SM * (gemm_tc.BF_SMEM + 1024) <= SM_SMEM
+    # the wgmma stages: 128 rows of 128 bytes (a whole number of 1024-byte
+    # swizzle atoms), 4 deep, for A and B^T, + 1 KB to align the atoms
+    assert 2 * gemm_tc.BW_BK == 128 and (128 * 2 * gemm_tc.BW_BK) % 1024 == 0
+    assert gemm_tc.BW_SMEM == 132096 <= MAX_SMEM
+
+
+@pytest.mark.parametrize("counts,addrs,cw", [((768,), (0,), 8), ((100,), (0,), 4),
+                                              ((400,), (8,), 4), ((7,), (0,), 1),
+                                              ((26,), (4,), 2), ((768, 100), (0, 0), 4),
+                                              ((768,), (2,), 1)])
+def test_bf16_copy_width(counts, addrs, cw):
+    assert gemm_tc.bf16_copy_width(counts, addrs) == cw
+
+
+@pytest.mark.parametrize("M,N,K", [(204800, 300, 768), (800, 300, 768), (1, 300, 7),
+                                   (131072, 3072, 768), (131072, 768, 3072), (8, 2304, 768),
+                                   (768, 300, 204800), (101, 400, 204800), (5, 13, 3)])
+def test_bf16_plans_cover_k_and_fit_the_card(M, N, K):
+    """The wgmma kernel where the tiles give every SM two and K takes
+    16-byte copies (B^T's N * K bf16 in the scratch); else the k ranges
+    cover every k tile, none empty, one split where the tiles give two
+    blocks an SM, and the split planes hold every range."""
+    for max_splits in (16, None):
+        p = gemm_tc.plan_bf16(M, N, K, 8, 8, SMS, max_splits=max_splits)
+        ktiles = -(-K // gemm_tc.BF_BK)
+        tiles = -(-M // 128) * -(-N // 128)
+        assert p["wgmma"] == int(tiles >= 2 * SMS and K % 8 == 0)
+        if p["wgmma"]:
+            assert p["splits"] == 1 and p["kps"] == -(-K // gemm_tc.BW_BK)
+            assert 2 * p["partial"] >= N * K
+            continue
+        assert (p["splits"] - 1) * p["kps"] < ktiles <= p["splits"] * p["kps"]
+        assert p["splits"] * tiles <= max(tiles, 2 * SMS)
+        if tiles >= 2 * SMS:
+            assert p["splits"] == 1 and p["partial"] == 0
+        assert p["partial"] == (p["splits"] * M * N if p["splits"] > 1 else 0)
+        if max_splits is not None:
+            assert p["splits"] <= max_splits
+
+
+def test_bf16_plans_at_the_training_shapes():
+    """bench.py's shapes: K1f's projection, K2's and K3's products on the
+    wgmma tiles (the weights' transposes in the scratch); K1b's reductions
+    over T*B rows on the mma.sync tiles, split to fill one wave, dwt's
+    copies of h dividing H (where its ones row starts), and its dx (K = 3H
+    = 300: 8-byte copies) on them unsplit; the recurrences' plans as the
+    float instances'."""
+    fwd = bigru_cuda._plan_gru_fwd_bf16(50, 4096, 768, 100)
+    assert (fwd["gemm_wgmma"], fwd["gemm_splits"], fwd["gemm_acw"]) == (1, 1, 8)
+    assert 2 * fwd["gemm_partial"] == 300 * 768
+    assert fwd["rec_rows"] == 32 and fwd["rec_small"] == 0
+    for in_dim, need_dx in ((768, False), (512, False), (200, True)):
+        bwd = bigru_cuda._plan_gru_bwd_bf16(50, 4096, in_dim, 100, need_dx)
+        assert bwd["rows"] == 32
+        for red, m, n in (("dwp", in_dim, 300), ("dwt", 101, 400)):
+            tiles = -(-m // 128) * -(-n // 128)
+            assert tiles * bwd[f"{red}_splits"] <= 2 * SMS
+            assert tiles * (bwd[f"{red}_splits"] + 1) > 2 * SMS or \
+                bwd[f"{red}_kps"] == 1
+            splits = bwd[f"{red}_splits"]
+            assert bwd[f"{red}_partial"] == (splits * m * n if splits > 1 else 0)
+        assert 100 % bwd["dwt_acw"] == 0
+        assert bwd["dwp_wgmma"] == bwd["dwt_wgmma"] == bwd["dx_wgmma"] == 0
+        assert (bwd["dx_splits"] == 1) == need_dx and bwd["dx_partial"] == 0
+    blk = bert_attn_cuda._plan_attn_block_bf16(4096, 32, 768, 12)
+    assert blk["qkv"]["wgmma"] == blk["o"]["wgmma"] == 1
+    assert 2 * blk["partial"] == 3 * 768 * 768
+    ffn = bert_ffn_cuda._plan_ffn_bf16(131072, 768, 3072)
+    assert all(ffn[fc]["wgmma"] == 1 for fc in ("fc1", "fc2"))
+    assert 2 * ffn["partial"] == 768 * 3072
+
+
+def test_bf16_plans_at_the_eval_and_serving_rows():
+    """Few rows split K over the card (K1f at the eval batch of 16: 12
+    ranges of 2 k tiles; K3's fc2 at 8 rows: 16 ranges of 6)."""
+    fwd = bigru_cuda._plan_gru_fwd_bf16(50, 16, 768, 100)
+    assert (fwd["gemm_wgmma"], fwd["gemm_splits"], fwd["gemm_kps"]) == (0, 12, 2)
+    assert fwd["rec_small"] == 1
+    ffn = bert_ffn_cuda._plan_ffn_bf16(8, 768, 3072)
+    assert ffn["fc1"]["wgmma"] == ffn["fc2"]["wgmma"] == 0
+    assert (ffn["fc2"]["splits"], ffn["fc2"]["kps"]) == (16, 6)
+    assert ffn["partial"] == max(ffn[fc]["splits"] * 8 * n for fc, n in
+                                 (("fc1", 3072), ("fc2", 768)))
+
+
+def test_bf16_attn_block_plan_refuses_long_units():
+    """The bf16 attention stage holds a unit's queries and keys at once and
+    reads heads in 16-byte copies: L > 64, dh > 64, or dh or h not a
+    multiple of 8 raise; the static shared memory (q, k, v rows of 72 bf16
+    and the key bias) stays within a block's 48 KB."""
+    bert_attn_cuda._plan_attn_block_bf16(1, 64, 768, 12)
+    bert_attn_cuda._plan_attn_block_bf16(3, 13, 16, 2)
+    for B, L, h, heads in ((1, 65, 768, 12), (1, 8, 768, 6), (1, 8, 60, 5), (1, 8, 36, 3)):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            bert_attn_cuda._plan_attn_block_bf16(B, L, h, heads)
+    assert 3 * 64 * 72 * 2 + 4 * 64 <= 48 * 1024
