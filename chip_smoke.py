@@ -49,9 +49,13 @@ Phases, each fatal on failure:
                 FFN block, R=4096 train and R=1, and K9f at R=1 at the
                 other three blocks, beside their CUDA-event ms; and the
                 bf16 instances of K1f, K1b, K2 and K3 at the training
-                path's shapes against their bf16 plain versions (2e-2 of
-                max |ref|) and the float32 kernels (cosine), rerun for the
-                same bits, timed beside cuDNN's GRU in bf16 (K1f, K1b);
+                path's shapes, K2 also at B=1 L=512, K4 and K6b at B=4096
+                L=32 and B=1 L=8, K6a at B=4096 L=32 and B=1 L=512, against
+                their bf16 plain versions (2e-2 of max |ref|) and the
+                float32 kernels (cosine), rerun for the same bits, timed
+                beside cuDNN's GRU in bf16 (K1f, K1b) and SDPA in bf16
+                (K6a); K4's flipped hidden codes counted; qdot's bf16
+                dequant at M=8 and 131,072 the plain version's bits;
   4. serving  - StreamingPredictor at the reference's MOSEI serving
                 configuration (d=200, 8x25 heads, layers 3/4/2, 4-layer
                 BERT-base-width text encoder, random weights from seed 0)
@@ -128,10 +132,22 @@ Phases, each fatal on failure:
                 phase 21's steps on them: K1 12 / K1b 12, all bf16;
  23. train-bf16-vs-cpu - one bf16 step (loss, float32 gradients) and one
                 Trainer.evaluate at B=8, card against the CPU's plain
-                versions.
+                versions;
+ 24. train-bf16-int8 - phase 21 with bench.py's --bert_int8 (fc1 / fc2
+                quantized from the float32 weights, then cast): K1 12 /
+                K1b 12 / K2 4 / K4 4 a step, all bf16;
+ 25. serving-bf16 - phase 4 under the MOSEI spec at compute_dtype
+                "bfloat16" (text buckets 8, 32, 128, 512: K2's bf16 attention
+                on both its paths): K1 12 / K2 4 / K3 4 a request, all bf16,
+                card vs CPU within BF16_PRED_TOL of the predictions' scale;
+ 26. serving-bf16-int8 - phase 25 with bert_int8=True: K1 12 / K2 4 / K4 4;
+ 27. serving-bf16-dense - phase 25 under ATTN_IMPL="dense": K1 12 / K6a 4 /
+                K6b 4 / K3 4;
+ 28. bert-int8-full-bf16 - phase 10 in bf16: qrows 8 / qdot 16 / K4 4, all
+                bf16, card vs CPU by int8_agree.
 Every phase sets the launch counters to 0 just before it drives its path
 and fails unless each kernel of the path ran the expected number of times
-(the bf16 instances counted apart: ``K1.bf16`` ... ``K3.bf16``).
+(the bf16 instances counted apart: ``K1.bf16`` ... ``qdot.bf16``).
 Then the int8 projections' and the device split's lines, one JSON line with
 the kernels' results, and the last line ``{"ok": true, "device": {...}}``.
 """
@@ -190,13 +206,14 @@ T0 = time.perf_counter()  # the script's start, for the phase headings
 # moves downstream); their cosine against the float32 kernel on the same
 # (bf16-valued) inputs is printed and held to 0.999.
 BF16_TOL, BF16_COS = 2e-2, 0.999
+BF16_KERNELS = ("K1f.bf16", "K1b.bf16", "K2.bf16", "K3.bf16", "K4.bf16", "K6a.bf16",
+                "K6b.bf16")
 TOL = {"K1": 1e-4, "K1b": 1e-4, "K2": 1e-3, "K3": 1e-4, "K4": 1e-4, "K6a": 1e-3,
        "K6b": 1e-4, "K5f": 1e-4, "K5dq": 1e-4, "K5dkv": 1e-4, "K5b": 1e-4, "K8": 1e-4,
-       "K7f": 1e-4, "K7b": 1e-4, "K9f": 1e-4, "K9b": 1e-4, "K1f.bf16": BF16_TOL,
-       "K1b.bf16": BF16_TOL, "K2.bf16": BF16_TOL, "K3.bf16": BF16_TOL}
+       "K7f": 1e-4, "K7b": 1e-4, "K9f": 1e-4, "K9b": 1e-4,
+       **{k: BF16_TOL for k in BF16_KERNELS}}
 # the kernels held to TOL as a share of max |ref| rather than absolutely
-NORMALISED = {"K5dq", "K5dkv", "K5b", "K7b", "K9b", "K1f.bf16", "K1b.bf16", "K2.bf16",
-              "K3.bf16"}
+NORMALISED = {"K5dq", "K5dkv", "K5b", "K7b", "K9b", *BF16_KERNELS}
 K4_MAX_FLIP_SHARE = 1e-3
 SERVE_TOL = 1e-3   # end-to-end sentiment, card against CPU
 # one training step, card against CPU: the loss relative, each gradient
@@ -332,6 +349,20 @@ def k6b_work(R, h):
     return 2 * R * h * h, 4 * (3 * R * h + h * h + 3 * h)
 
 
+def k4_bf16_work(R, h, f):
+    """As k4_work, the rows, scales, biases and LN parameters bf16."""
+    return 4 * R * h * f, 2 * 2 * R * h + 2 * h * f + 2 * (2 * f + 4 * h)
+
+
+def k6a_bf16_work(B, L, h):
+    """bf16 q, k, v and out; the float32 mask."""
+    return 4 * B * L * L * h, 2 * 4 * B * L * h + 4 * B * L
+
+
+def k6b_bf16_work(R, h):
+    return 2 * R * h * h, 2 * (3 * R * h + h * h + 3 * h)
+
+
 def gru_weights(rng, in_dim, H, dev):
     k = 1.0 / np.sqrt(H)
     shapes = {"w_ih": (3 * H, in_dim), "w_hh": (3 * H, H), "b_ih": (3 * H,), "b_hh": (3 * H,)}
@@ -360,12 +391,13 @@ def check_kernels(dev, rng):
     rows, failures = [], []
 
     def record(kid, shape, out, ref, kernel_fn, plain_fn, work=None, library_fn=None,
-               iters=20, slack=None, extra=None):
+               iters=20, slack=None, extra=None, peak=None):
         """``out`` / ``ref``: a tensor, or a tuple of tensors each held to the
         tolerance on its own (relative to its own max |ref| in NORMALISED).
         ``slack``: per output, an elementwise allowance the error may use
         before the tolerance applies (K9b's relu kink, relu_kink_bound).
-        ``extra``: more fields for the row (K5b: the pair's time)."""
+        ``extra``: more fields for the row (K5b: the pair's time).  ``peak``:
+        the bound's rate (default: bf16 for a bf16 instance, else float32)."""
         pairs = list(zip(out, ref) if isinstance(out, tuple) else [(out, ref)])
         errs = [errors(o, r) for o, r in pairs]
         abs_err, rel_err = max(e[0] for e in errs), max(e[1] for e in errs)
@@ -384,7 +416,7 @@ def check_kernels(dev, rng):
                        plain_ms=cuda_ms(plain_fn, iters),
                        library_ms=cuda_ms(library_fn, iters) if library_fn else None)
             row["bound_ms"], row["bound_by"] = bound(
-                *work, PEAK_BF16_FLOPS if kid.endswith(".bf16") else PEAK_F32_FLOPS)
+                *work, peak or (PEAK_BF16_FLOPS if kid.endswith(".bf16") else PEAK_F32_FLOPS))
             lib = f"{row['library_ms']:.4f}" if library_fn else "none"
             msg += (f"  kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  "
                     f"library {lib} ms  bound {row['bound_ms']:.4f} ms ({row['bound_by']})")
@@ -476,7 +508,7 @@ def check_kernels(dev, rng):
     check_flash(dev, rng, t, record, failures)
     check_k7(dev, rng, t, record, failures)
     check_k9(dev, rng, t, record, failures)
-    check_bf16(dev, rng, t, record, failures)
+    rows += check_bf16(dev, rng, t, record, failures)
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
     return rows
@@ -501,8 +533,9 @@ def check_bf16(dev, rng, t, record, failures):
 
     bf = torch.bfloat16
 
-    def judge(kid, shape, outs, refs, f32s, again, **timing):
-        """Per output (None where the kernel gives none: dx without it)."""
+    def judge(kid, shape, outs, refs, f32s, again, fail=False, **timing):
+        """Per output (None where the kernel gives none: dx without it);
+        ``fail``: a check of the caller's own failed (K4's flipped codes)."""
         kept = [q for q in zip(outs, refs, f32s, again) if q[0] is not None]
         outs, refs, f32s, again = zip(*kept)
         cos = min(cosine(o.float(), f) for o, f in zip(outs, f32s))
@@ -510,12 +543,12 @@ def check_bf16(dev, rng, t, record, failures):
         differ = max(float((o != r).float().mean()) for o, r in zip(outs, refs))
         record(kid, shape, tuple(o.float() for o in outs), tuple(r.float() for r in refs),
                extra={"cos_vs_float32": cos, "rerun_bit_identical": same,
-                      "share_differing": differ}, **timing)
+                      "share_differing": differ, **timing.pop("extra", {})}, **timing)
         print(f"  {kid} {shape}: cosine vs the float32 kernel {cos:.6f} (min {BF16_COS}), "
               f"rerun bit-identical {same}, {differ:.2%} of elements differ from the plain "
               "version", flush=True)
-        if cos < BF16_COS or not same:
-            failures.append(f"{kid} {shape}: cosine {cos} / rerun {same}")
+        if cos < BF16_COS or not same or fail:
+            failures.append(f"{kid} {shape}: cosine {cos} / rerun {same} / own check {fail}")
 
     H, T, B = 100, 50, 4096
     x768 = t(rng.standard_normal((T, B, 768))).to(bf)
@@ -614,8 +647,115 @@ def check_bf16(dev, rng, t, record, failures):
           kernel_fn=lambda: bert_ffn_cuda.ffn_ln_block(*f_args, eps=eps),
           plain_fn=lambda: bert_ffn_cuda.ffn_ln_block_plain(*f_args, eps=eps),
           work=k3_bf16_work(B, L, h, ffn), iters=5)
-    del out, again, x
+    del out, again, x, a_args, f_args
     torch.cuda.empty_cache()
+    return check_bf16_bert_variants(dev, rng, t, judge, aw, ab, g, b)
+
+
+def check_bf16_bert_variants(dev, rng, t, judge, aw, ab, g, b, h=768, ffn=3072, heads=12,
+                             eps=1e-12):
+    """The bf16 instances of the frozen BERT's other paths, by ``judge``
+    (check_bf16's: BF16_TOL of max |ref| vs the bf16 plain version, BF16_COS
+    vs the float32 kernel, a rerun for the same bits, CUDA-event ms): K2 at
+    the longest serving bucket (B=1 L=512, its tiled attention); K4 (int8
+    weights quantized in float32, the scales rounded to bf16) at the
+    training shape and B=1 L=8, its flipped hidden codes counted against the
+    plain version's and held to K4_MAX_FLIP_SHARE, bound at the int8
+    peak; K6a at B=4096 L=32 (unit path) and B=1 L=512 (tiled path) beside
+    SDPA in bf16; K6b at B=4096 L=32 and B=1 L=8; the int8 GEMM's bf16
+    dequant (qdot) at M=8 and M=131,072, the plain version's bits."""
+    import torch.nn.functional as F
+
+    from multimodal_transformer_robustness_tpu_torch.models.bert import _quantize
+    from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bert_ffn_cuda
+
+    bf = torch.bfloat16
+    kw = dict(n_heads=heads, eps=eps)
+    x = t(rng.standard_normal((1, 512, h))).to(bf)
+    mask = np.zeros((1, 512), np.float32)
+    mask[0, :300] = 1.0                       # keys masked across the tiles
+    mask = t(mask)
+    a_args = (x, mask, aw[0], ab[0], aw[1], ab[1], aw[2], ab[2], aw[3], ab[3], g, b)
+    again = bert_attn_cuda.attention_block_fused(*a_args, **kw)
+    judge("K2.bf16", f"B=1 L=512 h={h}", (bert_attn_cuda.attention_block_fused(*a_args, **kw),),
+          (bert_attn_cuda.attention_block_plain(*a_args, **kw),),
+          (bert_attn_cuda.attention_block_fused(*(a.float() for a in a_args), **kw),), (again,),
+          kernel_fn=lambda: bert_attn_cuda.attention_block_fused(*a_args, **kw),
+          plain_fn=lambda: bert_attn_cuda.attention_block_plain(*a_args, **kw),
+          work=k2_bf16_work(1, 512, h))
+
+    def int8(w):
+        q = _quantize(w)
+        return {"q": q["q"], "s": q["s"].to(bf)}, {"q": q["q"], "s": q["s"].to(bf).float()}
+
+    (w1q, w1f), (w2q, w2f) = (int8(t(rng.standard_normal(shape) * 0.02))
+                              for shape in ((ffn, h), (h, ffn)))
+    b1, b2 = t(rng.standard_normal(ffn) * 0.02).to(bf), t(rng.standard_normal(h) * 0.02).to(bf)
+    wo_t, bo = t(rng.standard_normal((h, h)) * 0.02).to(bf), t(rng.standard_normal(h) * 0.02).to(bf)
+    for B, L in ((4096, 32), (1, 8), (1, 512)):
+        shape, iters = f"B={B} L={L} h={h}", 5 if B == 4096 else 20
+        x = t(rng.standard_normal((B, L, h))).to(bf)
+        if L != 512:
+            k_args = (x, w1q, b1, w2q, b2, g, b)
+            out, codes, _ = bert_ffn_cuda.ffn_ln_block_q(*k_args, eps=eps, return_codes=True)
+            again = bert_ffn_cuda.ffn_ln_block_q(*k_args, eps=eps)
+            torch.cuda.synchronize()
+            ref, ref_codes, _ = bert_ffn_cuda.ffn_ln_block_q_plain(*k_args, eps=eps,
+                                                                   return_codes=True)
+            share = (codes != ref_codes).float().mean().item()
+            print(f"  K4.bf16 {shape}: flipped hidden codes vs the plain version {share:.2e} "
+                  f"(limit {K4_MAX_FLIP_SHARE:g})", flush=True)
+            judge("K4.bf16", f"{shape} ffn={ffn}", (out,), (ref,),
+                  (bert_ffn_cuda.ffn_ln_block_q(x.float(), w1f, b1.float(), w2f, b2.float(),
+                                                g.float(), b.float(), eps=eps),), (again,),
+                  kernel_fn=lambda: bert_ffn_cuda.ffn_ln_block_q(*k_args, eps=eps),
+                  plain_fn=lambda: bert_ffn_cuda.ffn_ln_block_q_plain(*k_args, eps=eps),
+                  work=k4_bf16_work(B * L, h, ffn), iters=iters, peak=PEAK_INT8_OPS,
+                  extra={"flipped_share": share},
+                  fail=share > K4_MAX_FLIP_SHARE)
+            del out, again, ref, codes, ref_codes
+            a = t(rng.standard_normal((B, L, h))).to(bf)
+            p_args = (x, a, wo_t, bo, g, b)
+            again = bert_ffn_cuda.proj_ln_block(*p_args, eps=eps)
+            judge("K6b.bf16", shape, (bert_ffn_cuda.proj_ln_block(*p_args, eps=eps),),
+                  (bert_ffn_cuda.proj_ln_block_plain(*p_args, eps=eps),),
+                  (bert_ffn_cuda.proj_ln_block(*(v.float() for v in p_args), eps=eps),),
+                  (again,), kernel_fn=lambda: bert_ffn_cuda.proj_ln_block(*p_args, eps=eps),
+                  plain_fn=lambda: bert_ffn_cuda.proj_ln_block_plain(*p_args, eps=eps),
+                  work=k6b_bf16_work(B * L, h), iters=iters)
+            del a, p_args, again
+        if L != 8:
+            q, k, v = (t(rng.standard_normal((B, L, heads, h // heads))).to(bf)
+                       for _ in range(3))
+            mask = np.zeros((B, L), np.float32)
+            mask[0, : L // 2 + 44] = 1.0
+            for i in range(1, B):
+                mask[i, : rng.integers(1, L + 1)] = 1.0
+            mask = t(mask)
+            key_bias = ((1.0 - mask) * -10000.0)[:, None, None, :].to(bf)
+            qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
+            again = bert_attn_cuda.dense_attention_blockdiag(q, k, v, mask)
+            judge("K6a.bf16", shape, (bert_attn_cuda.dense_attention_blockdiag(q, k, v, mask),),
+                  (bert_attn_cuda.dense_attention_plain(q, k, v, mask),),
+                  (bert_attn_cuda.dense_attention_blockdiag(q.float(), k.float(), v.float(),
+                                                            mask),), (again,),
+                  kernel_fn=lambda: bert_attn_cuda.dense_attention_blockdiag(q, k, v, mask),
+                  plain_fn=lambda: bert_attn_cuda.dense_attention_plain(q, k, v, mask),
+                  library_fn=lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                                    attn_mask=key_bias),
+                  work=k6a_bf16_work(B, L, h), iters=iters)
+            del q, k, v, qt, kt, vt, again
+        del x
+    rows = []
+    wq = int8(t(rng.standard_normal((h, h)) * 0.02))[0]
+    bias = t(rng.standard_normal(h) * 0.02).to(bf)
+    for M in (8, 131072):
+        row, ok = qdot_row(rng, t, wq, bias, M, h)
+        rows.append(row)
+        if not ok:
+            raise RuntimeError(f"qdot {row['shape']} disagrees with its plain version")
+    torch.cuda.empty_cache()
+    return rows
 
 
 def check_k1f_k6a_edges(dev, rng, t, record, failures):
@@ -806,6 +946,47 @@ def bert_split_cases(dev, rng, h=768, ffn=3072, heads=12):
     return cases
 
 
+def bert_bf16_split_cases(dev, rng, h=768, ffn=3072, heads=12):
+    """The bf16 instances of K2 (B=4096 L=32; B=1 L=512, its tiled
+    attention), K4 and K6b (B=4096 L=32), for the device split by kernel
+    (K4's quantize of x, GEMM1, quantize of g1, GEMM2 and LN; K2's and
+    K6b's products, attention and LN)."""
+    from multimodal_transformer_robustness_tpu_torch.models.bert import _quantize
+    from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bert_ffn_cuda
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a, dtype=np.float32)).to(
+            dev, torch.bfloat16)
+
+    wqkv, bqkv = t(rng.standard_normal((3, h, h)) * 0.02), t(rng.standard_normal(3 * h) * 0.02)
+    wo, bo = t(rng.standard_normal((h, h)) * 0.02), t(rng.standard_normal(h) * 0.02)
+    g, b = t(1.0 + 0.1 * rng.standard_normal(h)), t(0.1 * rng.standard_normal(h))
+    w1q, w2q = ({"q": w["q"], "s": w["s"].to(torch.bfloat16)} for w in (
+        _quantize(torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.02).to(dev))
+        for s in ((ffn, h), (h, ffn))))
+    b1, b2 = t(rng.standard_normal(ffn) * 0.02), t(rng.standard_normal(h) * 0.02)
+    cases = []
+    for B, L in ((4096, 32), (1, 512)):
+        x = t(rng.standard_normal((B, L, h)))
+        mask = np.zeros((B, L), np.float32)
+        mask[0, : L // 2] = 1.0
+        for i in range(1, B):
+            mask[i, : rng.integers(1, L + 1)] = 1.0
+        a_args = (x, torch.from_numpy(mask).to(dev), wqkv[0], bqkv[:h], wqkv[1],
+                  bqkv[h:2 * h], wqkv[2], bqkv[2 * h:], wo, bo, g, b)
+        it = 5 if B > 1 else 20
+        cases.append((f"K2.bf16 B={B} L={L} h={h}", lambda a_args=a_args: bert_attn_cuda
+                      .attention_block_fused(*a_args, n_heads=heads, eps=1e-12), it))
+        if B > 1:
+            k_args = (x, w1q, b1, w2q, b2, g, b)
+            p_args = (x, t(rng.standard_normal((B, L, h))), wo, bo, g, b)
+            cases += [(f"K4.bf16 B={B} L={L} h={h} ffn={ffn}", lambda: bert_ffn_cuda
+                       .ffn_ln_block_q(*k_args, eps=1e-12), it),
+                      (f"K6b.bf16 B={B} L={L} h={h}", lambda: bert_ffn_cuda
+                       .proj_ln_block(*p_args, eps=1e-12), it)]
+    return cases
+
+
 def k9_split_cases(dev, rng):
     """K9f and K9b at the top FFN block (E=1000, F1=800, relu, channel
     mask) at R=4096 in train mode (d_mid 0.1, d_res 0.3) and R=1 in eval,
@@ -838,7 +1019,8 @@ def device_split(dev, rng):
     B=1 L=512), K9f's and K9b's (k9_split_cases) and, for K1f, K3, K6a, K8,
     K7f, K7b, K2, K4 and K6b at their timed shapes, K1b at its three path
     shapes, the flash backward's calls (flash_bwd_cases), K5f's two paths,
-    K5dkv and K5dq (flash_kernel_cases) and K9 at the top FFN block, the device
+    K5dkv and K5dq (flash_kernel_cases), K9 at the top FFN block and the bf16
+    BERT kernels (bert_bf16_split_cases), the device
     time of a call (torch.profiler) beside its CUDA-event time: the gap is
     host time the card waits for.
     Returns one dict per shape."""
@@ -897,6 +1079,7 @@ def device_split(dev, rng):
     cases += flash_kernel_cases(dev, rng, t)
     cases += bert_split_cases(dev, rng)
     cases += k9_split_cases(dev, rng)
+    cases += bert_bf16_split_cases(dev, rng)
     for name, fn, iters in cases:
         per = profile_ms(fn, iters)
         event = cuda_ms(fn, iters)
@@ -1032,29 +1215,44 @@ def check_bert_variants(dev, rng, t, record, failures,
     wq = _quantize(t(rng.standard_normal((h, h)) * 0.02))
     bias = t(rng.standard_normal(h) * 0.02)
     for M in qdot_rows:
-        xq, sx = bert_ffn_cuda.qrows(t(rng.standard_normal((M, h))))
-        acc = bert_ffn_cuda.int8_matmul(xq, wq["q"])
-        out = bert_ffn_cuda.qdot(xq, sx, wq, bias)
-        torch.cuda.synchronize()
-        exact = torch.equal(acc, bert_ffn_cuda.int8_matmul_plain(xq, wq["q"]).to(torch.int32))
-        err = (out - bert_ffn_cuda.qdot_plain(xq, sx, wq, bias)).abs().max().item()
-        row = dict(kid="qdot", shape=f"M={M} K={h} N={h}", abs=err, rel=0.0, int32_exact=exact)
-        it = 5 if M > 8 else 20
-        row.update(ms=cuda_ms(lambda: bert_ffn_cuda.qdot(xq, sx, wq, bias), it),
-                   plain_ms=cuda_ms(lambda: bert_ffn_cuda.qdot_plain(xq, sx, wq, bias), it),
-                   library_ms=None)
-        row["bound_ms"], row["bound_by"] = bound(2 * M * h * h, M * h + h * h + 4 * (M + 2 * h + M * h),
-                                                 peak=PEAK_INT8_OPS)
-        ok = exact and err == 0.0
-        print(f"qdot {row['shape']}: int32 products exact {exact}; max_abs vs plain {err:.3e} "
-              f"(limit 0: the same operations in the same order) {'ok' if ok else 'FAIL'}  "
-              f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound "
-              f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+        row, ok = qdot_row(rng, t, wq, bias, M, h)
         rows.append(row)
         if not ok:
             failures.append(f"qdot {row['shape']}")
-        del xq, sx, acc, out
     return rows
+
+
+def qdot_row(rng, t, wq, bias, M, h):
+    """The int8 GEMM of the fully quantized BERT's projections at M rows of
+    ``bias``'s dtype (bf16: its bf16 instance, the dequant rounded to bf16):
+    exact int32 products, and the dequant + bias epilogue the plain
+    version's bits (the same operations in the same order); CUDA-event ms
+    beside the bound.  Returns (row, ok)."""
+    from multimodal_transformer_robustness_tpu_torch.ops import bert_ffn_cuda
+
+    bf16 = bias.dtype == torch.bfloat16
+    xq, sx = bert_ffn_cuda.qrows(t(rng.standard_normal((M, h))).to(bias.dtype))
+    acc = bert_ffn_cuda.int8_matmul(xq, wq["q"])
+    out = bert_ffn_cuda.qdot(xq, sx, wq, bias)
+    torch.cuda.synchronize()
+    exact = torch.equal(acc, bert_ffn_cuda.int8_matmul_plain(xq, wq["q"]).to(torch.int32))
+    err = (out.float() - bert_ffn_cuda.qdot_plain(xq, sx, wq, bias).float()).abs().max().item()
+    row = dict(kid="qdot", shape=f"M={M} K={h} N={h}{' bf16' if bf16 else ''}", abs=err, rel=0.0,
+               int32_exact=exact)
+    it = 5 if M > 8 else 20
+    row.update(ms=cuda_ms(lambda: bert_ffn_cuda.qdot(xq, sx, wq, bias), it),
+               plain_ms=cuda_ms(lambda: bert_ffn_cuda.qdot_plain(xq, sx, wq, bias), it),
+               library_ms=None)
+    nb = 2 if bf16 else 4   # bytes of an output, scale or bias element
+    row["bound_ms"], row["bound_by"] = bound(2 * M * h * h,
+                                             M * h + h * h + 4 * M + nb * (2 * h + M * h),
+                                             peak=PEAK_INT8_OPS)
+    ok = exact and err == 0.0 and out.dtype == bias.dtype
+    print(f"qdot {row['shape']}: int32 products exact {exact}; max_abs vs plain {err:.3e} "
+          f"(limit 0: the same operations in the same order) {'ok' if ok else 'FAIL'}  "
+          f"kernel {row['ms']:.4f} ms  plain {row['plain_ms']:.4f} ms  bound "
+          f"{row['bound_ms']:.4f} ms ({row['bound_by']})", flush=True)
+    return row, ok
 
 
 def flash_work(kind, bh, tq, tk, d, offset, dropout):
@@ -1470,8 +1668,9 @@ class Bf16Count:
 
 def counters():
     """The launch counters: every kernel's, then the bf16 instances' of K1f,
-    K1b, K2 and K3 (``K1.bf16`` ... ``K3.bf16``), which count within K1 ...
-    K3: a phase where they equal K1 ... K3 launched no float32 instance."""
+    K1b, K2, K3, K4, K6a, K6b and the int8 projections (``K1.bf16`` ...
+    ``qdot.bf16``), which count within K1 ... qdot: a phase where they equal
+    K1 ... qdot launched no float32 instance."""
     from multimodal_transformer_robustness_tpu_torch.ops import attention_cuda as ac
     from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bert_ffn_cuda
     from multimodal_transformer_robustness_tpu_torch.ops import bigru_cuda, gru_cuda
@@ -1490,7 +1689,12 @@ def counters():
             "K9b": tb.trunk_block_bwd, "K1.bf16": Bf16Count(bigru_cuda.gru_dir),
             "K1b.bf16": Bf16Count(bigru_cuda.gru_dir_bwd),
             "K2.bf16": Bf16Count(bert_attn_cuda.attention_block_fused),
-            "K3.bf16": Bf16Count(bert_ffn_cuda.ffn_ln_block)}
+            "K3.bf16": Bf16Count(bert_ffn_cuda.ffn_ln_block),
+            "K4.bf16": Bf16Count(bert_ffn_cuda.ffn_ln_block_q),
+            "K6a.bf16": Bf16Count(bert_attn_cuda.dense_attention_blockdiag),
+            "K6b.bf16": Bf16Count(bert_ffn_cuda.proj_ln_block),
+            "qrows.bf16": Bf16Count(bert_ffn_cuda.qrows),
+            "qdot.bf16": Bf16Count(bert_ffn_cuda.qdot)}
 
 
 def expect(**counts):
@@ -1571,8 +1775,9 @@ def synthetic_requests(pred, n=4):
 def serve(dev, label="serving", per_request=None, **options):
     """StreamingPredictor(**options) at the MOSEI serving configuration:
     ``per_request`` launches each (default: K1 12, K2 4, K3 4), card vs the
-    CPU plain path, warm ms through the kernels and through the plain
-    versions on the card."""
+    CPU plain path (float32: SERVE_TOL, int8 in two parts; under a bf16
+    ``spec``: BF16_PRED_TOL of the predictions' scale), warm ms through the
+    kernels and through the plain versions on the card."""
     from multimodal_transformer_robustness_tpu_torch.cli.realtime import StreamingPredictor
 
     t0 = time.perf_counter()
@@ -1614,6 +1819,15 @@ def serve(dev, label="serving", per_request=None, **options):
     cpu = StreamingPredictor(seed=0, device="cpu", **options)
     cpu_out = [cpu.forward(*r) for r in requests]
     diff = max(abs(a - b) for a, b in zip(card, cpu_out))
+    if pred.spec.compute_dtype == "bfloat16":
+        # bf16 flips from float32 sums in another order compound through the
+        # BERT and the GRU: held to BF16_PRED_TOL of the predictions' scale
+        tol = BF16_PRED_TOL * max(abs(b) for b in cpu_out)
+        print(f"{label} card vs CPU plain path: sentiment {card} vs {cpu_out}, max abs diff "
+              f"{diff:.3e} (tol {tol:.3e}, {BF16_PRED_TOL:g} of max |CPU|)", flush=True)
+        if not diff <= tol:
+            raise RuntimeError(f"{label}: card and CPU disagree: {card} vs {cpu_out}")
+        return pred, cpu, launches, warm_ms, plain_ms
     print(f"{label} card vs CPU plain path: max abs diff {diff:.3e} (tol {SERVE_TOL:g}"
           f"{'; int8: checked in two parts below' if options.get('bert_int8') else ''})",
           flush=True)
@@ -1742,7 +1956,8 @@ def mosei():
 def train(dev, spec, bert_cfg, label="train", per_step=None, bert_int8=False,
           cached=False, store_dtype=None, B=4096, T=50, L=32, warmup=2, steps=5):
     """Trainer.train_epoch at the training shapes: the frozen BERT in float
-    (default), int8 (``bert_int8``: fc1 / fc2 through K4) or run once ahead
+    (default), int8 (``bert_int8``: fc1 / fc2 through K4, quantized from the
+    float32 weights by ``init_supernet(bert_int8="ffn")``) or run once ahead
     on the batch (``cached``: train/features.py, the step gets features, in
     ``spec.compute_dtype``); ``store_dtype``: the batch stored on the card
     by ``DeviceBatchIterator(store_dtype=...)`` (bench.py's bf16 feed).
@@ -1750,14 +1965,14 @@ def train(dev, spec, bert_cfg, label="train", per_step=None, bert_int8=False,
     from multimodal_transformer_robustness_tpu_torch import build_masks, full_active_config
     from multimodal_transformer_robustness_tpu_torch.data.loaders import Batch
     from multimodal_transformer_robustness_tpu_torch.models import init_supernet
-    from multimodal_transformer_robustness_tpu_torch.models.bert import quantize_bert_params
     from multimodal_transformer_robustness_tpu_torch.train import TrainHParams, Trainer
     from multimodal_transformer_robustness_tpu_torch.train.features import (
         precompute_text_features)
 
-    params, frozen = init_supernet(torch.Generator().manual_seed(0), spec, bert_cfg)
-    if bert_int8:
-        frozen = dict(frozen, bert=quantize_bert_params(frozen["bert"], attn=False))
+    # int8: fc1 / fc2 quantized from the float32 weights, then cast to the
+    # compute dtype (the JAX package's order)
+    params, frozen = init_supernet(torch.Generator().manual_seed(0), spec, bert_cfg,
+                                   bert_int8="ffn" if bert_int8 else None)
     hp = TrainHParams(batch_size=B, lr=1e-4, optim="Adam", criterion="L1Loss",
                       experiment_type="random_sample", modality_pool=POOL)
     trainer = Trainer(spec, params, frozen, hp, bert_cfg=bert_cfg, device=dev)
@@ -1985,48 +2200,52 @@ def train_bf16_card_vs_cpu(dev, spec, bert_cfg, B=8, T=50, L=32):
     return dict(loss_rel=loss_err, grad_cos=cos, pred_rel=pred_err, metric=(m_card, m_cpu))
 
 
-def bert_int8_full(dev, bert_cfg, B=8, L=32):
+def bert_int8_full(dev, bert_cfg, B=8, L=32, dtype=torch.float32, label="bert-int8-full"):
     """One frozen-BERT forward with every projection int8
     (``quantize_bert_params(attn=True)``), card vs CPU.  Per layer: one row
     quantization shared by q/k/v and one for the o-proj input (qrows 2), the
     four int8 GEMMs q/k/v/o (qdot 4), the plain attention (the JAX package's
-    "auto" for quantized attention layers) and K4.  Card vs CPU by
-    :func:`int8_agree`."""
+    "auto" for quantized attention layers) and K4.  ``dtype`` bf16: the
+    weights quantized in float32, then cast (the scales and biases rounded),
+    every kernel its bf16 instance.  Card vs CPU by :func:`int8_agree`, the
+    yardstick the float BERT in the same dtype."""
     from multimodal_transformer_robustness_tpu_torch.models import bert as bert_mod
-    from multimodal_transformer_robustness_tpu_torch.models.mult import to_device
+    from multimodal_transformer_robustness_tpu_torch.models.mult import cast_tree, to_device
 
     float_params = bert_mod.prepare_bert(
         bert_mod.init_bert(torch.Generator().manual_seed(2), bert_cfg))
-    params = bert_mod.quantize_bert_params(float_params, attn=True)
+    params = cast_tree(bert_mod.quantize_bert_params(float_params, attn=True), dtype)
+    float_params = cast_tree(float_params, dtype)
     rng = np.random.default_rng(9)
     ids = torch.as_tensor(rng.integers(0, bert_cfg.vocab_size, (B, L)))
     mask = torch.ones(B, L)
     for i in range(1, B):
         mask[i, rng.integers(1, L + 1):] = 0.0
     types = torch.zeros(B, L, dtype=torch.long)
-    on_card = to_device(params, dev)
+    on_card = cast_tree(to_device(params, dev), dtype)
     reset_counters()
     with torch.inference_mode():
         out = bert_mod.bert_apply(on_card, ids.to(dev), mask.to(dev), types.to(dev), bert_cfg)
     torch.cuda.synchronize()
     launches = read_counters()
     n = bert_cfg.num_layers
-    expected = expect(qrows=2 * n, qdot=4 * n, K4=n)
-    print(f"bert-int8-full launches {launches} expected {expected} (per layer qrows 2, "
-          f"qdot 4, K4 1)", flush=True)
+    bf16 = dtype == torch.bfloat16
+    expected = (expect_bf16 if bf16 else expect)(qrows=2 * n, qdot=4 * n, K4=n)
+    print(f"{label} launches {launches} expected {expected} (per layer qrows 2, "
+          f"qdot 4, K4 1{', every one a bf16 instance' if bf16 else ''})", flush=True)
     if launches != expected:
-        raise RuntimeError(f"bert-int8-full launch counts {launches} != {expected}")
+        raise RuntimeError(f"{label} launch counts {launches} != {expected}")
     with torch.inference_mode():
-        ref = bert_mod.bert_apply(params, ids, mask, types, bert_cfg)
-        ref_float = bert_mod.bert_apply(float_params, ids, mask, types, bert_cfg)
+        ref = bert_mod.bert_apply(params, ids, mask, types, bert_cfg).float()
+        ref_float = bert_mod.bert_apply(float_params, ids, mask, types, bert_cfg).float()
     out = out.cpu()
-    ok, err, qerr = int8_agree(out, ref, ref_float)
-    print(f"bert-int8-full B={B} L={L}: out {tuple(out.shape)} finite "
+    ok, err, qerr = int8_agree(out.float(), ref, ref_float)
+    print(f"{label} B={B} L={L}: out {tuple(out.shape)} {out.dtype} finite "
           f"{bool(torch.isfinite(out).all())}; card vs CPU relative error {err:.3e} (max abs "
-          f"{(out - ref).abs().max():.3e}; limit: the int8 weights' own error vs float, "
-          f"{qerr:.3e})", flush=True)
-    if not ok:
-        raise RuntimeError("bert-int8-full: card and CPU disagree")
+          f"{(out.float() - ref).abs().max():.3e}; limit: the int8 weights' own error vs "
+          f"float, {qerr:.3e})", flush=True)
+    if not ok or out.dtype != dtype:
+        raise RuntimeError(f"{label}: card and CPU disagree")
     return launches
 
 
@@ -2837,28 +3056,35 @@ def kernel_entries(rows, launches):
 
 
 def bf16_kernel_entries(rows, launches):
-    """The bf16 instances of K1f, K1b, K2 and K3: worst error over their
-    checked shapes (each held to BF16_TOL of max |ref|), their cosine
-    against the float32 kernel, and the times at the training path's
-    shape (K1b: in=768 without dx, the most frequent; the other two in
+    """The bf16 instances of K1f, K1b, K2, K3, K4, K6a and K6b: worst error
+    over their checked shapes (each held to BF16_TOL of max |ref|), their
+    cosine against the float32 kernel, and the times at the training path's
+    shape (K1b: in=768 without dx, the most frequent; every shape in
     ``by_shape``); launches from the bf16 phases' counters."""
+    bf16_gemm = "csrc/gemm_bf16.cuh"
     meta = {
-        "K1f.bf16": ("gru_dir", "K1.bf16", "csrc/bigru.cu", "ops/bigru_pallas.py:127",
-                     "in=768 H=100 T=50 B=4096 fwd"),
-        "K1b.bf16": ("gru_dir_bwd", "K1b.bf16", "csrc/bigru_bwd.cu", "ops/bigru_pallas.py:284",
-                     "in=768 H=100 T=50 B=4096 fwd need_dx=False"),
-        "K2.bf16": ("attention_block_fused", "K2.bf16", "csrc/bert_attn.cu",
+        "K1f.bf16": ("gru_dir", "K1.bf16", ("csrc/bigru.cu", bf16_gemm),
+                     "ops/bigru_pallas.py:127", "in=768 H=100 T=50 B=4096 fwd"),
+        "K1b.bf16": ("gru_dir_bwd", "K1b.bf16", ("csrc/bigru_bwd.cu", bf16_gemm),
+                     "ops/bigru_pallas.py:284", "in=768 H=100 T=50 B=4096 fwd need_dx=False"),
+        "K2.bf16": ("attention_block_fused", "K2.bf16", ("csrc/bert_attn.cu", bf16_gemm),
                     "ops/bert_attn_pallas.py:223", "B=4096 L=32 h=768"),
-        "K3.bf16": ("ffn_ln_block", "K3.bf16", "csrc/bert_ffn.cu",
+        "K3.bf16": ("ffn_ln_block", "K3.bf16", ("csrc/bert_ffn.cu", bf16_gemm),
                     "ops/bert_ffn_pallas.py:150", "B=4096 L=32 h=768 ffn=3072"),
+        "K4.bf16": ("ffn_ln_block_q", "K4.bf16", ("csrc/bert_ffn_q.cu",),
+                    "ops/bert_ffn_pallas.py:222", "B=4096 L=32 h=768 ffn=3072"),
+        "K6a.bf16": ("dense_attention_blockdiag", "K6a.bf16", ("csrc/bert_attn.cu",),
+                     "ops/bert_attn_pallas.py:114", "B=4096 L=32 h=768"),
+        "K6b.bf16": ("proj_ln_block", "K6b.bf16", ("csrc/bert_ffn.cu", bf16_gemm),
+                     "ops/bert_ffn_pallas.py:183", "B=4096 L=32 h=768"),
     }
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
-    for kid, (name, counter, source, replaces, shape) in meta.items():
+    for kid, (name, counter, sources, replaces, shape) in meta.items():
         mine = [r for r in rows if r["kid"] == kid]
         at = next(r for r in mine if r["shape"] == shape)
         kernels.append({"name": f"{name} (bf16)", "route": "cuda",
-                        "source": f"{PKG}/{source} + {PKG}/csrc/gemm_bf16.cuh",
+                        "source": " + ".join(f"{PKG}/{src}" for src in sources),
                         "replaces": f"multimodal_transformer_robustness_tpu/{replaces} "
                                     "(at bf16 operands)",
                         "launches": sum(l[counter] for l in launches.values()),
@@ -2997,6 +3223,33 @@ def main() -> int:
     bf16_agree = train_bf16_card_vs_cpu(dev, spec16, bert_cfg)
     torch.cuda.empty_cache()
 
+    phase("train-bf16-int8")
+    bf16_int8_launches, bf16_int8_stats = train(
+        dev, spec16, bert_cfg, "train-bf16-int8", expect_bf16(K1=12, K1b=12, K2=4, K4=4),
+        bert_int8=True, store_dtype="bfloat16", warmup=2, steps=3)
+    torch.cuda.empty_cache()
+
+    phase("serving-bf16")
+    pred, cpu, s16_launches, s16_warm, s16_plain = serve(
+        dev, "serving-bf16", expect_bf16(K1=12, K2=4, K3=4), spec=spec16)
+    del pred, cpu
+
+    phase("serving-bf16-int8")
+    pred, cpu, s16_int8_launches, s16_int8_warm, s16_int8_plain = serve(
+        dev, "serving-bf16-int8", expect_bf16(K1=12, K2=4, K4=4), spec=spec16, bert_int8=True)
+    del pred, cpu
+
+    phase("serving-bf16-dense")
+    with attn_impl("dense"):
+        pred, cpu, s16_dense_launches, s16_dense_warm, s16_dense_plain = serve(
+            dev, "serving-bf16-dense", expect_bf16(K1=12, K6a=4, K6b=4, K3=4), spec=spec16)
+    del pred, cpu
+    torch.cuda.empty_cache()
+
+    phase("bert-int8-full-bf16")
+    full16_launches = bert_int8_full(dev, bert_cfg, dtype=torch.bfloat16,
+                                     label="bert-int8-full-bf16")
+
     phase("sweep")
     sweep_launches, sweep_stats = sweep_phase(dev, spec, bert_cfg)
 
@@ -3007,12 +3260,18 @@ def main() -> int:
                 "serving-flash": serving_flash_launches, "flash-masked": masked_launches,
                 "gru-recurrence": rec_launches, "trunk-block": block_launches,
                 "fit": fit_launches, "sweep": sweep_launches, "train-bf16": bf16_launches,
-                "train-bf16-cached": bf16_cached_launches}
+                "train-bf16-cached": bf16_cached_launches, "train-bf16-int8": bf16_int8_launches,
+                "serving-bf16": s16_launches, "serving-bf16-int8": s16_int8_launches,
+                "serving-bf16-dense": s16_dense_launches, "bert-int8-full-bf16": full16_launches}
     kernels = kernel_entries(rows, launches) + bf16_kernel_entries(rows, launches)
     print(f"serving warm request ms, kernels {warm_ms}, plain {plain_ms}", flush=True)
     print(f"serving-int8 warm request ms, kernels {int8_warm}, plain {int8_plain}", flush=True)
     print(f"serving-dense warm request ms, kernels {dense_warm}, plain {dense_plain}",
           flush=True)
+    for label, warm, plain in (("serving-bf16", s16_warm, s16_plain),
+                               ("serving-bf16-int8", s16_int8_warm, s16_int8_plain),
+                               ("serving-bf16-dense", s16_dense_warm, s16_dense_plain)):
+        print(f"{label} warm request ms, kernels {warm}, plain {plain}", flush=True)
     print("train " + json.dumps(train_stats), flush=True)
     print("train-int8 " + json.dumps(int8_train_stats), flush=True)
     print("train-cached " + json.dumps(cached_stats), flush=True)
@@ -3024,6 +3283,7 @@ def main() -> int:
     print("train-bf16 " + json.dumps(bf16_stats), flush=True)
     print("train-bf16-cached " + json.dumps(bf16_cached_stats), flush=True)
     print("train-bf16-vs-cpu " + json.dumps(bf16_agree), flush=True)
+    print("train-bf16-int8 " + json.dumps(bf16_int8_stats), flush=True)
     print("int8 projections " + json.dumps(int8_projection_entries(rows, launches)),
           flush=True)
     print("device split " + json.dumps(splits), flush=True)

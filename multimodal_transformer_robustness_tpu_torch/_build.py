@@ -57,12 +57,17 @@ _SIGNATURES = {
     "mmtr_ffn_ln_fwd_bf16": (_I, [_P] * 11 + [_I] * 3 + [_F, _P, _P]),
     "mmtr_attn_block_fwd_bf16": (_I, [_P] * 13 + [_I] * 4 + [_F, _I, _P, _P]),
     "mmtr_attention_fwd": (_I, [_P] * 5 + [_I] * 4 + [_P, _P]),
+    "mmtr_attention_fwd_bf16": (_I, [_P] * 5 + [_I] * 4 + [_P, _P]),
     "mmtr_attention_masked_fwd": (_I, [_P] * 5 + [_I] * 5 + [_P, _P]),
     "mmtr_proj_ln_fwd": (_I, [_P] * 9 + [_I] * 2 + [_F, _P, _P]),
+    "mmtr_proj_ln_fwd_bf16": (_I, [_P] * 9 + [_I] * 2 + [_F, _P, _P]),
     "mmtr_qrows": (_I, [_P] * 3 + [_I] * 2 + [_P]),
+    "mmtr_qrows_bf16": (_I, [_P] * 3 + [_I] * 2 + [_P]),
     "mmtr_qgemm_i32": (_I, [_P] * 3 + [_I] * 3 + [_P, _P]),
     "mmtr_qdot": (_I, [_P] * 6 + [_I] * 3 + [_P, _P]),
+    "mmtr_qdot_bf16": (_I, [_P] * 6 + [_I] * 3 + [_P, _P]),
     "mmtr_ffn_ln_q_fwd": (_I, [_P] * 16 + [_I] * 3 + [_F, _P, _P]),
+    "mmtr_ffn_ln_q_fwd_bf16": (_I, [_P] * 16 + [_I] * 3 + [_F, _P, _P]),
     "mmtr_flash_fwd": (_I, [_P] * 7 + [_I] * 7 + [_P, _P]),
     "mmtr_flash_bwd_dq": (_I, [_P] * 9 + [_I] * 7 + [_P, _P]),
     "mmtr_flash_bwd_dkv": (_I, [_P] * 10 + [_I] * 7 + [_P, _P]),
@@ -160,8 +165,8 @@ def host_ints(values) -> tuple:
     return arr, ctypes.addressof(arr)
 
 
-BF16_TODO = ("has no bf16 instance yet (only K1f, K1b, K2 and K3 have one): "
-             "ROADMAP Queue 2, 'bf16'")
+BF16_TODO = ("has no bf16 instance yet (only K1f, K1b, K2, K3, K4, K6a and K6b have "
+             "one): ROADMAP Queue 2, 'bf16'")
 
 
 def refuse_bf16(what: str, *tensors) -> None:
@@ -177,7 +182,7 @@ def require(t: torch.Tensor, name: str, shape: tuple, device: torch.device,
     """Raise on what the kernels do not take: they read contiguous tensors
     of one dtype (float32 unless the caller names another: the int8
     weights and codes of K4, or bfloat16 for the bf16 instances of K1f,
-    K1b, K2 and K3) on one card, of exactly the given shape.  A bfloat16
+    K1b, K2, K3, K4, K6a and K6b) on one card, of exactly the given shape.  A bfloat16
     tensor where the kernel takes float32 raises NotImplementedError."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")

@@ -24,7 +24,7 @@ import torch
 from .. import _build
 from ..config import ModelSpec, full_active_config
 from ..masks import build_masks
-from ..models.bert import BertConfig, quantize_bert_params
+from ..models.bert import BertConfig
 from ..models.mult import init_supernet, supernet_apply
 
 TORCH_FEATURES_TODO = ("--features torch (MTCNN / wav2vec2 extraction) is not ported "
@@ -104,13 +104,12 @@ class StreamingPredictor:
             attn_mask=True, output_dim=1, attn_impl=attn_impl)
         self.bert_cfg = bert_cfg or BertConfig(num_layers=4)
         gen = torch.Generator().manual_seed(seed)
+        # --bert_int8: int8 fc1 / fc2 (kernel K4), float attention (K2), as
+        # the JAX CLIs quantize the frozen extractor: from the float32
+        # weights, then cast to the spec's compute dtype
         self.params, self.frozen = init_supernet(gen, self.spec, self.bert_cfg,
-                                                 device=self.device)
-        if bert_int8 and "bert" in self.frozen:
-            # --bert_int8: int8 fc1 / fc2 (kernel K4), float attention (K2),
-            # as the JAX CLIs quantize the frozen extractor
-            self.frozen = dict(self.frozen, bert=quantize_bert_params(
-                self.frozen["bert"], attn=False))
+                                                 device=self.device,
+                                                 bert_int8="ffn" if bert_int8 else None)
         if model_path:
             self.params = _load_reference_params(self.spec, model_path, self.device)
         self.masks = build_masks(self.spec, full_active_config(self.spec),

@@ -42,7 +42,10 @@
 // 768, W^T's TF32 planes split per call into `scratch`) then the row
 // LayerNorm, or at few rows split-K mma.sync tiles whose planes (in
 // `scratch`) the LayerNorm's launch adds.  Its sums are 768 deep and stay
-// unpromoted, as K2's (K6B_PROMOTE).
+// unpromoted, as K2's (K6B_PROMOTE).  Its bf16 instance,
+// mmtr_proj_ln_fwd_bf16, is K2's bf16 tail alone (gemm_bf16.cuh, then the
+// bf16 LayerNorm): 0.60 GB of bf16 rows at R = 131,072, 0.18 ms at 3.35
+// TB/s, against 0.16 ms of bf16 tensor-core work.
 #include "gemm_bf16.cuh"
 #include "gemm_tc.cuh"
 
@@ -113,6 +116,27 @@ extern "C" int mmtr_ffn_ln_fwd_bf16(const bf16* x, const bf16* w1t, const bf16* 
   err = launch_gemm_bf16<true, EPI_BIAS_RESIDUAL>(
       bf_plan(plan + 5), bf_gemm(hidden, ffn, w2t, h, h, rows, h, ffn), b2, x, resid_sum, h,
       partial, stream);
+  if (err != cudaSuccess) return (int)err;
+  layernorm_rows_kernel<bf16><<<rows, LN_THREADS, 0, stream>>>(resid_sum, ln_g, ln_b, out, h,
+                                                               eps);
+  return (int)cudaGetLastError();
+}
+
+// K6b's bf16 instance (the JAX kernel at bf16 operands), K2's bf16 tail
+// alone: resid, a, w_t, b and LN parameters bf16.  The product on the bf16
+// tensor cores (gemm_bf16.cuh), + b rounded to bf16, + resid rounded
+// (resid_sum [R, h], bf16), then the row LayerNorm with float32 moments,
+// rounded to bf16.  plan: five host ints, a BfPlan (ops/bert_ffn_cuda.
+// _plan_proj_ln_bf16, K2's bf16 "o" plan); partial: its need (W's transpose
+// on the wgmma path, or split planes).
+extern "C" int mmtr_proj_ln_fwd_bf16(const bf16* resid, const bf16* a, const bf16* w_t,
+                                     const bf16* b, const bf16* ln_g, const bf16* ln_b,
+                                     bf16* resid_sum, bf16* out, float* partial, int rows, int h,
+                                     float eps, const int* plan, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  const cudaError_t err = launch_gemm_bf16<true, EPI_BIAS_RESIDUAL>(
+      bf_plan(plan), bf_gemm(a, h, w_t, h, h, rows, h, h), b, resid, resid_sum, h, partial,
+      stream);
   if (err != cudaSuccess) return (int)err;
   layernorm_rows_kernel<bf16><<<rows, LN_THREADS, 0, stream>>>(resid_sum, ln_g, ln_b, out, h,
                                                                eps);

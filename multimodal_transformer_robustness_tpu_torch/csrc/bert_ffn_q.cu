@@ -53,6 +53,16 @@
 // mmtr_qdot (the int8 q/k/v/o projections of a fully quantized BERT, XLA's
 // int8 dot in the JAX package), the raw int32 product as mmtr_qgemm_i32 (to
 // check exactness on the card), and the row quantization as mmtr_qrows.
+//
+// K4, qdot and qrows have bf16 instances (the *_bf16 entries: the int8 BERT
+// under the bf16 compute policy, the JAX kernel at bf16 rows): the quantize
+// pass and the epilogues are templates on the rows' storage type T, the
+// int8 products and their plans unchanged.  bf16 rows, scales, biases and
+// LN parameters are read as float32; h1 and y are rounded to bf16 after
+// their dequant + bias, g1 = gelu(h1) before its max and codes, x + y after
+// the sum, and the LN's output as it is stored.  Bound at the training
+// shape: the same 1.24e12 int8 operations (0.63 ms), against 0.40 GB of bf16
+// rows in and out; h1 is 0.81 GB a way instead of 1.61.
 #include <stdint.h>
 
 #include "gemm_tc.cuh"
@@ -88,18 +98,52 @@ __device__ __forceinline__ float gelu_erf_poly(float v) {
 // sx)), TPR threads a row (64, four rows a block, or Q_THREADS).  The row's
 // v stay in registers between the max and the codes (Q_VECS float4s a
 // thread; a longer row's tail is recomputed), so x is read once and g1 is
-// never written; 16-byte loads and 4-byte stores where n is a multiple of 4
-// and X, Q aligned.  The max is exact in any order, so the codes do not
-// depend on the path.
-template <bool GELU>
+// never written; 16-byte loads (8-byte at bf16) and 4-byte stores where n
+// is a multiple of 4 and X, Q aligned.  The max is exact in any order, so
+// the codes do not depend on the path.  T: the rows' storage type, float,
+// or bf16 for K4's bf16 instance, where x is read as float32 and g1 is
+// rounded to bf16 before its max and codes (the JAX kernel's
+// _gelu_erf(h1) in the bf16 h1's dtype).
+template <bool GELU, typename T>
 __device__ __forceinline__ float q_value(float v) {
-  return GELU ? gelu_erf_poly(v) : v;
+  return GELU ? as_t<T>(gelu_erf_poly(v)) : v;
 }
 
-template <bool GELU>
+template <bool GELU, typename T>
 __device__ __forceinline__ float4 q_value4(float4 v) {
-  return make_float4(q_value<GELU>(v.x), q_value<GELU>(v.y), q_value<GELU>(v.z),
-                     q_value<GELU>(v.w));
+  return make_float4(q_value<GELU, T>(v.x), q_value<GELU, T>(v.y), q_value<GELU, T>(v.z),
+                     q_value<GELU, T>(v.w));
+}
+
+// A value of the rows' storage type T as float32, and float32 stored as T
+// (rounded where T is bf16); four elements in one load (QVec: 16 bytes of
+// float, 8 of bf16) as a float4.  The float overloads are the identity, so
+// the float instances compile to the loads and stores they always had.
+__device__ __forceinline__ float q_f(float v) { return v; }
+__device__ __forceinline__ float q_f(bf16 v) { return bf2f(v); }
+template <typename T>
+__device__ __forceinline__ T q_t(float v);
+template <>
+__device__ __forceinline__ float q_t<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 q_t<bf16>(float v) { return f2bf(v); }
+
+template <typename T>
+struct QVec;
+template <>
+struct QVec<float> {
+  using type = float4;
+};
+template <>
+struct QVec<bf16> {
+  using type = uint2;
+};
+
+__device__ __forceinline__ float4 q_f4(float4 v) { return v; }
+__device__ __forceinline__ float4 q_f4(uint2 u) {
+  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
 }
 
 __device__ __forceinline__ float q_max4(float m, float4 v) {
@@ -116,32 +160,33 @@ __device__ __forceinline__ int q_code4(float4 v, float sx) {
          (q_code(v.z, sx) & 0xff) << 16 | (int)((unsigned)q_code(v.w, sx) << 24);
 }
 
-template <bool GELU, int TPR>
+template <bool GELU, int TPR, typename T>
 __global__ void __launch_bounds__(Q_THREADS)
-qrows_kernel(const float* __restrict__ X, int8_t* __restrict__ Q, float* __restrict__ S,
+qrows_kernel(const T* __restrict__ X, int8_t* __restrict__ Q, float* __restrict__ S,
              int rows, int n) {
   __shared__ float red[Q_THREADS / 32];
   const int lt = threadIdx.x % TPR;   // this thread's place in its row
   const long long row = (long long)blockIdx.x * (Q_THREADS / TPR) + threadIdx.x / TPR;
   const bool live = TPR == Q_THREADS || row < rows;   // a block a row: the grid has rows
-  const float* x = X + (live ? row : 0) * n;
+  const T* x = X + (live ? row : 0) * n;
   int8_t* q = Q + (live ? row : 0) * n;
-  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(X) % 16 == 0 &&
+  const bool vec = n % 4 == 0 && reinterpret_cast<uintptr_t>(X) % (4 * sizeof(T)) == 0 &&
                    reinterpret_cast<uintptr_t>(Q) % 4 == 0;
-  const float4* x4 = reinterpret_cast<const float4*>(x);
+  const auto* x4 = reinterpret_cast<const typename QVec<T>::type*>(x);
   const int n4 = vec && live ? n / 4 : 0;
   float4 keep[Q_VECS];
 #pragma unroll
   for (int j = 0; j < Q_VECS; ++j) {
     const int i = lt + j * TPR;
-    keep[j] = i < n4 ? q_value4<GELU>(x4[i]) : make_float4(0.f, 0.f, 0.f, 0.f);
+    keep[j] = i < n4 ? q_value4<GELU, T>(q_f4(x4[i])) : make_float4(0.f, 0.f, 0.f, 0.f);
   }
   float m = 0.f;
 #pragma unroll
   for (int j = 0; j < Q_VECS; ++j) m = q_max4(m, keep[j]);
-  for (int i = lt + Q_VECS * TPR; i < n4; i += TPR) m = q_max4(m, q_value4<GELU>(x4[i]));
+  for (int i = lt + Q_VECS * TPR; i < n4; i += TPR)
+    m = q_max4(m, q_value4<GELU, T>(q_f4(x4[i])));
   if (!vec && live)
-    for (int i = lt; i < n; i += TPR) m = fmaxf(m, fabsf(q_value<GELU>(x[i])));
+    for (int i = lt; i < n; i += TPR) m = fmaxf(m, fabsf(q_value<GELU, T>(q_f(x[i]))));
   for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
   const int warp = threadIdx.x / 32;
   if (threadIdx.x % 32 == 0) red[warp] = m;
@@ -158,23 +203,24 @@ qrows_kernel(const float* __restrict__ X, int8_t* __restrict__ Q, float* __restr
     const int i = lt + j * TPR;
     if (i < n4) q4[i] = q_code4(keep[j], sx);
   }
-  for (int i = lt + Q_VECS * TPR; i < n4; i += TPR) q4[i] = q_code4(q_value4<GELU>(x4[i]), sx);
+  for (int i = lt + Q_VECS * TPR; i < n4; i += TPR)
+    q4[i] = q_code4(q_value4<GELU, T>(q_f4(x4[i])), sx);
   if (!vec)
-    for (int i = lt; i < n; i += TPR) q[i] = (int8_t)q_code(q_value<GELU>(x[i]), sx);
+    for (int i = lt; i < n; i += TPR) q[i] = (int8_t)q_code(q_value<GELU, T>(q_f(x[i])), sx);
 }
 
 // Rows of up to 4 * Q_VECS * 64 = 1,024 (x at BERT-base width) share a
 // block four to one; longer ones (the hidden 3,072) take a block each.
-template <bool GELU>
-void launch_qrows_t(const float* x, int8_t* xq, float* sx, int rows, int n,
-                    cudaStream_t stream) {
+template <bool GELU, typename T>
+void launch_qrows_t(const T* x, int8_t* xq, float* sx, int rows, int n, cudaStream_t stream) {
   if (n <= 4 * Q_VECS * 64)
-    qrows_kernel<GELU, 64><<<(rows + 3) / 4, Q_THREADS, 0, stream>>>(x, xq, sx, rows, n);
+    qrows_kernel<GELU, 64, T><<<(rows + 3) / 4, Q_THREADS, 0, stream>>>(x, xq, sx, rows, n);
   else
-    qrows_kernel<GELU, Q_THREADS><<<rows, Q_THREADS, 0, stream>>>(x, xq, sx, rows, n);
+    qrows_kernel<GELU, Q_THREADS, T><<<rows, Q_THREADS, 0, stream>>>(x, xq, sx, rows, n);
 }
 
-cudaError_t launch_qrows(const float* x, int8_t* xq, float* sx, int rows, int n, bool gelu,
+template <typename T>
+cudaError_t launch_qrows(const T* x, int8_t* xq, float* sx, int rows, int n, bool gelu,
                          cudaStream_t stream) {
   if (gelu)
     launch_qrows_t<true>(x, xq, sx, rows, n, stream);
@@ -189,6 +235,9 @@ constexpr int QG_BK = 64;            // bytes of k per shared-memory tile
 constexpr int QG_LDS = QG_BK + 16;   // padded row: conflict-free fragment reads
 constexpr int QG_THREADS = 128;      // four warps, 2 x 2, each 32 x 32 outputs
 
+// T, the type of C and of the scales, biases and residual the epilogue
+// reads (sa, the rows' scales, stay float32): float, or bf16 for the bf16
+// instances of K4 and qdot.
 enum QEpilogue {
   QEPI_I32 = 0,           // Ci = A @ B^T (int32)
   QEPI_BIAS = 1,          // C = float(A @ B^T) * sa * sb + bias
@@ -198,12 +247,13 @@ enum QEpilogue {
 // Output o = (r, c) of a product from its exact int32 sum v, the row's
 // scale sa_r and the column's scale and bias: float(v) * sa_r * sb_c +
 // bias_c (then resid[o] + it), each operation rounded on its own, in the
-// plain version's order.
-template <int EPI>
+// plain version's order.  T = bf16 (the bf16 instances): each of the two
+// results rounded to bf16, as the JAX kernel's astype rounds them.
+template <int EPI, typename T>
 __device__ __forceinline__ float q_epilogue(int v, float sa_r, float sb_c, float bias_c,
-                                            const float* __restrict__ resid, long long o) {
-  const float f = __fadd_rn(__fmul_rn(__fmul_rn((float)v, sa_r), sb_c), bias_c);
-  return EPI == QEPI_BIAS_RESIDUAL ? __fadd_rn(resid[o], f) : f;
+                                            const T* __restrict__ resid, long long o) {
+  const float f = as_t<T>(__fadd_rn(__fmul_rn(__fmul_rn((float)v, sa_r), sb_c), bias_c));
+  return EPI == QEPI_BIAS_RESIDUAL ? as_t<T>(__fadd_rn(q_f(resid[o]), f)) : f;
 }
 
 // D += A (16x32, row) * B (32x8, col), int8 in, int32 accumulators.
@@ -236,12 +286,12 @@ __device__ __forceinline__ void load_tile_s8(int8_t* dst, const int8_t* __restri
 }
 
 // C [M, N] = epilogue(A [M, K] @ B [N, K]^T); A and B int8, both K-contiguous.
-template <int EPI>
+template <int EPI, typename T>
 __global__ void __launch_bounds__(QG_THREADS)
 qgemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B, int M,
              int N, int K, bool vec_ok, const float* __restrict__ sa,
-             const float* __restrict__ sb, const float* __restrict__ bias,
-             const float* __restrict__ resid, float* __restrict__ C,
+             const T* __restrict__ sb, const T* __restrict__ bias,
+             const T* __restrict__ resid, T* __restrict__ C,
              int* __restrict__ Ci) {
   __shared__ __align__(16) int8_t As[QG_BM * QG_LDS];
   __shared__ __align__(16) int8_t Bs[QG_BN * QG_LDS];
@@ -305,19 +355,19 @@ qgemm_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B, int M,
         if (EPI == QEPI_I32)
           Ci[o] = v;
         else
-          C[o] = q_epilogue<EPI>(v, sa[r], sb[c], bias[c], resid, o);
+          C[o] = q_t<T>(q_epilogue<EPI, T>(v, sa[r], q_f(sb[c]), q_f(bias[c]), resid, o));
       }
 }
 
-template <int EPI>
+template <int EPI, typename T>
 cudaError_t launch_qgemm_sync(const int8_t* A, const int8_t* B, int M, int N, int K,
-                              const float* sa, const float* sb, const float* bias,
-                              const float* resid, float* C, int* Ci, cudaStream_t stream) {
+                              const float* sa, const T* sb, const T* bias, const T* resid,
+                              T* C, int* Ci, cudaStream_t stream) {
   const bool vec_ok = K % 16 == 0 && (reinterpret_cast<uintptr_t>(A) % 16) == 0 &&
                       (reinterpret_cast<uintptr_t>(B) % 16) == 0;
   const dim3 grid((N + QG_BN - 1) / QG_BN, (M + QG_BM - 1) / QG_BM);
-  qgemm_kernel<EPI><<<grid, QG_THREADS, 0, stream>>>(A, B, M, N, K, vec_ok, sa, sb,
-                                                      bias, resid, C, Ci);
+  qgemm_kernel<EPI, T><<<grid, QG_THREADS, 0, stream>>>(A, B, M, N, K, vec_ok, sa, sb,
+                                                         bias, resid, C, Ci);
   return cudaGetLastError();
 }
 
@@ -471,16 +521,28 @@ __device__ __forceinline__ void qw_mma_tile(int (&acc)[64], int8_t* As, int8_t* 
   cp_async_wait<0>();
 }
 
+// Four outputs stored at once: 16 bytes of float, 8 of bf16.
+__device__ __forceinline__ void q_store4(float* p, const float (&f)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(f[0], f[1], f[2], f[3]);
+}
+
+__device__ __forceinline__ void q_store4(bf16* p, const float (&f)[4]) {
+  const __nv_bfloat162 a = __floats2bfloat162_rn(f[0], f[1]);
+  const __nv_bfloat162 b = __floats2bfloat162_rn(f[2], f[3]);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const unsigned*>(&a), *reinterpret_cast<const unsigned*>(&b));
+}
+
 // One staged row of a tile, by one epilogue warp: columns c = col0 + 4 lane
 // .. + 3 of row r (< M) from its sums cs, the columns' scales and biases
-// sbv, bv already in registers; 16-byte stores where the four are in the
-// matrix and N is a multiple of 4.
-template <int EPI>
+// sbv, bv already in registers; 16-byte stores (8-byte at bf16) where the
+// four are in the matrix and N is a multiple of 4.
+template <int EPI, typename T>
 __device__ __forceinline__ void qw_epilogue_row(const int* cs, int r, int c, int N,
                                                 const float* __restrict__ sa,
                                                 const float (&sbv)[4], const float (&bv)[4],
-                                                const float* __restrict__ resid,
-                                                float* __restrict__ C, int* __restrict__ Ci) {
+                                                const T* __restrict__ resid,
+                                                T* __restrict__ C, int* __restrict__ Ci) {
   const int lane = threadIdx.x % 32;
   const int4 v = *reinterpret_cast<const int4*>(cs + 4 * lane);
   const int vs[4] = {v.x, v.y, v.z, v.w};
@@ -500,24 +562,24 @@ __device__ __forceinline__ void qw_epilogue_row(const int* cs, int r, int c, int
   float f[4];
 #pragma unroll
   for (int e = 0; e < 4; ++e)
-    f[e] = c + e < N ? q_epilogue<EPI>(vs[e], sa_r, sbv[e], bv[e], resid, o + e) : 0.f;
+    f[e] = c + e < N ? q_epilogue<EPI, T>(vs[e], sa_r, sbv[e], bv[e], resid, o + e) : 0.f;
   if (four) {
-    *reinterpret_cast<float4*>(C + o) = make_float4(f[0], f[1], f[2], f[3]);
+    q_store4(C + o, f);
   } else {
 #pragma unroll
     for (int e = 0; e < 4; ++e)
-      if (c + e < N) C[o + e] = f[e];
+      if (c + e < N) C[o + e] = q_t<T>(f[e]);
   }
 }
 
 // C [M, N] = epilogue(A [M, K] @ B [N, K]^T), tiles t = blockIdx.x, +
 // gridDim.x, ...
-template <int EPI>
+template <int EPI, typename T>
 __global__ void __launch_bounds__(QW_THREADS, 1)
 qgemm_wgmma_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B, int M, int N,
-                   int K, const float* __restrict__ sa, const float* __restrict__ sb,
-                   const float* __restrict__ bias, const float* __restrict__ resid,
-                   float* __restrict__ C, int* __restrict__ Ci) {
+                   int K, const float* __restrict__ sa, const T* __restrict__ sb,
+                   const T* __restrict__ bias, const T* __restrict__ resid,
+                   T* __restrict__ C, int* __restrict__ Ci) {
   extern __shared__ float4 qw_smem4[];
   int8_t* As = reinterpret_cast<int8_t*>(
       (reinterpret_cast<uintptr_t>(qw_smem4) + 1023) & ~uintptr_t(1023));   // [S][128][128]
@@ -555,16 +617,16 @@ qgemm_wgmma_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B, i
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const bool in = EPI != QEPI_I32 && c + e < N;
-        sbv[e] = in ? sb[c + e] : 0.f;
-        bv[e] = in ? bias[c + e] : 0.f;
+        sbv[e] = in ? q_f(sb[c + e]) : 0.f;
+        bv[e] = in ? q_f(bias[c + e]) : 0.f;
       }
       named_sync(QW_BAR_FULL, QW_THREADS);
       if (c < N) {
 #pragma unroll 4
         for (int rl = ew; rl < QW_BM; rl += EWARPS)
           if (row0 + rl < M)
-            qw_epilogue_row<EPI>(Cs + rl * QW_LDC, row0 + rl, c, N, sa, sbv, bv, resid, C,
-                                 Ci);
+            qw_epilogue_row<EPI, T>(Cs + rl * QW_LDC, row0 + rl, c, N, sa, sbv, bv, resid, C,
+                                    Ci);
       }
       if (t + (int)gridDim.x < tiles) named_arrive(QW_BAR_EMPTY, QW_THREADS);
     }
@@ -576,18 +638,42 @@ qgemm_wgmma_kernel(const int8_t* __restrict__ A, const int8_t* __restrict__ B, i
 // mma.sync tiles), vec (K a multiple of 16, A and B 16-byte aligned: the
 // wgmma tiles need it) and grid (the wgmma kernel's blocks: one an SM, at
 // most one a tile).  Returns the launch's cudaError_t.
-template <int EPI>
+template <int EPI, typename T = float>
 cudaError_t launch_qgemm(const int* plan, const int8_t* A, const int8_t* B, int M, int N,
-                         int K, const float* sa, const float* sb, const float* bias,
-                         const float* resid, float* C, int* Ci, cudaStream_t stream) {
+                         int K, const float* sa, const T* sb, const T* bias, const T* resid,
+                         T* C, int* Ci, cudaStream_t stream) {
   if (!plan[0])
-    return launch_qgemm_sync<EPI>(A, B, M, N, K, sa, sb, bias, resid, C, Ci, stream);
+    return launch_qgemm_sync<EPI, T>(A, B, M, N, K, sa, sb, bias, resid, C, Ci, stream);
   if (!plan[1] || plan[2] < 1) return cudaErrorInvalidValue;
   static unsigned long long smem_set = 0;
-  const cudaError_t err = allow_smem_once((const void*)qgemm_wgmma_kernel<EPI>, &smem_set);
+  const cudaError_t err =
+      allow_smem_once((const void*)qgemm_wgmma_kernel<EPI, T>, &smem_set);
   if (err != cudaSuccess) return err;
-  qgemm_wgmma_kernel<EPI><<<plan[2], QW_THREADS, QW_SMEM, stream>>>(A, B, M, N, K, sa, sb,
-                                                                    bias, resid, C, Ci);
+  qgemm_wgmma_kernel<EPI, T><<<plan[2], QW_THREADS, QW_SMEM, stream>>>(A, B, M, N, K, sa, sb,
+                                                                       bias, resid, C, Ci);
+  return cudaGetLastError();
+}
+
+// K4 in the rows' storage type T (float; bf16 for its bf16 instance, the
+// JAX kernel at bf16 rows: h1 and y rounded to bf16 after their dequant,
+// g1 rounded before its codes, x + y rounded, the LN's output rounded).
+template <typename T>
+cudaError_t ffn_ln_q_fwd(const T* x, const int8_t* w1q, const T* w1s, const T* b1,
+                         const int8_t* w2q, const T* w2s, const T* b2, const T* ln_g,
+                         const T* ln_b, int8_t* xq, float* sx, T* hidden, int8_t* hq, float* sh,
+                         T* resid_sum, T* out, int rows, int h, int ffn, float eps,
+                         const int* plan, cudaStream_t stream) {
+  cudaError_t err = launch_qrows(x, xq, sx, rows, h, false, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_qgemm<QEPI_BIAS, T>(plan, xq, w1q, rows, ffn, h, sx, w1s, b1, nullptr, hidden,
+                                   nullptr, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_qrows(hidden, hq, sh, rows, ffn, true, stream);
+  if (err != cudaSuccess) return err;
+  err = launch_qgemm<QEPI_BIAS_RESIDUAL, T>(plan + 3, hq, w2q, rows, h, ffn, sh, w2s, b2, x,
+                                            resid_sum, nullptr, stream);
+  if (err != cudaSuccess) return err;
+  layernorm_rows_kernel<T><<<rows, LN_THREADS, 0, stream>>>(resid_sum, ln_g, ln_b, out, h, eps);
   return cudaGetLastError();
 }
 
@@ -601,15 +687,15 @@ extern "C" int mmtr_qrows(const float* x, int8_t* xq, float* sx, int rows, int n
 // plan: a product's three host ints from ops/bert_ffn_cuda._plan_qgemm.
 extern "C" int mmtr_qgemm_i32(const int8_t* a, const int8_t* b, int* out, int M,
                               int N, int K, const int* plan, void* stream_ptr) {
-  return (int)launch_qgemm<QEPI_I32>(plan, a, b, M, N, K, nullptr, nullptr, nullptr, nullptr,
-                                     nullptr, out, (cudaStream_t)stream_ptr);
+  return (int)launch_qgemm<QEPI_I32, float>(plan, a, b, M, N, K, nullptr, nullptr, nullptr,
+                                            nullptr, nullptr, out, (cudaStream_t)stream_ptr);
 }
 
 extern "C" int mmtr_qdot(const int8_t* xq, const float* sx, const int8_t* wq,
                          const float* ws, const float* bias, float* out, int M,
                          int N, int K, const int* plan, void* stream_ptr) {
-  return (int)launch_qgemm<QEPI_BIAS>(plan, xq, wq, M, N, K, sx, ws, bias, nullptr, out,
-                                      nullptr, (cudaStream_t)stream_ptr);
+  return (int)launch_qgemm<QEPI_BIAS, float>(plan, xq, wq, M, N, K, sx, ws, bias, nullptr,
+                                             out, nullptr, (cudaStream_t)stream_ptr);
 }
 
 // plan: six host ints from ops/bert_ffn_cuda._plan_ffn_q, GEMM1's then
@@ -621,18 +707,36 @@ extern "C" int mmtr_ffn_ln_q_fwd(const float* x, const int8_t* w1q, const float*
                                  int8_t* xq, float* sx, float* hidden, int8_t* hq,
                                  float* sh, float* resid_sum, float* out, int rows, int h,
                                  int ffn, float eps, const int* plan, void* stream_ptr) {
-  cudaStream_t stream = (cudaStream_t)stream_ptr;
-  cudaError_t err = launch_qrows(x, xq, sx, rows, h, false, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_qgemm<QEPI_BIAS>(plan, xq, w1q, rows, ffn, h, sx, w1s, b1, nullptr, hidden,
-                                nullptr, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_qrows(hidden, hq, sh, rows, ffn, true, stream);
-  if (err != cudaSuccess) return (int)err;
-  err = launch_qgemm<QEPI_BIAS_RESIDUAL>(plan + 3, hq, w2q, rows, h, ffn, sh, w2s, b2, x,
-                                         resid_sum, nullptr, stream);
-  if (err != cudaSuccess) return (int)err;
-  layernorm_rows_kernel<float><<<rows, LN_THREADS, 0, stream>>>(resid_sum, ln_g, ln_b,
-                                                                out, h, eps);
-  return (int)cudaGetLastError();
+  return (int)ffn_ln_q_fwd(x, w1q, w1s, b1, w2q, w2s, b2, ln_g, ln_b, xq, sx, hidden, hq, sh,
+                           resid_sum, out, rows, h, ffn, eps, plan,
+                           (cudaStream_t)stream_ptr);
+}
+
+// The bf16 instances (the int8 BERT under the bf16 compute policy): rows,
+// scales, biases and LN parameters bf16, codes int8 and row scales float32
+// as above.  qrows reads bf16 rows as float32; qdot's output is rounded to
+// bf16 (the JAX package's _qdot with out_dtype bf16); K4's hidden h1 and
+// resid_sum are bf16, half the float32 instance's bytes.  The int8 products
+// and their plans are the float32 instance's.
+extern "C" int mmtr_qrows_bf16(const bf16* x, int8_t* xq, float* sx, int rows, int n,
+                               void* stream_ptr) {
+  return (int)launch_qrows(x, xq, sx, rows, n, false, (cudaStream_t)stream_ptr);
+}
+
+extern "C" int mmtr_qdot_bf16(const int8_t* xq, const float* sx, const int8_t* wq,
+                              const bf16* ws, const bf16* bias, bf16* out, int M, int N, int K,
+                              const int* plan, void* stream_ptr) {
+  return (int)launch_qgemm<QEPI_BIAS, bf16>(plan, xq, wq, M, N, K, sx, ws, bias, nullptr, out,
+                                            nullptr, (cudaStream_t)stream_ptr);
+}
+
+extern "C" int mmtr_ffn_ln_q_fwd_bf16(const bf16* x, const int8_t* w1q, const bf16* w1s,
+                                      const bf16* b1, const int8_t* w2q, const bf16* w2s,
+                                      const bf16* b2, const bf16* ln_g, const bf16* ln_b,
+                                      int8_t* xq, float* sx, bf16* hidden, int8_t* hq,
+                                      float* sh, bf16* resid_sum, bf16* out, int rows, int h,
+                                      int ffn, float eps, const int* plan, void* stream_ptr) {
+  return (int)ffn_ln_q_fwd(x, w1q, w1s, b1, w2q, w2s, b2, ln_g, ln_b, xq, sx, hidden, hq, sh,
+                           resid_sum, out, rows, h, ffn, eps, plan,
+                           (cudaStream_t)stream_ptr);
 }

@@ -34,10 +34,16 @@ for int8 ones.
 Under the bf16 compute policy (bf16 weights, as ``models/mult.compute_cast``
 or ``prepare_bert(..., dtype=torch.bfloat16)`` makes them) the embeddings
 add in bf16, the embedding LayerNorm takes float32 moments (centered) and
-rounds, and K2 and K3 run their bf16 instances; :data:`ATTN_SOFTMAX`
-selects K2's softmax tail, as in the JAX package.  The dense and xla
-attention paths (K6a, K6b) and int8 layers (K4) have no bf16 instance and
-raise NotImplementedError.
+rounds, and every kernel runs its bf16 instance (K2, K3, K4, K6a, K6b, the
+int8 projections); :data:`ATTN_SOFTMAX` selects K2's softmax tail, as in
+the JAX package.  The unfused paths round where the JAX package's XLA
+composition does: a float projection ``x @ w_t`` to bf16, then its bias in
+bf16; the int8 projections and the attention core as their kernels; the
+int8 o-projection's residual sum, then the LN.  An int8 BERT under bf16 is
+quantized from the float32 weights and then cast (the scales and biases
+rounded to bf16, the codes kept), as the JAX package quantizes its float32
+``init_bert`` before the boundary cast: :func:`quantize_bert_params`
+refuses bf16 weights.
 
 Parameters come in two layouts: :func:`init_bert` makes HF-layout weights
 stacked ``[L, ...]`` (the JAX package's layout, float or quantized), and
@@ -56,7 +62,6 @@ import dataclasses
 import numpy as np
 import torch
 
-from .. import _build
 from ..ops.bert_attn_cuda import (attention_block_fused, dense_attention_blockdiag,
                                   dense_attention_plain)
 from ..ops.bert_ffn_cuda import (div127, ffn_ln_block, ffn_ln_block_q, proj_ln_block, qdot,
@@ -179,7 +184,13 @@ def prepare_bert(bert: dict, device="cpu", dtype: torch.dtype = torch.float32) -
 
 def _quantize(w: torch.Tensor) -> dict:
     """Symmetric per-output-channel int8 of ``w [out, in]``: ``s = max|w| /
-    127`` (at least 1e-12), ``q = clamp(round(w / s), -127, 127)``."""
+    127`` (at least 1e-12), ``q = clamp(round(w / s), -127, 127)``; ``w``
+    float32 (codes and scales of rounded weights would not be the JAX
+    package's)."""
+    if w.dtype != torch.float32:
+        raise ValueError(f"quantize_bert_params takes the float32 weights, not {w.dtype}: "
+                         "quantize before the compute policy's cast (models/mult."
+                         "init_supernet(..., bert_int8=...))")
     s = torch.clamp(div127(w.abs().amax(dim=-1)), min=1e-12)
     q = torch.clamp(torch.round(w / s[:, None]), -127, 127).to(torch.int8)
     return {"q": q.contiguous(), "s": s.float()}
@@ -190,7 +201,9 @@ def quantize_bert_params(params: dict, attn: bool = True) -> dict:
     :func:`prepare_bert` BERT (``attn=False``: fc1 / fc2 only, the JAX CLIs'
     ``--bert_int8``); embeddings, LayerNorms and biases stay float.  The
     same ``q`` and ``s`` as the JAX package's ``quantize_bert_params``.  A
-    weight that is quantized already is kept."""
+    weight that is quantized already is kept; bf16 weights raise ValueError
+    (quantize the float32 BERT, then cast it: ``models/mult.cast_tree``
+    rounds the scales and biases and keeps the codes)."""
     names = _WEIGHTS if attn else ("fc1_w", "fc2_w")
     layers = []
     for lp in params["layers"]:
@@ -212,9 +225,8 @@ def _qproj(x: torch.Tensor, wq: dict, bias: torch.Tensor) -> torch.Tensor:
 def _attention_unfused(x, mask, lp: dict, impl: str, n_heads: int, eps: float):
     """The attention block under ``"dense"`` or ``"xla"``: projections, the
     attention core (K6a or the plain composition), then the o-proj +
-    residual + LN1 (K6b, or the int8 o-proj).  No bf16 instance: bf16
-    activations raise NotImplementedError."""
-    _build.refuse_bf16(f"the BERT's {impl!r} attention path (K6a / K6b)", x)
+    residual + LN1 (K6b, or the int8 o-proj).  bf16 activations round where
+    the JAX composition does (the module docstring)."""
     b, L, h = x.shape
     if isinstance(lp.get("q_w"), dict):
         xq, sx = qrows(x)      # one row quantization shared by q, k and v

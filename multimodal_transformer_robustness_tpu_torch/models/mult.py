@@ -153,18 +153,30 @@ def _check_spec(spec: ModelSpec) -> None:
 
 def init_supernet(gen: torch.Generator, spec: ModelSpec,
                   bert_cfg: Optional[bert_mod.BertConfig] = None,
-                  device="cpu") -> Tuple[dict, dict]:
+                  device="cpu", bert_int8: Optional[str] = None) -> Tuple[dict, dict]:
     """Random init with torch's distributions -> (params, frozen) on
     ``device``.  ``frozen`` holds the BERT weights when a text modality
-    exists, in the spec's compute dtype; the parameters are float32."""
+    exists, in the spec's compute dtype; the parameters are float32.
+    ``bert_int8``: ``"ffn"`` (fc1 / fc2, the CLIs' ``--bert_int8``) or
+    ``"all"`` (every projection) quantizes the BERT's float32 weights
+    (``models/bert.quantize_bert_params``) before the cast to the compute
+    dtype, as the JAX package quantizes its float32 BERT before the
+    boundary cast."""
     _check_spec(spec)
+    if bert_int8 not in (None, "ffn", "all"):
+        raise ValueError(f"bert_int8 {bert_int8!r}; valid: None, 'ffn', 'all'")
     M = spec.modality_num
     frozen = {}
     if any(spec.header_kind(c) == "bert_rnn" for c in spec.modality_set):
         cfg = bert_cfg or bert_mod.BertConfig()
         # in the compute dtype once: the boundary cast leaves it as it is
-        frozen["bert"] = bert_mod.prepare_bert(bert_mod.init_bert(gen, cfg), device,
-                                               COMPUTE_DTYPES[spec.compute_dtype])
+        dtype = COMPUTE_DTYPES[spec.compute_dtype]
+        bert = bert_mod.prepare_bert(bert_mod.init_bert(gen, cfg), device,
+                                     torch.float32 if bert_int8 else dtype)
+        if bert_int8:
+            bert = cast_tree(bert_mod.quantize_bert_params(bert, attn=bert_int8 == "all"),
+                             dtype)
+        frozen["bert"] = bert
     cdim = spec.combined_dim
     params = {
         "proj": [init_header(gen, spec, i, bert_cfg) for i in range(M)],

@@ -26,10 +26,13 @@ kernel's rounding points (q/k/v after their float32 bias, the softmax
 probabilities, each head's output, the o-projection after its bias; the
 residual sum, then a float32-moment LN rounded to bf16), the products on
 the bf16 tensor cores (the projections on ``csrc/gemm_bf16.cuh``, Q K^T
-and P V on ``attention_bf16_kernel``); ``softmax_dtype="bfloat16"`` runs
-the exp / sum / divide tail in bf16, as ``ATTN_SOFTMAX`` selects in the
-JAX package.  It takes L <= 64 (a unit's queries and keys held at once;
-the training shape is L = 32).  K6a has no bf16 instance.
+and P V on mma.sync m16n8k16); ``softmax_dtype="bfloat16"`` runs the exp /
+sum / divide tail in bf16, as ``ATTN_SOFTMAX`` selects in the JAX package.
+K6a has one too (``mmtr_attention_fwd_bf16``), K2's bf16 attention stage
+alone under the float32 softmax: bf16 q / k / v in, bf16 out.  Both take
+every L, by :func:`_plan_attention_bf16` (a unit's queries and keys held
+at once up to L = 64, the training shape being L = 32; 64-key tiles in
+three passes beyond), and dh <= 64 with dh and h multiples of 8.
 """
 
 from __future__ import annotations
@@ -41,7 +44,7 @@ import torch
 
 from .. import _build
 from . import gemm_tc
-from .bert_ffn_cuda import _plan_proj_ln
+from .bert_ffn_cuda import _plan_proj_ln, _plan_proj_ln_bf16
 from .layernorm import masked_layer_norm
 
 # a lane holds up to 4 output columns (lane + 32c) of 8 query rows
@@ -154,9 +157,20 @@ def dense_attention_plain(q, k, v, key_mask) -> torch.Tensor:
     """Plain PyTorch version of K6a: ``softmax(q k^T / sqrt(dh) + (1 - mask)
     * -10000) v`` per (item, head), float32 softmax; q/k/v ``[B, L, H, dh]``
     -> ``[B, L, H * dh]``.  This is also the JAX package's XLA attention
-    composition (``models/bert.bert_apply`` under ``ATTN_IMPL="xla"``)."""
+    composition (``models/bert.bert_apply`` under ``ATTN_IMPL="xla"``).
+    bf16 q / k / v: the bf16 instance's, float32 logits of the bf16 values,
+    the float32 softmax ``e / sum(e)`` rounded to bf16, P V summed in
+    float32 and rounded to bf16, as the JAX kernel (and the XLA
+    composition) at bf16."""
     b, L, n_heads, dh = q.shape
     bias = (1.0 - key_mask.float()) * -10000.0
+    if q.dtype == torch.bfloat16:
+        s = (torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) / math.sqrt(dh)
+             + bias[:, None, None, :])
+        e = torch.exp(s - s.amax(dim=-1, keepdim=True))
+        p = (e / e.sum(dim=-1, keepdim=True)).to(torch.bfloat16).float()
+        out = torch.einsum("bhqk,bkhd->bqhd", p, v.float()).to(torch.bfloat16)
+        return out.reshape(b, L, n_heads * dh)
     logits = torch.einsum("bqhd,bkhd->bhqk", q, k) / math.sqrt(dh) + bias[:, None, None, :]
     w = torch.softmax(logits, dim=-1)
     return torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(b, L, n_heads * dh)
@@ -205,27 +219,56 @@ def attention_block_plain(x, key_mask, wq_t, qb, wk_t, kb, wv_t, vb, wo_t, ob,
     return masked_layer_norm(x + (torch.matmul(attn, wo_t) + ob), ln_g, ln_b, eps=eps)
 
 
+# csrc/bert_attn.cu's bf16 attention: a unit's rows (L <= 64) on the unit
+# path; query rows a block and keys a tile on the tiled path
+_AB_ROWS = 64
+_AB_PLAN_KEYS = ("path", "units", "qtiles")
+
+
+def _plan_attention_bf16(B: int, L: int, n_heads: int, dh: int) -> dict:
+    """The bf16 attention kernels' launch plan (K6a.bf16 and K2.bf16's
+    attention stage): path 0 (``attention_bf16_kernel``, a block a unit,
+    every query and key held at once) at L <= 64, else path 1
+    (``attention_bf16_tiled_kernel``, a block per (unit, 64 queries) over
+    64-key tiles); grid (units, query tiles).  Heads arrive in 16-byte
+    copies and their products run on m16n8k16 tiles: dh > 64, or dh not a
+    multiple of 8, raises NotImplementedError."""
+    if dh > 64 or dh % 8 or L < 1:
+        raise NotImplementedError(f"the bf16 attention at L={L}, head_dim={dh}: the bf16 "
+                                  "instance takes head_dim <= 64, a multiple of 8 (ROADMAP "
+                                  "Queue 2, 'bf16')")
+    units = B * n_heads
+    if L <= _AB_ROWS:
+        return {"path": 0, "units": units, "qtiles": 1}
+    return {"path": 1, "units": units, "qtiles": -(-L // _AB_ROWS)}
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_plan_bf16(B, L, n_heads, dh):
+    """The plan as csrc/bert_attn.cu reads it: (C int array, its address)."""
+    p = _plan_attention_bf16(B, L, n_heads, dh)
+    return _build.host_ints([p[k] for k in _AB_PLAN_KEYS])
+
+
 def _plan_attn_block_bf16(B: int, L: int, h: int, n_heads: int,
                           num_sms: int = _build.NUM_SMS, x_addr: int = 0, w_addr: int = 0,
                           wo_addr: int = 0) -> dict:
     """K2's bf16 plan: :func:`gemm_tc.plan_bf16` for the q/k/v product
-    (``[B*L, h] x [h, 3h]``, B gated [3, h, h]) and the o-projection (A:
-    the fresh bf16 attention output).  The attention stage
-    (``attention_bf16_kernel``, a block a unit) holds a unit's queries and
-    keys at once and reads heads in 16-byte copies: L > 64, dh > 64, or dh
-    or h not a multiple of 8 raise NotImplementedError."""
-    dh = h // n_heads
-    if L > 64 or dh > 64 or dh % 8 or h % 8:
-        raise NotImplementedError(f"the bf16 attention block at L={L}, h={h}, dh={dh}: the "
-                                  "bf16 instance takes L <= 64 and dh <= 64, dh and h "
-                                  "multiples of 8 (ROADMAP Queue 2, 'bf16')")
+    (``[B*L, h] x [h, 3h]``, B gated [3, h, h]); the o-projection + LN's,
+    K6b.bf16's plan (:func:`bert_ffn_cuda._plan_proj_ln_bf16`) with A the
+    fresh bf16 attention output; ``attention``: :func:`_plan_attention_bf16`.
+    h not a multiple of 8 raises NotImplementedError, as the attention
+    stage's limits do."""
+    if h % 8:
+        raise NotImplementedError(f"the bf16 attention block at h={h}: the bf16 instance "
+                                  "takes h a multiple of 8 (ROADMAP Queue 2, 'bf16')")
+    attention = _plan_attention_bf16(B, L, n_heads, h // n_heads)
     rows = B * L
-    cw_h = gemm_tc.bf16_copy_width((h,))
     qkv = gemm_tc.plan_bf16(rows, 3 * h, h, gemm_tc.bf16_copy_width((h,), (x_addr,)),
                             gemm_tc.bf16_copy_width((h,), (w_addr,)), num_sms)
-    o = gemm_tc.plan_bf16(rows, h, h, cw_h, gemm_tc.bf16_copy_width((h,), (wo_addr,)),
-                          num_sms)
-    return {"qkv": qkv, "o": o, "partial": max(qkv["partial"], o["partial"])}
+    o = _plan_proj_ln_bf16(rows, h, num_sms, 0, wo_addr)
+    return {"qkv": qkv, "o": o, "attention": attention,
+            "partial": max(qkv["partial"], o["partial"])}
 
 
 @functools.lru_cache(maxsize=None)
@@ -233,7 +276,8 @@ def _cached_block_plan_bf16(B, L, h, n_heads, num_sms, x_addr, w_addr, wo_addr):
     """K2's bf16 plan as csrc/bert_attn.cu reads it: (C int array, its
     address, the floats of split planes)."""
     p = _plan_attn_block_bf16(B, L, h, n_heads, num_sms, x_addr, w_addr, wo_addr)
-    ints = [p[k][key] for k in ("qkv", "o") for key in gemm_tc.BF_PLAN_KEYS]
+    ints = ([p[k][key] for k in ("qkv", "o") for key in gemm_tc.BF_PLAN_KEYS]
+            + [p["attention"][key] for key in _AB_PLAN_KEYS])
     return _build.host_ints(ints) + (p["partial"],)
 
 
@@ -286,10 +330,9 @@ def attention_block_fused(x: torch.Tensor, key_mask: torch.Tensor,
     if softmax_dtype == "bfloat16" and x.dtype != torch.bfloat16:
         raise NotImplementedError("the bf16 softmax tail on float32 activations "
                                   + _build.BF16_TODO)
-    if x.dtype == torch.bfloat16 and x.shape[1] > _ATT_KT:
+    if x.dtype == torch.bfloat16:
         # on every device, so that the CPU computes nothing the card refuses
-        raise NotImplementedError(f"the bf16 attention block at L={x.shape[1]}: the bf16 "
-                                  "instance takes L <= 64 (ROADMAP Queue 2, 'bf16')")
+        _plan_attn_block_bf16(x.shape[0], x.shape[1], x.shape[2], n_heads)
     if x.device.type == "cpu":
         return attention_block_plain(x, key_mask, wq_t, qb, wk_t, kb, wv_t, vb,
                                      wo_t, ob, ln_g, ln_b, n_heads=n_heads, eps=eps,
@@ -335,19 +378,46 @@ attention_block_fused.launches = 0
 attention_block_fused.launches_bf16 = 0
 
 
+def _dense_attention_bf16(q, k, v, mask) -> torch.Tensor:
+    dev = q.device
+    b, L, n_heads, dh = q.shape
+    shape = (b, L, n_heads, dh)
+    _build.require_all(dev, ((q, "q", shape), (k, "k", shape), (v, "v", shape)),
+                       torch.bfloat16)
+    _build.require(mask, "key_mask", (b, L), dev)
+    qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
+    if (qp | kp | vp) % 16:
+        raise ValueError("the bf16 attention reads q, k, v in 16-byte copies: their data "
+                         "must be 16-byte aligned")
+    plan = _cached_plan_bf16(b, L, n_heads, dh)
+    out = torch.empty(b, L, n_heads * dh, dtype=torch.bfloat16, device=dev)
+    err = _build.load_library().mmtr_attention_fwd_bf16(
+        qp, kp, vp, mask.data_ptr(), out.data_ptr(), b, L, n_heads * dh, n_heads, plan[1],
+        _build.stream_ptr(dev))
+    _build.check(err, "dense_attention_blockdiag kernel (bf16)")
+    dense_attention_blockdiag.launches_bf16 += 1
+    return out
+
+
 def dense_attention_blockdiag(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               key_mask: torch.Tensor) -> torch.Tensor:
     """Multi-head attention over projected ``q, k, v [B, L, H, dh]``
     (unscaled; the 1/sqrt(dh) happens in the kernel) with ``key_mask [B, L]``
-    (1 = attend) -> ``[B, L, H * dh]``.  A fully masked item stays finite.
-    No bf16 instance: bf16 q / k / v raise NotImplementedError."""
-    _build.refuse_bf16("dense_attention_blockdiag (K6a)", q, k, v)
+    (1 = attend) -> ``[B, L, H * dh]`` in q's dtype.  A fully masked item
+    stays finite.  bf16 q / k / v take the bf16 instance (head_dim <= 64, a
+    multiple of 8, checked on every device)."""
+    if q.dtype == torch.bfloat16:
+        _plan_attention_bf16(*q.shape)
     if q.device.type == "cpu":
         return dense_attention_plain(q, k, v, key_mask)
     dev = _build.device_of(q)
     b, L, n_heads, dh = q.shape
     shape = (b, L, n_heads, dh)
     mask = key_mask.to(device=dev, dtype=torch.float32).contiguous()
+    if q.dtype == torch.bfloat16:
+        out = _dense_attention_bf16(q, k, v, mask)
+        dense_attention_blockdiag.launches += 1
+        return out
     _build.require_all(dev, ((q, "q", shape), (k, "k", shape), (v, "v", shape),
                              (mask, "key_mask", (b, L))))
     qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
@@ -362,3 +432,4 @@ def dense_attention_blockdiag(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 dense_attention_blockdiag.launches = 0
+dense_attention_blockdiag.launches_bf16 = 0

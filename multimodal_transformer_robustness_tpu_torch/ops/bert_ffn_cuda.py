@@ -28,8 +28,14 @@ host.  K3 has a bf16 instance (``mmtr_ffn_ln_fwd_bf16``, its products on
 the bf16 tensor cores of ``csrc/gemm_bf16.cuh`` by :func:`_plan_ffn_bf16`):
 bf16 ``x`` and weights take it, or its plain version on the CPU, at the
 JAX kernel's rounding points (fc1 + b1, the gelu, fc2 + b2 and the
-residual sum each rounded to bf16; LN moments in float32).  K6b, K4 and
-the int8 projections have none: bf16 operands raise NotImplementedError.  Float weights come pre-transposed (``w_t = weight.T``, made once at
+residual sum each rounded to bf16; LN moments in float32).  K6b has one
+(``mmtr_proj_ln_fwd_bf16``): K2's bf16 tail alone, by
+:func:`_plan_proj_ln_bf16`.  K4 and the int8 projections have bf16
+instances on the same int8 products and plans (``mmtr_ffn_ln_q_fwd_bf16``,
+``mmtr_qrows_bf16``, ``mmtr_qdot_bf16``): bf16 rows in and out, bf16 scales
+and biases read as float32, the JAX kernel's rounding points (h1 and y
+after their dequant + bias, g1 = gelu(h1), the residual sum, the LN), the
+row scales float32.  Float weights come pre-transposed (``w_t = weight.T``, made once at
 load time).  Quantized weights are ``{"q": int8 [out, in], "s": float32 [out]}``
 dicts as ``models/bert.quantize_bert_params`` makes them, never transposed.
 """
@@ -190,7 +196,13 @@ ffn_ln_block.launches_bf16 = 0
 # ------------------------------------------------------------------- K6b
 
 def proj_ln_block_plain(resid, a, w_t, b, ln_g, ln_b, *, eps: float) -> torch.Tensor:
-    """Plain PyTorch version of the kernel."""
+    """Plain PyTorch version of the kernel.  bf16 operands: the bf16
+    instance's (JAX ``_proj_ln_kernel`` at bf16): the product of bf16 values
+    as a float32 matmul of the upcast operands, the bias added in float32,
+    then rounded; the residual sum rounded to bf16, then the LN."""
+    if resid.dtype == torch.bfloat16:
+        y = (a.float() @ w_t.float() + b.float()).to(torch.bfloat16)
+        return masked_layer_norm(resid + y, ln_g, ln_b, eps=eps)
     return masked_layer_norm(resid + (torch.matmul(a, w_t) + b), ln_g, ln_b, eps=eps)
 
 
@@ -218,17 +230,61 @@ def _cached_proj_ln_plan(rows, h, num_sms, aligned):
     return _build.host_ints([p[k] for k in gemm_tc.PLAN_KEYS]) + (p["scratch"], p["fused_ln"])
 
 
+def _plan_proj_ln_bf16(rows: int, h: int, num_sms: int = _build.NUM_SMS, a_addr: int = 0,
+                       w_addr: int = 0) -> dict:
+    """K6b's bf16 plan, and K2.bf16's for its o-projection + LN
+    (``bert_attn_cuda._plan_attn_block_bf16``'s ``"o"``, A there the fresh
+    attention output): the ``[rows, h] x [h, h]`` product by
+    :func:`gemm_tc.plan_bf16`, copies as wide as ``h`` and the operands'
+    addresses (residues mod 16) allow."""
+    return gemm_tc.plan_bf16(rows, h, h, gemm_tc.bf16_copy_width((h,), (a_addr,)),
+                             gemm_tc.bf16_copy_width((h,), (w_addr,)), num_sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_proj_ln_plan_bf16(rows, h, num_sms, a_addr, w_addr):
+    """K6b's bf16 plan as csrc/bert_ffn.cu reads it: (C int array, its
+    address, the floats of ``partial``)."""
+    p = _plan_proj_ln_bf16(rows, h, num_sms, a_addr, w_addr)
+    return _build.host_ints([p[k] for k in gemm_tc.BF_PLAN_KEYS]) + (p["partial"],)
+
+
+def _proj_ln_block_bf16(resid, a, w_t, b, ln_g, ln_b, eps: float) -> torch.Tensor:
+    dev = resid.device
+    h = resid.shape[-1]
+    rows = resid.numel() // h
+    _build.require_all(dev, ((resid, "resid", resid.shape), (a, "a", resid.shape),
+                             (w_t, "w_t", (h, h)), (b, "b", (h,)), (ln_g, "ln_g", (h,)),
+                             (ln_b, "ln_b", (h,))), torch.bfloat16)
+    plan = _cached_proj_ln_plan_bf16(rows, h, _build.num_sms(dev), a.data_ptr() % 16,
+                                     w_t.data_ptr() % 16)
+    resid_sum = torch.empty(rows, h, dtype=torch.bfloat16, device=dev)
+    partial = torch.empty(plan[2], dtype=torch.float32, device=dev) if plan[2] else None
+    out = torch.empty_like(resid)
+    err = _build.load_library().mmtr_proj_ln_fwd_bf16(
+        resid.data_ptr(), a.data_ptr(), w_t.data_ptr(), b.data_ptr(), ln_g.data_ptr(),
+        ln_b.data_ptr(), resid_sum.data_ptr(), out.data_ptr(),
+        partial.data_ptr() if partial is not None else 0, rows, h, eps, plan[1],
+        _build.stream_ptr(dev))
+    _build.check(err, "proj_ln_block kernel (bf16)")
+    proj_ln_block.launches_bf16 += 1
+    return out
+
+
 def proj_ln_block(resid: torch.Tensor, a: torch.Tensor, w_t: torch.Tensor,
                   b: torch.Tensor, ln_g: torch.Tensor, ln_b: torch.Tensor, *,
                   eps: float) -> torch.Tensor:
     """``LN(resid + a @ w_t + b)``, HF BertSelfOutput: ``resid`` and ``a``
     ``[..., h]`` with the same leading dims, ``w_t [h, h]`` (= weight.T).
     W^T's TF32 planes are made per call (the wgmma path's ``scratch``), as
-    K2's are."""
-    _build.refuse_bf16("proj_ln_block (K6b)", resid, a, w_t)
+    K2's are.  bf16 operands take the bf16 instance."""
     if resid.device.type == "cpu":
         return proj_ln_block_plain(resid, a, w_t, b, ln_g, ln_b, eps=eps)
     dev = _build.device_of(resid)
+    if resid.dtype == torch.bfloat16:
+        out = _proj_ln_block_bf16(resid, a, w_t, b, ln_g, ln_b, eps)
+        proj_ln_block.launches += 1
+        return out
     h = resid.shape[-1]
     rows = resid.numel() // h
     _build.require_all(dev, ((resid, "resid", resid.shape), (a, "a", resid.shape),
@@ -251,6 +307,7 @@ def proj_ln_block(resid: torch.Tensor, a: torch.Tensor, w_t: torch.Tensor,
 
 
 proj_ln_block.launches = 0
+proj_ln_block.launches_bf16 = 0
 
 
 # ------------------------------------------------------------------ int8
@@ -379,65 +436,80 @@ int8_matmul.launches = 0
 
 def qrows(x: torch.Tensor):
     """:func:`qrows_plain` through K4's row-quantize kernel on a CUDA
-    tensor."""
-    _build.refuse_bf16("qrows (the int8 BERT)", x)
+    tensor (bf16 rows: its bf16 instance, the rows read as float32)."""
     if x.device.type == "cpu":
         return qrows_plain(x)
     dev = _build.device_of(x)
     n = x.shape[-1]
     rows = x.numel() // n
-    _build.require(x, "x", tuple(x.shape), dev)
+    bf = x.dtype == torch.bfloat16
+    _build.require(x, "x", tuple(x.shape), dev, x.dtype if bf else torch.float32)
     xq = torch.empty(rows, n, dtype=torch.int8, device=dev)
     sx = torch.empty(rows, 1, dtype=torch.float32, device=dev)
-    err = _build.load_library().mmtr_qrows(x.data_ptr(), xq.data_ptr(), sx.data_ptr(),
-                                           rows, n, _build.stream_ptr(dev))
+    lib = _build.load_library()
+    err = (lib.mmtr_qrows_bf16 if bf else lib.mmtr_qrows)(
+        x.data_ptr(), xq.data_ptr(), sx.data_ptr(), rows, n, _build.stream_ptr(dev))
     _build.check(err, "qrows kernel")
     qrows.launches += 1
+    qrows.launches_bf16 += bf
     return xq, sx
 
 
 qrows.launches = 0
+qrows.launches_bf16 = 0
 
 
 def qdot_plain(xq, sx, wq: dict, bias) -> torch.Tensor:
-    """Plain version of :func:`qdot`, the JAX package's ``_qdot``."""
+    """Plain version of :func:`qdot`, the JAX package's ``_qdot``: the
+    dequant in float32 (bf16 scales and bias upcast), the result in the
+    bias's dtype (rounded where it is bf16)."""
     acc = int8_matmul_plain(xq, wq["q"]).float()
-    return acc * sx * wq["s"] + bias
+    return (acc * sx * wq["s"].float() + bias.float()).to(bias.dtype)
 
 
 def qdot(xq: torch.Tensor, sx: torch.Tensor, wq: dict, bias: torch.Tensor) -> torch.Tensor:
     """``float(xq @ q^T) * sx * s + bias``: int8 codes ``xq [M, K]`` with
     row scales ``sx [M, 1]``, weights ``{"q": int8 [N, K], "s": [N]}``,
-    ``bias [N]`` -> float32 ``[M, N]``."""
+    ``bias [N]`` -> ``[M, N]`` in the bias's dtype: float32, or bf16 (with
+    bf16 scales, the bf16 instance: the float32 dequant rounded to bf16)."""
     if xq.device.type == "cpu":
         return qdot_plain(xq, sx, wq, bias)
     dev = _build.device_of(xq)
     (m, k), n = xq.shape, wq["q"].shape[0]
+    dt = torch.bfloat16 if bias.dtype == torch.bfloat16 else torch.float32
     _build.require(xq, "xq", (m, k), dev, torch.int8)
     _build.require(sx, "sx", (m, 1), dev)
     _build.require(wq["q"], "wq", (n, k), dev, torch.int8)
-    _build.require(wq["s"], "ws", (n,), dev)
-    _build.require(bias, "bias", (n,), dev)
-    out = torch.empty(m, n, dtype=torch.float32, device=dev)
+    _build.require(wq["s"], "ws", (n,), dev, dt)
+    _build.require(bias, "bias", (n,), dev, dt)
+    out = torch.empty(m, n, dtype=dt, device=dev)
     plan = _cached_qgemm_plan(m, n, k, _build.num_sms(dev),
                               (xq.data_ptr() | wq["q"].data_ptr()) % 16 == 0)
-    err = _build.load_library().mmtr_qdot(
+    lib = _build.load_library()
+    err = (lib.mmtr_qdot_bf16 if dt == torch.bfloat16 else lib.mmtr_qdot)(
         xq.data_ptr(), sx.data_ptr(), wq["q"].data_ptr(), wq["s"].data_ptr(),
         bias.data_ptr(), out.data_ptr(), m, n, k, plan[1], _build.stream_ptr(dev))
     _build.check(err, "qdot kernel")
     qdot.launches += 1
+    qdot.launches_bf16 += dt == torch.bfloat16
     return out
 
 
 qdot.launches = 0
+qdot.launches_bf16 = 0
 
 
 def ffn_ln_block_q_plain(x, w1: dict, b1, w2: dict, b2, ln_g, ln_b, *, eps: float,
                          return_codes: bool = False):
-    """Plain PyTorch version of K4, the JAX kernel's operations in order."""
+    """Plain PyTorch version of K4, the JAX kernel's operations in order.
+    bf16 ``x`` (its scales, biases and LN parameters bf16): the bf16
+    instance's, h1 and y rounded to bf16 after their dequant, g1 =
+    gelu(h1) rounded before its codes, the residual sum rounded, then the
+    LN."""
     rows = x.reshape(-1, x.shape[-1])
     xq, sx = qrows_plain(rows)
-    g1 = gelu_erf_poly(qdot_plain(xq, sx, w1, b1))
+    h1 = qdot_plain(xq, sx, w1, b1)
+    g1 = gelu_erf_poly(h1.float()).to(h1.dtype)
     gq, sg = qrows_plain(g1)
     y = qdot_plain(gq, sg, w2, b2)
     out = masked_layer_norm(rows + y, ln_g, ln_b, eps=eps).reshape(x.shape)
@@ -450,8 +522,9 @@ def ffn_ln_block_q(x: torch.Tensor, w1: dict, b1: torch.Tensor, w2: dict,
     """``LN(x + qproj(gelu(qproj(x, w1, b1)), w2, b2))`` for ``x [..., h]``,
     ``w1 = {"q": int8 [F, h], "s": [F]}``, ``w2 = {"q": int8 [h, F], "s":
     [h]}``.  ``return_codes`` also returns the hidden int8 codes ``[rows, F]``
-    and their row scales ``[rows, 1]``, to count flipped codes in a check."""
-    _build.refuse_bf16("ffn_ln_block_q (K4)", x)
+    and their row scales ``[rows, 1]``, to count flipped codes in a check.
+    bf16 ``x`` (scales, biases and LN parameters bf16) takes the bf16
+    instance."""
     if x.device.type == "cpu":
         return ffn_ln_block_q_plain(x, w1, b1, w2, b2, ln_g, ln_b, eps=eps,
                                     return_codes=return_codes)
@@ -459,23 +532,26 @@ def ffn_ln_block_q(x: torch.Tensor, w1: dict, b1: torch.Tensor, w2: dict,
     h = x.shape[-1]
     ffn = w1["q"].shape[0]
     rows = x.numel() // h
-    _build.require(x, "x", tuple(x.shape), dev)
+    bf = x.dtype == torch.bfloat16
+    dt = x.dtype if bf else torch.float32
+    _build.require(x, "x", tuple(x.shape), dev, dt)
     _build.require(w1["q"], "w1q", (ffn, h), dev, torch.int8)
     _build.require(w2["q"], "w2q", (h, ffn), dev, torch.int8)
     for name, t, n in (("w1s", w1["s"], ffn), ("b1", b1, ffn), ("w2s", w2["s"], h),
                        ("b2", b2, h), ("ln_g", ln_g, h), ("ln_b", ln_b, h)):
-        _build.require(t, name, (n,), dev)
+        _build.require(t, name, (n,), dev, dt)
     plan = _cached_ffn_q_plan(rows, h, ffn, _build.num_sms(dev),
                               (w1["q"].data_ptr() | w2["q"].data_ptr()) % 16 == 0)
     i8, f32 = dict(dtype=torch.int8, device=dev), dict(dtype=torch.float32, device=dev)
     xq = torch.empty(rows, h, **i8)
     sx = torch.empty(rows, 1, **f32)
-    hidden = torch.empty(rows, ffn, **f32)
+    hidden = torch.empty(rows, ffn, dtype=dt, device=dev)
     hq = torch.empty(rows, ffn, **i8)
     sh = torch.empty(rows, 1, **f32)
-    resid_sum = torch.empty(rows, h, **f32)
+    resid_sum = torch.empty(rows, h, dtype=dt, device=dev)
     out = torch.empty_like(x)
-    err = _build.load_library().mmtr_ffn_ln_q_fwd(
+    lib = _build.load_library()
+    err = (lib.mmtr_ffn_ln_q_fwd_bf16 if bf else lib.mmtr_ffn_ln_q_fwd)(
         x.data_ptr(), w1["q"].data_ptr(), w1["s"].data_ptr(), b1.data_ptr(),
         w2["q"].data_ptr(), w2["s"].data_ptr(), b2.data_ptr(), ln_g.data_ptr(),
         ln_b.data_ptr(), xq.data_ptr(), sx.data_ptr(), hidden.data_ptr(), hq.data_ptr(),
@@ -483,7 +559,9 @@ def ffn_ln_block_q(x: torch.Tensor, w1: dict, b1: torch.Tensor, w2: dict,
         _build.stream_ptr(dev))
     _build.check(err, "ffn_ln_block_q kernel")
     ffn_ln_block_q.launches += 1
+    ffn_ln_block_q.launches_bf16 += bf
     return (out, hq, sh) if return_codes else out
 
 
 ffn_ln_block_q.launches = 0
+ffn_ln_block_q.launches_bf16 = 0

@@ -158,14 +158,18 @@ def exact_jit():
         yield
 
 
-def bf16_build(seed: int = 0) -> dict:
+def bf16_build(seed: int = 0, spec: dict = BF16_SPEC, bert_cfg: dict | None = None) -> dict:
     """The bf16 parity model: the port draws the weights, which cross into
     the JAX package (``translation`` linears as zeros); the JAX package's
-    ``init_bert`` at ``tiny_bert_config(hidden=128, heads=2, layers=1)``;
-    9 rows of data and a sampled configuration."""
-    js, ts = jcfg.ModelSpec(**BF16_SPEC), tcfg.ModelSpec(**BF16_SPEC)
-    jb = jbert.tiny_bert_config(hidden=128, heads=2, layers=1)
-    tb = tbert.tiny_bert_config(hidden=128, heads=2, layers=1)
+    ``init_bert`` at ``tiny_bert_config(hidden=128, heads=2, layers=1)``
+    (``bert_cfg``: a ``BertConfig``'s fields instead); 9 rows of data and a
+    sampled configuration."""
+    js, ts = jcfg.ModelSpec(**spec), tcfg.ModelSpec(**spec)
+    if bert_cfg is None:
+        jb = jbert.tiny_bert_config(hidden=128, heads=2, layers=1)
+        tb = tbert.tiny_bert_config(hidden=128, heads=2, layers=1)
+    else:
+        jb, tb = jbert.BertConfig(**bert_cfg), tbert.BertConfig(**bert_cfg)
     params, _ = t_init(torch.Generator().manual_seed(seed), ts, tb)
     sd = export_reference_state_dict(ts, params)
     d = ts.dimension
@@ -191,7 +195,57 @@ def bf16_batch(c: dict):
     return inputs, labels, np.array([1, 1, 1, 0], np.float32)
 
 
+def bf16_frozen(c: dict, int8=None):
+    """:func:`bf16_build`'s frozen BERT in both packages: (JAX, port),
+    float32, or (``int8`` ``"ffn"`` / ``"all"``) quantized from the float32
+    weights by each package's ``quantize_bert_params``; the boundary cast
+    makes it bf16."""
+    _, tf = bf16_port(c)
+    if int8 is None:
+        return c["frozen"], tf
+    attn = int8 == "all"
+    return ({"bert": jbert.quantize_bert_params(c["frozen"]["bert"], attn=attn)},
+            dict(tf, bert=tbert.quantize_bert_params(tf["bert"], attn=attn)))
+
+
 def bf16_masks(c: dict, cfg):
     """``cfg``'s masks in both packages: (JAX, port)."""
     return (jax.tree.map(jnp.asarray, j_build_masks(c["js"], cfg)),
             t_build_masks(c["ts"], tcfg.ActiveConfig(**cfg.__dict__)))
+
+
+def bf16_train_step_pair(c: dict, j_frozen: dict, t_frozen: dict):
+    """One training step of :func:`bf16_build`'s model in both packages
+    (a sampled configuration, L1 with a padded row, the JAX side jitted with
+    XLA's excess precision off, the port's Trainer on the CPU), the frozen
+    BERT given per side: (port loss, JAX loss, port gradients, JAX
+    gradients), the gradients under the reference's names, the dead
+    ``translation`` linears dropped.  The port's parameters must stay
+    float32 masters."""
+    from multimodal_transformer_robustness_tpu.checkpoint import export_torch_state_dict
+    from multimodal_transformer_robustness_tpu.models import supernet_apply as j_apply
+    from multimodal_transformer_robustness_tpu_torch.weights import (
+        export_reference_state_dict)
+
+    jm, tm = bf16_masks(c, c["cfg"])
+    inputs, labels, valid = bf16_batch(c)
+    j_in = [jnp.asarray(inputs[0], jnp.int32)] + [jnp.asarray(x) for x in inputs[1:]]
+
+    def loss_fn(p):
+        preds = j_apply(c["js"], p, jm, j_in, frozen=j_frozen,
+                        bert_cfg=c["jb"], train=True, rng=jax.random.PRNGKey(0))
+        return jloop.make_criterion("L1Loss")(preds, jnp.asarray(labels), jnp.asarray(valid))
+
+    with exact_jit():
+        step = jax.jit(jax.value_and_grad(loss_fn))
+    j_loss, j_grads = step(jax.tree.map(jnp.asarray, c["params_np"]))
+    tp, _ = bf16_port(c)
+    tt = tloop.Trainer(c["ts"], tp, t_frozen, tloop.TrainHParams(batch_size=BF16_B),
+                       bert_cfg=c["tb"], device="cpu")
+    t_loss, t_grads = tt.loss_and_grads(
+        tt.params, tm, [torch.from_numpy(x) for x in inputs], torch.from_numpy(labels),
+        torch.from_numpy(valid), tt.generator)
+    assert all(p.dtype == torch.float32 for p in tloop.tree_leaves(tt.params))
+    theirs = {k: np.asarray(v) for k, v in export_torch_state_dict(c["js"], j_grads).items()
+              if not k.startswith("translation.")}
+    return t_loss, j_loss, export_reference_state_dict(c["ts"], t_grads), theirs

@@ -15,19 +15,10 @@ of at least 0.999 against JAX's (the JAX policy's own bound against
 float32 is a cosine of 0.99, tests/test_bf16_policy.py).
 """
 
-import jax
-import jax.numpy as jnp
 import numpy as np
-import torch
 
-from multimodal_transformer_robustness_tpu.checkpoint import export_torch_state_dict
-from multimodal_transformer_robustness_tpu.models import supernet_apply as j_apply
-from multimodal_transformer_robustness_tpu.train import loop as jloop
-from multimodal_transformer_robustness_tpu_torch.train import loop as tloop
-from multimodal_transformer_robustness_tpu_torch.weights import export_reference_state_dict
-
-from _torch_pair import (BF16_B, bf16_batch, bf16_build, bf16_masks, bf16_port, exact_jit,
-                         no_cross_quirk, use_pallas_interpret)
+from _torch_pair import bf16_build, bf16_port, bf16_train_step_pair, no_cross_quirk, \
+    use_pallas_interpret
 
 LOSS_TOL = 1e-2
 GRAD_COS = 0.999
@@ -37,36 +28,19 @@ def test_train_step_bf16_matches_jax(monkeypatch):
     use_pallas_interpret(monkeypatch)
     with no_cross_quirk():
         c = bf16_build()
-        jm, tm = bf16_masks(c, c["cfg"])
-        inputs, labels, valid = bf16_batch(c)
-        j_in = [jnp.asarray(inputs[0], jnp.int32)] + [jnp.asarray(x) for x in inputs[1:]]
+        t_loss, j_loss, ours, theirs = bf16_train_step_pair(c, c["frozen"], bf16_port(c)[1])
+    check_step(t_loss, j_loss, ours, theirs)
 
-        def loss_fn(p):
-            preds = j_apply(c["js"], p, jm, j_in, frozen=c["frozen"], bert_cfg=c["jb"],
-                            train=True, rng=jax.random.PRNGKey(0))
-            return jloop.make_criterion("L1Loss")(preds, jnp.asarray(labels),
-                                                  jnp.asarray(valid))
 
-        with exact_jit():
-            step = jax.jit(jax.value_and_grad(loss_fn))
-        j_loss, j_grads = step(
-            jax.tree.map(jnp.asarray, c["params_np"]))
-        tp, tf = bf16_port(c)
-        tt = tloop.Trainer(c["ts"], tp, tf, tloop.TrainHParams(batch_size=BF16_B),
-                           bert_cfg=c["tb"], device="cpu")
-        t_loss, t_grads = tt.loss_and_grads(
-            tt.params, tm, [torch.from_numpy(x) for x in inputs], torch.from_numpy(labels),
-            torch.from_numpy(valid), tt.generator)
+def check_step(t_loss, j_loss, ours, theirs):
+    """The loss within LOSS_TOL relative, every gradient float32, and the
+    gradients as one vector at a cosine of GRAD_COS."""
     rel = abs(float(t_loss) - float(j_loss)) / abs(float(j_loss))
     print(f"loss {float(t_loss):.6f} vs {float(j_loss):.6f}: rel {rel:.3e}")
     assert rel <= LOSS_TOL
-    assert all(p.dtype == torch.float32 for p in tloop.tree_leaves(tt.params))
-    assert all(g.dtype == torch.float32 for g in tloop.tree_leaves(t_grads))
-    ours = export_reference_state_dict(c["ts"], t_grads)
-    theirs = {k: np.asarray(v) for k, v in export_torch_state_dict(c["js"], j_grads).items()
-              if not k.startswith("translation.")}
     assert sorted(ours) == sorted(theirs)
     assert all(v.dtype == np.float32 for v in theirs.values())
+    assert all(v.dtype == np.float32 for v in ours.values())
     a = np.concatenate([ours[k].ravel() for k in sorted(ours)]).astype(np.float64)
     r = np.concatenate([theirs[k].ravel() for k in sorted(ours)]).astype(np.float64)
     cos = float(a @ r / (np.linalg.norm(a) * np.linalg.norm(r)))

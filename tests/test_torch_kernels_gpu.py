@@ -14,7 +14,9 @@ GEMM's int32 products must equal exact float64 sums, and its dequant + bias
 epilogue the plain version's bits.  K4's hidden int8 codes may differ from
 the plain version's in at most 1e-3 of places (a value one float32 step from
 a rounding edge); each output row is held to 1e-4 plus, per flipped code in
-it, twice the largest move one code can make (``_k4_row_bound``).  K7f and
+it, twice the largest move one code can make (``_k4_row_bound``).  The bf16
+instances (K1f, K1b, K2, K3, K4, K6a, K6b) are held to 2e-2 of max |ref|
+against their bf16 plain versions.  K7f and
 K9f are held to 1e-4 absolute, K7b and K9b to 1e-4 of each output's max
 |ref| (sums over T*N or R rows in another order), K9b beyond what entries
 of its hidden pre-activation within 1e-4 of relu's kink may move it
@@ -824,9 +826,11 @@ def test_gru_dir_bwd_bf16_kernel_matches_plain(cuda, B, T, I, H, need_dx):
 @pytest.mark.gpu
 @pytest.mark.parametrize("softmax", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,L,heads,h", [(1, 8, 12, 768), (3, 13, 2, 16), (300, 31, 12, 768),
-                                         (5, 64, 12, 768)])
+                                         (5, 64, 12, 768), (2, 65, 12, 768), (3, 100, 2, 16),
+                                         (1, 512, 12, 768)])
 def test_attention_block_bf16_kernel_matches_plain(cuda, B, L, heads, h, softmax):
-    """K2's bf16 instance, both softmax tails; L > 64 raises."""
+    """K2's bf16 instance, both softmax tails, on both attention paths (a
+    unit a block at L <= 64, 64-key tiles in three passes beyond)."""
     rng = np.random.default_rng(23)
     args = [a.to(cuda) for a in attn_torch_args(*attn_inputs(rng, B, L, h))]
     args = [a if i == 1 else a.to(torch.bfloat16) for i, a in enumerate(args)]
@@ -839,11 +843,85 @@ def test_attention_block_bf16_kernel_matches_plain(cuda, B, L, heads, h, softmax
     bf16_close(out, bert_attn_cuda.attention_block_plain(*args, **kw),
                f"K2 bf16 {B} {L} {h} {softmax}")
     assert torch.equal(out, again)
-    if (B, L) == (1, 8):
-        long = [a.to(cuda) for a in attn_torch_args(*attn_inputs(rng, 1, 65, h))]
-        long = [a if i == 1 else a.to(torch.bfloat16) for i, a in enumerate(long)]
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            bert_attn_cuda.attention_block_fused(*long, **kw)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L,heads,h", [(3, 32, 12, 768), (2, 80, 2, 16), (1, 512, 12, 768),
+                                         (4, 64, 4, 32)])
+def test_dense_attention_bf16_kernel_matches_plain(cuda, B, L, heads, h):
+    """K6a's bf16 instance on both attention paths, one item fully masked."""
+    rng = np.random.default_rng(27)
+    *_, mask = attn_inputs(rng, B, L, h)
+    q, k, v = (_bf(torch.from_numpy(rng.standard_normal((B, L, heads, h // heads))
+                                    .astype(np.float32)), cuda) for _ in range(3))
+    mask = torch.from_numpy(mask).to(cuda)
+    n0 = bert_attn_cuda.dense_attention_blockdiag.launches_bf16
+    out = bert_attn_cuda.dense_attention_blockdiag(q, k, v, mask)
+    again = bert_attn_cuda.dense_attention_blockdiag(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert bert_attn_cuda.dense_attention_blockdiag.launches_bf16 == n0 + 2
+    assert out.dtype == torch.bfloat16 and out.shape == (B, L, h)
+    bf16_close(out, bert_attn_cuda.dense_attention_plain(q, k, v, mask), f"K6a bf16 {B} {L}")
+    assert torch.equal(out, again)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,h", [(8, 768), (9001, 768), (131072, 768), (7, 32)])
+def test_proj_ln_bf16_kernel_matches_plain(cuda, rows, h):
+    """K6b's bf16 instance: split-K and wgmma products."""
+    rng = np.random.default_rng(28)
+    resid, a = (_bf(torch.from_numpy(rng.standard_normal((rows, h)).astype(np.float32)), cuda)
+                for _ in range(2))
+    w_t = _bf(torch.from_numpy((rng.standard_normal((h, h)) * 0.05).astype(np.float32)), cuda)
+    b, bb = (_bf(torch.from_numpy((rng.standard_normal(h) * 0.05).astype(np.float32)), cuda)
+             for _ in range(2))
+    g = _bf(torch.from_numpy((1.0 + 0.2 * rng.standard_normal(h)).astype(np.float32)), cuda)
+    args = (resid, a, w_t, b, g, bb)
+    n0 = bert_ffn_cuda.proj_ln_block.launches_bf16
+    out = bert_ffn_cuda.proj_ln_block(*args, eps=1e-12)
+    again = bert_ffn_cuda.proj_ln_block(*args, eps=1e-12)
+    torch.cuda.synchronize()
+    assert bert_ffn_cuda.proj_ln_block.launches_bf16 == n0 + 2
+    bf16_close(out, bert_ffn_cuda.proj_ln_block_plain(*args, eps=1e-12), f"K6b bf16 {rows}")
+    assert torch.equal(out, again)
+
+
+def _bf16_int8(w):
+    """A float32 weight quantized, its scale then rounded to bf16 (the int8
+    BERT under the bf16 policy)."""
+    q = tbert._quantize(w)
+    return {"q": q["q"], "s": q["s"].to(torch.bfloat16)}
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows,h,ffn", [(8, 768, 3072), (7, 32, 128), (33, 40, 100),
+                                        (9001, 768, 3072)])
+def test_ffn_ln_q_bf16_kernel_matches_plain(cuda, rows, h, ffn):
+    """K4's bf16 instance: its hidden codes as the plain version's (at most
+    1e-3 flipped), its int32 products exact, its output within the bf16
+    tolerance; the int8 GEMM with its bf16 dequant (qdot) the plain
+    version's bits."""
+    rng = np.random.default_rng(29)
+    x, w1, b1, w2, b2, g, b = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+                               for a in ffn_inputs(rng, rows, h, ffn)]
+    w1q, w2q = _bf16_int8(w1), _bf16_int8(w2)
+    args = (_bf(x, cuda), w1q, _bf(b1, cuda), w2q, _bf(b2, cuda), _bf(g, cuda), _bf(b, cuda))
+    n0 = bert_ffn_cuda.ffn_ln_block_q.launches_bf16
+    out, codes, scales = bert_ffn_cuda.ffn_ln_block_q(*args, eps=1e-12, return_codes=True)
+    torch.cuda.synchronize()
+    assert bert_ffn_cuda.ffn_ln_block_q.launches_bf16 == n0 + 1
+    ref, ref_codes, _ = bert_ffn_cuda.ffn_ln_block_q_plain(*args, eps=1e-12, return_codes=True)
+    assert (codes != ref_codes).float().mean().item() <= 1e-3
+    bf16_close(out, ref, f"K4 bf16 {rows} {h} {ffn}")
+    xq, sx = bert_ffn_cuda.qrows(args[0])
+    pxq, psx = bert_ffn_cuda.qrows_plain(args[0])
+    assert torch.equal(xq, pxq) and torch.equal(sx, psx)
+    for a, w in ((xq, w1q), (ref_codes, w2q)):
+        exact = bert_ffn_cuda.int8_matmul_plain(a, w["q"]).to(torch.int32)
+        assert torch.equal(bert_ffn_cuda.int8_matmul(a, w["q"]), exact)
+    y = bert_ffn_cuda.qdot(xq, sx, w1q, args[2])
+    assert y.dtype == torch.bfloat16
+    assert torch.equal(y, bert_ffn_cuda.qdot_plain(xq, sx, w1q, args[2]))
 
 
 @pytest.mark.gpu

@@ -1111,13 +1111,36 @@ def test_bf16_plans_at_the_eval_and_serving_rows():
 
 
 def test_bf16_attn_block_plan_refuses_long_units():
-    """The bf16 attention stage holds a unit's queries and keys at once and
-    reads heads in 16-byte copies: L > 64, dh > 64, or dh or h not a
-    multiple of 8 raise; the static shared memory (q, k, v rows of 72 bf16
-    and the key bias) stays within a block's 48 KB."""
-    bert_attn_cuda._plan_attn_block_bf16(1, 64, 768, 12)
+    """The bf16 attention stage reads heads in 16-byte copies and holds 64
+    rows of a head's columns: dh > 64, or dh or h not a multiple of 8
+    raise; every L runs, L <= 64 a unit a block (path 0), longer units in
+    query tiles of 64 (path 1; L = 65 two tiles, the B=1 L=512 serving
+    bucket 8 a head); K6a.bf16 shares the plan.  The static shared memory
+    (q, k, v rows of 72 bf16 on path 0; q and a ring of two k and v tiles
+    on path 1) stays within a block's 48 KB."""
+    assert bert_attn_cuda._plan_attn_block_bf16(1, 64, 768, 12)["attention"] == {
+        "path": 0, "units": 12, "qtiles": 1}
     bert_attn_cuda._plan_attn_block_bf16(3, 13, 16, 2)
-    for B, L, h, heads in ((1, 65, 768, 12), (1, 8, 768, 6), (1, 8, 60, 5), (1, 8, 36, 3)):
+    assert bert_attn_cuda._plan_attn_block_bf16(1, 65, 768, 12)["attention"] == {
+        "path": 1, "units": 12, "qtiles": 2}
+    assert bert_attn_cuda._plan_attention_bf16(1, 512, 12, 64) == {
+        "path": 1, "units": 12, "qtiles": 8}
+    assert bert_attn_cuda._plan_attention_bf16(4096, 32, 12, 64)["units"] == 4096 * 12
+    for B, L, h, heads in ((1, 8, 768, 6), (1, 8, 60, 5), (1, 8, 36, 3), (1, 100, 36, 3)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             bert_attn_cuda._plan_attn_block_bf16(B, L, h, heads)
-    assert 3 * 64 * 72 * 2 + 4 * 64 <= 48 * 1024
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        bert_attn_cuda._plan_attention_bf16(2, 80, 4, 12)
+    assert 3 * 64 * 72 * 2 <= 48 * 1024 and 5 * 64 * 72 * 2 <= 48 * 1024
+
+
+def test_bf16_proj_ln_plan_is_k2s_tail():
+    """K6b.bf16's plan is K2.bf16's o-projection plan at the same rows (the
+    o-projection's A, the fresh attention output, aligned); copies narrow
+    with the operands' alignment."""
+    for B, L in ((1, 8), (1, 512), (4096, 32)):
+        blk = bert_attn_cuda._plan_attn_block_bf16(B, L, 768, 12)
+        assert blk["o"] == bert_ffn_cuda._plan_proj_ln_bf16(B * L, 768)
+    assert bert_ffn_cuda._plan_proj_ln_bf16(131072, 768)["wgmma"] == 1
+    p = bert_ffn_cuda._plan_proj_ln_bf16(8, 768, a_addr=4)
+    assert (p["wgmma"], p["acw"], p["bcw"]) == (0, 2, 8)
