@@ -55,7 +55,16 @@ Phases, each fatal on failure:
                 float32 kernels (cosine), rerun for the same bits, timed
                 beside cuDNN's GRU in bf16 (K1f, K1b) and SDPA in bf16
                 (K6a); K4's flipped hidden codes counted; qdot's bf16
-                dequant at M=8 and 131,072 the plain version's bits;
+                dequant at M=8 and 131,072 the plain version's bits; the
+                bf16 instances of K5f, K5dq and K5dkv (self, cross, long;
+                at self and cross K5dq and K5dkv called directly, the
+                backward's path 1 forced) and K5b (self, cross), each at
+                rates 0 and 0.1, and all four at odd T with D = 25
+                (check_flash at bf16), against their bf16 plain versions
+                (FLASH_BF16_TOL) and the float32 kernels (FLASH_BF16_COS),
+                rerun for the same bits, timed beside SDPA in bf16, bound
+                by the bf16 x bf16 products at PEAK_BF16_FLOPS and the
+                rest at PEAK_BF16_F32_FLOPS;
   4. serving  - StreamingPredictor at the reference's MOSEI serving
                 configuration (d=200, 8x25 heads, layers 3/4/2, 4-layer
                 BERT-base-width text encoder, random weights from seed 0)
@@ -145,9 +154,23 @@ Phases, each fatal on failure:
                 K6b 4 / K3 4;
  28. bert-int8-full-bf16 - phase 10 in bf16: qrows 8 / qdot 16 / K4 4, all
                 bf16, card vs CPU by int8_agree.
+ 29. flash-stack-bf16 - phase 14 under the bf16 policy (the stack's
+                parameters, masks and inputs cast as compute_cast casts
+                them): K5f.bf16 and K5b.bf16 once per layer, ms beside the
+                bf16 xla stack, the eval forward at B=16 T=2048, card vs CPU
+                at B=8 (outputs within BF16_PRED_TOL, every gradient leaf
+                a cosine of BF16_COS, the xla stack's beside them); then
+                the T=96 stack, held so: K5f.bf16, K5dq.bf16 and
+                K5dkv.bf16 once per layer;
+ 30. train-bf16-flash - one Trainer step at B=4096 under
+                ModelSpec(compute_dtype="bfloat16", attn_impl="flash"): K1
+                12 / K1b 12 / K2 4 / K3 4 (bf16) and no K5 (the T==1 rule);
+                loss and gradients bit-identical to the xla spec's step;
+ 31. serving-bf16-flash - phase 15 under the bf16 spec: K1 12 / K2 4 / K3
+                4 a request (bf16), K5f 0, predictions bit-identical to xla.
 Every phase sets the launch counters to 0 just before it drives its path
 and fails unless each kernel of the path ran the expected number of times
-(the bf16 instances counted apart: ``K1.bf16`` ... ``qdot.bf16``).
+(the bf16 instances counted apart: ``K1.bf16`` ... ``K5dkv.bf16``).
 Then the int8 projections' and the device split's lines, one JSON line with
 the kernels' results, and the last line ``{"ok": true, "device": {...}}``.
 """
@@ -206,14 +229,22 @@ T0 = time.perf_counter()  # the script's start, for the phase headings
 # moves downstream); their cosine against the float32 kernel on the same
 # (bf16-valued) inputs is printed and held to 0.999.
 BF16_TOL, BF16_COS = 2e-2, 0.999
+# The bf16 instances of the flash kernels (K5f, K5b, K5dq, K5dkv) compute the
+# JAX kernels' function: float32 between bf16 operands, one rounding of each
+# output.  Against their bf16 plain versions: within 1e-2 of max |ref|
+# (about one bf16 step at the top); against the float32 kernel on the same
+# bf16-valued operands: a cosine of at least 0.99999 (the outputs' one
+# rounding), lse (float32) within 1e-5 of max |ref| of both.
+FLASH_BF16_TOL, FLASH_BF16_COS, FLASH_BF16_LSE_TOL = 1e-2, 0.99999, 1e-5
+FLASH_BF16_KERNELS = ("K5f.bf16", "K5b.bf16", "K5dq.bf16", "K5dkv.bf16")
 BF16_KERNELS = ("K1f.bf16", "K1b.bf16", "K2.bf16", "K3.bf16", "K4.bf16", "K6a.bf16",
                 "K6b.bf16")
 TOL = {"K1": 1e-4, "K1b": 1e-4, "K2": 1e-3, "K3": 1e-4, "K4": 1e-4, "K6a": 1e-3,
        "K6b": 1e-4, "K5f": 1e-4, "K5dq": 1e-4, "K5dkv": 1e-4, "K5b": 1e-4, "K8": 1e-4,
        "K7f": 1e-4, "K7b": 1e-4, "K9f": 1e-4, "K9b": 1e-4,
-       **{k: BF16_TOL for k in BF16_KERNELS}}
+       **{k: BF16_TOL for k in BF16_KERNELS}, **{k: FLASH_BF16_TOL for k in FLASH_BF16_KERNELS}}
 # the kernels held to TOL as a share of max |ref| rather than absolutely
-NORMALISED = {"K5dq", "K5dkv", "K5b", "K7b", "K9b", *BF16_KERNELS}
+NORMALISED = {"K5dq", "K5dkv", "K5b", "K7b", "K9b", *BF16_KERNELS, *FLASH_BF16_KERNELS}
 K4_MAX_FLIP_SHARE = 1e-3
 SERVE_TOL = 1e-3   # end-to-end sentiment, card against CPU
 # one training step, card against CPU: the loss relative, each gradient
@@ -233,6 +264,13 @@ TRAIN_LOSS_TOL, TRAIN_GRAD_TOL = 1e-4, 1e-3
 # moves by up to a bf16 step of the largest prediction, of the scale and
 # not of its own value (tools/bf16_gap.py; PERF.md)
 BF16_LOSS_TOL, BF16_PRED_TOL = 1e-2, 2e-2
+# A bf16 flash stack's float32 gradients, card against CPU, are held leaf
+# by leaf to a cosine of BF16_COS, the q, k and v parts of each stacked
+# in-projection apart (qkv_apart): what dq and dk feed is a small share of
+# the whole vector's norm.  Not by
+# max |error|: one bf16 flip moves a leaf's largest element by up to 9e-2
+# of its max |ref|, by several times more on one stack than on the other
+# from leaf to leaf (tools/bf16_leaf_spread.py).
 
 # H100 SXM peaks (NVIDIA data sheet).  Float32 products at the rate the card
 # can do them to float32 accuracy: on the tensor cores in 3xTF32 (three TF32
@@ -242,6 +280,11 @@ BF16_LOSS_TOL, BF16_PRED_TOL = 1e-2, 2e-2
 PEAK_F32_FLOPS, PEAK_INT8_OPS, PEAK_BYTES = 495e12 / 3, 1979e12, 3.35e12
 # the bf16 tensor cores (dense), the bf16 instances' yardstick
 PEAK_BF16_FLOPS = 989e12
+# products of a bf16 and a float32 operand to float32 accuracy (the bf16
+# flash instances' P V, dS K, P^T dO, dS^T Q): the float32 operand split
+# into three bf16 planes, three bf16 MMAs a product (989 / 3 = 330
+# TFLOP/s), above two TF32 MMAs (495 / 2 = 247)
+PEAK_BF16_F32_FLOPS = PEAK_BF16_FLOPS / 3
 # the 7 non-empty modality subsets (bench.py's training pool)
 POOL = [[0], [1], [2], [0, 1], [0, 2], [1, 2], [0, 1, 2]]
 PKG = "multimodal_transformer_robustness_tpu_torch"
@@ -285,10 +328,13 @@ def beyond_allowance(pairs, slack):
     return max(b for b, _ in beyond), max(b / m for b, m in beyond)
 
 
-def bound(flops: float, nbytes: float, peak: float = PEAK_F32_FLOPS):
+def bound(flops, nbytes: float, peak: float = PEAK_F32_FLOPS):
     """The least time the card could take: (ms, what bounds it).  The bf16
-    rows pass (flops, bytes, PEAK_BF16_FLOPS)."""
-    t_ops, t_bytes = flops / peak, nbytes / PEAK_BYTES
+    rows pass (flops, bytes, PEAK_BF16_FLOPS).  ``flops``: a count at
+    ``peak``, or ((count, rate), ...) for work whose products run at
+    several rates (the bf16 flash rows, :func:`flash_work`)."""
+    t_ops = (sum(f / r for f, r in flops) if isinstance(flops, tuple) else flops / peak)
+    t_bytes = nbytes / PEAK_BYTES
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -509,6 +555,9 @@ def check_kernels(dev, rng):
     check_k7(dev, rng, t, record, failures)
     check_k9(dev, rng, t, record, failures)
     rows += check_bf16(dev, rng, t, record, failures)
+    # its own seed, so that the rows above keep their inputs
+    check_flash(dev, np.random.default_rng(18), t, record, failures, torch.bfloat16,
+                k8_shapes=(), odd=((3, 7, 7), (3, 9, 7), (3, 9, 9)))
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
     return rows
@@ -1255,24 +1304,33 @@ def qdot_row(rng, t, wq, bias, M, h):
     return row, ok
 
 
-def flash_work(kind, bh, tq, tk, d, offset, dropout):
+def flash_work(kind, bh, tq, tk, d, offset, dropout, width=4):
     """(FLOPs, bytes) of K5f ("fwd"), K5dq ("dq"), K5dkv ("dkv") or K5b
     ("bwd", the whole backward in one pass) over ``bh`` slices: 4, 6, 8 or
     10 FLOPs a score pair and head column, counting only the pairs the
     causal rule leaves visible; q, k, v (and dout, lse, delta for K5dq /
     K5dkv, dout, out and lse for K5b) read once, the outputs written once,
-    8 bytes of seed and rate a slice with dropout."""
+    8 bytes of seed and rate a slice with dropout.  ``width``: the bytes of
+    an element of q, k, v, dout, out and the gradients (2 for the bf16
+    instances); lse and delta are float32 at either width.  At width 2 the
+    FLOPs come as ((count, rate), ...): S = Q K^T and dP = dO V^T (2 FLOPs
+    each) have two bf16 operands, exact on the bf16 tensor cores
+    (PEAK_BF16_FLOPS); P V, dS K, P^T dO and dS^T Q have a float32 operand
+    (PEAK_BF16_F32_FLOPS)."""
     pairs = sum(min(tk, r + offset) for r in range(tq))
-    ins = 4 * bh * d * (tq + 2 * tk) + (8 * bh if dropout else 0)
+    ins = width * bh * d * (tq + 2 * tk) + (8 * bh if dropout else 0)
+    per_pair, two_bf16 = {"fwd": (4, 2), "dq": (6, 4), "dkv": (8, 4), "bwd": (10, 4)}[kind]
+    unit = bh * pairs * d
+    flops = (per_pair * unit if width == 4 else
+             ((two_bf16 * unit, PEAK_BF16_FLOPS), ((per_pair - two_bf16) * unit, PEAK_BF16_F32_FLOPS)))
     if kind == "fwd":
-        return 4 * bh * pairs * d, ins + 4 * bh * tq * (d + 1)
+        return flops, ins + width * bh * tq * d + 4 * bh * tq
     if kind == "bwd":
-        return (10 * bh * pairs * d,
-                ins + 4 * bh * tq * (2 * d + 1) + 4 * bh * d * (tq + 2 * tk))
-    ins += 4 * bh * tq * (d + 2)
+        return flops, ins + width * bh * tq * 2 * d + 4 * bh * tq + width * bh * d * (tq + 2 * tk)
+    ins += width * bh * tq * d + 8 * bh * tq
     if kind == "dq":
-        return 6 * bh * pairs * d, ins + 4 * bh * tq * d
-    return 8 * bh * pairs * d, ins + 8 * bh * tk * d
+        return flops, ins + width * bh * tq * d
+    return flops, ins + 2 * width * bh * tk * d
 
 
 def k8_work(key_mask, heads, L, d):
@@ -1292,33 +1350,68 @@ def ragged_key_mask(rng, B, L, dev):
     return torch.from_numpy(mask).to(dev)
 
 
-def check_flash(dev, rng, t, record, failures,
+def check_flash(dev, rng, t, record, failures, dtype=torch.float32,
                 k5_shapes=(("self", 4096, 50, 50), ("cross", 4096, 50, 32), ("long", 16, 2048, 2048)),
-                k8_shapes=((1, 8), (1, 512), (4096, 32))):
+                k8_shapes=((1, 8), (1, 512), (4096, 32)), odd=()):
     """K5f, K5dq and K5dkv at the MOSEI stack widths (8 heads of 25): self
     at B=4096 T=50 (offset 1), cross at B=4096 Tq=50 Tk=32 (offset 19, text
     keys under audio queries), long at B=16 T=2048 (causal); each without
     dropout and at rate 0.1, the kernel and the plain version given the same
-    seeds.  The backward reads the kernel forward's out and lse and is held
-    against autograd through the plain version, then rerun for identical
-    bits; at self and cross also K5b, the fused backward that
-    FlashAttention.backward runs at T <= 64, timed beside the pair it
-    replaces (K5dq + K5dkv + the delta op) and SDPA's backward.  K8 at the BERT's shapes (12 heads of 64): B=1 at L=8 and 512, all
-    keys masked (the serving path's mask swap, rewritten to all ones), and
-    B=4096 at L=32 with ragged masks and one all-zero row.  Yardstick:
-    scaled_dot_product_attention with the same boolean mask and scale 1,
-    forward, and its autograd backward for dq + dk + dv together."""
+    seeds.  The backward reads the kernel forward's out and lse (delta
+    summed in float32 from that out) and is held against
+    ``flash_attention_bwd_plain``; at self and cross also K5b, the fused
+    backward that FlashAttention.backward runs at T <= 64, timed beside the
+    pair it replaces (K5dq + K5dkv + the delta op) and SDPA's backward.
+    Every kernel is rerun for identical bits.  K8 at the BERT's shapes (12
+    heads of 64): B=1 at L=8 and 512, all keys masked (the serving path's
+    mask swap, rewritten to all ones), and B=4096 at L=32 with ragged masks
+    and one all-zero row.  Yardstick: scaled_dot_product_attention with the
+    same boolean mask and scale 1, forward, and its autograd backward for
+    dq + dk + dv together, the backend it picked named.
+
+    ``dtype=torch.bfloat16``: the bf16 instances (rows ``<kid>.bf16``, held
+    to FLASH_BF16_TOL of max |ref|) on bf16 operands, each output also held
+    against the float32 kernel on the same bf16-valued operands (cosine
+    FLASH_BF16_COS) and lse within FLASH_BF16_LSE_TOL of max |ref| of the
+    plain version's and the float32 kernel's; ``odd`` shapes (B, Tq, Tk)
+    untimed (bf16 rows of D = 25 on 2-byte boundaries)."""
     import torch.nn.functional as F
 
     from multimodal_transformer_robustness_tpu_torch.ops import attention_cuda as ac
 
+    bf16 = dtype == torch.bfloat16
+    width, sfx = (2, ".bf16") if bf16 else (4, "")
+
+    def hold(kid, shape, outs, refs, again, timing, f32s=None, extra=None):
+        """Record ``outs`` against ``refs``, check the rerun's bits and, at
+        bf16, the cosine against the float32 kernel's ``f32s``."""
+        same = all(torch.equal(a, b) for a, b in zip(outs, again))
+        extra = {"rerun_bit_identical": same, **(extra or {})}
+        cos = 1.0
+        if bf16:
+            cos = min(cosine(o.float(), f.float()) for o, f in zip(outs, f32s))
+            extra.update(cos_vs_float32=cos, share_differing=max(
+                float((o != r).float().mean()) for o, r in zip(outs, refs)))
+        record(kid + sfx, shape, tuple(o.float() for o in outs), tuple(r.float() for r in refs),
+               timing.get("kernel_fn"), timing.get("plain_fn"), work=timing.get("work"),
+               library_fn=timing.get("library_fn"), iters=5, extra=extra)
+        print(f"  {kid}{sfx} {shape}: rerun bit-identical {same}" + (
+            f", cosine vs the float32 kernel {cos:.7f} (min {FLASH_BF16_COS}), "
+            f"{extra['share_differing']:.2%} of elements differ from the plain version"
+            if bf16 else ""), flush=True)
+        if not same or cos < FLASH_BF16_COS:
+            failures.append(f"{kid}{sfx} {shape}: rerun bit-identical {same}, cosine {cos}")
+
     heads, d = 8, 25
-    for name, B, tq, tk in k5_shapes:
+    shapes = ([(name, B, tq, tk, True) for name, B, tq, tk in k5_shapes]
+              + [("odd", B, tq, tk, False) for B, tq, tk in odd])
+    for name, B, tq, tk, timed in shapes:
         offset = 1 + abs(tk - tq)
         bh = B * heads
-        q = t(rng.standard_normal((B, heads, tq, d)) / np.sqrt(d))   # pre-scaled
-        k, v = (t(rng.standard_normal((B, heads, tk, d))) for _ in range(2))
-        dout = t(rng.standard_normal((B, heads, tq, d)))
+        q = t(rng.standard_normal((B, heads, tq, d)) / np.sqrt(d)).to(dtype)   # pre-scaled
+        k, v = (t(rng.standard_normal((B, heads, tk, d))).to(dtype) for _ in range(2))
+        dout = t(rng.standard_normal((B, heads, tq, d))).to(dtype)
+        q32, k32, v32, dout32 = (a.float() for a in (q, k, v, dout))
         visible = (torch.arange(tk, device=dev)[None, :]
                    - torch.arange(tq, device=dev)[:, None]) < offset
         for rate in (0.0, 0.1):
@@ -1331,72 +1424,84 @@ def check_flash(dev, rng, t, record, failures,
             plain_args = (q, k, v, True, offset, seeds, rates)
             out, lse = ac.flash_fwd(*fwd_args)
             torch.cuda.synchronize()
-            same = all(torch.equal(a, b) for a, b in zip((out, lse), ac.flash_fwd(*fwd_args)))
-            print(f"  K5f {shape}: rerun bit-identical {same}", flush=True)
-            if not same:
-                failures.append(f"K5f {shape} not deterministic")
+            again = ac.flash_fwd(*fwd_args)
             ref, ref_lse = ac.flash_attention_plain(*plain_args)
-            record("K5f", shape, torch.cat([out.flatten(), lse.flatten()]),
-                   torch.cat([ref.flatten(), ref_lse.flatten()]),
-                   lambda: ac.flash_fwd(*fwd_args), lambda: ac.flash_attention_plain(*plain_args),
-                   work=flash_work("fwd", bh, tq, tk, d, offset, bool(rate)),
-                   library_fn=lambda: F.scaled_dot_product_attention(
-                       q, k, v, attn_mask=visible, dropout_p=rate, scale=1.0), iters=5)
-            del ref, ref_lse
+            backend = sdpa_backend(q, k, v, visible, rate) if timed else None
+            timing = dict(
+                kernel_fn=lambda: ac.flash_fwd(*fwd_args),
+                plain_fn=lambda: ac.flash_attention_plain(*plain_args),
+                work=flash_work("fwd", bh, tq, tk, d, offset, bool(rate), width),
+                library_fn=lambda: F.scaled_dot_product_attention(
+                    q, k, v, attn_mask=visible, dropout_p=rate, scale=1.0)) if timed else {}
+            if bf16:
+                f32, f32_lse = ac.flash_fwd(q32, k32, v32, seeds, rates, True, offset)
+                lse_err = max(errors(lse, r)[1] for r in (ref_lse, f32_lse))
+                hold("K5f", shape, (out,), (ref,), again[:1], timing, (f32,),
+                     extra={"lse_err_over_max_ref": lse_err, "sdpa_backend": backend})
+                print(f"  K5f.bf16 {shape}: lse {lse_err:.3e} of max|ref| from the plain "
+                      f"version's and the float32 kernel's (tol {FLASH_BF16_LSE_TOL:g}); "
+                      f"lse rerun bit-identical {torch.equal(lse, again[1])}", flush=True)
+                if not lse_err <= FLASH_BF16_LSE_TOL or not torch.equal(lse, again[1]):
+                    failures.append(f"K5f.bf16 {shape}: lse {lse_err}")
+                del f32, f32_lse
+            else:
+                hold("K5f", shape, (torch.cat([out.flatten(), lse.flatten()]),),
+                     (torch.cat([ref.flatten(), ref_lse.flatten()]),),
+                     (torch.cat([a.flatten() for a in again]),), timing,
+                     extra={"sdpa_backend": backend})
+            del again, ref, ref_lse
 
-            delta = (dout * out).sum(-1).reshape(bh, tq)
+            delta = ac._delta(dout, out)
             bwd_args = (q, k, v, dout, lse, delta, seeds, rates, True, offset)
+            bwd32 = (q32, k32, v32, dout32) + bwd_args[4:]
             dq = ac.flash_bwd_dq(*bwd_args)
             dk, dv = ac.flash_bwd_dkv(*bwd_args)
             torch.cuda.synchronize()
             rdq, rdk, rdv = ac.flash_attention_bwd_plain(q, k, v, dout, *plain_args[3:])
-            same = (torch.equal(dq, ac.flash_bwd_dq(*bwd_args))
-                    and all(torch.equal(a, b) for a, b in zip((dk, dv),
-                                                              ac.flash_bwd_dkv(*bwd_args))))
-            print(f"  K5dq / K5dkv {shape}: rerun bit-identical {same}", flush=True)
-            if not same:
-                failures.append(f"K5 backward {shape} not deterministic")
-            qg, kg, vg = (a.detach().requires_grad_(True) for a in (q, k, v))
-            y = F.scaled_dot_product_attention(qg, kg, vg, attn_mask=visible, dropout_p=rate,
-                                               scale=1.0)
 
-            def library(y=y, leaves=(qg, kg, vg)):
-                return torch.autograd.grad(y, leaves, dout, retain_graph=True)
+            def sdpa_bwd(rate=rate, dout=dout, visible=visible):
+                leaves = [a.detach().requires_grad_(True) for a in (q, k, v)]
+                y = F.scaled_dot_product_attention(*leaves, attn_mask=visible, dropout_p=rate,
+                                                   scale=1.0)
+                return lambda: torch.autograd.grad(y, leaves, dout, retain_graph=True)
 
-            def plain_bwd():
-                return ac.flash_attention_bwd_plain(q, k, v, dout, *plain_args[3:])
+            library = sdpa_bwd() if timed else None
+            def plain_bwd(args=(q, k, v, dout) + plain_args[3:]):
+                return ac.flash_attention_bwd_plain(*args)
 
-            record("K5dq", shape, dq, rdq, lambda: ac.flash_bwd_dq(*bwd_args), plain_bwd,
-                   work=flash_work("dq", bh, tq, tk, d, offset, bool(rate)), library_fn=library,
-                   iters=5)
-            record("K5dkv", shape, (dk, dv), (rdk, rdv), lambda: ac.flash_bwd_dkv(*bwd_args),
-                   plain_bwd, work=flash_work("dkv", bh, tq, tk, d, offset, bool(rate)),
-                   library_fn=library, iters=5)
+            def bwd_timing(kind, kernel_fn):
+                return dict(kernel_fn=kernel_fn, plain_fn=plain_bwd, library_fn=library,
+                            work=flash_work(kind, bh, tq, tk, d, offset, bool(rate), width)
+                            ) if timed else {}
+
+            f32s = (ac.flash_bwd_dq(*bwd32),) + ac.flash_bwd_dkv(*bwd32) if bf16 else (None,) * 3
+            named = {"sdpa_backend": backend}
+            hold("K5dq", shape, (dq,), (rdq,), (ac.flash_bwd_dq(*bwd_args),),
+                 bwd_timing("dq", lambda: ac.flash_bwd_dq(*bwd_args)), f32s[:1], named)
+            hold("K5dkv", shape, (dk, dv), (rdk, rdv), ac.flash_bwd_dkv(*bwd_args),
+                 bwd_timing("dkv", lambda: ac.flash_bwd_dkv(*bwd_args)), f32s[1:], named)
             if max(tq, tk) <= 64:
                 # K5b: what FlashAttention.backward runs here, delta inside,
                 # beside the pair it replaces (with the delta op)
                 fused_args = (q, k, v, dout, out, lse, seeds, rates, True, offset)
                 got = ac.flash_bwd(*fused_args)
-                torch.cuda.synchronize()
-                same = all(torch.equal(a, b) for a, b in zip(got, ac.flash_bwd(*fused_args)))
-                print(f"  K5b {shape}: rerun bit-identical {same}", flush=True)
-                if not same:
-                    failures.append(f"K5b {shape} not deterministic")
+                f32s = (ac.flash_bwd(q32, k32, v32, dout32, out.float(), *fused_args[5:])
+                        if bf16 else None)
 
-                def pair(args=bwd_args, out=out, bh=bh, tq=tq):
-                    delta = (dout * out).sum(-1).reshape(bh, tq)
-                    a = args[:5] + (delta,) + args[6:]
+                def pair(args=bwd_args, out=out):
+                    a = args[:5] + (ac._delta(dout, out),) + args[6:]
                     return ac.flash_bwd_dq(*a), ac.flash_bwd_dkv(*a)
 
-                pair_ms = cuda_ms(pair, 5)
-                record("K5b", shape, got, (rdq, rdk, rdv), lambda: ac.flash_bwd(*fused_args),
-                       plain_bwd, work=flash_work("bwd", bh, tq, tk, d, offset, bool(rate)),
-                       library_fn=library, iters=5, extra={"pair_with_delta_ms": pair_ms})
-                print(f"  K5b {shape}: the pair it replaces, K5dq + K5dkv + the delta op, "
-                      f"{pair_ms:.4f} ms", flush=True)
+                pair_ms = cuda_ms(pair, 5) if timed else None
+                hold("K5b", shape, got, (rdq, rdk, rdv), ac.flash_bwd(*fused_args),
+                     bwd_timing("bwd", lambda: ac.flash_bwd(*fused_args)), f32s,
+                     {**named, "pair_with_delta_ms": pair_ms})
+                if timed:
+                    print(f"  K5b{sfx} {shape}: the pair it replaces, K5dq + K5dkv + the delta "
+                          f"op, {pair_ms:.4f} ms", flush=True)
                 del got
-            del out, lse, delta, dq, dk, dv, rdq, rdk, rdv, qg, kg, vg, y
-        del q, k, v, dout
+            del out, lse, delta, dq, dk, dv, rdq, rdk, rdv, f32s, library
+        del q, k, v, dout, q32, k32, v32, dout32
         torch.cuda.empty_cache()
 
     heads, d = 12, 64
@@ -1416,6 +1521,18 @@ def check_flash(dev, rng, t, record, failures,
                    q, k, v, attn_mask=eff[:, None, None, :] > 0, scale=1.0),
                iters=5 if B == 4096 else 20)
         del q, k, v, out, ref
+
+
+def sdpa_backend(q, k, v, mask, rate) -> str:
+    """The backend scaled_dot_product_attention picks for these operands
+    (its own dispatcher's choice), by name."""
+    from torch.nn.attention import SDPBackend
+
+    try:
+        return SDPBackend(torch._fused_sdp_choice(q, k, v, mask, rate, False,
+                                                  scale=1.0)).name
+    except (AttributeError, RuntimeError, TypeError, ValueError) as e:
+        return f"unknown ({type(e).__name__})"
 
 
 def check_k1b(dev, rng, t, failures):
@@ -1668,9 +1785,9 @@ class Bf16Count:
 
 def counters():
     """The launch counters: every kernel's, then the bf16 instances' of K1f,
-    K1b, K2, K3, K4, K6a, K6b and the int8 projections (``K1.bf16`` ...
-    ``qdot.bf16``), which count within K1 ... qdot: a phase where they equal
-    K1 ... qdot launched no float32 instance."""
+    K1b, K2, K3, K4, K6a, K6b, the int8 projections and the flash kernels
+    (``K1.bf16`` ... ``K5dkv.bf16``), which count within K1 ... K5dkv: a
+    phase where they equal K1 ... K5dkv launched no float32 instance."""
     from multimodal_transformer_robustness_tpu_torch.ops import attention_cuda as ac
     from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bert_ffn_cuda
     from multimodal_transformer_robustness_tpu_torch.ops import bigru_cuda, gru_cuda
@@ -1694,7 +1811,10 @@ def counters():
             "K6a.bf16": Bf16Count(bert_attn_cuda.dense_attention_blockdiag),
             "K6b.bf16": Bf16Count(bert_ffn_cuda.proj_ln_block),
             "qrows.bf16": Bf16Count(bert_ffn_cuda.qrows),
-            "qdot.bf16": Bf16Count(bert_ffn_cuda.qdot)}
+            "qdot.bf16": Bf16Count(bert_ffn_cuda.qdot),
+            "K5f.bf16": Bf16Count(ac.flash_fwd), "K5b.bf16": Bf16Count(ac.flash_bwd),
+            "K5dq.bf16": Bf16Count(ac.flash_bwd_dq),
+            "K5dkv.bf16": Bf16Count(ac.flash_bwd_dkv)}
 
 
 def expect(**counts):
@@ -2200,6 +2320,59 @@ def train_bf16_card_vs_cpu(dev, spec, bert_cfg, B=8, T=50, L=32):
     return dict(loss_rel=loss_err, grad_cos=cos, pred_rel=pred_err, metric=(m_card, m_cpu))
 
 
+def train_bf16_flash(dev, spec, bert_cfg, B=4096, T=50, L=32):
+    """One Trainer step (``Trainer.train_step``: forward, loss, backward,
+    the clip, Adam) at the training shapes under ``spec`` (bf16) with
+    ``attn_impl="flash"``, the batch stored on the card in bf16: K1 12 /
+    K1b 12 / K2 4 / K3 4, all bf16, and no K5 launch (every trunk stack is
+    T==1); then the same step under ``attn_impl="xla"`` (train-bf16's spec)
+    from the same weights, batch and generator seed: the loss and every
+    gradient (as the step leaves them, clipped) bit-identical."""
+    from multimodal_transformer_robustness_tpu_torch import build_masks, full_active_config
+    from multimodal_transformer_robustness_tpu_torch.data import DeviceBatchIterator
+    from multimodal_transformer_robustness_tpu_torch.models import init_supernet
+    from multimodal_transformer_robustness_tpu_torch.train import TrainHParams, Trainer
+    from multimodal_transformer_robustness_tpu_torch.train.loop import tree_leaves
+
+    batch = synthetic_batch(np.random.default_rng(0), B, T, L, bert_cfg.vocab_size,
+                            spec.orig_dimensions[1:])
+    hp = TrainHParams(batch_size=B, lr=1e-4, optim="Adam", criterion="L1Loss",
+                      experiment_type="random_sample", modality_pool=POOL)
+    res = {}
+    for impl in ("flash", "xla"):
+        s = dataclasses.replace(spec, attn_impl=impl)
+        params, frozen = init_supernet(torch.Generator().manual_seed(0), s, bert_cfg)
+        trainer = Trainer(s, params, frozen, hp, bert_cfg=bert_cfg, device=dev)
+        del params, frozen
+        db = next(iter(DeviceBatchIterator(split_of(batch), B, store_dtype="bfloat16",
+                                           device=trainer.device)))
+        masks = build_masks(s, full_active_config(s), device=trainer.device)
+        valid = torch.as_tensor(db.valid, dtype=torch.float32, device=trainer.device)
+        torch.cuda.synchronize()
+        reset_counters()
+        t0 = time.perf_counter()
+        _, _, loss = trainer.train_step(trainer.params, trainer.opt_state, masks,
+                                        list(db.inputs), db.labels, valid, trainer.generator)
+        torch.cuda.synchronize()
+        res[impl] = (read_counters(), loss.item(), 1e3 * (time.perf_counter() - t0),
+                     [None if a.grad is None else a.grad.clone()
+                      for a in tree_leaves(trainer.params)])
+        del trainer, db
+        torch.cuda.empty_cache()
+    (launches, loss, ms, grads), (_, ref_loss, _, ref_grads) = res["flash"], res["xla"]
+    expected = expect_bf16(K1=12, K1b=12, K2=4, K3=4)
+    same = len(grads) == len(ref_grads) and all(
+        (a is None and b is None) or (a is not None and b is not None and torch.equal(a, b))
+        for a, b in zip(grads, ref_grads))
+    print(f"train-bf16-flash B={B} T={T} L={L}: one step in {ms:.1f} ms (host clock, the "
+          f"first step), loss {loss!r}, attn_impl='xla' {ref_loss!r}; loss and {len(grads)} "
+          f"gradients bit-identical {loss == ref_loss and same}; launches {launches} "
+          f"expected {expected}", flush=True)
+    if launches != expected or loss != ref_loss or not same or not np.isfinite(loss):
+        raise RuntimeError("train-bf16-flash: launch counts, or the step differs from xla's")
+    return launches
+
+
 def bert_int8_full(dev, bert_cfg, B=8, L=32, dtype=torch.float32, label="bert-int8-full"):
     """One frozen-BERT forward with every projection int8
     (``quantize_bert_params(attn=True)``), card vs CPU.  Per layer: one row
@@ -2298,8 +2471,45 @@ def cached_vs_online(dev, spec, bert_cfg, B=8, T=50, L=32):
     return worst
 
 
+def leaf_names(tree, prefix=""):
+    """The names of a parameter tree's leaves, in ``tree_leaves`` order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items() for n in leaf_names(v, f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree) for n in leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def qkv_apart(names, grads):
+    """``(names, grads)`` with each attention's stacked q / k / v projection
+    (``in_proj_w`` [3, H, Dh, E], ``in_proj_b`` [3, H, Dh]) split into its
+    three parts, so that what dq and dk feed is held apart from dv's.  The
+    k bias is left out: a softmax row does not change when q . b_k is added
+    to each of its scores, so its gradient is 0 but for rounding."""
+    out = []
+    for n, g in zip(names, grads):
+        if n.endswith(("in_proj_w", "in_proj_b")):
+            out += [(f"{n}[{c}]", part) for c, part in zip("qkv", g.unbind(0))
+                    if not (c == "k" and n.endswith("in_proj_b"))]
+        else:
+            out.append((n, g))
+    return [n for n, _ in out], [g for _, g in out]
+
+
+def worst_leaf(cosines):
+    """(the lowest of the per-leaf gradient cosines, its leaf index)."""
+    i = min(range(len(cosines)), key=cosines.__getitem__)
+    return cosines[i], i
+
+
 def flash_stack(dev, spec, B=4096, long=(16, 2048), iters=3):
-    """The flash path at full width: ``encoder_forward(attn_impl="flash")``
+    """The flash path at full width (under ``spec.compute_dtype``: at bf16
+    the parameters, masks and inputs cast as ``compute_cast`` casts them,
+    the float32 masters taking the gradients, every K5 launch a bf16
+    instance, card vs CPU within BF16_PRED_TOL of each output's max |ref|
+    and every float32 gradient leaf to a cosine of BF16_COS, the xla
+    stack's figures on the same card and CPU beside them, labels
+    ``flash-stack-bf16-*``): ``encoder_forward(attn_impl="flash")``
     over the MOSEI cross stack (``layers_cross_attn`` layers, Tq=50 Tk=32)
     and a mems0 self stack (``layers_single_attn``, T=50), E=200, 8x25
     heads, FFN 800, the future-mask rule, in train mode at B=4096 with
@@ -2311,23 +2521,27 @@ def flash_stack(dev, spec, B=4096, long=(16, 2048), iters=3):
     against the CPU at B=8 on the same weights, dropout off (the kernels'
     dropout path at rate 0), in eval and in train mode.  Last, a small T=96
     stack (:func:`flash_stack_long`) for the backward's other path."""
-    from multimodal_transformer_robustness_tpu_torch.models.mult import to_device
+    from multimodal_transformer_robustness_tpu_torch.models.mult import cast_tree, to_device
     from multimodal_transformer_robustness_tpu_torch.ops.encoder import (
         EncoderHParams, EncoderMasks, encoder_forward, init_encoder)
     from multimodal_transformer_robustness_tpu_torch.train.loop import tree_leaves
 
     E, H, Dh = spec.dimension, spec.num_heads, spec.head_dim
+    bf16 = spec.compute_dtype == "bfloat16"
+    dt, tag = (torch.bfloat16, "flash-stack-bf16") if bf16 else (torch.float32, "flash-stack")
+    count, tol = (expect_bf16, BF16_PRED_TOL) if bf16 else (expect, 1e-4)
     rng = np.random.default_rng(11)
     launches, stats = {}, {}
 
     def inputs(b, tq, tk, device):
-        """x, kv and the loss's fixed cotangent ct: the loss is mean(y * ct)
-        (the final LayerNorm would make mean(y**2) a constant)."""
+        """x, kv (in the compute dtype) and the loss's fixed float32
+        cotangent ct: the loss is mean(y * ct) (the final LayerNorm would
+        make mean(y**2) a constant)."""
         x, ct = (torch.from_numpy(rng.standard_normal((b, tq, E), dtype=np.float32)).to(device)
                  for _ in range(2))
         kv = (torch.from_numpy(rng.standard_normal((b, tk, E), dtype=np.float32)).to(device)
               if tk else None)
-        return x, kv, ct
+        return x.to(dt), None if kv is None else kv.to(dt), ct
 
     for name, layers, tq, tk in (("cross", spec.layers_cross_attn, 50, 32),
                                  ("self", spec.layers_single_attn, 50, None)):
@@ -2341,7 +2555,8 @@ def flash_stack(dev, spec, B=4096, long=(16, 2048), iters=3):
         def on(device):
             p = to_device(params, device)
             leaves = [a.requires_grad_(True) for a in tree_leaves(p)]
-            m = EncoderMasks(*(torch.ones(n, device=device) for n in (layers, H, Dh, 4 * H * Dh)))
+            m = EncoderMasks(*(torch.ones(n, device=device, dtype=dt)
+                               for n in (layers, H, Dh, 4 * H * Dh)))
             return p, leaves, m
 
         p, leaves, m = on(dev)
@@ -2349,17 +2564,17 @@ def flash_stack(dev, spec, B=4096, long=(16, 2048), iters=3):
         gen = torch.Generator(device=dev).manual_seed(0)
 
         def step(h, rate=spec.attn_dropout[0]):
-            y = encoder_forward(p, x, kv, hp=h, masks=m, attn_rate=rate, train=True,
-                                generator=gen)
-            loss = (y * ct).mean()
+            y = encoder_forward(cast_tree(p, dt), x, kv, hp=h, masks=m, attn_rate=rate,
+                                train=True, generator=gen)
+            loss = (y.float() * ct).mean()
             return loss.detach(), torch.autograd.grad(loss, leaves)
 
-        label = f"flash-stack-{name}"
+        label = f"{tag}-{name}"
         reset_counters()
         loss, grads = step(hp)
         torch.cuda.synchronize()
         got = read_counters()
-        expected = expect(K5f=layers, K5b=layers)
+        expected = count(K5f=layers, K5b=layers)
         finite = bool(torch.isfinite(loss)) and all(bool(torch.isfinite(g).all()) for g in grads)
         print(f"{label} B={B} Tq={tq} Tk={tk or tq} layers={layers}: loss {loss.item():.6f}, "
               f"{len(grads)} gradients finite {finite}; launches {got} expected {expected}",
@@ -2373,41 +2588,76 @@ def flash_stack(dev, spec, B=4096, long=(16, 2048), iters=3):
         del x, kv, ct
         xl, kvl, _ = inputs(long[0], long[1], long[1] if tk else None, dev)
         with torch.inference_mode():
+            pc = cast_tree(p, dt)
             ms["long_eval_flash_ms"] = cuda_ms(
-                lambda: encoder_forward(p, xl, kvl, hp=hp, masks=m), iters, 1)
+                lambda: encoder_forward(pc, xl, kvl, hp=hp, masks=m), iters, 1)
             ms["long_eval_xla_ms"] = cuda_ms(
-                lambda: encoder_forward(p, xl, kvl, hp=hp_xla, masks=m), iters, 1)
+                lambda: encoder_forward(pc, xl, kvl, hp=hp_xla, masks=m), iters, 1)
+            del pc
         del xl, kvl, p, leaves
         torch.cuda.empty_cache()
 
         # card against CPU, B=8, every dropout off
         hp0 = dataclasses.replace(hp, relu_dropout=0.0, res_dropout=0.0, embed_dropout=0.0)
         xs, kvs, cts = inputs(8, tq, tk, "cpu")
-        res = {}
-        for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
-            pd, lv, md = on(device)
-            xd, kd = xs.to(device), None if kvs is None else kvs.to(device)
-            with torch.inference_mode():
-                y_eval = encoder_forward(pd, xd, kd, hp=hp0, masks=md)
-            y = encoder_forward(pd, xd, kd, hp=hp0, masks=md, attn_rate=0.0, train=True,
-                                generator=torch.Generator(device=device).manual_seed(0))
-            g = torch.autograd.grad((y * cts.to(device)).mean(), lv)
-            res[key] = [y_eval.cpu(), y.detach().cpu()] + [a.cpu() for a in g]
-        card, cpu = res["card"], res["cpu"]
-        eval_err, train_err = errors(card[0], cpu[0])[0], errors(card[1], cpu[1])[0]
-        grad_err = max(errors(a, b)[1] for a, b in zip(card[2:], cpu[2:]))
-        ok = max(eval_err, train_err, grad_err) <= 1e-4
-        ms.update(card_vs_cpu_eval_abs=eval_err, card_vs_cpu_train_abs=train_err,
-                  card_vs_cpu_grad_rel=grad_err)
+
+        def card_and_cpu(h):
+            res = {}
+            for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
+                pd, lv, md = on(device)
+                xd, kd = xs.to(device), None if kvs is None else kvs.to(device)
+                with torch.inference_mode():
+                    y_eval = encoder_forward(cast_tree(pd, dt), xd, kd, hp=h, masks=md)
+                y = encoder_forward(cast_tree(pd, dt), xd, kd, hp=h, masks=md, attn_rate=0.0,
+                                    train=True,
+                                    generator=torch.Generator(device=device).manual_seed(0))
+                g = torch.autograd.grad((y.float() * cts.to(device)).mean(), lv)
+                res[key] = [y_eval.float().cpu(), y.detach().float().cpu()] + [a.cpu() for a in g]
+            card, cpu = res["card"], res["cpu"]
+            _, g_card = qkv_apart(names, card[2:])
+            _, g_cpu = qkv_apart(names, cpu[2:])
+            # float32: the outputs absolute (order 1); bf16: each relative to
+            # max |ref|; the gradients leaf by leaf (q, k, v apart), error
+            # and cosine
+            return ([errors(card[i], cpu[i])[int(bf16)] for i in (0, 1)],
+                    [errors(a, b)[1] for a, b in zip(g_card, g_cpu)],
+                    [cosine(a, b) for a, b in zip(g_card, g_cpu)])
+
+        names = qkv_apart(leaf_names(params), tree_leaves(params))[0]
+        (eval_err, train_err), leaf_errs, leaf_cos = card_and_cpu(hp0)
+        grad_err = max(leaf_errs)
+        kind = "of max|ref|" if bf16 else "max_abs"
+        ms.update({f"card_vs_cpu_eval_{'rel' if bf16 else 'abs'}": eval_err,
+                   f"card_vs_cpu_train_{'rel' if bf16 else 'abs'}": train_err,
+                   "card_vs_cpu_grad_rel": grad_err})
+        if bf16:
+            # each float32 gradient leaf's cosine (bf16 flips from sums in
+            # another order compound through the layers), the xla stack on
+            # the same card and CPU beside it
+            (x_eval, x_train), x_errs, x_cos = card_and_cpu(
+                dataclasses.replace(hp0, attn_impl="xla"))
+            (cos, leaf), (x_min, x_leaf) = worst_leaf(leaf_cos), worst_leaf(x_cos)
+            ok = max(eval_err, train_err) <= tol and cos >= BF16_COS
+            ms.update(card_vs_cpu_grad_min_leaf_cos=cos, xla_card_vs_cpu_eval_rel=x_eval,
+                      xla_card_vs_cpu_train_rel=x_train, xla_card_vs_cpu_grad_rel=max(x_errs),
+                      xla_card_vs_cpu_grad_min_leaf_cos=x_min)
+            held = (f"eval {kind} {eval_err:.3e}, train {kind} {train_err:.3e} (tol {tol:g}), "
+                    f"every gradient leaf's cosine >= {cos:.7f} (min {BF16_COS}; "
+                    f"{names[leaf]}), worst leaf {grad_err:.3e} of its max|ref|; the xla stack: "
+                    f"outputs {x_eval:.3e} / {x_train:.3e}, leaf cosines >= {x_min:.7f} "
+                    f"({names[x_leaf]}), worst leaf {max(x_errs):.3e}")
+        else:
+            ok = max(eval_err, train_err, grad_err) <= tol
+            held = (f"eval {kind} {eval_err:.3e}, train {kind} {train_err:.3e}, gradients "
+                    f"{grad_err:.3e} of max|ref| (tol {tol:g})")
         print(f"{label}: fwd+bwd ms flash {ms['fwd_bwd_flash_ms']:.3f} xla "
               f"{ms['fwd_bwd_xla_ms']:.3f}; eval B={long[0]} T={long[1]} ms flash "
               f"{ms['long_eval_flash_ms']:.3f} xla {ms['long_eval_xla_ms']:.3f}; card vs CPU at "
-              f"B=8: eval max_abs {eval_err:.3e}, train max_abs {train_err:.3e}, gradients "
-              f"{grad_err:.3e} of max|ref| (tol 1e-4) {'ok' if ok else 'FAIL'}", flush=True)
+              f"B=8: {held} {'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
             raise RuntimeError(f"{label}: card and CPU disagree")
         stats[label] = ms
-    launches["flash-stack-long"], stats["flash-stack-long"] = flash_stack_long(dev, spec)
+    launches[f"{tag}-long"], stats[f"{tag}-long"] = flash_stack_long(dev, spec)
     return launches, stats
 
 
@@ -2416,66 +2666,108 @@ def flash_stack_long(dev, spec, B=8, T=96):
     (``layers_single_attn`` layers, MOSEI widths) at T=96 > 64 in train
     mode, every dropout 0, the gradient of a scalar loss: K5f, K5dq and
     K5dkv once per layer (and no K5b); output and every gradient on the card
-    against the CPU (1e-4)."""
-    from multimodal_transformer_robustness_tpu_torch.models.mult import to_device
+    against the CPU (1e-4; under a bf16 ``spec`` the bf16 instances, the
+    stack cast as :func:`flash_stack` casts it, the output within
+    BF16_PRED_TOL of max |ref|, every gradient leaf to a cosine of
+    BF16_COS, the xla stack's figures beside them)."""
+    from multimodal_transformer_robustness_tpu_torch.models.mult import cast_tree, to_device
     from multimodal_transformer_robustness_tpu_torch.ops.encoder import (
         EncoderHParams, EncoderMasks, encoder_forward, init_encoder)
     from multimodal_transformer_robustness_tpu_torch.train.loop import tree_leaves
 
     E, H, Dh, layers = spec.dimension, spec.num_heads, spec.head_dim, spec.layers_single_attn
+    bf16 = spec.compute_dtype == "bfloat16"
+    dt, label = (torch.bfloat16, "flash-stack-bf16-long") if bf16 else (torch.float32,
+                                                                        "flash-stack-long")
     hp = EncoderHParams(embed_dim_in=E, num_heads=H, head_dim=Dh, layers=layers,
                         attn_mask=True, attn_impl="flash")
     params = init_encoder(torch.Generator().manual_seed(0), hp)
     rng = np.random.default_rng(12)
     x, ct = (torch.from_numpy(rng.standard_normal((B, T, E), dtype=np.float32))
              for _ in range(2))
-    res = {}
-    for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
-        p = to_device(params, device)
-        leaves = [a.requires_grad_(True) for a in tree_leaves(p)]
-        m = EncoderMasks(*(torch.ones(n, device=device) for n in (layers, H, Dh, 4 * H * Dh)))
-        reset_counters()
-        y = encoder_forward(p, x.to(device), None, hp=hp, masks=m, attn_rate=0.0, train=True,
-                            generator=torch.Generator(device=device).manual_seed(0))
-        g = torch.autograd.grad((y * ct.to(device)).mean(), leaves)
-        if key == "card":
-            torch.cuda.synchronize()
-            got = read_counters()
-        res[key] = [y.detach().cpu()] + [a.cpu() for a in g]
-    expected = expect(K5f=layers, K5dq=layers, K5dkv=layers)
-    out_err = errors(res["card"][0], res["cpu"][0])[0]
-    grad_err = max(errors(a, b)[1] for a, b in zip(res["card"][1:], res["cpu"][1:]))
-    ok = got == expected and max(out_err, grad_err) <= 1e-4
-    print(f"flash-stack-long B={B} T={T} layers={layers}, train, dropout 0: launches {got} "
-          f"expected {expected}; card vs CPU max_abs {out_err:.3e}, gradients {grad_err:.3e} "
-          f"of max|ref| (tol 1e-4) {'ok' if ok else 'FAIL'}", flush=True)
+
+    def card_and_cpu(h):
+        """(launches on the card, output error, per-leaf gradient errors and
+        cosines), card against CPU."""
+        res = {}
+        for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            p = to_device(params, device)
+            leaves = [a.requires_grad_(True) for a in tree_leaves(p)]
+            m = EncoderMasks(*(torch.ones(n, device=device, dtype=dt)
+                               for n in (layers, H, Dh, 4 * H * Dh)))
+            reset_counters()
+            y = encoder_forward(cast_tree(p, dt), x.to(device, dt), None, hp=h, masks=m,
+                                attn_rate=0.0, train=True,
+                                generator=torch.Generator(device=device).manual_seed(0))
+            g = torch.autograd.grad((y.float() * ct.to(device)).mean(), leaves)
+            if key == "card":
+                torch.cuda.synchronize()
+                got = read_counters()
+            res[key] = [y.detach().float().cpu()] + [a.cpu() for a in g]
+        card, cpu = res["card"], res["cpu"]
+        _, g_card = qkv_apart(names, card[1:])
+        _, g_cpu = qkv_apart(names, cpu[1:])
+        return (got, errors(card[0], cpu[0])[int(bf16)],
+                [errors(a, b)[1] for a, b in zip(g_card, g_cpu)],
+                [cosine(a, b) for a, b in zip(g_card, g_cpu)])
+
+    names = qkv_apart(leaf_names(params), tree_leaves(params))[0]
+
+    got, out_err, leaf_errs, leaf_cos = card_and_cpu(hp)
+    expected = (expect_bf16 if bf16 else expect)(K5f=layers, K5dq=layers, K5dkv=layers)
+    grad_err = max(leaf_errs)
+    stats = {f"card_vs_cpu_train_{'rel' if bf16 else 'abs'}": out_err,
+             "card_vs_cpu_grad_rel": grad_err}
+    if bf16:   # every gradient leaf's cosine, the xla stack's beside, as flash_stack
+        _, x_out, x_errs, x_cos = card_and_cpu(dataclasses.replace(hp, attn_impl="xla"))
+        (cos, leaf), (x_min, x_leaf) = worst_leaf(leaf_cos), worst_leaf(x_cos)
+        stats.update(card_vs_cpu_grad_min_leaf_cos=cos, xla_card_vs_cpu_train_rel=x_out,
+                     xla_card_vs_cpu_grad_rel=max(x_errs), xla_card_vs_cpu_grad_min_leaf_cos=x_min)
+        ok = got == expected and out_err <= BF16_PRED_TOL and cos >= BF16_COS
+        held = (f"of max|ref| {out_err:.3e} (tol {BF16_PRED_TOL:g}), every gradient leaf's "
+                f"cosine >= {cos:.7f} (min {BF16_COS}; {names[leaf]}), worst leaf "
+                f"{grad_err:.3e} of its max|ref|; the xla stack: output {x_out:.3e}, leaf "
+                f"cosines >= {x_min:.7f} ({names[x_leaf]}), worst leaf {max(x_errs):.3e}")
+    else:
+        ok = got == expected and max(out_err, grad_err) <= 1e-4
+        held = f"max_abs {out_err:.3e}, gradients {grad_err:.3e} of max|ref| (tol 1e-4)"
+    print(f"{label} B={B} T={T} layers={layers}, train, dropout 0: launches {got} "
+          f"expected {expected}; card vs CPU {held} {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
-        raise RuntimeError("flash-stack-long: launch counts, or card and CPU disagree")
-    return got, {"card_vs_cpu_train_abs": out_err, "card_vs_cpu_grad_rel": grad_err}
+        raise RuntimeError(f"{label}: launch counts, or card and CPU disagree")
+    return got, stats
 
 
-def serving_flash(dev, n=2):
+def serving_flash(dev, n=2, spec=None, label="serving-flash"):
     """StreamingPredictor(attn_impl="flash") at the MOSEI serving
-    configuration: every trunk stack is T==1, so the flash option takes the
-    T==1 rule and launches no K5f; K1 12, K2 4, K3 4 per request, and the
-    same predictions, bit for bit, as attn_impl="xla" on the same weights;
-    then warm ms a request."""
+    configuration (``spec``: that configuration under another compute
+    dtype, its ``attn_impl`` set instead): every trunk stack is T==1, so the
+    flash option takes the T==1 rule and launches no K5f; K1 12, K2 4, K3 4
+    per request (under bf16 every one a bf16 instance), and the same
+    predictions, bit for bit, as attn_impl="xla" on the same weights; then
+    warm ms a request."""
     from multimodal_transformer_robustness_tpu_torch.cli.realtime import StreamingPredictor
 
-    preds = {impl: StreamingPredictor(seed=0, device=dev, attn_impl=impl)
-             for impl in ("flash", "xla")}
+    def build(impl):
+        if spec is None:
+            return StreamingPredictor(seed=0, device=dev, attn_impl=impl)
+        return StreamingPredictor(seed=0, device=dev,
+                                  spec=dataclasses.replace(spec, attn_impl=impl))
+
+    preds = {impl: build(impl) for impl in ("flash", "xla")}
     requests = synthetic_requests(preds["flash"], n)
     reset_counters()
     got = [preds["flash"].forward(*r) for r in requests]
     launches = read_counters()
-    expected = expect(K1=12 * n, K2=4 * n, K3=4 * n)
+    count = expect_bf16 if preds["flash"].spec.compute_dtype == "bfloat16" else expect
+    expected = count(K1=12 * n, K2=4 * n, K3=4 * n)
     ref = [preds["xla"].forward(*r) for r in requests]
-    print(f"serving-flash: {n} requests, sentiments {got}; attn_impl='xla' {ref} "
+    print(f"{label}: {n} requests, sentiments {got}; attn_impl='xla' {ref} "
           f"(bit-identical {got == ref}); launches {launches} expected {expected}", flush=True)
     if launches != expected or got != ref or not all(np.isfinite(got)):
-        raise RuntimeError("serving-flash: launch counts or predictions differ")
+        raise RuntimeError(f"{label}: launch counts or predictions differ")
     warm_ms = [1000 * _timed(lambda r=r: preds["flash"].forward(*r)) for r in requests]
-    print(f"serving-flash warm request ms, kernels {warm_ms}", flush=True)
+    print(f"{label} warm request ms, kernels {warm_ms}", flush=True)
     return launches
 
 
@@ -2982,6 +3274,7 @@ def sweep_phase(dev, spec, bert_cfg, n_eval=64, eval_bs=16, chunk=64):
 # the flash-stack phase's shapes: the mems0 self stack and the cross stack
 FLASH_MAIN = "self B=4096 H=8 Tq=50 Tk=50 D=25 offset=1 rate=0.1"
 FLASH_CROSS = "cross B=4096 H=8 Tq=50 Tk=32 D=25 offset=19 rate=0.1"
+FLASH_LONG = "long B=16 H=8 Tq=2048 Tk=2048 D=25 offset=1 rate=0.0"
 # the gru-recurrence phase's shape (and the serving-length one), the
 # trunk-block phase's widest block (and its narrowest)
 K7_MAIN, K7_SERVE = "G=2 T=50 N=4096 H=100", "G=2 T=64 N=1 H=100"
@@ -3056,11 +3349,13 @@ def kernel_entries(rows, launches):
 
 
 def bf16_kernel_entries(rows, launches):
-    """The bf16 instances of K1f, K1b, K2, K3, K4, K6a and K6b: worst error
-    over their checked shapes (each held to BF16_TOL of max |ref|), their
-    cosine against the float32 kernel, and the times at the training path's
-    shape (K1b: in=768 without dx, the most frequent; every shape in
-    ``by_shape``); launches from the bf16 phases' counters."""
+    """The bf16 instances of K1f, K1b, K2, K3, K4, K6a, K6b, K5f, K5b, K5dq
+    and K5dkv: worst error over their checked shapes (each held to BF16_TOL,
+    the flash kernels to FLASH_BF16_TOL, of max |ref|), their cosine against
+    the float32 kernel, and the times at the training path's shape (K1b:
+    in=768 without dx, the most frequent; K5dq / K5dkv: B=16 T=2048; every
+    shape in ``by_shape``, SDPA's backend beside the flash rows); launches
+    from the bf16 phases' counters."""
     bf16_gemm = "csrc/gemm_bf16.cuh"
     meta = {
         "K1f.bf16": ("gru_dir", "K1.bf16", ("csrc/bigru.cu", bf16_gemm),
@@ -3077,6 +3372,14 @@ def bf16_kernel_entries(rows, launches):
                      "ops/bert_attn_pallas.py:114", "B=4096 L=32 h=768"),
         "K6b.bf16": ("proj_ln_block", "K6b.bf16", ("csrc/bert_ffn.cu", bf16_gemm),
                      "ops/bert_ffn_pallas.py:183", "B=4096 L=32 h=768"),
+        "K5f.bf16": ("flash_fwd", "K5f.bf16", ("csrc/flash_attn.cu",),
+                     "ops/attention_pallas.py:197", FLASH_MAIN),
+        "K5b.bf16": ("flash_bwd", "K5b.bf16", ("csrc/flash_attn.cu",),
+                     "ops/attention_pallas_bwd.py:178", FLASH_MAIN),
+        "K5dq.bf16": ("flash_bwd_dq", "K5dq.bf16", ("csrc/flash_attn.cu",),
+                      "ops/attention_pallas_bwd.py:77", FLASH_LONG),
+        "K5dkv.bf16": ("flash_bwd_dkv", "K5dkv.bf16", ("csrc/flash_attn.cu",),
+                       "ops/attention_pallas_bwd.py:120", FLASH_LONG),
     }
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
@@ -3094,6 +3397,8 @@ def bf16_kernel_entries(rows, launches):
                         **{k: at[k] for k in timed}, "shape": shape,
                         "launches_by_path": {p: l[counter] for p, l in launches.items()},
                         "by_shape": {r["shape"]: {k: r.get(k) for k in timed} for r in mine}})
+        if "sdpa_backend" in at:   # the flash rows: SDPA's pick at D = 25
+            kernels[-1]["library_backend"] = at["sdpa_backend"]
     return kernels
 
 
@@ -3250,6 +3555,18 @@ def main() -> int:
     full16_launches = bert_int8_full(dev, bert_cfg, dtype=torch.bfloat16,
                                      label="bert-int8-full-bf16")
 
+    phase("flash-stack-bf16")
+    flash16_launches, flash16_stats = flash_stack(dev, spec16)
+    torch.cuda.empty_cache()
+
+    phase("train-bf16-flash")
+    train16_flash_launches = train_bf16_flash(dev, spec16, bert_cfg)
+    torch.cuda.empty_cache()
+
+    phase("serving-bf16-flash")
+    s16_flash_launches = serving_flash(dev, spec=spec16, label="serving-bf16-flash")
+    torch.cuda.empty_cache()
+
     phase("sweep")
     sweep_launches, sweep_stats = sweep_phase(dev, spec, bert_cfg)
 
@@ -3262,7 +3579,9 @@ def main() -> int:
                 "fit": fit_launches, "sweep": sweep_launches, "train-bf16": bf16_launches,
                 "train-bf16-cached": bf16_cached_launches, "train-bf16-int8": bf16_int8_launches,
                 "serving-bf16": s16_launches, "serving-bf16-int8": s16_int8_launches,
-                "serving-bf16-dense": s16_dense_launches, "bert-int8-full-bf16": full16_launches}
+                "serving-bf16-dense": s16_dense_launches, "bert-int8-full-bf16": full16_launches,
+                **flash16_launches, "train-bf16-flash": train16_flash_launches,
+                "serving-bf16-flash": s16_flash_launches}
     kernels = kernel_entries(rows, launches) + bf16_kernel_entries(rows, launches)
     print(f"serving warm request ms, kernels {warm_ms}, plain {plain_ms}", flush=True)
     print(f"serving-int8 warm request ms, kernels {int8_warm}, plain {int8_plain}", flush=True)
@@ -3276,6 +3595,7 @@ def main() -> int:
     print("train-int8 " + json.dumps(int8_train_stats), flush=True)
     print("train-cached " + json.dumps(cached_stats), flush=True)
     print("flash-stack " + json.dumps(flash_stats), flush=True)
+    print("flash-stack-bf16 " + json.dumps(flash16_stats), flush=True)
     print("gru-recurrence " + json.dumps(rec_stats), flush=True)
     print("trunk-block " + json.dumps(block_stats), flush=True)
     print("fit " + json.dumps(fit_stats), flush=True)

@@ -26,7 +26,7 @@ _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("bigru.cu", "bigru_bwd.cu", "bert_attn.cu", "bert_ffn.cu", "bert_ffn_q.cu",
-           "flash_attn.cu", "gru_recurrence.cu", "trunk_block.cu")
+           "flash_attn.cu", "flash_attn_bf16.cu", "gru_recurrence.cu", "trunk_block.cu")
 # The launch bounds of K5b and of K5f's unit path, blocks an SM:
 # csrc/flash_attn.cu reads them as macros, and ops/attention_cuda.
 # _plan_flash_bwd / _plan_flash_fwd size their persistent grids by them.
@@ -72,6 +72,10 @@ _SIGNATURES = {
     "mmtr_flash_bwd_dq": (_I, [_P] * 9 + [_I] * 7 + [_P, _P]),
     "mmtr_flash_bwd_dkv": (_I, [_P] * 10 + [_I] * 7 + [_P, _P]),
     "mmtr_flash_bwd": (_I, [_P] * 11 + [_I] * 7 + [_P, _P]),
+    "mmtr_flash_fwd_bf16": (_I, [_P] * 7 + [_I] * 7 + [_P, _P]),
+    "mmtr_flash_bwd_dq_bf16": (_I, [_P] * 9 + [_I] * 7 + [_P, _P]),
+    "mmtr_flash_bwd_dkv_bf16": (_I, [_P] * 10 + [_I] * 7 + [_P, _P]),
+    "mmtr_flash_bwd_bf16": (_I, [_P] * 11 + [_I] * 7 + [_P, _P]),
     "mmtr_gru_rec_fwd": (_I, [_P] * 10 + [_I] * 4 + [_P, _P]),
     "mmtr_gru_rec_bwd": (_I, [_P] * 12 + [_I] * 4 + [_P, _P]),
     "mmtr_trunk_block_fwd": (_I, [_P] * 15 + [_I] * 9 + [_F] * 3 + [_P, _P]),
@@ -165,8 +169,8 @@ def host_ints(values) -> tuple:
     return arr, ctypes.addressof(arr)
 
 
-BF16_TODO = ("has no bf16 instance yet (only K1f, K1b, K2, K3, K4, K6a and K6b have "
-             "one): ROADMAP Queue 2, 'bf16'")
+BF16_TODO = ("has no bf16 instance yet (only K1f, K1b, K2, K3, K4, K5f, K5b, K5dq, K5dkv, "
+             "K6a and K6b have one): ROADMAP Queue 2, 'bf16'")
 
 
 def refuse_bf16(what: str, *tensors) -> None:
@@ -182,7 +186,7 @@ def require(t: torch.Tensor, name: str, shape: tuple, device: torch.device,
     """Raise on what the kernels do not take: they read contiguous tensors
     of one dtype (float32 unless the caller names another: the int8
     weights and codes of K4, or bfloat16 for the bf16 instances of K1f,
-    K1b, K2, K3, K4, K6a and K6b) on one card, of exactly the given shape.  A bfloat16
+    K1b, K2, K3, K4, K5f, K5b, K5dq, K5dkv, K6a and K6b) on one card, of exactly the given shape.  A bfloat16
     tensor where the kernel takes float32 raises NotImplementedError."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")

@@ -21,6 +21,20 @@
 // with offset >= 1 guarantees).  K8, the key-padding forward, runs
 // bert_attn.cu's kernels.
 //
+// bf16 instances (the kernels are templates on the storage type T, the
+// last template argument): q, k, v, dO, O and the outputs bf16, lse and
+// delta float32, everything between float32, as the JAX kernels compute at
+// bf16 operands: the products at HIGHEST precision, p kept in float32
+// through P V, out, dq, dk and dv each rounded to nearest even once, at
+// the store, and K5b's delta summed in float32 from the stored bf16 O.  A
+// bf16 row of D = 25 starts on any 2-byte boundary, which cp.async cannot
+// copy from, so the bf16 operands come through registers into the same
+// float32 staging (stage_rows4's bf16 form: done when it returns, with no
+// slice or tile in flight behind the compute); every plan and carve-up is
+// the float32 one.  A bf16 value is exact in TF32, so its lo plane is zero
+// and the 3xTF32 products of two bf16 operands are exact (their correction
+// MMAs add zeros: a later saving).
+//
 // Dropout: the keep bit of weight (row, col) is murmur3 fmix32 of
 // seed ^ row*0x9E3779B1 ^ col*0x85EBCA77 (uint32 arithmetic), top 24 bits
 // times 2^-24, kept where u >= rate, in global positions, so the forward
@@ -42,8 +56,8 @@
 //
 // Every kernel here runs its products on the tensor cores in 3xTF32
 // (mma.sync m16n8k8 from gemm_tc.cuh, operands split into TF32 hi + lo:
-// float32 accuracy); their operands arrive by 4-byte cp.async (a [T][25]
-// slice starts only 4-byte aligned) into rows of ld = 4 mod 8 floats,
+// float32 accuracy); their float32 operands arrive by 4-byte cp.async (a
+// [T][25] slice starts only 4-byte aligned) into rows of ld = 4 mod 8 floats,
 // zero-filled past D and past the slice, so the fragment loads are free of
 // bank conflicts.  A score tile's C fragments feed the value product
 // without a trip through shared memory: the product's k index is permuted
@@ -102,6 +116,34 @@ __device__ __forceinline__ float keep_factor(int use_dropout, uint32_t seed, flo
                                              float keep_scale, int row, int col) {
   if (!use_dropout) return 1.f;
   return hash_uniform(seed, row, col) >= rate ? keep_scale : 0.f;
+}
+
+// Rows [0, n) of a row-major [., D] bf16 source into dst[r * ld + c] as
+// float32 (exact), zero past column D (to dp) and in rows n .. fill-1: the
+// bf16 instances' staging.  A bf16 row may start on any 2-byte boundary,
+// which cp.async cannot copy from, so the rows come through registers, R
+// rows a lane in flight at once: the block's warps over rows, lanes over
+// columns.  The copies are done when it returns (the cp.async groups the
+// callers commit stay empty), so a slot or ring stage is filled before the
+// barrier that hands it on, as the float32 forms' waits guarantee.
+__device__ __forceinline__ void stage_rows4(float* dst, const bf16* src, int n, int fill,
+                                            int D, int dp, int ld) {
+  constexpr int R = 8;
+  const int nw = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  for (int c = lane; c < dp; c += 32) {
+    const bool col_ok = c < D;
+    for (int r0 = warp; r0 < fill; r0 += R * nw) {
+      float x[R];
+#pragma unroll
+      for (int i = 0; i < R; ++i) {
+        const int r = r0 + i * nw;
+        x[i] = col_ok && r < n ? bf2f(src[(long long)r * D + c]) : 0.f;
+      }
+#pragma unroll
+      for (int i = 0; i < R; ++i)
+        if (r0 + i * nw < fill) dst[(r0 + i * nw) * ld + c] = x[i];
+    }
+  }
 }
 
 // K5b: the whole backward of one (b*h) slice in one pass, for Tq, Tk <= 64,
@@ -172,9 +214,15 @@ __device__ __forceinline__ void fb_stage_rows(float* dst, const float* src, int 
   }
 }
 
-__device__ __forceinline__ void fb_stage_slice(float* buf, const float* Q, const float* K,
-                                               const float* V, const float* dO,
-                                               const float* O, const float* LSE,
+// The bf16 instance's form (stage_rows4's).
+__device__ __forceinline__ void fb_stage_rows(float* dst, const bf16* src, int n, int fill,
+                                              const FbDims& d) {
+  stage_rows4(dst, src, n, fill, d.D, 4 * d.dp4, d.ld);
+}
+
+template <typename T>
+__device__ __forceinline__ void fb_stage_slice(float* buf, const T* Q, const T* K, const T* V,
+                                               const T* dO, const T* O, const float* LSE,
                                                const int* seeds, const float* rates, int u,
                                                const FbDims& d) {
   float* qs = buf;
@@ -303,9 +351,10 @@ __device__ __forceinline__ void fb_scores(const float* qs, const float* dos, con
 // the second only if n0 + 8 < 4*dp4) = sum over k in [k_lo, k_hi) (steps
 // of 8) of A(m, k) B(k, n), A(m, k) = a[m * asr + k * asc], B(k, n) =
 // b[k * ld + n]; written to dst[m * D + n] for m < m_end, n < D.
+template <typename T>
 __device__ __forceinline__ void fb_product(const float* a, int asr, int asc, const float* b,
                                            int ld, int m0, int n0, int k_lo, int k_hi,
-                                           bool two, float* dst, int m_end, int D) {
+                                           bool two, T* dst, int m_end, int D) {
   // the three TF32 products of each tile in chains of their own (the MMA's
   // latency, not its rate, would bound one chain), added at the end
   float c[2][4], ca[2][4], cb[2][4];
@@ -338,17 +387,18 @@ __device__ __forceinline__ void fb_product(const float* a, int asr, int asc, con
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int m = m0 + g + (e < 2 ? 0 : 8), n = n0 + 8 * j + 2 * t + (e & 1);
-      if (m < m_end && n < D && (j == 0 || two)) dst[(long long)m * D + n] = c[j][e];
+      if (m < m_end && n < D && (j == 0 || two)) st_f(dst + (long long)m * D + n, c[j][e]);
     }
   }
 }
 
+template <typename T>
 __global__ void __launch_bounds__(FB_THREADS, FB_BLOCKS_PER_SM)
-flash_bwd_fused_kernel(const float* __restrict__ Q, const float* __restrict__ K,
-                       const float* __restrict__ V, const float* __restrict__ dO,
-                       const float* __restrict__ O, const float* __restrict__ LSE,
+flash_bwd_fused_kernel(const T* __restrict__ Q, const T* __restrict__ K,
+                       const T* __restrict__ V, const T* __restrict__ dO,
+                       const T* __restrict__ O, const float* __restrict__ LSE,
                        const int* __restrict__ seeds, const float* __restrict__ rates,
-                       float* __restrict__ dQ, float* __restrict__ dK, float* __restrict__ dV,
+                       T* __restrict__ dQ, T* __restrict__ dK, T* __restrict__ dV,
                        int units, FbDims d) {
   extern __shared__ float4 fb_smem4[];
   float* smem = reinterpret_cast<float*>(fb_smem4);
@@ -407,11 +457,12 @@ flash_bwd_fused_kernel(const float* __restrict__ Q, const float* __restrict__ K,
 // ints: path (0: K5b; anything else is refused here), blocks (the
 // persistent grid), smem bytes, then dp4, ld, qp8, kp8, mq, mk, nk, ldp,
 // ng1 as FbDims names them.
-cudaError_t launch_fused_bwd(const float* q, const float* k, const float* v,
-                             const float* dout, const float* out, const float* lse,
-                             const int* seeds, const float* rates, float* dq, float* dk,
-                             float* dv, int BH, int Tq, int Tk, int D, int causal, int offset,
-                             int use_dropout, const int* plan, cudaStream_t stream) {
+template <typename T>
+cudaError_t launch_fused_bwd(const T* q, const T* k, const T* v, const T* dout, const T* out,
+                             const float* lse, const int* seeds, const float* rates, T* dq,
+                             T* dk, T* dv, int BH, int Tq, int Tk, int D, int causal,
+                             int offset, int use_dropout, const int* plan,
+                             cudaStream_t stream) {
   const int path = plan[0], blocks = plan[1], smem = plan[2];
   const FbDims d{Tq, Tk, D, plan[3], plan[4], plan[5], plan[6], plan[7], plan[8], plan[9],
                  plan[10], plan[11], causal, offset, use_dropout,
@@ -419,9 +470,9 @@ cudaError_t launch_fused_bwd(const float* q, const float* k, const float* v,
   if (path != 0 || Tq > 64 || Tk > 64 || blocks < 1 || d.dp4 % 2 || d.ng1 < 1 || d.ng1 > 4)
     return cudaErrorInvalidValue;
   static unsigned long long set = 0;
-  const cudaError_t err = allow_smem_once((const void*)flash_bwd_fused_kernel, &set);
+  const cudaError_t err = allow_smem_once((const void*)flash_bwd_fused_kernel<T>, &set);
   if (err != cudaSuccess) return err;
-  flash_bwd_fused_kernel<<<blocks, FB_THREADS, smem, stream>>>(
+  flash_bwd_fused_kernel<T><<<blocks, FB_THREADS, smem, stream>>>(
       q, k, v, dout, out, lse, seeds, rates, dq, dk, dv, BH, d);
   return cudaGetLastError();
 }
@@ -517,13 +568,14 @@ __device__ __forceinline__ void stage_rows4(float* dst, const float* src, int n,
   }
 }
 
-// Rows [0, n) of src [.][ld], columns < D, to a row-major [., D] dst: the
-// block's warps over rows, lanes over columns (one coalesced store a row).
-__device__ __forceinline__ void store_rows(float* dst, const float* src, int n, int D,
-                                           int ld) {
+// Rows [0, n) of src [.][ld], columns < D, to a row-major [., D] dst (each
+// value rounded once where dst is bf16): the block's warps over rows,
+// lanes over columns (one coalesced store a row).
+template <typename T>
+__device__ __forceinline__ void store_rows(T* dst, const float* src, int n, int D, int ld) {
   const int nw = blockDim.x / 32, warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   for (int r = warp; r < n; r += nw)
-    for (int c = lane; c < D; c += 32) dst[(long long)r * D + c] = src[r * ld + c];
+    for (int c = lane; c < D; c += 32) st_f(dst + (long long)r * D + c, src[r * ld + c]);
 }
 
 // C fragments (rows m0 + g and + 8, all 8 DT columns) into rows m0.. of
@@ -541,9 +593,10 @@ __device__ __forceinline__ void put_rows(float* dst, int ld, int m0, const float
 
 // out / l of C fragments (rows row0 + g and + 8, inv_a and inv_b their
 // 1 / l) to the slice's rows of a row-major [Tq, D] out, rows < Tq and
-// columns < D only: 4-byte stores straight from the registers.
-template <int DT>
-__device__ __forceinline__ void store_out(float* out, int row0, const FlashDims& d,
+// columns < D only: stores straight from the registers (each value rounded
+// once where out is bf16).
+template <int DT, typename T>
+__device__ __forceinline__ void store_out(T* out, int row0, const FlashDims& d,
                                           const float (&o)[DT][4], float inv_a, float inv_b) {
   const int g = (threadIdx.x % 32) >> 2, t = threadIdx.x & 3;
   const int ra = row0 + g, rb = ra + 8;
@@ -552,7 +605,8 @@ __device__ __forceinline__ void store_out(float* out, int row0, const FlashDims&
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const int r = e < 2 ? ra : rb, c = 8 * n + 2 * t + (e & 1);
-      if (r < d.Tq && c < d.D) out[(long long)r * d.D + c] = o[n][e] * (e < 2 ? inv_a : inv_b);
+      if (r < d.Tq && c < d.D)
+        st_f(out + (long long)r * d.D + c, o[n][e] * (e < 2 ? inv_a : inv_b));
     }
 }
 
@@ -662,9 +716,9 @@ __device__ __forceinline__ void value_product(float (&o)[DT][4], float (&oc)[DT]
 // tiles (the causal rule masks pairs; every warp does the same work, so the
 // block's barrier waits for none).  Every key is in the tile, so max and
 // sum are taken in one pass.  Writes out / l and lse.
-template <int DT, int NKT>
+template <int DT, int NKT, typename T>
 __device__ __forceinline__ void fwd_unit_rows(const float* qs, const float* ks, const float* vs,
-                                              float* out, float* lse_row, int m0,
+                                              T* out, float* lse_row, int m0,
                                               const FlashDims& d, uint32_t seed, float rate,
                                               float keep_scale) {
   const int g = (threadIdx.x % 32) >> 2, t = threadIdx.x & 3;
@@ -698,9 +752,9 @@ __device__ __forceinline__ void fwd_unit_rows(const float* qs, const float* ks, 
 
 // One slice's q, k, v (and seed, rate) into a slot of path 0: q [qp][ld],
 // k and v [kp][ld], then seed and rate.
-__device__ __forceinline__ void fwd_stage_slice(float* qs, const float* Q, const float* K,
-                                                const float* V, const int* seeds,
-                                                const float* rates, int u,
+template <typename T>
+__device__ __forceinline__ void fwd_stage_slice(float* qs, const T* Q, const T* K, const T* V,
+                                                const int* seeds, const float* rates, int u,
                                                 const FlashDims& d) {
   float* ks = qs + d.qp * d.ld;
   float* vs = ks + d.kp * d.ld;
@@ -722,11 +776,11 @@ __device__ __forceinline__ void fwd_stage_slice(float* qs, const float* Q, const
 // instances the registers.
 constexpr int FU_THREADS = 128;
 
-template <int DT, int NKT>
+template <int DT, int NKT, typename T>
 __global__ void __launch_bounds__(FU_THREADS, DT <= 4 ? FU_BLOCKS_PER_SM : 16 / DT)
-flash_fwd_unit_kernel(const float* __restrict__ Q, const float* __restrict__ K,
-                      const float* __restrict__ V, const int* __restrict__ seeds,
-                      const float* __restrict__ rates, float* __restrict__ O,
+flash_fwd_unit_kernel(const T* __restrict__ Q, const T* __restrict__ K,
+                      const T* __restrict__ V, const int* __restrict__ seeds,
+                      const float* __restrict__ rates, T* __restrict__ O,
                       float* __restrict__ LSE, int units, FlashDims d) {
   extern __shared__ float4 fu_smem4[];
   float* smem = reinterpret_cast<float*>(fu_smem4);
@@ -750,14 +804,15 @@ flash_fwd_unit_kernel(const float* __restrict__ Q, const float* __restrict__ K,
     const float rate = d.use_dropout ? sr[1] : 0.f;
     const float keep_scale = d.use_dropout ? 1.0f / (1.0f - rate) : 1.f;
     // every warp computes: rows past Tq read zeros and store nothing
-    fwd_unit_rows<DT, NKT>(qs, ks, vs, O + (long long)u * d.Tq * d.D,
+    fwd_unit_rows<DT, NKT, T>(qs, ks, vs, O + (long long)u * d.Tq * d.D,
                            LSE + (long long)u * d.Tq, m0, d, seed, rate, keep_scale);
   }
 }
 
 // 64 rows of k and of v from row t0 (zero past Tk) into a ring stage [2][64][ld].
-__device__ __forceinline__ void fwd_stage_kv(float* ks, const float* K, const float* V,
-                                             int t0, const FlashDims& d) {
+template <typename T>
+__device__ __forceinline__ void fwd_stage_kv(float* ks, const T* K, const T* V, int t0,
+                                             const FlashDims& d) {
   const int n = min(FK_TILE, d.Tk - t0);
   const long long o = (long long)t0 * d.D;
   stage_rows4(ks, K + o, n, FK_TILE, d.D, 8 * d.dt, d.ld);
@@ -800,11 +855,11 @@ __device__ __forceinline__ void fwd_key_tile(QFrag aq, const float* ks, const fl
 // warps, 64-key tiles through a ring of FK_STAGES; online softmax.  The
 // warp's q rows are split once and stay in shared memory as a hi and a lo
 // plane.
-template <int DT>
+template <int DT, typename T>
 __global__ void __launch_bounds__(256)
-flash_fwd_tiled_kernel(const float* __restrict__ Q, const float* __restrict__ K,
-                       const float* __restrict__ V, const int* __restrict__ seeds,
-                       const float* __restrict__ rates, float* __restrict__ O,
+flash_fwd_tiled_kernel(const T* __restrict__ Q, const T* __restrict__ K,
+                       const T* __restrict__ V, const int* __restrict__ seeds,
+                       const float* __restrict__ rates, T* __restrict__ O,
                        float* __restrict__ LSE, int BH, FlashDims d) {
   extern __shared__ float4 ft_smem4[];
   float* smem = reinterpret_cast<float*>(ft_smem4);
@@ -897,9 +952,9 @@ constexpr int DKV_PROMOTE = 0;
 
 // 64 query rows of q and dO, lse and delta from row t0 (zero past Tq) into
 // a ring stage: q, dO [64][ld], lse [64], delta [64].
-__device__ __forceinline__ void dkv_stage_q(float* qs, const float* Q, const float* dO,
-                                            const float* lse, const float* delta, int t0,
-                                            const FlashDims& d) {
+template <typename T>
+__device__ __forceinline__ void dkv_stage_q(float* qs, const T* Q, const T* dO, const float* lse,
+                                            const float* delta, int t0, const FlashDims& d) {
   const int n = min(FK_TILE, d.Tq - t0);
   const long long o = (long long)t0 * d.D;
   float* ls = qs + 2 * FK_TILE * d.ld;
@@ -987,13 +1042,13 @@ __device__ __forceinline__ void dkv_half(KVFrag akv, const float* qs, const floa
   }
 }
 
-template <int DT>
+template <int DT, typename T>
 __global__ void __launch_bounds__(FD_THREADS)
-flash_bwd_dkv_kernel(const float* __restrict__ Q, const float* __restrict__ K,
-                     const float* __restrict__ V, const float* __restrict__ dO,
+flash_bwd_dkv_kernel(const T* __restrict__ Q, const T* __restrict__ K,
+                     const T* __restrict__ V, const T* __restrict__ dO,
                      const float* __restrict__ LSE, const float* __restrict__ DELTA,
                      const int* __restrict__ seeds, const float* __restrict__ rates,
-                     float* __restrict__ dK, float* __restrict__ dV, int BH, FlashDims d) {
+                     T* __restrict__ dK, T* __restrict__ dV, int BH, FlashDims d) {
   extern __shared__ float4 fd_smem4[];
   float* smem = reinterpret_cast<float*>(fd_smem4);
   const int ld = d.ld, stage = 2 * FK_TILE * ld + 2 * FK_TILE;
@@ -1165,13 +1220,13 @@ __device__ __forceinline__ void dq_key_tile(QFrag aq, OFrag ao, const float* ks,
   }
 }
 
-template <int DT>
+template <int DT, typename T>
 __global__ void __launch_bounds__(128, DT <= 4 ? 3 : 1)
-flash_bwd_dq_kernel(const float* __restrict__ Q, const float* __restrict__ K,
-                    const float* __restrict__ V, const float* __restrict__ dO,
+flash_bwd_dq_kernel(const T* __restrict__ Q, const T* __restrict__ K,
+                    const T* __restrict__ V, const T* __restrict__ dO,
                     const float* __restrict__ LSE, const float* __restrict__ DELTA,
                     const int* __restrict__ seeds, const float* __restrict__ rates,
-                    float* __restrict__ dQ, int BH, FlashDims d) {
+                    T* __restrict__ dQ, int BH, FlashDims d) {
   extern __shared__ float4 fq_smem4[];
   float* smem = reinterpret_cast<float*>(fq_smem4);
   const int ld = d.ld, stage = 2 * FK_TILE * ld;
@@ -1273,25 +1328,26 @@ flash_bwd_dq_kernel(const float* __restrict__ Q, const float* __restrict__ K,
 
 // K5f's, K5dkv's and K5dq's launches.  Each kernel's dynamic shared-memory cap is
 // raised once per process (allow_smem_once); the plan's carve-up is checked
-// against the card by the launch itself.
-template <int DT, int NKT>
-cudaError_t launch_fwd_unit_nk(const float* q, const float* k, const float* v,
-                               const int* seeds, const float* rates, float* out, float* lse,
-                               int BH, const FlashDims& d, int blocks, int smem,
-                               cudaStream_t stream) {
+// against the card by the launch itself.  T, the storage type (float or
+// bf16), is deduced from the pointers.
+template <int DT, int NKT, typename T>
+cudaError_t launch_fwd_unit_nk(const T* q, const T* k, const T* v, const int* seeds,
+                               const float* rates, T* out, float* lse, int BH,
+                               const FlashDims& d, int blocks, int smem, cudaStream_t stream) {
   static unsigned long long set = 0;
-  const cudaError_t err = allow_smem_once((const void*)flash_fwd_unit_kernel<DT, NKT>, &set);
+  const cudaError_t err =
+      allow_smem_once((const void*)flash_fwd_unit_kernel<DT, NKT, T>, &set);
   if (err != cudaSuccess) return err;
-  flash_fwd_unit_kernel<DT, NKT><<<blocks, FU_THREADS, smem, stream>>>(q, k, v, seeds, rates,
-                                                                      out, lse, BH, d);
+  flash_fwd_unit_kernel<DT, NKT, T><<<blocks, FU_THREADS, smem, stream>>>(
+      q, k, v, seeds, rates, out, lse, BH, d);
   return cudaGetLastError();
 }
 
 // path 0's key tiles: NKT = kp / 8, 4 (Tk <= 32) or 8
-template <int DT>
-cudaError_t launch_fwd_unit(const float* q, const float* k, const float* v, const int* seeds,
-                            const float* rates, float* out, float* lse, int BH,
-                            const FlashDims& d, int blocks, int smem, cudaStream_t stream) {
+template <int DT, typename T>
+cudaError_t launch_fwd_unit(const T* q, const T* k, const T* v, const int* seeds,
+                            const float* rates, T* out, float* lse, int BH, const FlashDims& d,
+                            int blocks, int smem, cudaStream_t stream) {
   if (d.kp == 32)
     return launch_fwd_unit_nk<DT, 4>(q, k, v, seeds, rates, out, lse, BH, d, blocks, smem,
                                      stream);
@@ -1299,41 +1355,41 @@ cudaError_t launch_fwd_unit(const float* q, const float* k, const float* v, cons
                                    stream);
 }
 
-template <int DT>
-cudaError_t launch_fwd_tiled(const float* q, const float* k, const float* v, const int* seeds,
-                             const float* rates, float* out, float* lse, int BH,
-                             const FlashDims& d, int blocks, int smem, cudaStream_t stream) {
+template <int DT, typename T>
+cudaError_t launch_fwd_tiled(const T* q, const T* k, const T* v, const int* seeds,
+                             const float* rates, T* out, float* lse, int BH, const FlashDims& d,
+                             int blocks, int smem, cudaStream_t stream) {
   static unsigned long long set = 0;
-  const cudaError_t err = allow_smem_once((const void*)flash_fwd_tiled_kernel<DT>, &set);
+  const cudaError_t err = allow_smem_once((const void*)flash_fwd_tiled_kernel<DT, T>, &set);
   if (err != cudaSuccess) return err;
-  flash_fwd_tiled_kernel<DT><<<blocks, 2 * d.bq, smem, stream>>>(q, k, v, seeds, rates, out,
-                                                                  lse, BH, d);
+  flash_fwd_tiled_kernel<DT, T><<<blocks, 2 * d.bq, smem, stream>>>(q, k, v, seeds, rates, out,
+                                                                     lse, BH, d);
   return cudaGetLastError();
 }
 
-template <int DT>
-cudaError_t launch_dkv_tc(const float* q, const float* k, const float* v, const float* dout,
-                          const float* lse, const float* delta, const int* seeds,
-                          const float* rates, float* dk, float* dv, int BH, const FlashDims& d,
-                          int blocks, int smem, cudaStream_t stream) {
+template <int DT, typename T>
+cudaError_t launch_dkv_tc(const T* q, const T* k, const T* v, const T* dout, const float* lse,
+                          const float* delta, const int* seeds, const float* rates, T* dk, T* dv,
+                          int BH, const FlashDims& d, int blocks, int smem,
+                          cudaStream_t stream) {
   static unsigned long long set = 0;
-  const cudaError_t err = allow_smem_once((const void*)flash_bwd_dkv_kernel<DT>, &set);
+  const cudaError_t err = allow_smem_once((const void*)flash_bwd_dkv_kernel<DT, T>, &set);
   if (err != cudaSuccess) return err;
-  flash_bwd_dkv_kernel<DT><<<blocks, FD_THREADS, smem, stream>>>(
+  flash_bwd_dkv_kernel<DT, T><<<blocks, FD_THREADS, smem, stream>>>(
       q, k, v, dout, lse, delta, seeds, rates, dk, dv, BH, d);
   return cudaGetLastError();
 }
 
-template <int DT>
-cudaError_t launch_dq_tc(const float* q, const float* k, const float* v, const float* dout,
-                         const float* lse, const float* delta, const int* seeds,
-                         const float* rates, float* dq, int BH, const FlashDims& d, int blocks,
-                         int smem, cudaStream_t stream) {
+template <int DT, typename T>
+cudaError_t launch_dq_tc(const T* q, const T* k, const T* v, const T* dout, const float* lse,
+                         const float* delta, const int* seeds, const float* rates, T* dq,
+                         int BH, const FlashDims& d, int blocks, int smem,
+                         cudaStream_t stream) {
   static unsigned long long set = 0;
-  const cudaError_t err = allow_smem_once((const void*)flash_bwd_dq_kernel<DT>, &set);
+  const cudaError_t err = allow_smem_once((const void*)flash_bwd_dq_kernel<DT, T>, &set);
   if (err != cudaSuccess) return err;
-  flash_bwd_dq_kernel<DT><<<blocks, 2 * d.bq, smem, stream>>>(q, k, v, dout, lse, delta, seeds,
-                                                               rates, dq, BH, d);
+  flash_bwd_dq_kernel<DT, T><<<blocks, 2 * d.bq, smem, stream>>>(q, k, v, dout, lse, delta,
+                                                                  seeds, rates, dq, BH, d);
   return cudaGetLastError();
 }
 
@@ -1358,10 +1414,10 @@ bool widths_ok(const FlashDims& d) {
 
 // K5f from its plan, host ints: path (0: unit, 1: tiled), blocks, threads,
 // smem bytes, dt, ld, qp, kp (path 0), bq (path 1).
-cudaError_t launch_fwd(const float* q, const float* k, const float* v, const int* seeds,
-                       const float* rates, float* out, float* lse, int BH, int Tq, int Tk,
-                       int D, int causal, int offset, int use_dropout, const int* plan,
-                       cudaStream_t stream) {
+template <typename T>
+cudaError_t launch_fwd(const T* q, const T* k, const T* v, const int* seeds, const float* rates,
+                       T* out, float* lse, int BH, int Tq, int Tk, int D, int causal,
+                       int offset, int use_dropout, const int* plan, cudaStream_t stream) {
   const int path = plan[0], blocks = plan[1], threads = plan[2], smem = plan[3];
   FlashDims d{Tq, Tk, D, causal, offset, use_dropout, plan[4], plan[5], plan[6], plan[7], 0,
               plan[8]};
@@ -1381,11 +1437,11 @@ cudaError_t launch_fwd(const float* q, const float* k, const float* v, const int
 }
 
 // K5dkv from its plan, host ints: blocks, threads, smem bytes, dt, ld.
-cudaError_t launch_dkv(const float* q, const float* k, const float* v, const float* dout,
-                       const float* lse, const float* delta, const int* seeds,
-                       const float* rates, float* dk, float* dv, int BH, int Tq, int Tk, int D,
-                       int causal, int offset, int use_dropout, const int* plan,
-                       cudaStream_t stream) {
+template <typename T>
+cudaError_t launch_dkv(const T* q, const T* k, const T* v, const T* dout, const float* lse,
+                       const float* delta, const int* seeds, const float* rates, T* dk, T* dv,
+                       int BH, int Tq, int Tk, int D, int causal, int offset, int use_dropout,
+                       const int* plan, cudaStream_t stream) {
   const int blocks = plan[0], threads = plan[1], smem = plan[2];
   FlashDims d{Tq, Tk, D, causal, offset, use_dropout, plan[3], plan[4], 0, 0, 0, 0};
   if (!widths_ok(d) || BH < 1 || Tq < 1 || Tk < 1 || threads != FD_THREADS ||
@@ -1398,10 +1454,11 @@ cudaError_t launch_dkv(const float* q, const float* k, const float* v, const flo
 
 // K5dq from its plan, host ints: blocks, threads, smem bytes, dt, ld, bq,
 // stages.
-cudaError_t launch_dq(const float* q, const float* k, const float* v, const float* dout,
-                      const float* lse, const float* delta, const int* seeds, const float* rates,
-                      float* dq, int BH, int Tq, int Tk, int D, int causal, int offset,
-                      int use_dropout, const int* plan, cudaStream_t stream) {
+template <typename T>
+cudaError_t launch_dq(const T* q, const T* k, const T* v, const T* dout, const float* lse,
+                      const float* delta, const int* seeds, const float* rates, T* dq, int BH,
+                      int Tq, int Tk, int D, int causal, int offset, int use_dropout,
+                      const int* plan, cudaStream_t stream) {
   const int blocks = plan[0], threads = plan[1], smem = plan[2];
   FlashDims d{Tq, Tk, D, causal, offset, use_dropout, plan[3], plan[4], 0, 0, 0, plan[5],
               plan[6]};
@@ -1416,8 +1473,14 @@ cudaError_t launch_dq(const float* q, const float* k, const float* v, const floa
 
 }  // namespace
 
-// K5f: out [B*H, Tq, D] and lse [B*H, Tq]; plan as launch_fwd's.  Each
-// entry returns the launch's cudaError_t.
+// The entries: the float32 instances here, the bf16 ones (q, k, v, dout,
+// out and the gradients bf16; lse and delta float32 in both) where
+// flash_attn_bf16.cu includes this file with FLASH_ATTN_BF16 defined, so
+// that nvcc builds the two sets of instances as two translation units side
+// by side.  Each returns the launch's cudaError_t.
+#ifndef FLASH_ATTN_BF16
+
+// K5f: out [B*H, Tq, D] and lse [B*H, Tq]; plan as launch_fwd's.
 extern "C" int mmtr_flash_fwd(const float* q, const float* k, const float* v,
                               const int* seeds, const float* rates, float* out, float* lse,
                               int BH, int Tq, int Tk, int D, int causal, int offset,
@@ -1459,3 +1522,44 @@ extern "C" int mmtr_flash_bwd(const float* q, const float* k, const float* v,
                                D, causal, offset, use_dropout, plan,
                                (cudaStream_t)stream_ptr);
 }
+
+#else
+// The bf16 instances of the four entries above, by the same plans.
+extern "C" int mmtr_flash_fwd_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                   const int* seeds, const float* rates, bf16* out, float* lse,
+                                   int BH, int Tq, int Tk, int D, int causal, int offset,
+                                   int use_dropout, const int* plan, void* stream_ptr) {
+  return (int)launch_fwd(q, k, v, seeds, rates, out, lse, BH, Tq, Tk, D, causal, offset,
+                         use_dropout, plan, (cudaStream_t)stream_ptr);
+}
+
+extern "C" int mmtr_flash_bwd_dq_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                      const bf16* dout, const float* lse, const float* delta,
+                                      const int* seeds, const float* rates, bf16* dq, int BH,
+                                      int Tq, int Tk, int D, int causal, int offset,
+                                      int use_dropout, const int* plan, void* stream_ptr) {
+  return (int)launch_dq(q, k, v, dout, lse, delta, seeds, rates, dq, BH, Tq, Tk, D, causal,
+                        offset, use_dropout, plan, (cudaStream_t)stream_ptr);
+}
+
+extern "C" int mmtr_flash_bwd_dkv_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                       const bf16* dout, const float* lse, const float* delta,
+                                       const int* seeds, const float* rates, bf16* dk,
+                                       bf16* dv, int BH, int Tq, int Tk, int D, int causal,
+                                       int offset, int use_dropout, const int* plan,
+                                       void* stream_ptr) {
+  return (int)launch_dkv(q, k, v, dout, lse, delta, seeds, rates, dk, dv, BH, Tq, Tk, D,
+                         causal, offset, use_dropout, plan, (cudaStream_t)stream_ptr);
+}
+
+extern "C" int mmtr_flash_bwd_bf16(const bf16* q, const bf16* k, const bf16* v,
+                                   const bf16* dout, const bf16* out, const float* lse,
+                                   const int* seeds, const float* rates, bf16* dq, bf16* dk,
+                                   bf16* dv, int BH, int Tq, int Tk, int D, int causal,
+                                   int offset, int use_dropout, const int* plan,
+                                   void* stream_ptr) {
+  return (int)launch_fused_bwd(q, k, v, dout, out, lse, seeds, rates, dq, dk, dv, BH, Tq, Tk,
+                               D, causal, offset, use_dropout, plan,
+                               (cudaStream_t)stream_ptr);
+}
+#endif  // FLASH_ATTN_BF16

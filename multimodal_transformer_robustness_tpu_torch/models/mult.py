@@ -21,7 +21,7 @@ stacks (the reference's 0.1 quirk included), ``attn_dropout[-1]`` for the
 top stacks, ``out_dropout`` after ``relu(proj1)``.  ``spec.attn_impl =
 "flash"`` runs each stack's attention through the flash kernels; every
 stack is T==1 after the headers, so that takes the T==1 path, as in the JAX
-package, and computes what ``"xla"`` computes.
+package, and computes what ``"xla"`` computes, under either compute dtype.
 
 ``spec.compute_dtype = "bfloat16"`` is the JAX package's bf16 compute
 policy: :func:`compute_cast` casts, at the model's boundary, every float32
@@ -48,7 +48,6 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
-from .. import _build
 from ..config import ModelSpec
 from ..masks import SupernetMasks
 from ..ops.dropout import dropout
@@ -146,9 +145,6 @@ def _check_spec(spec: ModelSpec) -> None:
     if spec.compute_dtype not in COMPUTE_DTYPES:
         raise NotImplementedError(f"compute_dtype {spec.compute_dtype!r} is not ported "
                                   "(float32 and bfloat16 are): ROADMAP Queue 2, 'bf16'")
-    if spec.compute_dtype == "bfloat16" and spec.attn_impl == "flash":
-        raise NotImplementedError(f"attn_impl='flash' under bfloat16: the flash kernels "
-                                  f"(K5) {_build.BF16_TODO}")
 
 
 def init_supernet(gen: torch.Generator, spec: ModelSpec,

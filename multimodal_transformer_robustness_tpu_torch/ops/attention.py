@@ -15,10 +15,13 @@ drawn on the constant weights ``ones [B, H, 1, 1]`` as the JAX package
 draws it.  On the T>1 path the dropout follows the softmax.
 
 ``impl="flash"`` runs the T>1 path through the flash-attention kernels
-(``attention_cuda.flash_attention``: K5f forward, K5dq / K5dkv backward),
-with the future mask generated from its rule (``causal_offset``) instead of
-an additive bias, and, in train mode at a nonzero rate, the in-softmax
-position-hash dropout seeded per (batch, head) from the call's generator.
+(``attention_cuda.flash_attention``: K5f forward, K5b or K5dq / K5dkv
+backward), with the future mask generated from its rule (``causal_offset``)
+instead of an additive bias, and, in train mode at a nonzero rate, the
+in-softmax position-hash dropout seeded per (batch, head) from the call's
+generator.  At bf16, q is scaled in bf16, the kernels keep their softmax
+float32 and round the attention output once, and the out-projection sums
+in float32, adds its bias and rounds once, as the JAX flash branch does.
 
 bf16 activations and weights (the bf16 compute policy) round where the
 JAX package rounds: each projection (and the logits) sums in float32,

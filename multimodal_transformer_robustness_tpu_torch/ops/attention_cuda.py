@@ -23,14 +23,23 @@ on a CUDA tensor and runs its plain PyTorch version on a CPU tensor:
     itself, so a call is one launch.
 
 :func:`flash_attention` joins K5f and :func:`flash_bwd` as an autograd function,
-as the JAX package's custom VJP does.  q arrives pre-scaled; the future-mask
-rule masks ``col - row >= offset`` (the reference's ``offset = 1 + |Tk -
-Tq|``).  The in-softmax dropout keeps weight ``(row, col)`` of slice ``b*h``
-where :func:`hash_uniform` ``(seed[b*h], row, col) >= rate``: integer math,
-so it reproduces the JAX package's draws bit for bit, and the forward and
-backward kernels regenerate one mask without storing it.  The softmax
+as the JAX package's custom VJP does, on the card and on the CPU.  q arrives
+pre-scaled; the future-mask rule masks ``col - row >= offset`` (the
+reference's ``offset = 1 + |Tk - Tq|``).  The in-softmax dropout keeps
+weight ``(row, col)`` of slice ``b*h`` where :func:`hash_uniform`
+``(seed[b*h], row, col) >= rate``: integer math, so it reproduces the JAX
+package's draws bit for bit, and the forward and backward kernels
+regenerate one mask without storing it.  The softmax
 normalizer sums the raw weights; only the value product sees the dropped
 and rescaled ones (torch drops after the softmax).
+
+K5 takes bf16 q, k, v (and dout, out) as the JAX kernels do: its bf16
+instances (``mmtr_flash_*_bf16``, counted in each wrapper's
+``launches_bf16`` within ``launches``) and the plain versions upcast them,
+compute in float32 (p stays float32 through the value product) and round
+out, dq, dk and dv once to the operands' dtype; lse and delta stay float32,
+and delta is summed in float32 from the stored (rounded) out.  K8 has no
+bf16 instance yet.
 """
 
 from __future__ import annotations
@@ -100,38 +109,98 @@ def _keep_scale(seeds, rates, b, h, tq, tk, device) -> torch.Tensor:
     return torch.where(u >= rate, 1.0 / (1.0 - rate), zero)
 
 
+def _up(t: torch.Tensor) -> torch.Tensor:
+    """An operand in its compute dtype: bf16 upcast to float32 (exact), any
+    other dtype as it is."""
+    return t.float() if t.dtype == torch.bfloat16 else t
+
+
+def _hide(s: torch.Tensor, tq: int, tk: int, causal: bool, offset: int) -> torch.Tensor:
+    """``s [.., Tq, Tk]`` with the pairs the future-mask rule hides set to
+    the finite fill."""
+    if not causal:
+        return s
+    rows = torch.arange(tq, device=s.device)[:, None]
+    cols = torch.arange(tk, device=s.device)[None, :]
+    return torch.where(cols - rows < offset, s, torch.full((), NEG_INF, device=s.device))
+
+
 def flash_attention_plain(q, k, v, causal: bool = True, offset: Optional[int] = None,
                           dropout_seeds=None, dropout_rates=None):
     """Plain PyTorch version of K5f: dense logits with the same causal rule,
     finite fill, normalizer floor and hash field -> ``(out [B, H, Tq, D],
-    lse [B*H, Tq])``.  Differentiable by autograd: the gradient oracle of
-    K5b, K5dq and K5dkv."""
+    lse [B*H, Tq])``.  bf16 operands are upcast and ``out`` is rounded once
+    to q's dtype; lse stays float32.  Differentiable by autograd
+    (:func:`flash_attention_bwd_plain` takes the float32 gradient oracle
+    that way)."""
     b, h, tq, _ = q.shape
     tk = k.shape[2]
     offset = _offset(tq, tk, causal, offset)
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k)
-    if causal:
-        rows = torch.arange(tq, device=q.device)[:, None]
-        cols = torch.arange(tk, device=q.device)[None, :]
-        s = torch.where(cols - rows < offset, s, torch.full((), NEG_INF, device=q.device))
+    s = _hide(torch.einsum("bhqd,bhkd->bhqk", _up(q), _up(k)), tq, tk, causal, offset)
     m = s.amax(-1, keepdim=True).detach()     # the output does not depend on it
     p = torch.exp(s - m)
     l_safe = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
     lse = (m + torch.log(l_safe)).reshape(b * h, tq)
     if dropout_seeds is not None:
         p = p * _keep_scale(dropout_seeds, dropout_rates, b, h, tq, tk, q.device)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v) / l_safe, lse
+    return (torch.einsum("bhqk,bhkd->bhqd", p, _up(v)) / l_safe).to(q.dtype), lse
+
+
+def _delta(dout: torch.Tensor, out: torch.Tensor) -> torch.Tensor:
+    """``rowsum(dout * out)`` ``[B*H, Tq]``, multiplied and summed in float32
+    at bf16 (the JAX package's ``do.astype(f32) * out.astype(f32)``)."""
+    b, h, tq, _ = out.shape
+    return (_up(dout) * _up(out)).sum(-1).reshape(b * h, tq)
+
+
+def flash_bwd_plain(q, k, v, dout, lse, delta, causal: bool = True,
+                    offset: Optional[int] = None, dropout_seeds=None, dropout_rates=None):
+    """Plain PyTorch version of K5dq and K5dkv (and of K5b, given delta from
+    its out) -> ``(dq, dk, dv)``: the JAX kernels' formulas from the saved
+    ``lse`` and ``delta [B*H, Tq]``: p = exp(s - lse) (0 where the rule
+    hides the pair), dP = (dO V^T) M, dS = p (dP - delta), dq = dS K, dk =
+    dS^T Q, dv = (M p)^T dO; float32 throughout at bf16 operands, each
+    gradient rounded once to its operand's dtype."""
+    b, h, tq, _ = q.shape
+    tk = k.shape[2]
+    offset = _offset(tq, tk, causal, offset)
+    qf, kf, vf, gf = (_up(t) for t in (q, k, v, dout))
+    s = torch.einsum("bhqd,bhkd->bhqk", qf, kf) - lse.reshape(b, h, tq, 1).to(qf.dtype)
+    p = torch.exp(_hide(s, tq, tk, causal, offset))
+    dp = torch.einsum("bhqd,bhkd->bhqk", gf, vf)
+    pm = p
+    if dropout_seeds is not None:
+        keep = _keep_scale(dropout_seeds, dropout_rates, b, h, tq, tk, q.device)
+        dp, pm = dp * keep, p * keep
+    ds = p * (dp - delta.reshape(b, h, tq, 1).to(qf.dtype))
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, kf).to(q.dtype),
+            torch.einsum("bhqk,bhqd->bhkd", ds, qf).to(k.dtype),
+            torch.einsum("bhqk,bhqd->bhkd", pm, gf).to(v.dtype))
 
 
 def flash_attention_bwd_plain(q, k, v, dout, causal: bool = True,
                               offset: Optional[int] = None, dropout_seeds=None,
                               dropout_rates=None):
-    """Plain PyTorch version of K5dq and K5dkv: ``torch.autograd.grad``
-    through :func:`flash_attention_plain` -> ``(dq, dk, dv)``."""
+    """The backward's reference from the inputs alone -> ``(dq, dk, dv)``.
+    float32 (and wider): ``torch.autograd.grad`` through
+    :func:`flash_attention_plain`, an oracle independent of the kernels'
+    formulas.  bf16: :func:`flash_bwd_plain` from the plain forward's out and
+    lse, since autograd through the upcast forward would take delta from
+    the unrounded output, which the JAX kernels do not."""
+    if q.dtype == torch.bfloat16:
+        out, lse = flash_attention_plain(q, k, v, causal, offset, dropout_seeds, dropout_rates)
+        return flash_bwd_plain(q, k, v, dout, lse, _delta(dout, out), causal, offset,
+                               dropout_seeds, dropout_rates)
     with torch.enable_grad():
         qkv = [t.detach().requires_grad_(True) for t in (q, k, v)]
         out, _ = flash_attention_plain(*qkv, causal, offset, dropout_seeds, dropout_rates)
         return torch.autograd.grad(out, qkv, dout)
+
+
+def _storage(q: torch.Tensor) -> torch.dtype:
+    """The dtype of the kernel instance a call takes: bf16 for bf16 q, else
+    float32 (another dtype then fails the operands' check)."""
+    return torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
 
 
 def _check_qkv(q, k, v, dev):
@@ -139,10 +208,19 @@ def _check_qkv(q, k, v, dev):
     tk = k.shape[2]
     if d > _MAX_HEAD_DIM:
         raise ValueError(f"head_dim {d}: the kernels take head_dim <= {_MAX_HEAD_DIM}")
-    _build.require(q, "q", (b, h, tq, d), dev)
-    _build.require(k, "k", (b, h, tk, d), dev)
-    _build.require(v, "v", (b, h, tk, d), dev)
+    dt = _storage(q)
+    _build.require(q, "q", (b, h, tq, d), dev, dt)
+    _build.require(k, "k", (b, h, tk, d), dev, dt)
+    _build.require(v, "v", (b, h, tk, d), dev, dt)
     return b, h, tq, tk, d
+
+
+def _launch(entry: str, bf16: bool, what: str, *args) -> None:
+    """Call the library entry ``entry`` (its ``_bf16`` instance where
+    ``bf16``) and raise on the launch's error."""
+    lib = _build.load_library()
+    err = getattr(lib, entry + "_bf16" if bf16 else entry)(*args)
+    _build.check(err, what + (" (bf16)" if bf16 else ""))
 
 
 def _check_dropout(seeds, rates, bh, dev):
@@ -220,11 +298,13 @@ def flash_fwd(q, k, v, seeds=None, rates=None, causal: bool = True,
               offset: Optional[int] = None):
     """K5f: ``q [B, H, Tq, D]`` (pre-scaled), ``k``, ``v [B, H, Tk, D]``,
     optional ``seeds [B*H]`` int32 and ``rates [B*H]`` -> ``(out, lse [B*H,
-    Tq])``.  CPU tensors take :func:`flash_attention_plain`; CUDA tensors
-    launch the kernel by :func:`_plan_flash_fwd` (or raise): at Tq, Tk <= 64
-    the persistent unit path, a warp's 16 query rows against the whole
-    slice in one pass; longer, the tiled path with the online softmax over
-    64-key tiles.  Both run their products in 3xTF32 on the tensor cores."""
+    Tq])``, out in q's dtype (float32 or bf16), lse float32.  CPU tensors
+    take :func:`flash_attention_plain`; CUDA tensors launch the kernel (its
+    bf16 instance for bf16 operands) by :func:`_plan_flash_fwd` (or raise):
+    at Tq, Tk <= 64 the persistent unit path, a warp's 16 query rows
+    against the whole slice in one pass; longer, the tiled path with the
+    online softmax over 64-key tiles.  Both run their products in 3xTF32 on
+    the tensor cores."""
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal, offset, seeds, rates)
     dev = _build.device_of(q)
@@ -234,22 +314,26 @@ def flash_fwd(q, k, v, seeds=None, rates=None, causal: bool = True,
     plan = _cached_fwd_plan(b * h, tq, tk, d, _build.num_sms(dev))
     out = torch.empty_like(q)
     lse = torch.empty(b * h, tq, dtype=torch.float32, device=dev)
-    err = _build.load_library().mmtr_flash_fwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), p_seeds, p_rates, out.data_ptr(),
-        lse.data_ptr(), b * h, tq, tk, d, int(causal), offset, use_dropout, plan[1],
-        _build.stream_ptr(dev))
-    _build.check(err, "flash attention forward kernel")
+    bf = q.dtype == torch.bfloat16
+    _launch("mmtr_flash_fwd", bf, "flash attention forward kernel",
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), p_seeds, p_rates, out.data_ptr(),
+            lse.data_ptr(), b * h, tq, tk, d, int(causal), offset, use_dropout, plan[1],
+            _build.stream_ptr(dev))
     flash_fwd.launches += 1
+    flash_fwd.launches_bf16 += bf
     return out, lse
 
 
 flash_fwd.launches = 0
+flash_fwd.launches_bf16 = 0
 
 
 def _bwd_operands(q, k, v, dout, lse, delta, seeds, rates, causal, offset):
+    """-> (device, pointers, ints) of a K5dq / K5dkv call: q, k, v and dout
+    of one kernel dtype (float32 or bf16), lse and delta float32."""
     dev = _build.device_of(q)
     b, h, tq, tk, d = _check_qkv(q, k, v, dev)
-    _build.require(dout, "dout", (b, h, tq, d), dev)
+    _build.require(dout, "dout", (b, h, tq, d), dev, _storage(q))
     _build.require(lse, "lse", (b * h, tq), dev)
     _build.require(delta, "delta", (b * h, tq), dev)
     p_seeds, p_rates, use_dropout = _check_dropout(seeds, rates, b * h, dev)
@@ -304,25 +388,28 @@ def _cached_dq_plan(BH, Tq, Tk, D):
 def flash_bwd_dq(q, k, v, dout, lse, delta, seeds=None, rates=None, causal: bool = True,
                  offset: Optional[int] = None) -> torch.Tensor:
     """K5dq: dq from the forward's inputs, ``dout``, ``lse`` and ``delta =
-    rowsum(dout * out)`` ``[B*H, Tq]``.  CPU tensors take the plain version
-    (which recomputes the forward and does not read ``lse`` / ``delta``).
-    On the card one launch by :func:`_plan_flash_dq`: a block of query rows
-    walks the key tiles they see, S = Q K^T and dP' = dO V^T, p and dS = p
-    (M dP' - delta) in registers, then dQ += dS K, all in 3xTF32 on the
-    tensor cores, dQ written once (a rerun gives the same bits)."""
+    rowsum(dout * out)`` ``[B*H, Tq]`` (both float32), in q's dtype.  CPU
+    tensors take :func:`flash_bwd_plain` on the given lse and delta.  On
+    the card one launch (the bf16 instance for bf16 operands) by
+    :func:`_plan_flash_dq`: a block of query rows walks the key tiles they
+    see, S = Q K^T and dP' = dO V^T, p and dS = p (M dP' - delta) in
+    registers, then dQ += dS K, all in 3xTF32 on the tensor cores, dQ
+    written once (a rerun gives the same bits)."""
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, dout, causal, offset, seeds, rates)[0]
+        return flash_bwd_plain(q, k, v, dout, lse, delta, causal, offset, seeds, rates)[0]
     dev, ptrs, ints = _bwd_operands(q, k, v, dout, lse, delta, seeds, rates, causal, offset)
     plan = _cached_dq_plan(*ints[:4])
     dq = torch.empty_like(q)
-    err = _build.load_library().mmtr_flash_bwd_dq(*ptrs, dq.data_ptr(), *ints, plan[1],
-                                                  _build.stream_ptr(dev))
-    _build.check(err, "flash attention dq kernel")
+    bf = q.dtype == torch.bfloat16
+    _launch("mmtr_flash_bwd_dq", bf, "flash attention dq kernel", *ptrs, dq.data_ptr(), *ints,
+            plan[1], _build.stream_ptr(dev))
     flash_bwd_dq.launches += 1
+    flash_bwd_dq.launches_bf16 += bf
     return dq
 
 
 flash_bwd_dq.launches = 0
+flash_bwd_dq.launches_bf16 = 0
 
 
 def _plan_flash_dkv(BH: int, Tq: int, Tk: int, D: int) -> dict:
@@ -361,18 +448,20 @@ def flash_bwd_dkv(q, k, v, dout, lse, delta, seeds=None, rates=None, causal: boo
     (M p)^T dO and dK += dS^T Q, all in 3xTF32 on the tensor cores, each
     output written once (a rerun gives the same bits)."""
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, dout, causal, offset, seeds, rates)[1:]
+        return flash_bwd_plain(q, k, v, dout, lse, delta, causal, offset, seeds, rates)[1:]
     dev, ptrs, ints = _bwd_operands(q, k, v, dout, lse, delta, seeds, rates, causal, offset)
     plan = _cached_dkv_plan(*ints[:4])
     dk, dv = torch.empty_like(k), torch.empty_like(v)
-    err = _build.load_library().mmtr_flash_bwd_dkv(*ptrs, dk.data_ptr(), dv.data_ptr(),
-                                                   *ints, plan[1], _build.stream_ptr(dev))
-    _build.check(err, "flash attention dk/dv kernel")
+    bf = q.dtype == torch.bfloat16
+    _launch("mmtr_flash_bwd_dkv", bf, "flash attention dk/dv kernel", *ptrs, dk.data_ptr(),
+            dv.data_ptr(), *ints, plan[1], _build.stream_ptr(dev))
     flash_bwd_dkv.launches += 1
+    flash_bwd_dkv.launches_bf16 += bf
     return dk, dv
 
 
 flash_bwd_dkv.launches = 0
+flash_bwd_dkv.launches_bf16 = 0
 
 
 def _plan_flash_bwd(BH: int, Tq: int, Tk: int, D: int,
@@ -426,44 +515,49 @@ def _cached_bwd_plan(BH, Tq, Tk, D, num_sms):
 
 def flash_bwd(q, k, v, dout, out, lse, seeds=None, rates=None, causal: bool = True,
               offset: Optional[int] = None):
-    """The flash backward: ``(dq, dk, dv)`` from the forward's inputs, its
-    output ``out`` and log-sum-exp ``lse [B*H, Tq]``, and ``dout``.  CPU
-    tensors take the plain version (autograd through
-    :func:`flash_attention_plain`; ``out`` and ``lse`` are not read).  On
-    the card :func:`_plan_flash_bwd` picks by shape: Tq, Tk <= 64 launch K5b
-    once (delta = rowsum(dout * out) inside); longer slices take the delta
-    op, K5dq and K5dkv (tensor cores, planned by :func:`_plan_flash_dq`
-    and :func:`_plan_flash_dkv`).  A refused plan or launch raises."""
+    """The flash backward: ``(dq, dk, dv)`` in the operands' dtype from the
+    forward's inputs, its output ``out`` and log-sum-exp ``lse [B*H, Tq]``
+    (float32), and ``dout``.  CPU tensors take :func:`flash_bwd_plain` with
+    delta = rowsum(dout * out) (float32).  On the card
+    :func:`_plan_flash_bwd` picks by shape: Tq, Tk <= 64 launch K5b once
+    (delta inside); longer slices take the delta op, K5dq and K5dkv (tensor
+    cores, planned by :func:`_plan_flash_dq` and :func:`_plan_flash_dkv`);
+    bf16 operands launch the bf16 instances.  A refused plan or launch
+    raises."""
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(q, k, v, dout, causal, offset, seeds, rates)
+        return flash_bwd_plain(q, k, v, dout, lse, _delta(dout, out), causal, offset, seeds,
+                               rates)
     dev = _build.device_of(q)
     b, h, tq, tk, d = _check_qkv(q, k, v, dev)
     offset = _offset(tq, tk, causal, offset)
     plan = _cached_bwd_plan(b * h, tq, tk, d, _build.num_sms(dev))
     if plan is None:
-        delta = (dout * out).sum(-1).reshape(b * h, tq)
-        args = (q, k, v, dout, lse, delta, seeds, rates, causal, offset)
+        args = (q, k, v, dout, lse, _delta(dout, out), seeds, rates, causal, offset)
         return (flash_bwd_dq(*args),) + flash_bwd_dkv(*args)
-    _build.require_all(dev, [(dout, "dout", (b, h, tq, d)), (out, "out", (b, h, tq, d)),
-                             (lse, "lse", (b * h, tq))])
+    _build.require_all(dev, [(dout, "dout", (b, h, tq, d)), (out, "out", (b, h, tq, d))],
+                       _storage(q))
+    _build.require(lse, "lse", (b * h, tq), dev)
     p_seeds, p_rates, use_dropout = _check_dropout(seeds, rates, b * h, dev)
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    err = _build.load_library().mmtr_flash_bwd(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), out.data_ptr(),
-        lse.data_ptr(), p_seeds, p_rates, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-        b * h, tq, tk, d, int(causal), offset, use_dropout, plan[1],
-        _build.stream_ptr(dev))
-    _build.check(err, "flash attention fused backward kernel")
+    bf = q.dtype == torch.bfloat16
+    _launch("mmtr_flash_bwd", bf, "flash attention fused backward kernel",
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), out.data_ptr(),
+            lse.data_ptr(), p_seeds, p_rates, dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            b * h, tq, tk, d, int(causal), offset, use_dropout, plan[1],
+            _build.stream_ptr(dev))
     flash_bwd.launches += 1
+    flash_bwd.launches_bf16 += bf
     return dq, dk, dv
 
 
 flash_bwd.launches = 0
+flash_bwd.launches_bf16 = 0
 
 
 class FlashAttention(torch.autograd.Function):
     """Forward K5f; backward :func:`flash_bwd` (K5b at Tq, Tk <= 64, else
-    the delta op, K5dq and K5dkv).  No gradient reaches the seeds or the
+    the delta op, K5dq and K5dkv; on the CPU their plain versions), the
+    gradients in the operands' dtype.  No gradient reaches the seeds or the
     rates."""
 
     @staticmethod
@@ -488,14 +582,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Differentiable fused attention over ``q [B, H, Tq, D]`` (pre-scaled),
     ``k``, ``v [B, H, Tk, D]`` -> ``[B, H, Tq, D]``.  ``offset`` defaults to
     the reference's ``1 + |Tk - Tq|``; pass ``dropout_seeds [B*H]`` int32 and
-    ``dropout_rates [B*H]`` for the in-softmax dropout.  CPU tensors run the
-    plain version under autograd; CUDA tensors run K5f and :func:`flash_bwd`.
-    bf16 raises NotImplementedError (no bf16 instance of K5)."""
-    _build.refuse_bf16("flash_attention (K5)", q, k, v)
+    ``dropout_rates [B*H]`` for the in-softmax dropout.  float32 or bf16
+    operands (the result and the gradients in their dtype).  CUDA tensors
+    run K5f and :func:`flash_bwd`; CPU tensors their plain versions, the
+    backward by the same formulas (the JAX package's custom VJP), not by
+    autograd through the forward."""
     offset = _offset(q.shape[2], k.shape[2], causal, offset)
-    if q.device.type == "cpu":
-        return flash_attention_plain(q, k, v, causal, offset, dropout_seeds,
-                                     dropout_rates)[0]
     return FlashAttention.apply(q, k, v, dropout_seeds, dropout_rates, causal, offset)
 
 
@@ -528,8 +620,8 @@ def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On the card one launch (a mask that is not int32 on the card is
     converted first), planned by ``bert_attn_cuda._plan_attention`` with
     ``Lk=Tk``: the unit path at Tq, Tk <= 64, else the tiled path.  bf16
-    raises NotImplementedError (no bf16 instance of K8)."""
-    _build.refuse_bf16("flash_attention_masked (K8)", q, k, v)
+    raises NotImplementedError (no bf16 instance of K8: ROADMAP Queue 2)."""
+    _build.refuse_bf16("flash_attention_masked (K8, Queue 2 item 4)", q, k, v)
     if q.device.type == "cpu":
         return flash_attention_masked_plain(q, k, v, key_mask)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):

@@ -36,6 +36,7 @@ from multimodal_transformer_robustness_tpu_torch.models import supernet_apply as
 from multimodal_transformer_robustness_tpu_torch.models.mult import cast_tree
 from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bert_ffn_cuda
 from multimodal_transformer_robustness_tpu_torch.ops import bigru_cuda
+from multimodal_transformer_robustness_tpu_torch.ops.attention_cuda import flash_attention_masked
 from multimodal_transformer_robustness_tpu_torch.ops.gru import gru_recurrence
 from multimodal_transformer_robustness_tpu_torch.ops.trunk_block_cuda import fused_residual_block
 from multimodal_transformer_robustness_tpu_torch.train import loop as tloop
@@ -237,7 +238,8 @@ def test_unported_bf16_paths_raise(policy):
     naming ROADMAP; none runs quietly in float32.  (The int8 BERT and the
     dense and xla attention paths have bf16 instances:
     ``tests/test_torch_bf16_bert_variants.py`` and
-    ``test_torch_bf16_bert_slice.py`` hold them to the JAX package.)"""
+    ``test_torch_bf16_bert_slice.py`` hold them to the JAX package, and the
+    flash kernels K5 ``tests/test_torch_bf16_flash.py``.)"""
     p = policy
     inputs = [torch.from_numpy(x) for x in p["ds"].gather(np.arange(2))[0]]
 
@@ -245,9 +247,10 @@ def test_unported_bf16_paths_raise(policy):
         return t_apply(spec, p["params"], p["masks"], inputs, frozen=p["frozen"],
                        bert_cfg=p["tb"])
 
+    q = torch.zeros(1, 2, 4, 8, dtype=torch.bfloat16)
     cases = {
-        "flash attention (K5)": lambda: apply(
-            spec=dataclasses.replace(p["spec"], attn_impl="flash")),
+        "flash_attention_masked (K8)": lambda: flash_attention_masked(
+            q, q, q, torch.ones(1, 4, dtype=torch.int32)),
         "float16": lambda: apply(spec=dataclasses.replace(p["spec"], compute_dtype="float16")),
     }
     x = torch.zeros(2, 4, dtype=torch.bfloat16)

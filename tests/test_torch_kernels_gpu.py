@@ -16,7 +16,9 @@ the plain version's in at most 1e-3 of places (a value one float32 step from
 a rounding edge); each output row is held to 1e-4 plus, per flipped code in
 it, twice the largest move one code can make (``_k4_row_bound``).  The bf16
 instances (K1f, K1b, K2, K3, K4, K6a, K6b) are held to 2e-2 of max |ref|
-against their bf16 plain versions.  K7f and
+against their bf16 plain versions, those of the flash kernels (K5f, K5b,
+K5dq, K5dkv) to 1e-2 and to a cosine of 0.99999 against the float32
+kernel.  K7f and
 K9f are held to 1e-4 absolute, K7b and K9b to 1e-4 of each output's max
 |ref| (sums over T*N or R rows in another order), K9b beyond what entries
 of its hidden pre-activation within 1e-4 of relu's kink may move it
@@ -941,3 +943,131 @@ def test_ffn_ln_bf16_kernel_matches_plain(cuda, rows, h, ffn):
     bf16_close(out, bert_ffn_cuda.ffn_ln_block_plain(*args, eps=1e-12),
                f"K3 bf16 {rows} {h} {ffn}")
     assert torch.equal(out, again)
+
+
+# The bf16 instances of K5f, K5dq, K5dkv and K5b against their bf16 plain
+# versions (the JAX kernels' formulas: float32 between bf16 operands and one
+# rounding of each output): out, dq, dk and dv within 1e-2 of max |ref| (a
+# bf16 step where a float32 sum in another order lands across a rounding
+# edge), lse within 1e-4 absolute (float32, as the float32 instance); each
+# output's cosine against the float32 kernel on the same bf16-valued
+# operands at least 0.99999; reruns give the same bits.  The cases add odd
+# T at D = 25, where a bf16 row starts on a 2-byte boundary.
+FLASH_BF16_TOL, FLASH_BF16_COS = 1e-2, 0.99999
+_FLASH_BF16_CASES = _FLASH_CASES + [(3, 2, 7, 7, 25, True, 0.1, None),
+                                    (3, 2, 9, 7, 25, True, 0.0, None),
+                                    (3, 2, 9, 9, 25, False, 0.3, None),
+                                    (3, 2, 7, 131, 25, True, 0.1, None),
+                                    (3, 2, 131, 67, 25, True, 0.1, None)]
+
+
+def _flash_bf16_inputs(cuda, b, h, tq, tk, d, rate):
+    q, k, v, seeds, rates = _flash_inputs(cuda, b, h, tq, tk, d, rate)
+    dout = torch.from_numpy(np.random.default_rng(14).standard_normal(q.shape)
+                            .astype(np.float32)).to(cuda)
+    return tuple(_bf(t, cuda) for t in (q, k, v, dout)) + (seeds, rates)
+
+
+def _flash_bf16_close(got, ref, f32, what):
+    assert got.dtype == torch.bfloat16
+    bf16_close(got, ref, what)
+    a, b = got.double().flatten(), f32.double().flatten()
+    cos = float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300))
+    assert cos >= FLASH_BF16_COS, (what, cos)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,tq,tk,d,causal,rate,offset", _FLASH_BF16_CASES)
+def test_flash_fwd_bf16_kernel_matches_plain(cuda, b, h, tq, tk, d, causal, rate, offset):
+    q, k, v, _, seeds, rates = _flash_bf16_inputs(cuda, b, h, tq, tk, d, rate)
+    n0 = (attention_cuda.flash_fwd.launches, attention_cuda.flash_fwd.launches_bf16)
+    out, lse = attention_cuda.flash_fwd(q, k, v, seeds, rates, causal, offset)
+    again = attention_cuda.flash_fwd(q, k, v, seeds, rates, causal, offset)
+    torch.cuda.synchronize()
+    assert (attention_cuda.flash_fwd.launches,
+            attention_cuda.flash_fwd.launches_bf16) == (n0[0] + 2, n0[1] + 2)
+    assert lse.dtype == torch.float32
+    ref, ref_lse = attention_cuda.flash_attention_plain(q, k, v, causal, offset, seeds, rates)
+    f32, f32_lse = attention_cuda.flash_fwd(q.float(), k.float(), v.float(), seeds, rates,
+                                            causal, offset)
+    _flash_bf16_close(out, ref, f32, f"K5f bf16 {b} {h} {tq} {tk} {d}")
+    torch.testing.assert_close(lse, ref_lse, atol=1e-4, rtol=0)
+    torch.testing.assert_close(lse, f32_lse, atol=1e-4, rtol=0)
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,tq,tk,d,causal,rate,offset", _FLASH_BF16_CASES)
+def test_flash_bwd_bf16_kernels_match_plain(cuda, b, h, tq, tk, d, causal, rate, offset):
+    """K5dq and K5dkv's bf16 instances from the plain forward's bf16 out and
+    float32 lse, delta from the rounded out (float32); where every query
+    sees one key, dq and dk are held against dv's max |ref| (as the float32
+    test does) and their cosine is not asked."""
+    q, k, v, dout, seeds, rates = _flash_bf16_inputs(cuda, b, h, tq, tk, d, rate)
+    out, lse = attention_cuda.flash_attention_plain(q, k, v, causal, offset, seeds, rates)
+    delta = attention_cuda._delta(dout, out)
+    args = (q, k, v, dout, lse, delta, seeds, rates, causal, offset)
+    n0 = (attention_cuda.flash_bwd_dq.launches_bf16, attention_cuda.flash_bwd_dkv.launches_bf16)
+    got = (attention_cuda.flash_bwd_dq(*args),) + attention_cuda.flash_bwd_dkv(*args)
+    again = (attention_cuda.flash_bwd_dq(*args),) + attention_cuda.flash_bwd_dkv(*args)
+    torch.cuda.synchronize()
+    assert (attention_cuda.flash_bwd_dq.launches_bf16,
+            attention_cuda.flash_bwd_dkv.launches_bf16) == (n0[0] + 2, n0[1] + 2)
+    ref = attention_cuda.flash_bwd_plain(q, k, v, dout, lse, delta, causal, offset, seeds, rates)
+    f32_args = tuple(t.float() for t in args[:4]) + args[4:]
+    f32 = (attention_cuda.flash_bwd_dq(*f32_args),) + attention_cuda.flash_bwd_dkv(*f32_args)
+    one_key = tk == 1 or (causal and tq == 1 and offset == 1)
+    for name, a, r, f, a2 in zip(("dq", "dk", "dv"), got, ref, f32, again):
+        what = f"K5 bwd bf16 {name} {b} {h} {tq} {tk} {d}"
+        if one_key and name != "dv":
+            assert (a.float() - r.float()).abs().max() <= FLASH_BF16_TOL * ref[2].abs().max()
+        else:
+            _flash_bf16_close(a, r, f, what)
+        assert torch.equal(a, a2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tq,tk", _FUSED_BWD_SHAPES + [(7, 7), (9, 7), (9, 9)])
+@pytest.mark.parametrize("d", [8, 25, 64])
+@pytest.mark.parametrize("causal,rate", [(True, 0.0), (True, 0.3), (False, 0.3)])
+def test_flash_bwd_fused_bf16_kernel_matches_plain(cuda, tq, tk, d, causal, rate):
+    """K5b's bf16 instance (delta from the bf16 out it reads, summed in
+    float32): one launch, its bf16 counter moved; at Tk = 1 dq and dk are
+    held against dv's max |ref|."""
+    b, h = 3, 2
+    q, k, v, dout, seeds, rates = _flash_bf16_inputs(cuda, b, h, tq, tk, d, rate)
+    out, lse = attention_cuda.flash_attention_plain(q, k, v, causal, None, seeds, rates)
+    args = (q, k, v, dout, out, lse, seeds, rates, causal)
+    n0 = (attention_cuda.flash_bwd.launches_bf16, attention_cuda.flash_bwd_dq.launches)
+    got = attention_cuda.flash_bwd(*args)
+    again = attention_cuda.flash_bwd(*args)
+    torch.cuda.synchronize()
+    assert (attention_cuda.flash_bwd.launches_bf16,
+            attention_cuda.flash_bwd_dq.launches) == (n0[0] + 2, n0[1])
+    ref = attention_cuda.flash_bwd_plain(q, k, v, dout, lse, attention_cuda._delta(dout, out),
+                                         causal, None, seeds, rates)
+    f32 = attention_cuda.flash_bwd(*(t.float() for t in args[:5]), *args[5:])
+    for name, a, r, f, a2 in zip(("dq", "dk", "dv"), got, ref, f32, again):
+        if tk == 1 and name != "dv":
+            assert (a.float() - r.float()).abs().max() <= FLASH_BF16_TOL * ref[2].abs().max()
+        else:
+            _flash_bf16_close(a, r, f, f"K5b bf16 {name} {tq} {tk} {d} {causal} {rate}")
+        assert torch.equal(a, a2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("tq,tk", [(40, 57), (96, 96)])
+def test_flash_bf16_autograd_on_card_matches_cpu(cuda, tq, tk):
+    """``flash_attention`` on bf16 operands (K5f, then K5b or K5dq + K5dkv)
+    against the same function on the CPU (the plain versions): the output and
+    the gradients bf16, within 1e-2 of max |ref|."""
+    q, k, v, dout, seeds, rates = _flash_bf16_inputs(cuda, 2, 3, tq, tk, 25, 0.2)
+    out = {}
+    for dev in ("cpu", cuda):
+        leaves = [t.to(dev).requires_grad_(True) for t in (q, k, v)]
+        y = attention_cuda.flash_attention(*leaves, True, None, seeds.to(dev), rates.to(dev))
+        y.backward(dout.to(dev))
+        out[str(dev)] = [y] + [t.grad for t in leaves]
+    for a, b_ in zip(out["cpu"], out[str(cuda)]):
+        assert b_.dtype == torch.bfloat16
+        bf16_close(b_.cpu(), a, "flash bf16 card vs cpu")

@@ -1144,3 +1144,34 @@ def test_bf16_proj_ln_plan_is_k2s_tail():
     assert bert_ffn_cuda._plan_proj_ln_bf16(131072, 768)["wgmma"] == 1
     p = bert_ffn_cuda._plan_proj_ln_bf16(8, 768, a_addr=4)
     assert (p["wgmma"], p["acw"], p["bcw"]) == (0, 2, 8)
+
+
+# The bf16 instances of K5f, K5b, K5dq and K5dkv convert their bf16
+# operands to float32 as they stage them (through registers: a bf16 row
+# of D = 25 starts on a 2-byte boundary), into the float32 carve-up, so
+# they run by the float32 plans.  These cases check the plans at the shapes
+# chip_smoke.py gives the bf16 instances: the MOSEI self and cross stacks
+# (B=4096, 8 heads of 25), the long causal shape (B=16 T=2048), the T=96
+# stack at B=8, and odd T at D = 25 (B=3).
+_BF16_FLASH_SHAPES = [(4096 * 8, 50, 50, 25), (4096 * 8, 50, 32, 25), (16 * 8, 2048, 2048, 25),
+                      (8 * 8, 96, 96, 25), (3 * 8, 7, 7, 25), (3 * 8, 9, 7, 25),
+                      (3 * 8, 9, 9, 25)]
+
+
+@pytest.mark.parametrize("bh,tq,tk,D", _BF16_FLASH_SHAPES)
+def test_flash_plans_at_the_bf16_shapes(bh, tq, tk, D):
+    unit = tq <= 64 and tk <= 64
+    fwd = attention_cuda._plan_flash_fwd(bh, tq, tk, D)
+    bwd = attention_cuda._plan_flash_bwd(bh, tq, tk, D)
+    assert fwd["path"] == bwd["path"] == (0 if unit else 1)
+    # a staged row: 25 floats padded to 32, a stride of 36 (4 mod 8)
+    assert fwd["ld"] == 36 and fwd["smem"] == _flash_fwd_smem(fwd) <= MAX_SMEM
+    if unit:
+        assert bwd["ld"] == 36 and bwd["smem"] == _flash_bwd_smem(bwd) <= MAX_SMEM
+        assert bwd["qp8"] == 8 * -(-tq // 8) and bwd["kp8"] == 8 * -(-tk // 8)
+        return
+    dq = attention_cuda._plan_flash_dq(bh, tq, tk, D)
+    dkv = attention_cuda._plan_flash_dkv(bh, tq, tk, D)
+    assert dq["smem"] == _flash_dq_smem(dq) <= MAX_SMEM and dq["bq"] == 64
+    assert dkv["smem"] == _flash_dkv_smem(dkv) <= MAX_SMEM
+    assert dkv["blocks"] == -(-tk // 64) * bh and dq["blocks"] == -(-tq // 64) * bh

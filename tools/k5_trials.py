@@ -112,7 +112,7 @@ _NO_CORRECTIONS = [(FLASH, r"^  mma_tf32\(c, al, bh\);\n  mma_tf32\(c, ah, bl\);
 _NO_HASH = [(FLASH, r"if \(!d\.use_dropout\) return;", "return;", 1),
             (FLASH, r"if \(d\.use_dropout\) mk = hash_uniform\(seed, row, (key|col)\) >= rate \? "
                     r"keep_scale : 0\.f;", "", 2)]
-_STAGING_ONLY = [(FLASH, r"^    fwd_unit_rows<DT, NKT>\(", "    if (d.Tq < 0) fwd_unit_rows<DT, NKT>(",
+_STAGING_ONLY = [(FLASH, r"^    fwd_unit_rows<DT, NKT, T>\(", "    if (d.Tq < 0) fwd_unit_rows<DT, NKT, T>(",
                   1)]
 _COMPUTE_ONLY = [(FLASH, r"if \(u \+ \(int\)gridDim\.x < units\)\n\s*fwd_stage_slice\([^;]*;",
                   "", 1)]
