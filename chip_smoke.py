@@ -64,7 +64,15 @@ Phases, each fatal on failure:
                 (FLASH_BF16_TOL) and the float32 kernels (FLASH_BF16_COS),
                 rerun for the same bits, timed beside SDPA in bf16, bound
                 by the bf16 x bf16 products at PEAK_BF16_FLOPS and the
-                rest at PEAK_BF16_F32_FLOPS;
+                rest at PEAK_BF16_F32_FLOPS; the bf16 instances of K8 (B=1
+                L=8 and 512, B=4096 L=32, held as the flash rows, beside
+                SDPA in bf16 with the boolean mask), K7f / K7b (G=2 T=50
+                N=4096 and T=64 N=1, beside cuDNN's bidirectional GRU in
+                bf16; products with a float32 operand bound at
+                PEAK_BF16_F32_FLOPS) and K9f / K9b (the four MOSEI blocks,
+                R=4096 train and R=1 eval, float32 parameters), against
+                their bf16 plain versions (BF16_TOL, K8 FLASH_BF16_TOL) and
+                the float32 kernels (cosine), rerun for the same bits;
   4. serving  - StreamingPredictor at the reference's MOSEI serving
                 configuration (d=200, 8x25 heads, layers 3/4/2, 4-layer
                 BERT-base-width text encoder, random weights from seed 0)
@@ -167,10 +175,20 @@ Phases, each fatal on failure:
                 12 / K1b 12 / K2 4 / K3 4 (bf16) and no K5 (the T==1 rule);
                 loss and gradients bit-identical to the xla spec's step;
  31. serving-bf16-flash - phase 15 under the bf16 spec: K1 12 / K2 4 / K3
-                4 a request (bf16), K5f 0, predictions bit-identical to xla.
+                4 a request (bf16), K5f 0, predictions bit-identical to xla;
+ 32. flash-masked-bf16 - phase 16's call on bf16 q / k / v: K8 1 (bf16),
+                against the CPU (FLASH_BF16_TOL) and the float32 kernel
+                (cosine FLASH_BF16_COS);
+ 33. gru-recurrence-bf16 - phase 17 with bf16 weights and x: K7f 1 / K7b 1
+                (bf16); fwd+bwd ms beside cuDNN in bf16; card vs CPU at N=8
+                (outputs BF16_TOL, each gradient leaf a cosine of BF16_COS);
+ 34. trunk-block-bf16 - phase 18's four blocks at bf16 x and src with
+                float32 parameters, R=4096 train and R=1 eval, forward and
+                backward: K9f 1 / K9b 1 (bf16) a call; fwd+bwd ms; card vs
+                CPU at R=8 with dropout on, held as phase 33.
 Every phase sets the launch counters to 0 just before it drives its path
 and fails unless each kernel of the path ran the expected number of times
-(the bf16 instances counted apart: ``K1.bf16`` ... ``K5dkv.bf16``).
+(the bf16 instances counted apart: ``K1.bf16`` ... ``K9b.bf16``).
 Then the int8 projections' and the device split's lines, one JSON line with
 the kernels' results, and the last line ``{"ok": true, "device": {...}}``.
 """
@@ -236,9 +254,15 @@ BF16_TOL, BF16_COS = 2e-2, 0.999
 # bf16-valued operands: a cosine of at least 0.99999 (the outputs' one
 # rounding), lse (float32) within 1e-5 of max |ref| of both.
 FLASH_BF16_TOL, FLASH_BF16_COS, FLASH_BF16_LSE_TOL = 1e-2, 0.99999, 1e-5
-FLASH_BF16_KERNELS = ("K5f.bf16", "K5b.bf16", "K5dq.bf16", "K5dkv.bf16")
+# K8's bf16 instance computes the same function (p float32 through P V, the
+# output rounded once) and is held as they are.
+FLASH_BF16_KERNELS = ("K5f.bf16", "K5b.bf16", "K5dq.bf16", "K5dkv.bf16", "K8.bf16")
+# K7's and K9's bf16 instances as K1f's ... K6b's: 2e-2 of max |ref|
+# against their bf16 plain versions, a cosine of BF16_COS against the
+# float32 kernels; their library-op phases hold the card against the CPU
+# so (outputs) and leaf by leaf by cosine (gradients)
 BF16_KERNELS = ("K1f.bf16", "K1b.bf16", "K2.bf16", "K3.bf16", "K4.bf16", "K6a.bf16",
-                "K6b.bf16")
+                "K6b.bf16", "K7f.bf16", "K7b.bf16", "K9f.bf16", "K9b.bf16")
 TOL = {"K1": 1e-4, "K1b": 1e-4, "K2": 1e-3, "K3": 1e-4, "K4": 1e-4, "K6a": 1e-3,
        "K6b": 1e-4, "K5f": 1e-4, "K5dq": 1e-4, "K5dkv": 1e-4, "K5b": 1e-4, "K8": 1e-4,
        "K7f": 1e-4, "K7b": 1e-4, "K9f": 1e-4, "K9b": 1e-4,
@@ -557,7 +581,9 @@ def check_kernels(dev, rng):
     rows += check_bf16(dev, rng, t, record, failures)
     # its own seed, so that the rows above keep their inputs
     check_flash(dev, np.random.default_rng(18), t, record, failures, torch.bfloat16,
-                k8_shapes=(), odd=((3, 7, 7), (3, 9, 7), (3, 9, 9)))
+                odd=((3, 7, 7), (3, 9, 7), (3, 9, 9)))
+    check_k7(dev, np.random.default_rng(19), t, record, failures, torch.bfloat16)
+    check_k9(dev, np.random.default_rng(20), t, record, failures, torch.bfloat16)
     if failures:
         raise RuntimeError(f"kernels disagree with their plain versions: {failures}")
     return rows
@@ -1333,11 +1359,18 @@ def flash_work(kind, bh, tq, tk, d, offset, dropout, width=4):
     return flops, ins + 2 * width * bh * tk * d
 
 
-def k8_work(key_mask, heads, L, d):
+def k8_work(key_mask, heads, L, d, width=4):
     """K8: 4 FLOPs per attended (query, key) pair and head column, the
-    pairs this run's masks leave; q, k, v, the output and the mask."""
+    pairs this run's masks leave; q, k, v, the output (``width`` bytes an
+    element: 2 at bf16) and the int32 mask.  At bf16 the FLOPs come as
+    ((count, rate), ...): Q K^T (two bf16 operands) at PEAK_BF16_FLOPS, P V
+    (p float32) at PEAK_BF16_F32_FLOPS."""
     b = key_mask.shape[0]
-    return 4 * heads * L * d * key_mask.sum().item(), 4 * (4 * b * heads * L * d + b * L)
+    half = 2 * heads * L * d * key_mask.sum().item()
+    nbytes = width * 4 * b * heads * L * d + 4 * b * L
+    if width == 4:
+        return 2 * half, nbytes
+    return ((half, PEAK_BF16_FLOPS), (half, PEAK_BF16_F32_FLOPS)), nbytes
 
 
 def ragged_key_mask(rng, B, L, dev):
@@ -1506,20 +1539,28 @@ def check_flash(dev, rng, t, record, failures, dtype=torch.float32,
 
     heads, d = 12, 64
     for B, L in k8_shapes:
-        q = t(rng.standard_normal((B, heads, L, d)) / np.sqrt(d))
-        k, v = (t(rng.standard_normal((B, heads, L, d))) for _ in range(2))
+        q = t(rng.standard_normal((B, heads, L, d)) / np.sqrt(d)).to(dtype)
+        k, v = (t(rng.standard_normal((B, heads, L, d))).to(dtype) for _ in range(2))
         mask = ragged_key_mask(rng, B, L, dev)
         eff = ac._effective_key_mask(mask)
         out = ac.flash_attention_masked(q, k, v, mask)
         torch.cuda.synchronize()
         ref = ac.flash_attention_masked_plain(q, k, v, mask)
-        record("K8", f"B={B} L={L} H={heads} D={d}", out, ref,
-               lambda: ac.flash_attention_masked(q, k, v, mask),
-               lambda: ac.flash_attention_masked_plain(q, k, v, mask),
-               work=k8_work(eff, heads, L, d),
-               library_fn=lambda: F.scaled_dot_product_attention(
-                   q, k, v, attn_mask=eff[:, None, None, :] > 0, scale=1.0),
-               iters=5 if B == 4096 else 20)
+        shape = f"B={B} L={L} H={heads} D={d}"
+        timing = dict(kernel_fn=lambda: ac.flash_attention_masked(q, k, v, mask),
+                      plain_fn=lambda: ac.flash_attention_masked_plain(q, k, v, mask),
+                      work=k8_work(eff, heads, L, d, width),
+                      library_fn=lambda: F.scaled_dot_product_attention(
+                          q, k, v, attn_mask=eff[:, None, None, :] > 0, scale=1.0))
+        if bf16:
+            f32 = ac.flash_attention_masked(q.float(), k.float(), v.float(), mask)
+            hold("K8", shape, (out,), (ref,), (ac.flash_attention_masked(q, k, v, mask),),
+                 timing, (f32,))
+            del f32
+        else:
+            record("K8", shape, out, ref, timing["kernel_fn"], timing["plain_fn"],
+                   work=timing["work"], library_fn=timing["library_fn"],
+                   iters=5 if B == 4096 else 20)
         del q, k, v, out, ref
 
 
@@ -1609,28 +1650,33 @@ def check_k1b(dev, rng, t, failures):
     return rows
 
 
-def k7_work(kind, G, T, N, H):
+def k7_work(kind, G, T, N, H, width=4):
     """(FLOPs, bytes) of K7f ("fwd") or K7b ("bwd"): the recurrent products,
     three [N, H] x [H, H] a step and group forward, twice that backward (the
     recompute and the dh carry); the gates (and hs, dhs backward) read once,
-    the outputs written once, the weights and biases once."""
+    the outputs written once, the weights and biases once, ``width`` bytes
+    an element.  At bf16 (width 2) the products take a float32 operand (h,
+    da), so they count at PEAK_BF16_F32_FLOPS, as ((count, rate),)."""
     per = G * T * N * H
     params = 3 * G * H * H + 3 * G * H
-    if kind == "fwd":
-        return 2 * per * 3 * H, 4 * (3 * per + params + per)
-    return 4 * per * 3 * H, 4 * (5 * per + params + 4 * per)
+    flops, elems = ((2 * per * 3 * H, 3 * per + params + per) if kind == "fwd" else
+                    (4 * per * 3 * H, 5 * per + params + 4 * per))
+    return (flops if width == 4 else ((flops, PEAK_BF16_F32_FLOPS),)), width * elems
 
 
-def k9_work(kind, R, E, F1):
+def k9_work(kind, R, E, F1, width=4):
     """(FLOPs, bytes) of K9f ("fwd") or K9b ("bwd"): 4*R*E*F1 for the two
     products forward, 10*R*E*F1 backward (the recompute of s W1^T, dz W2,
     dp W1, dW1 and dW2); x and src (src and dout backward) read once, the
     output (dsrc and the parameter gradients) written once, the weights,
-    vectors and masks once.  The hash is integer work and is not counted."""
+    vectors and masks once.  The hash is integer work and is not counted.
+    ``width``: the bytes of an element of x, src, dout, out and dsrc (2 at
+    bf16, whose products all take two bf16 operands: PEAK_BF16_FLOPS; the
+    float32 parameters and their gradients stay 4 bytes)."""
     vec = 4 * E + 2 * F1 + 2 * E * F1
     if kind == "fwd":
-        return 4 * R * E * F1, 4 * (3 * R * E + vec)
-    return 10 * R * E * F1, 4 * (3 * R * E + vec + 2 * E * F1 + F1 + 3 * E)
+        return 4 * R * E * F1, width * 3 * R * E + 4 * vec
+    return 10 * R * E * F1, width * 3 * R * E + 4 * (vec + 2 * E * F1 + F1 + 3 * E)
 
 
 def cudnn_bigru(params, in_dim, H, dev):
@@ -1645,29 +1691,49 @@ def cudnn_bigru(params, in_dim, H, dev):
     return gru
 
 
-def check_k7(dev, rng, t, record, failures, shapes=((2, 50, 4096, 100), (2, 64, 1, 100))):
+def bf16_judge(kid, shape, outs, f32s, again, failures):
+    """The bf16 rows' own checks beside the tolerance: each output's cosine
+    against the float32 kernel on the same bf16-valued operands (BF16_COS)
+    and a bit-identical rerun -> the row's extra fields."""
+    cos = min(cosine(o.float(), f.float()) for o, f in zip(outs, f32s))
+    same = all(torch.equal(a, b) for a, b in zip(outs, again))
+    print(f"  {kid} {shape}: cosine vs the float32 kernel {cos:.7f} (min {BF16_COS}), rerun "
+          f"bit-identical {same}", flush=True)
+    if cos < BF16_COS or not same:
+        failures.append(f"{kid} {shape}: cosine {cos} / rerun {same}")
+    return {"cos_vs_float32": cos, "rerun_bit_identical": same}
+
+
+def check_k7(dev, rng, t, record, failures, dtype=torch.float32,
+             shapes=((2, 50, 4096, 100), (2, 64, 1, 100))):
     """K7f and K7b against their plain versions at the MOSEI header level
     (G=2 directions, T=50, N=4096, H=100) and at the serving shape (T=64,
     N=1); K7b run twice for identical bits.  Yardstick: cuDNN's
     bidirectional GRU at in=200 over the same T and N (it also projects
-    the inputs), forward, and its autograd backward."""
+    the inputs), forward, and its autograd backward.  ``dtype=bfloat16``:
+    the bf16 instances (rows ``K7f.bf16`` / ``K7b.bf16``) on bf16 operands,
+    each output also held against the float32 kernel (bf16_judge), K7f
+    rerun too, cuDNN's GRU in bf16."""
     from multimodal_transformer_robustness_tpu_torch.ops import gru_cuda
 
+    bf16 = dtype == torch.bfloat16
+    width, sfx = (2, ".bf16") if bf16 else (4, "")
     in_dim = 200
     for G, T, N, H in shapes:
         k = 1.0 / np.sqrt(H)
-        gates = [t(rng.standard_normal((G, T, N, H))) for _ in range(3)]
-        weights = [t(rng.uniform(-k, k, (G, H, H))) for _ in range(3)]
-        biases = [t(rng.uniform(-k, k, (G, H))) for _ in range(3)]
-        dhs = t(rng.standard_normal((G, T, N, H)))
+        gates = [t(rng.standard_normal((G, T, N, H))).to(dtype) for _ in range(3)]
+        weights = [t(rng.uniform(-k, k, (G, H, H))).to(dtype) for _ in range(3)]
+        biases = [t(rng.uniform(-k, k, (G, H))).to(dtype) for _ in range(3)]
+        dhs = t(rng.standard_normal((G, T, N, H))).to(dtype)
         args = (*gates, *weights, *biases)
         shape = f"G={G} T={T} N={N} H={H}"
         iters = 5 if N > 1 else 20
         gru = cudnn_bigru({d: gru_weights(rng, in_dim, H, dev) for d in ("fwd", "bwd")},
-                          in_dim, H, dev)
-        x = t(rng.standard_normal((T, N, in_dim))).requires_grad_(True)
+                          in_dim, H, dev).to(dtype)
+        gru.flatten_parameters()
+        x = t(rng.standard_normal((T, N, in_dim))).to(dtype).requires_grad_(True)
         y, _ = gru(x)
-        dy = t(rng.standard_normal((T, N, 2 * H)))
+        dy = t(rng.standard_normal((T, N, 2 * H))).to(dtype)
 
         def library_fwd():
             with torch.no_grad():
@@ -1675,25 +1741,35 @@ def check_k7(dev, rng, t, record, failures, shapes=((2, 50, 4096, 100), (2, 64, 
 
         hs = gru_cuda.gru_recurrence_cuda(*args)
         torch.cuda.synchronize()
-        record("K7f", shape, hs, gru_cuda.gru_recurrence_plain(*args),
+        extra = (bf16_judge("K7f.bf16", shape, (hs,), (gru_cuda.gru_recurrence_cuda(
+            *(a.float() for a in args)),), (gru_cuda.gru_recurrence_cuda(*args),), failures)
+                 if bf16 else None)
+        record("K7f" + sfx, shape, hs.float(), gru_cuda.gru_recurrence_plain(*args).float(),
                lambda: gru_cuda.gru_recurrence_cuda(*args),
                lambda: gru_cuda.gru_recurrence_plain(*args),
-               work=k7_work("fwd", G, T, N, H), library_fn=library_fwd, iters=iters)
+               work=k7_work("fwd", G, T, N, H, width), library_fn=library_fwd, iters=iters,
+               extra=extra)
         bwd_args = (*gates, hs, dhs, *weights, *biases)
         got = gru_cuda.gru_recurrence_bwd_cuda(*bwd_args)
         torch.cuda.synchronize()
-        same = all(torch.equal(a, b) for a, b in
-                   zip(got, gru_cuda.gru_recurrence_bwd_cuda(*bwd_args)))
-        print(f"  K7b {shape}: rerun bit-identical {same}", flush=True)
-        if not same:
-            failures.append(f"K7b {shape} not deterministic")
-        record("K7b", shape, got, gru_cuda.gru_recurrence_bwd_plain(*bwd_args),
+        again = gru_cuda.gru_recurrence_bwd_cuda(*bwd_args)
+        if bf16:
+            extra = bf16_judge("K7b.bf16", shape, got, gru_cuda.gru_recurrence_bwd_cuda(
+                *(a.float() for a in bwd_args)), again, failures)
+        else:
+            same = all(torch.equal(a, b) for a, b in zip(got, again))
+            print(f"  K7b {shape}: rerun bit-identical {same}", flush=True)
+            if not same:
+                failures.append(f"K7b {shape} not deterministic")
+        record("K7b" + sfx, shape, tuple(a.float() for a in got),
+               tuple(a.float() for a in gru_cuda.gru_recurrence_bwd_plain(*bwd_args)),
                lambda: gru_cuda.gru_recurrence_bwd_cuda(*bwd_args),
                lambda: gru_cuda.gru_recurrence_bwd_plain(*bwd_args),
-               work=k7_work("bwd", G, T, N, H),
+               work=k7_work("bwd", G, T, N, H, width),
                library_fn=lambda: torch.autograd.grad(y, [x, *gru.parameters()], dy,
-                                                      retain_graph=True), iters=iters)
-        del gates, dhs, hs, got, x, y, dy, gru
+                                                      retain_graph=True), iters=iters,
+               extra=extra)
+        del gates, dhs, hs, got, again, x, y, dy, gru
         torch.cuda.empty_cache()
 
 
@@ -1724,17 +1800,29 @@ def trunk_block_operands(rng, R, E, F1, masked, dev):
     return x, src, dout, params, [cm, mm, cm]
 
 
-def check_k9(dev, rng, t, record, failures):
+def check_k9(dev, rng, t, record, failures, dtype=torch.float32):
     """K9f and K9b against their plain versions at the four MOSEI T==1
     blocks: R=4096 in train mode (d_mid 0.1, d_res 0.3, the same seeds on
     both sides) with the backward, run twice for identical bits; K9f again
     at R=1 in eval (no dropout), the serving rows.  No PyTorch call
-    computes the block, so no library time."""
+    computes the block, so no library time.  ``dtype=bfloat16``: the bf16
+    instances (rows ``K9f.bf16`` / ``K9b.bf16``) at bf16 x, src and dout
+    with float32 parameters (the masters a bf16 step keeps), each output
+    also held against the float32 kernel (bf16_judge) on the operands the
+    bf16 instance multiplies: x, src, dout and the weights (which it casts)
+    at their bf16 values, the vectors float32 as it keeps them; K9b also at
+    R=1, beyond the same relu-kink allowance as the float32 rows
+    (relu_kink_bound from the bf16 operands).  (Given the unrounded
+    weights, a relu block's gradients part further from the float32
+    kernel's: entries of u near the kink change sides.)"""
     from multimodal_transformer_robustness_tpu_torch.ops import trunk_block_cuda as tb
 
+    bf16 = dtype == torch.bfloat16
+    width, sfx = (2, ".bf16") if bf16 else (4, "")
     for name, E, F1, act, rep, cross, masked in TRUNK_BLOCKS:
         for R, train in ((4096, True), (1, False)):
             x, src, dout, params, masks = trunk_block_operands(rng, R, E, F1, masked, dev)
+            x, src, dout = (a.to(dtype) for a in (x, src, dout))
             if not cross:
                 src = x
             cfg = tb.BlockConfig(act, rep, 0.1, 0.3, int(rng.integers(-2**31, 2**31 - 1)),
@@ -1744,27 +1832,41 @@ def check_k9(dev, rng, t, record, failures):
             out = tb.trunk_block_fwd(*fargs)
             torch.cuda.synchronize()
             iters = 5 if R > 1 else 20
-            record("K9f", shape, out, tb.fused_residual_block_reference(*fargs),
+            extra = None
+            # the float32 kernel's operands: the bf16 instance's, upcast
+            p32 = [p.to(dtype).float() if p.dim() == 2 else p for p in params]
+            if bf16:
+                f32 = (x.float(), src.float(), *p32, *masks, cfg)
+                extra = bf16_judge("K9f.bf16", shape, (out,), (tb.trunk_block_fwd(*f32),),
+                                   (tb.trunk_block_fwd(*fargs),), failures)
+            record("K9f" + sfx, shape, out.float(),
+                   tb.fused_residual_block_reference(*fargs).float(),
                    lambda: tb.trunk_block_fwd(*fargs),
                    lambda: tb.fused_residual_block_reference(*fargs),
-                   work=k9_work("fwd", R, E, F1), iters=iters)
-            if not train:
+                   work=k9_work("fwd", R, E, F1, width), iters=iters, extra=extra)
+            if not train and not bf16:
                 continue
             bargs = (x, src, dout, *params, *masks, cfg)
             got = tb.trunk_block_bwd(*bargs)
             torch.cuda.synchronize()
-            same = all(torch.equal(a, b) for a, b in zip(got, tb.trunk_block_bwd(*bargs)))
-            print(f"  K9b {shape}: rerun bit-identical {same}", flush=True)
-            if not same:
-                failures.append(f"K9b {shape} not deterministic")
+            again = tb.trunk_block_bwd(*bargs)
+            if bf16:
+                extra = bf16_judge("K9b.bf16", shape, got, tb.trunk_block_bwd(
+                    x.float(), src.float(), dout.float(), *p32, *masks, cfg), again, failures)
+            else:
+                same = all(torch.equal(a, b) for a, b in zip(got, again))
+                print(f"  K9b {shape}: rerun bit-identical {same}", flush=True)
+                if not same:
+                    failures.append(f"K9b {shape} not deterministic")
             near, slack = tb.relu_kink_bound(*bargs)
             if act == "relu":
-                print(f"  K9b {shape}: {near} entries of u within 1e-4 of relu's kink",
+                print(f"  K9b{sfx} {shape}: {near} entries of u within 1e-4 of relu's kink",
                       flush=True)
-            record("K9b", shape, got, tb.trunk_block_bwd_plain(*bargs),
+            record("K9b" + sfx, shape, tuple(a.float() for a in got),
+                   tuple(a.float() for a in tb.trunk_block_bwd_plain(*bargs)),
                    lambda: tb.trunk_block_bwd(*bargs), lambda: tb.trunk_block_bwd_plain(*bargs),
-                   work=k9_work("bwd", R, E, F1), iters=iters, slack=slack)
-            del x, src, dout, params, masks, out, got
+                   work=k9_work("bwd", R, E, F1, width), iters=iters, slack=slack, extra=extra)
+            del x, src, dout, params, masks, out, got, again
 
 
 class Bf16Count:
@@ -1785,9 +1887,9 @@ class Bf16Count:
 
 def counters():
     """The launch counters: every kernel's, then the bf16 instances' of K1f,
-    K1b, K2, K3, K4, K6a, K6b, the int8 projections and the flash kernels
-    (``K1.bf16`` ... ``K5dkv.bf16``), which count within K1 ... K5dkv: a
-    phase where they equal K1 ... K5dkv launched no float32 instance."""
+    K1b, K2, K3, K4, K6a, K6b, the int8 projections, the flash kernels, K8,
+    K7 and K9 (``K1.bf16`` ... ``K9b.bf16``), which count within K1 ...
+    K9b: a phase where they equal K1 ... K9b launched no float32 instance."""
     from multimodal_transformer_robustness_tpu_torch.ops import attention_cuda as ac
     from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bert_ffn_cuda
     from multimodal_transformer_robustness_tpu_torch.ops import bigru_cuda, gru_cuda
@@ -1814,7 +1916,11 @@ def counters():
             "qdot.bf16": Bf16Count(bert_ffn_cuda.qdot),
             "K5f.bf16": Bf16Count(ac.flash_fwd), "K5b.bf16": Bf16Count(ac.flash_bwd),
             "K5dq.bf16": Bf16Count(ac.flash_bwd_dq),
-            "K5dkv.bf16": Bf16Count(ac.flash_bwd_dkv)}
+            "K5dkv.bf16": Bf16Count(ac.flash_bwd_dkv),
+            "K8.bf16": Bf16Count(ac.flash_attention_masked),
+            "K7f.bf16": Bf16Count(gru_cuda.gru_recurrence_cuda),
+            "K7b.bf16": Bf16Count(gru_cuda.gru_recurrence_bwd_cuda),
+            "K9f.bf16": Bf16Count(tb.trunk_block_fwd), "K9b.bf16": Bf16Count(tb.trunk_block_bwd)}
 
 
 def expect(**counts):
@@ -2998,6 +3104,191 @@ def trunk_block_phase(dev, R=4096, iters=5):
     return launches, stats
 
 
+def flash_masked_bf16(dev, B=8, L=32, heads=12, dh=64):
+    """K8's path at bf16: flash_masked_call's library call on the same
+    operands (its seed: ragged masks, one all-zero row) rounded to bf16,
+    one K8.bf16 launch; against the CPU's bf16 plain version
+    (FLASH_BF16_TOL of max |ref|) and the float32 kernel on the same
+    bf16-valued operands (a cosine of FLASH_BF16_COS)."""
+    from multimodal_transformer_robustness_tpu_torch.ops import attention_cuda as ac
+
+    rng = np.random.default_rng(12)
+    q, k, v = (torch.from_numpy(rng.standard_normal((B, L, heads, dh), dtype=np.float32)).to(dev)
+               for _ in range(3))
+    mask = ragged_key_mask(rng, B, L, dev)
+    args = tuple((a * scale).transpose(1, 2).contiguous().to(torch.bfloat16)
+                 for a, scale in ((q, dh ** -0.5), (k, 1.0), (v, 1.0))) + (mask,)
+    reset_counters()
+    with torch.inference_mode():
+        out = ac.flash_attention_masked(*args)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    expected = expect_bf16(K8=1)
+    cpu = ac.flash_attention_masked(*(a.cpu() for a in args))
+    f32 = ac.flash_attention_masked(*(a.float() for a in args[:3]), mask)
+    rel = errors(out.float().cpu(), cpu.float())[1]
+    cos = cosine(out.float(), f32)
+    ok = (launches == expected and out.dtype == torch.bfloat16 and rel <= FLASH_BF16_TOL
+          and cos >= FLASH_BF16_COS)
+    print(f"flash-masked-bf16 B={B} L={L} {heads}x{dh}: launches {launches} expected "
+          f"{expected}; vs CPU {rel:.3e} of max|ref| (tol {FLASH_BF16_TOL:g}); cosine vs "
+          f"the float32 kernel {cos:.7f} (min {FLASH_BF16_COS}) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+        raise RuntimeError("flash-masked-bf16: launch counts or values disagree")
+    return launches
+
+
+def leaf_cosines(card, cpu):
+    """Per leaf, the cosine of the card's tensor against the CPU's."""
+    return [cosine(a.float().cpu(), b.float()) for a, b in zip(card, cpu)]
+
+
+def gru_recurrence_bf16(dev, B=4096, T=50, in_dim=200, H=100, iters=3):
+    """K7's path at bf16: ``ops.gru.bigru_forward`` with bf16 weights and x
+    [4096, 50, 200], forward and the gradient of a scalar loss in x and
+    every weight: one K7f.bf16 and one K7b.bf16; fwd+bwd ms beside cuDNN's
+    bidirectional GRU in bf16; then the card against the CPU at N=8, the
+    outputs within BF16_TOL of max |ref|, each gradient leaf a cosine of
+    BF16_COS."""
+    from multimodal_transformer_robustness_tpu_torch.ops.gru import bigru_forward
+
+    bf = torch.bfloat16
+    rng = np.random.default_rng(13)
+    weights = {d: {k: v.cpu() for k, v in gru_weights(rng, in_dim, H, "cpu").items()}
+               for d in ("fwd", "bwd")}
+
+    def inputs(n, device):
+        p = {d: {k: v.to(device, bf).requires_grad_(True) for k, v in w.items()}
+             for d, w in weights.items()}
+        x = torch.from_numpy(rng.standard_normal((n, T, in_dim), dtype=np.float32))
+        cts = [torch.from_numpy(rng.standard_normal(s, dtype=np.float32)).to(device, bf)
+               for s in ((n, T, 2 * H), (n, 2 * H))]
+        return p, x.to(device, bf).requires_grad_(True), cts
+
+    def leaves(p, x):
+        return [x] + [v for d in ("fwd", "bwd") for v in p[d].values()]
+
+    def step(p, x, cts):
+        out, fin = bigru_forward(p, x)
+        loss = (out.float() * cts[0].float()).sum() + (fin.float() * cts[1].float()).sum()
+        return [out.detach(), fin.detach()] + list(torch.autograd.grad(loss, leaves(p, x)))
+
+    p, x, cts = inputs(B, dev)
+    reset_counters()
+    res = step(p, x, cts)
+    torch.cuda.synchronize()
+    launches = read_counters()
+    expected = expect_bf16(K7f=1, K7b=1)
+    finite = all(bool(torch.isfinite(a).all()) for a in res)
+    bf16_out = all(a.dtype == bf for a in res)
+    print(f"gru-recurrence-bf16 bigru_forward B={B} T={T} in={in_dim} H={H}: out "
+          f"{tuple(res[0].shape)} {res[0].dtype}, {len(res) - 2} gradients, finite {finite}; "
+          f"launches {launches} expected {expected}", flush=True)
+    if launches != expected or not finite or not bf16_out:
+        raise RuntimeError("gru-recurrence-bf16: launch counts, dtypes or non-finite values")
+    del res
+    gru = cudnn_bigru({d: {k: v.detach().float() for k, v in w.items()} for d, w in p.items()},
+                      in_dim, H, dev).to(bf)
+    gru.flatten_parameters()
+    gru_leaves = [x] + list(gru.parameters())
+
+    def cudnn():
+        out, h_n = gru(x.transpose(0, 1))
+        fin = torch.cat([h_n[0], h_n[1]], dim=-1)
+        loss = ((out.transpose(0, 1).float() * cts[0].float()).sum()
+                + (fin.float() * cts[1].float()).sum())
+        return torch.autograd.grad(loss, gru_leaves)
+
+    ms = {"fwd_bwd_k7_ms": cuda_ms(lambda: step(p, x, cts), iters, 1),
+          "fwd_bwd_cudnn_ms": cuda_ms(cudnn, iters, 1)}
+    del p, x, cts, gru, gru_leaves
+    torch.cuda.empty_cache()
+
+    got = {}
+    for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
+        rng = np.random.default_rng(14)
+        got[key] = [a.cpu() for a in step(*inputs(8, device))]
+    out_err = max(errors(a.float(), b.float())[1] for a, b in zip(got["card"][:2],
+                                                                   got["cpu"][:2]))
+    cos = min(leaf_cosines(got["card"][2:], got["cpu"][2:]))
+    ms.update(card_vs_cpu_out_rel=out_err, card_vs_cpu_min_leaf_cos=cos)
+    print(f"gru-recurrence-bf16: fwd+bwd ms through K7 (bf16) {ms['fwd_bwd_k7_ms']:.3f}, "
+          f"cuDNN in bf16 {ms['fwd_bwd_cudnn_ms']:.3f}; card vs CPU at N=8: outputs "
+          f"{out_err:.3e} of max|ref| (tol {BF16_TOL:g}), lowest of {len(got['cpu']) - 2} "
+          f"gradient leaves' cosines {cos:.7f} (min {BF16_COS})", flush=True)
+    if not (out_err <= BF16_TOL and cos >= BF16_COS):
+        raise RuntimeError("gru-recurrence-bf16: card and CPU disagree")
+    return launches, ms
+
+
+def trunk_block_bf16(dev, R=4096, iters=5):
+    """K9's path at bf16: ``fused_residual_block`` at the four MOSEI T==1
+    blocks (TRUNK_BLOCKS) on bf16 x and src with float32 parameters (the
+    masters of a bf16 step): R=4096 in train mode (trunk_block_phase's
+    dropout) and R=1 in eval, forward and the gradient of a scalar loss in
+    x, src and the six parameters: one K9f.bf16 and one K9b.bf16 a call;
+    fwd+bwd ms.  Then the card against the CPU at R=8, train: the output
+    within BF16_TOL of max |ref|, each gradient leaf a cosine of BF16_COS."""
+    from multimodal_transformer_robustness_tpu_torch.ops.trunk_block_cuda import (
+        fused_residual_block)
+
+    bf = torch.bfloat16
+    rng = np.random.default_rng(15)
+    launches, stats = expect(), {}
+    for name, E, F1, act, rep, cross, masked in TRUNK_BLOCKS:
+        seeds = [int(s) for s in rng.integers(-2**31, 2**31 - 1, 2)]
+
+        def call(rows, train, device, r):
+            x, src, ct, params, (cm, mm, _) = trunk_block_operands(r, rows, E, F1, masked,
+                                                                   device)
+            x, src, ct = (a.to(bf) for a in (x, src, ct))
+            leaves = [a.requires_grad_(True) for a in [x, src] + params]
+            wrt = leaves if cross else [leaves[0]] + leaves[2:]
+            kw = dict(act=act, mid_rep=rep, rate_mid=0.1, rate_res=0.3, seed_mid=seeds[0],
+                      seed_res=seeds[1], use_drop_mid=train, use_drop_res=train)
+
+            def fused():
+                y = fused_residual_block(leaves[0], leaves[1] if cross else leaves[0],
+                                         *leaves[2:], cm if masked else None, mm,
+                                         cm if masked else None, **kw)
+                return [y.detach()] + list(torch.autograd.grad((y.float() * ct.float()).sum(),
+                                                               wrt))
+            return fused
+
+        for rows, train in ((R, True), (1, False)):
+            fused = call(rows, train, dev, rng)
+            reset_counters()
+            res = fused()
+            torch.cuda.synchronize()
+            got = read_counters()
+            finite = all(bool(torch.isfinite(a).all()) for a in res)
+            if got != expect_bf16(K9f=1, K9b=1) or not finite or res[0].dtype != bf:
+                raise RuntimeError(f"trunk-block-bf16 {name} R={rows}: launches {got}, "
+                                   f"dtype {res[0].dtype} or non-finite values")
+            launches = {k: launches[k] + got[k] for k in launches}
+            stats[f"{name} R={rows} {'train' if train else 'eval'}"] = {
+                "fused_fwd_bwd_ms": cuda_ms(fused, iters if rows > 1 else 20, 1)}
+            del res, fused
+        res = {}
+        for key, device in (("card", dev), ("cpu", torch.device("cpu"))):
+            res[key] = [a.cpu() for a in call(8, True, device, np.random.default_rng(16))()]
+        out_err = errors(res["card"][0].float(), res["cpu"][0].float())[1]
+        cos = min(leaf_cosines(res["card"][1:], res["cpu"][1:]))
+        key = f"{name} R={R} train"
+        stats[key].update(card_vs_cpu_out_rel=out_err, card_vs_cpu_min_leaf_cos=cos)
+        print(f"trunk-block-bf16 {name} E={E} F1={F1}: K9f.bf16 / K9b.bf16 1 / 1 a call, "
+              f"every other kernel 0; fwd+bwd ms R={R} train "
+              f"{stats[key]['fused_fwd_bwd_ms']:.4f}, R=1 eval "
+              f"{stats[f'{name} R=1 eval']['fused_fwd_bwd_ms']:.4f}; card vs CPU at R=8, "
+              f"dropout on: output {out_err:.3e} of max|ref| (tol {BF16_TOL:g}), lowest "
+              f"gradient leaf cosine {cos:.7f} (min {BF16_COS})", flush=True)
+        if not (out_err <= BF16_TOL and cos >= BF16_COS):
+            raise RuntimeError(f"trunk-block-bf16 {name}: card and CPU disagree")
+        torch.cuda.empty_cache()
+    return launches, stats
+
+
 def split_of(batch):
     """A gather-style dataset over one batch's arrays (the text a [3, N, L]
     token stack), as the MOSEI loader serves them.  It is an
@@ -3349,13 +3640,14 @@ def kernel_entries(rows, launches):
 
 
 def bf16_kernel_entries(rows, launches):
-    """The bf16 instances of K1f, K1b, K2, K3, K4, K6a, K6b, K5f, K5b, K5dq
-    and K5dkv: worst error over their checked shapes (each held to BF16_TOL,
-    the flash kernels to FLASH_BF16_TOL, of max |ref|), their cosine against
-    the float32 kernel, and the times at the training path's shape (K1b:
-    in=768 without dx, the most frequent; K5dq / K5dkv: B=16 T=2048; every
-    shape in ``by_shape``, SDPA's backend beside the flash rows); launches
-    from the bf16 phases' counters."""
+    """The bf16 instances of K1f, K1b, K2, K3, K4, K6a, K6b, K5f, K5b, K5dq,
+    K5dkv, K8, K7f, K7b, K9f and K9b: worst error over their checked shapes
+    (each held to BF16_TOL, the flash kernels and K8 to FLASH_BF16_TOL, of
+    max |ref|), their cosine against the float32 kernel, and the times at
+    the training path's shape (K1b: in=768 without dx, the most frequent;
+    K5dq / K5dkv: B=16 T=2048; K8 B=4096 L=32; K7 and K9 their library-op
+    phases' shapes; every shape in ``by_shape``, SDPA's backend beside the
+    flash rows); launches from the bf16 phases' counters."""
     bf16_gemm = "csrc/gemm_bf16.cuh"
     meta = {
         "K1f.bf16": ("gru_dir", "K1.bf16", ("csrc/bigru.cu", bf16_gemm),
@@ -3380,6 +3672,16 @@ def bf16_kernel_entries(rows, launches):
                       "ops/attention_pallas_bwd.py:77", FLASH_LONG),
         "K5dkv.bf16": ("flash_bwd_dkv", "K5dkv.bf16", ("csrc/flash_attn.cu",),
                        "ops/attention_pallas_bwd.py:120", FLASH_LONG),
+        "K8.bf16": ("flash_attention_masked", "K8.bf16", ("csrc/bert_attn.cu",),
+                    "ops/attention_pallas.py:383", "B=4096 L=32 H=12 D=64"),
+        "K7f.bf16": ("gru_recurrence_cuda", "K7f.bf16", ("csrc/gru_recurrence.cu",),
+                     "ops/gru_pallas.py:113", K7_MAIN),
+        "K7b.bf16": ("gru_recurrence_bwd_cuda", "K7b.bf16", ("csrc/gru_recurrence.cu",),
+                     "ops/gru_pallas.py:187", K7_MAIN),
+        "K9f.bf16": ("trunk_block_fwd", "K9f.bf16", ("csrc/trunk_block.cu", bf16_gemm),
+                     "ops/trunk_block_pallas.py:270", K9_MAIN),
+        "K9b.bf16": ("trunk_block_bwd", "K9b.bf16", ("csrc/trunk_block.cu", bf16_gemm),
+                     "ops/trunk_block_pallas.py:309", K9_MAIN),
     }
     timed = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     kernels = []
@@ -3399,6 +3701,9 @@ def bf16_kernel_entries(rows, launches):
                         "by_shape": {r["shape"]: {k: r.get(k) for k in timed} for r in mine}})
         if "sdpa_backend" in at:   # the flash rows: SDPA's pick at D = 25
             kernels[-1]["library_backend"] = at["sdpa_backend"]
+        if kid == "K9b.bf16":   # as K9b's: the errors include relu-kink flips
+            kernels[-1]["max_err_over_max_ref_beyond_kink_allowance"] = max(
+                r["rel_beyond_allowance"] for r in mine)
     return kernels
 
 
@@ -3567,6 +3872,17 @@ def main() -> int:
     s16_flash_launches = serving_flash(dev, spec=spec16, label="serving-bf16-flash")
     torch.cuda.empty_cache()
 
+    phase("flash-masked-bf16")
+    masked16_launches = flash_masked_bf16(dev)
+
+    phase("gru-recurrence-bf16")
+    rec16_launches, rec16_stats = gru_recurrence_bf16(dev)
+    torch.cuda.empty_cache()
+
+    phase("trunk-block-bf16")
+    block16_launches, block16_stats = trunk_block_bf16(dev)
+    torch.cuda.empty_cache()
+
     phase("sweep")
     sweep_launches, sweep_stats = sweep_phase(dev, spec, bert_cfg)
 
@@ -3581,7 +3897,8 @@ def main() -> int:
                 "serving-bf16": s16_launches, "serving-bf16-int8": s16_int8_launches,
                 "serving-bf16-dense": s16_dense_launches, "bert-int8-full-bf16": full16_launches,
                 **flash16_launches, "train-bf16-flash": train16_flash_launches,
-                "serving-bf16-flash": s16_flash_launches}
+                "serving-bf16-flash": s16_flash_launches, "flash-masked-bf16": masked16_launches,
+                "gru-recurrence-bf16": rec16_launches, "trunk-block-bf16": block16_launches}
     kernels = kernel_entries(rows, launches) + bf16_kernel_entries(rows, launches)
     print(f"serving warm request ms, kernels {warm_ms}, plain {plain_ms}", flush=True)
     print(f"serving-int8 warm request ms, kernels {int8_warm}, plain {int8_plain}", flush=True)
@@ -3598,6 +3915,8 @@ def main() -> int:
     print("flash-stack-bf16 " + json.dumps(flash16_stats), flush=True)
     print("gru-recurrence " + json.dumps(rec_stats), flush=True)
     print("trunk-block " + json.dumps(block_stats), flush=True)
+    print("gru-recurrence-bf16 " + json.dumps(rec16_stats), flush=True)
+    print("trunk-block-bf16 " + json.dumps(block16_stats), flush=True)
     print("fit " + json.dumps(fit_stats), flush=True)
     print("sweep " + json.dumps(sweep_stats), flush=True)
     print("train-bf16 " + json.dumps(bf16_stats), flush=True)

@@ -26,7 +26,8 @@ _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
 SOURCES = ("bigru.cu", "bigru_bwd.cu", "bert_attn.cu", "bert_ffn.cu", "bert_ffn_q.cu",
-           "flash_attn.cu", "flash_attn_bf16.cu", "gru_recurrence.cu", "trunk_block.cu")
+           "flash_attn.cu", "flash_attn_bf16.cu", "gru_recurrence.cu", "trunk_block.cu",
+           "trunk_block_bf16.cu")
 # The launch bounds of K5b and of K5f's unit path, blocks an SM:
 # csrc/flash_attn.cu reads them as macros, and ops/attention_cuda.
 # _plan_flash_bwd / _plan_flash_fwd size their persistent grids by them.
@@ -59,6 +60,7 @@ _SIGNATURES = {
     "mmtr_attention_fwd": (_I, [_P] * 5 + [_I] * 4 + [_P, _P]),
     "mmtr_attention_fwd_bf16": (_I, [_P] * 5 + [_I] * 4 + [_P, _P]),
     "mmtr_attention_masked_fwd": (_I, [_P] * 5 + [_I] * 5 + [_P, _P]),
+    "mmtr_attention_masked_fwd_bf16": (_I, [_P] * 5 + [_I] * 5 + [_P, _P]),
     "mmtr_proj_ln_fwd": (_I, [_P] * 9 + [_I] * 2 + [_F, _P, _P]),
     "mmtr_proj_ln_fwd_bf16": (_I, [_P] * 9 + [_I] * 2 + [_F, _P, _P]),
     "mmtr_qrows": (_I, [_P] * 3 + [_I] * 2 + [_P]),
@@ -78,8 +80,12 @@ _SIGNATURES = {
     "mmtr_flash_bwd_bf16": (_I, [_P] * 11 + [_I] * 7 + [_P, _P]),
     "mmtr_gru_rec_fwd": (_I, [_P] * 10 + [_I] * 4 + [_P, _P]),
     "mmtr_gru_rec_bwd": (_I, [_P] * 12 + [_I] * 4 + [_P, _P]),
+    "mmtr_gru_rec_fwd_bf16": (_I, [_P] * 10 + [_I] * 4 + [_P, _P]),
+    "mmtr_gru_rec_bwd_bf16": (_I, [_P] * 12 + [_I] * 4 + [_P, _P]),
     "mmtr_trunk_block_fwd": (_I, [_P] * 15 + [_I] * 9 + [_F] * 3 + [_P, _P]),
     "mmtr_trunk_block_bwd": (_I, [_P] * 21 + [_I] * 9 + [_F] * 3 + [_P, _P]),
+    "mmtr_trunk_block_fwd_bf16": (_I, [_P] * 15 + [_I] * 9 + [_F] * 3 + [_P, _P]),
+    "mmtr_trunk_block_bwd_bf16": (_I, [_P] * 23 + [_I] * 9 + [_F] * 3 + [_P, _P]),
 }
 
 
@@ -169,25 +175,20 @@ def host_ints(values) -> tuple:
     return arr, ctypes.addressof(arr)
 
 
-BF16_TODO = ("has no bf16 instance yet (only K1f, K1b, K2, K3, K4, K5f, K5b, K5dq, K5dkv, "
-             "K6a and K6b have one): ROADMAP Queue 2, 'bf16'")
-
-
-def refuse_bf16(what: str, *tensors) -> None:
-    """Raise NotImplementedError where a bf16 tensor reaches a kernel (or
-    its plain version) that has no bf16 instance: nothing casts quietly
-    to float32."""
-    if any(t is not None and t.dtype == torch.bfloat16 for t in tensors):
-        raise NotImplementedError(f"{what} {BF16_TODO}")
+BF16_TODO = ("takes no bf16 operand there (every kernel has a bf16 instance, which takes "
+             "bf16 where its JAX kernel does): ROADMAP")
 
 
 def require(t: torch.Tensor, name: str, shape: tuple, device: torch.device,
             dtype: torch.dtype = torch.float32) -> None:
     """Raise on what the kernels do not take: they read contiguous tensors
     of one dtype (float32 unless the caller names another: the int8
-    weights and codes of K4, or bfloat16 for the bf16 instances of K1f,
-    K1b, K2, K3, K4, K5f, K5b, K5dq, K5dkv, K6a and K6b) on one card, of exactly the given shape.  A bfloat16
-    tensor where the kernel takes float32 raises NotImplementedError."""
+    weights and codes of K4, or bfloat16 for the bf16 instances, which
+    every kernel has: K1f, K1b, K2, K3, K4, K5f, K5b, K5dq, K5dkv, K6a,
+    K6b, K7f, K7b, K8, K9f and K9b) on one card, of exactly the given
+    shape.  A bfloat16 tensor where the kernel takes float32 (a float32
+    argument of a bf16 instance, or a float32 call) raises
+    NotImplementedError."""
     if t.device != device:
         raise ValueError(f"{name} is on {t.device}, expected {device}")
     if t.dtype == torch.bfloat16 and dtype != torch.bfloat16:

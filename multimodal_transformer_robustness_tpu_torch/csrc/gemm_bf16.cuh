@@ -44,7 +44,9 @@
 // / lo split and take k steps of 16, and routing gemm_tc.cuh's float loops
 // through a ring shared with these changed the float kernels' machine code
 // (tools/float_sass_check.py), so the loops stay apart.  TMA and a
-// persistent producer warp are later work.
+// persistent producer warp are later work.  K9's bf16 instance
+// (trunk_block.cu) runs its products here with its own epilogues
+// (EPI_K9_*: the kernels carry EpiArgs) and float32 biases (TB).
 #pragma once
 
 #include "common.cuh"
@@ -64,6 +66,13 @@ constexpr int BF_A_ELEMS =
 constexpr int BF_B_ELEMS = BF_BK * BF_LDN;
 constexpr int BF_SMEM = 2 * BF_STAGES * (BF_A_ELEMS + BF_B_ELEMS);        // 75,776 bytes
 
+// Where a bias argument's type should come from the template arguments
+// (their default), not from the call: a nullptr bias deduces nothing.
+template <typename T>
+struct bf_given {
+  using type = T;
+};
+
 struct BfGemm {
   const bf16* A;
   const bf16* B;
@@ -76,16 +85,18 @@ struct BfGemm {
 // Output (r, c) of an [M, N] product: epilogue v of the sum acc, stored
 // at C[c / hg][r][c % hg], rounded where O is bf16.  hg = N, a plain [M,
 // N], skips the integer division, which would run once an output (4e8 of
-// them in K3's bf16 fc1); the branch is uniform.
-template <int EPI, typename O>
-__device__ __forceinline__ void bf_store(O* C, const bf16* bias, const bf16* resid, int M,
-                                         int N, int hg, int r, int c, float acc) {
+// them in K3's bf16 fc1); the branch is uniform.  TB: the bias's type
+// (bf16, or float for K9's).
+template <int EPI, typename O, typename TB>
+__device__ __forceinline__ void bf_store(O* C, const TB* bias, const bf16* resid, int M,
+                                         int N, int hg, int r, int c, float acc,
+                                         const EpiArgs& ex) {
   long long at = (long long)r * N + c;
   if (hg != N) {
     const int g = c / hg;
     at = ((long long)g * M + r) * hg + (c - g * hg);
   }
-  st_f(C + at, tc_epilogue<EPI, bf16>(acc, bias, resid, r, c, N, EpiArgs{}));
+  st_f(C + at, tc_epilogue<EPI, bf16, TB>(acc, bias, resid, r, c, N, ex));
 }
 
 // Copy cw elements (8, 4 or 2 by cp.async; 1 through a register), the
@@ -173,10 +184,10 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 // Block (column tile, row tile, split): the k tiles [z * kps, (z + 1) *
 // kps) of its 128 x 128 outputs.  One split: the epilogue into C; more:
 // plane z of `partial`, in C's gated layout.
-template <bool AK, int EPI, typename O>
+template <bool AK, int EPI, typename O, typename TB = bf16>
 __global__ void __launch_bounds__(BF_THREADS)
-gemm_bf16_kernel(const BfGemm p, const bf16* __restrict__ bias, const bf16* __restrict__ resid,
-                 O* __restrict__ C, int hg, float* __restrict__ partial) {
+gemm_bf16_kernel(const BfGemm p, const TB* __restrict__ bias, const bf16* __restrict__ resid,
+                 O* __restrict__ C, int hg, float* __restrict__ partial, EpiArgs ex) {
   extern __shared__ float4 bf_smem4[];
   bf16* As = reinterpret_cast<bf16*>(bf_smem4);     // [STAGES][A_ELEMS]
   bf16* Bs = As + BF_STAGES * BF_A_ELEMS;           // [STAGES][BK][LDN]
@@ -258,9 +269,9 @@ gemm_bf16_kernel(const BfGemm p, const bf16* __restrict__ bias, const bf16* __re
         const int c = col0 + wn0 + j * 8 + 2 * t4 + (e & 1);
         if (r >= p.M || c >= p.N) continue;
         if (split)
-          bf_store<EPI_NONE>(plane, nullptr, nullptr, p.M, p.N, hg, r, c, acc[i][j][e]);
+          bf_store<EPI_NONE>(plane, bias, resid, p.M, p.N, hg, r, c, acc[i][j][e], ex);
         else
-          bf_store<EPI>(C, bias, resid, p.M, p.N, hg, r, c, acc[i][j][e]);
+          bf_store<EPI>(C, bias, resid, p.M, p.N, hg, r, c, acc[i][j][e], ex);
       }
 }
 
@@ -371,11 +382,11 @@ __device__ __forceinline__ void bw_k_tile(float (&acc)[64], uint32_t (&a)[4][4],
   wgmma_fence_acc(acc);
 }
 
-template <int EPI, typename O>
+template <int EPI, typename O, typename TB = bf16>
 __global__ void __launch_bounds__(WG_THREADS)
 gemm_wgmma_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bt, int M, int N,
-                       int K, int lda, const bf16* __restrict__ bias,
-                       const bf16* __restrict__ resid, O* __restrict__ C, int hg) {
+                       int K, int lda, const TB* __restrict__ bias,
+                       const bf16* __restrict__ resid, O* __restrict__ C, int hg, EpiArgs ex) {
   extern __shared__ float4 bw_smem4[];
   bf16* Bs = reinterpret_cast<bf16*>((reinterpret_cast<uintptr_t>(bw_smem4) + 1023) &
                                      ~uintptr_t(1023));        // [S][128][64]
@@ -412,7 +423,7 @@ gemm_wgmma_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bt, 
     for (int e = 0; e < 4; ++e) {
       const int r = row0 + wrow + g8 + (e >= 2 ? 8 : 0);
       const int c = col0 + i * 8 + 2 * t4 + (e & 1);
-      if (r < M && c < N) bf_store<EPI>(C, bias, resid, M, N, hg, r, c, acc[i * 4 + e]);
+      if (r < M && c < N) bf_store<EPI>(C, bias, resid, M, N, hg, r, c, acc[i * 4 + e], ex);
     }
 }
 
@@ -429,12 +440,14 @@ inline BfPlan bf_plan(const int* q) { return BfPlan{q[0], q[1], q[2], q[3], q[4]
 inline bool bf_cw_ok(int cw) { return cw == 1 || cw == 2 || cw == 4 || cw == 8; }
 
 // C (gated [N/hg, M, hg], O float32 or bf16) = epilogue(A @ B) by the
-// plan, bias and resid bf16; with splits > 1 the planes go to `partial` and
-// gemm_splitk_sum adds them and applies the epilogue.  p.M must count a
-// ones row.  Returns the launches' cudaError_t.
-template <bool AK, int EPI, typename O>
-cudaError_t launch_gemm_bf16(const BfPlan& pl, BfGemm p, const bf16* bias, const bf16* resid,
-                             O* C, int hg, float* partial, cudaStream_t stream) {
+// plan, resid bf16, bias TB (bf16, or float32 for K9's); with splits > 1
+// the planes go to `partial` and gemm_splitk_sum adds them and applies the
+// epilogue.  ex: K9's epilogue arguments.  p.M must count a ones row.
+// Returns the launches' cudaError_t.
+template <bool AK, int EPI, typename O, typename TB = bf16>
+cudaError_t launch_gemm_bf16(const BfPlan& pl, BfGemm p, const typename bf_given<TB>::type* bias,
+                             const bf16* resid, O* C, int hg, float* partial,
+                             cudaStream_t stream, const EpiArgs& ex = EpiArgs{}) {
   if (pl.wgmma) {
     if constexpr (AK) {
       if (pl.acw != 8 || p.K % 8 != 0 || partial == nullptr) return cudaErrorInvalidValue;
@@ -444,11 +457,11 @@ cudaError_t launch_gemm_bf16(const BfPlan& pl, BfGemm p, const bf16* bias, const
                                                                         p.ldb, p.hgb);
       static unsigned long long wg_smem_set = 0;
       cudaError_t err =
-          allow_smem_once((const void*)gemm_wgmma_bf16_kernel<EPI, O>, &wg_smem_set);
+          allow_smem_once((const void*)gemm_wgmma_bf16_kernel<EPI, O, TB>, &wg_smem_set);
       if (err != cudaSuccess) return err;
       const dim3 grid((p.N + BW_BN - 1) / BW_BN, (p.M + WG_BM - 1) / WG_BM);
-      gemm_wgmma_bf16_kernel<EPI, O><<<grid, WG_THREADS, BW_SMEM, stream>>>(
-          p.A, bt, p.M, p.N, p.K, p.lda, bias, resid, C, hg);
+      gemm_wgmma_bf16_kernel<EPI, O, TB><<<grid, WG_THREADS, BW_SMEM, stream>>>(
+          p.A, bt, p.M, p.N, p.K, p.lda, bias, resid, C, hg, ex);
       return cudaGetLastError();
     } else {
       return cudaErrorInvalidValue;
@@ -458,20 +471,21 @@ cudaError_t launch_gemm_bf16(const BfPlan& pl, BfGemm p, const bf16* bias, const
       (pl.splits > 1 && partial == nullptr))
     return cudaErrorInvalidValue;
   static unsigned long long smem_set = 0;
-  cudaError_t err = allow_smem_once((const void*)gemm_bf16_kernel<AK, EPI, O>, &smem_set);
+  cudaError_t err =
+      allow_smem_once((const void*)gemm_bf16_kernel<AK, EPI, O, TB>, &smem_set);
   if (err != cudaSuccess) return err;
   p.acw = pl.acw;
   p.bcw = pl.bcw;
   p.kps = pl.kps;
   const dim3 grid((p.N + BF_BN - 1) / BF_BN, (p.M + BF_BM - 1) / BF_BM, pl.splits);
-  gemm_bf16_kernel<AK, EPI, O><<<grid, BF_THREADS, BF_SMEM, stream>>>(p, bias, resid, C, hg,
-                                                                      partial);
+  gemm_bf16_kernel<AK, EPI, O, TB><<<grid, BF_THREADS, BF_SMEM, stream>>>(p, bias, resid, C,
+                                                                          hg, partial, ex);
   err = cudaGetLastError();
   if (err != cudaSuccess || pl.splits == 1) return err;
   const long long n = (long long)p.M * p.N;
-  gemm_splitk_sum<EPI, bf16, O><<<(unsigned)((n + RED_THREADS - 1) / RED_THREADS), RED_THREADS,
-                                  0, stream>>>(partial, bias, resid, C, n, p.M, p.N, hg,
-                                               pl.splits, EpiArgs{});
+  gemm_splitk_sum<EPI, bf16, O, TB><<<(unsigned)((n + RED_THREADS - 1) / RED_THREADS),
+                                      RED_THREADS, 0, stream>>>(partial, bias, resid, C, n,
+                                                                p.M, p.N, hg, pl.splits, ex);
   return cudaGetLastError();
 }
 

@@ -91,20 +91,26 @@ __device__ __forceinline__ float tc_drop(const EpiArgs& ex, int r, int c) {
 // The epilogue of output (r, c) of an [M, N] product: acc (+ bias[c])
 // (then gelu_erf) (then resid[r][c] + it); or K9's (common.cuh's
 // GemmEpilogue).  T: the type of bias and resid, float, or bf16 for the
-// bf16 products (gemm_bf16.cuh), which round where GemmEpilogue says.
-template <int EPI, typename T = float>
-__device__ __forceinline__ float tc_epilogue(float acc, const T* __restrict__ bias,
+// bf16 products (gemm_bf16.cuh), which round where GemmEpilogue says; TB:
+// the bias's, T's but for K9's bf16 instance, whose biases stay float32
+// (its JAX kernel upcasts them) while resid (x, or the stored bf16 hidden
+// activation) is bf16.  K9's epilogues never round: their bf16 outputs
+// round once as they are stored.
+template <int EPI, typename T = float, typename TB = T>
+__device__ __forceinline__ float tc_epilogue(float acc, const TB* __restrict__ bias,
                                              const T* __restrict__ resid, int r, int c,
                                              int N, const EpiArgs& ex) {
   if constexpr (EPI == EPI_K9_MID) {
     const float u = (acc + bias[c]) * ex.mask[c];
     return (ex.act ? fmaxf(u, 0.f) : u) * tc_drop(ex, r, c);
   } else if constexpr (EPI == EPI_K9_OUT) {
-    return resid[(long long)r * N + c] + ((acc + bias[c]) * ex.mask[c]) * tc_drop(ex, r, c);
+    return ld_f(resid + (long long)r * N + c) +
+           ((acc + bias[c]) * ex.mask[c]) * tc_drop(ex, r, c);
   } else if constexpr (EPI == EPI_K9_DP) {
     // relu' from the sign of EPI_K9_MID's output: d * relu(u) > 0 iff u > 0
-    // where d > 0, and the factor is 0 anyway where d = 0
-    const bool dead = ex.act && !(resid[(long long)r * N + c] > 0.f);
+    // where d > 0, and the factor is 0 anyway where d = 0 (rounding to bf16
+    // keeps the sign)
+    const bool dead = ex.act && !(ld_f(resid + (long long)r * N + c) > 0.f);
     return acc * (tc_drop(ex, r, c) * (dead ? 0.f : 1.f) * ex.mask[c]);
   } else {
     float v = acc;
@@ -334,9 +340,9 @@ gemm_tc_kernel(const float* __restrict__ A, const float* __restrict__ B,
 
 // C[i] = epilogue(P[0][i] + ... + P[splits-1][i]), the planes added in that
 // order (a rerun gives the same bits), over the gated [N/hg, M, hg] layout;
-// T and O: the bf16 products' bias / resid and output types.
-template <int EPI, typename T = float, typename O = float>
-__global__ void gemm_splitk_sum(const float* __restrict__ P, const T* __restrict__ bias,
+// T, O and TB: the bf16 products' resid, output and bias types.
+template <int EPI, typename T = float, typename O = float, typename TB = T>
+__global__ void gemm_splitk_sum(const float* __restrict__ P, const TB* __restrict__ bias,
                                 const T* __restrict__ resid, O* __restrict__ C,
                                 long long total, int M, int N, int hg, int splits,
                                 EpiArgs ex) {
@@ -346,7 +352,7 @@ __global__ void gemm_splitk_sum(const float* __restrict__ P, const T* __restrict
   for (int z = 0; z < splits; ++z) v += P[z * total + i];
   const int g = (int)(i / ((long long)M * hg)), j = (int)(i % hg);
   const int r = (int)((i / hg) % M);
-  st_f(C + i, tc_epilogue<EPI, T>(v, bias, resid, r, g * hg + j, N, ex));
+  st_f(C + i, tc_epilogue<EPI, T, TB>(v, bias, resid, r, g * hg + j, N, ex));
 }
 
 // Few rows: 64 x 64 mma.sync tiles (4 warps of 32 x 32), where more blocks

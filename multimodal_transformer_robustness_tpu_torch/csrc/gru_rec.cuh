@@ -32,7 +32,13 @@
 // WT is the storage type of the weights, b_hn and h (float, or bf16 for
 // K1f's bf16 instance: the gates stay float32, h is carried in float32 and
 // rounded to bf16 where the JAX kernel rounds it, for the recurrent
-// product and the output); the float instances compile as before.
+// product and the output); the float instances compile as before.  GT is
+// the storage type of the gates and of b_hr, b_hz, and CT the type h is
+// rounded to before the recurrent product (WT by default).  K7f's bf16
+// instance stores everything in bf16 (WT = GT = bf16) but keeps CT float:
+// its JAX kernel multiplies the float32 carry by the upcast bf16 weights
+// (gru_pallas.py _gates_f32: h float32, w bf16, a float32 dot), so h is
+// rounded only where it is stored.
 //
 // The backward form (gru_rec_bwd_tiled_kernel: K1b's recurrence in
 // bigru_bwd.cu, K7b's in gru_recurrence.cu) walks the steps newest-first
@@ -60,11 +66,11 @@ constexpr int REC_RT = 4;                // rows a thread of the tiled form owns
 // The operands of G recurrences.  Group g's gate and output arrays start
 // g * group elements past these pointers, its weights g * H * H and its
 // biases g * H.
-template <typename WT>
+template <typename WT, typename GT = float, typename CT = WT>
 struct GruRecT {
-  const float* gate[3];      // input-side pre-activations r, z, n: [T, B, H] a group
+  const GT* gate[3];         // input-side pre-activations r, z, n: [T, B, H] a group
   const WT* w[3];            // W_hh^T of the gates r, z, n: [H, H] a group
-  const float* bias_rz[2];   // b_hr, b_hz [H] a group (read only when BIAS_RZ)
+  const GT* bias_rz[2];      // b_hr, b_hz [H] a group (read only when BIAS_RZ)
   const WT* bhn;             // b_hn [H] a group
   WT* out;                   // h [T, B, H] a group
   long long group;
@@ -127,6 +133,21 @@ __device__ __forceinline__ void tiled_prefetch(float4* gs, const float* const (&
     }
 }
 
+// tiled_prefetch for bf16 gates (no cp.async can widen them): this step's
+// values of the same rows and columns into registers, zero past B or H.
+__device__ __forceinline__ void tiled_read(float (&gx)[3][REC_RT][4], const bf16* const (&gate)[3],
+                                           int t, int B, int H, int b0, int r0, int j0) {
+#pragma unroll
+  for (int g = 0; g < 3; ++g)
+#pragma unroll
+    for (int i = 0; i < REC_RT; ++i) {
+      const int b = b0 + r0 + i;
+      const bf16* src = gate[g] + ((long long)t * B + b) * H + j0;
+#pragma unroll
+      for (int c = 0; c < 4; ++c) gx[g][i][c] = b < B && j0 + c < H ? bf2f(src[c]) : 0.f;
+    }
+}
+
 // Tiled form, block (group of R rows, g).  Thread (rg, jg) owns rows
 // 4rg..4rg+3 and columns 4jg..4jg+3 of the block's R rows, for all three
 // gates: per k, one float4 of h and three of W feed 48 FMAs (8-row tiles,
@@ -134,10 +155,12 @@ __device__ __forceinline__ void tiled_prefetch(float4* gs, const float* const (&
 // Shared memory: w [3][H][hp], hT [2][hp][R+4] (h transposed, so a float4
 // is four rows of one column), gs [2][3 * 4][threads] float4 (each thread's
 // own gate rows, double-buffered).  VEC: H a multiple of 4 (hp == H,
-// 16-byte gate rows).
-template <bool VEC, bool BIAS_RZ, typename WT = float>
+// 16-byte gate rows).  bf16 gates (GT) skip gs: each step reads its own
+// into registers (tiled_read) before the product, used after it.
+template <bool VEC, bool BIAS_RZ, typename WT = float, typename GT = float, typename CT = WT>
 __global__ void __launch_bounds__(REC_TILED_THREADS)
-gru_rec_tiled_kernel(const GruRecT<WT> p, int R) {
+gru_rec_tiled_kernel(const GruRecT<WT, GT, CT> p, int R) {
+  constexpr bool GF = std::is_same<GT, float>::value;
   extern __shared__ float4 rec_smem4[];
   const int T = p.T, B = p.B, H = p.H, hp = p.hp;
   float* w = reinterpret_cast<float*>(rec_smem4);
@@ -150,7 +173,7 @@ gru_rec_tiled_kernel(const GruRecT<WT> p, int R) {
   const int j0 = 4 * jg, r0 = REC_RT * rg;
   const int b0 = blockIdx.x * R, g = blockIdx.y;
   const long long goff = (long long)g * p.group;
-  const float* const gate[3] = {p.gate[0] + goff, p.gate[1] + goff, p.gate[2] + goff};
+  const GT* const gate[3] = {p.gate[0] + goff, p.gate[1] + goff, p.gate[2] + goff};
   WT* const out = p.out + goff;
 
   load_wt(w, p.w[0], p.w[1], p.w[2], g, H, hp);
@@ -162,8 +185,8 @@ gru_rec_tiled_kernel(const GruRecT<WT> p, int R) {
     const bool ok = j0 + c < H;
     bn[c] = ok ? ld_f(p.bhn + g * H + j0 + c) : 0.f;
     if constexpr (BIAS_RZ) {
-      br[c] = ok ? p.bias_rz[0][g * H + j0 + c] : 0.f;
-      bz[c] = ok ? p.bias_rz[1][g * H + j0 + c] : 0.f;
+      br[c] = ok ? ld_f(p.bias_rz[0] + (g * H + j0 + c)) : 0.f;
+      bz[c] = ok ? ld_f(p.bias_rz[1] + (g * H + j0 + c)) : 0.f;
     }
   }
 #pragma unroll
@@ -171,16 +194,23 @@ gru_rec_tiled_kernel(const GruRecT<WT> p, int R) {
 #pragma unroll
     for (int c = 0; c < 4; ++c) hold[i][c] = 0.f;
 
-  tiled_prefetch<VEC>(gs, gate, p.reverse ? T - 1 : 0, 0, B, H, b0, r0, j0);
-  cp_async_commit();
+  if constexpr (GF) {
+    tiled_prefetch<VEC>(gs, gate, p.reverse ? T - 1 : 0, 0, B, H, b0, r0, j0);
+    cp_async_commit();
+  }
   __syncthreads();
 
   for (int step = 0; step < T; ++step) {
     const int cur = step & 1;
-    if (step + 1 < T)
-      tiled_prefetch<VEC>(gs, gate, p.reverse ? T - 2 - step : step + 1, cur ^ 1, B, H, b0,
-                          r0, j0);
-    cp_async_commit();
+    float gx[3][REC_RT][4];   // bf16 gates: this step's, in registers
+    if constexpr (GF) {
+      if (step + 1 < T)
+        tiled_prefetch<VEC>(gs, gate, p.reverse ? T - 2 - step : step + 1, cur ^ 1, B, H, b0,
+                            r0, j0);
+      cp_async_commit();
+    } else {
+      tiled_read(gx, gate, p.reverse ? T - 1 - step : step, B, H, b0, r0, j0);
+    }
 
     float acc[3][REC_RT][4];
 #pragma unroll
@@ -209,14 +239,21 @@ gru_rec_tiled_kernel(const GruRecT<WT> p, int R) {
       }
     }
 
-    cp_async_wait<1>();   // this step's gate rows (this thread's own copies)
+    if constexpr (GF) cp_async_wait<1>();   // this step's gate rows (this thread's own copies)
     const int t = p.reverse ? T - 1 - step : step;
     float* hn_next = hT + (cur ^ 1) * hp * ldh + r0;
 #pragma unroll
     for (int i = 0; i < REC_RT; ++i) {
-      const float4 gr = gs[(cur * 3 * REC_RT + 0 * REC_RT + i) * nthreads + tid];
-      const float4 gz = gs[(cur * 3 * REC_RT + 1 * REC_RT + i) * nthreads + tid];
-      const float4 gn = gs[(cur * 3 * REC_RT + 2 * REC_RT + i) * nthreads + tid];
+      float4 gr, gz, gn;
+      if constexpr (GF) {
+        gr = gs[(cur * 3 * REC_RT + 0 * REC_RT + i) * nthreads + tid];
+        gz = gs[(cur * 3 * REC_RT + 1 * REC_RT + i) * nthreads + tid];
+        gn = gs[(cur * 3 * REC_RT + 2 * REC_RT + i) * nthreads + tid];
+      } else {
+        gr = make_float4(gx[0][i][0], gx[0][i][1], gx[0][i][2], gx[0][i][3]);
+        gz = make_float4(gx[1][i][0], gx[1][i][1], gx[1][i][2], gx[1][i][3]);
+        gn = make_float4(gx[2][i][0], gx[2][i][1], gx[2][i][2], gx[2][i][3]);
+      }
       const float xr[4] = {gr.x, gr.y, gr.z, gr.w};
       const float xz[4] = {gz.x, gz.y, gz.z, gz.w};
       const float xn[4] = {gn.x, gn.y, gn.z, gn.w};
@@ -235,8 +272,8 @@ gru_rec_tiled_kernel(const GruRecT<WT> p, int R) {
 #pragma unroll
       for (int q = 0; q < REC_RT; q += 4)
         *reinterpret_cast<float4*>(hn_next + (j0 + c) * ldh + q) =
-            make_float4(as_t<WT>(hold[q][c]), as_t<WT>(hold[q + 1][c]),
-                        as_t<WT>(hold[q + 2][c]), as_t<WT>(hold[q + 3][c]));
+            make_float4(as_t<CT>(hold[q][c]), as_t<CT>(hold[q + 1][c]),
+                        as_t<CT>(hold[q + 2][c]), as_t<CT>(hold[q + 3][c]));
 #pragma unroll
     for (int i = 0; i < REC_RT; ++i) {
       const int b = b0 + r0 + i;
@@ -257,7 +294,7 @@ gru_rec_tiled_kernel(const GruRecT<WT> p, int R) {
     }
     __syncthreads();   // h of step+1 complete; this step's h buffer free
   }
-  cp_async_wait<0>();
+  if constexpr (GF) cp_async_wait<0>();
 }
 
 // Small form, block (row, g).  Thread (j, ks), ks fastest over KS lanes of
@@ -271,9 +308,9 @@ gru_rec_tiled_kernel(const GruRecT<WT> p, int R) {
 // bound leaves 72 registers, and three gate pointers, an output pointer or
 // two bias registers more spill.  Shared memory: hs [2][hp], then b_hr and
 // b_hz [2][hp] (BIAS_RZ).
-template <bool BIAS_RZ, typename WT = float>
+template <bool BIAS_RZ, typename WT = float, typename GT = float, typename CT = WT>
 __global__ void __launch_bounds__(REC_SMALL_THREADS)
-gru_rec_small_kernel(const GruRecT<WT> p) {
+gru_rec_small_kernel(const GruRecT<WT, GT, CT> p) {
   constexpr int KS = REC_SMALL_KS;
   extern __shared__ float4 rec_smem4[];
   float* hs = reinterpret_cast<float*>(rec_smem4);
@@ -301,15 +338,15 @@ gru_rec_small_kernel(const GruRecT<WT> p) {
 
   if constexpr (BIAS_RZ) {
     for (int i = tid; i < H; i += blockDim.x) {
-      hb[i] = p.bias_rz[0][g * H + i];
-      hb[hp + i] = p.bias_rz[1][g * H + i];
+      hb[i] = ld_f(p.bias_rz[0] + (g * H + i));
+      hb[hp + i] = ld_f(p.bias_rz[1] + (g * H + i));
     }
   }
   const float bn = active ? ld_f(p.bhn + g * H + j) : 0.f;
   float gx[3] = {0.f, 0.f, 0.f};
   if (owner) {
 #pragma unroll
-    for (int gt = 0; gt < 3; ++gt) gx[gt] = p.gate[gt][at];
+    for (int gt = 0; gt < 3; ++gt) gx[gt] = ld_f(p.gate[gt] + at);
   }
   float hold = 0.f;
   __syncthreads();
@@ -319,7 +356,7 @@ gru_rec_small_kernel(const GruRecT<WT> p) {
     float gnext[3] = {0.f, 0.f, 0.f};
     if (owner && step + 1 < T) {
 #pragma unroll
-      for (int gt = 0; gt < 3; ++gt) gnext[gt] = p.gate[gt][at + step_stride];
+      for (int gt = 0; gt < 3; ++gt) gnext[gt] = ld_f(p.gate[gt] + (at + step_stride));
     }
 
     // two partial sums a gate halve the dependent chain
@@ -348,7 +385,7 @@ gru_rec_small_kernel(const GruRecT<WT> p) {
       const float z = gate_sigmoid(gx[1] + gh[1]);
       const float n = gate_tanh(gx[2] + r * (gh[2] + bn));
       hold = (1.0f - z) * n + z * hold;
-      hs[(cur ^ 1) * hp + j] = as_t<WT>(hold);
+      hs[(cur ^ 1) * hp + j] = as_t<CT>(hold);
       st_f(p.out + at, hold);
     }
     at += step_stride;
@@ -404,11 +441,15 @@ gru_rec_small_kernel(const GruRecT<WT> p) {
 // rounds da_r, da_z and dghn to bf16 for the carry and writes dg in bf16,
 // where the JAX kernel casts them to the operand dtype (h_prev, read from
 // the forward's bf16 output, is then the value the JAX kernel reads too).
-template <typename WT>
+// GT and CT as the forward's: K7b's bf16 instance reads bf16 gates and
+// biases and writes dg in bf16 but carries da unrounded (CT float), as its
+// JAX kernel's float32 dot_general does; its h_prev is the rounded stored
+// h, so its r, z, n are not K7f's, nor meant to be.
+template <typename WT, typename GT = float, typename CT = WT>
 struct GruRecBwdT {
-  const float* gate[3];     // input-side pre-activations r, z, n: [T, B, H] a group
+  const GT* gate[3];        // input-side pre-activations r, z, n: [T, B, H] a group
   const WT* w[3];           // W_hh^T of r, z, n: [H, H] a group
-  const float* bias_rz[2];  // b_hr, b_hz [H] a group (read only when BIAS_RZ)
+  const GT* bias_rz[2];     // b_hr, b_hz [H] a group (read only when BIAS_RZ)
   const WT* bhn;            // b_hn [H] a group
   const WT* hs;             // the forward's h [T, B, H] a group
   const WT* dhs;            // its cotangent [T, B, H] a group
@@ -465,9 +506,9 @@ __device__ __forceinline__ void bwd_store_h(float* hT, const float (&v)[4][4], i
     }
 }
 
-template <bool BIAS_RZ, typename WT = float>
+template <bool BIAS_RZ, typename WT = float, typename GT = float, typename CT = WT>
 __global__ void __launch_bounds__(REC_TILED_THREADS)
-gru_rec_bwd_tiled_kernel(const GruRecBwdT<WT> p, int R) {
+gru_rec_bwd_tiled_kernel(const GruRecBwdT<WT, GT, CT> p, int R) {
   constexpr bool F32 = std::is_same<WT, float>::value;
   extern __shared__ float4 rec_smem4[];
   const int T = p.T, B = p.B, H = p.H, js = p.js, hk = 4 * js, wp = p.wp, ldr = R + 4;
@@ -478,7 +519,7 @@ gru_rec_bwd_tiled_kernel(const GruRecBwdT<WT> p, int R) {
   const int jg = tid % js, rg = tid / js, r0 = 4 * rg;
   const int b0 = blockIdx.x * R, g = blockIdx.y;
   const long long goff = (long long)g * p.group;
-  const float* const gate[3] = {p.gate[0] + goff, p.gate[1] + goff, p.gate[2] + goff};
+  const GT* const gate[3] = {p.gate[0] + goff, p.gate[1] + goff, p.gate[2] + goff};
   const WT* const hs = p.hs + goff;
   const WT* const dhs = p.dhs + goff;
   WT* const dg = p.dg + 4 * goff;
@@ -499,8 +540,8 @@ gru_rec_bwd_tiled_kernel(const GruRecBwdT<WT> p, int R) {
     const int j = jg + js * c;
     bn[c] = j < H ? ld_f(p.bhn + g * H + j) : 0.f;
     if constexpr (BIAS_RZ) {
-      br[c] = j < H ? p.bias_rz[0][g * H + j] : 0.f;
-      bz[c] = j < H ? p.bias_rz[1][g * H + j] : 0.f;
+      br[c] = j < H ? ld_f(p.bias_rz[0] + (g * H + j)) : 0.f;
+      bz[c] = j < H ? ld_f(p.bias_rz[1] + (g * H + j)) : 0.f;
     }
   }
   for (int i = tid; i < 2 * hk * ldr; i += blockDim.x) hT[i] = 0.f;   // rows H.. stay 0
@@ -545,7 +586,7 @@ gru_rec_bwd_tiled_kernel(const GruRecBwdT<WT> p, int R) {
         const bool ok = b < B && j < H;
         const long long at = ((long long)t * B + b) * H + j;
 #pragma unroll
-        for (int gt = 0; gt < 3; ++gt) gx[gt][i][c] = ok ? gate[gt][at] : 0.f;
+        for (int gt = 0; gt < 3; ++gt) gx[gt][i][c] = ok ? ld_f(gate[gt] + at) : 0.f;
         dy[i][c] = ok ? ld_f(dhs + at) : 0.f;
       }
 
@@ -592,10 +633,10 @@ gru_rec_bwd_tiled_kernel(const GruRecBwdT<WT> p, int R) {
         const float n = gate_tanh(gx[2][i][c] + r * ghn);
         const float dht = dy[i][c] + dh[i][c];
         const float da_n = dht * (1.0f - z) * (1.0f - n * n);
-        // the bf16 instance's carry reads these rounded, as dg holds them
-        dgn[i] = as_t<WT>(da_n * r);
-        dar[i] = as_t<WT>(da_n * ghn * r * (1.0f - r));
-        daz[i] = as_t<WT>(dht * (hprev[i] - n) * z * (1.0f - z));
+        // K1b's bf16 instance's carry reads these rounded, as dg holds them
+        dgn[i] = as_t<CT>(da_n * r);
+        dar[i] = as_t<CT>(da_n * ghn * r * (1.0f - r));
+        daz[i] = as_t<CT>(dht * (hprev[i] - n) * z * (1.0f - z));
         dh[i][c] = dht * z;
         const int b = b0 + r0 + i;
         if (b < B && j < H) {
@@ -645,19 +686,19 @@ gru_rec_bwd_tiled_kernel(const GruRecBwdT<WT> p, int R) {
 // ints (ops/bigru_cuda._plan_rec_bwd): rows (a block's, a multiple of 4),
 // threads (rows / 4 * js), smem (bytes), js and wp (already in p).  The grid
 // is (ceil(B / rows), groups).  Returns the launch's cudaError_t.
-template <bool BIAS_RZ, typename WT = float>
-cudaError_t launch_gru_rec_bwd_tiled(const GruRecBwdT<WT>& p, int groups, const int* rec,
-                                     cudaStream_t stream) {
+template <bool BIAS_RZ, typename WT = float, typename GT = float, typename CT = WT>
+cudaError_t launch_gru_rec_bwd_tiled(const GruRecBwdT<WT, GT, CT>& p, int groups,
+                                     const int* rec, cudaStream_t stream) {
   const int rows = rec[0], threads = rec[1], smem = rec[2];
   if (rows % 4 != 0 || threads != rows / 4 * p.js || threads > REC_TILED_THREADS ||
       p.wp % 2 == 0 || p.wp < 4 * p.js || 4 * p.js < p.H)
     return cudaErrorInvalidValue;
   static unsigned long long smem_set = 0;
   const cudaError_t err =
-      allow_smem_once((const void*)gru_rec_bwd_tiled_kernel<BIAS_RZ, WT>, &smem_set);
+      allow_smem_once((const void*)gru_rec_bwd_tiled_kernel<BIAS_RZ, WT, GT, CT>, &smem_set);
   if (err != cudaSuccess) return err;
   const dim3 grid((p.B + rows - 1) / rows, groups);
-  gru_rec_bwd_tiled_kernel<BIAS_RZ, WT><<<grid, threads, smem, stream>>>(p, rows);
+  gru_rec_bwd_tiled_kernel<BIAS_RZ, WT, GT, CT><<<grid, threads, smem, stream>>>(p, rows);
   return cudaGetLastError();
 }
 
@@ -667,27 +708,27 @@ cudaError_t launch_gru_rec_bwd_tiled(const GruRecBwdT<WT>& p, int groups, const 
 // the small form), vec (tiled form: H a multiple of 4, 16-byte aligned gate
 // and output arrays) and hp (H rounded up to 4, already in p).  The grid is
 // (ceil(B / rows), groups).  Returns the launch's cudaError_t.
-template <bool BIAS_RZ, typename WT = float>
-cudaError_t launch_gru_rec(const GruRecT<WT>& p, int groups, const int* rec,
+template <bool BIAS_RZ, typename WT = float, typename GT = float, typename CT = WT>
+cudaError_t launch_gru_rec(const GruRecT<WT, GT, CT>& p, int groups, const int* rec,
                            cudaStream_t stream) {
   const int small = rec[0], rows = rec[1], threads = rec[2], smem = rec[3], ks = rec[4],
             vec = rec[5];
   const dim3 grid((p.B + rows - 1) / rows, groups);
   if (small) {
     if (ks != REC_SMALL_KS || rows != 1) return cudaErrorInvalidValue;
-    gru_rec_small_kernel<BIAS_RZ, WT><<<grid, threads, smem, stream>>>(p);
+    gru_rec_small_kernel<BIAS_RZ, WT, GT, CT><<<grid, threads, smem, stream>>>(p);
   } else if (vec) {
     static unsigned long long smem_set = 0;
-    const cudaError_t err =
-        allow_smem_once((const void*)gru_rec_tiled_kernel<true, BIAS_RZ, WT>, &smem_set);
+    const cudaError_t err = allow_smem_once(
+        (const void*)gru_rec_tiled_kernel<true, BIAS_RZ, WT, GT, CT>, &smem_set);
     if (err != cudaSuccess) return err;
-    gru_rec_tiled_kernel<true, BIAS_RZ, WT><<<grid, threads, smem, stream>>>(p, rows);
+    gru_rec_tiled_kernel<true, BIAS_RZ, WT, GT, CT><<<grid, threads, smem, stream>>>(p, rows);
   } else {
     static unsigned long long smem_set = 0;
-    const cudaError_t err =
-        allow_smem_once((const void*)gru_rec_tiled_kernel<false, BIAS_RZ, WT>, &smem_set);
+    const cudaError_t err = allow_smem_once(
+        (const void*)gru_rec_tiled_kernel<false, BIAS_RZ, WT, GT, CT>, &smem_set);
     if (err != cudaSuccess) return err;
-    gru_rec_tiled_kernel<false, BIAS_RZ, WT><<<grid, threads, smem, stream>>>(p, rows);
+    gru_rec_tiled_kernel<false, BIAS_RZ, WT, GT, CT><<<grid, threads, smem, stream>>>(p, rows);
   }
   return cudaGetLastError();
 }

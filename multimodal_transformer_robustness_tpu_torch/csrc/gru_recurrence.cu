@@ -52,26 +52,41 @@
 // with four rows of serial work, 1.37 ms at G=2 T=64 N=1 against the row
 // form's 0.32 (tools/k7b_trials.py).  No float atomics: a rerun gives the
 // same bits.
+//
+// The bf16 instances (mmtr_gru_rec_fwd_bf16 / _bwd_bf16) are the TPU
+// kernels at bf16 operands: gates, weights, biases, hs, dhs and dg bf16,
+// every value upcast where it is read, the arithmetic float32.  K7f carries
+// h in float32 and multiplies it unrounded by the upcast weights, as the
+// JAX kernel's jnp.dot(h, w) of a float32 h and a bf16 w does, and rounds
+// h only where it stores it: the float32 recurrence with bf16 storage
+// (gru_rec.cuh at WT = GT = bf16, CT = float), not K1f's bf16 instance,
+// which rounds h before the product.  K7b reads h_{t-1} from the rounded
+// stored hs, carries dh in float32, feeds the unrounded da to the carry
+// and rounds da_r, da_z, da_n and dghn where it stores them.  The weights
+// are upcast into the float32 shared-memory layout, so the float32 plans
+// hold unchanged.  Bound at G=2 T=50 N=4096 H=100: the products, now with
+// one bf16 and one float32 operand (989 / 3 TFLOP/s), against 0.33 GB of
+// bf16 gates and states; the steps stay sequential.
 #include "gru_rec.cuh"
 
 namespace {
 
 // The three weights of group g into w[gate][k][0..H) with row stride H+1,
-// and the biases into b[gate][j].
-__device__ __forceinline__ void load_weights(float* w, float* b, const float* wr,
-                                             const float* wz, const float* wn,
-                                             const float* br, const float* bz,
-                                             const float* bn, int g, int H) {
+// and the biases into b[gate][j] (T: float, or bf16 upcast).
+template <typename T>
+__device__ __forceinline__ void load_weights(float* w, float* b, const T* wr, const T* wz,
+                                             const T* wn, const T* br, const T* bz,
+                                             const T* bn, int g, int H) {
   const int HP = H + 1, HH = H * H;
   const long long wo = (long long)g * HH, bo = (long long)g * H;
   for (int i = threadIdx.x; i < 3 * HH; i += blockDim.x) {
     const int gate = i / HH, rem = i - gate * HH, k = rem / H, j = rem - k * H;
-    const float* src = gate == 0 ? wr : (gate == 1 ? wz : wn);
-    w[(gate * H + k) * HP + j] = src[wo + rem];
+    const T* src = gate == 0 ? wr : (gate == 1 ? wz : wn);
+    w[(gate * H + k) * HP + j] = ld_f(src + wo + rem);
   }
   for (int i = threadIdx.x; i < 3 * H; i += blockDim.x) {
     const int gate = i / H, j = i - gate * H;
-    b[i] = (gate == 0 ? br : (gate == 1 ? bz : bn))[bo + j];
+    b[i] = ld_f((gate == 0 ? br : (gate == 1 ? bz : bn)) + bo + j);
   }
 }
 
@@ -80,16 +95,16 @@ __device__ __forceinline__ void load_weights(float* w, float* b, const float* wr
 // weight row a thread, free of bank conflicts), the biases [3][H], then
 // h_{t-1} [H], dh [H], gh = h_{t-1} W^T + b [3H] and da_r, da_z, dghn [3H].
 // A thread a gate column for the recompute, a thread a column of dh for
-// the carry; accurate expf / tanhf.
-__global__ void gru_rec_bwd_row_kernel(const float* __restrict__ gi_r,
-                                       const float* __restrict__ gi_z,
-                                       const float* __restrict__ gi_n,
-                                       const float* __restrict__ hs,
-                                       const float* __restrict__ dhs,
-                                       const float* __restrict__ wr, const float* __restrict__ wz,
-                                       const float* __restrict__ wn, const float* __restrict__ br,
-                                       const float* __restrict__ bz, const float* __restrict__ bn,
-                                       float* __restrict__ dg, int T, int N, int H) {
+// the carry; accurate expf / tanhf.  S: every array's storage type (bf16:
+// read upcast, dg rounded where it is stored, the carry's da unrounded).
+template <typename S>
+__global__ void gru_rec_bwd_row_kernel(const S* __restrict__ gi_r, const S* __restrict__ gi_z,
+                                       const S* __restrict__ gi_n, const S* __restrict__ hs,
+                                       const S* __restrict__ dhs, const S* __restrict__ wr,
+                                       const S* __restrict__ wz, const S* __restrict__ wn,
+                                       const S* __restrict__ br, const S* __restrict__ bz,
+                                       const S* __restrict__ bn, S* __restrict__ dg, int T,
+                                       int N, int H) {
   extern __shared__ float smem[];
   const int H3 = 3 * H, HP = H + 1;
   float* w = smem;                  // [3, H, H+1]
@@ -107,7 +122,7 @@ __global__ void gru_rec_bwd_row_kernel(const float* __restrict__ gi_r,
   for (int t = T - 1; t >= 0; --t) {
     const long long row = ((long long)g * T + t) * N + n;   // of [G*T*N] rows
     for (int j = threadIdx.x; j < H; j += blockDim.x)
-      hp[j] = t > 0 ? hs[(row - N) * H + j] : 0.f;
+      hp[j] = t > 0 ? ld_f(hs + (row - N) * H + j) : 0.f;
     __syncthreads();
     for (int j3 = threadIdx.x; j3 < H3; j3 += blockDim.x) {
       const int gate = j3 / H, j = j3 - gate * H;
@@ -119,20 +134,20 @@ __global__ void gru_rec_bwd_row_kernel(const float* __restrict__ gi_r,
     __syncthreads();
     for (int j = threadIdx.x; j < H; j += blockDim.x) {
       const long long at = row * H + j;
-      const float r = sigmoid_f(gi_r[at] + gh[j]);
-      const float z = sigmoid_f(gi_z[at] + gh[H + j]);
+      const float r = sigmoid_f(ld_f(gi_r + at) + gh[j]);
+      const float z = sigmoid_f(ld_f(gi_z + at) + gh[H + j]);
       const float gh_n = gh[2 * H + j];
-      const float nn = tanhf(gi_n[at] + r * gh_n);
-      const float dht = dhs[at] + dh[j];
+      const float nn = tanhf(ld_f(gi_n + at) + r * gh_n);
+      const float dht = ld_f(dhs + at) + dh[j];
       const float da_n = dht * (1.0f - z) * (1.0f - nn * nn);
       const float dghn = da_n * r;
       const float da_r = da_n * gh_n * r * (1.0f - r);
       const float da_z = dht * (hp[j] - nn) * z * (1.0f - z);
-      float* o = dg + row * 4 * H + j;
-      o[0] = da_n;
-      o[H] = da_r;
-      o[2 * H] = da_z;
-      o[3 * H] = dghn;
+      S* o = dg + row * 4 * H + j;
+      st_f(o, da_n);
+      st_f(o + H, da_r);
+      st_f(o + 2 * H, da_z);
+      st_f(o + 3 * H, dghn);
       da[j] = da_r;
       da[H + j] = da_z;
       da[2 * H + j] = dghn;
@@ -179,13 +194,49 @@ extern "C" int mmtr_gru_rec_bwd(const float* gi_r, const float* gi_z, const floa
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   if (plan[0]) {
     static unsigned long long smem_set = 0;
-    const cudaError_t err = allow_smem_once((const void*)gru_rec_bwd_row_kernel, &smem_set);
+    const cudaError_t err =
+        allow_smem_once((const void*)gru_rec_bwd_row_kernel<float>, &smem_set);
     if (err != cudaSuccess) return (int)err;
-    gru_rec_bwd_row_kernel<<<dim3(N, G), plan[2], plan[3], stream>>>(
+    gru_rec_bwd_row_kernel<float><<<dim3(N, G), plan[2], plan[3], stream>>>(
         gi_r, gi_z, gi_n, hs, dhs, wr, wz, wn, br, bz, bn, dg, T, N, H);
     return (int)cudaGetLastError();
   }
   const GruRecBwd p{{gi_r, gi_z, gi_n}, {wr, wz, wn}, {br, bz}, bn, hs, dhs, dg,
                     (long long)T * N * H, T, N, H, plan[4], plan[5], 0};
+  return (int)launch_gru_rec_bwd_tiled<true>(p, G, plan + 1, stream);
+}
+
+// K7f's bf16 instance: every array bf16, hs [G, T, N, H] bf16; the float
+// entry's plan.
+extern "C" int mmtr_gru_rec_fwd_bf16(const bf16* gi_r, const bf16* gi_z, const bf16* gi_n,
+                                     const bf16* wr, const bf16* wz, const bf16* wn,
+                                     const bf16* br, const bf16* bz, const bf16* bn, bf16* hs,
+                                     int G, int T, int N, int H, const int* plan,
+                                     void* stream_ptr) {
+  const GruRecT<bf16, bf16, float> p{{gi_r, gi_z, gi_n}, {wr, wz, wn}, {br, bz}, bn, hs,
+                                     (long long)T * N * H, T, N, H, plan[6], 0};
+  return (int)launch_gru_rec<true>(p, G, plan, (cudaStream_t)stream_ptr);
+}
+
+// K7b's bf16 instance: every array bf16, dg [G, T*N, 4H] bf16; the float
+// entry's plan.
+extern "C" int mmtr_gru_rec_bwd_bf16(const bf16* gi_r, const bf16* gi_z, const bf16* gi_n,
+                                     const bf16* hs, const bf16* dhs, const bf16* wr,
+                                     const bf16* wz, const bf16* wn, const bf16* br,
+                                     const bf16* bz, const bf16* bn, bf16* dg, int G, int T,
+                                     int N, int H, const int* plan, void* stream_ptr) {
+  cudaStream_t stream = (cudaStream_t)stream_ptr;
+  if (plan[0]) {
+    static unsigned long long smem_set = 0;
+    const cudaError_t err =
+        allow_smem_once((const void*)gru_rec_bwd_row_kernel<bf16>, &smem_set);
+    if (err != cudaSuccess) return (int)err;
+    gru_rec_bwd_row_kernel<bf16><<<dim3(N, G), plan[2], plan[3], stream>>>(
+        gi_r, gi_z, gi_n, hs, dhs, wr, wz, wn, br, bz, bn, dg, T, N, H);
+    return (int)cudaGetLastError();
+  }
+  const GruRecBwdT<bf16, bf16, float> p{{gi_r, gi_z, gi_n}, {wr, wz, wn}, {br, bz}, bn, hs,
+                                        dhs, dg, (long long)T * N * H, T, N, H, plan[4],
+                                        plan[5], 0};
   return (int)launch_gru_rec_bwd_tiled<true>(p, G, plan + 1, stream);
 }

@@ -601,13 +601,16 @@ def _effective_key_mask(key_mask: torch.Tensor) -> torch.Tensor:
 
 def flash_attention_masked_plain(q, k, v, key_mask) -> torch.Tensor:
     """Plain PyTorch version of K8: dense logits, masked key columns filled
-    with the finite -1e30, the all-zero-row rewrite, the normalizer floor."""
+    with the finite -1e30, the all-zero-row rewrite, the normalizer floor.
+    bf16 operands are upcast, p stays float32 through P V, and the output
+    is rounded once to q's dtype (the JAX kernel at bf16; not K6a's bf16
+    rule, which rounds p)."""
     km = _effective_key_mask(key_mask)
-    s = torch.einsum("bhqd,bhkd->bhqk", q, k)
+    s = torch.einsum("bhqd,bhkd->bhqk", _up(q), _up(k))
     s = torch.where(km[:, None, None, :] > 0, s, torch.full((), NEG_INF, device=q.device))
     p = torch.exp(s - s.amax(-1, keepdim=True))
     l_safe = torch.clamp(p.sum(-1, keepdim=True), min=1e-30)
-    return torch.einsum("bhqk,bhkd->bhqd", p, v) / l_safe
+    return (torch.einsum("bhqk,bhkd->bhqd", p, _up(v)) / l_safe).to(q.dtype)
 
 
 def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -619,9 +622,9 @@ def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     rather than losing its gradient.  CPU tensors take the plain version.
     On the card one launch (a mask that is not int32 on the card is
     converted first), planned by ``bert_attn_cuda._plan_attention`` with
-    ``Lk=Tk``: the unit path at Tq, Tk <= 64, else the tiled path.  bf16
-    raises NotImplementedError (no bf16 instance of K8: ROADMAP Queue 2)."""
-    _build.refuse_bf16("flash_attention_masked (K8, Queue 2 item 4)", q, k, v)
+    ``Lk=Tk``: the unit path at Tq, Tk <= 64, else the tiled path.  float32
+    or bf16 operands (the bf16 instance: the float32 kernels' arithmetic on
+    the upcast rows, the output rounded once, by the same plan)."""
     if q.device.type == "cpu":
         return flash_attention_masked_plain(q, k, v, key_mask)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -635,12 +638,13 @@ def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     plan = bert_attn_cuda._cached_plan(b, tq, h, d, _build.num_sms(dev),
                                        (qp | kp | vp) % 16 == 0, tk)
     out = torch.empty_like(q)
-    err = _build.load_library().mmtr_attention_masked_fwd(
-        qp, kp, vp, km.data_ptr(), out.data_ptr(), b, h, tq, tk, d, plan[1],
-        _build.stream_ptr(dev))
-    _build.check(err, "flash attention masked kernel")
+    bf = q.dtype == torch.bfloat16
+    _launch("mmtr_attention_masked_fwd", bf, "flash attention masked kernel", qp, kp, vp,
+            km.data_ptr(), out.data_ptr(), b, h, tq, tk, d, plan[1], _build.stream_ptr(dev))
     flash_attention_masked.launches += 1
+    flash_attention_masked.launches_bf16 += bf
     return out
 
 
 flash_attention_masked.launches = 0
+flash_attention_masked.launches_bf16 = 0

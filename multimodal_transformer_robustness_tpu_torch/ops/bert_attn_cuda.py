@@ -328,8 +328,8 @@ def attention_block_fused(x: torch.Tensor, key_mask: torch.Tensor,
     if softmax_dtype not in ("float32", "bfloat16"):
         raise ValueError(f"unknown softmax_dtype {softmax_dtype!r}")
     if softmax_dtype == "bfloat16" and x.dtype != torch.bfloat16:
-        raise NotImplementedError("the bf16 softmax tail on float32 activations "
-                                  + _build.BF16_TODO)
+        raise NotImplementedError("the bf16 softmax tail runs on bf16 activations only, as "
+                                  "in the JAX package (ROADMAP)")
     if x.dtype == torch.bfloat16:
         # on every device, so that the CPU computes nothing the card refuses
         _plan_attn_block_bf16(x.shape[0], x.shape[1], x.shape[2], n_heads)

@@ -25,7 +25,6 @@ from typing import Tuple
 
 import torch
 
-from .. import _build
 from .gru_cuda import GruRecurrence, gru_recurrence_plain  # noqa: F401  (K7f's plain version)
 
 
@@ -45,10 +44,14 @@ def gru_recurrence(gi_r, gi_z, gi_n, wr, wz, wn, br, bz, bn) -> torch.Tensor:
     (per-gate input projections, transposed recurrent weights ``[G, H, H]``,
     recurrent biases ``[G, H]``; h0 = 0) -> hidden states ``[G, T, N, H]``,
     differentiable in every argument.  The device decides: CUDA tensors
-    launch K7f (backward K7b), CPU tensors run the plain versions.  bf16
-    raises NotImplementedError (no bf16 instance of K7)."""
+    launch K7f (backward K7b), CPU tensors run the plain versions.  All
+    nine float32, or all nine bf16 (the TPU kernels at bf16 operands:
+    ``ops/gru_cuda.py``)."""
     args = (gi_r, gi_z, gi_n, wr, wz, wn, br, bz, bn)
-    _build.refuse_bf16("gru_recurrence (K7)", *args)
+    dtypes = {a.dtype for a in args}
+    if dtypes not in ({torch.float32}, {torch.bfloat16}):
+        raise ValueError(f"gru_recurrence takes nine float32 or nine bfloat16 tensors, "
+                         f"got {sorted(map(str, dtypes))}")
     return GruRecurrence.apply(*(a.contiguous() for a in args))
 
 

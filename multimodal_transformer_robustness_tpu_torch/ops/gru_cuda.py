@@ -23,6 +23,15 @@ by the plan :func:`_plan_gru_rec_bwd`.  :class:`GruRecurrence` joins
 the two as ``gru_recurrence_pallas``'s custom VJP does, and reduces the
 weight and bias gradients outside the kernel with ``torch.einsum`` / ``sum``,
 as the JAX package leaves them to XLA.
+
+bf16 operands (every one of the nine; the bf16 instances
+``mmtr_gru_rec_fwd_bf16`` / ``_bwd_bf16``, by the float32 plans) compute
+what the TPU kernels compute at bf16: the forward carries h in float32 and
+multiplies it unrounded by the upcast weights (``jnp.dot`` of a float32 h
+and a bf16 w), rounding h only where it stores hs; the backward recomputes
+from the rounded hs, carries dh and the carry's da in float32 and rounds
+da_r, da_z, da_n and dghn where it stores them; the weight and bias
+gradients sum the bf16 values in float32 and are rounded once.
 """
 
 from __future__ import annotations
@@ -40,8 +49,17 @@ def _hidden_gates(h, wr, wz, wn, br, bz, bn):
             torch.matmul(h, wn) + bn[:, None])
 
 
+def _f32(*tensors):
+    """The operands in float32 (bf16 upcast, exactly; float32 as they are)."""
+    return [t.float() for t in tensors]
+
+
 def gru_recurrence_plain(gi_r, gi_z, gi_n, wr, wz, wn, br, bz, bn) -> torch.Tensor:
-    """Plain PyTorch version of K7f: the time loop -> ``hs [G, T, N, H]``."""
+    """Plain PyTorch version of K7f: the time loop -> ``hs [G, T, N, H]``.
+    At bf16 the operands are upcast, h is carried (and multiplied) in
+    float32, and each stored step is rounded to bf16."""
+    dtype = gi_r.dtype
+    gi_r, gi_z, gi_n, wr, wz, wn, br, bz, bn = _f32(gi_r, gi_z, gi_n, wr, wz, wn, br, bz, bn)
     g, t_len, n, h_dim = gi_r.shape
     h = gi_r.new_zeros(g, n, h_dim)
     out = []
@@ -51,16 +69,20 @@ def gru_recurrence_plain(gi_r, gi_z, gi_n, wr, wz, wn, br, bz, bn) -> torch.Tens
         z = torch.sigmoid(gi_z[:, t] + gh_z)
         nn = torch.tanh(gi_n[:, t] + r * gh_n)
         h = (1.0 - z) * nn + z * h
-        out.append(h)
+        out.append(h.to(dtype))
     return torch.stack(out, dim=1)
 
 
 def gru_recurrence_bwd_plain(gi_r, gi_z, gi_n, hs, dhs, wr, wz, wn, br, bz, bn):
     """Plain PyTorch version of K7b: the newest-first loop of the TPU
-    kernel -> ``(da_r, da_z, da_n, dghn)``, each ``[G, T, N, H]``."""
+    kernel -> ``(da_r, da_z, da_n, dghn)``, each ``[G, T, N, H]``.  At bf16
+    the operands are upcast (h_{t-1} the rounded stored hs), dh and the
+    carry's da stay float32, and the four outputs are rounded as stored."""
+    outs = [torch.empty_like(gi_r) for _ in range(4)]
+    gi_r, gi_z, gi_n, hs, dhs, wr, wz, wn, br, bz, bn = _f32(
+        gi_r, gi_z, gi_n, hs, dhs, wr, wz, wn, br, bz, bn)
     t_len = gi_r.shape[1]
     dh = torch.zeros_like(hs[:, 0])
-    outs = [torch.empty_like(gi_r) for _ in range(4)]
     for t in range(t_len - 1, -1, -1):
         h_prev = hs[:, t - 1] if t > 0 else torch.zeros_like(dh)
         gh_r, gh_z, gh_n = _hidden_gates(h_prev, wr, wz, wn, br, bz, bn)
@@ -81,13 +103,16 @@ def gru_recurrence_bwd_plain(gi_r, gi_z, gi_n, hs, dhs, wr, wz, wn, br, bz, bn):
 
 
 def _check_operands(gates, weights, biases, dev):
+    """Shapes, and one dtype for all: float32, or bf16 for the bf16
+    instances."""
     g, t_len, n, h = gates[0].shape
+    dt = torch.bfloat16 if gates[0].dtype == torch.bfloat16 else torch.float32
     for name, a in zip(("gi_r", "gi_z", "gi_n", "hs", "dhs"), gates):
-        _build.require(a, name, (g, t_len, n, h), dev)
+        _build.require(a, name, (g, t_len, n, h), dev, dt)
     for name, a in zip(("wr", "wz", "wn"), weights):
-        _build.require(a, name, (g, h, h), dev)
+        _build.require(a, name, (g, h, h), dev, dt)
     for name, a in zip(("br", "bz", "bn"), biases):
-        _build.require(a, name, (g, h), dev)
+        _build.require(a, name, (g, h), dev, dt)
     return g, t_len, n, h
 
 
@@ -111,15 +136,18 @@ def gru_recurrence_cuda(gi_r, gi_z, gi_n, wr, wz, wn, br, bz, bn) -> torch.Tenso
     # 16-byte gate copies need the gate arrays 16-byte aligned (hs is fresh)
     aligned = (gi_r.data_ptr() | gi_z.data_ptr() | gi_n.data_ptr()) % 16 == 0
     plan = _cached_plan(g, n, h, _build.num_sms(dev), aligned)
-    err = lib.mmtr_gru_rec_fwd(
+    bf = gi_r.dtype == torch.bfloat16
+    err = (lib.mmtr_gru_rec_fwd_bf16 if bf else lib.mmtr_gru_rec_fwd)(
         *(a.data_ptr() for a in (gi_r, gi_z, gi_n, wr, wz, wn, br, bz, bn, hs)),
         g, t_len, n, h, plan[1], _build.stream_ptr(dev))
-    _build.check(err, "gru_recurrence forward kernel")
+    _build.check(err, "gru_recurrence forward kernel" + (" (bf16)" if bf else ""))
     gru_recurrence_cuda.launches += 1
+    gru_recurrence_cuda.launches_bf16 += bf
     return hs
 
 
 gru_recurrence_cuda.launches = 0
+gru_recurrence_cuda.launches_bf16 = 0
 
 
 # K7b's row form up to this many waves of one block an SM: at H=100 a row
@@ -168,17 +196,21 @@ def gru_recurrence_bwd_cuda(gi_r, gi_z, gi_n, hs, dhs, wr, wz, wn, br, bz, bn):
     g, t_len, n, h = _check_operands((gi_r, gi_z, gi_n, hs, dhs), (wr, wz, wn),
                                      (br, bz, bn), dev)
     plan = _cached_bwd_plan(g, n, h, _build.num_sms(dev))
-    dg = torch.empty(g, t_len, n, 4, h, dtype=torch.float32, device=dev)
-    err = _build.load_library().mmtr_gru_rec_bwd(
+    dg = torch.empty(g, t_len, n, 4, h, dtype=gi_r.dtype, device=dev)
+    lib = _build.load_library()
+    bf = gi_r.dtype == torch.bfloat16
+    err = (lib.mmtr_gru_rec_bwd_bf16 if bf else lib.mmtr_gru_rec_bwd)(
         *(a.data_ptr() for a in (gi_r, gi_z, gi_n, hs, dhs, wr, wz, wn, br, bz, bn, dg)),
         g, t_len, n, h, plan[1], _build.stream_ptr(dev))
-    _build.check(err, "gru_recurrence backward kernel")
+    _build.check(err, "gru_recurrence backward kernel" + (" (bf16)" if bf else ""))
     gru_recurrence_bwd_cuda.launches += 1
+    gru_recurrence_bwd_cuda.launches_bf16 += bf
     da_n, da_r, da_z, dghn = dg.unbind(3)
     return da_r, da_z, da_n, dghn
 
 
 gru_recurrence_bwd_cuda.launches = 0
+gru_recurrence_bwd_cuda.launches_bf16 = 0
 
 
 class GruRecurrence(torch.autograd.Function):
@@ -207,7 +239,10 @@ def weight_grads(hs, da_r, da_z, dghn):
     over t: a single product over all T*N rows into an [H, H] output (the
     einsum's form) fills only a few blocks of the card: on an H100 it took
     22.5 ms of the 45.7 ms fwd+bwd at the MOSEI header level
-    (chip_smoke.py, phase gru-recurrence)."""
-    hsl = hs[:, :-1].transpose(-1, -2)
-    dws = [torch.matmul(hsl, d[:, 1:]).sum(dim=1) for d in (da_r, da_z, dghn)]
-    return (*dws, *(d.sum(dim=(1, 2)) for d in (da_r, da_z, dghn)))
+    (chip_smoke.py, phase gru-recurrence).  At bf16 the products and sums
+    run on the upcast values in float32 (a bf16 product is exact there),
+    rounded once to bf16, as the JAX VJP's float32 einsum and sums are."""
+    hsl = hs[:, :-1].float().transpose(-1, -2)
+    das = _f32(da_r, da_z, dghn)
+    dws = [torch.matmul(hsl, d[:, 1:]).sum(dim=1) for d in das]
+    return tuple(a.to(hs.dtype) for a in (*dws, *(d.sum(dim=(1, 2)) for d in das)))

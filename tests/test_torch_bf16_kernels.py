@@ -36,9 +36,6 @@ from multimodal_transformer_robustness_tpu_torch.models import supernet_apply as
 from multimodal_transformer_robustness_tpu_torch.models.mult import cast_tree
 from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bert_ffn_cuda
 from multimodal_transformer_robustness_tpu_torch.ops import bigru_cuda
-from multimodal_transformer_robustness_tpu_torch.ops.attention_cuda import flash_attention_masked
-from multimodal_transformer_robustness_tpu_torch.ops.gru import gru_recurrence
-from multimodal_transformer_robustness_tpu_torch.ops.trunk_block_cuda import fused_residual_block
 from multimodal_transformer_robustness_tpu_torch.train import loop as tloop
 
 from _torch_pair import MoseiLike
@@ -234,12 +231,14 @@ def test_prepared_bf16_bert_equals_the_cast(policy):
 
 
 def test_unported_bf16_paths_raise(policy):
-    """Every bf16 path without a bf16 instance raises NotImplementedError
-    naming ROADMAP; none runs quietly in float32.  (The int8 BERT and the
-    dense and xla attention paths have bf16 instances:
-    ``tests/test_torch_bf16_bert_variants.py`` and
-    ``test_torch_bf16_bert_slice.py`` hold them to the JAX package, and the
-    flash kernels K5 ``tests/test_torch_bf16_flash.py``.)"""
+    """Every path without an instance in the compute dtype raises
+    NotImplementedError naming ROADMAP; none runs quietly in float32.
+    Every kernel has a bf16 instance now (the library ops K7, K8 and K9
+    included: ``tests/test_torch_bf16_library_ops.py``; the int8 BERT and
+    the dense and xla attention paths: ``tests/test_torch_bf16_bert_variants.py``
+    and ``test_torch_bf16_bert_slice.py``; the flash kernels K5:
+    ``tests/test_torch_bf16_flash.py``), so the float16 policy is what is
+    left."""
     p = policy
     inputs = [torch.from_numpy(x) for x in p["ds"].gather(np.arange(2))[0]]
 
@@ -247,20 +246,9 @@ def test_unported_bf16_paths_raise(policy):
         return t_apply(spec, p["params"], p["masks"], inputs, frozen=p["frozen"],
                        bert_cfg=p["tb"])
 
-    q = torch.zeros(1, 2, 4, 8, dtype=torch.bfloat16)
     cases = {
-        "flash_attention_masked (K8)": lambda: flash_attention_masked(
-            q, q, q, torch.ones(1, 4, dtype=torch.int32)),
         "float16": lambda: apply(spec=dataclasses.replace(p["spec"], compute_dtype="float16")),
     }
-    x = torch.zeros(2, 4, dtype=torch.bfloat16)
-    w = torch.zeros(4, 4, dtype=torch.bfloat16)
-    cases["fused_residual_block (K9)"] = lambda: fused_residual_block(
-        x, x, w, w[0], w, w[0], w[0], w[0])
-    g = torch.zeros(1, 2, 3, 4, dtype=torch.bfloat16)
-    hh = torch.zeros(1, 4, 4, dtype=torch.bfloat16)
-    b = torch.zeros(1, 4, dtype=torch.bfloat16)
-    cases["gru_recurrence (K7)"] = lambda: gru_recurrence(g, g, g, hh, hh, hh, b, b, b)
     for name, fn in cases.items():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             fn()

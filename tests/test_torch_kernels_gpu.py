@@ -18,7 +18,9 @@ it, twice the largest move one code can make (``_k4_row_bound``).  The bf16
 instances (K1f, K1b, K2, K3, K4, K6a, K6b) are held to 2e-2 of max |ref|
 against their bf16 plain versions, those of the flash kernels (K5f, K5b,
 K5dq, K5dkv) to 1e-2 and to a cosine of 0.99999 against the float32
-kernel.  K7f and
+kernel; those of K8 as the flash ones, of K7f, K7b, K9f and K9b to 2e-2
+and a cosine of 0.999 against the float32 kernel (K9b beyond its relu-kink
+allowance).  K7f and
 K9f are held to 1e-4 absolute, K7b and K9b to 1e-4 of each output's max
 |ref| (sums over T*N or R rows in another order), K9b beyond what entries
 of its hidden pre-activation within 1e-4 of relu's kink may move it
@@ -1071,3 +1073,144 @@ def test_flash_bf16_autograd_on_card_matches_cpu(cuda, tq, tk):
     for a, b_ in zip(out["cpu"], out[str(cuda)]):
         assert b_.dtype == torch.bfloat16
         bf16_close(b_.cpu(), a, "flash bf16 card vs cpu")
+
+
+# The bf16 instances of K8, K7f / K7b and K9f / K9b: against their bf16
+# plain versions (K8 within 1e-2 of max |ref|, as the flash rows; K7 and K9
+# within 2e-2), a cosine of 0.999 against the float32 kernel on the same
+# bf16-valued operands, reruns bit-identical, one bf16 launch a call.
+BF16_COS = 0.999
+
+
+def _cos(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,t,d", [(1, 12, 8, 64), (4, 12, 32, 64), (1, 12, 512, 64),
+                                     (2, 2, 100, 25), (3, 2, (9, 40), 25),
+                                     (3, 12, (64, 33), 64), (2, 12, (1, 129), 64)])
+def test_flash_masked_bf16_kernel_matches_plain(cuda, b, h, t, d):
+    """K8's bf16 instance on both of K6a's kernels (D = 25: rows on 2-byte
+    boundaries, staged element by element; D = 64: four at a time), ragged
+    masks and an all-zero row."""
+    tq, tk = t if isinstance(t, tuple) else (t, t)
+    rng = np.random.default_rng(21)
+    q, k, v = (_bf(torch.from_numpy(rng.standard_normal(s).astype(np.float32)), cuda)
+               for s in ((b, h, tq, d), (b, h, tk, d), (b, h, tk, d)))
+    mask = np.ones((b, tk), np.int32)
+    for i in range(b):
+        mask[i, rng.integers(1, tk + 1):] = 0
+    mask[0] = 0
+    mask = torch.from_numpy(mask).to(cuda)
+    fn = attention_cuda.flash_attention_masked
+    n0 = (fn.launches, fn.launches_bf16)
+    out = fn(q, k, v, mask)
+    again = fn(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_bf16) == (n0[0] + 2, n0[1] + 2)
+    assert out.dtype == torch.bfloat16 and torch.equal(out, again)
+    ref = attention_cuda.flash_attention_masked_plain(q, k, v, mask)
+    f32 = fn(q.float(), k.float(), v.float(), mask)
+    a, r = out.float(), ref.float()
+    assert (a - r).abs().max().item() <= 1e-2 * r.abs().max().item()
+    assert _cos(out, f32) >= 0.99999
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("G,T,N,H", [(2, 50, 4096, 100), (2, 64, 1, 100), (3, 7, 5, 12),
+                                     (3, 12, 45, 99), (2, 6, 265, 100), (3, 9, 40, 13)])
+def test_gru_recurrence_bf16_kernels_match_plain(cuda, G, T, N, H):
+    """K7f's bf16 instance on both recurrence forms (tiled: N=4096, 45, 265;
+    small: G*N <= 132) and K7b's on both backward forms (tiled, and a block
+    a row while G*N <= 528), against their bf16 plain versions and the
+    float32 kernels on the same bf16-valued operands."""
+    gates, weights, biases, dhs = _rec_inputs(np.random.default_rng(22), G, T, N, H, cuda)
+    args = tuple(_bf(a, cuda) for a in (*gates, *weights, *biases))
+    dhs = _bf(dhs, cuda)
+    fwd, bwd = gru_cuda.gru_recurrence_cuda, gru_cuda.gru_recurrence_bwd_cuda
+    n0 = (fwd.launches_bf16, bwd.launches_bf16)
+    hs = fwd(*args)
+    torch.cuda.synchronize()
+    assert hs.dtype == torch.bfloat16 and torch.equal(hs, fwd(*args))
+    bf16_close(hs, gru_cuda.gru_recurrence_plain(*args), f"K7f bf16 {G} {T} {N} {H}")
+    assert _cos(hs, fwd(*(a.float() for a in args))) >= BF16_COS
+    bwd_args = (*args[:3], hs, dhs, *args[3:])
+    got = bwd(*bwd_args)
+    again = bwd(*bwd_args)
+    torch.cuda.synchronize()
+    assert (fwd.launches_bf16, bwd.launches_bf16) == (n0[0] + 2, n0[1] + 2)
+    ref = gru_cuda.gru_recurrence_bwd_plain(*bwd_args)
+    f32 = bwd(*(a.float() for a in bwd_args))
+    for name, a, r, f, b_ in zip(("da_r", "da_z", "da_n", "dghn"), got, ref, f32, again):
+        assert a.dtype == torch.bfloat16 and torch.equal(a, b_)
+        bf16_close(a, r, f"K7b bf16 {name} {G} {T} {N} {H}")
+        assert _cos(a, f) >= BF16_COS
+
+
+@pytest.mark.gpu
+def test_bigru_forward_bf16_on_card_matches_cpu(cuda):
+    """``bigru_forward`` at bf16 through K7f / K7b: outputs and every
+    gradient, card against the CPU's plain versions."""
+    rng = np.random.default_rng(23)
+    params = gru_torch_layout(rng, 20, 16)
+    x = torch.from_numpy(rng.standard_normal((6, 11, 20)).astype(np.float32)).to(torch.bfloat16)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = {d: {k: v.to(dev, torch.bfloat16).requires_grad_(True) for k, v in params[d].items()}
+             for d in ("fwd", "bwd")}
+        xd = x.to(dev, copy=True).requires_grad_(True)
+        y, fin = tgru.bigru_forward(p, xd)
+        (y.float().sin().sum() + fin.float().sum()).backward()
+        out[str(dev)] = [y, fin, xd.grad] + [v.grad for d in ("fwd", "bwd")
+                                              for v in p[d].values()]
+    for a, b_ in zip(out["cpu"], out[str(cuda)]):
+        assert b_.dtype == torch.bfloat16
+        bf16_close(b_.cpu(), a, "bigru bf16 card vs cpu")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("R,E,F,act,rep,masked,params_bf16", [
+    (4096, 200, 200, "id", 25, False, False), (4096, 1000, 800, "relu", 1, True, False),
+    (1, 200, 800, "relu", 1, False, True), (13, 16, 24, "id", 4, True, True),
+    (8, 1000, 800, "relu", 1, True, False), (4095, 1000, 200, "id", 25, True, True),
+    (13, 30, 50, "relu", 5, True, False)])
+def test_trunk_block_bf16_kernels_match_plain(cuda, R, E, F, act, rep, masked, params_bf16):
+    """K9f / K9b's bf16 instances at bf16 x and src, float32 or bf16
+    parameters: the plans' paths (split-K at few rows, a ragged last row
+    tile, copies narrower than 16 bytes at E=30, F1=50) against the bf16
+    plain versions; each gradient in its parameter's dtype."""
+    x, src, dout, params, masks = _block_inputs(np.random.default_rng(24), R, E, F, cuda,
+                                                masked)
+    x, src, dout = (_bf(a, cuda) for a in (x, src, dout))
+    if params_bf16:
+        params = [_bf(p, cuda) for p in params]
+    cfg = trunk_block_cuda.BlockConfig(act, rep, 0.1, 0.3, 11, -7, True, True)
+    fwd, bwd = trunk_block_cuda.trunk_block_fwd, trunk_block_cuda.trunk_block_bwd
+    n0 = (fwd.launches_bf16, bwd.launches_bf16)
+    out = fwd(x, src, *params, *masks, cfg)
+    torch.cuda.synchronize()
+    assert out.dtype == torch.bfloat16 and torch.equal(out, fwd(x, src, *params, *masks, cfg))
+    bf16_close(out, trunk_block_cuda.fused_residual_block_reference(x, src, *params, *masks,
+                                                                    cfg), f"K9f bf16 {R} {E} {F}")
+    # the float32 kernel on the operands the bf16 instance multiplies: the
+    # weights at their bf16 values (it casts them), the vectors as they are
+    f32 = [a.float() for a in (x, src, dout)] + [
+        p.to(torch.bfloat16).float() if p.dim() == 2 else p.float() for p in params]
+    assert _cos(out, fwd(*f32[:2], *f32[3:], *masks, cfg)) >= BF16_COS
+    bargs = (x, src, dout, *params, *masks, cfg)
+    got = bwd(*bargs)
+    again = bwd(*bargs)
+    torch.cuda.synchronize()
+    assert (fwd.launches_bf16, bwd.launches_bf16) == (n0[0] + 2, n0[1] + 2)
+    ref = trunk_block_cuda.trunk_block_bwd_plain(*bargs)
+    ref32 = bwd(*f32, *masks, cfg)
+    # as the float32 test: beyond what entries of u at relu's kink may move it
+    _, slack = trunk_block_cuda.relu_kink_bound(*bargs)
+    for name, a, r, f, b_, p, s in zip("dsrc dw1 db1 dw2 db2 dg dlb".split(), got, ref, ref32,
+                                       again, [src] + list(params), slack):
+        assert a.dtype == r.dtype == p.dtype and torch.equal(a, b_)
+        beyond = ((a.float() - r.float()).abs() - s).max().item()
+        assert beyond <= BF16_TOL * r.float().abs().max().item(), (name, beyond)
+        assert _cos(a, f) >= BF16_COS

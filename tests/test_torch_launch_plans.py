@@ -1175,3 +1175,116 @@ def test_flash_plans_at_the_bf16_shapes(bh, tq, tk, D):
     assert dq["smem"] == _flash_dq_smem(dq) <= MAX_SMEM and dq["bq"] == 64
     assert dkv["smem"] == _flash_dkv_smem(dkv) <= MAX_SMEM
     assert dkv["blocks"] == -(-tk // 64) * bh and dq["blocks"] == -(-tq // 64) * bh
+
+
+# The bf16 instances of K8, K7f and K7b stage or upcast their bf16 operands
+# into the float32 kernels' carve-up, so they run by the float32 plans
+# (``_plan_attention``, ``_plan_recurrence``, ``_plan_gru_rec_bwd``), held
+# above.  K9's bf16 instance runs its products on csrc/gemm_bf16.cuh by a
+# plan of its own.
+@pytest.mark.parametrize("E,F1", K9_BLOCKS)
+def test_trunk_block_bf16_plans_fit_the_card(E, F1):
+    """Each of K9.bf16's products is a ``gemm_tc.plan_bf16`` plan: ``u``
+    and ``dp`` [R, E] x [E, F1], ``y`` and ``ds`` [R, F1] x [F1, E]; the
+    reductions dW1 [F1, E] and dW2 [E, F1] over the R rows with A read
+    transposed (the mma.sync kernel), split to fill two blocks an SM;
+    copies as wide as E and F1 allow; ``partial`` the largest need."""
+    for R in _k9_rows(E):
+        p = trunk_block_cuda._plan_block_bf16(R, E, F1)
+        shapes = {"u": (R, F1, E), "y": (R, E, F1), "dp": (R, F1, E), "ds": (R, E, F1),
+                  "dw1": (F1, E, R), "dw2": (E, F1, R)}
+        for name, (m, n, k) in shapes.items():
+            q = p[name]
+            ktiles = -(-k // gemm_tc.BF_BK)
+            if q["wgmma"]:
+                assert name not in ("dw1", "dw2") and q["acw"] == 8 and k % 8 == 0
+            else:
+                assert (q["splits"] - 1) * q["kps"] < ktiles <= q["splits"] * q["kps"]
+            assert k % q["acw"] == 0 if name not in ("dw1", "dw2") else m % q["acw"] == 0
+            assert n % q["bcw"] == 0
+        assert p["u"] == p["dp"] and p["y"] == p["ds"]
+        assert p["partial"] == max(p[k]["partial"] for k in trunk_block_cuda.BF16_PRODUCTS)
+        assert p["ln_tiles"] == -(-R // 32)
+        assert len(trunk_block_cuda.plan_ints_bf16(p)) == 30
+
+
+def test_trunk_block_bf16_plan_paths():
+    """At R=4096 the top FFN's products stay on the mma.sync tiles (224 or
+    256 tiles of 128 x 128, under two an SM) unsplit and the stream
+    blocks' 64 tiles split in four; the reductions split over the rows;
+    at R=1 every product splits over K across the card."""
+    p = trunk_block_cuda._plan_block_bf16(4096, 1000, 800)
+    assert [(p[k]["wgmma"], p[k]["splits"]) for k in ("u", "y", "dp", "ds")] == [(0, 1)] * 4
+    assert p["dw1"]["splits"] == p["dw2"]["splits"] == 4
+    p = trunk_block_cuda._plan_block_bf16(4096, 200, 200)
+    assert all(p[k]["splits"] == 4 for k in ("u", "y", "dp", "ds"))
+    p = trunk_block_cuda._plan_block_bf16(1, 1000, 800)
+    assert all(p[k]["splits"] > 1 for k in ("u", "y", "dp", "ds"))
+    assert all(p[k]["acw"] == p[k]["bcw"] == 8 for k in trunk_block_cuda.BF16_PRODUCTS)
+    assert trunk_block_cuda._plan_block_bf16(13, 30, 50)["u"]["bcw"] == 2
+
+
+class _FakeLibBf16:
+    """Records what the bf16 trunk-block entries are handed."""
+
+    def __init__(self):
+        self.calls = {}
+
+    def _record(self, name, args):
+        ints = (ctypes.c_int * 30).from_address(args[-2])
+        self.calls[name] = {"plan": list(ints), "args": args}
+        return 0
+
+    def mmtr_trunk_block_fwd_bf16(self, *args):
+        return self._record("fwd", args)
+
+    def mmtr_trunk_block_bwd_bf16(self, *args):
+        return self._record("bwd", args)
+
+
+@pytest.mark.parametrize("R,E,F1", [(13, 30, 50), (8, 200, 800)])
+@pytest.mark.parametrize("params_bf16", [False, True])
+def test_trunk_block_bf16_wrapper_allocates_what_the_plan_says(monkeypatch, R, E, F1,
+                                                                params_bf16):
+    """Through the bf16 launch paths with the C entries replaced: both get
+    the same 30 plan ints, every scratch view is the plan's size and dtype
+    on a 256-byte boundary, the weights reach the kernels in bf16 (as
+    stored and transposed) and the vectors in float32, and each gradient
+    comes back in its parameter's dtype."""
+    lib = _FakeLibBf16()
+    views = []
+    real_workspace = trunk_block_cuda._workspace
+
+    def workspace(dev, wanted):
+        got = real_workspace(dev, wanted)
+        views.append([(v.numel(), v.dtype) for v in got])
+        assert all((v.data_ptr() - got[0].data_ptr()) % 256 == 0 for v in got if v.numel())
+        return got
+
+    monkeypatch.setattr(_build, "load_library", lambda: lib)
+    monkeypatch.setattr(_build, "num_sms", lambda dev: SMS)
+    monkeypatch.setattr(_build, "stream_ptr", lambda dev: 0)
+    monkeypatch.setattr(trunk_block_cuda, "_workspace", workspace)
+    g = torch.Generator().manual_seed(0)
+    bf = torch.bfloat16
+    x, src, dout = (torch.randn(R, E, generator=g).to(bf) for _ in range(3))
+    params = [torch.randn(F1, E, generator=g), torch.randn(F1, generator=g),
+              torch.randn(E, F1, generator=g), torch.randn(E, generator=g),
+              torch.ones(E), torch.zeros(E)]
+    if params_bf16:
+        params = [p.to(bf) for p in params]
+    masks = [torch.ones(E), torch.ones(F1), torch.ones(E)]
+    cfg = trunk_block_cuda.BlockConfig("relu", 1, 0.1, 0.3, 1, 2, True, True)
+    dev = torch.device("cpu")
+    out = trunk_block_cuda._launch_fwd_bf16(dev, x, src, *params, *masks, cfg)
+    grads = trunk_block_cuda._launch_bwd_bf16(dev, x, src, dout, *params, *masks, cfg)
+    plan = trunk_block_cuda._plan_block_bf16(R, E, F1)
+    ints = trunk_block_cuda.plan_ints_bf16(plan)
+    assert lib.calls["fwd"]["plan"] == lib.calls["bwd"]["plan"] == ints
+    assert views == [trunk_block_cuda.fwd_workspace_bf16(plan, R, E, F1),
+                     trunk_block_cuda.bwd_workspace_bf16(plan, R, E, F1)]
+    assert out.shape == (R, E) and out.dtype == bf
+    assert [(tuple(a.shape), a.dtype) for a in grads] == [((R, E), bf)] + [
+        (tuple(p.shape), p.dtype) for p in params]
+    for name, npt in (("fwd", 15), ("bwd", 23)):
+        assert lib.calls[name]["args"][npt:npt + 9] == (R, E, F1, 1, 1, 1, 1, 1, 2)

@@ -108,7 +108,7 @@ def main() -> int:
     trees = [Path.cwd(), Path(sys.argv[1]).resolve()]
     (Path.cwd() / "build").mkdir(exist_ok=True)
     # a source that the other checkout lacks has no float kernel to compare
-    # (flash_attn_bf16.cu holds bf16 instances only)
+    # (flash_attn_bf16.cu and trunk_block_bf16.cu hold bf16 instances only)
     sources = [s for s in _build.SOURCES if (trees[1] / PKG / "csrc" / s).exists()]
     for src in sorted(set(_build.SOURCES) - set(sources)):
         print(f"{src}: only here, not compared", flush=True)
