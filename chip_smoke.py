@@ -49,8 +49,13 @@ Phases, each fatal on failure:
                 FFN block, R=4096 train and R=1, and K9f at R=1 at the
                 other three blocks, beside their CUDA-event ms; and the
                 bf16 instances of K1f, K1b, K2 and K3 at the training
-                path's shapes, K2 also at B=1 L=512, K4 and K6b at B=4096
-                L=32 and B=1 L=8, K6a at B=4096 L=32 and B=1 L=512, against
+                path's shapes, K1f also at the serving (T=64 B=1) and eval
+                (T=50 B=16) shapes and at the edges of its plan, K2 also at
+                B=1 L=512 (its attention stage's device ms beside SDPA), K4
+                and K6b at B=4096 L=32 and B=1 L=8, K6a at B=4096 L=32 and
+                B=1 L=512 and at the edges of its plan (L = 1 .. 513), K1f at
+                B=4096 and K2 and K6a at B=1 L=512 also timed under the
+                parent commit's plans (parent_plans), against
                 their bf16 plain versions (2e-2 of max |ref|) and the
                 float32 kernels (cosine), rerun for the same bits, timed
                 beside cuDNN's GRU in bf16 (K1f, K1b) and SDPA in bf16
@@ -451,6 +456,55 @@ def cudnn_gru(w, in_dim, H, dev):
     return gru
 
 
+@contextmanager
+def parent_plans():
+    """The bf16 launch plans of the commit before the row attention and the
+    mma-form K1f.bf16, for the parent kernels' times in the same call:
+    K6a.bf16's and K2.bf16's attention past L = 64 on the three-pass tiled
+    kernel (path 1, which still serves L > 512), K1f.bf16's recurrence on
+    the tiled form (which still serves H > 104) and its projection on
+    gemm_bf16.cuh's 128-wide wgmma tiles (which still serve 3H > 304).
+    Their sources are unchanged, so these are the parent's kernels,
+    launched as it launched them."""
+    from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda as ba
+    from multimodal_transformer_robustness_tpu_torch.ops import bigru_cuda as bg
+
+    attn, fwd = ba._plan_attention_bf16, bg._plan_gru_fwd_bf16
+
+    def attn_parent(B, L, n_heads, dh):
+        p = attn(B, L, n_heads, dh)
+        if p["path"] == 2:
+            p = {"path": 1, "units": p["units"], "qtiles": -(-L // ba._AB_ROWS),
+                 "threads": 128, "smem": 0}
+        return p
+
+    def fwd_parent(T, B, in_dim, H, *args):
+        p = fwd(T, B, in_dim, H, *args)
+        if p["rec_mma"]:
+            p.update(rec_mma=0, **bg._plan_recurrence(1, B, H, *args[:1]))
+        p["gemm_wgmma"] = min(p["gemm_wgmma"], 1)
+        return p
+
+    caches = (ba._cached_plan_bf16, ba._cached_block_plan_bf16, bg._cached_plan_bf16)
+    ba._plan_attention_bf16, bg._plan_gru_fwd_bf16 = attn_parent, fwd_parent
+    for cache in caches:
+        cache.cache_clear()
+    try:
+        yield
+    finally:
+        ba._plan_attention_bf16, bg._plan_gru_fwd_bf16 = attn, fwd
+        for cache in caches:
+            cache.cache_clear()
+
+
+def parent_ms(fn, iters):
+    """CUDA-event ms of ``fn`` under :func:`parent_plans`."""
+    with parent_plans():
+        fn()
+        torch.cuda.synchronize()
+        return cuda_ms(fn, iters)
+
+
 def check_kernels(dev, rng):
     from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bert_ffn_cuda
     from multimodal_transformer_robustness_tpu_torch.ops import bigru_cuda
@@ -651,14 +705,36 @@ def check_bf16(dev, rng, t, record, failures):
             out = bigru_cuda.gru_dir(x, *args, False)
             again = bigru_cuda.gru_dir(x, *args, False)
             torch.cuda.synchronize()
+            fn = lambda: bigru_cuda.gru_dir(x, *args, False)   # noqa: E731
+            with parent_plans():
+                parent_split = profile_ms(fn, 5)
+            extra = {"parent_ms": parent_ms(fn, 5), "split_ms": profile_ms(fn, 5),
+                     "parent_split_ms": parent_split}
+            print(f"  K1f.bf16 B={B}: device split {extra['split_ms']}, parent "
+                  f"{extra['parent_ms']:.4f} ms, its split {parent_split}", flush=True)
             judge("K1f.bf16", f"in={in_dim} H={H} T={T} B={B} fwd", (out,),
                   (bigru_cuda.gru_dir_plain(x, *args, False),),
                   (bigru_cuda.gru_dir(x.float(), *args32, False),), (again,),
-                  kernel_fn=lambda: bigru_cuda.gru_dir(x, *args, False),
-                  plain_fn=lambda: bigru_cuda.gru_dir_plain(x, *args, False),
+                  kernel_fn=fn, plain_fn=lambda: bigru_cuda.gru_dir_plain(x, *args, False),
                   work=k1f_bf16_work(T, B, in_dim, H),
-                  library_fn=(lambda: gru(x)) if gru is not None else None, iters=5)
+                  library_fn=(lambda: gru(x)) if gru is not None else None, iters=5,
+                  extra=extra)
             del out, again
+            # the serving batch of 1 (T=64, the longest audio bucket) and the
+            # eval batch of 16: the small recurrence form, split projections
+            for Ts, Bs in ((64, 1), (50, 16)):
+                xs = t(rng.standard_normal((Ts, Bs, in_dim))).to(bf)
+                out = bigru_cuda.gru_dir(xs, *args, False)
+                again = bigru_cuda.gru_dir(xs, *args, False)
+                torch.cuda.synchronize()
+                judge("K1f.bf16", f"in={in_dim} H={H} T={Ts} B={Bs} fwd", (out,),
+                      (bigru_cuda.gru_dir_plain(xs, *args, False),),
+                      (bigru_cuda.gru_dir(xs.float(), *args32, False),), (again,),
+                      kernel_fn=lambda xs=xs: bigru_cuda.gru_dir(xs, *args, False),
+                      plain_fn=lambda xs=xs: bigru_cuda.gru_dir_plain(xs, *args, False),
+                      work=k1f_bf16_work(Ts, Bs, in_dim, H),
+                      library_fn=(lambda xs=xs: gru(xs)) if gru is not None else None)
+                del out, again, xs
         hs, gates = bigru_cuda._launch_fwd(x, *args, False)
         got = bigru_cuda.gru_dir_bwd(x, *args, hs, gates, dhs, False, need_dx)
         again = bigru_cuda.gru_dir_bwd(x, *args, hs, gates, dhs, False, need_dx)
@@ -724,6 +800,7 @@ def check_bf16(dev, rng, t, record, failures):
           work=k3_bf16_work(B, L, h, ffn), iters=5)
     del out, again, x, a_args, f_args
     torch.cuda.empty_cache()
+    check_k1f_k6a_edges_bf16(dev, np.random.default_rng(24), t, judge)
     return check_bf16_bert_variants(dev, rng, t, judge, aw, ab, g, b)
 
 
@@ -752,12 +829,30 @@ def check_bf16_bert_variants(dev, rng, t, judge, aw, ab, g, b, h=768, ffn=3072, 
     mask = t(mask)
     a_args = (x, mask, aw[0], ab[0], aw[1], ab[1], aw[2], ab[2], aw[3], ab[3], g, b)
     again = bert_attn_cuda.attention_block_fused(*a_args, **kw)
+    fn = lambda: bert_attn_cuda.attention_block_fused(*a_args, **kw)   # noqa: E731
+    # the attention stage's device ms inside K2.bf16, beside SDPA in bf16 on
+    # q / k / v of its shape and mask (12 heads of 64), and the parent's
+    qs, ks, vs = (t(rng.standard_normal((1, heads, 512, h // heads))).to(bf) for _ in range(3))
+    bias = ((1.0 - mask) * -10000.0)[:, None, None, :].to(bf)
+    split = profile_ms(fn)
+    with parent_plans():
+        parent_split = profile_ms(fn)
+    extra = {"parent_ms": parent_ms(fn, 20), "split_ms": split, "parent_split_ms": parent_split,
+             "attention_ms": sum(v for k, v in split.items() if k.startswith("attention_bf16")),
+             "attention_parent_ms": sum(v for k, v in parent_split.items()
+                                        if k.startswith("attention_bf16")),
+             "attention_sdpa_ms": sum(profile_ms(lambda: F.scaled_dot_product_attention(
+                 qs, ks, vs, attn_mask=bias)).values())}
+    print(f"  K2.bf16 B=1 L=512: attention stage {extra['attention_ms']:.4f} ms of device time "
+          f"(parent {extra['attention_parent_ms']:.4f}), SDPA in bf16 on its shape "
+          f"{extra['attention_sdpa_ms']:.4f} ms of device time; the whole block's parent "
+          f"{extra['parent_ms']:.4f} ms", flush=True)
     judge("K2.bf16", f"B=1 L=512 h={h}", (bert_attn_cuda.attention_block_fused(*a_args, **kw),),
           (bert_attn_cuda.attention_block_plain(*a_args, **kw),),
           (bert_attn_cuda.attention_block_fused(*(a.float() for a in a_args), **kw),), (again,),
-          kernel_fn=lambda: bert_attn_cuda.attention_block_fused(*a_args, **kw),
-          plain_fn=lambda: bert_attn_cuda.attention_block_plain(*a_args, **kw),
-          work=k2_bf16_work(1, 512, h))
+          kernel_fn=fn, plain_fn=lambda: bert_attn_cuda.attention_block_plain(*a_args, **kw),
+          work=k2_bf16_work(1, 512, h), extra=extra)
+    del qs, ks, vs
 
     def int8(w):
         q = _quantize(w)
@@ -810,6 +905,9 @@ def check_bf16_bert_variants(dev, rng, t, judge, aw, ab, g, b, h=768, ffn=3072, 
             key_bias = ((1.0 - mask) * -10000.0)[:, None, None, :].to(bf)
             qt, kt, vt = (z.transpose(1, 2) for z in (q, k, v))
             again = bert_attn_cuda.dense_attention_blockdiag(q, k, v, mask)
+            fn = lambda q=q, k=k, v=v, mask=mask: (   # noqa: E731
+                bert_attn_cuda.dense_attention_blockdiag(q, k, v, mask))
+            extra = {"parent_ms": parent_ms(fn, iters)} if L == 512 else {}
             judge("K6a.bf16", shape, (bert_attn_cuda.dense_attention_blockdiag(q, k, v, mask),),
                   (bert_attn_cuda.dense_attention_plain(q, k, v, mask),),
                   (bert_attn_cuda.dense_attention_blockdiag(q.float(), k.float(), v.float(),
@@ -818,7 +916,7 @@ def check_bf16_bert_variants(dev, rng, t, judge, aw, ab, g, b, h=768, ffn=3072, 
                   plain_fn=lambda: bert_attn_cuda.dense_attention_plain(q, k, v, mask),
                   library_fn=lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                                     attn_mask=key_bias),
-                  work=k6a_bf16_work(B, L, h), iters=iters)
+                  work=k6a_bf16_work(B, L, h), iters=iters, extra=extra)
             del q, k, v, qt, kt, vt, again
         del x
     rows = []
@@ -874,6 +972,54 @@ def check_k1f_k6a_edges(dev, rng, t, record, failures):
             record("K6a", shape, out, ref, None, None)
             if not torch.equal(out, again):
                 failures.append(f"K6a {shape}: rerun differs")
+
+
+def check_k1f_k6a_edges_bf16(dev, rng, t, judge):
+    """The bf16 twins of check_k1f_k6a_edges, by ``judge`` (BF16_TOL of max
+    |ref| against the bf16 plain version, BF16_COS against the float32
+    kernel on the same bf16 values, a rerun for the same bits): K1f.bf16 at
+    B = 1, 31, 33 (the small recurrence form), 133, 600, 700, 4095 (the mma
+    form: 16- and 32-row blocks, a ragged last row group), T = 1, in=7 H=12
+    (4-byte projection copies) and in=20 H=13 (odd H: 4-byte gate copies,
+    2-byte stores, padded tiles), both directions; K6a.bf16 at L = 1, 31,
+    33, 64 (unit path), 65, 127, 128, 129, 300, 511, 512 (row path, one to
+    four key groups) and 513 (three-pass tiled path), head_dim 64 and 8,
+    item 0 fully masked."""
+    from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bigru_cuda
+
+    bf = torch.bfloat16
+    for in_dim, H, T, B in ((768, 100, 50, 1), (768, 100, 50, 31), (768, 100, 50, 33),
+                            (768, 100, 50, 133), (768, 100, 50, 4095), (768, 100, 1, 4096),
+                            (7, 12, 5, 3), (7, 12, 9, 600), (20, 13, 6, 5), (20, 13, 6, 700)):
+        w = {k: v.to(bf) for k, v in gru_weights(rng, in_dim, H, dev).items()}
+        ops = bigru_cuda.dir_operands(w)
+        args = tuple(ops[k] for k in ("wp", "wt", "bc", "bhn"))
+        args32 = tuple(a.float() for a in args)
+        x = t(rng.standard_normal((T, B, in_dim))).to(bf)
+        for rev in (False, True):
+            out = bigru_cuda.gru_dir(x, *args, rev)
+            again = bigru_cuda.gru_dir(x, *args, rev)
+            torch.cuda.synchronize()
+            judge("K1f.bf16", f"edge in={in_dim} H={H} T={T} B={B} {'bwd' if rev else 'fwd'}",
+                  (out,), (bigru_cuda.gru_dir_plain(x, *args, rev),),
+                  (bigru_cuda.gru_dir(x.float(), *args32, rev),), (again,),
+                  kernel_fn=None, plain_fn=None)
+    for L in (1, 31, 33, 64, 65, 127, 128, 129, 300, 511, 512, 513):
+        for heads, dh in ((12, 64), (2, 8)):
+            B = 3
+            q, k, v = (t(rng.standard_normal((B, L, heads, dh))).to(bf) for _ in range(3))
+            mask = np.zeros((B, L), np.float32)
+            for i in range(1, B):
+                mask[i, : rng.integers(1, L + 1)] = 1.0
+            mask = t(mask)
+            out = bert_attn_cuda.dense_attention_blockdiag(q, k, v, mask)
+            again = bert_attn_cuda.dense_attention_blockdiag(q, k, v, mask)
+            torch.cuda.synchronize()
+            judge("K6a.bf16", f"edge B={B} L={L} heads={heads} dh={dh}", (out,),
+                  (bert_attn_cuda.dense_attention_plain(q, k, v, mask),),
+                  (bert_attn_cuda.dense_attention_blockdiag(q.float(), k.float(), v.float(),
+                                                            mask),), (again,),
+                  kernel_fn=None, plain_fn=None)
 
 
 def profile_ms(fn, iters: int = 10, warmup: int = 3) -> dict:
@@ -3698,7 +3844,9 @@ def bf16_kernel_entries(rows, launches):
                         "min_cos_vs_float32": min(r["cos_vs_float32"] for r in mine),
                         **{k: at[k] for k in timed}, "shape": shape,
                         "launches_by_path": {p: l[counter] for p, l in launches.items()},
-                        "by_shape": {r["shape"]: {k: r.get(k) for k in timed} for r in mine}})
+                        "by_shape": {r["shape"]: {k: r.get(k) for k in timed + (
+                            "parent_ms", "attention_ms", "attention_parent_ms",
+                            "attention_sdpa_ms") if k in timed or k in r} for r in mine}})
         if "sdpa_backend" in at:   # the flash rows: SDPA's pick at D = 25
             kernels[-1]["library_backend"] = at["sdpa_backend"]
         if kid == "K9b.bf16":   # as K9b's: the errors include relu-kink flips

@@ -13,8 +13,8 @@
 // h starts at zero and is carried in float32; `reverse` walks t = T-1 .. 0
 // (K1's backward direction; K7 runs forward only, its caller flips).  Every
 // step is a [rows, H] x [H, 3H] product and the gate math, sequential in T,
-// so a block's per-step latency is what the recurrence pays.  Two forms, the
-// launch plan's (ops/bigru_cuda._plan_recurrence) choice:
+// so a block's per-step latency is what the recurrence pays.  Three forms, the
+// launch plan's (ops/bigru_cuda._plan_recurrence, _plan_recurrence_bf16) choice:
 //   * tiled (many rows): a block holds W_hh^T of its group in shared memory
 //     for the whole time loop; 4 x 4 (row, column) register tiles for all
 //     three gates, so one float4 of h and three of W feed 48 FMAs; the next
@@ -27,7 +27,10 @@
 //     thread per (column, k-slice) of KS = 8 lanes holding its slice of
 //     W_hh^T in registers, so a step reads only h from shared memory; a
 //     shuffle reduction adds the slices, so a step's dependent chain is
-//     ~H/(2 KS) FMAs rather than H.
+//     ~H/(2 KS) FMAs rather than H;
+//   * mma (K1f's bf16 instance where the tiled form would run, H <= 104):
+//     the product of bf16 hm and bf16 W_hh on the bf16 tensor cores, a warp
+//     16 rows with h in its registers; see gru_rec_mma_kernel.
 // BIAS_RZ is a template parameter, so K1's instance carries no bias adds.
 // WT is the storage type of the weights, b_hn and h (float, or bf16 for
 // K1f's bf16 instance: the gates stay float32, h is carried in float32 and
@@ -395,6 +398,245 @@ gru_rec_small_kernel(const GruRecT<WT, GT, CT> p) {
   }
 }
 
+// The mma form: K1f's bf16 instance only (WT = CT = bf16, float32 gates, G
+// = 1, no b_hr / b_hz), whose product operands are both bf16 values: hm =
+// h rounded to bf16, and W_hh.  That is a bf16 tensor-core product with
+// float32 sums, so it runs on mma.sync m16n8k16: a step's [16, 112] x [112,
+// 3 x 104] for a row group of 16 (H padded to 104 columns, 13 n tiles a
+// gate, and K to 112, 7 k steps).  RM_WPG = 4 warps share a row group and
+// split its n tiles (4, 3, 3, 3 at H = 100): each runs its tiles' three
+// gate products from ldmatrix loads of W_hh, then the gate math in the
+// accumulator layout on the float32 carry it holds in that same layout, for
+// the whole time loop.  The new h, rounded to bf16 (the bf16 output too),
+// goes to the row group's double-buffered hm [16][RM_HLD] in shared memory,
+// and the group's warps meet at a named barrier, once a step, before they
+// load the next step's A fragments from it.  On the card at B=4096, T=50
+// (tools/k1f_bf16_trials.py): a warp holding all 13 tiles, its h handed
+// from the accumulators to the next step's A fragments in registers with no
+// barrier at all, ran 0.87 ms against the tiled form's 0.64 (its gate math
+// and 273 MMAs a step left it latency-bound at one warp an SM
+// sub-partition); split over two warps 0.32, over four 0.23; four warps of
+// four tile slots each (16 for 13, no branch among the MMAs) 0.27.
+// Each lane prefetches its own gate values a step ahead by cp.async (8 or 4
+// bytes, zero past B and H) into a slot of its own, so no lane waits on
+// another's copies.  W_hh (row j = column j of W_hh^T, k contiguous) is
+// staged once and read by ldmatrix, two k steps of one n tile a load.
+// Shared memory: W [3][8 nt][RM_WLD] bf16, b_hn [8 nt] float, hm [RG][2][16]
+// [RM_HLD] bf16, then per warp gates [2][3][RM_TPW][2][32] float2: 188,960
+// bytes at H = 100 and RG = 2 row groups, one block an SM.  The plan
+// (ops/bigru_cuda._plan_recurrence_bf16) gives a block 32 rows where 16-row
+// blocks would overfill the card (B=4096: 128 blocks of 8 warps, one wave),
+// else 16.
+constexpr int RM_NT = 13;       // n tiles of 8 columns a gate: H <= 104
+constexpr int RM_KS = 7;        // k steps of 16 (A fragments)
+constexpr int RM_WPG = 4;       // warps a row group of 16
+constexpr int RM_TPW = 4;       // n tiles a warp at most (ceil(RM_NT / RM_WPG))
+constexpr int RM_WLD = 120;     // W's row pitch (bf16): 240 bytes, 15 16-byte words (odd)
+constexpr int RM_HLD = 120;     // hm's row pitch (bf16), as W's
+constexpr int RM_MAX_RG = 2;
+constexpr int RM_JCH = (8 * RM_NT + 31) / 32;   // 32-row chunks of W's rows
+static_assert(RM_WPG * RM_TPW >= RM_NT && 16 * RM_KS >= 8 * RM_NT && RM_HLD >= 16 * RM_KS &&
+                  RM_WLD >= 16 * RM_KS,
+              "mma form tiles");
+
+// This lane's gate values of step t: rows b0 + g8 (+ 8), columns 8 j + 2 t4
+// (+ 1) of its warp's tiles j = j0 .. j0 + cnt - 1, three gates, into its
+// slots gs[(g * RM_TPW + q) * 2 + half][lane] (float2); zero past B or H.
+// VEC: H even, one 8-byte copy a pair.
+template <bool VEC>
+__device__ __forceinline__ void mma_prefetch(float2* gs, const float* const (&gate)[3], int t,
+                                             int B, int H, int b0, int j0, int cnt) {
+  const int lane = threadIdx.x % 32, g8 = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int q = 0; q < RM_TPW; ++q) {
+    if (q < cnt) {
+      const int col = 8 * (j0 + q) + 2 * t4;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = b0 + g8 + 8 * half;
+        const long long at = ((long long)t * B + row) * H + col;
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          float2* dst = gs + ((g * RM_TPW + q) * 2 + half) * 32 + lane;
+          if (VEC) {
+            const bool ok = row < B && col < H;
+            cp_async8(dst, ok ? gate[g] + at : gate[g], ok);
+          } else {
+            const bool ok0 = row < B && col < H, ok1 = row < B && col + 1 < H;
+            cp_async4(&dst->x, ok0 ? gate[g] + at : gate[g], ok0);
+            cp_async4(&dst->y, ok1 ? gate[g] + at + 1 : gate[g], ok1);
+          }
+        }
+      }
+    }
+  }
+}
+
+// One element of the gate math, as the tiled form's (no b_hr, b_hz).
+__device__ __forceinline__ float mma_cell(float xr, float xz, float xn, float ar, float az,
+                                          float an, float bn, float h, bool ok) {
+  const float r = gate_sigmoid(xr + ar);
+  const float z = gate_sigmoid(xz + az);
+  const float n = gate_tanh(xn + r * (an + bn));
+  return ok ? (1.0f - z) * n + z * h : 0.f;
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(32 * RM_WPG * RM_MAX_RG)
+gru_rec_mma_kernel(const GruRecT<bf16> p) {
+  extern __shared__ float4 rec_smem4[];
+  const int T = p.T, B = p.B, H = p.H;
+  const int nt = (H + 7) / 8, ks = (H + 15) / 16, np = 8 * nt;
+  const int rgs = blockDim.x / (32 * RM_WPG);
+  bf16* w = reinterpret_cast<bf16*>(rec_smem4);               // [3][np][RM_WLD]
+  float* bn = reinterpret_cast<float*>(w + 3 * np * RM_WLD);  // [np]
+  bf16* hs0 = reinterpret_cast<bf16*>(bn + np);               // [rgs][2][16][RM_HLD]
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g8 = lane / 4, t4 = lane % 4;
+  const int rg = warp / RM_WPG, c = warp - rg * RM_WPG;
+  bf16* hs = hs0 + rg * 2 * 16 * RM_HLD;                      // [2][16][RM_HLD]
+  float2* gs = reinterpret_cast<float2*>(hs0 + rgs * 2 * 16 * RM_HLD) +
+               warp * 2 * 3 * RM_TPW * 2 * 32;                // [2][3][TPW][2][32]
+  const int b0 = (blockIdx.x * rgs + rg) * 16;
+  // this warp's n tiles j0 .. j0 + cnt - 1: nt split as evenly as it goes
+  const int cnt = nt / RM_WPG + (c < nt % RM_WPG), j0 = c * (nt / RM_WPG) + min(c, nt % RM_WPG);
+  const float* const gate[3] = {p.gate[0], p.gate[1], p.gate[2]};
+
+  // W_hh^T read along its rows (a warp a row (gate, k), lanes over j),
+  // stored as W_hh (row j, k contiguous), zero past H: eight rows' loads in
+  // flight before their stores.  hm's buffers start zero (its padded k
+  // columns stay so).
+  const int nwarps = blockDim.x / 32;
+  for (int gk0 = warp; gk0 < 3 * RM_WLD; gk0 += 8 * nwarps) {
+    bf16 v[8][RM_JCH];
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int gk = gk0 + u * nwarps, gt = gk / RM_WLD, k = gk - gt * RM_WLD;
+#pragma unroll
+      for (int jj = 0; jj < RM_JCH; ++jj) {
+        const int j = lane + 32 * jj;
+        v[u][jj] = gk < 3 * RM_WLD && j < H && k < H ? p.w[gt][(long long)k * H + j]
+                                                     : f2bf(0.f);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 8; ++u) {
+      const int gk = gk0 + u * nwarps, gt = gk / RM_WLD, k = gk - gt * RM_WLD;
+#pragma unroll
+      for (int jj = 0; jj < RM_JCH; ++jj) {
+        const int j = lane + 32 * jj;
+        if (gk < 3 * RM_WLD && j < np) w[(gt * np + j) * RM_WLD + k] = v[u][jj];
+      }
+    }
+  }
+  for (int j = threadIdx.x; j < np; j += blockDim.x) bn[j] = j < H ? ld_f(p.bhn + j) : 0.f;
+  for (int i = threadIdx.x; i < rgs * 2 * 16 * RM_HLD; i += blockDim.x) hs0[i] = f2bf(0.f);
+  __syncthreads();
+  if (b0 >= B) return;   // the whole row group: its barrier is its own
+  mma_prefetch<VEC>(gs, gate, p.reverse ? T - 1 : 0, B, H, b0, j0, cnt);
+  cp_async_commit();
+
+  // the carry of tiles j0 + q: rows g8 (e < 2) and g8 + 8, columns
+  // 8 (j0 + q) + 2 t4 + (e & 1)
+  float hc[RM_TPW][4];
+#pragma unroll
+  for (int q = 0; q < RM_TPW; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) hc[q][e] = 0.f;
+
+  for (int step = 0; step < T; ++step) {
+    const int cur = step & 1;
+    const bf16* hcur = hs + cur * 16 * RM_HLD;
+    bf16* hnext = hs + (cur ^ 1) * 16 * RM_HLD;
+    uint32_t a[RM_KS][4];   // hm as the A operand (zero at step 0)
+#pragma unroll
+    for (int m = 0; m < RM_KS; ++m)
+      if (m < ks) ldsm_x4(a[m], hcur + (lane & 15) * RM_HLD + 16 * m + (lane >> 4) * 8);
+    cp_async_wait<0>();      // this lane's gate values of this step
+    const float2* gcur = gs + cur * 3 * RM_TPW * 2 * 32;
+    if (step + 1 < T)
+      mma_prefetch<VEC>(gs + (cur ^ 1) * 3 * RM_TPW * 2 * 32, gate,
+                        p.reverse ? T - 2 - step : step + 1, B, H, b0, j0, cnt);
+    cp_async_commit();
+    const int t = p.reverse ? T - 1 - step : step;
+#pragma unroll
+    for (int q = 0; q < RM_TPW; ++q) {
+      if (q < cnt) {
+        const int j = j0 + q;
+        float acc[3][4] = {};
+        const bf16* wj = w + (8 * j + (lane & 7)) * RM_WLD + (lane >> 3) * 8;
+#pragma unroll
+        for (int m = 0; m < RM_KS; m += 2) {
+          if (m < ks) {
+#pragma unroll
+            for (int gt = 0; gt < 3; ++gt) {
+              uint32_t r[4];   // b0, b1 of k steps m and m + 1, n tile j
+              ldsm_x4(r, wj + gt * np * RM_WLD + 16 * m);
+              mma_bf16(acc[gt], a[m], r[0], r[1]);
+              if (m + 1 < ks) mma_bf16(acc[gt], a[m + 1 < RM_KS ? m + 1 : m], r[2], r[3]);
+            }
+          }
+        }
+        const int col = 8 * j + 2 * t4;
+        const float2 bv = *reinterpret_cast<const float2*>(bn + col);
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int e = 2 * half;
+          const float2 xr = gcur[((0 * RM_TPW + q) * 2 + half) * 32 + lane];
+          const float2 xz = gcur[((1 * RM_TPW + q) * 2 + half) * 32 + lane];
+          const float2 xn = gcur[((2 * RM_TPW + q) * 2 + half) * 32 + lane];
+          hc[q][e] = mma_cell(xr.x, xz.x, xn.x, acc[0][e], acc[1][e], acc[2][e], bv.x,
+                              hc[q][e], col < H);
+          hc[q][e + 1] = mma_cell(xr.y, xz.y, xn.y, acc[0][e + 1], acc[1][e + 1],
+                                  acc[2][e + 1], bv.y, hc[q][e + 1], col + 1 < H);
+          // h rounded to bf16: the next step's hm and the output
+          const uint32_t hm = pack_bf16(hc[q][e], hc[q][e + 1]);
+          const int r = g8 + 8 * half, row = b0 + r;
+          *reinterpret_cast<uint32_t*>(hnext + r * RM_HLD + col) = hm;
+          if (row < B && col < H) {
+            bf16* o = p.out + ((long long)t * B + row) * H + col;
+            if (H % 2 == 0) {
+              *reinterpret_cast<uint32_t*>(o) = hm;
+            } else {
+              o[0] = __ushort_as_bfloat16((unsigned short)(hm & 0xffffu));
+              if (col + 1 < H) o[1] = __ushort_as_bfloat16((unsigned short)(hm >> 16));
+            }
+          }
+        }
+      }
+    }
+    // the row group's hm of step + 1 complete; its hm of this step read
+    asm volatile("bar.sync %0, %1;\n" ::"r"(1 + rg), "r"(32 * RM_WPG) : "memory");
+  }
+  cp_async_wait<0>();
+}
+
+// Launch the mma form by its four host ints (ops/bigru_cuda.
+// _plan_recurrence_bf16): rows (16 a row group), threads (RM_WPG warps a
+// row group), smem (bytes), vec (H even: 8-byte gate copies).  The grid is
+// ceil(B / rows).  (A template, so a unit that includes this header and
+// never calls it builds no instance of the kernel.)
+template <typename WT>
+cudaError_t launch_gru_rec_mma(const GruRecT<WT>& p, const int* rec, cudaStream_t stream) {
+  static_assert(std::is_same<WT, bf16>::value, "the mma form takes bf16 weights and carry");
+  const int rows = rec[0], threads = rec[1], smem = rec[2], vec = rec[3];
+  if (rows % 16 != 0 || rows > 16 * RM_MAX_RG || threads != rows / 16 * 32 * RM_WPG ||
+      p.H > 8 * RM_NT || (vec && p.H % 2 != 0))
+    return cudaErrorInvalidValue;
+  const dim3 grid((p.B + rows - 1) / rows);
+  if (vec) {
+    static unsigned long long smem_set = 0;
+    const cudaError_t err = allow_smem_once((const void*)gru_rec_mma_kernel<true>, &smem_set);
+    if (err != cudaSuccess) return err;
+    gru_rec_mma_kernel<true><<<grid, threads, smem, stream>>>(p);
+  } else {
+    static unsigned long long smem_set = 0;
+    const cudaError_t err = allow_smem_once((const void*)gru_rec_mma_kernel<false>, &smem_set);
+    if (err != cudaSuccess) return err;
+    gru_rec_mma_kernel<false><<<grid, threads, smem, stream>>>(p);
+  }
+  return cudaGetLastError();
+}
+
 // ---------------------------------------------------------------------------
 // The backward form: the gradients of G recurrences (K1b: G = 1) walked
 // newest-first.  Per group and step t, for h_prev = h[t-1] (h[t+1] in
@@ -731,6 +973,19 @@ cudaError_t launch_gru_rec(const GruRecT<WT, GT, CT>& p, int groups, const int* 
     gru_rec_tiled_kernel<false, BIAS_RZ, WT, GT, CT><<<grid, threads, smem, stream>>>(p, rows);
   }
   return cudaGetLastError();
+}
+
+// K1f's bf16 recurrence by the plan's eight host ints (ops/bigru_cuda.
+// _plan_recurrence_bf16): rec_mma (1: the mma form, by rec_rows,
+// rec_threads, rec_smem and rec_vec), then launch_gru_rec's seven (the small
+// or the tiled form where rec_mma is 0).
+template <typename WT>
+cudaError_t launch_gru_rec_bf16(const GruRecT<WT>& p, const int* rec, cudaStream_t stream) {
+  if (rec[0]) {
+    const int mma[4] = {rec[2], rec[3], rec[4], rec[6]};
+    return launch_gru_rec_mma(p, mma, stream);
+  }
+  return launch_gru_rec<false>(p, 1, rec + 1, stream);
 }
 
 }  // namespace

@@ -31,8 +31,10 @@ sum / divide tail in bf16, as ``ATTN_SOFTMAX`` selects in the JAX package.
 K6a has one too (``mmtr_attention_fwd_bf16``), K2's bf16 attention stage
 alone under the float32 softmax: bf16 q / k / v in, bf16 out.  Both take
 every L, by :func:`_plan_attention_bf16` (a unit's queries and keys held
-at once up to L = 64, the training shape being L = 32; 64-key tiles in
-three passes beyond), and dh <= 64 with dh and h multiples of 8.
+at once up to L = 64, the training shape being L = 32; the whole row's
+logits formed once and held in a block's registers up to L = 512, the
+serving buckets; 64-key tiles in three passes beyond), and dh <= 64 with
+dh and h multiples of 8.
 """
 
 from __future__ import annotations
@@ -220,27 +222,49 @@ def attention_block_plain(x, key_mask, wq_t, qb, wk_t, kb, wv_t, vb, wo_t, ob,
 
 
 # csrc/bert_attn.cu's bf16 attention: a unit's rows (L <= 64) on the unit
-# path; query rows a block and keys a tile on the tiled path
-_AB_ROWS = 64
-_AB_PLAN_KEYS = ("path", "units", "qtiles")
+# path; query rows a block, keys a warp and the row length its registers
+# hold on the row path; query rows a block and keys a tile on the tiled path
+_AB_ROWS, _AB_LD = 64, 72
+_AR_QROWS, _AR_KEYS, _AR_MAX_KW = 32, 128, 4
+_AB_PLAN_KEYS = ("path", "units", "qtiles", "threads", "smem")
 
 
 def _plan_attention_bf16(B: int, L: int, n_heads: int, dh: int) -> dict:
     """The bf16 attention kernels' launch plan (K6a.bf16 and K2.bf16's
-    attention stage): path 0 (``attention_bf16_kernel``, a block a unit,
-    every query and key held at once) at L <= 64, else path 1
-    (``attention_bf16_tiled_kernel``, a block per (unit, 64 queries) over
-    64-key tiles); grid (units, query tiles).  Heads arrive in 16-byte
-    copies and their products run on m16n8k16 tiles: dh > 64, or dh not a
-    multiple of 8, raises NotImplementedError."""
+    attention stage), a grid of (units, query tiles):
+
+    * path 0 at L <= 64 (``attention_bf16_kernel``): a block a unit, every
+      query and key held at once, 128 threads, static shared memory;
+    * path 2 at 64 < L <= 512 (``attention_bf16_row_kernel``): a block per
+      (unit, 32 queries) of 64 * KW threads, KW = ceil(L / 128) key groups
+      of 128 keys by two 16-row groups, S for the whole row in registers
+      (computed once); dynamic shared memory: q [32][72] bf16, one [kp][72]
+      bf16 buffer for K then V (kp = L rounded up to 16; the KW - 1 partial
+      outputs [32][dh rounded to 16] float32 reuse it), the max / sum
+      exchange [2][KW][32] float32 and the key bias [KW * 128] float32:
+      81,408 bytes at L = 512, dh = 64, two blocks an SM, so B=1, 12 heads
+      gives 192 blocks in one wave;
+    * path 1 past 512, beyond the row path's registers (``attention_bf16_
+      tiled_kernel``): a block per (unit, 64 queries) over 64-key tiles in
+      three passes (max, sum, P V), 128 threads, static shared memory.
+
+    Heads arrive in 16-byte copies and their products run on m16n8k16
+    tiles: dh > 64, or dh not a multiple of 8, raises NotImplementedError."""
     if dh > 64 or dh % 8 or L < 1:
         raise NotImplementedError(f"the bf16 attention at L={L}, head_dim={dh}: the bf16 "
                                   "instance takes head_dim <= 64, a multiple of 8 (ROADMAP "
                                   "Queue 2, 'bf16')")
     units = B * n_heads
     if L <= _AB_ROWS:
-        return {"path": 0, "units": units, "qtiles": 1}
-    return {"path": 1, "units": units, "qtiles": -(-L // _AB_ROWS)}
+        return {"path": 0, "units": units, "qtiles": 1, "threads": 128, "smem": 0}
+    if L > _AR_KEYS * _AR_MAX_KW:
+        return {"path": 1, "units": units, "qtiles": -(-L // _AB_ROWS), "threads": 128,
+                "smem": 0}
+    kw, kp, dp = -(-L // _AR_KEYS), _build.round_up(L, 16), _build.round_up(dh, 16)
+    kv = 2 * kp * _AB_LD
+    assert 4 * (kw - 1) * _AR_QROWS * dp <= kv     # the partial outputs fit K / V's buffer
+    return {"path": 2, "units": units, "qtiles": -(-L // _AR_QROWS), "threads": 64 * kw,
+            "smem": 2 * _AR_QROWS * _AB_LD + kv + 4 * 2 * kw * _AR_QROWS + 4 * kw * _AR_KEYS}
 
 
 @functools.lru_cache(maxsize=None)

@@ -179,17 +179,62 @@ def _plan_gru_fwd(T: int, B: int, in_dim: int, H: int, num_sms: int = _build.NUM
 GEMM_PLAN_KEYS = tuple(f"gemm_{k}" for k in gemm_tc.PLAN_KEYS)
 
 
+# csrc/bigru.cu's own bf16 projection tile's columns (gemm_wgmma 2)
+_K1F_BN = 304
+
+# csrc/gru_rec.cuh's mma form: n tiles of 8 columns a gate (H <= 104), warps
+# a row group of 16, n tiles a warp at most, W's and hm's bf16 row pitches,
+# row groups a block at most
+_RM_NT, _RM_WPG, _RM_TPW, _RM_WLD, _RM_HLD, _RM_MAX_RG = 13, 4, 4, 120, 120, 2
+
+
+def _plan_recurrence_bf16(B: int, H: int, num_sms: int = _build.NUM_SMS) -> dict:
+    """K1f.bf16's recurrence plan (its own keys, ``REC_BF16_PLAN_KEYS``;
+    :func:`_plan_recurrence` stays the float32 instances' and K7's): the
+    small form while ``B <= num_sms`` (the serving batch of 1, the eval
+    batch of 16), as the float plan's; else, at H <= 104, the mma form
+    (``rec_mma``, ``gru_rec_mma_kernel``): hm W_hh^T on the bf16 tensor
+    cores, a row group of 16 rows split over four warps by n tiles, which
+    meet at a named barrier once a step (one warp holding a row group's 13
+    tiles alone ran slower than the tiled form on the card: PERF.md).  A
+    block takes one row group while ``ceil(B / 16)`` fits the SMs, else two
+    (B=4096: 128 blocks of 8 warps, one wave); shared memory W_hh [3][8
+    nt][120] bf16 + b_hn [8 nt] float32 + hm [groups][2][16][120] bf16 + per
+    warp [2][3][4][2][32] float2 gate values (188,960 bytes at H = 100, two
+    row groups).  Wider H takes the float plan's tiled form at bf16
+    (``rec_mma`` 0)."""
+    base = _plan_recurrence(1, B, H, num_sms)
+    if base["rec_small"] or H > 8 * _RM_NT:
+        return {"rec_mma": 0, **base}
+    groups = 1 if -(-B // 16) <= num_sms else _RM_MAX_RG
+    np_ = 8 * -(-H // 8)
+    warps = groups * _RM_WPG
+    smem = (2 * 3 * np_ * _RM_WLD + 4 * np_ + groups * 2 * 2 * 16 * _RM_HLD
+            + warps * 8 * 2 * 3 * _RM_TPW * 2 * 32)
+    return {"rec_mma": 1, "rec_small": 0, "rec_rows": 16 * groups, "rec_threads": 32 * warps,
+            "rec_smem": smem, "rec_ks": 0, "rec_vec": int(H % 2 == 0), "hp": base["hp"],
+            "rec_blocks": -(-B // (16 * groups))}
+
+
+REC_BF16_PLAN_KEYS = ("rec_mma",) + REC_PLAN_KEYS
+
+
 def _plan_gru_fwd_bf16(T: int, B: int, in_dim: int, H: int, num_sms: int = _build.NUM_SMS,
                        x_addr: int = 0, wp_addr: int = 0) -> dict:
     """The bf16 instance's plan: the projection by :func:`gemm_tc.plan_bf16`
     (A = x with row stride ``in``, B = W_ih^T gated [3, in, H]: copies that
-    stay in one gate; ``partial``: its split planes), then
-    :func:`_plan_recurrence` as the float plan's."""
+    stay in one gate; ``partial``: its split planes, or B^T), except that
+    where it takes the wgmma kernel and 3H <= 304, ``gemm_wgmma`` is 2:
+    ``csrc/bigru.cu``'s own 128 x 304 tile, all of 3H = 300 in one column
+    tile, so x is read once (gemm_bf16.cuh's 128-wide tiles read it three
+    times and pad 300 to 384); then :func:`_plan_recurrence_bf16`."""
     acw = gemm_tc.bf16_copy_width((in_dim,), (x_addr,))
     bcw = gemm_tc.bf16_copy_width((H,), (wp_addr,))
     g = gemm_tc.plan_bf16(T * B, 3 * H, in_dim, acw, bcw, num_sms)
     plan = {f"gemm_{k}": g[k] for k in gemm_tc.BF_PLAN_KEYS + ("partial",)}
-    plan.update(_plan_recurrence(1, B, H, num_sms))
+    if plan["gemm_wgmma"] and 3 * H <= _K1F_BN:
+        plan["gemm_wgmma"] = 2
+    plan.update(_plan_recurrence_bf16(B, H, num_sms))
     return plan
 
 
@@ -201,7 +246,7 @@ def _cached_plan_bf16(T, B, in_dim, H, num_sms, x_addr, wp_addr):
     """The bf16 plan as csrc/bigru.cu reads it: (C int array, its address,
     the floats of split planes)."""
     p = _plan_gru_fwd_bf16(T, B, in_dim, H, num_sms, x_addr, wp_addr)
-    ints = _build.host_ints([p[k] for k in BF_GEMM_PLAN_KEYS + REC_PLAN_KEYS])
+    ints = _build.host_ints([p[k] for k in BF_GEMM_PLAN_KEYS + REC_BF16_PLAN_KEYS])
     return ints + (p["gemm_partial"],)
 
 

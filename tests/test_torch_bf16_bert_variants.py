@@ -89,8 +89,8 @@ def test_ffn_ln_q_bf16_matches_jax():
 
 @pytest.mark.parametrize("L", [32, 80])
 def test_dense_attention_bf16_matches_jax(L):
-    """K6a's bf16 plain version on both sides of the kernel's unit / tiled
-    split, a padded and a fully masked item."""
+    """K6a's bf16 plain version on both sides of the kernel's unit / row
+    split (paths 0 and 2 of the plan), a padded and a fully masked item."""
     rng = np.random.default_rng(12)
     B, heads, dh = 3, 2, 16
     (jq, tq), (jk, tk), (jv, tv) = (
@@ -101,7 +101,7 @@ def test_dense_attention_bf16_matches_jax(L):
     ref = exact(bert_attn_pallas.dense_attention_blockdiag, jq, jk, jv, jnp.asarray(mask),
                 interpret=True)
     ours = bert_attn_cuda.dense_attention_blockdiag(tq, tk, tv, torch.from_numpy(mask))
-    assert bert_attn_cuda._plan_attention_bf16(B, L, heads, dh)["path"] == int(L > 64)
+    assert bert_attn_cuda._plan_attention_bf16(B, L, heads, dh)["path"] == (0 if L <= 64 else 2)
     close(ours, ref, f"K6a L={L}")
 
 

@@ -779,10 +779,16 @@ def _bf(t, dev):
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,T,I,H", [(1, 8, 768, 100), (8, 37, 200, 100), (3, 5, 7, 12),
-                                     (600, 6, 20, 13), (4096, 8, 768, 100)])
+                                     (600, 6, 20, 13), (4096, 8, 768, 100),
+                                     (133, 50, 768, 100), (4095, 8, 768, 100),
+                                     (4096, 1, 768, 100), (300, 9, 7, 12)])
 def test_gru_dir_bf16_kernel_matches_plain(cuda, B, T, I, H):
-    """K1f's bf16 instance: the small and the tiled recurrence forms, split
-    and unsplit projections, 1- and 2-element copies (in=7, H=13)."""
+    """K1f's bf16 instance: the small recurrence form (B <= 132) and the
+    mma form past it (16- and 32-row blocks, a ragged last row group, T =
+    1, H = 12 and 13: padded n tiles, odd H's 2-byte stores and 4-byte gate
+    copies), split and unsplit projections, 1- and 2-element copies (in=7,
+    H=13)."""
+    assert bigru_cuda._plan_recurrence_bf16(B, H)["rec_mma"] == int(B > 132)
     rng = np.random.default_rng(21)
     tp = gru_torch_layout(rng, I, H)
     x = _bf(torch.from_numpy(rng.standard_normal((T, B, I)).astype(np.float32)), cuda)
@@ -831,10 +837,16 @@ def test_gru_dir_bwd_bf16_kernel_matches_plain(cuda, B, T, I, H, need_dx):
 @pytest.mark.parametrize("softmax", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,L,heads,h", [(1, 8, 12, 768), (3, 13, 2, 16), (300, 31, 12, 768),
                                          (5, 64, 12, 768), (2, 65, 12, 768), (3, 100, 2, 16),
-                                         (1, 512, 12, 768)])
+                                         (1, 512, 12, 768), (2, 127, 12, 768), (3, 128, 2, 16),
+                                         (3, 129, 12, 768), (2, 300, 2, 16), (1, 511, 12, 768),
+                                         (2, 513, 12, 768), (2, 600, 2, 16)])
 def test_attention_block_bf16_kernel_matches_plain(cuda, B, L, heads, h, softmax):
-    """K2's bf16 instance, both softmax tails, on both attention paths (a
-    unit a block at L <= 64, 64-key tiles in three passes beyond)."""
+    """K2's bf16 instance, both softmax tails, on the three attention paths
+    (a unit a block at L <= 64; the whole row's logits in a block's
+    registers to L = 512, one to four key groups; 64-key tiles in three
+    passes beyond), head_dim 64 and 8, item 0 fully masked."""
+    path = 0 if L <= 64 else (2 if L <= 512 else 1)
+    assert bert_attn_cuda._plan_attention_bf16(B, L, heads, h // heads)["path"] == path
     rng = np.random.default_rng(23)
     args = [a.to(cuda) for a in attn_torch_args(*attn_inputs(rng, B, L, h))]
     args = [a if i == 1 else a.to(torch.bfloat16) for i, a in enumerate(args)]
@@ -851,9 +863,14 @@ def test_attention_block_bf16_kernel_matches_plain(cuda, B, L, heads, h, softmax
 
 @pytest.mark.gpu
 @pytest.mark.parametrize("B,L,heads,h", [(3, 32, 12, 768), (2, 80, 2, 16), (1, 512, 12, 768),
-                                         (4, 64, 4, 32)])
+                                         (4, 64, 4, 32), (2, 127, 12, 768), (3, 128, 2, 16),
+                                         (2, 129, 12, 768), (2, 300, 2, 16), (1, 511, 12, 768),
+                                         (2, 513, 12, 768), (1, 600, 2, 16)])
 def test_dense_attention_bf16_kernel_matches_plain(cuda, B, L, heads, h):
-    """K6a's bf16 instance on both attention paths, one item fully masked."""
+    """K6a's bf16 instance on the three attention paths (the unit, row and
+    three-pass tiled kernels), head_dim 64 and 8, one item fully masked."""
+    path = 0 if L <= 64 else (2 if L <= 512 else 1)
+    assert bert_attn_cuda._plan_attention_bf16(B, L, heads, h // heads)["path"] == path
     rng = np.random.default_rng(27)
     *_, mask = attn_inputs(rng, B, L, h)
     q, k, v = (_bf(torch.from_numpy(rng.standard_normal((B, L, heads, h // heads))

@@ -28,7 +28,10 @@ The bf16 instances' plans (``ops.gemm_tc.plan_bf16`` under
 ``_plan_gru_fwd_bf16``, ``_plan_gru_bwd_bf16``, ``_plan_attn_block_bf16``
 and ``_plan_ffn_bf16``) are held to ``csrc/gemm_bf16.cuh``'s tile: k steps
 of 16-deep MMAs, two blocks an SM within its shared memory, k ranges that
-cover every k tile.
+cover every k tile; the bf16 attention's paths (``_plan_attention_bf16``:
+the row path's grid, threads and shared memory) and K1f.bf16's recurrence
+forms (``_plan_recurrence_bf16``: small, mma or tiled; row groups that
+cover B) to what ``csrc/bert_attn.cu`` and ``csrc/gru_rec.cuh`` take.
 """
 
 import ctypes
@@ -1066,16 +1069,18 @@ def test_bf16_plans_cover_k_and_fit_the_card(M, N, K):
 
 
 def test_bf16_plans_at_the_training_shapes():
-    """bench.py's shapes: K1f's projection, K2's and K3's products on the
-    wgmma tiles (the weights' transposes in the scratch); K1b's reductions
+    """bench.py's shapes: K1f's projection on its own 128 x 304 wgmma tile
+    (gemm_wgmma 2), K2's and K3's products on the wgmma tiles (the weights'
+    transposes in the scratch), K1f's recurrence on its mma form, 32 rows a
+    block; K1b's reductions
     over T*B rows on the mma.sync tiles, split to fill one wave, dwt's
     copies of h dividing H (where its ones row starts), and its dx (K = 3H
     = 300: 8-byte copies) on them unsplit; the recurrences' plans as the
     float instances'."""
     fwd = bigru_cuda._plan_gru_fwd_bf16(50, 4096, 768, 100)
-    assert (fwd["gemm_wgmma"], fwd["gemm_splits"], fwd["gemm_acw"]) == (1, 1, 8)
+    assert (fwd["gemm_wgmma"], fwd["gemm_splits"], fwd["gemm_acw"]) == (2, 1, 8)
     assert 2 * fwd["gemm_partial"] == 300 * 768
-    assert fwd["rec_rows"] == 32 and fwd["rec_small"] == 0
+    assert fwd["rec_rows"] == 32 and fwd["rec_small"] == 0 and fwd["rec_mma"] == 1
     for in_dim, need_dx in ((768, False), (512, False), (200, True)):
         bwd = bigru_cuda._plan_gru_bwd_bf16(50, 4096, in_dim, 100, need_dx)
         assert bwd["rows"] == 32
@@ -1113,18 +1118,22 @@ def test_bf16_plans_at_the_eval_and_serving_rows():
 def test_bf16_attn_block_plan_refuses_long_units():
     """The bf16 attention stage reads heads in 16-byte copies and holds 64
     rows of a head's columns: dh > 64, or dh or h not a multiple of 8
-    raise; every L runs, L <= 64 a unit a block (path 0), longer units in
-    query tiles of 64 (path 1; L = 65 two tiles, the B=1 L=512 serving
-    bucket 8 a head); K6a.bf16 shares the plan.  The static shared memory
+    raise; every L runs, L <= 64 a unit a block (path 0), 64 < L <= 512 in
+    query tiles of 32 with the row's logits in registers (path 2; L = 65
+    three tiles, the B=1 L=512 serving bucket 16 a head, 256 threads),
+    longer units in query tiles of 64 over three passes (path 1);
+    K6a.bf16 shares the plan.  The static shared memory of paths 0 and 1
     (q, k, v rows of 72 bf16 on path 0; q and a ring of two k and v tiles
     on path 1) stays within a block's 48 KB."""
     assert bert_attn_cuda._plan_attn_block_bf16(1, 64, 768, 12)["attention"] == {
-        "path": 0, "units": 12, "qtiles": 1}
+        "path": 0, "units": 12, "qtiles": 1, "threads": 128, "smem": 0}
     bert_attn_cuda._plan_attn_block_bf16(3, 13, 16, 2)
     assert bert_attn_cuda._plan_attn_block_bf16(1, 65, 768, 12)["attention"] == {
-        "path": 1, "units": 12, "qtiles": 2}
+        "path": 2, "units": 12, "qtiles": 3, "threads": 64, "smem": 16896}
     assert bert_attn_cuda._plan_attention_bf16(1, 512, 12, 64) == {
-        "path": 1, "units": 12, "qtiles": 8}
+        "path": 2, "units": 12, "qtiles": 16, "threads": 256, "smem": 81408}
+    assert bert_attn_cuda._plan_attention_bf16(1, 513, 12, 64) == {
+        "path": 1, "units": 12, "qtiles": 9, "threads": 128, "smem": 0}
     assert bert_attn_cuda._plan_attention_bf16(4096, 32, 12, 64)["units"] == 4096 * 12
     for B, L, h, heads in ((1, 8, 768, 6), (1, 8, 60, 5), (1, 8, 36, 3), (1, 100, 36, 3)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -1132,6 +1141,99 @@ def test_bf16_attn_block_plan_refuses_long_units():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         bert_attn_cuda._plan_attention_bf16(2, 80, 4, 12)
     assert 3 * 64 * 72 * 2 <= 48 * 1024 and 5 * 64 * 72 * 2 <= 48 * 1024
+
+
+# csrc/bert_attn.cu's bf16 row path (attention_bf16_row_kernel): 32 query
+# rows a block, 128 keys a warp, at most 4 key groups (L <= 512); q [32][72]
+# and K / V [kp][72] bf16, the max / sum exchange [2][KW][32] and the key
+# bias [KW * 128] float32, the KW - 1 partial outputs [32][dh rounded to
+# 16] float32 in K / V's buffer.
+AB_LD, AR_QROWS, AR_KEYS = 72, 32, 128
+
+
+@pytest.mark.parametrize("L", [1, 8, 32, 64, 65, 100, 127, 128, 129, 256, 257, 300, 384, 385,
+                               511, 512, 513, 600, 1024])
+@pytest.mark.parametrize("dh", [8, 16, 64])
+def test_bf16_attention_plan_paths_and_shared_memory(L, dh):
+    """The bf16 attention's path by L (0 at L <= 64, 2 to L = 512, the
+    logits' reach in a block's registers, 1 past it), a grid of (units,
+    query tiles) whose tiles cover every query row once, path 2's 64 threads
+    a key group of 128 keys, and its dynamic shared memory within a block's
+    232,448 bytes, two blocks an SM, with the partial outputs fitting K / V's
+    buffer."""
+    heads = 12
+    p = bert_attn_cuda._plan_attention_bf16(2, L, heads, dh)
+    assert p["path"] == (0 if L <= 64 else 2 if L <= 512 else 1)
+    assert p["units"] == 2 * heads
+    rows = {0: 64, 1: 64, 2: AR_QROWS}[p["path"]]
+    assert (p["qtiles"] - 1) * rows < L <= p["qtiles"] * rows
+    if p["path"] != 2:
+        assert p["threads"] == 128 and p["smem"] == 0
+        return
+    kw, kp, dp = -(-L // AR_KEYS), -(-L // 16) * 16, -(-dh // 16) * 16
+    assert 1 <= kw <= 4 and p["threads"] == 64 * kw <= 256
+    kv = 2 * kp * AB_LD
+    assert p["smem"] == 2 * AR_QROWS * AB_LD + kv + 4 * 2 * kw * AR_QROWS + 4 * kw * AR_KEYS
+    assert 4 * (kw - 1) * AR_QROWS * dp <= kv
+    assert 2 * (p["smem"] + 1024) <= SM_SMEM
+
+
+def test_bf16_attention_fills_the_card_at_the_longest_bucket():
+    """B=1 L=512, 12 heads of 64 (the serving bucket where the three-pass
+    kernel ran 96 blocks of 4 warps): at least 132 blocks, all resident at
+    once at two blocks an SM; K2.bf16's plan hands the same five ints to
+    its attention stage after the two products' ten."""
+    p = bert_attn_cuda._plan_attention_bf16(1, 512, 12, 64)
+    blocks = p["units"] * p["qtiles"]
+    assert blocks >= SMS and blocks <= 2 * SMS
+    ints, _, _ = bert_attn_cuda._cached_block_plan_bf16(1, 512, 768, 12, SMS, 0, 0, 0)
+    assert len(ints) == 2 * len(gemm_tc.BF_PLAN_KEYS) + len(bert_attn_cuda._AB_PLAN_KEYS) == 15
+    assert list(ints)[10:] == [p[k] for k in bert_attn_cuda._AB_PLAN_KEYS]
+
+
+# csrc/gru_rec.cuh's mma form: W_hh [3][8 nt][120] bf16, b_hn [8 nt] float32,
+# hm [groups][2][16][120] bf16, per warp [2][3][4][2][32] float2 gates
+@pytest.mark.parametrize("B", [1, 16, 132, 133, 600, 2112, 2113, 4095, 4096, 8192])
+@pytest.mark.parametrize("H", [12, 13, 100, 104, 105])
+def test_bf16_recurrence_plan_forms(B, H):
+    """K1f.bf16's recurrence: the small form at B <= 132 (H <= 104), the
+    mma form past it (H <= 104), the tiled form beyond H = 104; the mma
+    form's row groups of 16 cover B, a block 16 rows while ceil(B / 16)
+    fits the SMs and 32 beyond (B=4096: one wave of 128 blocks), four warps
+    a row group, its shared memory within a block's and 8-byte gate copies
+    only at even H; the float32 plan (_plan_recurrence) is unchanged."""
+    p = bigru_cuda._plan_recurrence_bf16(B, H)
+    small = B <= SMS and H <= 104
+    assert p["rec_small"] == int(small)
+    assert p["rec_mma"] == int(not small and H <= 104)
+    if not p["rec_mma"]:
+        assert p == {"rec_mma": 0, **bigru_cuda._plan_recurrence(1, B, H)}
+        return
+    rows, groups = p["rec_rows"], p["rec_rows"] // 16
+    assert rows == (16 if -(-B // 16) <= SMS else 32)
+    assert (p["rec_blocks"] - 1) * rows < B <= p["rec_blocks"] * rows
+    assert p["rec_threads"] == 128 * groups <= 256
+    np_ = 8 * -(-H // 8)
+    assert p["rec_smem"] == (2 * 3 * np_ * 120 + 4 * np_ + groups * 2 * 2 * 16 * 120
+                             + 4 * groups * 8 * 2 * 3 * 4 * 2 * 32) <= MAX_SMEM
+    assert p["rec_vec"] == int(H % 2 == 0)
+    if B in (4095, 4096):
+        assert p["rec_blocks"] == 128 <= SMS
+
+
+def test_bf16_gru_fwd_plan_layout():
+    """K1f.bf16's plan as csrc/bigru.cu reads it: the projection's five
+    BfPlan ints (gemm_wgmma 2 where gemm_tc.plan_bf16 takes wgmma and 3H <=
+    304, 1 where 3H is wider), then the recurrence's eight
+    (REC_BF16_PLAN_KEYS: rec_mma, then the float plan's seven)."""
+    assert bigru_cuda.REC_BF16_PLAN_KEYS == ("rec_mma",) + bigru_cuda.REC_PLAN_KEYS
+    ints, _, partial = bigru_cuda._cached_plan_bf16(50, 4096, 768, 100, SMS, 0, 0)
+    p = bigru_cuda._plan_gru_fwd_bf16(50, 4096, 768, 100)
+    assert list(ints) == [p[k] for k in bigru_cuda.BF_GEMM_PLAN_KEYS
+                          + bigru_cuda.REC_BF16_PLAN_KEYS]
+    assert len(ints) == 13 and partial == p["gemm_partial"]
+    assert bigru_cuda._plan_gru_fwd_bf16(50, 4096, 768, 105)["gemm_wgmma"] == 1
+    assert bigru_cuda._plan_gru_fwd_bf16(50, 16, 768, 100)["gemm_wgmma"] == 0
 
 
 def test_bf16_proj_ln_plan_is_k2s_tail():
