@@ -458,18 +458,27 @@ def cudnn_gru(w, in_dim, H, dev):
 
 @contextmanager
 def parent_plans():
-    """The bf16 launch plans of the commit before the row attention and the
-    mma-form K1f.bf16, for the parent kernels' times in the same call:
-    K6a.bf16's and K2.bf16's attention past L = 64 on the three-pass tiled
-    kernel (path 1, which still serves L > 512), K1f.bf16's recurrence on
-    the tiled form (which still serves H > 104) and its projection on
-    gemm_bf16.cuh's 128-wide wgmma tiles (which still serve 3H > 304).
-    Their sources are unchanged, so these are the parent's kernels,
-    launched as it launched them."""
+    """The bf16 launch plans of the commits before the redesigns of the
+    bf16 rows, for the parent kernels' times in the same call: K6a.bf16's
+    and K2.bf16's attention past L = 64 on the three-pass tiled kernel
+    (path 1, which still serves L > 512), K1f.bf16's recurrence on the
+    tiled form (which still serves H > 104) and its projection on
+    gemm_bf16.cuh's 128-wide wgmma tiles (which still serve 3H > 304);
+    K3.bf16's products on those 128 x 128 wgmma tiles with the weights'
+    transposes (bf_transpose_b, which K2.bf16 still runs) and its
+    LayerNorm a block a row; K1b.bf16's recurrence on the tiled form (the
+    float plan's, which K7b and wider H still run) and its dwp on the
+    transposed-A mma.sync tiles (which dwt still runs).  Their sources are
+    unchanged, so these are the parent's kernels, launched as it launched
+    them."""
     from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda as ba
+    from multimodal_transformer_robustness_tpu_torch.ops import bert_ffn_cuda as bf
+    from multimodal_transformer_robustness_tpu_torch import _build
     from multimodal_transformer_robustness_tpu_torch.ops import bigru_cuda as bg
+    from multimodal_transformer_robustness_tpu_torch.ops import gemm_tc
 
-    attn, fwd = ba._plan_attention_bf16, bg._plan_gru_fwd_bf16
+    attn, fwd, ffn, bwd = (ba._plan_attention_bf16, bg._plan_gru_fwd_bf16, bf._plan_ffn_bf16,
+                           bg._plan_gru_bwd_bf16)
 
     def attn_parent(B, L, n_heads, dh):
         p = attn(B, L, n_heads, dh)
@@ -485,14 +494,37 @@ def parent_plans():
         p["gemm_wgmma"] = min(p["gemm_wgmma"], 1)
         return p
 
-    caches = (ba._cached_plan_bf16, ba._cached_block_plan_bf16, bg._cached_plan_bf16)
-    ba._plan_attention_bf16, bg._plan_gru_fwd_bf16 = attn_parent, fwd_parent
+    def ffn_parent(rows, h, f, num_sms=_build.NUM_SMS, *addrs):
+        p = ffn(rows, h, f, num_sms, *addrs)
+        for fc, (m, n, k) in (("fc1", (rows, f, h)), ("fc2", (rows, h, f))):
+            if p[fc]["wgmma"] == 2:
+                p[fc] = gemm_tc.plan_bf16(m, n, k, 8, 8, num_sms)
+        p["partial"] = max(p["fc1"]["partial"], p["fc2"]["partial"])
+        return p
+
+    def bwd_parent(T, B, in_dim, H, need_dx, num_sms=_build.NUM_SMS, x_addr=0, hs_addr=0):
+        p = bwd(T, B, in_dim, H, need_dx, num_sms, x_addr, hs_addr)
+        if p["rec_mma"]:
+            p.update(rec_mma=0, rec_vec=0, hp=0, **bg._plan_rec_bwd(1, B, H, num_sms))
+        bcw = gemm_tc.bf16_copy_width((4 * H,))
+        for name, m, n, acw in (("dwp", in_dim, 3 * H, p["dwp_acw"]),
+                                ("dwt", H + 1, 4 * H, gemm_tc.bf16_copy_width((H,), (hs_addr,)))):
+            q = gemm_tc.plan_bf16(m, n, T * B, acw, bcw, num_sms, max_splits=None,
+                                  transposed_a=True)
+            p.update({f"{name}_{k}": q[k] for k in gemm_tc.BF_PLAN_KEYS + ("partial",)})
+        return p
+
+    caches = (ba._cached_plan_bf16, ba._cached_block_plan_bf16, bg._cached_plan_bf16,
+              bf._cached_ffn_plan_bf16, bg._cached_bwd_plan_bf16)
+    (ba._plan_attention_bf16, bg._plan_gru_fwd_bf16, bf._plan_ffn_bf16,
+     bg._plan_gru_bwd_bf16) = attn_parent, fwd_parent, ffn_parent, bwd_parent
     for cache in caches:
         cache.cache_clear()
     try:
         yield
     finally:
-        ba._plan_attention_bf16, bg._plan_gru_fwd_bf16 = attn, fwd
+        (ba._plan_attention_bf16, bg._plan_gru_fwd_bf16, bf._plan_ffn_bf16,
+         bg._plan_gru_bwd_bf16) = attn, fwd, ffn, bwd
         for cache in caches:
             cache.cache_clear()
 
@@ -503,6 +535,21 @@ def parent_ms(fn, iters):
         fn()
         torch.cuda.synchronize()
         return cuda_ms(fn, iters)
+
+
+def parent_and_splits(kid, shape, fn, iters=5):
+    """A redesigned row's parent time (under :func:`parent_plans`) and both
+    device splits by kernel (torch.profiler), printed and returned as the
+    row's extra fields."""
+    with parent_plans():
+        fn()
+        torch.cuda.synchronize()
+        parent_split = profile_ms(fn, iters)
+    extra = {"parent_ms": parent_ms(fn, iters), "split_ms": profile_ms(fn, iters),
+             "parent_split_ms": parent_split}
+    print(f"  {kid} {shape}: device split {extra['split_ms']}, parent "
+          f"{extra['parent_ms']:.4f} ms, its split {parent_split}", flush=True)
+    return extra
 
 
 def check_kernels(dev, rng):
@@ -752,12 +799,17 @@ def check_bf16(dev, rng, t, record, failures):
 
             def library():
                 return torch.autograd.grad(y, wrt, dhs, retain_graph=True)
+
+        def fn():
+            return bigru_cuda.gru_dir_bwd(x, *args, hs, gates, dhs, False, need_dx)
+
+        extra = parent_and_splits("K1b.bf16", f"in={in_dim}", fn)
         judge("K1b.bf16", f"in={in_dim} H={H} T={T} B={B} fwd need_dx={need_dx}", got, ref,
-              f32, again,
-              kernel_fn=lambda: bigru_cuda.gru_dir_bwd(x, *args, hs, gates, dhs, False, need_dx),
+              f32, again, kernel_fn=fn,
               plain_fn=lambda: bigru_cuda.gru_dir_bwd_plain(x, *args, hs, gates, dhs, False,
                                                             need_dx),
-              work=k1b_bf16_work(T, B, in_dim, H, need_dx), library_fn=library, iters=5)
+              work=k1b_bf16_work(T, B, in_dim, H, need_dx), library_fn=library, iters=5,
+              extra=extra)
         del got, again, ref, f32, hs, gates, library
     del x768
     torch.cuda.empty_cache()
@@ -792,12 +844,18 @@ def check_bf16(dev, rng, t, record, failures):
     out = bert_ffn_cuda.ffn_ln_block(*f_args, eps=eps)
     again = bert_ffn_cuda.ffn_ln_block(*f_args, eps=eps)
     torch.cuda.synchronize()
+    extra = parent_and_splits("K3.bf16", f"B={B} L={L}",
+                              lambda: bert_ffn_cuda.ffn_ln_block(*f_args, eps=eps))
+    extra["cublas_products_ms"] = {   # cuBLAS, the two products alone: a yardstick
+        "fc1": cuda_ms(lambda: torch.matmul(x, w1t), 5),
+        "fc2": cuda_ms(lambda: torch.matmul(x.new_empty(B, L, ffn), w2t), 5)}
+    print(f"  cuBLAS bf16, the two products alone: {extra['cublas_products_ms']}", flush=True)
     judge("K3.bf16", f"B={B} L={L} h={h} ffn={ffn}", (out,),
           (bert_ffn_cuda.ffn_ln_block_plain(*f_args, eps=eps),),
           (bert_ffn_cuda.ffn_ln_block(*(a.float() for a in f_args), eps=eps),), (again,),
           kernel_fn=lambda: bert_ffn_cuda.ffn_ln_block(*f_args, eps=eps),
           plain_fn=lambda: bert_ffn_cuda.ffn_ln_block_plain(*f_args, eps=eps),
-          work=k3_bf16_work(B, L, h, ffn), iters=5)
+          work=k3_bf16_work(B, L, h, ffn), iters=5, extra=extra)
     del out, again, x, a_args, f_args
     torch.cuda.empty_cache()
     check_k1f_k6a_edges_bf16(dev, np.random.default_rng(24), t, judge)
@@ -3969,6 +4027,12 @@ def main() -> int:
     bf16_launches, bf16_stats = train(
         dev, spec16, bert_cfg, "train-bf16", expect_bf16(K1=12, K1b=12, K2=4, K3=4),
         store_dtype="bfloat16", warmup=2, steps=3)
+    # the last records of the same breakdown on this card before the
+    # persistent K3.bf16 and the mma-form K1b.bf16 (PERF.md §5), printed
+    # beside this run's
+    print(f"train-bf16 BERT {bf16_stats['bert_ms']:.2f} ms (before: 64.5), "
+          f"headers fwd+bwd {bf16_stats['headers_fwd_bwd_ms']:.2f} ms "
+          "(before: 44.68)", flush=True)
     torch.cuda.empty_cache()
 
     phase("train-bf16-cached")

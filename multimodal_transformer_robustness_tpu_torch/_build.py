@@ -54,7 +54,7 @@ _SIGNATURES = {
     "mmtr_ffn_ln_fwd": (_I, [_P] * 11 + [_I] * 3 + [_F, _P, _P]),
     "mmtr_attn_block_fwd": (_I, [_P] * 13 + [_I] * 4 + [_F, _P, _P]),
     "mmtr_gru_dir_fwd_bf16": (_I, [_P] * 8 + [_I] * 5 + [_P, _P]),
-    "mmtr_gru_dir_bwd_bf16": (_I, [_P] * 12 + [_I] * 6 + [_P, _P]),
+    "mmtr_gru_dir_bwd_bf16": (_I, [_P] * 13 + [_I] * 6 + [_P, _P]),
     "mmtr_ffn_ln_fwd_bf16": (_I, [_P] * 11 + [_I] * 3 + [_F, _P, _P]),
     "mmtr_attn_block_fwd_bf16": (_I, [_P] * 13 + [_I] * 4 + [_F, _I, _P, _P]),
     "mmtr_attention_fwd": (_I, [_P] * 5 + [_I] * 4 + [_P, _P]),

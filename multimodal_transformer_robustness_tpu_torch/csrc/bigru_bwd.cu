@@ -98,44 +98,66 @@ extern "C" int mmtr_gru_dir_bwd(const float* x, const float* hs, const float* ga
 // float entry's, with da_r, da_z and dghn rounded to bf16 for the carry and
 // dg [T*B, 4H] written in bf16 (gru_rec.cuh, WT = bf16); then the products
 // on the bf16 tensor cores (gemm_bf16.cuh): dx = dg[:, :3H] wpT, rounded to
-// bf16; dwp = x^T dg[:, :3H] and [h_prev | 1]^T dg over T*B rows, split
-// into float32 planes added in a fixed order, rounded to bf16 (the JAX VJP
-// rounds dW and db to the weights' dtype), into red ([in][3H] then
-// [H+1][4H], bf16).  plan: twenty host ints: the recurrence's five, then
-// the BfPlans (ops/gemm_tc.plan_bf16) of dwp, dwt and dx.  partial: dwp's
-// planes then dwt's (a product that does not split has none); dx_partial:
-// dx's split planes (when it splits).
+// bf16; dwp = x^T dg[:, :3H] (where x and dg take 16-byte rows, on the
+// wgmma reduction, gemm_bf16_tn_kernel) and [h_prev | 1]^T dg over T*B
+// rows, split into float32 planes added in a fixed order, rounded to bf16
+// (the JAX VJP rounds dW and db to the weights' dtype), into red
+// ([in][3H] then [H+1][4H], bf16).  plan: twenty-two host ints (ops/bigru_cuda.
+// _plan_gru_bwd_bf16): the recurrence's seven (rec_mma: 1 for gru_rec.cuh's
+// mma form, both products on the bf16 tensor cores, by rows, threads,
+// smem and rec_vec; 0 for the tiled form by rows, threads, smem, js and
+// wp), then the BfPlans (ops/gemm_tc.plan_bf16) of dwp, dwt and dx.
+// partial: dwp's planes then dwt's (a product that does not split has
+// none); dx_partial: dx's split planes (when it splits).
 extern "C" int mmtr_gru_dir_bwd_bf16(const bf16* x, const bf16* hs, const float* gates,
                                      const bf16* dhs, const bf16* wt, const bf16* bhn,
                                      const bf16* wpT, bf16* dg, float* partial, bf16* red,
-                                     bf16* dx, float* dx_partial, int T, int B, int in_dim,
-                                     int H, int reverse, int need_dx, const int* plan,
-                                     void* stream_ptr) {
+                                     bf16* dx, float* dx_partial, bf16* hp, int T, int B,
+                                     int in_dim, int H, int reverse, int need_dx,
+                                     const int* plan, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
   const int rows = T * B, H3 = 3 * H, H4 = 4 * H;
   const long long plane = (long long)rows * H;
+  const int* rec = plan + 1;
   const GruRecBwdT<bf16> p{{gates, gates + plane, gates + 2 * plane},
                            {wt, wt + (long long)H * H, wt + 2LL * H * H},
-                           {nullptr, nullptr}, bhn, hs, dhs, dg, 0, T, B, H, plan[3], plan[4],
+                           {nullptr, nullptr}, bhn, hs, dhs, dg, 0, T, B, H, rec[3], rec[4],
                            reverse};
-  cudaError_t err = launch_gru_rec_bwd_tiled<false>(p, 1, plan, stream);
+  const BfPlan pwp = bf_plan(plan + 7), pwt = bf_plan(plan + 12);
+  // dwt on the wgmma reduction reads h_prev from hp, which the mma form
+  // writes: [T*B, hpc], H + 1 columns (the ones column) rounded up to 8
+  const int hpc = pwt.wgmma == 3 ? (H + 8) / 8 * 8 : 0;
+  if (hpc && !plan[0]) return (int)cudaErrorInvalidValue;
+  cudaError_t err = plan[0] ? launch_gru_rec_bwd_mma(p, hp, hpc, rec[0], rec[1], rec[2], plan[6],
+                                                     stream)
+                            : launch_gru_rec_bwd_tiled<false>(p, 1, rec, stream);
   if (err != cudaSuccess) return (int)err;
 
   if (need_dx) {
     const BfGemm g = bf_gemm(dg, H4, wpT, in_dim, in_dim, rows, in_dim, H3);
-    err = launch_gemm_bf16<true, EPI_NONE>(bf_plan(plan + 15), g, nullptr, nullptr, dx, in_dim,
+    err = launch_gemm_bf16<true, EPI_NONE>(bf_plan(plan + 17), g, nullptr, nullptr, dx, in_dim,
                                            dx_partial, stream);
     if (err != cudaSuccess) return (int)err;
   }
 
-  const BfPlan pwp = bf_plan(plan + 5), pwt = bf_plan(plan + 10);
   const long long n_wp = (long long)in_dim * H3;
   float* part_wt = partial + (pwp.splits > 1 ? pwp.splits * n_wp : 0);
-  // dwp: At(k, m) = x[k][m], B = dg's first 3H columns
-  BfGemm gwp = bf_gemm(x, in_dim, dg, H4, H3, in_dim, H3, rows);
-  err = launch_gemm_bf16<false, EPI_NONE>(pwp, gwp, nullptr, nullptr, red, H3, partial, stream);
+  // dwp: At(k, m) = x[k][m], B = dg's first 3H columns; on the wgmma
+  // reduction (plan wgmma 3) where x and dg take TMA's 16-byte rows
+  if (pwp.wgmma == 3) {
+    err = launch_gemm_bf16_tn(x, in_dim, dg, H4, red, in_dim, H3, rows, pwp.splits, pwp.kps,
+                              partial, stream);
+  } else {
+    BfGemm gwp = bf_gemm(x, in_dim, dg, H4, H3, in_dim, H3, rows);
+    err = launch_gemm_bf16<false, EPI_NONE>(pwp, gwp, nullptr, nullptr, red, H3, partial,
+                                            stream);
+  }
   if (err != cudaSuccess) return (int)err;
-  // dwt and the bias sums: At(k, m) = h[k + shift][m] (h_prev), row H ones
+  // dwt and the bias sums: At(k, m) = h[k + shift][m] (h_prev), row H ones;
+  // on the wgmma reduction from hp, whose column H is the ones
+  if (pwt.wgmma == 3)
+    return (int)launch_gemm_bf16_tn(hp, hpc, dg, H4, red + n_wp, H + 1, H4, rows, pwt.splits,
+                                    pwt.kps, part_wt, stream);
   BfGemm gwt = bf_gemm(hs, H, dg, H4, H4, H + 1, H4, rows);
   gwt.shift = reverse ? B : -B;
   gwt.mdata = H;

@@ -924,6 +924,322 @@ gru_rec_bwd_tiled_kernel(const GruRecBwdT<WT, GT, CT> p, int R) {
   }
 }
 
+// The backward's mma form: K1b's bf16 instance where the tiled form would
+// run (B past the SM count) and H <= 104.  Both of a step's products are
+// bf16 x bf16 with float32 sums in the JAX kernel (bigru_pallas.py
+// _bwd_kernel: the recompute h_prev @ wt[g], the carry da_g . wt[g]^T with
+// da_g cast to bf16), so they run on mma.sync m16n8k16, as the forward's
+// gru_rec_mma_kernel runs its product.  A row group of 16 rows, its n tiles
+// of 8 columns (13 at H = 100) split over RM_WPG = 4 warps (4, 3, 3, 3), for
+// the whole time loop; per step, newest first:
+//   * the recompute: h_prev [16][112] (the forward's stored bf16 h, zeros
+//     at the sequence's start; H padded to 7 k steps) times W_hh^T, three
+//     gates, a warp its own tiles;
+//   * the gate math in the accumulator layout, on the forward's float32
+//     gate scratch (each lane's own values, prefetched a step ahead by
+//     cp.async into a slot of its own) and the float32 dh carried in the
+//     same layout: da_n, da_r, da_z and dghn, the last three rounded to bf16
+//     as the JAX kernel rounds them, written to dg [T*B, 4H] (bf16, columns
+//     n, r, z, dghn as the reductions read them) and, for the carry, to the
+//     row group's da [3][16][112] in shared memory;
+//   * a named barrier (the row group's four warps: da complete, the next
+//     step's h_prev landed);
+//   * the carry: dh = dht z + da_r W_r^T + da_z W_z^T + dghn W_n^T, one
+//     chain of K = 3 x 112 on the tensor cores, started from dht z and
+//     summed gate by gate (r, z, n) and k step by k step: another float32
+//     order than the JAX kernel's three dots added to dht z, within the
+//     bf16 tolerance.
+// One copy of W_hh^T serves both products: w[g][a][b] = wt[g][a][b], rows
+// and columns padded to 112; the recompute reads it as B [k = a][n = b] by
+// ldmatrix.trans, the carry as B^T [n = a][k = b] by ldmatrix.  h_prev and
+// da are double-buffered, so a step has one barrier.  Shared memory: w
+// [3][112][RM_WLD] bf16 (80,640 bytes), b_hn [104] float, per row group hm
+// [2][16][RM_HLD] and da [2][3][16][RM_HLD] bf16, per warp the gate slots
+// [3][RM_TPW][2][32] float2 and dh_in's [RM_TPW][2][32] bf16 pairs:
+// 199,840 bytes at two row groups, one block an SM.  VEC: H a multiple of 4
+// (8-byte copies of h_prev and of gate pairs, 4-byte dg and dh_in pairs);
+// else element by element.
+constexpr int RB_KP = 16 * RM_KS;   // H padded to whole k steps: W's rows and columns
+
+// This lane's gate values and dh_in of step t (rows b0 + g8 (+ 8), columns
+// 8 j + 2 t4 (+ 1) of its tiles j0 .. j0 + cnt - 1) into its slots; zero
+// past B or H.  Without VEC dh_in is read where it is used.
+template <bool VEC>
+__device__ __forceinline__ void bwd_mma_prefetch(float2* gs, uint32_t* ds,
+                                                 const float* const (&gate)[3],
+                                                 const bf16* dhs, int t, int B, int H, int b0,
+                                                 int j0, int cnt) {
+  const int lane = threadIdx.x % 32, g8 = lane / 4, t4 = lane % 4;
+#pragma unroll
+  for (int q = 0; q < RM_TPW; ++q) {
+    if (q < cnt) {
+      const int col = 8 * (j0 + q) + 2 * t4;
+#pragma unroll
+      for (int half = 0; half < 2; ++half) {
+        const int row = b0 + g8 + 8 * half, slot = (q * 2 + half) * 32 + lane;
+        const long long at = ((long long)t * B + row) * H + col;
+        const bool ok0 = row < B && col < H, ok1 = row < B && col + 1 < H;
+#pragma unroll
+        for (int g = 0; g < 3; ++g) {
+          float2* dst = gs + g * RM_TPW * 2 * 32 + slot;
+          if (VEC) {
+            cp_async8(dst, ok0 ? gate[g] + at : gate[g], ok0);
+          } else {
+            cp_async4(&dst->x, ok0 ? gate[g] + at : gate[g], ok0);
+            cp_async4(&dst->y, ok1 ? gate[g] + at + 1 : gate[g], ok1);
+          }
+        }
+        if (VEC) cp_async4(ds + slot, ok0 ? dhs + at : dhs, ok0);
+      }
+    }
+  }
+}
+
+// The row group's h_prev of step t (h[tp], zeros where tp falls outside
+// [0, T) or a row past B) into hm [16][RM_HLD], columns 0 .. H-1: 8-byte
+// copies (VEC), else element by element through registers.
+template <bool VEC>
+__device__ __forceinline__ void bwd_mma_stage_h(bf16* hm, const bf16* hs, int tp, int T, int B,
+                                                int H, int b0) {
+  const int tid = threadIdx.x % (32 * RM_WPG);
+  const bool has = tp >= 0 && tp < T;
+  const int per = VEC ? H / 4 : H;
+  for (int i = tid; i < 16 * per; i += 32 * RM_WPG) {
+    const int r = i / per, c = (i - r * per) * (VEC ? 4 : 1), row = b0 + r;
+    const bool ok = has && row < B;
+    const bf16* src = hs + ((long long)(ok ? tp : 0) * B + (ok ? row : 0)) * H + c;
+    if (VEC)
+      cp_async8(hm + r * RM_HLD + c, src, ok);
+    else
+      hm[r * RM_HLD + c] = ok ? *src : f2bf(0.f);
+  }
+}
+
+template <bool VEC>
+__global__ void __launch_bounds__(32 * RM_WPG * RM_MAX_RG)
+gru_rec_bwd_mma_kernel(const GruRecBwdT<bf16> p, bf16* __restrict__ hp, int hpc) {
+  extern __shared__ float4 rec_smem4[];
+  const int T = p.T, B = p.B, H = p.H, H4 = 4 * H;
+  const int nt = (H + 7) / 8, ks = (H + 15) / 16;
+  const int rgs = blockDim.x / (32 * RM_WPG), nwarps = blockDim.x / 32;
+  bf16* w = reinterpret_cast<bf16*>(rec_smem4);                  // [3][RB_KP][RM_WLD]
+  float* bn = reinterpret_cast<float*>(w + 3 * RB_KP * RM_WLD);  // [8 RM_NT]
+  bf16* hm0 = reinterpret_cast<bf16*>(bn + 8 * RM_NT);           // [rgs][2][16][RM_HLD]
+  bf16* da0 = hm0 + rgs * 2 * 16 * RM_HLD;                       // [rgs][2][3][16][RM_HLD]
+  float2* gs0 = reinterpret_cast<float2*>(da0 + rgs * 2 * 3 * 16 * RM_HLD);
+  uint32_t* ds0 = reinterpret_cast<uint32_t*>(gs0 + nwarps * 3 * RM_TPW * 2 * 32);
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32, g8 = lane / 4, t4 = lane % 4;
+  const int rg = warp / RM_WPG, c = warp - rg * RM_WPG;
+  bf16* hm = hm0 + rg * 2 * 16 * RM_HLD;                         // [2][16][RM_HLD]
+  bf16* da = da0 + rg * 2 * 3 * 16 * RM_HLD;                     // [2][3][16][RM_HLD]
+  float2* gs = gs0 + warp * 3 * RM_TPW * 2 * 32;                 // [3][TPW][2][32]
+  uint32_t* ds = ds0 + warp * RM_TPW * 2 * 32;                   // [TPW][2][32]
+  const int b0 = (blockIdx.x * rgs + rg) * 16;
+  // this warp's n tiles j0 .. j0 + cnt - 1 (the recompute's columns, the
+  // carry's output rows of W_hh^T)
+  const int cnt = nt / RM_WPG + (c < nt % RM_WPG), j0 = c * (nt / RM_WPG) + min(c, nt % RM_WPG);
+  const float* const gate[3] = {p.gate[0], p.gate[1], p.gate[2]};
+
+  for (int i = threadIdx.x; i < 3 * RB_KP * RB_KP; i += blockDim.x) {
+    const int ga = i / RB_KP, b = i - ga * RB_KP, gt = ga / RB_KP, a = ga - gt * RB_KP;
+    const bf16* src = gt == 0 ? p.w[0] : (gt == 1 ? p.w[1] : p.w[2]);
+    w[ga * RM_WLD + b] = a < H && b < H ? src[(long long)a * H + b] : f2bf(0.f);
+  }
+  for (int j = threadIdx.x; j < 8 * RM_NT; j += blockDim.x) bn[j] = j < H ? ld_f(p.bhn + j) : 0.f;
+  for (int i = threadIdx.x; i < rgs * 2 * 4 * 16 * RM_HLD; i += blockDim.x) hm0[i] = f2bf(0.f);
+  __syncthreads();
+  if (b0 >= B) return;   // the whole row group: its barrier is its own
+  const int bar = 1 + rg;
+  // newest first; step t's h_prev is h[t + dt]
+  const int t_first = p.reverse ? 0 : T - 1, dt = p.reverse ? 1 : -1;
+  bwd_mma_stage_h<VEC>(hm, p.hs, t_first + dt, T, B, H, b0);
+  bwd_mma_prefetch<VEC>(gs, ds, gate, p.dhs, t_first, B, H, b0, j0, cnt);
+  cp_async_commit();
+  cp_async_wait<0>();
+  asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "r"(32 * RM_WPG) : "memory");
+
+  // the carried dh of tiles j0 + q: rows g8 (e < 2) and g8 + 8, columns
+  // 8 (j0 + q) + 2 t4 + (e & 1); then dht z, the carry's start
+  float hc[RM_TPW][4];
+#pragma unroll
+  for (int q = 0; q < RM_TPW; ++q)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) hc[q][e] = 0.f;
+
+  for (int step = 0; step < T; ++step) {
+    const int cur = step & 1, t = t_first + dt * step;
+    const bf16* hcur = hm + cur * 16 * RM_HLD;
+    bf16* dcur = da + cur * 3 * 16 * RM_HLD;
+    if (step + 1 < T) bwd_mma_stage_h<VEC>(hm + (cur ^ 1) * 16 * RM_HLD, p.hs, t + 2 * dt, T, B,
+                                           H, b0);
+    cp_async_commit();
+    cp_async_wait<1>();   // this lane's gate slots of this step
+
+    uint32_t a[RM_KS][4];   // h_prev as the A operand
+#pragma unroll
+    for (int m = 0; m < RM_KS; ++m)
+      if (m < ks) ldsm_x4(a[m], hcur + (lane & 15) * RM_HLD + 16 * m + (lane >> 4) * 8);
+#pragma unroll
+    for (int q = 0; q < RM_TPW; ++q) {
+      if (q < cnt) {
+        const int j = j0 + q;
+        float acc[3][4] = {};
+#pragma unroll
+        for (int m = 0; m < RM_KS; m += 2) {
+          if (m < ks) {
+#pragma unroll
+            for (int gt = 0; gt < 3; ++gt) {
+              uint32_t r[4];   // b0, b1 of k steps m and m + 1, n tile j
+              ldsm_x4_t(r, w + (gt * RB_KP + 16 * m + lane) * RM_WLD + 8 * j);
+              mma_bf16(acc[gt], a[m], r[0], r[1]);
+              if (m + 1 < ks) mma_bf16(acc[gt], a[m + 1 < RM_KS ? m + 1 : m], r[2], r[3]);
+            }
+          }
+        }
+        const int col = 8 * j + 2 * t4;
+#pragma unroll
+        for (int half = 0; half < 2; ++half) {
+          const int r = g8 + 8 * half, row = b0 + r, slot = (q * 2 + half) * 32 + lane;
+          const float2 xr = gs[(0 * RM_TPW * 2) * 32 + slot];
+          const float2 xz = gs[(1 * RM_TPW * 2) * 32 + slot];
+          const float2 xn = gs[(2 * RM_TPW * 2) * 32 + slot];
+          const long long at = ((long long)t * B + row) * H + col;
+          float dy[2];
+          if (VEC) {
+            const uint32_t d2 = ds[slot];
+            dy[0] = bf2f(__ushort_as_bfloat16((unsigned short)(d2 & 0xffffu)));
+            dy[1] = bf2f(__ushort_as_bfloat16((unsigned short)(d2 >> 16)));
+          } else {
+            dy[0] = row < B && col < H ? bf2f(p.dhs[at]) : 0.f;
+            dy[1] = row < B && col + 1 < H ? bf2f(p.dhs[at + 1]) : 0.f;
+          }
+          const uint32_t h2 = *reinterpret_cast<const uint32_t*>(hcur + r * RM_HLD + col);
+          if (hpc && row < B && col < H) {   // h_prev for dwt's reduction
+            bf16* o = hp + ((long long)t * B + row) * hpc + col;
+            if (VEC) {
+              *reinterpret_cast<uint32_t*>(o) = h2;
+            } else {
+              o[0] = hcur[r * RM_HLD + col];
+              if (col + 1 < H) o[1] = hcur[r * RM_HLD + col + 1];
+            }
+          }
+          const float hp[2] = {bf2f(__ushort_as_bfloat16((unsigned short)(h2 & 0xffffu))),
+                               bf2f(__ushort_as_bfloat16((unsigned short)(h2 >> 16)))};
+          const float gx[3][2] = {{xr.x, xr.y}, {xz.x, xz.y}, {xn.x, xn.y}};
+          float dan[2], dar[2], daz[2], dgn[2];
+#pragma unroll
+          for (int e = 0; e < 2; ++e) {
+            const int k = 2 * half + e;
+            const bool ok = row < B && col + e < H;
+            const float rr = gate_sigmoid(gx[0][e] + acc[0][k]);
+            const float z = gate_sigmoid(gx[1][e] + acc[1][k]);
+            const float ghn = acc[2][k] + bn[col + e];
+            const float n = gate_tanh(gx[2][e] + rr * ghn);
+            const float dht = dy[e] + hc[q][k];
+            const float da_n = dht * (1.0f - z) * (1.0f - n * n);
+            // rounded as the JAX kernel casts them for the carry and dg
+            dan[e] = ok ? da_n : 0.f;
+            dgn[e] = ok ? rbf(da_n * rr) : 0.f;
+            dar[e] = ok ? rbf(da_n * ghn * rr * (1.0f - rr)) : 0.f;
+            daz[e] = ok ? rbf(dht * (hp[e] - n) * z * (1.0f - z)) : 0.f;
+            hc[q][k] = ok ? dht * z : 0.f;
+          }
+          const int so = r * RM_HLD + col;
+          *reinterpret_cast<uint32_t*>(dcur + so) = pack_bf16(dar[0], dar[1]);
+          *reinterpret_cast<uint32_t*>(dcur + 16 * RM_HLD + so) = pack_bf16(daz[0], daz[1]);
+          *reinterpret_cast<uint32_t*>(dcur + 2 * 16 * RM_HLD + so) = pack_bf16(dgn[0], dgn[1]);
+          if (row < B && col < H) {
+            bf16* o = p.dg + ((long long)t * B + row) * H4 + col;
+            const float v[4][2] = {{dan[0], dan[1]}, {dar[0], dar[1]}, {daz[0], daz[1]},
+                                   {dgn[0], dgn[1]}};
+#pragma unroll
+            for (int g = 0; g < 4; ++g) {
+              if (VEC) {
+                *reinterpret_cast<uint32_t*>(o + g * H) = pack_bf16(v[g][0], v[g][1]);
+              } else {
+                o[g * H] = f2bf(v[g][0]);
+                if (col + 1 < H) o[g * H + 1] = f2bf(v[g][1]);
+              }
+            }
+          }
+        }
+      }
+    }
+    // hp's columns past H: the ones column (dwt's bias sums), then zeros
+    for (int i = threadIdx.x % (32 * RM_WPG); i < 16 * (hpc - H); i += 32 * RM_WPG) {
+      const int r = i / (hpc - H), col = H + (i - r * (hpc - H));
+      if (b0 + r < B) hp[((long long)t * B + b0 + r) * hpc + col] = f2bf(col == H ? 1.f : 0.f);
+    }
+    // the slots are read (into registers): prefetch the next step's
+    asm volatile("" ::: "memory");
+    if (step + 1 < T)
+      bwd_mma_prefetch<VEC>(gs, ds, gate, p.dhs, t + dt, B, H, b0, j0, cnt);
+    cp_async_commit();
+    cp_async_wait<1>();   // this lane's copies of the next h_prev
+    // the row group's da of this step complete, its next h_prev landed
+    asm volatile("bar.sync %0, %1;\n" ::"r"(bar), "r"(32 * RM_WPG) : "memory");
+
+    // the carry into hc, from dht z, gate by gate
+#pragma unroll
+    for (int gt = 0; gt < 3; ++gt) {
+      uint32_t ad[RM_KS][4];   // da_g as the A operand
+#pragma unroll
+      for (int m = 0; m < RM_KS; ++m)
+        if (m < ks)
+          ldsm_x4(ad[m], dcur + gt * 16 * RM_HLD + (lane & 15) * RM_HLD + 16 * m +
+                             (lane >> 4) * 8);
+#pragma unroll
+      for (int q = 0; q < RM_TPW; ++q) {
+        if (q < cnt) {
+          const bf16* wj = w + (gt * RB_KP + 8 * (j0 + q) + (lane & 7)) * RM_WLD + (lane >> 3) * 8;
+#pragma unroll
+          for (int m = 0; m < RM_KS; m += 2) {
+            if (m < ks) {
+              uint32_t r[4];   // b0, b1 of k steps m and m + 1, n tile j0 + q
+              ldsm_x4(r, wj + 16 * m);
+              mma_bf16(hc[q], ad[m], r[0], r[1]);
+              if (m + 1 < ks) mma_bf16(hc[q], ad[m + 1 < RM_KS ? m + 1 : m], r[2], r[3]);
+            }
+          }
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+}
+
+// Launch the backward's mma form by the plan's rows (16 a row group),
+// threads (RM_WPG warps a row group), smem (bytes) and vec (H a multiple of
+// 4).  hp (hpc > 0, at least H + 1 columns, even): [T*B, hpc] is also
+// written, each row the step's h_prev, then a 1 (the ones column of dwt's
+// bias sums) and zeros.  The grid is ceil(B / rows).  (A template, so a
+// unit that includes this header and never calls it builds no instance of
+// the kernel.)
+template <typename WT>
+cudaError_t launch_gru_rec_bwd_mma(const GruRecBwdT<WT>& p, WT* hp, int hpc, int rows,
+                                   int threads, int smem, int vec, cudaStream_t stream) {
+  static_assert(std::is_same<WT, bf16>::value, "the mma form takes bf16 weights, h and dh");
+  if (rows % 16 != 0 || rows > 16 * RM_MAX_RG || threads != rows / 16 * 32 * RM_WPG ||
+      p.H > 8 * RM_NT || (vec && p.H % 4 != 0) ||
+      (hpc && (hpc <= p.H || hpc % 2 != 0 || hp == nullptr)))
+    return cudaErrorInvalidValue;
+  const dim3 grid((p.B + rows - 1) / rows);
+  if (vec) {
+    static unsigned long long smem_set = 0;
+    const cudaError_t err =
+        allow_smem_once((const void*)gru_rec_bwd_mma_kernel<true>, &smem_set);
+    if (err != cudaSuccess) return err;
+    gru_rec_bwd_mma_kernel<true><<<grid, threads, smem, stream>>>(p, hp, hpc);
+  } else {
+    static unsigned long long smem_set = 0;
+    const cudaError_t err =
+        allow_smem_once((const void*)gru_rec_bwd_mma_kernel<false>, &smem_set);
+    if (err != cudaSuccess) return err;
+    gru_rec_bwd_mma_kernel<false><<<grid, threads, smem, stream>>>(p, hp, hpc);
+  }
+  return cudaGetLastError();
+}
+
 // Launch the backward form over `groups` groups by the plan's five host
 // ints (ops/bigru_cuda._plan_rec_bwd): rows (a block's, a multiple of 4),
 // threads (rows / 4 * js), smem (bytes), js and wp (already in p).  The grid

@@ -112,18 +112,26 @@ def _plan_ffn_bf16(rows: int, h: int, ffn: int, num_sms: int = _build.NUM_SMS,
                    x_addr: int = 0, w1_addr: int = 0, w2_addr: int = 0) -> dict:
     """K3's bf16 plan: :func:`gemm_tc.plan_bf16` for fc1 (``[rows, h] x
     [h, ffn]``) and fc2 (``[rows, ffn] x [ffn, h]``, A the fresh bf16
-    hidden); ``partial``: the larger of their split planes."""
-    fc1 = gemm_tc.plan_bf16(rows, ffn, h, gemm_tc.bf16_copy_width((h,), (x_addr,)),
-                            gemm_tc.bf16_copy_width((ffn,), (w1_addr,)), num_sms)
+    hidden, x the residual, read in 16-byte pieces by the persistent
+    kernel's epilogue), both on the persistent kernel where the rows fill
+    the card; ``partial``: the larger of their needs."""
+    x_cw = gemm_tc.bf16_copy_width((h,), (x_addr,))
+    fc1 = gemm_tc.plan_bf16(rows, ffn, h, x_cw, gemm_tc.bf16_copy_width((ffn,), (w1_addr,)),
+                            num_sms, persistent=True)
     fc2 = gemm_tc.plan_bf16(rows, h, ffn, gemm_tc.bf16_copy_width((ffn,)),
-                            gemm_tc.bf16_copy_width((h,), (w2_addr,)), num_sms)
+                            gemm_tc.bf16_copy_width((h,), (w2_addr,)), num_sms,
+                            persistent=x_cw == 8)
     return {"fc1": fc1, "fc2": fc2, "partial": max(fc1["partial"], fc2["partial"])}
 
 
 @functools.lru_cache(maxsize=None)
 def _cached_ffn_plan_bf16(rows, h, ffn, num_sms, x_addr, w1_addr, w2_addr):
+    """The plan as csrc/bert_ffn.cu reads it: (C int array, its address,
+    the floats of partial): fc1's and fc2's five BfPlan ints, then their
+    persistent grids (0 off the persistent kernel)."""
     p = _plan_ffn_bf16(rows, h, ffn, num_sms, x_addr, w1_addr, w2_addr)
     ints = [p[fc][k] for fc in ("fc1", "fc2") for k in gemm_tc.BF_PLAN_KEYS]
+    ints += [p[fc].get("grid", 0) for fc in ("fc1", "fc2")]
     return _build.host_ints(ints) + (p["partial"],)
 
 

@@ -457,24 +457,61 @@ def _cached_bwd_plan(T, B, in_dim, H, need_dx, num_sms, aligned):
     return ints + (p["partial"], p["dx_scratch"])
 
 
+def _plan_rec_bwd_bf16(B: int, H: int, num_sms: int = _build.NUM_SMS) -> dict:
+    """K1b.bf16's recurrence plan (:func:`_plan_rec_bwd` stays the float32
+    instance's and K7b's): where ``B`` passes the SM count and H <= 104,
+    the mma form (``rec_mma``, ``gru_rec_bwd_mma_kernel``): both of a
+    step's products on the bf16 tensor cores, a row group of 16 rows split
+    over four warps by n tiles, a named barrier a step; a block one row
+    group while ``ceil(B / 16)`` fits the SMs, else two (B=4096: 128 blocks
+    of 8 warps, one wave); shared memory W_hh^T [3][112][120] bf16 + b_hn
+    [104] float32 + per row group h_prev [2][16][120] and da [2][3][16][120]
+    bf16 + per warp the gate slots [3][4][2][32] float2 and dh_in's
+    [4][2][32] bf16 pairs (199,840 bytes at two row groups); ``rec_vec``: H
+    a multiple of 4 (8-byte copies).  Else the tiled form by the float
+    plan (``rec_mma`` 0)."""
+    if B <= num_sms or H > 8 * _RM_NT:
+        return {"rec_mma": 0, **_plan_rec_bwd(1, B, H, num_sms), "rec_vec": 0}
+    groups = 1 if -(-B // 16) <= num_sms else _RM_MAX_RG
+    kp = 16 * -(-(8 * _RM_NT) // 16)
+    smem = (2 * 3 * kp * _RM_WLD + 4 * 8 * _RM_NT
+            + groups * (2 * 2 * 16 * _RM_HLD + 2 * 2 * 3 * 16 * _RM_HLD)
+            + groups * _RM_WPG * (8 * 3 * _RM_TPW * 2 * 32 + 4 * _RM_TPW * 2 * 32))
+    return {"rec_mma": 1, "rows": 16 * groups, "threads": 32 * _RM_WPG * groups,
+            "smem": smem, "js": 0, "wp": 0, "rec_vec": int(H % 4 == 0),
+            "blocks": -(-B // (16 * groups))}
+
+
+REC_BWD_BF16_PLAN_KEYS = ("rec_mma",) + REC_BWD_PLAN_KEYS + ("rec_vec",)
+
+
 def _plan_gru_bwd_bf16(T: int, B: int, in_dim: int, H: int, need_dx: bool,
                        num_sms: int = _build.NUM_SMS, x_addr: int = 0,
                        hs_addr: int = 0) -> dict:
-    """The bf16 instance's plan: the recurrence's five ints as the float
-    plan's (:func:`_plan_rec_bwd`), then :func:`gemm_tc.plan_bf16` for the
-    reductions over ``T*B`` rows, split into float32 planes (any number of
-    ranges, two blocks an SM), with A read transposed: ``dwp`` (x^T dg[:,
-    :3H], ``[in, 3H]``) and ``dwt`` ([h_prev | 1]^T dg, ``[H + 1, 4H]``;
-    its copies of h divide H, where the ones row starts); and ``dx`` (dg[:,
-    :3H] wp^T, ``[T*B, in]``; zeros without dx).  dg and wp^T are fresh
-    allocations, aligned."""
+    """The bf16 instance's plan: the recurrence's seven ints
+    (:func:`_plan_rec_bwd_bf16`: the mma form, or the float plan's tiled
+    form), then :func:`gemm_tc.plan_bf16` for the reductions over ``T*B``
+    rows, split into float32 planes (any number of ranges, two blocks an
+    SM), with A read transposed: ``dwp`` (x^T dg[:, :3H], ``[in, 3H]``; on
+    the wgmma reduction, ``wgmma`` 3, where x and dg take 16-byte rows) and
+    ``dwt`` ([h_prev | 1]^T dg, ``[H + 1, 4H]``; on the wgmma reduction
+    beside the mma-form recurrence, which writes [h_prev | 1 | 0..] into a
+    scratch of ``hp`` = H + 1 rounded up to 8 columns; else on the mma.sync
+    tiles, its copies of h dividing H, where the ones row starts); and
+    ``dx`` (dg[:, :3H] wp^T, ``[T*B, in]``; zeros without dx).  dg and wp^T
+    are fresh allocations, aligned."""
     rows, h3, h4 = T * B, 3 * H, 4 * H
-    plan = _plan_rec_bwd(1, B, H, num_sms)
+    plan = _plan_rec_bwd_bf16(B, H, num_sms)
     bcw = gemm_tc.bf16_copy_width((h4,))
     dwp = gemm_tc.plan_bf16(in_dim, h3, rows, gemm_tc.bf16_copy_width((in_dim,), (x_addr,)),
-                            bcw, num_sms, max_splits=None, transposed_a=True)
-    dwt = gemm_tc.plan_bf16(H + 1, h4, rows, gemm_tc.bf16_copy_width((H,), (hs_addr,)), bcw,
-                            num_sms, max_splits=None, transposed_a=True)
+                            bcw, num_sms, max_splits=None, transposed_a=True, reduction=True)
+    # dwt on the wgmma reduction where the mma form writes h_prev into hp
+    # (H + 1 columns rounded up to 8: TMA's 16-byte rows; column H the ones)
+    hp = 8 * -(-(H + 1) // 8) if plan["rec_mma"] and bcw == 8 else 0
+    dwt = gemm_tc.plan_bf16(H + 1, h4, rows,
+                            8 if hp else gemm_tc.bf16_copy_width((H,), (hs_addr,)), bcw,
+                            num_sms, max_splits=None, transposed_a=True, reduction=bool(hp))
+    plan["hp"] = hp
     dx = (gemm_tc.plan_bf16(rows, in_dim, h3, bcw, gemm_tc.bf16_copy_width((in_dim,)),
                             num_sms) if need_dx else None)
     for name, q in (("dwp", dwp), ("dwt", dwt), ("dx", dx)):
@@ -483,17 +520,18 @@ def _plan_gru_bwd_bf16(T: int, B: int, in_dim: int, H: int, need_dx: bool,
     return plan
 
 
-BWD_BF16_PLAN_KEYS = REC_BWD_PLAN_KEYS + tuple(f"{n}_{k}" for n in ("dwp", "dwt", "dx")
-                                               for k in gemm_tc.BF_PLAN_KEYS)
+BWD_BF16_PLAN_KEYS = REC_BWD_BF16_PLAN_KEYS + tuple(f"{n}_{k}" for n in ("dwp", "dwt", "dx")
+                                                    for k in gemm_tc.BF_PLAN_KEYS)
 
 
 @functools.lru_cache(maxsize=None)
 def _cached_bwd_plan_bf16(T, B, in_dim, H, need_dx, num_sms, x_addr, hs_addr):
     """The bf16 plan as csrc/bigru_bwd.cu reads it: (C int array, its
-    address, the floats of the reductions' planes, of dx's split planes)."""
+    address, the floats of the reductions' planes, of dx's split planes,
+    hp's columns)."""
     p = _plan_gru_bwd_bf16(T, B, in_dim, H, need_dx, num_sms, x_addr, hs_addr)
     ints = _build.host_ints([p[k] for k in BWD_BF16_PLAN_KEYS])
-    return ints + (p["dwp_partial"] + p["dwt_partial"], p["dx_partial"])
+    return ints + (p["dwp_partial"] + p["dwt_partial"], p["dx_partial"], p["hp"])
 
 
 def _launch_bwd_bf16(x, wt, bhn, wpT, hs, gates, dhs, reverse: bool, need_dx: bool):
@@ -510,12 +548,14 @@ def _launch_bwd_bf16(x, wt, bhn, wpT, hs, gates, dhs, reverse: bool, need_dx: bo
     red = torch.empty(in_dim * 3 * h + (h + 1) * 4 * h, **bf)
     dx = torch.empty(t_len, b, in_dim, **bf) if need_dx else None
     dx_partial = torch.empty(plan[3], **f32) if plan[3] else None
+    hp = torch.empty(t_len * b * plan[4], **bf) if plan[4] else None
     err = _build.load_library().mmtr_gru_dir_bwd_bf16(
         x.data_ptr(), hs.data_ptr(), gates.data_ptr(), dhs.data_ptr(), wt.data_ptr(),
         bhn.data_ptr(), wpT.data_ptr() if need_dx else 0, dg.data_ptr(), partial.data_ptr(),
         red.data_ptr(), dx.data_ptr() if need_dx else 0,
-        dx_partial.data_ptr() if dx_partial is not None else 0, t_len, b, in_dim, h,
-        int(reverse), int(need_dx), plan[1], _build.stream_ptr(dev))
+        dx_partial.data_ptr() if dx_partial is not None else 0,
+        hp.data_ptr() if hp is not None else 0, t_len, b, in_dim, h, int(reverse),
+        int(need_dx), plan[1], _build.stream_ptr(dev))
     _build.check(err, "gru_dir_bwd kernel (bf16)")
     gru_dir_bwd.launches += 1
     gru_dir_bwd.launches_no_dx += int(not need_dx)

@@ -84,6 +84,21 @@ BF_BLOCKS_PER_SM = 2
 BW_BK = 64
 BW_SMEM = 2 * WG_STAGES * 2 * WG_BM * BW_BK + 1024
 BF_PLAN_KEYS = ("wgmma", "splits", "kps", "acw", "bcw")
+# the persistent kernel (gemm_bf16_persistent_kernel, K3.bf16's products):
+# 128 x 192 tiles, 64-deep k tiles in a ring of 4 (A [128][64] and B
+# [64][192], 128-byte rows), a bf16 staging tile of 128 rows of 200, the
+# ring's mbarriers, + 1 KB to align the swizzle atoms; two MMA warpgroups,
+# six epilogue warps and a producer warp, one block an SM
+BP_BM, BP_BN, BP_BK, BP_STAGES, BP_LDS = 128, 192, 64, 4, 192 + 8
+BP_THREADS = 2 * 128 + 6 * 32 + 32
+BP_SMEM = (BP_STAGES * 2 * (BP_BM * BP_BK + BP_BK * BP_BN) + 2 * BP_BM * BP_LDS
+           + 2 * BP_STAGES * 8 + 1024)
+# the wgmma reduction (gemm_bf16_tn_kernel, K1b.bf16's dwp and dwt): 128 x 128 tiles,
+# 64-deep k tiles of A and B ([64 k][128] each) in a TMA ring of 6, the
+# ring's mbarriers, + 1 KB for the atoms; two MMA warpgroups and a producer
+# warp, one block an SM
+BT_BM, BT_BN, BT_BK, BT_STAGES = 128, 128, 64, 6
+BT_SMEM = BT_STAGES * (2 * 2 * BT_BK * 128 + 16) + 1024
 
 
 def bf16_copy_width(counts=(), addrs=()) -> int:
@@ -97,7 +112,8 @@ def bf16_copy_width(counts=(), addrs=()) -> int:
 
 
 def plan_bf16(M: int, N: int, K: int, acw: int, bcw: int, num_sms: int = _build.NUM_SMS,
-              max_splits: int | None = 16, transposed_a: bool = False) -> dict:
+              max_splits: int | None = 16, transposed_a: bool = False,
+              persistent: bool = False, reduction: bool = False) -> dict:
     """One ``[M, K] x [K, N]`` bf16 product on 128 x 128 tiles: the wgmma
     kernel where the tiles give every SM at least two and A takes 16-byte
     copies with K a multiple of 8 (``partial``: B^T's N * K bf16, in
@@ -106,9 +122,31 @@ def plan_bf16(M: int, N: int, K: int, acw: int, bcw: int, num_sms: int = _build.
     (None: any number) while the tiles times the ranges fill no more than
     two blocks an SM, no range empty (``partial``: the floats of the split
     planes).  ``transposed_a``: A stored [K, M] (the reductions over T*B
-    rows), which only the mma.sync kernel reads."""
+    rows), which only the mma.sync kernel reads.  ``persistent`` (K3's
+    products): where the wgmma kernel would run and B takes 16-byte copies
+    too, the persistent kernel instead (``wgmma`` 2: 128 x 192 tiles, B
+    read as stored, no ``partial``; ``grid``: one block an SM, at most one
+    a tile).  ``reduction`` (K1b.bf16's dwp and dwt, A transposed): where A
+    and B
+    take 16-byte copies, the wgmma reduction instead (``wgmma`` 3: 128 x 128
+    tiles, both operands read as stored, K split into ``splits`` ranges of
+    ``kps`` 64-deep k tiles so that tiles x ranges fill one wave;
+    ``partial``: its planes, even one)."""
+    if transposed_a and reduction and acw == 8 and bcw == 8:
+        ktiles = -(-K // BT_BK)
+        tiles = -(-M // BT_BM) * -(-N // BT_BN)
+        splits = max(1, min(ktiles, num_sms // tiles))
+        kps = -(-ktiles // splits)
+        splits = -(-ktiles // kps)
+        return {"wgmma": 3, "splits": splits, "kps": kps, "acw": acw, "bcw": bcw,
+                "partial": splits * M * N, "smem": BT_SMEM}
     tiles = -(-M // BF_BM) * -(-N // BF_BN)
     if not transposed_a and acw == 8 and K % 8 == 0 and tiles >= 2 * num_sms:
+        if persistent and bcw == 8:
+            ptiles = -(-M // BP_BM) * -(-N // BP_BN)
+            return {"wgmma": 2, "splits": 1, "kps": -(-K // BP_BK), "acw": acw, "bcw": bcw,
+                    "partial": 0, "tiles": ptiles, "grid": min(ptiles, num_sms),
+                    "smem": BP_SMEM}
         return {"wgmma": 1, "splits": 1, "kps": -(-K // BW_BK), "acw": acw, "bcw": bcw,
                 "partial": -(-N * K // 2)}
     ktiles = -(-K // BF_BK)

@@ -964,6 +964,84 @@ def test_ffn_ln_bf16_kernel_matches_plain(cuda, rows, h, ffn):
     assert torch.equal(out, again)
 
 
+def _cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("rows", [16511, 131072, 1280, 1281, 5504, 5505])
+def test_ffn_ln_bf16_persistent_kernel_matches_plain(cuda, rows):
+    """K3.bf16 at BERT-base width on the persistent kernel: 16,511 rows
+    (1,548 tiles of fc1, not a multiple of 132; a ragged last row tile),
+    the training rows, and the edges where fc1 (1,281 rows) and fc2 (5,505)
+    leave the mma.sync tiles for it; within 2e-2 of max |ref| of the bf16
+    plain version, a cosine of 0.999 against the float32 kernel on the same
+    bf16 values, reruns bit-identical."""
+    h, ffn = 768, 3072
+    plan = bert_ffn_cuda._plan_ffn_bf16(rows, h, ffn)
+    assert (plan["fc1"]["wgmma"] == 2) == (rows >= 1281)
+    assert (plan["fc2"]["wgmma"] == 2) == (rows >= 5505)
+    rng = np.random.default_rng(25)
+    x, w1, b1, w2, b2, g, b = ffn_inputs(rng, rows, h, ffn)
+    args = [_bf(torch.from_numpy(np.ascontiguousarray(a)), cuda)
+            for a in (x, w1.T * 0.2, b1, w2.T * 0.2, b2, g, b)]
+    n0 = bert_ffn_cuda.ffn_ln_block.launches_bf16
+    out = bert_ffn_cuda.ffn_ln_block(*args, eps=1e-12)
+    again = bert_ffn_cuda.ffn_ln_block(*args, eps=1e-12)
+    torch.cuda.synchronize()
+    assert bert_ffn_cuda.ffn_ln_block.launches_bf16 == n0 + 2
+    bf16_close(out, bert_ffn_cuda.ffn_ln_block_plain(*args, eps=1e-12), f"K3 bf16 {rows}")
+    assert torch.equal(out, again)
+    f32 = bert_ffn_cuda.ffn_ln_block(*(a.float() for a in args), eps=1e-12)
+    assert _cosine(out.float(), f32) >= 0.999
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("need_dx", [True, False])
+@pytest.mark.parametrize("B,T,I,H", [(133, 1, 768, 100), (133, 50, 200, 100),
+                                     (4095, 50, 768, 100), (4096, 1, 512, 100),
+                                     (4096, 50, 200, 100), (4096, 8, 48, 12),
+                                     (4096, 8, 48, 13), (300, 8, 64, 104), (300, 8, 64, 105)])
+def test_gru_dir_bwd_bf16_mma_recurrence_matches_plain(cuda, B, T, I, H, need_dx):
+    """K1b.bf16 on the mma-form recurrence (B past 132, H <= 104; the tiled
+    form at H = 105) and, where x and dg take 16-byte rows, dwp and dwt on
+    the wgmma reduction: a ragged last row group (4095), T = 1, H = 12 and 13
+    (padded n tiles; element copies at H off a multiple of 4), both
+    directions, with and without dx; each gradient within 2e-2 of max
+    |ref| of the bf16 plain version and a cosine of 0.999 against the
+    float32 kernel on the same bf16 values, reruns bit-identical."""
+    plan = bigru_cuda._plan_gru_bwd_bf16(T, B, I, H, need_dx)
+    assert plan["rec_mma"] == int(H <= 104)
+    assert plan["dwp_wgmma"] == (3 if I % 8 == 0 and H % 2 == 0 else 0)
+    assert plan["dwt_wgmma"] == (3 if H <= 104 and H % 2 == 0 else 0)
+    rng = np.random.default_rng(26)
+    tp = gru_torch_layout(rng, I, H)
+    x = _bf(torch.from_numpy(rng.standard_normal((T, B, I)).astype(np.float32)), cuda)
+    dhs = _bf(torch.from_numpy(rng.standard_normal((T, B, H)).astype(np.float32)), cuda)
+    for d, rev in (("fwd", False), ("bwd", True)):
+        ops = {k: _bf(v, cuda) for k, v in bigru_cuda.dir_operands(tp[d]).items()}
+        args = (x, ops["wp"], ops["wt"], ops["bc"], ops["bhn"])
+        hs, gates = bigru_cuda._launch_fwd(*args, rev)
+        got = bigru_cuda.gru_dir_bwd(*args, hs, gates, dhs, rev, need_dx)
+        again = bigru_cuda.gru_dir_bwd(*args, hs, gates, dhs, rev, need_dx)
+        ref = bigru_cuda.gru_dir_bwd_plain(*args, hs, gates, dhs, rev, need_dx)
+        a32 = tuple(a.float() for a in args)
+        hs32, gates32 = bigru_cuda._launch_fwd(*a32, rev)
+        f32 = bigru_cuda.gru_dir_bwd(*a32, hs32, gates32, dhs.float(), rev, need_dx)
+        torch.cuda.synchronize()
+        for name, a, r, b, f in zip(("dx", "dwp", "dwt", "dbc", "dbhn"), got, ref, again, f32):
+            if r is None:
+                assert a is None
+                continue
+            bf16_close(a, r, f"K1b bf16 {name} {B} {T} {I} {H} {d}")
+            assert torch.equal(a, b)
+            if f.abs().max() == 0:   # dwt at T = 1: h_prev is the zero start
+                assert a.abs().max() == 0, name
+            else:
+                assert _cosine(a.float(), f) >= 0.999, name
+
+
 # The bf16 instances of K5f, K5dq, K5dkv and K5b against their bf16 plain
 # versions (the JAX kernels' formulas: float32 between bf16 operands and one
 # rounding of each output): out, dq, dk and dv within 1e-2 of max |ref| (a

@@ -1070,36 +1070,41 @@ def test_bf16_plans_cover_k_and_fit_the_card(M, N, K):
 
 def test_bf16_plans_at_the_training_shapes():
     """bench.py's shapes: K1f's projection on its own 128 x 304 wgmma tile
-    (gemm_wgmma 2), K2's and K3's products on the wgmma tiles (the weights'
-    transposes in the scratch), K1f's recurrence on its mma form, 32 rows a
-    block; K1b's reductions
+    (gemm_wgmma 2), K2's products on the wgmma tiles (the weights'
+    transposes in the scratch), K3's on the persistent kernel (wgmma 2, the
+    weights read as stored: no scratch), K1f's and K1b's recurrences on
+    their mma forms, 32 rows a block; K1b's reductions
     over T*B rows on the mma.sync tiles, split to fill one wave, dwt's
     copies of h dividing H (where its ones row starts), and its dx (K = 3H
-    = 300: 8-byte copies) on them unsplit; the recurrences' plans as the
-    float instances'."""
+    = 300: 8-byte copies) on them unsplit."""
     fwd = bigru_cuda._plan_gru_fwd_bf16(50, 4096, 768, 100)
     assert (fwd["gemm_wgmma"], fwd["gemm_splits"], fwd["gemm_acw"]) == (2, 1, 8)
     assert 2 * fwd["gemm_partial"] == 300 * 768
     assert fwd["rec_rows"] == 32 and fwd["rec_small"] == 0 and fwd["rec_mma"] == 1
     for in_dim, need_dx in ((768, False), (512, False), (200, True)):
         bwd = bigru_cuda._plan_gru_bwd_bf16(50, 4096, in_dim, 100, need_dx)
-        assert bwd["rows"] == 32
-        for red, m, n in (("dwp", in_dim, 300), ("dwt", 101, 400)):
-            tiles = -(-m // 128) * -(-n // 128)
-            assert tiles * bwd[f"{red}_splits"] <= 2 * SMS
-            assert tiles * (bwd[f"{red}_splits"] + 1) > 2 * SMS or \
-                bwd[f"{red}_kps"] == 1
-            splits = bwd[f"{red}_splits"]
-            assert bwd[f"{red}_partial"] == (splits * m * n if splits > 1 else 0)
-        assert 100 % bwd["dwt_acw"] == 0
-        assert bwd["dwp_wgmma"] == bwd["dwt_wgmma"] == bwd["dx_wgmma"] == 0
+        assert bwd["rows"] == 32 and bwd["rec_mma"] == 1 and bwd["blocks"] == 128
+        # dwp on the wgmma reduction, one block an SM: 64-deep k tiles
+        tiles, ktiles = -(-in_dim // 128) * 3, -(-50 * 4096 // 64)
+        assert bwd["dwp_wgmma"] == 3 and bwd["dwp_partial"] == bwd["dwp_splits"] * in_dim * 300
+        assert tiles * bwd["dwp_splits"] <= SMS < tiles * (bwd["dwp_splits"] + 1)
+        assert (bwd["dwp_splits"] - 1) * bwd["dwp_kps"] < ktiles <= \
+            bwd["dwp_splits"] * bwd["dwp_kps"]
+        # dwt (its ones row) on it too, from the recurrence's [h_prev | 1]
+        # scratch of 104 columns (16-byte rows)
+        tiles = -(-101 // 128) * -(-400 // 128)
+        assert bwd["dwt_wgmma"] == 3 and bwd["hp"] == 104 and bwd["dwt_acw"] == 8
+        assert tiles * bwd["dwt_splits"] <= SMS < tiles * (bwd["dwt_splits"] + 1)
+        assert bwd["dwt_partial"] == bwd["dwt_splits"] * 101 * 400
+        assert bwd["dx_wgmma"] == 0
         assert (bwd["dx_splits"] == 1) == need_dx and bwd["dx_partial"] == 0
     blk = bert_attn_cuda._plan_attn_block_bf16(4096, 32, 768, 12)
     assert blk["qkv"]["wgmma"] == blk["o"]["wgmma"] == 1
     assert 2 * blk["partial"] == 3 * 768 * 768
     ffn = bert_ffn_cuda._plan_ffn_bf16(131072, 768, 3072)
-    assert all(ffn[fc]["wgmma"] == 1 for fc in ("fc1", "fc2"))
-    assert 2 * ffn["partial"] == 768 * 3072
+    assert all(ffn[fc]["wgmma"] == 2 and ffn[fc]["grid"] == SMS for fc in ("fc1", "fc2"))
+    assert ffn["fc1"]["tiles"] == 1024 * 16 and ffn["fc2"]["tiles"] == 1024 * 4
+    assert ffn["partial"] == 0
 
 
 def test_bf16_plans_at_the_eval_and_serving_rows():
@@ -1113,6 +1118,171 @@ def test_bf16_plans_at_the_eval_and_serving_rows():
     assert (ffn["fc2"]["splits"], ffn["fc2"]["kps"]) == (16, 6)
     assert ffn["partial"] == max(ffn[fc]["splits"] * 8 * n for fc, n in
                                  (("fc1", 3072), ("fc2", 768)))
+
+
+# csrc/gemm_bf16.cuh's persistent kernel (K3.bf16's products): 128 x 192
+# tiles, 64-deep k tiles in a TMA ring of 4 (A [128][64], B [64][192], bf16),
+# a bf16 staging tile [128][200], the ring's full / empty mbarriers, + 1 KB
+# to align the 128-byte swizzle atoms; 480 threads (two MMA warpgroups, six
+# epilogue warps, a producer warp), one block an SM
+@pytest.mark.parametrize("M,N,K", [(131072, 3072, 768), (131072, 768, 3072), (16511, 3072, 768),
+                                   (16511, 768, 3072), (5505, 768, 3072), (1281, 3072, 768),
+                                   (70000, 104, 48)])
+def test_bf16_persistent_plan_covers_k_and_the_columns(M, N, K):
+    """Where the 128 x 128 wgmma tiles would run (two tiles an SM, 16-byte
+    copies of A and B), a persistent plan: k tiles of 64 that cover K, 128 x
+    192 tiles that cover every row and column, a grid of min(tiles, SMs),
+    the shared memory within a block's; the same shapes without
+    ``persistent`` keep the 128 x 128 wgmma tiles and B^T's scratch."""
+    p = gemm_tc.plan_bf16(M, N, K, 8, 8, SMS, persistent=True)
+    q = gemm_tc.plan_bf16(M, N, K, 8, 8, SMS)
+    assert q["wgmma"] == 1 and 2 * q["partial"] >= N * K
+    assert p["wgmma"] == 2 and p["splits"] == 1 and p["partial"] == 0
+    assert (p["kps"] - 1) * gemm_tc.BP_BK < K <= p["kps"] * gemm_tc.BP_BK
+    rows, cols = -(-M // gemm_tc.BP_BM), -(-N // gemm_tc.BP_BN)
+    assert p["tiles"] == rows * cols and (cols - 1) * gemm_tc.BP_BN < N <= cols * gemm_tc.BP_BN
+    assert p["grid"] == min(p["tiles"], SMS)
+    assert p["smem"] == gemm_tc.BP_SMEM == 216128 <= MAX_SMEM
+    # 480 threads leave 136 registers a thread: an MMA thread's 96 sums
+    # (m64n192) and its addresses
+    assert gemm_tc.BP_THREADS == 480 and 65536 // gemm_tc.BP_THREADS // 8 * 8 == 136
+    assert gemm_tc.BP_BN % 64 == 0 and gemm_tc.BP_BN // 2 + 32 <= 136
+    # 128-byte rows: the swizzle atoms (1024 bytes) tile every stage
+    assert (gemm_tc.BP_BM * gemm_tc.BP_BK * 2) % 1024 == 0
+    assert (gemm_tc.BP_BK * 64 * 2) % 1024 == 0 and (2 * gemm_tc.BP_LDS) % 16 == 0
+
+
+@pytest.mark.parametrize("acw,bcw", [(4, 8), (8, 4), (2, 2)])
+def test_bf16_persistent_plan_needs_16_byte_operands(acw, bcw):
+    """The persistent kernel reads A and B by TMA and stores in 16-byte
+    pieces: where either takes narrower copies, the first port's tiles."""
+    p = gemm_tc.plan_bf16(131072, 3072, 768, acw, bcw, SMS, persistent=True)
+    assert p["wgmma"] == (1 if acw == 8 else 0) and "grid" not in p
+
+
+@pytest.mark.parametrize("rows,fc1,fc2", [(8, 0, 0), (300, 0, 0), (1280, 0, 0), (1281, 2, 0),
+                                          (5504, 2, 0), (5505, 2, 2), (16511, 2, 2),
+                                          (131072, 2, 2)])
+def test_ffn_bf16_plan_takes_the_persistent_kernel_by_rows(rows, fc1, fc2):
+    """K3.bf16: each product on the persistent kernel where the rows fill
+    the card (fc1's 24 column tiles of 128 from 1,281 rows, fc2's 6 from
+    5,505: the edge where the 128 x 128 wgmma tiles took over before), on
+    the mma.sync tiles split over K below it (the serving and eval rows
+    keep their plans); the plan hands both grids to csrc/bert_ffn.cu after
+    the two BfPlans."""
+    p = bert_ffn_cuda._plan_ffn_bf16(rows, 768, 3072)
+    assert (p["fc1"]["wgmma"], p["fc2"]["wgmma"]) == (fc1, fc2)
+    for fc, (m, n, k) in (("fc1", (rows, 3072, 768)), ("fc2", (rows, 768, 3072))):
+        parent = gemm_tc.plan_bf16(m, n, k, 8, 8, SMS)
+        if p[fc]["wgmma"] == 2:
+            assert parent["wgmma"] == 1
+        else:
+            assert p[fc] == parent
+    ints, _, partial = bert_ffn_cuda._cached_ffn_plan_bf16(rows, 768, 3072, SMS, 0, 0, 0)
+    assert len(ints) == 2 * len(gemm_tc.BF_PLAN_KEYS) + 2
+    assert list(ints)[10:] == [p[fc].get("grid", 0) for fc in ("fc1", "fc2")]
+    assert partial == max(p["fc1"]["partial"], p["fc2"]["partial"])
+
+
+def test_ffn_bf16_plan_unaligned_residual_keeps_fc2_off_the_persistent_kernel():
+    """fc2's epilogue reads x (the residual) in 16-byte pieces: x off a
+    16-byte boundary sends fc1 to the mma.sync tiles (its A) and fc2 to
+    the 128 x 128 wgmma tiles."""
+    p = bert_ffn_cuda._plan_ffn_bf16(131072, 768, 3072, x_addr=8)
+    assert (p["fc1"]["wgmma"], p["fc2"]["wgmma"]) == (0, 1)
+
+
+def test_bf16_plans_of_the_other_products_keep_their_kernels():
+    """Only K3.bf16 asks for the persistent kernel and K1b.bf16's dwp and
+    dwt for the wgmma reduction: K2.bf16's q/k/v and o-projection (=
+    K6b.bf16's plan), K1f.bf16's projection, K1b.bf16's dx and K9.bf16's
+    products keep the plans they had."""
+    for B, L in ((1, 8), (1, 512), (4096, 32)):
+        blk = bert_attn_cuda._plan_attn_block_bf16(B, L, 768, 12)
+        assert blk["qkv"]["wgmma"] == blk["o"]["wgmma"] == int(B > 1)
+        assert blk["o"] == bert_ffn_cuda._plan_proj_ln_bf16(B * L, 768)
+    assert bigru_cuda._plan_gru_fwd_bf16(50, 4096, 768, 100)["gemm_wgmma"] == 2
+    bwd = bigru_cuda._plan_gru_bwd_bf16(50, 4096, 200, 100, True)
+    assert bwd["dx_wgmma"] == 0 and bwd["dwp_wgmma"] == bwd["dwt_wgmma"] == 3
+    for E, F1 in K9_BLOCKS:
+        for R in _k9_rows(E):
+            p = trunk_block_cuda._plan_block_bf16(R, E, F1)
+            assert all(p[k]["wgmma"] in (0, 1) for k in ("u", "y", "dp", "ds", "dw1", "dw2"))
+
+
+@pytest.mark.parametrize("M,N,K", [(768, 300, 204800), (512, 300, 204800), (200, 300, 204800),
+                                   (768, 300, 4096 * 8), (768, 300, 100), (40, 24, 70)])
+def test_bf16_reduction_plan_covers_k_and_fills_one_wave(M, N, K):
+    """The wgmma reduction (gemm_bf16_tn_kernel) over K rows: 64-deep k
+    ranges that cover every k tile, none empty, tiles x ranges within one
+    block an SM (the most ranges that allow it), planes for every range;
+    its shared memory within a block's; narrower copies of A or B (x with
+    ``in`` off a multiple of 8, dg with 4H off one) keep the mma.sync
+    tiles."""
+    p = gemm_tc.plan_bf16(M, N, K, 8, 8, SMS, max_splits=None, transposed_a=True,
+                          reduction=True)
+    ktiles, tiles = -(-K // 64), -(-M // 128) * -(-N // 128)
+    assert p["wgmma"] == 3 and p["partial"] == p["splits"] * M * N
+    assert (p["splits"] - 1) * p["kps"] < ktiles <= p["splits"] * p["kps"]
+    assert tiles * p["splits"] <= max(tiles, SMS)
+    assert p["splits"] == ktiles or tiles * (p["splits"] + 1) > SMS or \
+        -(-ktiles // -(-ktiles // (p["splits"] + 1))) == p["splits"]
+    assert p["smem"] == gemm_tc.BT_SMEM == 6 * (2 * 16384 + 16) + 1024 <= MAX_SMEM
+    for acw, bcw in ((4, 8), (8, 4)):
+        q = gemm_tc.plan_bf16(M, N, K, acw, bcw, SMS, max_splits=None, transposed_a=True,
+                              reduction=True)
+        assert q["wgmma"] == 0
+
+
+# csrc/gru_rec.cuh's backward mma form: W_hh^T [3][112][120] bf16, b_hn [104]
+# float32, per row group h_prev [2][16][120] and da [2][3][16][120] bf16,
+# per warp the gate slots [3][4][2][32] float2 and dh_in's [4][2][32] pairs
+@pytest.mark.parametrize("B", [1, 16, 132, 133, 600, 2112, 2113, 4095, 4096, 8192])
+@pytest.mark.parametrize("H", [12, 13, 100, 104, 105])
+def test_bf16_rec_bwd_plan_forms(B, H):
+    """K1b.bf16's recurrence: the mma form where B passes the SM count and
+    H <= 104, else the tiled form by the float plan (B <= 132, H = 105);
+    row groups of 16 that cover B, 16 rows a block while ceil(B / 16) fits
+    the SMs and 32 beyond (B=4096: one wave of 128 blocks), four warps a
+    row group, the shared memory within a block's, 8-byte copies at H a
+    multiple of 4; the float plan (_plan_rec_bwd) is unchanged."""
+    p = bigru_cuda._plan_rec_bwd_bf16(B, H)
+    mma = B > SMS and H <= 104
+    assert p["rec_mma"] == int(mma)
+    if not mma:
+        assert p == {"rec_mma": 0, **bigru_cuda._plan_rec_bwd(1, B, H), "rec_vec": 0}
+        return
+    rows, groups = p["rows"], p["rows"] // 16
+    assert rows == (16 if -(-B // 16) <= SMS else 32)
+    assert (p["blocks"] - 1) * rows < B <= p["blocks"] * rows
+    assert p["threads"] == 128 * groups <= 256 and p["js"] == p["wp"] == 0
+    assert p["smem"] == (2 * 3 * 112 * 120 + 4 * 104 + groups * 2 * (2 + 6) * 16 * 120
+                         + 4 * groups * (8 * 3 * 4 * 2 * 32 + 4 * 4 * 2 * 32)) <= MAX_SMEM
+    assert p["rec_vec"] == int(H % 4 == 0)
+    if B in (4095, 4096):
+        assert p["blocks"] == 128 <= SMS and p["smem"] == 199840
+
+
+def test_bf16_gru_bwd_plan_layout():
+    """K1b.bf16's plan as csrc/bigru_bwd.cu reads it: the recurrence's
+    seven ints (REC_BWD_BF16_PLAN_KEYS: rec_mma, the tiled form's five,
+    rec_vec), then the three BfPlans; a tiled recurrence keeps the float
+    plan's five."""
+    assert bigru_cuda.REC_BWD_BF16_PLAN_KEYS == (("rec_mma",) + bigru_cuda.REC_BWD_PLAN_KEYS
+                                                 + ("rec_vec",))
+    for B, H, mma in ((4096, 100, 1), (100, 100, 0), (4096, 13, 1)):
+        ints, _, partial, _, hp = bigru_cuda._cached_bwd_plan_bf16(50, B, 768, H, False, SMS, 0, 0)
+        p = bigru_cuda._plan_gru_bwd_bf16(50, B, 768, H, False)
+        assert len(ints) == 7 + 3 * len(gemm_tc.BF_PLAN_KEYS) == 22
+        assert list(ints) == [p[k] for k in bigru_cuda.BWD_BF16_PLAN_KEYS]
+        assert ints[0] == mma and partial == p["dwp_partial"] + p["dwt_partial"]
+        # dwt's wgmma reduction (and hp, [h_prev | 1] rounded up to 8
+        # columns) needs the mma form and dg's 16-byte rows (H even)
+        assert hp == (8 * -(-(H + 1) // 8) if mma and H % 2 == 0 else 0)
+        assert (p["dwt_wgmma"] == 3) == bool(hp)
+        if not mma:
+            tiled = bigru_cuda._plan_rec_bwd(1, B, H)
+            assert list(ints)[1:6] == [tiled[k] for k in bigru_cuda.REC_BWD_PLAN_KEYS]
 
 
 def test_bf16_attn_block_plan_refuses_long_units():

@@ -11,11 +11,12 @@ whose ``multimodal_transformer_robustness_tpu_torch`` is that tree's, and
 prints one JSON line per tree and turn: {row: {"ms": ..., "sha256": ...}}.
 A row whose kernel is unchanged gives the same digest in both trees; its
 times show the spread between turns.  ``--tree DIR`` measures one tree
-once.  Rows: K1f.bf16 at in=768 T=50 B=4096, K2.bf16 and K6a.bf16 at B=1
-L=512 (the redesigned kernels); K2.bf16 and K6a.bf16 at B=4096 L=32, K8.bf16
-at B=4096 L=32 and B=1 L=512, K1b.bf16 at in=768 B=4096 (no dx), K7f.bf16
-at G=2 T=50 N=4096, and float32 K1f, K1b, K2, K3, K6a, K8 and K7f at the
-same shapes.  Needs one card and nvcc.
+once.  Rows: K3.bf16 at B=4096 L=32, K1b.bf16 at in = 768 and 512
+without dx and 200 with it, B=4096, K1f.bf16 at in=768 T=50 B=4096, K2.bf16
+and K6a.bf16 at B=1 L=512 (the redesigned bf16 kernels); K2.bf16 and
+K6a.bf16 at B=4096 L=32, K8.bf16 at B=4096 L=32 and B=1 L=512, K7f.bf16 at
+G=2 T=50 N=4096, and float32 K1f, K1b, K2, K3, K6a, K8 and K7f at the same
+shapes.  Needs one card and nvcc.
 """
 
 from __future__ import annotations
@@ -88,6 +89,11 @@ def rows(dev):
         out[f"K1b{tag} in=768 T=50 B=4096 no dx"] = (
             lambda x=x, a=(wp, wt, bc, bhn), hs=hs, g=gates, d=dhs:
             bigru_cuda.gru_dir_bwd(x, *a, hs, g, d, False, False), 5)
+        for i2, need_dx in ((512, False), (200, True)):
+            x2, wp2 = t(rng, (T, B, i2), 1.0, dtype), t(rng, (3, i2, H), k, dtype)
+            out[f"K1b{tag} in={i2} T=50 B=4096 {'dx' if need_dx else 'no dx'}"] = (
+                lambda x=x2, a=(wp2, wt, bc, bhn), hs=hs, g=gates, d=dhs, n=need_dx:
+                bigru_cuda.gru_dir_bwd(x, *a, hs, g, d, False, n), 5)
         h, heads = 768, 12
         aw = [t(rng, (h, h), 0.02, dtype) for _ in range(4)]
         ab = [t(rng, (h,), 0.02, dtype) for _ in range(4)]
@@ -115,10 +121,10 @@ def rows(dev):
             hf = [z.transpose(1, 2).contiguous() for z in (q, kk, v)]
             out[f"K8{tag} B={Bb} L={L}"] = (
                 lambda hf=hf, km=km: attention_cuda.flash_attention_masked(*hf, km), it)
-            if not tag and Bb > 1:
-                w1t, w2t = t(rng, (h, 3072), 0.02), t(rng, (3072, h), 0.02)
-                b1, b2 = t(rng, (3072,), 0.02), t(rng, (h,), 0.02)
-                out[f"K3 B={Bb} L={L}"] = (
+            if Bb > 1:
+                w1t, w2t = t(rng, (h, 3072), 0.02, dtype), t(rng, (3072, h), 0.02, dtype)
+                b1, b2 = t(rng, (3072,), 0.02, dtype), t(rng, (h,), 0.02, dtype)
+                out[f"K3{tag} B={Bb} L={L}"] = (
                     lambda a=(xb, w1t, b1, w2t, b2, g, b): bert_ffn_cuda.ffn_ln_block(
                         *a, eps=1e-12), it)
         G, N = 2, 4096

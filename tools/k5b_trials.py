@@ -41,7 +41,10 @@ OUT = _build.BUILD_DIR.parent / "k5b_trials"
 FLASH, GEMM = "flash_attn.cu", "gemm_tc.cuh"
 
 # the 3xTF32 corrections: lo*hi and hi*lo, in phase 1 (fb_mma3) and phase 2
-_CORRECTIONS = (FLASH, r"^\s*mma_tf32\([^;]*?, (al, bh|ah, bl)\);\n", "", 6)
+# (fb_product): K5b's own code, which ends where K5f's constants begin
+# (value_product, which K5f, K5dq and K5dkv share, has the same pair)
+_K5B_END = "constexpr int FK_TILE"
+_CORRECTIONS = (FLASH, r"^\s*mma_tf32\([^;]*?, (al, bh|ah, bl)\);\n", "", 6, _K5B_END)
 _EXP_HASH = [(FLASH, r"__expf\((s\[j\]\[e\] - \(e < 2 \? lse0 : lse1\))\)", r"(\1)", 1),
              (FLASH, r"keep_factor\(d\.use_dropout, seed, rate, keep_scale, row, col\)",
               "1.f", 1)]
@@ -49,7 +52,8 @@ _NO_PHASE1 = (FLASH, r"w < n_items;", "w < 0;", 1)
 _NO_PHASE2 = (FLASH, r"w < n_units;", "w < 0;", 1)
 _NO_STAGING = (FLASH, r"\n\s*fb_stage_slice\(smem, [^;]*;", "", 1)
 
-# name -> [(file, pattern, replacement, expected matches)]
+# name -> [(file, pattern, replacement, expected matches[, the text the edit
+# stops before])]
 VARIANTS = {
     "base": [],
     "one_mma": [_CORRECTIONS],
@@ -64,17 +68,28 @@ VARIANTS = {
 }
 
 
-def _source(name: str) -> Path:
-    """A copy of csrc/ with the variant's edits, checked to match."""
-    src = OUT / name / "csrc"
-    shutil.rmtree(src, ignore_errors=True)
-    shutil.copytree(_build._CSRC, src)
-    for fname, pattern, repl, count in VARIANTS[name]:
-        path = src / fname
-        text, n = re.subn(pattern, repl, path.read_text(), flags=re.M)
+def edited(name: str, csrc: Path = _build._CSRC) -> dict:
+    """{file: text} of ``csrc``'s files with the variant's edits, each
+    checked to match its stated number of times (SystemExit where not)."""
+    texts = {}
+    for fname, pattern, repl, count, *until in VARIANTS[name]:
+        text = texts.get(fname) or (csrc / fname).read_text()
+        end = text.index(until[0]) if until else len(text)
+        head, n = re.subn(pattern, repl, text[:end], flags=re.M)
         if n != count:
             raise SystemExit(f"{name}: {pattern!r} matched {n} times in {fname}, not {count}")
-        path.write_text(text)
+        texts[fname] = head + text[end:]
+    return texts
+
+
+def _source(name: str) -> Path:
+    """A copy of csrc/ with the variant's edits."""
+    src = OUT / name / "csrc"
+    texts = edited(name)
+    shutil.rmtree(src, ignore_errors=True)
+    shutil.copytree(_build._CSRC, src)
+    for fname, text in texts.items():
+        (src / fname).write_text(text)
     return src
 
 
