@@ -53,9 +53,11 @@ Phases, each fatal on failure:
                 (T=50 B=16) shapes and at the edges of its plan, K2 also at
                 B=1 L=512 (its attention stage's device ms beside SDPA), K4
                 and K6b at B=4096 L=32 and B=1 L=8, K6a at B=4096 L=32 and
-                B=1 L=512 and at the edges of its plan (L = 1 .. 513), K1f at
-                B=4096 and K2 and K6a at B=1 L=512 also timed under the
-                parent commit's plans (parent_plans), against
+                B=1 L=512 and at the edges of its plan (L = 1 .. 513), K1f,
+                K1b, K3, K2 and K6b at B=4096 and K2 and K6a at B=1 L=512
+                also timed under the parent commit's plans (parent_plans;
+                K2 and K6b at B=4096 held to the persistent kernel's plan,
+                K2 beside cuBLAS's two products alone), against
                 their bf16 plain versions (2e-2 of max |ref|) and the
                 float32 kernels (cosine), rerun for the same bits, timed
                 beside cuDNN's GRU in bf16 (K1f, K1b) and SDPA in bf16
@@ -464,13 +466,13 @@ def parent_plans():
     (path 1, which still serves L > 512), K1f.bf16's recurrence on the
     tiled form (which still serves H > 104) and its projection on
     gemm_bf16.cuh's 128-wide wgmma tiles (which still serve 3H > 304);
-    K3.bf16's products on those 128 x 128 wgmma tiles with the weights'
-    transposes (bf_transpose_b, which K2.bf16 still runs) and its
-    LayerNorm a block a row; K1b.bf16's recurrence on the tiled form (the
-    float plan's, which K7b and wider H still run) and its dwp on the
-    transposed-A mma.sync tiles (which dwt still runs).  Their sources are
-    unchanged, so these are the parent's kernels, launched as it launched
-    them."""
+    K3.bf16's, K2.bf16's and K6b.bf16's products on those 128 x 128 wgmma
+    tiles with the weights' transposes (bf_transpose_b, which the 3H > 304
+    projections of K1f.bf16 still run) and their LayerNorms a block a row;
+    K1b.bf16's recurrence on the tiled form (the float plan's, which K7b
+    and wider H still run) and its reductions on the transposed-A mma.sync
+    tiles.  Their sources are unchanged, so these are the parent's kernels,
+    launched as it launched them."""
     from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda as ba
     from multimodal_transformer_robustness_tpu_torch.ops import bert_ffn_cuda as bf
     from multimodal_transformer_robustness_tpu_torch import _build
@@ -479,6 +481,22 @@ def parent_plans():
 
     attn, fwd, ffn, bwd = (ba._plan_attention_bf16, bg._plan_gru_fwd_bf16, bf._plan_ffn_bf16,
                            bg._plan_gru_bwd_bf16)
+    block, proj = ba._plan_attn_block_bf16, bf._plan_proj_ln_bf16
+
+    def first_port(p, m, n, k, num_sms):
+        """A product's plan off the persistent kernel: the 128 x 128 wgmma
+        tiles with B^T made per call."""
+        return gemm_tc.plan_bf16(m, n, k, p["acw"], p["bcw"], num_sms) if p["wgmma"] == 2 else p
+
+    def block_parent(B, L, h, n_heads, num_sms=_build.NUM_SMS, *addrs):
+        p = block(B, L, h, n_heads, num_sms, *addrs)
+        p["qkv"] = first_port(p["qkv"], B * L, 3 * h, h, num_sms)
+        p["o"] = first_port(p["o"], B * L, h, h, num_sms)
+        p["partial"] = max(p["qkv"]["partial"], p["o"]["partial"])
+        return p
+
+    def proj_parent(rows, h, num_sms=_build.NUM_SMS, *addrs):
+        return first_port(proj(rows, h, num_sms, *addrs), rows, h, h, num_sms)
 
     def attn_parent(B, L, n_heads, dh):
         p = attn(B, L, n_heads, dh)
@@ -515,16 +533,18 @@ def parent_plans():
         return p
 
     caches = (ba._cached_plan_bf16, ba._cached_block_plan_bf16, bg._cached_plan_bf16,
-              bf._cached_ffn_plan_bf16, bg._cached_bwd_plan_bf16)
+              bf._cached_ffn_plan_bf16, bg._cached_bwd_plan_bf16, bf._cached_proj_ln_plan_bf16)
     (ba._plan_attention_bf16, bg._plan_gru_fwd_bf16, bf._plan_ffn_bf16,
-     bg._plan_gru_bwd_bf16) = attn_parent, fwd_parent, ffn_parent, bwd_parent
+     bg._plan_gru_bwd_bf16, ba._plan_attn_block_bf16, bf._plan_proj_ln_bf16) = (
+        attn_parent, fwd_parent, ffn_parent, bwd_parent, block_parent, proj_parent)
     for cache in caches:
         cache.cache_clear()
     try:
         yield
     finally:
         (ba._plan_attention_bf16, bg._plan_gru_fwd_bf16, bf._plan_ffn_bf16,
-         bg._plan_gru_bwd_bf16) = attn, fwd, ffn, bwd
+         bg._plan_gru_bwd_bf16, ba._plan_attn_block_bf16, bf._plan_proj_ln_bf16) = (
+            attn, fwd, ffn, bwd, block, proj)
         for cache in caches:
             cache.cache_clear()
 
@@ -704,6 +724,7 @@ def check_bf16(dev, rng, t, record, failures):
     ms of the kernel, the plain version and, for K1f / K1b, cuDNN's GRU in
     bf16 (forward; backward by autograd), the bound at the bf16 tensor
     cores' 989 TFLOP/s."""
+    from multimodal_transformer_robustness_tpu_torch import _build
     from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bert_ffn_cuda
     from multimodal_transformer_robustness_tpu_torch.ops import bigru_cuda
 
@@ -830,12 +851,25 @@ def check_bf16(dev, rng, t, record, failures):
     out = bert_attn_cuda.attention_block_fused(*a_args, **kw)
     again = bert_attn_cuda.attention_block_fused(*a_args, **kw)
     torch.cuda.synchronize()
+    extra = parent_and_splits("K2.bf16", f"B={B} L={L}",
+                              lambda: bert_attn_cuda.attention_block_fused(*a_args, **kw))
+    w3 = torch.cat(aw[:3], dim=1)   # [h, 3h]: cuBLAS, the two products alone, a yardstick
+    extra["cublas_products_ms"] = {"qkv": cuda_ms(lambda: torch.matmul(x, w3), 5),
+                                   "o": cuda_ms(lambda: torch.matmul(x, aw[3]), 5)}
+    print(f"  cuBLAS bf16, the two products alone: {extra['cublas_products_ms']}", flush=True)
+    del w3
+    # both products on the persistent kernel, no weight transposed per call
+    plan = bert_attn_cuda._plan_attn_block_bf16(B, L, h, heads, _build.num_sms(dev),
+                                                x.data_ptr() % 16, aw[0].data_ptr() % 16,
+                                                aw[3].data_ptr() % 16)
+    off_path = (plan["qkv"]["wgmma"], plan["o"]["wgmma"]) != (2, 2) or any(
+        k.startswith("bf_transpose_b") for k in extra["split_ms"])
     judge("K2.bf16", f"B={B} L={L} h={h}", (out,),
           (bert_attn_cuda.attention_block_plain(*a_args, **kw),),
-          (bert_attn_cuda.attention_block_fused(*a32, **kw),), (again,),
+          (bert_attn_cuda.attention_block_fused(*a32, **kw),), (again,), fail=off_path,
           kernel_fn=lambda: bert_attn_cuda.attention_block_fused(*a_args, **kw),
           plain_fn=lambda: bert_attn_cuda.attention_block_plain(*a_args, **kw),
-          work=k2_bf16_work(B, L, h), iters=5)
+          work=k2_bf16_work(B, L, h), iters=5, extra=extra)
     del out, again, a32
     w1t = t(rng.standard_normal((h, ffn)) * 0.02).to(bf)
     w2t = t(rng.standard_normal((ffn, h)) * 0.02).to(bf)
@@ -876,6 +910,7 @@ def check_bf16_bert_variants(dev, rng, t, judge, aw, ab, g, b, h=768, ffn=3072, 
     dequant (qdot) at M=8 and M=131,072, the plain version's bits."""
     import torch.nn.functional as F
 
+    from multimodal_transformer_robustness_tpu_torch import _build
     from multimodal_transformer_robustness_tpu_torch.models.bert import _quantize
     from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda, bert_ffn_cuda
 
@@ -945,12 +980,19 @@ def check_bf16_bert_variants(dev, rng, t, judge, aw, ab, g, b, h=768, ffn=3072, 
             a = t(rng.standard_normal((B, L, h))).to(bf)
             p_args = (x, a, wo_t, bo, g, b)
             again = bert_ffn_cuda.proj_ln_block(*p_args, eps=eps)
+            torch.cuda.synchronize()
+            fn = lambda: bert_ffn_cuda.proj_ln_block(*p_args, eps=eps)   # noqa: E731
+            extra = parent_and_splits("K6b.bf16", f"B={B} L={L}", fn) if B > 1 else {}
+            # the training rows on the persistent kernel, the serving row off it
+            wgmma = bert_ffn_cuda._plan_proj_ln_bf16(
+                B * L, h, _build.num_sms(dev), a.data_ptr() % 16, wo_t.data_ptr() % 16,
+                x.data_ptr() % 16)["wgmma"]
             judge("K6b.bf16", shape, (bert_ffn_cuda.proj_ln_block(*p_args, eps=eps),),
                   (bert_ffn_cuda.proj_ln_block_plain(*p_args, eps=eps),),
                   (bert_ffn_cuda.proj_ln_block(*(v.float() for v in p_args), eps=eps),),
-                  (again,), kernel_fn=lambda: bert_ffn_cuda.proj_ln_block(*p_args, eps=eps),
+                  (again,), kernel_fn=fn, fail=(wgmma == 2) != (B > 1),
                   plain_fn=lambda: bert_ffn_cuda.proj_ln_block_plain(*p_args, eps=eps),
-                  work=k6b_bf16_work(B * L, h), iters=iters)
+                  work=k6b_bf16_work(B * L, h), iters=iters, extra=extra)
             del a, p_args, again
         if L != 8:
             q, k, v = (t(rng.standard_normal((B, L, heads, h // heads))).to(bf)
@@ -3852,21 +3894,22 @@ def bf16_kernel_entries(rows, launches):
     K5dq / K5dkv: B=16 T=2048; K8 B=4096 L=32; K7 and K9 their library-op
     phases' shapes; every shape in ``by_shape``, SDPA's backend beside the
     flash rows); launches from the bf16 phases' counters."""
-    bf16_gemm = "csrc/gemm_bf16.cuh"
+    bf16_gemm, bf16_ln = "csrc/gemm_bf16.cuh", "csrc/layernorm_bf16.cuh"
     meta = {
         "K1f.bf16": ("gru_dir", "K1.bf16", ("csrc/bigru.cu", bf16_gemm),
                      "ops/bigru_pallas.py:127", "in=768 H=100 T=50 B=4096 fwd"),
         "K1b.bf16": ("gru_dir_bwd", "K1b.bf16", ("csrc/bigru_bwd.cu", bf16_gemm),
                      "ops/bigru_pallas.py:284", "in=768 H=100 T=50 B=4096 fwd need_dx=False"),
-        "K2.bf16": ("attention_block_fused", "K2.bf16", ("csrc/bert_attn.cu", bf16_gemm),
+        "K2.bf16": ("attention_block_fused", "K2.bf16",
+                    ("csrc/bert_attn.cu", bf16_gemm, bf16_ln),
                     "ops/bert_attn_pallas.py:223", "B=4096 L=32 h=768"),
-        "K3.bf16": ("ffn_ln_block", "K3.bf16", ("csrc/bert_ffn.cu", bf16_gemm),
+        "K3.bf16": ("ffn_ln_block", "K3.bf16", ("csrc/bert_ffn.cu", bf16_gemm, bf16_ln),
                     "ops/bert_ffn_pallas.py:150", "B=4096 L=32 h=768 ffn=3072"),
         "K4.bf16": ("ffn_ln_block_q", "K4.bf16", ("csrc/bert_ffn_q.cu",),
                     "ops/bert_ffn_pallas.py:222", "B=4096 L=32 h=768 ffn=3072"),
         "K6a.bf16": ("dense_attention_blockdiag", "K6a.bf16", ("csrc/bert_attn.cu",),
                      "ops/bert_attn_pallas.py:114", "B=4096 L=32 h=768"),
-        "K6b.bf16": ("proj_ln_block", "K6b.bf16", ("csrc/bert_ffn.cu", bf16_gemm),
+        "K6b.bf16": ("proj_ln_block", "K6b.bf16", ("csrc/bert_ffn.cu", bf16_gemm, bf16_ln),
                      "ops/bert_ffn_pallas.py:183", "B=4096 L=32 h=768"),
         "K5f.bf16": ("flash_fwd", "K5f.bf16", ("csrc/flash_attn.cu",),
                      "ops/attention_pallas.py:197", FLASH_MAIN),
@@ -4028,11 +4071,11 @@ def main() -> int:
         dev, spec16, bert_cfg, "train-bf16", expect_bf16(K1=12, K1b=12, K2=4, K3=4),
         store_dtype="bfloat16", warmup=2, steps=3)
     # the last records of the same breakdown on this card before the
-    # persistent K3.bf16 and the mma-form K1b.bf16 (PERF.md §5), printed
-    # beside this run's
-    print(f"train-bf16 BERT {bf16_stats['bert_ms']:.2f} ms (before: 64.5), "
+    # persistent K2.bf16 and K6b.bf16 (PERF.md §5), printed beside this
+    # run's
+    print(f"train-bf16 BERT {bf16_stats['bert_ms']:.2f} ms (before: 37.82), "
           f"headers fwd+bwd {bf16_stats['headers_fwd_bwd_ms']:.2f} ms "
-          "(before: 44.68)", flush=True)
+          "(before: 32.15)", flush=True)
     torch.cuda.empty_cache()
 
     phase("train-bf16-cached")
@@ -4049,6 +4092,9 @@ def main() -> int:
     bf16_int8_launches, bf16_int8_stats = train(
         dev, spec16, bert_cfg, "train-bf16-int8", expect_bf16(K1=12, K1b=12, K2=4, K4=4),
         bert_int8=True, store_dtype="bfloat16", warmup=2, steps=3)
+    # its last record before the persistent K2.bf16 (PERF.md §5)
+    print(f"train-bf16-int8 BERT {bf16_int8_stats['bert_ms']:.2f} ms (before: 41.6-41.8)",
+          flush=True)
     torch.cuda.empty_cache()
 
     phase("serving-bf16")

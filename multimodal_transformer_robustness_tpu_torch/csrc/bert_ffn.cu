@@ -44,10 +44,13 @@
 // `scratch`) the LayerNorm's launch adds.  Its sums are 768 deep and stay
 // unpromoted, as K2's (K6B_PROMOTE).  Its bf16 instance,
 // mmtr_proj_ln_fwd_bf16, is K2's bf16 tail alone (gemm_bf16.cuh, then the
-// bf16 LayerNorm): 0.60 GB of bf16 rows at R = 131,072, 0.18 ms at 3.35
-// TB/s, against 0.16 ms of bf16 tensor-core work.
+// bf16 LayerNorm, layernorm_bf16.cuh): 0.60 GB of bf16 rows at R = 131,072,
+// 0.18 ms at 3.35 TB/s, against 0.16 ms of bf16 tensor-core work; at the
+// training rows on the persistent kernel and the warp-row LayerNorm, as
+// K3.bf16's fc2.
 #include "gemm_bf16.cuh"
 #include "gemm_tc.cuh"
+#include "layernorm_bf16.cuh"
 
 namespace {
 
@@ -95,109 +98,6 @@ extern "C" int mmtr_proj_ln_fwd(const float* resid, const float* a, const float*
                                                 (cudaStream_t)stream_ptr);
 }
 
-namespace {
-
-// K3.bf16's LayerNorm where its products ran on the persistent kernel: a
-// warp a row (layernorm_rows_kernel's block a row spent 0.39 ms at B=4096
-// L=32, 3x the bytes' time, in its block-wide reductions), the row in
-// registers, NV 16-byte pieces a lane (h <= 256 NV, a multiple of 8), the
-// moments float32 and centered in two passes, summed by shuffles; the
-// output as layernorm_rows_kernel's, rounded as it is stored.
-constexpr int LNW_ROWS = 8;   // rows (warps) a block
-
-template <int NV>
-__global__ void __launch_bounds__(32 * LNW_ROWS)
-layernorm_rows_warp_bf16(const bf16* __restrict__ S, const bf16* __restrict__ g,
-                         const bf16* __restrict__ b, bf16* __restrict__ out, int rows, int n,
-                         float eps) {
-  const int lane = threadIdx.x % 32;
-  const long long row = (long long)blockIdx.x * LNW_ROWS + threadIdx.x / 32;
-  if (row >= rows) return;
-  float v[NV][8];
-  float sum = 0.f;
-#pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    const int c = (32 * j + lane) * 8;
-    uint4 u = make_uint4(0, 0, 0, 0);
-    if (c < n) u = *reinterpret_cast<const uint4*>(S + row * n + c);
-    const bf16* e = reinterpret_cast<const bf16*>(&u);
-#pragma unroll
-    for (int i = 0; i < 8; ++i) {
-      v[j][i] = bf2f(e[i]);
-      sum += v[j][i];
-    }
-  }
-  for (int o = 16; o > 0; o >>= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-  const float mu = sum / (float)n;
-  float sq = 0.f;
-#pragma unroll
-  for (int j = 0; j < NV; ++j)
-    if ((32 * j + lane) * 8 < n)
-#pragma unroll
-      for (int i = 0; i < 8; ++i) {
-        const float d = v[j][i] - mu;
-        sq = fmaf(d, d, sq);
-      }
-  for (int o = 16; o > 0; o >>= 1) sq += __shfl_xor_sync(0xffffffffu, sq, o);
-  const float inv = 1.0f / sqrtf(sq / (float)n + eps);
-#pragma unroll
-  for (int j = 0; j < NV; ++j) {
-    const int c = (32 * j + lane) * 8;
-    if (c >= n) continue;
-    const uint4 gu = *reinterpret_cast<const uint4*>(g + c);
-    const uint4 bu = *reinterpret_cast<const uint4*>(b + c);
-    const bf16* ge = reinterpret_cast<const bf16*>(&gu);
-    const bf16* be = reinterpret_cast<const bf16*>(&bu);
-    uint4 o;
-    uint32_t* w = reinterpret_cast<uint32_t*>(&o);
-#pragma unroll
-    for (int i = 0; i < 4; ++i)
-      w[i] = pack_bf16(((v[j][2 * i] - mu) * inv) * bf2f(ge[2 * i]) + bf2f(be[2 * i]),
-                       ((v[j][2 * i + 1] - mu) * inv) * bf2f(ge[2 * i + 1]) +
-                           bf2f(be[2 * i + 1]));
-    *reinterpret_cast<uint4*>(out + row * n + c) = o;
-  }
-}
-
-// K3.bf16's row LayerNorm: the warp form after the persistent products
-// (h a multiple of 8 up to 1024, every row 16-byte aligned), else
-// layernorm_rows_kernel as the other bf16 instances run it (the serving
-// and eval rows keep their bits).
-inline cudaError_t ffn_layernorm_bf16(bool warp_rows, const bf16* S, const bf16* g,
-                                      const bf16* b, bf16* out, int rows, int n, float eps,
-                                      cudaStream_t stream) {
-  const bool aligned = n % 8 == 0 && n <= 1024 &&
-                       ((reinterpret_cast<uintptr_t>(S) | reinterpret_cast<uintptr_t>(g) |
-                         reinterpret_cast<uintptr_t>(b) | reinterpret_cast<uintptr_t>(out)) &
-                        15) == 0;
-  if (!warp_rows || !aligned) {
-    layernorm_rows_kernel<bf16><<<rows, LN_THREADS, 0, stream>>>(S, g, b, out, n, eps);
-    return cudaGetLastError();
-  }
-  const unsigned blocks = (unsigned)((rows + LNW_ROWS - 1) / LNW_ROWS);
-  const int nv = (n + 255) / 256;
-  if (nv == 1)
-    layernorm_rows_warp_bf16<1><<<blocks, 32 * LNW_ROWS, 0, stream>>>(S, g, b, out, rows, n, eps);
-  else if (nv == 2)
-    layernorm_rows_warp_bf16<2><<<blocks, 32 * LNW_ROWS, 0, stream>>>(S, g, b, out, rows, n, eps);
-  else if (nv == 3)
-    layernorm_rows_warp_bf16<3><<<blocks, 32 * LNW_ROWS, 0, stream>>>(S, g, b, out, rows, n, eps);
-  else
-    layernorm_rows_warp_bf16<4><<<blocks, 32 * LNW_ROWS, 0, stream>>>(S, g, b, out, rows, n, eps);
-  return cudaGetLastError();
-}
-
-template <int EPI>
-cudaError_t ffn_product_bf16(const int* plan, int grid, const BfGemm& g, const bf16* bias,
-                             const bf16* resid, bf16* C, float* partial, cudaStream_t stream) {
-  const BfPlan pl = bf_plan(plan);
-  if (pl.wgmma == 2)
-    return launch_gemm_bf16_persistent<EPI>(g.A, g.lda, g.B, g.ldb, bias, resid, C, g.M, g.N,
-                                            g.K, grid, stream);
-  return launch_gemm_bf16<true, EPI>(pl, g, bias, resid, C, g.N, partial, stream);
-}
-
-}  // namespace
 
 // K3's bf16 instance (the JAX kernel at bf16 operands): x, weights, biases
 // and LN parameters bf16.  fc1 on the bf16 tensor cores (gemm_bf16.cuh),
@@ -217,34 +117,36 @@ extern "C" int mmtr_ffn_ln_fwd_bf16(const bf16* x, const bf16* w1t, const bf16* 
                                     float* partial, int rows, int h, int ffn, float eps,
                                     const int* plan, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  cudaError_t err = ffn_product_bf16<EPI_BIAS_GELU>(
-      plan, plan[10], bf_gemm(x, h, w1t, ffn, ffn, rows, ffn, h), b1, nullptr, hidden, partial,
-      stream);
+  cudaError_t err = launch_product_bf16<EPI_BIAS_GELU>(
+      plan, plan[10], bf_gemm(x, h, w1t, ffn, ffn, rows, ffn, h), b1, nullptr, hidden, ffn,
+      partial, stream);
   if (err != cudaSuccess) return (int)err;
-  err = ffn_product_bf16<EPI_BIAS_RESIDUAL>(plan + 5, plan[11],
-                                            bf_gemm(hidden, ffn, w2t, h, h, rows, h, ffn), b2,
-                                            x, resid_sum, partial, stream);
+  err = launch_product_bf16<EPI_BIAS_RESIDUAL>(plan + 5, plan[11],
+                                               bf_gemm(hidden, ffn, w2t, h, h, rows, h, ffn),
+                                               b2, x, resid_sum, h, partial, stream);
   if (err != cudaSuccess) return (int)err;
-  return (int)ffn_layernorm_bf16(plan[5] == 2, resid_sum, ln_g, ln_b, out, rows, h, eps, stream);
+  return (int)layernorm_bf16(plan[5] == 2, resid_sum, ln_g, ln_b, out, rows, h, eps, stream);
 }
 
 // K6b's bf16 instance (the JAX kernel at bf16 operands), K2's bf16 tail
 // alone: resid, a, w_t, b and LN parameters bf16.  The product on the bf16
 // tensor cores (gemm_bf16.cuh), + b rounded to bf16, + resid rounded
 // (resid_sum [R, h], bf16), then the row LayerNorm with float32 moments,
-// rounded to bf16.  plan: five host ints, a BfPlan (ops/bert_ffn_cuda.
-// _plan_proj_ln_bf16, K2's bf16 "o" plan); partial: its need (W's transpose
-// on the wgmma path, or split planes).
+// rounded to bf16.  plan: six host ints, a BfPlan (ops/bert_ffn_cuda.
+// _plan_proj_ln_bf16, K2's bf16 "o" plan) and its persistent grid: where
+// the rows fill the card the product runs gemm_bf16_persistent_kernel
+// (wgmma 2, w_t read as stored) and the LayerNorm a warp a row, as K3.bf16's
+// fc2 and LN; else the mma.sync tiles, split over K at few rows, and the
+// LayerNorm a block a row.  partial: its need (split planes, or W's
+// transpose where the plan takes the 128 x 128 wgmma tiles).
 extern "C" int mmtr_proj_ln_fwd_bf16(const bf16* resid, const bf16* a, const bf16* w_t,
                                      const bf16* b, const bf16* ln_g, const bf16* ln_b,
                                      bf16* resid_sum, bf16* out, float* partial, int rows, int h,
                                      float eps, const int* plan, void* stream_ptr) {
   cudaStream_t stream = (cudaStream_t)stream_ptr;
-  const cudaError_t err = launch_gemm_bf16<true, EPI_BIAS_RESIDUAL>(
-      bf_plan(plan), bf_gemm(a, h, w_t, h, h, rows, h, h), b, resid, resid_sum, h, partial,
+  const cudaError_t err = launch_product_bf16<EPI_BIAS_RESIDUAL>(
+      plan, plan[5], bf_gemm(a, h, w_t, h, h, rows, h, h), b, resid, resid_sum, h, partial,
       stream);
   if (err != cudaSuccess) return (int)err;
-  layernorm_rows_kernel<bf16><<<rows, LN_THREADS, 0, stream>>>(resid_sum, ln_g, ln_b, out, h,
-                                                               eps);
-  return (int)cudaGetLastError();
+  return (int)layernorm_bf16(plan[0] == 2, resid_sum, ln_g, ln_b, out, rows, h, eps, stream);
 }

@@ -46,8 +46,9 @@
 // (tools/float_sass_check.py), so the loops stay apart.  K9's bf16 instance
 // (trunk_block.cu) runs its products here with its own epilogues
 // (EPI_K9_*: the kernels carry EpiArgs) and float32 biases (TB).  Two
-// kernels of their own, fed by TMA from a producer warp, serve one caller
-// each (below): K3.bf16's products on a persistent, warp-specialized wgmma
+// kernels of their own, fed by TMA from a producer warp, serve the
+// products that fill the card (below): K3.bf16's and K2.bf16's products
+// (and K6b.bf16's, K2's tail) on a persistent, warp-specialized wgmma
 // kernel (gemm_bf16_persistent_kernel, plan wgmma 2) and K1b.bf16's
 // reductions over T*B rows on a split-K wgmma kernel (gemm_bf16_tn_kernel,
 // plan wgmma 3).
@@ -448,8 +449,18 @@ gemm_wgmma_bf16_kernel(const bf16* __restrict__ A, const bf16* __restrict__ Bt, 
 // its reading of the staging tile.  480 threads give 136 registers each,
 // room for an MMA thread's 96 sums: the 128 x 256 tile (128 sums) needed
 // setmaxnreg, whose raised count ptxas did not apply to the MMA code
-// (C7602 at the launch bound's 96).  EPI: EPI_BIAS_GELU (fc1) or
-// EPI_BIAS_RESIDUAL (fc2), tc_epilogue's rounding points at T = bf16.
+// (C7602 at the launch bound's 96).  EPI: EPI_BIAS_GELU (fc1),
+// EPI_BIAS_RESIDUAL (fc2, K2.bf16's o-projection and K6b.bf16) or EPI_BIAS
+// (K2.bf16's q/k/v: the staged bf16(acc + bias) stored as it is),
+// tc_epilogue's rounding points at T = bf16.
+//
+// K2.bf16's q/k/v product reads a gated B and writes a gated C, as
+// gemm_bf16_kernel does (hg: the gate width, N for a plain product): B
+// [N / hg][K][ldb] through one tensor map over its N / hg * K rows, C [N /
+// hg][M][hg].  A column tile at col0 lies in plane p = col0 / hg, whose k
+// rows start at row p * K of the map; hg a multiple of BP_BN and K of
+// BP_BK (the launcher checks both) keep every column tile in one plane and
+// every k box in one plane's rows.
 constexpr int BP_BM = 128, BP_BN = 192, BP_BK = 64, BP_STAGES = 4;
 constexpr int BP_A_BYTES = BP_BM * BP_BK * 2;          // [128 m][64 k], 128-byte rows
 constexpr int BP_B_CHUNK = BP_BK * 64 * 2;             // [64 k][64 n], 128-byte rows
@@ -561,8 +572,8 @@ template <int EPI>
 __global__ void __launch_bounds__(BP_THREADS, 1)
 gemm_bf16_persistent_kernel(const __grid_constant__ CUtensorMap map_a,
                             const __grid_constant__ CUtensorMap map_b, int M, int N, int K,
-                            const bf16* __restrict__ bias, const bf16* __restrict__ resid,
-                            bf16* __restrict__ C) {
+                            int hg, const bf16* __restrict__ bias,
+                            const bf16* __restrict__ resid, bf16* __restrict__ C) {
   extern __shared__ float4 bp_smem4[];
   uint8_t* ring = reinterpret_cast<uint8_t*>(
       (reinterpret_cast<uintptr_t>(bp_smem4) + 1023) & ~uintptr_t(1023));
@@ -591,14 +602,15 @@ gemm_bf16_persistent_kernel(const __grid_constant__ CUtensorMap map_a,
       uint32_t ph = 0;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
         const int row0 = (t / tiles_n) * BP_BM, col0 = (t % tiles_n) * BP_BN;
+        const int plane = col0 / hg, bx = col0 - plane * hg, by = plane * K;
         for (int kt = 0; kt < ktiles; ++kt) {
           mbar_wait(empty + s, ph ^ 1);   // passes at once on the ring's first lap
           mbar_expect_tx(full + s, BP_A_BYTES + BP_B_BYTES);
           tma_load_2d(As + s * BP_A_BYTES, &map_a, kt * BP_BK, row0, full + s);
 #pragma unroll
           for (int c = 0; c < BP_BN / 64; ++c)
-            tma_load_2d(Bs + s * BP_B_BYTES + c * BP_B_CHUNK, &map_b, col0 + 64 * c,
-                        kt * BP_BK, full + s);
+            tma_load_2d(Bs + s * BP_B_BYTES + c * BP_B_CHUNK, &map_b, bx + 64 * c,
+                        by + kt * BP_BK, full + s);
           if (++s == BP_STAGES) s = 0, ph ^= 1;
         }
       }
@@ -653,36 +665,67 @@ gemm_bf16_persistent_kernel(const __grid_constant__ CUtensorMap map_a,
       bp_bar_arrive(BP_BAR_FULL, BP_HANDOFF);
     }
   } else {
-    // the epilogue warps: 16-byte pieces p = thread, + BP_EPI_THREADS, ...
-    // of the staged tile, row p / (BP_BN / 8), columns 8 (p % (BP_BN / 8)) ..
-    constexpr int PER_ROW = BP_BN / 8;
+    // the epilogue warps: 16-byte pieces p = et + j * BP_EPI_THREADS (j <
+    // PIECES) of the staged tile, row p / (BP_BN / 8), columns 8 (p % (BP_BN
+    // / 8)) ..  The residual (EPI_BIAS_RESIDUAL) runs RESID_AHEAD pieces
+    // ahead of its use: the first RESID_AHEAD load before the staging tile
+    // is waited for, while the MMAs of the tile run, and each later one as
+    // the piece RESID_AHEAD before it is stored.  Behind K2's o-projection
+    // and K6b's (12 k tiles a tile) the loads' latency otherwise set the
+    // product's time (0.47 ms against 0.30 at B=4096 L=32,
+    // tools/k2_bf16_trials.py); all of them ahead took 64 more registers
+    // and spilled.
+    constexpr int PER_ROW = BP_BN / 8, PIECES = BP_BM * PER_ROW / BP_EPI_THREADS;
+    constexpr int RESID_AHEAD = PIECES / 2;
+    static_assert(PIECES * BP_EPI_THREADS == BP_BM * PER_ROW, "whole pieces a thread");
     const int et = threadIdx.x - BP_MMA_THREADS;
     bp_bar_arrive(BP_BAR_EMPTY, BP_HANDOFF);   // it starts empty
     for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
       const int row0 = (t / tiles_n) * BP_BM, col0 = (t % tiles_n) * BP_BN;
+      const int plane = col0 / hg;
+      // C's element (row0, col0): plane `plane`, column col0 - plane * hg
+      const long long cbase = ((long long)plane * M + row0) * hg + (col0 - plane * hg);
+      // piece j's residual (a plain C: its offset is C's), zeros past the edges
+      auto resid_piece = [&](int j) {
+        const int p = et + j * BP_EPI_THREADS, r = p / PER_ROW, cc = 8 * (p - r * PER_ROW);
+        return row0 + r < M && col0 + cc < N
+                   ? *reinterpret_cast<const uint4*>(resid + cbase + (long long)r * hg + cc)
+                   : make_uint4(0, 0, 0, 0);
+      };
+      uint4 ahead[RESID_AHEAD];
+      if constexpr (EPI == EPI_BIAS_RESIDUAL) {
+#pragma unroll
+        for (int j = 0; j < RESID_AHEAD; ++j) ahead[j] = resid_piece(j);
+      }
       bp_bar_sync(BP_BAR_FULL, BP_HANDOFF);
-#pragma unroll 2
-      for (int p = et; p < BP_BM * PER_ROW; p += BP_EPI_THREADS) {
-        const int r = p / PER_ROW, c = col0 + 8 * (p - r * PER_ROW);
+#pragma unroll
+      for (int j = 0; j < PIECES; ++j) {
+        const int p = et + j * BP_EPI_THREADS;
+        const int r = p / PER_ROW, cc = 8 * (p - r * PER_ROW), c = col0 + cc;
+        uint4 xv = make_uint4(0, 0, 0, 0);
+        if constexpr (EPI == EPI_BIAS_RESIDUAL) {
+          xv = ahead[j % RESID_AHEAD];
+          if (j + RESID_AHEAD < PIECES) ahead[j % RESID_AHEAD] = resid_piece(j + RESID_AHEAD);
+        }
         if (row0 + r >= M || c >= N) continue;
-        const uint4 v = *reinterpret_cast<const uint4*>(staged + r * BP_LDS + (c - col0));
-        const long long o = (long long)(row0 + r) * N + c;
+        const uint4 v = *reinterpret_cast<const uint4*>(staged + r * BP_LDS + cc);
         const bf16* h = reinterpret_cast<const bf16*>(&v);
         uint4 out;
         uint32_t* w = reinterpret_cast<uint32_t*>(&out);
-        if constexpr (EPI == EPI_BIAS_GELU) {
+        if constexpr (EPI == EPI_BIAS) {
+          out = v;
+        } else if constexpr (EPI == EPI_BIAS_GELU) {
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             w[e] = pack_bf16(gelu_erf(bf2f(h[2 * e])), gelu_erf(bf2f(h[2 * e + 1])));
         } else {
-          const uint4 xv = *reinterpret_cast<const uint4*>(resid + o);
           const bf16* x = reinterpret_cast<const bf16*>(&xv);
 #pragma unroll
           for (int e = 0; e < 4; ++e)
             w[e] = pack_bf16(bf2f(x[2 * e]) + bf2f(h[2 * e]),
                              bf2f(x[2 * e + 1]) + bf2f(h[2 * e + 1]));
         }
-        *reinterpret_cast<uint4*>(C + o) = out;
+        *reinterpret_cast<uint4*>(C + cbase + (long long)r * hg + cc) = out;
       }
       if (t + (int)gridDim.x < tiles) bp_bar_arrive(BP_BAR_EMPTY, BP_HANDOFF);
     }
@@ -733,26 +776,32 @@ inline bool bf16_tensor_map(CUtensorMap* map, const bf16* base, int rows, int co
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// C [M, N] = epilogue(A [M, K] @ B [K, N]) on the persistent kernel, A of
-// row stride lda, B of ldb, C and resid of N, over `grid` blocks (the
-// plan's: one an SM, at most one a tile).  Returns the launch's cudaError_t.
+// C = epilogue(A [M, K] @ B) on the persistent kernel, A of row stride lda,
+// B [N / hg][K][ldb] and C [N / hg][M][hg] (hg = N: a plain B [K, N] and C
+// [M, N]; hg < N, gated: hg a multiple of BP_BN and K of BP_BK, no
+// residual), resid [M, N], over `grid` blocks (the plan's: one an SM, at
+// most one a tile).  Returns the launch's cudaError_t.
 template <int EPI>
-cudaError_t launch_gemm_bf16_persistent(const bf16* A, int lda, const bf16* B, int ldb,
+cudaError_t launch_gemm_bf16_persistent(const bf16* A, int lda, const bf16* B, int ldb, int hg,
                                         const bf16* bias, const bf16* resid, bf16* C, int M,
                                         int N, int K, int grid, cudaStream_t stream) {
-  static_assert(EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_RESIDUAL, "K3's epilogues");
+  static_assert(EPI == EPI_BIAS || EPI == EPI_BIAS_GELU || EPI == EPI_BIAS_RESIDUAL,
+                "K2's and K3's epilogues");
+  const bool gated = hg != N;
   CUtensorMap map_a, map_b;
-  if (grid < 1 || N % 8 != 0 || reinterpret_cast<uintptr_t>(C) % 16 != 0 ||
+  if (grid < 1 || hg < 8 || hg % 8 != 0 || N % hg != 0 ||
+      (gated && (hg % BP_BN != 0 || K % BP_BK != 0 || EPI == EPI_BIAS_RESIDUAL)) ||
+      reinterpret_cast<uintptr_t>(C) % 16 != 0 ||
       (EPI == EPI_BIAS_RESIDUAL && reinterpret_cast<uintptr_t>(resid) % 16 != 0) ||
       !bf16_tensor_map(&map_a, A, M, K, lda, BP_BM) ||
-      !bf16_tensor_map(&map_b, B, K, N, ldb, BP_BK))
+      !bf16_tensor_map(&map_b, B, N / hg * K, hg, ldb, BP_BK))
     return cudaErrorInvalidValue;
   static unsigned long long smem_set = 0;
   const cudaError_t err =
       allow_smem_once((const void*)gemm_bf16_persistent_kernel<EPI>, &smem_set);
   if (err != cudaSuccess) return err;
   gemm_bf16_persistent_kernel<EPI><<<grid, BP_THREADS, BP_SMEM, stream>>>(map_a, map_b, M, N, K,
-                                                                         bias, resid, C);
+                                                                         hg, bias, resid, C);
   return cudaGetLastError();
 }
 
@@ -916,9 +965,9 @@ cudaError_t launch_gemm_bf16_tn(const bf16* A, int lda, const bf16* B, int ldb, 
 
 // A product's launch plan, five host ints from ops/gemm_tc.plan_bf16:
 // wgmma (1: gemm_wgmma_bf16_kernel, B^T in `partial`, N * K bf16; 2:
-// gemm_bf16_persistent_kernel, K3's products only, by
-// launch_gemm_bf16_persistent; 3: gemm_bf16_tn_kernel, K1b.bf16's dwp only,
-// by launch_gemm_bf16_tn), splits (the mma.sync kernel's blockIdx.z;
+// gemm_bf16_persistent_kernel, K2's and K3's products (and K6b's, K2's
+// tail) only, by launch_product_bf16; 3: gemm_bf16_tn_kernel, K1b.bf16's
+// reductions only, by launch_gemm_bf16_tn), splits (the mma.sync kernel's blockIdx.z;
 // > 1: splits * M * N floats of `partial`), kps (k tiles a split), acw and
 // bcw (elements an A / B copy).
 struct BfPlan {
@@ -996,6 +1045,23 @@ inline BfGemm bf_gemm(const bf16* A, int lda, const bf16* B, int ldb, int hgb, i
   p.ldb = ldb;
   p.hgb = hgb;
   return p;
+}
+
+// One K-major product of K2.bf16, K3.bf16 or K6b.bf16 by its plan (five
+// host ints, `grid` the persistent grid): the persistent kernel where the
+// plan says wgmma 2 (B's gate width must be C's plane width hg), else
+// launch_gemm_bf16.  Returns the launches' cudaError_t.
+template <int EPI>
+cudaError_t launch_product_bf16(const int* plan, int grid, const BfGemm& g, const bf16* bias,
+                                const bf16* resid, bf16* C, int hg, float* partial,
+                                cudaStream_t stream) {
+  const BfPlan pl = bf_plan(plan);
+  if (pl.wgmma == 2) {
+    if (g.hgb != hg) return cudaErrorInvalidValue;
+    return launch_gemm_bf16_persistent<EPI>(g.A, g.lda, g.B, g.ldb, hg, bias, resid, C, g.M,
+                                            g.N, g.K, grid, stream);
+  }
+  return launch_gemm_bf16<true, EPI>(pl, g, bias, resid, C, hg, partial, stream);
 }
 
 }  // namespace

@@ -25,8 +25,9 @@ weights take it on the card, its plain version on the CPU, at the JAX
 kernel's rounding points (q/k/v after their float32 bias, the softmax
 probabilities, each head's output, the o-projection after its bias; the
 residual sum, then a float32-moment LN rounded to bf16), the products on
-the bf16 tensor cores (the projections on ``csrc/gemm_bf16.cuh``, Q K^T
-and P V on mma.sync m16n8k16); ``softmax_dtype="bfloat16"`` runs the exp /
+the bf16 tensor cores (the projections on ``csrc/gemm_bf16.cuh``, at the
+training rows on its persistent kernel, Q K^T and P V on mma.sync
+m16n8k16); ``softmax_dtype="bfloat16"`` runs the exp /
 sum / divide tail in bf16, as ``ATTN_SOFTMAX`` selects in the JAX package.
 K6a has one too (``mmtr_attention_fwd_bf16``), K2's bf16 attention stage
 alone under the float32 softmax: bf16 q / k / v in, bf16 out.  Both take
@@ -278,19 +279,24 @@ def _plan_attn_block_bf16(B: int, L: int, h: int, n_heads: int,
                           num_sms: int = _build.NUM_SMS, x_addr: int = 0, w_addr: int = 0,
                           wo_addr: int = 0) -> dict:
     """K2's bf16 plan: :func:`gemm_tc.plan_bf16` for the q/k/v product
-    (``[B*L, h] x [h, 3h]``, B gated [3, h, h]); the o-projection + LN's,
-    K6b.bf16's plan (:func:`bert_ffn_cuda._plan_proj_ln_bf16`) with A the
-    fresh bf16 attention output; ``attention``: :func:`_plan_attention_bf16`.
-    h not a multiple of 8 raises NotImplementedError, as the attention
-    stage's limits do."""
+    (``[B*L, h] x [h, 3h]``, B gated [3, h, h]) with ``persistent`` and
+    ``gate=h``: where the rows fill the card and h is a multiple of 192 and
+    64, the persistent kernel, reading the gated weights as stored and
+    writing the q, k and v planes (``grid``); elsewhere the first port's
+    plans.  The o-projection + LN's, K6b.bf16's plan
+    (:func:`bert_ffn_cuda._plan_proj_ln_bf16`) with A the fresh bf16
+    attention output and the residual x; ``attention``:
+    :func:`_plan_attention_bf16`.  h not a multiple of 8 raises
+    NotImplementedError, as the attention stage's limits do."""
     if h % 8:
         raise NotImplementedError(f"the bf16 attention block at h={h}: the bf16 instance "
                                   "takes h a multiple of 8 (ROADMAP Queue 2, 'bf16')")
     attention = _plan_attention_bf16(B, L, n_heads, h // n_heads)
     rows = B * L
     qkv = gemm_tc.plan_bf16(rows, 3 * h, h, gemm_tc.bf16_copy_width((h,), (x_addr,)),
-                            gemm_tc.bf16_copy_width((h,), (w_addr,)), num_sms)
-    o = _plan_proj_ln_bf16(rows, h, num_sms, 0, wo_addr)
+                            gemm_tc.bf16_copy_width((h,), (w_addr,)), num_sms,
+                            persistent=True, gate=h)
+    o = _plan_proj_ln_bf16(rows, h, num_sms, 0, wo_addr, x_addr)
     return {"qkv": qkv, "o": o, "attention": attention,
             "partial": max(qkv["partial"], o["partial"])}
 
@@ -298,10 +304,13 @@ def _plan_attn_block_bf16(B: int, L: int, h: int, n_heads: int,
 @functools.lru_cache(maxsize=None)
 def _cached_block_plan_bf16(B, L, h, n_heads, num_sms, x_addr, w_addr, wo_addr):
     """K2's bf16 plan as csrc/bert_attn.cu reads it: (C int array, its
-    address, the floats of split planes)."""
+    address, the floats of split planes): the two products' BfPlans, the
+    attention plan, then the two persistent grids (0 off the persistent
+    kernel)."""
     p = _plan_attn_block_bf16(B, L, h, n_heads, num_sms, x_addr, w_addr, wo_addr)
     ints = ([p[k][key] for k in ("qkv", "o") for key in gemm_tc.BF_PLAN_KEYS]
-            + [p["attention"][key] for key in _AB_PLAN_KEYS])
+            + [p["attention"][key] for key in _AB_PLAN_KEYS]
+            + [p[k].get("grid", 0) for k in ("qkv", "o")])
     return _build.host_ints(ints) + (p["partial"],)
 
 

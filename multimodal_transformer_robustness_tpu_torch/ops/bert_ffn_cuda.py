@@ -239,22 +239,33 @@ def _cached_proj_ln_plan(rows, h, num_sms, aligned):
 
 
 def _plan_proj_ln_bf16(rows: int, h: int, num_sms: int = _build.NUM_SMS, a_addr: int = 0,
-                       w_addr: int = 0) -> dict:
+                       w_addr: int = 0, resid_addr: int = 0) -> dict:
     """K6b's bf16 plan, and K2.bf16's for its o-projection + LN
     (``bert_attn_cuda._plan_attn_block_bf16``'s ``"o"``, A there the fresh
-    attention output): the ``[rows, h] x [h, h]`` product by
-    :func:`gemm_tc.plan_bf16`, copies as wide as ``h`` and the operands'
-    addresses (residues mod 16) allow."""
-    return gemm_tc.plan_bf16(rows, h, h, gemm_tc.bf16_copy_width((h,), (a_addr,)),
-                             gemm_tc.bf16_copy_width((h,), (w_addr,)), num_sms)
+    attention output and the residual K2's x): the ``[rows, h] x [h, h]``
+    product by :func:`gemm_tc.plan_bf16`, copies as wide as ``h`` and the
+    operands' addresses (residues mod 16) allow.  Where the rows fill the
+    card it runs on the persistent kernel (``wgmma`` 2; its epilogue reads
+    the residual in 16-byte pieces, so the residual must be 16-byte
+    aligned), as K3.bf16's fc2, where K2.bf16's q/k/v product can too (h a
+    multiple of :data:`gemm_tc.BP_BN` and :data:`gemm_tc.BP_BK`): K2.bf16
+    moves as one block, and this stays its tail's plan.  The LayerNorm after
+    it runs a warp a row on the persistent path, a block a row else."""
+    cw = gemm_tc.bf16_copy_width((h,), (a_addr,))
+    persistent = (gemm_tc.bf16_copy_width((h,), (resid_addr,)) == 8
+                  and h % gemm_tc.BP_BN == 0 and h % gemm_tc.BP_BK == 0)
+    return gemm_tc.plan_bf16(rows, h, h, cw, gemm_tc.bf16_copy_width((h,), (w_addr,)), num_sms,
+                             persistent=persistent)
 
 
 @functools.lru_cache(maxsize=None)
-def _cached_proj_ln_plan_bf16(rows, h, num_sms, a_addr, w_addr):
+def _cached_proj_ln_plan_bf16(rows, h, num_sms, a_addr, w_addr, resid_addr):
     """K6b's bf16 plan as csrc/bert_ffn.cu reads it: (C int array, its
-    address, the floats of ``partial``)."""
-    p = _plan_proj_ln_bf16(rows, h, num_sms, a_addr, w_addr)
-    return _build.host_ints([p[k] for k in gemm_tc.BF_PLAN_KEYS]) + (p["partial"],)
+    address, the floats of ``partial``): the five BfPlan ints, then the
+    persistent grid (0 off the persistent kernel)."""
+    p = _plan_proj_ln_bf16(rows, h, num_sms, a_addr, w_addr, resid_addr)
+    ints = [p[k] for k in gemm_tc.BF_PLAN_KEYS] + [p.get("grid", 0)]
+    return _build.host_ints(ints) + (p["partial"],)
 
 
 def _proj_ln_block_bf16(resid, a, w_t, b, ln_g, ln_b, eps: float) -> torch.Tensor:
@@ -265,7 +276,7 @@ def _proj_ln_block_bf16(resid, a, w_t, b, ln_g, ln_b, eps: float) -> torch.Tenso
                              (w_t, "w_t", (h, h)), (b, "b", (h,)), (ln_g, "ln_g", (h,)),
                              (ln_b, "ln_b", (h,))), torch.bfloat16)
     plan = _cached_proj_ln_plan_bf16(rows, h, _build.num_sms(dev), a.data_ptr() % 16,
-                                     w_t.data_ptr() % 16)
+                                     w_t.data_ptr() % 16, resid.data_ptr() % 16)
     resid_sum = torch.empty(rows, h, dtype=torch.bfloat16, device=dev)
     partial = torch.empty(plan[2], dtype=torch.float32, device=dev) if plan[2] else None
     out = torch.empty_like(resid)

@@ -84,7 +84,8 @@ BF_BLOCKS_PER_SM = 2
 BW_BK = 64
 BW_SMEM = 2 * WG_STAGES * 2 * WG_BM * BW_BK + 1024
 BF_PLAN_KEYS = ("wgmma", "splits", "kps", "acw", "bcw")
-# the persistent kernel (gemm_bf16_persistent_kernel, K3.bf16's products):
+# the persistent kernel (gemm_bf16_persistent_kernel, K3.bf16's and K2.bf16's
+# products, and K6b.bf16's):
 # 128 x 192 tiles, 64-deep k tiles in a ring of 4 (A [128][64] and B
 # [64][192], 128-byte rows), a bf16 staging tile of 128 rows of 200, the
 # ring's mbarriers, + 1 KB to align the swizzle atoms; two MMA warpgroups,
@@ -113,7 +114,8 @@ def bf16_copy_width(counts=(), addrs=()) -> int:
 
 def plan_bf16(M: int, N: int, K: int, acw: int, bcw: int, num_sms: int = _build.NUM_SMS,
               max_splits: int | None = 16, transposed_a: bool = False,
-              persistent: bool = False, reduction: bool = False) -> dict:
+              persistent: bool = False, reduction: bool = False,
+              gate: int | None = None) -> dict:
     """One ``[M, K] x [K, N]`` bf16 product on 128 x 128 tiles: the wgmma
     kernel where the tiles give every SM at least two and A takes 16-byte
     copies with K a multiple of 8 (``partial``: B^T's N * K bf16, in
@@ -122,13 +124,16 @@ def plan_bf16(M: int, N: int, K: int, acw: int, bcw: int, num_sms: int = _build.
     (None: any number) while the tiles times the ranges fill no more than
     two blocks an SM, no range empty (``partial``: the floats of the split
     planes).  ``transposed_a``: A stored [K, M] (the reductions over T*B
-    rows), which only the mma.sync kernel reads.  ``persistent`` (K3's
-    products): where the wgmma kernel would run and B takes 16-byte copies
-    too, the persistent kernel instead (``wgmma`` 2: 128 x 192 tiles, B
-    read as stored, no ``partial``; ``grid``: one block an SM, at most one
-    a tile).  ``reduction`` (K1b.bf16's dwp and dwt, A transposed): where A
-    and B
-    take 16-byte copies, the wgmma reduction instead (``wgmma`` 3: 128 x 128
+    rows), which only the mma.sync kernel reads.  ``persistent`` (K2's
+    and K3's products, K6b's): where the wgmma kernel would run and B takes
+    16-byte copies too, the persistent kernel instead (``wgmma`` 2: 128 x
+    192 tiles, B read as stored, no ``partial``; ``grid``: one block an SM,
+    at most one a tile); a gated B (``gate``: its gate width and C's plane
+    width, K2's q/k/v product over [3, h, h]) only where ``gate`` is a
+    multiple of :data:`BP_BN` and ``K`` of :data:`BP_BK`, so that no column
+    tile straddles two planes and no k tile reads into the next plane's
+    rows.  ``reduction`` (K1b.bf16's dwp and dwt, A transposed): where A
+    and B take 16-byte copies, the wgmma reduction instead (``wgmma`` 3: 128 x 128
     tiles, both operands read as stored, K split into ``splits`` ranges of
     ``kps`` 64-deep k tiles so that tiles x ranges fill one wave;
     ``partial``: its planes, even one)."""
@@ -142,7 +147,8 @@ def plan_bf16(M: int, N: int, K: int, acw: int, bcw: int, num_sms: int = _build.
                 "partial": splits * M * N, "smem": BT_SMEM}
     tiles = -(-M // BF_BM) * -(-N // BF_BN)
     if not transposed_a and acw == 8 and K % 8 == 0 and tiles >= 2 * num_sms:
-        if persistent and bcw == 8:
+        gated_ok = gate in (None, N) or (gate % BP_BN == 0 and K % BP_BK == 0)
+        if persistent and bcw == 8 and gated_ok:
             ptiles = -(-M // BP_BM) * -(-N // BP_BN)
             return {"wgmma": 2, "splits": 1, "kps": -(-K // BP_BK), "acw": acw, "bcw": bcw,
                     "partial": 0, "tiles": ptiles, "grid": min(ptiles, num_sms),

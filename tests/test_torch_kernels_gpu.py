@@ -907,6 +907,86 @@ def test_proj_ln_bf16_kernel_matches_plain(cuda, rows, h):
     assert torch.equal(out, again)
 
 
+# K2.bf16 and K6b.bf16 on the persistent kernel (bert_attn_cuda.
+# _plan_attn_block_bf16, bert_ffn_cuda._plan_proj_ln_bf16): the training rows
+# (4096 x 32) and a ragged last row tile (4095 x 32), the rows around the
+# q/k/v product's edge (1,792 / 1,824: mma.sync below, the persistent
+# kernel above) and the o-projection's (5,504 / 5,536), L = 8 and 64 at
+# B = 2048.
+_PERSISTENT_ATTN_ROWS = [(4096, 32), (4095, 32), (56, 32), (57, 32), (172, 32), (173, 32),
+                         (2048, 8), (2048, 64)]
+
+
+def _cosine(a, b):
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("softmax", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,L", _PERSISTENT_ATTN_ROWS)
+def test_attention_block_bf16_persistent_kernel_matches_plain(cuda, B, L, softmax):
+    """K2.bf16 at BERT-base width where its products leave the first port's
+    tiles for the persistent kernel (the q/k/v product reading the stacked
+    [3, h, h] weights in place, as models.bert.prepare_bert makes them),
+    both softmax tails, keys padded by a random length per item and item 0
+    fully masked, HF-scale weights (0.02, as chip_smoke.py's): within 2e-2
+    of max |ref| of the bf16 plain version, a cosine of 0.999 against the
+    float32 kernel on the same bf16 values, reruns bit-identical."""
+    h, heads = 768, 12
+    plan = bert_attn_cuda._plan_attn_block_bf16(B, L, h, heads)
+    assert plan["qkv"]["wgmma"] == (2 if B * L >= 1793 else 0)
+    assert plan["o"]["wgmma"] == (2 if B * L >= 5505 else 0)
+    rng = np.random.default_rng(26)
+    x, ws, bs, ln_g, ln_b, mask = attn_inputs(rng, B, L, h)
+    args = [a.to(cuda) for a in attn_torch_args(x, [w * 0.2 for w in ws], bs, ln_g, ln_b, mask)]
+    args = [a if i == 1 else a.to(torch.bfloat16) for i, a in enumerate(args)]
+    wqkv = torch.stack([args[2], args[4], args[6]])      # one [3, h, h]: read in place
+    args[2], args[4], args[6] = wqkv.unbind(0)
+    kw = dict(n_heads=heads, eps=1e-12, softmax_dtype=softmax)
+    n0 = bert_attn_cuda.attention_block_fused.launches_bf16
+    out = bert_attn_cuda.attention_block_fused(*args, **kw)
+    again = bert_attn_cuda.attention_block_fused(*args, **kw)
+    torch.cuda.synchronize()
+    assert bert_attn_cuda.attention_block_fused.launches_bf16 == n0 + 2
+    bf16_close(out, bert_attn_cuda.attention_block_plain(*args, **kw),
+               f"K2 bf16 persistent {B} {L} {softmax}")
+    assert torch.equal(out, again)
+    f32 = bert_attn_cuda.attention_block_fused(
+        *(a.float() for a in args), n_heads=heads, eps=1e-12)
+    assert _cosine(out.float(), f32) >= 0.999
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("B,L", _PERSISTENT_ATTN_ROWS)
+def test_proj_ln_bf16_persistent_kernel_matches_plain(cuda, B, L):
+    """K6b.bf16 (K2.bf16's tail, by its o-projection's plan) at the same
+    rows: the persistent product and the warp-row LayerNorm from 5,505
+    rows, the first port's plan below; 2e-2 of max |ref| of the bf16 plain
+    version, a cosine of 0.999 against the float32 kernel, reruns
+    bit-identical."""
+    rows, h = B * L, 768
+    assert bert_ffn_cuda._plan_proj_ln_bf16(rows, h)["wgmma"] == (2 if rows >= 5505 else 0)
+    rng = np.random.default_rng(30)
+    resid, a = (_bf(torch.from_numpy(rng.standard_normal((B, L, h)).astype(np.float32)), cuda)
+                for _ in range(2))
+    w_t = _bf(torch.from_numpy((rng.standard_normal((h, h)) * 0.02).astype(np.float32)), cuda)
+    b, bb = (_bf(torch.from_numpy((rng.standard_normal(h) * 0.05).astype(np.float32)), cuda)
+             for _ in range(2))
+    g = _bf(torch.from_numpy((1.0 + 0.2 * rng.standard_normal(h)).astype(np.float32)), cuda)
+    args = (resid, a, w_t, b, g, bb)
+    n0 = bert_ffn_cuda.proj_ln_block.launches_bf16
+    out = bert_ffn_cuda.proj_ln_block(*args, eps=1e-12)
+    again = bert_ffn_cuda.proj_ln_block(*args, eps=1e-12)
+    torch.cuda.synchronize()
+    assert bert_ffn_cuda.proj_ln_block.launches_bf16 == n0 + 2
+    bf16_close(out, bert_ffn_cuda.proj_ln_block_plain(*args, eps=1e-12),
+               f"K6b bf16 persistent {B} {L}")
+    assert torch.equal(out, again)
+    f32 = bert_ffn_cuda.proj_ln_block(*(t.float() for t in args), eps=1e-12)
+    assert _cosine(out.float(), f32) >= 0.999
+
+
 def _bf16_int8(w):
     """A float32 weight quantized, its scale then rounded to bf16 (the int8
     BERT under the bf16 policy)."""
@@ -962,11 +1042,6 @@ def test_ffn_ln_bf16_kernel_matches_plain(cuda, rows, h, ffn):
     bf16_close(out, bert_ffn_cuda.ffn_ln_block_plain(*args, eps=1e-12),
                f"K3 bf16 {rows} {h} {ffn}")
     assert torch.equal(out, again)
-
-
-def _cosine(a, b):
-    a, b = a.double().flatten(), b.double().flatten()
-    return float(a @ b / (a.norm() * b.norm()).clamp_min(1e-300))
 
 
 @pytest.mark.gpu

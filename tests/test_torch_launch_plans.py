@@ -1070,9 +1070,8 @@ def test_bf16_plans_cover_k_and_fit_the_card(M, N, K):
 
 def test_bf16_plans_at_the_training_shapes():
     """bench.py's shapes: K1f's projection on its own 128 x 304 wgmma tile
-    (gemm_wgmma 2), K2's products on the wgmma tiles (the weights'
-    transposes in the scratch), K3's on the persistent kernel (wgmma 2, the
-    weights read as stored: no scratch), K1f's and K1b's recurrences on
+    (gemm_wgmma 2), K2's and K3's products on the persistent kernel (wgmma
+    2, one block an SM, the weights read as stored: no scratch), K1f's and K1b's recurrences on
     their mma forms, 32 rows a block; K1b's reductions
     over T*B rows on the mma.sync tiles, split to fill one wave, dwt's
     copies of h dividing H (where its ones row starts), and its dx (K = 3H
@@ -1099,8 +1098,10 @@ def test_bf16_plans_at_the_training_shapes():
         assert bwd["dx_wgmma"] == 0
         assert (bwd["dx_splits"] == 1) == need_dx and bwd["dx_partial"] == 0
     blk = bert_attn_cuda._plan_attn_block_bf16(4096, 32, 768, 12)
-    assert blk["qkv"]["wgmma"] == blk["o"]["wgmma"] == 1
-    assert 2 * blk["partial"] == 3 * 768 * 768
+    assert blk["qkv"]["wgmma"] == blk["o"]["wgmma"] == 2
+    assert blk["qkv"]["grid"] == blk["o"]["grid"] == SMS
+    assert blk["qkv"]["tiles"] == 1024 * 12 and blk["o"]["tiles"] == 1024 * 4
+    assert blk["qkv"]["partial"] == blk["o"]["partial"] == blk["partial"] == 0
     ffn = bert_ffn_cuda._plan_ffn_bf16(131072, 768, 3072)
     assert all(ffn[fc]["wgmma"] == 2 and ffn[fc]["grid"] == SMS for fc in ("fc1", "fc2"))
     assert ffn["fc1"]["tiles"] == 1024 * 16 and ffn["fc2"]["tiles"] == 1024 * 4
@@ -1193,13 +1194,13 @@ def test_ffn_bf16_plan_unaligned_residual_keeps_fc2_off_the_persistent_kernel():
 
 
 def test_bf16_plans_of_the_other_products_keep_their_kernels():
-    """Only K3.bf16 asks for the persistent kernel and K1b.bf16's dwp and
-    dwt for the wgmma reduction: K2.bf16's q/k/v and o-projection (=
-    K6b.bf16's plan), K1f.bf16's projection, K1b.bf16's dx and K9.bf16's
-    products keep the plans they had."""
+    """Only K3.bf16 and K2.bf16 (and K6b.bf16, K2's tail) ask for the
+    persistent kernel and K1b.bf16's dwp and dwt for the wgmma reduction:
+    K2.bf16's products at the serving rows, K1f.bf16's projection,
+    K1b.bf16's dx and K9.bf16's products keep the plans they had."""
     for B, L in ((1, 8), (1, 512), (4096, 32)):
         blk = bert_attn_cuda._plan_attn_block_bf16(B, L, 768, 12)
-        assert blk["qkv"]["wgmma"] == blk["o"]["wgmma"] == int(B > 1)
+        assert blk["qkv"]["wgmma"] == blk["o"]["wgmma"] == 2 * int(B > 1)
         assert blk["o"] == bert_ffn_cuda._plan_proj_ln_bf16(B * L, 768)
     assert bigru_cuda._plan_gru_fwd_bf16(50, 4096, 768, 100)["gemm_wgmma"] == 2
     bwd = bigru_cuda._plan_gru_bwd_bf16(50, 4096, 200, 100, True)
@@ -1352,13 +1353,14 @@ def test_bf16_attention_fills_the_card_at_the_longest_bucket():
     """B=1 L=512, 12 heads of 64 (the serving bucket where the three-pass
     kernel ran 96 blocks of 4 warps): at least 132 blocks, all resident at
     once at two blocks an SM; K2.bf16's plan hands the same five ints to
-    its attention stage after the two products' ten."""
+    its attention stage after the two products' ten (the two persistent
+    grids follow them)."""
     p = bert_attn_cuda._plan_attention_bf16(1, 512, 12, 64)
     blocks = p["units"] * p["qtiles"]
     assert blocks >= SMS and blocks <= 2 * SMS
     ints, _, _ = bert_attn_cuda._cached_block_plan_bf16(1, 512, 768, 12, SMS, 0, 0, 0)
-    assert len(ints) == 2 * len(gemm_tc.BF_PLAN_KEYS) + len(bert_attn_cuda._AB_PLAN_KEYS) == 15
-    assert list(ints)[10:] == [p[k] for k in bert_attn_cuda._AB_PLAN_KEYS]
+    assert len(ints) == 2 * len(gemm_tc.BF_PLAN_KEYS) + len(bert_attn_cuda._AB_PLAN_KEYS) + 2
+    assert list(ints)[10:15] == [p[k] for k in bert_attn_cuda._AB_PLAN_KEYS]
 
 
 # csrc/gru_rec.cuh's mma form: W_hh [3][8 nt][120] bf16, b_hn [8 nt] float32,
@@ -1413,9 +1415,127 @@ def test_bf16_proj_ln_plan_is_k2s_tail():
     for B, L in ((1, 8), (1, 512), (4096, 32)):
         blk = bert_attn_cuda._plan_attn_block_bf16(B, L, 768, 12)
         assert blk["o"] == bert_ffn_cuda._plan_proj_ln_bf16(B * L, 768)
-    assert bert_ffn_cuda._plan_proj_ln_bf16(131072, 768)["wgmma"] == 1
+    assert bert_ffn_cuda._plan_proj_ln_bf16(131072, 768)["wgmma"] == 2
     p = bert_ffn_cuda._plan_proj_ln_bf16(8, 768, a_addr=4)
     assert (p["wgmma"], p["acw"], p["bcw"]) == (0, 2, 8)
+
+
+def _first_port_bf16(M, N, K):
+    """A bf16 product's plan before the persistent kernel took K2.bf16's
+    and K6b.bf16's products: plan_bf16 without ``persistent``."""
+    return gemm_tc.plan_bf16(M, N, K, 8, 8, SMS)
+
+
+@pytest.mark.parametrize("B,L,h,heads", [(1, 8, 768, 12), (1, 512, 768, 12), (16, 32, 768, 12),
+                                         (56, 32, 768, 12), (4096, 32, 640, 10),
+                                         (300, 31, 640, 10)])
+def test_bf16_attn_block_plan_keeps_the_first_port_off_the_training_rows(B, L, h, heads):
+    """The serving rows (B=1, L 8 and 512), the eval header pass (16 x 32
+    rows) and anything under 15 row tiles of 128 keep the mma.sync split-K
+    plans, and h = 640 (a multiple of 64, not of 192: a 192-wide column
+    tile would straddle two of the q/k/v planes) keeps the 128 x 128 wgmma
+    tiles at every row count; K6b.bf16's plan is the o-projection's there
+    too, and the LayerNorm stays a block a row (no plan says wgmma 2)."""
+    rows = B * L
+    blk = bert_attn_cuda._plan_attn_block_bf16(B, L, h, heads)
+    assert blk["qkv"] == _first_port_bf16(rows, 3 * h, h)
+    assert blk["o"] == _first_port_bf16(rows, h, h) == bert_ffn_cuda._plan_proj_ln_bf16(rows, h)
+    assert blk["partial"] == max(blk["qkv"]["partial"], blk["o"]["partial"])
+    ints, _, partial = bert_attn_cuda._cached_block_plan_bf16(B, L, h, heads, SMS, 0, 0, 0)
+    assert list(ints)[15:] == [0, 0] and partial == blk["partial"]
+    ints, _, _ = bert_ffn_cuda._cached_proj_ln_plan_bf16(rows, h, SMS, 0, 0, 0)
+    assert list(ints) == [blk["o"][k] for k in gemm_tc.BF_PLAN_KEYS] + [0]
+
+
+@pytest.mark.parametrize("B,L", [(4096, 32), (4095, 32), (57, 32), (172, 32), (173, 32),
+                                 (2048, 8), (2048, 64)])
+def test_bf16_attn_block_plan_takes_the_persistent_kernel_by_rows(B, L):
+    """K2.bf16 at BERT-base width: its q/k/v product on the persistent
+    kernel from 1,793 rows (where the 128 x 128 wgmma tiles took over
+    before: 15 row tiles of 18 column tiles), its o-projection, and
+    K6b.bf16 by the same plan, from 5,505 (6 column tiles, as K3.bf16's
+    fc2); below each edge the first port's plan.  The plan hands both grids
+    to csrc/bert_attn.cu after the attention plan, and K6b.bf16's grid to
+    csrc/bert_ffn.cu after its BfPlan."""
+    rows, h = B * L, 768
+    blk = bert_attn_cuda._plan_attn_block_bf16(B, L, h, 12)
+    assert blk["qkv"]["wgmma"] == (2 if rows >= 1793 else 0)
+    assert blk["o"]["wgmma"] == (2 if rows >= 5505 else 0)
+    for name, n in (("qkv", 3 * h), ("o", h)):
+        p = blk[name]
+        if p["wgmma"] == 2:
+            assert _first_port_bf16(rows, n, h)["wgmma"] == 1
+            assert p["partial"] == 0 and p["grid"] == min(p["tiles"], SMS)
+            assert p["tiles"] == -(-rows // gemm_tc.BP_BM) * (n // gemm_tc.BP_BN)
+        else:
+            assert p == _first_port_bf16(rows, n, h)
+    ints, _, _ = bert_attn_cuda._cached_block_plan_bf16(B, L, h, 12, SMS, 0, 0, 0)
+    assert len(ints) == 17
+    assert list(ints)[15:] == [blk[k].get("grid", 0) for k in ("qkv", "o")]
+    ints, _, partial = bert_ffn_cuda._cached_proj_ln_plan_bf16(rows, h, SMS, 0, 0, 0)
+    assert list(ints) == [blk["o"][k] for k in gemm_tc.BF_PLAN_KEYS] + [blk["o"].get("grid", 0)]
+    assert partial == blk["o"]["partial"]
+
+
+@pytest.mark.parametrize("h", [192, 384, 768, 1152])
+def test_bf16_qkv_persistent_tiles_stay_in_one_plane(h):
+    """The persistent q/k/v product reads the gated weights [3, h, h] through
+    one tensor map over their 3h rows: each 192-wide column tile lies in one
+    plane (its columns col0 .. col0 + 191 in plane col0 // h), its k boxes
+    of 64 rows in that plane's h rows, and the tiles cover the 3h columns
+    once; the block's shared memory fits a block's 227 KB."""
+    p = gemm_tc.plan_bf16(131072, 3 * h, h, 8, 8, SMS, persistent=True, gate=h)
+    assert p["wgmma"] == 2 and p["smem"] <= MAX_SMEM
+    bn, bk = gemm_tc.BP_BN, gemm_tc.BP_BK
+    cols = [c * bn for c in range(3 * h // bn)]
+    assert len(cols) * bn == 3 * h
+    for col0 in cols:
+        plane = col0 // h
+        assert (col0 + bn - 1) // h == plane
+        assert all(plane * h <= plane * h + k0 and k0 + bk <= h
+                   for k0 in range(0, p["kps"] * bk, bk))
+    assert p["kps"] * bk == h
+
+
+@pytest.mark.parametrize("h", [640, 704, 896, 200])
+def test_bf16_qkv_plan_refuses_gates_that_straddle_tiles(h):
+    """A gate width that 192 does not divide (640, 704, 896), or a K that 64
+    does not (200, wgmma needs K a multiple of 8 as well), keeps the gated
+    q/k/v product off the persistent kernel; the same product ungated
+    (gate None: one plane) would take it."""
+    gated = gemm_tc.plan_bf16(131072, 3 * h, h, 8, 8, SMS, persistent=True, gate=h)
+    plain = gemm_tc.plan_bf16(131072, 3 * h, h, 8, 8, SMS, persistent=True)
+    assert gated == _first_port_bf16(131072, 3 * h, h) and gated["wgmma"] == 1
+    assert plain["wgmma"] == 2
+
+
+def test_bf16_proj_ln_plan_needs_an_aligned_residual():
+    """The persistent epilogue reads the residual in 16-byte pieces: a
+    residual off a 16-byte boundary keeps K6b.bf16's product, and K2.bf16's
+    o-projection (x, the residual, then also sends the q/k/v product's A to
+    narrower copies), on the first port's tiles."""
+    p = bert_ffn_cuda._plan_proj_ln_bf16(131072, 768, resid_addr=8)
+    assert p == _first_port_bf16(131072, 768, 768)
+    blk = bert_attn_cuda._plan_attn_block_bf16(4096, 32, 768, 12, x_addr=8)
+    assert blk["o"]["wgmma"] == 1 and blk["qkv"]["wgmma"] == 0
+
+
+def test_ffn_bf16_plan_is_unchanged_at_the_training_and_serving_rows():
+    """K3.bf16's plans, which the gated persistent path must leave alone:
+    at 131,072 rows both products on the persistent kernel with these
+    exact plans, at 8 rows both on the mma.sync tiles split over K."""
+    p = bert_ffn_cuda._plan_ffn_bf16(131072, 768, 3072)
+    common = {"wgmma": 2, "splits": 1, "acw": 8, "bcw": 8, "partial": 0, "grid": SMS,
+              "smem": 216128}
+    assert p["fc1"] == {**common, "kps": 12, "tiles": 1024 * 16}
+    assert p["fc2"] == {**common, "kps": 48, "tiles": 1024 * 4}
+    ints, _, partial = bert_ffn_cuda._cached_ffn_plan_bf16(131072, 768, 3072, SMS, 0, 0, 0)
+    assert list(ints) == [2, 1, 12, 8, 8, 2, 1, 48, 8, 8, SMS, SMS] and partial == 0
+    q = bert_ffn_cuda._plan_ffn_bf16(8, 768, 3072)
+    assert q["fc1"] == {"wgmma": 0, "splits": 8, "kps": 3, "acw": 8, "bcw": 8,
+                        "partial": 8 * 8 * 3072}
+    assert q["fc2"] == {"wgmma": 0, "splits": 16, "kps": 6, "acw": 8, "bcw": 8,
+                        "partial": 16 * 8 * 768}
 
 
 # The bf16 instances of K5f, K5b, K5dq and K5dkv convert their bf16

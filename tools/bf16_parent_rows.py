@@ -11,12 +11,13 @@ whose ``multimodal_transformer_robustness_tpu_torch`` is that tree's, and
 prints one JSON line per tree and turn: {row: {"ms": ..., "sha256": ...}}.
 A row whose kernel is unchanged gives the same digest in both trees; its
 times show the spread between turns.  ``--tree DIR`` measures one tree
-once.  Rows: K3.bf16 at B=4096 L=32, K1b.bf16 at in = 768 and 512
-without dx and 200 with it, B=4096, K1f.bf16 at in=768 T=50 B=4096, K2.bf16
-and K6a.bf16 at B=1 L=512 (the redesigned bf16 kernels); K2.bf16 and
-K6a.bf16 at B=4096 L=32, K8.bf16 at B=4096 L=32 and B=1 L=512, K7f.bf16 at
-G=2 T=50 N=4096, and float32 K1f, K1b, K2, K3, K6a, K8 and K7f at the same
-shapes.  Needs one card and nvcc.
+once.  Rows: K2.bf16 and K6b.bf16 at B=4096 L=32, K3.bf16 at B=4096 L=32,
+K1b.bf16 at in = 768 and 512 without dx and 200 with it, B=4096, K1f.bf16
+at in=768 T=50 B=4096, K2.bf16 and K6a.bf16 at B=1 L=512 (the redesigned
+bf16 kernels); K2.bf16 and K6b.bf16 at the serving and eval rows (B=1 L=8,
+B=16 L=32), K6a.bf16 at B=4096 L=32, K8.bf16 at B=4096 L=32 and B=1 L=512,
+K7f.bf16 at G=2 T=50 N=4096, and float32 K1f, K1b, K2, K3, K6a, K6b, K8 and
+K7f at the same shapes.  Needs one card and nvcc.
 """
 
 from __future__ import annotations
@@ -99,6 +100,23 @@ def rows(dev):
         ab = [t(rng, (h,), 0.02, dtype) for _ in range(4)]
         aw[:3], ab[:3] = torch.stack(aw[:3]).unbind(0), torch.cat(ab[:3]).split(h)
         g, b = (1.0 + t(rng, (h,), 0.1)).to(dtype), t(rng, (h,), 0.1, dtype)
+        # the serving and eval rows of K2 and K6b, from a seed of their own so
+        # that the other rows' inputs stay the draws they were
+        rng_s = np.random.default_rng(8)
+        for Bb, L in ((4096, 32), (1, 8), (16, 32)):
+            r = rng_s if Bb < 4096 else np.random.default_rng(9)
+            xb, a = t(r, (Bb, L, h), 1.0, dtype), t(r, (Bb, L, h), 1.0, dtype)
+            out[f"K6b{tag} B={Bb} L={L}"] = (
+                lambda p=(xb, a, aw[3], ab[3], g, b): bert_ffn_cuda.proj_ln_block(
+                    *p, eps=1e-12), 5 if Bb > 1 else 20)
+            if Bb < 4096:
+                mask = np.ones((Bb, L), np.float32)
+                mask[0, L // 2:] = 0.0
+                mask = torch.from_numpy(mask).to(dev)
+                out[f"K2{tag} B={Bb} L={L}"] = (
+                    lambda a=(xb, mask, aw[0], ab[0], aw[1], ab[1], aw[2], ab[2], aw[3], ab[3],
+                              g, b): bert_attn_cuda.attention_block_fused(
+                        *a, n_heads=heads, eps=1e-12), 20)
         for Bb, L in ((4096, 32), (1, 512)):
             xb = t(rng, (Bb, L, h), 1.0, dtype)
             mask = np.zeros((Bb, L), np.float32)

@@ -17,8 +17,9 @@ map swizzles, and complete its full barrier by
 ``cp.async.mbarrier.arrive.noinc`` (the consumers fence the async proxy
 after the wait); ``no_gelu`` drops the gelu from fc1's epilogue (it then
 computes something else); ``epi7`` gives the epilogue seven warps (512
-threads, 128 registers each); ``unroll4`` four of an epilogue thread's
-16-byte pieces in flight, not two; ``no_epilogue`` hands the staging tile
+threads, 128 registers each); ``unroll4`` the epilogue's store loop
+unrolled four pieces at a time, not whole (the residual's ring of pieces
+then sits in local memory); ``no_epilogue`` hands the staging tile
 over and writes nothing (the products' and the handoff's time alone);
 ``stages3`` a ring of three (how much the look-ahead matters); ``stcs``
 the epilogue's stores streaming (evict-first).  ``base``
@@ -58,14 +59,15 @@ _PRODUCER_TMA = r"""    if (lane == 0) {
       uint32_t ph = 0;
       for (int t = blockIdx.x; t < tiles; t += gridDim.x) {
         const int row0 = (t / tiles_n) * BP_BM, col0 = (t % tiles_n) * BP_BN;
+        const int plane = col0 / hg, bx = col0 - plane * hg, by = plane * K;
         for (int kt = 0; kt < ktiles; ++kt) {
           mbar_wait(empty + s, ph ^ 1);   // passes at once on the ring's first lap
           mbar_expect_tx(full + s, BP_A_BYTES + BP_B_BYTES);
           tma_load_2d(As + s * BP_A_BYTES, &map_a, kt * BP_BK, row0, full + s);
 #pragma unroll
           for (int c = 0; c < BP_BN / 64; ++c)
-            tma_load_2d(Bs + s * BP_B_BYTES + c * BP_B_CHUNK, &map_b, col0 + 64 * c,
-                        kt * BP_BK, full + s);
+            tma_load_2d(Bs + s * BP_B_BYTES + c * BP_B_CHUNK, &map_b, bx + 64 * c,
+                        by + kt * BP_BK, full + s);
           if (++s == BP_STAGES) s = 0, ph ^= 1;
         }
       }
@@ -108,11 +110,11 @@ VARIANTS = {
     "parent": [],
     "cpasync": [
         (GEMM, re.escape("const __grid_constant__ CUtensorMap map_b, int M, int N, int K,\n"
-                         "                            const bf16* __restrict__ bias,"),
+                         "                            int hg, const bf16* __restrict__ bias,"),
          "const __grid_constant__ CUtensorMap map_b, int M, int N, int K,\n"
          "                            const bf16* __restrict__ gA, int lda,\n"
          "                            const bf16* __restrict__ gB, int ldb,\n"
-         "                            const bf16* __restrict__ bias,", 1),
+         "                            int hg, const bf16* __restrict__ bias,", 1),
         (GEMM, re.escape("<<<grid, BP_THREADS, BP_SMEM, stream>>>(map_a, map_b, M, N, K,"),
          "<<<grid, BP_THREADS, BP_SMEM, stream>>>(map_a, map_b, M, N, K, A, lda, B, ldb,", 1),
         (GEMM, re.escape("      mbar_init(full + s, 1);                       // the producer's "
@@ -127,14 +129,22 @@ VARIANTS = {
                                  "gelu_erf(bf2f(h[2 * e + 1])))"),
                  "pack_bf16(bf2f(h[2 * e]), bf2f(h[2 * e + 1]))", 1)],
     "epi7": [(GEMM, re.escape("constexpr int BP_MMA_THREADS = 256, BP_EPI_THREADS = 192;"),
-              "constexpr int BP_MMA_THREADS = 256, BP_EPI_THREADS = 224;", 1)],
-    "unroll4": [(GEMM, re.escape("#pragma unroll 2\n      for (int p = et;"),
-                 "#pragma unroll 4\n      for (int p = et;", 1)],
-    "no_epilogue": [(GEMM, re.escape("for (int p = et; p < BP_BM * PER_ROW; p += BP_EPI_THREADS)"),
-                     "for (int p = et; p < 0; p += BP_EPI_THREADS)", 1)],
+              "constexpr int BP_MMA_THREADS = 256, BP_EPI_THREADS = 224;", 1),
+             # 3,072 pieces over 224 threads: the last round partly empty
+             (GEMM, re.escape("PIECES = BP_BM * PER_ROW / BP_EPI_THREADS;"),
+              "PIECES = (BP_BM * PER_ROW + BP_EPI_THREADS - 1) / BP_EPI_THREADS;", 1),
+             (GEMM, re.escape('    static_assert(PIECES * BP_EPI_THREADS == BP_BM * PER_ROW, '
+                              '"whole pieces a thread");\n'), "", 1),
+             (GEMM, re.escape("        if (row0 + r >= M || c >= N) continue;"),
+              "        if (p >= BP_BM * PER_ROW || row0 + r >= M || c >= N) continue;", 1)],
+    "unroll4": [(GEMM, re.escape("#pragma unroll\n      for (int j = 0; j < PIECES; ++j) {"),
+                 "#pragma unroll 4\n      for (int j = 0; j < PIECES; ++j) {", 1)],
+    "no_epilogue": [(GEMM, re.escape("      for (int j = 0; j < PIECES; ++j) {"),
+                     "      for (int j = 0; j < 0; ++j) {", 1)],
     "stages3": [(GEMM, re.escape("BP_BK = 64, BP_STAGES = 4;"), "BP_BK = 64, BP_STAGES = 3;", 1)],
-    "stcs": [(GEMM, re.escape("*reinterpret_cast<uint4*>(C + o) = out;"),
-              "__stcs(reinterpret_cast<uint4*>(C + o), out);", 1)],
+    "stcs": [(GEMM, re.escape("*reinterpret_cast<uint4*>(C + cbase + (long long)r * hg + cc) "
+                              "= out;"),
+              "__stcs(reinterpret_cast<uint4*>(C + cbase + (long long)r * hg + cc), out);", 1)],
 }
 
 
