@@ -57,7 +57,9 @@ Phases, each fatal on failure:
                 K1b, K3, K2 and K6b at B=4096 and K2 and K6a at B=1 L=512
                 also timed under the parent commit's plans (parent_plans;
                 K2 and K6b at B=4096 held to the persistent kernel's plan,
-                K2 beside cuBLAS's two products alone), against
+                K2 beside cuBLAS's two products alone; K2 and K6a at
+                B=4096 held to the unit walk and to the block-a-unit
+                kernel's bits, walk_off), against
                 their bf16 plain versions (2e-2 of max |ref|) and the
                 float32 kernels (cosine), rerun for the same bits, timed
                 beside cuDNN's GRU in bf16 (K1f, K1b) and SDPA in bf16
@@ -72,8 +74,9 @@ Phases, each fatal on failure:
                 rerun for the same bits, timed beside SDPA in bf16, bound
                 by the bf16 x bf16 products at PEAK_BF16_FLOPS and the
                 rest at PEAK_BF16_F32_FLOPS; the bf16 instances of K8 (B=1
-                L=8 and 512, B=4096 L=32, held as the flash rows, beside
-                SDPA in bf16 with the boolean mask), K7f / K7b (G=2 T=50
+                L=8 and 512, B=4096 L=32 on the unit walk with the
+                parent's plan timed beside it, held as the flash rows,
+                beside SDPA in bf16 with the boolean mask), K7f / K7b (G=2 T=50
                 N=4096 and T=64 N=1, beside cuDNN's bidirectional GRU in
                 bf16; products with a float32 operand bound at
                 PEAK_BF16_F32_FLOPS) and K9f / K9b (the four MOSEI blocks,
@@ -183,9 +186,10 @@ Phases, each fatal on failure:
                 loss and gradients bit-identical to the xla spec's step;
  31. serving-bf16-flash - phase 15 under the bf16 spec: K1 12 / K2 4 / K3
                 4 a request (bf16), K5f 0, predictions bit-identical to xla;
- 32. flash-masked-bf16 - phase 16's call on bf16 q / k / v: K8 1 (bf16),
-                against the CPU (FLASH_BF16_TOL) and the float32 kernel
-                (cosine FLASH_BF16_COS);
+ 32. flash-masked-bf16 - phase 16's call on bf16 q / k / v: K8 1 (bf16)
+                on the unit walk, against the CPU (FLASH_BF16_TOL) and the
+                float32 kernel (cosine FLASH_BF16_COS), the parent's plan
+                held and timed beside it; D = 25 on the float32 plan;
  33. gru-recurrence-bf16 - phase 17 with bf16 weights and x: K7f 1 / K7b 1
                 (bf16); fwd+bwd ms beside cuDNN in bf16; card vs CPU at N=8
                 (outputs BF16_TOL, each gradient leaf a cosine of BF16_COS);
@@ -462,8 +466,11 @@ def cudnn_gru(w, in_dim, H, dev):
 def parent_plans():
     """The bf16 launch plans of the commits before the redesigns of the
     bf16 rows, for the parent kernels' times in the same call: K6a.bf16's
-    and K2.bf16's attention past L = 64 on the three-pass tiled kernel
-    (path 1, which still serves L > 512), K1f.bf16's recurrence on the
+    and K2.bf16's attention at L <= 64 on the block-a-unit kernel (path 0,
+    which still serves fewer units) and past L = 64 on the three-pass tiled
+    kernel (path 1, which still serves L > 512); K8.bf16 on the float32
+    HARD kernels by the float32 plan (which still serve D = 25 and longer
+    units); K1f.bf16's recurrence on the
     tiled form (which still serves H > 104) and its projection on
     gemm_bf16.cuh's 128-wide wgmma tiles (which still serve 3H > 304);
     K3.bf16's, K2.bf16's and K6b.bf16's products on those 128 x 128 wgmma
@@ -482,6 +489,7 @@ def parent_plans():
     attn, fwd, ffn, bwd = (ba._plan_attention_bf16, bg._plan_gru_fwd_bf16, bf._plan_ffn_bf16,
                            bg._plan_gru_bwd_bf16)
     block, proj = ba._plan_attn_block_bf16, bf._plan_proj_ln_bf16
+    masked = ba._plan_attention_masked_bf16
 
     def first_port(p, m, n, k, num_sms):
         """A product's plan off the persistent kernel: the 128 x 128 wgmma
@@ -498,12 +506,19 @@ def parent_plans():
     def proj_parent(rows, h, num_sms=_build.NUM_SMS, *addrs):
         return first_port(proj(rows, h, num_sms, *addrs), rows, h, h, num_sms)
 
-    def attn_parent(B, L, n_heads, dh):
-        p = attn(B, L, n_heads, dh)
+    def attn_parent(B, L, n_heads, dh, num_sms=_build.NUM_SMS):
+        p = attn(B, L, n_heads, dh, num_sms)
+        if p["path"] == 3:
+            p = {"path": 0, "units": p["units"], "qtiles": 1, "threads": 128, "smem": 0,
+                 "blocks": p["units"]}
         if p["path"] == 2:
-            p = {"path": 1, "units": p["units"], "qtiles": -(-L // ba._AB_ROWS),
-                 "threads": 128, "smem": 0}
+            qtiles = -(-L // ba._AB_ROWS)
+            p = {"path": 1, "units": p["units"], "qtiles": qtiles, "threads": 128, "smem": 0,
+                 "blocks": p["units"] * qtiles}
         return p
+
+    def masked_parent(*args):
+        return None
 
     def fwd_parent(T, B, in_dim, H, *args):
         p = fwd(T, B, in_dim, H, *args)
@@ -533,20 +548,47 @@ def parent_plans():
         return p
 
     caches = (ba._cached_plan_bf16, ba._cached_block_plan_bf16, bg._cached_plan_bf16,
-              bf._cached_ffn_plan_bf16, bg._cached_bwd_plan_bf16, bf._cached_proj_ln_plan_bf16)
+              bf._cached_ffn_plan_bf16, bg._cached_bwd_plan_bf16, bf._cached_proj_ln_plan_bf16,
+              ba._cached_plan_masked_bf16)
     (ba._plan_attention_bf16, bg._plan_gru_fwd_bf16, bf._plan_ffn_bf16,
-     bg._plan_gru_bwd_bf16, ba._plan_attn_block_bf16, bf._plan_proj_ln_bf16) = (
-        attn_parent, fwd_parent, ffn_parent, bwd_parent, block_parent, proj_parent)
+     bg._plan_gru_bwd_bf16, ba._plan_attn_block_bf16, bf._plan_proj_ln_bf16,
+     ba._plan_attention_masked_bf16) = (
+        attn_parent, fwd_parent, ffn_parent, bwd_parent, block_parent, proj_parent,
+        masked_parent)
     for cache in caches:
         cache.cache_clear()
     try:
         yield
     finally:
         (ba._plan_attention_bf16, bg._plan_gru_fwd_bf16, bf._plan_ffn_bf16,
-         bg._plan_gru_bwd_bf16, ba._plan_attn_block_bf16, bf._plan_proj_ln_bf16) = (
-            attn, fwd, ffn, bwd, block, proj)
+         bg._plan_gru_bwd_bf16, ba._plan_attn_block_bf16, bf._plan_proj_ln_bf16,
+         ba._plan_attention_masked_bf16) = (attn, fwd, ffn, bwd, block, proj, masked)
         for cache in caches:
             cache.cache_clear()
+
+
+@contextmanager
+def walk_off():
+    """The bf16 attention plans with the unit walk at no unit count:
+    K6a.bf16's and K2.bf16's attention at L <= 64 on the block-a-unit
+    kernel, the parent's path 0, and every other plan as it is."""
+    from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda as ba
+
+    old = ba._WALK_MIN_UNITS
+    ba._WALK_MIN_UNITS = 1 << 62
+    ba._cached_plan_bf16.cache_clear()
+    ba._cached_block_plan_bf16.cache_clear()
+    try:
+        yield
+    finally:
+        ba._WALK_MIN_UNITS = old
+        ba._cached_plan_bf16.cache_clear()
+        ba._cached_block_plan_bf16.cache_clear()
+
+
+def device_ms_of(split: dict, prefix: str) -> float:
+    """The device ms of a split's kernels whose names start with ``prefix``."""
+    return sum(v for k, v in split.items() if k.startswith(prefix))
 
 
 def parent_ms(fn, iters):
@@ -858,12 +900,30 @@ def check_bf16(dev, rng, t, record, failures):
                                    "o": cuda_ms(lambda: torch.matmul(x, aw[3]), 5)}
     print(f"  cuBLAS bf16, the two products alone: {extra['cublas_products_ms']}", flush=True)
     del w3
-    # both products on the persistent kernel, no weight transposed per call
+    # the attention stage on the unit walk, bit-identical to the block-a-unit
+    # kernel (the parent's plan) under both softmax rules
+    same = []
+    for softmax in ("float32", "bfloat16"):
+        kws = dict(kw, softmax_dtype=softmax)
+        walk = out if softmax == "float32" else bert_attn_cuda.attention_block_fused(
+            *a_args, **kws)
+        with walk_off():
+            same.append(torch.equal(walk, bert_attn_cuda.attention_block_fused(*a_args, **kws)))
+        del walk
+    extra.update(attention_ms=device_ms_of(extra["split_ms"], "attention_bf16"),
+                 attention_parent_ms=device_ms_of(extra["parent_split_ms"], "attention_bf16"),
+                 attention_bit_identical_to_parent=all(same))
+    print(f"  K2.bf16 B={B} L={L}: attention stage {extra['attention_ms']:.4f} ms of device "
+          f"time (parent {extra['attention_parent_ms']:.4f}); bit-identical to the "
+          f"block-a-unit kernel under the float32 / bf16 softmax {same}", flush=True)
+    # both products on the persistent kernel, no weight transposed per call;
+    # the attention on the unit walk
     plan = bert_attn_cuda._plan_attn_block_bf16(B, L, h, heads, _build.num_sms(dev),
                                                 x.data_ptr() % 16, aw[0].data_ptr() % 16,
                                                 aw[3].data_ptr() % 16)
-    off_path = (plan["qkv"]["wgmma"], plan["o"]["wgmma"]) != (2, 2) or any(
-        k.startswith("bf_transpose_b") for k in extra["split_ms"])
+    off_path = (plan["qkv"]["wgmma"], plan["o"]["wgmma"], plan["attention"]["path"]) != (
+        2, 2, 3) or any(k.startswith("bf_transpose_b") for k in extra["split_ms"]) or not all(
+        same) or not device_ms_of(extra["split_ms"], "attention_bf16_walk")
     judge("K2.bf16", f"B={B} L={L} h={h}", (out,),
           (bert_attn_cuda.attention_block_plain(*a_args, **kw),),
           (bert_attn_cuda.attention_block_fused(*a32, **kw),), (again,), fail=off_path,
@@ -1007,7 +1067,17 @@ def check_bf16_bert_variants(dev, rng, t, judge, aw, ab, g, b, h=768, ffn=3072, 
             again = bert_attn_cuda.dense_attention_blockdiag(q, k, v, mask)
             fn = lambda q=q, k=k, v=v, mask=mask: (   # noqa: E731
                 bert_attn_cuda.dense_attention_blockdiag(q, k, v, mask))
-            extra = {"parent_ms": parent_ms(fn, iters)} if L == 512 else {}
+            extra, fail = {"parent_ms": parent_ms(fn, iters)} if L == 512 else {}, False
+            if B == 4096:   # the unit walk, bit-identical to the parent's block-a-unit kernel
+                extra = parent_and_splits("K6a.bf16", shape, fn)
+                with walk_off():
+                    same = torch.equal(again, fn())
+                path = bert_attn_cuda._plan_attention_bf16(B, L, heads, h // heads,
+                                                           _build.num_sms(dev))["path"]
+                extra["bit_identical_to_parent"] = same
+                print(f"  K6a.bf16 {shape}: plan path {path} (3: the unit walk), bit-identical "
+                      f"to the block-a-unit kernel {same}", flush=True)
+                fail = path != 3 or not same
             judge("K6a.bf16", shape, (bert_attn_cuda.dense_attention_blockdiag(q, k, v, mask),),
                   (bert_attn_cuda.dense_attention_plain(q, k, v, mask),),
                   (bert_attn_cuda.dense_attention_blockdiag(q.float(), k.float(), v.float(),
@@ -1016,7 +1086,7 @@ def check_bf16_bert_variants(dev, rng, t, judge, aw, ab, g, b, h=768, ffn=3072, 
                   plain_fn=lambda: bert_attn_cuda.dense_attention_plain(q, k, v, mask),
                   library_fn=lambda: F.scaled_dot_product_attention(qt, kt, vt,
                                                                     attn_mask=key_bias),
-                  work=k6a_bf16_work(B, L, h), iters=iters, extra=extra)
+                  work=k6a_bf16_work(B, L, h), iters=iters, extra=extra, fail=fail)
             del q, k, v, qt, kt, vt, again
         del x
     rows = []
@@ -1657,6 +1727,7 @@ def check_flash(dev, rng, t, record, failures, dtype=torch.float32,
     import torch.nn.functional as F
 
     from multimodal_transformer_robustness_tpu_torch.ops import attention_cuda as ac
+    from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda
 
     bf16 = dtype == torch.bfloat16
     width, sfx = (2, ".bf16") if bf16 else (4, "")
@@ -1800,8 +1871,16 @@ def check_flash(dev, rng, t, record, failures, dtype=torch.float32,
                           q, k, v, attn_mask=eff[:, None, None, :] > 0, scale=1.0))
         if bf16:
             f32 = ac.flash_attention_masked(q.float(), k.float(), v.float(), mask)
+            walk = bert_attn_cuda._plan_attention_masked_bf16(B, L, L, heads, d, True) is not None
+            extra = {"unit_walk": walk}
+            if B == 4096:   # the parent's plan: the float32 HARD kernels on bf16 rows
+                extra["parent_ms"] = parent_ms(timing["kernel_fn"], 5)
+                print(f"  K8.bf16 {shape}: unit walk {walk}, parent "
+                      f"{extra['parent_ms']:.4f} ms", flush=True)
+                if not walk:
+                    failures.append(f"K8.bf16 {shape}: not on the unit walk")
             hold("K8", shape, (out,), (ref,), (ac.flash_attention_masked(q, k, v, mask),),
-                 timing, (f32,))
+                 timing, (f32,), extra)
             del f32
         else:
             record("K8", shape, out, ref, timing["kernel_fn"], timing["plain_fn"],
@@ -3353,10 +3432,14 @@ def trunk_block_phase(dev, R=4096, iters=5):
 def flash_masked_bf16(dev, B=8, L=32, heads=12, dh=64):
     """K8's path at bf16: flash_masked_call's library call on the same
     operands (its seed: ragged masks, one all-zero row) rounded to bf16,
-    one K8.bf16 launch; against the CPU's bf16 plain version
-    (FLASH_BF16_TOL of max |ref|) and the float32 kernel on the same
-    bf16-valued operands (a cosine of FLASH_BF16_COS)."""
+    one K8.bf16 launch, on the unit walk; against the CPU's bf16 plain
+    version (FLASH_BF16_TOL of max |ref|) and the float32 kernel on the
+    same bf16-valued operands (a cosine of FLASH_BF16_COS).  Beside it the
+    parent's plan (the float32 HARD kernels on bf16 rows), held the same
+    way and timed in turns, and a D = 25 cross shape (Tq=50, Tk=32, 8
+    heads: rows on 2-byte boundaries), which keeps that plan."""
     from multimodal_transformer_robustness_tpu_torch.ops import attention_cuda as ac
+    from multimodal_transformer_robustness_tpu_torch.ops import bert_attn_cuda
 
     rng = np.random.default_rng(12)
     q, k, v = (torch.from_numpy(rng.standard_normal((B, L, heads, dh), dtype=np.float32)).to(dev)
@@ -3374,14 +3457,37 @@ def flash_masked_bf16(dev, B=8, L=32, heads=12, dh=64):
     f32 = ac.flash_attention_masked(*(a.float() for a in args[:3]), mask)
     rel = errors(out.float().cpu(), cpu.float())[1]
     cos = cosine(out.float(), f32)
+    walk = bert_attn_cuda._plan_attention_masked_bf16(B, L, L, heads, dh, True) is not None
     ok = (launches == expected and out.dtype == torch.bfloat16 and rel <= FLASH_BF16_TOL
-          and cos >= FLASH_BF16_COS)
+          and cos >= FLASH_BF16_COS and walk)
     print(f"flash-masked-bf16 B={B} L={L} {heads}x{dh}: launches {launches} expected "
-          f"{expected}; vs CPU {rel:.3e} of max|ref| (tol {FLASH_BF16_TOL:g}); cosine vs "
-          f"the float32 kernel {cos:.7f} (min {FLASH_BF16_COS}) {'ok' if ok else 'FAIL'}",
-          flush=True)
-    if not ok:
-        raise RuntimeError("flash-masked-bf16: launch counts or values disagree")
+          f"{expected}; unit walk {walk}; vs CPU {rel:.3e} of max|ref| (tol "
+          f"{FLASH_BF16_TOL:g}); cosine vs the float32 kernel {cos:.7f} (min "
+          f"{FLASH_BF16_COS}) {'ok' if ok else 'FAIL'}", flush=True)
+    with parent_plans():
+        par = ac.flash_attention_masked(*args)
+    p_rel, p_cos = errors(par.float().cpu(), cpu.float())[1], cosine(par.float(), f32)
+    fn = lambda: ac.flash_attention_masked(*args)   # noqa: E731
+    turns = [parent_ms(fn, 20), cuda_ms(fn, 20), cuda_ms(fn, 20), parent_ms(fn, 20)]
+    print(f"  the parent's plan: vs CPU {p_rel:.3e}, cosine {p_cos:.7f}; ms in turns (parent, "
+          f"walk, walk, parent) {', '.join(f'{v:.4f}' for v in turns)}", flush=True)
+    ok = ok and p_rel <= FLASH_BF16_TOL and p_cos >= FLASH_BF16_COS
+    # D = 25 (the MOSEI heads' width): no walk, the float32 plan's kernels
+    q25 = torch.from_numpy(rng.standard_normal((B, 8, 50, 25), dtype=np.float32) / 5.0)
+    k25, v25 = (torch.from_numpy(rng.standard_normal((B, 8, 32, 25), dtype=np.float32))
+                for _ in range(2))
+    m25 = ragged_key_mask(rng, B, 32, dev)
+    a25 = tuple(a.to(dev, torch.bfloat16) for a in (q25, k25, v25))
+    o25 = ac.flash_attention_masked(*a25, m25)
+    rel25 = errors(o25.float().cpu(), ac.flash_attention_masked(
+        *(a.cpu() for a in a25), m25.cpu()).float())[1]
+    cos25 = cosine(o25.float(), ac.flash_attention_masked(*(a.float() for a in a25), m25))
+    walk25 = bert_attn_cuda._plan_attention_masked_bf16(B, 50, 32, 8, 25, True) is not None
+    ok25 = not walk25 and rel25 <= FLASH_BF16_TOL and cos25 >= FLASH_BF16_COS
+    print(f"  D=25 Tq=50 Tk=32 8 heads: unit walk {walk25} (the float32 plan's kernels); vs "
+          f"CPU {rel25:.3e}, cosine {cos25:.7f} {'ok' if ok25 else 'FAIL'}", flush=True)
+    if not (ok and ok25):
+        raise RuntimeError("flash-masked-bf16: launch counts, plans or values disagree")
     return launches
 
 

@@ -61,6 +61,7 @@ _SIGNATURES = {
     "mmtr_attention_fwd_bf16": (_I, [_P] * 5 + [_I] * 4 + [_P, _P]),
     "mmtr_attention_masked_fwd": (_I, [_P] * 5 + [_I] * 5 + [_P, _P]),
     "mmtr_attention_masked_fwd_bf16": (_I, [_P] * 5 + [_I] * 5 + [_P, _P]),
+    "mmtr_attention_masked_walk_bf16": (_I, [_P] * 5 + [_I] * 5 + [_P, _P]),
     "mmtr_proj_ln_fwd": (_I, [_P] * 9 + [_I] * 2 + [_F, _P, _P]),
     "mmtr_proj_ln_fwd_bf16": (_I, [_P] * 9 + [_I] * 2 + [_F, _P, _P]),
     "mmtr_qrows": (_I, [_P] * 3 + [_I] * 2 + [_P]),

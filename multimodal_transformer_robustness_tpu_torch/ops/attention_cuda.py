@@ -613,6 +613,18 @@ def flash_attention_masked_plain(q, k, v, key_mask) -> torch.Tensor:
     return (torch.einsum("bhqk,bhkd->bhqd", p, _up(v)) / l_safe).to(q.dtype)
 
 
+def split_bf16_3(p: torch.Tensor):
+    """float32 ``p`` as K8.bf16's unit walk splits it before P V on the bf16
+    tensor cores: ``(hi, mid, lo)``, hi = bf16(p), mid = bf16(p - hi), lo =
+    bf16(p - hi - mid), each difference exact in float32.  hi + mid + lo is
+    p exactly for |p| >= 2^-110; below, where lo's last bits fall under
+    bf16's smallest subnormal, within 2^-134 of it."""
+    hi = p.to(torch.bfloat16)
+    r = p - hi.float()
+    mid = r.to(torch.bfloat16)
+    return hi, mid, (r - mid.float()).to(torch.bfloat16)
+
+
 def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                            key_mask: torch.Tensor) -> torch.Tensor:
     """Attention with HF key-padding semantics (``key_mask [B, Tk]``, 1 =
@@ -623,8 +635,12 @@ def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     On the card one launch (a mask that is not int32 on the card is
     converted first), planned by ``bert_attn_cuda._plan_attention`` with
     ``Lk=Tk``: the unit path at Tq, Tk <= 64, else the tiled path.  float32
-    or bf16 operands (the bf16 instance: the float32 kernels' arithmetic on
-    the upcast rows, the output rounded once, by the same plan)."""
+    or bf16 operands.  bf16 at Tq, Tk <= 64 with D a multiple of 8 up to 64
+    and 16-byte aligned q, k, v takes the bf16 unit walk
+    (``bert_attn_cuda._plan_attention_masked_bf16``: S and P V on the bf16
+    tensor cores, p float32 as three bf16 terms); other bf16 shapes the
+    float32 kernels' arithmetic on the upcast rows by the float32 plan.
+    Either way the output is rounded once."""
     if q.device.type == "cpu":
         return flash_attention_masked_plain(q, k, v, key_mask)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
@@ -635,12 +651,20 @@ def flash_attention_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     km = key_mask.to(device=dev, dtype=torch.int32).contiguous()
     _build.require(km, "key_mask", (b, tk), dev, torch.int32)
     qp, kp, vp = q.data_ptr(), k.data_ptr(), v.data_ptr()
-    plan = bert_attn_cuda._cached_plan(b, tq, h, d, _build.num_sms(dev),
-                                       (qp | kp | vp) % 16 == 0, tk)
+    aligned, sms = (qp | kp | vp) % 16 == 0, _build.num_sms(dev)
     out = torch.empty_like(q)
     bf = q.dtype == torch.bfloat16
-    _launch("mmtr_attention_masked_fwd", bf, "flash attention masked kernel", qp, kp, vp,
-            km.data_ptr(), out.data_ptr(), b, h, tq, tk, d, plan[1], _build.stream_ptr(dev))
+    walk = bert_attn_cuda._cached_plan_masked_bf16(b, tq, tk, h, d, aligned, sms) if bf else None
+    if walk is not None:
+        err = _build.load_library().mmtr_attention_masked_walk_bf16(
+            qp, kp, vp, km.data_ptr(), out.data_ptr(), b, h, tq, tk, d, walk[1],
+            _build.stream_ptr(dev))
+        _build.check(err, "flash attention masked kernel (bf16 unit walk)")
+    else:
+        plan = bert_attn_cuda._cached_plan(b, tq, h, d, sms, aligned, tk)
+        _launch("mmtr_attention_masked_fwd", bf, "flash attention masked kernel", qp, kp, vp,
+                km.data_ptr(), out.data_ptr(), b, h, tq, tk, d, plan[1],
+                _build.stream_ptr(dev))
     flash_attention_masked.launches += 1
     flash_attention_masked.launches_bf16 += bf
     return out

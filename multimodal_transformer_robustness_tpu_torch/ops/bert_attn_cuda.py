@@ -32,7 +32,8 @@ sum / divide tail in bf16, as ``ATTN_SOFTMAX`` selects in the JAX package.
 K6a has one too (``mmtr_attention_fwd_bf16``), K2's bf16 attention stage
 alone under the float32 softmax: bf16 q / k / v in, bf16 out.  Both take
 every L, by :func:`_plan_attention_bf16` (a unit's queries and keys held
-at once up to L = 64, the training shape being L = 32; the whole row's
+at once up to L = 64, the training shape being L = 32: on the unit walk
+where the units fill the card, a block a unit on fewer; the whole row's
 logits formed once and held in a block's registers up to L = 512, the
 serving buckets; 64-key tiles in three passes beyond), and dh <= 64 with
 dh and h multiples of 8.
@@ -227,15 +228,50 @@ def attention_block_plain(x, key_mask, wq_t, qb, wk_t, kb, wv_t, vb, wo_t, ob,
 # hold on the row path; query rows a block and keys a tile on the tiled path
 _AB_ROWS, _AB_LD = 64, 72
 _AR_QROWS, _AR_KEYS, _AR_MAX_KW = 32, 128, 4
-_AB_PLAN_KEYS = ("path", "units", "qtiles", "threads", "smem")
+_AB_PLAN_KEYS = ("path", "units", "qtiles", "threads", "smem", "blocks")
+# the unit walk (attention_bf16_walk_kernel): warps a block, ring slots a
+# warp, blocks an SM (its launch bound); the units from which K6a.bf16 and
+# K2.bf16 take it at L <= 64: fewer keep the block-a-unit kernel, which ran
+# faster up to 192 units (B=16, 12 heads) and slower from 768 (B=64) in
+# tools/k6a_k8_bf16_split.py --small on the H100 (PERF.md)
+_AW_WARPS, _AW_STAGES, _AW_BLOCKS_PER_SM = 4, 2, 2
+_WALK_MIN_UNITS = 768
 
 
-def _plan_attention_bf16(B: int, L: int, n_heads: int, dh: int) -> dict:
+def _walk_slot_bytes(Lq: int, Lk: int) -> int:
+    """A walk ring slot: q [Lq rounded up to 32][72], k and v [Lk rounded
+    up to 16][72] bf16, the key bias row [64] float32."""
+    return ((_build.round_up(Lq, 32) + 2 * _build.round_up(Lk, 16)) * _AB_LD * 2
+            + 4 * _AB_ROWS)
+
+
+def _plan_walk(units: int, Lq: int, Lk: int, num_sms: int = _build.NUM_SMS) -> dict:
+    """The unit walk's plan (path 3, in the bf16 attention plan's keys):
+    ``min(4, units)`` warps a block, each with a two-slot ring, at most two
+    blocks an SM as shared memory allows (Lq = Lk = 32: 112,640 bytes a
+    block, two an SM; 64: 223,232, one), and a persistent grid of at most
+    that many blocks an SM, no block without a unit."""
+    warps = min(_AW_WARPS, units)
+    smem = warps * _AW_STAGES * _walk_slot_bytes(Lq, Lk)
+    per_sm = min(_AW_BLOCKS_PER_SM, _build.SM_SMEM // (smem + 1024))
+    blocks = min(-(-units // warps), per_sm * num_sms)
+    return {"path": 3, "units": units, "qtiles": 1, "threads": 32 * warps, "smem": smem,
+            "blocks": blocks}
+
+
+def _plan_attention_bf16(B: int, L: int, n_heads: int, dh: int,
+                         num_sms: int = _build.NUM_SMS) -> dict:
     """The bf16 attention kernels' launch plan (K6a.bf16 and K2.bf16's
-    attention stage), a grid of (units, query tiles):
+    attention stage): path, units, query tiles a unit, threads a block,
+    dynamic shared memory and blocks launched:
 
-    * path 0 at L <= 64 (``attention_bf16_kernel``): a block a unit, every
-      query and key held at once, 128 threads, static shared memory;
+    * path 3 at L <= 64 on at least ``_WALK_MIN_UNITS`` units (the training
+      rows: B=4096, 12 heads): the unit walk (``attention_bf16_walk_kernel``,
+      :func:`_plan_walk`), a persistent grid whose warps each own a unit,
+      the next unit's rows in flight;
+    * path 0 at L <= 64 on fewer units (serving, evaluation batches):
+      ``attention_bf16_kernel``, a block a unit, every query and key held at
+      once, 128 threads, static shared memory;
     * path 2 at 64 < L <= 512 (``attention_bf16_row_kernel``): a block per
       (unit, 32 queries) of 64 * KW threads, KW = ceil(L / 128) key groups
       of 128 keys by two 16-row groups, S for the whole row in registers
@@ -257,22 +293,49 @@ def _plan_attention_bf16(B: int, L: int, n_heads: int, dh: int) -> dict:
                                   "Queue 2, 'bf16')")
     units = B * n_heads
     if L <= _AB_ROWS:
-        return {"path": 0, "units": units, "qtiles": 1, "threads": 128, "smem": 0}
+        if units >= _WALK_MIN_UNITS:
+            return _plan_walk(units, L, L, num_sms)
+        return {"path": 0, "units": units, "qtiles": 1, "threads": 128, "smem": 0,
+                "blocks": units}
     if L > _AR_KEYS * _AR_MAX_KW:
-        return {"path": 1, "units": units, "qtiles": -(-L // _AB_ROWS), "threads": 128,
-                "smem": 0}
+        qtiles = -(-L // _AB_ROWS)
+        return {"path": 1, "units": units, "qtiles": qtiles, "threads": 128, "smem": 0,
+                "blocks": units * qtiles}
     kw, kp, dp = -(-L // _AR_KEYS), _build.round_up(L, 16), _build.round_up(dh, 16)
     kv = 2 * kp * _AB_LD
     assert 4 * (kw - 1) * _AR_QROWS * dp <= kv     # the partial outputs fit K / V's buffer
-    return {"path": 2, "units": units, "qtiles": -(-L // _AR_QROWS), "threads": 64 * kw,
-            "smem": 2 * _AR_QROWS * _AB_LD + kv + 4 * 2 * kw * _AR_QROWS + 4 * kw * _AR_KEYS}
+    qtiles = -(-L // _AR_QROWS)
+    return {"path": 2, "units": units, "qtiles": qtiles, "threads": 64 * kw,
+            "smem": 2 * _AR_QROWS * _AB_LD + kv + 4 * 2 * kw * _AR_QROWS + 4 * kw * _AR_KEYS,
+            "blocks": units * qtiles}
 
 
 @functools.lru_cache(maxsize=None)
-def _cached_plan_bf16(B, L, n_heads, dh):
+def _cached_plan_bf16(B, L, n_heads, dh, num_sms=_build.NUM_SMS):
     """The plan as csrc/bert_attn.cu reads it: (C int array, its address)."""
-    p = _plan_attention_bf16(B, L, n_heads, dh)
+    p = _plan_attention_bf16(B, L, n_heads, dh, num_sms)
     return _build.host_ints([p[k] for k in _AB_PLAN_KEYS])
+
+
+def _plan_attention_masked_bf16(B: int, Tq: int, Tk: int, H: int, D: int, aligned: bool,
+                                num_sms: int = _build.NUM_SMS) -> dict | None:
+    """K8.bf16's plan (``attention_cuda.flash_attention_masked`` on bf16
+    operands): the unit walk (:func:`_plan_walk`, its RULE 0: S and P V on
+    the bf16 tensor cores, p never rounded) where Tq, Tk <= 64, D is a
+    multiple of 8 up to 64 and q, k, v are 16-byte ``aligned``; None
+    elsewhere, where the float32 HARD kernels run the bf16 rows by the
+    float32 plan (:func:`_plan_attention` with ``Lk=Tk``)."""
+    if max(Tq, Tk) > _AB_ROWS or D % 8 or D > _AB_ROWS or not aligned:
+        return None
+    return _plan_walk(B * H, Tq, Tk, num_sms)
+
+
+@functools.lru_cache(maxsize=None)
+def _cached_plan_masked_bf16(B, Tq, Tk, H, D, aligned, num_sms=_build.NUM_SMS):
+    """K8.bf16's walk plan as csrc/bert_attn.cu reads it (C int array, its
+    address), or None (the float32 plan)."""
+    p = _plan_attention_masked_bf16(B, Tq, Tk, H, D, aligned, num_sms)
+    return None if p is None else _build.host_ints([p[k] for k in _AB_PLAN_KEYS])
 
 
 def _plan_attn_block_bf16(B: int, L: int, h: int, n_heads: int,
@@ -291,7 +354,7 @@ def _plan_attn_block_bf16(B: int, L: int, h: int, n_heads: int,
     if h % 8:
         raise NotImplementedError(f"the bf16 attention block at h={h}: the bf16 instance "
                                   "takes h a multiple of 8 (ROADMAP Queue 2, 'bf16')")
-    attention = _plan_attention_bf16(B, L, n_heads, h // n_heads)
+    attention = _plan_attention_bf16(B, L, n_heads, h // n_heads, num_sms)
     rows = B * L
     qkv = gemm_tc.plan_bf16(rows, 3 * h, h, gemm_tc.bf16_copy_width((h,), (x_addr,)),
                             gemm_tc.bf16_copy_width((h,), (w_addr,)), num_sms,
@@ -305,8 +368,8 @@ def _plan_attn_block_bf16(B: int, L: int, h: int, n_heads: int,
 def _cached_block_plan_bf16(B, L, h, n_heads, num_sms, x_addr, w_addr, wo_addr):
     """K2's bf16 plan as csrc/bert_attn.cu reads it: (C int array, its
     address, the floats of split planes): the two products' BfPlans, the
-    attention plan, then the two persistent grids (0 off the persistent
-    kernel)."""
+    attention plan (six ints), then the two persistent grids (0 off the
+    persistent kernel)."""
     p = _plan_attn_block_bf16(B, L, h, n_heads, num_sms, x_addr, w_addr, wo_addr)
     ints = ([p[k][key] for k in ("qkv", "o") for key in gemm_tc.BF_PLAN_KEYS]
             + [p["attention"][key] for key in _AB_PLAN_KEYS]
@@ -422,7 +485,7 @@ def _dense_attention_bf16(q, k, v, mask) -> torch.Tensor:
     if (qp | kp | vp) % 16:
         raise ValueError("the bf16 attention reads q, k, v in 16-byte copies: their data "
                          "must be 16-byte aligned")
-    plan = _cached_plan_bf16(b, L, n_heads, dh)
+    plan = _cached_plan_bf16(b, L, n_heads, dh, _build.num_sms(dev))
     out = torch.empty(b, L, n_heads * dh, dtype=torch.bfloat16, device=dev)
     err = _build.load_library().mmtr_attention_fwd_bf16(
         qp, kp, vp, mask.data_ptr(), out.data_ptr(), b, L, n_heads * dh, n_heads, plan[1],

@@ -833,6 +833,15 @@ def test_gru_dir_bwd_bf16_kernel_matches_plain(cuda, B, T, I, H, need_dx):
             assert torch.equal(a, b)
 
 
+def _path(units, L):
+    """The bf16 attention's path (``_plan_attention_bf16``): at L <= 64 the
+    unit walk (3) from ``_WALK_MIN_UNITS`` units, else a unit a block (0);
+    the row kernel (2) to L = 512; the three-pass tiled kernel (1) beyond."""
+    if L <= 64:
+        return 3 if units >= bert_attn_cuda._WALK_MIN_UNITS else 0
+    return 2 if L <= 512 else 1
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("softmax", ["float32", "bfloat16"])
 @pytest.mark.parametrize("B,L,heads,h", [(1, 8, 12, 768), (3, 13, 2, 16), (300, 31, 12, 768),
@@ -841,11 +850,12 @@ def test_gru_dir_bwd_bf16_kernel_matches_plain(cuda, B, T, I, H, need_dx):
                                          (3, 129, 12, 768), (2, 300, 2, 16), (1, 511, 12, 768),
                                          (2, 513, 12, 768), (2, 600, 2, 16)])
 def test_attention_block_bf16_kernel_matches_plain(cuda, B, L, heads, h, softmax):
-    """K2's bf16 instance, both softmax tails, on the three attention paths
-    (a unit a block at L <= 64; the whole row's logits in a block's
-    registers to L = 512, one to four key groups; 64-key tiles in three
-    passes beyond), head_dim 64 and 8, item 0 fully masked."""
-    path = 0 if L <= 64 else (2 if L <= 512 else 1)
+    """K2's bf16 instance, both softmax tails, on the four attention paths
+    (at L <= 64 a unit a block, or the unit walk where the units reach
+    ``_WALK_MIN_UNITS``; the whole row's logits in a block's registers to L
+    = 512, one to four key groups; 64-key tiles in three passes beyond),
+    head_dim 64 and 8, item 0 fully masked."""
+    path = _path(B * heads, L)
     assert bert_attn_cuda._plan_attention_bf16(B, L, heads, h // heads)["path"] == path
     rng = np.random.default_rng(23)
     args = [a.to(cuda) for a in attn_torch_args(*attn_inputs(rng, B, L, h))]
@@ -867,9 +877,10 @@ def test_attention_block_bf16_kernel_matches_plain(cuda, B, L, heads, h, softmax
                                          (2, 129, 12, 768), (2, 300, 2, 16), (1, 511, 12, 768),
                                          (2, 513, 12, 768), (1, 600, 2, 16)])
 def test_dense_attention_bf16_kernel_matches_plain(cuda, B, L, heads, h):
-    """K6a's bf16 instance on the three attention paths (the unit, row and
-    three-pass tiled kernels), head_dim 64 and 8, one item fully masked."""
-    path = 0 if L <= 64 else (2 if L <= 512 else 1)
+    """K6a's bf16 instance on the attention paths (the block-a-unit, row
+    and three-pass tiled kernels), head_dim 64 and 8, one item fully
+    masked."""
+    path = _path(B * heads, L)
     assert bert_attn_cuda._plan_attention_bf16(B, L, heads, h // heads)["path"] == path
     rng = np.random.default_rng(27)
     *_, mask = attn_inputs(rng, B, L, h)
@@ -884,6 +895,133 @@ def test_dense_attention_bf16_kernel_matches_plain(cuda, B, L, heads, h):
     assert out.dtype == torch.bfloat16 and out.shape == (B, L, h)
     bf16_close(out, bert_attn_cuda.dense_attention_plain(q, k, v, mask), f"K6a bf16 {B} {L}")
     assert torch.equal(out, again)
+
+
+def _with_walk(walk: bool, fn):
+    """``fn()`` under the bf16 attention plans with the unit walk at every
+    unit count (``walk``) or at none (the block-a-unit kernel, path 0),
+    synchronized."""
+    caches = (bert_attn_cuda._cached_plan_bf16, bert_attn_cuda._cached_block_plan_bf16)
+    old = bert_attn_cuda._WALK_MIN_UNITS
+    bert_attn_cuda._WALK_MIN_UNITS = 1 if walk else 1 << 40
+    for c in caches:
+        c.cache_clear()
+    try:
+        out = fn()
+        torch.cuda.synchronize()
+        return out
+    finally:
+        bert_attn_cuda._WALK_MIN_UNITS = old
+        for c in caches:
+            c.cache_clear()
+
+
+def _walk_mask(rng, B, L):
+    """Padded keys (a random prefix kept a row) and item 0 fully masked."""
+    mask = np.ones((B, L), np.float32)
+    for i in range(B):
+        mask[i, rng.integers(1, L + 1):] = 0
+    mask[0] = 0
+    return mask
+
+
+_WALK_L = [1, 8, 17, 31, 32, 33, 48, 64]
+_WALK_B = [1, 3, 300, 4096]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("heads,h", [(12, 768), (2, 16)])
+@pytest.mark.parametrize("L", _WALK_L)
+@pytest.mark.parametrize("B", _WALK_B)
+def test_dense_attention_bf16_walk_is_bit_identical(cuda, B, L, heads, h):
+    """K6a.bf16 on the unit walk gives the block-a-unit kernel's bits (the
+    same MMA sequence and sums a row), reruns its own bits, and holds to
+    its bf16 plain version; head_dim 64 and 8 (1 / sqrt(dh) exact and not),
+    padded keys, item 0 fully masked."""
+    rng = np.random.default_rng(31)
+    q, k, v = (_bf(torch.from_numpy(rng.standard_normal((B, L, heads, h // heads))
+                                    .astype(np.float32)), cuda) for _ in range(3))
+    mask = torch.from_numpy(_walk_mask(rng, B, L)).to(cuda)
+
+    def fn():
+        return bert_attn_cuda.dense_attention_blockdiag(q, k, v, mask)
+
+    assert _with_walk(True, lambda: bert_attn_cuda._plan_attention_bf16(
+        B, L, heads, h // heads)["path"]) == 3
+    walk, again, unit = _with_walk(True, fn), _with_walk(True, fn), _with_walk(False, fn)
+    assert torch.equal(walk, unit) and torch.equal(walk, again)
+    bf16_close(walk, bert_attn_cuda.dense_attention_plain(q, k, v, mask), f"K6a walk {B} {L}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("softmax", ["float32", "bfloat16"])
+@pytest.mark.parametrize("L", _WALK_L)
+@pytest.mark.parametrize("B", _WALK_B)
+def test_attention_block_bf16_walk_is_bit_identical(cuda, B, L, softmax):
+    """K2.bf16 with its attention stage on the unit walk gives the
+    block-a-unit kernel's bits under both softmax rules, reruns its own,
+    and holds to its bf16 plain version (HF-scale weights, padded keys,
+    item 0 fully masked)."""
+    rng = np.random.default_rng(32)
+    h, heads = 768, 12
+    x = _bf(torch.from_numpy(rng.standard_normal((B, L, h)).astype(np.float32)), cuda)
+    w = [_bf(torch.from_numpy((rng.standard_normal((h, h)) * 0.02).astype(np.float32)), cuda)
+         for _ in range(4)]
+    b = [_bf(torch.from_numpy((rng.standard_normal(h) * 0.02).astype(np.float32)), cuda)
+         for _ in range(4)]
+    w[:3], b[:3] = torch.stack(w[:3]).unbind(0), torch.cat(b[:3]).split(h)
+    g = _bf(torch.from_numpy((1.0 + 0.1 * rng.standard_normal(h)).astype(np.float32)), cuda)
+    beta = _bf(torch.from_numpy((0.1 * rng.standard_normal(h)).astype(np.float32)), cuda)
+    mask = torch.from_numpy(_walk_mask(rng, B, L)).to(cuda)
+    args = (x, mask, w[0], b[0], w[1], b[1], w[2], b[2], w[3], b[3], g, beta)
+    kw = dict(n_heads=heads, eps=1e-12, softmax_dtype=softmax)
+
+    def fn():
+        return bert_attn_cuda.attention_block_fused(*args, **kw)
+
+    walk, again, unit = _with_walk(True, fn), _with_walk(True, fn), _with_walk(False, fn)
+    assert torch.equal(walk, unit) and torch.equal(walk, again)
+    bf16_close(walk, bert_attn_cuda.attention_block_plain(*args, **kw),
+               f"K2 walk {B} {L} {softmax}")
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("b,h,tq,tk,d", [(4096, 12, 32, 32, 64), (4096, 12, 50, 32, 64),
+                                         (3, 12, 32, 32, 64), (5, 12, 64, 64, 64),
+                                         (2, 12, 33, 64, 64), (2, 3, 1, 17, 8),
+                                         (3, 2, 9, 40, 24), (4, 12, 50, 32, 25),
+                                         (3, 12, 32, 32, 25)])
+def test_flash_masked_bf16_walk_matches_plain(cuda, b, h, tq, tk, d):
+    """K8.bf16 on the unit walk (D a multiple of 8: S and P V on the bf16
+    tensor cores, p as three bf16 terms) and, at D = 25, on the float32
+    plan's kernels: 1e-2 of max |ref| against the bf16 plain version, a
+    cosine of 0.99999 against the float32 kernel, reruns bit-identical, one
+    launch a call; row 0's all-zero mask attends to every key, as the plain
+    version's rewrite says."""
+    walk = d % 8 == 0
+    assert (bert_attn_cuda._plan_attention_masked_bf16(b, tq, tk, h, d, True) is not None) == walk
+    rng = np.random.default_rng(33)
+    q = _bf(torch.from_numpy((rng.standard_normal((b, h, tq, d)) / np.sqrt(d))
+                             .astype(np.float32)), cuda)
+    k, v = (_bf(torch.from_numpy(rng.standard_normal((b, h, tk, d)).astype(np.float32)), cuda)
+            for _ in range(2))
+    mask = np.ones((b, tk), np.int32)
+    for i in range(b):
+        mask[i, rng.integers(1, tk + 1):] = 0
+    mask[0] = 0
+    mask = torch.from_numpy(mask).to(cuda)
+    fn = attention_cuda.flash_attention_masked
+    n0 = fn.launches_bf16
+    out, again = fn(q, k, v, mask), fn(q, k, v, mask)
+    torch.cuda.synchronize()
+    assert fn.launches_bf16 == n0 + 2 and out.dtype == torch.bfloat16
+    assert torch.equal(out, again)
+    ref = attention_cuda.flash_attention_masked_plain(q, k, v, mask).float()
+    assert (out.float() - ref).abs().max().item() <= 1e-2 * ref.abs().max().item()
+    all_keys = attention_cuda.flash_attention_masked_plain(
+        q[:1], k[:1], v[:1], torch.ones_like(mask[:1])).float()
+    assert (out[:1].float() - all_keys).abs().max().item() <= 1e-2 * all_keys.abs().max().item()
+    assert _cos(out, fn(q.float(), k.float(), v.float(), mask)) >= 0.99999
 
 
 @pytest.mark.gpu
@@ -1262,9 +1400,10 @@ def _cos(a, b):
                                      (2, 2, 100, 25), (3, 2, (9, 40), 25),
                                      (3, 12, (64, 33), 64), (2, 12, (1, 129), 64)])
 def test_flash_masked_bf16_kernel_matches_plain(cuda, b, h, t, d):
-    """K8's bf16 instance on both of K6a's kernels (D = 25: rows on 2-byte
-    boundaries, staged element by element; D = 64: four at a time), ragged
-    masks and an all-zero row."""
+    """K8's bf16 instance (D = 25: the float32 plan's kernels, rows on
+    2-byte boundaries staged element by element; D = 64 at Tq, Tk <= 64:
+    the bf16 unit walk; longer: the float32 tiled kernel, four elements a
+    read), ragged masks and an all-zero row."""
     tq, tk = t if isinstance(t, tuple) else (t, t)
     rng = np.random.default_rng(21)
     q, k, v = (_bf(torch.from_numpy(rng.standard_normal(s).astype(np.float32)), cuda)

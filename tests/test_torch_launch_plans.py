@@ -1289,7 +1289,8 @@ def test_bf16_gru_bwd_plan_layout():
 def test_bf16_attn_block_plan_refuses_long_units():
     """The bf16 attention stage reads heads in 16-byte copies and holds 64
     rows of a head's columns: dh > 64, or dh or h not a multiple of 8
-    raise; every L runs, L <= 64 a unit a block (path 0), 64 < L <= 512 in
+    raise; every L runs, L <= 64 on few units a unit a block (path 0; the
+    unit walk, path 3, takes the training rows), 64 < L <= 512 in
     query tiles of 32 with the row's logits in registers (path 2; L = 65
     three tiles, the B=1 L=512 serving bucket 16 a head, 256 threads),
     longer units in query tiles of 64 over three passes (path 1);
@@ -1297,14 +1298,14 @@ def test_bf16_attn_block_plan_refuses_long_units():
     (q, k, v rows of 72 bf16 on path 0; q and a ring of two k and v tiles
     on path 1) stays within a block's 48 KB."""
     assert bert_attn_cuda._plan_attn_block_bf16(1, 64, 768, 12)["attention"] == {
-        "path": 0, "units": 12, "qtiles": 1, "threads": 128, "smem": 0}
+        "path": 0, "units": 12, "qtiles": 1, "threads": 128, "smem": 0, "blocks": 12}
     bert_attn_cuda._plan_attn_block_bf16(3, 13, 16, 2)
     assert bert_attn_cuda._plan_attn_block_bf16(1, 65, 768, 12)["attention"] == {
-        "path": 2, "units": 12, "qtiles": 3, "threads": 64, "smem": 16896}
+        "path": 2, "units": 12, "qtiles": 3, "threads": 64, "smem": 16896, "blocks": 36}
     assert bert_attn_cuda._plan_attention_bf16(1, 512, 12, 64) == {
-        "path": 2, "units": 12, "qtiles": 16, "threads": 256, "smem": 81408}
+        "path": 2, "units": 12, "qtiles": 16, "threads": 256, "smem": 81408, "blocks": 192}
     assert bert_attn_cuda._plan_attention_bf16(1, 513, 12, 64) == {
-        "path": 1, "units": 12, "qtiles": 9, "threads": 128, "smem": 0}
+        "path": 1, "units": 12, "qtiles": 9, "threads": 128, "smem": 0, "blocks": 108}
     assert bert_attn_cuda._plan_attention_bf16(4096, 32, 12, 64)["units"] == 4096 * 12
     for B, L, h, heads in ((1, 8, 768, 6), (1, 8, 60, 5), (1, 8, 36, 3), (1, 100, 36, 3)):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -1326,7 +1327,8 @@ AB_LD, AR_QROWS, AR_KEYS = 72, 32, 128
                                511, 512, 513, 600, 1024])
 @pytest.mark.parametrize("dh", [8, 16, 64])
 def test_bf16_attention_plan_paths_and_shared_memory(L, dh):
-    """The bf16 attention's path by L (0 at L <= 64, 2 to L = 512, the
+    """The bf16 attention's path by L at 24 units (0 at L <= 64, the
+    block-a-unit kernel below the unit walk's units, 2 to L = 512, the
     logits' reach in a block's registers, 1 past it), a grid of (units,
     query tiles) whose tiles cover every query row once, path 2's 64 threads
     a key group of 128 keys, and its dynamic shared memory within a block's
@@ -1338,6 +1340,7 @@ def test_bf16_attention_plan_paths_and_shared_memory(L, dh):
     assert p["units"] == 2 * heads
     rows = {0: 64, 1: 64, 2: AR_QROWS}[p["path"]]
     assert (p["qtiles"] - 1) * rows < L <= p["qtiles"] * rows
+    assert p["blocks"] == p["units"] * p["qtiles"]
     if p["path"] != 2:
         assert p["threads"] == 128 and p["smem"] == 0
         return
@@ -1352,7 +1355,7 @@ def test_bf16_attention_plan_paths_and_shared_memory(L, dh):
 def test_bf16_attention_fills_the_card_at_the_longest_bucket():
     """B=1 L=512, 12 heads of 64 (the serving bucket where the three-pass
     kernel ran 96 blocks of 4 warps): at least 132 blocks, all resident at
-    once at two blocks an SM; K2.bf16's plan hands the same five ints to
+    once at two blocks an SM; K2.bf16's plan hands the same six ints to
     its attention stage after the two products' ten (the two persistent
     grids follow them)."""
     p = bert_attn_cuda._plan_attention_bf16(1, 512, 12, 64)
@@ -1360,7 +1363,7 @@ def test_bf16_attention_fills_the_card_at_the_longest_bucket():
     assert blocks >= SMS and blocks <= 2 * SMS
     ints, _, _ = bert_attn_cuda._cached_block_plan_bf16(1, 512, 768, 12, SMS, 0, 0, 0)
     assert len(ints) == 2 * len(gemm_tc.BF_PLAN_KEYS) + len(bert_attn_cuda._AB_PLAN_KEYS) + 2
-    assert list(ints)[10:15] == [p[k] for k in bert_attn_cuda._AB_PLAN_KEYS]
+    assert list(ints)[10:16] == [p[k] for k in bert_attn_cuda._AB_PLAN_KEYS]
 
 
 # csrc/gru_rec.cuh's mma form: W_hh [3][8 nt][120] bf16, b_hn [8 nt] float32,
@@ -1442,7 +1445,7 @@ def test_bf16_attn_block_plan_keeps_the_first_port_off_the_training_rows(B, L, h
     assert blk["o"] == _first_port_bf16(rows, h, h) == bert_ffn_cuda._plan_proj_ln_bf16(rows, h)
     assert blk["partial"] == max(blk["qkv"]["partial"], blk["o"]["partial"])
     ints, _, partial = bert_attn_cuda._cached_block_plan_bf16(B, L, h, heads, SMS, 0, 0, 0)
-    assert list(ints)[15:] == [0, 0] and partial == blk["partial"]
+    assert list(ints)[16:] == [0, 0] and partial == blk["partial"]
     ints, _, _ = bert_ffn_cuda._cached_proj_ln_plan_bf16(rows, h, SMS, 0, 0, 0)
     assert list(ints) == [blk["o"][k] for k in gemm_tc.BF_PLAN_KEYS] + [0]
 
@@ -1470,8 +1473,8 @@ def test_bf16_attn_block_plan_takes_the_persistent_kernel_by_rows(B, L):
         else:
             assert p == _first_port_bf16(rows, n, h)
     ints, _, _ = bert_attn_cuda._cached_block_plan_bf16(B, L, h, 12, SMS, 0, 0, 0)
-    assert len(ints) == 17
-    assert list(ints)[15:] == [blk[k].get("grid", 0) for k in ("qkv", "o")]
+    assert len(ints) == 18
+    assert list(ints)[16:] == [blk[k].get("grid", 0) for k in ("qkv", "o")]
     ints, _, partial = bert_ffn_cuda._cached_proj_ln_plan_bf16(rows, h, SMS, 0, 0, 0)
     assert list(ints) == [blk["o"][k] for k in gemm_tc.BF_PLAN_KEYS] + [blk["o"].get("grid", 0)]
     assert partial == blk["o"]["partial"]

@@ -1,7 +1,7 @@
 """The text edits of the kernel timing tools against today's ``csrc/``, on
 the CPU: each variant of ``tools/k5b_trials.py``,
-``tools/k3_bf16_trials.py``, ``tools/k1b_bf16_trials.py`` and
-``tools/k2_bf16_trials.py`` applies edits
+``tools/k3_bf16_trials.py``, ``tools/k1b_bf16_trials.py``,
+``tools/k2_bf16_trials.py`` and ``tools/attn_walk_bf16_trials.py`` applies edits
 that must match a stated number of times, and the tools stop before
 building where one does not.  These tests
 apply every variant's edits to the port's sources, as the tools do before
@@ -24,7 +24,7 @@ def _tool(name: str):
 
 
 _TOOLS = {name: _tool(name) for name in ("k5b_trials", "k3_bf16_trials", "k1b_bf16_trials",
-                                         "k2_bf16_trials")}
+                                         "k2_bf16_trials", "attn_walk_bf16_trials")}
 
 
 @pytest.mark.parametrize("tool,variant", [(t, v) for t, mod in _TOOLS.items()

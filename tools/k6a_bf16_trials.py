@@ -46,7 +46,8 @@ ATT = "bert_attn.cu"
 VARIANTS = {
     "base": ([], False),
     "parent": ([], True),
-    "no_v": ([(ATT, r"  ar_stage\(kv, V \+ base, L, kp, h, dh, dp\);\n", "", 1)], False),
+    "no_v": ([(ATT, r"  rows16\(kv, V \+ base, L, kp, h, dh, dp, threadIdx.x, blockDim.x\);\n",
+               "", 1)], False),
     "no_scores": ([(ATT, r"  ab_scores\(s\[([01])\], qs, kv", r"  if (L < 0) ab_scores(s[\1], qs, kv",
                     2)], False),
     "no_softmax": ([(ATT, r"  ab_exp<SM>\(s\[([01])\], mx\);", r"  (void)mx;", 2)], False),
@@ -135,8 +136,9 @@ def main(argv=None) -> int:
     for name in ["base"] + [n for n in names if n != "base"] + ["base"]:
         lib, report = libs[name]
         if VARIANTS[name][1]:
-            bert_attn_cuda._plan_attention_bf16 = lambda B, n, hd, d: {
-                "path": 1, "units": B * hd, "qtiles": -(-n // 64), "threads": 128, "smem": 0}
+            bert_attn_cuda._plan_attention_bf16 = lambda B, n, hd, d, num_sms=0: {
+                "path": 1, "units": B * hd, "qtiles": -(-n // 64), "threads": 128, "smem": 0,
+                "blocks": B * hd * -(-n // 64)}
         bert_attn_cuda._cached_plan_bf16.cache_clear()
         _build.load_library = lambda lib=lib: _Lib(lib)
         try:
